@@ -1,0 +1,509 @@
+// Scene-factored train decoder (kernel K2) for NVIDIA Hopper (sm_90a):
+// forward and backward of one trunk.
+//
+// Replaces alignsdf_tpu/ops/decoder_train_kernel.py:fused_branch_scene, its
+// forward _fwd_kernel_scene (built in _fused_scene_fwd) and its backward
+// _bwd_kernel_scene (built in _fused_scene_bwd).  The latent is folded into
+// per-scene bias tables outside (ops/train_plan.py), so layer l computes
+//   acc = a_{l-1} @ W_l (if W) + emb @ X_l (if X) + b_l[row / nps] or b_l
+// then ReLU and the hash dropout gate on hidden layers, tanh on the last.
+//
+// What bounds it: arithmetic.  At the flagship width (hidden 512 -> 250 ->
+// 512 -> 512 -> 1, 6 embedding columns) a trunk costs 0.525 M MAC per point
+// forward and twice that backward (dx and dW), against ~7 KB of residuals
+// written and read per point.  So both directions are bound by the card's
+// float32 FMA rate (TF32 stays off so results match the plain version to
+// float32 rounding).  wgmma, TMA and bf16 are later work.
+//
+// Forward (train_fwd_kernel): K1's design.  A block of 256 threads owns 32
+// points; their activations stay in shared memory as [feature][point]
+// ping-pong buffers, weights stream from L2 through a 32 x 256 shared tile
+// (prefetched into registers), each thread holds an 8 x 4 (feature x
+// point) tile of accumulators.  The epilogue picks each point's scene bias,
+// applies ReLU and the gate, and writes the gated activation to device
+// memory as the residual, feature-major (out_pad, M) so a warp's stores are
+// contiguous.
+//
+// The gate is bit for bit the TPU kernel's _dropout_gate: a murmur3-style
+// finalizer of (seed, layer, global row, lane) in uint32 arithmetic, kept
+// where the hash is below round(keep * 2^32), scaled by float32(1 / keep).
+// The backward does not replay it: a stored gated activation is > 0 exactly
+// where the unit passed both ReLU and the gate, so the gate is (a > 0) * s.
+//
+// Backward.  The TPU kernel walks a sequential grid and accumulates dW in
+// VMEM; blocks on Hopper run in parallel, so it is split:
+//  1. train_bwd_chain_kernel, per 32-point tile: from dy and y it forms the
+//     gradient of every layer's pre-activation (dpre) in shared memory,
+//     going back through W^T (a transposed copy, so the same streamed-tile
+//     product serves) and the recovered gates, writes each dpre to device
+//     memory (out_pad, M), and accumulates d(emb) = sum over layers with X
+//     of dpre @ X^T.
+//  2. wgrad_kernel: dW_l = a_{l-1} . dpre_l^T and dX_l = emb^T-rows .
+//     dpre_l^T, reductions over K = M split across blocks (64 x 64 output
+//     tiles, M chunks), partial sums added with atomicAdd.
+//  3. colsum_kernel: db_l as the sum of dpre_l over each scene's rows (one
+//     warp per feature and scene, plain stores) or over all rows (atomics).
+// One call of train_decoder_bwd enqueues all of these on one stream.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define TILE_P 32      // points per block
+#define NTHREADS 256   // threads per block
+#define OCHUNK 256     // output features per chunk
+#define BK 32          // k depth of one weight tile
+#define EMB_MAX 64     // embedding columns
+#define MAX_LAYERS 10
+#define MAX_OUT 2
+
+struct Layer {
+  const float *w, *wt, *x, *b;  // w (in_pad, out_pad), wt its transpose, x (e, out_pad)
+  float *act, *dpre;            // residual (out_pad, M), pre-activation grad (out_pad, M)
+  float *dw, *dx, *db;          // gradients (shapes of w, x, b)
+  int in_pad, out_pad, scene_bias, dropout;
+};
+
+struct Plan {
+  int n_layers, n_out, e, m, nps, n_scenes, max_pad;
+  const float* emb;  // (e, M)
+  float* y;          // (n_out, M)
+  const float* dy;   // (n_out, M)
+  float* demb;       // (M, e)
+  Layer layers[MAX_LAYERS];
+};
+
+// ---------------------------------------------------------------------------
+// shared pieces
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned gate_hash(unsigned seed, unsigned layer, unsigned row,
+                                              unsigned col) {
+  unsigned h = seed ^ (row * 0x9E3779B1u) ^ (col * 0x85EBCA6Bu) ^ (layer * 0xC2B2AE35u);
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return h;
+}
+
+// Weight tile [BK][OCHUNK] of W (ld floats per row) at rows k0.., columns
+// oc..: 2048 float4, 8 per thread, 64 threads per row (coalesced).
+__device__ __forceinline__ void load_tile(float4 (&pre)[8], const float* __restrict__ w,
+                                          int ld, int k0, int oc, int tid) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    int f = tid + i * NTHREADS;
+    int row = f >> 6, col = (f & 63) << 2;
+    pre[i] = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k0 + row) * ld + oc + col));
+  }
+}
+
+__device__ __forceinline__ void store_tile(float* ws, const float4 (&pre)[8], int tid) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) reinterpret_cast<float4*>(ws)[tid + i * NTHREADS] = pre[i];
+}
+
+// acc[i][j] += sum_{k < K} W[k][oc + ty*8 + i] * in[k][tx*4 + j]; `in` is
+// [K][TILE_P] in shared memory, W (K, ld) row-major in device memory.
+__device__ __forceinline__ void mm_chunk(float (&acc)[8][4], const float* __restrict__ w,
+                                         int ld, int K, int oc, const float* in, float* ws,
+                                         int tid) {
+  const int tx = tid & 7, ty = tid >> 3;
+  float4 pre[8];
+  load_tile(pre, w, ld, 0, oc, tid);
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    __syncthreads();  // every thread is done reading the previous tile
+    store_tile(ws, pre, tid);
+    __syncthreads();
+    if (k0 + BK < K) load_tile(pre, w, ld, k0 + BK, oc, tid);
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(in + (k0 + kk) * TILE_P + tx * 4);
+      const float4 w0 = *reinterpret_cast<const float4*>(ws + kk * OCHUNK + ty * 8);
+      const float4 w1 = *reinterpret_cast<const float4*>(ws + kk * OCHUNK + ty * 8 + 4);
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], av[j], acc[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+train_fwd_kernel(const Plan p, unsigned seed, unsigned thresh, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* act0 = smem;
+  float* act1 = act0 + p.max_pad * TILE_P;
+  float* ws = act1 + p.max_pad * TILE_P;
+  float* embs = ws + BK * OCHUNK;      // [e][TILE_P]
+  float* red = embs + EMB_MAX * TILE_P;  // [8][TILE_P]
+
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int first = blockIdx.x * TILE_P;
+  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
+    const int c = i / TILE_P, q = i % TILE_P;
+    embs[i] = first + q < p.m ? p.emb[(size_t)c * p.m + first + q] : 0.f;
+  }
+  __syncthreads();
+
+  float* cur = act0;
+  float* nxt = act1;
+  for (int l = 0; l < p.n_layers - 1; ++l) {
+    const Layer& L = p.layers[l];
+    for (int oc = 0; oc < L.out_pad; oc += OCHUNK) {
+      float acc[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      if (L.w) mm_chunk(acc, L.w, L.out_pad, L.in_pad, oc, cur, ws, tid);
+      if (L.x) {
+        for (int c = 0; c < p.e; ++c) {
+          const float4 ev = *reinterpret_cast<const float4*>(embs + c * TILE_P + tx * 4);
+          const float4 x0 = __ldg(reinterpret_cast<const float4*>(L.x + (size_t)c * L.out_pad + oc + ty * 8));
+          const float4 x1 = __ldg(reinterpret_cast<const float4*>(L.x + (size_t)c * L.out_pad + oc + ty * 8 + 4));
+          const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+          const float av[4] = {ev.x, ev.y, ev.z, ev.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], av[j], acc[i][j]);
+        }
+      }
+      const int row0 = first + tx * 4;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int o = oc + ty * 8 + i;
+        float r[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = row0 + j;
+          const int srow = min(row, p.m - 1) / p.nps;
+          const float bias = L.scene_bias ? __ldg(L.b + (size_t)srow * L.out_pad + o)
+                                          : __ldg(L.b + o);
+          float v = fmaxf(acc[i][j] + bias, 0.f);
+          if (L.dropout)
+            v = gate_hash(seed, (unsigned)l, (unsigned)row, (unsigned)o) < thresh ? v * scale : 0.f;
+          r[j] = v;
+        }
+        const float4 rv = make_float4(r[0], r[1], r[2], r[3]);
+        *reinterpret_cast<float4*>(nxt + o * TILE_P + tx * 4) = rv;
+        if (row0 < p.m) *reinterpret_cast<float4*>(L.act + (size_t)o * p.m + row0) = rv;
+      }
+    }
+    __syncthreads();  // `nxt` is complete before the next layer reads it
+    float* t = cur; cur = nxt; nxt = t;
+  }
+
+  // last layer: y[r][p] = tanh(sum_k wt[r][k] cur[k][p] + b[r]).  Warp w sums
+  // row w/4 over k = w%4 (mod 4); lanes are points.
+  const Layer& L = p.layers[p.n_layers - 1];
+  const int pt = tid & 31, w = tid >> 5, r = w >> 2, part = w & 3;
+  if (r < p.n_out) {
+    const float* f = L.wt + (size_t)r * L.in_pad;
+    float s = 0.f;
+    for (int k = part; k < L.in_pad; k += 4) s = fmaf(__ldg(f + k), cur[k * TILE_P + pt], s);
+    red[w * TILE_P + pt] = s;
+  }
+  __syncthreads();
+  if (tid < p.n_out * TILE_P) {
+    const int rr = tid / TILE_P, pp = tid % TILE_P;
+    const float v = red[(rr * 4 + 0) * TILE_P + pp] + red[(rr * 4 + 1) * TILE_P + pp]
+                  + red[(rr * 4 + 2) * TILE_P + pp] + red[(rr * 4 + 3) * TILE_P + pp];
+    if (first + pp < p.m) p.y[(size_t)rr * p.m + first + pp] = tanhf(v + __ldg(L.b + rr));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward 1: the reverse chain per point tile
+// ---------------------------------------------------------------------------
+
+// dembs[c][p] += sum_o X[c][o] d[o][p] for the tile (threads over (c, p)).
+__device__ __forceinline__ void demb_accumulate(const Plan& p, const Layer& L, const float* d,
+                                                float* dembs, int tid) {
+  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
+    const int c = i / TILE_P, q = i % TILE_P;
+    const float* xr = L.x + (size_t)c * L.out_pad;
+    float s = 0.f;
+    for (int o = 0; o < L.out_pad; ++o) s = fmaf(__ldg(xr + o), d[o * TILE_P + q], s);
+    dembs[i] += s;
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+train_bwd_chain_kernel(const Plan p, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* d0 = smem;
+  float* d1 = d0 + p.max_pad * TILE_P;
+  float* ws = d1 + p.max_pad * TILE_P;
+  float* dembs = ws + BK * OCHUNK;        // [e][TILE_P]
+  float* g = dembs + EMB_MAX * TILE_P;    // [n_out][TILE_P]
+
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int first = blockIdx.x * TILE_P;
+  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) dembs[i] = 0.f;
+
+  // last layer: dpre = dy * (1 - y^2)
+  const int last = p.n_layers - 1;
+  const Layer& F = p.layers[last];
+  if (tid < p.n_out * TILE_P) {
+    const int r = tid / TILE_P, q = tid % TILE_P, row = first + q;
+    float v = 0.f;
+    if (row < p.m) {
+      const float yv = p.y[(size_t)r * p.m + row];
+      v = p.dy[(size_t)r * p.m + row] * (1.f - yv * yv);
+      F.dpre[(size_t)r * p.m + row] = v;
+    }
+    g[tid] = v;
+  }
+  __syncthreads();
+
+  // its input's gradient, gated by the last hidden layer's recovered gate
+  const Layer& H = p.layers[last - 1];
+  const float hs = H.dropout ? scale : 1.f;
+  for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
+    const int k = i / TILE_P, q = i % TILE_P, row = first + q;
+    float dx = 0.f;
+    for (int r = 0; r < p.n_out; ++r) dx = fmaf(__ldg(F.w + (size_t)k * p.n_out + r), g[r * TILE_P + q], dx);
+    float v = 0.f;
+    if (row < p.m) {
+      v = H.act[(size_t)k * p.m + row] > 0.f ? dx * hs : 0.f;
+      H.dpre[(size_t)k * p.m + row] = v;
+    }
+    d0[i] = v;
+  }
+  __syncthreads();
+
+  float* cur = d0;
+  float* nxt = d1;
+  for (int l = last - 1; l >= 0; --l) {
+    const Layer& L = p.layers[l];
+    if (L.x) {
+      demb_accumulate(p, L, cur, dembs, tid);
+      __syncthreads();
+    }
+    if (l == 0) break;
+    const Layer& P = p.layers[l - 1];
+    const float ps = P.dropout ? scale : 1.f;
+    // dx[k][p] = sum_o W[k][o] cur[o][p] through wt (out_pad, in_pad)
+    for (int oc = 0; oc < L.in_pad; oc += OCHUNK) {
+      float acc[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      mm_chunk(acc, L.wt, L.in_pad, L.out_pad, oc, cur, ws, tid);
+      const int row0 = first + tx * 4;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int k = oc + ty * 8 + i;
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row0 < p.m) a = *reinterpret_cast<const float4*>(P.act + (size_t)k * p.m + row0);
+        const float4 rv = make_float4(a.x > 0.f ? acc[i][0] * ps : 0.f,
+                                      a.y > 0.f ? acc[i][1] * ps : 0.f,
+                                      a.z > 0.f ? acc[i][2] * ps : 0.f,
+                                      a.w > 0.f ? acc[i][3] * ps : 0.f);
+        *reinterpret_cast<float4*>(nxt + k * TILE_P + tx * 4) = rv;
+        if (row0 < p.m) *reinterpret_cast<float4*>(P.dpre + (size_t)k * p.m + row0) = rv;
+      }
+    }
+    __syncthreads();
+    float* t = cur; cur = nxt; nxt = t;
+  }
+
+  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
+    const int c = i / TILE_P, q = i % TILE_P;
+    if (first + q < p.m) p.demb[(size_t)(first + q) * p.e + c] = dembs[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward 2: C[k][n] += sum_p A[k][p] B[n][p] over one chunk of M per block
+// ---------------------------------------------------------------------------
+
+#define WG_T 64   // output tile edge
+#define WG_K 32   // points per step
+
+__global__ void __launch_bounds__(NTHREADS)
+wgrad_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
+             int K, int N, int m, int chunk) {
+  __shared__ float As[WG_K][WG_T + 1];
+  __shared__ float Bs[WG_K][WG_T + 1];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int n0 = blockIdx.x * WG_T, k0 = blockIdx.y * WG_T;
+  const int p_begin = blockIdx.z * chunk, p_end = min(m, p_begin + chunk);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int p0 = p_begin; p0 < p_end; p0 += WG_K) {
+#pragma unroll
+    for (int i = 0; i < (WG_T * WG_K) / NTHREADS; ++i) {
+      const int f = tid + i * NTHREADS;
+      const int r = f / WG_K, c = f % WG_K, pt = p0 + c;
+      const bool in = pt < p_end;
+      As[c][r] = (in && k0 + r < K) ? __ldg(A + (size_t)(k0 + r) * m + pt) : 0.f;
+      Bs[c][r] = (in && n0 + r < N) ? __ldg(B + (size_t)(n0 + r) * m + pt) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < WG_K; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + ty * 4 + i;
+    if (k >= K) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < N) atomicAdd(C + (size_t)k * N + n, acc[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward 3: out[s][o] = sum of d[o][p] over segment s (scene tables), or
+// out[o] += that sum (global bias)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(NTHREADS)
+colsum_kernel(const float* __restrict__ d, float* __restrict__ out, int rows, int m, int seg,
+              int per_segment) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int o = blockIdx.x * (NTHREADS / 32) + warp;
+  if (o >= rows) return;
+  const int s = blockIdx.y;
+  const int begin = s * seg, end = min(m, begin + seg);
+  float v = 0.f;
+  for (int q = begin + lane; q < end; q += 32) v += __ldg(d + (size_t)o * m + q);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if (lane == 0) {
+    if (per_segment) out[(size_t)s * rows + o] = v;
+    else atomicAdd(out + o, v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+static size_t smem_bytes(int max_pad) {
+  return sizeof(float) * ((size_t)2 * max_pad * TILE_P + BK * OCHUNK + EMB_MAX * TILE_P + 8 * TILE_P);
+}
+
+// desc (int64): [n_layers, n_out, e, m, nps, n_scenes, emb, y, dy, demb, then
+// per layer: w, wt, x, b, act, dpre, dw, dx, db, in_pad, out_pad,
+// scene_bias, dropout].  Pointers are device addresses, 0 = absent.
+static int parse(const long long* desc, int len, Plan* p, bool backward) {
+  if (len < 10) return -1;
+  p->n_layers = (int)desc[0];
+  p->n_out = (int)desc[1];
+  p->e = (int)desc[2];
+  p->m = (int)desc[3];
+  p->nps = (int)desc[4];
+  p->n_scenes = (int)desc[5];
+  p->emb = (const float*)desc[6];
+  p->y = (float*)desc[7];
+  p->dy = (const float*)desc[8];
+  p->demb = (float*)desc[9];
+  if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != 10 + 13 * p->n_layers) return -1;
+  if (p->n_out < 1 || p->n_out > MAX_OUT || p->e < 1 || p->e > EMB_MAX) return -1;
+  if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes) return -1;
+  if (!p->emb || !p->y || (backward && (!p->dy || !p->demb))) return -1;
+  p->max_pad = OCHUNK;
+  for (int l = 0; l < p->n_layers; ++l) {
+    const long long* d = desc + 10 + 13 * l;
+    Layer& L = p->layers[l];
+    L.w = (const float*)d[0]; L.wt = (const float*)d[1]; L.x = (const float*)d[2];
+    L.b = (const float*)d[3]; L.act = (float*)d[4]; L.dpre = (float*)d[5];
+    L.dw = (float*)d[6]; L.dx = (float*)d[7]; L.db = (float*)d[8];
+    L.in_pad = (int)d[9]; L.out_pad = (int)d[10]; L.scene_bias = (int)d[11]; L.dropout = (int)d[12];
+    const bool hidden = l < p->n_layers - 1;
+    if (!L.b) return -1;
+    if (l == 0 ? (L.w || !L.x || L.in_pad != 0) : (!L.w || !L.wt || L.in_pad != p->layers[l - 1].out_pad)) return -1;
+    if (hidden) {
+      if (L.out_pad < OCHUNK || L.out_pad % OCHUNK || !L.act) return -1;
+      if (L.out_pad > p->max_pad) p->max_pad = L.out_pad;
+    } else if (L.out_pad != p->n_out || L.x || L.scene_bias || L.dropout) {
+      return -1;
+    }
+    if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.x && !L.dx))) return -1;
+  }
+  return 0;
+}
+
+extern "C" int train_decoder_fwd(const long long* desc, int len, unsigned seed, unsigned thresh,
+                                 float scale, void* stream) {
+  Plan p;
+  if (parse(desc, len, &p, false)) return -1;
+  const size_t smem = smem_bytes(p.max_pad);
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((p.m + TILE_P - 1) / TILE_P);
+  train_fwd_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(p, seed, thresh, scale);
+  return (int)cudaGetLastError();
+}
+
+static int launch_wgrad(const float* A, const float* B, float* C, int K, int N, int m,
+                        cudaStream_t stream) {
+  const int gx = (N + WG_T - 1) / WG_T, gy = (K + WG_T - 1) / WG_T;
+  // split M so the grid holds ~8 blocks per SM, each at least 128 points
+  int splits = (8 * 132 + gx * gy - 1) / (gx * gy);
+  const int max_splits = (m + 127) / 128;
+  if (splits > max_splits) splits = max_splits;
+  if (splits < 1) splits = 1;
+  int chunk = (m + splits - 1) / splits;
+  chunk = (chunk + WG_K - 1) / WG_K * WG_K;
+  splits = (m + chunk - 1) / chunk;
+  wgrad_kernel<<<dim3(gx, gy, splits), NTHREADS, 0, stream>>>(A, B, C, K, N, m, chunk);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int train_decoder_bwd(const long long* desc, int len, float scale, void* stream) {
+  Plan p;
+  if (parse(desc, len, &p, true)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = smem_bytes(p.max_pad);
+  cudaError_t err = cudaFuncSetAttribute(train_bwd_chain_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((p.m + TILE_P - 1) / TILE_P);
+  train_bwd_chain_kernel<<<blocks, NTHREADS, smem, s>>>(p, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  for (int l = 0; l < p.n_layers; ++l) {
+    const Layer& L = p.layers[l];
+    int rc;
+    if (L.w && (rc = launch_wgrad(p.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s)))
+      return rc;
+    if (L.x && (rc = launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s))) return rc;
+    const int seg = L.scene_bias ? p.nps : 4096;
+    const unsigned segments = (unsigned)((p.m + seg - 1) / seg);
+    colsum_kernel<<<dim3((L.out_pad + 7) / 8, segments), NTHREADS, 0, s>>>(
+        L.dpre, L.db, L.out_pad, p.m, seg, L.scene_bias);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
+}

@@ -1,0 +1,359 @@
+"""Kernel K2: one scene-factored decoder trunk for training, forward and
+backward, with its plain PyTorch version and the wrappers that launch the
+CUDA kernels (``csrc/train_decoder.cu``).
+
+Replaces ``alignsdf_tpu/ops/decoder_train_kernel.py:fused_branch_scene``
+(forward ``_fused_scene_fwd`` / ``_fwd_kernel_scene``, backward
+``_fused_scene_bwd`` / ``_bwd_kernel_scene``).  The latent has already been
+folded into per-scene bias tables outside (``ops/train_plan.py``), so the
+trunk reads only the point embedding.  Layer ``l`` computes
+
+    acc = a_{l-1} @ W_l (if W_l) + emb @ X_l (if X_l) + b_l[scene(row)] or b_l
+
+then ReLU and the hash dropout gate on hidden layers, tanh on the last.
+Point ``row`` belongs to scene ``row // n_per_scene``.
+
+``train_decode`` takes the plain version for a CPU tensor, on which autograd
+gives the gradients.  For a CUDA tensor it runs ``TrainDecodeFunction``,
+whose forward and backward launch the kernels or raise.
+``train_decode.launches`` counts forward launches and
+``train_decode_backward.launches`` backward launches: one each per trunk per
+train step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+PAD = 256         # hidden widths pad to the kernel's output chunk
+EMB_MAX = 64      # embedding columns a trunk may read
+MAX_LAYERS = 10
+MAX_OUT = 2       # outputs of the last layer
+MAX_SMEM = 232448
+_TILE_P, _BK = 32, 32
+_M32 = 0xFFFFFFFF
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+class TrainStatics(NamedTuple):
+    """The static structure of one trunk, per layer."""
+
+    n_per_scene: int              # row // n_per_scene is a point's scene
+    has_w: Tuple[bool, ...]       # reads the previous layer's activation
+    has_x: Tuple[bool, ...]       # reads the embedding columns
+    scene_bias: Tuple[bool, ...]  # bias is a per-scene (B, h) table
+    dropout: Tuple[bool, ...]     # hidden layers with dropout
+    keep: float
+    train: bool
+
+
+def gate_threshold(keep: float) -> int:
+    """uint32 threshold of the gate: a unit is kept where hash < threshold."""
+    return min(int(round(keep * 2 ** 32)), 2 ** 32 - 1)
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2^32 for int64 h in [0, 2^32): the full product can pass
+    2^63, so the high 16 bits of c go in separately."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def dropout_gate(seed: int, layer: int, rows: torch.Tensor, width: int,
+                 keep: float) -> torch.Tensor:
+    """(len(rows), width) float32 Bernoulli(keep) gate scaled by 1/keep:
+    the murmur3-style finalizer of (seed, layer, global row, lane) with
+    uint32 wraparound, bit for bit the TPU kernel's ``_dropout_gate``.
+    ``rows`` are the points' rows in the trunk's M, lanes the true columns.
+    CPU torch has no full uint32 arithmetic: int64, masked after each step."""
+    grow = rows.to(torch.int64)[:, None]
+    col = torch.arange(width, dtype=torch.int64, device=rows.device)[None, :]
+    h = ((seed & _M32) ^ ((grow * 0x9E3779B1) & _M32) ^ ((col * 0x85EBCA6B) & _M32)
+         ^ ((layer * 0xC2B2AE35) & _M32))
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    return (h < gate_threshold(keep)).to(torch.float32) * np.float32(1.0 / keep)
+
+
+def train_decode_reference(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor]],
+                           xs: Sequence[Optional[torch.Tensor]], bs: Sequence[torch.Tensor],
+                           seed: int, st: TrainStatics,
+                           acts: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """The plain version of K2's forward, step by step with torch.matmul;
+    autograd through it is the plain backward.  emb (M, e); ws[l] (in, out)
+    or None; xs[l] (e, out) or None; bs[l] (B, out) or (out,).  Returns the
+    tanh'd outputs as (n_out, M); ``acts``, if given, receives each hidden
+    layer's gated activation (M, out)."""
+    m = emb.shape[0]
+    rows = torch.arange(m, device=emb.device)
+    scene = rows // st.n_per_scene
+    n_layers = len(bs)
+    x = None
+    for layer in range(n_layers):
+        acc = None
+        if ws[layer] is not None:
+            acc = x @ ws[layer]
+        if xs[layer] is not None:
+            term = emb @ xs[layer]
+            acc = term if acc is None else acc + term
+        acc = acc + (bs[layer][scene] if st.scene_bias[layer] else bs[layer])
+        if layer == n_layers - 1:
+            return torch.tanh(acc).T
+        x = torch.relu(acc)
+        if st.train and st.dropout[layer]:
+            x = x * dropout_gate(seed, layer, rows, x.shape[1], st.keep)
+        if acts is not None:
+            acts.append(x)
+    raise ValueError("a trunk needs at least one layer")
+
+
+def train_decode_backward_reference(emb, ws, xs, bs, st: TrainStatics, y: torch.Tensor,
+                                    acts: Sequence[torch.Tensor], dy: torch.Tensor):
+    """The plain version of K2's backward, from the same inputs as the
+    kernel: dy and y (n_out, M) and the gated activations acts[l] (M, out).
+    The gate is recovered as (a > 0) * s, s = 1/keep on dropout layers in
+    training, else 1 (no hash replay).  Returns (d(emb), [dW | None],
+    [dX | None], [db]) with db per scene (B, out) for scene-bias layers."""
+    m = emb.shape[0]
+    scene = torch.arange(m, device=emb.device) // st.n_per_scene
+    n_layers = len(bs)
+    dws, dxs, dbs = [None] * n_layers, [None] * n_layers, [None] * n_layers
+    demb = torch.zeros_like(emb)
+    dpre = (dy * (1.0 - y * y)).T  # (M, n_out)
+    for layer in range(n_layers - 1, -1, -1):
+        if ws[layer] is not None:
+            dws[layer] = acts[layer - 1].T @ dpre
+        if xs[layer] is not None:
+            dxs[layer] = emb.T @ dpre
+            demb = demb + dpre @ xs[layer].T
+        dbs[layer] = (torch.zeros_like(bs[layer]).index_add_(0, scene, dpre)
+                      if st.scene_bias[layer] else dpre.sum(0))
+        if layer > 0:
+            scale = 1.0 / st.keep if st.train and st.dropout[layer - 1] else 1.0
+            dpre = (dpre @ ws[layer].T) * (acts[layer - 1] > 0).to(dpre.dtype) * np.float32(scale)
+    return demb, dws, dxs, dbs
+
+
+# ---------------------------------------------------------------------------
+# the CUDA path
+# ---------------------------------------------------------------------------
+
+class _Packed(NamedTuple):
+    """Padded, contiguous copies of one trunk in the kernels' layout."""
+
+    emb_t: torch.Tensor                 # (e, M)
+    w: List[Optional[torch.Tensor]]     # hidden (in_pad, out_pad); last (in_pad, n_out)
+    wt: List[Optional[torch.Tensor]]    # transposes of w
+    x: List[Optional[torch.Tensor]]     # (e, out_pad)
+    b: List[torch.Tensor]               # (B, out_pad) or (out_pad,)
+    out_pads: List[int]
+    n_scenes: int
+
+
+def _pad2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    out = torch.zeros((rows, cols), dtype=torch.float32, device=t.device)
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def _check(emb, ws, xs, bs, st: TrainStatics) -> Tuple[int, int]:
+    """Raise on what the kernels do not take; returns (n_out, n_scenes)."""
+    n_layers = len(bs)
+    m, e = emb.shape
+    if not 2 <= n_layers <= MAX_LAYERS:
+        raise ValueError(f"the kernel takes 2-{MAX_LAYERS} layers, got {n_layers}")
+    if ws[0] is not None or xs[0] is None or any(w is None for w in ws[1:]):
+        raise ValueError("layer 0 reads only the embedding; later layers their input")
+    if xs[-1] is not None or st.scene_bias[-1]:
+        raise ValueError("the last layer reads neither the embedding nor a scene bias")
+    n_out = bs[-1].shape[-1]
+    if not 1 <= n_out <= MAX_OUT or not 1 <= e <= EMB_MAX:
+        raise ValueError(f"{n_out} outputs / {e} embedding columns are outside the kernel")
+    if m <= 0 or m % 4 or m >= 2 ** 31 or m % st.n_per_scene:
+        raise ValueError(f"M = {m} must be a positive multiple of 4 and of n_per_scene")
+    for t in [emb, *ws, *xs, *bs]:
+        if t is not None and (t.dtype != torch.float32 or t.device != emb.device):
+            raise ValueError("every operand must be float32 on the embedding's device")
+    n_scenes = m // st.n_per_scene
+    for layer, b in enumerate(bs):
+        if st.scene_bias[layer] and b.shape[0] != n_scenes:
+            raise ValueError(f"layer {layer}: {b.shape[0]} bias rows for {n_scenes} scenes")
+    return n_out, n_scenes
+
+
+def pack_trunk(emb, ws, xs, bs, st: TrainStatics) -> _Packed:
+    """Padded, contiguous copies of one trunk's operands (detached) for the
+    kernels; raises on what they do not take."""
+    n_out, n_scenes = _check(emb, ws, xs, bs, st)
+    n_layers = len(bs)
+    w, wt, x, b, out_pads = [], [], [], [], []
+    in_pad = 0
+    for layer in range(n_layers):
+        out = bs[layer].shape[-1]
+        out_pad = n_out if layer == n_layers - 1 else _round_up(out, PAD)
+        wl = None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad)
+        w.append(wl)
+        wt.append(None if wl is None else wl.T.contiguous())
+        x.append(None if xs[layer] is None else _pad2(xs[layer], emb.shape[1], out_pad))
+        bl = bs[layer]
+        b.append(_pad2(bl, bl.shape[0], out_pad) if bl.dim() == 2
+                 else _pad2(bl[None], 1, out_pad)[0])
+        out_pads.append(out_pad)
+        in_pad = out_pad
+    return _Packed(emb.T.contiguous(), w, wt, x, b, out_pads, n_scenes)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, demb=None, dpre=None,
+                grads=None) -> np.ndarray:
+    """The int64 descriptor ``train_decoder.cu`` parses (see its header)."""
+    n_layers = len(p.b)
+    e, m = p.emb_t.shape
+    desc = [n_layers, p.out_pads[-1], e, m, st.n_per_scene, p.n_scenes,
+            _ptr(p.emb_t), _ptr(y), _ptr(dy), _ptr(demb)]
+    in_pad = 0
+    for layer in range(n_layers):
+        dw, dx, db = grads[layer] if grads is not None else (None, None, None)
+        desc += [_ptr(p.w[layer]), _ptr(p.wt[layer]), _ptr(p.x[layer]), _ptr(p.b[layer]),
+                 _ptr(acts[layer]) if layer < n_layers - 1 else 0,
+                 _ptr(dpre[layer]) if dpre is not None else 0,
+                 _ptr(dw), _ptr(dx), _ptr(db), in_pad, p.out_pads[layer],
+                 int(st.scene_bias[layer]),
+                 int(layer < n_layers - 1 and st.train and st.dropout[layer])]
+        in_pad = p.out_pads[layer]
+    return np.ascontiguousarray(desc, np.int64)
+
+
+def smem_bytes(max_pad: int) -> int:
+    return 4 * (2 * max_pad * _TILE_P + _BK * PAD + EMB_MAX * _TILE_P + 8 * _TILE_P)
+
+
+def _lib():
+    from alignsdf_torch.kernels.build import load
+
+    lib = load("train_decoder")
+    if not getattr(lib, "_typed", False):
+        lib.train_decoder_fwd.restype = ctypes.c_int
+        lib.train_decoder_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                                          ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+        lib.train_decoder_bwd.restype = ctypes.c_int
+        lib.train_decoder_bwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                                          ctypes.c_void_p]
+        lib._typed = True
+    return lib
+
+
+def _run(name: str, fn, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with code {rc}"
+                           + (" (descriptor rejected)" if rc == -1 else ""))
+
+
+def train_decode_forward(p: _Packed, seed: int, st: TrainStatics):
+    """K2 forward on the card: y (n_out, M) and the gated activations of the
+    hidden layers, each (out_pad, M)."""
+    e, m = p.emb_t.shape
+    dev = p.emb_t.device
+    if smem_bytes(max(p.out_pads[:-1])) > MAX_SMEM:
+        raise ValueError("hidden width needs more shared memory than a block has")
+    y = torch.empty((p.out_pads[-1], m), dtype=torch.float32, device=dev)
+    acts = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads[:-1]]
+    desc = _descriptor(p, st, y, acts)
+    _run("train_decoder_fwd", _lib().train_decoder_fwd, dev, desc.ctypes.data, int(desc.size),
+         seed & _M32, gate_threshold(st.keep), float(np.float32(1.0 / st.keep)))
+    train_decode.launches += 1
+    return y, acts
+
+
+def train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
+                          acts: List[torch.Tensor], dy: torch.Tensor):
+    """K2 backward on the card: the reverse chain per point tile (writing
+    each layer's pre-activation gradient and d(emb)), then per layer the
+    weight, inject-weight and bias reductions over all M points.  Returns
+    (demb (M, e), [(dW | None, dX | None, db)] padded)."""
+    e, m = p.emb_t.shape
+    dev = p.emb_t.device
+    dy = dy.to(torch.float32).contiguous()
+    demb = torch.empty((m, e), dtype=torch.float32, device=dev)
+    dpre = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads]
+    grads = []
+    for layer in range(len(p.b)):
+        zeros = lambda t: None if t is None else torch.zeros_like(t)  # noqa: E731
+        grads.append((zeros(p.w[layer]), zeros(p.x[layer]), torch.zeros_like(p.b[layer])))
+    desc = _descriptor(p, st, y, acts, dy=dy, demb=demb, dpre=dpre, grads=grads)
+    _run("train_decoder_bwd", _lib().train_decoder_bwd, dev, desc.ctypes.data, int(desc.size),
+         float(np.float32(1.0 / st.keep)))
+    train_decode_backward.launches += 1
+    return demb, grads
+
+
+class TrainDecodeFunction(torch.autograd.Function):
+    """K2 over one trunk.  Inputs are unpadded, as ``train_decode_reference``
+    takes them, flattened as (emb, ws that exist, xs that exist, bs); the
+    padding happens here and the padded rows and columns of every gradient
+    are dropped on the way out.  The gated activations are the residuals."""
+
+    @staticmethod
+    def forward(ctx, st: TrainStatics, seed: int, emb: torch.Tensor, *params):
+        ws, xs, bs = unflatten_params(st, params)
+        packed = pack_trunk(emb.detach(), [None if w is None else w.detach() for w in ws],
+                       [None if x is None else x.detach() for x in xs],
+                       [b.detach() for b in bs], st)
+        y, acts = train_decode_forward(packed, seed, st)
+        ctx.st, ctx.packed, ctx.acts, ctx.y = st, packed, acts, y
+        ctx.shapes = ([None if w is None else w.shape for w in ws],
+                      [None if x is None else x.shape for x in xs], [b.shape for b in bs])
+        return y
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        st = ctx.st
+        demb, grads = train_decode_backward(ctx.packed, st, ctx.y, ctx.acts, dy)
+        w_shapes, x_shapes, b_shapes = ctx.shapes
+        d_w = [dw[:s[0], :s[1]] for (dw, _, _), s in zip(grads, w_shapes) if s is not None]
+        d_x = [dx[:, :s[1]] for (_, dx, _), s in zip(grads, x_shapes) if s is not None]
+        d_b = [db[..., :s[-1]] for (_, _, db), s in zip(grads, b_shapes)]
+        return (None, None, demb, *d_w, *d_x, *d_b)
+
+
+def flatten_params(ws, xs, bs) -> List[torch.Tensor]:
+    return [w for w in ws if w is not None] + [x for x in xs if x is not None] + list(bs)
+
+
+def unflatten_params(st: TrainStatics, params):
+    it = iter(params)
+    ws = [next(it) if has else None for has in st.has_w]
+    xs = [next(it) if has else None for has in st.has_x]
+    return ws, xs, list(it)
+
+
+def train_decode(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor]],
+                 xs: Sequence[Optional[torch.Tensor]], bs: Sequence[torch.Tensor],
+                 seed: int, st: TrainStatics) -> torch.Tensor:
+    """K2: (n_out, M) tanh'd outputs of one trunk, differentiable in emb and
+    every weight and bias."""
+    if emb.device.type == "cpu":
+        return train_decode_reference(emb, ws, xs, bs, seed, st)
+    if emb.device.type != "cuda":
+        raise ValueError(f"train_decode runs on cuda or cpu, not {emb.device}")
+    return TrainDecodeFunction.apply(st, seed, emb, *flatten_params(ws, xs, bs))
+
+
+train_decode.launches = 0
+train_decode_backward.launches = 0

@@ -5,6 +5,7 @@ a reference ``latest.pth`` loads with ``load_state_dict``."""
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -15,6 +16,7 @@ from alignsdf_torch.mano.layer import load_mano_model
 from alignsdf_torch.models.decoder import make_decoder
 from alignsdf_torch.models.manobranch import ManoBranch
 from alignsdf_torch.models.resnet import ResNetEncoder
+from alignsdf_torch.ops.embeddings import kinematic_embedding, nerf_embed_for_point_feat
 from alignsdf_torch.ops.geometry import get_obj_trans, soft_argmax
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -43,7 +45,9 @@ def check_supported(specs: Specs) -> None:
 
 
 class AlignSDF(nn.Module):
-    """Encoder, MANO branch, object pose and SDF decoder, in eval mode."""
+    """Encoder, MANO branch, object pose and SDF decoder.  ``encode_scene``
+    always runs in eval mode; the training front half runs in the mode its
+    ``train`` argument names."""
 
     def __init__(self, specs: Specs):
         super().__init__()
@@ -63,7 +67,42 @@ class AlignSDF(nn.Module):
                                     specs.network_specs, specs.classifier_branch)
         # 1x1 conv: 256 channels -> 64 depth-bin heatmap (reference model.py:376-377)
         self.volume_layer = nn.Conv2d(256, 64, 1) if specs.use_obj_pose else None
-        self.eval()
+
+    @contextmanager
+    def _mode(self, train: bool):
+        """Run the body with BatchNorm in batch-statistic (train) or
+        running-statistic (eval) mode, then restore the module's mode."""
+        was = self.training
+        self.train(train)
+        try:
+            yield
+        finally:
+            self.train(was)
+
+    def _encode(self, image: torch.Tensor, cond_input: Dict[str, torch.Tensor], train: bool):
+        """Encoder, MANO branch and object pose: (sdf_feat, aux_feat,
+        mano_results, obj_results).  Only in eval mode do the object corners
+        add the hand's center3d, as in the JAX package (``_scene_parts`` vs
+        ``encode_scene``)."""
+        specs = self.specs
+        x = normalize_image_on_device(image).permute(0, 3, 1, 2)
+        sdf_feat, mano_feat, aux_feat = self.encoder(x)
+        mano_results = self.mano_decoder(mano_feat, cond_input) if specs.mano_branch else None
+
+        obj_results = None
+        if specs.use_obj_pose:
+            heatmaps = self.volume_layer(aux_feat)  # (B, 64 depth bins, 64, 64)
+            obj_trans, obj_center = get_obj_trans(
+                soft_argmax(heatmaps), mano_results["center3d"], cond_input["cam_intr"],
+                mano_results["obj_rot"] if specs.use_obj_rot else None)
+            obj_corners = (torch.einsum("bij,bnj->bni", obj_trans[:, :3, :3],
+                                        cond_input["rest_obj_corners"])
+                           + obj_trans[:, None, :3, 3])
+            if not train:
+                obj_corners = obj_corners + mano_results["center3d"]
+            obj_results = {"obj_center": obj_center, "obj_corners": obj_corners,
+                           "obj_trans": obj_trans}
+        return sdf_feat, aux_feat, mano_results, obj_results
 
     @torch.no_grad()
     def encode_scene(self, image: torch.Tensor, cam_intr: torch.Tensor,
@@ -71,25 +110,44 @@ class AlignSDF(nn.Module):
                      ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Optional[Dict[str, Any]]]:
         """(B, H, W, 3) image -> (latent (B, L), mano_results, obj_results)
         for grid reconstruction (reference utils/utils.py:575-625 minus IO)."""
-        specs = self.specs
-        x = normalize_image_on_device(image).permute(0, 3, 1, 2)
-        sdf_feat, mano_feat, aux_feat = self.encoder(x)
-
         cond_input = {"cam_intr": cam_intr, "mano_root": mano_root,
                       "rest_obj_corners": rest_obj_corners}
-        mano_results = self.mano_decoder(mano_feat, cond_input) if specs.mano_branch else None
-
-        obj_results = None
-        if specs.use_obj_pose:
-            heatmaps = self.volume_layer(aux_feat)  # (B, 64 depth bins, 64, 64)
-            obj_trans, obj_center = get_obj_trans(
-                soft_argmax(heatmaps), mano_results["center3d"], cam_intr,
-                mano_results["obj_rot"] if specs.use_obj_rot else None)
-            obj_corners = (torch.einsum("bij,bnj->bni", obj_trans[:, :3, :3], rest_obj_corners)
-                           + obj_trans[:, None, :3, 3]) + mano_results["center3d"]
-            obj_results = {"obj_center": obj_center, "obj_corners": obj_corners,
-                           "obj_trans": obj_trans}
+        with self._mode(False):
+            sdf_feat, _, mano_results, obj_results = self._encode(image, cond_input, False)
         return sdf_feat, mano_results, obj_results
+
+    def _scene_parts(self, image: torch.Tensor, xyz: torch.Tensor,
+                     cond_input: Dict[str, torch.Tensor], train: bool):
+        """The training front half (the JAX package's ``_scene_parts``):
+        encoder, MANO branch, object pose and point embedding, with autograd
+        on.  Returns (sdf_feat, aux_feat, xyz_embed, mano_results,
+        obj_results)."""
+        specs = self.specs
+        with self._mode(train):
+            sdf_feat, aux_feat, mano_results, obj_results = self._encode(image, cond_input, train)
+        if specs.point_feat_size > 3:
+            if mano_results is not None and specs.encode_style != "nerf":
+                xyz_embed = kinematic_embedding(
+                    xyz, xyz.shape[0] // image.shape[0], specs.point_feat_size,
+                    specs.sdf_scale_factor, specs.encode_style,
+                    rot_center=mano_results["rot_center"],
+                    global_trans=mano_results["global_trans"],
+                    obj_trans=obj_results["obj_trans"] if obj_results else None)
+            else:
+                xyz_embed = nerf_embed_for_point_feat(xyz, specs.point_feat_size)
+        else:
+            xyz_embed = xyz
+        return sdf_feat, aux_feat, xyz_embed, mano_results, obj_results
+
+    def decoder_inputs_factored(self, image: torch.Tensor, xyz: torch.Tensor,
+                                cond_input: Dict[str, torch.Tensor], train: bool = False):
+        """Everything before the SDF decoder, without materializing per-point
+        [latent, embedding] rows: (latent (B, ls), xyz_embed (M, pfs),
+        mano_results, obj_results).  The scene-factored train decoder folds
+        the latent into per-scene biases instead (ops/train_plan.py)."""
+        sdf_feat, _, xyz_embed, mano_results, obj_results = self._scene_parts(
+            image, xyz, cond_input, train)
+        return sdf_feat, xyz_embed, mano_results, obj_results
 
 
 def build_model(specs: Specs, device: Union[str, torch.device] = "cpu",

@@ -1,0 +1,106 @@
+"""Host-side half of the scene-factored train decoder: materialize the
+weight-norm layers, fold the per-scene latent into bias tables and split
+each trunk's weights into the operands of kernel K2.
+
+Counterpart of the JAX package's ``ops/decoder_kernel.py:build_branch_plan``
+(:59) and of ``run_branch`` in ``make_fused_train_decoder_factored``
+(``ops/decoder_train_kernel.py:762-852``).  Everything here is plain
+PyTorch outside K2's autograd Function, so autograd carries the gradients of
+``weight_v``, ``weight_g``, the biases and the latent:
+
+    b0[s] = b_0 + latent[s] @ W_0[:ls]            (B, h) scene table
+    b2[s] = b_2 + latent[s] @ W_2[cur:cur+ls]     for a latent_in layer
+
+The port keeps per-scene tables as (B, h); the TPU's (B*8, h) row-0-of-8
+layout answered Mosaic's tiling.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import torch
+
+from alignsdf_torch.config import Specs
+from alignsdf_torch.kernels.train_decoder import TrainStatics, train_decode
+from alignsdf_torch.models.decoder import trunk_layer_dims, trunk_prefixes
+from alignsdf_torch.models.layers import materialize_linear
+from alignsdf_torch.ops.grid_plan import branch_columns
+
+
+def trunk_operands(decoder: torch.nn.Module, prefix: str, n_cols: int, latent: torch.Tensor,
+                   specs: Specs, out_dim: int):
+    """(ws, xs, bs) of one trunk for K2: ws[l] (in, out) on the previous
+    activation or None, xs[l] (n_cols, out) on the embedding or None, bs[l]
+    a (B, out) scene table where the latent folds in, else (out,)."""
+    ns = specs.network_specs
+    ls = latent.shape[1]
+    in_dim = ls + n_cols
+    shapes = trunk_layer_dims(in_dim, ns, out_dim)
+    ws: List[Optional[torch.Tensor]] = []
+    xs: List[Optional[torch.Tensor]] = []
+    bs: List[torch.Tensor] = []
+    cur = in_dim
+    for layer in range(len(shapes)):
+        weight, bias = materialize_linear(getattr(decoder, f"{prefix}{layer}"))
+        w = weight.T  # (in, out)
+        if layer == 0:
+            ws.append(None)
+            xs.append(w[ls:in_dim])
+            bs.append(bias + latent @ w[:ls])
+        elif layer in ns.latent_in:
+            # the torch layer's input was [x (cur), latent (ls), emb (n_cols)]
+            ws.append(w[:cur])
+            xs.append(w[cur + ls:cur + in_dim])
+            bs.append(bias + latent @ w[cur:cur + ls])
+        else:
+            ws.append(w)
+            xs.append(None)
+            bs.append(bias)
+        cur = shapes[layer][1]
+    return ws, xs, bs
+
+
+def make_train_decoder(specs: Specs, kernel: Callable = train_decode) -> Optional[Callable]:
+    """decode(decoder, latent (B, ls), emb (M, pfs), seed, train) -> (sdf_h
+    (M,), sdf_o (M,)) through K2, or None for a structure K2 does not take
+    (the same refusals as ``make_fused_train_decoder_factored``, less the
+    TPU's block-size rule).  The hand trunk draws its dropout from ``seed``,
+    the object trunk from ``seed + 1``.  ``kernel`` may name K2's plain
+    version instead, to compare the two on the card."""
+    ns = specs.network_specs
+    if (not ns.weight_norm or ns.use_tanh or ns.latent_dropout or ns.xyz_in_all
+            or specs.pixel_align or specs.classifier_branch or 0 in ns.latent_in
+            or len(ns.dims) + 1 in ns.latent_in):
+        return None
+    n_layers = len(ns.dims) + 1
+    latent_in = tuple(layer in ns.latent_in for layer in range(n_layers))
+    statics = TrainStatics(
+        n_per_scene=specs.samples_per_scene,
+        has_w=tuple(layer > 0 for layer in range(n_layers)),
+        has_x=tuple(layer == 0 or latent_in[layer] for layer in range(n_layers)),
+        scene_bias=tuple(layer == 0 or latent_in[layer] for layer in range(n_layers)),
+        dropout=tuple(bool(ns.dropout) and layer in ns.dropout for layer in range(n_layers - 1)),
+        keep=1.0 - ns.dropout_prob,
+        train=True)
+    cols_h, cols_o = branch_columns(specs)
+    combined = specs.model_type == "1encoder1decoder"
+
+    def run(decoder, prefix, cols, out_dim, latent, emb, seed, train) -> torch.Tensor:
+        ws, xs, bs = trunk_operands(decoder, prefix, len(cols), latent, specs, out_dim)
+        idx = torch.as_tensor(cols, dtype=torch.long, device=emb.device)
+        return kernel(emb.index_select(1, idx), ws, xs, bs, seed,
+                      statics._replace(train=bool(train)))
+
+    def decode(decoder, latent: torch.Tensor, emb: torch.Tensor, seed: int,
+               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        first, second = trunk_prefixes(decoder)
+        if combined:
+            y = run(decoder, first, cols_h, 2, latent, emb, seed, train)
+            return y[0], y[1]
+        y_h = run(decoder, first, cols_h, 1, latent, emb, seed, train)
+        y_o = run(decoder, second, cols_o, 1, latent, emb, seed + 1, train)
+        return y_h[0], y_o[0]
+
+    decode.statics = statics
+    return decode

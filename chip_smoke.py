@@ -1,21 +1,41 @@
-"""Drive the PyTorch port's reconstruction path on one CUDA GPU and hold each
-hand-written kernel against its plain PyTorch version.
+"""Drive the PyTorch port's reconstruction and training paths on one CUDA GPU
+and hold each hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile every kernel from the sources in the checkout;
+  2. build: compile every kernel (K1, K2) from the sources in the checkout,
+     one nvcc per source, all at once;
   3. K1 vs plain: the fused grid decoder against grid_decode_reference at
      full flagship width on a 64^3 grid, TF32 off, max abs err <= 1e-4;
-  4. main path: the flagship model (experiments/obman_30k.json with --mano
-     --obj_pose --encode both --point_size 9) at full width with seeded
-     weights reconstructs 3 synthetic 256x256 images at cube_dim 128 through
-     run_pipelined; K1's launch count, finite fields, written meshes, and
-     the field of image 0 against the generic decoder are checked;
-  5. the same run warm, and again under torch.profiler (device busy share,
+  4. K2 vs plain: both train trunks at full flagship width on 4 scenes x
+     2000 points and on the main path's 64 x 2000, TF32 off: y to 1e-4 abs
+     against the plain forward; every
+     gradient of the autograd Function to 1e-4 of the largest entry of the
+     plain backward's on the same residuals; each dropout layer's kept
+     share at 0.8 +- 0.01; the kernel's residuals gated as the plain
+     forward's;
+  5. reconstruction: the flagship model (experiments/obman_30k.json with
+     --mano --obj_pose --encode both --point_size 9) at full width with
+     seeded weights reconstructs 3 synthetic 256x256 images at cube_dim 128
+     through run_pipelined; K1's launch count, finite fields, written
+     meshes, and the field of image 0 against the generic decoder;
+  6. the same run warm, and again under torch.profiler (device busy share,
      device time by kernel);
-  6. timing: K1 and its plain version per grid pass at 128^3 and 256^3.
+  7. training: the flagship at full width (64 scenes x 2000 points, 256x256
+     synthetic images, seeded weights, the init guard) through
+     cli/train.make_trainer: 2 warm-up and 5 timed steps on one batch; K2's
+     launch counts, finite losses, the total falling, parameters moving;
+     ms/step, scenes/s and the time by phase (CUDA events); then one step
+     two ways (the same state and seed through K2 and through its plain
+     version, deterministic algorithms on: losses to 1e-5 relative, every
+     parameter's gradient to 1e-3 of its largest entry, updated parameters
+     to 2e-5 abs) and
+     2 steps under torch.profiler (K2's device time, the idle share);
+  8. timing: K1 and its plain version per grid pass at 128^3 and 256^3; K2
+     forward and backward per step (both trunks, 64 x 2000) against their
+     plain versions and bounds.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -24,6 +44,7 @@ measured to PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -36,9 +57,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FP32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12
 K1_TOL = 1e-4
+K2_TOL = 1e-4
 SEED = 0
 N_IMAGES = 3
 CUBE_DIM = 128
+TRAIN_SCENES = 64         # ScenesPerBatch of the flagship
+CHECK_SCENES = (4, TRAIN_SCENES)  # K2 vs plain: a small batch and the main path's
+WARM_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 5, 2
+TWO_WAYS_LOSS_RTOL = 1e-5
+TWO_WAYS_PARAM_ATOL = 2e-5  # a fifth of one Adam step at lr 1e-4
+# of each gradient's largest entry: the plain forward and K2 round
+# differently, so a few units at ReLU's edge (3e-8 of them at 64 x 2000) carry
+# gradient on one side only; a zeroed or wrong K2 gradient errs by ~1
+TWO_WAYS_GRAD_RTOL = 1e-3
+K2_FWD_KERNELS = ("train_fwd_kernel",)
+K2_BWD_KERNELS = ("train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
 
 
 def fail(msg: str) -> None:
@@ -90,6 +123,324 @@ def k1_flops_per_point(specs) -> int:
     return total
 
 
+def profile_summary(prof, wall_s: float):
+    """(device busy ms, busy share of the wall clock, device ms by kernel
+    name) of a torch.profiler run, or None if it saw no device events; busy
+    is the union of the device intervals."""
+    from torch.autograd import DeviceType
+
+    kernels_ms, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels_ms[e.name] = kernels_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            spans.append((e.time_range.start, e.time_range.end))
+    if not spans:
+        return None
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3, busy / (wall_s * 1e6), kernels_ms
+
+
+def k2_work(ws, xs, bs, m: int, packed):
+    """(forward FLOPs, backward FLOPs, forward bytes, backward bytes) of one
+    trunk over m points: 2 per multiply-add at the true widths; the backward
+    is dx plus dW.  Bytes count each input read once and each output written
+    once, the residuals at the kernel's padded widths."""
+    params = sum(t.numel() for t in [*ws, *xs, *bs] if t is not None)
+    macs = sum(t.numel() for t in [*ws, *xs] if t is not None)
+    e = packed.emb_t.shape[0]
+    n_out = packed.out_pads[-1]
+    resid = sum(packed.out_pads[:-1]) * m
+    fwd_bytes = 4 * (m * e + params + n_out * m + resid)
+    # in: dy, y, residuals, emb, weights; out: d(emb), every gradient
+    bwd_bytes = 4 * (2 * n_out * m + resid + m * e + params + m * e + params)
+    return 2 * macs * m, 4 * macs * m, fwd_bytes, bwd_bytes
+
+
+def k2_operands(model, specs, latent, emb):
+    """[(prefix, seed, embedding columns, ws, xs, bs)] of both trunks,
+    detached, as ops/train_plan.py hands them to K2."""
+    import torch
+
+    from alignsdf_torch.ops.grid_plan import branch_columns
+    from alignsdf_torch.ops.train_plan import trunk_operands
+
+    out = []
+    with torch.no_grad():
+        for (prefix, cols), seed in zip(zip(("linh", "lino"), branch_columns(specs)), (5, 6)):
+            ws, xs, bs = trunk_operands(model.decoder, prefix, len(cols), latent, specs, 1)
+            out.append((prefix, seed, emb[:, list(cols)].contiguous(), ws, xs, bs))
+    return out
+
+
+def k2_check(model, specs, dev, gen, scenes: int):
+    """K2 forward and backward on both trunks against their plain versions
+    on the same card, at scenes x 2000 points."""
+    import torch
+
+    from alignsdf_torch.kernels.train_decoder import (
+        dropout_gate, flatten_params, pack_trunk, train_decode, train_decode_backward,
+        train_decode_backward_reference, train_decode_forward, train_decode_reference,
+        unflatten_params)
+    from alignsdf_torch.ops.train_plan import make_train_decoder
+
+    st = make_train_decoder(specs).statics
+    m = scenes * specs.samples_per_scene
+    latent = (torch.randn(scenes, specs.latent_size, generator=gen) * 0.5).to(dev)
+    emb = (torch.randn(m, specs.point_feat_size, generator=gen) * 0.5).to(dev)
+    saved = train_decode.launches, train_decode_backward.launches
+    res = {"y_max_abs_err": 0.0, "grad_max_rel_err": 0.0, "grad_max_abs_err": 0.0,
+           "kept_share": {}, "residual_sign_mismatch": 0.0}
+    for prefix, seed, e, ws, xs, bs in k2_operands(model, specs, latent, emb):
+        leaves = [t.detach().clone().requires_grad_() for t in [e, *flatten_params(ws, xs, bs)]]
+        y = train_decode(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
+        dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
+        grads = torch.autograd.grad(y, leaves, dy)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            acts_ref = []
+            y_ref = train_decode_reference(e, ws, xs, bs, seed, st, acts=acts_ref)
+            res["y_max_abs_err"] = max(res["y_max_abs_err"], float((y - y_ref).abs().max()))
+            # the backward's plain version on the kernel's own residuals (the
+            # forward is deterministic): autograd through the plain forward
+            # would differ wherever rounding flips a unit at ReLU's edge
+            y_k, acts = train_decode_forward(pack_trunk(e, ws, xs, bs, st), seed, st)
+            acts_k = [a[:r.shape[1]].T for a, r in zip(acts, acts_ref)]
+            demb, dws, dxs, dbs = train_decode_backward_reference(e, ws, xs, bs, st, y_k,
+                                                                  acts_k, dy)
+            for g, r in zip(grads, [demb, *flatten_params(dws, dxs, dbs)]):
+                err = float((g - r).abs().max())
+                res["grad_max_abs_err"] = max(res["grad_max_abs_err"], err)
+                res["grad_max_rel_err"] = max(res["grad_max_rel_err"],
+                                              err / (float(r.abs().max()) + 1e-30))
+            rows = torch.arange(m, device=dev)
+            for layer, (a_k, a_r) in enumerate(zip(acts_k, acts_ref)):
+                mism = float(((a_k > 0) != (a_r > 0)).float().mean())
+                res["residual_sign_mismatch"] = max(res["residual_sign_mismatch"], mism)
+                if st.dropout[layer]:
+                    kept = (dropout_gate(seed, layer, rows, a_r.shape[1], st.keep) > 0)
+                    res["kept_share"][f"{prefix}{layer}"] = float(kept.float().mean())
+    train_decode.launches, train_decode_backward.launches = saved
+    return res
+
+
+def train_phase(specs, dev, card):
+    """The flagship train step at full width through cli/train.make_trainer:
+    launch counts, losses, ms/step and time by phase; one step two ways; a
+    profiled window.  Returns (state, record)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignsdf_torch.cli.train import make_trainer
+    from alignsdf_torch.data.synthetic import synthetic_train_batch
+    from alignsdf_torch.kernels.train_decoder import (
+        train_decode, train_decode_backward, train_decode_reference)
+    from alignsdf_torch.ops.train_plan import make_train_decoder
+    from alignsdf_torch.training.train_state import TrainState
+    from alignsdf_torch.training.train_step import batch_to_device, draw_seed, make_train_step
+
+    rec = {}
+    t0 = time.perf_counter()
+    state, step = make_trainer(specs, dev, seed=SEED, init_guard=True)
+    batch = batch_to_device(synthetic_train_batch(specs, TRAIN_SCENES, seed=SEED), dev)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(SEED)
+    model = state.model
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+
+    train_decode.launches = train_decode_backward.launches = 0
+    losses, marks = [], []
+    for _ in range(WARM_STEPS):
+        losses.append(step(state, batch, draw_seed(gen)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        evs = {}
+
+        def mark(name, evs=evs):
+            evs[name] = torch.cuda.Event(enable_timing=True)
+            evs[name].record()
+
+        mark("start")
+        losses.append(step(state, batch, draw_seed(gen), mark=mark))
+        marks.append(evs)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = {"fwd": train_decode.launches, "bwd": train_decode_backward.launches}
+    n_steps = WARM_STEPS + TIMED_STEPS
+    print(f"train steps {n_steps} at {TRAIN_SCENES} x {specs.samples_per_scene}: K2 launches "
+          f"{launches} (expected {2 * n_steps} each: 2 trunks a step)", flush=True)
+    if launches != {"fwd": 2 * n_steps, "bwd": 2 * n_steps}:
+        fail(f"K2 launches {launches} != {2 * n_steps} each")
+    totals = []
+    for i, lo in enumerate(losses):
+        vals = {k: float(v) for k, v in lo.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            fail(f"step {i}: non-finite loss {vals}")
+        totals.append(vals["total"])
+    print("total loss by step on the fixed batch: " + ", ".join(f"{t:.5f}" for t in totals),
+          flush=True)
+    if not totals[-1] < totals[0]:
+        fail(f"the total loss did not fall on the fixed batch: {totals[0]} -> {totals[-1]}")
+    still = [k for k, p in model.named_parameters() if torch.equal(p.detach(), before[k])]
+    if still:
+        fail(f"parameters did not move: {still[:5]}")
+    names = ("inputs", "decoder", "loss", "backward", "optimizer")
+    phase_ms = {n: float(np.mean([ev[prev].elapsed_time(ev[n]) for ev in marks]))
+                for prev, n in zip(("start",) + names[:-1], names)}
+    print(f"[{card}] train step {wall * 1e3:.2f} ms on the host clock "
+          f"({TRAIN_SCENES / wall:.2f} scenes/s); CUDA events by phase (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in phase_ms.items()), flush=True)
+    rec.update({"launches": launches, "totals": totals, "step_ms": wall * 1e3,
+                "scenes_per_s": TRAIN_SCENES / wall, "phase_ms": phase_ms})
+
+    # one step two ways from the same state and seed
+    twin = copy.deepcopy(model)
+    opt = type(state.optimizer)(twin.parameters(), **state.optimizer.defaults)
+    opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    plain_state = TrainState(twin, opt, state.epoch)
+    plain_step = make_train_step(specs, make_train_decoder(specs, kernel=train_decode_reference))
+    seed = draw_seed(gen)
+    saved = train_decode.launches, train_decode_backward.launches
+    # deterministic cuDNN and index_add_, so that K2 is all that differs:
+    # otherwise the encoder's gradients differ between two plain steps
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        lk = {k: float(v) for k, v in step(state, batch, seed).items()}
+        lp = {k: float(v) for k, v in plain_step(plain_state, batch, seed).items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    train_decode.launches, train_decode_backward.launches = saved
+    loss_rel = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
+    twin_params = dict(twin.named_parameters())
+    param_err = max(float((p.detach() - twin_params[k].detach()).abs().max())
+                    for k, p in model.named_parameters())
+    # every gradient of the step (the optimizer leaves them in place), each
+    # against the plain step's, relative to its largest entry: Adam's update
+    # barely sees a wrong gradient, these do
+    grad_rel = {}
+    for k, p in model.named_parameters():
+        ref = twin_params[k].grad
+        grad_rel[k] = float((p.grad - ref).abs().max()) / (float(ref.abs().max()) + 1e-30)
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:4]
+    worst_decoder = max(v for k, v in grad_rel.items() if k.startswith("decoder."))
+    print(f"one step two ways (K2 vs plain): losses max rel err {loss_rel:.3e} (tolerance "
+          f"{TWO_WAYS_LOSS_RTOL:g}), updated parameters max abs err {param_err:.3e} "
+          f"(tolerance {TWO_WAYS_PARAM_ATOL:g}), gradients max err of the largest "
+          f"{worst[0][1]:.3e}, of the decoder's {worst_decoder:.3e} (tolerance "
+          f"{TWO_WAYS_GRAD_RTOL:g}; worst " + ", ".join(f"{k} {v:.2e}" for k, v in worst)
+          + ")", flush=True)
+    if not (loss_rel <= TWO_WAYS_LOSS_RTOL and param_err <= TWO_WAYS_PARAM_ATOL
+            and worst[0][1] <= TWO_WAYS_GRAD_RTOL):
+        fail("the step through K2 and through its plain version disagree")
+    rec["two_ways"] = {"loss_max_rel_err": loss_rel, "param_max_abs_err": param_err,
+                       "grad_max_rel_err": grad_rel}
+    del twin, opt, plain_state
+
+    saved = train_decode.launches, train_decode_backward.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(state, batch, draw_seed(gen))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    train_decode.launches, train_decode_backward.launches = saved
+    summary = profile_summary(prof, prof_wall)
+    if summary is None:
+        print("train profile: not measured (the profiler recorded no device events)", flush=True)
+    else:
+        busy, share, by_kernel = summary
+        per = {"busy": busy,
+               "k2_fwd": sum(v for k, v in by_kernel.items() if k.startswith(K2_FWD_KERNELS)),
+               "k2_bwd": sum(v for k, v in by_kernel.items() if k.startswith(K2_BWD_KERNELS))}
+        per = {k: v / PROFILED_STEPS for k, v in per.items()}
+        per["other"] = per["busy"] - per["k2_fwd"] - per["k2_bwd"]
+        print(f"[{card}] {PROFILED_STEPS} profiled steps, {prof_wall * 1e3 / PROFILED_STEPS:.2f} "
+              f"ms each: device busy {per['busy']:.2f} ms a step, idle share {1 - share:.3f}; "
+              f"K2 fwd {per['k2_fwd']:.2f} ms, K2 bwd {per['k2_bwd']:.2f} ms, the rest (encoder "
+              f"fwd+bwd, fold, losses, optimizer) {per['other']:.2f} ms", flush=True)
+        for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {ms / PROFILED_STEPS:9.3f} ms/step  {name[:100]}", flush=True)
+        rec["profile"] = {"step_wall_ms": prof_wall * 1e3 / PROFILED_STEPS,
+                          "idle_share": 1 - share, "per_step_ms": per}
+    state.optimizer.zero_grad(set_to_none=True)
+    return state, rec
+
+
+def k2_timing(model, specs, dev, gen, card):
+    """K2 forward and backward per step (both trunks at TRAIN_SCENES x 2000)
+    against their plain versions and bounds."""
+    import torch
+
+    from alignsdf_torch.kernels.train_decoder import (
+        pack_trunk, train_decode, train_decode_backward, train_decode_backward_reference,
+        train_decode_forward, train_decode_reference)
+    from alignsdf_torch.ops.train_plan import make_train_decoder
+
+    st = make_train_decoder(specs).statics
+    m = TRAIN_SCENES * specs.samples_per_scene
+    latent = (torch.randn(TRAIN_SCENES, specs.latent_size, generator=gen) * 0.5).to(dev)
+    emb = (torch.randn(m, specs.point_feat_size, generator=gen) * 0.5).to(dev)
+    trunks = k2_operands(model, specs, latent, emb)
+    packs = [pack_trunk(e, ws, xs, bs, st) for _, _, e, ws, xs, bs in trunks]
+    work = [k2_work(ws, xs, bs, m, p) for (_, _, _, ws, xs, bs), p in zip(trunks, packs)]
+    fwd_flops, bwd_flops, fwd_bytes, bwd_bytes = (sum(w[i] for w in work) for i in range(4))
+    saved = train_decode.launches, train_decode_backward.launches
+    outs = [train_decode_forward(p, t[1], st) for p, t in zip(packs, trunks)]
+    dys = [torch.randn(tuple(y.shape), generator=gen).to(dev) for y, _ in outs]
+
+    def fwd_kernel():
+        for p, t in zip(packs, trunks):
+            train_decode_forward(p, t[1], st)
+
+    def bwd_kernel():
+        for p, (y, acts), dy in zip(packs, outs, dys):
+            train_decode_backward(p, st, y, acts, dy)
+
+    def fwd_plain():
+        with torch.no_grad():
+            for _, seed, e, ws, xs, bs in trunks:
+                train_decode_reference(e, ws, xs, bs, seed, st)
+
+    # the plain backward takes the same residuals, at the true widths
+    unpadded = [[a[:b.shape[-1]].T for a, b in zip(acts, bs)]
+                for (_, acts), (*_, bs) in zip(outs, trunks)]
+
+    def bwd_plain():
+        with torch.no_grad():
+            for (_, _, e, ws, xs, bs), (y, _), acts, dy in zip(trunks, outs, unpadded, dys):
+                train_decode_backward_reference(e, ws, xs, bs, st, y, acts, dy)
+
+    res = {}
+    for name, kern, plain, flops, nbytes in (("fwd", fwd_kernel, fwd_plain, fwd_flops, fwd_bytes),
+                                              ("bwd", bwd_kernel, bwd_plain, bwd_flops, bwd_bytes)):
+        k_ms = cuda_ms(kern, 5)       # kernel, plain, kernel: in turns on one card
+        p_ms = cuda_ms(plain, 5)
+        k_ms2 = cuda_ms(kern, 5)
+        ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        best = min(k_ms, k_ms2)
+        res[name] = {"ms": best, "ms_runs": [k_ms, k_ms2], "plain_ms": p_ms,
+                     "bound_ms": max(ops_ms, mem_ms),
+                     "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                     "tflop": flops / 1e12, "gbytes": nbytes / 1e9, "tflops": flops / best / 1e9}
+        print(f"[{card}] K2 {name} per step (2 trunks x {m} points, {flops / 1e12:.3f} TFLOP, "
+              f"{nbytes / 1e9:.3f} GB): kernel {k_ms:.2f} / {k_ms2:.2f} ms "
+              f"({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, bound "
+              f"{res[name]['bound_ms']:.2f} ms ({res[name]['bound_by']})", flush=True)
+    train_decode.launches, train_decode_backward.launches = saved
+    return res
+
+
 def main(record_path: Optional[str] = None) -> None:
     phase("device")
     try:
@@ -111,7 +462,6 @@ def main(record_path: Optional[str] = None) -> None:
         from alignsdf_torch.models.alignsdf import build_model
         from alignsdf_torch.ops.embeddings import kinematic_embedding
         from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
     except ImportError as e:
         fail(f"the port is not importable from {REPO}: {e}")
@@ -126,12 +476,13 @@ def main(record_path: Optional[str] = None) -> None:
 
     phase("build")
     t0 = time.perf_counter()
-    reports = build.build_all(["grid_decoder"])
+    reports = build.build_all(["grid_decoder", "train_decoder"])
     record["build_s"] = time.perf_counter() - t0
     print(f"built in {record['build_s']:.2f} s", flush=True)
-    for line in reports["grid_decoder"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "Function properties" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     # the flagship config at full width
     class Flags:
@@ -188,6 +539,26 @@ def main(record_path: Optional[str] = None) -> None:
     if not (max_err <= K1_TOL):
         fail(f"K1 disagrees with its plain version: {max_err}")
     record["k1_max_abs_err"] = max_err
+
+    record["k2_check"] = {}
+    for scenes in CHECK_SCENES:
+        phase(f"K2 vs plain ({scenes} x {specs.samples_per_scene} points, both trunks, "
+              "full flagship width, TF32 off)")
+        k2 = k2_check(model, specs, dev, gen, scenes)
+        print(f"K2 y max abs err {k2['y_max_abs_err']:.3e} (tolerance {K2_TOL:g}); gradients "
+              f"max err {k2['grad_max_abs_err']:.3e} abs, {k2['grad_max_rel_err']:.3e} of the "
+              f"largest (tolerance {K2_TOL:g}); kept share {k2['kept_share']}; residual sign "
+              f"mismatch {k2['residual_sign_mismatch']:.2e}", flush=True)
+        if not (k2["y_max_abs_err"] <= K2_TOL and k2["grad_max_rel_err"] <= K2_TOL):
+            fail(f"K2 disagrees with its plain version at {scenes} scenes")
+        if len(k2["kept_share"]) != 8 or not all(abs(v - 0.8) <= 0.01
+                                                 for v in k2["kept_share"].values()):
+            fail(f"kept shares off 0.8 +- 0.01: {k2['kept_share']}")
+        if not k2["residual_sign_mismatch"] <= 1e-4:
+            fail("K2's residuals are not gated as the plain version's")
+        record["k2_check"][scenes] = k2
+    # the kernels line reports the main path's shape
+    k2 = record["k2_check"][TRAIN_SCENES]
 
     phase(f"main path: run_pipelined, {N_IMAGES} images at cube_dim {CUBE_DIM}")
     mano_faces = np.load(os.path.join(REPO, "alignsdf_torch", "assets", "closed_fmano.npy"))
@@ -264,31 +635,25 @@ def main(record_path: Optional[str] = None) -> None:
     print(f"[{card}] warm: {N_IMAGES} images in {warm * 1e3:.1f} ms = "
           f"{N_IMAGES / warm:.3f} images/s at {CUBE_DIM}^3", flush=True)
     record["warm"] = {"wall_ms": warm * 1e3, "images_per_s": N_IMAGES / warm}
-    kernels_us, spans = {}, []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kernels_us[e.name] = kernels_us.get(e.name, 0.0) + e.time_range.elapsed_us()
-            spans.append((e.time_range.start, e.time_range.end))
-    if spans:
-        busy, end = 0.0, None
-        for a, b in sorted(spans):  # union of device intervals
-            if end is None or a > end:
-                busy += b - a
-                end = b
-            elif b > end:
-                busy += b - end
-                end = b
-        share = busy / (prof_wall * 1e6)
-        top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:6]
-        print(f"[{card}] profiled run {prof_wall * 1e3:.1f} ms: device busy {busy / 1e3:.1f} ms "
-              f"({share:.3f} of the wall clock), idle share {1 - share:.3f}", flush=True)
-        for name, us in top:
-            print(f"  {us / 1e3:9.2f} ms  {name[:100]}", flush=True)
-        record["profile"] = {"wall_ms": prof_wall * 1e3, "device_busy_ms": busy / 1e3,
-                             "busy_share": share, "top_device_ms": {k: v / 1e3 for k, v in top}}
-    else:
+    summary = profile_summary(prof, prof_wall)
+    if summary is None:
         print("device profile: not measured (the profiler recorded no device events)",
               flush=True)
+    else:
+        busy, share, by_kernel = summary
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[{card}] profiled run {prof_wall * 1e3:.1f} ms: device busy {busy:.1f} ms "
+              f"({share:.3f} of the wall clock), idle share {1 - share:.3f}", flush=True)
+        for name, ms in top:
+            print(f"  {ms:9.2f} ms  {name[:100]}", flush=True)
+        record["profile"] = {"wall_ms": prof_wall * 1e3, "device_busy_ms": busy,
+                             "busy_share": share, "top_device_ms": dict(top)}
+    del recon
+
+    phase(f"training: {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps at {TRAIN_SCENES} x "
+          f"{specs.samples_per_scene} points, one step two ways, {PROFILED_STEPS} profiled steps")
+    train_state, record["train"] = train_phase(specs, dev, card)
+    k2_launches = record["train"]["launches"]
 
     phase("timing: K1 and plain per grid pass")
     timing = {}
@@ -319,6 +684,10 @@ def main(record_path: Optional[str] = None) -> None:
     print(f"[{card}] K1 bound for one image at {CUBE_DIM}^3 (two passes, {image_flop:.2f} "
           f"TFLOP): {image_flop * 1e12 / FP32_PEAK_FLOPS * 1e3:.1f} ms", flush=True)
 
+    phase(f"timing: K2 forward and backward per step ({TRAIN_SCENES} x "
+          f"{specs.samples_per_scene} points, both trunks)")
+    record["k2_timing"] = k2_timing(train_state.model, specs, dev, gen, card)
+
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
         with open(record_path, "w") as f:
@@ -338,6 +707,22 @@ def main(record_path: Optional[str] = None) -> None:
         "bound_by": "operations",
         "library_ms": None,
     }]}
+    for name, line, err in (("fwd", 472, k2["y_max_abs_err"]),
+                            ("bwd", 652, k2["grad_max_abs_err"])):
+        t2 = record["k2_timing"][name]
+        kernels["kernels"].append({
+            "name": f"K2 scene-factored train decoder, {'forward' if name == 'fwd' else 'backward'}",
+            "route": "cuda",
+            "source": "alignsdf_torch/kernels/csrc/train_decoder.cu",
+            "replaces": f"alignsdf_tpu/ops/decoder_train_kernel.py:{line}",
+            "launches": k2_launches[name],
+            "max_abs_err": err,
+            "ms": t2["ms"],
+            "plain_ms": t2["plain_ms"],
+            "bound_ms": t2["bound_ms"],
+            "bound_by": t2["bound_by"],
+            "library_ms": None,
+        })
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""Kernel K1 on the card against its plain version.  Needs a CUDA GPU and
+"""Kernels K1 and K2 on the card against their plain versions.  Needs a CUDA GPU and
 skips without one; it imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -9,8 +9,19 @@ import torch
 
 from alignsdf_torch.config import NetworkSpecs, Specs
 from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
-from alignsdf_torch.models.decoder import SeparateDecoder
-from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
+from alignsdf_torch.kernels.train_decoder import (
+    flatten_params,
+    pack_trunk,
+    train_decode,
+    train_decode_backward,
+    train_decode_backward_reference,
+    train_decode_forward,
+    train_decode_reference,
+    unflatten_params,
+)
+from alignsdf_torch.models.decoder import SeparateDecoder, make_decoder, trunk_prefixes
+from alignsdf_torch.ops.grid_plan import branch_columns, make_grid_decode_fn
+from alignsdf_torch.ops.train_plan import make_train_decoder, trunk_operands
 
 
 def _rigid(gen, count):
@@ -51,3 +62,58 @@ def test_cuda_kernel_matches_plain(dims, n, base, cut):
     ref = grid_decode_reference(plan, base, m, origin, voxel)
     assert out.shape == (2, m)
     assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,scenes,n,train,model_type",
+                         [((64,) * 4, 3, 128, True, "1encoder2decoder"),
+                          ((512,) * 4, 4, 2000, True, "1encoder2decoder"),
+                          ((512,) * 4, 2, 2000, False, "1encoder2decoder"),
+                          ((512,) * 4, 2, 2000, True, "1encoder1decoder")])
+def test_cuda_train_kernel_matches_plain(dims, scenes, n, train, model_type):
+    """K2 forward and backward on each trunk (the twin trunks, or the one
+    combined trunk with two outputs), through the autograd Function, against
+    the plain versions on the same card, TF32 off: y to 1e-5 abs against the
+    plain forward, every gradient to 1e-4 of its largest entry against the
+    plain backward fed the kernel's own residuals (autograd through the plain
+    forward would differ wherever rounding flips a unit at ReLU's edge; sums
+    run in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(1)
+    latent_size = 256 if dims[0] == 512 else 32
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9,
+                  latent_size=latent_size, samples_per_scene=n,
+                  network_specs=NetworkSpecs(dims=dims))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        decoder = make_decoder(model_type, latent_size, 9, "both", specs.network_specs).cuda()
+    latent = torch.randn(scenes, latent_size, generator=gen).cuda()
+    emb = (torch.randn(scenes * n, 9, generator=gen) * 0.5).cuda()
+    st = make_train_decoder(specs).statics._replace(train=train)
+    first, second = trunk_prefixes(decoder)
+    cols_h, cols_o = branch_columns(specs)
+    trunks = ([(first, cols_h, 5, 1), (second, cols_o, 6, 1)] if second
+              else [(first, cols_h, 5, 2)])
+    for prefix, cols, seed, out_dim in trunks:
+        with torch.no_grad():
+            ws, xs, bs = trunk_operands(decoder, prefix, len(cols), latent, specs, out_dim)
+        e = emb[:, list(cols)].contiguous()
+        leaves = [t.detach().clone().requires_grad_() for t in [e, *flatten_params(ws, xs, bs)]]
+        fwd, bwd = train_decode.launches, train_decode_backward.launches
+        y = train_decode(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
+        dy = torch.randn(y.shape, generator=gen).cuda()
+        grads = torch.autograd.grad(y, leaves, dy)
+        torch.cuda.synchronize()
+        assert (train_decode.launches, train_decode_backward.launches) == (fwd + 1, bwd + 1)
+        with torch.no_grad():
+            y_ref = train_decode_reference(e, ws, xs, bs, seed, st)
+            assert y.shape == y_ref.shape == (out_dim, scenes * n)
+            assert float((y - y_ref).abs().max()) <= 1e-5
+            y_k, acts = train_decode_forward(pack_trunk(e, ws, xs, bs, st), seed, st)
+            acts = [a[:b.shape[-1]].T for a, b in zip(acts, bs)]
+            demb, dws, dxs, dbs = train_decode_backward_reference(e, ws, xs, bs, st, y_k, acts, dy)
+        for g, r in zip(grads, [demb, *flatten_params(dws, dxs, dbs)]):
+            assert g.shape == r.shape
+            assert float((g - r).abs().max()) <= 1e-4 * (float(r.abs().max()) + 1e-12)
