@@ -4,14 +4,16 @@ reference reconstruct.py:107-178).
 Usage:
     python -m alignsdf_torch.cli.reconstruct -e <experiment_dir> -t obman \\
         --samples samples.npz [--checkpoint latest | --weights model.pth] \\
-        [--start_point A --end_point B] [--cube_dim 128] [--device cuda]
+        [--start_point A --end_point B] [--cube_dim 128] [--device cuda] \\
+        [--ref_pixel_projection]
 
 Weights are a reference-schema torch checkpoint,
 ``<experiment_dir>/ModelParameters/<checkpoint>.pth`` ({"epoch",
 "model_state_dict"} or a bare state_dict), or ``--weights``.  Samples come
 from an npz holding ``image`` (S, H, W, 3) uint8, ``cam_intr`` (S, 3, 4),
 ``mano_root`` (S, 3), ``rest_obj_corners`` (S, 8, 3) and ``key`` (S,).
-Outputs go to ``<experiment_dir>/Eval_<task>/``.
+Outputs go to ``<experiment_dir>/Eval_<task>/``.  A pixel-aligned
+experiment (``PixelAlign``) reconstructs through kernel K3.
 """
 
 from __future__ import annotations
@@ -73,6 +75,11 @@ def main(argv=None):
     parser.add_argument("--weights", default=None,
                         help="torch checkpoint to load instead of ModelParameters/")
     parser.add_argument("--device", default=None, help="default: cuda")
+    parser.add_argument("--ref_pixel_projection", action="store_true",
+                        help="pixel-align configs: project the embedding's first three "
+                             "columns as the reference's mesh path does, instead of the "
+                             "raw grid coordinates as its train path does "
+                             "(see inference/grid.py)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(force=True, level=logging.INFO,
@@ -92,7 +99,7 @@ def main(argv=None):
     mano_faces = np.load(os.path.join(os.path.dirname(os.path.dirname(__file__)),
                                       "assets", "closed_fmano.npy"))
     recon = Reconstructor(model, specs, cube_dim=args.cube_dim, device=device,
-                          mano_faces=mano_faces)
+                          mano_faces=mano_faces, pixel_ref_projection=args.ref_pixel_projection)
 
     t0 = time.time()
 

@@ -30,6 +30,7 @@ from alignsdf_torch.training import checkpoints as ckpt
 from alignsdf_torch.training.train_state import TrainState
 from alignsdf_torch.training.train_step import (
     batch_to_device,
+    check_trainable,
     draw_seed,
     healthy_init_train_state,
     init_train_state,
@@ -49,6 +50,7 @@ def make_trainer(specs: cfg.Specs, device, seed: int = 0,
     re-draws the seeded init until its probe predictions sit inside the
     clamp band (unless ``init_guard`` is False); ``step(state, batch, seed)``
     is the K2 train step."""
+    check_trainable(specs)
     if init_guard and specs.clamping_distance:
         state, tries = healthy_init_train_state(specs, device, seed)
         if tries > 1:

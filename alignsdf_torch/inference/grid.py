@@ -16,6 +16,7 @@ import torch
 
 from alignsdf_torch.config import Specs
 from alignsdf_torch.ops.embeddings import kinematic_embedding, nerf_embed_for_point_feat
+from alignsdf_torch.ops.geometry import pixel_alignment
 
 
 class GridResult(NamedTuple):
@@ -67,14 +68,26 @@ def make_grid_evaluator(
     chunk: int = 1 << 18,
     two_pass: bool = True,
     grid_decode_fn: Optional[Callable] = None,
+    pixel_ref_projection: bool = False,
 ):
     """evaluate(ctx) -> GridResult on the latent's device.
 
     ``decode_fn(ctx, rows)`` is the generic path: it decodes materialized
-    [latent, embedding] rows into (sdf_hand (M, 1), sdf_obj (M, 1)).
-    ``grid_decode_fn`` (ops.grid_plan.make_grid_decode_fn) is the fused path:
+    [latent, embedding] rows into (sdf_hand (M, 1), sdf_obj (M, 1)).  A
+    (1, L) latent is broadcast to every point; a (1, C, Hf, Wf) feature map
+    (pixel-aligned configs, with ``cam_intr`` and ``pred_root`` in ctx) is
+    sampled at each point's projection.  ``grid_decode_fn``
+    (ops.grid_plan.make_grid_decode_fn or
+    ops.pixel_grid_plan.make_pixel_grid_decode_fn) is the fused path:
     ``grid_decode_fn(ctx)`` prepares a decode(base, m, origin, voxel) that
     derives the coordinates itself; it is used instead when given.
+
+    ``pixel_ref_projection`` projects the embedding's first three columns,
+    as the reference's mesh path does (reference utils/mesh.py:47-55).  For
+    kinematic embeddings those are xyz + rot_center * sf / 2, a shift its
+    train path (utils/utils.py:536-549, raw xyz) does not apply: a
+    train/inference inconsistency of the reference.  The default projects
+    the raw grid coordinates, as training does.
     """
     total = n ** 3
     if grid_decode_fn is not None:
@@ -103,8 +116,15 @@ def make_grid_evaluator(
                 h[start:start + m], o[start:start + m] = out[0], out[1]
                 continue
             idx = torch.arange(start, start + m, device=device)
-            emb = embed(ctx, _coords_from_linear(idx, n, origin, voxel))
-            latent = ctx["latent"].expand(m, ctx["latent"].shape[1])
+            pts = _coords_from_linear(idx, n, origin, voxel)
+            emb = embed(ctx, pts)
+            latent = ctx["latent"]
+            if latent.ndim == 4:
+                latent = pixel_alignment(latent, emb[:, :3] if pixel_ref_projection else pts,
+                                         ctx["cam_intr"], ctx["pred_root"],
+                                         specs.image_size[0], specs.sdf_scale_factor)
+            else:
+                latent = latent.expand(m, latent.shape[1])
             sdf_h, sdf_o = decode_fn(ctx, torch.cat([latent, emb], dim=1))
             h[start:start + m], o[start:start + m] = sdf_h[:, 0], sdf_o[:, 0]
         return h.reshape(n, n, n), o.reshape(n, n, n)

@@ -2,8 +2,9 @@
 ``inference/reconstruct.py``; reference reconstruct.py:33-95 and the host
 side of utils/mesh.py).
 
-Per image: encode -> MANO and object pose -> two-pass grid (kernel K1 when
-the config allows the fused path) -> marching cubes -> PLY/JSON exports.
+Per image: encode -> MANO and object pose -> two-pass grid (kernel K1, or
+K3 for pixel-aligned configs, when the config allows the fused path) ->
+marching cubes -> PLY/JSON exports.
 ``submit`` enqueues the device work on the reconstructor's CUDA stream and
 starts copies of the results into pinned host memory; ``finalize`` waits for
 them and does the host work.  ``run_pipelined`` keeps ``lookahead`` images
@@ -30,6 +31,7 @@ from alignsdf_torch.geom.marching_cubes import marching_cubes
 from alignsdf_torch.geom.meshlib import TriMesh, largest_component, read_obj
 from alignsdf_torch.inference.grid import make_grid_evaluator
 from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
+from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
 
 logger = logging.getLogger(__name__)
 
@@ -57,19 +59,28 @@ def fused_grid_allowed(specs: Specs) -> bool:
 
 
 class Reconstructor:
-    """Encoder and grid evaluator of one model, on one device."""
+    """Encoder and grid evaluator of one model, on one device.
+
+    ``pixel_ref_projection``: for pixel-aligned configs, project the
+    embedding's first three columns as the reference's mesh path does,
+    instead of the raw grid coordinates (inference/grid.py)."""
 
     def __init__(self, model, specs: Specs, cube_dim: int = 128,
                  device: Optional[Union[str, torch.device]] = None,
-                 mano_faces: Optional[np.ndarray] = None):
+                 mano_faces: Optional[np.ndarray] = None,
+                 pixel_ref_projection: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.specs = specs
         self.cube_dim = cube_dim
         self.mano_faces = mano_faces
-        grid_decode_fn = make_grid_decode_fn(specs, cube_dim) if fused_grid_allowed(specs) else None
+        grid_decode_fn = None
+        if fused_grid_allowed(specs):
+            grid_decode_fn = (make_pixel_grid_decode_fn(specs, cube_dim, pixel_ref_projection)
+                              if specs.pixel_align else make_grid_decode_fn(specs, cube_dim))
         self.evaluate_grid = make_grid_evaluator(lambda ctx, rows: ctx["decoder"](rows), specs,
-                                                 cube_dim, grid_decode_fn=grid_decode_fn)
+                                                 cube_dim, grid_decode_fn=grid_decode_fn,
+                                                 pixel_ref_projection=pixel_ref_projection)
         self.stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda" else None)
 
     def _on_stream(self):
@@ -104,13 +115,16 @@ class Reconstructor:
                 return t.reshape(shape).to(self.device, non_blocking=True)
 
             ev0 = self._event()
+            cam_intr = dev("cam_intr", (1,) + np.shape(sample["cam_intr"])).float()
             latent, mano_results, obj_results = self.model.encode_scene(
-                dev("image", (1,) + np.shape(sample["image"])),
-                dev("cam_intr", (1,) + np.shape(sample["cam_intr"])).float(),
+                dev("image", (1,) + np.shape(sample["image"])), cam_intr,
                 dev("mano_root", (1, -1)).float(),
                 dev("rest_obj_corners", (1,) + np.shape(sample["rest_obj_corners"])).float())
             ev1 = self._event()
             ctx: Dict[str, Any] = {"decoder": self.model.decoder, "latent": latent}
+            if self.specs.pixel_align:
+                ctx["cam_intr"] = cam_intr
+                ctx["pred_root"] = mano_results["joints"][:, 0:1]
             if mano_results is not None and self.specs.encode_style != "nerf":
                 ctx["rot_center"] = mano_results["rot_center"]
                 ctx["global_trans"] = mano_results["global_trans"]

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` beside this file
-(the hash is of the source, so an edited kernel rebuilds), then loaded with
-``ctypes``.  ``build_all`` starts one ``nvcc`` per source, all at once.
+(the hash is of the source and of the shared ``csrc/*.cuh`` headers, so an
+edited kernel or header rebuilds), then loaded with ``ctypes``.  ``build_all`` starts one ``nvcc`` per source, all at once.
 Nothing here runs at import time.
 """
 
@@ -34,9 +34,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for source in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, source), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build_all(names: Iterable[str]) -> Dict[str, str]:

@@ -18,133 +18,21 @@
 //
 // Design: one block of 256 threads owns a tile of 32 points.  The tile's
 // activations stay in shared memory as [feature][point] (two ping-pong
-// buffers of max_pad x 32 floats), and the block walks the layers.  A layer
-// is computed in chunks of 256 output features; each thread holds an 8x4
-// (feature x point) register tile of accumulators.  Weights ([in][out], out
-// contiguous, zero padded to multiples of 256) stream from global memory --
-// both flagship trunks are ~4.2 MB and sit in the 50 MB L2 -- through a
-// 32 x 256 shared-memory tile that the block shares across its 32 points;
-// the next tile is prefetched into registers while the current one is used.
+// buffers of max_pad x 32 floats), and the block walks the layers with the
+// streamed tile product of tile_product.cuh (both flagship trunks are ~4.2
+// MB of weights and sit in the 50 MB L2).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TILE_P 32      // points per block
-#define NTHREADS 256   // threads per block
-#define OCHUNK 256     // output features per chunk
-#define BK 32          // k depth of one weight tile
+#include "tile_product.cuh"
+
 #define MAX_TRUNKS 2
 #define MAX_HIDDEN 8
-#define N_ROWS 2
 
 struct Layer { int w, x, b, in_pad, out_pad; };  // offsets into prm; -1 = none
 struct Trunk { int n_hidden, fin, fin_xyz, last_pad; Layer layers[MAX_HIDDEN]; };
 struct Plan { int n_trunks, fin_b, max_pad; Trunk trunks[MAX_TRUNKS]; };
-
-// Weight tile [BK][OCHUNK] of W ([in_pad][out_pad]) at rows k0.., columns oc..:
-// 2048 float4, 8 per thread, 64 threads per row (coalesced).
-__device__ __forceinline__ void load_tile(float4 (&pre)[8], const float* __restrict__ w,
-                                          int out_pad, int k0, int oc, int tid) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int f = tid + i * NTHREADS;
-    int row = f >> 6, col = (f & 63) << 2;
-    pre[i] = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k0 + row) * out_pad + oc + col));
-  }
-}
-
-__device__ __forceinline__ void store_tile(float* ws, const float4 (&pre)[8], int tid) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int f = tid + i * NTHREADS;
-    reinterpret_cast<float4*>(ws)[f] = pre[i];
-  }
-}
-
-// out[o][p] = relu(b[o] + sum_k W[k][o] in[k][p] + X[:, o] . xyz[p]).
-__device__ void hidden_layer(const float* __restrict__ prm, const Layer& L,
-                             const float* in, float* out, float* ws,
-                             const float* xyz, int tid) {
-  const int tx = tid & 7;   // points tx*4 .. tx*4+3
-  const int ty = tid >> 3;  // features ty*8 .. ty*8+7 of the chunk
-  for (int oc = 0; oc < L.out_pad; oc += OCHUNK) {
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    if (L.w >= 0) {
-      const float* w = prm + L.w;
-      float4 pre[8];
-      load_tile(pre, w, L.out_pad, 0, oc, tid);
-      for (int k0 = 0; k0 < L.in_pad; k0 += BK) {
-        __syncthreads();  // every thread is done reading the previous tile
-        store_tile(ws, pre, tid);
-        __syncthreads();
-        if (k0 + BK < L.in_pad) load_tile(pre, w, L.out_pad, k0 + BK, oc, tid);
-#pragma unroll 8
-        for (int kk = 0; kk < BK; ++kk) {
-          const float4 a = *reinterpret_cast<const float4*>(in + (k0 + kk) * TILE_P + tx * 4);
-          const float4 w0 = *reinterpret_cast<const float4*>(ws + kk * OCHUNK + ty * 8);
-          const float4 w1 = *reinterpret_cast<const float4*>(ws + kk * OCHUNK + ty * 8 + 4);
-          const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-          const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], av[j], acc[i][j]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int o = oc + ty * 8 + i;
-      const float bo = __ldg(prm + L.b + o);
-      float wx = 0.f, wy = 0.f, wz = 0.f;
-      if (L.x >= 0) {
-        wx = __ldg(prm + L.x + o);
-        wy = __ldg(prm + L.x + L.out_pad + o);
-        wz = __ldg(prm + L.x + 2 * L.out_pad + o);
-      }
-      float r[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = tx * 4 + j;
-        float v = acc[i][j] + bo;
-        if (L.x >= 0) v += wx * xyz[p] + wy * xyz[TILE_P + p] + wz * xyz[2 * TILE_P + p];
-        r[j] = fmaxf(v, 0.f);
-      }
-      *reinterpret_cast<float4*>(out + o * TILE_P + tx * 4) = make_float4(r[0], r[1], r[2], r[3]);
-    }
-  }
-  __syncthreads();  // `out` is complete before the next layer reads it
-}
-
-// oacc[r][p] += sum_k fin[r][k] act[k][p] (+ fin_xyz[r] . xyz[p]).  Warp w
-// sums row w/4 over k = w%4 (mod 4); lanes are points (conflict-free).
-__device__ void final_rows(const float* __restrict__ prm, const Trunk& T,
-                           const float* act, float* red, float* oacc,
-                           const float* xyz, int tid) {
-  const int p = tid & 31, w = tid >> 5, r = w >> 2, part = w & 3;
-  const float* f = prm + T.fin + r * T.last_pad;
-  float s = 0.f;
-  for (int k = part; k < T.last_pad; k += 4) s = fmaf(__ldg(f + k), act[k * TILE_P + p], s);
-  red[w * TILE_P + p] = s;
-  __syncthreads();
-  if (tid < N_ROWS * TILE_P) {
-    const int rr = tid / TILE_P, pp = tid % TILE_P;
-    float v = red[(rr * 4 + 0) * TILE_P + pp] + red[(rr * 4 + 1) * TILE_P + pp]
-            + red[(rr * 4 + 2) * TILE_P + pp] + red[(rr * 4 + 3) * TILE_P + pp];
-    if (T.fin_xyz >= 0) {
-      const float* fx = prm + T.fin_xyz + rr * 3;
-      v += fx[0] * xyz[pp] + fx[1] * xyz[TILE_P + pp] + fx[2] * xyz[2 * TILE_P + pp];
-    }
-    oacc[tid] += v;
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 grid_decoder_kernel(const float* __restrict__ prm, const Plan plan,
@@ -177,10 +65,12 @@ grid_decoder_kernel(const float* __restrict__ prm, const Plan plan,
     float* cur = act0;
     float* nxt = act1;
     for (int l = 0; l < T.n_hidden; ++l) {
-      hidden_layer(prm, T.layers[l], cur, nxt, ws, xyz, tid);
+      const Layer& L = T.layers[l];
+      hidden_layer(prm, L.w, L.x, -1, L.b, L.in_pad, L.out_pad, 0, cur, nullptr, nxt, ws, xyz,
+                   tid);
       float* tmp = cur; cur = nxt; nxt = tmp;
     }
-    final_rows(prm, T, cur, ws, oacc, xyz, tid);
+    final_rows(prm, T.fin, T.fin_xyz, T.last_pad, cur, ws, oacc, xyz, tid);
   }
 
   if (tid < N_ROWS * TILE_P) {

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -95,15 +95,22 @@ class GridPlan:
         return self.view(int(self.desc[1]), (N_ROWS,))
 
 
-def pack_grid_plan(trunks: List[FoldedTrunk], n: int) -> GridPlan:
-    """Pad and pack folded trunks into a GridPlan on the trunks' device."""
+def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = ()
+                ) -> Tuple[torch.Tensor, np.ndarray]:
+    """Pad and pack trunks (FoldedTrunk-like: ``hidden`` layers with
+    ``w``/``b``, ``fin``, ``fin_x``, ``fin_b``, ``rows``) into one zeroed
+    float32 buffer on their device, each array starting on an ALIGN
+    boundary.  Returns (flat, desc), desc = [n_trunks, fin_b, max_pad,
+    *head, then per trunk n_hidden, fin, fin_xyz, last_pad, then per hidden
+    layer ``place_layer(place, layer, in_pad, out_pad)``], where
+    ``place(shape, fill)`` reserves an array with ``fill`` in its top-left
+    and returns its offset."""
     if not 1 <= len(trunks) <= _MAX_TRUNKS:
         raise ValueError(f"the kernel takes 1 or 2 trunks, got {len(trunks)}")
     pieces: List[Tuple[int, Tuple[int, ...], torch.Tensor]] = []
     cursor = 0
 
     def place(shape: Tuple[int, ...], fill: torch.Tensor) -> int:
-        """Reserve a zeroed (shape) array with ``fill`` in its top-left."""
         nonlocal cursor
         off = cursor
         cursor = _round_up(cursor + int(np.prod(shape)), ALIGN)
@@ -114,25 +121,24 @@ def pack_grid_plan(trunks: List[FoldedTrunk], n: int) -> GridPlan:
     fin_b = torch.zeros(N_ROWS, dtype=torch.float32, device=device)
     for t in trunks:
         fin_b[list(t.rows)] += t.fin_b
-    desc = [len(trunks), place((N_ROWS,), fin_b), 0]
+    desc = [len(trunks), place((N_ROWS,), fin_b), 0, *head]
     max_pad = PAD
     for t in trunks:
         if not 1 <= len(t.hidden) <= _MAX_HIDDEN or t.hidden[0].w is not None:
-            raise ValueError("a trunk needs 1-8 hidden layers and a folded layer 0")
+            raise ValueError("a trunk needs 1-8 hidden layers and a layer 0 whose "
+                             "embedding input is folded")
         layers = []
         in_pad = 0
         for h in t.hidden:
             out_pad = _round_up(h.b.shape[0], PAD)
             max_pad = max(max_pad, out_pad, in_pad)
-            layers.append([place((in_pad, out_pad), h.w) if h.w is not None else -1,
-                           place((3, out_pad), h.x) if h.x is not None else -1,
-                           place((out_pad,), h.b), in_pad, out_pad])
+            layers.append(place_layer(place, h, in_pad, out_pad))
             in_pad = out_pad
-        fin = torch.zeros(N_ROWS, t.fin.shape[0], dtype=torch.float32, device=t.fin.device)
+        fin = torch.zeros(N_ROWS, t.fin.shape[0], dtype=torch.float32, device=device)
         fin[list(t.rows)] = t.fin.T
         fin_xyz = -1
         if t.fin_x is not None:
-            fx = torch.zeros(N_ROWS, 3, dtype=torch.float32, device=t.fin.device)
+            fx = torch.zeros(N_ROWS, 3, dtype=torch.float32, device=device)
             fx[list(t.rows)] = t.fin_x.T
             fin_xyz = place((N_ROWS, 3), fx)
         desc += [len(t.hidden), place((N_ROWS, in_pad), fin), fin_xyz, in_pad]
@@ -147,7 +153,18 @@ def pack_grid_plan(trunks: List[FoldedTrunk], n: int) -> GridPlan:
             dst[:fill.shape[0]] = fill
         else:
             dst[:fill.shape[0], :fill.shape[1]] = fill
-    return GridPlan(flat, np.asarray(desc, np.int32), n)
+    return flat, np.asarray(desc, np.int32)
+
+
+def pack_grid_plan(trunks: List[FoldedTrunk], n: int) -> GridPlan:
+    """Pad and pack folded trunks into a GridPlan on the trunks' device."""
+
+    def layer(place, h: HiddenLayer, in_pad: int, out_pad: int) -> List[int]:
+        return [place((in_pad, out_pad), h.w) if h.w is not None else -1,
+                place((3, out_pad), h.x) if h.x is not None else -1,
+                place((out_pad,), h.b), in_pad, out_pad]
+
+    return GridPlan(*pack_trunks(trunks, layer), n)
 
 
 def grid_coords(base: int, m: int, n: int, origin: torch.Tensor,

@@ -1,0 +1,259 @@
+"""Kernel K3: the fused pixel-aligned SDF grid decoder, its packed plan, its
+plain PyTorch version and the wrapper that launches the CUDA kernel.
+
+Replaces ``alignsdf_tpu/ops/decoder_kernel.py:make_fused_pixel_grid_kernel_t``.
+For a run of ``m`` contiguous linear grid indices from ``base`` (z fastest)
+it derives xyz, projects each point into the image, takes as its latent the
+bicubic sample of the feature map there (or the map's mean for a point
+outside the image), runs the trunks and returns a (2, m) float32 field, row
+0 hand, row 1 object.  The CUDA source is ``csrc/pixel_grid_decoder.cu``.
+
+``pixel_grid_decode`` takes the plain version only for a plan on the CPU;
+for a plan on the GPU it launches the kernel or raises.
+``pixel_grid_decode.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from alignsdf_torch.kernels.grid_decoder import (
+    MAX_SMEM,
+    N_ROWS,
+    PAD,
+    GridPlan,
+    _round_up,
+    grid_coords,
+    pack_trunks,
+)
+from alignsdf_torch.ops.geometry import bicubic_gather
+
+LAT_ALIGN = 32  # the latent tile's rows pad to the kernel's k depth
+N_PROJ = 28     # projection scalars, laid out as in make_pixel_projection
+_TILE_P, _BK = 32, 32
+_HEAD = 7       # desc entries before the first trunk
+
+
+class PixelHiddenLayer(NamedTuple):
+    """One hidden layer: relu(b + a @ w + latent @ lat + xyz @ x)."""
+
+    w: Optional[torch.Tensor]    # (in, out); None for layer 0
+    lat: Optional[torch.Tensor]  # (C, out) or None
+    x: Optional[torch.Tensor]    # (3, out) or None
+    b: torch.Tensor              # (out,)
+
+
+class PixelTrunk(NamedTuple):
+    """A trunk whose embedding is folded into xyz weights and biases and
+    whose latent stays an input: hidden layers, then ``fin @ a + fin_x @
+    xyz + fin_b`` written to output ``rows``."""
+
+    hidden: List[PixelHiddenLayer]
+    fin: torch.Tensor              # (last_in, len(rows)), columns in row order
+    fin_x: Optional[torch.Tensor]  # (3, len(rows)) or None
+    fin_b: torch.Tensor            # (len(rows),)
+    rows: Sequence[int]
+
+
+@dataclass
+class PixelGridPlan(GridPlan):
+    """Trunks packed into one float32 buffer in the kernel's layout, the
+    feature table and the projection scalars.
+
+    ``desc`` is the int32 layout descriptor ``pixel_grid_decoder.cu`` reads:
+    [n_trunks, fin_b, max_pad, C, lat_pad, Hf, Wf, then per trunk n_hidden,
+    fin, fin_xyz, last_pad, then per hidden layer w, x, lat, b, in_pad,
+    out_pad] (offsets in floats, -1 = absent).  Hidden weights are (in_pad,
+    out_pad) with out contiguous, latent weights (lat_pad, out_pad), xyz
+    weights (3, out_pad), final rows (N_ROWS, last_pad).  ``table`` is the
+    (Hf * Wf + 1, C) map, channels contiguous, then its mean row.
+    """
+
+    table: torch.Tensor
+    proj: torch.Tensor
+
+    @property
+    def feat_hw(self) -> Tuple[int, int]:
+        return int(self.desc[5]), int(self.desc[6])
+
+    def trunks(self):
+        """Yield (hidden [(w|None, lat|None, x|None, b)], fin, fin_xyz|None)
+        views."""
+        d = self.desc.tolist()
+        lat_pad = d[4]
+        pos = _HEAD
+        for _ in range(d[0]):
+            n_hidden, fin, fin_xyz, last_pad = d[pos:pos + 4]
+            pos += 4
+            hidden = []
+            for _ in range(n_hidden):
+                w, x, lat, b, in_pad, out_pad = d[pos:pos + 6]
+                pos += 6
+                hidden.append((self.view(w, (in_pad, out_pad)) if w >= 0 else None,
+                               self.view(lat, (lat_pad, out_pad)) if lat >= 0 else None,
+                               self.view(x, (3, out_pad)) if x >= 0 else None,
+                               self.view(b, (out_pad,))))
+            yield (hidden, self.view(fin, (N_ROWS, last_pad)),
+                   self.view(fin_xyz, (N_ROWS, 3)) if fin_xyz >= 0 else None)
+
+
+def make_pixel_projection(a_proj: torch.Tensor, b_proj: torch.Tensor, cam: torch.Tensor,
+                          root: torch.Tensor, sdf_scale_factor: float, feat_hw: Tuple[int, int],
+                          image_size: int) -> torch.Tensor:
+    """The (28,) float32 projection scalars: [0:9] A row-major and [9:12] b of
+    the projected point e = xyz @ A + b; [12:21] the camera K row-major;
+    [21:24] the hand root; then 2 / sdf_scale_factor, (Wf - 1) / image_size,
+    (Hf - 1) / image_size and image_size (JAX decoder_kernel.py:1345-1352)."""
+    hf, wf = feat_hw
+    tail = torch.tensor([2.0 / sdf_scale_factor, (wf - 1) / image_size,
+                         (hf - 1) / image_size, float(image_size)], dtype=torch.float32)
+    return torch.cat([a_proj.reshape(9).float(), b_proj.reshape(3).float(),
+                      cam.reshape(9).float(), root.reshape(3).float(),
+                      tail.to(a_proj.device)]).contiguous()
+
+
+def make_feature_table(fmap: torch.Tensor) -> torch.Tensor:
+    """(1, C, Hf, Wf) map -> (Hf * Wf + 1, C) float32: pixels row-major with
+    channels contiguous, then the mean feature."""
+    _, c, hf, wf = fmap.shape
+    rows = fmap[0].to(torch.float32).reshape(c, hf * wf).T
+    return torch.cat([rows, rows.mean(dim=0, keepdim=True)], dim=0).contiguous()
+
+
+def pack_pixel_grid_plan(trunks: List[PixelTrunk], table: torch.Tensor, proj: torch.Tensor,
+                         feat_hw: Tuple[int, int], n: int) -> PixelGridPlan:
+    """Pad and pack trunks into a PixelGridPlan on the trunks' device."""
+    hf, wf = feat_hw
+    c = table.shape[1]
+    if table.shape[0] != hf * wf + 1:
+        raise ValueError(f"a {hf}x{wf} map needs {hf * wf + 1} table rows, got {table.shape[0]}")
+    if proj.shape != (N_PROJ,):
+        raise ValueError(f"the projection has {N_PROJ} scalars, got {tuple(proj.shape)}")
+    lat_pad = _round_up(c, LAT_ALIGN)
+
+    def layer(place, h: PixelHiddenLayer, in_pad: int, out_pad: int) -> List[int]:
+        return [place((in_pad, out_pad), h.w) if h.w is not None else -1,
+                place((3, out_pad), h.x) if h.x is not None else -1,
+                place((lat_pad, out_pad), h.lat) if h.lat is not None else -1,
+                place((out_pad,), h.b), in_pad, out_pad]
+
+    flat, desc = pack_trunks(trunks, layer, head=(c, lat_pad, hf, wf))
+    device = flat.device
+    return PixelGridPlan(flat, desc, n, table.to(device=device, dtype=torch.float32).contiguous(),
+                         proj.to(device=device, dtype=torch.float32).contiguous())
+
+
+def pixel_projection(plan: PixelGridPlan, base: int, m: int, origin: torch.Tensor,
+                     voxel: torch.Tensor):
+    """(xyz (m, 3), xp (m,), yp (m,), in_image (m,) bool) of grid indices
+    base..base+m: the kernel's projection, one rounding per operation in the
+    kernel's order, so that both agree bit for bit on which points lie in
+    the image.  xp, yp are 0 outside it."""
+    xyz = grid_coords(base, m, plan.n, origin, voxel)
+    p = plan.proj
+    x, y, z = xyz.unbind(1)
+    e = [p[j] * x + p[3 + j] * y + p[6 + j] * z + p[9 + j] for j in range(3)]
+    cam = [e[j] * p[24] + p[21 + j] for j in range(3)]
+    xh, yh, zh = (p[12 + 3 * r] * cam[0] + p[13 + 3 * r] * cam[1] + p[14 + 3 * r] * cam[2]
+                  for r in range(3))
+    inv = 1.0 / zh
+    xi, yi = xh * inv, yh * inv
+    size = p[27]
+    inside = (xi >= 0.0) & (xi <= size) & (yi >= 0.0) & (yi <= size) & (zh != 0.0)
+    zero = torch.zeros_like(xi)
+    return (xyz, torch.where(inside, xi * p[25], zero), torch.where(inside, yi * p[26], zero),
+            inside)
+
+
+def pixel_grid_decode_reference(plan: PixelGridPlan, base: int, m: int, origin: torch.Tensor,
+                                voxel: torch.Tensor) -> torch.Tensor:
+    """The plain version of K3: the same projection, the 16-tap bicubic
+    gather of the table, and the trunks with torch.matmul.  Returns
+    (N_ROWS, m) float32."""
+    xyz, xp, yp, inside = pixel_projection(plan, base, m, origin, voxel)
+    hf, wf = plan.feat_hw
+    c = plan.table.shape[1]
+    sampled = bicubic_gather(plan.table[None], xp[None], yp[None], hf, wf)[0]
+    latent = torch.where(inside[:, None], sampled, plan.table[hf * wf][None, :])
+    lat_pad = int(plan.desc[4])
+    if lat_pad > c:
+        latent = torch.nn.functional.pad(latent, (0, lat_pad - c))
+    acc = plan.fin_b[:, None].expand(N_ROWS, m).clone()
+    for hidden, fin, fin_xyz in plan.trunks():
+        a = None
+        for w, lat, x, b in hidden:
+            h = b[None, :]
+            if w is not None:
+                h = h + a @ w
+            if lat is not None:
+                h = h + latent @ lat
+            if x is not None:
+                h = h + xyz @ x
+            a = torch.relu(h)
+        acc = acc + fin @ a.T
+        if fin_xyz is not None:
+            acc = acc + fin_xyz @ xyz.T
+    return torch.tanh(acc)
+
+
+def _launcher():
+    from alignsdf_torch.kernels.build import load
+
+    lib = load("pixel_grid_decoder")
+    fn = lib.pixel_grid_decoder_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+def smem_bytes(max_pad: int, lat_pad: int) -> int:
+    """Dynamic shared memory of one block: two activation buffers, the
+    latent tile, the weight tile, xyz, the output rows and the per-point tap
+    table (4 row offsets, 4 columns, 8 weights and a flag a point)."""
+    return 4 * ((2 * max_pad + lat_pad) * _TILE_P + _BK * PAD + 3 * _TILE_P
+                + N_ROWS * _TILE_P + 17 * _TILE_P)
+
+
+def pixel_grid_decode(plan: PixelGridPlan, base: int, m: int, origin: torch.Tensor,
+                      voxel: torch.Tensor) -> torch.Tensor:
+    """K3: (N_ROWS, m) float32 SDFs of grid indices base..base+m."""
+    if plan.device.type == "cpu":
+        return pixel_grid_decode_reference(plan, base, m, origin, voxel)
+    if plan.device.type != "cuda":
+        raise ValueError(f"pixel_grid_decode runs on cuda or cpu, not {plan.device}")
+    for name, t in (("plan", plan.flat), ("table", plan.table), ("proj", plan.proj)):
+        if t.device != plan.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"the {name} must be contiguous float32 on {plan.device}")
+    if plan.flat.data_ptr() % 16:
+        raise ValueError("the plan buffer must be 16-byte aligned")
+    if m <= 0 or base < 0 or base + m > plan.n ** 3 or plan.n ** 3 >= 2 ** 31:
+        raise ValueError(f"index run [{base}, {base + m}) outside the {plan.n}^3 grid")
+    max_pad, lat_pad = int(plan.desc[2]), int(plan.desc[4])
+    if smem_bytes(max_pad, lat_pad) > MAX_SMEM:
+        raise ValueError(f"hidden width {max_pad} with a {lat_pad}-wide latent needs more "
+                         "shared memory than a block has")
+    scal = torch.cat([torch.as_tensor(origin, dtype=torch.float32).reshape(3).to(plan.device),
+                      torch.as_tensor(voxel, dtype=torch.float32).reshape(1).to(plan.device),
+                      plan.proj]).contiguous()
+    out = torch.empty((N_ROWS, m), dtype=torch.float32, device=plan.device)
+    desc = np.ascontiguousarray(plan.desc, np.int32)
+    with torch.cuda.device(plan.device):
+        stream = torch.cuda.current_stream(plan.device).cuda_stream
+        rc = _launcher()(plan.flat.data_ptr(), desc.ctypes.data, int(desc.size),
+                         plan.table.data_ptr(), scal.data_ptr(), int(base), int(m),
+                         int(plan.n), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"pixel_grid_decoder launch failed with code {rc}"
+                           + (" (plan rejected)" if rc == -1 else ""))
+    pixel_grid_decode.launches += 1
+    return out
+
+
+pixel_grid_decode.launches = 0

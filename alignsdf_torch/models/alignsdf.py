@@ -17,7 +17,7 @@ from alignsdf_torch.models.decoder import make_decoder
 from alignsdf_torch.models.manobranch import ManoBranch
 from alignsdf_torch.models.resnet import ResNetEncoder
 from alignsdf_torch.ops.embeddings import kinematic_embedding, nerf_embed_for_point_feat
-from alignsdf_torch.ops.geometry import get_obj_trans, soft_argmax
+from alignsdf_torch.ops.geometry import get_obj_trans, pixel_alignment, soft_argmax
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -34,9 +34,13 @@ def normalize_image_on_device(image: torch.Tensor) -> torch.Tensor:
 
 
 def check_supported(specs: Specs) -> None:
-    """Raise for spec features the port does not carry yet."""
+    """Raise for spec features the port does not carry yet, and for a
+    pixel-aligned spec without the MANO branch, whose predicted root the
+    projection is centred on."""
+    if specs.pixel_align and not specs.mano_branch:
+        raise ValueError("PixelAlign needs ManoBranch: points are projected about the "
+                         "predicted hand root")
     missing = [name for name, on in (
-        ("PixelAlign", specs.pixel_align),
         ("ClassifierBranch", specs.classifier_branch),
         ("ComputeDtype=bfloat16", specs.compute_dtype != "float32"),
     ) if on]
@@ -108,13 +112,16 @@ class AlignSDF(nn.Module):
     def encode_scene(self, image: torch.Tensor, cam_intr: torch.Tensor,
                      mano_root: torch.Tensor, rest_obj_corners: torch.Tensor
                      ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], Optional[Dict[str, Any]]]:
-        """(B, H, W, 3) image -> (latent (B, L), mano_results, obj_results)
-        for grid reconstruction (reference utils/utils.py:575-625 minus IO)."""
+        """(B, H, W, 3) image -> (latent, mano_results, obj_results) for grid
+        reconstruction (reference utils/utils.py:575-625 minus IO).  The
+        latent is (B, L), or for pixel-aligned specs the (B, 256, 64, 64)
+        float32 HeadNet map (NCHW)."""
         cond_input = {"cam_intr": cam_intr, "mano_root": mano_root,
                       "rest_obj_corners": rest_obj_corners}
         with self._mode(False):
-            sdf_feat, _, mano_results, obj_results = self._encode(image, cond_input, False)
-        return sdf_feat, mano_results, obj_results
+            sdf_feat, aux_feat, mano_results, obj_results = self._encode(image, cond_input, False)
+        latent = aux_feat if self.specs.pixel_align else sdf_feat
+        return latent.to(torch.float32), mano_results, obj_results
 
     def _scene_parts(self, image: torch.Tensor, xyz: torch.Tensor,
                      cond_input: Dict[str, torch.Tensor], train: bool):
@@ -139,12 +146,31 @@ class AlignSDF(nn.Module):
             xyz_embed = xyz
         return sdf_feat, aux_feat, xyz_embed, mano_results, obj_results
 
+    def decoder_inputs(self, image: torch.Tensor, xyz: torch.Tensor,
+                       cond_input: Dict[str, torch.Tensor], train: bool = False):
+        """Everything before the SDF decoder, as materialized per-point
+        [latent, embedding] rows: (rows (M, L + pfs), mano_results,
+        obj_results).  Pixel-aligned specs sample the HeadNet map at each
+        point's projection; the others repeat the scene's latent."""
+        sdf_feat, aux_feat, xyz_embed, mano_results, obj_results = self._scene_parts(
+            image, xyz, cond_input, train)
+        if self.specs.pixel_align:
+            latent = pixel_alignment(aux_feat.to(torch.float32), xyz, cond_input["cam_intr"],
+                                     mano_results["joints"][:, 0:1], self.specs.image_size[0],
+                                     self.specs.sdf_scale_factor)
+        else:
+            latent = sdf_feat.repeat_interleave(xyz.shape[0] // sdf_feat.shape[0], dim=0)
+        return torch.cat([latent, xyz_embed], dim=1), mano_results, obj_results
+
     def decoder_inputs_factored(self, image: torch.Tensor, xyz: torch.Tensor,
                                 cond_input: Dict[str, torch.Tensor], train: bool = False):
         """Everything before the SDF decoder, without materializing per-point
         [latent, embedding] rows: (latent (B, ls), xyz_embed (M, pfs),
         mano_results, obj_results).  The scene-factored train decoder folds
-        the latent into per-scene biases instead (ops/train_plan.py)."""
+        the latent into per-scene biases instead (ops/train_plan.py).
+        Broadcast-latent specs only: a pixel-aligned latent is per point."""
+        if self.specs.pixel_align:
+            raise ValueError("pixel-aligned latents are per point; use decoder_inputs")
         sdf_feat, _, xyz_embed, mano_results, obj_results = self._scene_parts(
             image, xyz, cond_input, train)
         return sdf_feat, xyz_embed, mano_results, obj_results

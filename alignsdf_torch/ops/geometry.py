@@ -1,5 +1,5 @@
 """Camera and pose geometry, matched to the JAX package's ``ops/geometry.py``
-(reference utils/utils.py:466-518, networks/manobranch.py:9-22)."""
+(reference utils/utils.py:466-558, networks/manobranch.py:9-22)."""
 
 from __future__ import annotations
 
@@ -71,3 +71,92 @@ def recover_3d_proj(
     est_xy0 = (est_trans.reshape(batch, 2) + img_centers - cam_centers) * est_z0 / focal
     est_c3d = torch.cat([est_xy0, est_z0], dim=-1)[:, None]
     return est_c3d + objpoints3d, est_c3d
+
+
+def keys_cubic_taps(t: torch.Tensor) -> torch.Tensor:
+    """(..., 4) Keys cubic weights (A = -0.75, torch's bicubic kernel) of the
+    taps floor(p) - 1 .. floor(p) + 2 at fraction t = p - floor(p)."""
+    a = -0.75
+
+    def near(s):
+        return ((a + 2.0) * s - (a + 3.0)) * s * s + 1.0
+
+    def far(s):
+        return (((s - 5.0) * s + 8.0) * s - 4.0) * a
+
+    return torch.stack([far(1.0 + t), near(t), near(1.0 - t), far(2.0 - t)], dim=-1)
+
+
+def bicubic_gather(table: torch.Tensor, xp: torch.Tensor, yp: torch.Tensor,
+                   hf: int, wf: int) -> torch.Tensor:
+    """Bicubic sample of a channel-contiguous map at pixel coordinates.
+
+    ``table`` (B, >= hf * wf, C) holds row-major pixels; ``xp``, ``yp`` (B, N)
+    are column / row coordinates.  Sums the 4 x 4 taps around each point;
+    a tap outside the map contributes zero (padding_mode='zeros').
+    Non-finite coordinates sample as if 10 pixels off the map (zero).
+    Returns (B, N, C).
+    """
+    b, n = xp.shape
+    c = table.shape[-1]
+
+    def guard(p, size):
+        # non-finite -> off the map (the JAX package's -10 guard); clamping
+        # to [-3, size + 2] changes no weight, since every tap of a point
+        # past -2 or size + 1 is off the map, and keeps the int cast defined
+        p = torch.where(torch.isfinite(p), p, torch.full_like(p, -10.0))
+        return p.clamp(-3.0, size + 2.0)
+
+    xp, yp = guard(xp, wf), guard(yp, hf)
+    x0, y0 = torch.floor(xp), torch.floor(yp)
+    wx, wy = keys_cubic_taps(xp - x0), keys_cubic_taps(yp - y0)
+    x0, y0 = x0.long(), y0.long()
+    flat = table.reshape(-1, c)
+    offset = (torch.arange(b, device=table.device) * table.shape[1])[:, None]
+    out = torch.zeros(b, n, c, dtype=table.dtype, device=table.device)
+    for i in range(4):
+        row = y0 + (i - 1)
+        for j in range(4):
+            col = x0 + (j - 1)
+            valid = (row >= 0) & (row < hf) & (col >= 0) & (col < wf)
+            idx = torch.where(valid, row * wf + col, 0) + offset
+            w = torch.where(valid, wy[..., i] * wx[..., j], 0.0)
+            out += w[..., None] * flat.index_select(0, idx.reshape(-1)).reshape(b, n, c)
+    return out
+
+
+def grid_sample_bicubic(feat: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bicubic sampling of (B, C, H, W) features at (B, N, 2) normalized
+    coordinates: the function of ``F.grid_sample(feat, uv[:, None],
+    mode='bicubic', align_corners=True, padding_mode='zeros')`` (reference
+    utils/utils.py:550), computed from the 16 taps directly.  Returns
+    (B, N, C)."""
+    b, c, h, w = feat.shape
+    x = (uv[..., 0] + 1.0) * 0.5 * (w - 1)
+    y = (uv[..., 1] + 1.0) * 0.5 * (h - 1)
+    table = feat.reshape(b, c, h * w).transpose(1, 2)
+    return bicubic_gather(table, x, y, h, w)
+
+
+def pixel_alignment(img_feat: torch.Tensor, xyz: torch.Tensor, cam_intr: torch.Tensor,
+                    pred_root: torch.Tensor, image_size: int,
+                    scale_factor: float) -> torch.Tensor:
+    """Project SDF query points into the image and sample per-point features
+    bicubically; points outside the image take the map's mean feature
+    (reference utils/utils.py:536-558).
+
+    ``img_feat`` (B, C, Hf, Wf); ``xyz`` (B*N, 3) half-scaled points;
+    ``cam_intr`` (B, 3, 3+); ``pred_root`` (B, 1, 3) camera-frame hand root.
+    Returns (B*N, C)."""
+    batch = img_feat.shape[0]
+    xyz = xyz.reshape(batch, -1, 3)
+    xyz_cam = xyz * 2.0 / scale_factor + pred_root
+    xy_hom = torch.einsum("bij,bnj->bni", cam_intr[:, :3, :3], xyz_cam)
+    xy_img = xy_hom[..., :2] / xy_hom[..., 2:3]
+    uv = xy_img / image_size * 2.0 - 1.0
+    sampled = grid_sample_bicubic(img_feat, uv)
+    in_img = ((uv[..., 0] >= -1.0) & (uv[..., 0] <= 1.0)
+              & (uv[..., 1] >= -1.0) & (uv[..., 1] <= 1.0))
+    mean_feat = img_feat.mean(dim=(2, 3))
+    out = torch.where(in_img[..., None], sampled, mean_feat[:, None, :])
+    return out.reshape(batch * xyz.shape[1], -1)

@@ -43,6 +43,28 @@ def branch_columns(specs: Specs) -> Tuple[np.ndarray, np.ndarray]:
     raise ValueError(style)
 
 
+def fused_embedding(specs: Specs) -> bool:
+    """Whether the point embedding is affine in xyz (kinematic styles, or
+    raw xyz); NeRF positional encoding is not."""
+    return specs.encode_style in ("hand", "obj", "both") or specs.point_feat_size == 3
+
+
+def embedding_affine(specs: Specs, ctx: Dict[str, Any],
+                     device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scene's embedding as emb(xyz) = xyz @ A + b, by probing it at
+    {0, e_x, e_y, e_z}; ``ctx`` holds rot_center / global_trans / obj_trans
+    for the kinematic styles."""
+    style, pfs = specs.encode_style, specs.point_feat_size
+    if style not in ("hand", "obj", "both"):
+        return torch.eye(3, device=device), torch.zeros(3, device=device)
+    probes = torch.cat([torch.zeros(1, 3), torch.eye(3)], dim=0).to(device)
+    emb = kinematic_embedding(
+        probes, 4, pfs, specs.sdf_scale_factor, style,
+        rot_center=ctx.get("rot_center"), global_trans=ctx.get("global_trans"),
+        obj_trans=ctx.get("obj_trans"))
+    return emb[1:4] - emb[0][None], emb[0]
+
+
 def build_grid_branch_plan(
     layers: List[Tuple[torch.Tensor, torch.Tensor]],
     latent: torch.Tensor,
@@ -96,31 +118,16 @@ def make_grid_decode_fn(specs: Specs, n: int) -> Optional[Callable]:
     packs the plan once per scene, on the latent's device; ``decode`` runs
     K1 over a run of linear indices.
     """
-    style, pfs = specs.encode_style, specs.point_feat_size
-    kinematic = style in ("hand", "obj", "both")
-    if not kinematic and pfs != 3:
+    if not fused_embedding(specs):
         return None
     ns = specs.network_specs
     combined = specs.model_type == "1encoder1decoder"
     cols_h, cols_o = branch_columns(specs)
 
-    def emb_affine(ctx: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The scene's embedding as emb(xyz) = xyz @ A + b, by probing it at
-        {0, e_x, e_y, e_z}."""
-        device = ctx["latent"].device
-        if not kinematic:
-            return torch.eye(3, device=device), torch.zeros(3, device=device)
-        probes = torch.cat([torch.zeros(1, 3), torch.eye(3)], dim=0).to(device)
-        emb = kinematic_embedding(
-            probes, 4, pfs, specs.sdf_scale_factor, style,
-            rot_center=ctx.get("rot_center"), global_trans=ctx.get("global_trans"),
-            obj_trans=ctx.get("obj_trans"))
-        return emb[1:4] - emb[0][None], emb[0]
-
     def prepare(ctx: Dict[str, Any]):
         decoder = ctx["decoder"]
         latent = ctx["latent"]
-        a_full, b_full = emb_affine(ctx)
+        a_full, b_full = embedding_affine(specs, ctx, latent.device)
         n_layers = len(ns.dims) + 1
 
         def trunk(prefix, cols, out_dim, rows):

@@ -71,6 +71,15 @@ def _bn_buffers(model: torch.nn.Module):
             for b in (m.running_mean, m.running_var, m.num_batches_tracked) if b is not None]
 
 
+def check_trainable(specs: Specs) -> None:
+    """Raise for a spec the port's train step does not take yet."""
+    if specs.pixel_align:
+        raise NotImplementedError(
+            "pixel-aligned training (PixelAlign, --pa_feat) is not ported yet: it needs "
+            "kernel K4, the pixel train decoder (alignsdf_tpu/ops/decoder_train_pixel.py); "
+            "pixel-aligned reconstruction runs through kernel K3")
+
+
 def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable:
     """step(state, batch, seed, mark=None) -> losses (detached tensors).
 
@@ -78,6 +87,7 @@ def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable
     is drawn from ``seed``, the object trunk's from ``seed + 1``.  ``mark``,
     if given, is called with "inputs", "decoder", "loss", "backward" and
     "optimizer" as each phase has been enqueued (for timing)."""
+    check_trainable(specs)
     decode = decode or make_train_decoder(specs)
     if decode is None:
         raise NotImplementedError("this decoder structure has no scene-factored train kernel")

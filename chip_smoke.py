@@ -1,12 +1,13 @@
-"""Drive the PyTorch port's reconstruction and training paths on one CUDA GPU
-and hold each hand-written kernel against its plain PyTorch version.
+"""Drive the PyTorch port's reconstruction, training and pixel-aligned
+reconstruction paths on one CUDA GPU and hold each hand-written kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile every kernel (K1, K2) from the sources in the checkout,
-     one nvcc per source, all at once;
+  2. build: compile every kernel (K1, K2, K3) from the sources in the
+     checkout, one nvcc per source, all at once;
   3. K1 vs plain: the fused grid decoder against grid_decode_reference at
      full flagship width on a 64^3 grid, TF32 off, max abs err <= 1e-4;
   4. K2 vs plain: both train trunks at full flagship width on 4 scenes x
@@ -35,7 +36,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      2 steps under torch.profiler (K2's device time, the idle share);
   8. timing: K1 and its plain version per grid pass at 128^3 and 256^3; K2
      forward and backward per step (both trunks, 64 x 2000) against their
-     plain versions and bounds.
+     plain versions and bounds;
+  9. pixel: the flagship with --pa_feat at full width (the per-point latent
+     sampled bicubically from the 256 x 64 x 64 HeadNet map), seeded weights
+     with the final biases shifted as in 5: K3 against its plain version
+     over both 128^3 passes of image 0 (max abs err <= 1e-4, TF32 off; pass
+     1's in-image share strictly between 0 and 1); run_pipelined over 3
+     images at cube_dim 128 (K3's launch count, finite fields, hand and
+     object meshes); image 0's field against the generic path
+     (pixel_alignment + decoder) at 4096 grid points in both projection
+     modes; a warm and a profiled run; K3 and its plain version per 128^3
+     pass against the bound, and F.grid_sample at the same points as a
+     yardstick of the sampling step alone.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -58,6 +70,7 @@ FP32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet
 HBM_BYTES_PER_S = 3.35e12
 K1_TOL = 1e-4
 K2_TOL = 1e-4
+K3_TOL = 1e-4
 SEED = 0
 N_IMAGES = 3
 CUBE_DIM = 128
@@ -103,6 +116,53 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def flagship_specs(pixel: bool = False):
+    """The flagship "Full AlignSDF" (experiments/obman_30k.json with --mano
+    --obj_pose --encode both --point_size 9), with --pa_feat if ``pixel``."""
+    from alignsdf_torch.config import apply_overrides, load_specs
+
+    class Flags:
+        mano = obj_pose = True
+        encode, point_size = "both", 9
+        pa_feat = pixel
+
+    return apply_overrides(load_specs(os.path.join(REPO, "experiments", "obman_30k.json")),
+                           Flags())
+
+
+def synthetic_samples(gen, count: int):
+    """Seeded 256x256 uint8 images with the camera, hand root and object
+    corners a sample carries."""
+    import numpy as np
+    import torch
+
+    def synth(i):
+        img = torch.randint(0, 256, (256, 256, 3), generator=gen, dtype=torch.uint8)
+        return {"image": img.numpy(),
+                "cam_intr": np.array([[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]],
+                                     np.float32),
+                "mano_root": (torch.randn(3, generator=gen) * 0.02
+                              + torch.tensor([0.0, 0.0, 0.6])).numpy(),
+                "rest_obj_corners": (torch.randn(8, 3, generator=gen) * 0.05).numpy(),
+                "key": f"synthetic{i}"}
+
+    return [synth(i) for i in range(count)]
+
+
+def scene_ctx(model, specs, sample, dev):
+    """The grid context the Reconstructor builds for one sample."""
+    import torch
+
+    args = [torch.as_tensor(sample[k])[None].to(dev) for k in
+            ("image", "cam_intr", "mano_root", "rest_obj_corners")]
+    lat, mano, obj = model.encode_scene(*args)
+    ctx = {"decoder": model.decoder, "latent": lat, "rot_center": mano["rot_center"],
+           "global_trans": mano["global_trans"], "obj_trans": obj["obj_trans"]}
+    if specs.pixel_align:
+        ctx.update(cam_intr=args[1], pred_root=mano["joints"][:, 0:1])
+    return ctx
 
 
 def k1_flops_per_point(specs) -> int:
@@ -441,6 +501,252 @@ def k2_timing(model, specs, dev, gen, card):
     return res
 
 
+def k3_flops(specs, points: int, sampled: int) -> int:
+    """FLOPs of K3 over ``points`` grid points of which ``sampled`` lie in
+    the image, at the model's true (unpadded) widths: 2 per multiply-add of
+    every matmul (the latent's at layer 0 and the latent_in layers), of the
+    folded xyz terms, and of the 16 taps x C channels of each sample."""
+    from alignsdf_torch.models.decoder import separate_input_widths, trunk_layer_dims
+
+    ns, c = specs.network_specs, specs.latent_size
+    per_point = 0
+    for in_dim in separate_input_widths(c, specs.point_feat_size, specs.encode_style):
+        cur = 0
+        for layer, (_, out) in enumerate(trunk_layer_dims(in_dim, ns, 1)):
+            per_point += 2 * cur * out
+            if layer == 0 or layer in ns.latent_in:
+                per_point += 2 * (c + 3) * out
+            cur = out
+    return per_point * points + 2 * 16 * c * sampled
+
+
+def pixel_phase(dev, card: str, gen, mano_faces):
+    """The --pa_feat flagship at full width through K3: K3 against its
+    plain version over both passes of image 0, the main path (run_pipelined
+    over N_IMAGES images), the field against the generic path in both
+    projection modes, a warm and a profiled run, and K3's timing.  Returns
+    (record, the kernels-line entry)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignsdf_torch.inference.grid import _coords_from_linear, _refine_cube
+    from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
+    from alignsdf_torch.kernels.pixel_grid_decoder import (
+        pixel_grid_decode, pixel_grid_decode_reference, pixel_projection)
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.embeddings import kinematic_embedding
+    from alignsdf_torch.ops.geometry import pixel_alignment
+    from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
+
+    specs = flagship_specs(pixel=True)
+    model = build_model(specs, device=dev, seed=SEED)
+    samples = synthetic_samples(gen, N_IMAGES)
+    n, chunk = CUBE_DIM, 1 << 20  # the fused evaluator's runs are 2^20 points
+    total = n ** 3
+    rec = {}
+
+    def one_pass(fn, plan, origin, voxel):
+        return [fn(plan, s, min(chunk, total - s), origin, voxel) for s in range(0, total, chunk)]
+
+    def in_image(plan, origin, voxel) -> int:
+        return sum(int(pixel_projection(plan, s, min(chunk, total - s), origin, voxel)[3].sum())
+                   for s in range(0, total, chunk))
+
+    # shift the final biases (seeded weights) so ~5% of the first pass is
+    # inside: the field crosses zero and meshes come out
+    origin0 = torch.full((3,), -1.0, device=dev)
+    voxel0 = torch.tensor(2.0 / (n - 1), device=dev)
+    plan64 = make_pixel_grid_decode_fn(specs, 64)(scene_ctx(model, specs, samples[0], dev)).plan
+    with torch.no_grad():
+        first = pixel_grid_decode_reference(plan64, 0, 64 ** 3, origin0,
+                                            torch.tensor(2.0 / 63, device=dev))
+        for row, name in ((0, "linh4"), (1, "lino4")):
+            q = torch.quantile(first[row], 0.05).clamp(-0.999, 0.999)
+            getattr(model.decoder, name).bias -= torch.atanh(q)
+    del plan64, first
+
+    phase(f"K3 vs plain (both passes of image 0 at {n}^3, full --pa_feat flagship width, "
+          "TF32 off)")
+    plan = make_pixel_grid_decode_fn(specs, n)(scene_ctx(model, specs, samples[0], dev)).plan
+    saved = pixel_grid_decode.launches
+    origin, voxel = origin0, voxel0
+    rec["check"] = []
+    for p in (1, 2):
+        k3 = torch.cat(one_pass(pixel_grid_decode, plan, origin, voxel), dim=1)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            ref = torch.cat(one_pass(pixel_grid_decode_reference, plan, origin, voxel), dim=1)
+        err = float((k3 - ref).abs().max())
+        share = in_image(plan, origin, voxel) / total
+        inside = float((ref < 0).float().mean())
+        print(f"pass {p}: K3 max abs err vs plain {err:.3e} over {total} points (tolerance "
+              f"{K3_TOL:g}); in-image share {share:.4f}; field range [{float(ref.min()):.4f}, "
+              f"{float(ref.max()):.4f}], inside share {inside:.4f}", flush=True)
+        if not (err <= K3_TOL):
+            fail(f"K3 disagrees with its plain version in pass {p}: {err}")
+        rec["check"].append({"max_abs_err": err, "in_image_share": share})
+        if p == 1:
+            if not 0.0 < share < 1.0:
+                fail(f"pass 1's in-image share {share} must lie strictly between 0 and 1, so "
+                     "that both the tap gather and the mean fallback run")
+            voxel, origin = _refine_cube(specs, k3[0].reshape(n, n, n), k3[1].reshape(n, n, n),
+                                         n, voxel)
+    pixel_grid_decode.launches = saved
+    del k3, ref
+    max_err = max(c["max_abs_err"] for c in rec["check"])
+
+    phase(f"pixel main path: run_pipelined, {N_IMAGES} images at cube_dim {n}")
+    recon = Reconstructor(model, specs, cube_dim=n, mano_faces=mano_faces)
+    expected = N_IMAGES * 2 * (-(-total // chunk))
+    results = []
+    with tempfile.TemporaryDirectory() as out:
+        dirs = make_output_dirs(out)
+        pixel_grid_decode.launches = 0
+        t0 = time.perf_counter()
+        done = run_pipelined(recon, samples, dirs, on_done=lambda i, p: results.append((i, p)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = pixel_grid_decode.launches
+        written = sorted(os.listdir(dirs["meshes"]))
+    print(f"images {done}, wall {wall * 1e3:.1f} ms, K3 launches {launches} (expected "
+          f"{expected}), meshes written {written}", flush=True)
+    if done != N_IMAGES or launches != expected:
+        fail(f"K3 launches {launches} != expected {expected} over {done} images")
+    if not any(w.endswith("_hand.ply") for w in written) or not any(
+            w.endswith("_obj.ply") for w in written):
+        fail("the pixel path wrote no hand or no object mesh")
+    rec["main_path"] = {"wall_ms": wall * 1e3, "launches": launches, "meshes": written,
+                        "images": []}
+    for i, pending in results:
+        host = pending["host"]
+        for name in ("sdf_hand", "sdf_obj"):
+            field = host[name]
+            if tuple(field.shape) != (n,) * 3 or not bool(torch.isfinite(field).all()):
+                fail(f"pixel image {i}: {name} has shape {tuple(field.shape)} or non-finite values")
+        t = pending["timings"]
+        inside = {k: float((host[k] < 0).float().mean()) for k in ("sdf_hand", "sdf_obj")}
+        print(f"pixel image {i} [{card}]: encode {t['encode_ms']:.2f} ms, grid "
+              f"{t['grid_ms']:.2f} ms (2 passes), marching cubes + export {t['mc_ms']:.2f} ms, "
+              f"inside fraction {inside}", flush=True)
+        rec["main_path"]["images"].append({**t, "inside": inside})
+
+    # the field of image 0 against the generic path (pixel_alignment + the
+    # decoder on materialized rows) at 4096 grid points, in both modes
+    host0 = results[0][1]["host"]
+    ctx = scene_ctx(model, specs, samples[0], dev)
+    origin_r, voxel_r = host0["origin"].to(dev), host0["voxel"].to(dev)
+    idx = torch.randint(0, total, (4096,), generator=gen).to(dev)
+    pts = _coords_from_linear(idx, n, origin_r, voxel_r)
+    emb = kinematic_embedding(pts, pts.shape[0], specs.point_feat_size, specs.sdf_scale_factor,
+                              specs.encode_style, rot_center=ctx["rot_center"],
+                              global_trans=ctx["global_trans"], obj_trans=ctx["obj_trans"])
+    rec["vs_generic_max_abs_err"] = {}
+    for ref_mode in (False, True):
+        if ref_mode:
+            saved = pixel_grid_decode.launches
+            plan_r = make_pixel_grid_decode_fn(specs, n, True)(ctx).plan
+            field = torch.cat(one_pass(pixel_grid_decode, plan_r, origin_r, voxel_r), dim=1)
+            pixel_grid_decode.launches = saved
+            fh, fo = field[0][idx], field[1][idx]
+        else:  # the main path's own field
+            fh = host0["sdf_hand"].reshape(-1).to(dev)[idx]
+            fo = host0["sdf_obj"].reshape(-1).to(dev)[idx]
+        with torch.no_grad():
+            lat = pixel_alignment(ctx["latent"], emb[:, :3] if ref_mode else pts,
+                                  ctx["cam_intr"], ctx["pred_root"], specs.image_size[0],
+                                  specs.sdf_scale_factor)
+            gh, go = model.decoder(torch.cat([lat, emb], dim=1))
+        err = max(float((gh[:, 0] - fh).abs().max()), float((go[:, 0] - fo).abs().max()))
+        mode = "reference projection" if ref_mode else "raw-xyz projection"
+        print(f"image 0 K3 field vs generic path at 4096 grid points, {mode}: max abs err "
+              f"{err:.3e}", flush=True)
+        if not (err <= K3_TOL):
+            fail(f"K3 disagrees with the generic path ({mode}): {err}")
+        rec["vs_generic_max_abs_err"][mode] = err
+
+    phase("pixel: warm pipelined run, then the same run under torch.profiler")
+    with tempfile.TemporaryDirectory() as out:
+        dirs = make_output_dirs(out)
+        saved = pixel_grid_decode.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_pipelined(recon, samples, dirs)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_pipelined(recon, samples, dirs)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        pixel_grid_decode.launches = saved
+    print(f"[{card}] pixel warm: {N_IMAGES} images in {warm * 1e3:.1f} ms = "
+          f"{N_IMAGES / warm:.3f} images/s at {n}^3", flush=True)
+    rec["warm"] = {"wall_ms": warm * 1e3, "images_per_s": N_IMAGES / warm}
+    summary = profile_summary(prof, prof_wall)
+    if summary is None:
+        print("pixel device profile: not measured (the profiler recorded no device events)",
+              flush=True)
+    else:
+        busy, share, by_kernel = summary
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+        print(f"[{card}] pixel profiled run {prof_wall * 1e3:.1f} ms: device busy {busy:.1f} ms "
+              f"({share:.3f} of the wall clock), idle share {1 - share:.3f}", flush=True)
+        for name, ms in top:
+            print(f"  {ms:9.2f} ms  {name[:100]}", flush=True)
+        rec["profile"] = {"wall_ms": prof_wall * 1e3, "device_busy_ms": busy,
+                          "busy_share": share, "top_device_ms": dict(top)}
+    del recon
+
+    phase(f"timing: K3 and plain per {n}^3 pass; F.grid_sample at the same points")
+    saved = pixel_grid_decode.launches
+    k3_runs = [cuda_ms(lambda: one_pass(pixel_grid_decode, plan, origin0, voxel0), 1)
+               for _ in range(3)]
+    pixel_grid_decode.launches = saved
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: one_pass(pixel_grid_decode_reference, plan, origin0, voxel0), 1)
+    # the sampling step alone through the library call, at the pass's points
+    # (image coordinates as pixel_alignment computes them)
+    xyz_cam = (_coords_from_linear(torch.arange(total, device=dev), n, origin0, voxel0) * 2.0
+               / specs.sdf_scale_factor + ctx["pred_root"][0])
+    hom = xyz_cam @ ctx["cam_intr"][0, :3, :3].T
+    uv = (hom[:, :2] / hom[:, 2:3] / specs.image_size[0] * 2.0 - 1.0)[None, None]
+    lib_ms = cuda_ms(lambda: F.grid_sample(ctx["latent"], uv, mode="bicubic", align_corners=True,
+                                           padding_mode="zeros"), 3)
+    sampled = in_image(plan, origin0, voxel0)
+    flops = k3_flops(specs, total, sampled)
+    nbytes = 4 * (plan.flat.numel() + plan.table.numel() + 2 * total)
+    ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    k3_ms = min(k3_runs)
+    rec["timing"] = {"k3_ms": k3_ms, "k3_runs_ms": k3_runs, "plain_ms": plain_ms,
+                     "grid_sample_ms": lib_ms, "bound_ms": max(ops_ms, mem_ms),
+                     "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                     "tflop": flops / 1e12, "in_image_points": sampled,
+                     "k3_tflops": flops / k3_ms / 1e9}
+    print(f"[{card}] {n}^3 pass ({total} points, {sampled} in the image, {flops / 1e12:.3f} "
+          f"TFLOP): K3 " + " / ".join(f"{t:.2f}" for t in k3_runs) + f" ms (best "
+          f"{flops / k3_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, bound "
+          f"{rec['timing']['bound_ms']:.2f} ms ({rec['timing']['bound_by']}, float32 peak "
+          f"{FP32_PEAK_FLOPS / 1e12:g} TFLOP/s); F.grid_sample (sampling only) {lib_ms:.2f} ms",
+          flush=True)
+    entry = {
+        "name": "K3 fused pixel grid decoder",
+        "route": "cuda",
+        "source": "alignsdf_torch/kernels/csrc/pixel_grid_decoder.cu",
+        "replaces": "alignsdf_tpu/ops/decoder_kernel.py:884",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k3_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": rec["timing"]["bound_ms"],
+        "bound_by": rec["timing"]["bound_by"],
+        "library_ms": lib_ms,
+        "library_call": "F.grid_sample bicubic at the pass's points (the sampling step only)",
+    }
+    return rec, entry
+
+
 def main(record_path: Optional[str] = None) -> None:
     phase("device")
     try:
@@ -453,7 +759,6 @@ def main(record_path: Optional[str] = None) -> None:
     try:
         import numpy as np
 
-        from alignsdf_torch.config import apply_overrides, load_specs
         from alignsdf_torch.inference.grid import _coords_from_linear
         from alignsdf_torch.inference.reconstruct import (
             Reconstructor, make_output_dirs, run_pipelined)
@@ -476,7 +781,7 @@ def main(record_path: Optional[str] = None) -> None:
 
     phase("build")
     t0 = time.perf_counter()
-    reports = build.build_all(["grid_decoder", "train_decoder"])
+    reports = build.build_all(["grid_decoder", "train_decoder", "pixel_grid_decoder"])
     record["build_s"] = time.perf_counter() - t0
     print(f"built in {record['build_s']:.2f} s", flush=True)
     for name, report in reports.items():
@@ -485,38 +790,15 @@ def main(record_path: Optional[str] = None) -> None:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     # the flagship config at full width
-    class Flags:
-        mano = obj_pose = True
-        encode, point_size = "both", 9
-
-    specs = apply_overrides(load_specs(os.path.join(REPO, "experiments", "obman_30k.json")),
-                            Flags())
+    specs = flagship_specs()
     model = build_model(specs, device=dev, seed=SEED)
     gen = torch.Generator().manual_seed(SEED)
-
-    def synth(i):
-        img = torch.randint(0, 256, (256, 256, 3), generator=gen, dtype=torch.uint8)
-        return {"image": img.numpy(),
-                "cam_intr": np.array([[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]],
-                                     np.float32),
-                "mano_root": (torch.randn(3, generator=gen) * 0.02
-                              + torch.tensor([0.0, 0.0, 0.6])).numpy(),
-                "rest_obj_corners": (torch.randn(8, 3, generator=gen) * 0.05).numpy(),
-                "key": f"synthetic{i}"}
-
-    samples = [synth(i) for i in range(N_IMAGES)]
+    samples = synthetic_samples(gen, N_IMAGES)
     prepare = make_grid_decode_fn(specs, 64)
-
-    def scene_ctx(sample):
-        args = [torch.as_tensor(sample[k])[None].to(dev) for k in
-                ("image", "cam_intr", "mano_root", "rest_obj_corners")]
-        lat, mano, obj = model.encode_scene(*args)
-        return {"decoder": model.decoder, "latent": lat, "rot_center": mano["rot_center"],
-                "global_trans": mano["global_trans"], "obj_trans": obj["obj_trans"]}
 
     # shift the final biases (seeded weights) so ~5% of the first pass is
     # inside: the field crosses zero and meshes come out
-    ctx0 = scene_ctx(samples[0])
+    ctx0 = scene_ctx(model, specs, samples[0], dev)
     plan64 = prepare(ctx0).plan
     origin0 = torch.full((3,), -1.0, device=dev)
     voxel64 = torch.tensor(2.0 / 63, device=dev)
@@ -527,7 +809,7 @@ def main(record_path: Optional[str] = None) -> None:
             getattr(model.decoder, name).bias -= torch.atanh(q)
 
     phase("K1 vs plain (64^3, full flagship width, TF32 off)")
-    plan64 = prepare(scene_ctx(samples[0])).plan
+    plan64 = prepare(scene_ctx(model, specs, samples[0], dev)).plan
     before = grid_decode.launches
     k1 = grid_decode(plan64, 0, 64 ** 3, origin0, voxel64)
     torch.cuda.synchronize()
@@ -600,7 +882,7 @@ def main(record_path: Optional[str] = None) -> None:
     # the field of image 0 against the generic decoder on materialized rows
     _, p0 = results[0]
     h0 = p0["host"]
-    ctx = scene_ctx(samples[0])
+    ctx = scene_ctx(model, specs, samples[0], dev)
     idx = torch.randint(0, CUBE_DIM ** 3, (4096,), generator=gen).to(dev)
     pts = _coords_from_linear(idx, CUBE_DIM, h0["origin"].to(dev), h0["voxel"].to(dev))
     emb = kinematic_embedding(pts, pts.shape[0], specs.point_feat_size, specs.sdf_scale_factor,
@@ -687,6 +969,9 @@ def main(record_path: Optional[str] = None) -> None:
     phase(f"timing: K2 forward and backward per step ({TRAIN_SCENES} x "
           f"{specs.samples_per_scene} points, both trunks)")
     record["k2_timing"] = k2_timing(train_state.model, specs, dev, gen, card)
+    del train_state
+
+    record["pixel"], k3_entry = pixel_phase(dev, card, gen, mano_faces)
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
@@ -723,6 +1008,7 @@ def main(record_path: Optional[str] = None) -> None:
             "bound_by": t2["bound_by"],
             "library_ms": None,
         })
+    kernels["kernels"].append(k3_entry)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

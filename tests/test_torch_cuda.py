@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the card against their plain versions.  Needs a CUDA GPU and
+"""Kernels K1, K2 and K3 on the card against their plain versions.  Needs a CUDA GPU and
 skips without one; it imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -9,6 +9,11 @@ import torch
 
 from alignsdf_torch.config import NetworkSpecs, Specs
 from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
+from alignsdf_torch.kernels.pixel_grid_decoder import (
+    pixel_grid_decode,
+    pixel_grid_decode_reference,
+    pixel_projection,
+)
 from alignsdf_torch.kernels.train_decoder import (
     flatten_params,
     pack_trunk,
@@ -21,6 +26,7 @@ from alignsdf_torch.kernels.train_decoder import (
 )
 from alignsdf_torch.models.decoder import SeparateDecoder, make_decoder, trunk_prefixes
 from alignsdf_torch.ops.grid_plan import branch_columns, make_grid_decode_fn
+from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
 from alignsdf_torch.ops.train_plan import make_train_decoder, trunk_operands
 
 
@@ -117,3 +123,43 @@ def test_cuda_train_kernel_matches_plain(dims, scenes, n, train, model_type):
         for g, r in zip(grads, [demb, *flatten_params(dws, dxs, dbs)]):
             assert g.shape == r.shape
             assert float((g - r).abs().max()) <= 1e-4 * (float(r.abs().max()) + 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,c,hw,n,base,cut,ref", [((64,) * 4, 32, (8, 8), 20, 5, 9, False),
+                                                     ((512,) * 4, 256, (64, 64), 24, 0, 0, True),
+                                                     ((512,) * 4, 256, (64, 64), 32, 0, 0, False)])
+def test_cuda_pixel_kernel_matches_plain(dims, c, hw, n, base, cut, ref):
+    """K3 at a narrow width on a small map with a ragged run, and at the
+    flagship width on the 256 x 64 x 64 HeadNet map, in both projection
+    modes, with part of the grid outside the image.  Both sides run the same
+    plan in float32 (TF32 off) and agree on which points are in the image:
+    1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(2)
+    specs = Specs(encode_style="both", point_feat_size=9, latent_size=c, mano_branch=True,
+                  object_pose_branch=True, sdf_scale_factor=7.0, pixel_align=True,
+                  network_specs=NetworkSpecs(dims=dims))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(2)
+        decoder = SeparateDecoder(c, 9, "both", specs.network_specs).cuda()
+    ctx = {"decoder": decoder, "latent": torch.randn(1, c, *hw, generator=gen).cuda(),
+           "cam_intr": torch.tensor([[[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]]]).cuda(),
+           "pred_root": torch.tensor([[[0.01, -0.02, 0.6]]]).cuda(),
+           "rot_center": (torch.randn(1, 1, 3, generator=gen) * 0.05).cuda(),
+           "global_trans": _rigid(gen, 16).cuda(), "obj_trans": _rigid(gen, 1)[:, 0].cuda()}
+    plan = make_pixel_grid_decode_fn(specs, n, ref)(ctx).plan
+    origin = torch.full((3,), -1.0, device="cuda")
+    voxel = torch.tensor(2.0 / (n - 1), device="cuda")
+    m = n ** 3 - base - cut
+    before = pixel_grid_decode.launches
+    out = pixel_grid_decode(plan, base, m, origin, voxel)
+    torch.cuda.synchronize()
+    assert pixel_grid_decode.launches == before + 1
+    ref_out = pixel_grid_decode_reference(plan, base, m, origin, voxel)
+    share = float(pixel_projection(plan, base, m, origin, voxel)[3].float().mean())
+    assert 0.0 < share < 1.0
+    assert out.shape == (2, m)
+    assert float((out - ref_out).abs().max()) <= 1e-5

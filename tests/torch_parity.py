@@ -32,6 +32,15 @@ FLAGSHIP_NARROW = {
                      "latent_in": [2], "weight_norm": True},
 }
 
+# the same with --pa_feat: the latent is the HeadNet map's 256 channels,
+# sampled per point, so the trunks must be wider than 256 + 6 inputs
+PIXEL_NARROW = {
+    **FLAGSHIP_NARROW,
+    "LatentSize": 256,
+    "PixelAlign": True,
+    "NetworkSpecs": {**FLAGSHIP_NARROW["NetworkSpecs"], "dims": [320, 320, 320, 320]},
+}
+
 CAM = np.array([[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]], np.float32)
 
 
