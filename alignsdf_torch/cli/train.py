@@ -3,8 +3,11 @@ train.py:201-714).
 
 Usage:
     python -m alignsdf_torch.cli.train -e experiments/obman_30k.json \\
-        --mano --obj_pose --encode both --point_size 9 \\
+        --mano --obj_pose --encode both --point_size 9 [--pa_feat] \\
         [--smoke | --steps N] [--device cuda] [--no_init_guard]
+
+The flagship trains its twin trunks through kernel K2; with ``--pa_feat``
+(a latent sampled per point from the HeadNet map) through kernel K4.
 
 The dataset reader is not ported yet, so training runs on synthetic batches
 (``data/synthetic.py``) of ScenesPerBatch scenes: ``--smoke`` takes 2 steps
@@ -30,7 +33,6 @@ from alignsdf_torch.training import checkpoints as ckpt
 from alignsdf_torch.training.train_state import TrainState
 from alignsdf_torch.training.train_step import (
     batch_to_device,
-    check_trainable,
     draw_seed,
     healthy_init_train_state,
     init_train_state,
@@ -49,8 +51,8 @@ def make_trainer(specs: cfg.Specs, device, seed: int = 0,
     """(state, step) for a fresh model on ``device``: the init guard
     re-draws the seeded init until its probe predictions sit inside the
     clamp band (unless ``init_guard`` is False); ``step(state, batch, seed)``
-    is the K2 train step."""
-    check_trainable(specs)
+    is the spec's train step: through K4 for a pixel-aligned spec
+    (``--pa_feat``), through K2 otherwise."""
     if init_guard and specs.clamping_distance:
         state, tries = healthy_init_train_state(specs, device, seed)
         if tries > 1:

@@ -47,6 +47,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "keys_cubic.cuh"
 #include "tile_product.cuh"
 
 #define MAX_TRUNKS 2
@@ -55,17 +56,6 @@
 struct Layer { int w, x, lat, b, in_pad, out_pad; };  // offsets into prm; -1 = none
 struct Trunk { int n_hidden, fin, fin_xyz, last_pad; Layer layers[MAX_HIDDEN]; };
 struct Plan { int n_trunks, fin_b, max_pad, c, lat_pad, hf, wf; Trunk trunks[MAX_TRUNKS]; };
-
-// Keys cubic weights (A = -0.75) of the taps floor(p)-1 .. floor(p)+2 at
-// fraction t (JAX ops/geometry.py:_cubic_weights).
-__device__ __forceinline__ void keys_taps(float t, float* w) {
-  const float a = -0.75f;
-  const float s0 = 1.f + t, s1 = t, s2 = 1.f - t, s3 = 2.f - t;
-  w[0] = (((s0 - 5.f) * s0 + 8.f) * s0 - 4.f) * a;
-  w[1] = ((a + 2.f) * s1 - (a + 3.f)) * s1 * s1 + 1.f;
-  w[2] = ((a + 2.f) * s2 - (a + 3.f)) * s2 * s2 + 1.f;
-  w[3] = (((s3 - 5.f) * s3 + 8.f) * s3 - 4.f) * a;
-}
 
 // a*x + b*y + c*z, one rounding per operation, left to right.
 __device__ __forceinline__ float dot3(float a, float x, float b, float y, float c, float z) {

@@ -1,0 +1,578 @@
+// Pixel-aligned train decoder (kernel K4) for NVIDIA Hopper (sm_90a):
+// forward and backward of both trunks on a per-point latent sampled from the
+// HeadNet feature map.
+//
+// Replaces alignsdf_tpu/ops/decoder_train_pixel.py:fused_pixel_decoder, its
+// forward _fused_pixel_fwd (body _fwd_kernel) and its backward
+// _fused_pixel_bwd (body _bwd_kernel), in the unbanded contract (band=None,
+// presorted=False).  For each point (row r of M, scene r / nps):
+//   lat = bicubic sample of the scene's (HW, C) table at (xp, yp) (Keys,
+//         A = -0.75, zero padding: a tap off the map weighs 0) where mask
+//         is 1, else the scene's mean row;
+// then each trunk runs on [lat | emb]: layer l computes
+//   acc = a_{l-1} @ W_l (if W) + lat @ Lat_l + emb @ X_l (layer 0 and the
+//         latent_in layers) + b_l,
+// ReLU and the hash dropout gate on hidden layers, tanh on the last.  Both
+// trunks draw from one seed; trunk t hashes layer + layer_off[t] (the object
+// trunk layer + n_layers, as the TPU kernel does).  The projection to
+// (xp, yp, mask) runs outside, in plain PyTorch, so that autograd carries
+// d(xp), d(yp) on to the predicted hand root.
+//
+// What bounds it: arithmetic.  At the flagship width (C = 256, 6 embedding
+// columns, hidden 512 -> 250 -> 512 -> 512 -> 1) a trunk costs 0.787 M
+// multiply-adds per point forward and twice that backward, against ~10 KB a
+// point of residuals; the sampling is 16 taps x C (8 kFLOP a point each way)
+// from a 268 MB table.  Plain float32 FMAs (TF32 off), as K2; wgmma, TMA and
+// bf16 are later work.
+//
+// Forward (pixel_train_fwd_kernel): K3's gather stage and K2's streamed tile
+// trunk.  A block of 256 threads owns 32 points.  The gather fills a
+// [c_pad][32] latent tile in shared memory (one thread a channel, so a warp
+// reads 128 contiguous bytes of a tap's row), which is written out as the
+// residual (c_pad, M); then each trunk runs as in K2, with a second tile
+// product of the latent weights with the latent tile at layer 0 and the
+// latent_in layers, and writes its gated activations (out_pad, M).
+//
+// Backward.  The TPU kernel forms d(table) per scene as a dense wxy @ dlat
+// product accumulated across a sequential grid; here each point scatters
+// its 16 taps with atomics instead:
+//  1. pixel_train_bwd_chain_kernel, per 32-point tile: K2's reverse chain
+//     over both trunks (each layer's dpre written to device memory, d(emb)
+//     summed in shared memory), plus dlat = sum over the x0 layers of
+//     dpre @ Lat^T, summed over both trunks in a [c_pad][32] tile.  Then,
+//     from dlat: d(table) += wy wx dlat at each tap (atomicAdd), d(mean) +=
+//     dlat for points outside the image (summed over the tile's points of
+//     one scene first), and d(xp) = sum over taps of wy gx (fe . dlat),
+//     d(yp) = sum of gy wx (fe . dlat), with gx = -K'(col - xp), gy =
+//     -K'(row - yp); 0 outside the image.
+//  2. wgrad_kernel / colsum_kernel (train_common.cuh) per layer: dW from the
+//     activations, dLat from the latent residual, dX from the embedding, db.
+// One call of pixel_train_bwd enqueues all of these on one stream.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "keys_cubic.cuh"
+#include "train_common.cuh"
+
+#define EMB_MAX 64     // embedding columns
+#define MAX_LAYERS 8
+#define MAX_TRUNKS 2
+#define MAX_OUT 2
+
+struct PLayer {
+  const float *w, *wt;     // (in_pad, out_pad) and its transpose
+  const float *lat, *latt; // latent weights (c_pad, out_pad) and their transpose
+  const float *x, *b;      // embedding weights (e, out_pad), bias (out_pad)
+  float *act, *dpre;       // residual (out_pad, M), pre-activation grad (out_pad, M)
+  float *dw, *dlat, *dx, *db;
+  int in_pad, out_pad, dropout;
+};
+
+struct PTrunk {
+  int n_layers, n_out, row_off, layer_off;
+  PLayer layers[MAX_LAYERS];
+};
+
+struct PPlan {
+  int n_trunks, e, m, nps, n_scenes, c, c_pad, hf, wf, max_pad;
+  const float *emb, *table, *mean, *xp, *yp, *mask;  // emb (e, M), table (B, HW, C), mean (B, C)
+  float *lat, *y;                                    // latent residual (c_pad, M), y (rows, M)
+  const float* dy;
+  float *demb, *dtable, *dmean, *dxp, *dyp;
+  PTrunk trunks[MAX_TRUNKS];
+};
+
+// Per-point tap data of a tile (threads 0..31, one point each): tw[q][16] =
+// 4 row weights, 4 column weights, then 4 row and 4 column derivative
+// weights (backward only); trc[q][8] = 4 row offsets (row * wf, -1 off the
+// map) and 4 columns (-1 off); flag[q] = the point lies in the image;
+// scn[q] = its scene.
+__device__ __forceinline__ void tile_taps(const PPlan& p, int first, int tid, float* tw, int* trc,
+                                          int* flag, int* scn, bool grads) {
+  if (tid >= TILE_P) return;
+  const int row = first + tid;
+  const bool live = row < p.m;
+  scn[tid] = live ? row / p.nps : 0;
+  const int in = live && p.mask[row] > 0.f;
+  flag[tid] = in;
+  if (!in) return;
+  const float xp = p.xp[row], yp = p.yp[row];
+  const float x0 = floorf(xp), y0 = floorf(yp);
+  float* w = tw + tid * 16;
+  keys_taps(yp - y0, w);
+  keys_taps(xp - x0, w + 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = (int)y0 + i - 1, col = (int)x0 + i - 1;
+    trc[tid * 8 + i] = (r >= 0 && r < p.hf) ? r * p.wf : -1;
+    trc[tid * 8 + 4 + i] = (col >= 0 && col < p.wf) ? col : -1;
+    if (grads) {
+      w[8 + i] = -keys_grad((float)r - yp);
+      w[12 + i] = -keys_grad((float)col - xp);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+pixel_train_fwd_kernel(const PPlan p, unsigned seed, unsigned thresh, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* act0 = smem;
+  float* act1 = act0 + p.max_pad * TILE_P;
+  float* lat = act1 + p.max_pad * TILE_P;  // [c_pad][TILE_P]
+  float* ws = lat + p.c_pad * TILE_P;
+  float* embs = ws + BK * OCHUNK;          // [e][TILE_P]
+  float* red = embs + EMB_MAX * TILE_P;    // [8][TILE_P]
+  float* tw = red + 8 * TILE_P;            // [TILE_P][16]
+  int* trc = reinterpret_cast<int*>(tw + 16 * TILE_P);  // [TILE_P][8]
+  int* flag = trc + 8 * TILE_P;
+  int* scn = flag + TILE_P;
+
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int first = blockIdx.x * TILE_P;
+  tile_taps(p, first, tid, tw, trc, flag, scn, false);
+  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
+    const int c = i / TILE_P, q = i % TILE_P;
+    embs[i] = first + q < p.m ? p.emb[(size_t)c * p.m + first + q] : 0.f;
+  }
+  __syncthreads();
+
+  // gather: lat[ch][q] = the 16 weighted taps, or the scene's mean row
+  const size_t hw = (size_t)p.hf * p.wf;
+  for (int ch = tid; ch < p.c_pad; ch += NTHREADS) {
+    for (int q0 = 0; q0 < TILE_P; q0 += 4) {
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int q = q0 + k;
+        float s = 0.f;
+        if (ch < p.c && first + q < p.m) {
+          if (!flag[q]) {
+            s = __ldg(p.mean + (size_t)scn[q] * p.c + ch);
+          } else {
+            const float* tab = p.table + (size_t)scn[q] * hw * p.c;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = trc[q * 8 + i];
+              if (r < 0) continue;
+              const float wy = tw[q * 16 + i];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int col = trc[q * 8 + 4 + j];
+                if (col < 0) continue;
+                s = fmaf(wy * tw[q * 16 + 4 + j], __ldg(tab + (size_t)(r + col) * p.c + ch), s);
+              }
+            }
+          }
+        }
+        v[k] = s;
+      }
+      *reinterpret_cast<float4*>(lat + ch * TILE_P + q0) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < p.c_pad * TILE_P; i += NTHREADS) {
+    const int c = i / TILE_P, q = i % TILE_P;
+    if (first + q < p.m) p.lat[(size_t)c * p.m + first + q] = lat[i];
+  }
+
+  for (int t = 0; t < p.n_trunks; ++t) {
+    const PTrunk& T = p.trunks[t];
+    float* cur = act0;
+    float* nxt = act1;
+    for (int l = 0; l < T.n_layers - 1; ++l) {
+      const PLayer& L = T.layers[l];
+      const unsigned hash_layer = (unsigned)(l + T.layer_off);
+      for (int oc = 0; oc < L.out_pad; oc += OCHUNK) {
+        float acc[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        if (L.w) tile_product(acc, L.w, L.out_pad, L.in_pad, cur, ws, oc, tid);
+        if (L.lat) tile_product(acc, L.lat, L.out_pad, p.c_pad, lat, ws, oc, tid);
+        if (L.x) {
+          for (int c = 0; c < p.e; ++c) {
+            const float4 ev = *reinterpret_cast<const float4*>(embs + c * TILE_P + tx * 4);
+            const float4 x0 = __ldg(reinterpret_cast<const float4*>(L.x + (size_t)c * L.out_pad + oc + ty * 8));
+            const float4 x1 = __ldg(reinterpret_cast<const float4*>(L.x + (size_t)c * L.out_pad + oc + ty * 8 + 4));
+            const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+            const float av[4] = {ev.x, ev.y, ev.z, ev.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], av[j], acc[i][j]);
+          }
+        }
+        const int row0 = first + tx * 4;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int o = oc + ty * 8 + i;
+          const float bias = __ldg(L.b + o);
+          float r[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float v = fmaxf(acc[i][j] + bias, 0.f);
+            if (L.dropout)
+              v = gate_hash(seed, hash_layer, (unsigned)(row0 + j), (unsigned)o) < thresh ? v * scale
+                                                                                       : 0.f;
+            r[j] = v;
+          }
+          const float4 rv = make_float4(r[0], r[1], r[2], r[3]);
+          *reinterpret_cast<float4*>(nxt + o * TILE_P + tx * 4) = rv;
+          if (row0 < p.m) *reinterpret_cast<float4*>(L.act + (size_t)o * p.m + row0) = rv;
+        }
+      }
+      __syncthreads();  // `nxt` is complete before the next layer reads it
+      float* tmp = cur; cur = nxt; nxt = tmp;
+    }
+
+    // last layer: y[row_off + r][q] = tanh(sum_k wt[r][k] cur[k][q] + b[r]).
+    // Warp w sums row w/4 over k = w%4 (mod 4); lanes are points.
+    const PLayer& L = T.layers[T.n_layers - 1];
+    const int pt = tid & 31, w = tid >> 5, r = w >> 2, part = w & 3;
+    if (r < T.n_out) {
+      const float* f = L.wt + (size_t)r * L.in_pad;
+      float s = 0.f;
+      for (int k = part; k < L.in_pad; k += 4) s = fmaf(__ldg(f + k), cur[k * TILE_P + pt], s);
+      red[w * TILE_P + pt] = s;
+    }
+    __syncthreads();
+    if (tid < T.n_out * TILE_P) {
+      const int rr = tid / TILE_P, pp = tid % TILE_P;
+      const float v = red[(rr * 4 + 0) * TILE_P + pp] + red[(rr * 4 + 1) * TILE_P + pp]
+                    + red[(rr * 4 + 2) * TILE_P + pp] + red[(rr * 4 + 3) * TILE_P + pp];
+      if (first + pp < p.m)
+        p.y[(size_t)(T.row_off + rr) * p.m + first + pp] = tanhf(v + __ldg(L.b + rr));
+    }
+    __syncthreads();  // the next trunk reuses the activation buffers and `red`
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward 1: the reverse chain and the sampling's gradients per point tile
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+pixel_train_bwd_chain_kernel(const PPlan p, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* d0 = smem;
+  float* d1 = d0 + p.max_pad * TILE_P;
+  float* dlat = d1 + p.max_pad * TILE_P;   // [c_pad][TILE_P]
+  float* ws = dlat + p.c_pad * TILE_P;
+  float* dembs = ws + BK * OCHUNK;         // [e][TILE_P]
+  float* g = dembs + EMB_MAX * TILE_P;     // [8][TILE_P]
+  float* tw = g + 8 * TILE_P;              // [TILE_P][16]
+  int* trc = reinterpret_cast<int*>(tw + 16 * TILE_P);  // [TILE_P][8]
+  int* flag = trc + 8 * TILE_P;
+  int* scn = flag + TILE_P;
+
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int first = blockIdx.x * TILE_P;
+  tile_taps(p, first, tid, tw, trc, flag, scn, true);
+  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) dembs[i] = 0.f;
+  for (int i = tid; i < p.c_pad * TILE_P; i += NTHREADS) dlat[i] = 0.f;
+
+  for (int t = 0; t < p.n_trunks; ++t) {
+    const PTrunk& T = p.trunks[t];
+    // last layer: dpre = dy * (1 - y^2)
+    const int last = T.n_layers - 1;
+    const PLayer& F = T.layers[last];
+    if (tid < T.n_out * TILE_P) {
+      const int r = tid / TILE_P, q = tid % TILE_P, row = first + q;
+      float v = 0.f;
+      if (row < p.m) {
+        const size_t at = (size_t)(T.row_off + r) * p.m + row;
+        const float yv = p.y[at];
+        v = p.dy[at] * (1.f - yv * yv);
+        F.dpre[(size_t)r * p.m + row] = v;
+      }
+      g[tid] = v;
+    }
+    __syncthreads();
+
+    // its input's gradient, gated by the last hidden layer's recovered gate
+    const PLayer& H = T.layers[last - 1];
+    const float hs = H.dropout ? scale : 1.f;
+    for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
+      const int k = i / TILE_P, q = i % TILE_P, row = first + q;
+      float dx = 0.f;
+      for (int r = 0; r < T.n_out; ++r)
+        dx = fmaf(__ldg(F.w + (size_t)k * T.n_out + r), g[r * TILE_P + q], dx);
+      float v = 0.f;
+      if (row < p.m) {
+        v = H.act[(size_t)k * p.m + row] > 0.f ? dx * hs : 0.f;
+        H.dpre[(size_t)k * p.m + row] = v;
+      }
+      d0[i] = v;
+    }
+    __syncthreads();
+
+    float* cur = d0;
+    float* nxt = d1;
+    for (int l = last - 1; l >= 0; --l) {
+      const PLayer& L = T.layers[l];
+      if (L.x) demb_accumulate(L.x, L.out_pad, p.e, cur, dembs, tid);
+      if (L.latt) {
+        // dlat[c][q] += sum_o Lat[c][o] cur[o][q] through latt (out_pad, c_pad);
+        // each thread adds to its own 8 x 4 entries
+        for (int oc = 0; oc < p.c_pad; oc += OCHUNK) {
+          float acc[8][4];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+          tile_product(acc, L.latt, p.c_pad, L.out_pad, cur, ws, oc, tid);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float4* dl = reinterpret_cast<float4*>(dlat + (oc + ty * 8 + i) * TILE_P + tx * 4);
+            float4 v = *dl;
+            v.x += acc[i][0]; v.y += acc[i][1]; v.z += acc[i][2]; v.w += acc[i][3];
+            *dl = v;
+          }
+        }
+      }
+      __syncthreads();
+      if (l == 0) break;
+      const PLayer& P = T.layers[l - 1];
+      const float ps = P.dropout ? scale : 1.f;
+      // dx[k][q] = sum_o W[k][o] cur[o][q] through wt (out_pad, in_pad)
+      for (int oc = 0; oc < L.in_pad; oc += OCHUNK) {
+        float acc[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        tile_product(acc, L.wt, L.in_pad, L.out_pad, cur, ws, oc, tid);
+        const int row0 = first + tx * 4;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int k = oc + ty * 8 + i;
+          float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (row0 < p.m) a = *reinterpret_cast<const float4*>(P.act + (size_t)k * p.m + row0);
+          const float4 rv = make_float4(a.x > 0.f ? acc[i][0] * ps : 0.f,
+                                        a.y > 0.f ? acc[i][1] * ps : 0.f,
+                                        a.z > 0.f ? acc[i][2] * ps : 0.f,
+                                        a.w > 0.f ? acc[i][3] * ps : 0.f);
+          *reinterpret_cast<float4*>(nxt + k * TILE_P + tx * 4) = rv;
+          if (row0 < p.m) *reinterpret_cast<float4*>(P.dpre + (size_t)k * p.m + row0) = rv;
+        }
+      }
+      __syncthreads();
+      float* tmp = cur; cur = nxt; nxt = tmp;
+    }
+    __syncthreads();  // the next trunk reuses `g` and the buffers
+  }
+
+  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
+    const int c = i / TILE_P, q = i % TILE_P;
+    if (first + q < p.m) p.demb[(size_t)(first + q) * p.e + c] = dembs[i];
+  }
+
+  // dlat transposed to [TILE_P][c_pad + 1] in the free activation buffers, so
+  // that a warp reading one point's channels hits 32 banks
+  const int ld = p.c_pad + 1;
+  float* dlt = d0;
+  for (int i = tid; i < p.c_pad * TILE_P; i += NTHREADS) {
+    const int c = i / TILE_P, q = i % TILE_P;
+    dlt[q * ld + c] = dlat[i];
+  }
+  __syncthreads();
+
+  // the taps: one warp a point, lanes over channels
+  const int lane = tid & 31, warp = tid >> 5;
+  const size_t hw = (size_t)p.hf * p.wf;
+  for (int q = warp; q < TILE_P; q += NTHREADS / 32) {
+    const int row = first + q;
+    if (row >= p.m) continue;
+    float tdx = 0.f, tdy = 0.f;
+    if (flag[q]) {
+      const float* wq = tw + q * 16;
+      const size_t base = (size_t)scn[q] * hw;
+      for (int i = 0; i < 4; ++i) {
+        const int r = trc[q * 8 + i];
+        if (r < 0) continue;
+        for (int j = 0; j < 4; ++j) {
+          const int col = trc[q * 8 + 4 + j];
+          if (col < 0) continue;
+          const size_t off = (base + r + col) * p.c;
+          const float wgt = wq[i] * wq[4 + j];
+          float part = 0.f;
+          for (int ch = lane; ch < p.c; ch += 32) {
+            const float d = dlt[q * ld + ch];
+            part = fmaf(__ldg(p.table + off + ch), d, part);
+            atomicAdd(p.dtable + off + ch, wgt * d);
+          }
+          tdx = fmaf(wq[i] * wq[12 + j], part, tdx);
+          tdy = fmaf(wq[8 + i] * wq[4 + j], part, tdy);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      tdx += __shfl_down_sync(0xffffffffu, tdx, off);
+      tdy += __shfl_down_sync(0xffffffffu, tdy, off);
+    }
+    if (lane == 0) {
+      p.dxp[row] = tdx;
+      p.dyp[row] = tdy;
+    }
+  }
+
+  // the mean row: points outside the image, summed per scene over the tile
+  for (int ch = tid; ch < p.c; ch += NTHREADS) {
+    float s = 0.f;
+    int sc = -1;
+    for (int q = 0; q < TILE_P; ++q) {
+      if (first + q >= p.m || flag[q]) continue;
+      if (scn[q] != sc) {
+        if (sc >= 0) atomicAdd(p.dmean + (size_t)sc * p.c + ch, s);
+        s = 0.f;
+        sc = scn[q];
+      }
+      s += dlt[q * ld + ch];
+    }
+    if (sc >= 0) atomicAdd(p.dmean + (size_t)sc * p.c + ch, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+#define HEAD 23
+#define PER_TRUNK 4
+#define PER_LAYER 15
+
+static size_t smem_bytes(int max_pad, int c_pad) {
+  return sizeof(float) * ((size_t)(2 * max_pad + c_pad) * TILE_P + BK * OCHUNK
+                          + EMB_MAX * TILE_P + 8 * TILE_P + 16 * TILE_P + 8 * TILE_P
+                          + 2 * TILE_P);
+}
+
+// desc (int64): [n_trunks, e, m, nps, n_scenes, c, c_pad, hf, wf, emb, table,
+// mean, xp, yp, mask, lat, y, dy, demb, dtable, dmean, dxp, dyp, then per
+// trunk: n_layers, n_out, row_off, layer_off, then per layer: w, wt, lat,
+// latt, x, b, act, dpre, dw, dlat, dx, db, in_pad, out_pad, dropout].
+// Pointers are device addresses, 0 = absent.
+static int parse(const long long* desc, int len, PPlan* p, bool backward) {
+  if (len < HEAD) return -1;
+  p->n_trunks = (int)desc[0];
+  p->e = (int)desc[1];
+  p->m = (int)desc[2];
+  p->nps = (int)desc[3];
+  p->n_scenes = (int)desc[4];
+  p->c = (int)desc[5];
+  p->c_pad = (int)desc[6];
+  p->hf = (int)desc[7];
+  p->wf = (int)desc[8];
+  p->emb = (const float*)desc[9];
+  p->table = (const float*)desc[10];
+  p->mean = (const float*)desc[11];
+  p->xp = (const float*)desc[12];
+  p->yp = (const float*)desc[13];
+  p->mask = (const float*)desc[14];
+  p->lat = (float*)desc[15];
+  p->y = (float*)desc[16];
+  p->dy = (const float*)desc[17];
+  p->demb = (float*)desc[18];
+  p->dtable = (float*)desc[19];
+  p->dmean = (float*)desc[20];
+  p->dxp = (float*)desc[21];
+  p->dyp = (float*)desc[22];
+  if (p->n_trunks < 1 || p->n_trunks > MAX_TRUNKS || p->e < 1 || p->e > EMB_MAX) return -1;
+  if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes)
+    return -1;
+  if (p->c < 1 || p->c_pad < p->c || p->c_pad % OCHUNK || p->hf < 1 || p->wf < 1) return -1;
+  if (!p->emb || !p->table || !p->mean || !p->xp || !p->yp || !p->mask || !p->lat || !p->y)
+    return -1;
+  if (backward && (!p->dy || !p->demb || !p->dtable || !p->dmean || !p->dxp || !p->dyp)) return -1;
+  p->max_pad = OCHUNK;
+  int pos = HEAD;
+  for (int t = 0; t < p->n_trunks; ++t) {
+    if (pos + PER_TRUNK > len) return -1;
+    PTrunk& T = p->trunks[t];
+    T.n_layers = (int)desc[pos];
+    T.n_out = (int)desc[pos + 1];
+    T.row_off = (int)desc[pos + 2];
+    T.layer_off = (int)desc[pos + 3];
+    pos += PER_TRUNK;
+    if (T.n_layers < 2 || T.n_layers > MAX_LAYERS || T.n_out < 1 || T.n_out > MAX_OUT) return -1;
+    if (T.row_off < 0 || T.layer_off < 0 || pos + PER_LAYER * T.n_layers > len) return -1;
+    for (int l = 0; l < T.n_layers; ++l, pos += PER_LAYER) {
+      const long long* d = desc + pos;
+      PLayer& L = T.layers[l];
+      L.w = (const float*)d[0]; L.wt = (const float*)d[1];
+      L.lat = (const float*)d[2]; L.latt = (const float*)d[3];
+      L.x = (const float*)d[4]; L.b = (const float*)d[5];
+      L.act = (float*)d[6]; L.dpre = (float*)d[7];
+      L.dw = (float*)d[8]; L.dlat = (float*)d[9]; L.dx = (float*)d[10]; L.db = (float*)d[11];
+      L.in_pad = (int)d[12]; L.out_pad = (int)d[13]; L.dropout = (int)d[14];
+      const bool hidden = l < T.n_layers - 1;
+      if (!L.b) return -1;
+      if (l == 0 ? (L.w || !L.lat || L.in_pad != 0)
+                 : (!L.w || !L.wt || L.in_pad != T.layers[l - 1].out_pad)) return -1;
+      // the latent and the embedding enter together, at layer 0 and the
+      // latent_in layers
+      if (!L.lat != !L.latt || !L.lat != !L.x) return -1;
+      if (hidden) {
+        if (L.out_pad < OCHUNK || L.out_pad % OCHUNK || !L.act) return -1;
+        if (L.out_pad > p->max_pad) p->max_pad = L.out_pad;
+      } else if (L.out_pad != T.n_out || L.lat || L.dropout) {
+        return -1;
+      }
+      if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.lat && (!L.dlat || !L.dx))))
+        return -1;
+    }
+  }
+  if (pos != len) return -1;
+  // the transposed latent gradient reuses the two activation buffers
+  if (p->c_pad + 1 > 2 * p->max_pad) return -1;
+  return 0;
+}
+
+extern "C" int pixel_train_fwd(const long long* desc, int len, unsigned seed, unsigned thresh,
+                               float scale, void* stream) {
+  PPlan p;
+  if (parse(desc, len, &p, false)) return -1;
+  const size_t smem = smem_bytes(p.max_pad, p.c_pad);
+  cudaError_t err = cudaFuncSetAttribute(pixel_train_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((p.m + TILE_P - 1) / TILE_P);
+  pixel_train_fwd_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(p, seed, thresh, scale);
+  return (int)cudaGetLastError();
+}
+
+// d(table), d(mean), every dw / dlat / dx and db must hold zeros on entry.
+extern "C" int pixel_train_bwd(const long long* desc, int len, float scale, void* stream) {
+  PPlan p;
+  if (parse(desc, len, &p, true)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = smem_bytes(p.max_pad, p.c_pad);
+  cudaError_t err = cudaFuncSetAttribute(pixel_train_bwd_chain_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((p.m + TILE_P - 1) / TILE_P);
+  pixel_train_bwd_chain_kernel<<<blocks, NTHREADS, smem, s>>>(p, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  for (int t = 0; t < p.n_trunks; ++t) {
+    const PTrunk& T = p.trunks[t];
+    for (int l = 0; l < T.n_layers; ++l) {
+      const PLayer& L = T.layers[l];
+      int rc;
+      if (L.w && (rc = launch_wgrad(T.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s)))
+        return rc;
+      if (L.lat && ((rc = launch_wgrad(p.lat, L.dpre, L.dlat, p.c_pad, L.out_pad, p.m, s))
+                    || (rc = launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s))))
+        return rc;
+      if ((rc = launch_colsum(L.dpre, L.db, L.out_pad, p.m, 4096, 0, s))) return rc;
+    }
+  }
+  return 0;
+}

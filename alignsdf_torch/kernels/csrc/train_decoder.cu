@@ -48,10 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TILE_P 32      // points per block
-#define NTHREADS 256   // threads per block
-#define OCHUNK 256     // output features per chunk
-#define BK 32          // k depth of one weight tile
+#include "train_common.cuh"  // gate_hash, wgrad / colsum; tile_product.cuh's tile product
+
 #define EMB_MAX 64     // embedding columns
 #define MAX_LAYERS 10
 #define MAX_OUT 2
@@ -71,66 +69,6 @@ struct Plan {
   float* demb;       // (M, e)
   Layer layers[MAX_LAYERS];
 };
-
-// ---------------------------------------------------------------------------
-// shared pieces
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned gate_hash(unsigned seed, unsigned layer, unsigned row,
-                                              unsigned col) {
-  unsigned h = seed ^ (row * 0x9E3779B1u) ^ (col * 0x85EBCA6Bu) ^ (layer * 0xC2B2AE35u);
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return h;
-}
-
-// Weight tile [BK][OCHUNK] of W (ld floats per row) at rows k0.., columns
-// oc..: 2048 float4, 8 per thread, 64 threads per row (coalesced).
-__device__ __forceinline__ void load_tile(float4 (&pre)[8], const float* __restrict__ w,
-                                          int ld, int k0, int oc, int tid) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int f = tid + i * NTHREADS;
-    int row = f >> 6, col = (f & 63) << 2;
-    pre[i] = __ldg(reinterpret_cast<const float4*>(w + (size_t)(k0 + row) * ld + oc + col));
-  }
-}
-
-__device__ __forceinline__ void store_tile(float* ws, const float4 (&pre)[8], int tid) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) reinterpret_cast<float4*>(ws)[tid + i * NTHREADS] = pre[i];
-}
-
-// acc[i][j] += sum_{k < K} W[k][oc + ty*8 + i] * in[k][tx*4 + j]; `in` is
-// [K][TILE_P] in shared memory, W (K, ld) row-major in device memory.
-__device__ __forceinline__ void mm_chunk(float (&acc)[8][4], const float* __restrict__ w,
-                                         int ld, int K, int oc, const float* in, float* ws,
-                                         int tid) {
-  const int tx = tid & 7, ty = tid >> 3;
-  float4 pre[8];
-  load_tile(pre, w, ld, 0, oc, tid);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // every thread is done reading the previous tile
-    store_tile(ws, pre, tid);
-    __syncthreads();
-    if (k0 + BK < K) load_tile(pre, w, ld, k0 + BK, oc, tid);
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(in + (k0 + kk) * TILE_P + tx * 4);
-      const float4 w0 = *reinterpret_cast<const float4*>(ws + kk * OCHUNK + ty * 8);
-      const float4 w1 = *reinterpret_cast<const float4*>(ws + kk * OCHUNK + ty * 8 + 4);
-      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], av[j], acc[i][j]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // forward
@@ -163,7 +101,7 @@ train_fwd_kernel(const Plan p, unsigned seed, unsigned thresh, float scale) {
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      if (L.w) mm_chunk(acc, L.w, L.out_pad, L.in_pad, oc, cur, ws, tid);
+      if (L.w) tile_product(acc, L.w, L.out_pad, L.in_pad, cur, ws, oc, tid);
       if (L.x) {
         for (int c = 0; c < p.e; ++c) {
           const float4 ev = *reinterpret_cast<const float4*>(embs + c * TILE_P + tx * 4);
@@ -225,18 +163,6 @@ train_fwd_kernel(const Plan p, unsigned seed, unsigned thresh, float scale) {
 // backward 1: the reverse chain per point tile
 // ---------------------------------------------------------------------------
 
-// dembs[c][p] += sum_o X[c][o] d[o][p] for the tile (threads over (c, p)).
-__device__ __forceinline__ void demb_accumulate(const Plan& p, const Layer& L, const float* d,
-                                                float* dembs, int tid) {
-  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
-    const int c = i / TILE_P, q = i % TILE_P;
-    const float* xr = L.x + (size_t)c * L.out_pad;
-    float s = 0.f;
-    for (int o = 0; o < L.out_pad; ++o) s = fmaf(__ldg(xr + o), d[o * TILE_P + q], s);
-    dembs[i] += s;
-  }
-}
-
 __global__ void __launch_bounds__(NTHREADS, 1)
 train_bwd_chain_kernel(const Plan p, float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -286,7 +212,7 @@ train_bwd_chain_kernel(const Plan p, float scale) {
   for (int l = last - 1; l >= 0; --l) {
     const Layer& L = p.layers[l];
     if (L.x) {
-      demb_accumulate(p, L, cur, dembs, tid);
+      demb_accumulate(L.x, L.out_pad, p.e, cur, dembs, tid);
       __syncthreads();
     }
     if (l == 0) break;
@@ -299,7 +225,7 @@ train_bwd_chain_kernel(const Plan p, float scale) {
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      mm_chunk(acc, L.wt, L.in_pad, L.out_pad, oc, cur, ws, tid);
+      tile_product(acc, L.wt, L.in_pad, L.out_pad, cur, ws, oc, tid);
       const int row0 = first + tx * 4;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -321,86 +247,6 @@ train_bwd_chain_kernel(const Plan p, float scale) {
   for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
     const int c = i / TILE_P, q = i % TILE_P;
     if (first + q < p.m) p.demb[(size_t)(first + q) * p.e + c] = dembs[i];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward 2: C[k][n] += sum_p A[k][p] B[n][p] over one chunk of M per block
-// ---------------------------------------------------------------------------
-
-#define WG_T 64   // output tile edge
-#define WG_K 32   // points per step
-
-__global__ void __launch_bounds__(NTHREADS)
-wgrad_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
-             int K, int N, int m, int chunk) {
-  __shared__ float As[WG_K][WG_T + 1];
-  __shared__ float Bs[WG_K][WG_T + 1];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * WG_T, k0 = blockIdx.y * WG_T;
-  const int p_begin = blockIdx.z * chunk, p_end = min(m, p_begin + chunk);
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int p0 = p_begin; p0 < p_end; p0 += WG_K) {
-#pragma unroll
-    for (int i = 0; i < (WG_T * WG_K) / NTHREADS; ++i) {
-      const int f = tid + i * NTHREADS;
-      const int r = f / WG_K, c = f % WG_K, pt = p0 + c;
-      const bool in = pt < p_end;
-      As[c][r] = (in && k0 + r < K) ? __ldg(A + (size_t)(k0 + r) * m + pt) : 0.f;
-      Bs[c][r] = (in && n0 + r < N) ? __ldg(B + (size_t)(n0 + r) * m + pt) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < WG_K; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) atomicAdd(C + (size_t)k * N + n, acc[i][j]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward 3: out[s][o] = sum of d[o][p] over segment s (scene tables), or
-// out[o] += that sum (global bias)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(NTHREADS)
-colsum_kernel(const float* __restrict__ d, float* __restrict__ out, int rows, int m, int seg,
-              int per_segment) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int o = blockIdx.x * (NTHREADS / 32) + warp;
-  if (o >= rows) return;
-  const int s = blockIdx.y;
-  const int begin = s * seg, end = min(m, begin + seg);
-  float v = 0.f;
-  for (int q = begin + lane; q < end; q += 32) v += __ldg(d + (size_t)o * m + q);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane == 0) {
-    if (per_segment) out[(size_t)s * rows + o] = v;
-    else atomicAdd(out + o, v);
   }
 }
 
@@ -466,21 +312,6 @@ extern "C" int train_decoder_fwd(const long long* desc, int len, unsigned seed, 
   return (int)cudaGetLastError();
 }
 
-static int launch_wgrad(const float* A, const float* B, float* C, int K, int N, int m,
-                        cudaStream_t stream) {
-  const int gx = (N + WG_T - 1) / WG_T, gy = (K + WG_T - 1) / WG_T;
-  // split M so the grid holds ~8 blocks per SM, each at least 128 points
-  int splits = (8 * 132 + gx * gy - 1) / (gx * gy);
-  const int max_splits = (m + 127) / 128;
-  if (splits > max_splits) splits = max_splits;
-  if (splits < 1) splits = 1;
-  int chunk = (m + splits - 1) / splits;
-  chunk = (chunk + WG_K - 1) / WG_K * WG_K;
-  splits = (m + chunk - 1) / chunk;
-  wgrad_kernel<<<dim3(gx, gy, splits), NTHREADS, 0, stream>>>(A, B, C, K, N, m, chunk);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int train_decoder_bwd(const long long* desc, int len, float scale, void* stream) {
   Plan p;
   if (parse(desc, len, &p, true)) return -1;
@@ -499,11 +330,9 @@ extern "C" int train_decoder_bwd(const long long* desc, int len, float scale, vo
     if (L.w && (rc = launch_wgrad(p.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s)))
       return rc;
     if (L.x && (rc = launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s))) return rc;
-    const int seg = L.scene_bias ? p.nps : 4096;
-    const unsigned segments = (unsigned)((p.m + seg - 1) / seg);
-    colsum_kernel<<<dim3((L.out_pad + 7) / 8, segments), NTHREADS, 0, s>>>(
-        L.dpre, L.db, L.out_pad, p.m, seg, L.scene_bias);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((rc = launch_colsum(L.dpre, L.db, L.out_pad, p.m, L.scene_bias ? p.nps : 4096,
+                            L.scene_bias, s)))
+      return rc;
   }
   return 0;
 }

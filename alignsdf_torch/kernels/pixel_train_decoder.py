@@ -1,0 +1,447 @@
+"""Kernel K4: the pixel-aligned train decoder, forward and backward of both
+trunks on a per-point latent sampled from the HeadNet feature map, with its
+plain PyTorch version and the wrappers that launch the CUDA kernels
+(``csrc/pixel_train_decoder.cu``).
+
+Replaces ``alignsdf_tpu/ops/decoder_train_pixel.py:fused_pixel_decoder``
+(forward ``_fused_pixel_fwd`` / ``_fwd_kernel``, backward
+``_fused_pixel_bwd`` / ``_bwd_kernel``), unbanded.  Each point's latent is
+the bicubic sample of its scene's (HW, C) table at (xp, yp), or the scene's
+mean row where ``mask`` is 0; trunk ``t`` then computes, layer by layer,
+
+    acc = a_{l-1} @ W_l (if W_l) + lat @ Lat_l + emb @ X_l (if Lat_l) + b_l
+
+with ReLU and the hash dropout gate (``train_decoder.dropout_gate``, layer
+``l + layer_offsets[t]``) on hidden layers and tanh on the last.  The
+outputs of the trunks stack as the rows of y.
+
+``pixel_train_decode`` takes the plain version for a CPU tensor, on which
+autograd gives the gradients.  For a CUDA tensor it runs
+``PixelTrainDecodeFunction``, whose forward and backward launch the kernels
+or raise.  ``pixel_train_decode.launches`` counts forward launches and
+``pixel_train_decode_backward.launches`` backward launches: one each per
+train step, both trunks together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from alignsdf_torch.kernels.train_decoder import (
+    MAX_SMEM,
+    PAD,
+    _M32,
+    _pad2,
+    _ptr,
+    _round_up,
+    _run,
+    dropout_gate,
+    gate_threshold,
+)
+from alignsdf_torch.ops.geometry import bicubic_gather, keys_cubic_grad, keys_cubic_taps
+
+EMB_MAX = 64      # embedding columns the kernels read
+MAX_LAYERS = 8
+MAX_TRUNKS = 2
+MAX_OUT = 2       # outputs of a trunk's last layer
+_TILE_P, _BK = 32, 32
+
+# one trunk's operands: ws[l] (in, out) or None, lats[l] (C, out) or None,
+# xs[l] (e, out) or None (present where lats[l] is), bs[l] (out,)
+Trunk = Tuple[Sequence[Optional[torch.Tensor]], Sequence[Optional[torch.Tensor]],
+              Sequence[Optional[torch.Tensor]], Sequence[torch.Tensor]]
+
+
+class PixelTrainStatics(NamedTuple):
+    """The static structure shared by the trunks, per layer, and the
+    feature map's size."""
+
+    n_per_scene: int              # row // n_per_scene is a point's scene
+    feat_hw: Tuple[int, int]      # (Hf, Wf) of the map
+    has_w: Tuple[bool, ...]       # reads the previous layer's activation
+    has_x: Tuple[bool, ...]       # reads the latent and the embedding
+    dropout: Tuple[bool, ...]     # hidden layers with dropout
+    keep: float
+    train: bool
+    layer_offsets: Tuple[int, ...]  # per trunk, added to the layer in the gate's hash
+
+
+def sample_latent(table: torch.Tensor, mean: torch.Tensor, xp: torch.Tensor, yp: torch.Tensor,
+                  mask: torch.Tensor, st: PixelTrainStatics) -> torch.Tensor:
+    """(M, C) latent of each point: the 16-tap bicubic sample of its scene's
+    (HW, C) table at (xp, yp), or the scene's mean row where mask is 0."""
+    b, _, c = table.shape
+    hf, wf = st.feat_hw
+    sampled = bicubic_gather(table, xp.reshape(b, -1), yp.reshape(b, -1), hf, wf).reshape(-1, c)
+    scene = torch.arange(xp.shape[0], device=xp.device) // st.n_per_scene
+    return torch.where(mask[:, None] > 0, sampled, mean[scene])
+
+
+def pixel_train_decode_reference(table: torch.Tensor, mean: torch.Tensor, xp: torch.Tensor,
+                                 yp: torch.Tensor, mask: torch.Tensor, emb: torch.Tensor,
+                                 trunks: Sequence[Trunk], seed: int, st: PixelTrainStatics,
+                                 acts: Optional[List[List[torch.Tensor]]] = None,
+                                 latent: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """The plain version of K4's forward, step by step with torch.matmul;
+    autograd through it is the plain backward.  table (B, HW, C), mean (B,
+    C), xp / yp / mask (M,), emb (M, e).  Returns y (rows, M), the trunks'
+    tanh'd outputs stacked.  ``acts``, if given, receives per trunk each
+    hidden layer's gated activation (M, out); ``latent`` the (M, C) latent."""
+    lat = sample_latent(table, mean, xp, yp, mask, st)
+    if latent is not None:
+        latent.append(lat)
+    rows = torch.arange(emb.shape[0], device=emb.device)
+    outs = []
+    for (ws, lats, xs, bs), offset in zip(trunks, st.layer_offsets):
+        trunk_acts: List[torch.Tensor] = []
+        x = None
+        for layer in range(len(bs)):
+            acc = bs[layer]
+            if ws[layer] is not None:
+                acc = acc + x @ ws[layer]
+            if lats[layer] is not None:
+                acc = acc + lat @ lats[layer] + emb @ xs[layer]
+            if layer == len(bs) - 1:
+                outs.append(torch.tanh(acc).T)
+                break
+            x = torch.relu(acc)
+            if st.train and st.dropout[layer]:
+                x = x * dropout_gate(seed, layer + offset, rows, x.shape[1], st.keep)
+            trunk_acts.append(x)
+        if acts is not None:
+            acts.append(trunk_acts)
+    return torch.cat(outs, dim=0)
+
+
+def pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb,
+                                          trunks: Sequence[Trunk], st: PixelTrainStatics,
+                                          y: torch.Tensor, acts: Sequence[Sequence[torch.Tensor]],
+                                          latent: torch.Tensor, dy: torch.Tensor):
+    """The plain version of K4's backward, from the kernel's residuals: y and
+    dy (rows, M), per trunk the gated activations (M, out) and the latent
+    (M, C).  The gate is recovered as (a > 0) * s, s = 1/keep on dropout
+    layers in training (no hash replay).  Returns (d(table) (B, HW, C),
+    d(mean) (B, C), d(xp) (M,), d(yp) (M,), d(emb), [(dws, dlats, dxs, dbs)]
+    per trunk); d(xp), d(yp) come through ``keys_cubic_grad``."""
+    m, c = latent.shape
+    b, hw, _ = table.shape
+    hf, wf = st.feat_hw
+    dlat = torch.zeros_like(latent)
+    demb = torch.zeros_like(emb)
+    grads = []
+    row = 0
+    for (ws, lats, xs, bs), trunk_acts in zip(trunks, acts):
+        n_layers, n_out = len(bs), bs[-1].shape[-1]
+        dws, dlats, dxs, dbs = ([None] * n_layers for _ in range(4))
+        yt = y[row:row + n_out]
+        dpre = (dy[row:row + n_out] * (1.0 - yt * yt)).T  # (M, n_out)
+        row += n_out
+        for layer in range(n_layers - 1, -1, -1):
+            if ws[layer] is not None:
+                dws[layer] = trunk_acts[layer - 1].T @ dpre
+            if lats[layer] is not None:
+                dlats[layer] = latent.T @ dpre
+                dxs[layer] = emb.T @ dpre
+                dlat = dlat + dpre @ lats[layer].T
+                demb = demb + dpre @ xs[layer].T
+            dbs[layer] = dpre.sum(0)
+            if layer > 0:
+                scale = 1.0 / st.keep if st.train and st.dropout[layer - 1] else 1.0
+                dpre = ((dpre @ ws[layer].T) * (trunk_acts[layer - 1] > 0).to(dpre.dtype)
+                        * np.float32(scale))
+        grads.append((dws, dlats, dxs, dbs))
+
+    scene = torch.arange(m, device=emb.device) // st.n_per_scene
+    inside = mask > 0
+    dmean = torch.zeros_like(mean).index_add_(0, scene, torch.where(inside[:, None], 0.0, dlat))
+    x0, y0 = torch.floor(xp), torch.floor(yp)
+    wx, wy = keys_cubic_taps(xp - x0), keys_cubic_taps(yp - y0)
+    flat = table.reshape(b * hw, c)
+    dtable = torch.zeros_like(flat)
+    dxp = torch.zeros_like(xp)
+    dyp = torch.zeros_like(yp)
+    for i in range(4):
+        r = y0 + (i - 1)
+        gy = -keys_cubic_grad(r - yp)
+        for j in range(4):
+            col = x0 + (j - 1)
+            gx = -keys_cubic_grad(col - xp)
+            valid = inside & (r >= 0) & (r < hf) & (col >= 0) & (col < wf)
+            idx = torch.where(valid, scene * hw + r.long() * wf + col.long(), 0)
+            dw = (flat[idx] * dlat).sum(1)
+            dxp = dxp + torch.where(valid, wy[:, i] * gx * dw, 0.0)
+            dyp = dyp + torch.where(valid, gy * wx[:, j] * dw, 0.0)
+            w = torch.where(valid, wy[:, i] * wx[:, j], 0.0)
+            dtable.index_add_(0, idx, w[:, None] * dlat)
+    return dtable.reshape(b, hw, c), dmean, dxp, dyp, demb, grads
+
+
+# ---------------------------------------------------------------------------
+# the CUDA path
+# ---------------------------------------------------------------------------
+
+class _PackedTrunk(NamedTuple):
+    """One trunk padded in the kernels' layout."""
+
+    w: List[Optional[torch.Tensor]]     # hidden (in_pad, out_pad); last (in_pad, n_out)
+    wt: List[Optional[torch.Tensor]]    # transposes of w
+    lat: List[Optional[torch.Tensor]]   # (c_pad, out_pad)
+    latt: List[Optional[torch.Tensor]]  # transposes of lat
+    x: List[Optional[torch.Tensor]]     # (e, out_pad)
+    b: List[torch.Tensor]               # (out_pad,)
+    out_pads: List[int]
+    n_out: int
+    row_off: int
+    layer_off: int
+
+
+class _Packed(NamedTuple):
+    """Contiguous float32 copies of every operand, in the kernels' layout."""
+
+    table: torch.Tensor   # (B, HW, C)
+    mean: torch.Tensor    # (B, C)
+    xp: torch.Tensor      # (M,)
+    yp: torch.Tensor
+    mask: torch.Tensor
+    emb_t: torch.Tensor   # (e, M)
+    trunks: List[_PackedTrunk]
+    c_pad: int
+    n_rows: int
+
+
+def _check(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk], st: PixelTrainStatics) -> int:
+    """Raise on what the kernels do not take; returns the number of scenes."""
+    m, e = emb.shape
+    b, hw, c = table.shape
+    hf, wf = st.feat_hw
+    if hw != hf * wf or mean.shape != (b, c):
+        raise ValueError(f"a {hf}x{wf} map needs a (B, {hf * wf}, C) table and a (B, C) mean")
+    if not 1 <= len(trunks) <= MAX_TRUNKS or len(trunks) != len(st.layer_offsets):
+        raise ValueError(f"the kernels take 1-{MAX_TRUNKS} trunks, one layer offset each")
+    if not 1 <= e <= EMB_MAX:
+        raise ValueError(f"{e} embedding columns are outside the kernel")
+    if m <= 0 or m % 4 or m >= 2 ** 31 or m % st.n_per_scene or m // st.n_per_scene != b:
+        raise ValueError(f"M = {m} must be a positive multiple of 4 and B x n_per_scene")
+    for ws, lats, xs, bs in trunks:
+        n_layers = len(bs)
+        if not 2 <= n_layers <= MAX_LAYERS:
+            raise ValueError(f"the kernel takes 2-{MAX_LAYERS} layers, got {n_layers}")
+        if ws[0] is not None or lats[0] is None or any(w is None for w in ws[1:]):
+            raise ValueError("layer 0 reads only the latent and the embedding")
+        if any((lat is None) != (x is None) for lat, x in zip(lats, xs)):
+            raise ValueError("the latent and the embedding enter the same layers")
+        if lats[-1] is not None or not 1 <= bs[-1].shape[-1] <= MAX_OUT:
+            raise ValueError("the last layer reads no latent and has 1-2 outputs")
+        for t in [*ws, *lats, *xs, *bs]:
+            if t is not None and (t.dtype != torch.float32 or t.device != emb.device):
+                raise ValueError("every operand must be float32 on the embedding's device")
+    for t in (table, mean, xp, yp, mask, emb):
+        if t.dtype != torch.float32 or t.device != emb.device:
+            raise ValueError("every operand must be float32 on the embedding's device")
+    return b
+
+
+def pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk],
+                      st: PixelTrainStatics) -> _Packed:
+    """Padded, contiguous copies of every operand (detached) for the kernels;
+    raises on what they do not take."""
+    _check(table, mean, xp, yp, mask, emb, trunks, st)
+    c = table.shape[2]
+    c_pad = _round_up(c, PAD)
+    packed, row = [], 0
+    for (ws, lats, xs, bs), offset in zip(trunks, st.layer_offsets):
+        n_layers, n_out = len(bs), bs[-1].shape[-1]
+        w, wt, lat, latt, x, b, out_pads = [], [], [], [], [], [], []
+        in_pad = 0
+        for layer in range(n_layers):
+            out_pad = n_out if layer == n_layers - 1 else _round_up(bs[layer].shape[-1], PAD)
+            wl = None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad)
+            ll = None if lats[layer] is None else _pad2(lats[layer], c_pad, out_pad)
+            w.append(wl)
+            wt.append(None if wl is None else wl.T.contiguous())
+            lat.append(ll)
+            latt.append(None if ll is None else ll.T.contiguous())
+            x.append(None if xs[layer] is None else _pad2(xs[layer], emb.shape[1], out_pad))
+            b.append(_pad2(bs[layer][None], 1, out_pad)[0])
+            out_pads.append(out_pad)
+            in_pad = out_pad
+        packed.append(_PackedTrunk(w, wt, lat, latt, x, b, out_pads, n_out, row, offset))
+        row += n_out
+    if c_pad + 1 > 2 * max(max(t.out_pads[:-1]) for t in packed):
+        raise ValueError(f"a {c}-channel latent is too wide for the trunks' buffers")
+    f32 = lambda t: t.detach().to(torch.float32).contiguous()  # noqa: E731
+    return _Packed(f32(table), f32(mean), f32(xp), f32(yp), f32(mask), f32(emb.T), packed,
+                   c_pad, row)
+
+
+def smem_bytes(max_pad: int, c_pad: int) -> int:
+    """Dynamic shared memory of one block: two activation buffers, the
+    latent tile, the weight tile, the embedding tile, 8 rows of scratch and
+    the per-point tap table (16 weights, 8 offsets, a flag and a scene)."""
+    return 4 * ((2 * max_pad + c_pad) * _TILE_P + _BK * PAD + EMB_MAX * _TILE_P
+                + 8 * _TILE_P + 26 * _TILE_P)
+
+
+def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=None,
+                dtable=None, dmean=None, dxp=None, dyp=None, dpre=None, grads=None) -> np.ndarray:
+    """The int64 descriptor ``pixel_train_decoder.cu`` parses (see its host
+    side)."""
+    e, m = p.emb_t.shape
+    b, _, c = p.table.shape
+    hf, wf = st.feat_hw
+    desc = [len(p.trunks), e, m, st.n_per_scene, b, c, p.c_pad, hf, wf,
+            _ptr(p.emb_t), _ptr(p.table), _ptr(p.mean), _ptr(p.xp), _ptr(p.yp), _ptr(p.mask),
+            _ptr(lat), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dtable), _ptr(dmean), _ptr(dxp),
+            _ptr(dyp)]
+    for t, tr in enumerate(p.trunks):
+        n_layers = len(tr.b)
+        desc += [n_layers, tr.n_out, tr.row_off, tr.layer_off]
+        in_pad = 0
+        for layer in range(n_layers):
+            dw, dl, dx, db = grads[t][layer] if grads is not None else (None,) * 4
+            hidden = layer < n_layers - 1
+            desc += [_ptr(tr.w[layer]), _ptr(tr.wt[layer]), _ptr(tr.lat[layer]),
+                     _ptr(tr.latt[layer]), _ptr(tr.x[layer]), _ptr(tr.b[layer]),
+                     _ptr(acts[t][layer]) if hidden else 0,
+                     _ptr(dpre[t][layer]) if dpre is not None else 0,
+                     _ptr(dw), _ptr(dl), _ptr(dx), _ptr(db), in_pad, tr.out_pads[layer],
+                     int(hidden and st.train and st.dropout[layer])]
+            in_pad = tr.out_pads[layer]
+    return np.ascontiguousarray(desc, np.int64)
+
+
+def _lib():
+    from alignsdf_torch.kernels.build import load
+
+    lib = load("pixel_train_decoder")
+    if not getattr(lib, "_typed", False):
+        lib.pixel_train_fwd.restype = ctypes.c_int
+        lib.pixel_train_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                                        ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+        lib.pixel_train_bwd.restype = ctypes.c_int
+        lib.pixel_train_bwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                                        ctypes.c_void_p]
+        lib._typed = True
+    return lib
+
+
+def pixel_train_decode_forward(p: _Packed, seed: int, st: PixelTrainStatics):
+    """K4 forward on the card: y (rows, M), per trunk the gated activations
+    of the hidden layers, each (out_pad, M), and the latent (c_pad, M)."""
+    e, m = p.emb_t.shape
+    dev = p.emb_t.device
+    max_pad = max(max(t.out_pads[:-1]) for t in p.trunks)
+    if smem_bytes(max_pad, p.c_pad) > MAX_SMEM:
+        raise ValueError("hidden width and latent need more shared memory than a block has")
+    y = torch.empty((p.n_rows, m), dtype=torch.float32, device=dev)
+    acts = [[torch.empty((h, m), dtype=torch.float32, device=dev) for h in t.out_pads[:-1]]
+            for t in p.trunks]
+    lat = torch.empty((p.c_pad, m), dtype=torch.float32, device=dev)
+    desc = _descriptor(p, st, y, acts, lat)
+    _run("pixel_train_fwd", _lib().pixel_train_fwd, dev, desc.ctypes.data, int(desc.size),
+         seed & _M32, gate_threshold(st.keep), float(np.float32(1.0 / st.keep)))
+    pixel_train_decode.launches += 1
+    return y, acts, lat
+
+
+def pixel_train_decode_backward(p: _Packed, st: PixelTrainStatics, y: torch.Tensor,
+                                acts: List[List[torch.Tensor]], lat: torch.Tensor,
+                                dy: torch.Tensor):
+    """K4 backward on the card: the reverse chain and the sampling's
+    gradients per point tile, then per layer the weight, latent-weight,
+    embedding-weight and bias reductions over all M points.  Returns
+    (d(table), d(mean), d(xp), d(yp), d(emb) (M, e), per trunk [(dW | None,
+    dLat | None, dX | None, db)] padded)."""
+    e, m = p.emb_t.shape
+    dev = p.emb_t.device
+    dy = dy.to(torch.float32).contiguous()
+    demb = torch.empty((m, e), dtype=torch.float32, device=dev)
+    dtable = torch.zeros_like(p.table)
+    dmean = torch.zeros_like(p.mean)
+    dxp = torch.empty_like(p.xp)
+    dyp = torch.empty_like(p.yp)
+    dpre = [[torch.empty((h, m), dtype=torch.float32, device=dev) for h in t.out_pads]
+            for t in p.trunks]
+    zeros = lambda t: None if t is None else torch.zeros_like(t)  # noqa: E731
+    grads = [[(zeros(t.w[layer]), zeros(t.lat[layer]), zeros(t.x[layer]),
+               torch.zeros_like(t.b[layer])) for layer in range(len(t.b))] for t in p.trunks]
+    desc = _descriptor(p, st, y, acts, lat, dy=dy, demb=demb, dtable=dtable, dmean=dmean,
+                       dxp=dxp, dyp=dyp, dpre=dpre, grads=grads)
+    _run("pixel_train_bwd", _lib().pixel_train_bwd, dev, desc.ctypes.data, int(desc.size),
+         float(np.float32(1.0 / st.keep)))
+    pixel_train_decode_backward.launches += 1
+    return dtable, dmean, dxp, dyp, demb, grads
+
+
+def flatten_pixel_params(trunks: Sequence[Trunk]) -> List[torch.Tensor]:
+    """Per trunk: the ws, lats and xs that exist, then the bs."""
+    out: List[torch.Tensor] = []
+    for ws, lats, xs, bs in trunks:
+        out += [t for group in (ws, lats, xs) for t in group if t is not None] + list(bs)
+    return out
+
+
+def unflatten_pixel_params(st: PixelTrainStatics, params) -> List[Trunk]:
+    it = iter(params)
+    n_layers = len(st.has_w)
+    trunks = []
+    for _ in st.layer_offsets:
+        ws = [next(it) if has else None for has in st.has_w]
+        lats = [next(it) if has else None for has in st.has_x]
+        xs = [next(it) if has else None for has in st.has_x]
+        trunks.append((ws, lats, xs, [next(it) for _ in range(n_layers)]))
+    return trunks
+
+
+class PixelTrainDecodeFunction(torch.autograd.Function):
+    """K4 over both trunks.  Inputs are unpadded, as
+    ``pixel_train_decode_reference`` takes them, the trunks flattened by
+    ``flatten_pixel_params``; the padding happens here and the padded rows
+    and columns of every gradient are dropped on the way out.  The gated
+    activations and the latent are the residuals."""
+
+    @staticmethod
+    def forward(ctx, st: PixelTrainStatics, seed: int, table, mean, xp, yp, mask, emb, *params):
+        trunks = unflatten_pixel_params(st, params)
+        detached = [tuple([None if t is None else t.detach() for t in group] for group in tr)
+                    for tr in trunks]
+        packed = pack_pixel_trunks(table, mean, xp, yp, mask, emb, detached, st)
+        y, acts, lat = pixel_train_decode_forward(packed, seed, st)
+        ctx.st, ctx.packed, ctx.acts, ctx.lat, ctx.y = st, packed, acts, lat, y
+        ctx.shapes = [[[None if t is None else t.shape for t in group] for group in tr]
+                      for tr in trunks]
+        ctx.c = table.shape[2]
+        return y
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        dtable, dmean, dxp, dyp, demb, grads = pixel_train_decode_backward(
+            ctx.packed, ctx.st, ctx.y, ctx.acts, ctx.lat, dy)
+        flat: List[torch.Tensor] = []
+        for (w_s, lat_s, x_s, b_s), g in zip(ctx.shapes, grads):
+            flat += [dw[:s[0], :s[1]] for (dw, _, _, _), s in zip(g, w_s) if s is not None]
+            flat += [dl[:ctx.c, :s[1]] for (_, dl, _, _), s in zip(g, lat_s) if s is not None]
+            flat += [dx[:, :s[1]] for (_, _, dx, _), s in zip(g, x_s) if s is not None]
+            flat += [db[:s[-1]] for (_, _, _, db), s in zip(g, b_s)]
+        return (None, None, dtable, dmean, dxp, dyp, None, demb, *flat)
+
+
+def pixel_train_decode(table: torch.Tensor, mean: torch.Tensor, xp: torch.Tensor,
+                       yp: torch.Tensor, mask: torch.Tensor, emb: torch.Tensor,
+                       trunks: Sequence[Trunk], seed: int, st: PixelTrainStatics) -> torch.Tensor:
+    """K4: (rows, M) tanh'd outputs of the trunks, differentiable in the
+    table, the mean, xp, yp, the embedding and every weight and bias."""
+    if emb.device.type == "cpu":
+        return pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, seed, st)
+    if emb.device.type != "cuda":
+        raise ValueError(f"pixel_train_decode runs on cuda or cpu, not {emb.device}")
+    return PixelTrainDecodeFunction.apply(st, seed, table, mean, xp, yp, mask, emb,
+                                          *flatten_pixel_params(trunks))
+
+
+pixel_train_decode.launches = 0
+pixel_train_decode_backward.launches = 0

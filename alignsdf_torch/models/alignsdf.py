@@ -168,12 +168,27 @@ class AlignSDF(nn.Module):
         [latent, embedding] rows: (latent (B, ls), xyz_embed (M, pfs),
         mano_results, obj_results).  The scene-factored train decoder folds
         the latent into per-scene biases instead (ops/train_plan.py).
-        Broadcast-latent specs only: a pixel-aligned latent is per point."""
+        Broadcast-latent specs only: a pixel-aligned latent is per point
+        (``decoder_inputs_pixel``)."""
         if self.specs.pixel_align:
             raise ValueError("pixel-aligned latents are per point; use decoder_inputs")
         sdf_feat, _, xyz_embed, mano_results, obj_results = self._scene_parts(
             image, xyz, cond_input, train)
         return sdf_feat, xyz_embed, mano_results, obj_results
+
+    def decoder_inputs_pixel(self, image: torch.Tensor, xyz: torch.Tensor,
+                             cond_input: Dict[str, torch.Tensor], train: bool = False):
+        """Everything before the SDF decoder of a pixel-aligned spec, without
+        sampling the map: (aux_feat (B, C, Hf, Wf) float32 NCHW, xyz_embed (M,
+        pfs), mano_results, obj_results).  The pixel train decoder samples
+        the map at each point's projection itself (ops/pixel_train_plan.py).
+        The JAX package returns the map NHWC; the port keeps its encoder's
+        NCHW."""
+        if not self.specs.pixel_align:
+            raise ValueError("decoder_inputs_pixel is for pixel-aligned specs")
+        _, aux_feat, xyz_embed, mano_results, obj_results = self._scene_parts(
+            image, xyz, cond_input, train)
+        return aux_feat.to(torch.float32), xyz_embed, mano_results, obj_results
 
 
 def build_model(specs: Specs, device: Union[str, torch.device] = "cpu",

@@ -87,6 +87,43 @@ def keys_cubic_taps(t: torch.Tensor) -> torch.Tensor:
     return torch.stack([far(1.0 + t), near(t), near(1.0 - t), far(2.0 - t)], dim=-1)
 
 
+def keys_cubic_grad(t: torch.Tensor) -> torch.Tensor:
+    """d/dt of the Keys cubic K(t) (A = -0.75), continuous at |t| = 1 and 2
+    (the JAX package's ``ops/decoder_train_pixel.py:_keys_cubic_grad``)."""
+    a = -0.75
+    s = t.abs()
+    near = 3.0 * (a + 2.0) * s * s - 2.0 * (a + 3.0) * s
+    far = a * ((3.0 * s - 10.0) * s + 8.0)
+    mag = torch.where(s <= 1.0, near, torch.where(s < 2.0, far, torch.zeros_like(s)))
+    return torch.sign(t) * mag
+
+
+def pixel_coords(xyz: torch.Tensor, cam_intr: torch.Tensor, pred_root: torch.Tensor,
+                 image_size: int, sdf_scale_factor: float, hf: int, wf: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(xp, yp, mask), each (B, N): the feature-map column and row of each
+    point's projection and 1.0 where it lies in the image (else 0.0, with
+    xp = yp = 0; a non-finite projection fails the in-image test).  ``xyz``
+    (B*N, 3) half-scaled points, ``cam_intr`` (B, 3, 3+), ``pred_root``
+    (B, 1, 3).
+
+    The operations run in the order of the JAX package's pixel train decoder
+    (``ops/decoder_train_pixel.py`` decode): a reassociated formula moves
+    xp by ~1e-6 px, enough to flip single units at ReLU's edge downstream.
+    Differentiable in ``pred_root`` (and ``xyz``, ``cam_intr``)."""
+    b = cam_intr.shape[0]
+    xyz_cam = xyz.reshape(b, -1, 3) * 2.0 / sdf_scale_factor + pred_root
+    hom = torch.einsum("bij,bnj->bni", cam_intr[:, :3, :3], xyz_cam)
+    xy_img = hom[..., :2] / hom[..., 2:3]
+    uv = xy_img / image_size * 2.0 - 1.0
+    in_img = ((uv[..., 0] >= -1.0) & (uv[..., 0] <= 1.0)
+              & (uv[..., 1] >= -1.0) & (uv[..., 1] <= 1.0))
+    xp = (uv[..., 0] + 1.0) * 0.5 * (wf - 1)
+    yp = (uv[..., 1] + 1.0) * 0.5 * (hf - 1)
+    zero = torch.zeros_like(xp)
+    return torch.where(in_img, xp, zero), torch.where(in_img, yp, zero), in_img.to(xp.dtype)
+
+
 def bicubic_gather(table: torch.Tensor, xp: torch.Tensor, yp: torch.Tensor,
                    hf: int, wf: int) -> torch.Tensor:
     """Bicubic sample of a channel-contiguous map at pixel coordinates.

@@ -1,0 +1,136 @@
+"""Host-side half of the pixel-aligned train decoder: materialize the
+weight-norm layers, split each trunk's weights into the operands of kernel
+K4, lay the HeadNet map out as a channel-contiguous table with its mean, and
+project the points into the map.
+
+Counterpart of ``split_trunk`` and ``decode`` in the JAX package's
+``make_fused_train_decoder_pixel`` (``ops/decoder_train_pixel.py:785-1028``),
+unbanded.  Everything here is plain PyTorch outside K4's autograd Function,
+so autograd carries the gradients of ``weight_v``, ``weight_g`` and the
+biases, of the map through the table and its mean, and of the predicted
+hand root through the projection.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+from alignsdf_torch.config import Specs
+from alignsdf_torch.kernels.pixel_train_decoder import (
+    PixelTrainStatics,
+    Trunk,
+    pixel_train_decode,
+)
+from alignsdf_torch.models.decoder import trunk_layer_dims, trunk_prefixes
+from alignsdf_torch.models.layers import materialize_linear
+from alignsdf_torch.ops.geometry import pixel_coords
+from alignsdf_torch.ops.grid_plan import branch_columns
+
+
+def pixel_trunk_operands(decoder: torch.nn.Module, prefix: str, cols: Sequence[int], c: int,
+                         pfs: int, specs: Specs, out_dim: int) -> Trunk:
+    """(ws, lats, xs, bs) of one trunk for K4: ws[l] (in, out) on the previous
+    activation or None; at layer 0 and the latent_in layers lats[l] (c, out)
+    on the latent and xs[l] (pfs, out) on the full embedding, the trunk's
+    ``cols`` rows filled and the others zero; bs[l] (out,)."""
+    ns = specs.network_specs
+    in_dim = c + len(cols)
+    shapes = trunk_layer_dims(in_dim, ns, out_dim)
+    ws: List[Optional[torch.Tensor]] = []
+    lats: List[Optional[torch.Tensor]] = []
+    xs: List[Optional[torch.Tensor]] = []
+    bs: List[torch.Tensor] = []
+    cur = in_dim
+    for layer in range(len(shapes)):
+        weight, bias = materialize_linear(getattr(decoder, f"{prefix}{layer}"))
+        w = weight.T  # (in, out)
+        src = None
+        if layer == 0:
+            ws.append(None)
+            src = w
+        elif layer in ns.latent_in:
+            # the torch layer's input was [x (cur), latent (c), emb (len(cols))]
+            ws.append(w[:cur])
+            src = w[cur:cur + in_dim]
+        else:
+            ws.append(w)
+        if src is None:
+            lats.append(None)
+            xs.append(None)
+        else:
+            idx = torch.as_tensor(cols, dtype=torch.long, device=w.device)
+            lats.append(src[:c])
+            xs.append(src.new_zeros((pfs, src.shape[1])).index_copy(0, idx, src[c:in_dim]))
+        bs.append(bias)
+        cur = shapes[layer][1]
+    return ws, lats, xs, bs
+
+
+def pixel_trunks(decoder: torch.nn.Module, specs: Specs, c: int) -> List[Trunk]:
+    """K4's operands of the decoder's trunks for a c-channel map: the one
+    combined trunk with two outputs, or the hand and object trunks."""
+    cols_h, cols_o = branch_columns(specs)
+    pfs = specs.point_feat_size
+    first, second = trunk_prefixes(decoder)
+    if second is None:
+        return [pixel_trunk_operands(decoder, first, cols_h, c, pfs, specs, 2)]
+    return [pixel_trunk_operands(decoder, first, cols_h, c, pfs, specs, 1),
+            pixel_trunk_operands(decoder, second, cols_o, c, pfs, specs, 1)]
+
+
+def pixel_train_inputs(fmap: torch.Tensor, xyz: torch.Tensor, cam_intr: torch.Tensor,
+                       pred_root: torch.Tensor, specs: Specs):
+    """(table (B, HW, C), mean (B, C), xp, yp, mask (M,)) of K4 from the map
+    (B, C, Hf, Wf) and the points' projection, all differentiable: the
+    table is the map with channels contiguous, the mean is taken over the
+    table's pixels as the JAX decode takes it."""
+    b, c, hf, wf = fmap.shape
+    table = fmap.to(torch.float32).reshape(b, c, hf * wf).transpose(1, 2).contiguous()
+    xp, yp, mask = pixel_coords(xyz, cam_intr, pred_root, specs.image_size[0],
+                                specs.sdf_scale_factor, hf, wf)
+    return table, table.mean(dim=1), xp.reshape(-1), yp.reshape(-1), mask.reshape(-1)
+
+
+def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
+                             ) -> Optional[Callable]:
+    """decode(decoder, fmap (B, C, Hf, Wf), emb (M, pfs), xyz (M, 3), cam_intr
+    (B, 3, 3+), pred_root (B, 1, 3), seed, train) -> (sdf_h (M,), sdf_o
+    (M,)) through K4, or None for a structure K4 does not take: the JAX
+    factory's refusals less the TPU's block-size rule, a latent input at the
+    final layer, and the classifier (its ``x_last`` output is not ported).
+    Both trunks draw their dropout from ``seed``, the object trunk hashing
+    layer + n_layers.  ``kernel`` may name K4's plain version instead, to
+    compare the two on the card.  ``decode.pixel`` is True: the train step
+    feeds it ``decoder_inputs_pixel``."""
+    ns = specs.network_specs
+    n_layers = len(ns.dims) + 1
+    if (not specs.pixel_align or not ns.weight_norm or ns.use_tanh or ns.latent_dropout
+            or ns.xyz_in_all or 0 in ns.latent_in or n_layers - 1 in ns.latent_in
+            or specs.classifier_branch):
+        return None
+    x0 = tuple(layer == 0 or layer in ns.latent_in for layer in range(n_layers))
+    statics = PixelTrainStatics(
+        n_per_scene=specs.samples_per_scene,
+        feat_hw=(0, 0),
+        has_w=tuple(layer > 0 for layer in range(n_layers)),
+        has_x=x0,
+        dropout=tuple(bool(ns.dropout) and layer in ns.dropout for layer in range(n_layers - 1)),
+        keep=1.0 - ns.dropout_prob,
+        train=True,
+        layer_offsets=(0,) if specs.model_type == "1encoder1decoder" else (0, n_layers))
+
+    def decode(decoder, fmap: torch.Tensor, emb: torch.Tensor, xyz: torch.Tensor,
+               cam_intr: torch.Tensor, pred_root: torch.Tensor, seed: int,
+               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        _, c, hf, wf = fmap.shape
+        table, mean, xp, yp, mask = pixel_train_inputs(fmap, xyz, cam_intr, pred_root, specs)
+        st = statics._replace(feat_hw=(hf, wf), train=bool(train))
+        y = kernel(table, mean, xp, yp, mask, emb.to(torch.float32).contiguous(),
+                   pixel_trunks(decoder, specs, c), seed, st)
+        return y[0], y[1]
+
+    decode.pixel = True
+    decode.statics = statics
+    return decode

@@ -1,8 +1,10 @@
 """The training step on one device (the JAX package's
-``training/train_step.py``, its scene-factored branch): the model's front
-half with BatchNorm in batch-statistic mode, the twin trunks through K2
-(``ops/train_plan.py``), the reference's losses and masks, Adam with the
-step LR.  Also the per-point loss masks and the clamp dead-zone init guard.
+``training/train_step.py``, its scene-factored and pixel branches): the
+model's front half with BatchNorm in batch-statistic mode, the trunks
+through K2 (``ops/train_plan.py``) or, for a pixel-aligned spec, through K4
+(``ops/pixel_train_plan.py``), the reference's losses and masks, Adam with
+the step LR.  Also the per-point loss masks and the clamp dead-zone init
+guard.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from alignsdf_torch.config import Specs
 from alignsdf_torch.data.synthetic import synthetic_train_batch
 from alignsdf_torch.models.alignsdf import build_model
+from alignsdf_torch.ops.pixel_train_plan import make_pixel_train_decoder
 from alignsdf_torch.ops.train_plan import make_train_decoder
 from alignsdf_torch.training.losses import compute_losses
 from alignsdf_torch.training.train_state import (
@@ -71,26 +74,20 @@ def _bn_buffers(model: torch.nn.Module):
             for b in (m.running_mean, m.running_var, m.num_batches_tracked) if b is not None]
 
 
-def check_trainable(specs: Specs) -> None:
-    """Raise for a spec the port's train step does not take yet."""
-    if specs.pixel_align:
-        raise NotImplementedError(
-            "pixel-aligned training (PixelAlign, --pa_feat) is not ported yet: it needs "
-            "kernel K4, the pixel train decoder (alignsdf_tpu/ops/decoder_train_pixel.py); "
-            "pixel-aligned reconstruction runs through kernel K3")
-
-
 def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable:
     """step(state, batch, seed, mark=None) -> losses (detached tensors).
 
-    ``decode`` defaults to the K2 train decoder; the hand trunk's dropout
-    is drawn from ``seed``, the object trunk's from ``seed + 1``.  ``mark``,
-    if given, is called with "inputs", "decoder", "loss", "backward" and
-    "optimizer" as each phase has been enqueued (for timing)."""
-    check_trainable(specs)
-    decode = decode or make_train_decoder(specs)
+    ``decode`` defaults to the spec's train decoder: K4 for a pixel-aligned
+    spec, where both trunks draw their dropout from ``seed``; K2 otherwise,
+    where the hand trunk draws from ``seed`` and the object trunk from
+    ``seed + 1``.  ``mark``, if given, is called with "inputs", "decoder",
+    "loss", "backward" and "optimizer" as each phase has been enqueued (for
+    timing)."""
     if decode is None:
-        raise NotImplementedError("this decoder structure has no scene-factored train kernel")
+        decode = (make_pixel_train_decoder if specs.pixel_align else make_train_decoder)(specs)
+    if decode is None:
+        raise NotImplementedError("this decoder structure has no fused train kernel")
+    pixel = getattr(decode, "pixel", False)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
@@ -105,10 +102,17 @@ def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable
         frozen = ([b.clone() for b in _bn_buffers(model)] if specs.freeze == "bn" else None)
 
         cond = {k: batch[k] for k in COND_KEYS}
-        latent, emb, mano_results, obj_results = model.decoder_inputs_factored(
-            batch["image"], batch["xyz"], cond, train=True)
-        mark("inputs")
-        sdf_hand, sdf_obj = decode(model.decoder, latent, emb, seed, train=True)
+        if pixel:
+            fmap, emb, mano_results, obj_results = model.decoder_inputs_pixel(
+                batch["image"], batch["xyz"], cond, train=True)
+            mark("inputs")
+            sdf_hand, sdf_obj = decode(model.decoder, fmap, emb, batch["xyz"], batch["cam_intr"],
+                                       mano_results["joints"][:, 0:1], seed, train=True)
+        else:
+            latent, emb, mano_results, obj_results = model.decoder_inputs_factored(
+                batch["image"], batch["xyz"], cond, train=True)
+            mark("inputs")
+            sdf_hand, sdf_obj = decode(model.decoder, latent, emb, seed, train=True)
         mark("decoder")
         losses = compute_losses(specs, (sdf_hand, sdf_obj, None, mano_results, obj_results),
                                 loss_batch, active)
@@ -141,16 +145,22 @@ def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable
 def init_prediction_means(model, specs: Specs, batch_size: int = 2,
                           seed: int = 17) -> Tuple[float, float]:
     """Mean hand/obj SDF predictions at init on a synthetic probe batch, in
-    eval mode through the generic decoder.  Detects the clamp dead zone: an
-    init whose predictions all start at or past the ClampingDistance band
-    has a zero-gradient SDF loss."""
+    eval mode through the generic decoder (for a pixel-aligned spec on the
+    rows of ``decoder_inputs``, as the JAX package's full model apply).
+    Detects the clamp dead zone: an init whose predictions all start at or
+    past the ClampingDistance band has a zero-gradient SDF loss."""
     device = next(model.parameters()).device
     batch = batch_to_device(synthetic_train_batch(specs, batch_size, seed), device)
+    cond = {k: batch[k] for k in COND_KEYS}
     with torch.no_grad():
-        latent, emb, _, _ = model.decoder_inputs_factored(
-            batch["image"], batch["xyz"], {k: batch[k] for k in COND_KEYS}, train=False)
-        n = emb.shape[0] // latent.shape[0]
-        h, o = model.decoder(torch.cat([latent.repeat_interleave(n, dim=0), emb], dim=1))
+        if specs.pixel_align:
+            rows, _, _ = model.decoder_inputs(batch["image"], batch["xyz"], cond, train=False)
+        else:
+            latent, emb, _, _ = model.decoder_inputs_factored(batch["image"], batch["xyz"],
+                                                              cond, train=False)
+            n = emb.shape[0] // latent.shape[0]
+            rows = torch.cat([latent.repeat_interleave(n, dim=0), emb], dim=1)
+        h, o = model.decoder(rows)
     return float(h.mean()), float(o.mean())
 
 

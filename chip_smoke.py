@@ -1,12 +1,12 @@
-"""Drive the PyTorch port's reconstruction, training and pixel-aligned
-reconstruction paths on one CUDA GPU and hold each hand-written kernel
-against its plain PyTorch version.
+"""Drive the PyTorch port's reconstruction, training, pixel-aligned
+reconstruction and pixel-aligned training paths on one CUDA GPU and hold
+each hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile every kernel (K1, K2, K3) from the sources in the
+  2. build: compile every kernel (K1, K2, K3, K4) from the sources in the
      checkout, one nvcc per source, all at once;
   3. K1 vs plain: the fused grid decoder against grid_decode_reference at
      full flagship width on a 64^3 grid, TF32 off, max abs err <= 1e-4;
@@ -32,7 +32,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      two ways (the same state and seed through K2 and through its plain
      version, deterministic algorithms on: losses to 1e-5 relative, every
      parameter's gradient to 1e-3 of its largest entry, updated parameters
-     to 2e-5 abs) and
+     to 2e-5 abs; beside it the plain step against itself with K2's input
+     scaled by 1 + 2^-23, the comparison's rounding floor) and
      2 steps under torch.profiler (K2's device time, the idle share);
   8. timing: K1 and its plain version per grid pass at 128^3 and 256^3; K2
      forward and backward per step (both trunks, 64 x 2000) against their
@@ -47,7 +48,19 @@ Phases (each prints its own lines; any failure exits non-zero):
      (pixel_alignment + decoder) at 4096 grid points in both projection
      modes; a warm and a profiled run; K3 and its plain version per 128^3
      pass against the bound, and F.grid_sample at the same points as a
-     yardstick of the sampling step alone.
+     yardstick of the sampling step alone;
+ 10. pixel training: the --pa_feat flagship at full width through K4: K4
+     against its plain version at 4 x 2000 and 64 x 2000 points on the
+     HeadNet map and projection of a synthetic batch (y to 1e-4 abs, every
+     gradient to 1e-4 of the largest entry of the plain backward fed the
+     kernel's residuals, kept shares 0.8 +- 0.01, the in-image share
+     strictly between 0 and 1); the train step through
+     cli/train.make_trainer as in 7 (K4's launch counts, losses, ms/step,
+     time by phase and peak memory, one step two ways with gradients to
+     1e-2 of their largest entry, 2 profiled steps);
+     K4 forward and backward per step against the plain versions and the
+     bounds, with F.grid_sample's forward and backward at the step's points
+     as yardsticks of the sampling alone.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -63,7 +76,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from typing import Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FP32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
@@ -83,8 +96,16 @@ TWO_WAYS_PARAM_ATOL = 2e-5  # a fifth of one Adam step at lr 1e-4
 # differently, so a few units at ReLU's edge (3e-8 of them at 64 x 2000) carry
 # gradient on one side only; a zeroed or wrong K2 gradient errs by ~1
 TWO_WAYS_GRAD_RTOL = 1e-3
+# K4: those units' per-point gradients reach the encoder through d(table) at
+# single pixels, not averaged over a scene's latent as through K2's fold, and
+# the sums of BatchNorm's bias gradients cancel heavily (1.3e-3 seen, led by
+# encoder.bn1.bias); the run prints the plain step's own rounding floor beside it
+TWO_WAYS_GRAD_RTOL_K4 = 1e-2
 K2_FWD_KERNELS = ("train_fwd_kernel",)
 K2_BWD_KERNELS = ("train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
+K4_TOL = 1e-4
+K4_FWD_KERNELS = ("pixel_train_fwd_kernel",)
+K4_BWD_KERNELS = ("pixel_train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
 
 
 def fail(msg: str) -> None:
@@ -290,19 +311,65 @@ def k2_check(model, specs, dev, gen, scenes: int):
     return res
 
 
-def train_phase(specs, dev, card):
-    """The flagship train step at full width through cli/train.make_trainer:
-    launch counts, losses, ms/step and time by phase; one step two ways; a
-    profiled window.  Returns (state, record)."""
+NUDGE = 1.0 + 2.0 ** -23  # scales a float32 by about one rounding step
+
+
+class TrainKernel(NamedTuple):
+    """The train kernel a train phase drives: its wrappers (each counting
+    its launches), launches of each per step, the spec's train decoder
+    factory, the kernel's plain version and that plain version on its
+    (latent and) embedding input scaled by NUDGE, and its device kernels'
+    names."""
+
+    name: str
+    fwd: Callable
+    bwd: Callable
+    per_step: int
+    make_decoder: Callable  # (specs, kernel) -> decode
+    plain: Callable
+    nudged: Callable
+    fwd_kernels: Tuple[str, ...]
+    bwd_kernels: Tuple[str, ...]
+    grad_rtol: float  # one step two ways: each gradient, of its largest entry
+
+
+def k2_kernel() -> TrainKernel:
+    from alignsdf_torch.kernels.train_decoder import (
+        train_decode, train_decode_backward, train_decode_reference)
+    from alignsdf_torch.ops.train_plan import make_train_decoder
+
+    def nudged(emb, *rest):
+        return train_decode_reference(emb * NUDGE, *rest)
+
+    return TrainKernel("K2", train_decode, train_decode_backward, 2, make_train_decoder,
+                       train_decode_reference, nudged, K2_FWD_KERNELS, K2_BWD_KERNELS,
+                       TWO_WAYS_GRAD_RTOL)
+
+
+def k4_kernel() -> TrainKernel:
+    from alignsdf_torch.kernels.pixel_train_decoder import (
+        pixel_train_decode, pixel_train_decode_backward, pixel_train_decode_reference)
+    from alignsdf_torch.ops.pixel_train_plan import make_pixel_train_decoder
+
+    def nudged(table, mean, *rest):
+        return pixel_train_decode_reference(table * NUDGE, mean * NUDGE, *rest)
+
+    return TrainKernel("K4", pixel_train_decode, pixel_train_decode_backward, 1,
+                       make_pixel_train_decoder, pixel_train_decode_reference, nudged,
+                       K4_FWD_KERNELS, K4_BWD_KERNELS, TWO_WAYS_GRAD_RTOL_K4)
+
+
+def train_phase(specs, dev, card, kern: TrainKernel):
+    """A train step at full width through cli/train.make_trainer: launch
+    counts, losses, ms/step and time by phase; one step two ways (through
+    the kernel and through its plain version); a profiled window.  Returns
+    (state, record)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from alignsdf_torch.cli.train import make_trainer
     from alignsdf_torch.data.synthetic import synthetic_train_batch
-    from alignsdf_torch.kernels.train_decoder import (
-        train_decode, train_decode_backward, train_decode_reference)
-    from alignsdf_torch.ops.train_plan import make_train_decoder
     from alignsdf_torch.training.train_state import TrainState
     from alignsdf_torch.training.train_step import batch_to_device, draw_seed, make_train_step
 
@@ -316,11 +383,12 @@ def train_phase(specs, dev, card):
     model = state.model
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
 
-    train_decode.launches = train_decode_backward.launches = 0
+    kern.fwd.launches = kern.bwd.launches = 0
     losses, marks = [], []
     for _ in range(WARM_STEPS):
         losses.append(step(state, batch, draw_seed(gen)))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(TIMED_STEPS):
         evs = {}
@@ -334,12 +402,15 @@ def train_phase(specs, dev, card):
         marks.append(evs)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / TIMED_STEPS
-    launches = {"fwd": train_decode.launches, "bwd": train_decode_backward.launches}
+    launches = {"fwd": kern.fwd.launches, "bwd": kern.bwd.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = WARM_STEPS + TIMED_STEPS
-    print(f"train steps {n_steps} at {TRAIN_SCENES} x {specs.samples_per_scene}: K2 launches "
-          f"{launches} (expected {2 * n_steps} each: 2 trunks a step)", flush=True)
-    if launches != {"fwd": 2 * n_steps, "bwd": 2 * n_steps}:
-        fail(f"K2 launches {launches} != {2 * n_steps} each")
+    expected = kern.per_step * n_steps
+    print(f"train steps {n_steps} at {TRAIN_SCENES} x {specs.samples_per_scene}: {kern.name} "
+          f"launches {launches} (expected {expected} each: {kern.per_step} a step); peak device "
+          f"memory {peak_gb:.2f} GB", flush=True)
+    if launches != {"fwd": expected, "bwd": expected}:
+        fail(f"{kern.name} launches {launches} != {expected} each")
     totals = []
     for i, lo in enumerate(losses):
         vals = {k: float(v) for k, v in lo.items()}
@@ -360,27 +431,39 @@ def train_phase(specs, dev, card):
           f"({TRAIN_SCENES / wall:.2f} scenes/s); CUDA events by phase (ms): "
           + ", ".join(f"{k} {v:.2f}" for k, v in phase_ms.items()), flush=True)
     rec.update({"launches": launches, "totals": totals, "step_ms": wall * 1e3,
-                "scenes_per_s": TRAIN_SCENES / wall, "phase_ms": phase_ms})
+                "scenes_per_s": TRAIN_SCENES / wall, "phase_ms": phase_ms,
+                "peak_memory_gb": peak_gb})
 
-    # one step two ways from the same state and seed
-    twin = copy.deepcopy(model)
-    opt = type(state.optimizer)(twin.parameters(), **state.optimizer.defaults)
-    opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
-    plain_state = TrainState(twin, opt, state.epoch)
-    plain_step = make_train_step(specs, make_train_decoder(specs, kernel=train_decode_reference))
+    # one step two ways from the same state and seed, and the plain step once
+    # more with the decoder's input scaled by NUDGE: a perturbation of rounding
+    # size where the kernel and its plain version differ, whose effect is the
+    # comparison's floor
+    def twin_state():
+        twin = copy.deepcopy(model)
+        opt = type(state.optimizer)(twin.parameters(), **state.optimizer.defaults)
+        opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+        return TrainState(twin, opt, state.epoch)
+
+    plain_state, floor_state = twin_state(), twin_state()
+    twin = plain_state.model
+    plain_step = make_train_step(specs, kern.make_decoder(specs, kernel=kern.plain))
+    floor_step = make_train_step(specs, kern.make_decoder(specs, kernel=kern.nudged))
     seed = draw_seed(gen)
-    saved = train_decode.launches, train_decode_backward.launches
-    # deterministic cuDNN and index_add_, so that K2 is all that differs:
-    # otherwise the encoder's gradients differ between two plain steps
+    saved = kern.fwd.launches, kern.bwd.launches
+    # deterministic cuDNN and index_add_, so that the kernel is all that
+    # differs: otherwise the encoder's gradients differ between two plain steps
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         lk = {k: float(v) for k, v in step(state, batch, seed).items()}
+        torch.cuda.reset_peak_memory_stats()
         lp = {k: float(v) for k, v in plain_step(plain_state, batch, seed).items()}
+        plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        floor_step(floor_state, batch, seed)
     finally:
         torch.backends.cudnn.deterministic = False
         torch.use_deterministic_algorithms(False)
-    train_decode.launches, train_decode_backward.launches = saved
+    kern.fwd.launches, kern.bwd.launches = saved
     loss_rel = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
     twin_params = dict(twin.named_parameters())
     param_err = max(float((p.detach() - twin_params[k].detach()).abs().max())
@@ -388,47 +471,53 @@ def train_phase(specs, dev, card):
     # every gradient of the step (the optimizer leaves them in place), each
     # against the plain step's, relative to its largest entry: Adam's update
     # barely sees a wrong gradient, these do
-    grad_rel = {}
+    floor_params = dict(floor_state.model.named_parameters())
+    grad_rel, floor = {}, 0.0
     for k, p in model.named_parameters():
         ref = twin_params[k].grad
-        grad_rel[k] = float((p.grad - ref).abs().max()) / (float(ref.abs().max()) + 1e-30)
+        scale = float(ref.abs().max()) + 1e-30
+        grad_rel[k] = float((p.grad - ref).abs().max()) / scale
+        floor = max(floor, float((floor_params[k].grad - ref).abs().max()) / scale)
     worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:4]
     worst_decoder = max(v for k, v in grad_rel.items() if k.startswith("decoder."))
-    print(f"one step two ways (K2 vs plain): losses max rel err {loss_rel:.3e} (tolerance "
+    print(f"one step two ways ({kern.name} vs plain): losses max rel err {loss_rel:.3e} (tolerance "
           f"{TWO_WAYS_LOSS_RTOL:g}), updated parameters max abs err {param_err:.3e} "
           f"(tolerance {TWO_WAYS_PARAM_ATOL:g}), gradients max err of the largest "
           f"{worst[0][1]:.3e}, of the decoder's {worst_decoder:.3e} (tolerance "
-          f"{TWO_WAYS_GRAD_RTOL:g}; worst " + ", ".join(f"{k} {v:.2e}" for k, v in worst)
-          + ")", flush=True)
+          f"{kern.grad_rtol:g}; worst " + ", ".join(f"{k} {v:.2e}" for k, v in worst)
+          + f"); the plain step against itself with the decoder's input scaled by 1 + 2^-23: "
+          f"gradients max err of the largest {floor:.3e}; the plain step's peak device memory "
+          f"{plain_peak_gb:.2f} GB", flush=True)
     if not (loss_rel <= TWO_WAYS_LOSS_RTOL and param_err <= TWO_WAYS_PARAM_ATOL
-            and worst[0][1] <= TWO_WAYS_GRAD_RTOL):
-        fail("the step through K2 and through its plain version disagree")
+            and worst[0][1] <= kern.grad_rtol):
+        fail(f"the step through {kern.name} and through its plain version disagree")
     rec["two_ways"] = {"loss_max_rel_err": loss_rel, "param_max_abs_err": param_err,
-                       "grad_max_rel_err": grad_rel}
-    del twin, opt, plain_state
+                       "grad_max_rel_err": grad_rel, "rounding_floor_grad_max_rel_err": floor,
+                       "plain_peak_memory_gb": plain_peak_gb}
+    del twin, plain_state, floor_state
 
-    saved = train_decode.launches, train_decode_backward.launches
+    saved = kern.fwd.launches, kern.bwd.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILED_STEPS):
             step(state, batch, draw_seed(gen))
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    train_decode.launches, train_decode_backward.launches = saved
+    kern.fwd.launches, kern.bwd.launches = saved
     summary = profile_summary(prof, prof_wall)
     if summary is None:
         print("train profile: not measured (the profiler recorded no device events)", flush=True)
     else:
         busy, share, by_kernel = summary
         per = {"busy": busy,
-               "k2_fwd": sum(v for k, v in by_kernel.items() if k.startswith(K2_FWD_KERNELS)),
-               "k2_bwd": sum(v for k, v in by_kernel.items() if k.startswith(K2_BWD_KERNELS))}
+               "fwd": sum(v for k, v in by_kernel.items() if k.startswith(kern.fwd_kernels)),
+               "bwd": sum(v for k, v in by_kernel.items() if k.startswith(kern.bwd_kernels))}
         per = {k: v / PROFILED_STEPS for k, v in per.items()}
-        per["other"] = per["busy"] - per["k2_fwd"] - per["k2_bwd"]
+        per["other"] = per["busy"] - per["fwd"] - per["bwd"]
         print(f"[{card}] {PROFILED_STEPS} profiled steps, {prof_wall * 1e3 / PROFILED_STEPS:.2f} "
               f"ms each: device busy {per['busy']:.2f} ms a step, idle share {1 - share:.3f}; "
-              f"K2 fwd {per['k2_fwd']:.2f} ms, K2 bwd {per['k2_bwd']:.2f} ms, the rest (encoder "
-              f"fwd+bwd, fold, losses, optimizer) {per['other']:.2f} ms", flush=True)
+              f"{kern.name} fwd {per['fwd']:.2f} ms, {kern.name} bwd {per['bwd']:.2f} ms, the "
+              f"rest (encoder fwd+bwd, plan, losses, optimizer) {per['other']:.2f} ms", flush=True)
         for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
             print(f"  {ms / PROFILED_STEPS:9.3f} ms/step  {name[:100]}", flush=True)
         rec["profile"] = {"step_wall_ms": prof_wall * 1e3 / PROFILED_STEPS,
@@ -747,6 +836,265 @@ def pixel_phase(dev, card: str, gen, mano_faces):
     return rec, entry
 
 
+def k4_operands(model, specs, dev, scenes: int):
+    """K4's operands on the encoder's real HeadNet map and the batch's real
+    projection (the synthetic batch of ``scenes`` scenes, the front half in
+    training mode): ((table, mean, xp, yp, mask, emb), trunks, statics,
+    (fmap, uv)) with ``uv`` the points' normalized image coordinates, all
+    detached."""
+    import torch
+
+    from alignsdf_torch.data.synthetic import synthetic_train_batch
+    from alignsdf_torch.ops.pixel_train_plan import (
+        make_pixel_train_decoder, pixel_train_inputs, pixel_trunks)
+    from alignsdf_torch.training.train_step import COND_KEYS, batch_to_device
+
+    batch = batch_to_device(synthetic_train_batch(specs, scenes, seed=SEED), dev)
+    with torch.no_grad():
+        fmap, emb, mano, _ = model.decoder_inputs_pixel(
+            batch["image"], batch["xyz"], {k: batch[k] for k in COND_KEYS}, train=True)
+        root = mano["joints"][:, 0:1]
+        inputs = (*pixel_train_inputs(fmap, batch["xyz"], batch["cam_intr"], root, specs), emb)
+        trunks = pixel_trunks(model.decoder, specs, fmap.shape[1])
+        # the projection as pixel_alignment takes it, for F.grid_sample
+        xyz_cam = batch["xyz"].reshape(scenes, -1, 3) * 2.0 / specs.sdf_scale_factor + root
+        hom = torch.einsum("bij,bnj->bni", batch["cam_intr"][:, :3, :3], xyz_cam)
+        uv = hom[..., :2] / hom[..., 2:3] / specs.image_size[0] * 2.0 - 1.0
+    st = make_pixel_train_decoder(specs).statics._replace(feat_hw=tuple(fmap.shape[2:]))
+    return inputs, trunks, st, (fmap, uv)
+
+
+def k4_check(inputs, trunks, st, dev, gen):
+    """K4 forward and backward through the autograd Function against the
+    plain forward and the plain backward fed the kernel's own residuals."""
+    import torch
+
+    from alignsdf_torch.kernels.pixel_train_decoder import (
+        flatten_pixel_params, pack_pixel_trunks, pixel_train_decode, pixel_train_decode_backward,
+        pixel_train_decode_backward_reference, pixel_train_decode_forward,
+        pixel_train_decode_reference, unflatten_pixel_params)
+    from alignsdf_torch.kernels.train_decoder import dropout_gate
+
+    table, mean, xp, yp, mask, emb = inputs
+    c, m = table.shape[2], emb.shape[0]
+    seed = 5
+    saved = pixel_train_decode.launches, pixel_train_decode_backward.launches
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (table, mean, xp, yp, emb, *flatten_pixel_params(trunks))]
+    y = pixel_train_decode(*leaves[:4], mask, leaves[4], unflatten_pixel_params(st, leaves[5:]),
+                           seed, st)
+    dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    names = ["d(table)", "d(mean)", "d(xp)", "d(yp)", "d(emb)"]
+    res = {"in_image_share": float(mask.mean()), "grad_rel_err": {}, "kept_share": {}}
+    with torch.no_grad():
+        acts_ref, lat_ref = [], []
+        y_ref = pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, seed, st,
+                                             acts=acts_ref, latent=lat_ref)
+        res["y_max_abs_err"] = float((y - y_ref).abs().max())
+        y_k, acts, lat = pixel_train_decode_forward(
+            pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st), seed, st)
+        res["latent_max_abs_err"] = float((lat[:c].T - lat_ref[0]).abs().max())
+        acts_k = [[a[:r.shape[1]].T for a, r in zip(at, ar)] for at, ar in zip(acts, acts_ref)]
+        dtable, dmean, dxp, dyp, demb, g_ref = pixel_train_decode_backward_reference(
+            table, mean, xp, yp, mask, emb, trunks, st, y_k, acts_k, lat[:c].T, dy)
+        ref = [dtable, dmean, dxp, dyp, demb, *flatten_pixel_params(g_ref)]
+        res["grad_max_abs_err"] = res["grad_max_rel_err"] = 0.0
+        for i, (g, r) in enumerate(zip(grads, ref)):
+            err = float((g - r).abs().max())
+            rel = err / (float(r.abs().max()) + 1e-30)
+            res["grad_max_abs_err"] = max(res["grad_max_abs_err"], err)
+            res["grad_max_rel_err"] = max(res["grad_max_rel_err"], rel)
+            res["grad_rel_err"][names[i] if i < len(names) else f"weights[{i - len(names)}]"] = rel
+        rows = torch.arange(m, device=dev)
+        mism = 0.0
+        for t, (ak, ar) in enumerate(zip(acts_k, acts_ref)):
+            for layer, (a_k, a_r) in enumerate(zip(ak, ar)):
+                mism = max(mism, float(((a_k > 0) != (a_r > 0)).float().mean()))
+                if st.dropout[layer]:
+                    kept = dropout_gate(seed, layer + st.layer_offsets[t], rows, a_r.shape[1],
+                                        st.keep) > 0
+                    res["kept_share"][f"trunk{t}.layer{layer}"] = float(kept.float().mean())
+        res["residual_sign_mismatch"] = mism
+    pixel_train_decode.launches, pixel_train_decode_backward.launches = saved
+    return res
+
+
+def k4_work(inputs, trunks, packed) -> Tuple[int, int, int, int]:
+    """(forward FLOPs, backward FLOPs, forward bytes, backward bytes) of K4
+    over both trunks: 2 per multiply-add at the true widths (the latent's
+    and the embedding's rows of layer 0 and the latent_in layer included),
+    the backward dx plus dW; the sampling's 16 taps x C per point in the
+    image, once forward, twice backward (the d(table) scatter and the dot
+    products of d(pix)).  Bytes count each input read once and each output
+    written once, the residuals at the kernel's padded widths."""
+    table, mean, xp, yp, mask, emb = inputs
+    m, e = emb.shape
+    c = table.shape[2]
+    sampled = int(mask.sum())
+    macs = params = 0
+    for ws, lats, xs, bs in trunks:
+        params += sum(t.numel() for t in [*ws, *lats, *xs, *bs] if t is not None)
+        for w, x, b in zip(ws, xs, bs):
+            # the latent and the trunk's own embedding columns (X's nonzero rows)
+            cols = 0 if x is None else c + int((x.abs().sum(1) > 0).sum())
+            macs += ((0 if w is None else w.shape[0]) + cols) * b.shape[-1]
+    taps = 2 * 16 * c * sampled
+    n_rows = sum(b[-1].shape[-1] for *_, b in trunks)
+    resid = (sum(sum(t.out_pads[:-1]) for t in packed.trunks) + packed.c_pad) * m
+    fwd_in = table.numel() + mean.numel() + 3 * m + m * e + params
+    fwd_bytes = 4 * (fwd_in + n_rows * m + resid)
+    # in: the forward's inputs, dy, y, the residuals; out: d(table), d(mean),
+    # d(xp), d(yp), d(emb) and every weight's gradient
+    bwd_bytes = 4 * (fwd_in + 2 * n_rows * m + resid
+                     + table.numel() + mean.numel() + 2 * m + m * e + params)
+    return 2 * macs * m + taps, 4 * macs * m + 2 * taps, fwd_bytes, bwd_bytes
+
+
+def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card):
+    """K4 forward and backward per step (both trunks) against their plain
+    versions and bounds, and F.grid_sample forward and backward at the
+    step's points as yardsticks of the sampling step alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from alignsdf_torch.kernels.pixel_train_decoder import (
+        pack_pixel_trunks, pixel_train_decode, pixel_train_decode_backward,
+        pixel_train_decode_backward_reference, pixel_train_decode_forward,
+        pixel_train_decode_reference)
+
+    table, mean, xp, yp, mask, emb = inputs
+    c, m = table.shape[2], emb.shape[0]
+    seed = 7
+    saved = pixel_train_decode.launches, pixel_train_decode_backward.launches
+    packed = pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st)
+    fwd_flops, bwd_flops, fwd_bytes, bwd_bytes = k4_work(inputs, trunks, packed)
+    y, acts, lat = pixel_train_decode_forward(packed, seed, st)
+    dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
+    unpadded = [[a[:b.shape[-1]].T for a, b in zip(at, tr[3])] for at, tr in zip(acts, trunks)]
+
+    def fwd_kernel():
+        pixel_train_decode_forward(packed, seed, st)
+
+    def bwd_kernel():
+        pixel_train_decode_backward(packed, st, y, acts, lat, dy)
+
+    def fwd_plain():
+        with torch.no_grad():
+            pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, seed, st)
+
+    def bwd_plain():
+        with torch.no_grad():
+            pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb, trunks, st,
+                                                  y, unpadded, lat[:c].T, dy)
+
+    # the library's bicubic sampling at the same points, and its autograd
+    # backward (d(input) and d(grid): the d(table) and d(pix) work)
+    fm = fmap.detach().clone().requires_grad_()
+    grid = uv[:, None].detach().clone().requires_grad_()
+    sampled = F.grid_sample(fm, grid, mode="bicubic", align_corners=True, padding_mode="zeros")
+    g_out = torch.randn(tuple(sampled.shape), generator=gen).to(dev)
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.grid_sample(fm, grid, mode="bicubic", align_corners=True, padding_mode="zeros")
+
+    def lib_bwd():
+        torch.autograd.grad(sampled, (fm, grid), g_out, retain_graph=True)
+
+    res = {}
+    for name, kern, plain, lib, flops, nbytes in (
+            ("fwd", fwd_kernel, fwd_plain, lib_fwd, fwd_flops, fwd_bytes),
+            ("bwd", bwd_kernel, bwd_plain, lib_bwd, bwd_flops, bwd_bytes)):
+        k_ms = cuda_ms(kern, 5)       # kernel, plain, kernel: in turns on one card
+        p_ms = cuda_ms(plain, 3)
+        k_ms2 = cuda_ms(kern, 5)
+        lib_ms = cuda_ms(lib, 5)
+        ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        best = min(k_ms, k_ms2)
+        res[name] = {"ms": best, "ms_runs": [k_ms, k_ms2], "plain_ms": p_ms,
+                     "library_ms": lib_ms, "bound_ms": max(ops_ms, mem_ms),
+                     "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                     "tflop": flops / 1e12, "gbytes": nbytes / 1e9, "tflops": flops / best / 1e9}
+        print(f"[{card}] K4 {name} per step ({len(trunks)} trunks x {m} points, "
+              f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB): kernel {k_ms:.2f} / "
+              f"{k_ms2:.2f} ms ({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, bound "
+              f"{res[name]['bound_ms']:.2f} ms ({res[name]['bound_by']}); F.grid_sample "
+              f"{'forward' if name == 'fwd' else 'backward'} (sampling only) {lib_ms:.2f} ms",
+              flush=True)
+    pixel_train_decode.launches, pixel_train_decode_backward.launches = saved
+    return res
+
+
+def pixel_train_phase(dev, card: str, gen):
+    """The --pa_feat flagship's train step at full width through K4: K4
+    against its plain version at CHECK_SCENES x 2000 points on the real
+    HeadNet map and projection, the train step through make_trainer (launch
+    counts, losses, ms/step, time by phase, one step two ways, a profiled
+    window) and K4's timing.  Returns (record, the kernels-line entries)."""
+    from alignsdf_torch.models.alignsdf import build_model
+
+    specs = flagship_specs(pixel=True)
+    model = build_model(specs, device=dev, seed=SEED)
+    rec = {"check": {}}
+    for scenes in CHECK_SCENES:
+        phase(f"K4 vs plain ({scenes} x {specs.samples_per_scene} points, both trunks, full "
+              "--pa_feat flagship width, the HeadNet map and projection of a synthetic batch, "
+              "TF32 off)")
+        inputs, trunks, st, _ = k4_operands(model, specs, dev, scenes)
+        k4 = k4_check(inputs, trunks, st, dev, gen)
+        worst = sorted(k4["grad_rel_err"].items(), key=lambda kv: -kv[1])[:4]
+        print(f"K4 y max abs err {k4['y_max_abs_err']:.3e} (tolerance {K4_TOL:g}), latent "
+              f"{k4['latent_max_abs_err']:.3e}; gradients max err {k4['grad_max_abs_err']:.3e} "
+              f"abs, {k4['grad_max_rel_err']:.3e} of the largest (tolerance {K4_TOL:g}; worst "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst) + f"); in-image share "
+              f"{k4['in_image_share']:.4f}; kept share {k4['kept_share']}; residual sign "
+              f"mismatch {k4['residual_sign_mismatch']:.2e}", flush=True)
+        if not (k4["y_max_abs_err"] <= K4_TOL and k4["grad_max_rel_err"] <= K4_TOL):
+            fail(f"K4 disagrees with its plain version at {scenes} scenes")
+        if not 0.0 < k4["in_image_share"] < 1.0:
+            fail(f"the in-image share {k4['in_image_share']} must lie strictly between 0 and 1, "
+                 "so that the taps, the mean fallback and d(pix) all run")
+        if len(k4["kept_share"]) != 8 or not all(abs(v - 0.8) <= 0.01
+                                                 for v in k4["kept_share"].values()):
+            fail(f"kept shares off 0.8 +- 0.01: {k4['kept_share']}")
+        if not k4["residual_sign_mismatch"] <= 1e-4:
+            fail("K4's residuals are not gated as the plain version's")
+        rec["check"][scenes] = k4
+    k4 = rec["check"][TRAIN_SCENES]
+
+    phase(f"pixel training: {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps at {TRAIN_SCENES} x "
+          f"{specs.samples_per_scene} points, one step two ways, {PROFILED_STEPS} profiled steps")
+    state, rec["train"] = train_phase(specs, dev, card, k4_kernel())
+    del state
+
+    phase(f"timing: K4 forward and backward per step ({TRAIN_SCENES} x "
+          f"{specs.samples_per_scene} points, both trunks); F.grid_sample at the same points")
+    inputs, trunks, st, (fmap, uv) = k4_operands(model, specs, dev, TRAIN_SCENES)
+    rec["timing"] = k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card)
+    entries = []
+    for name, line, err in (("fwd", 335, k4["y_max_abs_err"]),
+                            ("bwd", 647, k4["grad_max_abs_err"])):
+        t = rec["timing"][name]
+        entries.append({
+            "name": f"K4 pixel train decoder, {'forward' if name == 'fwd' else 'backward'}",
+            "route": "cuda",
+            "source": "alignsdf_torch/kernels/csrc/pixel_train_decoder.cu",
+            "replaces": f"alignsdf_tpu/ops/decoder_train_pixel.py:{line}",
+            "launches": rec["train"]["launches"][name],
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_call": (f"F.grid_sample bicubic {'forward' if name == 'fwd' else 'backward'}"
+                             " at the step's points (the sampling step only)"),
+        })
+    return rec, entries
+
+
 def main(record_path: Optional[str] = None) -> None:
     phase("device")
     try:
@@ -781,7 +1129,8 @@ def main(record_path: Optional[str] = None) -> None:
 
     phase("build")
     t0 = time.perf_counter()
-    reports = build.build_all(["grid_decoder", "train_decoder", "pixel_grid_decoder"])
+    reports = build.build_all(["grid_decoder", "train_decoder", "pixel_grid_decoder",
+                               "pixel_train_decoder"])
     record["build_s"] = time.perf_counter() - t0
     print(f"built in {record['build_s']:.2f} s", flush=True)
     for name, report in reports.items():
@@ -934,7 +1283,7 @@ def main(record_path: Optional[str] = None) -> None:
 
     phase(f"training: {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps at {TRAIN_SCENES} x "
           f"{specs.samples_per_scene} points, one step two ways, {PROFILED_STEPS} profiled steps")
-    train_state, record["train"] = train_phase(specs, dev, card)
+    train_state, record["train"] = train_phase(specs, dev, card, k2_kernel())
     k2_launches = record["train"]["launches"]
 
     phase("timing: K1 and plain per grid pass")
@@ -972,6 +1321,7 @@ def main(record_path: Optional[str] = None) -> None:
     del train_state
 
     record["pixel"], k3_entry = pixel_phase(dev, card, gen, mano_faces)
+    record["pixel_train"], k4_entries = pixel_train_phase(dev, card, gen)
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
@@ -1009,6 +1359,7 @@ def main(record_path: Optional[str] = None) -> None:
             "library_ms": None,
         })
     kernels["kernels"].append(k3_entry)
+    kernels["kernels"] += k4_entries
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K3 on the card against their plain versions.  Needs a CUDA GPU and
+"""Kernels K1, K2, K3 and K4 on the card against their plain versions.  Needs a CUDA GPU and
 skips without one; it imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -14,6 +14,16 @@ from alignsdf_torch.kernels.pixel_grid_decoder import (
     pixel_grid_decode_reference,
     pixel_projection,
 )
+from alignsdf_torch.kernels.pixel_train_decoder import (
+    flatten_pixel_params,
+    pack_pixel_trunks,
+    pixel_train_decode,
+    pixel_train_decode_backward,
+    pixel_train_decode_backward_reference,
+    pixel_train_decode_forward,
+    pixel_train_decode_reference,
+    unflatten_pixel_params,
+)
 from alignsdf_torch.kernels.train_decoder import (
     flatten_params,
     pack_trunk,
@@ -27,6 +37,11 @@ from alignsdf_torch.kernels.train_decoder import (
 from alignsdf_torch.models.decoder import SeparateDecoder, make_decoder, trunk_prefixes
 from alignsdf_torch.ops.grid_plan import branch_columns, make_grid_decode_fn
 from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
+from alignsdf_torch.ops.pixel_train_plan import (
+    make_pixel_train_decoder,
+    pixel_train_inputs,
+    pixel_trunks,
+)
 from alignsdf_torch.ops.train_plan import make_train_decoder, trunk_operands
 
 
@@ -163,3 +178,63 @@ def test_cuda_pixel_kernel_matches_plain(dims, c, hw, n, base, cut, ref):
     assert 0.0 < share < 1.0
     assert out.shape == (2, m)
     assert float((out - ref_out).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,c,hw,scenes,n,train,model_type",
+                         [((64,) * 4, 32, (8, 8), 3, 128, True, "1encoder2decoder"),
+                          ((512,) * 4, 256, (64, 64), 4, 2000, True, "1encoder2decoder"),
+                          ((512,) * 4, 256, (64, 64), 2, 2000, False, "1encoder1decoder")])
+def test_cuda_pixel_train_kernel_matches_plain(dims, c, hw, scenes, n, train, model_type):
+    """K4 forward and backward through the autograd Function against the
+    plain versions on the same card, TF32 off, with part of the points
+    outside the image: y to 1e-5 abs against the plain forward, every
+    gradient (weights, d(table), d(mean), d(xp), d(yp), d(emb)) to 1e-4 of
+    its largest entry against the plain backward fed the kernel's own
+    residuals; d(table) and the reductions add with atomics, in another
+    order each run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(3)
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9, latent_size=c,
+                  pixel_align=True, samples_per_scene=n, sdf_scale_factor=7.0,
+                  image_size=(256, 256), network_specs=NetworkSpecs(dims=dims))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        decoder = make_decoder(model_type, c, 9, "both", specs.network_specs).cuda()
+    m = scenes * n
+    fmap = (torch.randn(scenes, c, *hw, generator=gen) * 0.5).cuda()
+    emb = (torch.randn(m, 9, generator=gen) * 0.5).cuda()
+    xyz = (torch.randn(m, 3, generator=gen) * 0.5).cuda()
+    cam = torch.tensor([[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]]).repeat(scenes, 1, 1)
+    root = torch.tensor([[[0.01, -0.02, 0.6]]]).repeat(scenes, 1, 1)
+    st = make_pixel_train_decoder(specs).statics._replace(feat_hw=hw, train=train)
+    with torch.no_grad():
+        table, mean, xp, yp, mask = pixel_train_inputs(fmap, xyz, cam.cuda(), root.cuda(), specs)
+        trunks = pixel_trunks(decoder, specs, c)
+    share = float(mask.mean())
+    assert 0.0 < share < 1.0
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (table, mean, xp, yp, emb, *flatten_pixel_params(trunks))]
+    fwd, bwd = pixel_train_decode.launches, pixel_train_decode_backward.launches
+    y = pixel_train_decode(*leaves[:4], mask, leaves[4], unflatten_pixel_params(st, leaves[5:]),
+                           9, st)
+    dy = torch.randn(y.shape, generator=gen).cuda()
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (pixel_train_decode.launches, pixel_train_decode_backward.launches) == (fwd + 1, bwd + 1)
+    with torch.no_grad():
+        y_ref = pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, 9, st)
+        assert y.shape == y_ref.shape == (2, m)
+        assert float((y - y_ref).abs().max()) <= 1e-5
+        y_k, acts, lat = pixel_train_decode_forward(
+            pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st), 9, st)
+        acts = [[a[:b.shape[-1]].T for a, b in zip(at, tr[3])] for at, tr in zip(acts, trunks)]
+        dtable, dmean, dxp, dyp, demb, g_ref = pixel_train_decode_backward_reference(
+            table, mean, xp, yp, mask, emb, trunks, st, y_k, acts, lat[:c].T, dy)
+    ref = [dtable, dmean, dxp, dyp, demb, *flatten_pixel_params(g_ref)]
+    assert len(ref) == len(grads)
+    for g, r in zip(grads, ref):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= 1e-4 * (float(r.abs().max()) + 1e-12)

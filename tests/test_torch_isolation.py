@@ -24,6 +24,8 @@ def _port_modules():
 def test_every_module_imports_with_jax_blocked():
     modules = _port_modules()
     assert "alignsdf_torch.kernels.grid_decoder" in modules
+    assert "alignsdf_torch.kernels.pixel_train_decoder" in modules
+    assert "alignsdf_torch.ops.pixel_train_plan" in modules
     code = (
         "import sys\n"
         f"for name in {BLOCKED!r}:\n"

@@ -2,9 +2,9 @@
 narrow decoder width) against the JAX AlignSDF with the same converted
 weights: the HeadNet map that encode_scene returns, the MANO and object
 outputs, the per-point latents of decoder_inputs, the converter on an
-encoder without ``fc``; and the train step's refusal of pixel-aligned
-specs."""
+encoder without ``fc``; and pixel-aligned training through the CLI."""
 
+import math
 import os
 
 import numpy as np
@@ -18,7 +18,7 @@ from alignsdf_torch.cli.reconstruct import load_reference_weights
 from alignsdf_torch.cli.train import main as train_main
 from alignsdf_torch.config import specs_from_dict
 from alignsdf_torch.models.alignsdf import build_model
-from alignsdf_torch.training.train_step import make_train_step
+from alignsdf_torch.ops.pixel_train_plan import make_pixel_train_decoder
 
 import torch_parity
 
@@ -107,17 +107,20 @@ def test_loader_ignores_an_fc_the_pixel_encoder_lacks(tmp_path):
         assert torch.equal(dst.state_dict()[k], v), k
 
 
-def test_training_refuses_pixel_align_naming_k4():
-    """Pixel-aligned training needs kernel K4, which is not ported: the
-    step, the trainer and the CLI say so instead of training another
-    decoder; the factored front half refuses a per-point latent."""
+def test_training_refuses_pixel_align_naming_k4(capsys):
+    """Pixel-aligned training runs through kernel K4 (its plain version on
+    the CPU): the CLI's smoke run of the full-width --pa_feat flagship takes
+    two steps with finite losses.  The factored front half still refuses a
+    per-point latent."""
+    train_main(["-e", os.path.join(REPO, "experiments", "obman_30k.json"), "--mano",
+                "--obj_pose", "--encode", "both", "--point_size", "9", "--pa_feat",
+                "--smoke", "--device", "cpu"])
+    log = capsys.readouterr().err  # the CLI logs to stderr
+    losses = [float(line.split("loss=")[1]) for line in log.splitlines() if "smoke step" in line]
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses), log
+    assert "smoke OK" in log
     specs = specs_from_dict(torch_parity.PIXEL_NARROW)
-    with pytest.raises(NotImplementedError, match="K4"):
-        make_train_step(specs)
-    with pytest.raises(NotImplementedError, match="K4"):
-        train_main(["-e", os.path.join(REPO, "experiments", "obman_30k.json"), "--mano",
-                    "--obj_pose", "--encode", "both", "--point_size", "9", "--pa_feat",
-                    "--smoke", "--device", "cpu"])
+    assert make_pixel_train_decoder(specs).pixel
     model = build_model(specs, seed=0)
     args = [torch.from_numpy(a) for a in _args(1)]
     cond = {"cam_intr": args[1], "mano_root": args[2], "rest_obj_corners": args[3]}
