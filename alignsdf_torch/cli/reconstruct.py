@@ -5,7 +5,7 @@ Usage:
     python -m alignsdf_torch.cli.reconstruct -e <experiment_dir> -t obman \\
         --samples samples.npz [--checkpoint latest | --weights model.pth] \\
         [--start_point A --end_point B] [--cube_dim 128] [--device cuda] \\
-        [--ref_pixel_projection]
+        [--ref_pixel_projection] [--label [--viz]]
 
 Weights are a reference-schema torch checkpoint,
 ``<experiment_dir>/ModelParameters/<checkpoint>.pth`` ({"epoch",
@@ -13,7 +13,10 @@ Weights are a reference-schema torch checkpoint,
 from an npz holding ``image`` (S, H, W, 3) uint8, ``cam_intr`` (S, 3, 4),
 ``mano_root`` (S, 3), ``rest_obj_corners`` (S, 8, 3) and ``key`` (S,).
 Outputs go to ``<experiment_dir>/Eval_<task>/``.  A pixel-aligned
-experiment (``PixelAlign``) reconstructs through kernel K3.
+experiment (``PixelAlign``) reconstructs through kernel K3.  With a
+classifier (``ClassifierBranch``), ``--label`` writes the hand mesh's
+per-vertex part labels (``meshes/<key>_hand_label.npz``) and ``--viz`` the
+mesh colored by part (``meshes/<key>_hand_color.ply``).
 """
 
 from __future__ import annotations
@@ -80,6 +83,10 @@ def main(argv=None):
                              "columns as the reference's mesh path does, instead of the "
                              "raw grid coordinates as its train path does "
                              "(see inference/grid.py)")
+    parser.add_argument("--label", action="store_true",
+                        help="classifier configs: write the hand mesh's per-vertex part labels")
+    parser.add_argument("--viz", action="store_true",
+                        help="with --label: also write the hand mesh colored by part")
     args = parser.parse_args(argv)
 
     logging.basicConfig(force=True, level=logging.INFO,
@@ -110,7 +117,7 @@ def main(argv=None):
         t0 = time.time()
 
     run_pipelined(recon, samples, out_dirs, task=args.task, on_done=log_done,
-                  lookahead=args.lookahead)
+                  lookahead=args.lookahead, label_out=args.label, viz=args.viz)
 
 
 if __name__ == "__main__":

@@ -3,11 +3,14 @@ train.py:201-714).
 
 Usage:
     python -m alignsdf_torch.cli.train -e experiments/obman_30k.json \\
-        --mano --obj_pose --encode both --point_size 9 [--pa_feat] \\
-        [--smoke | --steps N] [--device cuda] [--no_init_guard]
+        --mano --obj_pose --encode both --point_size 9 [--pa_feat | --cls] \\
+        [--add_epoch E] [--smoke | --steps N] [--device cuda] [--no_init_guard]
 
 The flagship trains its twin trunks through kernel K2; with ``--pa_feat``
-(a latent sampled per point from the HeadNet map) through kernel K4.
+(a latent sampled per point from the HeadNet map) through kernel K4.  With
+``--cls`` (the hand-part classifier, e.g. on experiments/dexycb_140k.json)
+K2 also gives the hand trunk's last hidden activation, whose logits feed the
+cross-entropy from AdditionalLossStart (``--add_epoch``) on.
 
 The dataset reader is not ported yet, so training runs on synthetic batches
 (``data/synthetic.py``) of ScenesPerBatch scenes: ``--smoke`` takes 2 steps
@@ -43,7 +46,7 @@ logger = logging.getLogger("alignsdf_torch.train")
 
 # override flags of cfg.add_train_args that act only through the dataset
 # reader, the augmentation or later epochs, none of which this CLI runs yet
-_NOT_RUN = ("no_aug", "bg_aug", "epoch", "add_epoch", "lr_interval", "lr_factor")
+_NOT_RUN = ("no_aug", "bg_aug", "epoch", "lr_interval", "lr_factor")
 
 
 def make_trainer(specs: cfg.Specs, device, seed: int = 0,
@@ -97,6 +100,8 @@ def main(argv: Optional[list] = None) -> None:
         for i in range(2):
             losses = step(state, batch, draw_seed(gen))
             logger.info("smoke step %d: loss=%.5f", i, float(losses["total"]))
+            logger.info("smoke terms %d: %s", i, " ".join(
+                f"{k}={float(v):.6g}" for k, v in sorted(losses.items()) if k != "total"))
         logger.info("smoke OK")
         return
 

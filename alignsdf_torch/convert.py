@@ -76,11 +76,13 @@ def _encoder(sd, params: Mapping[str, Any], stats: Mapping[str, Any]) -> None:
 
 
 def decoder_from_jax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
-    """A JAX Separate/CombinedDecoder's params -> the port decoder's state_dict."""
+    """A JAX Separate/CombinedDecoder's params -> the port decoder's
+    state_dict.  The classifier head of the hand (or combined) trunk becomes
+    the decoder's own ``classifier_head``, the reference's key."""
     sd: Dict[str, torch.Tensor] = {}
     for trunk in params.values():
         for name, layer in trunk.items():
-            if name == "classifier_head" or name.startswith("bn"):
+            if name.startswith("bn"):
                 raise NotImplementedError(f"decoder layer {name!r} is not ported yet")
             _linear(sd, prefix + name, layer)
     return sd

@@ -4,7 +4,8 @@ side of utils/mesh.py).
 
 Per image: encode -> MANO and object pose -> two-pass grid (kernel K1, or
 K3 for pixel-aligned configs, when the config allows the fused path) ->
-marching cubes -> PLY/JSON exports.
+marching cubes -> PLY/JSON exports; with ``label_out``, the hand-part labels
+at the hand mesh's vertices (reference utils/mesh.py:137-184).
 ``submit`` enqueues the device work on the reconstructor's CUDA stream and
 starts copies of the results into pinned host memory; ``finalize`` waits for
 them and does the host work.  ``run_pipelined`` keeps ``lookahead`` images
@@ -28,12 +29,17 @@ import torch
 from alignsdf_torch import resolve_device
 from alignsdf_torch.config import Specs
 from alignsdf_torch.geom.marching_cubes import marching_cubes
-from alignsdf_torch.geom.meshlib import TriMesh, largest_component, read_obj
-from alignsdf_torch.inference.grid import make_grid_evaluator
+from alignsdf_torch.geom.meshlib import TriMesh, largest_component, read_obj, write_ply
+from alignsdf_torch.inference.grid import embed_points, make_grid_evaluator
 from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
 from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
 
 logger = logging.getLogger(__name__)
+
+PART_COLORS = np.array(
+    [[13, 212, 128], [250, 70, 42], [131, 66, 37],
+     [78, 137, 54], [187, 246, 163], [67, 220, 74]], np.uint8
+)  # reference utils/mesh.py:316-323
 
 
 def field_to_mesh(sdf_field: np.ndarray, origin: np.ndarray,
@@ -69,6 +75,10 @@ class Reconstructor:
                  device: Optional[Union[str, torch.device]] = None,
                  mano_faces: Optional[np.ndarray] = None,
                  pixel_ref_projection: bool = False):
+        if specs.pixel_align and specs.classifier_branch:
+            raise NotImplementedError(
+                "a pixel-aligned spec with a classifier: kernel K3 has no class rows and the "
+                "pixel-aligned label query is not ported yet")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.specs = specs
@@ -142,12 +152,16 @@ class Reconstructor:
                 out.update({f"obj_{k}": obj_results[f"obj_{k}"] for k in ("trans", "corners")})
             host = {k: self._to_host(v) for k, v in out.items()}
             done = self._event()
-        return {"sample": sample, "host": host, "events": (ev0, ev1, ev2, done)}
+        return {"sample": sample, "host": host, "events": (ev0, ev1, ev2, done), "ctx": ctx}
 
     def finalize(self, pending: Dict[str, Any], out_dirs: Dict[str, str],
-                 task: str = "obman") -> Dict[str, float]:
+                 task: str = "obman", label_out: bool = False,
+                 viz: bool = False) -> Dict[str, float]:
         """Host side of one image: wait for its results, export the MANO and
-        object parameters, mesh both fields.  Returns its timings in ms."""
+        object parameters, mesh both fields; with ``label_out`` (and a
+        classifier), write the hand mesh's per-vertex part labels as
+        ``<key>_hand_label.npz`` and, with ``viz``, the mesh colored by part
+        as ``<key>_hand_color.ply``.  Returns its timings in ms."""
         ev0, ev1, ev2, done = pending["events"]
         if done is not None:
             done.synchronize()
@@ -190,28 +204,51 @@ class Reconstructor:
             meshes[name] = mesh
         pending["meshes"] = meshes
 
+        hand = meshes.get("hand")
+        if label_out and hand is not None and specs.classifier_branch:
+            labels = self._query_labels(pending["ctx"], hand.vertices)
+            np.savez(f"{mesh_base}_hand_label.npz", points=hand.vertices.astype(np.float32),
+                     labels=labels.astype(np.float32))
+            if viz:
+                write_ply(f"{mesh_base}_hand_color.ply", hand.vertices, hand.faces,
+                          vertex_colors=PART_COLORS[labels % len(PART_COLORS)])
+
         timings = {"mc_ms": (time.perf_counter() - t0) * 1e3}
         if done is not None:
             timings["encode_ms"] = ev0.elapsed_time(ev1)
             timings["grid_ms"] = ev1.elapsed_time(ev2)
         return timings
 
+    @torch.no_grad()
+    def _query_labels(self, ctx: Dict[str, Any], verts: np.ndarray) -> np.ndarray:
+        """The argmax of the classifier's logits at (V, 3) mesh vertices: the
+        vertices embedded as the grid embeds its points, the scene's latent
+        broadcast, the plain decoder (``decode_points``), as the JAX
+        package's ``_query_labels`` decodes in XLA."""
+        pts = torch.as_tensor(np.asarray(verts, np.float32), device=ctx["latent"].device)
+        emb = embed_points(self.specs, ctx, pts)
+        latent = ctx["latent"].expand(pts.shape[0], ctx["latent"].shape[1])
+        _, _, logits = self.model.decode_points(torch.cat([latent, emb], dim=1))
+        return logits.argmax(dim=1).cpu().numpy()
+
 
 def run_pipelined(recon: Reconstructor, samples, out_dirs: Dict[str, str],
                   task: str = "obman",
                   on_done: Optional[Callable[[int, Dict[str, Any]], None]] = None,
-                  lookahead: int = 2) -> int:
+                  lookahead: int = 2, label_out: bool = False, viz: bool = False) -> int:
     """Reconstruct a sequence with ``lookahead`` images of device work in
     flight ahead of the host work.  Each pending image holds two N^3 float32
     fields (16 MB at 128^3).  ``on_done(i, pending)`` sees the image's
-    ``timings`` and ``meshes``.  Returns the number of images processed."""
+    ``timings`` and ``meshes``.  ``label_out`` and ``viz`` go to
+    ``finalize``.  Returns the number of images processed."""
     window: deque = deque()
     count = 0
 
     def finish():
         nonlocal count
         idx, pending = window.popleft()
-        pending["timings"] = recon.finalize(pending, out_dirs, task=task)
+        pending["timings"] = recon.finalize(pending, out_dirs, task=task, label_out=label_out,
+                                            viz=viz)
         count += 1
         if on_done is not None:
             on_done(idx, pending)

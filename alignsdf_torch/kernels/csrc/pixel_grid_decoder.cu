@@ -52,6 +52,7 @@
 
 #define MAX_TRUNKS 2
 #define MAX_HIDDEN 8
+#define N_ROWS 2  // output rows: hand, object
 
 struct Layer { int w, x, lat, b, in_pad, out_pad; };  // offsets into prm; -1 = none
 struct Trunk { int n_hidden, fin, fin_xyz, last_pad; Layer layers[MAX_HIDDEN]; };
@@ -167,7 +168,7 @@ pixel_grid_decoder_kernel(const float* __restrict__ prm, const Plan plan,
                    ws, xyz, tid);
       float* tmp = cur; cur = nxt; nxt = tmp;
     }
-    final_rows(prm, T.fin, T.fin_xyz, T.last_pad, cur, ws, oacc, xyz, tid);
+    final_rows(prm, T.fin, T.fin_xyz, T.last_pad, N_ROWS, cur, ws, oacc, xyz, tid);
   }
 
   if (tid < N_ROWS * TILE_P) {

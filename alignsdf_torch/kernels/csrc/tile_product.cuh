@@ -16,7 +16,6 @@
 #define NTHREADS 256   // threads per block
 #define OCHUNK 256     // output features per chunk
 #define BK 32          // k depth of one weight tile
-#define N_ROWS 2       // output rows: hand, object
 
 // Weight tile [BK][OCHUNK] of W ([k][out_pad]) at rows k0.., columns oc..:
 // 2048 float4, 8 per thread, 64 threads per row (coalesced).
@@ -112,19 +111,44 @@ __device__ __forceinline__ void hidden_layer(const float* __restrict__ prm, int 
 }
 
 // oacc[r][p] += sum_k fin[r][k] act[k][p] (+ fin_xyz[r] . xyz[p]) for the
-// final rows fin (N_ROWS, last_pad) at fin_off and fin_xyz (N_ROWS, 3) at
-// fin_xyz_off (-1 = absent).  Warp w sums row w/4 over k = w%4 (mod 4);
-// lanes are points (conflict-free).  `red` is NTHREADS floats of scratch.
+// n_rows final rows fin (n_rows, last_pad) at fin_off and fin_xyz (n_rows, 3)
+// at fin_xyz_off (-1 = absent); lanes are points (conflict-free).  Each row
+// is four partial sums over k = 0, 1, 2, 3 (mod 4), added in that order.
+// Two rows (the SDFs): warp w sums part w%4 of row w/4, through `red`
+// (NTHREADS floats of scratch).  More rows (the classifier's): a warp takes
+// whole rows and runs their four parts as independent chains, so that 8 rows
+// cost about one pass of 2, not four; the sums are the same.
 __device__ void final_rows(const float* __restrict__ prm, int fin_off, int fin_xyz_off,
-                           int last_pad, const float* act, float* red, float* oacc,
+                           int last_pad, int n_rows, const float* act, float* red, float* oacc,
                            const float* xyz, int tid) {
-  const int p = tid & 31, w = tid >> 5, r = w >> 2, part = w & 3;
+  const int p = tid & 31, w = tid >> 5;
+  if (n_rows > 2) {
+    for (int r = w; r < n_rows; r += NTHREADS / 32) {
+      const float* f = prm + fin_off + r * last_pad;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+      for (int k = 0; k < last_pad; k += 4) {
+        s0 = fmaf(__ldg(f + k), act[k * TILE_P + p], s0);
+        s1 = fmaf(__ldg(f + k + 1), act[(k + 1) * TILE_P + p], s1);
+        s2 = fmaf(__ldg(f + k + 2), act[(k + 2) * TILE_P + p], s2);
+        s3 = fmaf(__ldg(f + k + 3), act[(k + 3) * TILE_P + p], s3);
+      }
+      float v = s0 + s1 + s2 + s3;
+      if (fin_xyz_off >= 0) {
+        const float* fx = prm + fin_xyz_off + r * 3;
+        v += fx[0] * xyz[p] + fx[1] * xyz[TILE_P + p] + fx[2] * xyz[2 * TILE_P + p];
+      }
+      oacc[r * TILE_P + p] += v;
+    }
+    __syncthreads();
+    return;
+  }
+  const int r = w >> 2, part = w & 3;
   const float* f = prm + fin_off + r * last_pad;
   float s = 0.f;
   for (int k = part; k < last_pad; k += 4) s = fmaf(__ldg(f + k), act[k * TILE_P + p], s);
   red[w * TILE_P + p] = s;
   __syncthreads();
-  if (tid < N_ROWS * TILE_P) {
+  if (tid < 2 * TILE_P) {
     const int rr = tid / TILE_P, pp = tid % TILE_P;
     float v = red[(rr * 4 + 0) * TILE_P + pp] + red[(rr * 4 + 1) * TILE_P + pp]
             + red[(rr * 4 + 2) * TILE_P + pp] + red[(rr * 4 + 3) * TILE_P + pp];

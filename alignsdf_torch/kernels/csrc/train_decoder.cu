@@ -7,6 +7,10 @@
 // per-scene bias tables outside (ops/train_plan.py), so layer l computes
 //   acc = a_{l-1} @ W_l (if W) + emb @ X_l (if X) + b_l[row / nps] or b_l
 // then ReLU and the hash dropout gate on hidden layers, tanh on the last.
+// The last hidden layer's gated activation is the classifier's x_last: the
+// forward already stores it as a residual, so the wrapper returns a view of
+// it, and the backward adds its gradient dx_last (M, h) to the final layer's
+// input gradient before that layer's gate (_bwd_kernel_scene :637-638).
 //
 // What bounds it: arithmetic.  At the flagship width (hidden 512 -> 250 ->
 // 512 -> 512 -> 1, 6 embedding columns) a trunk costs 0.525 M MAC per point
@@ -67,6 +71,8 @@ struct Plan {
   float* y;          // (n_out, M)
   const float* dy;   // (n_out, M)
   float* demb;       // (M, e)
+  const float* dx_last;  // (M, xl_w) or null
+  int xl_w;
   Layer layers[MAX_LAYERS];
 };
 
@@ -191,13 +197,43 @@ train_bwd_chain_kernel(const Plan p, float scale) {
   }
   __syncthreads();
 
-  // its input's gradient, gated by the last hidden layer's recovered gate
+  // its input's gradient (plus dx_last), gated by the last hidden layer's
+  // recovered gate.  Without dx_last the product and the gate share one loop:
+  // splitting them cost the flagship's backward 0.5 ms a step on an H100.
   const Layer& H = p.layers[last - 1];
   const float hs = H.dropout ? scale : 1.f;
+  if (p.dx_last) {
+    for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
+      const int k = i / TILE_P, q = i % TILE_P;
+      float dx = 0.f;
+      for (int r = 0; r < p.n_out; ++r) dx = fmaf(__ldg(F.w + (size_t)k * p.n_out + r), g[r * TILE_P + q], dx);
+      d0[i] = dx;
+    }
+    // d0[k][q] += dx_last[first + q][k], dx_last row-major (M, xl_w): a lane
+    // is a point, each warp takes blocks of 32 features, skewed by the lane
+    // so that the 32 lanes write 32 banks; a lane's 128-byte row segment
+    // stays in L1 across the 32 steps
+    __syncthreads();
+    const int lane = tid & 31, row = first + lane;
+    if (row < p.m) {
+      const float* src = p.dx_last + (size_t)row * p.xl_w;
+      for (int k0 = (tid >> 5) * 32; k0 < p.xl_w; k0 += NTHREADS) {
+        for (int j = 0; j < 32; ++j) {
+          const int k = k0 + ((lane + j) & 31);
+          if (k < p.xl_w) d0[k * TILE_P + lane] += __ldg(src + k);
+        }
+      }
+    }
+    __syncthreads();
+  }
   for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
     const int k = i / TILE_P, q = i % TILE_P, row = first + q;
     float dx = 0.f;
-    for (int r = 0; r < p.n_out; ++r) dx = fmaf(__ldg(F.w + (size_t)k * p.n_out + r), g[r * TILE_P + q], dx);
+    if (p.dx_last) {
+      dx = d0[i];
+    } else {
+      for (int r = 0; r < p.n_out; ++r) dx = fmaf(__ldg(F.w + (size_t)k * p.n_out + r), g[r * TILE_P + q], dx);
+    }
     float v = 0.f;
     if (row < p.m) {
       v = H.act[(size_t)k * p.m + row] > 0.f ? dx * hs : 0.f;
@@ -258,11 +294,12 @@ static size_t smem_bytes(int max_pad) {
   return sizeof(float) * ((size_t)2 * max_pad * TILE_P + BK * OCHUNK + EMB_MAX * TILE_P + 8 * TILE_P);
 }
 
-// desc (int64): [n_layers, n_out, e, m, nps, n_scenes, emb, y, dy, demb, then
-// per layer: w, wt, x, b, act, dpre, dw, dx, db, in_pad, out_pad,
-// scene_bias, dropout].  Pointers are device addresses, 0 = absent.
+// desc (int64): [n_layers, n_out, e, m, nps, n_scenes, emb, y, dy, demb,
+// dx_last, xl_w, then per layer: w, wt, x, b, act, dpre, dw, dx, db, in_pad,
+// out_pad, scene_bias, dropout].  Pointers are device addresses, 0 = absent.
+#define HEAD 12
 static int parse(const long long* desc, int len, Plan* p, bool backward) {
-  if (len < 10) return -1;
+  if (len < HEAD) return -1;
   p->n_layers = (int)desc[0];
   p->n_out = (int)desc[1];
   p->e = (int)desc[2];
@@ -273,13 +310,15 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
   p->y = (float*)desc[7];
   p->dy = (const float*)desc[8];
   p->demb = (float*)desc[9];
-  if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != 10 + 13 * p->n_layers) return -1;
+  p->dx_last = (const float*)desc[10];
+  p->xl_w = (int)desc[11];
+  if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != HEAD + 13 * p->n_layers) return -1;
   if (p->n_out < 1 || p->n_out > MAX_OUT || p->e < 1 || p->e > EMB_MAX) return -1;
   if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes) return -1;
   if (!p->emb || !p->y || (backward && (!p->dy || !p->demb))) return -1;
   p->max_pad = OCHUNK;
   for (int l = 0; l < p->n_layers; ++l) {
-    const long long* d = desc + 10 + 13 * l;
+    const long long* d = desc + HEAD + 13 * l;
     Layer& L = p->layers[l];
     L.w = (const float*)d[0]; L.wt = (const float*)d[1]; L.x = (const float*)d[2];
     L.b = (const float*)d[3]; L.act = (float*)d[4]; L.dpre = (float*)d[5];
@@ -296,6 +335,8 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
     }
     if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.x && !L.dx))) return -1;
   }
+  if (p->dx_last && (!backward || p->xl_w < 1 || p->xl_w > p->layers[p->n_layers - 1].in_pad))
+    return -1;
   return 0;
 }
 

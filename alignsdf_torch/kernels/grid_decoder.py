@@ -1,10 +1,13 @@
 """Kernel K1: the fused SDF grid decoder, its packed plan, its plain PyTorch
 version and the wrapper that launches the CUDA kernel.
 
-Replaces ``alignsdf_tpu/ops/decoder_kernel.py:make_fused_grid_kernel_t``.
-For a run of ``m`` contiguous linear grid indices from ``base`` (z fastest)
-it derives xyz, runs the latent-folded trunks and returns a (2, m) float32
-field, row 0 hand, row 1 object.  The CUDA source is ``csrc/grid_decoder.cu``.
+Replaces ``alignsdf_tpu/ops/decoder_kernel.py:make_fused_grid_kernel_t``
+and its points-major sibling ``make_fused_grid_kernel``.  For a run of ``m``
+contiguous linear grid indices from ``base`` (z fastest) it derives xyz,
+runs the latent-folded trunks and returns an (n_rows, m) float32 array: row
+0 the hand SDF, row 1 the object SDF (both tanh'd), rows 2.. the
+classifier's logits, which the plan packs as extra final rows of the hand
+trunk (``ops/grid_plan.py``).  The CUDA source is ``csrc/grid_decoder.cu``.
 
 ``grid_decode`` takes the plain version only for a plan on the CPU; for a
 plan on the GPU it launches the kernel or raises.  ``grid_decode.launches``
@@ -22,7 +25,8 @@ import torch
 
 PAD = 256     # hidden widths pad to the kernel's output chunk
 ALIGN = 64    # every array of the packed plan starts on a 256-byte boundary
-N_ROWS = 2    # output rows: hand, object
+N_ROWS = 2      # SDF rows: hand, object (tanh'd)
+MAX_ROWS = 128  # SDF rows and up to 126 classes
 MAX_SMEM = 232448
 _TILE_P, _BK, _MAX_TRUNKS, _MAX_HIDDEN = 32, 32, 2, 8
 
@@ -55,10 +59,12 @@ class GridPlan:
     """Folded trunks packed into one float32 buffer in the kernel's layout.
 
     ``desc`` is the int32 layout descriptor ``grid_decoder.cu`` reads:
-    [n_trunks, fin_b, max_pad, then per trunk n_hidden, fin, fin_xyz,
-    last_pad, then per hidden layer w, x, b, in_pad, out_pad] (offsets in
-    floats, -1 = absent).  Hidden weights are (in_pad, out_pad) with out
-    contiguous; xyz weights (3, out_pad); final rows (N_ROWS, last_pad).
+    [n_trunks, fin_b, max_pad, n_rows, then per trunk n_hidden, fin,
+    fin_xyz, last_pad, then per hidden layer w, x, b, in_pad, out_pad]
+    (offsets in floats, -1 = absent).  Hidden weights are (in_pad, out_pad)
+    with out contiguous; xyz weights (3, out_pad); final rows (n_rows,
+    last_pad), every trunk holding all of them (zeros in the rows it does
+    not write).
     """
 
     flat: torch.Tensor
@@ -73,10 +79,15 @@ class GridPlan:
         size = int(np.prod(shape))
         return self.flat[off:off + size].view(shape)
 
+    @property
+    def n_rows(self) -> int:
+        return int(self.desc[3])
+
     def trunks(self):
         """Yield (hidden [(w|None, x|None, b)], fin, fin_xyz|None) views."""
         d = self.desc.tolist()
-        pos = 3
+        n_rows = self.n_rows
+        pos = 4
         for _ in range(d[0]):
             n_hidden, fin, fin_xyz, last_pad = d[pos:pos + 4]
             pos += 4
@@ -87,24 +98,24 @@ class GridPlan:
                 hidden.append((self.view(w, (in_pad, out_pad)) if w >= 0 else None,
                                self.view(x, (3, out_pad)) if x >= 0 else None,
                                self.view(b, (out_pad,))))
-            yield (hidden, self.view(fin, (N_ROWS, last_pad)),
-                   self.view(fin_xyz, (N_ROWS, 3)) if fin_xyz >= 0 else None)
+            yield (hidden, self.view(fin, (n_rows, last_pad)),
+                   self.view(fin_xyz, (n_rows, 3)) if fin_xyz >= 0 else None)
 
     @property
     def fin_b(self) -> torch.Tensor:
-        return self.view(int(self.desc[1]), (N_ROWS,))
+        return self.view(int(self.desc[1]), (self.n_rows,))
 
 
-def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = ()
-                ) -> Tuple[torch.Tensor, np.ndarray]:
+def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (),
+                n_rows: int = N_ROWS) -> Tuple[torch.Tensor, np.ndarray]:
     """Pad and pack trunks (FoldedTrunk-like: ``hidden`` layers with
     ``w``/``b``, ``fin``, ``fin_x``, ``fin_b``, ``rows``) into one zeroed
     float32 buffer on their device, each array starting on an ALIGN
-    boundary.  Returns (flat, desc), desc = [n_trunks, fin_b, max_pad,
-    *head, then per trunk n_hidden, fin, fin_xyz, last_pad, then per hidden
-    layer ``place_layer(place, layer, in_pad, out_pad)``], where
-    ``place(shape, fill)`` reserves an array with ``fill`` in its top-left
-    and returns its offset."""
+    boundary, with ``n_rows`` final rows.  Returns (flat, desc), desc =
+    [n_trunks, fin_b, max_pad, *head, then per trunk n_hidden, fin, fin_xyz,
+    last_pad, then per hidden layer ``place_layer(place, layer, in_pad,
+    out_pad)``], where ``place(shape, fill)`` reserves an array with
+    ``fill`` in its top-left and returns its offset."""
     if not 1 <= len(trunks) <= _MAX_TRUNKS:
         raise ValueError(f"the kernel takes 1 or 2 trunks, got {len(trunks)}")
     pieces: List[Tuple[int, Tuple[int, ...], torch.Tensor]] = []
@@ -118,10 +129,10 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
         return off
 
     device = trunks[0].fin_b.device
-    fin_b = torch.zeros(N_ROWS, dtype=torch.float32, device=device)
+    fin_b = torch.zeros(n_rows, dtype=torch.float32, device=device)
     for t in trunks:
         fin_b[list(t.rows)] += t.fin_b
-    desc = [len(trunks), place((N_ROWS,), fin_b), 0, *head]
+    desc = [len(trunks), place((n_rows,), fin_b), 0, *head]
     max_pad = PAD
     for t in trunks:
         if not 1 <= len(t.hidden) <= _MAX_HIDDEN or t.hidden[0].w is not None:
@@ -134,14 +145,14 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
             max_pad = max(max_pad, out_pad, in_pad)
             layers.append(place_layer(place, h, in_pad, out_pad))
             in_pad = out_pad
-        fin = torch.zeros(N_ROWS, t.fin.shape[0], dtype=torch.float32, device=device)
+        fin = torch.zeros(n_rows, t.fin.shape[0], dtype=torch.float32, device=device)
         fin[list(t.rows)] = t.fin.T
         fin_xyz = -1
         if t.fin_x is not None:
-            fx = torch.zeros(N_ROWS, 3, dtype=torch.float32, device=device)
+            fx = torch.zeros(n_rows, 3, dtype=torch.float32, device=device)
             fx[list(t.rows)] = t.fin_x.T
-            fin_xyz = place((N_ROWS, 3), fx)
-        desc += [len(t.hidden), place((N_ROWS, in_pad), fin), fin_xyz, in_pad]
+            fin_xyz = place((n_rows, 3), fx)
+        desc += [len(t.hidden), place((n_rows, in_pad), fin), fin_xyz, in_pad]
         for layer in layers:
             desc += layer
     desc[2] = max_pad
@@ -157,14 +168,23 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
 
 
 def pack_grid_plan(trunks: List[FoldedTrunk], n: int) -> GridPlan:
-    """Pad and pack folded trunks into a GridPlan on the trunks' device."""
+    """Pad and pack folded trunks into a GridPlan on the trunks' device,
+    with as many output rows as the highest row a trunk writes needs.  Only
+    the first trunk may write the class rows (>= N_ROWS): the kernel runs
+    the others' final layers over the SDF rows alone."""
+    n_rows = max(N_ROWS, 1 + max(max(t.rows) for t in trunks))
+    if n_rows > MAX_ROWS:
+        raise ValueError(f"{n_rows} output rows: the kernel writes at most {MAX_ROWS} "
+                         f"({MAX_ROWS - N_ROWS} classes)")
+    if any(max(t.rows) >= N_ROWS for t in trunks[1:]):
+        raise ValueError("only the first trunk may write class rows")
 
     def layer(place, h: HiddenLayer, in_pad: int, out_pad: int) -> List[int]:
         return [place((in_pad, out_pad), h.w) if h.w is not None else -1,
                 place((3, out_pad), h.x) if h.x is not None else -1,
                 place((out_pad,), h.b), in_pad, out_pad]
 
-    return GridPlan(*pack_trunks(trunks, layer), n)
+    return GridPlan(*pack_trunks(trunks, layer, (n_rows,), n_rows), n)
 
 
 def grid_coords(base: int, m: int, n: int, origin: torch.Tensor,
@@ -178,9 +198,9 @@ def grid_coords(base: int, m: int, n: int, origin: torch.Tensor,
 def grid_decode_reference(plan: GridPlan, base: int, m: int, origin: torch.Tensor,
                           voxel: torch.Tensor) -> torch.Tensor:
     """The plain version of K1: the same folded-plan arithmetic with
-    torch.matmul.  Returns (N_ROWS, m) float32."""
+    torch.matmul.  Returns (n_rows, m) float32, tanh on the SDF rows."""
     xyz = grid_coords(base, m, plan.n, origin, voxel)
-    acc = plan.fin_b[:, None].expand(N_ROWS, m).clone()
+    acc = plan.fin_b[:, None].expand(plan.n_rows, m).clone()
     for hidden, fin, fin_xyz in plan.trunks():
         a = None
         for w, x, b in hidden:
@@ -193,7 +213,7 @@ def grid_decode_reference(plan: GridPlan, base: int, m: int, origin: torch.Tenso
         acc = acc + fin @ a.T
         if fin_xyz is not None:
             acc = acc + fin_xyz @ xyz.T
-    return torch.tanh(acc)
+    return torch.cat([torch.tanh(acc[:N_ROWS]), acc[N_ROWS:]])
 
 
 def _launcher():
@@ -208,13 +228,14 @@ def _launcher():
     return fn
 
 
-def smem_bytes(max_pad: int) -> int:
-    return 4 * (2 * max_pad * _TILE_P + _BK * PAD + 3 * _TILE_P + N_ROWS * _TILE_P)
+def smem_bytes(max_pad: int, n_rows: int = N_ROWS) -> int:
+    return 4 * (2 * max_pad * _TILE_P + _BK * PAD + 3 * _TILE_P + n_rows * _TILE_P)
 
 
 def grid_decode(plan: GridPlan, base: int, m: int, origin: torch.Tensor,
                 voxel: torch.Tensor) -> torch.Tensor:
-    """K1: (N_ROWS, m) float32 SDFs of grid indices base..base+m."""
+    """K1: (n_rows, m) float32 SDFs (and logits) of grid indices
+    base..base+m."""
     if plan.device.type == "cpu":
         return grid_decode_reference(plan, base, m, origin, voxel)
     if plan.device.type != "cuda":
@@ -225,13 +246,13 @@ def grid_decode(plan: GridPlan, base: int, m: int, origin: torch.Tensor,
         raise ValueError("the plan buffer must be 16-byte aligned")
     if m <= 0 or base < 0 or base + m > plan.n ** 3 or plan.n ** 3 >= 2 ** 31:
         raise ValueError(f"index run [{base}, {base + m}) outside the {plan.n}^3 grid")
-    if smem_bytes(int(plan.desc[2])) > MAX_SMEM:
+    if smem_bytes(int(plan.desc[2]), plan.n_rows) > MAX_SMEM:
         raise ValueError(f"hidden width {int(plan.desc[2])} needs more shared memory "
                          "than a block has")
     scal = torch.cat([torch.as_tensor(origin, dtype=torch.float32).reshape(3),
                       torch.as_tensor(voxel, dtype=torch.float32).reshape(1)]
                      ).to(plan.device).contiguous()
-    out = torch.empty((N_ROWS, m), dtype=torch.float32, device=plan.device)
+    out = torch.empty((plan.n_rows, m), dtype=torch.float32, device=plan.device)
     desc = np.ascontiguousarray(plan.desc, np.int32)
     with torch.cuda.device(plan.device):
         stream = torch.cuda.current_stream(plan.device).cuda_stream

@@ -78,6 +78,10 @@ class PixelGridPlan(GridPlan):
     proj: torch.Tensor
 
     @property
+    def n_rows(self) -> int:
+        return N_ROWS
+
+    @property
     def feat_hw(self) -> Tuple[int, int]:
         return int(self.desc[5]), int(self.desc[6])
 

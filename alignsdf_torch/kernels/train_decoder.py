@@ -11,7 +11,11 @@ trunk reads only the point embedding.  Layer ``l`` computes
     acc = a_{l-1} @ W_l (if W_l) + emb @ X_l (if X_l) + b_l[scene(row)] or b_l
 
 then ReLU and the hash dropout gate on hidden layers, tanh on the last.
-Point ``row`` belongs to scene ``row // n_per_scene``.
+Point ``row`` belongs to scene ``row // n_per_scene``.  The forward also
+gives ``x_last``, the last hidden layer's gated activation (the final
+layer's input, which the classifier head reads), and the backward takes its
+gradient ``dx_last``, added to the final layer's input gradient before the
+last hidden layer's gate (JAX ``_bwd_kernel_scene`` :637-638).
 
 ``train_decode`` takes the plain version for a CPU tensor, on which autograd
 gives the gradients.  For a CUDA tensor it runs ``TrainDecodeFunction``,
@@ -93,8 +97,9 @@ def train_decode_reference(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor
     """The plain version of K2's forward, step by step with torch.matmul;
     autograd through it is the plain backward.  emb (M, e); ws[l] (in, out)
     or None; xs[l] (e, out) or None; bs[l] (B, out) or (out,).  Returns the
-    tanh'd outputs as (n_out, M); ``acts``, if given, receives each hidden
-    layer's gated activation (M, out)."""
+    tanh'd outputs as (n_out, M) and x_last, the last hidden layer's gated
+    activation (M, h); ``acts``, if given, receives each hidden layer's gated
+    activation (M, out)."""
     m = emb.shape[0]
     rows = torch.arange(m, device=emb.device)
     scene = rows // st.n_per_scene
@@ -109,7 +114,7 @@ def train_decode_reference(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor
             acc = term if acc is None else acc + term
         acc = acc + (bs[layer][scene] if st.scene_bias[layer] else bs[layer])
         if layer == n_layers - 1:
-            return torch.tanh(acc).T
+            return torch.tanh(acc).T, x
         x = torch.relu(acc)
         if st.train and st.dropout[layer]:
             x = x * dropout_gate(seed, layer, rows, x.shape[1], st.keep)
@@ -119,9 +124,11 @@ def train_decode_reference(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor
 
 
 def train_decode_backward_reference(emb, ws, xs, bs, st: TrainStatics, y: torch.Tensor,
-                                    acts: Sequence[torch.Tensor], dy: torch.Tensor):
+                                    acts: Sequence[torch.Tensor], dy: torch.Tensor,
+                                    dx_last: Optional[torch.Tensor] = None):
     """The plain version of K2's backward, from the same inputs as the
-    kernel: dy and y (n_out, M) and the gated activations acts[l] (M, out).
+    kernel: dy and y (n_out, M), the gated activations acts[l] (M, out) and
+    x_last's gradient dx_last (M, h) or None.
     The gate is recovered as (a > 0) * s, s = 1/keep on dropout layers in
     training, else 1 (no hash replay).  Returns (d(emb), [dW | None],
     [dX | None], [db]) with db per scene (B, out) for scene-bias layers."""
@@ -141,7 +148,10 @@ def train_decode_backward_reference(emb, ws, xs, bs, st: TrainStatics, y: torch.
                       if st.scene_bias[layer] else dpre.sum(0))
         if layer > 0:
             scale = 1.0 / st.keep if st.train and st.dropout[layer - 1] else 1.0
-            dpre = (dpre @ ws[layer].T) * (acts[layer - 1] > 0).to(dpre.dtype) * np.float32(scale)
+            dx = dpre @ ws[layer].T
+            if layer == n_layers - 1 and dx_last is not None:
+                dx = dx + dx_last
+            dpre = dx * (acts[layer - 1] > 0).to(dpre.dtype) * np.float32(scale)
     return demb, dws, dxs, dbs
 
 
@@ -219,12 +229,13 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 
 def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, demb=None, dpre=None,
-                grads=None) -> np.ndarray:
+                grads=None, dx_last=None) -> np.ndarray:
     """The int64 descriptor ``train_decoder.cu`` parses (see its header)."""
     n_layers = len(p.b)
     e, m = p.emb_t.shape
     desc = [n_layers, p.out_pads[-1], e, m, st.n_per_scene, p.n_scenes,
-            _ptr(p.emb_t), _ptr(y), _ptr(dy), _ptr(demb)]
+            _ptr(p.emb_t), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dx_last),
+            0 if dx_last is None else dx_last.shape[1]]
     in_pad = 0
     for layer in range(n_layers):
         dw, dx, db = grads[layer] if grads is not None else (None, None, None)
@@ -282,21 +293,28 @@ def train_decode_forward(p: _Packed, seed: int, st: TrainStatics):
 
 
 def train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
-                          acts: List[torch.Tensor], dy: torch.Tensor):
-    """K2 backward on the card: the reverse chain per point tile (writing
-    each layer's pre-activation gradient and d(emb)), then per layer the
-    weight, inject-weight and bias reductions over all M points.  Returns
-    (demb (M, e), [(dW | None, dX | None, db)] padded)."""
+                          acts: List[torch.Tensor], dy: torch.Tensor,
+                          dx_last: Optional[torch.Tensor] = None):
+    """K2 backward on the card: the reverse chain per point tile (adding
+    ``dx_last`` (M, h), if given, to the final layer's input gradient, then
+    writing each layer's pre-activation gradient and d(emb)), then per layer
+    the weight, inject-weight and bias reductions over all M points.
+    Returns (demb (M, e), [(dW | None, dX | None, db)] padded)."""
     e, m = p.emb_t.shape
     dev = p.emb_t.device
     dy = dy.to(torch.float32).contiguous()
+    if dx_last is not None:
+        dx_last = dx_last.to(torch.float32).contiguous()
+        if dx_last.shape[0] != m or not 1 <= dx_last.shape[1] <= p.out_pads[-2]:
+            raise ValueError(f"dx_last {tuple(dx_last.shape)} does not fit the trunk")
     demb = torch.empty((m, e), dtype=torch.float32, device=dev)
     dpre = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads]
     grads = []
     for layer in range(len(p.b)):
         zeros = lambda t: None if t is None else torch.zeros_like(t)  # noqa: E731
         grads.append((zeros(p.w[layer]), zeros(p.x[layer]), torch.zeros_like(p.b[layer])))
-    desc = _descriptor(p, st, y, acts, dy=dy, demb=demb, dpre=dpre, grads=grads)
+    desc = _descriptor(p, st, y, acts, dy=dy, demb=demb, dpre=dpre, grads=grads,
+                       dx_last=dx_last)
     _run("train_decoder_bwd", _lib().train_decoder_bwd, dev, desc.ctypes.data, int(desc.size),
          float(np.float32(1.0 / st.keep)))
     train_decode_backward.launches += 1
@@ -304,10 +322,13 @@ def train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
 
 
 class TrainDecodeFunction(torch.autograd.Function):
-    """K2 over one trunk.  Inputs are unpadded, as ``train_decode_reference``
-    takes them, flattened as (emb, ws that exist, xs that exist, bs); the
-    padding happens here and the padded rows and columns of every gradient
-    are dropped on the way out.  The gated activations are the residuals."""
+    """K2 over one trunk: (y, x_last).  Inputs are unpadded, as
+    ``train_decode_reference`` takes them, flattened as (emb, ws that exist,
+    xs that exist, bs); the padding happens here and the padded rows and
+    columns of every gradient are dropped on the way out.  The gated
+    activations are the residuals; x_last is a view of the last one, sliced
+    of its padding.  The backward takes dx_last = None when x_last fed
+    nothing (no classifier)."""
 
     @staticmethod
     def forward(ctx, st: TrainStatics, seed: int, emb: torch.Tensor, *params):
@@ -319,12 +340,15 @@ class TrainDecodeFunction(torch.autograd.Function):
         ctx.st, ctx.packed, ctx.acts, ctx.y = st, packed, acts, y
         ctx.shapes = ([None if w is None else w.shape for w in ws],
                       [None if x is None else x.shape for x in xs], [b.shape for b in bs])
-        return y
+        ctx.set_materialize_grads(False)
+        return y, acts[-1][:bs[-2].shape[-1]].T
 
     @staticmethod
-    def backward(ctx, dy: torch.Tensor):
+    def backward(ctx, dy: Optional[torch.Tensor], dx_last: Optional[torch.Tensor]):
         st = ctx.st
-        demb, grads = train_decode_backward(ctx.packed, st, ctx.y, ctx.acts, dy)
+        if dy is None:
+            dy = torch.zeros_like(ctx.y)
+        demb, grads = train_decode_backward(ctx.packed, st, ctx.y, ctx.acts, dy, dx_last)
         w_shapes, x_shapes, b_shapes = ctx.shapes
         d_w = [dw[:s[0], :s[1]] for (dw, _, _), s in zip(grads, w_shapes) if s is not None]
         d_x = [dx[:, :s[1]] for (_, dx, _), s in zip(grads, x_shapes) if s is not None]
@@ -345,9 +369,9 @@ def unflatten_params(st: TrainStatics, params):
 
 def train_decode(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor]],
                  xs: Sequence[Optional[torch.Tensor]], bs: Sequence[torch.Tensor],
-                 seed: int, st: TrainStatics) -> torch.Tensor:
-    """K2: (n_out, M) tanh'd outputs of one trunk, differentiable in emb and
-    every weight and bias."""
+                 seed: int, st: TrainStatics) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: the (n_out, M) tanh'd outputs of one trunk and x_last (M, h),
+    both differentiable in emb and every weight and bias."""
     if emb.device.type == "cpu":
         return train_decode_reference(emb, ws, xs, bs, seed, st)
     if emb.device.type != "cuda":

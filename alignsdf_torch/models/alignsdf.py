@@ -40,12 +40,8 @@ def check_supported(specs: Specs) -> None:
     if specs.pixel_align and not specs.mano_branch:
         raise ValueError("PixelAlign needs ManoBranch: points are projected about the "
                          "predicted hand root")
-    missing = [name for name, on in (
-        ("ClassifierBranch", specs.classifier_branch),
-        ("ComputeDtype=bfloat16", specs.compute_dtype != "float32"),
-    ) if on]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    if specs.compute_dtype != "float32":
+        raise NotImplementedError("not ported yet: ComputeDtype=bfloat16")
 
 
 class AlignSDF(nn.Module):
@@ -189,6 +185,12 @@ class AlignSDF(nn.Module):
         _, aux_feat, xyz_embed, mano_results, obj_results = self._scene_parts(
             image, xyz, cond_input, train)
         return aux_feat.to(torch.float32), xyz_embed, mano_results, obj_results
+
+    def decode_points(self, decoder_inputs: torch.Tensor):
+        """Only the SDF decoder, in eval mode, on assembled [latent,
+        embedding] rows: (sdf_hand (M, 1), sdf_obj (M, 1), logits (M, C) or
+        None)."""
+        return self.decoder(decoder_inputs)
 
 
 def build_model(specs: Specs, device: Union[str, torch.device] = "cpu",

@@ -4,7 +4,11 @@ the JAX package's ``models/decoder.py`` (reference networks/model.py:79-350).
 Layer modules are direct children named ``lin{i}`` (combined) or
 ``linh{i}``/``lino{i}`` (separate), as in the reference state_dict.  This is
 the generic decode: it runs on materialized [latent, embedding] rows and
-serves on the CPU as a second reference for the fused grid kernel.
+serves on the CPU as a second reference for the fused grid kernel.  With
+``use_classifier`` the hand (or combined) trunk also feeds its last layer's
+input to ``classifier_head``, a plain Linear to ``num_class`` part logits
+(JAX ``models/decoder.py:68-70``), taken before any ``latent_in`` concat.
+Both decoders return (sdf_hand, sdf_obj, logits | None).
 """
 
 from __future__ import annotations
@@ -45,40 +49,51 @@ def _check_supported(specs: NetworkSpecs) -> None:
 
 class _Trunks(nn.Module):
     """Shared forward of the trunks: ReLU hidden layers, latent re-injection
-    at ``latent_in``, final tanh."""
+    at ``latent_in``, final tanh; the classifier head, if any, on the input
+    of the first trunk's last layer."""
 
     specs: NetworkSpecs
+    classifier_head: Optional[nn.Linear]
 
-    def _add_trunk(self, prefix: str, in_dim: int, out_dim: int) -> None:
+    def _add_trunk(self, prefix: str, in_dim: int, out_dim: int,
+                   use_classifier: bool = False) -> None:
         shapes = trunk_layer_dims(in_dim, self.specs, out_dim)
         for layer, (i, o) in enumerate(shapes):
             linear = WeightNormLinear if layer in self.specs.norm_layers else TorchLinear
             setattr(self, f"{prefix}{layer}", linear(i, o))
+        if use_classifier:
+            self.classifier_head = TorchLinear(shapes[-2][1], self.specs.num_class)
 
-    def _run_trunk(self, prefix: str, x: torch.Tensor) -> torch.Tensor:
+    def _run_trunk(self, prefix: str, x: torch.Tensor, classify: bool = False):
+        """(tanh'd outputs, logits | None) of one trunk."""
         inputs = x
         n_layers = len(self.specs.dims) + 1
+        logits = None
         for layer in range(n_layers):
+            if classify and layer == n_layers - 1:
+                logits = self.classifier_head(x)
             if layer in self.specs.latent_in:
                 x = torch.cat([x, inputs], dim=1)
             x = getattr(self, f"{prefix}{layer}")(x)
             if layer < n_layers - 1:
                 x = torch.relu(x)
-        return torch.tanh(x)
+        return torch.tanh(x), logits
 
 
 class CombinedDecoder(_Trunks):
     """One trunk, two SDF outputs (reference networks/model.py:79-188)."""
 
-    def __init__(self, latent_size: int, point_feat_size: int, specs: NetworkSpecs):
+    def __init__(self, latent_size: int, point_feat_size: int, specs: NetworkSpecs,
+                 use_classifier: bool = False):
         super().__init__()
         _check_supported(specs)
         self.specs = specs
-        self._add_trunk("lin", latent_size + point_feat_size, 2)
+        self.classifier_head = None
+        self._add_trunk("lin", latent_size + point_feat_size, 2, use_classifier)
 
     def forward(self, inputs: torch.Tensor):
-        x = self._run_trunk("lin", inputs)
-        return x[:, 0:1], x[:, 1:2]
+        x, logits = self._run_trunk("lin", inputs, self.classifier_head is not None)
+        return x[:, 0:1], x[:, 1:2], logits
 
 
 def separate_input_widths(latent_size: int, pfs: int, encode_style: str) -> Tuple[int, int]:
@@ -108,29 +123,29 @@ class SeparateDecoder(_Trunks):
     """Twin hand/object trunks (reference networks/model.py:191-350)."""
 
     def __init__(self, latent_size: int, point_feat_size: int, encode_style: str,
-                 specs: NetworkSpecs):
+                 specs: NetworkSpecs, use_classifier: bool = False):
         super().__init__()
         _check_supported(specs)
         self.specs = specs
         self.latent_size = latent_size
         self.encode_style = encode_style
         in_hand, in_obj = separate_input_widths(latent_size, point_feat_size, encode_style)
-        self._add_trunk("linh", in_hand, 1)
+        self.classifier_head = None
+        self._add_trunk("linh", in_hand, 1, use_classifier)
         self._add_trunk("lino", in_obj, 1)
 
     def forward(self, inputs: torch.Tensor):
         xh, xo = separate_decoder_inputs(self.latent_size, self.encode_style, inputs)
-        return self._run_trunk("linh", xh), self._run_trunk("lino", xo)
+        sdf_hand, logits = self._run_trunk("linh", xh, self.classifier_head is not None)
+        return sdf_hand, self._run_trunk("lino", xo)[0], logits
 
 
 def make_decoder(model_type: str, latent_size: int, point_feat_size: int,
                  encode_style: str, specs: NetworkSpecs, use_classifier: bool = False):
-    """Factory matching reference train.py:333-369 (no classifier head yet)."""
-    if use_classifier:
-        raise NotImplementedError("the classifier head is not ported yet")
+    """Factory matching reference train.py:333-369."""
     if model_type == "1encoder1decoder":
-        return CombinedDecoder(latent_size, point_feat_size, specs)
-    return SeparateDecoder(latent_size, point_feat_size, encode_style, specs)
+        return CombinedDecoder(latent_size, point_feat_size, specs, use_classifier)
+    return SeparateDecoder(latent_size, point_feat_size, encode_style, specs, use_classifier)
 
 
 def trunk_prefixes(decoder: nn.Module) -> Tuple[str, Optional[str]]:

@@ -4,8 +4,9 @@ weights, then hand the folded trunks to kernel K1.
 
 Counterpart of the JAX package's ``ops/decoder_kernel.py``:
 ``_materialize_linear`` :50, ``build_grid_branch_plan`` :291,
-``branch_columns`` :1391, the 4-point affine probe :727-738 and
-``make_fused_grid_decode_fn`` :693.
+``branch_columns`` :1391, the 4-point affine probe :727-738,
+``make_fused_grid_decode_fn`` :693 and, for the classifier, ``_classifier_pad``
+:1426 with :749-765.
 """
 
 from __future__ import annotations
@@ -108,10 +109,22 @@ def build_grid_branch_plan(
     return FoldedTrunk(hidden, last.w, last.x, last.b, rows)
 
 
+def with_classifier(trunk: FoldedTrunk, head: torch.nn.Module) -> FoldedTrunk:
+    """The trunk with the classifier's logits cw a + cb appended as final
+    rows 2.. on the same input a (the last hidden activation), their bias
+    in ``fin_b``; they read no xyz term."""
+    cw, cb = (t.to(torch.float32) for t in materialize_linear(head))
+    c = cw.shape[0]
+    fin_x = (None if trunk.fin_x is None
+             else torch.cat([trunk.fin_x, trunk.fin_x.new_zeros(3, c)], dim=1))
+    return FoldedTrunk(trunk.hidden, torch.cat([trunk.fin, cw.T], dim=1), fin_x,
+                       torch.cat([trunk.fin_b, cb]), [*trunk.rows, *range(2, 2 + c)])
+
+
 def make_grid_decode_fn(specs: Specs, n: int) -> Optional[Callable]:
-    """prepare(ctx) -> decode(base, m, origin, voxel) -> (2, m) fields, or
-    None when the config cannot use the fused path (NeRF positional
-    encoding is not affine in xyz).
+    """prepare(ctx) -> decode(base, m, origin, voxel) -> (2 + C, m) fields
+    and logits (C = 0 without a classifier), or None when the config cannot
+    use the fused path (NeRF positional encoding is not affine in xyz).
 
     ``ctx`` holds the decoder module, the (1, L) latent and, for kinematic
     styles, rot_center / global_trans / obj_trans.  ``prepare`` folds and
@@ -142,6 +155,8 @@ def make_grid_decode_fn(specs: Specs, n: int) -> Optional[Callable]:
                 trunks = [trunk(first, cols_h, 2, [0, 1])]
             else:
                 trunks = [trunk(first, cols_h, 1, [0]), trunk(second, cols_o, 1, [1])]
+            if decoder.classifier_head is not None:
+                trunks[0] = with_classifier(trunks[0], decoder.classifier_head)
             plan = pack_grid_plan(trunks, n)
 
         def decode(base: int, m: int, origin: torch.Tensor, voxel: torch.Tensor):

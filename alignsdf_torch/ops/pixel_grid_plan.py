@@ -78,7 +78,7 @@ def make_pixel_grid_decode_fn(specs: Specs, n: int,
     """prepare(ctx) -> decode(base, m, origin, voxel) -> (2, m) fields for a
     pixel-aligned config, or None when it cannot use the fused path (not
     pixel-aligned, an embedding not affine in xyz, a latent input at the
-    final layer).
+    final layer).  Raises for a classifier spec: K3 has no class rows.
 
     ``ctx`` holds the decoder module, the (1, C, Hf, Wf) feature map as
     ``latent``, ``cam_intr`` (1, 3, 3+), ``pred_root`` (1, 1, 3) and, for
@@ -95,6 +95,9 @@ def make_pixel_grid_decode_fn(specs: Specs, n: int,
     if (not specs.pixel_align or not fused_embedding(specs)
             or n_layers - 1 in ns.latent_in):
         return None
+    if specs.classifier_branch:
+        raise NotImplementedError("a pixel-aligned spec with a classifier: kernel K3 has no "
+                                  "class rows yet")
     combined = specs.model_type == "1encoder1decoder"
     cols_h, cols_o = branch_columns(specs)
     image_size = specs.image_size[0]

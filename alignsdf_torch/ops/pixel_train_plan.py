@@ -97,9 +97,10 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
                              ) -> Optional[Callable]:
     """decode(decoder, fmap (B, C, Hf, Wf), emb (M, pfs), xyz (M, 3), cam_intr
     (B, 3, 3+), pred_root (B, 1, 3), seed, train) -> (sdf_h (M,), sdf_o
-    (M,)) through K4, or None for a structure K4 does not take: the JAX
-    factory's refusals less the TPU's block-size rule, a latent input at the
-    final layer, and the classifier (its ``x_last`` output is not ported).
+    (M,), None) through K4, or None for a structure K4 does not take: the
+    JAX factory's refusals less the TPU's block-size rule, and a latent
+    input at the final layer.  Raises for a classifier spec: K4 has no
+    ``x_last`` output yet.
     Both trunks draw their dropout from ``seed``, the object trunk hashing
     layer + n_layers.  ``kernel`` may name K4's plain version instead, to
     compare the two on the card.  ``decode.pixel`` is True: the train step
@@ -107,9 +108,11 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
     ns = specs.network_specs
     n_layers = len(ns.dims) + 1
     if (not specs.pixel_align or not ns.weight_norm or ns.use_tanh or ns.latent_dropout
-            or ns.xyz_in_all or 0 in ns.latent_in or n_layers - 1 in ns.latent_in
-            or specs.classifier_branch):
+            or ns.xyz_in_all or 0 in ns.latent_in or n_layers - 1 in ns.latent_in):
         return None
+    if specs.classifier_branch:
+        raise NotImplementedError("a pixel-aligned spec with a classifier: kernel K4 has no "
+                                  "x_last output for the classifier head yet")
     x0 = tuple(layer == 0 or layer in ns.latent_in for layer in range(n_layers))
     statics = PixelTrainStatics(
         n_per_scene=specs.samples_per_scene,
@@ -123,13 +126,13 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
 
     def decode(decoder, fmap: torch.Tensor, emb: torch.Tensor, xyz: torch.Tensor,
                cam_intr: torch.Tensor, pred_root: torch.Tensor, seed: int,
-               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor, None]:
         _, c, hf, wf = fmap.shape
         table, mean, xp, yp, mask = pixel_train_inputs(fmap, xyz, cam_intr, pred_root, specs)
         st = statics._replace(feat_hw=(hf, wf), train=bool(train))
         y = kernel(table, mean, xp, yp, mask, emb.to(torch.float32).contiguous(),
                    pixel_trunks(decoder, specs, c), seed, st)
-        return y[0], y[1]
+        return y[0], y[1], None
 
     decode.pixel = True
     decode.statics = statics

@@ -11,6 +11,10 @@ PyTorch outside K2's autograd Function, so autograd carries the gradients of
     b0[s] = b_0 + latent[s] @ W_0[:ls]            (B, h) scene table
     b2[s] = b_2 + latent[s] @ W_2[cur:cur+ls]     for a latent_in layer
 
+With a classifier, K2 also gives the hand (or combined) trunk's x_last, and
+the logits x_last @ cw^T + cb are one torch.matmul outside the kernel, as
+the JAX package's ``classifier_apply`` (:854-859) is XLA outside its kernel.
+
 The port keeps per-scene tables as (B, h); the TPU's (B*8, h) row-0-of-8
 layout answered Mosaic's tiling.
 """
@@ -63,14 +67,14 @@ def trunk_operands(decoder: torch.nn.Module, prefix: str, n_cols: int, latent: t
 
 def make_train_decoder(specs: Specs, kernel: Callable = train_decode) -> Optional[Callable]:
     """decode(decoder, latent (B, ls), emb (M, pfs), seed, train) -> (sdf_h
-    (M,), sdf_o (M,)) through K2, or None for a structure K2 does not take
-    (the same refusals as ``make_fused_train_decoder_factored``, less the
-    TPU's block-size rule).  The hand trunk draws its dropout from ``seed``,
+    (M,), sdf_o (M,), logits (M, C) or None) through K2, or None for a
+    structure K2 does not take (the same refusals as
+    ``make_fused_train_decoder_factored``, less the TPU's block-size rule).  The hand trunk draws its dropout from ``seed``,
     the object trunk from ``seed + 1``.  ``kernel`` may name K2's plain
     version instead, to compare the two on the card."""
     ns = specs.network_specs
     if (not ns.weight_norm or ns.use_tanh or ns.latent_dropout or ns.xyz_in_all
-            or specs.pixel_align or specs.classifier_branch or 0 in ns.latent_in
+            or specs.pixel_align or 0 in ns.latent_in
             or len(ns.dims) + 1 in ns.latent_in):
         return None
     n_layers = len(ns.dims) + 1
@@ -86,21 +90,27 @@ def make_train_decoder(specs: Specs, kernel: Callable = train_decode) -> Optiona
     cols_h, cols_o = branch_columns(specs)
     combined = specs.model_type == "1encoder1decoder"
 
-    def run(decoder, prefix, cols, out_dim, latent, emb, seed, train) -> torch.Tensor:
+    def run(decoder, prefix, cols, out_dim, latent, emb, seed, train):
         ws, xs, bs = trunk_operands(decoder, prefix, len(cols), latent, specs, out_dim)
         idx = torch.as_tensor(cols, dtype=torch.long, device=emb.device)
         return kernel(emb.index_select(1, idx), ws, xs, bs, seed,
                       statics._replace(train=bool(train)))
 
+    def classify(decoder, x_last: torch.Tensor) -> Optional[torch.Tensor]:
+        if decoder.classifier_head is None:
+            return None
+        cw, cb = materialize_linear(decoder.classifier_head)
+        return torch.matmul(x_last, cw.T) + cb
+
     def decode(decoder, latent: torch.Tensor, emb: torch.Tensor, seed: int,
-               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         first, second = trunk_prefixes(decoder)
         if combined:
-            y = run(decoder, first, cols_h, 2, latent, emb, seed, train)
-            return y[0], y[1]
-        y_h = run(decoder, first, cols_h, 1, latent, emb, seed, train)
-        y_o = run(decoder, second, cols_o, 1, latent, emb, seed + 1, train)
-        return y_h[0], y_o[0]
+            y, x_last = run(decoder, first, cols_h, 2, latent, emb, seed, train)
+            return y[0], y[1], classify(decoder, x_last)
+        y_h, x_last = run(decoder, first, cols_h, 1, latent, emb, seed, train)
+        y_o, _ = run(decoder, second, cols_o, 1, latent, emb, seed + 1, train)
+        return y_h[0], y_o[0], classify(decoder, x_last)
 
     decode.statics = statics
     return decode

@@ -106,15 +106,16 @@ def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable
             fmap, emb, mano_results, obj_results = model.decoder_inputs_pixel(
                 batch["image"], batch["xyz"], cond, train=True)
             mark("inputs")
-            sdf_hand, sdf_obj = decode(model.decoder, fmap, emb, batch["xyz"], batch["cam_intr"],
-                                       mano_results["joints"][:, 0:1], seed, train=True)
+            sdf_hand, sdf_obj, logits = decode(model.decoder, fmap, emb, batch["xyz"],
+                                               batch["cam_intr"], mano_results["joints"][:, 0:1],
+                                               seed, train=True)
         else:
             latent, emb, mano_results, obj_results = model.decoder_inputs_factored(
                 batch["image"], batch["xyz"], cond, train=True)
             mark("inputs")
-            sdf_hand, sdf_obj = decode(model.decoder, latent, emb, seed, train=True)
+            sdf_hand, sdf_obj, logits = decode(model.decoder, latent, emb, seed, train=True)
         mark("decoder")
-        losses = compute_losses(specs, (sdf_hand, sdf_obj, None, mano_results, obj_results),
+        losses = compute_losses(specs, (sdf_hand, sdf_obj, logits, mano_results, obj_results),
                                 loss_batch, active)
         mark("loss")
         optimizer.zero_grad(set_to_none=True)
@@ -160,7 +161,7 @@ def init_prediction_means(model, specs: Specs, batch_size: int = 2,
                                                               cond, train=False)
             n = emb.shape[0] // latent.shape[0]
             rows = torch.cat([latent.repeat_interleave(n, dim=0), emb], dim=1)
-        h, o = model.decoder(rows)
+        h, o, _ = model.decoder(rows)
     return float(h.mean()), float(o.mean())
 
 

@@ -60,7 +60,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      1e-2 of their largest entry, 2 profiled steps);
      K4 forward and backward per step against the plain versions and the
      bounds, with F.grid_sample's forward and backward at the step's points
-     as yardsticks of the sampling alone.
+     as yardsticks of the sampling alone;
+ 11. classifier: the labelled DexYCB full model (experiments/dexycb_140k.json
+     with --mano --obj_pose --encode both --point_size 9 --cls) at full
+     width, seeded weights with the final biases shifted as in 5 and the
+     classifier head scaled x40 and centred so that the labels vary: K1 with
+     2 + C rows against its plain version over one 128^3 pass at C = 6, 8
+     (the TPU's points-major K1p route) and 126 (1e-4 abs on every row, the
+     same argmax wherever the top two logits differ by more than 1e-5);
+     run_pipelined over 3 images at cube_dim 128 with label_out and viz (K1's
+     launch count, a label npz with one label in [0, 6) per hand-mesh vertex
+     and a color PLY per hand mesh); image 0's fields and logits against
+     decode_points at 4096 grid points; K2 with x_last / dx_last against its
+     plain version at 4 x 2000 and 64 x 2000; 7 train steps with the
+     cross-entropy on (AdditionalLossStart 1), one step two ways and 2
+     profiled steps; K1's time per pass at C = 6 and K2's with x_last.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -139,18 +153,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def flagship_specs(pixel: bool = False):
+def flagship_specs(pixel: bool = False, experiment: str = "obman_30k.json",
+                   classifier: bool = False):
     """The flagship "Full AlignSDF" (experiments/obman_30k.json with --mano
-    --obj_pose --encode both --point_size 9), with --pa_feat if ``pixel``."""
+    --obj_pose --encode both --point_size 9), with --pa_feat if ``pixel``;
+    with ``experiment`` "dexycb_140k.json" and ``classifier`` (--cls), the
+    labelled DexYCB full model."""
     from alignsdf_torch.config import apply_overrides, load_specs
 
     class Flags:
         mano = obj_pose = True
         encode, point_size = "both", 9
-        pa_feat = pixel
+        pa_feat, cls = pixel, classifier
 
-    return apply_overrides(load_specs(os.path.join(REPO, "experiments", "obman_30k.json")),
-                           Flags())
+    return apply_overrides(load_specs(os.path.join(REPO, "experiments", experiment)), Flags())
 
 
 def synthetic_samples(gen, count: int):
@@ -188,15 +204,20 @@ def scene_ctx(model, specs, sample, dev):
 
 def k1_flops_per_point(specs) -> int:
     """FLOPs of K1 for one point at the model's true (unpadded) widths: 2 per
-    multiply-add of every matmul and of every folded xyz term, both trunks."""
+    multiply-add of every matmul and of every folded xyz term, both trunks,
+    and the classifier's rows on the hand trunk's last hidden activation."""
     from alignsdf_torch.models.decoder import separate_input_widths, trunk_layer_dims
 
     ns = specs.network_specs
+    classes = ns.num_class if specs.classifier_branch else 0
     total = 0
-    for in_dim in separate_input_widths(specs.latent_size, specs.point_feat_size,
-                                        specs.encode_style):
+    for t, in_dim in enumerate(separate_input_widths(specs.latent_size, specs.point_feat_size,
+                                                     specs.encode_style)):
         cur = 0
-        for layer, (_, out) in enumerate(trunk_layer_dims(in_dim, ns, 1)):
+        dims = trunk_layer_dims(in_dim, ns, 1)
+        for layer, (_, out) in enumerate(dims):
+            if t == 0 and layer == len(dims) - 1:
+                total += 2 * cur * classes
             total += 2 * cur * out
             if layer == 0 or layer in ns.latent_in:
                 total += 2 * 3 * out
@@ -260,9 +281,11 @@ def k2_operands(model, specs, latent, emb):
     return out
 
 
-def k2_check(model, specs, dev, gen, scenes: int):
+def k2_check(model, specs, dev, gen, scenes: int, x_last: bool = False):
     """K2 forward and backward on both trunks against their plain versions
-    on the same card, at scenes x 2000 points."""
+    on the same card, at scenes x 2000 points.  With ``x_last``, the hand
+    trunk's x_last is held against the plain version's too and its backward
+    takes a nonzero random dx_last."""
     import torch
 
     from alignsdf_torch.kernels.train_decoder import (
@@ -278,23 +301,29 @@ def k2_check(model, specs, dev, gen, scenes: int):
     saved = train_decode.launches, train_decode_backward.launches
     res = {"y_max_abs_err": 0.0, "grad_max_rel_err": 0.0, "grad_max_abs_err": 0.0,
            "kept_share": {}, "residual_sign_mismatch": 0.0}
-    for prefix, seed, e, ws, xs, bs in k2_operands(model, specs, latent, emb):
+    for i, (prefix, seed, e, ws, xs, bs) in enumerate(k2_operands(model, specs, latent, emb)):
         leaves = [t.detach().clone().requires_grad_() for t in [e, *flatten_params(ws, xs, bs)]]
-        y = train_decode(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
+        y, xl = train_decode(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
         dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
-        grads = torch.autograd.grad(y, leaves, dy)
+        dxl = torch.randn(tuple(xl.shape), generator=gen).to(dev) if x_last and i == 0 else None
+        if dxl is None:
+            grads = torch.autograd.grad(y, leaves, dy)
+        else:
+            grads = torch.autograd.grad((y, xl), leaves, (dy, dxl))
         torch.cuda.synchronize()
         with torch.no_grad():
             acts_ref = []
-            y_ref = train_decode_reference(e, ws, xs, bs, seed, st, acts=acts_ref)
+            y_ref, xl_ref = train_decode_reference(e, ws, xs, bs, seed, st, acts=acts_ref)
             res["y_max_abs_err"] = max(res["y_max_abs_err"], float((y - y_ref).abs().max()))
+            if dxl is not None:
+                res["x_last_max_abs_err"] = float((xl - xl_ref).abs().max())
             # the backward's plain version on the kernel's own residuals (the
             # forward is deterministic): autograd through the plain forward
             # would differ wherever rounding flips a unit at ReLU's edge
             y_k, acts = train_decode_forward(pack_trunk(e, ws, xs, bs, st), seed, st)
             acts_k = [a[:r.shape[1]].T for a, r in zip(acts, acts_ref)]
             demb, dws, dxs, dbs = train_decode_backward_reference(e, ws, xs, bs, st, y_k,
-                                                                  acts_k, dy)
+                                                                  acts_k, dy, dxl)
             for g, r in zip(grads, [demb, *flatten_params(dws, dxs, dbs)]):
                 err = float((g - r).abs().max())
                 res["grad_max_abs_err"] = max(res["grad_max_abs_err"], err)
@@ -419,6 +448,9 @@ def train_phase(specs, dev, card, kern: TrainKernel):
         totals.append(vals["total"])
     print("total loss by step on the fixed batch: " + ", ".join(f"{t:.5f}" for t in totals),
           flush=True)
+    if "cls" in losses[0]:
+        rec["cls"] = [float(lo["cls"]) for lo in losses]
+        print("cls loss by step: " + ", ".join(f"{c:.6f}" for c in rec["cls"]), flush=True)
     if not totals[-1] < totals[0]:
         fail(f"the total loss did not fall on the fixed batch: {totals[0]} -> {totals[-1]}")
     still = [k for k, p in model.named_parameters() if torch.equal(p.detach(), before[k])]
@@ -526,9 +558,10 @@ def train_phase(specs, dev, card, kern: TrainKernel):
     return state, rec
 
 
-def k2_timing(model, specs, dev, gen, card):
+def k2_timing(model, specs, dev, gen, card, x_last: bool = False):
     """K2 forward and backward per step (both trunks at TRAIN_SCENES x 2000)
-    against their plain versions and bounds."""
+    against their plain versions and bounds; with ``x_last``, the hand
+    trunk's backward takes a random dx_last, whose read the bytes count."""
     import torch
 
     from alignsdf_torch.kernels.train_decoder import (
@@ -547,14 +580,17 @@ def k2_timing(model, specs, dev, gen, card):
     saved = train_decode.launches, train_decode_backward.launches
     outs = [train_decode_forward(p, t[1], st) for p, t in zip(packs, trunks)]
     dys = [torch.randn(tuple(y.shape), generator=gen).to(dev) for y, _ in outs]
+    dxls = [torch.randn((m, t[5][-2].shape[-1]), generator=gen).to(dev) if x_last and i == 0
+            else None for i, t in enumerate(trunks)]
+    bwd_bytes += sum(4 * d.numel() for d in dxls if d is not None)
 
     def fwd_kernel():
         for p, t in zip(packs, trunks):
             train_decode_forward(p, t[1], st)
 
     def bwd_kernel():
-        for p, (y, acts), dy in zip(packs, outs, dys):
-            train_decode_backward(p, st, y, acts, dy)
+        for p, (y, acts), dy, dxl in zip(packs, outs, dys, dxls):
+            train_decode_backward(p, st, y, acts, dy, dxl)
 
     def fwd_plain():
         with torch.no_grad():
@@ -567,8 +603,9 @@ def k2_timing(model, specs, dev, gen, card):
 
     def bwd_plain():
         with torch.no_grad():
-            for (_, _, e, ws, xs, bs), (y, _), acts, dy in zip(trunks, outs, unpadded, dys):
-                train_decode_backward_reference(e, ws, xs, bs, st, y, acts, dy)
+            for (_, _, e, ws, xs, bs), (y, _), acts, dy, dxl in zip(trunks, outs, unpadded, dys,
+                                                                    dxls):
+                train_decode_backward_reference(e, ws, xs, bs, st, y, acts, dy, dxl)
 
     res = {}
     for name, kern, plain, flops, nbytes in (("fwd", fwd_kernel, fwd_plain, fwd_flops, fwd_bytes),
@@ -582,7 +619,8 @@ def k2_timing(model, specs, dev, gen, card):
                      "bound_ms": max(ops_ms, mem_ms),
                      "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
                      "tflop": flops / 1e12, "gbytes": nbytes / 1e9, "tflops": flops / best / 1e9}
-        print(f"[{card}] K2 {name} per step (2 trunks x {m} points, {flops / 1e12:.3f} TFLOP, "
+        print(f"[{card}] K2{' with x_last' if x_last else ''} {name} per step (2 trunks x {m} "
+              f"points, {flops / 1e12:.3f} TFLOP, "
               f"{nbytes / 1e9:.3f} GB): kernel {k_ms:.2f} / {k_ms2:.2f} ms "
               f"({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, bound "
               f"{res[name]['bound_ms']:.2f} ms ({res[name]['bound_by']})", flush=True)
@@ -746,7 +784,7 @@ def pixel_phase(dev, card: str, gen, mano_faces):
             lat = pixel_alignment(ctx["latent"], emb[:, :3] if ref_mode else pts,
                                   ctx["cam_intr"], ctx["pred_root"], specs.image_size[0],
                                   specs.sdf_scale_factor)
-            gh, go = model.decoder(torch.cat([lat, emb], dim=1))
+            gh, go, _ = model.decoder(torch.cat([lat, emb], dim=1))
         err = max(float((gh[:, 0] - fh).abs().max()), float((go[:, 0] - fo).abs().max()))
         mode = "reference projection" if ref_mode else "raw-xyz projection"
         print(f"image 0 K3 field vs generic path at 4096 grid points, {mode}: max abs err "
@@ -1095,6 +1133,236 @@ def pixel_train_phase(dev, card: str, gen):
     return rec, entries
 
 
+def classifier_phase(dev, card: str, gen, mano_faces):
+    """The labelled DexYCB full model (--cls) at full width through K1 with
+    2 + C rows and K2 with x_last: K1 against its plain version at C = 6, 8
+    and 126, the main path (run_pipelined over N_IMAGES images with
+    label_out and viz), image 0's fields and logits against decode_points,
+    K2 against its plain version with dx_last, the train step with the
+    cross-entropy on, and the timing of both.  Returns (record, the main
+    paths' numbers for the K1 and K2 entries of the kernels line)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from alignsdf_torch.inference.grid import _coords_from_linear, embed_points
+    from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
+    from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.models.decoder import make_decoder
+    from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
+
+    specs = flagship_specs(experiment="dexycb_140k.json", classifier=True)
+    num_class = specs.network_specs.num_class
+    model = build_model(specs, device=dev, seed=SEED)
+    samples = synthetic_samples(gen, N_IMAGES)
+    n, chunk = CUBE_DIM, 1 << 20  # the fused evaluator's runs are 2^20 points
+    total = n ** 3
+    origin0 = torch.full((3,), -1.0, device=dev)
+    voxel0 = torch.tensor(2.0 / (n - 1), device=dev)
+    rec, info = {}, {}
+
+    def one_pass(fn, plan, origin, voxel):
+        return torch.cat([fn(plan, s, min(chunk, total - s), origin, voxel)
+                          for s in range(0, total, chunk)], dim=1)
+
+    # seeded weights: shift the final biases so ~5% of the first pass is
+    # inside, and scale the classifier head x40 and centre its logits over
+    # that pass, so that the labels vary
+    with torch.no_grad():
+        model.decoder.classifier_head.weight *= 40
+        first = grid_decode_reference(
+            make_grid_decode_fn(specs, 64)(scene_ctx(model, specs, samples[0], dev)).plan, 0,
+            64 ** 3, origin0, torch.tensor(2.0 / 63, device=dev))
+        for row, name in ((0, "linh4"), (1, "lino4")):
+            q = torch.quantile(first[row], 0.05).clamp(-0.999, 0.999)
+            getattr(model.decoder, name).bias -= torch.atanh(q)
+        model.decoder.classifier_head.bias -= first[2:].mean(dim=1)
+    del first
+
+    phase(f"classifier: K1 with 2 + C rows vs plain (the first {n}^3 pass of image 0, full "
+          "--cls width, C = 6, 8, 126, TF32 off)")
+    ctx = scene_ctx(model, specs, samples[0], dev)
+    saved = grid_decode.launches
+    rec["k1_check"] = {}
+    for c in (num_class, 8, 126):
+        cctx = ctx
+        if c != num_class:  # a seeded decoder with C classes on the same scene
+            cspecs = dataclasses.replace(specs, network_specs=dataclasses.replace(
+                specs.network_specs, num_class=c))
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(SEED + c)
+                dec = make_decoder(cspecs.model_type, cspecs.latent_size,
+                                   cspecs.point_feat_size, cspecs.encode_style,
+                                   cspecs.network_specs, use_classifier=True).to(dev)
+            with torch.no_grad():
+                dec.classifier_head.weight *= 40
+            cctx = dict(ctx, decoder=dec)
+        else:
+            cspecs = specs
+        plan = make_grid_decode_fn(cspecs, n)(cctx).plan
+        err = {"sdf": 0.0, "logits": 0.0}
+        clear = mismatch = 0
+        for s in range(0, total, chunk):
+            m = min(chunk, total - s)
+            k = grid_decode(plan, s, m, origin0, voxel0)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                r = grid_decode_reference(plan, s, m, origin0, voxel0)
+            err["sdf"] = max(err["sdf"], float((k[:2] - r[:2]).abs().max()))
+            err["logits"] = max(err["logits"], float((k[2:] - r[2:]).abs().max()))
+            top2 = r[2:].topk(2, dim=0).values
+            sel = (top2[0] - top2[1]) > 1e-5
+            clear += int(sel.sum())
+            mismatch += int(((k[2:].argmax(0) != r[2:].argmax(0)) & sel).sum())
+        labels = int(torch.unique(k[2:].argmax(0)).numel())
+        print(f"C = {c}: {2 + c} rows; K1 max abs err vs plain: SDF rows {err['sdf']:.3e}, logits "
+              f"{err['logits']:.3e} (tolerance {K1_TOL:g}); argmax mismatches {mismatch} of "
+              f"{clear} points whose top two logits differ by > 1e-5 ({total} in all); "
+              f"{labels} distinct labels in the last run", flush=True)
+        if not (max(err.values()) <= K1_TOL and mismatch == 0 and clear > total // 2):
+            fail(f"K1 with {2 + c} rows disagrees with its plain version")
+        rec["k1_check"][c] = {**err, "argmax_mismatch": mismatch, "clear_points": clear}
+    grid_decode.launches = saved
+    info["k1_max_abs_err"] = max(max(v["sdf"], v["logits"]) for v in rec["k1_check"].values())
+    del k, r, plan
+
+    phase(f"classifier main path: run_pipelined with label_out and viz, {N_IMAGES} images at "
+          f"cube_dim {n}")
+    recon = Reconstructor(model, specs, cube_dim=n, mano_faces=mano_faces)
+    expected = N_IMAGES * 2 * (-(-total // chunk))
+    results = []
+    with tempfile.TemporaryDirectory() as out:
+        dirs = make_output_dirs(out)
+        grid_decode.launches = 0
+        t0 = time.perf_counter()
+        done = run_pipelined(recon, samples, dirs, label_out=True, viz=True,
+                             on_done=lambda i, p: results.append((i, p)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = grid_decode.launches
+        written = sorted(os.listdir(dirs["meshes"]))
+        labelled = []
+        for i, pending in results:
+            hand, key = pending["meshes"]["hand"], pending["sample"]["key"]
+            if hand is None:
+                continue
+            with np.load(os.path.join(dirs["meshes"], f"{key}_hand_label.npz")) as f:
+                lab = f["labels"]
+            colored = os.path.isfile(os.path.join(dirs["meshes"], f"{key}_hand_color.ply"))
+            if not (lab.shape == (len(hand.vertices),) and colored and lab.min() >= 0
+                    and lab.max() < num_class and np.all(lab == np.round(lab))):
+                fail(f"image {i}: labels {lab.shape} for {len(hand.vertices)} vertices, range "
+                     f"[{lab.min()}, {lab.max()}], color PLY written {colored}")
+            labelled.append({"image": i, "vertices": len(hand.vertices),
+                             "labels": np.bincount(lab.astype(np.int64),
+                                                   minlength=num_class).tolist()})
+    print(f"images {done}, wall {wall * 1e3:.1f} ms, K1 launches {launches} (expected "
+          f"{expected}), meshes written {written}; per-vertex labels (counts by part) "
+          f"{labelled}", flush=True)
+    if done != N_IMAGES or launches != expected:
+        fail(f"K1 launches {launches} != expected {expected} over {done} images")
+    if not labelled:
+        fail("no image got a hand mesh, so no label was written")
+    rec["main_path"] = {"wall_ms": wall * 1e3, "launches": launches, "meshes": written,
+                        "labels": labelled, "images": []}
+    info["k1_launches"] = launches
+    for i, pending in results:
+        host = pending["host"]
+        for name in ("sdf_hand", "sdf_obj"):
+            field = host[name]
+            if tuple(field.shape) != (n,) * 3 or not bool(torch.isfinite(field).all()):
+                fail(f"classifier image {i}: {name} has shape {tuple(field.shape)} or "
+                     "non-finite values")
+        t = pending["timings"]
+        print(f"classifier image {i} [{card}]: encode {t['encode_ms']:.2f} ms, grid "
+              f"{t['grid_ms']:.2f} ms (2 passes), marching cubes + labels + export "
+              f"{t['mc_ms']:.2f} ms", flush=True)
+        rec["main_path"]["images"].append(t)
+
+    # image 0's refined pass against decode_points (the plain decoder on
+    # materialized rows) at 4096 grid points: the main path's fields, and
+    # the logits of K1 run again over that pass
+    host0 = results[0][1]["host"]
+    ctx = scene_ctx(model, specs, samples[0], dev)
+    origin_r, voxel_r = host0["origin"].to(dev), host0["voxel"].to(dev)
+    idx = torch.randint(0, total, (4096,), generator=gen).to(dev)
+    pts = _coords_from_linear(idx, n, origin_r, voxel_r)
+    with torch.no_grad():
+        gh, go, gl = model.decode_points(torch.cat(
+            [ctx["latent"].expand(4096, -1), embed_points(specs, ctx, pts)], dim=1))
+    saved = grid_decode.launches
+    rows = one_pass(grid_decode, make_grid_decode_fn(specs, n)(ctx).plan, origin_r, voxel_r)
+    grid_decode.launches = saved
+    idx_cpu = idx.cpu()
+    field_err = max(float((gh[:, 0].cpu() - host0["sdf_hand"].reshape(-1)[idx_cpu]).abs().max()),
+                    float((go[:, 0].cpu() - host0["sdf_obj"].reshape(-1)[idx_cpu]).abs().max()))
+    logit_err = float((rows[2:, idx].T - gl).abs().max())
+    print(f"image 0 vs decode_points at 4096 grid points: fields max abs err {field_err:.3e}, "
+          f"logits {logit_err:.3e} (tolerance {K1_TOL:g})", flush=True)
+    if not (field_err <= K1_TOL and logit_err <= K1_TOL):
+        fail(f"the classifier main path disagrees with decode_points: {field_err}, {logit_err}")
+    rec["vs_decode_points"] = {"field_max_abs_err": field_err, "logits_max_abs_err": logit_err}
+    del recon, rows
+
+    rec["k2_check"] = {}
+    for scenes in CHECK_SCENES:
+        phase(f"classifier: K2 with x_last vs plain ({scenes} x {specs.samples_per_scene} points, "
+              "both trunks, full --cls width, nonzero dy and dx_last, TF32 off)")
+        k2 = k2_check(model, specs, dev, gen, scenes, x_last=True)
+        print(f"K2 y max abs err {k2['y_max_abs_err']:.3e}, x_last {k2['x_last_max_abs_err']:.3e} "
+              f"(tolerance {K2_TOL:g}); gradients max err {k2['grad_max_abs_err']:.3e} abs, "
+              f"{k2['grad_max_rel_err']:.3e} of the largest (tolerance {K2_TOL:g}); kept share "
+              f"{k2['kept_share']}; residual sign mismatch {k2['residual_sign_mismatch']:.2e}",
+              flush=True)
+        if not (k2["y_max_abs_err"] <= K2_TOL and k2["x_last_max_abs_err"] <= K2_TOL
+                and k2["grad_max_rel_err"] <= K2_TOL):
+            fail(f"K2 with x_last disagrees with its plain version at {scenes} scenes")
+        if not k2["residual_sign_mismatch"] <= 1e-4:
+            fail("K2's residuals are not gated as the plain version's")
+        rec["k2_check"][scenes] = k2
+    info["k2_check"] = rec["k2_check"][TRAIN_SCENES]
+
+    # AdditionalLossStart 1: in epoch 1 the cross-entropy is on, so dx_last
+    # carries its gradient into K2's backward
+    train_specs = dataclasses.replace(specs, additional_loss_start=1)
+    phase(f"classifier training: {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps at "
+          f"{TRAIN_SCENES} x {specs.samples_per_scene} points with the cross-entropy on, one step "
+          f"two ways, {PROFILED_STEPS} profiled steps")
+    state, rec["train"] = train_phase(train_specs, dev, card, k2_kernel())
+    cls_losses = rec["train"].get("cls", [])
+    if len(cls_losses) != WARM_STEPS + TIMED_STEPS or not all(
+            np.isfinite(c) and c > 0 for c in cls_losses):
+        fail(f"the cls loss must be finite and nonzero at every step: {cls_losses}")
+    info["k2_launches"] = rec["train"]["launches"]
+
+    phase(f"classifier timing: K1 per {n}^3 pass at C = {num_class}; K2 with x_last forward and "
+          f"backward per step ({TRAIN_SCENES} x {specs.samples_per_scene} points, both trunks)")
+    plan = make_grid_decode_fn(specs, n)(ctx).plan
+    saved = grid_decode.launches
+    k1_runs = [cuda_ms(lambda: one_pass(grid_decode, plan, origin0, voxel0), 1) for _ in range(3)]
+    grid_decode.launches = saved
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: one_pass(grid_decode_reference, plan, origin0, voxel0), 1)
+    flops = k1_flops_per_point(specs) * total
+    nbytes = 4 * ((2 + num_class) * total + plan.flat.numel())
+    ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    k1_ms = min(k1_runs)
+    rec["k1_timing"] = {"k1_ms": k1_ms, "k1_runs_ms": k1_runs, "plain_ms": plain_ms,
+                        "bound_ms": max(ops_ms, mem_ms),
+                        "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                        "tflop": flops / 1e12, "k1_tflops": flops / k1_ms / 1e9}
+    print(f"[{card}] {n}^3 pass at C = {num_class} ({2 + num_class} rows, {flops / 1e12:.3f} "
+          f"TFLOP): K1 " + " / ".join(f"{t:.2f}" for t in k1_runs) + f" ms (best "
+          f"{flops / k1_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, bound "
+          f"{rec['k1_timing']['bound_ms']:.2f} ms ({rec['k1_timing']['bound_by']})", flush=True)
+    rec["k2_timing"] = k2_timing(state.model, specs, dev, gen, card, x_last=True)
+    info["k1_timing"], info["k2_timing"] = rec["k1_timing"], rec["k2_timing"]
+    del state
+    return rec, info
+
+
 def main(record_path: Optional[str] = None) -> None:
     phase("device")
     try:
@@ -1238,7 +1506,7 @@ def main(record_path: Optional[str] = None) -> None:
                               specs.encode_style, rot_center=ctx["rot_center"],
                               global_trans=ctx["global_trans"], obj_trans=ctx["obj_trans"])
     with torch.no_grad():
-        gh, go = model.decoder(torch.cat([ctx["latent"].expand(4096, -1), emb], dim=1))
+        gh, go, _ = model.decoder(torch.cat([ctx["latent"].expand(4096, -1), emb], dim=1))
     idx_cpu = idx.cpu()
     field_err = max(float((gh[:, 0].cpu() - h0["sdf_hand"].reshape(-1)[idx_cpu]).abs().max()),
                     float((go[:, 0].cpu() - h0["sdf_obj"].reshape(-1)[idx_cpu]).abs().max()))
@@ -1322,41 +1590,55 @@ def main(record_path: Optional[str] = None) -> None:
 
     record["pixel"], k3_entry = pixel_phase(dev, card, gen, mano_faces)
     record["pixel_train"], k4_entries = pixel_train_phase(dev, card, gen)
+    record["classifier"], cls = classifier_phase(dev, card, gen, mano_faces)
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
         with open(record_path, "w") as f:
             json.dump(record, f, indent=1, default=str)
 
+    # K1 and K2 ran on two main paths each (the flagship and the classifier);
+    # launches sum both, the times are the flagship's, the classifier's beside
     t = timing[CUBE_DIM]
+    ct = cls["k1_timing"]
     kernels = {"kernels": [{
-        "name": "K1 fused grid decoder",
+        "name": "K1 fused grid decoder, 2 + C rows (covers K1p)",
         "route": "cuda",
         "source": "alignsdf_torch/kernels/csrc/grid_decoder.cu",
         "replaces": "alignsdf_tpu/ops/decoder_kernel.py:496",
-        "launches": launches,
-        "max_abs_err": max_err,
+        "covers": "alignsdf_tpu/ops/decoder_kernel.py:381 (K1p, points-major, > 6 classes)",
+        "launches": launches + cls["k1_launches"],
+        "launches_by_path": {"flagship": launches, "classifier": cls["k1_launches"]},
+        "max_abs_err": max(max_err, cls["k1_max_abs_err"]),
         "ms": t["k1_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": "operations",
         "library_ms": None,
+        "classifier_c6": {"ms": ct["k1_ms"], "plain_ms": ct["plain_ms"],
+                          "bound_ms": ct["bound_ms"], "bound_by": ct["bound_by"]},
     }]}
-    for name, line, err in (("fwd", 472, k2["y_max_abs_err"]),
-                            ("bwd", 652, k2["grad_max_abs_err"])):
-        t2 = record["k2_timing"][name]
+    ck2 = cls["k2_check"]
+    for name, line, err, cerr in (
+            ("fwd", 472, k2["y_max_abs_err"], max(ck2["y_max_abs_err"], ck2["x_last_max_abs_err"])),
+            ("bwd", 652, k2["grad_max_abs_err"], ck2["grad_max_abs_err"])):
+        t2, c2 = record["k2_timing"][name], cls["k2_timing"][name]
         kernels["kernels"].append({
             "name": f"K2 scene-factored train decoder, {'forward' if name == 'fwd' else 'backward'}",
             "route": "cuda",
             "source": "alignsdf_torch/kernels/csrc/train_decoder.cu",
             "replaces": f"alignsdf_tpu/ops/decoder_train_kernel.py:{line}",
-            "launches": k2_launches[name],
-            "max_abs_err": err,
+            "launches": k2_launches[name] + cls["k2_launches"][name],
+            "launches_by_path": {"flagship": k2_launches[name],
+                                 "classifier": cls["k2_launches"][name]},
+            "max_abs_err": max(err, cerr),
             "ms": t2["ms"],
             "plain_ms": t2["plain_ms"],
             "bound_ms": t2["bound_ms"],
             "bound_by": t2["bound_by"],
             "library_ms": None,
+            "classifier_x_last": {"ms": c2["ms"], "plain_ms": c2["plain_ms"],
+                                  "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"]},
         })
     kernels["kernels"].append(k3_entry)
     kernels["kernels"] += k4_entries

@@ -1,4 +1,5 @@
-"""Kernels K1, K2, K3 and K4 on the card against their plain versions.  Needs a CUDA GPU and
+"""Kernels K1, K2, K3 and K4 on the card against their plain versions (K1
+with the classifier's rows, K2 with x_last / dx_last).  Needs a CUDA GPU and
 skips without one; it imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -86,6 +87,94 @@ def test_cuda_kernel_matches_plain(dims, n, base, cut):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("num_class,model_type", [(6, "1encoder2decoder"), (8, "1encoder2decoder"),
+                                                  (126, "1encoder2decoder"),
+                                                  (6, "1encoder1decoder")])
+def test_cuda_kernel_class_rows_match_plain(num_class, model_type):
+    """K1 with 2 + C rows at the flagship width on a 24^3 grid: the SDF rows
+    to 1e-5 and the logits (no tanh, so larger) to 1e-4 against the plain
+    version, and the same argmax wherever the top two logits differ by more
+    than 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(4)
+    n = 24
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9, latent_size=256,
+                  mano_branch=True, object_pose_branch=True, sdf_scale_factor=6.2,
+                  classifier_branch=True, network_specs=NetworkSpecs(num_class=num_class))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        decoder = make_decoder(model_type, 256, 9, "both", specs.network_specs,
+                               use_classifier=True).cuda()
+    ctx = {"decoder": decoder, "latent": torch.randn(1, 256, generator=gen).cuda(),
+           "rot_center": (torch.randn(1, 1, 3, generator=gen) * 0.05).cuda(),
+           "global_trans": _rigid(gen, 16).cuda(), "obj_trans": _rigid(gen, 1)[:, 0].cuda()}
+    plan = make_grid_decode_fn(specs, n)(ctx).plan
+    origin = torch.full((3,), -1.0, device="cuda")
+    voxel = torch.tensor(2.0 / (n - 1), device="cuda")
+    before = grid_decode.launches
+    out = grid_decode(plan, 3, n ** 3 - 5, origin, voxel)
+    torch.cuda.synchronize()
+    assert grid_decode.launches == before + 1
+    ref = grid_decode_reference(plan, 3, n ** 3 - 5, origin, voxel)
+    assert out.shape == ref.shape == (2 + num_class, n ** 3 - 5)
+    assert float((out[:2] - ref[:2]).abs().max()) <= 1e-5
+    assert float((out[2:] - ref[2:]).abs().max()) <= 1e-4
+    top2 = ref[2:].topk(2, dim=0).values
+    clear = (top2[0] - top2[1]) > 1e-5
+    assert bool((out[2:].argmax(0) == ref[2:].argmax(0))[clear].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["1encoder2decoder", "1encoder1decoder"])
+def test_cuda_train_kernel_x_last_matches_plain(model_type):
+    """K2 with x_last out and dx_last in, at the flagship width on 4 x 2000
+    points: y and x_last to 1e-5 abs against the plain forward, every
+    gradient (nonzero random dy and dx_last) to 1e-4 of its largest entry
+    against the plain backward fed the kernel's own residuals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    scenes, n = 4, 2000
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9, latent_size=256,
+                  samples_per_scene=n, classifier_branch=True, network_specs=NetworkSpecs())
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        decoder = make_decoder(model_type, 256, 9, "both", specs.network_specs,
+                               use_classifier=True).cuda()
+    latent = torch.randn(scenes, 256, generator=gen).cuda()
+    emb = (torch.randn(scenes * n, 9, generator=gen) * 0.5).cuda()
+    st = make_train_decoder(specs).statics
+    first, second = trunk_prefixes(decoder)
+    cols = branch_columns(specs)[0]
+    with torch.no_grad():
+        ws, xs, bs = trunk_operands(decoder, first, len(cols), latent, specs, 1 if second else 2)
+    e = emb[:, list(cols)].contiguous()
+    leaves = [t.detach().clone().requires_grad_() for t in [e, *flatten_params(ws, xs, bs)]]
+    fwd, bwd = train_decode.launches, train_decode_backward.launches
+    y, x_last = train_decode(leaves[0], *unflatten_params(st, leaves[1:]), 5, st)
+    dy = torch.randn(y.shape, generator=gen).cuda()
+    dx_last = torch.randn(x_last.shape, generator=gen).cuda()
+    grads = torch.autograd.grad((y, x_last), leaves, (dy, dx_last))
+    torch.cuda.synchronize()
+    assert (train_decode.launches, train_decode_backward.launches) == (fwd + 1, bwd + 1)
+    with torch.no_grad():
+        y_ref, x_ref = train_decode_reference(e, ws, xs, bs, 5, st)
+        assert x_last.shape == x_ref.shape == (scenes * n, 512)
+        assert float((y - y_ref).abs().max()) <= 1e-5
+        assert float((x_last - x_ref).abs().max()) <= 1e-5
+        y_k, acts = train_decode_forward(pack_trunk(e, ws, xs, bs, st), 5, st)
+        acts = [a[:b.shape[-1]].T for a, b in zip(acts, bs)]
+        demb, dws, dxs, dbs = train_decode_backward_reference(e, ws, xs, bs, st, y_k, acts, dy,
+                                                              dx_last)
+    for g, r in zip(grads, [demb, *flatten_params(dws, dxs, dbs)]):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= 1e-4 * (float(r.abs().max()) + 1e-12)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dims,scenes,n,train,model_type",
                          [((64,) * 4, 3, 128, True, "1encoder2decoder"),
                           ((512,) * 4, 4, 2000, True, "1encoder2decoder"),
@@ -123,13 +212,13 @@ def test_cuda_train_kernel_matches_plain(dims, scenes, n, train, model_type):
         e = emb[:, list(cols)].contiguous()
         leaves = [t.detach().clone().requires_grad_() for t in [e, *flatten_params(ws, xs, bs)]]
         fwd, bwd = train_decode.launches, train_decode_backward.launches
-        y = train_decode(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
+        y, _ = train_decode(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
         dy = torch.randn(y.shape, generator=gen).cuda()
         grads = torch.autograd.grad(y, leaves, dy)
         torch.cuda.synchronize()
         assert (train_decode.launches, train_decode_backward.launches) == (fwd + 1, bwd + 1)
         with torch.no_grad():
-            y_ref = train_decode_reference(e, ws, xs, bs, seed, st)
+            y_ref, _ = train_decode_reference(e, ws, xs, bs, seed, st)
             assert y.shape == y_ref.shape == (out_dim, scenes * n)
             assert float((y - y_ref).abs().max()) <= 1e-5
             y_k, acts = train_decode_forward(pack_trunk(e, ws, xs, bs, st), seed, st)

@@ -66,7 +66,7 @@ def test_generic_decoder_matches_jax(model_type, style, pfs):
     pdec = make_decoder(model_type, ls, pfs, style, NetworkSpecs(**ns))
     pdec.load_state_dict(decoder_from_jax(jax.tree_util.tree_map(np.asarray, params)))
     with torch.no_grad():
-        p_h, p_o = pdec(torch.from_numpy(rows))
+        p_h, p_o, _ = pdec(torch.from_numpy(rows))
     np.testing.assert_allclose(p_h.numpy(), np.asarray(j_h), atol=1e-5, rtol=0)
     np.testing.assert_allclose(p_o.numpy(), np.asarray(j_o), atol=1e-5, rtol=0)
 

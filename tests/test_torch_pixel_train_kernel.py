@@ -8,7 +8,8 @@ autograd; for the twin trunks and the one combined trunk.
 
 Shapes follow ``tests/test_decoder_train_pixel.py``: an 8 x 8 map of 32
 channels, 2 scenes x 96 points, block 48 so that each scene spans two of the
-TPU kernel's grid blocks.  The classifier is not ported, so it is off.
+TPU kernel's grid blocks.  K4 has no x_last output yet, so the classifier
+is off (and refused).
 """
 
 import copy
@@ -157,7 +158,7 @@ def test_forward_matches_jax(pair, train):
                       jnp.asarray(cam), jnp.asarray(root), jnp.int32(7), train=train)
     before = pixel_train_decode.launches
     with torch.no_grad():
-        h2, o2 = decode(pdec, *_port(data), 7, train)
+        h2, o2, _ = decode(pdec, *_port(data), 7, train)
     assert pixel_train_decode.launches == before  # a CPU tensor takes the plain version
     np.testing.assert_allclose(h2.numpy(), np.asarray(h1), atol=2e-6, rtol=0)
     np.testing.assert_allclose(o2.numpy(), np.asarray(o1), atol=2e-6, rtol=0)
@@ -187,7 +188,7 @@ def test_grads_match_jax(pair, train):
     fmap_t, emb_t, xyz_t, cam_t, root_t = _port(data)
     leaves = [t.requires_grad_() for t in (fmap_t, emb_t, root_t)]
     pdec.zero_grad()
-    h, o = decode(pdec, fmap_t, emb_t, xyz_t, cam_t, root_t, 11, train)
+    h, o, _ = decode(pdec, fmap_t, emb_t, xyz_t, cam_t, root_t, 11, train)
     (torch.sum(torch.sin(h)) + torch.sum(o ** 2)).backward()
 
     def close(port, ref):
@@ -264,16 +265,20 @@ def test_object_trunk_gates_match_jax(seed):
 
 def test_statics_and_refusals():
     """K4's plan follows the flagship structure and declines what the kernel
-    does not take; no backward launch happened on the CPU."""
+    does not take; a classifier spec raises, naming K4's missing x_last; no
+    backward launch happened on the CPU."""
     specs = Specs(network_specs=NetworkSpecs(), **dict(SPEC, samples_per_scene=2000))
     st = make_pixel_train_decoder(specs).statics
     assert st.has_x == (True, False, True, False, False)
     assert st.has_w == (False, True, True, True, True) and st.dropout == (True,) * 4
     assert abs(st.keep - 0.8) < 1e-12 and st.n_per_scene == 2000
-    for kw in (dict(pixel_align=False), dict(classifier_branch=True),
+    for kw in (dict(pixel_align=False),
                dict(network_specs=NetworkSpecs(latent_in=(0,))),
                dict(network_specs=NetworkSpecs(latent_in=(4,))),
                dict(network_specs=NetworkSpecs(weight_norm=False))):
         assert make_pixel_train_decoder(Specs(**{**dict(SPEC, network_specs=NetworkSpecs()),
                                                  **kw})) is None
+    with pytest.raises(NotImplementedError, match="K4 has no x_last"):
+        make_pixel_train_decoder(Specs(**dict(SPEC, network_specs=NetworkSpecs(),
+                                              classifier_branch=True)))
     assert pixel_train_decode_backward.launches == 0

@@ -265,8 +265,7 @@ def test_cli_needs_cuda_unless_cpu_is_named(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--no_aug"], ["--bg_aug"], ["--epoch", "5"],
-                                  ["--add_epoch", "2"], ["--lr_interval", "3"],
-                                  ["--lr_factor", "0.1"]])
+                                  ["--lr_interval", "3"], ["--lr_factor", "0.1"]])
 def test_cli_refuses_flags_it_does_not_run(tmp_path, flag, capsys):
     """Flags that act only through the dataset reader or later epochs stop
     the CLI before it trains, instead of only renaming the experiment."""
@@ -275,6 +274,21 @@ def test_cli_refuses_flags_it_does_not_run(tmp_path, flag, capsys):
         train_cli.main(["-e", spec, "--smoke", "--device", "cpu", *flag])
     assert exc.value.code == 2
     assert flag[0] in capsys.readouterr().err
+
+
+def test_cli_add_epoch_turns_on_the_classifier_loss(tmp_path, capsys):
+    """--add_epoch changes what the step computes: with --cls and
+    AdditionalLossStart 1 the cross-entropy applies from the first step, and
+    the smoke run reports a finite, nonzero cls term."""
+    spec = _tiny_spec_file(str(tmp_path))
+    train_cli.main(["-e", spec, "--smoke", "--device", "cpu", "--cls", "--add_epoch", "1"])
+    log = capsys.readouterr().err  # the CLI logs to stderr
+    terms = [dict(kv.split("=") for kv in line.split(": ", 1)[1].split())
+             for line in log.splitlines() if "smoke terms" in line]
+    assert len(terms) == 2, log
+    for t in terms:
+        cls = float(t["cls"])
+        assert np.isfinite(cls) and cls > 0, t
 
 
 @pytest.mark.parametrize("freeze", ["none", "bn"])

@@ -140,7 +140,7 @@ def test_forward_matches_factored_pallas(pair, train):
     h1, o1, _ = fac(params, jnp.asarray(latent), jnp.asarray(emb), jnp.int32(7), train=train)
     before = train_decode.launches
     with torch.no_grad():
-        h2, o2 = decode(pdec, torch.from_numpy(latent), torch.from_numpy(emb), 7, train)
+        h2, o2, _ = decode(pdec, torch.from_numpy(latent), torch.from_numpy(emb), 7, train)
     assert train_decode.launches == before  # a CPU tensor takes the plain version
     np.testing.assert_allclose(h2.numpy(), np.asarray(h1), atol=2e-6, rtol=0)
     np.testing.assert_allclose(o2.numpy(), np.asarray(o1), atol=2e-6, rtol=0)
@@ -166,7 +166,7 @@ def test_grads_match_factored_pallas(pair, train):
     lat_t = torch.from_numpy(latent).requires_grad_()
     emb_t = torch.from_numpy(emb).requires_grad_()
     pdec.zero_grad()
-    h, o = decode(pdec, lat_t, emb_t, 11, train)
+    h, o, _ = decode(pdec, lat_t, emb_t, 11, train)
     _loss_port(h, o).backward()
 
     def close(port, ref):
@@ -205,7 +205,7 @@ def test_plain_backward_matches_autograd(pair, train):
     leaves = [t.detach().clone().requires_grad_()
               for t in [torch.from_numpy(emb)[:, cols], *flatten_params(ws, xs, bs)]]
     acts = []
-    y = train_decode_reference(leaves[0], *unflatten_params(st, leaves[1:]), 3, st, acts=acts)
+    y, _ = train_decode_reference(leaves[0], *unflatten_params(st, leaves[1:]), 3, st, acts=acts)
     dy = torch.from_numpy(np.random.RandomState(4).randn(*y.shape).astype(np.float32))
     auto = torch.autograd.grad(y, leaves, dy)
     with torch.no_grad():
