@@ -24,3 +24,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def use_float32_precision() -> None:
+    """Run float32 as float32: TF32 off for matmuls and for cuDNN
+    convolutions, the mode the port's parity tests hold its kernels to.  The
+    CLIs and ``chip_smoke.py`` call this before they build anything, so
+    every time they report is a time of that one mode (PyTorch's default
+    would run the encoder's convolutions in TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

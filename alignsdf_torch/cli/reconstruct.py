@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from alignsdf_torch import resolve_device
+from alignsdf_torch import resolve_device, use_float32_precision
 from alignsdf_torch.config import specs_from_dict
 from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
 from alignsdf_torch.models.alignsdf import build_model
@@ -92,6 +92,7 @@ def main(argv=None):
     logging.basicConfig(force=True, level=logging.INFO,
                         format="AlignSDF-torch - %(levelname)s - %(message)s")
     device = resolve_device(args.device)
+    use_float32_precision()
     with open(os.path.join(args.experiment_dir, "specs.json")) as f:
         specs = specs_from_dict(json.load(f))
 

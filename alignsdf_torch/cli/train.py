@@ -30,7 +30,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from alignsdf_torch import config as cfg
-from alignsdf_torch import resolve_device
+from alignsdf_torch import resolve_device, use_float32_precision
 from alignsdf_torch.data.synthetic import synthetic_train_batch
 from alignsdf_torch.training import checkpoints as ckpt
 from alignsdf_torch.training.train_state import TrainState
@@ -89,6 +89,7 @@ def main(argv: Optional[list] = None) -> None:
     logging.basicConfig(force=True, level=logging.INFO,
                         format="AlignSDF-torch - %(levelname)s - %(message)s")
     device = resolve_device(args.device)
+    use_float32_precision()
     specs = cfg.apply_overrides(cfg.load_specs(args.cfg), args)
     seed = specs.random_seed or 0
     state, step = make_trainer(specs, device, seed,

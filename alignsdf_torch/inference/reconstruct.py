@@ -31,6 +31,7 @@ from alignsdf_torch.config import Specs
 from alignsdf_torch.geom.marching_cubes import marching_cubes
 from alignsdf_torch.geom.meshlib import TriMesh, largest_component, read_obj, write_ply
 from alignsdf_torch.inference.grid import embed_points, make_grid_evaluator
+from alignsdf_torch.ops.geometry import pixel_alignment
 from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
 from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
 
@@ -75,15 +76,12 @@ class Reconstructor:
                  device: Optional[Union[str, torch.device]] = None,
                  mano_faces: Optional[np.ndarray] = None,
                  pixel_ref_projection: bool = False):
-        if specs.pixel_align and specs.classifier_branch:
-            raise NotImplementedError(
-                "a pixel-aligned spec with a classifier: kernel K3 has no class rows and the "
-                "pixel-aligned label query is not ported yet")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.specs = specs
         self.cube_dim = cube_dim
         self.mano_faces = mano_faces
+        self.pixel_ref_projection = pixel_ref_projection
         grid_decode_fn = None
         if fused_grid_allowed(specs):
             grid_decode_fn = (make_pixel_grid_decode_fn(specs, cube_dim, pixel_ref_projection)
@@ -223,11 +221,20 @@ class Reconstructor:
     def _query_labels(self, ctx: Dict[str, Any], verts: np.ndarray) -> np.ndarray:
         """The argmax of the classifier's logits at (V, 3) mesh vertices: the
         vertices embedded as the grid embeds its points, the scene's latent
-        broadcast, the plain decoder (``decode_points``), as the JAX
-        package's ``_query_labels`` decodes in XLA."""
+        broadcast or, for a pixel-aligned config, the feature map sampled at
+        each vertex's projection (the raw vertex, or the embedding's first
+        three columns under ``pixel_ref_projection``), then the plain decoder
+        (``decode_points``), as the JAX package's ``_query_labels`` decodes
+        in XLA."""
+        specs = self.specs
         pts = torch.as_tensor(np.asarray(verts, np.float32), device=ctx["latent"].device)
-        emb = embed_points(self.specs, ctx, pts)
-        latent = ctx["latent"].expand(pts.shape[0], ctx["latent"].shape[1])
+        emb = embed_points(specs, ctx, pts)
+        if ctx["latent"].ndim == 4:
+            proj = emb[:, :3] if self.pixel_ref_projection else pts
+            latent = pixel_alignment(ctx["latent"], proj, ctx["cam_intr"], ctx["pred_root"],
+                                     specs.image_size[0], specs.sdf_scale_factor)
+        else:
+            latent = ctx["latent"].expand(pts.shape[0], ctx["latent"].shape[1])
         _, _, logits = self.model.decode_points(torch.cat([latent, emb], dim=1))
         return logits.argmax(dim=1).cpu().numpy()
 

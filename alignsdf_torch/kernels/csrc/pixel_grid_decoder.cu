@@ -11,8 +11,12 @@
 // (xi (Wf-1)/size, yi (Hf-1)/size), any other point the map's mean; then run
 // the trunks (ReLU hidden layers; the embedding is folded on the host into
 // biases plus 3-row xyz weights, while the latent stays an input of layer 0
-// and of the latent_in layers) and write tanh of the final rows: out is
-// (2, M) float32, row 0 = hand SDF, row 1 = object SDF.
+// and of the latent_in layers) and write the final rows: out is (n_rows, M)
+// float32, row 0 = tanh of the hand SDF, row 1 = tanh of the object SDF, rows
+// 2 .. n_rows - 1 = the classifier's logits cw a_h + cb without tanh (a_h =
+// the first trunk's last hidden activation; decoder_kernel.py:1145-1148).
+// n_rows is a field of the plan, 2 to 128, as in K1: the TPU kernel stops at
+// 6 classes (:1304-1307), this one takes up to 126.
 //
 // Sampling: the TPU kernel contracts a dense (Hf*Wf x block) Keys weight tile
 // on the MXU (and bands it, _band_plan), because gathers are slow there.
@@ -52,11 +56,12 @@
 
 #define MAX_TRUNKS 2
 #define MAX_HIDDEN 8
-#define N_ROWS 2  // output rows: hand, object
+#define SDF_ROWS 2    // rows 0-1 take tanh
+#define MAX_ROWS 128  // 2 SDF rows + 126 classes
 
 struct Layer { int w, x, lat, b, in_pad, out_pad; };  // offsets into prm; -1 = none
 struct Trunk { int n_hidden, fin, fin_xyz, last_pad; Layer layers[MAX_HIDDEN]; };
-struct Plan { int n_trunks, fin_b, max_pad, c, lat_pad, hf, wf; Trunk trunks[MAX_TRUNKS]; };
+struct Plan { int n_trunks, fin_b, max_pad, c, lat_pad, hf, wf, n_rows; Trunk trunks[MAX_TRUNKS]; };
 
 // a*x + b*y + c*z, one rounding per operation, left to right.
 __device__ __forceinline__ float dot3(float a, float x, float b, float y, float c, float z) {
@@ -73,8 +78,8 @@ pixel_grid_decoder_kernel(const float* __restrict__ prm, const Plan plan,
   float* lat = act1 + plan.max_pad * TILE_P;   // [lat_pad][TILE_P]
   float* ws = lat + plan.lat_pad * TILE_P;     // weight tile; also the final-row scratch
   float* xyz = ws + BK * OCHUNK;               // [3][TILE_P]
-  float* oacc = xyz + 3 * TILE_P;              // [N_ROWS][TILE_P]
-  float* tap_w = oacc + N_ROWS * TILE_P;       // [TILE_P][8]: 4 row, then 4 column weights
+  float* oacc = xyz + 3 * TILE_P;              // [n_rows][TILE_P]
+  float* tap_w = oacc + plan.n_rows * TILE_P;  // [TILE_P][8]: 4 row, then 4 column weights
   int* tap_rc = reinterpret_cast<int*>(tap_w + 8 * TILE_P);  // [TILE_P][8]: rows*wf, columns; -1 = off
   int* inside = tap_rc + 8 * TILE_P;           // [TILE_P]
 
@@ -121,7 +126,7 @@ pixel_grid_decoder_kernel(const float* __restrict__ prm, const Plan plan,
       }
     }
   }
-  if (tid < N_ROWS * TILE_P) oacc[tid] = 0.f;
+  for (int i = tid; i < plan.n_rows * TILE_P; i += NTHREADS) oacc[i] = 0.f;
   __syncthreads();
 
   // gather: lat[ch][p] = sum of the 16 weighted taps, or the mean row
@@ -168,21 +173,24 @@ pixel_grid_decoder_kernel(const float* __restrict__ prm, const Plan plan,
                    ws, xyz, tid);
       float* tmp = cur; cur = nxt; nxt = tmp;
     }
-    final_rows(prm, T.fin, T.fin_xyz, T.last_pad, N_ROWS, cur, ws, oacc, xyz, tid);
+    // only the first trunk carries class rows (the plan packs them there)
+    final_rows(prm, T.fin, T.fin_xyz, T.last_pad, t == 0 ? plan.n_rows : SDF_ROWS, cur, ws, oacc,
+               xyz, tid);
   }
 
-  if (tid < N_ROWS * TILE_P) {
-    const int r = tid / TILE_P, p = tid % TILE_P;
-    if (first + p < m) out[(size_t)r * m + first + p] = tanhf(oacc[tid] + prm[plan.fin_b + r]);
+  for (int i = tid; i < plan.n_rows * TILE_P; i += NTHREADS) {
+    const int r = i / TILE_P, p = i % TILE_P;
+    const float v = oacc[i] + prm[plan.fin_b + r];
+    if (first + p < m) out[(size_t)r * m + first + p] = r < SDF_ROWS ? tanhf(v) : v;
   }
 }
 
-static size_t smem_bytes(int max_pad, int lat_pad) {
+static size_t smem_bytes(int max_pad, int lat_pad, int n_rows) {
   return sizeof(float) * ((size_t)(2 * max_pad + lat_pad) * TILE_P + BK * OCHUNK + 3 * TILE_P
-                          + N_ROWS * TILE_P + 17 * TILE_P);
+                          + (size_t)n_rows * TILE_P + 17 * TILE_P);
 }
 
-// desc: [n_trunks, fin_b, max_pad, c, lat_pad, hf, wf, then per trunk:
+// desc: [n_trunks, fin_b, max_pad, c, lat_pad, hf, wf, n_rows, then per trunk:
 // n_hidden, fin, fin_xyz, last_pad, then per hidden layer: w, x, lat, b,
 // in_pad, out_pad].  table: (hf*wf + 1, c), the map's pixels row-major with
 // channels contiguous, then its mean.  scal: origin (3), voxel, then the 28
@@ -202,6 +210,8 @@ extern "C" int pixel_grid_decoder_launch(const float* prm, const int* desc, int 
   TAKE(plan.lat_pad);
   TAKE(plan.hf);
   TAKE(plan.wf);
+  TAKE(plan.n_rows);
+  if (plan.n_rows < SDF_ROWS || plan.n_rows > MAX_ROWS) return -1;
   if (plan.n_trunks < 1 || plan.n_trunks > MAX_TRUNKS) return -1;
   if (plan.max_pad < OCHUNK || plan.max_pad % OCHUNK) return -1;
   if (plan.c < 1 || plan.lat_pad < plan.c || plan.lat_pad % BK) return -1;
@@ -228,7 +238,7 @@ extern "C" int pixel_grid_decoder_launch(const float* prm, const int* desc, int 
 #undef TAKE
   if (pos != desc_len || m <= 0 || n <= 0) return -1;
 
-  const size_t smem = smem_bytes(plan.max_pad, plan.lat_pad);
+  const size_t smem = smem_bytes(plan.max_pad, plan.lat_pad, plan.n_rows);
   cudaError_t err = cudaFuncSetAttribute(pixel_grid_decoder_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

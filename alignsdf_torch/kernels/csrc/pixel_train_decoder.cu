@@ -16,7 +16,12 @@
 // trunks draw from one seed; trunk t hashes layer + layer_off[t] (the object
 // trunk layer + n_layers, as the TPU kernel does).  The projection to
 // (xp, yp, mask) runs outside, in plain PyTorch, so that autograd carries
-// d(xp), d(yp) on to the predicted hand root.
+// d(xp), d(yp) on to the predicted hand root.  The first trunk's last hidden
+// gated activation is the classifier's x_last (_fused_pixel_fwd :431-434):
+// the forward already stores it as a residual, so the wrapper returns a view
+// of it, and the backward adds its gradient dx_last (M, h) to that trunk's
+// final-layer input gradient before the last hidden gate (_trunk_backward
+// :489-490), as K2 does.
 //
 // What bounds it: arithmetic.  At the flagship width (C = 256, 6 embedding
 // columns, hidden 512 -> 250 -> 512 -> 512 -> 1) a trunk costs 0.787 M
@@ -80,6 +85,8 @@ struct PPlan {
   float *lat, *y;                                    // latent residual (c_pad, M), y (rows, M)
   const float* dy;
   float *demb, *dtable, *dmean, *dxp, *dyp;
+  const float* dx_last;  // (M, xl_w), the first trunk's, or null
+  int xl_w;
   PTrunk trunks[MAX_TRUNKS];
 };
 
@@ -295,14 +302,33 @@ pixel_train_bwd_chain_kernel(const PPlan p, float scale) {
     }
     __syncthreads();
 
-    // its input's gradient, gated by the last hidden layer's recovered gate
+    // its input's gradient (plus dx_last on the first trunk), gated by the
+    // last hidden layer's recovered gate.  Without dx_last the product and
+    // the gate share one loop, as in K2, where splitting them cost 0.5 ms.
     const PLayer& H = T.layers[last - 1];
     const float hs = H.dropout ? scale : 1.f;
+    const float* dxl = t == 0 ? p.dx_last : nullptr;
+    if (dxl) {
+      for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
+        const int k = i / TILE_P, q = i % TILE_P;
+        float dx = 0.f;
+        for (int r = 0; r < T.n_out; ++r)
+          dx = fmaf(__ldg(F.w + (size_t)k * T.n_out + r), g[r * TILE_P + q], dx);
+        d0[i] = dx;
+      }
+      __syncthreads();
+      add_transposed(d0, dxl, p.xl_w, p.m, first, tid);
+      __syncthreads();
+    }
     for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
       const int k = i / TILE_P, q = i % TILE_P, row = first + q;
       float dx = 0.f;
-      for (int r = 0; r < T.n_out; ++r)
-        dx = fmaf(__ldg(F.w + (size_t)k * T.n_out + r), g[r * TILE_P + q], dx);
+      if (dxl) {
+        dx = d0[i];
+      } else {
+        for (int r = 0; r < T.n_out; ++r)
+          dx = fmaf(__ldg(F.w + (size_t)k * T.n_out + r), g[r * TILE_P + q], dx);
+      }
       float v = 0.f;
       if (row < p.m) {
         v = H.act[(size_t)k * p.m + row] > 0.f ? dx * hs : 0.f;
@@ -444,7 +470,7 @@ pixel_train_bwd_chain_kernel(const PPlan p, float scale) {
 // host side
 // ---------------------------------------------------------------------------
 
-#define HEAD 23
+#define HEAD 25
 #define PER_TRUNK 4
 #define PER_LAYER 15
 
@@ -455,8 +481,8 @@ static size_t smem_bytes(int max_pad, int c_pad) {
 }
 
 // desc (int64): [n_trunks, e, m, nps, n_scenes, c, c_pad, hf, wf, emb, table,
-// mean, xp, yp, mask, lat, y, dy, demb, dtable, dmean, dxp, dyp, then per
-// trunk: n_layers, n_out, row_off, layer_off, then per layer: w, wt, lat,
+// mean, xp, yp, mask, lat, y, dy, demb, dtable, dmean, dxp, dyp, dx_last,
+// xl_w, then per trunk: n_layers, n_out, row_off, layer_off, then per layer: w, wt, lat,
 // latt, x, b, act, dpre, dw, dlat, dx, db, in_pad, out_pad, dropout].
 // Pointers are device addresses, 0 = absent.
 static int parse(const long long* desc, int len, PPlan* p, bool backward) {
@@ -484,6 +510,8 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
   p->dmean = (float*)desc[20];
   p->dxp = (float*)desc[21];
   p->dyp = (float*)desc[22];
+  p->dx_last = (const float*)desc[23];
+  p->xl_w = (int)desc[24];
   if (p->n_trunks < 1 || p->n_trunks > MAX_TRUNKS || p->e < 1 || p->e > EMB_MAX) return -1;
   if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes)
     return -1;
@@ -530,6 +558,10 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
     }
   }
   if (pos != len) return -1;
+  if (p->dx_last) {
+    const PTrunk& T = p->trunks[0];
+    if (!backward || p->xl_w < 1 || p->xl_w > T.layers[T.n_layers - 1].in_pad) return -1;
+  }
   // the transposed latent gradient reuses the two activation buffers
   if (p->c_pad + 1 > 2 * p->max_pad) return -1;
   return 0;

@@ -1,6 +1,6 @@
 // The train decoders' shared pieces (kernels K2 and K4): the hash dropout
-// gate, the embedding's gradient over a tile and the backward's reductions
-// over the points.
+// gate, the embedding's gradient over a tile, dx_last's transposed add and
+// the backward's reductions over the points.
 //
 // gate_hash is bit for bit the TPU kernels' _dropout_gate: a murmur3-style
 // finalizer of (seed, layer, global row, lane) in uint32 arithmetic; a unit
@@ -40,6 +40,24 @@ __device__ __forceinline__ void demb_accumulate(const float* __restrict__ x, int
     float s = 0.f;
     for (int o = 0; o < out_pad; ++o) s = fmaf(__ldg(xr + o), d[o * TILE_P + q], s);
     dembs[i] += s;
+  }
+}
+
+// d[k][q] += src[first + q][k] over a tile's points (rows < m) and features
+// k < w, src row-major (M, w): the classifier's dx_last added to the final
+// layer's input gradient.  A lane is a point, each warp takes blocks of 32
+// features, skewed by the lane so that the 32 lanes write 32 banks; a lane's
+// 128-byte row segment stays in L1 across the 32 steps.
+__device__ __forceinline__ void add_transposed(float* d, const float* __restrict__ src, int w,
+                                               int m, int first, int tid) {
+  const int lane = tid & 31, row = first + lane;
+  if (row >= m) return;
+  const float* s = src + (size_t)row * w;
+  for (int k0 = (tid >> 5) * 32; k0 < w; k0 += NTHREADS) {
+    for (int j = 0; j < 32; ++j) {
+      const int k = k0 + ((lane + j) & 31);
+      if (k < w) d[k * TILE_P + lane] += __ldg(s + k);
+    }
   }
 }
 

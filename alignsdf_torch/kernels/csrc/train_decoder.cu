@@ -209,21 +209,8 @@ train_bwd_chain_kernel(const Plan p, float scale) {
       for (int r = 0; r < p.n_out; ++r) dx = fmaf(__ldg(F.w + (size_t)k * p.n_out + r), g[r * TILE_P + q], dx);
       d0[i] = dx;
     }
-    // d0[k][q] += dx_last[first + q][k], dx_last row-major (M, xl_w): a lane
-    // is a point, each warp takes blocks of 32 features, skewed by the lane
-    // so that the 32 lanes write 32 banks; a lane's 128-byte row segment
-    // stays in L1 across the 32 steps
     __syncthreads();
-    const int lane = tid & 31, row = first + lane;
-    if (row < p.m) {
-      const float* src = p.dx_last + (size_t)row * p.xl_w;
-      for (int k0 = (tid >> 5) * 32; k0 < p.xl_w; k0 += NTHREADS) {
-        for (int j = 0; j < 32; ++j) {
-          const int k = k0 + ((lane + j) & 31);
-          if (k < p.xl_w) d0[k * TILE_P + lane] += __ldg(src + k);
-        }
-      }
-    }
+    add_transposed(d0, p.dx_last, p.xl_w, p.m, first, tid);
     __syncthreads();
   }
   for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {

@@ -167,17 +167,24 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
     return flat, np.asarray(desc, np.int32)
 
 
-def pack_grid_plan(trunks: List[FoldedTrunk], n: int) -> GridPlan:
-    """Pad and pack folded trunks into a GridPlan on the trunks' device,
-    with as many output rows as the highest row a trunk writes needs.  Only
-    the first trunk may write the class rows (>= N_ROWS): the kernel runs
-    the others' final layers over the SDF rows alone."""
+def output_rows(trunks: Sequence) -> int:
+    """The output rows a grid kernel's plan needs: as many as the highest
+    row a trunk writes.  Only the first trunk may write the class rows (>=
+    N_ROWS): the kernels (K1, K3) run the others' final layers over the SDF
+    rows alone."""
     n_rows = max(N_ROWS, 1 + max(max(t.rows) for t in trunks))
     if n_rows > MAX_ROWS:
         raise ValueError(f"{n_rows} output rows: the kernel writes at most {MAX_ROWS} "
                          f"({MAX_ROWS - N_ROWS} classes)")
     if any(max(t.rows) >= N_ROWS for t in trunks[1:]):
         raise ValueError("only the first trunk may write class rows")
+    return n_rows
+
+
+def pack_grid_plan(trunks: List[FoldedTrunk], n: int) -> GridPlan:
+    """Pad and pack folded trunks into a GridPlan on the trunks' device,
+    with ``output_rows(trunks)`` output rows."""
+    n_rows = output_rows(trunks)
 
     def layer(place, h: HiddenLayer, in_pad: int, out_pad: int) -> List[int]:
         return [place((in_pad, out_pad), h.w) if h.w is not None else -1,

@@ -5,8 +5,11 @@ Replaces ``alignsdf_tpu/ops/decoder_kernel.py:make_fused_pixel_grid_kernel_t``.
 For a run of ``m`` contiguous linear grid indices from ``base`` (z fastest)
 it derives xyz, projects each point into the image, takes as its latent the
 bicubic sample of the feature map there (or the map's mean for a point
-outside the image), runs the trunks and returns a (2, m) float32 field, row
-0 hand, row 1 object.  The CUDA source is ``csrc/pixel_grid_decoder.cu``.
+outside the image), runs the trunks and returns an (n_rows, m) float32
+array: row 0 the hand SDF, row 1 the object SDF (both tanh'd), rows 2.. the
+classifier's logits, which the plan packs as extra final rows of the first
+trunk (``ops/pixel_grid_plan.py``), as K1's does.  The CUDA source is
+``csrc/pixel_grid_decoder.cu``.
 
 ``pixel_grid_decode`` takes the plain version only for a plan on the CPU;
 for a plan on the GPU it launches the kernel or raises.
@@ -29,6 +32,7 @@ from alignsdf_torch.kernels.grid_decoder import (
     GridPlan,
     _round_up,
     grid_coords,
+    output_rows,
     pack_trunks,
 )
 from alignsdf_torch.ops.geometry import bicubic_gather
@@ -36,7 +40,7 @@ from alignsdf_torch.ops.geometry import bicubic_gather
 LAT_ALIGN = 32  # the latent tile's rows pad to the kernel's k depth
 N_PROJ = 28     # projection scalars, laid out as in make_pixel_projection
 _TILE_P, _BK = 32, 32
-_HEAD = 7       # desc entries before the first trunk
+_HEAD = 8       # desc entries before the first trunk
 
 
 class PixelHiddenLayer(NamedTuple):
@@ -66,12 +70,13 @@ class PixelGridPlan(GridPlan):
     feature table and the projection scalars.
 
     ``desc`` is the int32 layout descriptor ``pixel_grid_decoder.cu`` reads:
-    [n_trunks, fin_b, max_pad, C, lat_pad, Hf, Wf, then per trunk n_hidden,
-    fin, fin_xyz, last_pad, then per hidden layer w, x, lat, b, in_pad,
-    out_pad] (offsets in floats, -1 = absent).  Hidden weights are (in_pad,
-    out_pad) with out contiguous, latent weights (lat_pad, out_pad), xyz
-    weights (3, out_pad), final rows (N_ROWS, last_pad).  ``table`` is the
-    (Hf * Wf + 1, C) map, channels contiguous, then its mean row.
+    [n_trunks, fin_b, max_pad, C, lat_pad, Hf, Wf, n_rows, then per trunk
+    n_hidden, fin, fin_xyz, last_pad, then per hidden layer w, x, lat, b,
+    in_pad, out_pad] (offsets in floats, -1 = absent).  Hidden weights are
+    (in_pad, out_pad) with out contiguous, latent weights (lat_pad,
+    out_pad), xyz weights (3, out_pad), final rows (n_rows, last_pad).
+    ``table`` is the (Hf * Wf + 1, C) map, channels contiguous, then its
+    mean row.
     """
 
     table: torch.Tensor
@@ -79,7 +84,7 @@ class PixelGridPlan(GridPlan):
 
     @property
     def n_rows(self) -> int:
-        return N_ROWS
+        return int(self.desc[7])
 
     @property
     def feat_hw(self) -> Tuple[int, int]:
@@ -89,7 +94,7 @@ class PixelGridPlan(GridPlan):
         """Yield (hidden [(w|None, lat|None, x|None, b)], fin, fin_xyz|None)
         views."""
         d = self.desc.tolist()
-        lat_pad = d[4]
+        lat_pad, n_rows = d[4], self.n_rows
         pos = _HEAD
         for _ in range(d[0]):
             n_hidden, fin, fin_xyz, last_pad = d[pos:pos + 4]
@@ -102,8 +107,8 @@ class PixelGridPlan(GridPlan):
                                self.view(lat, (lat_pad, out_pad)) if lat >= 0 else None,
                                self.view(x, (3, out_pad)) if x >= 0 else None,
                                self.view(b, (out_pad,))))
-            yield (hidden, self.view(fin, (N_ROWS, last_pad)),
-                   self.view(fin_xyz, (N_ROWS, 3)) if fin_xyz >= 0 else None)
+            yield (hidden, self.view(fin, (n_rows, last_pad)),
+                   self.view(fin_xyz, (n_rows, 3)) if fin_xyz >= 0 else None)
 
 
 def make_pixel_projection(a_proj: torch.Tensor, b_proj: torch.Tensor, cam: torch.Tensor,
@@ -131,7 +136,9 @@ def make_feature_table(fmap: torch.Tensor) -> torch.Tensor:
 
 def pack_pixel_grid_plan(trunks: List[PixelTrunk], table: torch.Tensor, proj: torch.Tensor,
                          feat_hw: Tuple[int, int], n: int) -> PixelGridPlan:
-    """Pad and pack trunks into a PixelGridPlan on the trunks' device."""
+    """Pad and pack trunks into a PixelGridPlan on the trunks' device, with
+    ``output_rows(trunks)`` output rows (the class rows on the first
+    trunk)."""
     hf, wf = feat_hw
     c = table.shape[1]
     if table.shape[0] != hf * wf + 1:
@@ -139,6 +146,7 @@ def pack_pixel_grid_plan(trunks: List[PixelTrunk], table: torch.Tensor, proj: to
     if proj.shape != (N_PROJ,):
         raise ValueError(f"the projection has {N_PROJ} scalars, got {tuple(proj.shape)}")
     lat_pad = _round_up(c, LAT_ALIGN)
+    n_rows = output_rows(trunks)
 
     def layer(place, h: PixelHiddenLayer, in_pad: int, out_pad: int) -> List[int]:
         return [place((in_pad, out_pad), h.w) if h.w is not None else -1,
@@ -146,7 +154,7 @@ def pack_pixel_grid_plan(trunks: List[PixelTrunk], table: torch.Tensor, proj: to
                 place((lat_pad, out_pad), h.lat) if h.lat is not None else -1,
                 place((out_pad,), h.b), in_pad, out_pad]
 
-    flat, desc = pack_trunks(trunks, layer, head=(c, lat_pad, hf, wf))
+    flat, desc = pack_trunks(trunks, layer, (c, lat_pad, hf, wf, n_rows), n_rows)
     device = flat.device
     return PixelGridPlan(flat, desc, n, table.to(device=device, dtype=torch.float32).contiguous(),
                          proj.to(device=device, dtype=torch.float32).contiguous())
@@ -178,7 +186,7 @@ def pixel_grid_decode_reference(plan: PixelGridPlan, base: int, m: int, origin: 
                                 voxel: torch.Tensor) -> torch.Tensor:
     """The plain version of K3: the same projection, the 16-tap bicubic
     gather of the table, and the trunks with torch.matmul.  Returns
-    (N_ROWS, m) float32."""
+    (n_rows, m) float32, tanh on the SDF rows."""
     xyz, xp, yp, inside = pixel_projection(plan, base, m, origin, voxel)
     hf, wf = plan.feat_hw
     c = plan.table.shape[1]
@@ -187,7 +195,7 @@ def pixel_grid_decode_reference(plan: PixelGridPlan, base: int, m: int, origin: 
     lat_pad = int(plan.desc[4])
     if lat_pad > c:
         latent = torch.nn.functional.pad(latent, (0, lat_pad - c))
-    acc = plan.fin_b[:, None].expand(N_ROWS, m).clone()
+    acc = plan.fin_b[:, None].expand(plan.n_rows, m).clone()
     for hidden, fin, fin_xyz in plan.trunks():
         a = None
         for w, lat, x, b in hidden:
@@ -202,7 +210,7 @@ def pixel_grid_decode_reference(plan: PixelGridPlan, base: int, m: int, origin: 
         acc = acc + fin @ a.T
         if fin_xyz is not None:
             acc = acc + fin_xyz @ xyz.T
-    return torch.tanh(acc)
+    return torch.cat([torch.tanh(acc[:N_ROWS]), acc[N_ROWS:]])
 
 
 def _launcher():
@@ -217,17 +225,18 @@ def _launcher():
     return fn
 
 
-def smem_bytes(max_pad: int, lat_pad: int) -> int:
+def smem_bytes(max_pad: int, lat_pad: int, n_rows: int) -> int:
     """Dynamic shared memory of one block: two activation buffers, the
     latent tile, the weight tile, xyz, the output rows and the per-point tap
     table (4 row offsets, 4 columns, 8 weights and a flag a point)."""
     return 4 * ((2 * max_pad + lat_pad) * _TILE_P + _BK * PAD + 3 * _TILE_P
-                + N_ROWS * _TILE_P + 17 * _TILE_P)
+                + n_rows * _TILE_P + 17 * _TILE_P)
 
 
 def pixel_grid_decode(plan: PixelGridPlan, base: int, m: int, origin: torch.Tensor,
                       voxel: torch.Tensor) -> torch.Tensor:
-    """K3: (N_ROWS, m) float32 SDFs of grid indices base..base+m."""
+    """K3: (n_rows, m) float32 SDFs (and logits) of grid indices
+    base..base+m."""
     if plan.device.type == "cpu":
         return pixel_grid_decode_reference(plan, base, m, origin, voxel)
     if plan.device.type != "cuda":
@@ -240,13 +249,13 @@ def pixel_grid_decode(plan: PixelGridPlan, base: int, m: int, origin: torch.Tens
     if m <= 0 or base < 0 or base + m > plan.n ** 3 or plan.n ** 3 >= 2 ** 31:
         raise ValueError(f"index run [{base}, {base + m}) outside the {plan.n}^3 grid")
     max_pad, lat_pad = int(plan.desc[2]), int(plan.desc[4])
-    if smem_bytes(max_pad, lat_pad) > MAX_SMEM:
-        raise ValueError(f"hidden width {max_pad} with a {lat_pad}-wide latent needs more "
-                         "shared memory than a block has")
+    if smem_bytes(max_pad, lat_pad, plan.n_rows) > MAX_SMEM:
+        raise ValueError(f"hidden width {max_pad} with a {lat_pad}-wide latent and "
+                         f"{plan.n_rows} output rows needs more shared memory than a block has")
     scal = torch.cat([torch.as_tensor(origin, dtype=torch.float32).reshape(3).to(plan.device),
                       torch.as_tensor(voxel, dtype=torch.float32).reshape(1).to(plan.device),
                       plan.proj]).contiguous()
-    out = torch.empty((N_ROWS, m), dtype=torch.float32, device=plan.device)
+    out = torch.empty((plan.n_rows, m), dtype=torch.float32, device=plan.device)
     desc = np.ascontiguousarray(plan.desc, np.int32)
     with torch.cuda.device(plan.device):
         stream = torch.cuda.current_stream(plan.device).cuda_stream

@@ -13,7 +13,12 @@ mean row where ``mask`` is 0; trunk ``t`` then computes, layer by layer,
 
 with ReLU and the hash dropout gate (``train_decoder.dropout_gate``, layer
 ``l + layer_offsets[t]``) on hidden layers and tanh on the last.  The
-outputs of the trunks stack as the rows of y.
+outputs of the trunks stack as the rows of y.  The forward also gives
+``x_last``, the first trunk's last hidden gated activation (the final
+layer's input, which the classifier head reads; JAX ``_fused_pixel_fwd``
+:431-434), and the backward takes its gradient ``dx_last``, added to that
+trunk's final-layer input gradient before the last hidden gate
+(``_trunk_backward`` :489-490), as K2 does.
 
 ``pixel_train_decode`` takes the plain version for a CPU tensor, on which
 autograd gives the gradients.  For a CUDA tensor it runs
@@ -85,17 +90,19 @@ def pixel_train_decode_reference(table: torch.Tensor, mean: torch.Tensor, xp: to
                                  yp: torch.Tensor, mask: torch.Tensor, emb: torch.Tensor,
                                  trunks: Sequence[Trunk], seed: int, st: PixelTrainStatics,
                                  acts: Optional[List[List[torch.Tensor]]] = None,
-                                 latent: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                                 latent: Optional[List[torch.Tensor]] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of K4's forward, step by step with torch.matmul;
     autograd through it is the plain backward.  table (B, HW, C), mean (B,
     C), xp / yp / mask (M,), emb (M, e).  Returns y (rows, M), the trunks'
-    tanh'd outputs stacked.  ``acts``, if given, receives per trunk each
+    tanh'd outputs stacked, and x_last (M, h), the first trunk's last
+    hidden gated activation.  ``acts``, if given, receives per trunk each
     hidden layer's gated activation (M, out); ``latent`` the (M, C) latent."""
     lat = sample_latent(table, mean, xp, yp, mask, st)
     if latent is not None:
         latent.append(lat)
     rows = torch.arange(emb.shape[0], device=emb.device)
-    outs = []
+    outs, x_last = [], None
     for (ws, lats, xs, bs), offset in zip(trunks, st.layer_offsets):
         trunk_acts: List[torch.Tensor] = []
         x = None
@@ -107,6 +114,8 @@ def pixel_train_decode_reference(table: torch.Tensor, mean: torch.Tensor, xp: to
                 acc = acc + lat @ lats[layer] + emb @ xs[layer]
             if layer == len(bs) - 1:
                 outs.append(torch.tanh(acc).T)
+                if x_last is None:
+                    x_last = x
                 break
             x = torch.relu(acc)
             if st.train and st.dropout[layer]:
@@ -114,19 +123,21 @@ def pixel_train_decode_reference(table: torch.Tensor, mean: torch.Tensor, xp: to
             trunk_acts.append(x)
         if acts is not None:
             acts.append(trunk_acts)
-    return torch.cat(outs, dim=0)
+    return torch.cat(outs, dim=0), x_last
 
 
 def pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb,
                                           trunks: Sequence[Trunk], st: PixelTrainStatics,
                                           y: torch.Tensor, acts: Sequence[Sequence[torch.Tensor]],
-                                          latent: torch.Tensor, dy: torch.Tensor):
+                                          latent: torch.Tensor, dy: torch.Tensor,
+                                          dx_last: Optional[torch.Tensor] = None):
     """The plain version of K4's backward, from the kernel's residuals: y and
-    dy (rows, M), per trunk the gated activations (M, out) and the latent
-    (M, C).  The gate is recovered as (a > 0) * s, s = 1/keep on dropout
-    layers in training (no hash replay).  Returns (d(table) (B, HW, C),
-    d(mean) (B, C), d(xp) (M,), d(yp) (M,), d(emb), [(dws, dlats, dxs, dbs)]
-    per trunk); d(xp), d(yp) come through ``keys_cubic_grad``."""
+    dy (rows, M), per trunk the gated activations (M, out), the latent (M,
+    C) and x_last's gradient dx_last (M, h) or None.  The gate is recovered
+    as (a > 0) * s, s = 1/keep on dropout layers in training (no hash
+    replay).  Returns (d(table) (B, HW, C), d(mean) (B, C), d(xp) (M,),
+    d(yp) (M,), d(emb), [(dws, dlats, dxs, dbs)] per trunk); d(xp), d(yp)
+    come through ``keys_cubic_grad``."""
     m, c = latent.shape
     b, hw, _ = table.shape
     hf, wf = st.feat_hw
@@ -134,7 +145,7 @@ def pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb,
     demb = torch.zeros_like(emb)
     grads = []
     row = 0
-    for (ws, lats, xs, bs), trunk_acts in zip(trunks, acts):
+    for t, ((ws, lats, xs, bs), trunk_acts) in enumerate(zip(trunks, acts)):
         n_layers, n_out = len(bs), bs[-1].shape[-1]
         dws, dlats, dxs, dbs = ([None] * n_layers for _ in range(4))
         yt = y[row:row + n_out]
@@ -151,8 +162,10 @@ def pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb,
             dbs[layer] = dpre.sum(0)
             if layer > 0:
                 scale = 1.0 / st.keep if st.train and st.dropout[layer - 1] else 1.0
-                dpre = ((dpre @ ws[layer].T) * (trunk_acts[layer - 1] > 0).to(dpre.dtype)
-                        * np.float32(scale))
+                dx = dpre @ ws[layer].T
+                if t == 0 and layer == n_layers - 1 and dx_last is not None:
+                    dx = dx + dx_last
+                dpre = dx * (trunk_acts[layer - 1] > 0).to(dpre.dtype) * np.float32(scale)
         grads.append((dws, dlats, dxs, dbs))
 
     scene = torch.arange(m, device=emb.device) // st.n_per_scene
@@ -287,7 +300,8 @@ def smem_bytes(max_pad: int, c_pad: int) -> int:
 
 
 def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=None,
-                dtable=None, dmean=None, dxp=None, dyp=None, dpre=None, grads=None) -> np.ndarray:
+                dtable=None, dmean=None, dxp=None, dyp=None, dpre=None, grads=None,
+                dx_last=None) -> np.ndarray:
     """The int64 descriptor ``pixel_train_decoder.cu`` parses (see its host
     side)."""
     e, m = p.emb_t.shape
@@ -296,7 +310,7 @@ def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=N
     desc = [len(p.trunks), e, m, st.n_per_scene, b, c, p.c_pad, hf, wf,
             _ptr(p.emb_t), _ptr(p.table), _ptr(p.mean), _ptr(p.xp), _ptr(p.yp), _ptr(p.mask),
             _ptr(lat), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dtable), _ptr(dmean), _ptr(dxp),
-            _ptr(dyp)]
+            _ptr(dyp), _ptr(dx_last), 0 if dx_last is None else dx_last.shape[1]]
     for t, tr in enumerate(p.trunks):
         n_layers = len(tr.b)
         desc += [n_layers, tr.n_out, tr.row_off, tr.layer_off]
@@ -350,15 +364,21 @@ def pixel_train_decode_forward(p: _Packed, seed: int, st: PixelTrainStatics):
 
 def pixel_train_decode_backward(p: _Packed, st: PixelTrainStatics, y: torch.Tensor,
                                 acts: List[List[torch.Tensor]], lat: torch.Tensor,
-                                dy: torch.Tensor):
-    """K4 backward on the card: the reverse chain and the sampling's
-    gradients per point tile, then per layer the weight, latent-weight,
-    embedding-weight and bias reductions over all M points.  Returns
+                                dy: torch.Tensor, dx_last: Optional[torch.Tensor] = None):
+    """K4 backward on the card: the reverse chain (adding ``dx_last`` (M,
+    h), if given, to the first trunk's final-layer input gradient) and the
+    sampling's gradients per point tile, then per layer the weight,
+    latent-weight, embedding-weight and bias reductions over all M points.
+    Returns
     (d(table), d(mean), d(xp), d(yp), d(emb) (M, e), per trunk [(dW | None,
     dLat | None, dX | None, db)] padded)."""
     e, m = p.emb_t.shape
     dev = p.emb_t.device
     dy = dy.to(torch.float32).contiguous()
+    if dx_last is not None:
+        dx_last = dx_last.to(torch.float32).contiguous()
+        if dx_last.shape[0] != m or not 1 <= dx_last.shape[1] <= p.trunks[0].out_pads[-2]:
+            raise ValueError(f"dx_last {tuple(dx_last.shape)} does not fit the first trunk")
     demb = torch.empty((m, e), dtype=torch.float32, device=dev)
     dtable = torch.zeros_like(p.table)
     dmean = torch.zeros_like(p.mean)
@@ -370,7 +390,7 @@ def pixel_train_decode_backward(p: _Packed, st: PixelTrainStatics, y: torch.Tens
     grads = [[(zeros(t.w[layer]), zeros(t.lat[layer]), zeros(t.x[layer]),
                torch.zeros_like(t.b[layer])) for layer in range(len(t.b))] for t in p.trunks]
     desc = _descriptor(p, st, y, acts, lat, dy=dy, demb=demb, dtable=dtable, dmean=dmean,
-                       dxp=dxp, dyp=dyp, dpre=dpre, grads=grads)
+                       dxp=dxp, dyp=dyp, dpre=dpre, grads=grads, dx_last=dx_last)
     _run("pixel_train_bwd", _lib().pixel_train_bwd, dev, desc.ctypes.data, int(desc.size),
          float(np.float32(1.0 / st.keep)))
     pixel_train_decode_backward.launches += 1
@@ -398,11 +418,13 @@ def unflatten_pixel_params(st: PixelTrainStatics, params) -> List[Trunk]:
 
 
 class PixelTrainDecodeFunction(torch.autograd.Function):
-    """K4 over both trunks.  Inputs are unpadded, as
+    """K4 over both trunks: (y, x_last).  Inputs are unpadded, as
     ``pixel_train_decode_reference`` takes them, the trunks flattened by
     ``flatten_pixel_params``; the padding happens here and the padded rows
     and columns of every gradient are dropped on the way out.  The gated
-    activations and the latent are the residuals."""
+    activations and the latent are the residuals; x_last is a view of the
+    first trunk's last one, sliced of its padding.  The backward takes
+    dx_last = None when x_last fed nothing (no classifier)."""
 
     @staticmethod
     def forward(ctx, st: PixelTrainStatics, seed: int, table, mean, xp, yp, mask, emb, *params):
@@ -415,12 +437,15 @@ class PixelTrainDecodeFunction(torch.autograd.Function):
         ctx.shapes = [[[None if t is None else t.shape for t in group] for group in tr]
                       for tr in trunks]
         ctx.c = table.shape[2]
-        return y
+        ctx.set_materialize_grads(False)
+        return y, acts[0][-1][:trunks[0][3][-2].shape[-1]].T
 
     @staticmethod
-    def backward(ctx, dy: torch.Tensor):
+    def backward(ctx, dy: Optional[torch.Tensor], dx_last: Optional[torch.Tensor]):
+        if dy is None:
+            dy = torch.zeros_like(ctx.y)
         dtable, dmean, dxp, dyp, demb, grads = pixel_train_decode_backward(
-            ctx.packed, ctx.st, ctx.y, ctx.acts, ctx.lat, dy)
+            ctx.packed, ctx.st, ctx.y, ctx.acts, ctx.lat, dy, dx_last)
         flat: List[torch.Tensor] = []
         for (w_s, lat_s, x_s, b_s), g in zip(ctx.shapes, grads):
             flat += [dw[:s[0], :s[1]] for (dw, _, _, _), s in zip(g, w_s) if s is not None]
@@ -432,9 +457,11 @@ class PixelTrainDecodeFunction(torch.autograd.Function):
 
 def pixel_train_decode(table: torch.Tensor, mean: torch.Tensor, xp: torch.Tensor,
                        yp: torch.Tensor, mask: torch.Tensor, emb: torch.Tensor,
-                       trunks: Sequence[Trunk], seed: int, st: PixelTrainStatics) -> torch.Tensor:
-    """K4: (rows, M) tanh'd outputs of the trunks, differentiable in the
-    table, the mean, xp, yp, the embedding and every weight and bias."""
+                       trunks: Sequence[Trunk], seed: int, st: PixelTrainStatics
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: the (rows, M) tanh'd outputs of the trunks and x_last (M, h),
+    both differentiable in the table, the mean, xp, yp, the embedding and
+    every weight and bias."""
     if emb.device.type == "cpu":
         return pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, seed, st)
     if emb.device.type != "cuda":

@@ -109,16 +109,18 @@ def build_grid_branch_plan(
     return FoldedTrunk(hidden, last.w, last.x, last.b, rows)
 
 
-def with_classifier(trunk: FoldedTrunk, head: torch.nn.Module) -> FoldedTrunk:
-    """The trunk with the classifier's logits cw a + cb appended as final
-    rows 2.. on the same input a (the last hidden activation), their bias
-    in ``fin_b``; they read no xyz term."""
+def with_classifier(trunk, head: torch.nn.Module):
+    """The trunk (a FoldedTrunk, or K3's PixelTrunk) with the classifier's
+    logits cw a + cb appended as final rows 2.. on the same input a (the
+    last hidden activation), their bias in ``fin_b``; they read no xyz term
+    (zero columns of ``fin_x``) and no latent."""
     cw, cb = (t.to(torch.float32) for t in materialize_linear(head))
     c = cw.shape[0]
     fin_x = (None if trunk.fin_x is None
              else torch.cat([trunk.fin_x, trunk.fin_x.new_zeros(3, c)], dim=1))
-    return FoldedTrunk(trunk.hidden, torch.cat([trunk.fin, cw.T], dim=1), fin_x,
-                       torch.cat([trunk.fin_b, cb]), [*trunk.rows, *range(2, 2 + c)])
+    return trunk._replace(fin=torch.cat([trunk.fin, cw.T], dim=1), fin_x=fin_x,
+                          fin_b=torch.cat([trunk.fin_b, cb]),
+                          rows=[*trunk.rows, *range(2, 2 + c)])
 
 
 def make_grid_decode_fn(specs: Specs, n: int) -> Optional[Callable]:

@@ -6,8 +6,9 @@ build the projection scalars, then hand all of it to kernel K3.
 
 Counterpart of the JAX package's ``ops/decoder_kernel.py``:
 ``build_pixel_grid_branch_plan`` :805 and ``make_fused_pixel_grid_decode_fn``
-:1275.  The sampling is not banded (no ``_band_plan``): K3 gathers each
-point's taps directly.
+:1275, with the classifier packed as extra final rows of the first trunk
+(:1355-1375, ``grid_plan.with_classifier``).  The sampling is not banded (no
+``_band_plan``): K3 gathers each point's taps directly.
 """
 
 from __future__ import annotations
@@ -27,7 +28,12 @@ from alignsdf_torch.kernels.pixel_grid_decoder import (
 )
 from alignsdf_torch.models.decoder import trunk_layer_dims, trunk_prefixes
 from alignsdf_torch.models.layers import materialize_linear
-from alignsdf_torch.ops.grid_plan import branch_columns, embedding_affine, fused_embedding
+from alignsdf_torch.ops.grid_plan import (
+    branch_columns,
+    embedding_affine,
+    fused_embedding,
+    with_classifier,
+)
 
 
 def build_pixel_grid_branch_plan(
@@ -75,10 +81,10 @@ def build_pixel_grid_branch_plan(
 
 def make_pixel_grid_decode_fn(specs: Specs, n: int,
                               ref_projection: bool = False) -> Optional[Callable]:
-    """prepare(ctx) -> decode(base, m, origin, voxel) -> (2, m) fields for a
-    pixel-aligned config, or None when it cannot use the fused path (not
-    pixel-aligned, an embedding not affine in xyz, a latent input at the
-    final layer).  Raises for a classifier spec: K3 has no class rows.
+    """prepare(ctx) -> decode(base, m, origin, voxel) -> (2 + C, m) fields
+    and logits (C = 0 without a classifier) for a pixel-aligned config, or
+    None when it cannot use the fused path (not pixel-aligned, an embedding
+    not affine in xyz, a latent input at the final layer).
 
     ``ctx`` holds the decoder module, the (1, C, Hf, Wf) feature map as
     ``latent``, ``cam_intr`` (1, 3, 3+), ``pred_root`` (1, 1, 3) and, for
@@ -95,9 +101,6 @@ def make_pixel_grid_decode_fn(specs: Specs, n: int,
     if (not specs.pixel_align or not fused_embedding(specs)
             or n_layers - 1 in ns.latent_in):
         return None
-    if specs.classifier_branch:
-        raise NotImplementedError("a pixel-aligned spec with a classifier: kernel K3 has no "
-                                  "class rows yet")
     combined = specs.model_type == "1encoder1decoder"
     cols_h, cols_o = branch_columns(specs)
     image_size = specs.image_size[0]
@@ -128,6 +131,8 @@ def make_pixel_grid_decode_fn(specs: Specs, n: int,
                 trunks = [trunk(first, cols_h, 2, [0, 1])]
             else:
                 trunks = [trunk(first, cols_h, 1, [0]), trunk(second, cols_o, 1, [1])]
+            if decoder.classifier_head is not None:
+                trunks[0] = with_classifier(trunks[0], decoder.classifier_head)
             plan = pack_pixel_grid_plan(trunks, make_feature_table(fmap), proj, (hf, wf), n)
 
         def decode(base: int, m: int, origin: torch.Tensor, voxel: torch.Tensor):

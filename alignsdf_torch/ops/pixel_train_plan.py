@@ -8,7 +8,10 @@ Counterpart of ``split_trunk`` and ``decode`` in the JAX package's
 unbanded.  Everything here is plain PyTorch outside K4's autograd Function,
 so autograd carries the gradients of ``weight_v``, ``weight_g`` and the
 biases, of the map through the table and its mean, and of the predicted
-hand root through the projection.
+hand root through the projection.  With a classifier, K4 also gives the
+first trunk's x_last, and the logits are one torch.matmul outside the
+kernel (``train_plan.classify``), as the JAX package's ``classifier_apply``
+(:890-895) is XLA outside its kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from alignsdf_torch.models.decoder import trunk_layer_dims, trunk_prefixes
 from alignsdf_torch.models.layers import materialize_linear
 from alignsdf_torch.ops.geometry import pixel_coords
 from alignsdf_torch.ops.grid_plan import branch_columns
+from alignsdf_torch.ops.train_plan import classify
 
 
 def pixel_trunk_operands(decoder: torch.nn.Module, prefix: str, cols: Sequence[int], c: int,
@@ -97,10 +101,9 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
                              ) -> Optional[Callable]:
     """decode(decoder, fmap (B, C, Hf, Wf), emb (M, pfs), xyz (M, 3), cam_intr
     (B, 3, 3+), pred_root (B, 1, 3), seed, train) -> (sdf_h (M,), sdf_o
-    (M,), None) through K4, or None for a structure K4 does not take: the
-    JAX factory's refusals less the TPU's block-size rule, and a latent
-    input at the final layer.  Raises for a classifier spec: K4 has no
-    ``x_last`` output yet.
+    (M,), logits (M, C) or None) through K4, or None for a structure K4
+    does not take: the JAX factory's refusals less the TPU's block-size
+    rule, and a latent input at the final layer.
     Both trunks draw their dropout from ``seed``, the object trunk hashing
     layer + n_layers.  ``kernel`` may name K4's plain version instead, to
     compare the two on the card.  ``decode.pixel`` is True: the train step
@@ -110,9 +113,6 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
     if (not specs.pixel_align or not ns.weight_norm or ns.use_tanh or ns.latent_dropout
             or ns.xyz_in_all or 0 in ns.latent_in or n_layers - 1 in ns.latent_in):
         return None
-    if specs.classifier_branch:
-        raise NotImplementedError("a pixel-aligned spec with a classifier: kernel K4 has no "
-                                  "x_last output for the classifier head yet")
     x0 = tuple(layer == 0 or layer in ns.latent_in for layer in range(n_layers))
     statics = PixelTrainStatics(
         n_per_scene=specs.samples_per_scene,
@@ -126,13 +126,14 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
 
     def decode(decoder, fmap: torch.Tensor, emb: torch.Tensor, xyz: torch.Tensor,
                cam_intr: torch.Tensor, pred_root: torch.Tensor, seed: int,
-               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor, None]:
+               train: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
         _, c, hf, wf = fmap.shape
         table, mean, xp, yp, mask = pixel_train_inputs(fmap, xyz, cam_intr, pred_root, specs)
         st = statics._replace(feat_hw=(hf, wf), train=bool(train))
-        y = kernel(table, mean, xp, yp, mask, emb.to(torch.float32).contiguous(),
-                   pixel_trunks(decoder, specs, c), seed, st)
-        return y[0], y[1], None
+        y, x_last = kernel(table, mean, xp, yp, mask, emb.to(torch.float32).contiguous(),
+                           pixel_trunks(decoder, specs, c), seed, st)
+        return y[0], y[1], classify(decoder, x_last)
 
     decode.pixel = True
     decode.statics = statics

@@ -65,17 +65,27 @@ def trunk_operands(decoder: torch.nn.Module, prefix: str, n_cols: int, latent: t
     return ws, xs, bs
 
 
+def classify(decoder: torch.nn.Module, x_last: torch.Tensor) -> Optional[torch.Tensor]:
+    """The classifier's logits x_last @ cw^T + cb (M, C), one torch.matmul
+    outside the kernel that gave x_last, or None without a classifier."""
+    if decoder.classifier_head is None:
+        return None
+    cw, cb = materialize_linear(decoder.classifier_head)
+    return torch.matmul(x_last, cw.T) + cb
+
+
 def make_train_decoder(specs: Specs, kernel: Callable = train_decode) -> Optional[Callable]:
     """decode(decoder, latent (B, ls), emb (M, pfs), seed, train) -> (sdf_h
     (M,), sdf_o (M,), logits (M, C) or None) through K2, or None for a
     structure K2 does not take (the same refusals as
-    ``make_fused_train_decoder_factored``, less the TPU's block-size rule).  The hand trunk draws its dropout from ``seed``,
-    the object trunk from ``seed + 1``.  ``kernel`` may name K2's plain
+    ``make_fused_train_decoder_factored``, less the TPU's block-size rule, and
+    a latent input at the final layer, which K2 does not re-inject).  The
+    hand trunk draws its dropout from ``seed``, the object trunk from ``seed
+    + 1``.  ``kernel`` may name K2's plain
     version instead, to compare the two on the card."""
     ns = specs.network_specs
     if (not ns.weight_norm or ns.use_tanh or ns.latent_dropout or ns.xyz_in_all
-            or specs.pixel_align or 0 in ns.latent_in
-            or len(ns.dims) + 1 in ns.latent_in):
+            or specs.pixel_align or 0 in ns.latent_in or len(ns.dims) in ns.latent_in):
         return None
     n_layers = len(ns.dims) + 1
     latent_in = tuple(layer in ns.latent_in for layer in range(n_layers))
@@ -95,12 +105,6 @@ def make_train_decoder(specs: Specs, kernel: Callable = train_decode) -> Optiona
         idx = torch.as_tensor(cols, dtype=torch.long, device=emb.device)
         return kernel(emb.index_select(1, idx), ws, xs, bs, seed,
                       statics._replace(train=bool(train)))
-
-    def classify(decoder, x_last: torch.Tensor) -> Optional[torch.Tensor]:
-        if decoder.classifier_head is None:
-            return None
-        cw, cb = materialize_linear(decoder.classifier_head)
-        return torch.matmul(x_last, cw.T) + cb
 
     def decode(decoder, latent: torch.Tensor, emb: torch.Tensor, seed: int,
                train: bool = True) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:

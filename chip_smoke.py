@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's reconstruction, training, pixel-aligned
-reconstruction and pixel-aligned training paths on one CUDA GPU and hold
+"""Drive the PyTorch port's reconstruction and training paths (the
+flagship, --pa_feat, --cls and --pa_feat --cls) on one CUDA GPU and hold
 each hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
@@ -34,7 +34,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      parameter's gradient to 1e-3 of its largest entry, updated parameters
      to 2e-5 abs; beside it the plain step against itself with K2's input
      scaled by 1 + 2^-23, the comparison's rounding floor) and
-     2 steps under torch.profiler (K2's device time, the idle share);
+     2 steps under torch.profiler (K2's device time, the idle share); then
+     5 more steps with cuDNN's TF32 on, timed only (PyTorch's default, not
+     the mode the CLIs and this script run: float32, TF32 off);
   8. timing: K1 and its plain version per grid pass at 128^3 and 256^3; K2
      forward and backward per step (both trunks, 64 x 2000) against their
      plain versions and bounds;
@@ -74,7 +76,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      decode_points at 4096 grid points; K2 with x_last / dx_last against its
      plain version at 4 x 2000 and 64 x 2000; 7 train steps with the
      cross-entropy on (AdditionalLossStart 1), one step two ways and 2
-     profiled steps; K1's time per pass at C = 6 and K2's with x_last.
+     profiled steps; K1's time per pass at C = 6 and K2's with x_last;
+ 12. pixel classifier: the same model with --pa_feat (--pa_feat --cls), the
+     same seeded set-up, through K3 with 2 + C rows and K4 with x_last: K3
+     against its plain version over the first 128^3 pass of image 0 at C = 6
+     and 126 (1e-4 abs, argmax as in 11, the pass's in-image share strictly
+     between 0 and 1); run_pipelined with label_out and viz over 3 images
+     (12 K3 launches, a label npz per hand mesh); image 0's fields and logits
+     against the generic path (pixel_alignment + decode_points) at 4096
+     points; K4 with x_last / dx_last against its plain version at 4 x 2000
+     and 64 x 2000 on the real map and projection; 7 train steps with the
+     cross-entropy on, one step two ways, 2 profiled steps; K3's time per
+     pass at C = 6 and K4's with x_last.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -558,6 +571,42 @@ def train_phase(specs, dev, card, kern: TrainKernel):
     return state, rec
 
 
+def tf32_step_ms(specs, state, dev, card) -> float:
+    """The flagship train step's host-clock ms with cuDNN's TF32 on
+    (PyTorch's default: the encoder's convolutions in TF32, matmuls in
+    float32), 1 warm-up and TIMED_STEPS timed steps, no check: not the mode
+    the CLIs run (they call use_float32_precision), a number for weighing a
+    faster mode."""
+    import torch
+
+    from alignsdf_torch import use_float32_precision
+    from alignsdf_torch.data.synthetic import synthetic_train_batch
+    from alignsdf_torch.kernels.train_decoder import train_decode, train_decode_backward
+    from alignsdf_torch.training.train_step import batch_to_device, draw_seed, make_train_step
+
+    step = make_train_step(specs)
+    batch = batch_to_device(synthetic_train_batch(specs, TRAIN_SCENES, seed=SEED), dev)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    saved = train_decode.launches, train_decode_backward.launches
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        step(state, batch, draw_seed(gen))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            step(state, batch, draw_seed(gen))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    finally:
+        use_float32_precision()
+        train_decode.launches, train_decode_backward.launches = saved
+    state.optimizer.zero_grad(set_to_none=True)
+    print(f"[{card}] flagship train step with cuDNN TF32 on (PyTorch's default; not the CLIs' "
+          f"mode, no check): {ms:.2f} ms on the host clock over {TIMED_STEPS} steps "
+          f"({TRAIN_SCENES / ms * 1e3:.2f} scenes/s)", flush=True)
+    return ms
+
+
 def k2_timing(model, specs, dev, gen, card, x_last: bool = False):
     """K2 forward and backward per step (both trunks at TRAIN_SCENES x 2000)
     against their plain versions and bounds; with ``x_last``, the hand
@@ -632,14 +681,20 @@ def k3_flops(specs, points: int, sampled: int) -> int:
     """FLOPs of K3 over ``points`` grid points of which ``sampled`` lie in
     the image, at the model's true (unpadded) widths: 2 per multiply-add of
     every matmul (the latent's at layer 0 and the latent_in layers), of the
-    folded xyz terms, and of the 16 taps x C channels of each sample."""
+    folded xyz terms, of the classifier's rows on the hand trunk's last
+    hidden activation, and of the 16 taps x C channels of each sample."""
     from alignsdf_torch.models.decoder import separate_input_widths, trunk_layer_dims
 
     ns, c = specs.network_specs, specs.latent_size
+    classes = ns.num_class if specs.classifier_branch else 0
     per_point = 0
-    for in_dim in separate_input_widths(c, specs.point_feat_size, specs.encode_style):
+    for t, in_dim in enumerate(separate_input_widths(c, specs.point_feat_size,
+                                                     specs.encode_style)):
         cur = 0
-        for layer, (_, out) in enumerate(trunk_layer_dims(in_dim, ns, 1)):
+        dims = trunk_layer_dims(in_dim, ns, 1)
+        for layer, (_, out) in enumerate(dims):
+            if t == 0 and layer == len(dims) - 1:
+                per_point += 2 * cur * classes
             per_point += 2 * cur * out
             if layer == 0 or layer in ns.latent_in:
                 per_point += 2 * (c + 3) * out
@@ -902,9 +957,11 @@ def k4_operands(model, specs, dev, scenes: int):
     return inputs, trunks, st, (fmap, uv)
 
 
-def k4_check(inputs, trunks, st, dev, gen):
+def k4_check(inputs, trunks, st, dev, gen, x_last: bool = False):
     """K4 forward and backward through the autograd Function against the
-    plain forward and the plain backward fed the kernel's own residuals."""
+    plain forward and the plain backward fed the kernel's own residuals.
+    With ``x_last``, the first trunk's x_last is held against the plain
+    version's too and the backward takes a nonzero random dx_last."""
     import torch
 
     from alignsdf_torch.kernels.pixel_train_decoder import (
@@ -919,24 +976,30 @@ def k4_check(inputs, trunks, st, dev, gen):
     saved = pixel_train_decode.launches, pixel_train_decode_backward.launches
     leaves = [t.detach().clone().requires_grad_()
               for t in (table, mean, xp, yp, emb, *flatten_pixel_params(trunks))]
-    y = pixel_train_decode(*leaves[:4], mask, leaves[4], unflatten_pixel_params(st, leaves[5:]),
-                           seed, st)
+    y, xl = pixel_train_decode(*leaves[:4], mask, leaves[4],
+                               unflatten_pixel_params(st, leaves[5:]), seed, st)
     dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
-    grads = torch.autograd.grad(y, leaves, dy)
+    dxl = torch.randn(tuple(xl.shape), generator=gen).to(dev) if x_last else None
+    if dxl is None:
+        grads = torch.autograd.grad(y, leaves, dy)
+    else:
+        grads = torch.autograd.grad((y, xl), leaves, (dy, dxl))
     torch.cuda.synchronize()
     names = ["d(table)", "d(mean)", "d(xp)", "d(yp)", "d(emb)"]
     res = {"in_image_share": float(mask.mean()), "grad_rel_err": {}, "kept_share": {}}
     with torch.no_grad():
         acts_ref, lat_ref = [], []
-        y_ref = pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, seed, st,
-                                             acts=acts_ref, latent=lat_ref)
+        y_ref, xl_ref = pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks,
+                                                     seed, st, acts=acts_ref, latent=lat_ref)
         res["y_max_abs_err"] = float((y - y_ref).abs().max())
+        if dxl is not None:
+            res["x_last_max_abs_err"] = float((xl - xl_ref).abs().max())
         y_k, acts, lat = pixel_train_decode_forward(
             pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st), seed, st)
         res["latent_max_abs_err"] = float((lat[:c].T - lat_ref[0]).abs().max())
         acts_k = [[a[:r.shape[1]].T for a, r in zip(at, ar)] for at, ar in zip(acts, acts_ref)]
         dtable, dmean, dxp, dyp, demb, g_ref = pixel_train_decode_backward_reference(
-            table, mean, xp, yp, mask, emb, trunks, st, y_k, acts_k, lat[:c].T, dy)
+            table, mean, xp, yp, mask, emb, trunks, st, y_k, acts_k, lat[:c].T, dy, dxl)
         ref = [dtable, dmean, dxp, dyp, demb, *flatten_pixel_params(g_ref)]
         res["grad_max_abs_err"] = res["grad_max_rel_err"] = 0.0
         for i, (g, r) in enumerate(zip(grads, ref)):
@@ -990,10 +1053,12 @@ def k4_work(inputs, trunks, packed) -> Tuple[int, int, int, int]:
     return 2 * macs * m + taps, 4 * macs * m + 2 * taps, fwd_bytes, bwd_bytes
 
 
-def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card):
+def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False):
     """K4 forward and backward per step (both trunks) against their plain
     versions and bounds, and F.grid_sample forward and backward at the
-    step's points as yardsticks of the sampling step alone."""
+    step's points as yardsticks of the sampling step alone.  With
+    ``x_last``, the backward takes a random dx_last, whose read the bytes
+    count."""
     import torch
     import torch.nn.functional as F
 
@@ -1010,13 +1075,17 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card):
     fwd_flops, bwd_flops, fwd_bytes, bwd_bytes = k4_work(inputs, trunks, packed)
     y, acts, lat = pixel_train_decode_forward(packed, seed, st)
     dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
+    dxl = (torch.randn((m, trunks[0][3][-2].shape[-1]), generator=gen).to(dev) if x_last
+           else None)
+    if dxl is not None:
+        bwd_bytes += 4 * dxl.numel()
     unpadded = [[a[:b.shape[-1]].T for a, b in zip(at, tr[3])] for at, tr in zip(acts, trunks)]
 
     def fwd_kernel():
         pixel_train_decode_forward(packed, seed, st)
 
     def bwd_kernel():
-        pixel_train_decode_backward(packed, st, y, acts, lat, dy)
+        pixel_train_decode_backward(packed, st, y, acts, lat, dy, dxl)
 
     def fwd_plain():
         with torch.no_grad():
@@ -1025,7 +1094,7 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card):
     def bwd_plain():
         with torch.no_grad():
             pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb, trunks, st,
-                                                  y, unpadded, lat[:c].T, dy)
+                                                  y, unpadded, lat[:c].T, dy, dxl)
 
     # the library's bicubic sampling at the same points, and its autograd
     # backward (d(input) and d(grid): the d(table) and d(pix) work)
@@ -1055,7 +1124,8 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card):
                      "library_ms": lib_ms, "bound_ms": max(ops_ms, mem_ms),
                      "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
                      "tflop": flops / 1e12, "gbytes": nbytes / 1e9, "tflops": flops / best / 1e9}
-        print(f"[{card}] K4 {name} per step ({len(trunks)} trunks x {m} points, "
+        print(f"[{card}] K4{' with x_last' if x_last else ''} {name} per step ({len(trunks)} "
+              f"trunks x {m} points, "
               f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB): kernel {k_ms:.2f} / "
               f"{k_ms2:.2f} ms ({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, bound "
               f"{res[name]['bound_ms']:.2f} ms ({res[name]['bound_by']}); F.grid_sample "
@@ -1133,14 +1203,16 @@ def pixel_train_phase(dev, card: str, gen):
     return rec, entries
 
 
-def classifier_phase(dev, card: str, gen, mano_faces):
+def classifier_phase(dev, card: str, gen, mano_faces, pixel: bool = False):
     """The labelled DexYCB full model (--cls) at full width through K1 with
-    2 + C rows and K2 with x_last: K1 against its plain version at C = 6, 8
-    and 126, the main path (run_pipelined over N_IMAGES images with
-    label_out and viz), image 0's fields and logits against decode_points,
-    K2 against its plain version with dx_last, the train step with the
-    cross-entropy on, and the timing of both.  Returns (record, the main
-    paths' numbers for the K1 and K2 entries of the kernels line)."""
+    2 + C rows and K2 with x_last, or with ``pixel`` (--pa_feat --cls)
+    through K3 with 2 + C rows and K4 with x_last: the grid kernel against
+    its plain version at C = 6, (8,) 126, the main path (run_pipelined over
+    N_IMAGES images with label_out and viz), image 0's fields and logits
+    against the generic path, the train kernel against its plain version
+    with dx_last, the train step with the cross-entropy on, and the timing
+    of both.  Returns (record, the main paths' numbers for the kernels
+    line's entries)."""
     import dataclasses
 
     import numpy as np
@@ -1148,12 +1220,23 @@ def classifier_phase(dev, card: str, gen, mano_faces):
 
     from alignsdf_torch.inference.grid import _coords_from_linear, embed_points
     from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
-    from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
     from alignsdf_torch.models.alignsdf import build_model
     from alignsdf_torch.models.decoder import make_decoder
-    from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
+    from alignsdf_torch.ops.geometry import pixel_alignment
 
-    specs = flagship_specs(experiment="dexycb_140k.json", classifier=True)
+    if pixel:
+        from alignsdf_torch.kernels.pixel_grid_decoder import (
+            pixel_grid_decode as grid_kernel, pixel_grid_decode_reference as grid_plain,
+            pixel_projection)
+        from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn as make_plan
+        grid_name, train_name, classes, flag = "K3", "K4", (126,), "--pa_feat --cls"
+    else:
+        from alignsdf_torch.kernels.grid_decoder import (
+            grid_decode as grid_kernel, grid_decode_reference as grid_plain)
+        from alignsdf_torch.ops.grid_plan import make_grid_decode_fn as make_plan
+        grid_name, train_name, classes, flag = "K1", "K2", (8, 126), "--cls"
+
+    specs = flagship_specs(pixel=pixel, experiment="dexycb_140k.json", classifier=True)
     num_class = specs.network_specs.num_class
     model = build_model(specs, device=dev, seed=SEED)
     samples = synthetic_samples(gen, N_IMAGES)
@@ -1172,21 +1255,21 @@ def classifier_phase(dev, card: str, gen, mano_faces):
     # that pass, so that the labels vary
     with torch.no_grad():
         model.decoder.classifier_head.weight *= 40
-        first = grid_decode_reference(
-            make_grid_decode_fn(specs, 64)(scene_ctx(model, specs, samples[0], dev)).plan, 0,
-            64 ** 3, origin0, torch.tensor(2.0 / 63, device=dev))
+        first = grid_plain(make_plan(specs, 64)(scene_ctx(model, specs, samples[0], dev)).plan, 0,
+                           64 ** 3, origin0, torch.tensor(2.0 / 63, device=dev))
         for row, name in ((0, "linh4"), (1, "lino4")):
             q = torch.quantile(first[row], 0.05).clamp(-0.999, 0.999)
             getattr(model.decoder, name).bias -= torch.atanh(q)
         model.decoder.classifier_head.bias -= first[2:].mean(dim=1)
     del first
 
-    phase(f"classifier: K1 with 2 + C rows vs plain (the first {n}^3 pass of image 0, full "
-          "--cls width, C = 6, 8, 126, TF32 off)")
+    phase(f"classifier ({flag}): {grid_name} with 2 + C rows vs plain (the first {n}^3 pass of "
+          f"image 0, full width, C = {', '.join(str(c) for c in (num_class, *classes))}, TF32 "
+          "off)")
     ctx = scene_ctx(model, specs, samples[0], dev)
-    saved = grid_decode.launches
-    rec["k1_check"] = {}
-    for c in (num_class, 8, 126):
+    saved = grid_kernel.launches
+    rec["grid_check"] = {}
+    for c in (num_class, *classes):
         cctx = ctx
         if c != num_class:  # a seeded decoder with C classes on the same scene
             cspecs = dataclasses.replace(specs, network_specs=dataclasses.replace(
@@ -1201,47 +1284,54 @@ def classifier_phase(dev, card: str, gen, mano_faces):
             cctx = dict(ctx, decoder=dec)
         else:
             cspecs = specs
-        plan = make_grid_decode_fn(cspecs, n)(cctx).plan
+        plan = make_plan(cspecs, n)(cctx).plan
         err = {"sdf": 0.0, "logits": 0.0}
-        clear = mismatch = 0
+        clear = mismatch = inside = 0
         for s in range(0, total, chunk):
             m = min(chunk, total - s)
-            k = grid_decode(plan, s, m, origin0, voxel0)
+            k = grid_kernel(plan, s, m, origin0, voxel0)
             torch.cuda.synchronize()
             with torch.no_grad():
-                r = grid_decode_reference(plan, s, m, origin0, voxel0)
+                r = grid_plain(plan, s, m, origin0, voxel0)
             err["sdf"] = max(err["sdf"], float((k[:2] - r[:2]).abs().max()))
             err["logits"] = max(err["logits"], float((k[2:] - r[2:]).abs().max()))
             top2 = r[2:].topk(2, dim=0).values
             sel = (top2[0] - top2[1]) > 1e-5
             clear += int(sel.sum())
             mismatch += int(((k[2:].argmax(0) != r[2:].argmax(0)) & sel).sum())
+            if pixel:
+                inside += int(pixel_projection(plan, s, m, origin0, voxel0)[3].sum())
         labels = int(torch.unique(k[2:].argmax(0)).numel())
-        print(f"C = {c}: {2 + c} rows; K1 max abs err vs plain: SDF rows {err['sdf']:.3e}, logits "
-              f"{err['logits']:.3e} (tolerance {K1_TOL:g}); argmax mismatches {mismatch} of "
-              f"{clear} points whose top two logits differ by > 1e-5 ({total} in all); "
-              f"{labels} distinct labels in the last run", flush=True)
+        share = f"; in-image share {inside / total:.4f}" if pixel else ""
+        print(f"C = {c}: {2 + c} rows; {grid_name} max abs err vs plain: SDF rows "
+              f"{err['sdf']:.3e}, logits {err['logits']:.3e} (tolerance {K1_TOL:g}); argmax "
+              f"mismatches {mismatch} of {clear} points whose top two logits differ by > 1e-5 "
+              f"({total} in all); {labels} distinct labels in the last run{share}", flush=True)
         if not (max(err.values()) <= K1_TOL and mismatch == 0 and clear > total // 2):
-            fail(f"K1 with {2 + c} rows disagrees with its plain version")
-        rec["k1_check"][c] = {**err, "argmax_mismatch": mismatch, "clear_points": clear}
-    grid_decode.launches = saved
-    info["k1_max_abs_err"] = max(max(v["sdf"], v["logits"]) for v in rec["k1_check"].values())
+            fail(f"{grid_name} with {2 + c} rows disagrees with its plain version")
+        if pixel and not 0 < inside < total:
+            fail(f"the pass's in-image share {inside / total} must lie strictly between 0 and 1")
+        rec["grid_check"][c] = {**err, "argmax_mismatch": mismatch, "clear_points": clear}
+        if pixel:
+            rec["grid_check"][c]["in_image_share"] = inside / total
+    grid_kernel.launches = saved
+    info["grid_max_abs_err"] = max(max(v["sdf"], v["logits"]) for v in rec["grid_check"].values())
     del k, r, plan
 
-    phase(f"classifier main path: run_pipelined with label_out and viz, {N_IMAGES} images at "
-          f"cube_dim {n}")
+    phase(f"classifier main path ({flag}): run_pipelined with label_out and viz, {N_IMAGES} "
+          f"images at cube_dim {n}")
     recon = Reconstructor(model, specs, cube_dim=n, mano_faces=mano_faces)
     expected = N_IMAGES * 2 * (-(-total // chunk))
     results = []
     with tempfile.TemporaryDirectory() as out:
         dirs = make_output_dirs(out)
-        grid_decode.launches = 0
+        grid_kernel.launches = 0
         t0 = time.perf_counter()
         done = run_pipelined(recon, samples, dirs, label_out=True, viz=True,
                              on_done=lambda i, p: results.append((i, p)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = grid_decode.launches
+        launches = grid_kernel.launches
         written = sorted(os.listdir(dirs["meshes"]))
         labelled = []
         for i, pending in results:
@@ -1258,16 +1348,16 @@ def classifier_phase(dev, card: str, gen, mano_faces):
             labelled.append({"image": i, "vertices": len(hand.vertices),
                              "labels": np.bincount(lab.astype(np.int64),
                                                    minlength=num_class).tolist()})
-    print(f"images {done}, wall {wall * 1e3:.1f} ms, K1 launches {launches} (expected "
+    print(f"images {done}, wall {wall * 1e3:.1f} ms, {grid_name} launches {launches} (expected "
           f"{expected}), meshes written {written}; per-vertex labels (counts by part) "
           f"{labelled}", flush=True)
     if done != N_IMAGES or launches != expected:
-        fail(f"K1 launches {launches} != expected {expected} over {done} images")
+        fail(f"{grid_name} launches {launches} != expected {expected} over {done} images")
     if not labelled:
         fail("no image got a hand mesh, so no label was written")
     rec["main_path"] = {"wall_ms": wall * 1e3, "launches": launches, "meshes": written,
                         "labels": labelled, "images": []}
-    info["k1_launches"] = launches
+    info["grid_launches"] = launches
     for i, pending in results:
         host = pending["host"]
         for name in ("sdf_hand", "sdf_obj"):
@@ -1276,89 +1366,117 @@ def classifier_phase(dev, card: str, gen, mano_faces):
                 fail(f"classifier image {i}: {name} has shape {tuple(field.shape)} or "
                      "non-finite values")
         t = pending["timings"]
-        print(f"classifier image {i} [{card}]: encode {t['encode_ms']:.2f} ms, grid "
+        print(f"classifier ({flag}) image {i} [{card}]: encode {t['encode_ms']:.2f} ms, grid "
               f"{t['grid_ms']:.2f} ms (2 passes), marching cubes + labels + export "
               f"{t['mc_ms']:.2f} ms", flush=True)
         rec["main_path"]["images"].append(t)
 
-    # image 0's refined pass against decode_points (the plain decoder on
-    # materialized rows) at 4096 grid points: the main path's fields, and
-    # the logits of K1 run again over that pass
+    # image 0's refined pass against the generic path (decode_points on
+    # materialized rows; for --pa_feat the map sampled at each point's
+    # projection) at 4096 grid points: the main path's fields, and the
+    # logits of the grid kernel run again over that pass
     host0 = results[0][1]["host"]
     ctx = scene_ctx(model, specs, samples[0], dev)
     origin_r, voxel_r = host0["origin"].to(dev), host0["voxel"].to(dev)
     idx = torch.randint(0, total, (4096,), generator=gen).to(dev)
     pts = _coords_from_linear(idx, n, origin_r, voxel_r)
     with torch.no_grad():
-        gh, go, gl = model.decode_points(torch.cat(
-            [ctx["latent"].expand(4096, -1), embed_points(specs, ctx, pts)], dim=1))
-    saved = grid_decode.launches
-    rows = one_pass(grid_decode, make_grid_decode_fn(specs, n)(ctx).plan, origin_r, voxel_r)
-    grid_decode.launches = saved
+        if pixel:
+            lat = pixel_alignment(ctx["latent"], pts, ctx["cam_intr"], ctx["pred_root"],
+                                  specs.image_size[0], specs.sdf_scale_factor)
+        else:
+            lat = ctx["latent"].expand(4096, -1)
+        gh, go, gl = model.decode_points(torch.cat([lat, embed_points(specs, ctx, pts)], dim=1))
+    saved = grid_kernel.launches
+    rows = one_pass(grid_kernel, make_plan(specs, n)(ctx).plan, origin_r, voxel_r)
+    grid_kernel.launches = saved
     idx_cpu = idx.cpu()
     field_err = max(float((gh[:, 0].cpu() - host0["sdf_hand"].reshape(-1)[idx_cpu]).abs().max()),
                     float((go[:, 0].cpu() - host0["sdf_obj"].reshape(-1)[idx_cpu]).abs().max()))
     logit_err = float((rows[2:, idx].T - gl).abs().max())
-    print(f"image 0 vs decode_points at 4096 grid points: fields max abs err {field_err:.3e}, "
+    print(f"image 0 vs the generic path at 4096 grid points: fields max abs err {field_err:.3e}, "
           f"logits {logit_err:.3e} (tolerance {K1_TOL:g})", flush=True)
     if not (field_err <= K1_TOL and logit_err <= K1_TOL):
-        fail(f"the classifier main path disagrees with decode_points: {field_err}, {logit_err}")
-    rec["vs_decode_points"] = {"field_max_abs_err": field_err, "logits_max_abs_err": logit_err}
+        fail(f"the classifier main path disagrees with the generic path: {field_err}, "
+             f"{logit_err}")
+    rec["vs_generic"] = {"field_max_abs_err": field_err, "logits_max_abs_err": logit_err}
     del recon, rows
 
-    rec["k2_check"] = {}
+    rec["train_check"] = {}
     for scenes in CHECK_SCENES:
-        phase(f"classifier: K2 with x_last vs plain ({scenes} x {specs.samples_per_scene} points, "
-              "both trunks, full --cls width, nonzero dy and dx_last, TF32 off)")
-        k2 = k2_check(model, specs, dev, gen, scenes, x_last=True)
-        print(f"K2 y max abs err {k2['y_max_abs_err']:.3e}, x_last {k2['x_last_max_abs_err']:.3e} "
-              f"(tolerance {K2_TOL:g}); gradients max err {k2['grad_max_abs_err']:.3e} abs, "
-              f"{k2['grad_max_rel_err']:.3e} of the largest (tolerance {K2_TOL:g}); kept share "
-              f"{k2['kept_share']}; residual sign mismatch {k2['residual_sign_mismatch']:.2e}",
-              flush=True)
-        if not (k2["y_max_abs_err"] <= K2_TOL and k2["x_last_max_abs_err"] <= K2_TOL
-                and k2["grad_max_rel_err"] <= K2_TOL):
-            fail(f"K2 with x_last disagrees with its plain version at {scenes} scenes")
-        if not k2["residual_sign_mismatch"] <= 1e-4:
-            fail("K2's residuals are not gated as the plain version's")
-        rec["k2_check"][scenes] = k2
-    info["k2_check"] = rec["k2_check"][TRAIN_SCENES]
+        phase(f"classifier ({flag}): {train_name} with x_last vs plain ({scenes} x "
+              f"{specs.samples_per_scene} points, both trunks, full width, nonzero dy and "
+              "dx_last, TF32 off)")
+        if pixel:
+            inputs, trunks, st, _ = k4_operands(model, specs, dev, scenes)
+            tc = k4_check(inputs, trunks, st, dev, gen, x_last=True)
+            if not 0.0 < tc["in_image_share"] < 1.0:
+                fail(f"the in-image share {tc['in_image_share']} must lie strictly between 0 "
+                     "and 1")
+        else:
+            tc = k2_check(model, specs, dev, gen, scenes, x_last=True)
+        print(f"{train_name} y max abs err {tc['y_max_abs_err']:.3e}, x_last "
+              f"{tc['x_last_max_abs_err']:.3e} (tolerance {K2_TOL:g}); gradients max err "
+              f"{tc['grad_max_abs_err']:.3e} abs, {tc['grad_max_rel_err']:.3e} of the largest "
+              f"(tolerance {K2_TOL:g}); kept share {tc['kept_share']}; residual sign mismatch "
+              f"{tc['residual_sign_mismatch']:.2e}", flush=True)
+        if not (tc["y_max_abs_err"] <= K2_TOL and tc["x_last_max_abs_err"] <= K2_TOL
+                and tc["grad_max_rel_err"] <= K2_TOL):
+            fail(f"{train_name} with x_last disagrees with its plain version at {scenes} scenes")
+        if not tc["residual_sign_mismatch"] <= 1e-4:
+            fail(f"{train_name}'s residuals are not gated as the plain version's")
+        rec["train_check"][scenes] = tc
+    info["train_check"] = rec["train_check"][TRAIN_SCENES]
 
     # AdditionalLossStart 1: in epoch 1 the cross-entropy is on, so dx_last
-    # carries its gradient into K2's backward
+    # carries its gradient into the train kernel's backward
     train_specs = dataclasses.replace(specs, additional_loss_start=1)
-    phase(f"classifier training: {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps at "
+    phase(f"classifier training ({flag}): {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps at "
           f"{TRAIN_SCENES} x {specs.samples_per_scene} points with the cross-entropy on, one step "
           f"two ways, {PROFILED_STEPS} profiled steps")
-    state, rec["train"] = train_phase(train_specs, dev, card, k2_kernel())
+    state, rec["train"] = train_phase(train_specs, dev, card,
+                                      k4_kernel() if pixel else k2_kernel())
     cls_losses = rec["train"].get("cls", [])
     if len(cls_losses) != WARM_STEPS + TIMED_STEPS or not all(
             np.isfinite(c) and c > 0 for c in cls_losses):
         fail(f"the cls loss must be finite and nonzero at every step: {cls_losses}")
-    info["k2_launches"] = rec["train"]["launches"]
+    info["train_launches"] = rec["train"]["launches"]
 
-    phase(f"classifier timing: K1 per {n}^3 pass at C = {num_class}; K2 with x_last forward and "
-          f"backward per step ({TRAIN_SCENES} x {specs.samples_per_scene} points, both trunks)")
-    plan = make_grid_decode_fn(specs, n)(ctx).plan
-    saved = grid_decode.launches
-    k1_runs = [cuda_ms(lambda: one_pass(grid_decode, plan, origin0, voxel0), 1) for _ in range(3)]
-    grid_decode.launches = saved
+    phase(f"classifier timing ({flag}): {grid_name} per {n}^3 pass at C = {num_class}; "
+          f"{train_name} with x_last forward and backward per step ({TRAIN_SCENES} x "
+          f"{specs.samples_per_scene} points, both trunks)")
+    plan = make_plan(specs, n)(ctx).plan
+    saved = grid_kernel.launches
+    grid_runs = [cuda_ms(lambda: one_pass(grid_kernel, plan, origin0, voxel0), 1)
+                 for _ in range(3)]
+    grid_kernel.launches = saved
     with torch.no_grad():
-        plain_ms = cuda_ms(lambda: one_pass(grid_decode_reference, plan, origin0, voxel0), 1)
-    flops = k1_flops_per_point(specs) * total
-    nbytes = 4 * ((2 + num_class) * total + plan.flat.numel())
+        plain_ms = cuda_ms(lambda: one_pass(grid_plain, plan, origin0, voxel0), 1)
+    if pixel:
+        sampled = sum(int(pixel_projection(plan, s, min(chunk, total - s), origin0, voxel0)[3]
+                          .sum()) for s in range(0, total, chunk))
+        flops = k3_flops(specs, total, sampled)
+        nbytes = 4 * ((2 + num_class) * total + plan.flat.numel() + plan.table.numel())
+    else:
+        flops = k1_flops_per_point(specs) * total
+        nbytes = 4 * ((2 + num_class) * total + plan.flat.numel())
     ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    k1_ms = min(k1_runs)
-    rec["k1_timing"] = {"k1_ms": k1_ms, "k1_runs_ms": k1_runs, "plain_ms": plain_ms,
-                        "bound_ms": max(ops_ms, mem_ms),
-                        "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
-                        "tflop": flops / 1e12, "k1_tflops": flops / k1_ms / 1e9}
+    grid_ms = min(grid_runs)
+    rec["grid_timing"] = {"ms": grid_ms, "runs_ms": grid_runs, "plain_ms": plain_ms,
+                          "bound_ms": max(ops_ms, mem_ms),
+                          "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                          "tflop": flops / 1e12, "tflops": flops / grid_ms / 1e9}
     print(f"[{card}] {n}^3 pass at C = {num_class} ({2 + num_class} rows, {flops / 1e12:.3f} "
-          f"TFLOP): K1 " + " / ".join(f"{t:.2f}" for t in k1_runs) + f" ms (best "
-          f"{flops / k1_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, bound "
-          f"{rec['k1_timing']['bound_ms']:.2f} ms ({rec['k1_timing']['bound_by']})", flush=True)
-    rec["k2_timing"] = k2_timing(state.model, specs, dev, gen, card, x_last=True)
-    info["k1_timing"], info["k2_timing"] = rec["k1_timing"], rec["k2_timing"]
+          f"TFLOP): {grid_name} " + " / ".join(f"{t:.2f}" for t in grid_runs) + f" ms (best "
+          f"{flops / grid_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, bound "
+          f"{rec['grid_timing']['bound_ms']:.2f} ms ({rec['grid_timing']['bound_by']})",
+          flush=True)
+    if pixel:
+        inputs, trunks, st, (fmap, uv) = k4_operands(state.model, specs, dev, TRAIN_SCENES)
+        rec["train_timing"] = k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last=True)
+    else:
+        rec["train_timing"] = k2_timing(state.model, specs, dev, gen, card, x_last=True)
+    info["grid_timing"], info["train_timing"] = rec["grid_timing"], rec["train_timing"]
     del state
     return rec, info
 
@@ -1375,6 +1493,7 @@ def main(record_path: Optional[str] = None) -> None:
     try:
         import numpy as np
 
+        from alignsdf_torch import use_float32_precision
         from alignsdf_torch.inference.grid import _coords_from_linear
         from alignsdf_torch.inference.reconstruct import (
             Reconstructor, make_output_dirs, run_pipelined)
@@ -1390,8 +1509,7 @@ def main(record_path: Optional[str] = None) -> None:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    use_float32_precision()
     dev = torch.device("cuda")
     record = {"card": card}
 
@@ -1553,6 +1671,7 @@ def main(record_path: Optional[str] = None) -> None:
           f"{specs.samples_per_scene} points, one step two ways, {PROFILED_STEPS} profiled steps")
     train_state, record["train"] = train_phase(specs, dev, card, k2_kernel())
     k2_launches = record["train"]["launches"]
+    record["train_tf32_ms"] = tf32_step_ms(specs, train_state, dev, card)
 
     phase("timing: K1 and plain per grid pass")
     timing = {}
@@ -1591,46 +1710,48 @@ def main(record_path: Optional[str] = None) -> None:
     record["pixel"], k3_entry = pixel_phase(dev, card, gen, mano_faces)
     record["pixel_train"], k4_entries = pixel_train_phase(dev, card, gen)
     record["classifier"], cls = classifier_phase(dev, card, gen, mano_faces)
+    record["pixel_classifier"], pcls = classifier_phase(dev, card, gen, mano_faces, pixel=True)
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
         with open(record_path, "w") as f:
             json.dump(record, f, indent=1, default=str)
 
-    # K1 and K2 ran on two main paths each (the flagship and the classifier);
-    # launches sum both, the times are the flagship's, the classifier's beside
+    # each kernel ran on two main paths (K1 and K2: the flagship and the
+    # classifier; K3 and K4: --pa_feat and --pa_feat --cls); launches sum
+    # both, the times are the first path's, the classifier's beside
     t = timing[CUBE_DIM]
-    ct = cls["k1_timing"]
+    ct = cls["grid_timing"]
     kernels = {"kernels": [{
         "name": "K1 fused grid decoder, 2 + C rows (covers K1p)",
         "route": "cuda",
         "source": "alignsdf_torch/kernels/csrc/grid_decoder.cu",
         "replaces": "alignsdf_tpu/ops/decoder_kernel.py:496",
         "covers": "alignsdf_tpu/ops/decoder_kernel.py:381 (K1p, points-major, > 6 classes)",
-        "launches": launches + cls["k1_launches"],
-        "launches_by_path": {"flagship": launches, "classifier": cls["k1_launches"]},
-        "max_abs_err": max(max_err, cls["k1_max_abs_err"]),
+        "launches": launches + cls["grid_launches"],
+        "launches_by_path": {"flagship": launches, "classifier": cls["grid_launches"]},
+        "max_abs_err": max(max_err, cls["grid_max_abs_err"]),
         "ms": t["k1_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": "operations",
         "library_ms": None,
-        "classifier_c6": {"ms": ct["k1_ms"], "plain_ms": ct["plain_ms"],
+        "classifier_c6": {"ms": ct["ms"], "plain_ms": ct["plain_ms"],
                           "bound_ms": ct["bound_ms"], "bound_by": ct["bound_by"]},
     }]}
-    ck2 = cls["k2_check"]
+    ck2 = cls["train_check"]
     for name, line, err, cerr in (
             ("fwd", 472, k2["y_max_abs_err"], max(ck2["y_max_abs_err"], ck2["x_last_max_abs_err"])),
             ("bwd", 652, k2["grad_max_abs_err"], ck2["grad_max_abs_err"])):
-        t2, c2 = record["k2_timing"][name], cls["k2_timing"][name]
+        t2, c2 = record["k2_timing"][name], cls["train_timing"][name]
         kernels["kernels"].append({
             "name": f"K2 scene-factored train decoder, {'forward' if name == 'fwd' else 'backward'}",
             "route": "cuda",
             "source": "alignsdf_torch/kernels/csrc/train_decoder.cu",
             "replaces": f"alignsdf_tpu/ops/decoder_train_kernel.py:{line}",
-            "launches": k2_launches[name] + cls["k2_launches"][name],
+            "launches": k2_launches[name] + cls["train_launches"][name],
             "launches_by_path": {"flagship": k2_launches[name],
-                                 "classifier": cls["k2_launches"][name]},
+                                 "classifier": cls["train_launches"][name]},
             "max_abs_err": max(err, cerr),
             "ms": t2["ms"],
             "plain_ms": t2["plain_ms"],
@@ -1640,8 +1761,27 @@ def main(record_path: Optional[str] = None) -> None:
             "classifier_x_last": {"ms": c2["ms"], "plain_ms": c2["plain_ms"],
                                   "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"]},
         })
-    kernels["kernels"].append(k3_entry)
-    kernels["kernels"] += k4_entries
+    pt = pcls["grid_timing"]
+    kernels["kernels"].append(dict(
+        k3_entry, launches=k3_entry["launches"] + pcls["grid_launches"],
+        launches_by_path={"pixel": k3_entry["launches"],
+                          "pixel_classifier": pcls["grid_launches"]},
+        max_abs_err=max(k3_entry["max_abs_err"], pcls["grid_max_abs_err"]),
+        classifier_c6={"ms": pt["ms"], "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
+                       "bound_by": pt["bound_by"]}))
+    pk4 = pcls["train_check"]
+    for entry, name, cerr in ((k4_entries[0], "fwd", max(pk4["y_max_abs_err"],
+                                                          pk4["x_last_max_abs_err"])),
+                              (k4_entries[1], "bwd", pk4["grad_max_abs_err"])):
+        c4 = pcls["train_timing"][name]
+        kernels["kernels"].append(dict(
+            entry, launches=entry["launches"] + pcls["train_launches"][name],
+            launches_by_path={"pixel": entry["launches"],
+                              "pixel_classifier": pcls["train_launches"][name]},
+            max_abs_err=max(entry["max_abs_err"], cerr),
+            classifier_x_last={"ms": c4["ms"], "plain_ms": c4["plain_ms"],
+                               "bound_ms": c4["bound_ms"], "bound_by": c4["bound_by"],
+                               "library_ms": c4["library_ms"]}))
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,9 +4,9 @@ hand-part logits, the converter, K1's plain version with 2 + C output rows
 against the JAX fused grid kernels in interpret mode (lanes-major at C = 6,
 points-major at C = 8), the grid's ``cls``, the label re-query at mesh
 vertices and its exports, K2's plain version with ``x_last`` against the
-JAX scene-factored kernel with the classifier, a 3-step train trajectory
-that crosses AdditionalLossStart, and the refusals of the pixel-aligned
-paths.
+JAX scene-factored kernel with the classifier, and a 3-step train
+trajectory that crosses AdditionalLossStart.  The pixel-aligned classifier
+(K3's class rows, K4's x_last) is tests/test_torch_pixel_classifier.py's.
 
 Labels are compared apart from near-ties: where the top two logits of the
 port lie within TIE of each other, float32 rounding may pick either."""
@@ -31,7 +31,7 @@ from alignsdf_tpu.ops.decoder_train_kernel import make_fused_train_decoder_facto
 from alignsdf_tpu.ops.rotations import batch_rodrigues
 from alignsdf_tpu.training import train_state as jax_train_state
 from alignsdf_tpu.training import train_step as jax_train_step
-from alignsdf_torch.config import NetworkSpecs, Specs, specs_from_dict
+from alignsdf_torch.config import NetworkSpecs, Specs
 from alignsdf_torch.convert import decoder_from_jax, from_jax
 from alignsdf_torch.data.synthetic import synthetic_train_batch
 from alignsdf_torch.inference.grid import embed_points, make_grid_evaluator
@@ -48,11 +48,9 @@ from alignsdf_torch.kernels.train_decoder import (
     train_decode_reference,
     unflatten_params,
 )
-from alignsdf_torch.models.alignsdf import build_model
 from alignsdf_torch.models.decoder import make_decoder, trunk_prefixes
 from alignsdf_torch.ops.embeddings import kinematic_embedding
 from alignsdf_torch.ops.grid_plan import branch_columns, make_grid_decode_fn
-from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
 from alignsdf_torch.ops.train_plan import make_train_decoder, trunk_operands
 from alignsdf_torch.training.train_state import TrainState, make_optimizer
 from alignsdf_torch.training.train_step import batch_to_device, make_train_step
@@ -69,6 +67,12 @@ FACES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the narrow flagship with the classifier (DexYCB's --cls at the flagship's
 # kinematic embedding)
 CLS_NARROW = dict(torch_parity.FLAGSHIP_NARROW, ClassifierBranch=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    with torch_parity.torch_threads(1):
+        yield
 
 
 def _labels_agree(port_logits: np.ndarray, labels: np.ndarray, ref: np.ndarray) -> None:
@@ -146,7 +150,7 @@ def _grid_scene(num_class, model_type="1encoder2decoder"):
     return jspecs, pspecs, jctx, pctx, params
 
 
-@pytest.mark.parametrize("num_class,n,layout", [(6, 12, "lanes"), (8, 16, "points")])
+@pytest.mark.parametrize("num_class,n,layout", [(6, 8, "lanes"), (8, 16, "points")])
 def test_plain_k1_class_rows_match_jax_kernel(num_class, n, layout):
     """One pass of K1's plain version (2 + C rows) against the JAX fused
     grid kernel in interpret mode, block 128: the lanes-major kernel at C =
@@ -222,7 +226,8 @@ def recons(tmp_path_factory):
     inside and the classifier head scaled so that the labels vary over the
     hand; both run_pipelined with label_out and viz."""
     n = 12
-    jmodel, variables, pmodel, jspecs, pspecs = torch_parity.build_pair(CLS_NARROW, seed=1)
+    jmodel, variables, pmodel, jspecs, pspecs = torch_parity.build_pair_from_port(CLS_NARROW,
+                                                                                  seed=1)
     sample = torch_parity.make_sample(3)
     faces = np.load(FACES)
     prec = Reconstructor(pmodel, pspecs, cube_dim=n, device="cpu", mano_faces=faces)
@@ -359,7 +364,7 @@ def test_k2_x_last_matches_factored_pallas(train_pair):
         h, o, c = fac(p, lat, e, jnp.int32(11), train=train)
         return jnp.sum(jnp.sin(h)) + jnp.sum(o ** 2) + 50.0 * _ce_jax(c, jnp.asarray(labels))
 
-    gp, gl, ge = jax.grad(loss, argnums=(0, 1, 2))(
+    gp, gl, ge = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
         jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(latent), jnp.asarray(emb))
     lat_t = torch.from_numpy(latent).requires_grad_()
     emb_t = torch.from_numpy(emb).requires_grad_()
@@ -465,18 +470,3 @@ def test_trajectory_with_the_classifier_matches_jax():
     for k in ("decoder.classifier_head.weight", "decoder.classifier_head.bias",
               "decoder.linh4.weight", "decoder.linh3.weight_v"):
         np.testing.assert_allclose(state[k].numpy(), ref[k].numpy(), atol=1e-3, rtol=0, err_msg=k)
-
-
-def test_pixel_aligned_classifier_is_refused():
-    """A pixel-aligned spec with a classifier builds, but reconstruction
-    refuses it naming K3's missing class rows and training naming K4's
-    missing x_last."""
-    specs = specs_from_dict(dict(torch_parity.PIXEL_NARROW, ClassifierBranch=True))
-    model = build_model(specs, seed=0)
-    assert model.decoder.classifier_head is not None
-    with pytest.raises(NotImplementedError, match="K3 has no class rows"):
-        Reconstructor(model, specs, cube_dim=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="K3 has no class rows"):
-        make_pixel_grid_decode_fn(specs, 8)
-    with pytest.raises(NotImplementedError, match="K4 has no x_last"):
-        make_train_step(specs)

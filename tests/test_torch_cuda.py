@@ -1,6 +1,7 @@
 """Kernels K1, K2, K3 and K4 on the card against their plain versions (K1
-with the classifier's rows, K2 with x_last / dx_last).  Needs a CUDA GPU and
-skips without one; it imports no JAX, so it runs on a machine without it:
+and K3 with the classifier's rows, K2 and K4 with x_last / dx_last).  Needs a
+CUDA GPU and skips without one; it imports no JAX, so it runs on a machine
+without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -307,14 +308,14 @@ def test_cuda_pixel_train_kernel_matches_plain(dims, c, hw, scenes, n, train, mo
     leaves = [t.detach().clone().requires_grad_()
               for t in (table, mean, xp, yp, emb, *flatten_pixel_params(trunks))]
     fwd, bwd = pixel_train_decode.launches, pixel_train_decode_backward.launches
-    y = pixel_train_decode(*leaves[:4], mask, leaves[4], unflatten_pixel_params(st, leaves[5:]),
-                           9, st)
+    y, _ = pixel_train_decode(*leaves[:4], mask, leaves[4],
+                              unflatten_pixel_params(st, leaves[5:]), 9, st)
     dy = torch.randn(y.shape, generator=gen).cuda()
     grads = torch.autograd.grad(y, leaves, dy)
     torch.cuda.synchronize()
     assert (pixel_train_decode.launches, pixel_train_decode_backward.launches) == (fwd + 1, bwd + 1)
     with torch.no_grad():
-        y_ref = pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, 9, st)
+        y_ref, _ = pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, 9, st)
         assert y.shape == y_ref.shape == (2, m)
         assert float((y - y_ref).abs().max()) <= 1e-5
         y_k, acts, lat = pixel_train_decode_forward(
@@ -322,6 +323,120 @@ def test_cuda_pixel_train_kernel_matches_plain(dims, c, hw, scenes, n, train, mo
         acts = [[a[:b.shape[-1]].T for a, b in zip(at, tr[3])] for at, tr in zip(acts, trunks)]
         dtable, dmean, dxp, dyp, demb, g_ref = pixel_train_decode_backward_reference(
             table, mean, xp, yp, mask, emb, trunks, st, y_k, acts, lat[:c].T, dy)
+    ref = [dtable, dmean, dxp, dyp, demb, *flatten_pixel_params(g_ref)]
+    assert len(ref) == len(grads)
+    for g, r in zip(grads, ref):
+        assert g.shape == r.shape
+        assert float((g - r).abs().max()) <= 1e-4 * (float(r.abs().max()) + 1e-12)
+
+
+def _pixel_scene(model_type, num_class, c, hw, gen, seed):
+    """A seeded full-width pixel-aligned decoder with a classifier of
+    num_class (head scaled x40 so labels vary), its specs and a grid
+    context on the card."""
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9, latent_size=c,
+                  mano_branch=True, object_pose_branch=True, sdf_scale_factor=7.0,
+                  pixel_align=True, classifier_branch=True,
+                  network_specs=NetworkSpecs(num_class=num_class))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        decoder = make_decoder(model_type, c, 9, "both", specs.network_specs,
+                               use_classifier=True).cuda()
+    with torch.no_grad():
+        decoder.classifier_head.weight *= 40
+    ctx = {"decoder": decoder, "latent": torch.randn(1, c, *hw, generator=gen).cuda(),
+           "cam_intr": torch.tensor([[[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]]]).cuda(),
+           "pred_root": torch.tensor([[[0.01, -0.02, 0.6]]]).cuda(),
+           "rot_center": (torch.randn(1, 1, 3, generator=gen) * 0.05).cuda(),
+           "global_trans": _rigid(gen, 16).cuda(), "obj_trans": _rigid(gen, 1)[:, 0].cuda()}
+    return specs, ctx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_class,model_type", [(6, "1encoder2decoder"), (126, "1encoder2decoder"),
+                                                  (6, "1encoder1decoder")])
+def test_cuda_pixel_kernel_class_rows_match_plain(num_class, model_type):
+    """K3 with 2 + C rows (8 and 128) at the flagship width on the 256 x 64 x
+    64 map, a ragged run of a 24^3 grid partly outside the image: the SDF
+    rows to 1e-5 and the logits (no tanh, so larger) to 1e-4 against the
+    plain version, and the same argmax wherever the top two logits differ by
+    more than 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(6)
+    n = 24
+    specs, ctx = _pixel_scene(model_type, num_class, 256, (64, 64), gen, 6)
+    plan = make_pixel_grid_decode_fn(specs, n)(ctx).plan
+    assert plan.n_rows == 2 + num_class
+    origin = torch.full((3,), -1.0, device="cuda")
+    voxel = torch.tensor(2.0 / (n - 1), device="cuda")
+    m = n ** 3 - 5
+    before = pixel_grid_decode.launches
+    out = pixel_grid_decode(plan, 3, m, origin, voxel)
+    torch.cuda.synchronize()
+    assert pixel_grid_decode.launches == before + 1
+    ref = pixel_grid_decode_reference(plan, 3, m, origin, voxel)
+    share = float(pixel_projection(plan, 3, m, origin, voxel)[3].float().mean())
+    assert 0.0 < share < 1.0
+    assert out.shape == ref.shape == (2 + num_class, m)
+    assert float((out[:2] - ref[:2]).abs().max()) <= 1e-5
+    assert float((out[2:] - ref[2:]).abs().max()) <= 1e-4
+    top2 = ref[2:].topk(2, dim=0).values
+    clear = (top2[0] - top2[1]) > 1e-5
+    assert bool((out[2:].argmax(0) == ref[2:].argmax(0))[clear].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type", ["1encoder2decoder", "1encoder1decoder"])
+def test_cuda_pixel_train_kernel_x_last_matches_plain(model_type):
+    """K4 with x_last out and dx_last in, at the flagship width on 4 x 2000
+    points and the 256 x 64 x 64 map: y and x_last to 1e-5 abs against the
+    plain forward, every gradient (nonzero random dy and dx_last) to 1e-4 of
+    its largest entry against the plain backward fed the kernel's own
+    residuals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(7)
+    scenes, n, c, hw = 4, 2000, 256, (64, 64)
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9, latent_size=c,
+                  pixel_align=True, samples_per_scene=n, sdf_scale_factor=7.0,
+                  image_size=(256, 256), classifier_branch=True, network_specs=NetworkSpecs())
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(7)
+        decoder = make_decoder(model_type, c, 9, "both", specs.network_specs,
+                               use_classifier=True).cuda()
+    m = scenes * n
+    fmap = (torch.randn(scenes, c, *hw, generator=gen) * 0.5).cuda()
+    emb = (torch.randn(m, 9, generator=gen) * 0.5).cuda()
+    xyz = (torch.randn(m, 3, generator=gen) * 0.5).cuda()
+    cam = torch.tensor([[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]]).repeat(scenes, 1, 1)
+    root = torch.tensor([[[0.01, -0.02, 0.6]]]).repeat(scenes, 1, 1)
+    st = make_pixel_train_decoder(specs).statics._replace(feat_hw=hw)
+    with torch.no_grad():
+        table, mean, xp, yp, mask = pixel_train_inputs(fmap, xyz, cam.cuda(), root.cuda(), specs)
+        trunks = pixel_trunks(decoder, specs, c)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (table, mean, xp, yp, emb, *flatten_pixel_params(trunks))]
+    fwd, bwd = pixel_train_decode.launches, pixel_train_decode_backward.launches
+    y, x_last = pixel_train_decode(*leaves[:4], mask, leaves[4],
+                                   unflatten_pixel_params(st, leaves[5:]), 9, st)
+    dy = torch.randn(y.shape, generator=gen).cuda()
+    dx_last = torch.randn(x_last.shape, generator=gen).cuda()
+    grads = torch.autograd.grad((y, x_last), leaves, (dy, dx_last))
+    torch.cuda.synchronize()
+    assert (pixel_train_decode.launches, pixel_train_decode_backward.launches) == (fwd + 1, bwd + 1)
+    with torch.no_grad():
+        y_ref, x_ref = pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, 9, st)
+        assert x_last.shape == x_ref.shape == (m, 512)
+        assert float((y - y_ref).abs().max()) <= 1e-5
+        assert float((x_last - x_ref).abs().max()) <= 1e-5
+        y_k, acts, lat = pixel_train_decode_forward(
+            pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st), 9, st)
+        acts = [[a[:b.shape[-1]].T for a, b in zip(at, tr[3])] for at, tr in zip(acts, trunks)]
+        dtable, dmean, dxp, dyp, demb, g_ref = pixel_train_decode_backward_reference(
+            table, mean, xp, yp, mask, emb, trunks, st, y_k, acts, lat[:c].T, dy, dx_last)
     ref = [dtable, dmean, dxp, dyp, demb, *flatten_pixel_params(g_ref)]
     assert len(ref) == len(grads)
     for g, r in zip(grads, ref):

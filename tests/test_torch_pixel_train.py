@@ -38,6 +38,12 @@ TRAJ_SPECS = dict(torch_parity.PIXEL_NARROW, ImageSize=[64, 64], SamplesPerScene
                                          "Factor": 0.5}])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    with torch_parity.torch_threads(1):
+        yield
+
+
 def _batch(specs, seed):
     """A synthetic batch whose camera (f = 480, c = 128, built for 256-pixel
     images) is scaled to the 64-pixel image, so that part of each scene

@@ -1,15 +1,16 @@
 """Kernel K4's plain version against the JAX package's pixel train kernel
 (``make_fused_train_decoder_pixel``) in interpret mode: the Keys cubic's
 derivative, the forward at train=False and train=True (the same hash gates,
-the object trunk hashing layer + n_layers), the gradients of every
-weight-norm parameter and bias, of the feature map, the embedding and the
-predicted hand root, and the plain backward from residuals against
-autograd; for the twin trunks and the one combined trunk.
+the object trunk hashing layer + n_layers; the classifier's logits through
+``x_last``), the gradients of every weight-norm parameter and bias, of the
+classifier head, the feature map, the embedding and the predicted hand root
+under an SDF + cross-entropy loss (so ``dx_last`` is live), and the plain
+backward from residuals, ``dx_last`` included, against autograd; for the
+twin trunks and the one combined trunk.
 
 Shapes follow ``tests/test_decoder_train_pixel.py``: an 8 x 8 map of 32
 channels, 2 scenes x 96 points, block 48 so that each scene spans two of the
-TPU kernel's grid blocks.  K4 has no x_last output yet, so the classifier
-is off (and refused).
+TPU kernel's grid blocks, and the classifier on (6 classes), as there.
 """
 
 import copy
@@ -49,7 +50,8 @@ B, N, HF, WF, LS, PFS = 2, 96, 8, 8, 32, 9
 NS = dict(dims=(96, 96, 96, 96), dropout=(0, 1, 2, 3), dropout_prob=0.2,
           norm_layers=(0, 1, 2, 3), latent_in=(2,))
 SPEC = dict(encode_style="both", point_feat_size=PFS, latent_size=LS, pixel_align=True,
-            samples_per_scene=N, sdf_scale_factor=7.0186, image_size=(64, 64))
+            samples_per_scene=N, sdf_scale_factor=7.0186, image_size=(64, 64),
+            classifier_branch=True)
 # chosen so that no hidden pre-activation of the grads test lies within
 # float32 rounding of zero (see _relu_margin)
 DATA_SEED = 0
@@ -57,7 +59,8 @@ DATA_SEED = 0
 
 def _data(seed):
     """The JAX test's inputs: an NHWC map, embedding, points spread so that
-    part of them project out of the image, camera and predicted root."""
+    part of them project out of the image, camera and predicted root; and
+    the points' part labels (-1 = none) for the cross-entropy."""
     rng = np.random.RandomState(seed)
     fmap = (rng.randn(B, HF, WF, LS) * 0.5).astype(np.float32)
     emb = (rng.randn(B * N, PFS) * 0.5).astype(np.float32)
@@ -67,7 +70,8 @@ def _data(seed):
     cam[:, 0, 2] = cam[:, 1, 2] = 32.0
     cam[:, 2, 2] = 1.0
     root = np.tile(np.asarray([0.02, -0.01, 0.55], np.float32), (B, 1, 1))
-    return fmap, emb, xyz, cam, root
+    labels = rng.randint(-1, 6, B * N)
+    return fmap, emb, xyz, cam, root, labels
 
 
 @pytest.fixture(scope="module", params=["1encoder2decoder", "1encoder1decoder"])
@@ -75,12 +79,12 @@ def pair(request):
     model_type = request.param
     jspecs = JaxSpecs(model_type=model_type, network_specs=JaxNetworkSpecs(**NS), **SPEC)
     pspecs = Specs(model_type=model_type, network_specs=NetworkSpecs(**NS), **SPEC)
-    jdec = jax_make_decoder(model_type, LS, PFS, "both", jspecs.network_specs, False)
+    jdec = jax_make_decoder(model_type, LS, PFS, "both", jspecs.network_specs, True)
     params = jax.tree_util.tree_map(
         np.asarray, jdec.init(jax.random.PRNGKey(0), jnp.zeros((8, LS + PFS)))["params"])
     fused = make_fused_train_decoder_pixel(jspecs, interpret=True, block_cap=48)
     assert fused is not None and fused.pixel and fused.block == 48  # 2 blocks a scene
-    pdec = make_decoder(model_type, LS, PFS, "both", pspecs.network_specs)
+    pdec = make_decoder(model_type, LS, PFS, "both", pspecs.network_specs, use_classifier=True)
     pdec.load_state_dict(decoder_from_jax(params))
     decode = make_pixel_train_decoder(pspecs)
     assert decode is not None and decode.pixel
@@ -88,9 +92,21 @@ def pair(request):
 
 
 def _port(data):
-    """The data as the port takes it: the map NCHW."""
-    fmap, emb, xyz, cam, root = (torch.from_numpy(a) for a in data)
+    """The decoder's inputs as the port takes them: the map NCHW."""
+    fmap, emb, xyz, cam, root = (torch.from_numpy(a) for a in data[:5])
     return fmap.permute(0, 3, 1, 2).contiguous(), emb, xyz, cam, root
+
+
+def _ce_jax(logits, labels):
+    valid = labels >= 0
+    lp = jax.nn.log_softmax(logits, axis=-1)[jnp.arange(len(labels)), jnp.maximum(labels, 0)]
+    return -jnp.sum(jnp.where(valid, lp, 0.0)) / jnp.sum(valid)
+
+
+def _ce_port(logits, labels):
+    valid = labels >= 0
+    lp = torch.log_softmax(logits, dim=-1)[torch.arange(len(labels)), labels.clamp(min=0)]
+    return -torch.sum(torch.where(valid, lp, torch.zeros_like(lp))) / valid.sum()
 
 
 def _trunks(pdec, specs, c, double=False):
@@ -150,18 +166,21 @@ def test_fixture_projects_partly_into_the_image(pair):
 
 @pytest.mark.parametrize("train", [False, True])
 def test_forward_matches_jax(pair, train):
-    """y to 2e-6 abs: both sides sample the same map and run the same
-    trunks in float32, with the same hash gates."""
+    """y and the logits (x_last @ cw + cb) to 2e-6 abs: both sides sample
+    the same map and run the same trunks in float32, with the same hash
+    gates."""
     params, fused, pdec, decode, _, data = pair
-    fmap, emb, xyz, cam, root = data
-    h1, o1, _ = fused(params, jnp.asarray(fmap), jnp.asarray(emb), jnp.asarray(xyz),
-                      jnp.asarray(cam), jnp.asarray(root), jnp.int32(7), train=train)
+    fmap, emb, xyz, cam, root, _ = data
+    h1, o1, c1 = fused(params, jnp.asarray(fmap), jnp.asarray(emb), jnp.asarray(xyz),
+                       jnp.asarray(cam), jnp.asarray(root), jnp.int32(7), train=train)
     before = pixel_train_decode.launches
     with torch.no_grad():
-        h2, o2, _ = decode(pdec, *_port(data), 7, train)
+        h2, o2, c2 = decode(pdec, *_port(data), 7, train)
     assert pixel_train_decode.launches == before  # a CPU tensor takes the plain version
     np.testing.assert_allclose(h2.numpy(), np.asarray(h1), atol=2e-6, rtol=0)
     np.testing.assert_allclose(o2.numpy(), np.asarray(o1), atol=2e-6, rtol=0)
+    assert c2.shape == (B * N, 6) and float(c2.std()) > 1e-3
+    np.testing.assert_allclose(c2.numpy(), np.asarray(c1), atol=2e-6, rtol=0)
     if train:  # dropout is live: the field moves against eval
         h0, _, _ = fused(params, jnp.asarray(fmap), jnp.asarray(emb), jnp.asarray(xyz),
                          jnp.asarray(cam), jnp.asarray(root), jnp.int32(7), train=False)
@@ -170,16 +189,18 @@ def test_forward_matches_jax(pair, train):
 
 @pytest.mark.parametrize("train", [False, True])
 def test_grads_match_jax(pair, train):
-    """Every weight_v, weight_g and bias, the feature map, the embedding and
-    the predicted root, to 2e-5 of the largest gradient of each."""
+    """Every weight_v, weight_g and bias, the classifier head, the feature
+    map, the embedding and the predicted root, to 2e-5 of the largest
+    gradient of each, under an SDF + cross-entropy loss: the logits' gradient
+    enters K4's backward as dx_last, as JAX's custom VJP takes it."""
     params, fused, pdec, decode, specs, data = pair
     assert _relu_margin(pdec, decode, specs, data, 11, train) > 2e-7
-    fmap, emb, xyz, cam, root = data
+    fmap, emb, xyz, cam, root, labels = data
 
     def loss(p, fm, e, r):
-        h, o, _ = fused(p, fm, e, jnp.asarray(xyz), jnp.asarray(cam), r, jnp.int32(11),
+        h, o, c = fused(p, fm, e, jnp.asarray(xyz), jnp.asarray(cam), r, jnp.int32(11),
                         train=train)
-        return jnp.sum(jnp.sin(h)) + jnp.sum(o ** 2)
+        return jnp.sum(jnp.sin(h)) + jnp.sum(o ** 2) + 50.0 * _ce_jax(c, jnp.asarray(labels))
 
     gp, gf, ge, gr = jax.grad(loss, argnums=(0, 1, 2, 3))(
         jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(fmap), jnp.asarray(emb),
@@ -188,8 +209,9 @@ def test_grads_match_jax(pair, train):
     fmap_t, emb_t, xyz_t, cam_t, root_t = _port(data)
     leaves = [t.requires_grad_() for t in (fmap_t, emb_t, root_t)]
     pdec.zero_grad()
-    h, o, _ = decode(pdec, fmap_t, emb_t, xyz_t, cam_t, root_t, 11, train)
-    (torch.sum(torch.sin(h)) + torch.sum(o ** 2)).backward()
+    h, o, c = decode(pdec, fmap_t, emb_t, xyz_t, cam_t, root_t, 11, train)
+    (torch.sum(torch.sin(h)) + torch.sum(o ** 2)
+     + 50.0 * _ce_port(c, torch.from_numpy(labels))).backward()
 
     def close(port, ref):
         ref = np.asarray(ref)
@@ -211,15 +233,16 @@ def test_grads_match_jax(pair, train):
                 close(layer.weight.grad.numpy().T, g["kernel"])
             close(layer.bias.grad.numpy(), g["bias"])
             count += 1
-    assert count == 5 * len(gp)
+    assert count == 5 * len(gp) + 1  # the trunks' layers and the classifier head
 
 
 @pytest.mark.parametrize("train", [False, True])
 def test_plain_backward_matches_autograd(pair, train):
     """The plain version of K4's backward, fed the forward's own y, gated
-    activations and latent (the kernel's contract), against autograd
-    through the plain forward: every gradient to 1e-5 of its largest
-    entry."""
+    activations and latent (the kernel's contract), dy and a nonzero
+    dx_last, against autograd through the plain forward with y and x_last
+    in the loss: every gradient to 1e-5 of its largest entry; dx_last
+    reaches d(table)."""
     _, _, pdec, decode, specs, data = pair
     st = decode.statics._replace(feat_hw=(HF, WF), train=train)
     with torch.no_grad():
@@ -230,12 +253,18 @@ def test_plain_backward_matches_autograd(pair, train):
     table_l, mean_l, xp_l, yp_l, emb_l = leaves[:5]
     params = unflatten_pixel_params(st, leaves[5:])
     acts, latent = [], []
-    y = pixel_train_decode_reference(table_l, mean_l, xp_l, yp_l, mask, emb_l, params, 3, st,
-                                     acts=acts, latent=latent)
-    dy = torch.from_numpy(np.random.RandomState(4).randn(*y.shape).astype(np.float32))
-    auto = torch.autograd.grad(y, leaves, dy)
+    y, x_last = pixel_train_decode_reference(table_l, mean_l, xp_l, yp_l, mask, emb_l, params,
+                                             3, st, acts=acts, latent=latent)
+    assert x_last is acts[0][-1] and x_last.shape == (B * N, 96)
+    rng = np.random.RandomState(4)
+    dy = torch.from_numpy(rng.randn(*y.shape).astype(np.float32))
+    dx_last = torch.from_numpy(rng.randn(*x_last.shape).astype(np.float32))
+    auto = torch.autograd.grad((y, x_last), leaves, (dy, dx_last))
     with torch.no_grad():
         dtable, dmean, dxp, dyp, demb, grads = pixel_train_decode_backward_reference(
+            table_l, mean_l, xp_l, yp_l, mask, emb_l, params, st, y, acts, latent[0], dy,
+            dx_last)
+        without = pixel_train_decode_backward_reference(
             table_l, mean_l, xp_l, yp_l, mask, emb_l, params, st, y, acts, latent[0], dy)
     plain = [dtable, dmean, dxp, dyp, demb, *flatten_pixel_params(grads)]
     assert len(plain) == len(auto) == 5 + len(trunks) * (4 + 2 + 2 + 5)
@@ -243,6 +272,7 @@ def test_plain_backward_matches_autograd(pair, train):
         scale = float(a.abs().max()) + 1e-12
         np.testing.assert_allclose(p.numpy() / scale, a.numpy() / scale, atol=1e-5, rtol=0)
     assert float(dmean.abs().max()) > 0 and float(dxp.abs().max()) > 0
+    assert float((without[0] - dtable).abs().max()) > 1e-3  # dx_last reaches d(table)
 
 
 @pytest.mark.parametrize("seed", [3, 2 ** 31 - 2])
@@ -265,7 +295,7 @@ def test_object_trunk_gates_match_jax(seed):
 
 def test_statics_and_refusals():
     """K4's plan follows the flagship structure and declines what the kernel
-    does not take; a classifier spec raises, naming K4's missing x_last; no
+    does not take; a classifier spec takes it (x_last feeds the head); no
     backward launch happened on the CPU."""
     specs = Specs(network_specs=NetworkSpecs(), **dict(SPEC, samples_per_scene=2000))
     st = make_pixel_train_decoder(specs).statics
@@ -278,7 +308,8 @@ def test_statics_and_refusals():
                dict(network_specs=NetworkSpecs(weight_norm=False))):
         assert make_pixel_train_decoder(Specs(**{**dict(SPEC, network_specs=NetworkSpecs()),
                                                  **kw})) is None
-    with pytest.raises(NotImplementedError, match="K4 has no x_last"):
-        make_pixel_train_decoder(Specs(**dict(SPEC, network_specs=NetworkSpecs(),
-                                              classifier_branch=True)))
+    plain = make_pixel_train_decoder(Specs(**dict(SPEC, network_specs=NetworkSpecs(),
+                                                  samples_per_scene=2000,
+                                                  classifier_branch=False)))
+    assert plain.statics == st  # the classifier reads x_last; K4's structure is the same
     assert pixel_train_decode_backward.launches == 0

@@ -1,8 +1,9 @@
 """The port's training path against the JAX package on seeded numpy inputs:
 losses and masks, the LR schedule, Adam against optax, a 3-step trajectory
 of the whole train step (the factored Pallas decoder in interpret mode on
-the JAX side, K2's plain version on the port's), the checkpoint round trip
-and the CLI's refusal to drop to the CPU."""
+the JAX side, K2's plain version on the port's), K2's refusal of a latent
+input at the last layer, the checkpoint round trip, the CLI's refusal to
+drop to the CPU and its float32 precision."""
 
 import dataclasses
 import json
@@ -20,12 +21,14 @@ from alignsdf_tpu.ops.decoder_train_kernel import make_fused_train_decoder_facto
 from alignsdf_tpu.training import losses as jax_losses
 from alignsdf_tpu.training import train_state as jax_train_state
 from alignsdf_tpu.training import train_step as jax_train_step
+from alignsdf_torch.cli import reconstruct as reconstruct_cli
 from alignsdf_torch.cli import train as train_cli
 from alignsdf_torch.cli.reconstruct import load_reference_weights
-from alignsdf_torch.config import Specs, load_specs, specs_from_dict
+from alignsdf_torch.config import NetworkSpecs, Specs, load_specs, specs_from_dict, specs_to_dict
 from alignsdf_torch.convert import from_jax
 from alignsdf_torch.data.synthetic import synthetic_train_batch
 from alignsdf_torch.models.alignsdf import build_model
+from alignsdf_torch.ops.train_plan import make_train_decoder
 from alignsdf_torch.training import checkpoints
 from alignsdf_torch.training.losses import compute_losses
 from alignsdf_torch.training.train_state import (
@@ -41,6 +44,16 @@ from alignsdf_torch.training.train_step import (
 )
 
 import torch_parity
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test's own torch work on one thread (torch_parity.torch_threads).
+    Function-scoped, so the module-scoped trajectory below runs at the
+    default thread count: its per-entry bound on the decoder's updates is
+    met at that count's summation order."""
+    with torch_parity.torch_threads(1):
+        yield
+
 
 LOSS_SPECS = dict(samples_per_scene=6, mano_branch=True, object_pose_branch=True,
                   classifier_branch=True, penetration_loss=True, contact_loss=True,
@@ -218,6 +231,18 @@ def test_trajectory_parameters_match_jax(trajectories):
             assert float((d_port - d_jax).abs().max()) <= 1e-5, k
 
 
+def test_train_decoder_refuses_a_last_layer_latent_in():
+    """K2 folds the latent into layer 0's and the latent_in layers' scene
+    tables and does not re-inject it at the final layer: a spec whose
+    latent_in names the last layer (index len(dims)) gets no K2 decoder, and
+    the train step refuses it by name; the layer before still takes K2."""
+    last = Specs(network_specs=NetworkSpecs(latent_in=(4,)))
+    assert make_train_decoder(last) is None
+    with pytest.raises(NotImplementedError, match="no fused train kernel"):
+        make_train_step(last)
+    assert make_train_decoder(Specs(network_specs=NetworkSpecs(latent_in=(3,)))) is not None
+
+
 def _tiny_spec_file(tmp_path):
     path = os.path.join(tmp_path, "spec.json")
     with open(path, "w") as f:
@@ -262,6 +287,41 @@ def test_cli_needs_cuda_unless_cpu_is_named(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_cli.main(["-e", spec, "--smoke"])
     train_cli.main(["-e", spec, "--smoke", "--device", "cpu"])
+
+
+def test_clis_run_float32_with_tf32_off(tmp_path, monkeypatch):
+    """Both CLIs turn TF32 off for matmuls and cuDNN convolutions before they
+    build a model (alignsdf_torch.use_float32_precision), whatever the
+    process had set: the mode every reported time and parity check uses."""
+    spec = _tiny_spec_file(str(tmp_path))
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    before = [f.allow_tf32 for f in flags]
+
+    class Stop(Exception):
+        pass
+
+    def stop(*args, **kwargs):
+        assert [f.allow_tf32 for f in flags] == [False, False]
+        raise Stop
+
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        train_cli.main(["-e", spec, "--smoke", "--device", "cpu"])
+        assert [f.allow_tf32 for f in flags] == [False, False]
+        for f in flags:
+            f.allow_tf32 = True
+        exp = tmp_path / "exp"
+        exp.mkdir()
+        with open(exp / "specs.json", "w") as f:
+            json.dump(specs_to_dict(load_specs(spec)), f)
+        monkeypatch.setattr(reconstruct_cli, "build_model", stop)
+        with pytest.raises(Stop):
+            reconstruct_cli.main(["-e", str(exp), "--samples", str(tmp_path / "none.npz"),
+                                  "--device", "cpu"])
+    finally:
+        for f, value in zip(flags, before):
+            f.allow_tf32 = value
 
 
 @pytest.mark.parametrize("flag", [["--no_aug"], ["--bg_aug"], ["--epoch", "5"],

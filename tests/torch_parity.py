@@ -2,13 +2,17 @@
 model built in JAX at a seed, its parameters converted into the port, and
 seeded numpy samples."""
 
+import contextlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
+import torch
 
 from alignsdf_tpu.config import specs_from_dict as jax_specs_from_dict
 from alignsdf_tpu.models.alignsdf import build_model as jax_build_model
 from alignsdf_tpu.models.alignsdf import full_variables
+from alignsdf_tpu.models.torch_import import convert_alignsdf
 from alignsdf_torch.config import specs_from_dict
 from alignsdf_torch.convert import from_jax
 from alignsdf_torch.models.alignsdf import build_model
@@ -88,3 +92,42 @@ def build_pair(specs_dict=FLAGSHIP_NARROW, seed: int = 0):
     pmodel = build_model(pspecs)
     pmodel.load_state_dict(from_jax(v["params"], v["batch_stats"], pspecs))
     return jmodel, variables, pmodel, jspecs, pspecs
+
+
+def build_pair_from_port(specs_dict, seed: int = 0):
+    """build_pair's (JAX model, JAX variables, port model, JAX specs, port
+    specs), the weights drawn by the port's seeded init and imported into
+    JAX by the JAX package's reference importer (``convert_alignsdf``, which
+    ``tests/test_torch_model.py`` holds to invert ``from_jax`` exactly): no
+    compiled JAX init.  Batch statistics are randomized so BatchNorm is not
+    the identity."""
+    jspecs = jax_specs_from_dict(specs_dict)
+    jmodel = jax_build_model(jspecs)
+    pspecs = specs_from_dict(specs_dict)
+    pmodel = build_model(pspecs, seed=seed)
+    rng = np.random.RandomState(seed + 100)
+    with torch.no_grad():
+        for m in pmodel.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.copy_(torch.from_numpy(
+                    (rng.randn(*m.running_mean.shape) * 0.1).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(
+                    (rng.rand(*m.running_var.shape) + 0.5).astype(np.float32)))
+    params, stats = convert_alignsdf(pmodel.state_dict(), jspecs, (2, 2, 2, 2))
+    variables = jax.tree_util.tree_map(np.asarray, full_variables(jmodel, params, stats))
+    return jmodel, variables, pmodel, jspecs, pspecs
+
+
+@contextlib.contextmanager
+def torch_threads(count: int):
+    """Run torch's CPU ops on ``count`` intra-op threads, then restore the
+    count.  The repo's test command runs six pytest workers on one
+    machine's cores; each worker's torch would otherwise start a thread per
+    core, and the oversubscribed threads spin, slowing small torch work
+    many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(count)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
