@@ -5,7 +5,7 @@ Usage:
     python -m alignsdf_torch.cli.reconstruct -e <experiment_dir> -t obman \\
         --samples samples.npz [--checkpoint latest | --weights model.pth] \\
         [--start_point A --end_point B] [--cube_dim 128] [--device cuda] \\
-        [--ref_pixel_projection] [--label [--viz]]
+        [--ref_pixel_projection] [--label [--viz]] [--pallas]
 
 Weights are a reference-schema torch checkpoint,
 ``<experiment_dir>/ModelParameters/<checkpoint>.pth`` ({"epoch",
@@ -13,7 +13,11 @@ Weights are a reference-schema torch checkpoint,
 from an npz holding ``image`` (S, H, W, 3) uint8, ``cam_intr`` (S, 3, 4),
 ``mano_root`` (S, 3), ``rest_obj_corners`` (S, 8, 3) and ``key`` (S,).
 Outputs go to ``<experiment_dir>/Eval_<task>/``.  A pixel-aligned
-experiment (``PixelAlign``) reconstructs through kernel K3.  With a
+experiment (``PixelAlign``) reconstructs through kernel K3, the others
+through K1, where the embedding is affine in xyz.  Otherwise (e.g. NeRF PE
+with point_size > 3) the grid decodes materialized [latent, embedding] rows:
+through kernel K6 with ``--pallas``, as the JAX CLI's ``--pallas`` runs its
+generic Pallas decoder, else through the plain decoder.  With a
 classifier (``ClassifierBranch``), ``--label`` writes the hand mesh's
 per-vertex part labels (``meshes/<key>_hand_label.npz``) and ``--viz`` the
 mesh colored by part (``meshes/<key>_hand_color.ply``).
@@ -34,6 +38,7 @@ from alignsdf_torch import resolve_device, use_float32_precision
 from alignsdf_torch.config import specs_from_dict
 from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
 from alignsdf_torch.models.alignsdf import build_model
+from alignsdf_torch.ops.decoder_plan import make_generic_decode_fn
 
 logger = logging.getLogger("alignsdf_torch.reconstruct")
 
@@ -87,6 +92,9 @@ def main(argv=None):
                         help="classifier configs: write the hand mesh's per-vertex part labels")
     parser.add_argument("--viz", action="store_true",
                         help="with --label: also write the hand mesh colored by part")
+    parser.add_argument("--pallas", action="store_true",
+                        help="decode the generic grid path (configs the fused K1/K3 path "
+                             "does not take) through kernel K6 instead of the plain decoder")
     args = parser.parse_args(argv)
 
     logging.basicConfig(force=True, level=logging.INFO,
@@ -107,7 +115,13 @@ def main(argv=None):
     mano_faces = np.load(os.path.join(os.path.dirname(os.path.dirname(__file__)),
                                       "assets", "closed_fmano.npy"))
     recon = Reconstructor(model, specs, cube_dim=args.cube_dim, device=device,
-                          mano_faces=mano_faces, pixel_ref_projection=args.ref_pixel_projection)
+                          mano_faces=mano_faces, pixel_ref_projection=args.ref_pixel_projection,
+                          decode_fn=make_generic_decode_fn(specs) if args.pallas else None)
+    if recon.fused:
+        logger.info("grid: the fused path (kernel %s)", "K3" if specs.pixel_align else "K1")
+    else:
+        logger.info("grid: the generic path on materialized rows, through %s",
+                    "kernel K6 (--pallas)" if args.pallas else "the plain decoder")
 
     t0 = time.time()
 

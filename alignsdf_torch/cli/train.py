@@ -7,10 +7,13 @@ Usage:
         [--add_epoch E] [--smoke | --steps N] [--device cuda] [--no_init_guard]
 
 The flagship trains its twin trunks through kernel K2; with ``--pa_feat``
-(a latent sampled per point from the HeadNet map) through kernel K4.  With
-``--cls`` (the hand-part classifier, e.g. on experiments/dexycb_140k.json)
-K2 also gives the hand trunk's last hidden activation, whose logits feed the
-cross-entropy from AdditionalLossStart (``--add_epoch``) on.
+(a latent sampled per point from the HeadNet map) through kernel K4; a spec
+whose NetworkSpecs put a latent input at layer 0 (``latent_in`` holding 0),
+which both decline, through kernel K5 on materialized [latent, embedding]
+rows.  The log names the decoder.  With ``--cls`` (the hand-part
+classifier, e.g. on experiments/dexycb_140k.json) the kernel also gives the
+hand trunk's last hidden activation, whose logits feed the cross-entropy
+from AdditionalLossStart (``--add_epoch``) on.
 
 The dataset reader is not ported yet, so training runs on synthetic batches
 (``data/synthetic.py``) of ScenesPerBatch scenes: ``--smoke`` takes 2 steps
@@ -40,6 +43,7 @@ from alignsdf_torch.training.train_step import (
     healthy_init_train_state,
     init_train_state,
     make_train_step,
+    train_decoder_kind,
 )
 
 logger = logging.getLogger("alignsdf_torch.train")
@@ -55,7 +59,8 @@ def make_trainer(specs: cfg.Specs, device, seed: int = 0,
     re-draws the seeded init until its probe predictions sit inside the
     clamp band (unless ``init_guard`` is False); ``step(state, batch, seed)``
     is the spec's train step: through K4 for a pixel-aligned spec
-    (``--pa_feat``), through K2 otherwise."""
+    (``--pa_feat``), else K2, else K5 (``train_step.make_spec_train_decoder``;
+    ``step.decode`` is the decoder)."""
     if init_guard and specs.clamping_distance:
         state, tries = healthy_init_train_state(specs, device, seed)
         if tries > 1:
@@ -94,6 +99,7 @@ def main(argv: Optional[list] = None) -> None:
     seed = specs.random_seed or 0
     state, step = make_trainer(specs, device, seed,
                                init_guard=not (args.smoke or args.no_init_guard))
+    logger.info("train decoder: %s", train_decoder_kind(step.decode))
     gen = torch.Generator().manual_seed(seed)
 
     if args.smoke:

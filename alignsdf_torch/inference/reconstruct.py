@@ -3,7 +3,9 @@
 side of utils/mesh.py).
 
 Per image: encode -> MANO and object pose -> two-pass grid (kernel K1, or
-K3 for pixel-aligned configs, when the config allows the fused path) ->
+K3 for pixel-aligned configs, when the config allows the fused path; else
+the generic path's ``decode_fn`` on materialized rows: the plain decoder, or
+kernel K6 with ``ops/decoder_plan.make_generic_decode_fn``) ->
 marching cubes -> PLY/JSON exports; with ``label_out``, the hand-part labels
 at the hand mesh's vertices (reference utils/mesh.py:137-184).
 ``submit`` enqueues the device work on the reconstructor's CUDA stream and
@@ -68,14 +70,18 @@ def fused_grid_allowed(specs: Specs) -> bool:
 class Reconstructor:
     """Encoder and grid evaluator of one model, on one device.
 
-    ``pixel_ref_projection``: for pixel-aligned configs, project the
-    embedding's first three columns as the reference's mesh path does,
-    instead of the raw grid coordinates (inference/grid.py)."""
+    ``decode_fn(ctx, rows)`` decodes the generic path's materialized rows
+    (default: the plain decoder; JAX's ``--pallas`` passes K6); the fused
+    path (K1 or K3) still wins where the config allows it, and ``fused``
+    says whether it does.  ``pixel_ref_projection``: for pixel-aligned
+    configs, project the embedding's first three columns as the reference's
+    mesh path does, instead of the raw grid coordinates (inference/grid.py)."""
 
     def __init__(self, model, specs: Specs, cube_dim: int = 128,
                  device: Optional[Union[str, torch.device]] = None,
                  mano_faces: Optional[np.ndarray] = None,
-                 pixel_ref_projection: bool = False):
+                 pixel_ref_projection: bool = False,
+                 decode_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.specs = specs
@@ -86,8 +92,12 @@ class Reconstructor:
         if fused_grid_allowed(specs):
             grid_decode_fn = (make_pixel_grid_decode_fn(specs, cube_dim, pixel_ref_projection)
                               if specs.pixel_align else make_grid_decode_fn(specs, cube_dim))
-        self.evaluate_grid = make_grid_evaluator(lambda ctx, rows: ctx["decoder"](rows), specs,
-                                                 cube_dim, grid_decode_fn=grid_decode_fn,
+        if decode_fn is None:
+            def decode_fn(ctx, rows):
+                return ctx["decoder"](rows)
+        self.fused = grid_decode_fn is not None
+        self.evaluate_grid = make_grid_evaluator(decode_fn, specs, cube_dim,
+                                                 grid_decode_fn=grid_decode_fn,
                                                  pixel_ref_projection=pixel_ref_projection)
         self.stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda" else None)
 

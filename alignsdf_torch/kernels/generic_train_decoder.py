@@ -1,0 +1,256 @@
+"""Kernel K5: one generic decoder trunk for training on materialized input
+rows, forward and backward, with its plain PyTorch version and the wrappers
+that launch the CUDA kernels (``csrc/generic_train_decoder.cu``).
+
+Replaces ``alignsdf_tpu/ops/decoder_train_kernel.py:fused_branch`` (forward
+``_fused_branch_fwd`` / ``_fwd_kernel``, backward ``_fused_branch_bwd`` /
+``_bwd_kernel``).  Each point's input row x0 (M, e) is its [latent,
+embedding] row, so layer ``l`` computes
+
+    acc = a_{l-1} @ W_l (if W_l) + x0 @ X_l (if X_l) + b_l
+
+with X_0 layer 0's weight and X_l a latent_in layer's W_in, then ReLU and
+K2's hash dropout gate on hidden layers (global row, true lane), tanh on the
+last layer, which takes no re-injection.  That is K2's function with x0 in
+place of the embedding and no scene table, so the plain versions are K2's
+(``train_decode_reference``, ``train_decode_backward_reference``) on
+statics whose ``scene_bias`` is all False.  The forward also gives
+``x_last``, the last hidden layer's gated activation; the backward takes its
+gradient ``dx_last`` and gives d(x0) over the whole row.
+
+``generic_train_decode`` takes the plain version for a CPU tensor, on which
+autograd gives the gradients.  For a CUDA tensor it runs
+``GenericTrainDecodeFunction``, whose forward and backward launch the
+kernels or raise.  ``generic_train_decode.launches`` counts forward launches
+and ``generic_train_decode_backward.launches`` backward launches: one each
+per trunk per train step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from alignsdf_torch.kernels.train_decoder import (
+    _M32,
+    MAX_SMEM,
+    PAD,
+    TrainStatics,
+    _pad2,
+    _ptr,
+    _round_up,
+    _run,
+    flatten_params,
+    gate_threshold,
+    train_decode_backward_reference,
+    train_decode_reference,
+    unflatten_params,
+)
+
+MAX_LAYERS = 10
+MAX_OUT = 2       # outputs of the last layer
+_TILE_P, _BK = 32, 32
+
+# the plain versions: K2's, on statics without scene tables
+generic_train_decode_reference = train_decode_reference
+generic_train_decode_backward_reference = train_decode_backward_reference
+
+
+class _Packed(NamedTuple):
+    """Padded, contiguous copies of one trunk in the kernels' layout."""
+
+    x0_t: torch.Tensor                  # (e, M)
+    w: List[Optional[torch.Tensor]]     # hidden (in_pad, out_pad); last (in_pad, n_out)
+    wt: List[Optional[torch.Tensor]]    # transposes of w
+    x: List[Optional[torch.Tensor]]     # (e_pad, out_pad)
+    xt: List[Optional[torch.Tensor]]    # (out_pad, e_tpad)
+    b: List[torch.Tensor]               # (out_pad,)
+    out_pads: List[int]
+    e_pad: int                          # the input row padded to the forward's k tiles
+    e_tpad: int                         # ... to the backward's 256-column output chunks
+
+
+def _check(x0, ws, xs, bs, st: TrainStatics) -> int:
+    """Raise on what the kernels do not take; returns n_out."""
+    n_layers = len(bs)
+    m = x0.shape[0]
+    if not 2 <= n_layers <= MAX_LAYERS:
+        raise ValueError(f"the kernel takes 2-{MAX_LAYERS} layers, got {n_layers}")
+    if ws[0] is not None or xs[0] is None or any(w is None for w in ws[1:]):
+        raise ValueError("layer 0 reads only the input row; later layers their input")
+    if xs[-1] is not None:
+        raise ValueError("the last layer takes no re-injection of the input row")
+    if any(st.scene_bias) or any(b.dim() != 1 for b in bs):
+        raise ValueError("the generic trunk has no scene tables")
+    n_out = bs[-1].shape[-1]
+    if not 1 <= n_out <= MAX_OUT:
+        raise ValueError(f"{n_out} outputs are outside the kernel")
+    if m <= 0 or m % 4 or m >= 2 ** 31:
+        raise ValueError(f"M = {m} must be a positive multiple of 4")
+    for t in [x0, *ws, *xs, *bs]:
+        if t is not None and (t.dtype != torch.float32 or t.device != x0.device):
+            raise ValueError("every operand must be float32 on the input's device")
+    return n_out
+
+
+def pack_generic_trunk(x0, ws, xs, bs, st: TrainStatics) -> _Packed:
+    """Padded, contiguous copies of one trunk's operands (detached) for the
+    kernels; raises on what they do not take."""
+    n_out = _check(x0, ws, xs, bs, st)
+    n_layers = len(bs)
+    e = x0.shape[1]
+    e_pad, e_tpad = _round_up(e, _BK), _round_up(e, PAD)
+    w, wt, x, xt, b, out_pads = [], [], [], [], [], []
+    in_pad = 0
+    for layer in range(n_layers):
+        out = bs[layer].shape[-1]
+        out_pad = n_out if layer == n_layers - 1 else _round_up(out, PAD)
+        wl = None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad)
+        w.append(wl)
+        wt.append(None if wl is None else wl.T.contiguous())
+        x.append(None if xs[layer] is None else _pad2(xs[layer], e_pad, out_pad))
+        xt.append(None if xs[layer] is None else _pad2(xs[layer].T, out_pad, e_tpad))
+        b.append(_pad2(bs[layer][None], 1, out_pad)[0])
+        out_pads.append(out_pad)
+        in_pad = out_pad
+    return _Packed(x0.T.contiguous(), w, wt, x, xt, b, out_pads, e_pad, e_tpad)
+
+
+def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, dx0=None, dpre=None,
+                grads=None, dx_last=None) -> np.ndarray:
+    """The int64 descriptor ``generic_train_decoder.cu`` parses (see its
+    header)."""
+    n_layers = len(p.b)
+    e, m = p.x0_t.shape
+    desc = [n_layers, p.out_pads[-1], e, p.e_pad, p.e_tpad, m, _ptr(p.x0_t), _ptr(y), _ptr(dy),
+            _ptr(dx0), _ptr(dx_last), 0 if dx_last is None else dx_last.shape[1]]
+    in_pad = 0
+    for layer in range(n_layers):
+        hidden = layer < n_layers - 1
+        dw, dx, db = grads[layer] if grads is not None else (None, None, None)
+        desc += [_ptr(p.w[layer]), _ptr(p.wt[layer]), _ptr(p.x[layer]), _ptr(p.xt[layer]),
+                 _ptr(p.b[layer]), _ptr(acts[layer]) if hidden else 0,
+                 _ptr(dpre[layer]) if dpre is not None else 0, _ptr(dw), _ptr(dx), _ptr(db),
+                 in_pad, p.out_pads[layer], int(hidden and st.train and st.dropout[layer])]
+        in_pad = p.out_pads[layer]
+    return np.ascontiguousarray(desc, np.int64)
+
+
+def fwd_smem_bytes(max_pad: int, e_pad: int) -> int:
+    return 4 * (2 * max_pad * _TILE_P + _BK * PAD + e_pad * _TILE_P + 8 * _TILE_P)
+
+
+def _lib():
+    from alignsdf_torch.kernels.build import load
+
+    lib = load("generic_train_decoder")
+    if not getattr(lib, "_typed", False):
+        lib.generic_train_decoder_fwd.restype = ctypes.c_int
+        lib.generic_train_decoder_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                                                  ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+        lib.generic_train_decoder_bwd.restype = ctypes.c_int
+        lib.generic_train_decoder_bwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                                                  ctypes.c_void_p]
+        lib._typed = True
+    return lib
+
+
+def generic_train_decode_forward(p: _Packed, seed: int, st: TrainStatics):
+    """K5 forward on the card: y (n_out, M) and the gated activations of the
+    hidden layers, each (out_pad, M)."""
+    e, m = p.x0_t.shape
+    dev = p.x0_t.device
+    if fwd_smem_bytes(max(p.out_pads[:-1]), p.e_pad) > MAX_SMEM:
+        raise ValueError(f"hidden width {max(p.out_pads[:-1])} and input width {e} need more "
+                         "shared memory than a block has")
+    y = torch.empty((p.out_pads[-1], m), dtype=torch.float32, device=dev)
+    acts = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads[:-1]]
+    desc = _descriptor(p, st, y, acts)
+    _run("generic_train_decoder_fwd", _lib().generic_train_decoder_fwd, dev, desc.ctypes.data,
+         int(desc.size), seed & _M32, gate_threshold(st.keep), float(np.float32(1.0 / st.keep)))
+    generic_train_decode.launches += 1
+    return y, acts
+
+
+def generic_train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
+                                  acts: List[torch.Tensor], dy: torch.Tensor,
+                                  dx_last: Optional[torch.Tensor] = None):
+    """K5 backward on the card: the reverse chain per point tile (adding
+    ``dx_last`` (M, h), if given, to the final layer's input gradient, then
+    writing each layer's pre-activation gradient and adding d(x0)), then per
+    layer the weight, input-weight and bias reductions over all M points.
+    Returns (dx0 (M, e), a view of (e, M), [(dW | None, dX | None, db)]
+    padded)."""
+    e, m = p.x0_t.shape
+    dev = p.x0_t.device
+    dy = dy.to(torch.float32).contiguous()
+    if dx_last is not None:
+        dx_last = dx_last.to(torch.float32).contiguous()
+        if dx_last.shape[0] != m or not 1 <= dx_last.shape[1] <= p.out_pads[-2]:
+            raise ValueError(f"dx_last {tuple(dx_last.shape)} does not fit the trunk")
+    dx0 = torch.zeros((e, m), dtype=torch.float32, device=dev)
+    dpre = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads]
+    grads = []
+    for layer in range(len(p.b)):
+        dw = None if p.w[layer] is None else torch.zeros_like(p.w[layer])
+        dx = (None if p.x[layer] is None
+              else torch.zeros((e, p.out_pads[layer]), dtype=torch.float32, device=dev))
+        grads.append((dw, dx, torch.zeros_like(p.b[layer])))
+    desc = _descriptor(p, st, y, acts, dy=dy, dx0=dx0, dpre=dpre, grads=grads, dx_last=dx_last)
+    _run("generic_train_decoder_bwd", _lib().generic_train_decoder_bwd, dev, desc.ctypes.data,
+         int(desc.size), float(np.float32(1.0 / st.keep)))
+    generic_train_decode_backward.launches += 1
+    return dx0.T, grads
+
+
+class GenericTrainDecodeFunction(torch.autograd.Function):
+    """K5 over one trunk: (y, x_last).  Inputs are unpadded, as the plain
+    version takes them, flattened as (x0, ws that exist, xs that exist, bs);
+    the padding happens here and the padded rows and columns of every
+    gradient are dropped on the way out.  The gated activations are the
+    residuals; x_last is a view of the last one.  The backward takes dx_last
+    = None when x_last fed nothing (no classifier)."""
+
+    @staticmethod
+    def forward(ctx, st: TrainStatics, seed: int, x0: torch.Tensor, *params):
+        ws, xs, bs = unflatten_params(st, params)
+        packed = pack_generic_trunk(x0.detach(), [None if w is None else w.detach() for w in ws],
+                                    [None if x is None else x.detach() for x in xs],
+                                    [b.detach() for b in bs], st)
+        y, acts = generic_train_decode_forward(packed, seed, st)
+        ctx.st, ctx.packed, ctx.acts, ctx.y = st, packed, acts, y
+        ctx.shapes = ([None if w is None else w.shape for w in ws],
+                      [None if x is None else x.shape for x in xs], [b.shape for b in bs])
+        ctx.set_materialize_grads(False)
+        return y, acts[-1][:bs[-2].shape[-1]].T
+
+    @staticmethod
+    def backward(ctx, dy: Optional[torch.Tensor], dx_last: Optional[torch.Tensor]):
+        if dy is None:
+            dy = torch.zeros_like(ctx.y)
+        dx0, grads = generic_train_decode_backward(ctx.packed, ctx.st, ctx.y, ctx.acts, dy,
+                                                   dx_last)
+        w_shapes, x_shapes, b_shapes = ctx.shapes
+        d_w = [dw[:s[0], :s[1]] for (dw, _, _), s in zip(grads, w_shapes) if s is not None]
+        d_x = [dx[:, :s[1]] for (_, dx, _), s in zip(grads, x_shapes) if s is not None]
+        d_b = [db[:s[-1]] for (_, _, db), s in zip(grads, b_shapes)]
+        return (None, None, dx0, *d_w, *d_x, *d_b)
+
+
+def generic_train_decode(x0: torch.Tensor, ws: Sequence[Optional[torch.Tensor]],
+                         xs: Sequence[Optional[torch.Tensor]], bs: Sequence[torch.Tensor],
+                         seed: int, st: TrainStatics) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: the (n_out, M) tanh'd outputs of one trunk and x_last (M, h),
+    both differentiable in x0 and every weight and bias."""
+    if x0.device.type == "cpu":
+        return generic_train_decode_reference(x0, ws, xs, bs, seed, st)
+    if x0.device.type != "cuda":
+        raise ValueError(f"generic_train_decode runs on cuda or cpu, not {x0.device}")
+    return GenericTrainDecodeFunction.apply(st, seed, x0, *flatten_params(ws, xs, bs))
+
+
+generic_train_decode.launches = 0
+generic_train_decode_backward.launches = 0

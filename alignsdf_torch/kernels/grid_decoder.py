@@ -115,7 +115,9 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
     [n_trunks, fin_b, max_pad, *head, then per trunk n_hidden, fin, fin_xyz,
     last_pad, then per hidden layer ``place_layer(place, layer, in_pad,
     out_pad)``], where ``place(shape, fill)`` reserves an array with
-    ``fill`` in its top-left and returns its offset."""
+    ``fill`` in its top-left and returns its offset.  A trunk's ``fin_x``
+    (k, len(rows)) lands as (n_rows, k): k is 3 xyz columns for K1 and K3,
+    the padded input row for K6."""
     if not 1 <= len(trunks) <= _MAX_TRUNKS:
         raise ValueError(f"the kernel takes 1 or 2 trunks, got {len(trunks)}")
     pieces: List[Tuple[int, Tuple[int, ...], torch.Tensor]] = []
@@ -149,9 +151,9 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
         fin[list(t.rows)] = t.fin.T
         fin_xyz = -1
         if t.fin_x is not None:
-            fx = torch.zeros(n_rows, 3, dtype=torch.float32, device=device)
+            fx = torch.zeros(n_rows, t.fin_x.shape[0], dtype=torch.float32, device=device)
             fx[list(t.rows)] = t.fin_x.T
-            fin_xyz = place((n_rows, 3), fx)
+            fin_xyz = place(tuple(fx.shape), fx)
         desc += [len(t.hidden), place((n_rows, in_pad), fin), fin_xyz, in_pad]
         for layer in layers:
             desc += layer

@@ -66,6 +66,17 @@ def embedding_affine(specs: Specs, ctx: Dict[str, Any],
     return emb[1:4] - emb[0][None], emb[0]
 
 
+def first_layer_weight(w: torch.Tensor, in_dim: int, specs: NetworkSpecs) -> torch.Tensor:
+    """Layer 0's (in_dim, out) weight on the trunk's input.  With 0 in
+    ``latent_in`` the layer reads [input, input], so both halves multiply
+    the same rows and are summed.  The JAX package's fused grid kernel keeps
+    only the first half (``decoder_kernel.py:334-335``), which changes the
+    field; its generic decoder sums both."""
+    if 0 in specs.latent_in:
+        return w[:in_dim] + w[in_dim:2 * in_dim]
+    return w
+
+
 def build_grid_branch_plan(
     layers: List[Tuple[torch.Tensor, torch.Tensor]],
     latent: torch.Tensor,
@@ -93,7 +104,7 @@ def build_grid_branch_plan(
         w = weight.to(torch.float32).T  # (in, out)
         b = b.to(torch.float32)
         if layer == 0:
-            x, b = fold(w, b)
+            x, b = fold(first_layer_weight(w, in_dim, specs), b)
             mm = None
         elif layer in specs.latent_in:
             # the torch layer's input was [x (cur_dim), input (in_dim)]
@@ -112,12 +123,12 @@ def build_grid_branch_plan(
 def with_classifier(trunk, head: torch.nn.Module):
     """The trunk (a FoldedTrunk, or K3's PixelTrunk) with the classifier's
     logits cw a + cb appended as final rows 2.. on the same input a (the
-    last hidden activation), their bias in ``fin_b``; they read no xyz term
-    (zero columns of ``fin_x``) and no latent."""
+    last hidden activation), their bias in ``fin_b``; they read no xyz or
+    input term (zero columns of ``fin_x``) and no latent."""
     cw, cb = (t.to(torch.float32) for t in materialize_linear(head))
     c = cw.shape[0]
     fin_x = (None if trunk.fin_x is None
-             else torch.cat([trunk.fin_x, trunk.fin_x.new_zeros(3, c)], dim=1))
+             else torch.cat([trunk.fin_x, trunk.fin_x.new_zeros(trunk.fin_x.shape[0], c)], dim=1))
     return trunk._replace(fin=torch.cat([trunk.fin, cw.T], dim=1), fin_x=fin_x,
                           fin_b=torch.cat([trunk.fin_b, cb]),
                           rows=[*trunk.rows, *range(2, 2 + c)])

@@ -31,6 +31,7 @@ from alignsdf_torch.models.layers import materialize_linear
 from alignsdf_torch.ops.grid_plan import (
     branch_columns,
     embedding_affine,
+    first_layer_weight,
     fused_embedding,
     with_classifier,
 )
@@ -62,7 +63,7 @@ def build_pixel_grid_branch_plan(
         w = weight.to(torch.float32).T  # (in, out)
         b = b.to(torch.float32)
         if layer == 0:
-            lat, x, b = fold(w, b)
+            lat, x, b = fold(first_layer_weight(w, in_dim, specs), b)
             mm = None
         elif layer in specs.latent_in:
             # the torch layer's input was [x (cur_dim), input (in_dim)]

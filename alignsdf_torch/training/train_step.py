@@ -1,10 +1,11 @@
 """The training step on one device (the JAX package's
-``training/train_step.py``, its scene-factored and pixel branches): the
-model's front half with BatchNorm in batch-statistic mode, the trunks
-through K2 (``ops/train_plan.py``) or, for a pixel-aligned spec, through K4
-(``ops/pixel_train_plan.py``), the reference's losses and masks, Adam with
-the step LR.  Also the per-point loss masks and the clamp dead-zone init
-guard.
+``training/train_step.py``, its scene-factored, pixel and materialized-input
+branches): the model's front half with BatchNorm in batch-statistic mode,
+the trunks through K4 for a pixel-aligned spec (``ops/pixel_train_plan.py``),
+else K2 (``ops/train_plan.py``), else, for the specs both decline (``0 in
+latent_in``), K5 on materialized rows (``ops/generic_train_plan.py``), the
+reference's losses and masks, Adam with the step LR.  Also the per-point
+loss masks and the clamp dead-zone init guard.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from alignsdf_torch.config import Specs
 from alignsdf_torch.data.synthetic import synthetic_train_batch
 from alignsdf_torch.models.alignsdf import build_model
+from alignsdf_torch.ops.generic_train_plan import make_generic_train_decoder
 from alignsdf_torch.ops.pixel_train_plan import make_pixel_train_decoder
 from alignsdf_torch.ops.train_plan import make_train_decoder
 from alignsdf_torch.training.losses import compute_losses
@@ -74,20 +76,40 @@ def _bn_buffers(model: torch.nn.Module):
             for b in (m.running_mean, m.running_var, m.num_batches_tracked) if b is not None]
 
 
+def make_spec_train_decoder(specs: Specs) -> Optional[Callable]:
+    """The spec's train decoder, routed as the JAX CLI routes it
+    (``cli/train.py:225-228``): K4 for a pixel-aligned spec, else the
+    scene-factored K2, else K5 on materialized rows; None where all three
+    decline.  For the port, K5 takes exactly the specs with 0 in
+    ``latent_in``, flat or pixel-aligned."""
+    return (make_pixel_train_decoder(specs) or make_train_decoder(specs)
+            or make_generic_train_decoder(specs))
+
+
+def train_decoder_kind(decode: Callable) -> str:
+    """How a train decoder reads its inputs, and its kernel, for the logs."""
+    if getattr(decode, "pixel", False):
+        return "pixel-aligned (K4)"
+    if getattr(decode, "materialized", False):
+        return "materialized inputs (K5)"
+    return "scene-factored (K2)"
+
+
 def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable:
     """step(state, batch, seed, mark=None) -> losses (detached tensors).
 
-    ``decode`` defaults to the spec's train decoder: K4 for a pixel-aligned
-    spec, where both trunks draw their dropout from ``seed``; K2 otherwise,
-    where the hand trunk draws from ``seed`` and the object trunk from
-    ``seed + 1``.  ``mark``, if given, is called with "inputs", "decoder",
-    "loss", "backward" and "optimizer" as each phase has been enqueued (for
-    timing)."""
+    ``decode`` defaults to ``make_spec_train_decoder(specs)``: K4, where both
+    trunks draw their dropout from ``seed``; K2 or K5, where the hand trunk
+    draws from ``seed`` and the object trunk from ``seed + 1``.  ``mark``, if
+    given, is called with "inputs", "decoder", "loss", "backward" and
+    "optimizer" as each phase has been enqueued (for timing).  ``step.decode``
+    is the decoder it runs."""
     if decode is None:
-        decode = (make_pixel_train_decoder if specs.pixel_align else make_train_decoder)(specs)
+        decode = make_spec_train_decoder(specs)
     if decode is None:
         raise NotImplementedError("this decoder structure has no fused train kernel")
     pixel = getattr(decode, "pixel", False)
+    materialized = getattr(decode, "materialized", False)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
@@ -109,6 +131,11 @@ def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable
             sdf_hand, sdf_obj, logits = decode(model.decoder, fmap, emb, batch["xyz"],
                                                batch["cam_intr"], mano_results["joints"][:, 0:1],
                                                seed, train=True)
+        elif materialized:
+            rows, mano_results, obj_results = model.decoder_inputs(
+                batch["image"], batch["xyz"], cond, train=True)
+            mark("inputs")
+            sdf_hand, sdf_obj, logits = decode(model.decoder, rows, seed, train=True)
         else:
             latent, emb, mano_results, obj_results = model.decoder_inputs_factored(
                 batch["image"], batch["xyz"], cond, train=True)
@@ -140,6 +167,7 @@ def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable
         mark("optimizer")
         return {k: v.detach() for k, v in losses.items()}
 
+    step.decode = decode
     return step
 
 

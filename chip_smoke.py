@@ -133,6 +133,10 @@ K2_BWD_KERNELS = ("train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
 K4_TOL = 1e-4
 K4_FWD_KERNELS = ("pixel_train_fwd_kernel",)
 K4_BWD_KERNELS = ("pixel_train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
+K5_TOL = 1e-4
+K5_FWD_KERNELS = ("generic_train_fwd_kernel",)
+K5_BWD_KERNELS = ("generic_train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
+K6_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -262,16 +266,59 @@ def profile_summary(prof, wall_s: float):
     return busy / 1e3, busy / (wall_s * 1e6), kernels_ms
 
 
-def k2_work(ws, xs, bs, m: int, packed):
+def warm_and_profiled(recon, samples, kernel, card: str, label: str = ""):
+    """run_pipelined over the samples warm, then once more under
+    torch.profiler, ``kernel``'s launch count left as it was: (the warm
+    run's record, the profiled run's or None where the profiler saw no
+    device event)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignsdf_torch.inference.reconstruct import make_output_dirs, run_pipelined
+
+    with tempfile.TemporaryDirectory() as out:
+        dirs = make_output_dirs(out)
+        saved = kernel.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_pipelined(recon, samples, dirs)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_pipelined(recon, samples, dirs)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        kernel.launches = saved
+    count = len(samples)
+    print(f"[{card}] {label}warm: {count} images in {warm * 1e3:.1f} ms = "
+          f"{count / warm:.3f} images/s at {recon.cube_dim}^3", flush=True)
+    warm_rec = {"wall_ms": warm * 1e3, "images_per_s": count / warm}
+    summary = profile_summary(prof, prof_wall)
+    if summary is None:
+        print(f"{label}device profile: not measured (the profiler recorded no device events)",
+              flush=True)
+        return warm_rec, None
+    busy, share, by_kernel = summary
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[{card}] {label}profiled run {prof_wall * 1e3:.1f} ms: device busy {busy:.1f} ms "
+          f"({share:.3f} of the wall clock), idle share {1 - share:.3f}", flush=True)
+    for name, ms in top:
+        print(f"  {ms:9.2f} ms  {name[:100]}", flush=True)
+    return warm_rec, {"wall_ms": prof_wall * 1e3, "device_busy_ms": busy, "busy_share": share,
+                      "top_device_ms": dict(top)}
+
+
+def k2_work(ws, xs, bs, m: int, e: int, out_pads):
     """(forward FLOPs, backward FLOPs, forward bytes, backward bytes) of one
-    trunk over m points: 2 per multiply-add at the true widths; the backward
-    is dx plus dW.  Bytes count each input read once and each output written
-    once, the residuals at the kernel's padded widths."""
+    trunk over m points whose embedding (K2) or input row (K5) is e wide: 2
+    per multiply-add at the true widths; the backward is dx plus dW.  Bytes
+    count each input read once and each output written once, the residuals
+    at the kernel's padded widths ``out_pads``."""
     params = sum(t.numel() for t in [*ws, *xs, *bs] if t is not None)
     macs = sum(t.numel() for t in [*ws, *xs] if t is not None)
-    e = packed.emb_t.shape[0]
-    n_out = packed.out_pads[-1]
-    resid = sum(packed.out_pads[:-1]) * m
+    n_out = out_pads[-1]
+    resid = sum(out_pads[:-1]) * m
     fwd_bytes = 4 * (m * e + params + n_out * m + resid)
     # in: dy, y, residuals, emb, weights; out: d(emb), every gradient
     bwd_bytes = 4 * (2 * n_out * m + resid + m * e + params + m * e + params)
@@ -297,59 +344,66 @@ def k2_operands(model, specs, latent, emb):
 def k2_check(model, specs, dev, gen, scenes: int, x_last: bool = False):
     """K2 forward and backward on both trunks against their plain versions
     on the same card, at scenes x 2000 points.  With ``x_last``, the hand
-    trunk's x_last is held against the plain version's too and its backward
-    takes a nonzero random dx_last."""
+    trunk's backward takes a nonzero random dx_last."""
     import torch
 
-    from alignsdf_torch.kernels.train_decoder import (
-        dropout_gate, flatten_params, pack_trunk, train_decode, train_decode_backward,
-        train_decode_backward_reference, train_decode_forward, train_decode_reference,
-        unflatten_params)
     from alignsdf_torch.ops.train_plan import make_train_decoder
 
     st = make_train_decoder(specs).statics
-    m = scenes * specs.samples_per_scene
     latent = (torch.randn(scenes, specs.latent_size, generator=gen) * 0.5).to(dev)
-    emb = (torch.randn(m, specs.point_feat_size, generator=gen) * 0.5).to(dev)
-    saved = train_decode.launches, train_decode_backward.launches
-    res = {"y_max_abs_err": 0.0, "grad_max_rel_err": 0.0, "grad_max_abs_err": 0.0,
-           "kept_share": {}, "residual_sign_mismatch": 0.0}
-    for i, (prefix, seed, e, ws, xs, bs) in enumerate(k2_operands(model, specs, latent, emb)):
+    emb = (torch.randn(scenes * specs.samples_per_scene, specs.point_feat_size,
+                       generator=gen) * 0.5).to(dev)
+    return trunk_check(k2_kernel(), k2_operands(model, specs, latent, emb), st, dev, gen, x_last)
+
+
+def trunk_check(kern, trunks, st, dev, gen, x_last: bool):
+    """A K2-convention train kernel (K2, K5) on each trunk [(prefix, seed,
+    input, ws, xs, bs)] through its autograd Function against the plain
+    forward (y, x_last) and the plain backward fed the kernel's own
+    residuals (the forward is deterministic: autograd through the plain
+    forward would differ wherever rounding flips a unit at ReLU's edge);
+    with ``x_last`` the first trunk's backward takes a random dx_last.
+    Also each dropout layer's kept share and the residuals' gating."""
+    import torch
+
+    from alignsdf_torch.kernels.train_decoder import dropout_gate, flatten_params, unflatten_params
+
+    saved = kern.fwd.launches, kern.bwd.launches
+    res = {"y_max_abs_err": 0.0, "x_last_max_abs_err": 0.0, "grad_max_rel_err": 0.0,
+           "grad_max_abs_err": 0.0, "d_input_max_rel_err": 0.0, "kept_share": {},
+           "residual_sign_mismatch": 0.0}
+    for i, (prefix, seed, e, ws, xs, bs) in enumerate(trunks):
         leaves = [t.detach().clone().requires_grad_() for t in [e, *flatten_params(ws, xs, bs)]]
-        y, xl = train_decode(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
+        y, xl = kern.fwd(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
         dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
         dxl = torch.randn(tuple(xl.shape), generator=gen).to(dev) if x_last and i == 0 else None
-        if dxl is None:
-            grads = torch.autograd.grad(y, leaves, dy)
-        else:
-            grads = torch.autograd.grad((y, xl), leaves, (dy, dxl))
+        grads = (torch.autograd.grad(y, leaves, dy) if dxl is None
+                 else torch.autograd.grad((y, xl), leaves, (dy, dxl)))
         torch.cuda.synchronize()
         with torch.no_grad():
             acts_ref = []
-            y_ref, xl_ref = train_decode_reference(e, ws, xs, bs, seed, st, acts=acts_ref)
+            y_ref, xl_ref = kern.plain(e, ws, xs, bs, seed, st, acts=acts_ref)
             res["y_max_abs_err"] = max(res["y_max_abs_err"], float((y - y_ref).abs().max()))
-            if dxl is not None:
-                res["x_last_max_abs_err"] = float((xl - xl_ref).abs().max())
-            # the backward's plain version on the kernel's own residuals (the
-            # forward is deterministic): autograd through the plain forward
-            # would differ wherever rounding flips a unit at ReLU's edge
-            y_k, acts = train_decode_forward(pack_trunk(e, ws, xs, bs, st), seed, st)
+            res["x_last_max_abs_err"] = max(res["x_last_max_abs_err"],
+                                            float((xl - xl_ref).abs().max()))
+            y_k, acts = kern.forward(kern.pack(e, ws, xs, bs, st), seed, st)
             acts_k = [a[:r.shape[1]].T for a, r in zip(acts, acts_ref)]
-            demb, dws, dxs, dbs = train_decode_backward_reference(e, ws, xs, bs, st, y_k,
-                                                                  acts_k, dy, dxl)
-            for g, r in zip(grads, [demb, *flatten_params(dws, dxs, dbs)]):
+            d_in, dws, dxs, dbs = kern.plain_backward(e, ws, xs, bs, st, y_k, acts_k, dy, dxl)
+            for j, (g, r) in enumerate(zip(grads, [d_in, *flatten_params(dws, dxs, dbs)])):
                 err = float((g - r).abs().max())
+                rel = err / (float(r.abs().max()) + 1e-30)
                 res["grad_max_abs_err"] = max(res["grad_max_abs_err"], err)
-                res["grad_max_rel_err"] = max(res["grad_max_rel_err"],
-                                              err / (float(r.abs().max()) + 1e-30))
-            rows = torch.arange(m, device=dev)
+                res["grad_max_rel_err"] = max(res["grad_max_rel_err"], rel)
+                if j == 0:
+                    res["d_input_max_rel_err"] = max(res["d_input_max_rel_err"], rel)
+            rows = torch.arange(e.shape[0], device=dev)
             for layer, (a_k, a_r) in enumerate(zip(acts_k, acts_ref)):
                 mism = float(((a_k > 0) != (a_r > 0)).float().mean())
                 res["residual_sign_mismatch"] = max(res["residual_sign_mismatch"], mism)
                 if st.dropout[layer]:
                     kept = (dropout_gate(seed, layer, rows, a_r.shape[1], st.keep) > 0)
                     res["kept_share"][f"{prefix}{layer}"] = float(kept.float().mean())
-    train_decode.launches, train_decode_backward.launches = saved
+    kern.fwd.launches, kern.bwd.launches = saved
     return res
 
 
@@ -360,8 +414,8 @@ class TrainKernel(NamedTuple):
     """The train kernel a train phase drives: its wrappers (each counting
     its launches), launches of each per step, the spec's train decoder
     factory, the kernel's plain version and that plain version on its
-    (latent and) embedding input scaled by NUDGE, and its device kernels'
-    names."""
+    (latent and) embedding input scaled by NUDGE, its device kernels'
+    names, and its packing, raw forward and plain backward."""
 
     name: str
     fwd: Callable
@@ -373,11 +427,15 @@ class TrainKernel(NamedTuple):
     fwd_kernels: Tuple[str, ...]
     bwd_kernels: Tuple[str, ...]
     grad_rtol: float  # one step two ways: each gradient, of its largest entry
+    pack: Callable
+    forward: Callable
+    plain_backward: Callable
 
 
 def k2_kernel() -> TrainKernel:
     from alignsdf_torch.kernels.train_decoder import (
-        train_decode, train_decode_backward, train_decode_reference)
+        pack_trunk, train_decode, train_decode_backward, train_decode_backward_reference,
+        train_decode_forward, train_decode_reference)
     from alignsdf_torch.ops.train_plan import make_train_decoder
 
     def nudged(emb, *rest):
@@ -385,12 +443,15 @@ def k2_kernel() -> TrainKernel:
 
     return TrainKernel("K2", train_decode, train_decode_backward, 2, make_train_decoder,
                        train_decode_reference, nudged, K2_FWD_KERNELS, K2_BWD_KERNELS,
-                       TWO_WAYS_GRAD_RTOL)
+                       TWO_WAYS_GRAD_RTOL, pack_trunk, train_decode_forward,
+                       train_decode_backward_reference)
 
 
 def k4_kernel() -> TrainKernel:
     from alignsdf_torch.kernels.pixel_train_decoder import (
-        pixel_train_decode, pixel_train_decode_backward, pixel_train_decode_reference)
+        pack_pixel_trunks, pixel_train_decode, pixel_train_decode_backward,
+        pixel_train_decode_backward_reference, pixel_train_decode_forward,
+        pixel_train_decode_reference)
     from alignsdf_torch.ops.pixel_train_plan import make_pixel_train_decoder
 
     def nudged(table, mean, *rest):
@@ -398,7 +459,8 @@ def k4_kernel() -> TrainKernel:
 
     return TrainKernel("K4", pixel_train_decode, pixel_train_decode_backward, 1,
                        make_pixel_train_decoder, pixel_train_decode_reference, nudged,
-                       K4_FWD_KERNELS, K4_BWD_KERNELS, TWO_WAYS_GRAD_RTOL_K4)
+                       K4_FWD_KERNELS, K4_BWD_KERNELS, TWO_WAYS_GRAD_RTOL_K4, pack_pixel_trunks,
+                       pixel_train_decode_forward, pixel_train_decode_backward_reference)
 
 
 def train_phase(specs, dev, card, kern: TrainKernel):
@@ -613,21 +675,30 @@ def k2_timing(model, specs, dev, gen, card, x_last: bool = False):
     trunk's backward takes a random dx_last, whose read the bytes count."""
     import torch
 
-    from alignsdf_torch.kernels.train_decoder import (
-        pack_trunk, train_decode, train_decode_backward, train_decode_backward_reference,
-        train_decode_forward, train_decode_reference)
     from alignsdf_torch.ops.train_plan import make_train_decoder
 
     st = make_train_decoder(specs).statics
     m = TRAIN_SCENES * specs.samples_per_scene
     latent = (torch.randn(TRAIN_SCENES, specs.latent_size, generator=gen) * 0.5).to(dev)
     emb = (torch.randn(m, specs.point_feat_size, generator=gen) * 0.5).to(dev)
-    trunks = k2_operands(model, specs, latent, emb)
-    packs = [pack_trunk(e, ws, xs, bs, st) for _, _, e, ws, xs, bs in trunks]
-    work = [k2_work(ws, xs, bs, m, p) for (_, _, _, ws, xs, bs), p in zip(trunks, packs)]
+    return trunk_timing(k2_kernel(), k2_operands(model, specs, latent, emb), st, dev, gen, card,
+                        x_last)
+
+
+def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
+    """A K2-convention train kernel's forward and backward per step over
+    the trunks [(prefix, seed, input, ws, xs, bs)] against their plain
+    versions and bounds (k2_work); with ``x_last``, the first trunk's
+    backward takes a random dx_last, whose read the bytes count."""
+    import torch
+
+    m = trunks[0][2].shape[0]
+    packs = [kern.pack(e, ws, xs, bs, st) for _, _, e, ws, xs, bs in trunks]
+    work = [k2_work(ws, xs, bs, m, e.shape[1], p.out_pads)
+            for (_, _, e, ws, xs, bs), p in zip(trunks, packs)]
     fwd_flops, bwd_flops, fwd_bytes, bwd_bytes = (sum(w[i] for w in work) for i in range(4))
-    saved = train_decode.launches, train_decode_backward.launches
-    outs = [train_decode_forward(p, t[1], st) for p, t in zip(packs, trunks)]
+    saved = kern.fwd.launches, kern.bwd.launches
+    outs = [kern.forward(p, t[1], st) for p, t in zip(packs, trunks)]
     dys = [torch.randn(tuple(y.shape), generator=gen).to(dev) for y, _ in outs]
     dxls = [torch.randn((m, t[5][-2].shape[-1]), generator=gen).to(dev) if x_last and i == 0
             else None for i, t in enumerate(trunks)]
@@ -635,16 +706,16 @@ def k2_timing(model, specs, dev, gen, card, x_last: bool = False):
 
     def fwd_kernel():
         for p, t in zip(packs, trunks):
-            train_decode_forward(p, t[1], st)
+            kern.forward(p, t[1], st)
 
     def bwd_kernel():
         for p, (y, acts), dy, dxl in zip(packs, outs, dys, dxls):
-            train_decode_backward(p, st, y, acts, dy, dxl)
+            kern.bwd(p, st, y, acts, dy, dxl)
 
     def fwd_plain():
         with torch.no_grad():
             for _, seed, e, ws, xs, bs in trunks:
-                train_decode_reference(e, ws, xs, bs, seed, st)
+                kern.plain(e, ws, xs, bs, seed, st)
 
     # the plain backward takes the same residuals, at the true widths
     unpadded = [[a[:b.shape[-1]].T for a, b in zip(acts, bs)]
@@ -654,26 +725,26 @@ def k2_timing(model, specs, dev, gen, card, x_last: bool = False):
         with torch.no_grad():
             for (_, _, e, ws, xs, bs), (y, _), acts, dy, dxl in zip(trunks, outs, unpadded, dys,
                                                                     dxls):
-                train_decode_backward_reference(e, ws, xs, bs, st, y, acts, dy, dxl)
+                kern.plain_backward(e, ws, xs, bs, st, y, acts, dy, dxl)
 
     res = {}
-    for name, kern, plain, flops, nbytes in (("fwd", fwd_kernel, fwd_plain, fwd_flops, fwd_bytes),
-                                              ("bwd", bwd_kernel, bwd_plain, bwd_flops, bwd_bytes)):
-        k_ms = cuda_ms(kern, 5)       # kernel, plain, kernel: in turns on one card
+    for name, kfn, plain, flops, nbytes in (("fwd", fwd_kernel, fwd_plain, fwd_flops, fwd_bytes),
+                                             ("bwd", bwd_kernel, bwd_plain, bwd_flops, bwd_bytes)):
+        k_ms = cuda_ms(kfn, 5)        # kernel, plain, kernel: in turns on one card
         p_ms = cuda_ms(plain, 5)
-        k_ms2 = cuda_ms(kern, 5)
+        k_ms2 = cuda_ms(kfn, 5)
         ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         best = min(k_ms, k_ms2)
         res[name] = {"ms": best, "ms_runs": [k_ms, k_ms2], "plain_ms": p_ms,
                      "bound_ms": max(ops_ms, mem_ms),
                      "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
                      "tflop": flops / 1e12, "gbytes": nbytes / 1e9, "tflops": flops / best / 1e9}
-        print(f"[{card}] K2{' with x_last' if x_last else ''} {name} per step (2 trunks x {m} "
-              f"points, {flops / 1e12:.3f} TFLOP, "
-              f"{nbytes / 1e9:.3f} GB): kernel {k_ms:.2f} / {k_ms2:.2f} ms "
-              f"({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, bound "
+        print(f"[{card}] {kern.name}{' with x_last' if x_last else ''} {name} per step "
+              f"({len(trunks)} trunks x {m} points, {trunks[0][2].shape[1]} input columns, "
+              f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB): kernel {k_ms:.2f} / "
+              f"{k_ms2:.2f} ms ({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, bound "
               f"{res[name]['bound_ms']:.2f} ms ({res[name]['bound_by']})", flush=True)
-    train_decode.launches, train_decode_backward.launches = saved
+    kern.fwd.launches, kern.bwd.launches = saved
     return res
 
 
@@ -708,10 +779,8 @@ def pixel_phase(dev, card: str, gen, mano_faces):
     over N_IMAGES images), the field against the generic path in both
     projection modes, a warm and a profiled run, and K3's timing.  Returns
     (record, the kernels-line entry)."""
-    import numpy as np
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from alignsdf_torch.inference.grid import _coords_from_linear, _refine_cube
     from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
@@ -849,36 +918,9 @@ def pixel_phase(dev, card: str, gen, mano_faces):
         rec["vs_generic_max_abs_err"][mode] = err
 
     phase("pixel: warm pipelined run, then the same run under torch.profiler")
-    with tempfile.TemporaryDirectory() as out:
-        dirs = make_output_dirs(out)
-        saved = pixel_grid_decode.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_pipelined(recon, samples, dirs)
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_pipelined(recon, samples, dirs)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        pixel_grid_decode.launches = saved
-    print(f"[{card}] pixel warm: {N_IMAGES} images in {warm * 1e3:.1f} ms = "
-          f"{N_IMAGES / warm:.3f} images/s at {n}^3", flush=True)
-    rec["warm"] = {"wall_ms": warm * 1e3, "images_per_s": N_IMAGES / warm}
-    summary = profile_summary(prof, prof_wall)
-    if summary is None:
-        print("pixel device profile: not measured (the profiler recorded no device events)",
-              flush=True)
-    else:
-        busy, share, by_kernel = summary
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-        print(f"[{card}] pixel profiled run {prof_wall * 1e3:.1f} ms: device busy {busy:.1f} ms "
-              f"({share:.3f} of the wall clock), idle share {1 - share:.3f}", flush=True)
-        for name, ms in top:
-            print(f"  {ms:9.2f} ms  {name[:100]}", flush=True)
-        rec["profile"] = {"wall_ms": prof_wall * 1e3, "device_busy_ms": busy,
-                          "busy_share": share, "top_device_ms": dict(top)}
+    rec["warm"], profiled = warm_and_profiled(recon, samples, pixel_grid_decode, card, "pixel ")
+    if profiled is not None:
+        rec["profile"] = profiled
     del recon
 
     phase(f"timing: K3 and plain per {n}^3 pass; F.grid_sample at the same points")
@@ -1481,6 +1523,432 @@ def classifier_phase(dev, card: str, gen, mano_faces, pixel: bool = False):
     return rec, info
 
 
+def nerf63_specs():
+    """experiments/obman_30k.json with --point_size 63: its own NeRF PE
+    (EncodeStyle nerf) at (63 - 3) // 6 = 10 frequencies, no MANO, twin 5x512
+    trunks reading 256 + 63 = 319 columns."""
+    from alignsdf_torch.config import apply_overrides, load_specs
+
+    class Flags:
+        point_size = 63
+
+    return apply_overrides(load_specs(os.path.join(REPO, "experiments", "obman_30k.json")),
+                           Flags())
+
+
+def latent_in_0_specs():
+    """The flagship with NetworkSpecs latent_in (0, 2): layer 0 reads [row,
+    row], so K2 declines it and the step trains through K5."""
+    import dataclasses
+
+    specs = flagship_specs()
+    return dataclasses.replace(specs, network_specs=dataclasses.replace(specs.network_specs,
+                                                                        latent_in=(0, 2)))
+
+
+def generic_macs_per_point(specs) -> int:
+    """Multiply-adds of the generic decoder (K5, K6) per point at the true
+    widths, every trunk: layer 0 as one product on the input row (its two
+    halves summed where 0 is in latent_in), a latent_in layer's input
+    [x, row], and the classifier's rows on the first trunk."""
+    from alignsdf_torch.models.decoder import trunk_layer_dims
+    from alignsdf_torch.ops.decoder_plan import trunk_input_widths
+
+    ns = specs.network_specs
+    widths = trunk_input_widths(specs)
+    out_dim = 2 if len(widths) == 1 else 1
+    total = 0
+    for t, in_dim in enumerate(widths):
+        shapes = trunk_layer_dims(in_dim, ns, out_dim)
+        total += sum((in_dim if layer == 0 else i) * o for layer, (i, o) in enumerate(shapes))
+        if t == 0 and specs.classifier_branch:
+            total += shapes[-2][1] * ns.num_class
+    return total
+
+
+def generic_phase(dev, card: str, gen, mano_faces):
+    """--point_size 63 reconstruction (NeRF PE, which K1 cannot fold) at full
+    width through K6, as the JAX CLI's --pallas runs it: K6 against its plain
+    version over one 128^3 pass, at C = 6 and on a combined trunk, the main
+    path (run_pipelined with K6 as the generic path's decode_fn), image 0's
+    field against decode_points, a warm and a profiled run, and K6's time
+    per pass.  Returns (record, the kernels-line entry)."""
+    import dataclasses
+
+    import torch
+
+    from alignsdf_torch.inference.grid import _coords_from_linear, embed_points
+    from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
+    from alignsdf_torch.kernels.generic_decoder import generic_decode, generic_decode_reference
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.models.decoder import make_decoder, separate_decoder_inputs, trunk_prefixes
+    from alignsdf_torch.ops.decoder_plan import make_generic_decode_fn, make_generic_plan
+
+    specs = nerf63_specs()
+    model = build_model(specs, device=dev, seed=SEED)
+    samples = synthetic_samples(gen, N_IMAGES)
+    n, chunk = CUBE_DIM, 1 << 18  # the generic evaluator's runs are 2^18 points
+    total = n ** 3
+    origin0 = torch.full((3,), -1.0, device=dev)
+    voxel0 = torch.tensor(2.0 / (n - 1), device=dev)
+    rec = {}
+
+    def ctx_of(sample):
+        args = [torch.as_tensor(sample[k])[None].to(dev) for k in
+                ("image", "cam_intr", "mano_root", "rest_obj_corners")]
+        return {"decoder": model.decoder, "latent": model.encode_scene(*args)[0]}
+
+    def pass_rows(ctx, size, origin, voxel, run=chunk):
+        """The [latent, NeRF PE] rows of a size^3 pass, in runs."""
+        for s in range(0, size ** 3, run):
+            idx = torch.arange(s, min(s + run, size ** 3), device=dev)
+            pts = _coords_from_linear(idx, size, origin, voxel)
+            yield torch.cat([ctx["latent"].expand(len(idx), -1), embed_points(specs, ctx, pts)],
+                            dim=1)
+
+    def trunk_rows(rows):
+        return separate_decoder_inputs(specs.latent_size, specs.encode_style, rows)
+
+    # seeded weights hear NeRF PE's 2^9 frequency as loudly as its 2^0: at
+    # 128^3 the field is noise, whose meshes took about 160 s an image of
+    # host marching cubes (the host of an NVIDIA H100 80GB HBM3 at 700 W).
+    # Scale each frequency level k's columns of the layers that read the row
+    # (0 and latent_in) by 4^-k, towards a trained field's smoothness; the
+    # kernel does the same work.
+    ls, pfs = specs.latent_size, specs.point_feat_size
+    damp = torch.ones(ls + pfs, device=dev)
+    for k in range((pfs - 3) // 6):
+        damp[ls + 3 + 6 * k:ls + 9 + 6 * k] = 4.0 ** -k
+    with torch.no_grad():
+        for prefix in filter(None, trunk_prefixes(model.decoder)):
+            for layer in (0, *specs.network_specs.latent_in):
+                getattr(model.decoder, f"{prefix}{layer}").weight_v[:, -(ls + pfs):] *= damp
+
+    # shift the final biases (seeded weights) so ~5% of the first pass is
+    # inside: the field crosses zero and meshes come out
+    ctx = ctx_of(samples[0])
+    with torch.no_grad():
+        first = [torch.cat(f) for f in zip(*[model.decoder(r)[:2] for r in pass_rows(
+            ctx, 64, origin0, torch.tensor(2.0 / 63, device=dev))])]
+        for field, name in zip(first, ("linh4", "lino4")):
+            q = torch.quantile(field[:, 0], 0.05).clamp(-0.999, 0.999)
+            getattr(model.decoder, name).bias -= torch.atanh(q)
+    del first
+
+    phase(f"K6 vs plain (one {n}^3 pass of image 0 in runs of {chunk}, --point_size 63 at full "
+          "width: rows of 256 + 63, TF32 off)")
+    plan = make_generic_plan(model.decoder, specs)
+    saved = generic_decode.launches
+    err, inside = 0.0, 0
+    for rows in pass_rows(ctx, n, origin0, voxel0):
+        k6 = generic_decode(plan, *trunk_rows(rows))
+        torch.cuda.synchronize()
+        ref = generic_decode_reference(plan, *trunk_rows(rows))
+        err = max(err, max(float((a - b).abs().max()) for a, b in zip(k6[:2], ref[:2])))
+        inside += int((ref[0] < 0).sum())
+    print(f"K6 max abs err vs plain {err:.3e} over {total} points (tolerance {K6_TOL:g}); hand "
+          f"inside share {inside / total:.4f}", flush=True)
+    if not err <= K6_TOL:
+        fail(f"K6 disagrees with its plain version: {err}")
+    rec["check"] = {"max_abs_err": err, "inside_share": inside / total}
+
+    phase(f"K6 at C = 6 with a classifier and on a combined trunk (one run of {chunk} rows)")
+    rows = next(pass_rows(ctx, n, origin0, voxel0))
+    rec["variants"] = {}
+    for model_type in ("1encoder2decoder", "1encoder1decoder"):
+        vspecs = dataclasses.replace(specs, model_type=model_type, classifier_branch=True)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED + 6)
+            dec = make_decoder(model_type, vspecs.latent_size, vspecs.point_feat_size,
+                               vspecs.encode_style, vspecs.network_specs,
+                               use_classifier=True).to(dev)
+        vplan = make_generic_plan(dec, vspecs)
+        args = (rows,) if model_type == "1encoder1decoder" else trunk_rows(rows)
+        out = generic_decode(vplan, *args)
+        torch.cuda.synchronize()
+        ref = generic_decode_reference(vplan, *args)
+        errs = {"sdf": max(float((a - b).abs().max()) for a, b in zip(out[:2], ref[:2])),
+                "logits": float((out[2] - ref[2]).abs().max())}
+        print(f"{model_type} with C = 6: K6 max abs err vs plain: SDFs {errs['sdf']:.3e}, logits "
+              f"{errs['logits']:.3e} (tolerance {K6_TOL:g})", flush=True)
+        if not max(errs.values()) <= K6_TOL:
+            fail(f"K6 ({model_type}, C = 6) disagrees with its plain version")
+        rec["variants"][model_type] = errs
+        err = max(err, *errs.values())
+    generic_decode.launches = saved
+    del rows, out, ref, k6
+
+    phase(f"generic main path: run_pipelined with K6 as the generic path's decode_fn, "
+          f"{N_IMAGES} images at cube_dim {n}")
+    recon = Reconstructor(model, specs, cube_dim=n, mano_faces=mano_faces,
+                          decode_fn=make_generic_decode_fn(specs))
+    if recon.fused:
+        fail("--point_size 63 took the fused path: K1 cannot fold NeRF PE")
+    expected = N_IMAGES * 2 * (-(-total // chunk))
+    results = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        dirs = make_output_dirs(out_dir)
+        generic_decode.launches = 0
+        t0 = time.perf_counter()
+        done = run_pipelined(recon, samples, dirs, on_done=lambda i, p: results.append((i, p)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = generic_decode.launches
+        written = sorted(os.listdir(dirs["meshes"]))
+    print(f"images {done}, wall {wall * 1e3:.1f} ms, K6 launches {launches} (expected "
+          f"{expected}: {N_IMAGES} images x 2 passes x {-(-total // chunk)} runs), meshes written "
+          f"{written}", flush=True)
+    if done != N_IMAGES or launches != expected:
+        fail(f"K6 launches {launches} != expected {expected} over {done} images")
+    if not any(w.endswith("_hand.ply") for w in written) or not any(
+            w.endswith("_obj.ply") for w in written):
+        fail("the generic path wrote no hand or no object mesh")
+    rec["main_path"] = {"wall_ms": wall * 1e3, "launches": launches, "meshes": written,
+                        "images": []}
+    for i, pending in results:
+        host = pending["host"]
+        for name in ("sdf_hand", "sdf_obj"):
+            field = host[name]
+            if tuple(field.shape) != (n,) * 3 or not bool(torch.isfinite(field).all()):
+                fail(f"generic image {i}: {name} has shape {tuple(field.shape)} or non-finite "
+                     "values")
+        t = pending["timings"]
+        print(f"generic image {i} [{card}]: encode {t['encode_ms']:.2f} ms, grid "
+              f"{t['grid_ms']:.2f} ms (2 passes), marching cubes + export {t['mc_ms']:.2f} ms",
+              flush=True)
+        rec["main_path"]["images"].append(t)
+
+    # image 0's refined pass against decode_points at 4096 grid points
+    host0 = results[0][1]["host"]
+    idx = torch.randint(0, total, (4096,), generator=gen).to(dev)
+    pts = _coords_from_linear(idx, n, host0["origin"].to(dev), host0["voxel"].to(dev))
+    with torch.no_grad():
+        gh, go, _ = model.decode_points(torch.cat([ctx["latent"].expand(4096, -1),
+                                                   embed_points(specs, ctx, pts)], dim=1))
+    idx_cpu = idx.cpu()
+    field_err = max(float((gh[:, 0].cpu() - host0["sdf_hand"].reshape(-1)[idx_cpu]).abs().max()),
+                    float((go[:, 0].cpu() - host0["sdf_obj"].reshape(-1)[idx_cpu]).abs().max()))
+    print(f"image 0 K6 field vs decode_points at 4096 grid points: max abs err {field_err:.3e}",
+          flush=True)
+    if not field_err <= K6_TOL:
+        fail(f"the generic main path disagrees with decode_points: {field_err}")
+    rec["vs_decode_points_max_abs_err"] = field_err
+
+    phase("generic: warm pipelined run, then the same run under torch.profiler")
+    rec["warm"], profiled = warm_and_profiled(recon, samples, generic_decode, card, "generic ")
+    if profiled is not None:
+        rec["profile"] = profiled
+    del recon
+
+    phase(f"timing: K6 and plain per {n}^3 pass (the pass's rows made beforehand)")
+    runs = [trunk_rows(r) for r in pass_rows(ctx, n, origin0, voxel0)]
+    saved = generic_decode.launches
+    k6_runs = [cuda_ms(lambda: [generic_decode(plan, *r) for r in runs], 1) for _ in range(3)]
+    generic_decode.launches = saved
+    plain_ms = cuda_ms(lambda: [generic_decode_reference(plan, *r) for r in runs], 1)
+    flops = 2 * generic_macs_per_point(specs) * total
+    nbytes = 4 * (total * (specs.latent_size + specs.point_feat_size) + plan.flat.numel()
+                  + 2 * total)
+    ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    k6_ms = min(k6_runs)
+    rec["timing"] = {"k6_ms": k6_ms, "k6_runs_ms": k6_runs, "plain_ms": plain_ms,
+                     "bound_ms": max(ops_ms, mem_ms),
+                     "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                     "tflop": flops / 1e12, "gbytes": nbytes / 1e9,
+                     "k6_tflops": flops / k6_ms / 1e9}
+    print(f"[{card}] {n}^3 pass ({total} points, {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB): "
+          "K6 " + " / ".join(f"{t:.2f}" for t in k6_runs) + f" ms (best "
+          f"{flops / k6_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, bound "
+          f"{rec['timing']['bound_ms']:.2f} ms ({rec['timing']['bound_by']})", flush=True)
+    del runs
+    entry = {
+        "name": "K6 generic decoder (materialized rows)",
+        "route": "cuda",
+        "source": "alignsdf_torch/kernels/csrc/generic_decoder.cu",
+        "replaces": "alignsdf_tpu/ops/decoder_kernel.py:139",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": k6_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": rec["timing"]["bound_ms"],
+        "bound_by": rec["timing"]["bound_by"],
+        "library_ms": None,
+    }
+    return rec, entry
+
+
+def k5_operands(model, specs, rows):
+    """[(prefix, seed, x0, ws, xs, bs)] of the trunks on materialized rows,
+    detached, as ops/generic_train_plan.py hands them to K5."""
+    import torch
+
+    from alignsdf_torch.models.decoder import separate_decoder_inputs, trunk_prefixes
+    from alignsdf_torch.ops.decoder_plan import trunk_input_widths
+    from alignsdf_torch.ops.generic_train_plan import generic_trunk_operands
+
+    first, second = trunk_prefixes(model.decoder)
+    widths = trunk_input_widths(specs)
+    inputs = ([rows] if second is None
+              else separate_decoder_inputs(specs.latent_size, specs.encode_style, rows))
+    out = []
+    with torch.no_grad():
+        for prefix, seed, width, x0 in zip((first, second), (5, 6), widths, inputs):
+            ws, xs, bs = generic_trunk_operands(model.decoder, prefix, width, specs,
+                                                1 if second else 2)
+            out.append((prefix, seed, x0.contiguous(), ws, xs, bs))
+    return out
+
+
+def k5_rows(specs, dev, gen, scenes: int):
+    """Materialized rows of ``scenes`` x samples_per_scene points: each
+    scene's random latent repeated over its points, beside random
+    embeddings."""
+    import torch
+
+    n = specs.samples_per_scene
+    latent = torch.randn(scenes, specs.latent_size, generator=gen) * 0.5
+    emb = torch.randn(scenes * n, specs.point_feat_size, generator=gen) * 0.5
+    return torch.cat([latent.repeat_interleave(n, dim=0), emb], dim=1).to(dev)
+
+
+def k5_check(model, specs, dev, gen, scenes: int):
+    """K5 forward and backward on both trunks against their plain versions
+    on the same card, at scenes x 2000 materialized rows, the first trunk's
+    backward with a random dx_last."""
+    from alignsdf_torch.ops.generic_train_plan import make_generic_train_decoder
+
+    st = make_generic_train_decoder(specs).statics
+    trunks = k5_operands(model, specs, k5_rows(specs, dev, gen, scenes))
+    return trunk_check(k5_kernel(), trunks, st, dev, gen, True)
+
+
+def k5_kernel() -> TrainKernel:
+    from alignsdf_torch.kernels.generic_train_decoder import (
+        generic_train_decode, generic_train_decode_backward,
+        generic_train_decode_backward_reference, generic_train_decode_forward,
+        generic_train_decode_reference, pack_generic_trunk)
+    from alignsdf_torch.ops.generic_train_plan import make_generic_train_decoder
+
+    def nudged(x0, *rest):
+        return generic_train_decode_reference(x0 * NUDGE, *rest)
+
+    # K2's two-ways bound holds: at 64 x 2000 on an NVIDIA H100 80GB HBM3 at
+    # 700 W the two ways read 1.2e-4 and 2.9e-4 of the largest gradient
+    # against floors of 7.5e-4 and 6.9e-4 (the nudge scales the whole input
+    # row, the latent's columns included, so the floor sits above K2's)
+    return TrainKernel("K5", generic_train_decode, generic_train_decode_backward, 2,
+                       make_generic_train_decoder, generic_train_decode_reference, nudged,
+                       K5_FWD_KERNELS, K5_BWD_KERNELS, TWO_WAYS_GRAD_RTOL, pack_generic_trunk,
+                       generic_train_decode_forward, generic_train_decode_backward_reference)
+
+
+def k5_timing(model, specs, dev, gen, card):
+    """K5 forward and backward per step (both trunks at TRAIN_SCENES x 2000
+    materialized rows, as the main path calls them: no dx_last) against
+    their plain versions and bounds; the bounds count layer 0 as the one
+    product the kernel runs (both halves of its weight summed)."""
+    from alignsdf_torch.ops.generic_train_plan import make_generic_train_decoder
+
+    st = make_generic_train_decoder(specs).statics
+    trunks = k5_operands(model, specs, k5_rows(specs, dev, gen, TRAIN_SCENES))
+    return trunk_timing(k5_kernel(), trunks, st, dev, gen, card, False)
+
+
+def generic_train_phase(dev, card: str, gen):
+    """The flagship with latent_in (0, 2) at full width through K5: K5
+    against its plain version at CHECK_SCENES x 2000 rows, the train step
+    through make_trainer (launch counts, losses, ms/step, one step two ways,
+    a profiled window), K5's timing, and the same model's K1 field (layer
+    0's fold of both halves) against decode_points.  Returns (record, the
+    kernels-line entries)."""
+    import torch
+
+    from alignsdf_torch.inference.grid import _coords_from_linear, embed_points
+    from alignsdf_torch.kernels.grid_decoder import grid_decode
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
+    from alignsdf_torch.training.train_step import make_train_step, train_decoder_kind
+
+    specs = latent_in_0_specs()
+    kind = train_decoder_kind(make_train_step(specs).decode)
+    if kind != "materialized inputs (K5)":
+        fail(f"latent_in (0, 2) routed to {kind}, not K5")
+    model = build_model(specs, device=dev, seed=SEED)
+    rec = {"check": {}}
+    for scenes in CHECK_SCENES:
+        phase(f"K5 vs plain ({scenes} x {specs.samples_per_scene} rows of "
+              f"{specs.latent_size} + 6, both trunks, the flagship with latent_in (0, 2) at full "
+              "width, nonzero dy and dx_last, TF32 off)")
+        k5 = k5_check(model, specs, dev, gen, scenes)
+        print(f"K5 y max abs err {k5['y_max_abs_err']:.3e}, x_last {k5['x_last_max_abs_err']:.3e} "
+              f"(tolerance {K5_TOL:g}); gradients max err {k5['grad_max_abs_err']:.3e} abs, "
+              f"{k5['grad_max_rel_err']:.3e} of the largest (d(x0) "
+              f"{k5['d_input_max_rel_err']:.3e}; tolerance {K5_TOL:g}); kept share {k5['kept_share']}; residual sign mismatch "
+              f"{k5['residual_sign_mismatch']:.2e}", flush=True)
+        if not (k5["y_max_abs_err"] <= K5_TOL and k5["x_last_max_abs_err"] <= K5_TOL
+                and k5["grad_max_rel_err"] <= K5_TOL):
+            fail(f"K5 disagrees with its plain version at {scenes} scenes")
+        if len(k5["kept_share"]) != 8 or not all(abs(v - 0.8) <= 0.01
+                                                 for v in k5["kept_share"].values()):
+            fail(f"kept shares off 0.8 +- 0.01: {k5['kept_share']}")
+        if not k5["residual_sign_mismatch"] <= 1e-4:
+            fail("K5's residuals are not gated as the plain version's")
+        rec["check"][scenes] = k5
+    k5 = rec["check"][TRAIN_SCENES]
+
+    phase(f"generic training (latent_in (0, 2)): {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps "
+          f"at {TRAIN_SCENES} x {specs.samples_per_scene} points, one step two ways, "
+          f"{PROFILED_STEPS} profiled steps")
+    state, rec["train"] = train_phase(specs, dev, card, k5_kernel())
+
+    phase(f"timing: K5 forward and backward per step ({TRAIN_SCENES} x "
+          f"{specs.samples_per_scene} rows, both trunks)")
+    rec["timing"] = k5_timing(state.model, specs, dev, gen, card)
+
+    phase("the trained latent_in (0, 2) model's K1 field (layer 0's fold of both halves) vs "
+          "decode_points at 4096 points of a 128^3 pass")
+    ctx = scene_ctx(state.model, specs, synthetic_samples(gen, 1)[0], dev)
+    n, total = CUBE_DIM, CUBE_DIM ** 3
+    origin, voxel = torch.full((3,), -1.0, device=dev), torch.tensor(2.0 / (n - 1), device=dev)
+    plan = make_grid_decode_fn(specs, n)(ctx).plan
+    saved = grid_decode.launches
+    field = torch.cat([grid_decode(plan, s, min(1 << 20, total - s), origin, voxel)
+                       for s in range(0, total, 1 << 20)], dim=1)
+    grid_decode.launches = saved
+    idx = torch.randint(0, total, (4096,), generator=gen).to(dev)
+    pts = _coords_from_linear(idx, n, origin, voxel)
+    with torch.no_grad():
+        gh, go, _ = state.model.decode_points(torch.cat([ctx["latent"].expand(4096, -1),
+                                                         embed_points(specs, ctx, pts)], dim=1))
+    fold_err = max(float((gh[:, 0] - field[0, idx]).abs().max()),
+                   float((go[:, 0] - field[1, idx]).abs().max()))
+    print(f"K1 field vs decode_points: max abs err {fold_err:.3e} (tolerance {K1_TOL:g})",
+          flush=True)
+    if not fold_err <= K1_TOL:
+        fail(f"K1 disagrees with decode_points at latent_in (0, 2): {fold_err}")
+    rec["k1_fold_max_abs_err"] = fold_err
+    del state, field
+
+    entries = []
+    for name, line, err in (("fwd", 142, max(k5["y_max_abs_err"], k5["x_last_max_abs_err"])),
+                            ("bwd", 286, k5["grad_max_abs_err"])):
+        t = rec["timing"][name]
+        entries.append({
+            "name": f"K5 generic train decoder, {'forward' if name == 'fwd' else 'backward'}",
+            "route": "cuda",
+            "source": "alignsdf_torch/kernels/csrc/generic_train_decoder.cu",
+            "replaces": f"alignsdf_tpu/ops/decoder_train_kernel.py:{line}",
+            "launches": rec["train"]["launches"][name],
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+        })
+    return rec, entries
+
+
 def main(record_path: Optional[str] = None) -> None:
     phase("device")
     try:
@@ -1502,7 +1970,6 @@ def main(record_path: Optional[str] = None) -> None:
         from alignsdf_torch.models.alignsdf import build_model
         from alignsdf_torch.ops.embeddings import kinematic_embedding
         from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
-        from torch.profiler import ProfilerActivity, profile
     except ImportError as e:
         fail(f"the port is not importable from {REPO}: {e}")
 
@@ -1516,7 +1983,7 @@ def main(record_path: Optional[str] = None) -> None:
     phase("build")
     t0 = time.perf_counter()
     reports = build.build_all(["grid_decoder", "train_decoder", "pixel_grid_decoder",
-                               "pixel_train_decoder"])
+                               "pixel_train_decoder", "generic_decoder", "generic_train_decoder"])
     record["build_s"] = time.perf_counter() - t0
     print(f"built in {record['build_s']:.2f} s", flush=True)
     for name, report in reports.items():
@@ -1635,36 +2102,9 @@ def main(record_path: Optional[str] = None) -> None:
     record["field_vs_generic_max_abs_err"] = field_err
 
     phase("warm pipelined run, then the same run under torch.profiler")
-    with tempfile.TemporaryDirectory() as out:
-        dirs = make_output_dirs(out)
-        saved = grid_decode.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_pipelined(recon, samples, dirs)
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_pipelined(recon, samples, dirs)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        grid_decode.launches = saved
-    print(f"[{card}] warm: {N_IMAGES} images in {warm * 1e3:.1f} ms = "
-          f"{N_IMAGES / warm:.3f} images/s at {CUBE_DIM}^3", flush=True)
-    record["warm"] = {"wall_ms": warm * 1e3, "images_per_s": N_IMAGES / warm}
-    summary = profile_summary(prof, prof_wall)
-    if summary is None:
-        print("device profile: not measured (the profiler recorded no device events)",
-              flush=True)
-    else:
-        busy, share, by_kernel = summary
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-        print(f"[{card}] profiled run {prof_wall * 1e3:.1f} ms: device busy {busy:.1f} ms "
-              f"({share:.3f} of the wall clock), idle share {1 - share:.3f}", flush=True)
-        for name, ms in top:
-            print(f"  {ms:9.2f} ms  {name[:100]}", flush=True)
-        record["profile"] = {"wall_ms": prof_wall * 1e3, "device_busy_ms": busy,
-                             "busy_share": share, "top_device_ms": dict(top)}
+    record["warm"], profiled = warm_and_profiled(recon, samples, grid_decode, card)
+    if profiled is not None:
+        record["profile"] = profiled
     del recon
 
     phase(f"training: {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps at {TRAIN_SCENES} x "
@@ -1711,6 +2151,8 @@ def main(record_path: Optional[str] = None) -> None:
     record["pixel_train"], k4_entries = pixel_train_phase(dev, card, gen)
     record["classifier"], cls = classifier_phase(dev, card, gen, mano_faces)
     record["pixel_classifier"], pcls = classifier_phase(dev, card, gen, mano_faces, pixel=True)
+    record["generic"], k6_entry = generic_phase(dev, card, gen, mano_faces)
+    record["generic_train"], k5_entries = generic_train_phase(dev, card, gen)
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
@@ -1782,6 +2224,7 @@ def main(record_path: Optional[str] = None) -> None:
             classifier_x_last={"ms": c4["ms"], "plain_ms": c4["plain_ms"],
                                "bound_ms": c4["bound_ms"], "bound_by": c4["bound_by"],
                                "library_ms": c4["library_ms"]}))
+    kernels["kernels"] += [*k5_entries, k6_entry]
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
-"""Kernels K1, K2, K3 and K4 on the card against their plain versions (K1
-and K3 with the classifier's rows, K2 and K4 with x_last / dx_last).  Needs a
-CUDA GPU and skips without one; it imports no JAX, so it runs on a machine
-without it:
+"""Kernels K1, K2, K3, K4, K5 and K6 on the card against their plain
+versions (K1, K3 and K6 with the classifier's rows, K2, K4 and K5 with
+x_last / dx_last).  Needs a CUDA GPU and skips without one; it imports no
+JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -10,6 +10,15 @@ import pytest
 import torch
 
 from alignsdf_torch.config import NetworkSpecs, Specs
+from alignsdf_torch.kernels.generic_decoder import generic_decode, generic_decode_reference
+from alignsdf_torch.kernels.generic_train_decoder import (
+    generic_train_decode,
+    generic_train_decode_backward,
+    generic_train_decode_backward_reference,
+    generic_train_decode_forward,
+    generic_train_decode_reference,
+    pack_generic_trunk,
+)
 from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
 from alignsdf_torch.kernels.pixel_grid_decoder import (
     pixel_grid_decode,
@@ -36,7 +45,14 @@ from alignsdf_torch.kernels.train_decoder import (
     train_decode_reference,
     unflatten_params,
 )
-from alignsdf_torch.models.decoder import SeparateDecoder, make_decoder, trunk_prefixes
+from alignsdf_torch.models.decoder import (
+    SeparateDecoder,
+    make_decoder,
+    separate_decoder_inputs,
+    trunk_prefixes,
+)
+from alignsdf_torch.ops.decoder_plan import make_generic_plan, trunk_input_widths
+from alignsdf_torch.ops.generic_train_plan import generic_trunk_operands, make_generic_train_decoder
 from alignsdf_torch.ops.grid_plan import branch_columns, make_grid_decode_fn
 from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
 from alignsdf_torch.ops.pixel_train_plan import (
@@ -442,3 +458,112 @@ def test_cuda_pixel_train_kernel_x_last_matches_plain(model_type):
     for g, r in zip(grads, ref):
         assert g.shape == r.shape
         assert float((g - r).abs().max()) <= 1e-4 * (float(r.abs().max()) + 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,style,pfs,latent_in,num_class,dims,latent,m", [
+    ("1encoder2decoder", "nerf", 63, (2,), 0, (512,) * 4, 256, 4101),
+    ("1encoder1decoder", "nerf", 9, (2,), 6, (512,) * 4, 256, 3000),
+    ("1encoder2decoder", "both", 9, (0, 2), 6, (512,) * 4, 256, 1000),
+    ("1encoder2decoder", "hand", 51, (0, 4), 0, (128,) * 4, 32, 777)])
+def test_cuda_generic_kernel_matches_plain(model_type, style, pfs, latent_in, num_class, dims,
+                                           latent, m):
+    """K6 on materialized rows: NeRF PE at point_size 63 (the --pallas
+    config at full width), the combined trunk with a classifier, twin trunks
+    at C = 6 with latent_in (0, 2), and a narrow trunk with a latent input at
+    the final layer whose object rows are a strided view; ragged row counts.
+    The SDFs to 1e-5 and the logits (no tanh) to 1e-4 against the plain
+    version on the same plan, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(8)
+    specs = Specs(model_type=model_type, encode_style=style, point_feat_size=pfs,
+                  latent_size=latent, classifier_branch=bool(num_class),
+                  network_specs=NetworkSpecs(dims=dims, latent_in=latent_in,
+                                             num_class=num_class or 6))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(8)
+        decoder = make_decoder(model_type, latent, pfs, style, specs.network_specs,
+                               use_classifier=bool(num_class)).cuda()
+    rows = (torch.randn(m, latent + pfs, generator=gen) * 0.5).cuda()
+    plan = make_generic_plan(decoder, specs)
+    inputs = ((rows,) if model_type == "1encoder1decoder"
+              else separate_decoder_inputs(latent, style, rows))
+    before = generic_decode.launches
+    out = generic_decode(plan, *inputs)
+    torch.cuda.synchronize()
+    assert generic_decode.launches == before + 1
+    ref = generic_decode_reference(plan, *inputs)
+    with torch.no_grad():
+        direct = decoder(rows)
+    for k, r, d, tol in zip(out, ref, direct, (1e-5, 1e-5, 1e-4)):
+        assert (k is None) == (r is None) == (d is None) == (tol == 1e-4 and not num_class)
+        if k is not None:
+            assert k.shape == r.shape == d.shape
+            assert float((k - r).abs().max()) <= tol
+            assert float((k - d).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,latent_in,dims,latent,m,x_last", [
+    ("1encoder2decoder", (0, 2), (512,) * 4, 256, 8000, True),
+    ("1encoder1decoder", (0, 2), (512,) * 4, 256, 4000, True),
+    ("1encoder2decoder", (2,), (64,) * 4, 32, 388, False)])
+def test_cuda_generic_train_kernel_matches_plain(model_type, latent_in, dims, latent, m, x_last):
+    """K5 forward and backward on each trunk through the autograd Function,
+    on materialized rows (the flagship with latent_in (0, 2) at full width,
+    twin and combined, and a narrow flagship), TF32 off: y and x_last to
+    1e-5 abs against the plain forward, every gradient, d(x0) included
+    (nonzero random dy and, with the classifier, dx_last on the first
+    trunk), to 1e-4 of its largest entry against the plain backward fed the
+    kernel's own residuals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(9)
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9,
+                  latent_size=latent, classifier_branch=x_last,
+                  network_specs=NetworkSpecs(dims=dims, latent_in=latent_in))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(9)
+        decoder = make_decoder(model_type, latent, 9, "both", specs.network_specs,
+                               use_classifier=x_last).cuda()
+    rows = (torch.randn(m, latent + 9, generator=gen) * 0.5).cuda()
+    st = make_generic_train_decoder(specs).statics
+    first, second = trunk_prefixes(decoder)
+    widths = trunk_input_widths(specs)
+    if second is None:
+        trunks = [(first, widths[0], rows, 5, 2)]
+    else:
+        xh, xo = separate_decoder_inputs(latent, "both", rows)
+        trunks = [(first, widths[0], xh, 5, 1), (second, widths[1], xo, 6, 1)]
+    for t, (prefix, width, x0, seed, out_dim) in enumerate(trunks):
+        with torch.no_grad():
+            ws, xs, bs = generic_trunk_operands(decoder, prefix, width, specs, out_dim)
+        x0 = x0.contiguous()
+        leaves = [t_.detach().clone().requires_grad_() for t_ in [x0, *flatten_params(ws, xs, bs)]]
+        fwd, bwd = generic_train_decode.launches, generic_train_decode_backward.launches
+        y, xl = generic_train_decode(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
+        dy = torch.randn(y.shape, generator=gen).cuda()
+        dxl = torch.randn(xl.shape, generator=gen).cuda() if x_last and t == 0 else None
+        grads = (torch.autograd.grad(y, leaves, dy) if dxl is None
+                 else torch.autograd.grad((y, xl), leaves, (dy, dxl)))
+        torch.cuda.synchronize()
+        assert (generic_train_decode.launches,
+                generic_train_decode_backward.launches) == (fwd + 1, bwd + 1)
+        with torch.no_grad():
+            y_ref, xl_ref = generic_train_decode_reference(x0, ws, xs, bs, seed, st)
+            assert y.shape == y_ref.shape == (out_dim, m)
+            assert float((y - y_ref).abs().max()) <= 1e-5
+            assert float((xl - xl_ref).abs().max()) <= 1e-5
+            y_k, acts = generic_train_decode_forward(pack_generic_trunk(x0, ws, xs, bs, st),
+                                                     seed, st)
+            acts = [a[:b.shape[-1]].T for a, b in zip(acts, bs)]
+            dx0, dws, dxs, dbs = generic_train_decode_backward_reference(x0, ws, xs, bs, st, y_k,
+                                                                         acts, dy, dxl)
+        ref = [dx0, *flatten_params(dws, dxs, dbs)]
+        assert len(ref) == len(grads)
+        for g, r in zip(grads, ref):
+            assert g.shape == r.shape
+            assert float((g - r).abs().max()) <= 1e-4 * (float(r.abs().max()) + 1e-12)

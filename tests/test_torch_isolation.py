@@ -26,6 +26,9 @@ def test_every_module_imports_with_jax_blocked():
     assert "alignsdf_torch.kernels.grid_decoder" in modules
     assert "alignsdf_torch.kernels.pixel_train_decoder" in modules
     assert "alignsdf_torch.ops.pixel_train_plan" in modules
+    for name in ("kernels.generic_decoder", "kernels.generic_train_decoder", "ops.decoder_plan",
+                 "ops.generic_train_plan"):
+        assert f"alignsdf_torch.{name}" in modules
     code = (
         "import sys\n"
         f"for name in {BLOCKED!r}:\n"
