@@ -71,7 +71,13 @@ class Specs:
     network_specs: NetworkSpecs = field(default_factory=NetworkSpecs)
 
     # training (reference train.py:239-330, the JAX package's defaults)
+    lmdb: bool = True                 # the dataset is the five-LMDB format
     snapshot_frequency: int = 500
+    log_frequency: int = 5            # epochs between "latest" checkpoints
+    log_frequency_step: int = 10      # steps between logged losses
+    additional_snapshots: Tuple[int, ...] = (100, 500)
+    data_loader_threads: int = 5
+    resume: str = "latest.pth"        # a warm-start checkpoint, if it exists
     num_epochs: int = 1600
     # "bn": normalize with batch statistics but never update the running
     # buffers (reference networks/model.py:24-30); "none": normal training
@@ -172,7 +178,13 @@ _KEY_MAP = {
     "ClassifierBranch": "classifier_branch",
     "ObjCornerWeight": "obj_corner_weight",
     "ComputeDtype": "compute_dtype",
+    "LMDB": "lmdb",
     "SnapshotFrequency": "snapshot_frequency",
+    "LogFrequency": "log_frequency",
+    "LogFrequencyStep": "log_frequency_step",
+    "AdditionalSnapshots": "additional_snapshots",
+    "DataLoaderThreads": "data_loader_threads",
+    "Resume": "resume",
     "NumEpochs": "num_epochs",
     "Freeze": "freeze",
     "AdditionalLossStart": "additional_loss_start",
@@ -201,7 +213,8 @@ _KEY_MAP = {
 
 _NS_FIELDS = {f.name for f in dataclasses.fields(NetworkSpecs)}
 
-_TUPLE_FIELDS = {"image_size", "dims", "dropout", "norm_layers", "latent_in"}
+_TUPLE_FIELDS = {"image_size", "additional_snapshots", "dims", "dropout", "norm_layers",
+                 "latent_in"}
 
 
 def specs_from_dict(raw: Dict[str, Any]) -> Specs:
@@ -224,6 +237,10 @@ def specs_from_dict(raw: Dict[str, Any]) -> Specs:
                                      interval=s.get("Interval", 600), factor=s.get("Factor", 0.5))
                 for s in value)
             continue
+        if json_key == "OcclusionAug" and value:
+            # the JAX package's opt-in synthetic occlusion; the reference
+            # never applies it (utils/data.py:142) and the port has no copy
+            raise NotImplementedError("OcclusionAug: true is not ported; see ROADMAP.md §1 item 2")
         fname = _KEY_MAP.get(json_key)
         if fname is None:
             continue
@@ -274,6 +291,7 @@ _CLI_OVERRIDES = {
     "penw": ("penetration_loss_weight", float),
     "conw": ("contact_loss_weight", float),
     "no_aug": ("disable_aug", "flag"),
+    "lmdb": ("lmdb", "flag"),
     "freeze": ("freeze", str),
     "penetration": ("penetration_loss", "flag"),
     "contact": ("contact_loss", "flag"),

@@ -17,6 +17,21 @@ from torch.nn import functional as F
 
 _ARCHS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 
+# The stem pool through kernel K7 (``kernels/maxpool.py``), the counterpart
+# of the JAX package's ``models/resnet.py:PALLAS_POOL``; off by default, as
+# there.  Read at call time.  K7 routes the gradient of a tied window to
+# every tied position, F.max_pool2d to the first, so the switch changes
+# gradients wherever the stem activation has flat regions.
+KERNEL_POOL = False
+
+
+def stem_pool(x: torch.Tensor) -> torch.Tensor:
+    if KERNEL_POOL:
+        from alignsdf_torch.kernels.maxpool import maxpool_k3s2p1
+
+        return maxpool_k3s2p1(x)
+    return F.max_pool2d(x, 3, 2, 1)
+
 
 def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
@@ -89,7 +104,7 @@ class ResNetEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[
             Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
         x = torch.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = stem_pool(x)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
         gap = x.mean(dim=(2, 3))
         sdf_feat = self.fc(gap) if self.fc is not None else None

@@ -1,12 +1,13 @@
 """Drive the PyTorch port's reconstruction and training paths (the
-flagship, --pa_feat, --cls and --pa_feat --cls) on one CUDA GPU and hold
-each hand-written kernel against its plain PyTorch version.
+flagship, --pa_feat, --cls and --pa_feat --cls, the generic decoders, and
+training from an LMDB dataset with the stem pool through K7) on one CUDA GPU
+and hold each hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile every kernel (K1, K2, K3, K4) from the sources in the
+  2. build: compile every kernel (K1-K7) from the sources in the
      checkout, one nvcc per source, all at once;
   3. K1 vs plain: the fused grid decoder against grid_decode_reference at
      full flagship width on a 64^3 grid, TF32 off, max abs err <= 1e-4;
@@ -87,7 +88,36 @@ Phases (each prints its own lines; any failure exits non-zero):
      points; K4 with x_last / dx_last against its plain version at 4 x 2000
      and 64 x 2000 on the real map and projection; 7 train steps with the
      cross-entropy on, one step two ways, 2 profiled steps; K3's time per
-     pass at C = 6 and K4's with x_last.
+     pass at C = 6 and K4's with x_last;
+ 13. generic serving and training (latent_in (0, 2)) through K6 and K5;
+ 14. K7, the stem max pool 3x3 / stride 2 / pad 1, against its plain
+     version on post-ReLU inputs with flat positive blocks and zero rows, at
+     the train shape (64, 64, 128, 128) and serving's batch 1, in the
+     channels-last layout of the encoder's stem and in NCHW: the forward
+     bit for bit (and equal to F.max_pool2d's), the backward to 1e-5 abs;
+     the share of positions where K7's gradient differs from F.max_pool2d's
+     (printed; the tie routing differs); K7's forward and backward times
+     (channels last) against the bytes bound, the plain versions and F.max_pool2d's forward
+     and backward; then serving with the stem pool switched to K7
+     (models/resnet.KERNEL_POOL): image 0 of phase 5 encoded both ways, the
+     stem pool outputs equal, the latents within 1e-6, one K7 launch;
+ 15. dataset training, the slice's path: 128 scenes (2 x ScenesPerBatch,
+     256x256 raw RGB, the flagship's SDF rows) written as five LMDBs by
+     data/synthetic.write_synthetic_lmdb into a temporary directory; with the
+     switch on, cli.train.main for the flagship (TrainSplit emptied, the
+     augmentation on, Resume naming the init guard's draw) for 2 epochs,
+     then --continue from its directory to epoch 3: K7's forward and
+     backward launches equal to the steps and K2's to two a step, finite
+     losses, the LR schedule, latest.pth and the metrics JSONL, the resume
+     at epoch 3; ms/step and scenes/s at epoch start-up (2 batches an
+     epoch) beside the synthetic flagship's, the loader's time a batch, the
+     idle share over an epoch's profiled steps; one step two ways on a
+     batch with rotated black corners (K7 against the plain separable pool,
+     both through K2: gradients to 1e-3 of the largest; printed beside, the
+     rounding floor (the K7 step run twice: K2's atomic sums), the step with
+     the pool's input scaled by 1 + 2^-23 and F.max_pool2d's step); then one
+     epoch of 24 batches from a second dataset of 1536 scenes, timed past
+     the loader's start-up, 4 steps profiled for the idle share.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -97,6 +127,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -119,6 +150,9 @@ CHECK_SCENES = (4, TRAIN_SCENES)  # K2 vs plain: a small batch and the main path
 WARM_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 5, 2
 TWO_WAYS_LOSS_RTOL = 1e-5
 TWO_WAYS_PARAM_ATOL = 2e-5  # a fifth of one Adam step at lr 1e-4
+# the train phases' step two ways starts from the init advanced by this many
+# plain steps with deterministic sums (see train_phase)
+TWO_WAYS_PRE_STEPS = 2
 # of each gradient's largest entry: the plain forward and K2 round
 # differently, so a few units at ReLU's edge (3e-8 of them at 64 x 2000) carry
 # gradient on one side only; a zeroed or wrong K2 gradient errs by ~1
@@ -137,6 +171,16 @@ K5_TOL = 1e-4
 K5_FWD_KERNELS = ("generic_train_fwd_kernel",)
 K5_BWD_KERNELS = ("generic_train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
 K6_TOL = 1e-4
+K7_SHAPES = {"train": (TRAIN_SCENES, 64, 128, 128), "serving": (1, 64, 128, 128)}
+K7_GRAD_TOL = 1e-5
+K7_FWD_KERNELS = ("maxpool_fwd_kernel",)
+K7_BWD_KERNELS = ("maxpool_bwd_kernel",)
+DATASET_SCENES = 2 * TRAIN_SCENES
+# steady-state feeding: an epoch of many batches, timed after the loader's
+# start-up (its first STEADY_SKIP steps), STEADY_PROFILED of them profiled
+STEADY_SCENES = 24 * TRAIN_SCENES
+STEADY_SKIP, STEADY_PROFILED = 6, 4
+
 
 
 def fail(msg: str) -> None:
@@ -171,19 +215,21 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def flagship_specs(pixel: bool = False, experiment: str = "obman_30k.json",
-                   classifier: bool = False):
+                   classifier: bool = False, raw: Optional[dict] = None):
     """The flagship "Full AlignSDF" (experiments/obman_30k.json with --mano
     --obj_pose --encode both --point_size 9), with --pa_feat if ``pixel``;
     with ``experiment`` "dexycb_140k.json" and ``classifier`` (--cls), the
-    labelled DexYCB full model."""
-    from alignsdf_torch.config import apply_overrides, load_specs
+    labelled DexYCB full model; ``raw``, a spec dict, replaces the file."""
+    from alignsdf_torch.config import apply_overrides, load_specs, specs_from_dict
 
     class Flags:
         mano = obj_pose = True
         encode, point_size = "both", 9
         pa_feat, cls = pixel, classifier
 
-    return apply_overrides(load_specs(os.path.join(REPO, "experiments", experiment)), Flags())
+    specs = (specs_from_dict(raw) if raw is not None
+             else load_specs(os.path.join(REPO, "experiments", experiment)))
+    return apply_overrides(specs, Flags())
 
 
 def synthetic_samples(gen, count: int):
@@ -477,12 +523,25 @@ def train_phase(specs, dev, card, kern: TrainKernel):
     from alignsdf_torch.training.train_state import TrainState
     from alignsdf_torch.training.train_step import batch_to_device, draw_seed, make_train_step
 
+    def twin_state(src, model_sd=None, opt_sd=None):
+        """A copy of the TrainState src, or of its model and optimizer with
+        the given state dicts loaded."""
+        twin = copy.deepcopy(src.model)
+        if model_sd is not None:
+            twin.load_state_dict(model_sd)
+        opt = type(src.optimizer)(twin.parameters(), **src.optimizer.defaults)
+        opt.load_state_dict(copy.deepcopy(opt_sd or src.optimizer.state_dict()))
+        return TrainState(twin, opt, src.epoch)
+
     rec = {}
     t0 = time.perf_counter()
     state, step = make_trainer(specs, dev, seed=SEED, init_guard=True)
     batch = batch_to_device(synthetic_train_batch(specs, TRAIN_SCENES, seed=SEED), dev)
     torch.cuda.synchronize()
     rec["setup_s"] = time.perf_counter() - t0
+    # the seeded init, kept on the host for the step two ways
+    init_sd = ({k: v.to("cpu", copy=True) for k, v in state.model.state_dict().items()},
+               copy.deepcopy(state.optimizer.state_dict()))
     gen = torch.Generator().manual_seed(SEED)
     model = state.model
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
@@ -544,25 +603,30 @@ def train_phase(specs, dev, card, kern: TrainKernel):
     # one step two ways from the same state and seed, and the plain step once
     # more with the decoder's input scaled by NUDGE: a perturbation of rounding
     # size where the kernel and its plain version differ, whose effect is the
-    # comparison's floor
-    def twin_state():
-        twin = copy.deepcopy(model)
-        opt = type(state.optimizer)(twin.parameters(), **state.optimizer.defaults)
-        opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
-        return TrainState(twin, opt, state.epoch)
-
-    plain_state, floor_state = twin_state(), twin_state()
-    twin = plain_state.model
+    # comparison's floor.  The state is the seeded init advanced by
+    # TWO_WAYS_PRE_STEPS plain steps, every sum deterministic, so it is the
+    # same in every run: from the trained state, which the kernels' atomic
+    # sums and cuDNN's free algorithm choice make differ from run to run, the
+    # floor ranged over 2.8e-4 to 1.4e-2 of the largest gradient (K4).  The
+    # pre-steps give Adam's moments more than one gradient, so that a
+    # rounding-size change of a gradient moves the update by as little.
     plain_step = make_train_step(specs, kern.make_decoder(specs, kernel=kern.plain))
     floor_step = make_train_step(specs, kern.make_decoder(specs, kernel=kern.nudged))
-    seed = draw_seed(gen)
     saved = kern.fwd.launches, kern.bwd.launches
     # deterministic cuDNN and index_add_, so that the kernel is all that
     # differs: otherwise the encoder's gradients differ between two plain steps
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        lk = {k: float(v) for k, v in step(state, batch, seed).items()}
+        pre_gen = torch.Generator().manual_seed(SEED + 1)
+        start = twin_state(state, *init_sd)
+        for _ in range(TWO_WAYS_PRE_STEPS):
+            plain_step(start, batch, draw_seed(pre_gen))
+        kernel_state, plain_state, floor_state = (twin_state(start) for _ in range(3))
+        del start
+        twin = plain_state.model
+        seed = draw_seed(pre_gen)
+        lk = {k: float(v) for k, v in step(kernel_state, batch, seed).items()}
         torch.cuda.reset_peak_memory_stats()
         lp = {k: float(v) for k, v in plain_step(plain_state, batch, seed).items()}
         plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -574,13 +638,13 @@ def train_phase(specs, dev, card, kern: TrainKernel):
     loss_rel = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
     twin_params = dict(twin.named_parameters())
     param_err = max(float((p.detach() - twin_params[k].detach()).abs().max())
-                    for k, p in model.named_parameters())
+                    for k, p in kernel_state.model.named_parameters())
     # every gradient of the step (the optimizer leaves them in place), each
     # against the plain step's, relative to its largest entry: Adam's update
     # barely sees a wrong gradient, these do
     floor_params = dict(floor_state.model.named_parameters())
     grad_rel, floor = {}, 0.0
-    for k, p in model.named_parameters():
+    for k, p in kernel_state.model.named_parameters():
         ref = twin_params[k].grad
         scale = float(ref.abs().max()) + 1e-30
         grad_rel[k] = float((p.grad - ref).abs().max()) / scale
@@ -601,7 +665,7 @@ def train_phase(specs, dev, card, kern: TrainKernel):
     rec["two_ways"] = {"loss_max_rel_err": loss_rel, "param_max_abs_err": param_err,
                        "grad_max_rel_err": grad_rel, "rounding_floor_grad_max_rel_err": floor,
                        "plain_peak_memory_gb": plain_peak_gb}
-    del twin, plain_state, floor_state
+    del twin, kernel_state, plain_state, floor_state
 
     saved = kern.fwd.launches, kern.bwd.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1949,6 +2013,502 @@ def generic_train_phase(dev, card: str, gen):
     return rec, entries
 
 
+def k7_input(shape, dev, seed: int, fmt):
+    """A post-ReLU stem activation with ties, in memory format ``fmt``: ReLU
+    of a normal draw (most of it zero), then per image a flat positive
+    block, as a constant image region gives, and a zeroed row (a zero run)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.relu(torch.randn(shape, generator=gen, device=dev) - 0.5)
+    n, _, h, w = shape
+    for i in range(n):
+        r, c = 8 + (7 * i) % (h // 2), 4 + (11 * i) % (w // 2)
+        x[i, :, r:r + h // 4, c:c + w // 3] = 0.25 + 0.01 * (i % 7)
+        x[i, :, (3 * i) % h, :] = 0.0
+    return x.contiguous(memory_format=fmt)
+
+
+def k7_phase(dev, card: str):
+    """K7 against its plain version at the train and serving shapes, in the
+    channels-last layout the encoder's stem gives and in NCHW: the forward
+    bit for bit (and equal to F.max_pool2d's), the backward to K7_GRAD_TOL;
+    the share of positions where K7's gradient differs from F.max_pool2d's
+    (information); in channels last, the times against the bound and
+    F.max_pool2d's forward and backward.  The comparison launches are not
+    the main path's: the counts are restored."""
+    import torch
+    from torch.nn import functional as F
+
+    from alignsdf_torch.kernels.maxpool import (maxpool_backward, maxpool_backward_reference,
+                                                maxpool_forward, maxpool_reference)
+
+    saved = maxpool_forward.launches, maxpool_backward.launches
+    rec = {}
+    for label, shape in K7_SHAPES.items():
+        for fmt in (torch.channels_last, torch.contiguous_format):
+            layout = "channels last" if fmt == torch.channels_last else "NCHW"
+            x = k7_input(shape, dev, SEED, fmt)
+            y = maxpool_forward(x)
+            y_plain = maxpool_reference(x)
+            y_lib, idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
+            dy = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 1),
+                             device=dev).contiguous(memory_format=fmt)
+            dx = maxpool_backward(x, y, dy)
+            dx_plain = maxpool_backward_reference(x, y_plain, dy)
+
+            def lib_bwd():
+                return torch.ops.aten.max_pool2d_with_indices_backward(
+                    dy, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)
+
+            dx_lib = lib_bwd()
+            torch.cuda.synchronize()
+            fwd_equal = bool(torch.equal(y, y_plain)) and bool(torch.equal(y, y_lib))
+            fwd_err = float((y - y_plain).abs().max())
+            grad_err = float((dx - dx_plain).abs().max())
+            tie_share = float((dx != dx_lib).float().mean())
+            print(f"K7 at {label} shape {shape}, {layout}: forward equal to the plain version "
+                  f"and to F.max_pool2d: {fwd_equal}; backward max abs err {grad_err:.3e} "
+                  f"(tolerance {K7_GRAD_TOL:g}); positions where K7's gradient differs from "
+                  f"F.max_pool2d's: {tie_share:.4f} (information: the tie routing differs); "
+                  f"input zero share {float((x == 0).float().mean()):.3f}", flush=True)
+            if not fwd_equal:
+                fail(f"K7's forward differs from its plain version or F.max_pool2d at {label}")
+            if not grad_err <= K7_GRAD_TOL:
+                fail(f"K7's backward disagrees with its plain version at {label}: {grad_err}")
+            if not tie_share > 0:
+                fail(f"the {label} input has no tie that routes differently: the check is blind")
+            entry = rec.setdefault(label, {"shape": shape, "fwd_max_abs_err": 0.0,
+                                           "grad_max_abs_err": 0.0, "layouts": {}})
+            entry["fwd_max_abs_err"] = max(entry["fwd_max_abs_err"], fwd_err)
+            entry["grad_max_abs_err"] = max(entry["grad_max_abs_err"], grad_err)
+            entry["layouts"][layout] = {"forward_equal": fwd_equal, "grad_max_abs_err": grad_err,
+                                        "grad_differs_from_max_pool2d_share": tie_share}
+            if fmt == torch.channels_last:  # the main path's layout: timed
+                reps = 50 if label == "train" else 200
+                in_bytes, out_bytes = 4 * x.numel(), 4 * y.numel()
+                times = {
+                    "fwd": {"ms": cuda_ms(lambda: maxpool_forward(x), reps),
+                            "plain_ms": cuda_ms(lambda: maxpool_reference(x), reps),
+                            "library_ms": cuda_ms(lambda: F.max_pool2d(x, 3, 2, 1), reps),
+                            "bound_ms": (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3},
+                    "bwd": {"ms": cuda_ms(lambda: maxpool_backward(x, y, dy), reps),
+                            "plain_ms": cuda_ms(lambda: maxpool_backward_reference(x, y, dy),
+                                                reps),
+                            "library_ms": cuda_ms(lib_bwd, reps),
+                            "bound_ms": 2 * (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3}}
+                for name, t in times.items():
+                    t["bound_by"] = "bytes"
+                    print(f"[{card}] K7 {name} at {label} {shape}, {layout}: {t['ms']:.4f} ms, "
+                          f"plain {t['plain_ms']:.4f} ms, F.max_pool2d"
+                          f"{' backward' if name == 'bwd' else ''} {t['library_ms']:.4f} ms, "
+                          f"bound {t['bound_ms']:.4f} ms (bytes at "
+                          f"{HBM_BYTES_PER_S / 1e12:g} TB/s)", flush=True)
+                entry["timing"] = times
+            del x, y, y_plain, y_lib, idx, dy, dx, dx_plain, dx_lib
+    maxpool_forward.launches, maxpool_backward.launches = saved
+    return rec
+
+
+def k7_serving_check(model, specs, sample, dev):
+    """Serving with the switch on: image 0 encoded with the stem pool through
+    K7 and through F.max_pool2d; the stem pool outputs equal, the latents
+    within 1e-6.  Returns K7's forward launches of the switch-on encode."""
+    import torch
+    from torch.nn import functional as F
+
+    from alignsdf_torch.kernels.maxpool import maxpool_forward, maxpool_k3s2p1
+    from alignsdf_torch.models import resnet
+    from alignsdf_torch.models.alignsdf import normalize_image_on_device
+
+    enc = model.encoder
+    with torch.no_grad():
+        x = normalize_image_on_device(torch.as_tensor(sample["image"])[None].to(dev))
+        stem = torch.relu(enc.bn1(enc.conv1(x.permute(0, 3, 1, 2))))
+        saved = maxpool_forward.launches
+        pool_equal = bool(torch.equal(maxpool_k3s2p1(stem), F.max_pool2d(stem, 3, 2, 1)))
+        maxpool_forward.launches = saved
+        off = scene_ctx(model, specs, sample, dev)["latent"]
+        resnet.KERNEL_POOL = True
+        try:
+            maxpool_forward.launches = 0
+            on = scene_ctx(model, specs, sample, dev)["latent"]
+            torch.cuda.synchronize()
+            launches = maxpool_forward.launches
+        finally:
+            resnet.KERNEL_POOL = False
+    err = float((on - off).abs().max())
+    print(f"serving with the stem pool through K7: stem pool output equal to F.max_pool2d's: "
+          f"{pool_equal}; latent max abs err {err:.3e} (tolerance 1e-6); K7 forward launches "
+          f"{launches}", flush=True)
+    if not (pool_equal and err <= 1e-6 and launches == 1):
+        fail("serving with the K7 switch on disagrees with the default pool or skipped K7")
+    return {"stem_pool_equal": pool_equal, "latent_max_abs_err": err, "launches": launches}
+
+
+class _PlainPool:
+    """The plain separable pool as a stem pool on the card (forward and
+    backward in PyTorch, outputs in x's layout as K7's), for one step two
+    ways; ``nudge`` scales its input by about one rounding step, to show
+    how far such a perturbation moves the step's gradients.  Scaling keeps
+    every tie and may make new ones; ``ties_made`` is the share of input
+    positions whose routing it changed."""
+
+    def __init__(self, nudge: float = 1.0):
+        import torch
+
+        from alignsdf_torch.kernels.maxpool import maxpool_backward_reference, maxpool_reference
+
+        pool = self
+        self.ties_made = 0.0
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                xs = x * nudge
+                y = maxpool_reference(xs)
+                if nudge != 1.0:
+                    ones = torch.ones_like(y)
+                    moved = (maxpool_backward_reference(xs, y, ones)
+                             != maxpool_backward_reference(x, maxpool_reference(x), ones))
+                    pool.ties_made = float(moved.float().mean())
+                ctx.save_for_backward(xs, y)
+                return y
+
+            @staticmethod
+            def backward(ctx, dy):
+                xs, y = ctx.saved_tensors
+                return maxpool_backward_reference(xs, y, dy) * nudge
+
+        self.fn = Fn
+
+    def __call__(self, x):
+        return self.fn.apply(x)
+
+
+def steady_feed(specs, state, step, gen, dev, card: str, tmp: str, synthetic: dict) -> dict:
+    """Steps from disk past the loader's start-up: one epoch over an LMDB
+    dataset of STEADY_SCENES scenes, each step's wall time on the host
+    clock, the steps after the first STEADY_SKIP summed, STEADY_PROFILED of
+    them profiled for the idle share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignsdf_torch.cli import train as train_cli
+    from alignsdf_torch.data.synthetic import write_synthetic_lmdb
+    from alignsdf_torch.training.train_step import batch_to_device, draw_seed
+
+    t0 = time.perf_counter()
+    root = write_synthetic_lmdb(os.path.join(tmp, "steady"),
+                                [f"{i:08d}" for i in range(STEADY_SCENES)], image_hw=256)
+    write_s = time.perf_counter() - t0
+    loader = train_cli.make_loader(specs, root)
+    loader.set_epoch(1)
+    state.epoch = 1
+    step_s, prof, prof_wall = [], None, None
+    torch.cuda.synchronize()
+    t_last = time.perf_counter()
+    for i, batch in enumerate(loader):
+        if i == STEADY_SKIP:
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = t_last
+        step(state, batch_to_device(batch, dev), draw_seed(gen))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_s.append(t - t_last)
+        t_last = t
+        if i == STEADY_SKIP + STEADY_PROFILED - 1:
+            prof.__exit__(None, None, None)
+            prof_wall = t - t_prof
+    n = len(step_s)
+    if n != STEADY_SCENES // TRAIN_SCENES or prof_wall is None:
+        fail(f"steady feed: {n} steps from a dataset of {STEADY_SCENES} scenes")
+    late = np.array(step_s[STEADY_SKIP:])
+    ms = float(late.mean()) * 1e3
+    rec = {"write_s": write_s, "steps": n, "first_steps_ms": [v * 1e3 for v in step_s[:STEADY_SKIP]],
+           "step_ms": ms, "step_ms_median": float(np.median(late)) * 1e3,
+           "step_ms_min_max": [float(late.min()) * 1e3, float(late.max()) * 1e3],
+           "scenes_per_s": TRAIN_SCENES / ms * 1e3, "synthetic_step_ms": synthetic["step_ms"]}
+    summary = profile_summary(prof, prof_wall)
+    if summary is not None:
+        busy, share, _ = summary
+        rec["profile"] = {"step_wall_ms": prof_wall * 1e3 / STEADY_PROFILED,
+                          "device_busy_ms": busy / STEADY_PROFILED, "idle_share": 1 - share}
+    print(f"[{card}] from disk, steady: {STEADY_SCENES} scenes written in {write_s:.2f} s; one "
+          f"epoch of {n} steps, the first {STEADY_SKIP} (the loader's start-up) "
+          + ", ".join(f"{v:.1f}" for v in rec["first_steps_ms"])
+          + f" ms, then {ms:.2f} ms/step on the host clock (median {rec['step_ms_median']:.2f}, "
+          f"{rec['step_ms_min_max'][0]:.2f}-{rec['step_ms_min_max'][1]:.2f}; "
+          f"{rec['scenes_per_s']:.2f} scenes/s) against the synthetic flagship's "
+          f"{synthetic['step_ms']:.2f} ms/step; "
+          + (f"{STEADY_PROFILED} profiled steps: device busy "
+             f"{rec['profile']['device_busy_ms']:.2f} ms a step, idle share "
+             f"{rec['profile']['idle_share']:.3f}" if summary is not None else
+             "profile: not measured (no device events)"), flush=True)
+    return rec
+
+
+def dataset_phase(dev, card: str, synthetic: dict):
+    """The slice's path: training from an LMDB dataset on disk through the
+    train CLI's epoch loop with the stem pool through K7 (see the module
+    docstring, phase 14)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignsdf_torch.cli import train as train_cli
+    from alignsdf_torch.data.synthetic import write_synthetic_lmdb
+    from alignsdf_torch.kernels import maxpool as k7
+    from alignsdf_torch.models import resnet
+    from alignsdf_torch.training import checkpoints as ckpt
+    from alignsdf_torch.training.train_state import TrainState, learning_rate_for_epoch
+    from alignsdf_torch.training.train_step import batch_to_device, draw_seed
+
+    rec = {}
+    flags = ["--mano", "--obj_pose", "--encode", "both", "--point_size", "9", "--device", dev.type]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        keys = [f"{i:08d}" for i in range(DATASET_SCENES)]
+        root = write_synthetic_lmdb(tmp, keys, image_hw=256)
+        rec["write_s"] = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        print(f"wrote {DATASET_SCENES} scenes (256x256 raw RGB, 20000 x 6 SDF rows a branch) as "
+              f"five LMDBs, {size / 1e6:.1f} MB, in {rec['write_s']:.2f} s", flush=True)
+
+        # the spec: the flagship JSON with TrainSplit emptied (every key of the
+        # LMDB), latest and the losses logged every epoch and step, and Resume
+        # naming a healthy init (the init guard's draw, saved), so that the
+        # CLI's K7 launches are its steps' alone
+        with open(os.path.join(REPO, "experiments", "obman_30k.json")) as f:
+            raw = json.load(f)
+        state0, _ = train_cli.make_trainer(flagship_specs(), dev, seed=SEED, init_guard=True)
+        resume = os.path.join(tmp, "init.pth")
+        torch.save({"epoch": 0, "model_state_dict": state0.model.state_dict()}, resume)
+        del state0
+        raw.update(TrainSplit="", LogFrequency=1, LogFrequencyStep=1, Resume=resume,
+                   ScenesPerBatch=TRAIN_SCENES)
+        specs = flagship_specs(raw=raw)
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(raw, f)
+        out = os.path.join(tmp, "outputs")
+        steps_per_epoch = DATASET_SCENES // TRAIN_SCENES
+        k2 = k2_kernel()
+
+        def run_cli(extra, epochs):
+            """(wall s, K7's launches, K2's launches) of one cli.train run."""
+            k7.maxpool_forward.launches = k7.maxpool_backward.launches = 0
+            k2.fwd.launches = k2.bwd.launches = 0
+            t0 = time.perf_counter()
+            train_cli.main(["-e", spec_path, *flags, "--data_root", root, "--output_root", out,
+                            "--epoch", str(epochs), *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return (wall, {"fwd": k7.maxpool_forward.launches, "bwd": k7.maxpool_backward.launches},
+                    {"fwd": k2.fwd.launches, "bwd": k2.bwd.launches})
+
+        resnet.KERNEL_POOL = True
+        try:
+            phase(f"dataset training: cli.train over {DATASET_SCENES} scenes from disk, 2 epochs "
+                  "with the stem pool through K7, then --continue to epoch 3")
+            runs = {}
+            for label, extra, epochs in (("epochs 1-2", [], 2), ("resume to 3", None, 3)):
+                if extra is None:  # --epoch renames the experiment: continue from the first
+                    extra = ["--continue", exp_dirs["epochs 1-2"]]
+                wall, launches, k2_launches = run_cli(extra, epochs)
+                exp_dir = os.path.join(
+                    out, dataclasses.replace(specs, num_epochs=epochs).experiment_name())
+                runs[label] = (wall, launches, k2_launches, exp_dir)
+                exp_dirs = {k: v[3] for k, v in runs.items()}
+            rec["cli"] = {}
+            for label, (wall, launches, k2_launches, exp_dir) in runs.items():
+                with open(os.path.join(exp_dir, "metrics.jsonl")) as f:
+                    lines = [json.loads(line) for line in f]
+                steps = [ln for ln in lines if "step" in ln]
+                epochs = [ln for ln in lines if "lr" in ln]
+                first = 1 if label == "epochs 1-2" else 3
+                saved = torch.load(os.path.join(exp_dir, ckpt.MODEL_DIR, "latest.pth"),
+                                   map_location="cpu", weights_only=False)["epoch"]
+                want_epochs = list(range(first, 3 if first == 1 else 4))
+                print(f"{label}: {wall:.2f} s, K7 launches {launches}, K2 launches {k2_launches} "
+                      f"({len(steps)} steps), "
+                      f"epochs logged {[e['epoch'] for e in epochs]}, lr "
+                      f"{[e['lr'] for e in epochs]}, latest.pth at epoch {saved}; total loss "
+                      + ", ".join(f"{s['total']:.5f}" for s in steps), flush=True)
+                if [e["epoch"] for e in epochs] != want_epochs:
+                    fail(f"{label}: epochs {[e['epoch'] for e in epochs]} != {want_epochs}")
+                if len(steps) != steps_per_epoch * len(want_epochs):
+                    fail(f"{label}: {len(steps)} step lines")
+                if launches != {"fwd": len(steps), "bwd": len(steps)}:
+                    fail(f"{label}: K7 launches {launches} != the {len(steps)} steps")
+                want_k2 = k2.per_step * len(steps)
+                if k2_launches != {"fwd": want_k2, "bwd": want_k2}:
+                    fail(f"{label}: K2 launches {k2_launches} != {k2.per_step} a step")
+                if not all(np.isfinite(v) for s in steps for k, v in s.items()):
+                    fail(f"{label}: a non-finite loss")
+                if any(e["lr"] != learning_rate_for_epoch(specs, e["epoch"]) for e in epochs):
+                    fail(f"{label}: the LR does not follow the schedule")
+                if saved != want_epochs[-1]:
+                    fail(f"{label}: latest.pth holds epoch {saved}")
+                rec["cli"][label] = {"wall_s": wall, "launches": launches,
+                                     "k2_launches": k2_launches,
+                                     "totals": [s["total"] for s in steps],
+                                     "epoch_time_s": [e["epoch_time_s"] for e in epochs]}
+            rec["launches"], rec["k2_launches"] = (
+                {k: sum(r[key][k] for r in rec["cli"].values()) for k in ("fwd", "bwd")}
+                for key in ("launches", "k2_launches"))
+
+            phase("dataset training: timed and profiled steps from disk, one step two ways "
+                  "on a batch with rotated black corners")
+            state, step = train_cli.make_trainer(specs, dev, seed=SEED, init_guard=False)
+            ckpt.warm_start(state, resume)
+            loader = train_cli.make_loader(specs, root)
+            gen = torch.Generator().manual_seed(SEED)
+            saved_counts = (k7.maxpool_forward.launches, k7.maxpool_backward.launches,
+                            k2.fwd.launches, k2.bwd.launches)
+
+            def epoch_steps(epoch):
+                loader.set_epoch(epoch)
+                state.epoch = epoch
+                for batch in loader:
+                    step(state, batch_to_device(batch, dev), draw_seed(gen))
+
+            epoch_steps(1)  # warm: cuDNN's choices, the loader's first pass
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for epoch in (2, 3, 4):
+                epoch_steps(epoch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / (3 * steps_per_epoch)
+            loader.set_epoch(5)
+            t0 = time.perf_counter()
+            n_batches = sum(1 for _ in loader)
+            load_ms = (time.perf_counter() - t0) / n_batches * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                epoch_steps(6)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            summary = profile_summary(prof, prof_wall)
+            syn = synthetic["step_ms"]
+            print(f"[{card}] from disk at epoch start-up: {wall * 1e3:.2f} ms/step on the host "
+                  f"clock ({TRAIN_SCENES / wall:.2f} scenes/s) over 3 epochs of {steps_per_epoch} "
+                  f"steps, against the synthetic flagship's {syn:.2f} ms/step "
+                  f"({TRAIN_SCENES / syn * 1e3:.2f} scenes/s, a batch already on the card); "
+                  f"the loader alone (DataLoaderThreads {specs.data_loader_threads}) "
+                  f"{load_ms:.1f} ms a batch", flush=True)
+            rec["timing"] = {"step_ms": wall * 1e3, "scenes_per_s": TRAIN_SCENES / wall,
+                             "synthetic_step_ms": syn, "loader_ms_per_batch": load_ms}
+            if summary is None:
+                print("dataset profile: not measured (no device events)", flush=True)
+            else:
+                busy, share, by_kernel = summary
+                k7_ms = {n: sum(v for k, v in by_kernel.items() if names[0] in k)
+                         / steps_per_epoch
+                         for n, names in (("fwd", K7_FWD_KERNELS), ("bwd", K7_BWD_KERNELS))}
+                print(f"[{card}] {steps_per_epoch} profiled steps from disk (one epoch), "
+                      f"{prof_wall * 1e3 / steps_per_epoch:.2f} ms each: device busy "
+                      f"{busy / steps_per_epoch:.2f} ms a step, idle share {1 - share:.3f}; "
+                      f"K7 fwd {k7_ms['fwd']:.3f} ms, bwd {k7_ms['bwd']:.3f} ms a step",
+                      flush=True)
+                rec["profile"] = {"step_wall_ms": prof_wall * 1e3 / steps_per_epoch,
+                                  "device_busy_ms": busy / steps_per_epoch,
+                                  "idle_share": 1 - share, "k7_ms": k7_ms}
+
+            # one step two ways on a batch with rotated images: K7 against
+            # the plain separable pool, everything else equal, both through
+            # the main path's decoder (K2).  K7 and its plain version agree
+            # bit for bit, and both steps give the same cuDNN kernels the
+            # same layout, so the steps differ only by the order of K2's
+            # atomic sums, whose run-to-run spread (the K7 step twice) is
+            # the comparison's rounding floor.  Printed beside: the step
+            # with the pool's input scaled by 1 + 2^-23, and F.max_pool2d's.
+            loader.set_epoch(7)
+            batch = next(iter(loader))
+            img = batch["image"]
+            black = [i for i in range(len(img)) if not img[i, :8, :8].any()]
+            print(f"two ways batch: {len(black)} of {len(img)} images have black corners",
+                  flush=True)
+            if not black:
+                fail("no image of the batch was rotated: the two ways would see no tie")
+            batch = batch_to_device(batch, dev)
+            model = state.model
+
+            def twin_state():
+                twin = copy.deepcopy(model)
+                opt = type(state.optimizer)(twin.parameters(), **state.optimizer.defaults)
+                opt.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+                return TrainState(twin, opt, state.epoch)
+
+            seed = draw_seed(gen)
+            nudged = _PlainPool(NUDGE)
+            # name: stem pool (None for K7, False for F.max_pool2d, else a plain pool)
+            pools = {"kernel": None, "plain": _PlainPool(), "again": None, "nudge": nudged,
+                     "default": False}
+            states = {name: twin_state() for name in pools}
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            kernel_pool = k7.maxpool_k3s2p1
+            losses = {}
+            try:
+                for name, pool in pools.items():
+                    resnet.KERNEL_POOL = pool is not False
+                    if pool:
+                        k7.maxpool_k3s2p1 = pool
+                    try:
+                        losses[name] = {k: float(v) for k, v in
+                                        step(states[name], batch, seed).items()}
+                    finally:
+                        k7.maxpool_k3s2p1 = kernel_pool
+                        resnet.KERNEL_POOL = True
+            finally:
+                torch.backends.cudnn.deterministic = False
+                torch.use_deterministic_algorithms(False)
+            (k7.maxpool_forward.launches, k7.maxpool_backward.launches,
+             k2.fwd.launches, k2.bwd.launches) = saved_counts
+
+            def grad_err(name, ref="plain"):
+                """(max over parameters of the max abs gradient error over the
+                parameter's largest entry, the 3 worst parameters)."""
+                base = dict(states[ref].model.named_parameters())
+                errs = {k: float((p.grad - base[k].grad).abs().max())
+                        / (float(base[k].grad.abs().max()) + 1e-30)
+                        for k, p in states[name].model.named_parameters()}
+                worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+                return worst[0][1], worst
+
+            lk, lp = losses["kernel"], losses["plain"]
+            loss_rel = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp)
+            errs = {"kernel": grad_err("kernel"), "floor": grad_err("again", "kernel"),
+                    "nudge": grad_err("nudge"), "default": grad_err("default")}
+            print(f"one step two ways (K7 vs the plain separable pool, both through K2) on "
+                  f"{len(black)} rotated images: losses max rel err {loss_rel:.3e} (tolerance "
+                  f"{TWO_WAYS_LOSS_RTOL:g}); gradients max err of the largest "
+                  f"{errs['kernel'][0]:.3e} (tolerance {TWO_WAYS_GRAD_RTOL:g}); the rounding "
+                  f"floor, the K7 step against itself (K2's atomic sums): {errs['floor'][0]:.3e}; "
+                  f"information: the plain step with the pool's input scaled by 1 + 2^-23 "
+                  f"(routing changed at {nudged.ties_made:.3e} of the positions) "
+                  f"{errs['nudge'][0]:.3e}, F.max_pool2d's step (its tie routing differs) "
+                  f"{errs['default'][0]:.3e}", flush=True)
+            for name, (_, worst) in errs.items():
+                print(f"  worst parameters, {name}: "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in worst), flush=True)
+            if not (loss_rel <= TWO_WAYS_LOSS_RTOL and errs["kernel"][0] <= TWO_WAYS_GRAD_RTOL):
+                fail("the step through K7 and through the plain separable pool disagree")
+            rec["two_ways"] = {"images_with_black_corners": len(black),
+                               "loss_max_rel_err": loss_rel,
+                               "nudge_ties_made_share": nudged.ties_made,
+                               **{f"{name}_grad_max_rel_err": e[0] for name, e in errs.items()},
+                               "worst": {name: e[1] for name, e in errs.items()}}
+
+            rec["steady"] = steady_feed(specs, state, step, gen, dev, card, tmp, synthetic)
+        finally:
+            resnet.KERNEL_POOL = False
+    return rec
+
+
 def main(record_path: Optional[str] = None) -> None:
     phase("device")
     try:
@@ -1983,7 +2543,8 @@ def main(record_path: Optional[str] = None) -> None:
     phase("build")
     t0 = time.perf_counter()
     reports = build.build_all(["grid_decoder", "train_decoder", "pixel_grid_decoder",
-                               "pixel_train_decoder", "generic_decoder", "generic_train_decoder"])
+                               "pixel_train_decoder", "generic_decoder", "generic_train_decoder",
+                               "maxpool"])
     record["build_s"] = time.perf_counter() - t0
     print(f"built in {record['build_s']:.2f} s", flush=True)
     for name, report in reports.items():
@@ -2153,15 +2714,21 @@ def main(record_path: Optional[str] = None) -> None:
     record["pixel_classifier"], pcls = classifier_phase(dev, card, gen, mano_faces, pixel=True)
     record["generic"], k6_entry = generic_phase(dev, card, gen, mano_faces)
     record["generic_train"], k5_entries = generic_train_phase(dev, card, gen)
+    phase("K7 vs plain: the stem max pool at the train and serving shapes")
+    record["k7"] = k7_phase(dev, card)
+    phase("serving with the stem pool through K7: image 0 of the flagship reconstruction")
+    record["k7_serving"] = k7_serving_check(model, specs, samples[0], dev)
+    record["dataset"] = dataset_phase(dev, card, record["train"])
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
         with open(record_path, "w") as f:
             json.dump(record, f, indent=1, default=str)
 
-    # each kernel ran on two main paths (K1 and K2: the flagship and the
-    # classifier; K3 and K4: --pa_feat and --pa_feat --cls); launches sum
-    # both, the times are the first path's, the classifier's beside
+    # each kernel ran on two main paths or more (K1: the flagship and the
+    # classifier; K2: those and dataset training; K3 and K4: --pa_feat and
+    # --pa_feat --cls); launches sum them, the times are the first path's,
+    # the classifier's beside
     t = timing[CUBE_DIM]
     ct = cls["grid_timing"]
     kernels = {"kernels": [{
@@ -2191,9 +2758,11 @@ def main(record_path: Optional[str] = None) -> None:
             "route": "cuda",
             "source": "alignsdf_torch/kernels/csrc/train_decoder.cu",
             "replaces": f"alignsdf_tpu/ops/decoder_train_kernel.py:{line}",
-            "launches": k2_launches[name] + cls["train_launches"][name],
+            "launches": (k2_launches[name] + cls["train_launches"][name]
+                         + record["dataset"]["k2_launches"][name]),
             "launches_by_path": {"flagship": k2_launches[name],
-                                 "classifier": cls["train_launches"][name]},
+                                 "classifier": cls["train_launches"][name],
+                                 "dataset_training": record["dataset"]["k2_launches"][name]},
             "max_abs_err": max(err, cerr),
             "ms": t2["ms"],
             "plain_ms": t2["plain_ms"],
@@ -2225,6 +2794,32 @@ def main(record_path: Optional[str] = None) -> None:
                                "bound_ms": c4["bound_ms"], "bound_by": c4["bound_by"],
                                "library_ms": c4["library_ms"]}))
     kernels["kernels"] += [*k5_entries, k6_entry]
+    # K7: the train shape's times; the serving batch's beside them
+    for name, line in (("fwd", 122), ("bwd", 140)):
+        t = record["k7"]["train"]["timing"][name]
+        st = record["k7"]["serving"]["timing"][name]
+        by_path = {"dataset_training": record["dataset"]["launches"][name]}
+        if name == "fwd":
+            by_path["serving"] = record["k7_serving"]["launches"]
+        err_key = "fwd_max_abs_err" if name == "fwd" else "grad_max_abs_err"
+        kernels["kernels"].append({
+            "name": f"K7 stem max pool 3x3/s2/p1, {'forward' if name == 'fwd' else 'backward'}",
+            "route": "cuda",
+            "source": "alignsdf_torch/kernels/csrc/maxpool.cu",
+            "replaces": f"alignsdf_tpu/ops/maxpool.py:{line}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(record["k7"][s][err_key] for s in K7_SHAPES),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library": ("F.max_pool2d" if name == "fwd" else
+                        "max_pool2d_with_indices_backward (a tied window's gradient to its "
+                        "first maximum, not to every tie)"),
+            "serving_batch_1": {k: st[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        })
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

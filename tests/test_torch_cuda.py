@@ -1,6 +1,6 @@
-"""Kernels K1, K2, K3, K4, K5 and K6 on the card against their plain
+"""Kernels K1, K2, K3, K4, K5, K6 and K7 on the card against their plain
 versions (K1, K3 and K6 with the classifier's rows, K2, K4 and K5 with
-x_last / dx_last).  Needs a CUDA GPU and skips without one; it imports no
+x_last / dx_last, K7 forward and backward on tied inputs).  Needs a CUDA GPU and skips without one; it imports no
 JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -20,6 +20,13 @@ from alignsdf_torch.kernels.generic_train_decoder import (
     pack_generic_trunk,
 )
 from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
+from alignsdf_torch.kernels.maxpool import (
+    maxpool_backward,
+    maxpool_backward_reference,
+    maxpool_forward,
+    maxpool_k3s2p1,
+    maxpool_reference,
+)
 from alignsdf_torch.kernels.pixel_grid_decoder import (
     pixel_grid_decode,
     pixel_grid_decode_reference,
@@ -567,3 +574,37 @@ def test_cuda_generic_train_kernel_matches_plain(model_type, latent_in, dims, la
         for g, r in zip(grads, ref):
             assert g.shape == r.shape
             assert float((g - r).abs().max()) <= 1e-4 * (float(r.abs().max()) + 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 16), (3, 64, 128, 128), (1, 5, 13, 10)])
+def test_cuda_maxpool_matches_plain(shape, channels_last):
+    """K7 on post-ReLU data with flat blocks and zero rows, NCHW or channels
+    last: the forward bit for bit (also against F.max_pool2d), in x's
+    layout, the gradient of the autograd path and of the backward kernel
+    within 1e-6 of the plain backward (each sum has at most two nonzero
+    terms: exact), one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(7)
+    x = torch.relu(torch.randn(shape, generator=gen) - 0.3)
+    x[:, :, 2:9, 1:7] = 0.5
+    x[:, :, 0] = 0.0
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = x.cuda().contiguous(memory_format=fmt).requires_grad_()
+    fwd, bwd = maxpool_forward.launches, maxpool_backward.launches
+    y = maxpool_k3s2p1(x)
+    dy = torch.randn(y.shape, generator=gen).cuda()
+    (dx,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    assert (maxpool_forward.launches, maxpool_backward.launches) == (fwd + 1, bwd + 1)
+    assert y.is_contiguous(memory_format=fmt) and dx.is_contiguous(memory_format=fmt)
+    with torch.no_grad():
+        y_ref = maxpool_reference(x)
+        assert torch.equal(y, y_ref)
+        assert torch.equal(y, torch.nn.functional.max_pool2d(x, 3, 2, 1))
+        dx_ref = maxpool_backward_reference(x, y_ref, dy)
+        assert float((dx - dx_ref).abs().max()) <= 1e-6
+        dx_k = maxpool_backward(x.detach(), y, dy.contiguous(memory_format=fmt))
+        assert float((dx_k - dx_ref).abs().max()) <= 1e-6

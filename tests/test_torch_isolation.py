@@ -27,7 +27,9 @@ def test_every_module_imports_with_jax_blocked():
     assert "alignsdf_torch.kernels.pixel_train_decoder" in modules
     assert "alignsdf_torch.ops.pixel_train_plan" in modules
     for name in ("kernels.generic_decoder", "kernels.generic_train_decoder", "ops.decoder_plan",
-                 "ops.generic_train_plan"):
+                 "ops.generic_train_plan", "kernels.maxpool", "data.sdf_samples",
+                 "data.lmdb_format", "data.lmdb_backend", "data.img_utils", "data.backends",
+                 "data.dataset", "data.loader", "utils.metrics"):
         assert f"alignsdf_torch.{name}" in modules
     code = (
         "import sys\n"
