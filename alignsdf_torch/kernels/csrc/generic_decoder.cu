@@ -20,8 +20,8 @@
 // card's float32 FMA rate bounds it (TF32 stays off so results match the
 // plain version to float32 rounding).  wgmma, TMA and bf16 are later work.
 //
-// Design: K1's (tile_product.cuh).  A block of 256 threads owns 32 rows.
-// Each trunk first stages its rows' x0 in shared memory as [column][point]
+// Design: tile_product.cuh's float32 tile product.  A block of 256 threads
+// owns 32 rows.  Each trunk first stages its rows' x0 in shared memory as [column][point]
 // (zero past the row's width, up to x0_pad = a multiple of 32): 40 KB at 319
 // columns.  Layer 0 and the latent_in layers read it there through the
 // streamed tile product (their W_in tiles stream from L2 like every weight),

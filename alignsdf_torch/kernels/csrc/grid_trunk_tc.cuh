@@ -1,0 +1,548 @@
+// The grid decoders' shared trunk on Hopper's tensor cores (kernels K1 and
+// K3; K2, K4, K5 and K6 keep tile_product.cuh).  A block of TC_THREADS
+// threads owns a tile of TC_P = 64 points.  Their activations stay in one
+// shared-memory buffer as [feature][point] and each hidden layer updates it
+// in place: its two warpgroups hold the layer's whole output for the 64
+// points in registers (wgmma accumulators), and after a barrier write it back
+// over the layer's input.
+//
+// Arithmetic: split TF32 on the tensor cores, accumulated in float32.  Each
+// operand x is split as big = tf32(x), small = tf32(x - big) (round to
+// nearest, ties away: cvt.rna), and each k step runs three products,
+// big_a big_w + small_a big_w + big_a small_w (small_a small_w, ~2^-22 of
+// the product, is dropped).  That keeps float32 accuracy, where one TF32
+// pass errs by ~1e-3 at the flagship's widths, over the kernels' 1e-4
+// contract (tests/test_torch_split_tf32.py emulates both).
+//
+// The product is wgmma.m64n128k8.f32.tf32.tf32: M = the block's 64 points,
+// with A (the activations) loaded from shared memory into registers, where
+// the split costs three instructions an element; N = 128 output features,
+// with B (the weights) in shared memory, K-major, as 8 x 16-byte core
+// matrices without swizzle; K = 8.  Warpgroup w takes output groups w and
+// w + 2 of a layer (128 features each), so a layer is at most 512 wide.
+//
+// Weights: split once, when the plan is packed.  The plan stores each layer
+// as tiles of 128 outputs x 8 k, big then small, each half the exact
+// shared-memory image of one B operand, in the order the warpgroups read
+// them (k step major, then output group), each layer's followed by its
+// epilogue tile (bias and xyz weights), so that a trunk's tiles are one
+// contiguous stream.  They stream by 1-D bulk copy (cp.async.bulk ...
+// mbarrier::complete_tx) into a ring of TC_SLOTS tiles, each slot with a
+// `full` mbarrier; thread 0 fills the ring, and a warpgroup refills the
+// slots of its previous k step with the tiles TC_SLOTS further on right
+// after it has issued the current step's products, so the refill overlaps
+// them.  No slot needs an `empty` barrier and no thread is set aside as a
+// producer; the warpgroup's barrier that closes each k step is what lets a
+// slot be refilled (per-warp `empty` barriers instead let the warps drift
+// and measured slower).
+//
+// What bounds it, as measured on an H100 (PERF.md): the chain each
+// warpgroup runs per k step around its products (moving the refills off it,
+// the same bytes, cut K1 by a fifth; a twelfth slot changed nothing), the
+// epilogues and K3's gathers, during which the tensor cores idle, and now
+// perhaps L2: K1 streams ~277 GB of tiles a 128^3 pass, ~5.4 TB/s.
+// Splitting the weights on the card instead halves the bytes read from L2
+// but puts the split (12 KB of shared memory traffic a tile, beside the
+// products' 12 KB of B reads), the proxy fence that makes it visible to
+// wgmma and a barrier on that chain; a converter warpgroup doing it for
+// both left the products waiting on its pipeline.
+//
+// Shared memory (bytes, rows = the widest layer input or output, 512 at the
+// flagship): the ring TC_SLOTS x 8 KB, activations rows x 64 x 4, xyz, two
+// SDF rows' accumulators, 256 floats of scratch and the barriers: 223,576
+// at rows = 512 (K3 adds its 4,352-byte tap table).  Registers: 128
+// accumulators a thread (two groups of 64), 8 for the split A fragment;
+// 256 threads a block (a 288-thread block with a producer warp got 168
+// registers and spilled), one block an SM.
+//
+// The final rows (2 SDF rows, and the classifier's on the first trunk) stay
+// float32 dot products on the CUDA cores; rows 0-1 take tanh after all
+// trunks have added theirs, the class rows go straight to the output.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define TC_P 64            // points per block: wgmma's M
+#define TC_THREADS 256     // two warpgroups
+#define TC_GROUP 128       // output features of a weight tile: wgmma's N
+#define TC_K 8             // k depth of a weight tile: wgmma's K for tf32
+#define TC_TILE 1024       // floats in a tile half (TC_GROUP x TC_K)
+#define TC_SLOTS 11        // ring depth, in tiles (big and small)
+#define TC_MAX_OUT 512     // two groups a warpgroup
+#define TC_MAX_TRUNKS 2
+#define TC_MAX_HIDDEN 8
+#define TC_SDF_ROWS 2      // rows 0-1 take tanh
+#define TC_MAX_ROWS 128    // 2 SDF rows + 126 classes
+
+// Offsets into prm (floats; -1 = none).  w: the tiles of the layer's
+// activation rows (in_pad of them); lat (K3): the tiles of its latent rows
+// (lat_pad), which follow w's when both are present.  b: the layer's
+// epilogue tile, the bias at 0 and the xyz weights' rows at TC_MAX_OUT,
+// 2 TC_MAX_OUT and 3 TC_MAX_OUT; x = b + TC_MAX_OUT if it has xyz weights.
+struct TcLayer { int w, x, lat, b, in_pad, out_pad; };
+struct TcTrunk { int n_hidden, fin, fin_xyz, last_pad; TcLayer layers[TC_MAX_HIDDEN]; };
+// stream[t]: the offset of trunk t's tile stream; split: trunk 1's first
+// tile (both set by tc_take_plan)
+struct TcPlan {
+  int n_trunks, fin_b, rows, n_rows, lat_pad, stream[TC_MAX_TRUNKS], split;
+  TcTrunk trunks[TC_MAX_TRUNKS];
+};
+
+struct TcShared {
+  float* ring;      // [TC_SLOTS][2][TC_TILE]: tiles, big then small
+  float* act;       // [rows][TC_P], swizzled (tc_swz)
+  float* xyz;       // [3][TC_P]
+  float* oacc;      // [TC_SDF_ROWS][TC_P]: the SDF rows summed over trunks
+  float* red;       // [TC_THREADS]: the final rows' scratch
+  uint64_t* full;   // [TC_SLOTS]: a tile has landed
+};
+
+__host__ __device__ inline size_t tc_smem_bytes(int rows) {
+  return sizeof(float) * ((size_t)TC_SLOTS * 2 * TC_TILE + (size_t)rows * TC_P + 3 * TC_P
+                          + TC_SDF_ROWS * TC_P + TC_THREADS)
+         + sizeof(uint64_t) * TC_SLOTS;
+}
+
+__device__ __forceinline__ TcShared tc_shared(float* base, int rows) {
+  TcShared s;
+  s.ring = base;
+  s.act = s.ring + TC_SLOTS * 2 * TC_TILE;
+  s.xyz = s.act + rows * TC_P;
+  s.oacc = s.xyz + 3 * TC_P;
+  s.red = s.oacc + TC_SDF_ROWS * TC_P;
+  s.full = reinterpret_cast<uint64_t*>(s.red + TC_THREADS);
+  return s;
+}
+
+// Element (k, p) of the activation buffer.  The XOR spreads the A-fragment
+// loads (k = k0 + lane % 4, p = 16 warp + lane / 4) over all 32 banks.
+__device__ __forceinline__ int tc_swz(int k, int p) { return k * TC_P + (p ^ ((k & 3) << 3)); }
+
+__device__ __forceinline__ uint32_t tc_smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ---- barriers and copies --------------------------------------------------
+
+__device__ __forceinline__ void tc_mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(tc_smem(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void tc_mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(tc_smem(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void tc_mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(tc_smem(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from global src to shared dst, counted on bar
+__device__ __forceinline__ void tc_bulk_load(float* dst, const float* src, int bytes,
+                                             uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];"
+               :: "r"(tc_smem(dst)), "l"(src), "r"(bytes), "r"(tc_smem(bar)) : "memory");
+}
+
+// named barrier 1 + w: warpgroup w alone (0 is __syncthreads)
+__device__ __forceinline__ void tc_warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" :: "r"(1 + wg) : "memory");
+}
+
+// ---- split TF32 and wgmma -------------------------------------------------
+
+__device__ __forceinline__ uint32_t tc_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void tc_split(float x, uint32_t& big, uint32_t& small) {
+  big = tc_tf32(x);
+  small = tc_tf32(x - __uint_as_float(big));
+}
+
+// Descriptor of a K-major B tile without swizzle: core matrices of 8 rows x
+// 16 bytes, 128 contiguous bytes each; the two along K 128 bytes apart
+// (leading byte offset), successive 8-row groups along N 256 bytes apart
+// (stride byte offset).
+__device__ __forceinline__ uint64_t tc_desc(const float* tile) {
+  return (uint64_t)((tc_smem(tile) & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16)
+         | ((uint64_t)(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void tc_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void tc_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void tc_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Pins the accumulators at this point of the program: the compiler must not
+// move their reads or writes across the asynchronous products.
+__device__ __forceinline__ void tc_fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d[64] (+)= A (64 x 8, this thread's fragment a) x B^T (B: 128 x 8 at desc).
+// A fragment: a[0] = (point 16 warp + lane/4, k lane%4), a[1] the point + 8,
+// a[2] and a[3] the same at k + 4.  d[4i + r]: point 16 warp + lane/4 (+ 8
+// for r >= 2), feature 8i + 2 (lane%4) (+ 1 for odd r).
+__device__ __forceinline__ void tc_wgmma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// ---- the trunk ------------------------------------------------------------
+
+// Product depth of a layer: its activation rows, then its latent rows.
+__host__ __device__ inline int tc_depth(const TcLayer& L, int lat_pad) {
+  return (L.w >= 0 ? L.in_pad : 0) + (L.lat >= 0 ? lat_pad : 0);
+}
+
+// Tile j (in the order the warpgroups read them) into its slot, j %
+// TC_SLOTS, counted on the slot's barrier; nothing past the last tile.
+__device__ __forceinline__ void tc_fill(const float* prm, const TcPlan& plan, const TcShared& s,
+                                        int j, int total) {
+  if (j >= total) return;
+  const int pos = j % TC_SLOTS;
+  const float* src = prm + (j < plan.split ? plan.stream[0] + (size_t)j * 2 * TC_TILE
+                                           : plan.stream[1] + (size_t)(j - plan.split) * 2 * TC_TILE);
+  tc_mbar_expect_tx(&s.full[pos], 2 * TC_TILE * 4);
+  tc_bulk_load(s.ring + pos * 2 * TC_TILE, src, 2 * TC_TILE * 4, &s.full[pos]);
+}
+
+// Tiles in layer L: its weight tiles, then its epilogue tile.
+__host__ __device__ inline int tc_tiles(const TcLayer& L, int lat_pad) {
+  return tc_depth(L, lat_pad) / TC_K * (L.out_pad / TC_GROUP) + 1;
+}
+
+__host__ __device__ inline int tc_total_tiles(const TcPlan& plan) {
+  int total = 0;
+  for (int t = 0; t < plan.n_trunks; ++t)
+    for (int l = 0; l < plan.trunks[t].n_hidden; ++l)
+      total += tc_tiles(plan.trunks[t].layers[l], plan.lat_pad);
+  return total;
+}
+
+// Thread 0, before the block's first barrier: the ring's barriers and its
+// first TC_SLOTS tiles.
+__device__ __forceinline__ void tc_init(const float* prm, const TcPlan& plan, const TcShared& s) {
+  for (int i = 0; i < TC_SLOTS; ++i) tc_mbar_init(&s.full[i], 1);  // the filler's expect_tx
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  const int total = tc_total_tiles(plan);
+  for (int j = 0; j < TC_SLOTS; ++j) tc_fill(prm, plan, s, j, total);
+}
+
+// A layer's product for warpgroup wg, which owns NG of its output groups
+// (wg, then wg + 2), over `steps` k steps from tile slot0.  Each step: the
+// A fragment split in registers, a wait for the warpgroup's tiles, then 3
+// NG products issued together (every operand defined before the wgmma
+// fence, so ptxas need not serialize them); while they run, one thread
+// refills the previous step's slots, which every warp of the warpgroup was
+// past at the step's closing barrier.
+template <int NG>
+__device__ __forceinline__ void tc_steps(float (&acc0)[64], float (&acc1)[64], int steps,
+                                         int groups, int slot0, const float* __restrict__ prm,
+                                         const TcPlan& plan, const TcShared& s, int total,
+                                         int wg, int wt, int p0, int t4) {
+  for (int st = 0; st < steps; ++st) {
+    const int k = st * TC_K + t4;
+    uint32_t ab[4], as[4];
+    tc_split(s.act[tc_swz(k, p0)], ab[0], as[0]);
+    tc_split(s.act[tc_swz(k, p0 + 8)], ab[1], as[1]);
+    tc_split(s.act[tc_swz(k + 4, p0)], ab[2], as[2]);
+    tc_split(s.act[tc_swz(k + 4, p0 + 8)], ab[3], as[3]);
+    const int sl = slot0 + st * groups + wg;
+    const int pos0 = sl % TC_SLOTS, pos1 = (sl + 2) % TC_SLOTS;
+    tc_mbar_wait(&s.full[pos0], (sl / TC_SLOTS) & 1);
+    if (NG > 1) tc_mbar_wait(&s.full[pos1], ((sl + 2) / TC_SLOTS) & 1);
+    const float* t0 = s.ring + pos0 * 2 * TC_TILE;
+    const float* t1 = s.ring + pos1 * 2 * TC_TILE;
+    const uint64_t big0 = tc_desc(t0), small0 = tc_desc(t0 + TC_TILE);
+    const uint64_t big1 = tc_desc(t1), small1 = tc_desc(t1 + TC_TILE);
+    const int scale_d = st > 0;
+    tc_fence_acc(acc0);
+    if (NG > 1) tc_fence_acc(acc1);
+    tc_wgmma_fence();
+    tc_wgmma(acc0, ab, big0, scale_d);
+    tc_wgmma(acc0, as, big0, 1);
+    tc_wgmma(acc0, ab, small0, 1);
+    if (NG > 1) {
+      tc_wgmma(acc1, ab, big1, scale_d);
+      tc_wgmma(acc1, as, big1, 1);
+      tc_wgmma(acc1, ab, small1, 1);
+    }
+    tc_wgmma_commit();
+    if (wt == 0 && st > 0) {
+      tc_fill(prm, plan, s, sl - groups + TC_SLOTS, total);
+      if (NG > 1) tc_fill(prm, plan, s, sl - groups + 2 + TC_SLOTS, total);
+    }
+    tc_wgmma_wait();
+    tc_fence_acc(acc0);
+    if (NG > 1) tc_fence_acc(acc1);
+    tc_warpgroup_sync(wg);
+  }
+  if (wt == 0 && steps > 0) {  // the last step's slots
+    const int sl = slot0 + (steps - 1) * groups + wg;
+    tc_fill(prm, plan, s, sl + TC_SLOTS, total);
+    if (NG > 1) tc_fill(prm, plan, s, sl + 2 + TC_SLOTS, total);
+  }
+}
+
+// out[o][p] = relu(acc + b[o] + X[:, o] . xyz[p]) for this thread's 64
+// accumulators of group j (acc is 0 for a layer without a product); b and X
+// from the layer's epilogue tile `epi` in the ring.
+__device__ __forceinline__ void tc_epilogue(const float (&acc)[64], bool has, int j,
+                                            const float* epi, bool has_x, float* act,
+                                            const float* xyz, int p0, int t4) {
+  const float xa = xyz[p0], ya = xyz[TC_P + p0], za = xyz[2 * TC_P + p0];
+  const float xb = xyz[p0 + 8], yb = xyz[TC_P + p0 + 8], zb = xyz[2 * TC_P + p0 + 8];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int o = j * TC_GROUP + 8 * i + 2 * t4;
+    const float2 b = *reinterpret_cast<const float2*>(epi + o);
+    float v0 = b.x, v1 = b.y, v2 = b.x, v3 = b.y;
+    if (has) {
+      v0 += acc[4 * i];
+      v1 += acc[4 * i + 1];
+      v2 += acc[4 * i + 2];
+      v3 += acc[4 * i + 3];
+    }
+    if (has_x) {
+      const float2 wx = *reinterpret_cast<const float2*>(epi + TC_MAX_OUT + o);
+      const float2 wy = *reinterpret_cast<const float2*>(epi + 2 * TC_MAX_OUT + o);
+      const float2 wz = *reinterpret_cast<const float2*>(epi + 3 * TC_MAX_OUT + o);
+      v0 += wx.x * xa + wy.x * ya + wz.x * za;
+      v1 += wx.y * xa + wy.y * ya + wz.y * za;
+      v2 += wx.x * xb + wy.x * yb + wz.x * zb;
+      v3 += wx.y * xb + wy.y * yb + wz.y * zb;
+    }
+    act[tc_swz(o, p0)] = fmaxf(v0, 0.f);
+    act[tc_swz(o + 1, p0)] = fmaxf(v1, 0.f);
+    act[tc_swz(o, p0 + 8)] = fmaxf(v2, 0.f);
+    act[tc_swz(o + 1, p0 + 8)] = fmaxf(v3, 0.f);
+  }
+}
+
+// The final rows of trunk T over the last activation: the SDF rows 0-1 are
+// added into oacc (thread = row, half of k, point; the halves meet in red);
+// with n_rows > 2 the class rows (the first trunk's) go straight to out with
+// their bias (warp = row, lane = points lane and lane + 32).
+__device__ void tc_final_rows(const float* __restrict__ prm, const TcTrunk& T, int n_rows,
+                              int fin_b, const TcShared& s, float* __restrict__ out,
+                              long long first, int m, int tid) {
+  const int last = T.last_pad;
+  {
+    const int r = tid >> 7, half = (tid >> 6) & 1, p = tid & (TC_P - 1);
+    const float* f = prm + T.fin + r * last;
+    const int k_lo = half * (last >> 1), k_hi = k_lo + (last >> 1);
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    for (int k = k_lo; k < k_hi; k += 4) {
+      const float4 fw = __ldg(reinterpret_cast<const float4*>(f + k));
+      s0 = fmaf(fw.x, s.act[tc_swz(k, p)], s0);
+      s1 = fmaf(fw.y, s.act[tc_swz(k + 1, p)], s1);
+      s2 = fmaf(fw.z, s.act[tc_swz(k + 2, p)], s2);
+      s3 = fmaf(fw.w, s.act[tc_swz(k + 3, p)], s3);
+    }
+    s.red[tid] = (s0 + s1) + (s2 + s3);
+  }
+  if (n_rows > TC_SDF_ROWS) {
+    const int lane = tid & 31;
+    for (int r = TC_SDF_ROWS + (tid >> 5); r < n_rows; r += TC_THREADS / 32) {
+      const float* f = prm + T.fin + r * last;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+      for (int k = 0; k < last; k += 4) {
+        const float4 fw = __ldg(reinterpret_cast<const float4*>(f + k));
+        a0 = fmaf(fw.x, s.act[tc_swz(k, lane)], a0);
+        a1 = fmaf(fw.y, s.act[tc_swz(k + 1, lane)], a1);
+        a2 = fmaf(fw.z, s.act[tc_swz(k + 2, lane)], a2);
+        a3 = fmaf(fw.w, s.act[tc_swz(k + 3, lane)], a3);
+        c0 = fmaf(fw.x, s.act[tc_swz(k, lane + 32)], c0);
+        c1 = fmaf(fw.y, s.act[tc_swz(k + 1, lane + 32)], c1);
+        c2 = fmaf(fw.z, s.act[tc_swz(k + 2, lane + 32)], c2);
+        c3 = fmaf(fw.w, s.act[tc_swz(k + 3, lane + 32)], c3);
+      }
+      float va = (a0 + a1) + (a2 + a3), vc = (c0 + c1) + (c2 + c3);
+      if (T.fin_xyz >= 0) {
+        const float* fx = prm + T.fin_xyz + r * 3;
+        va += fx[0] * s.xyz[lane] + fx[1] * s.xyz[TC_P + lane] + fx[2] * s.xyz[2 * TC_P + lane];
+        vc += fx[0] * s.xyz[lane + 32] + fx[1] * s.xyz[TC_P + lane + 32]
+              + fx[2] * s.xyz[2 * TC_P + lane + 32];
+      }
+      const float bias = __ldg(prm + fin_b + r);
+      if (first + lane < m) out[(size_t)r * m + first + lane] = va + bias;
+      if (first + lane + 32 < m) out[(size_t)r * m + first + lane + 32] = vc + bias;
+    }
+  }
+  __syncthreads();
+  if (tid < TC_SDF_ROWS * TC_P) {
+    const int r = tid / TC_P, p = tid % TC_P;
+    float v = s.red[r * 2 * TC_P + p] + s.red[r * 2 * TC_P + TC_P + p];
+    if (T.fin_xyz >= 0) {
+      const float* fx = prm + T.fin_xyz + r * 3;
+      v += fx[0] * s.xyz[p] + fx[1] * s.xyz[TC_P + p] + fx[2] * s.xyz[2 * TC_P + p];
+    }
+    s.oacc[tid] += v;
+  }
+  __syncthreads();
+}
+
+// The block's 256 threads: every trunk's hidden layers, then its final
+// rows; at the end rows 0-1 with their bias and tanh.  xyz and oacc (zeroed)
+// are ready, and the ring filled (tc_init).  fill(row0, tid) writes the
+// latent into activation rows row0 .. row0 + lat_pad - 1 before a layer
+// with latent rows (K3); K1 has none.
+template <class Fill>
+__device__ void tc_consume(const float* __restrict__ prm, const TcPlan& plan, const TcShared& s,
+                           const Fill& fill, float* __restrict__ out, long long first, int m,
+                           int tid) {
+  const int wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
+  const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
+  float acc0[64], acc1[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+  const int total = tc_total_tiles(plan);
+  int slot = 0;
+  for (int t = 0; t < plan.n_trunks; ++t) {
+    const TcTrunk& T = plan.trunks[t];
+    for (int l = 0; l < T.n_hidden; ++l) {
+      const TcLayer& L = T.layers[l];
+      const int groups = L.out_pad / TC_GROUP;
+      const int steps = tc_depth(L, plan.lat_pad) / TC_K;
+      const int mine = (groups > wg) + (groups > wg + 2);  // groups wg and wg + 2
+      if (L.lat >= 0) {
+        fill(L.w >= 0 ? L.in_pad : 0, tid);
+        __syncthreads();
+      }
+      if (mine == 2) {
+        tc_steps<2>(acc0, acc1, steps, groups, slot, prm, plan, s, total, wg, wt, p0, t4);
+      } else if (mine == 1) {
+        tc_steps<1>(acc0, acc1, steps, groups, slot, prm, plan, s, total, wg, wt, p0, t4);
+      }
+      slot += steps * groups;  // now the epilogue tile's
+      const int pos = slot % TC_SLOTS;
+      tc_mbar_wait(&s.full[pos], (slot / TC_SLOTS) & 1);
+      const float* epi = s.ring + pos * 2 * TC_TILE;
+      __syncthreads();  // every warp is done reading the layer's input
+      if (mine > 0) tc_epilogue(acc0, steps > 0, wg, epi, L.x >= 0, s.act, s.xyz, p0, t4);
+      if (mine > 1) tc_epilogue(acc1, steps > 0, wg + 2, epi, L.x >= 0, s.act, s.xyz, p0, t4);
+      __syncthreads();
+      if (tid == 0) tc_fill(prm, plan, s, slot + TC_SLOTS, total);
+      ++slot;
+    }
+    // only the first trunk carries class rows (the plan packs them there)
+    tc_final_rows(prm, T, t == 0 ? plan.n_rows : TC_SDF_ROWS, plan.fin_b, s, out, first, m, tid);
+  }
+  if (tid < TC_SDF_ROWS * TC_P) {
+    const int r = tid / TC_P, p = tid % TC_P;
+    if (first + p < m) out[(size_t)r * m + first + p] = tanhf(s.oacc[tid] + prm[plan.fin_b + r]);
+  }
+}
+
+struct TcNoFill {
+  __device__ void operator()(int, int) const {}
+};
+
+// Host: reads a descriptor's trunks from desc[pos] on (per trunk: n_hidden,
+// fin, fin_xyz, last_pad, then per hidden layer: w, x, lat (K3's only), b,
+// in_pad, out_pad) into p, whose head the launcher has read, and says
+// whether the whole plan is one this trunk takes, with extra_smem bytes of
+// the kernel's own beside tc_smem_bytes.  Sets the stream offsets.  The one
+// check of a plan: the launchers return -1 where it fails.
+static bool tc_take_plan(TcPlan& p, const int* desc, int desc_len, int pos, bool with_lat,
+                         size_t extra_smem) {
+  if (p.n_trunks < 1 || p.n_trunks > TC_MAX_TRUNKS) return false;
+  const int per = with_lat ? 6 : 5;
+  for (int t = 0; t < p.n_trunks; ++t) {
+    TcTrunk& T = p.trunks[t];
+    if (pos + 4 > desc_len) return false;
+    T.n_hidden = desc[pos];
+    T.fin = desc[pos + 1];
+    T.fin_xyz = desc[pos + 2];
+    T.last_pad = desc[pos + 3];
+    pos += 4;
+    if (T.n_hidden < 1 || T.n_hidden > TC_MAX_HIDDEN || pos + T.n_hidden * per > desc_len)
+      return false;
+    for (int l = 0; l < T.n_hidden; ++l, pos += per) {
+      TcLayer& L = T.layers[l];
+      L.w = desc[pos];
+      L.x = desc[pos + 1];
+      L.lat = with_lat ? desc[pos + 2] : -1;
+      L.b = desc[pos + per - 3];
+      L.in_pad = desc[pos + per - 2];
+      L.out_pad = desc[pos + per - 1];
+    }
+  }
+  if (pos != desc_len) return false;
+  if (p.n_rows < TC_SDF_ROWS || p.n_rows > TC_MAX_ROWS) return false;
+  if (p.rows < TC_GROUP || p.rows % TC_K || p.lat_pad < 0 || p.lat_pad % TC_K) return false;
+  if (p.fin_b < 0 || tc_smem_bytes(p.rows) + extra_smem > 232448) return false;
+  int tiles = 0;
+  for (int t = 0; t < p.n_trunks; ++t) {
+    TcTrunk& T = p.trunks[t];
+    if (T.fin < 0 || (T.fin & 3)) return false;  // final rows load as float4
+    if (t == 1) p.split = tiles;
+    int prev = 0, next = -1;  // next: where the trunk's stream goes on
+    for (int l = 0; l < T.n_hidden; ++l) {
+      const TcLayer& L = T.layers[l];
+      const int groups = L.out_pad / TC_GROUP;
+      if (L.out_pad % TC_GROUP || L.out_pad < TC_GROUP || L.out_pad > TC_MAX_OUT ||
+          L.out_pad > p.rows) return false;
+      // layer 0 reads no activation rows (its input is folded); the others
+      // read exactly the previous layer's output
+      if (l == 0 ? L.w >= 0 : (L.w < 0 || L.in_pad != prev)) return false;
+      if (L.lat >= 0 && p.lat_pad == 0) return false;
+      const int depth = tc_depth(L, p.lat_pad);
+      if (depth > p.rows) return false;
+      // the stream: the weight tiles (the latent rows' after the activation
+      // rows'), then the epilogue tile, with xyz rows at b + TC_MAX_OUT
+      const int start = depth > 0 ? (L.w >= 0 ? L.w : L.lat) : L.b;
+      if (start < 0 || (start & 3) || (next >= 0 && start != next)) return false;
+      if (l == 0) p.stream[t] = start;
+      if (L.w >= 0 && L.lat >= 0 && L.lat != L.w + L.in_pad / TC_K * groups * 2 * TC_TILE)
+        return false;
+      if (L.b != start + depth / TC_K * groups * 2 * TC_TILE) return false;
+      if (L.x >= 0 && L.x != L.b + TC_MAX_OUT) return false;
+      next = L.b + 2 * TC_TILE;
+      tiles += tc_tiles(L, p.lat_pad);
+      prev = L.out_pad;
+    }
+    if (T.last_pad != prev) return false;
+  }
+  if (p.n_trunks == 1) p.split = tiles;
+  return true;
+}

@@ -19,7 +19,7 @@
 // float32 FMA rate (TF32 stays off so results match the plain version to
 // float32 rounding).  wgmma, TMA and bf16 are later work.
 //
-// Forward (train_fwd_kernel): K1's design.  A block of 256 threads owns 32
+// Forward (train_fwd_kernel): tile_product.cuh's.  A block of 256 threads owns 32
 // points; their activations stay in shared memory as [feature][point]
 // ping-pong buffers, weights stream from L2 through a 32 x 256 shared tile
 // (prefetched into registers), each thread holds an 8 x 4 (feature x

@@ -7,7 +7,11 @@ contiguous linear grid indices from ``base`` (z fastest) it derives xyz,
 runs the latent-folded trunks and returns an (n_rows, m) float32 array: row
 0 the hand SDF, row 1 the object SDF (both tanh'd), rows 2.. the
 classifier's logits, which the plan packs as extra final rows of the hand
-trunk (``ops/grid_plan.py``).  The CUDA source is ``csrc/grid_decoder.cu``.
+trunk (``ops/grid_plan.py``).  The CUDA source is ``csrc/grid_decoder.cu``,
+on the tensor-core trunk of ``csrc/grid_trunk_tc.cuh`` that K3 shares: the
+plan stores each hidden layer's weights split into TF32 halves, big and
+small, as tiles of 128 outputs x 8 k in that trunk's shared-memory layout
+(``tile_weights``).
 
 ``grid_decode`` takes the plain version only for a plan on the CPU; for a
 plan on the GPU it launches the kernel or raises.  ``grid_decode.launches``
@@ -23,12 +27,17 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-PAD = 256     # hidden widths pad to the kernel's output chunk
+PAD = 256     # hidden widths pad to tile_product.cuh's output chunk (K2, K4, K5, K6)
 ALIGN = 64    # every array of the packed plan starts on a 256-byte boundary
 N_ROWS = 2      # SDF rows: hand, object (tanh'd)
 MAX_ROWS = 128  # SDF rows and up to 126 classes
 MAX_SMEM = 232448
-_TILE_P, _BK, _MAX_TRUNKS, _MAX_HIDDEN = 32, 32, 2, 8
+_MAX_TRUNKS, _MAX_HIDDEN = 2, 8
+# grid_trunk_tc.cuh (K1, K3): hidden widths pad to its output group, wgmma's
+# N, at most 4 groups; a weight tile is TC_GROUP outputs x TC_K k
+TC_GROUP = 128
+TC_K = 8
+TC_MAX_OUT = 512
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,17 +68,21 @@ class GridPlan:
     """Folded trunks packed into one float32 buffer in the kernel's layout.
 
     ``desc`` is the int32 layout descriptor ``grid_decoder.cu`` reads:
-    [n_trunks, fin_b, max_pad, n_rows, then per trunk n_hidden, fin,
-    fin_xyz, last_pad, then per hidden layer w, x, b, in_pad, out_pad]
-    (offsets in floats, -1 = absent).  Hidden weights are (in_pad, out_pad)
-    with out contiguous; xyz weights (3, out_pad); final rows (n_rows,
-    last_pad), every trunk holding all of them (zeros in the rows it does
-    not write).
+    [n_trunks, fin_b, rows, n_rows, then per trunk n_hidden, fin, fin_xyz,
+    last_pad, then per hidden layer w, x, b, in_pad, out_pad] (offsets in
+    floats, -1 = absent; rows = the activation buffer's, the widest layer).
+    Hidden weights (in_pad, out_pad) are stored as ``tile_weights`` tiles;
+    a layer's bias and xyz weights as one ``epilogue_tile`` at b (x = b +
+    TC_MAX_OUT, or -1); final rows (n_rows, last_pad), every trunk holding
+    all of them (zeros in the rows it does not write).
     """
 
     flat: torch.Tensor
     desc: np.ndarray
     n: int
+
+    _HEAD = 4   # desc entries before the first trunk
+    _LAYER = 5  # desc entries a hidden layer
 
     @property
     def device(self) -> torch.device:
@@ -79,15 +92,26 @@ class GridPlan:
         size = int(np.prod(shape))
         return self.flat[off:off + size].view(shape)
 
+    def xyz_weights(self, off: int, out_pad: int) -> torch.Tensor:
+        """The (3, out_pad) xyz weights of an epilogue tile (rows TC_MAX_OUT
+        apart)."""
+        return self.view(off, (3, TC_MAX_OUT))[:, :out_pad]
+
+    def weights(self, off: int, k: int, out_pad: int) -> torch.Tensor:
+        """The (k, out_pad) weights whose tiles start at ``off``, big +
+        small (a copy)."""
+        return untile_weights(self.flat[off:off + 2 * k * out_pad], k, out_pad)
+
     @property
     def n_rows(self) -> int:
         return int(self.desc[3])
 
     def trunks(self):
-        """Yield (hidden [(w|None, x|None, b)], fin, fin_xyz|None) views."""
+        """Yield (hidden [(w|None, x|None, b)], fin, fin_xyz|None): views,
+        but w untiled (a copy)."""
         d = self.desc.tolist()
         n_rows = self.n_rows
-        pos = 4
+        pos = self._HEAD
         for _ in range(d[0]):
             n_hidden, fin, fin_xyz, last_pad = d[pos:pos + 4]
             pos += 4
@@ -95,8 +119,8 @@ class GridPlan:
             for _ in range(n_hidden):
                 w, x, b, in_pad, out_pad = d[pos:pos + 5]
                 pos += 5
-                hidden.append((self.view(w, (in_pad, out_pad)) if w >= 0 else None,
-                               self.view(x, (3, out_pad)) if x >= 0 else None,
+                hidden.append((self.weights(w, in_pad, out_pad) if w >= 0 else None,
+                               self.xyz_weights(x, out_pad) if x >= 0 else None,
                                self.view(b, (out_pad,))))
             yield (hidden, self.view(fin, (n_rows, last_pad)),
                    self.view(fin_xyz, (n_rows, 3)) if fin_xyz >= 0 else None)
@@ -105,13 +129,78 @@ class GridPlan:
     def fin_b(self) -> torch.Tensor:
         return self.view(int(self.desc[1]), (self.n_rows,))
 
+    def out_pads(self) -> List[int]:
+        """Every hidden layer's padded width (its last desc entry)."""
+        d = self.desc.tolist()
+        pads, pos = [], self._HEAD
+        for _ in range(d[0]):
+            n_hidden = d[pos]
+            pos += 4
+            for _ in range(n_hidden):
+                pos += self._LAYER
+                pads.append(d[pos - 1])
+        return pads
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: cvt.rna.tf32.f32."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small): big = tf32(w), small = tf32(w - big); big + small is w
+    to 2^-22 of |w|."""
+    big = tf32_round(w)
+    return big, tf32_round(w - big)
+
+
+def tile_weights(w: torch.Tensor, k: int, out_pad: int) -> torch.Tensor:
+    """(k, out_pad) weights, ``w`` in the top-left and zeros elsewhere, split
+    into TF32 halves as grid_trunk_tc.cuh's tiles, flat: for each k step of
+    TC_K (major) and each group of TC_GROUP outputs one tile, big then
+    small, each half laid out [8 outputs][k half][output][4 k], i.e. core
+    matrices of 8 outputs x 16 bytes: the shared-memory image of one wgmma
+    B operand, K-major, without swizzle."""
+    if k % TC_K or out_pad % TC_GROUP:
+        raise ValueError(f"a ({k}, {out_pad}) tiling needs k % {TC_K} == 0 and "
+                         f"out_pad % {TC_GROUP} == 0")
+    full = w.new_zeros(k, out_pad, dtype=torch.float32)
+    full[:w.shape[0], :w.shape[1]] = w
+    # (step, k half, k, group, output group of 8, output) -> (step, group,
+    # output group of 8, k half, output, k)
+    halves = [h.view(k // TC_K, 2, 4, out_pad // TC_GROUP, TC_GROUP // 8, 8)
+              .permute(0, 3, 4, 1, 5, 2).reshape(k // TC_K, out_pad // TC_GROUP, -1)
+              for h in tf32_split(full)]
+    return torch.stack(halves, dim=2).reshape(-1)
+
+
+def epilogue_tile(b: torch.Tensor, x: Optional[torch.Tensor]) -> torch.Tensor:
+    """A layer's bias and (3, out) xyz weights as one tile of the trunk's
+    ring (2 TC_GROUP TC_K floats): the bias at 0, xyz row r at (r + 1)
+    TC_MAX_OUT, zeros elsewhere."""
+    tile = b.new_zeros(4, TC_MAX_OUT, dtype=torch.float32)
+    tile[0, :b.shape[0]] = b
+    if x is not None:
+        tile[1:, :x.shape[1]] = x
+    return tile.reshape(-1)
+
+
+def untile_weights(flat: torch.Tensor, k: int, out_pad: int) -> torch.Tensor:
+    """(k, out_pad) big + small from ``tile_weights``'s tiles."""
+    tiles = flat.view(k // TC_K, out_pad // TC_GROUP, 2, TC_GROUP // 8, 2, 8, 4)
+    both = tiles[:, :, 0] + tiles[:, :, 1]
+    return both.permute(0, 3, 5, 1, 2, 4).reshape(k, out_pad)
+
 
 def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (),
-                n_rows: int = N_ROWS) -> Tuple[torch.Tensor, np.ndarray]:
+                n_rows: int = N_ROWS, pad: int = PAD) -> Tuple[torch.Tensor, np.ndarray]:
     """Pad and pack trunks (FoldedTrunk-like: ``hidden`` layers with
     ``w``/``b``, ``fin``, ``fin_x``, ``fin_b``, ``rows``) into one zeroed
     float32 buffer on their device, each array starting on an ALIGN
-    boundary, with ``n_rows`` final rows.  Returns (flat, desc), desc =
+    boundary, hidden widths padded to multiples of ``pad``, with ``n_rows``
+    final rows.  Returns (flat, desc), desc =
     [n_trunks, fin_b, max_pad, *head, then per trunk n_hidden, fin, fin_xyz,
     last_pad, then per hidden layer ``place_layer(place, layer, in_pad,
     out_pad)``], where ``place(shape, fill)`` reserves an array with
@@ -135,7 +224,7 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
     for t in trunks:
         fin_b[list(t.rows)] += t.fin_b
     desc = [len(trunks), place((n_rows,), fin_b), 0, *head]
-    max_pad = PAD
+    max_pad = pad
     for t in trunks:
         if not 1 <= len(t.hidden) <= _MAX_HIDDEN or t.hidden[0].w is not None:
             raise ValueError("a trunk needs 1-8 hidden layers and a layer 0 whose "
@@ -143,7 +232,7 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
         layers = []
         in_pad = 0
         for h in t.hidden:
-            out_pad = _round_up(h.b.shape[0], PAD)
+            out_pad = _round_up(h.b.shape[0], pad)
             max_pad = max(max_pad, out_pad, in_pad)
             layers.append(place_layer(place, h, in_pad, out_pad))
             in_pad = out_pad
@@ -189,11 +278,13 @@ def pack_grid_plan(trunks: List[FoldedTrunk], n: int) -> GridPlan:
     n_rows = output_rows(trunks)
 
     def layer(place, h: HiddenLayer, in_pad: int, out_pad: int) -> List[int]:
-        return [place((in_pad, out_pad), h.w) if h.w is not None else -1,
-                place((3, out_pad), h.x) if h.x is not None else -1,
-                place((out_pad,), h.b), in_pad, out_pad]
+        tiles = tile_weights(h.w, in_pad, out_pad) if h.w is not None else None
+        w = place(tuple(tiles.shape), tiles) if tiles is not None else -1
+        epi = epilogue_tile(h.b, h.x)
+        b = place(tuple(epi.shape), epi)
+        return [w, b + TC_MAX_OUT if h.x is not None else -1, b, in_pad, out_pad]
 
-    return GridPlan(*pack_trunks(trunks, layer, (n_rows,), n_rows), n)
+    return GridPlan(*pack_trunks(trunks, layer, (n_rows,), n_rows, TC_GROUP), n)
 
 
 def grid_coords(base: int, m: int, n: int, origin: torch.Tensor,
@@ -237,10 +328,6 @@ def _launcher():
     return fn
 
 
-def smem_bytes(max_pad: int, n_rows: int = N_ROWS) -> int:
-    return 4 * (2 * max_pad * _TILE_P + _BK * PAD + 3 * _TILE_P + n_rows * _TILE_P)
-
-
 def grid_decode(plan: GridPlan, base: int, m: int, origin: torch.Tensor,
                 voxel: torch.Tensor) -> torch.Tensor:
     """K1: (n_rows, m) float32 SDFs (and logits) of grid indices
@@ -255,9 +342,6 @@ def grid_decode(plan: GridPlan, base: int, m: int, origin: torch.Tensor,
         raise ValueError("the plan buffer must be 16-byte aligned")
     if m <= 0 or base < 0 or base + m > plan.n ** 3 or plan.n ** 3 >= 2 ** 31:
         raise ValueError(f"index run [{base}, {base + m}) outside the {plan.n}^3 grid")
-    if smem_bytes(int(plan.desc[2]), plan.n_rows) > MAX_SMEM:
-        raise ValueError(f"hidden width {int(plan.desc[2])} needs more shared memory "
-                         "than a block has")
     scal = torch.cat([torch.as_tensor(origin, dtype=torch.float32).reshape(3),
                       torch.as_tensor(voxel, dtype=torch.float32).reshape(1)]
                      ).to(plan.device).contiguous()

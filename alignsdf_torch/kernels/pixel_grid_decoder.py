@@ -9,7 +9,11 @@ outside the image), runs the trunks and returns an (n_rows, m) float32
 array: row 0 the hand SDF, row 1 the object SDF (both tanh'd), rows 2.. the
 classifier's logits, which the plan packs as extra final rows of the first
 trunk (``ops/pixel_grid_plan.py``), as K1's does.  The CUDA source is
-``csrc/pixel_grid_decoder.cu``.
+``csrc/pixel_grid_decoder.cu``, on K1's tensor-core trunk
+(``csrc/grid_trunk_tc.cuh``): a layer's activation and latent weights are
+stored as one run of ``tile_weights`` tiles, [W; W_lat], since the kernel
+gathers the latent into the activation rows just above the layer's input
+and runs one product over both.
 
 ``pixel_grid_decode`` takes the plain version only for a plan on the CPU;
 for a plan on the GPU it launches the kernel or raises.
@@ -26,21 +30,21 @@ import numpy as np
 import torch
 
 from alignsdf_torch.kernels.grid_decoder import (
-    MAX_SMEM,
     N_ROWS,
-    PAD,
+    TC_GROUP,
+    TC_MAX_OUT,
     GridPlan,
     _round_up,
+    epilogue_tile,
     grid_coords,
     output_rows,
     pack_trunks,
+    tile_weights,
 )
 from alignsdf_torch.ops.geometry import bicubic_gather
 
-LAT_ALIGN = 32  # the latent tile's rows pad to the kernel's k depth
+LAT_ALIGN = 8   # the latent rows pad to the kernel's k step
 N_PROJ = 28     # projection scalars, laid out as in make_pixel_projection
-_TILE_P, _BK = 32, 32
-_HEAD = 8       # desc entries before the first trunk
 
 
 class PixelHiddenLayer(NamedTuple):
@@ -70,17 +74,22 @@ class PixelGridPlan(GridPlan):
     feature table and the projection scalars.
 
     ``desc`` is the int32 layout descriptor ``pixel_grid_decoder.cu`` reads:
-    [n_trunks, fin_b, max_pad, C, lat_pad, Hf, Wf, n_rows, then per trunk
+    [n_trunks, fin_b, rows, C, lat_pad, Hf, Wf, n_rows, then per trunk
     n_hidden, fin, fin_xyz, last_pad, then per hidden layer w, x, lat, b,
-    in_pad, out_pad] (offsets in floats, -1 = absent).  Hidden weights are
-    (in_pad, out_pad) with out contiguous, latent weights (lat_pad,
-    out_pad), xyz weights (3, out_pad), final rows (n_rows, last_pad).
-    ``table`` is the (Hf * Wf + 1, C) map, channels contiguous, then its
-    mean row.
+    in_pad, out_pad] (offsets in floats, -1 = absent; rows = the
+    activation buffer's, the widest layer output or input with its latent
+    rows).  A layer's hidden weights (in_pad, out_pad) and latent weights
+    (lat_pad, out_pad) are one run of ``tile_weights`` tiles, the latent's
+    from ``lat`` on; its bias and xyz weights one ``epilogue_tile`` at b (x
+    = b + TC_MAX_OUT, or -1); final rows (n_rows, last_pad).  ``table`` is
+    the (Hf * Wf + 1, C) map, channels contiguous, then its mean row.
     """
 
     table: torch.Tensor
     proj: torch.Tensor
+
+    _HEAD = 8
+    _LAYER = 6
 
     @property
     def n_rows(self) -> int:
@@ -91,11 +100,11 @@ class PixelGridPlan(GridPlan):
         return int(self.desc[5]), int(self.desc[6])
 
     def trunks(self):
-        """Yield (hidden [(w|None, lat|None, x|None, b)], fin, fin_xyz|None)
-        views."""
+        """Yield (hidden [(w|None, lat|None, x|None, b)], fin, fin_xyz|None):
+        views, but w and lat untiled (copies)."""
         d = self.desc.tolist()
         lat_pad, n_rows = d[4], self.n_rows
-        pos = _HEAD
+        pos = self._HEAD
         for _ in range(d[0]):
             n_hidden, fin, fin_xyz, last_pad = d[pos:pos + 4]
             pos += 4
@@ -103,9 +112,9 @@ class PixelGridPlan(GridPlan):
             for _ in range(n_hidden):
                 w, x, lat, b, in_pad, out_pad = d[pos:pos + 6]
                 pos += 6
-                hidden.append((self.view(w, (in_pad, out_pad)) if w >= 0 else None,
-                               self.view(lat, (lat_pad, out_pad)) if lat >= 0 else None,
-                               self.view(x, (3, out_pad)) if x >= 0 else None,
+                hidden.append((self.weights(w, in_pad, out_pad) if w >= 0 else None,
+                               self.weights(lat, lat_pad, out_pad) if lat >= 0 else None,
+                               self.xyz_weights(x, out_pad) if x >= 0 else None,
                                self.view(b, (out_pad,))))
             yield (hidden, self.view(fin, (n_rows, last_pad)),
                    self.view(fin_xyz, (n_rows, 3)) if fin_xyz >= 0 else None)
@@ -148,13 +157,29 @@ def pack_pixel_grid_plan(trunks: List[PixelTrunk], table: torch.Tensor, proj: to
     lat_pad = _round_up(c, LAT_ALIGN)
     n_rows = output_rows(trunks)
 
-    def layer(place, h: PixelHiddenLayer, in_pad: int, out_pad: int) -> List[int]:
-        return [place((in_pad, out_pad), h.w) if h.w is not None else -1,
-                place((3, out_pad), h.x) if h.x is not None else -1,
-                place((lat_pad, out_pad), h.lat) if h.lat is not None else -1,
-                place((out_pad,), h.b), in_pad, out_pad]
+    rows = 0
 
-    flat, desc = pack_trunks(trunks, layer, (c, lat_pad, hf, wf, n_rows), n_rows)
+    def layer(place, h: PixelHiddenLayer, in_pad: int, out_pad: int) -> List[int]:
+        nonlocal rows
+        parts = []
+        if h.w is not None:
+            parts.append(tile_weights(h.w, in_pad, out_pad))
+        if h.lat is not None:
+            parts.append(tile_weights(h.lat, lat_pad, out_pad))
+            rows = max(rows, (in_pad if h.w is not None else 0) + lat_pad)
+        w = lat = -1
+        if parts:
+            tiles = torch.cat(parts)
+            off = place(tuple(tiles.shape), tiles)
+            w = off if h.w is not None else -1
+            if h.lat is not None:  # the latent rows' tiles follow the activation rows'
+                lat = off + (2 * in_pad * out_pad if h.w is not None else 0)
+        epi = epilogue_tile(h.b, h.x)
+        b = place(tuple(epi.shape), epi)
+        return [w, b + TC_MAX_OUT if h.x is not None else -1, lat, b, in_pad, out_pad]
+
+    flat, desc = pack_trunks(trunks, layer, (c, lat_pad, hf, wf, n_rows), n_rows, TC_GROUP)
+    desc[2] = max(int(desc[2]), _round_up(rows, LAT_ALIGN))
     device = flat.device
     return PixelGridPlan(flat, desc, n, table.to(device=device, dtype=torch.float32).contiguous(),
                          proj.to(device=device, dtype=torch.float32).contiguous())
@@ -225,14 +250,6 @@ def _launcher():
     return fn
 
 
-def smem_bytes(max_pad: int, lat_pad: int, n_rows: int) -> int:
-    """Dynamic shared memory of one block: two activation buffers, the
-    latent tile, the weight tile, xyz, the output rows and the per-point tap
-    table (4 row offsets, 4 columns, 8 weights and a flag a point)."""
-    return 4 * ((2 * max_pad + lat_pad) * _TILE_P + _BK * PAD + 3 * _TILE_P
-                + n_rows * _TILE_P + 17 * _TILE_P)
-
-
 def pixel_grid_decode(plan: PixelGridPlan, base: int, m: int, origin: torch.Tensor,
                       voxel: torch.Tensor) -> torch.Tensor:
     """K3: (n_rows, m) float32 SDFs (and logits) of grid indices
@@ -248,10 +265,6 @@ def pixel_grid_decode(plan: PixelGridPlan, base: int, m: int, origin: torch.Tens
         raise ValueError("the plan buffer must be 16-byte aligned")
     if m <= 0 or base < 0 or base + m > plan.n ** 3 or plan.n ** 3 >= 2 ** 31:
         raise ValueError(f"index run [{base}, {base + m}) outside the {plan.n}^3 grid")
-    max_pad, lat_pad = int(plan.desc[2]), int(plan.desc[4])
-    if smem_bytes(max_pad, lat_pad, plan.n_rows) > MAX_SMEM:
-        raise ValueError(f"hidden width {max_pad} with a {lat_pad}-wide latent and "
-                         f"{plan.n_rows} output rows needs more shared memory than a block has")
     scal = torch.cat([torch.as_tensor(origin, dtype=torch.float32).reshape(3).to(plan.device),
                       torch.as_tensor(voxel, dtype=torch.float32).reshape(1).to(plan.device),
                       plan.proj]).contiguous()

@@ -38,9 +38,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      2 steps under torch.profiler (K2's device time, the idle share); then
      5 more steps with cuDNN's TF32 on, timed only (PyTorch's default, not
      the mode the CLIs and this script run: float32, TF32 off);
-  8. timing: K1 and its plain version per grid pass at 128^3 and 256^3; K2
-     forward and backward per step (both trunks, 64 x 2000) against their
-     plain versions and bounds;
+  8. timing: K1 and its plain version per grid pass at 128^3 and 256^3
+     beside both bounds (split TF32 on the tensor cores, K1's arithmetic
+     since it moved there, and the CUDA cores' float32); K2 forward and
+     backward per step (both trunks, 64 x 2000) against their plain
+     versions and bounds;
   9. pixel: the flagship with --pa_feat at full width (the per-point latent
      sampled bicubically from the 256 x 64 x 64 HeadNet map), seeded weights
      with the final biases shifted as in 5: K3 against its plain version
@@ -138,6 +140,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FP32_PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+TF32_PEAK_FLOPS = 494.7e12  # H100 SXM dense TF32 on the tensor cores (data sheet)
+# K1 and K3 keep float32's accuracy on the tensor cores with three TF32
+# products a multiply-add (split TF32, csrc/grid_trunk_tc.cuh)
+SPLIT_TF32_PRODUCTS = 3
 HBM_BYTES_PER_S = 3.35e12
 K1_TOL = 1e-4
 K2_TOL = 1e-4
@@ -171,6 +177,7 @@ K5_TOL = 1e-4
 K5_FWD_KERNELS = ("generic_train_fwd_kernel",)
 K5_BWD_KERNELS = ("generic_train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
 K6_TOL = 1e-4
+TC_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_tc.cuh"  # K1's and K3's shared trunk
 K7_SHAPES = {"train": (TRAIN_SCENES, 64, 128, 128), "serving": (1, 64, 128, 128)}
 K7_GRAD_TOL = 1e-5
 K7_FWD_KERNELS = ("maxpool_fwd_kernel",)
@@ -286,6 +293,25 @@ def k1_flops_per_point(specs) -> int:
                 total += 2 * 3 * out
             cur = out
     return total
+
+
+def grid_bounds(flops: float, nbytes: float) -> dict:
+    """K1's and K3's bounds at float32 accuracy: ``bound_ms`` is split
+    TF32's (3 x the FLOPs at the tensor cores' dense TF32 rate, or the
+    bytes at HBM's rate if larger); ``float32_bound_ms`` beside it is the
+    CUDA cores' (the FLOPs at the float32 rate)."""
+    tc_ms = SPLIT_TF32_PRODUCTS * flops / TF32_PEAK_FLOPS * 1e3
+    fp32_ms = flops / FP32_PEAK_FLOPS * 1e3
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(tc_ms, mem_ms),
+            "bound_by": "operations" if tc_ms >= mem_ms else "bytes",
+            "split_tf32_bound_ms": tc_ms, "float32_bound_ms": max(fp32_ms, mem_ms)}
+
+
+def bounds_text(b: dict) -> str:
+    return (f"split-TF32 bound {b['bound_ms']:.2f} ms ({b['bound_by']}; {SPLIT_TF32_PRODUCTS} x "
+            f"the FLOPs at {TF32_PEAK_FLOPS / 1e12:g} TFLOP/s dense TF32), float32 bound "
+            f"{b['float32_bound_ms']:.2f} ms ({FP32_PEAK_FLOPS / 1e12:g} TFLOP/s)")
 
 
 def profile_summary(prof, wall_s: float):
@@ -1005,23 +1031,21 @@ def pixel_phase(dev, card: str, gen, mano_faces):
     sampled = in_image(plan, origin0, voxel0)
     flops = k3_flops(specs, total, sampled)
     nbytes = 4 * (plan.flat.numel() + plan.table.numel() + 2 * total)
-    ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     k3_ms = min(k3_runs)
     rec["timing"] = {"k3_ms": k3_ms, "k3_runs_ms": k3_runs, "plain_ms": plain_ms,
-                     "grid_sample_ms": lib_ms, "bound_ms": max(ops_ms, mem_ms),
-                     "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                     "grid_sample_ms": lib_ms, **grid_bounds(flops, nbytes),
                      "tflop": flops / 1e12, "in_image_points": sampled,
                      "k3_tflops": flops / k3_ms / 1e9}
     print(f"[{card}] {n}^3 pass ({total} points, {sampled} in the image, {flops / 1e12:.3f} "
           f"TFLOP): K3 " + " / ".join(f"{t:.2f}" for t in k3_runs) + f" ms (best "
-          f"{flops / k3_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, bound "
-          f"{rec['timing']['bound_ms']:.2f} ms ({rec['timing']['bound_by']}, float32 peak "
-          f"{FP32_PEAK_FLOPS / 1e12:g} TFLOP/s); F.grid_sample (sampling only) {lib_ms:.2f} ms",
+          f"{flops / k3_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, "
+          f"{bounds_text(rec['timing'])}; F.grid_sample (sampling only) {lib_ms:.2f} ms",
           flush=True)
     entry = {
         "name": "K3 fused pixel grid decoder",
         "route": "cuda",
         "source": "alignsdf_torch/kernels/csrc/pixel_grid_decoder.cu",
+        "trunk": TC_TRUNK_SOURCE,
         "replaces": "alignsdf_tpu/ops/decoder_kernel.py:884",
         "launches": launches,
         "max_abs_err": max_err,
@@ -1566,17 +1590,14 @@ def classifier_phase(dev, card: str, gen, mano_faces, pixel: bool = False):
     else:
         flops = k1_flops_per_point(specs) * total
         nbytes = 4 * ((2 + num_class) * total + plan.flat.numel())
-    ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     grid_ms = min(grid_runs)
     rec["grid_timing"] = {"ms": grid_ms, "runs_ms": grid_runs, "plain_ms": plain_ms,
-                          "bound_ms": max(ops_ms, mem_ms),
-                          "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                          **grid_bounds(flops, nbytes),
                           "tflop": flops / 1e12, "tflops": flops / grid_ms / 1e9}
     print(f"[{card}] {n}^3 pass at C = {num_class} ({2 + num_class} rows, {flops / 1e12:.3f} "
           f"TFLOP): {grid_name} " + " / ".join(f"{t:.2f}" for t in grid_runs) + f" ms (best "
-          f"{flops / grid_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, bound "
-          f"{rec['grid_timing']['bound_ms']:.2f} ms ({rec['grid_timing']['bound_by']})",
-          flush=True)
+          f"{flops / grid_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, "
+          f"{bounds_text(rec['grid_timing'])}", flush=True)
     if pixel:
         inputs, trunks, st, (fmap, uv) = k4_operands(state.model, specs, dev, TRAIN_SCENES)
         rec["train_timing"] = k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last=True)
@@ -2691,17 +2712,17 @@ def main(record_path: Optional[str] = None) -> None:
         plain_ms = cuda_ms(lambda: one_pass(grid_decode_reference), reps)
         flops = k1_flops_per_point(specs) * n ** 3
         out_bytes = 2 * 4 * n ** 3 + 4 * plan.flat.numel()
-        bound_ms = max(flops / FP32_PEAK_FLOPS, out_bytes / HBM_BYTES_PER_S) * 1e3
-        timing[n] = {"k1_ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        timing[n] = {"k1_ms": k1_ms, "plain_ms": plain_ms, **grid_bounds(flops, out_bytes),
                      "tflop": flops / 1e12, "k1_tflops": flops / k1_ms / 1e9}
         print(f"[{card}] {n}^3 pass ({n ** 3} points, {flops / 1e12:.3f} TFLOP): "
               f"K1 {k1_ms:.2f} ms ({flops / k1_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, "
-              f"bound {bound_ms:.2f} ms (float32 peak {FP32_PEAK_FLOPS / 1e12:g} TFLOP/s)",
-              flush=True)
+              f"{bounds_text(timing[n])}", flush=True)
     record["timing"] = timing
     image_flop = 2 * timing[CUBE_DIM]["tflop"]
-    print(f"[{card}] K1 bound for one image at {CUBE_DIM}^3 (two passes, {image_flop:.2f} "
-          f"TFLOP): {image_flop * 1e12 / FP32_PEAK_FLOPS * 1e3:.1f} ms", flush=True)
+    print(f"[{card}] K1 bounds for one image at {CUBE_DIM}^3 (two passes, {image_flop:.2f} "
+          f"TFLOP): split TF32 "
+          f"{SPLIT_TF32_PRODUCTS * image_flop * 1e12 / TF32_PEAK_FLOPS * 1e3:.1f} ms, float32 "
+          f"{image_flop * 1e12 / FP32_PEAK_FLOPS * 1e3:.1f} ms", flush=True)
 
     phase(f"timing: K2 forward and backward per step ({TRAIN_SCENES} x "
           f"{specs.samples_per_scene} points, both trunks)")
@@ -2735,6 +2756,7 @@ def main(record_path: Optional[str] = None) -> None:
         "name": "K1 fused grid decoder, 2 + C rows (covers K1p)",
         "route": "cuda",
         "source": "alignsdf_torch/kernels/csrc/grid_decoder.cu",
+        "trunk": TC_TRUNK_SOURCE,
         "replaces": "alignsdf_tpu/ops/decoder_kernel.py:496",
         "covers": "alignsdf_tpu/ops/decoder_kernel.py:381 (K1p, points-major, > 6 classes)",
         "launches": launches + cls["grid_launches"],
@@ -2743,7 +2765,7 @@ def main(record_path: Optional[str] = None) -> None:
         "ms": t["k1_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
-        "bound_by": "operations",
+        "bound_by": t["bound_by"],
         "library_ms": None,
         "classifier_c6": {"ms": ct["ms"], "plain_ms": ct["plain_ms"],
                           "bound_ms": ct["bound_ms"], "bound_by": ct["bound_by"]},

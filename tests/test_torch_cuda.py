@@ -376,6 +376,58 @@ def _pixel_scene(model_type, num_class, c, hw, gen, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pixel", [False, True], ids=["K1", "K3"])
+@pytest.mark.parametrize("num_class,model_type", [(0, "1encoder2decoder"),
+                                                  (126, "1encoder2decoder"),
+                                                  (6, "1encoder1decoder")])
+def test_cuda_tc_trunk_matches_plain(pixel, num_class, model_type):
+    """K1 and K3 on the tensor-core trunk (csrc/grid_trunk_tc.cuh) at the
+    flagship width (the 250-wide layer pads to 256), with no classifier,
+    with C = 126 and on a combined trunk: a run of 30^3 - 20 points from
+    base 7, so neither end falls on the 64-point tile, against the plain
+    version in float32 (TF32 off) at 1e-4 on every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(9)
+    n, base = 30, 7
+    m = n ** 3 - base - 13
+    assert m % 64 and base % 64
+    if pixel:
+        specs, ctx = _pixel_scene(model_type, max(num_class, 6), 256, (64, 64), gen, 9)
+    else:
+        specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9,
+                      latent_size=256, mano_branch=True, object_pose_branch=True,
+                      sdf_scale_factor=7.0, classifier_branch=True,
+                      network_specs=NetworkSpecs(num_class=max(num_class, 6)))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(9)
+            decoder = make_decoder(model_type, 256, 9, "both", specs.network_specs,
+                                   use_classifier=True).cuda()
+        ctx = {"decoder": decoder, "latent": torch.randn(1, 256, generator=gen).cuda(),
+               "rot_center": (torch.randn(1, 1, 3, generator=gen) * 0.05).cuda(),
+               "global_trans": _rigid(gen, 16).cuda(), "obj_trans": _rigid(gen, 1)[:, 0].cuda()}
+    if num_class == 0:
+        ctx["decoder"].classifier_head = None
+    make, kernel, plain = ((make_pixel_grid_decode_fn, pixel_grid_decode,
+                            pixel_grid_decode_reference) if pixel else
+                           (make_grid_decode_fn, grid_decode, grid_decode_reference))
+    plan = make(specs, n)(ctx).plan
+    assert plan.n_rows == 2 + num_class
+    assert 256 in plan.out_pads() and max(plan.out_pads()) == 512
+    origin = torch.full((3,), -1.0, device="cuda")
+    voxel = torch.tensor(2.0 / (n - 1), device="cuda")
+    before = kernel.launches
+    out = kernel(plan, base, m, origin, voxel)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain(plan, base, m, origin, voxel)
+    assert out.shape == ref.shape == (2 + num_class, m)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("num_class,model_type", [(6, "1encoder2decoder"), (126, "1encoder2decoder"),
                                                   (6, "1encoder1decoder")])
 def test_cuda_pixel_kernel_class_rows_match_plain(num_class, model_type):

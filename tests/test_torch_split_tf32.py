@@ -1,0 +1,263 @@
+"""The tensor-core trunk of kernels K1 and K3 (csrc/grid_trunk_tc.cuh) on the
+CPU: why its split-TF32 product meets the kernels' float32 contract, and the
+plans' tiled, split weight layout.
+
+The kernels themselves run only on the card (tests/test_torch_cuda.py).
+Here TF32 is emulated with bit arithmetic on float32 (round to nearest,
+ties away from zero, as cvt.rna.tf32.f32 does; an emulation of the test's
+own, not the package's ``tf32_round``, which it checks): a TF32 x TF32
+product is exact in float64, and each layer's sum is rounded once to
+float32, as the tensor cores' float32 accumulators hold it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import torch_parity
+from alignsdf_torch.kernels.grid_decoder import (
+    FoldedTrunk,
+    HiddenLayer,
+    TC_GROUP,
+    TC_K,
+    TC_MAX_OUT,
+    pack_grid_plan,
+    tf32_round,
+    tf32_split,
+    tile_weights,
+    untile_weights,
+)
+from alignsdf_torch.kernels.pixel_grid_decoder import (
+    PixelHiddenLayer,
+    PixelTrunk,
+    make_feature_table,
+    pack_pixel_grid_plan,
+)
+
+# the flagship trunk at its true widths: xyz folded into layer 0, then
+# 512 -> 250 -> 512 -> 512 -> 1
+FLAGSHIP = (3, 512, 250, 512, 512, 1)
+POINTS = 1024
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    with torch_parity.torch_threads(1):
+        yield
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _trunk(seed: int):
+    """He-scaled random layers (w (in, out), b) of the flagship trunk and
+    POINTS random inputs in [-1, 1]^3."""
+    rng = np.random.RandomState(seed)
+    layers = []
+    for fan_in, fan_out in zip(FLAGSHIP[:-1], FLAGSHIP[1:]):
+        w = rng.randn(fan_in, fan_out) * np.sqrt(2.0 / fan_in)
+        b = rng.randn(fan_out) * 0.05
+        layers.append((torch.tensor(w, dtype=torch.float32), torch.tensor(b, dtype=torch.float32)))
+    x = torch.tensor(rng.uniform(-1, 1, (POINTS, 3)), dtype=torch.float32)
+    return layers, x
+
+
+def _forward(layers, x, product, dtype=torch.float32):
+    """tanh(trunk(x)) with ``product(a, w)`` (float64 out) for every layer's
+    matrix product; each layer's sum rounds once to ``dtype``."""
+    a = x
+    for i, (w, b) in enumerate(layers):
+        h = (product(a, w) + b.double()).to(dtype)
+        a = torch.relu(h) if i < len(layers) - 1 else h
+    return torch.tanh(a.double())
+
+
+def _split(a, w):
+    """big_a big_w + small_a big_w + big_a small_w, as the kernels run it."""
+    ab, wb = tf32(a), tf32(w)
+    asm, wsm = tf32(a - ab), tf32(w - wb)
+    return ab.double() @ wb.double() + asm.double() @ wb.double() + ab.double() @ wsm.double()
+
+
+def _one_pass(a, w):
+    return tf32(a).double() @ tf32(w).double()
+
+
+def _float32(a, w):
+    return (a @ w).double()
+
+
+def test_tf32_emulation_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10  # the TF32 value after 1
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12,
+                      1.0 + 3 * 2.0 ** -12, 3.0], dtype=torch.float32)
+    assert tf32(x).tolist() == [one, -one, 1.0, one, 3.0]
+    # the split's halves rebuild a float32 value to 2^-22 of itself, and
+    # the package's split (the plans' weights) is the same bits
+    v = torch.randn(10000, generator=torch.Generator().manual_seed(0)) * 100
+    big = tf32(v)
+    small = tf32(v - big)
+    assert bool(((big + small - v).abs() <= v.abs() * 2.0 ** -22).all())
+    assert torch.equal(tf32_round(v), big)
+    assert all(torch.equal(a, b) for a, b in zip(tf32_split(v), (big, small)))
+
+
+def test_split_tf32_meets_float32_accuracy_one_pass_does_not():
+    """The reason K1 and K3 run three TF32 products a multiply-add: at the
+    flagship trunk's widths the split product is within 1e-6 of float64
+    after tanh and no worse than twice float32's own error (5e-7 against
+    1e-6 here), while one TF32 pass errs by more than 1e-5 (1.3e-3 here,
+    over the kernels' whole 1e-4 tolerance)."""
+    layers, x = _trunk(0)
+    exact = _forward([(w.double(), b) for w, b in layers], x.double(),
+                     lambda a, w: a.double() @ w, torch.float64)
+    err = {name: float((_forward(layers, x, fn) - exact).abs().max())
+           for name, fn in (("float32", _float32), ("split", _split), ("one_pass", _one_pass))}
+    assert err["split"] <= 1e-6, err
+    assert err["split"] <= 2 * err["float32"], err
+    assert err["one_pass"] > 1e-5, err
+
+
+def _folded(rng, widths, rows, fin_x=True):
+    """A FoldedTrunk with random weights: layer 0 folded (x, b only), then
+    (in, out) weights between ``widths``; final rows ``rows``."""
+    hidden = [HiddenLayer(None, torch.tensor(rng.randn(3, widths[0]), dtype=torch.float32),
+                          torch.tensor(rng.randn(widths[0]), dtype=torch.float32))]
+    for w_in, w_out in zip(widths[:-1], widths[1:]):
+        hidden.append(HiddenLayer(torch.tensor(rng.randn(w_in, w_out), dtype=torch.float32),
+                                  None, torch.tensor(rng.randn(w_out), dtype=torch.float32)))
+    k = len(rows)
+    return FoldedTrunk(hidden, torch.tensor(rng.randn(widths[-1], k), dtype=torch.float32),
+                       torch.tensor(rng.randn(3, k), dtype=torch.float32) if fin_x else None,
+                       torch.tensor(rng.randn(k), dtype=torch.float32), rows)
+
+
+def _padded_equal(view, ref, split=False):
+    """The plan's (padded) view holds ``ref`` in its top-left, zeros
+    elsewhere; with ``split``, ref's TF32 halves summed, which is ref to
+    2^-22 of each entry."""
+    assert view.shape[0] >= ref.shape[0] and view.shape[1] >= ref.shape[1]
+    full = torch.zeros_like(view)
+    if split:
+        big, small = tf32_split(ref)
+        assert bool(((big + small - ref).abs() <= ref.abs() * 2.0 ** -22).all())
+        ref = big + small
+    full[:ref.shape[0], :ref.shape[1]] = ref
+    return torch.equal(view, full)
+
+
+def test_tile_weights_round_trip_and_layout():
+    """A tile is two wgmma B operands, big then small: element (k, o) of a
+    (16, 256) matrix sits in tile (k // 8, o // 128), at [o % 128 // 8]
+    [k % 8 // 4][o % 8][k % 4] of each half."""
+    rng = np.random.RandomState(1)
+    w = torch.tensor(rng.randn(13, 250), dtype=torch.float32)
+    flat = tile_weights(w, 16, 256)
+    assert flat.shape == (2 * 16 * 256,)
+    assert _padded_equal(untile_weights(flat, 16, 256), w, split=True)
+    tile = 2 * TC_GROUP * TC_K
+    for k, o in ((0, 0), (5, 3), (9, 130), (12, 249)):
+        pos = ((k // TC_K) * 2 + o // TC_GROUP) * tile + \
+            (o % TC_GROUP // 8) * 64 + (k % 8 // 4) * 32 + (o % 8) * 4 + k % 4
+        big, small = tf32(w[k, o][None]), tf32(w[k, o][None] - tf32(w[k, o][None]))
+        assert float(flat[pos]) == float(big) and float(flat[pos + tile // 2]) == float(small)
+    with pytest.raises(ValueError):
+        tile_weights(w, 12, 256)
+
+
+@pytest.mark.parametrize("classes,two_trunks", [(0, True), (6, True), (126, True), (0, False),
+                                                (6, False)])
+def test_grid_plan_views_give_back_the_folded_weights(classes, two_trunks):
+    """K1's pack round trip: the plan's views give back every folded array,
+    padded to the kernel's widths (hidden weights untiled, their TF32
+    halves summed; bias and xyz weights from each layer's epilogue tile)."""
+    rng = np.random.RandomState(2 + classes)
+    widths = (40, 250, 130)
+    if two_trunks:
+        trunks = [_folded(rng, widths, [0, *range(2, 2 + classes)]), _folded(rng, widths, [1])]
+    else:
+        trunks = [_folded(rng, widths, [0, 1, *range(2, 2 + classes)], fin_x=False)]
+    plan = pack_grid_plan(trunks, 16)
+    assert plan.n_rows == 2 + classes
+    assert int(plan.desc[2]) == 256  # rows: the widest layer, 250 -> 256
+    assert plan.out_pads() == [128, 256, 256] * len(trunks)
+    # each layer's bias and xyz weights are one ring tile: x = b + TC_MAX_OUT
+    d, pos = plan.desc.tolist(), 4
+    for trunk in trunks:
+        pos += 4
+        for h in trunk.hidden:
+            _, x_off, b_off, _, _ = d[pos:pos + 5]
+            pos += 5
+            assert b_off % 4 == 0 and x_off == (b_off + TC_MAX_OUT if h.x is not None else -1)
+    fin_b = torch.zeros(plan.n_rows)
+    for trunk, (hidden, fin, fin_xyz) in zip(trunks, plan.trunks()):
+        for h, (w, x, b) in zip(trunk.hidden, hidden):
+            assert (w is None) == (h.w is None)
+            if w is not None:
+                assert w.shape[1] % TC_GROUP == 0
+                assert _padded_equal(w, h.w, split=True)
+            assert _padded_equal(x, h.x) if h.x is not None else x is None
+            assert _padded_equal(b[None], h.b[None])
+        assert torch.equal(fin[list(trunk.rows)][:, :trunk.fin.shape[0]], trunk.fin.T)
+        if trunk.fin_x is None:
+            assert fin_xyz is None
+        else:
+            assert torch.equal(fin_xyz[list(trunk.rows)], trunk.fin_x.T)
+        fin_b[list(trunk.rows)] += trunk.fin_b
+    assert torch.equal(plan.fin_b, fin_b)
+
+
+def _pixel_trunk(rng, c, widths, latent_in, rows):
+    """A PixelTrunk: layer 0 reads the latent (and xyz), layer ``latent_in``
+    the previous activation and the latent."""
+    def t(*shape):
+        return torch.tensor(rng.randn(*shape), dtype=torch.float32)
+
+    hidden = [PixelHiddenLayer(None, t(c, widths[0]), t(3, widths[0]), t(widths[0]))]
+    for i, (w_in, w_out) in enumerate(zip(widths[:-1], widths[1:]), start=1):
+        lat = t(c, w_out) if i == latent_in else None
+        x = t(3, w_out) if i == latent_in else None
+        hidden.append(PixelHiddenLayer(t(w_in, w_out), lat, x, t(w_out)))
+    return PixelTrunk(hidden, t(widths[-1], len(rows)), t(3, len(rows)), t(len(rows)), rows)
+
+
+@pytest.mark.parametrize("classes,two_trunks,c", [(0, True, 256), (6, True, 256),
+                                                  (126, True, 20), (6, False, 36)])
+def test_pixel_grid_plan_views_give_back_the_folded_weights(classes, two_trunks, c):
+    """K3's pack round trip, with a latent_in layer: a layer's activation and
+    latent weights are one run of tiles, the latent's right after; the views
+    give both back (their TF32 halves summed), and the activation buffer
+    holds the latent layer's [activation; latent] rows."""
+    rng = np.random.RandomState(3 + classes)
+    widths = (512, 250, 512, 512)
+    if two_trunks:
+        trunks = [_pixel_trunk(rng, c, widths, 2, [0, *range(2, 2 + classes)]),
+                  _pixel_trunk(rng, c, widths, 2, [1])]
+    else:
+        trunks = [_pixel_trunk(rng, c, widths, 2, [0, 1, *range(2, 2 + classes)])]
+    fmap = torch.tensor(rng.randn(1, c, 4, 5), dtype=torch.float32)
+    plan = pack_pixel_grid_plan(trunks, make_feature_table(fmap), torch.zeros(28), (4, 5), 16)
+    lat_pad = int(plan.desc[4])
+    assert lat_pad == -(-c // 8) * 8 and plan.n_rows == 2 + classes
+    assert int(plan.desc[2]) == max(512, 256 + lat_pad)
+    d = plan.desc.tolist()
+    pos = 8
+    for trunk, (hidden, fin, fin_xyz) in zip(trunks, plan.trunks()):
+        pos += 4
+        for h, (w, lat, x, b) in zip(trunk.hidden, hidden):
+            w_off, _, lat_off, _, in_pad, out_pad = d[pos:pos + 6]
+            pos += 6
+            if w_off >= 0 and lat_off >= 0:
+                assert lat_off == w_off + 2 * in_pad * out_pad
+            assert (w is None) == (h.w is None) and (lat is None) == (h.lat is None)
+            if w is not None:
+                assert _padded_equal(w, h.w, split=True)
+            if lat is not None:
+                assert lat.shape[0] == lat_pad and _padded_equal(lat, h.lat, split=True)
+            assert _padded_equal(x, h.x) if h.x is not None else x is None
+            assert _padded_equal(b[None], h.b[None])
+        assert torch.equal(fin[list(trunk.rows)][:, :trunk.fin.shape[0]], trunk.fin.T)
+        assert torch.equal(fin_xyz[list(trunk.rows)], trunk.fin_x.T)
