@@ -24,7 +24,8 @@
 // backward (d(input) and dW of every product), against ~9 KB of residuals
 // written and read per point: the card's float32 FMA rate bounds both
 // directions (TF32 stays off so results match the plain version to float32
-// rounding).  wgmma, TMA and bf16 are later work.
+// rounding); the backward's weight-gradient reduction runs split TF32 on
+// wgmma (wgrad_tc.cuh).
 //
 // Design: K2's (train_decoder.cu), with the input products through the
 // streamed tile product of tile_product.cuh, since K2's per-column loop over
@@ -38,8 +39,9 @@
 //    output chunk), added into dx0t (e, M) in device memory: each thread
 //    adds to the same entries at every such layer, and no other block
 //    touches the tile's points.
-//  - Backward 2 and 3: the split-K weight reductions (dW from the residuals,
-//    dX from x0^T) and the bias sums of train_common.cuh.
+//  - Backward 2 and 3: the split-K weight reductions on the tensor cores
+//    (dW from the residuals, dX from x0^T; wgrad_tc.cuh) and the bias sums
+//    of train_common.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

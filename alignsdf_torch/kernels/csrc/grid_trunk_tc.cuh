@@ -1,5 +1,5 @@
-// The grid decoders' shared trunk on Hopper's tensor cores (kernels K1 and
-// K3; K2, K4, K5 and K6 keep tile_product.cuh).  A block of TC_THREADS
+// The grid decoders' shared trunk on Hopper's tensor cores (kernels K1, K3
+// and K6; K2, K4 and K5 keep tile_product.cuh).  A block of TC_THREADS
 // threads owns a tile of TC_P = 64 points.  Their activations stay in one
 // shared-memory buffer as [feature][point] and each hidden layer updates it
 // in place: its two warpgroups hold the layer's whole output for the 64
@@ -8,7 +8,7 @@
 //
 // Arithmetic: split TF32 on the tensor cores, accumulated in float32.  Each
 // operand x is split as big = tf32(x), small = tf32(x - big) (round to
-// nearest, ties away: cvt.rna), and each k step runs three products,
+// nearest, ties away: tc_split), and each k step runs three products,
 // big_a big_w + small_a big_w + big_a small_w (small_a small_w, ~2^-22 of
 // the product, is dropped).  That keeps float32 accuracy, where one TF32
 // pass errs by ~1e-3 at the flagship's widths, over the kernels' 1e-4
@@ -36,6 +36,19 @@
 // slot be refilled (per-warp `empty` barriers instead let the warps drift
 // and measured slower).
 //
+// Per-point inputs (K3's sampled latent, K6's materialized input row x0)
+// have no tile of their own: before a layer that reads them the kernel's
+// `fill` writes them into the activation rows just above the layer's
+// activation input, and the layer runs one product over [activation;
+// input] against the layer's packed [W; W_in] tiles.  Where the input is
+// wider than the rows left above the activation (K6's 320-column x0 above
+// a 256-row activation in a 544-row buffer), it is staged in chunks: fill,
+// run the chunk's k steps, barrier, fill the next; the accumulators stay in
+// registers across the chunks and the tiles stream on in order, so the
+// ring does not change.  A final layer that reads the input (K6's fin_lat)
+// restages it over the dead activation rows after the final rows and runs
+// the SDF rows a second time.
+//
 // What bounds it, as measured on an H100 (PERF.md): the chain each
 // warpgroup runs per k step around its products (moving the refills off it,
 // the same bytes, cut K1 by a fifth; a twelfth slot changed nothing), the
@@ -47,13 +60,13 @@
 // wgmma and a barrier on that chain; a converter warpgroup doing it for
 // both left the products waiting on its pipeline.
 //
-// Shared memory (bytes, rows = the widest layer input or output, 512 at the
-// flagship): the ring TC_SLOTS x 8 KB, activations rows x 64 x 4, xyz, two
-// SDF rows' accumulators, 256 floats of scratch and the barriers: 223,576
-// at rows = 512 (K3 adds its 4,352-byte tap table).  Registers: 128
-// accumulators a thread (two groups of 64), 8 for the split A fragment;
-// 256 threads a block (a 288-thread block with a producer warp got 168
-// registers and spilled), one block an SM.
+// Shared memory (bytes, rows = the activation buffer's, 512 at the K1
+// flagship, 544 at most): the ring TC_SLOTS x 8 KB, activations rows x 64 x
+// 4, xyz, two SDF rows' accumulators, 256 floats of scratch and the
+// barriers: 223,576 at rows = 512, 231,768 at 544 (K3 adds its 4,352-byte
+// tap table).  Registers: 128 accumulators a thread (two groups of 64), 8
+// for the split A fragment; 256 threads a block (a 288-thread block with a
+// producer warp got 168 registers and spilled), one block an SM.
 //
 // The final rows (2 SDF rows, and the classifier's on the first trunk) stay
 // float32 dot products on the CUDA cores; rows 0-1 take tanh after all
@@ -63,6 +76,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma_tf32.cuh"
 
 #define TC_P 64            // points per block: wgmma's M
 #define TC_THREADS 256     // two warpgroups
@@ -77,12 +92,18 @@
 #define TC_MAX_ROWS 128    // 2 SDF rows + 126 classes
 
 // Offsets into prm (floats; -1 = none).  w: the tiles of the layer's
-// activation rows (in_pad of them); lat (K3): the tiles of its latent rows
-// (lat_pad), which follow w's when both are present.  b: the layer's
-// epilogue tile, the bias at 0 and the xyz weights' rows at TC_MAX_OUT,
-// 2 TC_MAX_OUT and 3 TC_MAX_OUT; x = b + TC_MAX_OUT if it has xyz weights.
+// activation rows (in_pad of them); lat (K3, K6): the tiles of its per-point
+// input rows (lat_pad), which follow w's when both are present.  b: the
+// layer's epilogue tile, the bias at 0 and the xyz weights' rows at
+// TC_MAX_OUT, 2 TC_MAX_OUT and 3 TC_MAX_OUT; x = b + TC_MAX_OUT if it has xyz
+// weights.  fin_lat (K6): the final layer's (n_rows, lat_pad) weights on the
+// input rows, of which the kernel reads rows 0-1 (the class rows read no
+// input); tc_take_plan sets it to -1, K6's launcher after it.
 struct TcLayer { int w, x, lat, b, in_pad, out_pad; };
-struct TcTrunk { int n_hidden, fin, fin_xyz, last_pad; TcLayer layers[TC_MAX_HIDDEN]; };
+struct TcTrunk {
+  int n_hidden, fin, fin_xyz, fin_lat, last_pad;
+  TcLayer layers[TC_MAX_HIDDEN];
+};
 // stream[t]: the offset of trunk t's tile stream; split: trunk 1's first
 // tile (both set by tc_take_plan)
 struct TcPlan {
@@ -120,10 +141,6 @@ __device__ __forceinline__ TcShared tc_shared(float* base, int rows) {
 // loads (k = k0 + lane % 4, p = 16 warp + lane / 4) over all 32 banks.
 __device__ __forceinline__ int tc_swz(int k, int p) { return k * TC_P + (p ^ ((k & 3) << 3)); }
 
-__device__ __forceinline__ uint32_t tc_smem(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 // ---- barriers and copies --------------------------------------------------
 
 __device__ __forceinline__ void tc_mbar_init(uint64_t* bar, int count) {
@@ -157,73 +174,6 @@ __device__ __forceinline__ void tc_bulk_load(float* dst, const float* src, int b
 // named barrier 1 + w: warpgroup w alone (0 is __syncthreads)
 __device__ __forceinline__ void tc_warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;" :: "r"(1 + wg) : "memory");
-}
-
-// ---- split TF32 and wgmma -------------------------------------------------
-
-__device__ __forceinline__ uint32_t tc_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void tc_split(float x, uint32_t& big, uint32_t& small) {
-  big = tc_tf32(x);
-  small = tc_tf32(x - __uint_as_float(big));
-}
-
-// Descriptor of a K-major B tile without swizzle: core matrices of 8 rows x
-// 16 bytes, 128 contiguous bytes each; the two along K 128 bytes apart
-// (leading byte offset), successive 8-row groups along N 256 bytes apart
-// (stride byte offset).
-__device__ __forceinline__ uint64_t tc_desc(const float* tile) {
-  return (uint64_t)((tc_smem(tile) & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16)
-         | ((uint64_t)(256 >> 4) << 32);
-}
-
-__device__ __forceinline__ void tc_wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void tc_wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void tc_wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Pins the accumulators at this point of the program: the compiler must not
-// move their reads or writes across the asynchronous products.
-__device__ __forceinline__ void tc_fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// d[64] (+)= A (64 x 8, this thread's fragment a) x B^T (B: 128 x 8 at desc).
-// A fragment: a[0] = (point 16 warp + lane/4, k lane%4), a[1] the point + 8,
-// a[2] and a[3] the same at k + 4.  d[4i + r]: point 16 warp + lane/4 (+ 8
-// for r >= 2), feature 8i + 2 (lane%4) (+ 1 for odd r).
-__device__ __forceinline__ void tc_wgmma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
 // ---- the trunk ------------------------------------------------------------
@@ -268,7 +218,9 @@ __device__ __forceinline__ void tc_init(const float* prm, const TcPlan& plan, co
 }
 
 // A layer's product for warpgroup wg, which owns NG of its output groups
-// (wg, then wg + 2), over `steps` k steps from tile slot0.  Each step: the
+// (wg, then wg + 2), over `steps` k steps from tile slot0, reading
+// activation rows row0 on; `acc_on`: add to the accumulators from the first
+// step (a later chunk of the layer's input).  Each step: the
 // A fragment split in registers, a wait for the warpgroup's tiles, then 3
 // NG products issued together (every operand defined before the wgmma
 // fence, so ptxas need not serialize them); while they run, one thread
@@ -276,11 +228,12 @@ __device__ __forceinline__ void tc_init(const float* prm, const TcPlan& plan, co
 // past at the step's closing barrier.
 template <int NG>
 __device__ __forceinline__ void tc_steps(float (&acc0)[64], float (&acc1)[64], int steps,
-                                         int groups, int slot0, const float* __restrict__ prm,
-                                         const TcPlan& plan, const TcShared& s, int total,
-                                         int wg, int wt, int p0, int t4) {
+                                         int row0, bool acc_on, int groups, int slot0,
+                                         const float* __restrict__ prm, const TcPlan& plan,
+                                         const TcShared& s, int total, int wg, int wt, int p0,
+                                         int t4) {
   for (int st = 0; st < steps; ++st) {
-    const int k = st * TC_K + t4;
+    const int k = row0 + st * TC_K + t4;
     uint32_t ab[4], as[4];
     tc_split(s.act[tc_swz(k, p0)], ab[0], as[0]);
     tc_split(s.act[tc_swz(k, p0 + 8)], ab[1], as[1]);
@@ -294,7 +247,7 @@ __device__ __forceinline__ void tc_steps(float (&acc0)[64], float (&acc1)[64], i
     const float* t1 = s.ring + pos1 * 2 * TC_TILE;
     const uint64_t big0 = tc_desc(t0), small0 = tc_desc(t0 + TC_TILE);
     const uint64_t big1 = tc_desc(t1), small1 = tc_desc(t1 + TC_TILE);
-    const int scale_d = st > 0;
+    const int scale_d = st > 0 || acc_on;
     tc_fence_acc(acc0);
     if (NG > 1) tc_fence_acc(acc1);
     tc_wgmma_fence();
@@ -358,28 +311,48 @@ __device__ __forceinline__ void tc_epilogue(const float (&acc)[64], bool has, in
   }
 }
 
+// Rows 0-1 of f (row stride `stride`) over activation rows 0 .. depth - 1
+// (a multiple of 8) into red: thread = row, half of k, point.
+__device__ __forceinline__ void tc_sdf_partial(const float* __restrict__ f, int stride, int depth,
+                                               const TcShared& s, int tid) {
+  const int r = tid >> 7, half = (tid >> 6) & 1, p = tid & (TC_P - 1);
+  f += r * stride;
+  const int k_lo = half * (depth >> 1), k_hi = k_lo + (depth >> 1);
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  for (int k = k_lo; k < k_hi; k += 4) {
+    const float4 fw = __ldg(reinterpret_cast<const float4*>(f + k));
+    s0 = fmaf(fw.x, s.act[tc_swz(k, p)], s0);
+    s1 = fmaf(fw.y, s.act[tc_swz(k + 1, p)], s1);
+    s2 = fmaf(fw.z, s.act[tc_swz(k + 2, p)], s2);
+    s3 = fmaf(fw.w, s.act[tc_swz(k + 3, p)], s3);
+  }
+  s.red[tid] = (s0 + s1) + (s2 + s3);
+}
+
+// After a barrier: red's two halves (and the xyz term of fin_xyz, if >= 0)
+// added into oacc; a barrier follows.
+__device__ __forceinline__ void tc_sdf_add(const float* __restrict__ prm, int fin_xyz,
+                                           const TcShared& s, int tid) {
+  if (tid < TC_SDF_ROWS * TC_P) {
+    const int r = tid / TC_P, p = tid % TC_P;
+    float v = s.red[r * 2 * TC_P + p] + s.red[r * 2 * TC_P + TC_P + p];
+    if (fin_xyz >= 0) {
+      const float* fx = prm + fin_xyz + r * 3;
+      v += fx[0] * s.xyz[p] + fx[1] * s.xyz[TC_P + p] + fx[2] * s.xyz[2 * TC_P + p];
+    }
+    s.oacc[tid] += v;
+  }
+}
+
 // The final rows of trunk T over the last activation: the SDF rows 0-1 are
-// added into oacc (thread = row, half of k, point; the halves meet in red);
-// with n_rows > 2 the class rows (the first trunk's) go straight to out with
-// their bias (warp = row, lane = points lane and lane + 32).
+// added into oacc (tc_sdf_partial, tc_sdf_add); with n_rows > 2 the class
+// rows (the first trunk's) go straight to out with their bias (warp = row,
+// lane = points lane and lane + 32).
 __device__ void tc_final_rows(const float* __restrict__ prm, const TcTrunk& T, int n_rows,
                               int fin_b, const TcShared& s, float* __restrict__ out,
                               long long first, int m, int tid) {
   const int last = T.last_pad;
-  {
-    const int r = tid >> 7, half = (tid >> 6) & 1, p = tid & (TC_P - 1);
-    const float* f = prm + T.fin + r * last;
-    const int k_lo = half * (last >> 1), k_hi = k_lo + (last >> 1);
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-    for (int k = k_lo; k < k_hi; k += 4) {
-      const float4 fw = __ldg(reinterpret_cast<const float4*>(f + k));
-      s0 = fmaf(fw.x, s.act[tc_swz(k, p)], s0);
-      s1 = fmaf(fw.y, s.act[tc_swz(k + 1, p)], s1);
-      s2 = fmaf(fw.z, s.act[tc_swz(k + 2, p)], s2);
-      s3 = fmaf(fw.w, s.act[tc_swz(k + 3, p)], s3);
-    }
-    s.red[tid] = (s0 + s1) + (s2 + s3);
-  }
+  tc_sdf_partial(prm + T.fin, last, last, s, tid);
   if (n_rows > TC_SDF_ROWS) {
     const int lane = tid & 31;
     for (int r = TC_SDF_ROWS + (tid >> 5); r < n_rows; r += TC_THREADS / 32) {
@@ -409,23 +382,18 @@ __device__ void tc_final_rows(const float* __restrict__ prm, const TcTrunk& T, i
     }
   }
   __syncthreads();
-  if (tid < TC_SDF_ROWS * TC_P) {
-    const int r = tid / TC_P, p = tid % TC_P;
-    float v = s.red[r * 2 * TC_P + p] + s.red[r * 2 * TC_P + TC_P + p];
-    if (T.fin_xyz >= 0) {
-      const float* fx = prm + T.fin_xyz + r * 3;
-      v += fx[0] * s.xyz[p] + fx[1] * s.xyz[TC_P + p] + fx[2] * s.xyz[2 * TC_P + p];
-    }
-    s.oacc[tid] += v;
-  }
+  tc_sdf_add(prm, T.fin_xyz, s, tid);
   __syncthreads();
 }
 
 // The block's 256 threads: every trunk's hidden layers, then its final
 // rows; at the end rows 0-1 with their bias and tanh.  xyz and oacc (zeroed)
-// are ready, and the ring filled (tc_init).  fill(row0, tid) writes the
-// latent into activation rows row0 .. row0 + lat_pad - 1 before a layer
-// with latent rows (K3); K1 has none.
+// are ready, and the ring filled (tc_init).  fill(t, row0, c0, count, tid)
+// writes trunk t's per-point input columns c0 .. c0 + count - 1 (zeros past
+// its width) into activation rows row0 .. row0 + count - 1, before a layer
+// with input rows (K3, K6) or a final layer with fin_lat (K6); K1 has none.
+// Fill::kChunks: whether the input may need more than one chunk (K6); the
+// others take it whole, as their plans' rows provide.
 template <class Fill>
 __device__ void tc_consume(const float* __restrict__ prm, const TcPlan& plan, const TcShared& s,
                            const Fill& fill, float* __restrict__ out, long long first, int m,
@@ -442,16 +410,48 @@ __device__ void tc_consume(const float* __restrict__ prm, const TcPlan& plan, co
     for (int l = 0; l < T.n_hidden; ++l) {
       const TcLayer& L = T.layers[l];
       const int groups = L.out_pad / TC_GROUP;
-      const int steps = tc_depth(L, plan.lat_pad) / TC_K;
       const int mine = (groups > wg) + (groups > wg + 2);  // groups wg and wg + 2
-      if (L.lat >= 0) {
-        fill(L.w >= 0 ? L.in_pad : 0, tid);
-        __syncthreads();
+      const int act_rows = L.w >= 0 ? L.in_pad : 0;
+      const int in_rows = L.lat >= 0 ? plan.lat_pad : 0;
+      int steps = 0, c0 = 0;  // the layer's k steps run, input rows staged so far
+      if (!Fill::kChunks) {  // K1, K3: the input rows, if any, fit above the activation
+        if (in_rows > 0) {
+          fill(t, act_rows, 0, in_rows, tid);
+          __syncthreads();
+        }
+        steps = (act_rows + in_rows) / TC_K;
+        if (mine == 2) {
+          tc_steps<2>(acc0, acc1, steps, 0, false, groups, slot, prm, plan, s, total, wg, wt, p0,
+                      t4);
+        } else if (mine == 1) {
+          tc_steps<1>(acc0, acc1, steps, 0, false, groups, slot, prm, plan, s, total, wg, wt, p0,
+                      t4);
+        }
+        c0 = in_rows;
       }
-      if (mine == 2) {
-        tc_steps<2>(acc0, acc1, steps, groups, slot, prm, plan, s, total, wg, wt, p0, t4);
-      } else if (mine == 1) {
-        tc_steps<1>(acc0, acc1, steps, groups, slot, prm, plan, s, total, wg, wt, p0, t4);
+      // K6: the input rows go above the activation rows, in chunks of what
+      // the buffer holds there
+      const int cap = plan.rows - act_rows;
+      while (Fill::kChunks && (c0 < in_rows || steps == 0)) {
+        const int count = min(cap, in_rows - c0);  // 0: no input rows
+        if (count > 0) {
+          if (c0 > 0) __syncthreads();  // every warp is past the previous chunk
+          fill(t, act_rows, c0, count, tid);
+          __syncthreads();
+        }
+        const int run = ((c0 == 0 ? act_rows : 0) + count) / TC_K;
+        const int row0 = c0 == 0 ? 0 : act_rows;
+        const int slot0 = slot + steps * groups;
+        if (mine == 2) {
+          tc_steps<2>(acc0, acc1, run, row0, steps > 0, groups, slot0, prm, plan, s, total, wg,
+                      wt, p0, t4);
+        } else if (mine == 1) {
+          tc_steps<1>(acc0, acc1, run, row0, steps > 0, groups, slot0, prm, plan, s, total, wg,
+                      wt, p0, t4);
+        }
+        steps += run;
+        c0 += count;
+        if (run == 0) break;  // a layer without a product
       }
       slot += steps * groups;  // now the epilogue tile's
       const int pos = slot % TC_SLOTS;
@@ -466,6 +466,17 @@ __device__ void tc_consume(const float* __restrict__ prm, const TcPlan& plan, co
     }
     // only the first trunk carries class rows (the plan packs them there)
     tc_final_rows(prm, T, t == 0 ? plan.n_rows : TC_SDF_ROWS, plan.fin_b, s, out, first, m, tid);
+    // a final layer on the input rows (K6): restaged over the dead
+    // activation rows, the SDF rows a second time
+    for (int c0 = 0; Fill::kChunks && T.fin_lat >= 0 && c0 < plan.lat_pad; c0 += plan.rows) {
+      const int count = min(plan.rows, plan.lat_pad - c0);
+      fill(t, 0, c0, count, tid);
+      __syncthreads();
+      tc_sdf_partial(prm + T.fin_lat + c0, plan.lat_pad, count, s, tid);
+      __syncthreads();
+      tc_sdf_add(prm, -1, s, tid);
+      __syncthreads();
+    }
   }
   if (tid < TC_SDF_ROWS * TC_P) {
     const int r = tid / TC_P, p = tid % TC_P;
@@ -474,17 +485,20 @@ __device__ void tc_consume(const float* __restrict__ prm, const TcPlan& plan, co
 }
 
 struct TcNoFill {
-  __device__ void operator()(int, int) const {}
+  static constexpr bool kChunks = false;
+  __device__ void operator()(int, int, int, int, int) const {}
 };
 
 // Host: reads a descriptor's trunks from desc[pos] on (per trunk: n_hidden,
 // fin, fin_xyz, last_pad, then per hidden layer: w, x, lat (K3's only), b,
 // in_pad, out_pad) into p, whose head the launcher has read, and says
 // whether the whole plan is one this trunk takes, with extra_smem bytes of
-// the kernel's own beside tc_smem_bytes.  Sets the stream offsets.  The one
-// check of a plan: the launchers return -1 where it fails.
+// the kernel's own beside tc_smem_bytes; `chunks`: the kernel stages its
+// input rows in chunks (K6), else a layer's activation and input rows must
+// fit the buffer together.  Sets the stream offsets.  The one check of a
+// plan: the launchers return -1 where it fails.
 static bool tc_take_plan(TcPlan& p, const int* desc, int desc_len, int pos, bool with_lat,
-                         size_t extra_smem) {
+                         size_t extra_smem, bool chunks = false) {
   if (p.n_trunks < 1 || p.n_trunks > TC_MAX_TRUNKS) return false;
   const int per = with_lat ? 6 : 5;
   for (int t = 0; t < p.n_trunks; ++t) {
@@ -493,6 +507,7 @@ static bool tc_take_plan(TcPlan& p, const int* desc, int desc_len, int pos, bool
     T.n_hidden = desc[pos];
     T.fin = desc[pos + 1];
     T.fin_xyz = desc[pos + 2];
+    T.fin_lat = -1;
     T.last_pad = desc[pos + 3];
     pos += 4;
     if (T.n_hidden < 1 || T.n_hidden > TC_MAX_HIDDEN || pos + T.n_hidden * per > desc_len)
@@ -526,8 +541,11 @@ static bool tc_take_plan(TcPlan& p, const int* desc, int desc_len, int pos, bool
       // read exactly the previous layer's output
       if (l == 0 ? L.w >= 0 : (L.w < 0 || L.in_pad != prev)) return false;
       if (L.lat >= 0 && p.lat_pad == 0) return false;
+      // the input rows are staged above the activation rows (in chunks of
+      // at least one k step)
       const int depth = tc_depth(L, p.lat_pad);
-      if (depth > p.rows) return false;
+      if (chunks ? (L.w >= 0 ? L.in_pad : 0) + (L.lat >= 0 ? TC_K : 0) > p.rows : depth > p.rows)
+        return false;
       // the stream: the weight tiles (the latent rows' after the activation
       // rows'), then the epilogue tile, with xyz rows at b + TC_MAX_OUT
       const int start = depth > 0 ? (L.w >= 0 ? L.w : L.lat) : L.b;

@@ -71,22 +71,22 @@ __device__ __forceinline__ float dot3(float a, float x, float b, float y, float 
   return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), __fmul_rn(c, z));
 }
 
-// The latent into activation rows row0 .. row0 + lat_pad - 1: the sum of a
-// point's 16 weighted taps, or the mean row outside the image; 0 in the
-// padding channels.
+// Latent channels c0 .. c0 + count - 1 into activation rows row0 on: the
+// sum of a point's 16 weighted taps, or the mean row outside the image; 0 in
+// the padding channels.  Both trunks read the same latent.
 struct LatentFill {
+  static constexpr bool kChunks = false;  // the plan's rows hold [activation; latent]
   const float* table;
   const float* tap_w;  // [TC_P][8]: 4 row, then 4 column weights
   const int* tap_rc;   // [TC_P][8]: rows * wf, columns; -1 = off the map
   const int* inside;   // [TC_P]
   float* act;
   PixelMap map;
-  int lat_pad;
 
-  __device__ void operator()(int row0, int tid) const {
+  __device__ void operator()(int, int row0, int c0, int count, int tid) const {
     const float* mean = table + (size_t)map.hf * map.wf * map.c;
-    for (int ch = tid; ch < lat_pad; ch += TC_THREADS) {
-      const int row = row0 + ch;
+    for (int k = tid; k < count; k += TC_THREADS) {
+      const int row = row0 + k, ch = c0 + k;
       for (int p0 = 0; p0 < TC_P; p0 += 4) {
         float v[4];
 #pragma unroll
@@ -181,7 +181,7 @@ pixel_grid_decoder_kernel(const float* __restrict__ prm, const TcPlan plan, cons
   }
   if (tid < TC_SDF_ROWS * TC_P) s.oacc[tid] = 0.f;
   __syncthreads();
-  const LatentFill fill{table, tap_w, tap_rc, inside, s.act, map, plan.lat_pad};
+  const LatentFill fill{table, tap_w, tap_rc, inside, s.act, map};
   tc_consume(prm, plan, s, fill, out, first, m, tid);
 }
 

@@ -27,8 +27,8 @@
 // columns, hidden 512 -> 250 -> 512 -> 512 -> 1) a trunk costs 0.787 M
 // multiply-adds per point forward and twice that backward, against ~10 KB a
 // point of residuals; the sampling is 16 taps x C (8 kFLOP a point each way)
-// from a 268 MB table.  Plain float32 FMAs (TF32 off), as K2; wgmma, TMA and
-// bf16 are later work.
+// from a 268 MB table.  Plain float32 FMAs (TF32 off), as K2, but for the
+// backward's weight-gradient reduction: split TF32 on wgmma (wgrad_tc.cuh).
 //
 // Forward (pixel_train_fwd_kernel): K3's gather stage and K2's streamed tile
 // trunk.  A block of 256 threads owns 32 points.  The gather fills a
@@ -50,7 +50,7 @@
 //     one scene first), and d(xp) = sum over taps of wy gx (fe . dlat),
 //     d(yp) = sum of gy wx (fe . dlat), with gx = -K'(col - xp), gy =
 //     -K'(row - yp); 0 outside the image.
-//  2. wgrad_kernel / colsum_kernel (train_common.cuh) per layer: dW from the
+//  2. wgrad_tc_kernel / colsum_kernel (train_common.cuh) per layer: dW from the
 //     activations, dLat from the latent residual, dX from the embedding, db.
 // One call of pixel_train_bwd enqueues all of these on one stream.
 

@@ -17,7 +17,9 @@
 // forward and twice that backward (dx and dW), against ~7 KB of residuals
 // written and read per point.  So both directions are bound by the card's
 // float32 FMA rate (TF32 stays off so results match the plain version to
-// float32 rounding).  wgmma, TMA and bf16 are later work.
+// float32 rounding).  The backward's weight-gradient reduction runs split
+// TF32 on wgmma (wgrad_tc.cuh), which keeps float32's accuracy; the chain
+// and the forward on wgmma, TMA and bf16 are later work.
 //
 // Forward (train_fwd_kernel): tile_product.cuh's.  A block of 256 threads owns 32
 // points; their activations stay in shared memory as [feature][point]
@@ -42,9 +44,10 @@
 //     product serves) and the recovered gates, writes each dpre to device
 //     memory (out_pad, M), and accumulates d(emb) = sum over layers with X
 //     of dpre @ X^T.
-//  2. wgrad_kernel: dW_l = a_{l-1} . dpre_l^T and dX_l = emb^T-rows .
-//     dpre_l^T, reductions over K = M split across blocks (64 x 64 output
-//     tiles, M chunks), partial sums added with atomicAdd.
+//  2. wgrad_tc_kernel (wgrad_tc.cuh): dW_l = a_{l-1} . dpre_l^T and dX_l =
+//     emb^T-rows . dpre_l^T, reductions over the M points split across
+//     blocks, split TF32 on the tensor cores, partial sums added with
+//     atomicAdd.
 //  3. colsum_kernel: db_l as the sum of dpre_l over each scene's rows (one
 //     warp per feature and scene, plain stores) or over all rows (atomics).
 // One call of train_decoder_bwd enqueues all of these on one stream.

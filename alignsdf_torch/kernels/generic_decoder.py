@@ -6,10 +6,12 @@ Replaces ``alignsdf_tpu/ops/decoder_kernel.py:make_fused_decoder``.  A trunk
 is a K1-style ``FoldedTrunk`` whose ``x`` weights multiply the trunk's input
 row x0 instead of xyz: layer 0 reads x0 alone, a ``latent_in`` layer l > 0
 computes a_{l-1} @ W_x + x0 @ W_in, and ``fin_x`` is a latent_in final
-layer's W_in.  The plan pads the hidden widths to the kernel's 256-feature
-chunks and the input rows to x0_pad (a multiple of 32) in the weights only:
-the kernel reads the rows at their own width and zero-fills the tail in
-shared memory, so the TPU's ``pad_inputs`` (:1385) has no counterpart.
+layer's W_in.  The kernel runs on the tensor-core trunk of K1 and K3
+(``csrc/grid_trunk_tc.cuh``), with x0 in the place of K3's sampled latent:
+a layer's W_x and W_in are one run of ``tile_weights`` tiles, W_in's padded
+to lat_pad (the widest input row, to a multiple of 8) rows.  The kernel
+reads the rows at their own width and zero-fills the tail in shared
+memory, so the TPU's ``pad_inputs`` (:1385) has no counterpart.
 
 ``generic_decode`` takes the plain version only for a plan on the CPU; for a
 plan on the GPU it launches the kernel or raises.  ``generic_decode.launches``
@@ -26,17 +28,18 @@ import numpy as np
 import torch
 
 from alignsdf_torch.kernels.grid_decoder import (
-    MAX_SMEM,
     N_ROWS,
-    PAD,
+    TC_GROUP,
+    TC_K,
+    TC_MAX_ROWS,
     FoldedTrunk,
     HiddenLayer,
     _round_up,
     output_rows,
     pack_trunks,
+    place_tc_layer,
+    untile_weights,
 )
-
-_TILE_P, _BK = 32, 32
 
 
 @dataclass
@@ -44,10 +47,13 @@ class GenericPlan:
     """Trunks packed into one float32 buffer in K6's layout.
 
     ``desc`` is the int32 descriptor ``generic_decoder.cu`` reads:
-    [n_trunks, fin_b, max_pad, n_rows, x0_pad, then per trunk n_hidden, fin,
-    fin_x, last_pad, then per hidden layer w, x, b, in_pad, out_pad]
-    (offsets in floats, -1 = absent).  ``in_widths`` are the trunks' true
-    input widths."""
+    [n_trunks, fin_b, rows, n_rows, lat_pad, then per trunk n_hidden, fin,
+    fin_x, last_pad, then per hidden layer w, x, lat, b, in_pad, out_pad]
+    (offsets in floats, -1 = absent, x always; rows = the trunk's activation
+    buffer).  A layer's W_x (in_pad, out_pad) and W_in (lat_pad, out_pad)
+    are one run of ``tile_weights`` tiles, W_in's from ``lat`` on; its bias
+    one ``epilogue_tile`` at b; final rows (n_rows, last_pad) and fin_x
+    (n_rows, lat_pad).  ``in_widths`` are the trunks' true input widths."""
 
     flat: torch.Tensor
     desc: np.ndarray
@@ -62,57 +68,69 @@ class GenericPlan:
         return int(self.desc[3])
 
     @property
-    def x0_pad(self) -> int:
+    def lat_pad(self) -> int:
         return int(self.desc[4])
 
     def view(self, off: int, shape: Tuple[int, ...]) -> torch.Tensor:
         return self.flat[off:off + int(np.prod(shape))].view(shape)
 
+    def weights(self, off: int, k: int, out_pad: int) -> torch.Tensor:
+        """The (k, out_pad) weights whose tiles start at ``off``, big +
+        small (a copy)."""
+        return untile_weights(self.flat[off:off + 2 * k * out_pad], k, out_pad)
+
     def trunks(self):
-        """Yield (hidden [(w|None, x|None, b)], fin, fin_x|None) views."""
+        """Yield (hidden [(w|None, x|None, b)], fin, fin_x|None): x the
+        input-row weights (lat_pad, out_pad); views, but w and x untiled
+        (copies)."""
         d = self.desc.tolist()
-        n_rows, x0_pad = self.n_rows, self.x0_pad
+        n_rows, lat_pad = self.n_rows, self.lat_pad
         pos = 5
         for _ in range(d[0]):
             n_hidden, fin, fin_x, last_pad = d[pos:pos + 4]
             pos += 4
             hidden = []
             for _ in range(n_hidden):
-                w, x, b, in_pad, out_pad = d[pos:pos + 5]
-                pos += 5
-                hidden.append((self.view(w, (in_pad, out_pad)) if w >= 0 else None,
-                               self.view(x, (x0_pad, out_pad)) if x >= 0 else None,
+                w, _, lat, b, in_pad, out_pad = d[pos:pos + 6]
+                pos += 6
+                hidden.append((self.weights(w, in_pad, out_pad) if w >= 0 else None,
+                               self.weights(lat, lat_pad, out_pad) if lat >= 0 else None,
                                self.view(b, (out_pad,))))
             yield (hidden, self.view(fin, (n_rows, last_pad)),
-                   self.view(fin_x, (n_rows, x0_pad)) if fin_x >= 0 else None)
+                   self.view(fin_x, (n_rows, lat_pad)) if fin_x >= 0 else None)
 
     @property
     def fin_b(self) -> torch.Tensor:
         return self.view(int(self.desc[1]), (self.n_rows,))
 
 
-def _pad_rows(t: Optional[torch.Tensor], rows: int) -> Optional[torch.Tensor]:
-    if t is None:
-        return None
-    return torch.cat([t, t.new_zeros(rows - t.shape[0], t.shape[1])]) if t.shape[0] < rows else t
-
-
 def pack_generic_plan(trunks: List[FoldedTrunk], in_widths: Sequence[int]) -> GenericPlan:
     """Pad and pack trunks (``x`` and ``fin_x`` on the input row) into a
-    GenericPlan on the trunks' device, with ``output_rows(trunks)`` rows."""
+    GenericPlan on the trunks' device, with ``output_rows(trunks)`` rows.
+    The activation buffer holds the widest layer, and where it can, a
+    latent_in layer's activation and input rows together (at most
+    TC_MAX_ROWS: the kernel stages a wider input in chunks)."""
     if len(in_widths) != len(trunks):
         raise ValueError("one input width per trunk")
     n_rows = output_rows(trunks)
-    x0_pad = _round_up(max(in_widths), _BK)
-    trunks = [t._replace(hidden=[h._replace(x=_pad_rows(h.x, x0_pad)) for h in t.hidden],
-                         fin_x=_pad_rows(t.fin_x, x0_pad)) for t in trunks]
+    for t in trunks:
+        if t.fin_x is not None and bool(t.fin_x[:, [i for i, r in enumerate(t.rows)
+                                                    if r >= N_ROWS]].any()):
+            raise ValueError("the class rows read no input row")
+    lat_pad = _round_up(max(in_widths), TC_K)
+    rows = 0
 
     def layer(place, h: HiddenLayer, in_pad: int, out_pad: int) -> List[int]:
-        return [place((in_pad, out_pad), h.w) if h.w is not None else -1,
-                place((x0_pad, out_pad), h.x) if h.x is not None else -1,
-                place((out_pad,), h.b), in_pad, out_pad]
+        nonlocal rows
+        if h.x is not None:
+            rows = max(rows, min(TC_MAX_ROWS, (in_pad if h.w is not None else 0) + lat_pad))
+        return place_tc_layer(place, h.w, h.x, None, h.b, in_pad, out_pad, lat_pad)
 
-    flat, desc = pack_trunks(trunks, layer, (n_rows, x0_pad), n_rows)
+    trunks = [t._replace(fin_x=None if t.fin_x is None else torch.cat(
+        [t.fin_x, t.fin_x.new_zeros(lat_pad - t.fin_x.shape[0], t.fin_x.shape[1])]))
+              for t in trunks]
+    flat, desc = pack_trunks(trunks, layer, (n_rows, lat_pad), n_rows, TC_GROUP)
+    desc[2] = max(int(desc[2]), rows)
     return GenericPlan(flat, desc, tuple(int(w) for w in in_widths))
 
 
@@ -124,12 +142,13 @@ def _outputs(out: torch.Tensor):
 def generic_decode_reference(plan: GenericPlan, x_h: torch.Tensor,
                              x_o: Optional[torch.Tensor] = None):
     """The plain version of K6: the plan's arithmetic step by step with
-    torch.matmul.  x_h (M, in_h) and, for twin trunks, x_o (M, in_o).
+    torch.matmul, on the plan's weights (the hidden ones read back from
+    their TF32 halves).  x_h (M, in_h) and, for twin trunks, x_o (M, in_o).
     Returns (sdf_h (M, 1), sdf_o (M, 1), logits (M, C) or None)."""
     m = x_h.shape[0]
     acc = plan.fin_b[:, None].expand(plan.n_rows, m).clone()
     for (hidden, fin, fin_x), x0 in zip(plan.trunks(), (x_h, x_o)):
-        x0 = torch.nn.functional.pad(x0.to(torch.float32), (0, plan.x0_pad - x0.shape[1]))
+        x0 = torch.nn.functional.pad(x0.to(torch.float32), (0, plan.lat_pad - x0.shape[1]))
         a = None
         for w, x, b in hidden:
             h = b[None, :]
@@ -155,10 +174,6 @@ def _launcher():
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p]
     return fn
-
-
-def smem_bytes(max_pad: int, x0_pad: int, n_rows: int = N_ROWS) -> int:
-    return 4 * (2 * max_pad * _TILE_P + _BK * PAD + x0_pad * _TILE_P + n_rows * _TILE_P)
 
 
 def _rows(x: torch.Tensor, width: int, m: int, device: torch.device) -> torch.Tensor:
@@ -189,9 +204,6 @@ def generic_decode(plan: GenericPlan, x_h: torch.Tensor, x_o: Optional[torch.Ten
     x_h = _rows(x_h, plan.in_widths[0], m, plan.device)
     if x_o is not None:
         x_o = _rows(x_o, plan.in_widths[1], m, plan.device)
-    if smem_bytes(int(plan.desc[2]), plan.x0_pad, plan.n_rows) > MAX_SMEM:
-        raise ValueError(f"hidden width {int(plan.desc[2])} and input width {plan.x0_pad} need "
-                         "more shared memory than a block has")
     out = torch.empty((plan.n_rows, m), dtype=torch.float32, device=plan.device)
     desc = np.ascontiguousarray(plan.desc, np.int32)
     xo = x_o if x_o is not None else x_h

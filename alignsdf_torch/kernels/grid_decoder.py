@@ -27,17 +27,29 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-PAD = 256     # hidden widths pad to tile_product.cuh's output chunk (K2, K4, K5, K6)
+PAD = 256     # hidden widths pad to tile_product.cuh's output chunk (K2, K4, K5)
 ALIGN = 64    # every array of the packed plan starts on a 256-byte boundary
 N_ROWS = 2      # SDF rows: hand, object (tanh'd)
 MAX_ROWS = 128  # SDF rows and up to 126 classes
 MAX_SMEM = 232448
 _MAX_TRUNKS, _MAX_HIDDEN = 2, 8
-# grid_trunk_tc.cuh (K1, K3): hidden widths pad to its output group, wgmma's
-# N, at most 4 groups; a weight tile is TC_GROUP outputs x TC_K k
+# grid_trunk_tc.cuh (K1, K3, K6): hidden widths pad to its output group,
+# wgmma's N, at most 4 groups; a weight tile is TC_GROUP outputs x TC_K k
 TC_GROUP = 128
 TC_K = 8
 TC_MAX_OUT = 512
+TC_SLOTS = 11  # the trunk's ring of tiles
+
+
+def tc_smem_bytes(rows: int) -> int:
+    """grid_trunk_tc.cuh's tc_smem_bytes: the ring, ``rows`` x 64 activations,
+    xyz, two SDF rows, 256 floats of scratch, the ring's barriers."""
+    return 4 * (TC_SLOTS * 2 * TC_GROUP * TC_K + rows * 64 + 3 * 64 + 2 * 64 + 256) + 8 * TC_SLOTS
+
+
+# the most activation rows (a multiple of TC_K) a block's shared memory
+# holds beside the ring: 544
+TC_MAX_ROWS = max(r for r in range(0, 1024, TC_K) if tc_smem_bytes(r) <= MAX_SMEM)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -187,6 +199,33 @@ def epilogue_tile(b: torch.Tensor, x: Optional[torch.Tensor]) -> torch.Tensor:
     return tile.reshape(-1)
 
 
+def place_tc_layer(place: Callable, w: Optional[torch.Tensor], lat: Optional[torch.Tensor],
+                   x: Optional[torch.Tensor], b: torch.Tensor, in_pad: int, out_pad: int,
+                   lat_pad: int) -> List[int]:
+    """One hidden layer in grid_trunk_tc.cuh's layout with per-point input
+    rows (K3's latent, K6's input row): [w, x, lat, b, in_pad, out_pad].
+    ``w`` (in, out) on the activation and ``lat`` (C, out) on the input rows
+    are one run of ``tile_weights`` tiles, lat's (padded to lat_pad rows)
+    right after w's; the bias and xyz weights ``x`` (3, out) one
+    ``epilogue_tile``.  ``place(shape, fill)`` reserves an array and returns
+    its offset."""
+    parts = []
+    if w is not None:
+        parts.append(tile_weights(w, in_pad, out_pad))
+    if lat is not None:
+        parts.append(tile_weights(lat, lat_pad, out_pad))
+    w_off = lat_off = -1
+    if parts:
+        tiles = torch.cat(parts)
+        off = place(tuple(tiles.shape), tiles)
+        w_off = off if w is not None else -1
+        if lat is not None:
+            lat_off = off + (2 * in_pad * out_pad if w is not None else 0)
+    epi = epilogue_tile(b, x)
+    b_off = place(tuple(epi.shape), epi)
+    return [w_off, b_off + TC_MAX_OUT if x is not None else -1, lat_off, b_off, in_pad, out_pad]
+
+
 def untile_weights(flat: torch.Tensor, k: int, out_pad: int) -> torch.Tensor:
     """(k, out_pad) big + small from ``tile_weights``'s tiles."""
     tiles = flat.view(k // TC_K, out_pad // TC_GROUP, 2, TC_GROUP // 8, 2, 8, 4)
@@ -206,7 +245,7 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
     out_pad)``], where ``place(shape, fill)`` reserves an array with
     ``fill`` in its top-left and returns its offset.  A trunk's ``fin_x``
     (k, len(rows)) lands as (n_rows, k): k is 3 xyz columns for K1 and K3,
-    the padded input row for K6."""
+    the input row padded to lat_pad for K6."""
     if not 1 <= len(trunks) <= _MAX_TRUNKS:
         raise ValueError(f"the kernel takes 1 or 2 trunks, got {len(trunks)}")
     pieces: List[Tuple[int, Tuple[int, ...], torch.Tensor]] = []

@@ -32,14 +32,12 @@ import torch
 from alignsdf_torch.kernels.grid_decoder import (
     N_ROWS,
     TC_GROUP,
-    TC_MAX_OUT,
     GridPlan,
     _round_up,
-    epilogue_tile,
     grid_coords,
     output_rows,
     pack_trunks,
-    tile_weights,
+    place_tc_layer,
 )
 from alignsdf_torch.ops.geometry import bicubic_gather
 
@@ -161,22 +159,9 @@ def pack_pixel_grid_plan(trunks: List[PixelTrunk], table: torch.Tensor, proj: to
 
     def layer(place, h: PixelHiddenLayer, in_pad: int, out_pad: int) -> List[int]:
         nonlocal rows
-        parts = []
-        if h.w is not None:
-            parts.append(tile_weights(h.w, in_pad, out_pad))
         if h.lat is not None:
-            parts.append(tile_weights(h.lat, lat_pad, out_pad))
             rows = max(rows, (in_pad if h.w is not None else 0) + lat_pad)
-        w = lat = -1
-        if parts:
-            tiles = torch.cat(parts)
-            off = place(tuple(tiles.shape), tiles)
-            w = off if h.w is not None else -1
-            if h.lat is not None:  # the latent rows' tiles follow the activation rows'
-                lat = off + (2 * in_pad * out_pad if h.w is not None else 0)
-        epi = epilogue_tile(h.b, h.x)
-        b = place(tuple(epi.shape), epi)
-        return [w, b + TC_MAX_OUT if h.x is not None else -1, lat, b, in_pad, out_pad]
+        return place_tc_layer(place, h.w, h.lat, h.x, h.b, in_pad, out_pad, lat_pad)
 
     flat, desc = pack_trunks(trunks, layer, (c, lat_pad, hf, wf, n_rows), n_rows, TC_GROUP)
     desc[2] = max(int(desc[2]), _round_up(rows, LAT_ALIGN))

@@ -9,8 +9,8 @@ copy is ``models/decoder.py``), ``_classifier_pad`` :1426 (here the class
 rows are extra final rows of the first trunk, ``grid_plan.with_classifier``)
 and ``make_pallas_decode_fn`` :1438.  ``pad_inputs`` :1385 has no
 counterpart: K6 reads the rows at their own width.  The plan pads to what
-the CUDA kernel wants (hidden widths to 256-feature chunks, the input row to
-a multiple of 32), not to the TPU's 128 lanes.
+the CUDA kernel wants (hidden widths to the tensor-core trunk's 128-feature
+groups, the input row to a multiple of 8), not to the TPU's 128 lanes.
 """
 
 from __future__ import annotations
@@ -94,15 +94,25 @@ def make_generic_decode_fn(specs: Specs, kernel: Callable = generic_decode) -> C
     """decode(ctx, rows) -> (sdf_h (M, 1), sdf_o (M, 1), logits (M, C) or
     None) of (M, latent + pfs) rows through K6, for the grid evaluator's
     generic path (JAX's ``make_pallas_decode_fn``).  ``ctx["decoder"]`` is
-    the decoder module; the plan is built per call, as JAX builds it per
-    trace.  Twin trunks take their column slices of the rows (the four
-    encode styles); a combined trunk reads the whole row.  Pixel-aligned
-    rows (the map sampled per point) decode the same way.  ``kernel`` may
-    name K6's plain version, to compare the two on the card."""
+    the decoder module.  The plan (its weights split and tiled) is built
+    once and kept while the decoder and the versions of its parameters stay
+    the same, so a grid pass of many runs builds it once, and an in-place
+    update of the weights builds it anew.  Twin trunks take their column
+    slices of the rows (the four encode styles); a combined trunk reads the
+    whole row.  Pixel-aligned rows (the map sampled per point) decode the
+    same way.  ``kernel`` may name K6's plain version, to compare the two on
+    the card."""
     combined = specs.model_type == "1encoder1decoder"
+    cache: Dict[str, object] = {}
+
+    def plan_of(decoder: torch.nn.Module) -> GenericPlan:
+        key = (decoder, tuple((p.data_ptr(), p._version) for p in decoder.parameters()))
+        if cache.get("key") != key:
+            cache["key"], cache["plan"] = key, make_generic_plan(decoder, specs)
+        return cache["plan"]
 
     def decode(ctx: Dict, rows: torch.Tensor):
-        plan = make_generic_plan(ctx["decoder"], specs)
+        plan = plan_of(ctx["decoder"])
         if combined:
             return kernel(plan, rows)
         return kernel(plan, *separate_decoder_inputs(specs.latent_size, specs.encode_style, rows))

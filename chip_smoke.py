@@ -42,7 +42,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      beside both bounds (split TF32 on the tensor cores, K1's arithmetic
      since it moved there, and the CUDA cores' float32); K2 forward and
      backward per step (both trunks, 64 x 2000) against their plain
-     versions and bounds;
+     versions and bounds, and the backward's weight-gradient reductions
+     alone (csrc/wgrad_tc.cuh, through kernels/weight_grad.py on seeded
+     operands of their shapes: each route's time, both bounds,
+     torch.matmul(A, B.T) with TF32 off beside);
   9. pixel: the flagship with --pa_feat at full width (the per-point latent
      sampled bicubically from the 256 x 64 x 64 HeadNet map), seeded weights
      with the final biases shifted as in 5: K3 against its plain version
@@ -65,7 +68,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      1e-2 of their largest entry, 2 profiled steps);
      K4 forward and backward per step against the plain versions and the
      bounds, with F.grid_sample's forward and backward at the step's points
-     as yardsticks of the sampling alone;
+     as yardsticks of the sampling alone, and the backward's reductions
+     alone as for K2;
  11. classifier: the labelled DexYCB full model (experiments/dexycb_140k.json
      with --mano --obj_pose --encode both --point_size 9 --cls) at full
      width, seeded weights with the final biases shifted as in 5 and the
@@ -91,7 +95,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      and 64 x 2000 on the real map and projection; 7 train steps with the
      cross-entropy on, one step two ways, 2 profiled steps; K3's time per
      pass at C = 6 and K4's with x_last;
- 13. generic serving and training (latent_in (0, 2)) through K6 and K5;
+ 13. generic serving and training (latent_in (0, 2)) through K6 (on the
+     tensor-core trunk: its time per 128^3 pass beside both bounds and the
+     plan's build time) and K5 (its reductions alone as for K2);
  14. K7, the stem max pool 3x3 / stride 2 / pad 1, against its plain
      version on post-ReLU inputs with flat positive blocks and zero rows, at
      the train shape (64, 64, 128, 128) and serving's batch 1, in the
@@ -169,15 +175,18 @@ TWO_WAYS_GRAD_RTOL = 1e-3
 # encoder.bn1.bias); the run prints the plain step's own rounding floor beside it
 TWO_WAYS_GRAD_RTOL_K4 = 1e-2
 K2_FWD_KERNELS = ("train_fwd_kernel",)
-K2_BWD_KERNELS = ("train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
+# the weight-gradient reduction's two kernels, wgrad_tc_kernel and
+# wgrad_tc_kernel_n128 (csrc/wgrad_tc.cuh), share the prefix
+K2_BWD_KERNELS = ("train_bwd_chain_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K4_TOL = 1e-4
 K4_FWD_KERNELS = ("pixel_train_fwd_kernel",)
-K4_BWD_KERNELS = ("pixel_train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
+K4_BWD_KERNELS = ("pixel_train_bwd_chain_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K5_TOL = 1e-4
 K5_FWD_KERNELS = ("generic_train_fwd_kernel",)
-K5_BWD_KERNELS = ("generic_train_bwd_chain_kernel", "wgrad_kernel", "colsum_kernel")
+K5_BWD_KERNELS = ("generic_train_bwd_chain_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K6_TOL = 1e-4
-TC_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_tc.cuh"  # K1's and K3's shared trunk
+TC_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_tc.cuh"  # K1's, K3's and K6's trunk
+WGRAD_SOURCE = "alignsdf_torch/kernels/csrc/wgrad_tc.cuh"  # K2's, K4's and K5's dW reduction
 K7_SHAPES = {"train": (TRAIN_SCENES, 64, 128, 128), "serving": (1, 64, 128, 128)}
 K7_GRAD_TOL = 1e-5
 K7_FWD_KERNELS = ("maxpool_fwd_kernel",)
@@ -835,7 +844,94 @@ def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
               f"{k_ms2:.2f} ms ({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, bound "
               f"{res[name]['bound_ms']:.2f} ms ({res[name]['bound_by']})", flush=True)
     kern.fwd.launches, kern.bwd.launches = saved
+    res["bwd"]["reduction"] = reduction_timing(kern.name, [s for p in packs
+                                                            for s in wgrad_shapes(p)], m, dev, card)
     return res
+
+
+def wgrad_shapes(pack):
+    """(K, N) of each weight-gradient reduction a train backward runs over
+    one packed trunk of K2 or K5 (dW on the previous activation, dX on the
+    embedding or input row), or over K4's packed trunks (also d(Lat) on the
+    latent residual), in launch order."""
+    if hasattr(pack, "trunks"):  # K4
+        e = pack.emb_t.shape[0]
+        return [s for t in pack.trunks for w, lat, out_pad in zip(t.w, t.lat, t.out_pads)
+                for s in ([tuple(w.shape)] if w is not None else [])
+                + ([tuple(lat.shape), (e, out_pad)] if lat is not None else [])]
+    e = (pack.emb_t if hasattr(pack, "emb_t") else pack.x0_t).shape[0]
+    return [s for w, x, out_pad in zip(pack.w, pack.x, pack.out_pads)
+            for s in ([tuple(w.shape)] if w is not None else [])
+            + ([(e, out_pad)] if x is not None else [])]
+
+
+def reduction_timing(name: str, shapes, m: int, dev, card: str) -> dict:
+    """A train backward's weight-gradient reductions of one step on their
+    own, through ``weight_grad`` (the kernel the backwards launch, on seeded
+    operands of their shapes over m points), each route's share (the
+    kernel for N <= 128 columns, and the other), beside torch.matmul(A,
+    B.T) with TF32 off on the same operands, the split-TF32 and float32
+    bounds, the bytes each operand once (the bound's) and the design's reads
+    from L2 (A once per 256 columns of C, B once per 128 rows)."""
+    import torch
+
+    from alignsdf_torch.kernels.weight_grad import weight_grad
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    a_of = {k: torch.randn(k, m, generator=gen, device=dev) for k in {k for k, _ in shapes}}
+    b_of = {n: torch.randn(n, m, generator=gen, device=dev) for n in {n for _, n in shapes}}
+    outs = [torch.zeros(k, n, device=dev) for k, n in shapes]
+    routes = {"n128": [i for i, (_, n) in enumerate(shapes) if n <= 128],
+              "wide": [i for i, (_, n) in enumerate(shapes) if n > 128]}
+    saved = weight_grad.launches
+
+    def run(idx):
+        for i in idx:
+            k, n = shapes[i]
+            weight_grad(a_of[k], b_of[n], out=outs[i])
+
+    def lib():
+        for k, n in shapes:
+            torch.matmul(a_of[k], b_of[n].T)
+
+    every = list(range(len(shapes)))
+    k_ms = cuda_ms(lambda: run(every), 5)   # kernel, library, kernel: in turns on one card
+    lib_ms = cuda_ms(lib, 5)
+    k_ms2 = cuda_ms(lambda: run(every), 5)
+    route_ms = {r: cuda_ms(lambda idx=idx: run(idx), 5) if idx else 0.0
+                for r, idx in routes.items()}
+    weight_grad.launches = saved
+    flops = sum(2 * k * n * m for k, n in shapes)
+    nbytes = sum(4 * (k * m + n * m + k * n) for k, n in shapes)
+    l2_bytes = sum(4 * m * (k * -(-n // 256) + n * -(-k // 128)) for k, n in shapes)
+    best = min(k_ms, k_ms2)
+    rec = {"ms": best, "ms_runs": [k_ms, k_ms2], "library_ms": lib_ms,
+           "library": "torch.matmul(A, B.T), TF32 off", "calls": len(shapes),
+           "shapes": [list(s) for s in shapes], "route_ms": route_ms,
+           "route_share": {r: v / sum(route_ms.values()) for r, v in route_ms.items()},
+           **grid_bounds(flops, nbytes), "tflop": flops / 1e12, "gbytes": nbytes / 1e9,
+           "l2_read_gbytes": l2_bytes / 1e9, "tflops": flops / best / 1e9}
+    print(f"[{card}] {name} weight-gradient reduction per step ({len(shapes)} calls over {m} "
+          f"points, {flops / 1e12:.3f} TFLOP, operands {nbytes / 1e9:.3f} GB once, "
+          f"{l2_bytes / 1e9:.3f} GB read from L2 by the design): kernel {k_ms:.2f} / "
+          f"{k_ms2:.2f} ms ({rec['tflops']:.1f} TFLOP/s; routes: N > 128 "
+          f"{route_ms['wide']:.2f} ms, N <= 128 {route_ms['n128']:.2f} ms, shares "
+          f"{rec['route_share']['wide']:.3f} / {rec['route_share']['n128']:.3f}), "
+          f"torch.matmul {lib_ms:.2f} ms, {bounds_text(rec)}", flush=True)
+    return rec
+
+
+def reduction_entry(t: dict) -> dict:
+    """A backward's kernels-line entry: its weight-gradient reduction per
+    step on its own (the kernel's source, its measured times by route and
+    torch.matmul's, its split-TF32 bound), or {} for a forward."""
+    r = t.get("reduction")
+    if r is None:
+        return {}
+    return {"weight_grad_reduction": {
+        "source": WGRAD_SOURCE, "ms": r["ms"], "route_ms": r["route_ms"],
+        "library_ms": r["library_ms"], "library_call": r["library"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}}
 
 
 def k3_flops(specs, points: int, sampled: int) -> int:
@@ -1262,6 +1358,7 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False
               f"{'forward' if name == 'fwd' else 'backward'} (sampling only) {lib_ms:.2f} ms",
               flush=True)
     pixel_train_decode.launches, pixel_train_decode_backward.launches = saved
+    res["bwd"]["reduction"] = reduction_timing("K4", wgrad_shapes(packed), m, dev, card)
     return res
 
 
@@ -1329,6 +1426,7 @@ def pixel_train_phase(dev, card: str, gen):
             "library_ms": t["library_ms"],
             "library_call": (f"F.grid_sample bicubic {'forward' if name == 'fwd' else 'backward'}"
                              " at the step's points (the sampling step only)"),
+            **reduction_entry(t),
         })
     return rec, entries
 
@@ -1831,25 +1929,26 @@ def generic_phase(dev, card: str, gen, mano_faces):
     k6_runs = [cuda_ms(lambda: [generic_decode(plan, *r) for r in runs], 1) for _ in range(3)]
     generic_decode.launches = saved
     plain_ms = cuda_ms(lambda: [generic_decode_reference(plan, *r) for r in runs], 1)
+    # the plan (weight norm, the split and tiling): make_generic_decode_fn
+    # builds it once while the weights stay the same, not once a run
+    plan_ms = cuda_ms(lambda: make_generic_plan(model.decoder, specs), 3)
     flops = 2 * generic_macs_per_point(specs) * total
     nbytes = 4 * (total * (specs.latent_size + specs.point_feat_size) + plan.flat.numel()
                   + 2 * total)
-    ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     k6_ms = min(k6_runs)
     rec["timing"] = {"k6_ms": k6_ms, "k6_runs_ms": k6_runs, "plain_ms": plain_ms,
-                     "bound_ms": max(ops_ms, mem_ms),
-                     "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
-                     "tflop": flops / 1e12, "gbytes": nbytes / 1e9,
-                     "k6_tflops": flops / k6_ms / 1e9}
+                     "plan_ms": plan_ms, **grid_bounds(flops, nbytes), "tflop": flops / 1e12,
+                     "gbytes": nbytes / 1e9, "k6_tflops": flops / k6_ms / 1e9}
     print(f"[{card}] {n}^3 pass ({total} points, {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB): "
           "K6 " + " / ".join(f"{t:.2f}" for t in k6_runs) + f" ms (best "
-          f"{flops / k6_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, bound "
-          f"{rec['timing']['bound_ms']:.2f} ms ({rec['timing']['bound_by']})", flush=True)
+          f"{flops / k6_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.2f} ms, "
+          f"{bounds_text(rec['timing'])}; the plan {plan_ms:.2f} ms to build", flush=True)
     del runs
     entry = {
         "name": "K6 generic decoder (materialized rows)",
         "route": "cuda",
         "source": "alignsdf_torch/kernels/csrc/generic_decoder.cu",
+        "trunk": TC_TRUNK_SOURCE,
         "replaces": "alignsdf_tpu/ops/decoder_kernel.py:139",
         "launches": launches,
         "max_abs_err": err,
@@ -2030,6 +2129,7 @@ def generic_train_phase(dev, card: str, gen):
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
+            **reduction_entry(t),
         })
     return rec, entries
 
@@ -2565,7 +2665,7 @@ def main(record_path: Optional[str] = None) -> None:
     t0 = time.perf_counter()
     reports = build.build_all(["grid_decoder", "train_decoder", "pixel_grid_decoder",
                                "pixel_train_decoder", "generic_decoder", "generic_train_decoder",
-                               "maxpool"])
+                               "maxpool", "weight_grad"])
     record["build_s"] = time.perf_counter() - t0
     print(f"built in {record['build_s']:.2f} s", flush=True)
     for name, report in reports.items():
@@ -2793,6 +2893,7 @@ def main(record_path: Optional[str] = None) -> None:
             "library_ms": None,
             "classifier_x_last": {"ms": c2["ms"], "plain_ms": c2["plain_ms"],
                                   "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"]},
+            **reduction_entry(t2),
         })
     pt = pcls["grid_timing"]
     kernels["kernels"].append(dict(

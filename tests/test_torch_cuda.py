@@ -1,6 +1,7 @@
 """Kernels K1, K2, K3, K4, K5, K6 and K7 on the card against their plain
 versions (K1, K3 and K6 with the classifier's rows, K2, K4 and K5 with
-x_last / dx_last, K7 forward and backward on tied inputs).  Needs a CUDA GPU and skips without one; it imports no
+x_last / dx_last, K7 forward and backward on tied inputs), and the train
+backwards' weight-gradient reduction against float64.  Needs a CUDA GPU and skips without one; it imports no
 JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -42,6 +43,7 @@ from alignsdf_torch.kernels.pixel_train_decoder import (
     pixel_train_decode_reference,
     unflatten_pixel_params,
 )
+from alignsdf_torch.kernels.weight_grad import weight_grad, weight_grad_reference
 from alignsdf_torch.kernels.train_decoder import (
     flatten_params,
     pack_trunk,
@@ -524,13 +526,17 @@ def test_cuda_pixel_train_kernel_x_last_matches_plain(model_type):
     ("1encoder2decoder", "nerf", 63, (2,), 0, (512,) * 4, 256, 4101),
     ("1encoder1decoder", "nerf", 9, (2,), 6, (512,) * 4, 256, 3000),
     ("1encoder2decoder", "both", 9, (0, 2), 6, (512,) * 4, 256, 1000),
-    ("1encoder2decoder", "hand", 51, (0, 4), 0, (128,) * 4, 32, 777)])
+    ("1encoder2decoder", "hand", 51, (0, 4), 0, (128,) * 4, 32, 777),
+    ("1encoder2decoder", "nerf", 63, (0,), 0, (512,) * 4, 512, 2050)])
 def test_cuda_generic_kernel_matches_plain(model_type, style, pfs, latent_in, num_class, dims,
                                            latent, m):
     """K6 on materialized rows: NeRF PE at point_size 63 (the --pallas
-    config at full width), the combined trunk with a classifier, twin trunks
-    at C = 6 with latent_in (0, 2), and a narrow trunk with a latent input at
-    the final layer whose object rows are a strided view; ragged row counts.
+    config at full width, whose latent_in layer stages x0 in two chunks),
+    the combined trunk with a classifier, twin trunks at C = 6 with
+    latent_in (0, 2), a narrow trunk with a latent input at the final layer
+    whose object rows are a strided view, and rows of 512 + 63 with 0 in
+    latent_in (wider than the trunk's 544-row buffer: layer 0 stages x0 in
+    chunks); ragged row counts.
     The SDFs to 1e-5 and the logits (no tanh) to 1e-4 against the plain
     version on the same plan, TF32 off."""
     if not torch.cuda.is_available():
@@ -562,6 +568,39 @@ def test_cuda_generic_kernel_matches_plain(model_type, style, pfs, latent_in, nu
             assert k.shape == r.shape == d.shape
             assert float((k - r).abs().max()) <= tol
             assert float((k - d).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,m,scale", [(9, 1, 777, 1.0), (9, 8, 777, 1.0), (6, 512, 4000, 1.0),
+                                         (512, 1, 777, 1.0), (130, 300, 1001, 1e3),
+                                         (512, 512, 12800, 1.0), (256, 262, 4096, 1e-3),
+                                         (512, 512, 128000, 1.0)])
+def test_cuda_weight_grad_matches_float64(k, n, m, scale):
+    """The train backwards' weight-gradient reduction (split TF32 on the
+    tensor cores) against float64 A @ B.T: narrow and odd shapes (K 9 or 6,
+    N 1 or 8, m 777 and 1001, which are not multiples of 4, so the rows are
+    unaligned), the padding's column and row halves, a backward's widths,
+    scaled inputs, and a train step's 128,000 points (chunks cut to the
+    kernel's longest).  Every entry within 1e-5 of |A_k| |B_n| (float32's own
+    error over m terms is ~1e-7 of it; one TF32 pass errs by ~3e-4 / sqrt(m)
+    of it), and the plain float32 product within the same bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(k * n + m)
+    a = (torch.randn(k, m, generator=gen) * scale).cuda()
+    b = torch.randn(n, m, generator=gen).cuda()
+    before = weight_grad.launches
+    c = weight_grad(a, b)
+    torch.cuda.synchronize()
+    assert weight_grad.launches == before + 1
+    exact = a.double() @ b.double().T
+    scale_kn = a.double().norm(dim=1)[:, None] * b.double().norm(dim=1)[None, :]
+    err = (c.double() - exact).abs()
+    assert c.shape == (k, n)
+    assert bool((err <= 1e-5 * scale_kn).all()), float((err / scale_kn).max())
+    plain = (weight_grad_reference(a, b).double() - exact).abs()
+    assert bool((plain <= 1e-5 * scale_kn).all())
 
 
 @pytest.mark.cuda

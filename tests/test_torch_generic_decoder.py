@@ -117,6 +117,32 @@ def test_plain_k6_matches_jax_generic_kernel(model_type, style, pfs, latent_in, 
         np.testing.assert_allclose(p_c.numpy(), np.asarray(j_c), atol=ATOL, rtol=0)
 
 
+def test_generic_decode_fn_builds_the_plan_once_per_weights(monkeypatch):
+    """make_generic_decode_fn keeps its plan (the weights split and tiled)
+    over the runs of a pass, and builds it anew after an in-place update of
+    the decoder's weights: the second answer follows the new weights."""
+    import alignsdf_torch.ops.decoder_plan as decoder_plan
+
+    _, pspecs, pdec, _ = _pair("1encoder2decoder", "nerf", 9)
+    built = []
+    make = decoder_plan.make_generic_plan
+    monkeypatch.setattr(decoder_plan, "make_generic_plan",
+                        lambda *args: built.append(1) or make(*args))
+    decode = make_generic_decode_fn(pspecs)
+    rows = torch.from_numpy((np.random.RandomState(4).randn(50, LATENT + 9) * 0.5)
+                            .astype(np.float32))
+    with torch.no_grad():
+        first = decode({"decoder": pdec}, rows)
+        assert torch.equal(decode({"decoder": pdec}, rows)[0], first[0])
+        assert len(built) == 1
+        pdec.linh4.bias += 0.5
+        second = decode({"decoder": pdec}, rows)
+        direct = pdec(rows)
+    assert len(built) == 2
+    np.testing.assert_allclose(second[0].numpy(), direct[0].numpy(), atol=ATOL, rtol=0)
+    assert float((second[0] - first[0]).abs().max()) > 1e-2
+
+
 def _shift_final_biases(pdec, field_h, field_o):
     """Shift the final biases so that a fifth of the given first pass is
     inside: the field crosses zero and the refinement runs."""

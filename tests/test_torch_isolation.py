@@ -29,7 +29,7 @@ def test_every_module_imports_with_jax_blocked():
     for name in ("kernels.generic_decoder", "kernels.generic_train_decoder", "ops.decoder_plan",
                  "ops.generic_train_plan", "kernels.maxpool", "data.sdf_samples",
                  "data.lmdb_format", "data.lmdb_backend", "data.img_utils", "data.backends",
-                 "data.dataset", "data.loader", "utils.metrics"):
+                 "data.dataset", "data.loader", "utils.metrics", "kernels.weight_grad"):
         assert f"alignsdf_torch.{name}" in modules
     code = (
         "import sys\n"

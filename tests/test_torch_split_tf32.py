@@ -1,6 +1,7 @@
-"""The tensor-core trunk of kernels K1 and K3 (csrc/grid_trunk_tc.cuh) on the
-CPU: why its split-TF32 product meets the kernels' float32 contract, and the
-plans' tiled, split weight layout.
+"""The tensor-core trunk of kernels K1, K3 and K6 (csrc/grid_trunk_tc.cuh)
+and the train backwards' weight-gradient reduction (csrc/wgrad_tc.cuh) on
+the CPU: why their split-TF32 products meet the kernels' float32 contract,
+and the plans' tiled, split weight layout.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py).
 Here TF32 is emulated with bit arithmetic on float32 (round to nearest,
@@ -15,13 +16,16 @@ import pytest
 import torch
 
 import torch_parity
+from alignsdf_torch.kernels.generic_decoder import pack_generic_plan
 from alignsdf_torch.kernels.grid_decoder import (
     FoldedTrunk,
     HiddenLayer,
     TC_GROUP,
     TC_K,
     TC_MAX_OUT,
+    TC_MAX_ROWS,
     pack_grid_plan,
+    tc_smem_bytes,
     tf32_round,
     tf32_split,
     tile_weights,
@@ -261,3 +265,130 @@ def test_pixel_grid_plan_views_give_back_the_folded_weights(classes, two_trunks,
             assert _padded_equal(b[None], h.b[None])
         assert torch.equal(fin[list(trunk.rows)][:, :trunk.fin.shape[0]], trunk.fin.T)
         assert torch.equal(fin_xyz[list(trunk.rows)], trunk.fin_x.T)
+
+
+def _reduce(a, b, product):
+    """sum over points of a[:, p] b[:, p]^T (a (K, m), b (N, m)), 8 points
+    (one wgmma k step) a product in float64, each added into a float32
+    accumulator, as the weight-gradient reduction runs it."""
+    acc = torch.zeros(a.shape[0], b.shape[0])
+    for p in range(0, a.shape[1], TC_K):
+        acc = (acc.double() + product(a[:, p:p + TC_K], b[:, p:p + TC_K])).float()
+    return acc
+
+
+def _trunc(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 by dropping the 13 low mantissa bits, as wgmma reads a
+    float32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def test_split_tf32_reduction_meets_float32_accuracy_one_pass_does_not():
+    """Why the train backwards' weight-gradient reduction (csrc/wgrad_tc.cuh)
+    splits both run-time operands, as it does: A rounded into big and small
+    halves, B's raw tile read as its big half (truncated) beside the small
+    half B - trunc(B) (truncated too).  At a backward's widths (K = N = 512,
+    m = 4096 points, A a ReLU activation, B a pre-activation gradient) that
+    errs by no more than twice float32's own sum (6.8e-8 against 5.9e-8 of
+    |A_k| |B_n| here), within 1e-6, while one TF32 pass errs by more than
+    1e-5 (2.2e-5 here): over the card's test bound, and at the gradients'
+    1e-4-of-the-largest tolerance a miss of up to a fifth of it."""
+    rng = np.random.RandomState(4)
+    a = torch.relu(torch.tensor(rng.randn(512, 4096), dtype=torch.float32))
+    b = torch.tensor(rng.randn(512, 4096) * 1e-3, dtype=torch.float32)
+    exact = a.double() @ b.double().T
+    scale = a.double().norm(dim=1)[:, None] * b.double().norm(dim=1)[None, :]
+
+    def split(x, y):
+        xb, yb = tf32(x), _trunc(y)
+        xs, ys = tf32(x - xb), _trunc(y - yb)
+        return (xb.double() @ yb.double().T + xs.double() @ yb.double().T
+                + xb.double() @ ys.double().T)
+
+    err = {name: float(((_reduce(a, b, fn).double() - exact).abs() / scale).max())
+           for name, fn in (("float32", lambda x, y: (x @ y.T).double()), ("split", split),
+                            ("one_pass", lambda x, y: _one_pass(x, y.T)))}
+    assert err["split"] <= 1e-6, err
+    assert err["split"] <= 2 * err["float32"], err
+    assert err["one_pass"] > 1e-5, err
+
+
+def _generic_trunk(rng, in_width, widths, latent_in, rows, fin_x=False):
+    """A K6 FoldedTrunk: layer 0 on the input row (x only), a latent_in
+    layer on the previous activation and the input row, final rows
+    ``rows`` (with the input row's fin_x where ``fin_x``, zero in the class
+    rows, as with_classifier leaves them)."""
+    def t(*shape):
+        return torch.tensor(rng.randn(*shape), dtype=torch.float32)
+
+    hidden = [HiddenLayer(None, t(in_width, widths[0]), t(widths[0]))]
+    for i, (w_in, w_out) in enumerate(zip(widths[:-1], widths[1:]), start=1):
+        hidden.append(HiddenLayer(t(w_in, w_out), t(in_width, w_out) if i == latent_in else None,
+                                  t(w_out)))
+    fx = None
+    if fin_x:
+        fx = t(in_width, len(rows))
+        fx[:, [i for i, r in enumerate(rows) if r >= 2]] = 0
+    return FoldedTrunk(hidden, t(widths[-1], len(rows)), fx, t(len(rows)), rows)
+
+
+@pytest.mark.parametrize("in_widths,widths,latent_in,classes,fin_x,rows", [
+    ((319, 319), (512, 193, 512, 512), 2, 0, False, 544),   # NeRF PE, --point_size 63
+    ((319, 319), (512, 193, 512, 512), 2, 6, False, 544),   # with C = 6
+    ((319,), (512, 193, 512, 512), 2, 6, False, 544),       # a combined trunk
+    ((41, 50), (128, 128, 128, 128), 0, 0, True, 128),      # latent_in (0, 4): fin_x
+    ((575, 575), (512, 512, 512, 512), 0, 0, True, 544),    # a row wider than the buffer
+])
+def test_generic_plan_views_give_back_the_folded_weights(in_widths, widths, latent_in, classes,
+                                                         fin_x, rows):
+    """K6's pack round trip on the tensor-core trunk: each layer's W_x and
+    W_in are one run of tiles, W_in's (padded to lat_pad rows) right after;
+    the views give both back (their TF32 halves summed), with the bias,
+    final rows and fin_x; the activation buffer holds a latent_in layer's
+    [activation; input] rows up to TC_MAX_ROWS (the kernel stages the rest
+    in chunks)."""
+    rng = np.random.RandomState(sum(in_widths) + classes)
+    if len(in_widths) == 2:
+        trunks = [_generic_trunk(rng, in_widths[0], widths, latent_in,
+                                 [0, *range(2, 2 + classes)], fin_x),
+                  _generic_trunk(rng, in_widths[1], widths, latent_in, [1], fin_x)]
+    else:
+        trunks = [_generic_trunk(rng, in_widths[0], widths, latent_in,
+                                 [0, 1, *range(2, 2 + classes)], fin_x)]
+    plan = pack_generic_plan(trunks, in_widths)
+    lat_pad = -(-max(in_widths) // TC_K) * TC_K
+    assert TC_MAX_ROWS == 544 and tc_smem_bytes(TC_MAX_ROWS) <= 232448
+    assert plan.lat_pad == lat_pad and plan.n_rows == 2 + classes
+    assert int(plan.desc[2]) == rows
+    d = plan.desc.tolist()
+    pos = 5
+    for trunk, (hidden, fin, fx) in zip(trunks, plan.trunks()):
+        pos += 4
+        for h, (w, x, b) in zip(trunk.hidden, hidden):
+            w_off, x_slot, lat_off, _, in_pad, out_pad = d[pos:pos + 6]
+            pos += 6
+            assert x_slot == -1 and out_pad % TC_GROUP == 0
+            if w_off >= 0 and lat_off >= 0:
+                assert lat_off == w_off + 2 * in_pad * out_pad
+            assert (w is None) == (h.w is None) and (x is None) == (h.x is None)
+            if w is not None:
+                assert _padded_equal(w, h.w, split=True)
+            if x is not None:
+                assert x.shape[0] == lat_pad and _padded_equal(x, h.x, split=True)
+            assert _padded_equal(b[None], h.b[None])
+        assert torch.equal(fin[list(trunk.rows)][:, :trunk.fin.shape[0]], trunk.fin.T)
+        if trunk.fin_x is None:
+            assert fx is None
+        else:
+            assert fx.shape == (plan.n_rows, lat_pad)
+            assert torch.equal(fx[list(trunk.rows)][:, :trunk.fin_x.shape[0]], trunk.fin_x.T)
+
+
+def test_generic_plan_refuses_input_terms_on_class_rows():
+    """K6 reads fin_x on the SDF rows only: a plan whose class rows read the
+    input row is refused at packing."""
+    rng = np.random.RandomState(7)
+    trunk = _generic_trunk(rng, 20, (128, 128), 1, [0, 1, 2, 3], fin_x=True)
+    bad = trunk._replace(fin_x=torch.ones_like(trunk.fin_x))
+    with pytest.raises(ValueError, match="class rows"):
+        pack_generic_plan([bad], (20,))
