@@ -33,7 +33,8 @@
 //  - Forward: a block of 256 threads owns 32 points and stages their x0 in
 //    shared memory as [column][point] (from x0 feature-major (e, M), so the
 //    loads coalesce; zero to e_pad, a multiple of 32): 40 KB at 319.
-//  - Backward 1, the reverse chain per 32-point tile: as K2's, and where a
+//  - Backward 1, the reverse chain per 32-point tile: K2's former design
+//    (K2's and K4's chains now run on chain_tc.cuh), and where a
 //    layer has X, d(x0)^T += X_l . dpre_l through the tile product on the
 //    transposed X (out_pad, e_tpad), e_tpad a multiple of 256 (the product's
 //    output chunk), added into dx0t (e, M) in device memory: each thread

@@ -27,8 +27,9 @@
 // columns, hidden 512 -> 250 -> 512 -> 512 -> 1) a trunk costs 0.787 M
 // multiply-adds per point forward and twice that backward, against ~10 KB a
 // point of residuals; the sampling is 16 taps x C (8 kFLOP a point each way)
-// from a 268 MB table.  Plain float32 FMAs (TF32 off), as K2, but for the
-// backward's weight-gradient reduction: split TF32 on wgmma (wgrad_tc.cuh).
+// from a 268 MB table.  The forward runs plain float32 FMAs (TF32 off), as
+// K2's; the backward's chain (chain_tc.cuh) and weight-gradient reduction
+// (wgrad_tc.cuh) split TF32 on wgmma, as K2's.
 //
 // Forward (pixel_train_fwd_kernel): K3's gather stage and K2's streamed tile
 // trunk.  A block of 256 threads owns 32 points.  The gather fills a
@@ -41,10 +42,12 @@
 // Backward.  The TPU kernel forms d(table) per scene as a dense wxy @ dlat
 // product accumulated across a sequential grid; here each point scatters
 // its 16 taps with atomics instead:
-//  1. pixel_train_bwd_chain_kernel, per 32-point tile: K2's reverse chain
-//     over both trunks (each layer's dpre written to device memory, d(emb)
-//     summed in shared memory), plus dlat = sum over the x0 layers of
-//     dpre @ Lat^T, summed over both trunks in a [c_pad][32] tile.  Then,
+//  1. pixel_train_bwd_chain_tc_kernel, per 64-point tile: K2's reverse
+//     chain on the tensor cores (chain_tc.cuh) over both trunks (each
+//     layer's dpre written to device memory, d(emb) added per point), plus
+//     dlat = sum over the latent layers of dpre @ Lat^T in the same products
+//     as dx ([W^T | Lat^T]), summed over both trunks into a block-owned
+//     scratch (c_pad, M) in device memory.  Then, back in shared memory,
 //     from dlat: d(table) += wy wx dlat at each tap (atomicAdd), d(mean) +=
 //     dlat for points outside the image (summed over the tile's points of
 //     one scene first), and d(xp) = sum over taps of wy gx (fe . dlat),
@@ -57,6 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chain_tc.cuh"
 #include "keys_cubic.cuh"
 #include "train_common.cuh"
 
@@ -66,8 +70,8 @@
 #define MAX_OUT 2
 
 struct PLayer {
-  const float *w, *wt;     // (in_pad, out_pad) and its transpose
-  const float *lat, *latt; // latent weights (c_pad, out_pad) and their transpose
+  const float *w, *wt;     // (in_pad, out_pad) and its transpose (final layer)
+  const float* lat;        // latent weights (c_pad, out_pad)
   const float *x, *b;      // embedding weights (e, out_pad), bias (out_pad)
   float *act, *dpre;       // residual (out_pad, M), pre-activation grad (out_pad, M)
   float *dw, *dlat, *dx, *db;
@@ -87,17 +91,21 @@ struct PPlan {
   float *demb, *dtable, *dmean, *dxp, *dyp;
   const float* dx_last;  // (M, xl_w), the first trunk's, or null
   int xl_w;
+  float* dlatent;        // the backward's latent gradient (c_pad, M): scratch
+  const float* tiles;    // the backward chain's weight tiles (chain_tc.cuh)
+  long long tiles_len;   // their floats
   PTrunk trunks[MAX_TRUNKS];
 };
 
-// Per-point tap data of a tile (threads 0..31, one point each): tw[q][16] =
+// Per-point tap data of a tile of `tile` points (threads 0 .. tile - 1, one
+// point each): tw[q][16] =
 // 4 row weights, 4 column weights, then 4 row and 4 column derivative
 // weights (backward only); trc[q][8] = 4 row offsets (row * wf, -1 off the
 // map) and 4 columns (-1 off); flag[q] = the point lies in the image;
 // scn[q] = its scene.
-__device__ __forceinline__ void tile_taps(const PPlan& p, int first, int tid, float* tw, int* trc,
-                                          int* flag, int* scn, bool grads) {
-  if (tid >= TILE_P) return;
+__device__ __forceinline__ void tile_taps(const PPlan& p, int first, int tid, int tile, float* tw,
+                                          int* trc, int* flag, int* scn, bool grads) {
+  if (tid >= tile) return;
   const int row = first + tid;
   const bool live = row < p.m;
   scn[tid] = live ? row / p.nps : 0;
@@ -141,7 +149,7 @@ pixel_train_fwd_kernel(const PPlan p, unsigned seed, unsigned thresh, float scal
 
   const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
   const int first = blockIdx.x * TILE_P;
-  tile_taps(p, first, tid, tw, trc, flag, scn, false);
+  tile_taps(p, first, tid, TILE_P, tw, trc, flag, scn, false);
   for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
     const int c = i / TILE_P, q = i % TILE_P;
     embs[i] = first + q < p.m ? p.emb[(size_t)c * p.m + first + q] : 0.f;
@@ -261,158 +269,103 @@ pixel_train_fwd_kernel(const PPlan p, unsigned seed, unsigned thresh, float scal
 }
 
 // ---------------------------------------------------------------------------
-// backward 1: the reverse chain and the sampling's gradients per point tile
+// backward 1: the reverse chain and the sampling's gradients per 64-point
+// tile, the chain on the tensor cores
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-pixel_train_bwd_chain_kernel(const PPlan p, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* d0 = smem;
-  float* d1 = d0 + p.max_pad * TILE_P;
-  float* dlat = d1 + p.max_pad * TILE_P;   // [c_pad][TILE_P]
-  float* ws = dlat + p.c_pad * TILE_P;
-  float* dembs = ws + BK * OCHUNK;         // [e][TILE_P]
-  float* g = dembs + EMB_MAX * TILE_P;     // [8][TILE_P]
-  float* tw = g + 8 * TILE_P;              // [TILE_P][16]
-  int* trc = reinterpret_cast<int*>(tw + 16 * TILE_P);  // [TILE_P][8]
-  int* flag = trc + 8 * TILE_P;
-  int* scn = flag + TILE_P;
+__global__ void __launch_bounds__(TC_THREADS, 1)
+pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale) {
+  extern __shared__ __align__(128) float smem[];
+  const ChShared s = ch_shared(smem);
+  float* buf = s.tc.act;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
+  const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
+  const int first = blockIdx.x * TC_P;
+  const TcPlan plan = ch_stream(split);
+  ChClock clk;
+  if (tid == 0) ch_init(p.tiles, plan, s.tc, total);
+  clk.tick(0);
 
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int first = blockIdx.x * TILE_P;
-  tile_taps(p, first, tid, tw, trc, flag, scn, true);
-  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) dembs[i] = 0.f;
-  for (int i = tid; i < p.c_pad * TILE_P; i += NTHREADS) dlat[i] = 0.f;
-
+  float acc0[64], acc1[64];
+  int slot = 0;
+  bool demb_stored = false, dlat_stored = false;
   for (int t = 0; t < p.n_trunks; ++t) {
     const PTrunk& T = p.trunks[t];
-    // last layer: dpre = dy * (1 - y^2)
+    // the final layer, then its input's gradient (plus dx_last on the first
+    // trunk) gated by the last hidden layer's recovered gate
     const int last = T.n_layers - 1;
     const PLayer& F = T.layers[last];
-    if (tid < T.n_out * TILE_P) {
-      const int r = tid / TILE_P, q = tid % TILE_P, row = first + q;
-      float v = 0.f;
-      if (row < p.m) {
-        const size_t at = (size_t)(T.row_off + r) * p.m + row;
-        const float yv = p.y[at];
-        v = p.dy[at] * (1.f - yv * yv);
-        F.dpre[(size_t)r * p.m + row] = v;
-      }
-      g[tid] = v;
-    }
-    __syncthreads();
-
-    // its input's gradient (plus dx_last on the first trunk), gated by the
-    // last hidden layer's recovered gate.  Without dx_last the product and
-    // the gate share one loop, as in K2, where splitting them cost 0.5 ms.
     const PLayer& H = T.layers[last - 1];
-    const float hs = H.dropout ? scale : 1.f;
-    const float* dxl = t == 0 ? p.dx_last : nullptr;
-    if (dxl) {
-      for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
-        const int k = i / TILE_P, q = i % TILE_P;
-        float dx = 0.f;
-        for (int r = 0; r < T.n_out; ++r)
-          dx = fmaf(__ldg(F.w + (size_t)k * T.n_out + r), g[r * TILE_P + q], dx);
-        d0[i] = dx;
-      }
+    ch_prefetch(H.act, F.in_pad, p.m, first, tid);
+    ch_final(p.y + (size_t)T.row_off * p.m, p.dy + (size_t)T.row_off * p.m, F.dpre, F.w, T.n_out,
+             F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid);
+    if (t == 0 && p.dx_last) {
       __syncthreads();
-      add_transposed(d0, dxl, p.xl_w, p.m, first, tid);
-      __syncthreads();
-    }
-    for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
-      const int k = i / TILE_P, q = i % TILE_P, row = first + q;
-      float dx = 0.f;
-      if (dxl) {
-        dx = d0[i];
-      } else {
-        for (int r = 0; r < T.n_out; ++r)
-          dx = fmaf(__ldg(F.w + (size_t)k * T.n_out + r), g[r * TILE_P + q], dx);
-      }
-      float v = 0.f;
-      if (row < p.m) {
-        v = H.act[(size_t)k * p.m + row] > 0.f ? dx * hs : 0.f;
-        H.dpre[(size_t)k * p.m + row] = v;
-      }
-      d0[i] = v;
+      ch_add_rows(buf, p.dx_last, p.xl_w, p.m, first, tid);
     }
     __syncthreads();
+    clk.tick(1);
+    ch_gate(buf, F.in_pad, H.act, H.dropout ? scale : 1.f, H.dpre, p.m, first, tid);
+    __syncthreads();
+    clk.tick(2);
 
-    float* cur = d0;
-    float* nxt = d1;
+    // hidden layer l: one product of dpre_l with [W_l^T | Lat_l^T], the dx
+    // rows gated into dpre_{l-1}, the dlat rows added into the scratch;
+    // d(emb) from dpre_l at the latent layers
     for (int l = last - 1; l >= 0; --l) {
       const PLayer& L = T.layers[l];
-      if (L.x) demb_accumulate(L.x, L.out_pad, p.e, cur, dembs, tid);
-      if (L.latt) {
-        // dlat[c][q] += sum_o Lat[c][o] cur[o][q] through latt (out_pad, c_pad);
-        // each thread adds to its own 8 x 4 entries
-        for (int oc = 0; oc < p.c_pad; oc += OCHUNK) {
-          float acc[8][4];
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-          tile_product(acc, L.latt, p.c_pad, L.out_pad, cur, ws, oc, tid);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            float4* dl = reinterpret_cast<float4*>(dlat + (oc + ty * 8 + i) * TILE_P + tx * 4);
-            float4 v = *dl;
-            v.x += acc[i][0]; v.y += acc[i][1]; v.z += acc[i][2]; v.w += acc[i][3];
-            *dl = v;
-          }
-        }
+      const int dx_rows = l > 0 ? L.in_pad : 0, lat_rows = L.lat ? p.c_pad : 0;
+      const int groups = (dx_rows + lat_rows) / TC_GROUP;
+      if (dx_rows > 0) ch_prefetch(T.layers[l - 1].act, dx_rows, p.m, first, tid);
+      ch_product(acc0, acc1, L.out_pad, groups, slot, p.tiles, plan, s.tc, total, wg, wt, p0,
+                 t4);
+      slot += L.out_pad / TC_K * groups;
+      if (L.x) {
+        __syncthreads();
+        clk.tick(3);
+        ch_demb(buf, L.out_pad, L.x, p.e, p.demb, !demb_stored, p.m, first, s.red, tid);
+        demb_stored = true;
+        clk.tick(4);
+      }
+      __syncthreads();  // every warp is done reading dpre_l
+      clk.tick(3);
+      ch_store_groups(acc0, acc1, groups, buf, wg, p0, t4);
+      __syncthreads();
+      clk.tick(5);
+      if (dx_rows > 0) {
+        const PLayer& P = T.layers[l - 1];
+        ch_gate(buf, dx_rows, P.act, P.dropout ? scale : 1.f, P.dpre, p.m, first, tid);
+      }
+      clk.tick(2);
+      if (lat_rows > 0) {
+        ch_accumulate(buf, dx_rows, lat_rows, p.dlatent, !dlat_stored, p.m, first, tid);
+        dlat_stored = true;
       }
       __syncthreads();
-      if (l == 0) break;
-      const PLayer& P = T.layers[l - 1];
-      const float ps = P.dropout ? scale : 1.f;
-      // dx[k][q] = sum_o W[k][o] cur[o][q] through wt (out_pad, in_pad)
-      for (int oc = 0; oc < L.in_pad; oc += OCHUNK) {
-        float acc[8][4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-        tile_product(acc, L.wt, L.in_pad, L.out_pad, cur, ws, oc, tid);
-        const int row0 = first + tx * 4;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int k = oc + ty * 8 + i;
-          float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (row0 < p.m) a = *reinterpret_cast<const float4*>(P.act + (size_t)k * p.m + row0);
-          const float4 rv = make_float4(a.x > 0.f ? acc[i][0] * ps : 0.f,
-                                        a.y > 0.f ? acc[i][1] * ps : 0.f,
-                                        a.z > 0.f ? acc[i][2] * ps : 0.f,
-                                        a.w > 0.f ? acc[i][3] * ps : 0.f);
-          *reinterpret_cast<float4*>(nxt + k * TILE_P + tx * 4) = rv;
-          if (row0 < p.m) *reinterpret_cast<float4*>(P.dpre + (size_t)k * p.m + row0) = rv;
-        }
-      }
-      __syncthreads();
-      float* tmp = cur; cur = nxt; nxt = tmp;
+      clk.tick(6);
     }
-    __syncthreads();  // the next trunk reuses `g` and the buffers
   }
 
-  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
-    const int c = i / TILE_P, q = i % TILE_P;
-    if (first + q < p.m) p.demb[(size_t)(first + q) * p.e + c] = dembs[i];
-  }
-
-  // dlat transposed to [TILE_P][c_pad + 1] in the free activation buffers, so
-  // that a warp reading one point's channels hits 32 banks
+  // the sampling's gradients.  dlat transposed to [TC_P][c_pad + 1] in the
+  // buffer, so that a warp reading one point's channels hits 32 banks; the
+  // tap table after it.
   const int ld = p.c_pad + 1;
-  float* dlt = d0;
-  for (int i = tid; i < p.c_pad * TILE_P; i += NTHREADS) {
-    const int c = i / TILE_P, q = i % TILE_P;
-    dlt[q * ld + c] = dlat[i];
+  float* dlt = buf;
+  float* tw = dlt + (TC_P * ld + 3) / 4 * 4;           // [TC_P][16]
+  int* trc = reinterpret_cast<int*>(tw + 16 * TC_P);  // [TC_P][8]
+  int* flag = trc + 8 * TC_P;
+  int* scn = flag + TC_P;
+  tile_taps(p, first, tid, TC_P, tw, trc, flag, scn, true);
+  for (int i = tid; i < p.c_pad * TC_P; i += TC_THREADS) {
+    const int c = i / TC_P, q = i % TC_P;
+    dlt[q * ld + c] = first + q < p.m ? p.dlatent[(size_t)c * p.m + first + q] : 0.f;
   }
   __syncthreads();
 
   // the taps: one warp a point, lanes over channels
-  const int lane = tid & 31, warp = tid >> 5;
+  const int warp = tid >> 5;
   const size_t hw = (size_t)p.hf * p.wf;
-  for (int q = warp; q < TILE_P; q += NTHREADS / 32) {
+  for (int q = warp; q < TC_P; q += TC_THREADS / 32) {
     const int row = first + q;
     if (row >= p.m) continue;
     float tdx = 0.f, tdy = 0.f;
@@ -428,6 +381,7 @@ pixel_train_bwd_chain_kernel(const PPlan p, float scale) {
           const size_t off = (base + r + col) * p.c;
           const float wgt = wq[i] * wq[4 + j];
           float part = 0.f;
+#pragma unroll 8
           for (int ch = lane; ch < p.c; ch += 32) {
             const float d = dlt[q * ld + ch];
             part = fmaf(__ldg(p.table + off + ch), d, part);
@@ -450,19 +404,24 @@ pixel_train_bwd_chain_kernel(const PPlan p, float scale) {
   }
 
   // the mean row: points outside the image, summed per scene over the tile
-  for (int ch = tid; ch < p.c; ch += NTHREADS) {
-    float s = 0.f;
+  for (int ch = tid; ch < p.c; ch += TC_THREADS) {
+    float sum = 0.f;
     int sc = -1;
-    for (int q = 0; q < TILE_P; ++q) {
+    for (int q = 0; q < TC_P; ++q) {
       if (first + q >= p.m || flag[q]) continue;
       if (scn[q] != sc) {
-        if (sc >= 0) atomicAdd(p.dmean + (size_t)sc * p.c + ch, s);
-        s = 0.f;
+        if (sc >= 0) atomicAdd(p.dmean + (size_t)sc * p.c + ch, sum);
+        sum = 0.f;
         sc = scn[q];
       }
-      s += dlt[q * ld + ch];
+      sum += dlt[q * ld + ch];
     }
-    if (sc >= 0) atomicAdd(p.dmean + (size_t)sc * p.c + ch, s);
+    if (sc >= 0) atomicAdd(p.dmean + (size_t)sc * p.c + ch, sum);
+  }
+  if (CH_PROBE & 32) {
+    __syncthreads();
+    clk.tick(7);
+    clk.flush(tid);
   }
 }
 
@@ -470,9 +429,9 @@ pixel_train_bwd_chain_kernel(const PPlan p, float scale) {
 // host side
 // ---------------------------------------------------------------------------
 
-#define HEAD 25
+#define HEAD 28
 #define PER_TRUNK 4
-#define PER_LAYER 15
+#define PER_LAYER 14
 
 static size_t smem_bytes(int max_pad, int c_pad) {
   return sizeof(float) * ((size_t)(2 * max_pad + c_pad) * TILE_P + BK * OCHUNK
@@ -482,9 +441,13 @@ static size_t smem_bytes(int max_pad, int c_pad) {
 
 // desc (int64): [n_trunks, e, m, nps, n_scenes, c, c_pad, hf, wf, emb, table,
 // mean, xp, yp, mask, lat, y, dy, demb, dtable, dmean, dxp, dyp, dx_last,
-// xl_w, then per trunk: n_layers, n_out, row_off, layer_off, then per layer: w, wt, lat,
-// latt, x, b, act, dpre, dw, dlat, dx, db, in_pad, out_pad, dropout].
-// Pointers are device addresses, 0 = absent.
+// xl_w, dlatent, tiles, tiles_len, then per trunk: n_layers, n_out, row_off,
+// layer_off, then per layer: w, wt, lat, x, b, act, dpre, dw, dlat, dx, db,
+// in_pad, out_pad, dropout].  Pointers are device addresses, 0 = absent; wt
+// only on the final layer.  dlatent (c_pad, M) is the backward's scratch;
+// the tiles (the backward's) run trunk by trunk from the last hidden layer
+// down, each layer's tile_weights([W^T | Lat^T]) of depth out_pad (W^T where
+// l > 0, Lat^T where it reads the latent).
 static int parse(const long long* desc, int len, PPlan* p, bool backward) {
   if (len < HEAD) return -1;
   p->n_trunks = (int)desc[0];
@@ -512,13 +475,17 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
   p->dyp = (float*)desc[22];
   p->dx_last = (const float*)desc[23];
   p->xl_w = (int)desc[24];
+  p->dlatent = (float*)desc[25];
+  p->tiles = (const float*)desc[26];
+  p->tiles_len = desc[27];
   if (p->n_trunks < 1 || p->n_trunks > MAX_TRUNKS || p->e < 1 || p->e > EMB_MAX) return -1;
   if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes)
     return -1;
   if (p->c < 1 || p->c_pad < p->c || p->c_pad % OCHUNK || p->hf < 1 || p->wf < 1) return -1;
   if (!p->emb || !p->table || !p->mean || !p->xp || !p->yp || !p->mask || !p->lat || !p->y)
     return -1;
-  if (backward && (!p->dy || !p->demb || !p->dtable || !p->dmean || !p->dxp || !p->dyp)) return -1;
+  if (backward && (!p->dy || !p->demb || !p->dtable || !p->dmean || !p->dxp || !p->dyp
+                   || !p->dlatent)) return -1;
   p->max_pad = OCHUNK;
   int pos = HEAD;
   for (int t = 0; t < p->n_trunks; ++t) {
@@ -534,19 +501,19 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
     for (int l = 0; l < T.n_layers; ++l, pos += PER_LAYER) {
       const long long* d = desc + pos;
       PLayer& L = T.layers[l];
-      L.w = (const float*)d[0]; L.wt = (const float*)d[1];
-      L.lat = (const float*)d[2]; L.latt = (const float*)d[3];
-      L.x = (const float*)d[4]; L.b = (const float*)d[5];
-      L.act = (float*)d[6]; L.dpre = (float*)d[7];
-      L.dw = (float*)d[8]; L.dlat = (float*)d[9]; L.dx = (float*)d[10]; L.db = (float*)d[11];
-      L.in_pad = (int)d[12]; L.out_pad = (int)d[13]; L.dropout = (int)d[14];
+      L.w = (const float*)d[0]; L.wt = (const float*)d[1]; L.lat = (const float*)d[2];
+      L.x = (const float*)d[3]; L.b = (const float*)d[4];
+      L.act = (float*)d[5]; L.dpre = (float*)d[6];
+      L.dw = (float*)d[7]; L.dlat = (float*)d[8]; L.dx = (float*)d[9]; L.db = (float*)d[10];
+      L.in_pad = (int)d[11]; L.out_pad = (int)d[12]; L.dropout = (int)d[13];
       const bool hidden = l < T.n_layers - 1;
       if (!L.b) return -1;
       if (l == 0 ? (L.w || !L.lat || L.in_pad != 0)
-                 : (!L.w || !L.wt || L.in_pad != T.layers[l - 1].out_pad)) return -1;
+                 : (!L.w || L.in_pad != T.layers[l - 1].out_pad)) return -1;
+      if (!hidden && !L.wt) return -1;
       // the latent and the embedding enter together, at layer 0 and the
       // latent_in layers
-      if (!L.lat != !L.latt || !L.lat != !L.x) return -1;
+      if (!L.lat != !L.x) return -1;
       if (hidden) {
         if (L.out_pad < OCHUNK || L.out_pad % OCHUNK || !L.act) return -1;
         if (L.out_pad > p->max_pad) p->max_pad = L.out_pad;
@@ -580,17 +547,41 @@ extern "C" int pixel_train_fwd(const long long* desc, int len, unsigned seed, un
   return (int)cudaGetLastError();
 }
 
+// The chain's tiles of trunk t: each hidden layer's, from the last down;
+// -1 where a layer is outside the chain (chain_tc.cuh).
+static int chain_tiles(const PPlan& p, const PTrunk& T) {
+  int total = 0;
+  for (int l = T.n_layers - 2; l >= 0; --l) {
+    const PLayer& L = T.layers[l];
+    const int n = ch_layer_tiles(L.out_pad, (l > 0 ? L.in_pad : 0) + (L.lat ? p.c_pad : 0));
+    if (n < 0) return -1;
+    total += n;
+  }
+  return total;
+}
+
 // d(table), d(mean), every dw / dlat / dx and db must hold zeros on entry.
 extern "C" int pixel_train_bwd(const long long* desc, int len, float scale, void* stream) {
   PPlan p;
   if (parse(desc, len, &p, true)) return -1;
+  int split = 0, total = 0;
+  for (int t = 0; t < p.n_trunks; ++t) {
+    const int n = chain_tiles(p, p.trunks[t]);
+    if (n < 0) return -1;
+    if (t == 0) split = n;
+    total += n;
+  }
+  if (p.n_trunks == 1) split = total;
+  if (p.tiles_len != (long long)total * 2 * TC_TILE || !p.tiles) return -1;
+  // the tap stage's transposed dlat and tap table fit the buffer
+  if ((TC_P * (p.c_pad + 1) + 3) / 4 * 4 + 26 * TC_P > CH_ROWS * TC_P) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = smem_bytes(p.max_pad, p.c_pad);
-  cudaError_t err = cudaFuncSetAttribute(pixel_train_bwd_chain_kernel,
+  const size_t smem = ch_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(pixel_train_bwd_chain_tc_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((p.m + TILE_P - 1) / TILE_P);
-  pixel_train_bwd_chain_kernel<<<blocks, NTHREADS, smem, s>>>(p, scale);
+  const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
+  pixel_train_bwd_chain_tc_kernel<<<blocks, TC_THREADS, smem, s>>>(p, total, split, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   for (int t = 0; t < p.n_trunks; ++t) {

@@ -1,6 +1,6 @@
 // The train decoders' shared pieces (kernels K2, K4 and K5): the hash dropout
-// gate, the embedding's gradient over a tile, dx_last's transposed add and
-// the backward's reductions over the points.
+// gate, dx_last's transposed add (K5's chain) and the backward's reductions
+// over the points.
 //
 // gate_hash is bit for bit the TPU kernels' _dropout_gate: a murmur3-style
 // finalizer of (seed, layer, global row, lane) in uint32 arithmetic; a unit
@@ -29,19 +29,6 @@ __device__ __forceinline__ unsigned gate_hash(unsigned seed, unsigned layer, uns
   h *= 0x846CA68Bu;
   h ^= h >> 16;
   return h;
-}
-
-// dembs[c][p] += sum_o X[c][o] d[o][p] over a tile: X (e, out_pad) in device
-// memory, d [out_pad][TILE_P] and dembs [e][TILE_P] in shared memory.
-__device__ __forceinline__ void demb_accumulate(const float* __restrict__ x, int out_pad, int e,
-                                                const float* d, float* dembs, int tid) {
-  for (int i = tid; i < e * TILE_P; i += NTHREADS) {
-    const int c = i / TILE_P, q = i % TILE_P;
-    const float* xr = x + (size_t)c * out_pad;
-    float s = 0.f;
-    for (int o = 0; o < out_pad; ++o) s = fmaf(__ldg(xr + o), d[o * TILE_P + q], s);
-    dembs[i] += s;
-  }
 }
 
 // d[k][q] += src[first + q][k] over a tile's points (rows < m) and features

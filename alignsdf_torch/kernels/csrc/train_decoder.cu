@@ -15,11 +15,11 @@
 // What bounds it: arithmetic.  At the flagship width (hidden 512 -> 250 ->
 // 512 -> 512 -> 1, 6 embedding columns) a trunk costs 0.525 M MAC per point
 // forward and twice that backward (dx and dW), against ~7 KB of residuals
-// written and read per point.  So both directions are bound by the card's
-// float32 FMA rate (TF32 stays off so results match the plain version to
-// float32 rounding).  The backward's weight-gradient reduction runs split
-// TF32 on wgmma (wgrad_tc.cuh), which keeps float32's accuracy; the chain
-// and the forward on wgmma, TMA and bf16 are later work.
+// written and read per point.  The forward runs float32 FMAs on the CUDA
+// cores (TF32 stays off so results match the plain version to float32
+// rounding); the backward's chain (chain_tc.cuh) and weight-gradient
+// reduction (wgrad_tc.cuh) run split TF32 on wgmma, which keeps float32's
+// accuracy.  The forward on wgmma is later work.
 //
 // Forward (train_fwd_kernel): tile_product.cuh's.  A block of 256 threads owns 32
 // points; their activations stay in shared memory as [feature][point]
@@ -38,12 +38,12 @@
 //
 // Backward.  The TPU kernel walks a sequential grid and accumulates dW in
 // VMEM; blocks on Hopper run in parallel, so it is split:
-//  1. train_bwd_chain_kernel, per 32-point tile: from dy and y it forms the
-//     gradient of every layer's pre-activation (dpre) in shared memory,
-//     going back through W^T (a transposed copy, so the same streamed-tile
-//     product serves) and the recovered gates, writes each dpre to device
-//     memory (out_pad, M), and accumulates d(emb) = sum over layers with X
-//     of dpre @ X^T.
+//  1. train_bwd_chain_tc_kernel, per 64-point tile (chain_tc.cuh): from dy
+//     and y it forms the gradient of every layer's pre-activation (dpre) in
+//     shared memory, going back through W^T on the tensor cores (tiles of
+//     W^T split and tiled when the trunk is packed) and the recovered gates,
+//     writes each dpre to device memory (out_pad, M), and accumulates d(emb)
+//     = sum over layers with X of dpre @ X^T.
 //  2. wgrad_tc_kernel (wgrad_tc.cuh): dW_l = a_{l-1} . dpre_l^T and dX_l =
 //     emb^T-rows . dpre_l^T, reductions over the M points split across
 //     blocks, split TF32 on the tensor cores, partial sums added with
@@ -55,6 +55,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chain_tc.cuh"      // the backward's reverse chain on the tensor cores
 #include "train_common.cuh"  // gate_hash, wgrad / colsum; tile_product.cuh's tile product
 
 #define EMB_MAX 64     // embedding columns
@@ -62,7 +63,7 @@
 #define MAX_OUT 2
 
 struct Layer {
-  const float *w, *wt, *x, *b;  // w (in_pad, out_pad), wt its transpose, x (e, out_pad)
+  const float *w, *wt, *x, *b;  // w (in_pad, out_pad), wt its transpose (final layer), x (e, out_pad)
   float *act, *dpre;            // residual (out_pad, M), pre-activation grad (out_pad, M)
   float *dw, *dx, *db;          // gradients (shapes of w, x, b)
   int in_pad, out_pad, scene_bias, dropout;
@@ -76,6 +77,8 @@ struct Plan {
   float* demb;       // (M, e)
   const float* dx_last;  // (M, xl_w) or null
   int xl_w;
+  const float* tiles;    // the backward chain's weight tiles (chain_tc.cuh)
+  long long tiles_len;   // their floats
   Layer layers[MAX_LAYERS];
 };
 
@@ -169,111 +172,71 @@ train_fwd_kernel(const Plan p, unsigned seed, unsigned thresh, float scale) {
 }
 
 // ---------------------------------------------------------------------------
-// backward 1: the reverse chain per point tile
+// backward 1: the reverse chain per 64-point tile, on the tensor cores
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-train_bwd_chain_kernel(const Plan p, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* d0 = smem;
-  float* d1 = d0 + p.max_pad * TILE_P;
-  float* ws = d1 + p.max_pad * TILE_P;
-  float* dembs = ws + BK * OCHUNK;        // [e][TILE_P]
-  float* g = dembs + EMB_MAX * TILE_P;    // [n_out][TILE_P]
+__global__ void __launch_bounds__(TC_THREADS, 1)
+train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int total, float scale) {
+  extern __shared__ __align__(128) float smem[];
+  const ChShared s = ch_shared(smem);
+  float* buf = s.tc.act;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
+  const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
+  const int first = blockIdx.x * TC_P;
+  const TcPlan plan = ch_stream(total);
+  ChClock clk;
+  if (tid == 0) ch_init(tiles, plan, s.tc, total);
+  clk.tick(0);
 
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int first = blockIdx.x * TILE_P;
-  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) dembs[i] = 0.f;
-
-  // last layer: dpre = dy * (1 - y^2)
+  // the final layer, then its input's gradient (plus dx_last) gated by the
+  // last hidden layer's recovered gate
   const int last = p.n_layers - 1;
   const Layer& F = p.layers[last];
-  if (tid < p.n_out * TILE_P) {
-    const int r = tid / TILE_P, q = tid % TILE_P, row = first + q;
-    float v = 0.f;
-    if (row < p.m) {
-      const float yv = p.y[(size_t)r * p.m + row];
-      v = p.dy[(size_t)r * p.m + row] * (1.f - yv * yv);
-      F.dpre[(size_t)r * p.m + row] = v;
-    }
-    g[tid] = v;
-  }
-  __syncthreads();
-
-  // its input's gradient (plus dx_last), gated by the last hidden layer's
-  // recovered gate.  Without dx_last the product and the gate share one loop:
-  // splitting them cost the flagship's backward 0.5 ms a step on an H100.
   const Layer& H = p.layers[last - 1];
-  const float hs = H.dropout ? scale : 1.f;
+  ch_prefetch(H.act, F.in_pad, p.m, first, tid);
+  ch_final(p.y, p.dy, F.dpre, F.w, p.n_out, F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid);
   if (p.dx_last) {
-    for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
-      const int k = i / TILE_P, q = i % TILE_P;
-      float dx = 0.f;
-      for (int r = 0; r < p.n_out; ++r) dx = fmaf(__ldg(F.w + (size_t)k * p.n_out + r), g[r * TILE_P + q], dx);
-      d0[i] = dx;
-    }
     __syncthreads();
-    add_transposed(d0, p.dx_last, p.xl_w, p.m, first, tid);
-    __syncthreads();
-  }
-  for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
-    const int k = i / TILE_P, q = i % TILE_P, row = first + q;
-    float dx = 0.f;
-    if (p.dx_last) {
-      dx = d0[i];
-    } else {
-      for (int r = 0; r < p.n_out; ++r) dx = fmaf(__ldg(F.w + (size_t)k * p.n_out + r), g[r * TILE_P + q], dx);
-    }
-    float v = 0.f;
-    if (row < p.m) {
-      v = H.act[(size_t)k * p.m + row] > 0.f ? dx * hs : 0.f;
-      H.dpre[(size_t)k * p.m + row] = v;
-    }
-    d0[i] = v;
+    ch_add_rows(buf, p.dx_last, p.xl_w, p.m, first, tid);
   }
   __syncthreads();
+  clk.tick(1);
+  ch_gate(buf, F.in_pad, H.act, H.dropout ? scale : 1.f, H.dpre, p.m, first, tid);
+  __syncthreads();
+  clk.tick(2);
 
-  float* cur = d0;
-  float* nxt = d1;
+  // hidden layer l: dx = dpre_l W_l^T on the tensor cores, gated into
+  // dpre_{l-1}; d(emb) from dpre_l where the layer reads the embedding
+  float acc0[64], acc1[64];
+  int slot = 0;
+  bool demb_stored = false;
   for (int l = last - 1; l >= 0; --l) {
     const Layer& L = p.layers[l];
+    const int groups = l > 0 ? L.in_pad / TC_GROUP : 0;
+    if (groups > 0) {
+      ch_prefetch(p.layers[l - 1].act, L.in_pad, p.m, first, tid);
+      ch_product(acc0, acc1, L.out_pad, groups, slot, tiles, plan, s.tc, total, wg, wt, p0, t4);
+      slot += L.out_pad / TC_K * groups;
+    }
     if (L.x) {
-      demb_accumulate(L.x, L.out_pad, p.e, cur, dembs, tid);
       __syncthreads();
+      clk.tick(3);
+      ch_demb(buf, L.out_pad, L.x, p.e, p.demb, !demb_stored, p.m, first, s.red, tid);
+      demb_stored = true;
+      clk.tick(4);
     }
-    if (l == 0) break;
-    const Layer& P = p.layers[l - 1];
-    const float ps = P.dropout ? scale : 1.f;
-    // dx[k][p] = sum_o W[k][o] cur[o][p] through wt (out_pad, in_pad)
-    for (int oc = 0; oc < L.in_pad; oc += OCHUNK) {
-      float acc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      tile_product(acc, L.wt, L.in_pad, L.out_pad, cur, ws, oc, tid);
-      const int row0 = first + tx * 4;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = oc + ty * 8 + i;
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row0 < p.m) a = *reinterpret_cast<const float4*>(P.act + (size_t)k * p.m + row0);
-        const float4 rv = make_float4(a.x > 0.f ? acc[i][0] * ps : 0.f,
-                                      a.y > 0.f ? acc[i][1] * ps : 0.f,
-                                      a.z > 0.f ? acc[i][2] * ps : 0.f,
-                                      a.w > 0.f ? acc[i][3] * ps : 0.f);
-        *reinterpret_cast<float4*>(nxt + k * TILE_P + tx * 4) = rv;
-        if (row0 < p.m) *reinterpret_cast<float4*>(P.dpre + (size_t)k * p.m + row0) = rv;
-      }
-    }
+    if (groups == 0) continue;  // layer 0: nothing below it
+    __syncthreads();  // every warp is done reading dpre_l
+    clk.tick(3);
+    ch_store_groups(acc0, acc1, groups, buf, wg, p0, t4);
     __syncthreads();
-    float* t = cur; cur = nxt; nxt = t;
+    clk.tick(5);
+    const Layer& P = p.layers[l - 1];
+    ch_gate(buf, L.in_pad, P.act, P.dropout ? scale : 1.f, P.dpre, p.m, first, tid);
+    __syncthreads();
+    clk.tick(2);
   }
-
-  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
-    const int c = i / TILE_P, q = i % TILE_P;
-    if (first + q < p.m) p.demb[(size_t)(first + q) * p.e + c] = dembs[i];
-  }
+  clk.flush(tid);
 }
 
 // ---------------------------------------------------------------------------
@@ -285,9 +248,12 @@ static size_t smem_bytes(int max_pad) {
 }
 
 // desc (int64): [n_layers, n_out, e, m, nps, n_scenes, emb, y, dy, demb,
-// dx_last, xl_w, then per layer: w, wt, x, b, act, dpre, dw, dx, db, in_pad,
-// out_pad, scene_bias, dropout].  Pointers are device addresses, 0 = absent.
-#define HEAD 12
+// dx_last, xl_w, tiles, tiles_len, then per layer: w, wt, x, b, act, dpre, dw,
+// dx, db, in_pad, out_pad, scene_bias, dropout].  Pointers are device
+// addresses, 0 = absent; wt only on the final layer; the tiles (the
+// backward's) run from the last hidden layer down, each layer l > 0's
+// tile_weights(W_l^T) of depth out_pad.
+#define HEAD 14
 static int parse(const long long* desc, int len, Plan* p, bool backward) {
   if (len < HEAD) return -1;
   p->n_layers = (int)desc[0];
@@ -302,6 +268,8 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
   p->demb = (float*)desc[9];
   p->dx_last = (const float*)desc[10];
   p->xl_w = (int)desc[11];
+  p->tiles = (const float*)desc[12];
+  p->tiles_len = desc[13];
   if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != HEAD + 13 * p->n_layers) return -1;
   if (p->n_out < 1 || p->n_out > MAX_OUT || p->e < 1 || p->e > EMB_MAX) return -1;
   if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes) return -1;
@@ -316,7 +284,8 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
     L.in_pad = (int)d[9]; L.out_pad = (int)d[10]; L.scene_bias = (int)d[11]; L.dropout = (int)d[12];
     const bool hidden = l < p->n_layers - 1;
     if (!L.b) return -1;
-    if (l == 0 ? (L.w || !L.x || L.in_pad != 0) : (!L.w || !L.wt || L.in_pad != p->layers[l - 1].out_pad)) return -1;
+    if (l == 0 ? (L.w || !L.x || L.in_pad != 0) : (!L.w || L.in_pad != p->layers[l - 1].out_pad)) return -1;
+    if (!hidden && !L.wt) return -1;
     if (hidden) {
       if (L.out_pad < OCHUNK || L.out_pad % OCHUNK || !L.act) return -1;
       if (L.out_pad > p->max_pad) p->max_pad = L.out_pad;
@@ -343,16 +312,33 @@ extern "C" int train_decoder_fwd(const long long* desc, int len, unsigned seed, 
   return (int)cudaGetLastError();
 }
 
+// The chain's tiles: each hidden layer l > 0's, from the last down; -1
+// where a layer is outside the chain (chain_tc.cuh) or the stream's length
+// disagrees.
+static int chain_tiles(const Plan& p) {
+  int total = 0;
+  for (int l = p.n_layers - 2; l > 0; --l) {
+    const int n = ch_layer_tiles(p.layers[l].out_pad, p.layers[l].in_pad);
+    if (n < 0) return -1;
+    total += n;
+  }
+  if (p.layers[0].out_pad > CH_ROWS || p.layers[p.n_layers - 1].in_pad > CH_ROWS) return -1;
+  if (p.tiles_len != (long long)total * 2 * TC_TILE || (total > 0 && !p.tiles)) return -1;
+  return total;
+}
+
 extern "C" int train_decoder_bwd(const long long* desc, int len, float scale, void* stream) {
   Plan p;
   if (parse(desc, len, &p, true)) return -1;
+  const int total = chain_tiles(p);
+  if (total < 0) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = smem_bytes(p.max_pad);
-  cudaError_t err = cudaFuncSetAttribute(train_bwd_chain_kernel,
+  const size_t smem = ch_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(train_bwd_chain_tc_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((p.m + TILE_P - 1) / TILE_P);
-  train_bwd_chain_kernel<<<blocks, NTHREADS, smem, s>>>(p, scale);
+  const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
+  train_bwd_chain_tc_kernel<<<blocks, TC_THREADS, smem, s>>>(p, p.tiles, total, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   for (int l = 0; l < p.n_layers; ++l) {

@@ -36,6 +36,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from alignsdf_torch.kernels.grid_decoder import TC_MAX_OUT
 from alignsdf_torch.kernels.train_decoder import (
     MAX_SMEM,
     PAD,
@@ -44,6 +45,8 @@ from alignsdf_torch.kernels.train_decoder import (
     _ptr,
     _round_up,
     _run,
+    chain_stream,
+    chain_tiles,
     dropout_gate,
     gate_threshold,
 )
@@ -54,6 +57,10 @@ MAX_LAYERS = 8
 MAX_TRUNKS = 2
 MAX_OUT = 2       # outputs of a trunk's last layer
 _TILE_P, _BK = 32, 32
+# the backward chain's tap stage holds a 64-point tile's (64, c_pad + 1)
+# latent gradient and its tap table (26 words a point) in the chain's
+# (TC_MAX_OUT, 64) buffer
+MAX_C_PAD = max(c for c in range(PAD, 2048, PAD) if 64 * (c + 1) + 26 * 64 <= TC_MAX_OUT * 64)
 
 # one trunk's operands: ws[l] (in, out) or None, lats[l] (C, out) or None,
 # xs[l] (e, out) or None (present where lats[l] is), bs[l] (out,)
@@ -201,9 +208,8 @@ class _PackedTrunk(NamedTuple):
     """One trunk padded in the kernels' layout."""
 
     w: List[Optional[torch.Tensor]]     # hidden (in_pad, out_pad); last (in_pad, n_out)
-    wt: List[Optional[torch.Tensor]]    # transposes of w
+    wt: List[Optional[torch.Tensor]]    # the last layer's transpose of w (the forward's)
     lat: List[Optional[torch.Tensor]]   # (c_pad, out_pad)
-    latt: List[Optional[torch.Tensor]]  # transposes of lat
     x: List[Optional[torch.Tensor]]     # (e, out_pad)
     b: List[torch.Tensor]               # (out_pad,)
     out_pads: List[int]
@@ -224,6 +230,7 @@ class _Packed(NamedTuple):
     trunks: List[_PackedTrunk]
     c_pad: int
     n_rows: int
+    chain: torch.Tensor   # the backward chain's weight tiles, trunk by trunk (chain_stream)
 
 
 def _check(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk], st: PixelTrainStatics) -> int:
@@ -260,35 +267,37 @@ def _check(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk], st: PixelTra
 
 def pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk],
                       st: PixelTrainStatics) -> _Packed:
-    """Padded, contiguous copies of every operand (detached) for the kernels;
-    raises on what they do not take."""
+    """Padded, contiguous copies of every operand (detached) for the kernels,
+    and the backward chain's tiles; raises on what they do not take."""
     _check(table, mean, xp, yp, mask, emb, trunks, st)
     c = table.shape[2]
     c_pad = _round_up(c, PAD)
-    packed, row = [], 0
+    if c_pad > MAX_C_PAD:
+        raise ValueError(f"a {c}-channel latent is too wide for the backward chain's tile")
+    packed, runs, row = [], [], 0
     for (ws, lats, xs, bs), offset in zip(trunks, st.layer_offsets):
         n_layers, n_out = len(bs), bs[-1].shape[-1]
-        w, wt, lat, latt, x, b, out_pads = [], [], [], [], [], [], []
+        w, lat, x, b, out_pads = [], [], [], [], []
         in_pad = 0
         for layer in range(n_layers):
             out_pad = n_out if layer == n_layers - 1 else _round_up(bs[layer].shape[-1], PAD)
-            wl = None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad)
-            ll = None if lats[layer] is None else _pad2(lats[layer], c_pad, out_pad)
-            w.append(wl)
-            wt.append(None if wl is None else wl.T.contiguous())
-            lat.append(ll)
-            latt.append(None if ll is None else ll.T.contiguous())
+            w.append(None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad))
+            lat.append(None if lats[layer] is None else _pad2(lats[layer], c_pad, out_pad))
             x.append(None if xs[layer] is None else _pad2(xs[layer], emb.shape[1], out_pad))
             b.append(_pad2(bs[layer][None], 1, out_pad)[0])
             out_pads.append(out_pad)
             in_pad = out_pad
-        packed.append(_PackedTrunk(w, wt, lat, latt, x, b, out_pads, n_out, row, offset))
+        if max(out_pads[:-1]) > TC_MAX_OUT:
+            raise ValueError(f"the backward chain takes hidden widths up to {TC_MAX_OUT}")
+        wt = [None] * (n_layers - 1) + [w[-1].T.contiguous()]
+        runs += [chain_tiles(w[layer], lat[layer]) for layer in range(n_layers - 2, -1, -1)]
+        packed.append(_PackedTrunk(w, wt, lat, x, b, out_pads, n_out, row, offset))
         row += n_out
     if c_pad + 1 > 2 * max(max(t.out_pads[:-1]) for t in packed):
         raise ValueError(f"a {c}-channel latent is too wide for the trunks' buffers")
     f32 = lambda t: t.detach().to(torch.float32).contiguous()  # noqa: E731
     return _Packed(f32(table), f32(mean), f32(xp), f32(yp), f32(mask), f32(emb.T), packed,
-                   c_pad, row)
+                   c_pad, row, chain_stream(runs, emb.device))
 
 
 def smem_bytes(max_pad: int, c_pad: int) -> int:
@@ -301,7 +310,7 @@ def smem_bytes(max_pad: int, c_pad: int) -> int:
 
 def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=None,
                 dtable=None, dmean=None, dxp=None, dyp=None, dpre=None, grads=None,
-                dx_last=None) -> np.ndarray:
+                dx_last=None, dlatent=None) -> np.ndarray:
     """The int64 descriptor ``pixel_train_decoder.cu`` parses (see its host
     side)."""
     e, m = p.emb_t.shape
@@ -310,7 +319,8 @@ def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=N
     desc = [len(p.trunks), e, m, st.n_per_scene, b, c, p.c_pad, hf, wf,
             _ptr(p.emb_t), _ptr(p.table), _ptr(p.mean), _ptr(p.xp), _ptr(p.yp), _ptr(p.mask),
             _ptr(lat), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dtable), _ptr(dmean), _ptr(dxp),
-            _ptr(dyp), _ptr(dx_last), 0 if dx_last is None else dx_last.shape[1]]
+            _ptr(dyp), _ptr(dx_last), 0 if dx_last is None else dx_last.shape[1],
+            _ptr(dlatent), _ptr(p.chain), p.chain.numel()]
     for t, tr in enumerate(p.trunks):
         n_layers = len(tr.b)
         desc += [n_layers, tr.n_out, tr.row_off, tr.layer_off]
@@ -319,7 +329,7 @@ def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=N
             dw, dl, dx, db = grads[t][layer] if grads is not None else (None,) * 4
             hidden = layer < n_layers - 1
             desc += [_ptr(tr.w[layer]), _ptr(tr.wt[layer]), _ptr(tr.lat[layer]),
-                     _ptr(tr.latt[layer]), _ptr(tr.x[layer]), _ptr(tr.b[layer]),
+                     _ptr(tr.x[layer]), _ptr(tr.b[layer]),
                      _ptr(acts[t][layer]) if hidden else 0,
                      _ptr(dpre[t][layer]) if dpre is not None else 0,
                      _ptr(dw), _ptr(dl), _ptr(dx), _ptr(db), in_pad, tr.out_pads[layer],
@@ -365,9 +375,10 @@ def pixel_train_decode_forward(p: _Packed, seed: int, st: PixelTrainStatics):
 def pixel_train_decode_backward(p: _Packed, st: PixelTrainStatics, y: torch.Tensor,
                                 acts: List[List[torch.Tensor]], lat: torch.Tensor,
                                 dy: torch.Tensor, dx_last: Optional[torch.Tensor] = None):
-    """K4 backward on the card: the reverse chain (adding ``dx_last`` (M,
-    h), if given, to the first trunk's final-layer input gradient) and the
-    sampling's gradients per point tile, then per layer the weight,
+    """K4 backward on the card: the reverse chain on the tensor cores
+    (adding ``dx_last`` (M, h), if given, to the first trunk's final-layer
+    input gradient; the latent's gradient summed in a (c_pad, M) scratch)
+    and the sampling's gradients per 64-point tile, then per layer the weight,
     latent-weight, embedding-weight and bias reductions over all M points.
     Returns
     (d(table), d(mean), d(xp), d(yp), d(emb) (M, e), per trunk [(dW | None,
@@ -389,8 +400,10 @@ def pixel_train_decode_backward(p: _Packed, st: PixelTrainStatics, y: torch.Tens
     zeros = lambda t: None if t is None else torch.zeros_like(t)  # noqa: E731
     grads = [[(zeros(t.w[layer]), zeros(t.lat[layer]), zeros(t.x[layer]),
                torch.zeros_like(t.b[layer])) for layer in range(len(t.b))] for t in p.trunks]
+    dlatent = torch.empty((p.c_pad, m), dtype=torch.float32, device=dev)
     desc = _descriptor(p, st, y, acts, lat, dy=dy, demb=demb, dtable=dtable, dmean=dmean,
-                       dxp=dxp, dyp=dyp, dpre=dpre, grads=grads, dx_last=dx_last)
+                       dxp=dxp, dyp=dyp, dpre=dpre, grads=grads, dx_last=dx_last,
+                       dlatent=dlatent)
     _run("pixel_train_bwd", _lib().pixel_train_bwd, dev, desc.ctypes.data, int(desc.size),
          float(np.float32(1.0 / st.keep)))
     pixel_train_decode_backward.launches += 1

@@ -33,6 +33,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from alignsdf_torch.kernels.grid_decoder import TC_GROUP, TC_MAX_OUT, tile_weights
+
 PAD = 256         # hidden widths pad to the kernel's output chunk
 EMB_MAX = 64      # embedding columns a trunk may read
 MAX_LAYERS = 10
@@ -164,11 +166,12 @@ class _Packed(NamedTuple):
 
     emb_t: torch.Tensor                 # (e, M)
     w: List[Optional[torch.Tensor]]     # hidden (in_pad, out_pad); last (in_pad, n_out)
-    wt: List[Optional[torch.Tensor]]    # transposes of w
+    wt: List[Optional[torch.Tensor]]    # the last layer's transpose of w (the forward's)
     x: List[Optional[torch.Tensor]]     # (e, out_pad)
     b: List[torch.Tensor]               # (B, out_pad) or (out_pad,)
     out_pads: List[int]
     n_scenes: int
+    chain: torch.Tensor                 # the backward chain's weight tiles (chain_stream)
 
 
 def _pad2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -202,26 +205,55 @@ def _check(emb, ws, xs, bs, st: TrainStatics) -> Tuple[int, int]:
     return n_out, n_scenes
 
 
+def chain_tiles(*weights: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """One hidden layer's weight tiles for the backward's reverse chain
+    (``csrc/chain_tc.cuh``): the padded weights that read the layer's
+    inputs, each (rows, out_pad) -- W on its activation, K4's Lat on the
+    latent -- transposed and side by side as the (out_pad, cols) B of dx =
+    dpre @ B, split and tiled by ``tile_weights`` with the layer's out_pad
+    as the depth (the chain's dx rows, then its dlat rows).  None where
+    the layer has none."""
+    parts = [w.T for w in weights if w is not None]
+    if not parts:
+        return None
+    b = torch.cat(parts, dim=1)
+    if b.shape[0] > TC_MAX_OUT or b.shape[1] > TC_MAX_OUT or b.shape[1] % TC_GROUP:
+        raise ValueError(f"the backward chain takes layers of at most {TC_MAX_OUT} features "
+                         f"each way, got ({b.shape[0]}, {b.shape[1]})")
+    return tile_weights(b, b.shape[0], b.shape[1])
+
+
+def chain_stream(runs: Sequence[Optional[torch.Tensor]], device: torch.device) -> torch.Tensor:
+    """The chain's tile runs (``chain_tiles``, in the order the chain reads
+    them: each trunk's from its last hidden layer down) as one stream."""
+    runs = [r for r in runs if r is not None]
+    return torch.cat(runs) if runs else torch.zeros(0, dtype=torch.float32, device=device)
+
+
 def pack_trunk(emb, ws, xs, bs, st: TrainStatics) -> _Packed:
     """Padded, contiguous copies of one trunk's operands (detached) for the
-    kernels; raises on what they do not take."""
+    kernels, and the backward chain's tiles; raises on what they do not
+    take."""
     n_out, n_scenes = _check(emb, ws, xs, bs, st)
     n_layers = len(bs)
-    w, wt, x, b, out_pads = [], [], [], [], []
+    w, x, b, out_pads = [], [], [], []
     in_pad = 0
     for layer in range(n_layers):
         out = bs[layer].shape[-1]
         out_pad = n_out if layer == n_layers - 1 else _round_up(out, PAD)
-        wl = None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad)
-        w.append(wl)
-        wt.append(None if wl is None else wl.T.contiguous())
+        w.append(None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad))
         x.append(None if xs[layer] is None else _pad2(xs[layer], emb.shape[1], out_pad))
         bl = bs[layer]
         b.append(_pad2(bl, bl.shape[0], out_pad) if bl.dim() == 2
                  else _pad2(bl[None], 1, out_pad)[0])
         out_pads.append(out_pad)
         in_pad = out_pad
-    return _Packed(emb.T.contiguous(), w, wt, x, b, out_pads, n_scenes)
+    if max(out_pads[:-1]) > TC_MAX_OUT:
+        raise ValueError(f"the backward chain takes hidden widths up to {TC_MAX_OUT}")
+    wt = [None] * (n_layers - 1) + [w[-1].T.contiguous()]
+    chain = chain_stream([chain_tiles(w[layer]) for layer in range(n_layers - 2, 0, -1)],
+                         emb.device)
+    return _Packed(emb.T.contiguous(), w, wt, x, b, out_pads, n_scenes, chain)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -235,7 +267,7 @@ def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, demb=None, dpre=
     e, m = p.emb_t.shape
     desc = [n_layers, p.out_pads[-1], e, m, st.n_per_scene, p.n_scenes,
             _ptr(p.emb_t), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dx_last),
-            0 if dx_last is None else dx_last.shape[1]]
+            0 if dx_last is None else dx_last.shape[1], _ptr(p.chain), p.chain.numel()]
     in_pad = 0
     for layer in range(n_layers):
         dw, dx, db = grads[layer] if grads is not None else (None, None, None)
@@ -295,10 +327,11 @@ def train_decode_forward(p: _Packed, seed: int, st: TrainStatics):
 def train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
                           acts: List[torch.Tensor], dy: torch.Tensor,
                           dx_last: Optional[torch.Tensor] = None):
-    """K2 backward on the card: the reverse chain per point tile (adding
-    ``dx_last`` (M, h), if given, to the final layer's input gradient, then
-    writing each layer's pre-activation gradient and d(emb)), then per layer
-    the weight, inject-weight and bias reductions over all M points.
+    """K2 backward on the card: the reverse chain per 64-point tile on the
+    tensor cores (adding ``dx_last`` (M, h), if given, to the final layer's
+    input gradient, then writing each layer's pre-activation gradient and
+    d(emb)), then per layer the weight, inject-weight and bias reductions
+    over all M points.
     Returns (demb (M, e), [(dW | None, dX | None, db)] padded)."""
     e, m = p.emb_t.shape
     dev = p.emb_t.device

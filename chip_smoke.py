@@ -42,7 +42,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      beside both bounds (split TF32 on the tensor cores, K1's arithmetic
      since it moved there, and the CUDA cores' float32); K2 forward and
      backward per step (both trunks, 64 x 2000) against their plain
-     versions and bounds, and the backward's weight-gradient reductions
+     versions and both bounds, the backward's chain kernel (csrc/chain_tc.cuh
+     on the tensor cores) timed apart by the profiler beside both bounds of
+     its work, and the backward's weight-gradient reductions
      alone (csrc/wgrad_tc.cuh, through kernels/weight_grad.py on seeded
      operands of their shapes: each route's time, both bounds,
      torch.matmul(A, B.T) with TF32 off beside);
@@ -66,10 +68,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      cli/train.make_trainer as in 7 (K4's launch counts, losses, ms/step,
      time by phase and peak memory, one step two ways with gradients to
      1e-2 of their largest entry, 2 profiled steps);
-     K4 forward and backward per step against the plain versions and the
+     K4 forward and backward per step against the plain versions and both
      bounds, with F.grid_sample's forward and backward at the step's points
-     as yardsticks of the sampling alone, and the backward's reductions
-     alone as for K2;
+     as yardsticks of the sampling alone, and the backward's chain and
+     reductions alone as for K2;
  11. classifier: the labelled DexYCB full model (experiments/dexycb_140k.json
      with --mano --obj_pose --encode both --point_size 9 --cls) at full
      width, seeded weights with the final biases shifted as in 5 and the
@@ -97,7 +99,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      pass at C = 6 and K4's with x_last;
  13. generic serving and training (latent_in (0, 2)) through K6 (on the
      tensor-core trunk: its time per 128^3 pass beside both bounds and the
-     plan's build time) and K5 (its reductions alone as for K2);
+     plan's build time) and K5 (its chain and reductions alone as for K2);
  14. K7, the stem max pool 3x3 / stride 2 / pad 1, against its plain
      version on post-ReLU inputs with flat positive blocks and zero rows, at
      the train shape (64, 64, 128, 128) and serving's batch 1, in the
@@ -177,16 +179,18 @@ TWO_WAYS_GRAD_RTOL_K4 = 1e-2
 K2_FWD_KERNELS = ("train_fwd_kernel",)
 # the weight-gradient reduction's two kernels, wgrad_tc_kernel and
 # wgrad_tc_kernel_n128 (csrc/wgrad_tc.cuh), share the prefix
-K2_BWD_KERNELS = ("train_bwd_chain_kernel", "wgrad_tc_kernel", "colsum_kernel")
+K2_BWD_KERNELS = ("train_bwd_chain_tc_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K4_TOL = 1e-4
 K4_FWD_KERNELS = ("pixel_train_fwd_kernel",)
-K4_BWD_KERNELS = ("pixel_train_bwd_chain_kernel", "wgrad_tc_kernel", "colsum_kernel")
+K4_BWD_KERNELS = ("pixel_train_bwd_chain_tc_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K5_TOL = 1e-4
 K5_FWD_KERNELS = ("generic_train_fwd_kernel",)
 K5_BWD_KERNELS = ("generic_train_bwd_chain_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K6_TOL = 1e-4
 TC_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_tc.cuh"  # K1's, K3's and K6's trunk
 WGRAD_SOURCE = "alignsdf_torch/kernels/csrc/wgrad_tc.cuh"  # K2's, K4's and K5's dW reduction
+CHAIN_SOURCE = "alignsdf_torch/kernels/csrc/chain_tc.cuh"  # K2's and K4's backward chain
+CHAIN_PROFILED = 3  # backward calls under the profiler that times a chain apart
 K7_SHAPES = {"train": (TRAIN_SCENES, 64, 128, 128), "serving": (1, 64, 128, 128)}
 K7_GRAD_TOL = 1e-5
 K7_FWD_KERNELS = ("maxpool_fwd_kernel",)
@@ -305,7 +309,7 @@ def k1_flops_per_point(specs) -> int:
 
 
 def grid_bounds(flops: float, nbytes: float) -> dict:
-    """K1's and K3's bounds at float32 accuracy: ``bound_ms`` is split
+    """A kernel's bounds at float32 accuracy: ``bound_ms`` is split
     TF32's (3 x the FLOPs at the tensor cores' dense TF32 rate, or the
     bytes at HBM's rate if larger); ``float32_bound_ms`` beside it is the
     CUDA cores' (the FLOPs at the float32 rate)."""
@@ -404,6 +408,48 @@ def k2_work(ws, xs, bs, m: int, e: int, out_pads):
     # in: dy, y, residuals, emb, weights; out: d(emb), every gradient
     bwd_bytes = 4 * (2 * n_out * m + resid + m * e + params + m * e + params)
     return 2 * macs * m, 4 * macs * m, fwd_bytes, bwd_bytes
+
+
+def k2_chain_work(ws, xs, m: int, e: int, out_pads):
+    """(FLOPs, bytes) of a K2-convention backward's chain kernel over one
+    trunk: its products are the forward's (dx through every W, d(input)
+    through every X), 2 per multiply-add at the true widths; bytes: y, dy,
+    the residuals and the weights read once, every layer's pre-activation
+    gradient (padded) and d(input) written once."""
+    macs = sum(t.numel() for t in [*ws, *xs] if t is not None)
+    n_out = out_pads[-1]
+    return 2 * macs * m, 4 * (2 * n_out * m + sum(out_pads[:-1]) * m + macs
+                              + sum(out_pads) * m + m * e)
+
+
+def chain_timing(label: str, chain_kernel: str, bwd, flops: float, nbytes: float,
+                 card: str) -> Optional[dict]:
+    """A backward's chain kernel timed apart: its device time per call from
+    torch.profiler over CHAIN_PROFILED calls of ``bwd`` (after one warm-up),
+    beside the split-TF32 and float32 bounds of its work; None where the
+    profiler saw no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(CHAIN_PROFILED):
+            bwd()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = profile_summary(prof, wall)
+    if summary is None:
+        print(f"{label} chain: not measured (the profiler recorded no device events)", flush=True)
+        return None
+    ms = sum(v for k, v in summary[2].items() if k.startswith(chain_kernel)) / CHAIN_PROFILED
+    rec = {"kernel": chain_kernel, "ms": ms, **grid_bounds(flops, nbytes), "tflop": flops / 1e12,
+           "gbytes": nbytes / 1e9, "tflops": flops / ms / 1e9 if ms > 0 else None}
+    print(f"[{card}] {label} backward's chain ({chain_kernel}, profiler, {CHAIN_PROFILED} calls): "
+          f"{ms:.2f} ms a step ({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB, "
+          f"{flops / ms / 1e9 if ms > 0 else 0.0:.1f} TFLOP/s), {bounds_text(rec)}", flush=True)
+    return rec
 
 
 def k2_operands(model, specs, latent, emb):
@@ -796,12 +842,16 @@ def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
     work = [k2_work(ws, xs, bs, m, e.shape[1], p.out_pads)
             for (_, _, e, ws, xs, bs), p in zip(trunks, packs)]
     fwd_flops, bwd_flops, fwd_bytes, bwd_bytes = (sum(w[i] for w in work) for i in range(4))
+    chain = [k2_chain_work(ws, xs, m, e.shape[1], p.out_pads)
+             for (_, _, e, ws, xs, bs), p in zip(trunks, packs)]
+    chain_flops, chain_bytes = (sum(c[i] for c in chain) for i in range(2))
     saved = kern.fwd.launches, kern.bwd.launches
     outs = [kern.forward(p, t[1], st) for p, t in zip(packs, trunks)]
     dys = [torch.randn(tuple(y.shape), generator=gen).to(dev) for y, _ in outs]
     dxls = [torch.randn((m, t[5][-2].shape[-1]), generator=gen).to(dev) if x_last and i == 0
             else None for i, t in enumerate(trunks)]
     bwd_bytes += sum(4 * d.numel() for d in dxls if d is not None)
+    chain_bytes += sum(4 * d.numel() for d in dxls if d is not None)
 
     def fwd_kernel():
         for p, t in zip(packs, trunks):
@@ -832,17 +882,18 @@ def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
         k_ms = cuda_ms(kfn, 5)        # kernel, plain, kernel: in turns on one card
         p_ms = cuda_ms(plain, 5)
         k_ms2 = cuda_ms(kfn, 5)
-        ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         best = min(k_ms, k_ms2)
         res[name] = {"ms": best, "ms_runs": [k_ms, k_ms2], "plain_ms": p_ms,
-                     "bound_ms": max(ops_ms, mem_ms),
-                     "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                     **grid_bounds(flops, nbytes),
                      "tflop": flops / 1e12, "gbytes": nbytes / 1e9, "tflops": flops / best / 1e9}
         print(f"[{card}] {kern.name}{' with x_last' if x_last else ''} {name} per step "
               f"({len(trunks)} trunks x {m} points, {trunks[0][2].shape[1]} input columns, "
               f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB): kernel {k_ms:.2f} / "
-              f"{k_ms2:.2f} ms ({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, bound "
-              f"{res[name]['bound_ms']:.2f} ms ({res[name]['bound_by']})", flush=True)
+              f"{k_ms2:.2f} ms ({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, "
+              f"{bounds_text(res[name])}", flush=True)
+    res["bwd"]["chain"] = chain_timing(
+        f"{kern.name}{' with x_last' if x_last else ''}", kern.bwd_kernels[0], bwd_kernel,
+        chain_flops, chain_bytes, card)
     kern.fwd.launches, kern.bwd.launches = saved
     res["bwd"]["reduction"] = reduction_timing(kern.name, [s for p in packs
                                                             for s in wgrad_shapes(p)], m, dev, card)
@@ -921,17 +972,27 @@ def reduction_timing(name: str, shapes, m: int, dev, card: str) -> dict:
     return rec
 
 
-def reduction_entry(t: dict) -> dict:
-    """A backward's kernels-line entry: its weight-gradient reduction per
-    step on its own (the kernel's source, its measured times by route and
-    torch.matmul's, its split-TF32 bound), or {} for a forward."""
+def backward_entry(t: dict) -> dict:
+    """A backward's kernels-line entries for its parts, or {} for a
+    forward: its chain kernel timed apart (the source of its tensor-core
+    design, where it has one: K2's and K4's; its time and split-TF32
+    bound) and its weight-gradient reduction per step on its own (the
+    kernel's source, its measured times by route and torch.matmul's, its
+    split-TF32 bound)."""
     r = t.get("reduction")
     if r is None:
         return {}
-    return {"weight_grad_reduction": {
+    out = {"weight_grad_reduction": {
         "source": WGRAD_SOURCE, "ms": r["ms"], "route_ms": r["route_ms"],
         "library_ms": r["library_ms"], "library_call": r["library"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}}
+    c = t.get("chain")
+    if c is not None:
+        out["chain"] = {"kernel": c["kernel"], "ms": c["ms"], "bound_ms": c["bound_ms"],
+                        "bound_by": c["bound_by"]}
+        if c["kernel"] in (K2_BWD_KERNELS[0], K4_BWD_KERNELS[0]):
+            out["chain"]["source"] = CHAIN_SOURCE
+    return out
 
 
 def k3_flops(specs, points: int, sampled: int) -> int:
@@ -1279,6 +1340,28 @@ def k4_work(inputs, trunks, packed) -> Tuple[int, int, int, int]:
     return 2 * macs * m + taps, 4 * macs * m + 2 * taps, fwd_bytes, bwd_bytes
 
 
+def k4_chain_work(inputs, trunks, packed) -> Tuple[int, int]:
+    """(FLOPs, bytes) of K4's backward chain kernel: the forward's products
+    (k4_work) and the sampling's taps twice (the d(table) scatter and the
+    dot products of d(pix)); bytes: y, dy, the residuals, the weights, the
+    table, xp, yp and the mask read once, every layer's pre-activation
+    gradient (padded), d(emb), d(table), d(mean), d(xp) and d(yp) written
+    once."""
+    table, mean, xp, yp, mask, emb = inputs
+    m, e = emb.shape
+    fwd_flops, bwd_flops, _, _ = k4_work(inputs, trunks, packed)
+    n_rows = sum(b[-1].shape[-1] for *_, b in trunks)
+    weights = sum(t.numel() for ws, lats, xs, _ in trunks for t in [*ws, *lats, *xs]
+                  if t is not None)
+    acts = sum(sum(t.out_pads[:-1]) for t in packed.trunks) * m
+    dpre = sum(sum(t.out_pads) for t in packed.trunks) * m
+    nbytes = 4 * (2 * n_rows * m + acts + weights + table.numel() + 3 * m
+                  + dpre + m * e + table.numel() + mean.numel() + 2 * m)
+    taps = 2 * 16 * table.shape[2] * int(mask.sum())  # one pass over the taps (k4_work's)
+    # the backward's products (dx and dW) less dW's: the forward's again
+    return (bwd_flops - fwd_flops) + taps, nbytes
+
+
 def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False):
     """K4 forward and backward per step (both trunks) against their plain
     versions and bounds, and F.grid_sample forward and backward at the
@@ -1299,12 +1382,14 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False
     saved = pixel_train_decode.launches, pixel_train_decode_backward.launches
     packed = pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st)
     fwd_flops, bwd_flops, fwd_bytes, bwd_bytes = k4_work(inputs, trunks, packed)
+    chain_flops, chain_bytes = k4_chain_work(inputs, trunks, packed)
     y, acts, lat = pixel_train_decode_forward(packed, seed, st)
     dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
     dxl = (torch.randn((m, trunks[0][3][-2].shape[-1]), generator=gen).to(dev) if x_last
            else None)
     if dxl is not None:
         bwd_bytes += 4 * dxl.numel()
+        chain_bytes += 4 * dxl.numel()
     unpadded = [[a[:b.shape[-1]].T for a, b in zip(at, tr[3])] for at, tr in zip(acts, trunks)]
 
     def fwd_kernel():
@@ -1344,19 +1429,20 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False
         p_ms = cuda_ms(plain, 3)
         k_ms2 = cuda_ms(kern, 5)
         lib_ms = cuda_ms(lib, 5)
-        ops_ms, mem_ms = flops / FP32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         best = min(k_ms, k_ms2)
         res[name] = {"ms": best, "ms_runs": [k_ms, k_ms2], "plain_ms": p_ms,
-                     "library_ms": lib_ms, "bound_ms": max(ops_ms, mem_ms),
-                     "bound_by": "operations" if ops_ms >= mem_ms else "bytes",
+                     "library_ms": lib_ms, **grid_bounds(flops, nbytes),
                      "tflop": flops / 1e12, "gbytes": nbytes / 1e9, "tflops": flops / best / 1e9}
         print(f"[{card}] K4{' with x_last' if x_last else ''} {name} per step ({len(trunks)} "
               f"trunks x {m} points, "
               f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB): kernel {k_ms:.2f} / "
-              f"{k_ms2:.2f} ms ({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, bound "
-              f"{res[name]['bound_ms']:.2f} ms ({res[name]['bound_by']}); F.grid_sample "
+              f"{k_ms2:.2f} ms ({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, "
+              f"{bounds_text(res[name])}; F.grid_sample "
               f"{'forward' if name == 'fwd' else 'backward'} (sampling only) {lib_ms:.2f} ms",
               flush=True)
+    res["bwd"]["chain"] = chain_timing(f"K4{' with x_last' if x_last else ''}",
+                                       K4_BWD_KERNELS[0], bwd_kernel, chain_flops, chain_bytes,
+                                       card)
     pixel_train_decode.launches, pixel_train_decode_backward.launches = saved
     res["bwd"]["reduction"] = reduction_timing("K4", wgrad_shapes(packed), m, dev, card)
     return res
@@ -1426,7 +1512,7 @@ def pixel_train_phase(dev, card: str, gen):
             "library_ms": t["library_ms"],
             "library_call": (f"F.grid_sample bicubic {'forward' if name == 'fwd' else 'backward'}"
                              " at the step's points (the sampling step only)"),
-            **reduction_entry(t),
+            **backward_entry(t),
         })
     return rec, entries
 
@@ -2129,7 +2215,7 @@ def generic_train_phase(dev, card: str, gen):
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
-            **reduction_entry(t),
+            **backward_entry(t),
         })
     return rec, entries
 
@@ -2893,7 +2979,7 @@ def main(record_path: Optional[str] = None) -> None:
             "library_ms": None,
             "classifier_x_last": {"ms": c2["ms"], "plain_ms": c2["plain_ms"],
                                   "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"]},
-            **reduction_entry(t2),
+            **backward_entry(t2),
         })
     pt = pcls["grid_timing"]
     kernels["kernels"].append(dict(

@@ -1,7 +1,8 @@
 """Kernels K1, K2, K3, K4, K5, K6 and K7 on the card against their plain
 versions (K1, K3 and K6 with the classifier's rows, K2, K4 and K5 with
-x_last / dx_last, K7 forward and backward on tied inputs), and the train
-backwards' weight-gradient reduction against float64.  Needs a CUDA GPU and skips without one; it imports no
+x_last / dx_last, K7 forward and backward on tied inputs), and against
+float64 the train backwards' weight-gradient reduction and K2's and K4's
+whole backwards (their chains on the tensor cores).  Needs a CUDA GPU and skips without one; it imports no
 JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -568,6 +569,153 @@ def test_cuda_generic_kernel_matches_plain(model_type, style, pfs, latent_in, nu
             assert k.shape == r.shape == d.shape
             assert float((k - r).abs().max()) <= tol
             assert float((k - d).abs().max()) <= tol
+
+
+def _f64(ts):
+    return [None if t is None else t.double() for t in ts]
+
+
+def _within(grads, refs, bound):
+    """Each gradient within ``bound`` of its float64 reference's largest
+    entry; returns the worst share."""
+    worst = 0.0
+    for g, r in zip(grads, refs):
+        assert g.shape == r.shape
+        worst = max(worst, float((g.double() - r).abs().max()) / (float(r.abs().max()) + 1e-30))
+    assert worst <= bound, worst
+    return worst
+
+
+# The train backwards against float64 at a step's 64 x 2000 points: the
+# kernels' contract, 1e-4 of each gradient's largest entry.  The chain and
+# the reductions run split TF32 (float32's accuracy); the tensor cores'
+# float32 accumulation over the reductions' 2,048-point chunks errs by
+# ~2e-5 of the largest entry at this size, the plain float32 backward by
+# ~1e-6, and a chain in one TF32 pass by ~5e-4 (tests/test_torch_split_tf32.py).
+CHAIN_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,classifier", [("1encoder2decoder", False),
+                                                   ("1encoder2decoder", True),
+                                                   ("1encoder1decoder", False)],
+                         ids=["flagship", "dx_last", "combined"])
+def test_cuda_train_chain_matches_float64(model_type, classifier):
+    """K2's backward (the reverse chain on the tensor cores, then the
+    reductions) at the flagship width on 64 x 2000 points, each trunk
+    against the plain backward in float64 fed the kernel's own residuals
+    (with a random dx_last on the classifier's trunk): every gradient within
+    CHAIN_TOL of its largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(21)
+    scenes, n = 64, 2000
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9, latent_size=256,
+                  samples_per_scene=n, classifier_branch=classifier,
+                  network_specs=NetworkSpecs())
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(21)
+        decoder = make_decoder(model_type, 256, 9, "both", specs.network_specs,
+                               use_classifier=classifier).cuda()
+    latent = torch.randn(scenes, 256, generator=gen).cuda()
+    emb = (torch.randn(scenes * n, 9, generator=gen) * 0.5).cuda()
+    st = make_train_decoder(specs).statics
+    first, second = trunk_prefixes(decoder)
+    cols_h, cols_o = branch_columns(specs)
+    trunks = ([(first, cols_h, 5, 1), (second, cols_o, 6, 1)] if second
+              else [(first, cols_h, 5, 2)])
+    for i, (prefix, cols, seed, out_dim) in enumerate(trunks):
+        with torch.no_grad():
+            ws, xs, bs = trunk_operands(decoder, prefix, len(cols), latent, specs, out_dim)
+            e = emb[:, list(cols)].contiguous()
+            pack = pack_trunk(e, ws, xs, bs, st)
+            y, acts = train_decode_forward(pack, seed, st)
+            dy = torch.randn(y.shape, generator=gen).cuda()
+            dxl = (torch.randn(e.shape[0], bs[-2].shape[-1], generator=gen).cuda()
+                   if classifier and i == 0 else None)
+            before = train_decode_backward.launches
+            demb, grads = train_decode_backward(pack, st, y, acts, dy, dxl)
+            torch.cuda.synchronize()
+            assert train_decode_backward.launches == before + 1
+            acts = [a[:b.shape[-1]].T for a, b in zip(acts, bs)]
+            got = [demb, *flatten_params(
+                [None if w is None else g[0][:w.shape[0], :w.shape[1]] for w, g in zip(ws, grads)],
+                [None if x is None else g[1][:, :x.shape[1]] for x, g in zip(xs, grads)],
+                [g[2][..., :b.shape[-1]] for b, g in zip(bs, grads)])]
+            exact = train_decode_backward_reference(
+                e.double(), _f64(ws), _f64(xs), _f64(bs), st, y.double(), _f64(acts),
+                dy.double(), None if dxl is None else dxl.double())
+            ref = [exact[0], *flatten_params(*exact[1:])]
+            _within(got, ref, CHAIN_TOL)
+            plain = train_decode_backward_reference(e, ws, xs, bs, st, y, acts, dy, dxl)
+            _within([plain[0], *flatten_params(*plain[1:])], ref, CHAIN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,classifier", [("1encoder2decoder", False),
+                                                   ("1encoder2decoder", True),
+                                                   ("1encoder1decoder", False)],
+                         ids=["pa_feat", "dx_last", "combined"])
+def test_cuda_pixel_train_chain_matches_float64(model_type, classifier):
+    """K4's backward (the reverse chain with the latent's gradient on the
+    tensor cores, the tap stage, the reductions) at the flagship --pa_feat
+    width (C = 256, a 64 x 64 map) on 64 x 2000 points, part of them outside
+    the image, against the plain backward in float64 fed the kernel's own
+    residuals (with a random dx_last on the classifier's trunk): every
+    gradient, d(table), d(mean), d(xp), d(yp) and d(emb) within CHAIN_TOL of
+    its largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(22)
+    scenes, n, c, hw = 64, 2000, 256, (64, 64)
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9, latent_size=c,
+                  pixel_align=True, samples_per_scene=n, sdf_scale_factor=7.0,
+                  image_size=(256, 256), classifier_branch=classifier,
+                  network_specs=NetworkSpecs())
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(22)
+        decoder = make_decoder(model_type, c, 9, "both", specs.network_specs,
+                               use_classifier=classifier).cuda()
+    m = scenes * n
+    fmap = (torch.randn(scenes, c, *hw, generator=gen) * 0.5).cuda()
+    emb = (torch.randn(m, 9, generator=gen) * 0.5).cuda()
+    xyz = (torch.randn(m, 3, generator=gen) * 0.5).cuda()
+    cam = torch.tensor([[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]]).repeat(scenes, 1, 1)
+    root = torch.tensor([[[0.01, -0.02, 0.6]]]).repeat(scenes, 1, 1)
+    st = make_pixel_train_decoder(specs).statics._replace(feat_hw=hw)
+    with torch.no_grad():
+        table, mean, xp, yp, mask = pixel_train_inputs(fmap, xyz, cam.cuda(), root.cuda(), specs)
+        trunks = pixel_trunks(decoder, specs, c)
+        assert 0.0 < float(mask.mean()) < 1.0
+        pack = pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st)
+        y, acts, lat = pixel_train_decode_forward(pack, 9, st)
+        dy = torch.randn(y.shape, generator=gen).cuda()
+        dxl = (torch.randn(m, trunks[0][3][-2].shape[-1], generator=gen).cuda() if classifier
+               else None)
+        before = pixel_train_decode_backward.launches
+        dtable, dmean, dxp, dyp, demb, grads = pixel_train_decode_backward(
+            pack, st, y, acts, lat, dy, dxl)
+        torch.cuda.synchronize()
+        assert pixel_train_decode_backward.launches == before + 1
+        got = [dtable, dmean, dxp, dyp, demb]
+        for (ws, lats, xs, bs), g in zip(trunks, grads):
+            got += [dw[:w.shape[0], :w.shape[1]] for w, (dw, _, _, _) in zip(ws, g) if w is not None]
+            got += [dl[:c, :t.shape[1]] for t, (_, dl, _, _) in zip(lats, g) if t is not None]
+            got += [dx[:, :t.shape[1]] for t, (_, _, dx, _) in zip(xs, g) if t is not None]
+            got += [db[:b.shape[-1]] for b, (_, _, _, db) in zip(bs, g)]
+        acts = [[a[:b.shape[-1]].T for a, b in zip(at, tr[3])] for at, tr in zip(acts, trunks)]
+        exact = pixel_train_decode_backward_reference(
+            table.double(), mean.double(), xp.double(), yp.double(), mask, emb.double(),
+            [tuple(_f64(group) for group in tr) for tr in trunks], st, y.double(),
+            [_f64(at) for at in acts], lat[:c].T.double(), dy.double(),
+            None if dxl is None else dxl.double())
+        ref = [*exact[:5], *flatten_pixel_params(exact[5])]
+        _within(got, ref, CHAIN_TOL)
+        plain = pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb, trunks, st,
+                                                      y, acts, lat[:c].T, dy, dxl)
+        _within([*plain[:5], *flatten_pixel_params(plain[5])], ref, CHAIN_TOL)
 
 
 @pytest.mark.cuda

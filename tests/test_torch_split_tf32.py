@@ -1,7 +1,8 @@
-"""The tensor-core trunk of kernels K1, K3 and K6 (csrc/grid_trunk_tc.cuh)
-and the train backwards' weight-gradient reduction (csrc/wgrad_tc.cuh) on
-the CPU: why their split-TF32 products meet the kernels' float32 contract,
-and the plans' tiled, split weight layout.
+"""The tensor-core trunk of kernels K1, K3 and K6 (csrc/grid_trunk_tc.cuh),
+the train backwards' reverse chain of K2 and K4 (csrc/chain_tc.cuh) and
+their weight-gradient reduction (csrc/wgrad_tc.cuh) on the CPU: why their
+split-TF32 products meet the kernels' float32 contract, and the plans' and
+packs' tiled, split weight layout.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py).
 Here TF32 is emulated with bit arithmetic on float32 (round to nearest,
@@ -392,3 +393,152 @@ def test_generic_plan_refuses_input_terms_on_class_rows():
     bad = trunk._replace(fin_x=torch.ones_like(trunk.fin_x))
     with pytest.raises(ValueError, match="class rows"):
         pack_generic_plan([bad], (20,))
+
+
+def _chain(layers, gates, dpre, product, dtype=torch.float32):
+    """The train backwards' reverse chain (csrc/chain_tc.cuh) from the final
+    layer's pre-activation gradient ``dpre`` (P, n_out) down to layer 0's:
+    dx = product(dpre, W^T) (float64 out), rounded once to ``dtype`` as
+    the tensor cores' float32 accumulators hold it, then gated by the
+    recovered gate of the layer's input."""
+    for (w, _), gate in zip(layers[:0:-1], gates[::-1]):
+        dpre = product(dpre, w.T).to(dtype) * gate.to(dtype)
+    return dpre.double()
+
+
+def test_split_tf32_chain_meets_float32_accuracy_one_pass_does_not():
+    """Why the backward chains of K2 and K4 run three TF32 products a
+    multiply-add, as the forward trunk does: at the flagship trunk's widths
+    (dx = dpre W^T through 512 -> 512 -> 250 -> 512, each gated by its
+    input's ReLU) the split chain's layer-0 gradient is within 1e-6 of the
+    largest entry of the float64 chain's and no worse than twice float32's
+    own error (1.7e-7 against 4.7e-7 here), while one TF32 pass errs by more
+    than 1e-5 of it (5.0e-4 here, over the gradients' 1e-4 tolerance)."""
+    layers, x = _trunk(5)
+    gates, a = [], x.double()
+    for w, b in layers[:-1]:
+        a = torch.relu(a @ w.double() + b.double())
+        gates.append((a > 0).double())
+    y = torch.tanh(a @ layers[-1][0].double() + layers[-1][1].double())
+    dy = torch.tensor(np.random.RandomState(6).randn(POINTS, 1))
+    dpre = (dy * (1 - y * y)).float()
+    exact = _chain([(w.double(), b) for w, b in layers], gates, dpre.double(),
+                   lambda d, w: d.double() @ w, torch.float64)
+    scale = float(exact.abs().max())
+    err = {name: float((_chain(layers, gates, dpre, fn) - exact).abs().max()) / scale
+           for name, fn in (("float32", _float32), ("split", _split), ("one_pass", _one_pass))}
+    assert err["split"] <= 1e-6, err
+    assert err["split"] <= 2 * err["float32"], err
+    assert err["one_pass"] > 1e-5, err
+
+
+CHAIN_SCENES, CHAIN_POINTS = 2, 512  # 1,024 points
+
+
+def _chain_specs(model_type, classes, pixel):
+    from alignsdf_torch.config import NetworkSpecs, Specs
+
+    c = 256
+    return Specs(model_type=model_type, encode_style="both", point_feat_size=9, latent_size=c,
+                 pixel_align=pixel, samples_per_scene=CHAIN_POINTS, sdf_scale_factor=7.0,
+                 image_size=(256, 256), classifier_branch=classes > 0,
+                 network_specs=NetworkSpecs(num_class=max(classes, 6)))
+
+
+def _chain_runs(stream, layers):
+    """Slice the chain's stream into its runs, one per (out_pad, [W (in_pad,
+    out_pad) | None, Lat (c_pad, out_pad) | None]) of ``layers`` in order,
+    and check that each run untiles to [W^T | Lat^T], their TF32 halves
+    summed; the stream holds nothing else."""
+    pos = 0
+    for out_pad, mats in layers:
+        mats = [t for t in mats if t is not None]
+        cols = sum(t.shape[0] for t in mats)
+        assert cols % TC_GROUP == 0 and out_pad % TC_K == 0
+        # the kernel's count of this layer's tiles, two halves of TC_TILE floats each
+        size = out_pad // TC_K * (cols // TC_GROUP) * 2 * TC_GROUP * TC_K
+        run = untile_weights(stream[pos:pos + size], out_pad, cols)
+        col = 0
+        for t in mats:
+            assert _padded_equal(run[:, col:col + t.shape[0]], t.T, split=True)
+            col += t.shape[0]
+        pos += size
+    assert pos == stream.numel()
+
+
+@pytest.mark.parametrize("model_type,classes", [("1encoder2decoder", 0),
+                                                ("1encoder1decoder", 0),
+                                                ("1encoder2decoder", 6)])
+def test_k2_chain_tiles_view_back_the_transposed_weights(model_type, classes):
+    """K2's pack at the flagship widths (the twin trunks, a combined trunk,
+    the classifier's trunk): the backward chain's tile stream, run by run
+    from the last hidden layer down, untiles to each layer's W^T (in_pad
+    outputs of depth out_pad); layer 0 reads no activation and has none.
+    Only the final layer keeps a plain transpose (the forward's)."""
+    from alignsdf_torch.kernels.train_decoder import pack_trunk
+    from alignsdf_torch.models.decoder import make_decoder, trunk_prefixes
+    from alignsdf_torch.ops.grid_plan import branch_columns
+    from alignsdf_torch.ops.train_plan import make_train_decoder, trunk_operands
+
+    specs = _chain_specs(model_type, classes, False)
+    gen = torch.Generator().manual_seed(11)
+    with torch.random.fork_rng():
+        torch.manual_seed(11)
+        decoder = make_decoder(model_type, 256, 9, "both", specs.network_specs,
+                               use_classifier=classes > 0)
+    latent = torch.randn(CHAIN_SCENES, 256, generator=gen)
+    emb = torch.randn(CHAIN_SCENES * CHAIN_POINTS, 9, generator=gen)
+    st = make_train_decoder(specs).statics
+    first, second = trunk_prefixes(decoder)
+    cols = branch_columns(specs)
+    trunks = [(first, cols[0], 1), (second, cols[1], 1)] if second else [(first, cols[0], 2)]
+    for prefix, c, out_dim in trunks:
+        with torch.no_grad():
+            ws, xs, bs = trunk_operands(decoder, prefix, len(c), latent, specs, out_dim)
+            pack = pack_trunk(emb[:, list(c)].contiguous(), ws, xs, bs, st)
+        n = len(pack.b)
+        assert pack.out_pads[:-1] == [512, 256, 512, 512]
+        _chain_runs(pack.chain, [(pack.out_pads[layer], [pack.w[layer], None])
+                                 for layer in range(n - 2, 0, -1)])
+        assert all(t is None for t in pack.wt[:-1])
+        assert torch.equal(pack.wt[-1], pack.w[-1].T)
+
+
+@pytest.mark.parametrize("model_type,classes", [("1encoder2decoder", 0),
+                                                ("1encoder1decoder", 0),
+                                                ("1encoder2decoder", 6)])
+def test_k4_chain_tiles_view_back_the_transposed_weights(model_type, classes):
+    """K4's pack at the flagship --pa_feat widths (C = 256): each trunk's
+    runs, from the last hidden layer down, untile to [W^T | Lat^T] -- the
+    latent_in layer's dx and dlat outputs side by side, 256 + 256 of depth
+    512 -- and layer 0's to Lat^T alone, trunk after trunk."""
+    from alignsdf_torch.kernels.pixel_train_decoder import pack_pixel_trunks
+    from alignsdf_torch.models.decoder import make_decoder
+    from alignsdf_torch.ops.pixel_train_plan import (
+        make_pixel_train_decoder, pixel_train_inputs, pixel_trunks)
+
+    specs = _chain_specs(model_type, classes, True)
+    gen = torch.Generator().manual_seed(12)
+    with torch.random.fork_rng():
+        torch.manual_seed(12)
+        decoder = make_decoder(model_type, 256, 9, "both", specs.network_specs,
+                               use_classifier=classes > 0)
+    m = CHAIN_SCENES * CHAIN_POINTS
+    fmap = torch.randn(CHAIN_SCENES, 256, 8, 8, generator=gen)
+    xyz = torch.randn(m, 3, generator=gen) * 0.5
+    cam = torch.tensor([[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]])
+    root = torch.tensor([[[0.01, -0.02, 0.6]]]).repeat(CHAIN_SCENES, 1, 1)
+    st = make_pixel_train_decoder(specs).statics._replace(feat_hw=(8, 8))
+    with torch.no_grad():
+        inputs = pixel_train_inputs(fmap, xyz, cam.repeat(CHAIN_SCENES, 1, 1), root, specs)
+        pack = pack_pixel_trunks(*inputs, torch.randn(m, 9, generator=gen),
+                                 pixel_trunks(decoder, specs, 256), st)
+    assert pack.c_pad == 256 and len(pack.trunks) == (2 if model_type == "1encoder2decoder" else 1)
+    runs = []
+    for t in pack.trunks:
+        n = len(t.b)
+        assert t.out_pads[:-1] == [512, 256, 512, 512]
+        runs += [(t.out_pads[layer], [t.w[layer], t.lat[layer]]) for layer in range(n - 2, -1, -1)]
+        assert all(w is None for w in t.wt[:-1]) and torch.equal(t.wt[-1], t.w[-1].T)
+    assert [len([m for m in mats if m is not None]) for _, mats in runs[:4]] == [1, 2, 1, 1]
+    _chain_runs(pack.chain, runs)

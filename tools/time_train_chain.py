@@ -1,0 +1,250 @@
+"""Time the train backwards' reverse chains of kernels K2 and K4 on a CUDA
+card, per train step at the flagship widths over 64 scenes x 2000 points:
+each chain kernel's device time (torch.profiler over a few backward calls)
+and the whole backward's (CUDA events), beside the chain's split-TF32 and
+float32 bounds.  With --probes, the same for copies of the kernels built
+without parts of the chain (csrc/chain_tc.cuh's CH_PROBE: the products, the
+gate and dlat passes, d(emb), K4's tap stage), to time its phases apart,
+and for a copy that clocks each block's phases on its thread 0 (CH_PROBE
+32): each phase's share of the blocks' cycles.
+
+    python3 tools/time_train_chain.py [--repo DIR] [--probes] [--steps N] [--scenes 64]
+
+--steps N also times N train steps of the flagship and of --pa_feat
+through cli/train.make_trainer (after 2 warm-up steps, on one synthetic
+batch, as chip_smoke.py's train phases run them): the host clock a step,
+and the device's busy time and idle share over 2 steps under the profiler.
+
+--repo times the package of another checkout (for example a parent commit
+unpacked with git archive into a directory .gitignore lists) inside this
+script: the kernel names it profiles are prefixes that every version of the
+chains shares.  Operands are chip_smoke.py's (K2: seeded latents and
+embeddings on the flagship's trunks; K4: the encoder's HeadNet map and
+projection of a synthetic batch), on weights from seed 0.  Each line is
+printed with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TF32_PEAK_FLOPS, FP32_PEAK_FLOPS = 494.7e12, 67e12  # H100 SXM dense TF32, float32 (data sheet)
+PROBES = {1: "no products", 2: "no gate / dlat passes", 4: "no d(emb)", 8: "no tap stage",
+          15: "none of those", 64: "gates without loads", 128: "gates without stores"}
+CLOCKS = 32  # the CH_PROBE bit that clocks each block's phases
+PHASES = ("ring set-up", "final rows", "gates", "products", "d(emb)", "stores", "dlat", "taps")
+PROFILED = 3
+
+
+def bounds(flops: float) -> str:
+    return (f"split-TF32 bound {3 * flops / TF32_PEAK_FLOPS * 1e3:.2f} ms, float32 bound "
+            f"{flops / FP32_PEAK_FLOPS * 1e3:.2f} ms")
+
+
+def chain_ms(bwd, prefix: str) -> float:
+    """Device ms per call of the kernels whose names start with prefix."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED):
+            bwd()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.name.startswith(prefix))
+    return us / 1e3 / PROFILED
+
+
+def setups(cs, scenes: int, dev):
+    """{"K2": (backward of one step, chain kernel prefix, chain FLOPs), "K4": ...}."""
+    import torch
+
+    from alignsdf_torch.kernels.pixel_train_decoder import (
+        pack_pixel_trunks, pixel_train_decode_backward, pixel_train_decode_forward)
+    from alignsdf_torch.kernels.train_decoder import (
+        pack_trunk, train_decode_backward, train_decode_forward)
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.train_plan import make_train_decoder
+
+    gen = torch.Generator().manual_seed(cs.SEED)
+    specs = cs.flagship_specs()
+    model = build_model(specs, device=dev, seed=cs.SEED)
+    st = make_train_decoder(specs).statics
+    m = scenes * specs.samples_per_scene
+    latent = (torch.randn(scenes, specs.latent_size, generator=gen) * 0.5).to(dev)
+    emb = (torch.randn(m, specs.point_feat_size, generator=gen) * 0.5).to(dev)
+    trunks = cs.k2_operands(model, specs, latent, emb)
+    packs = [pack_trunk(e, ws, xs, bs, st) for _, _, e, ws, xs, bs in trunks]
+    outs = [train_decode_forward(p, t[1], st) for p, t in zip(packs, trunks)]
+    dys = [torch.randn(tuple(y.shape), generator=gen).to(dev) for y, _ in outs]
+    k2_flops = sum(2 * m * t.numel() for *_, ws, xs, _ in trunks for t in [*ws, *xs]
+                   if t is not None)
+
+    def k2_bwd():
+        for p, (y, acts), dy in zip(packs, outs, dys):
+            train_decode_backward(p, st, y, acts, dy)
+
+    pspecs = cs.flagship_specs(pixel=True)
+    pmodel = build_model(pspecs, device=dev, seed=cs.SEED)
+    inputs, ptrunks, pst, _ = cs.k4_operands(pmodel, pspecs, dev, scenes)
+    packed = pack_pixel_trunks(*inputs, ptrunks, pst)
+    y, acts, lat = pixel_train_decode_forward(packed, 7, pst)
+    dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
+    c, mask = inputs[0].shape[2], inputs[4]
+    k4_flops = (sum(2 * m * t.numel() for ws, lats, xs, _ in ptrunks for t in [*ws, *lats, *xs]
+                    if t is not None) + 2 * 2 * 16 * c * int(mask.sum()))
+
+    def k4_bwd():
+        pixel_train_decode_backward(packed, pst, y, acts, lat, dy)
+
+    return {"K2": (k2_bwd, "train_bwd_chain", k2_flops),
+            "K4": (k4_bwd, "pixel_train_bwd_chain", k4_flops)}
+
+
+def train_steps(cs, dev, steps: int, card: str, label: str) -> None:
+    """The flagship's and --pa_feat's train step: host ms a step over
+    ``steps`` steps, device busy ms and idle share over 2 profiled steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignsdf_torch.cli.train import make_trainer
+    from alignsdf_torch.data.synthetic import synthetic_train_batch
+    from alignsdf_torch.training.train_step import batch_to_device, draw_seed
+
+    for pixel in (False, True):
+        specs = cs.flagship_specs(pixel=pixel)
+        state, step = make_trainer(specs, dev, seed=cs.SEED, init_guard=True)
+        batch = batch_to_device(synthetic_train_batch(specs, cs.TRAIN_SCENES, seed=cs.SEED), dev)
+        gen = torch.Generator().manual_seed(cs.SEED)
+        for _ in range(2):
+            step(state, batch, draw_seed(gen))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, batch, draw_seed(gen))
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / steps * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step(state, batch, draw_seed(gen))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, share, _ = cs.profile_summary(prof, wall)
+        print(f"[{card}] {label} {'--pa_feat' if pixel else 'flagship'} train step: "
+              f"{host_ms:.2f} ms on the host clock over {steps} steps; profiled: device busy "
+              f"{busy / 2:.2f} ms a step, idle share {1 - share:.3f}", flush=True)
+        del state, step, batch
+
+
+def build_probes(masks):
+    """Build train_decoder and pixel_train_decoder with -DCH_PROBE=mask for
+    each mask, concurrently: {mask: {name: library path}}."""
+    from alignsdf_torch.kernels import build
+
+    out_dir = os.path.join(build.BUILD_DIR, "probes")
+    os.makedirs(out_dir, exist_ok=True)
+    procs, paths = [], {}
+    for mask in masks:
+        for name in ("train_decoder", "pixel_train_decoder"):
+            path = os.path.join(out_dir, f"lib{name}-probe{mask}.so")
+            paths.setdefault(mask, {})[name] = path
+            cmd = [build.nvcc_path(), *build.NVCC_FLAGS, f"-DCH_PROBE={mask}", "-o", path,
+                   os.path.join(build.CSRC, f"{name}.cu")]
+            procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True), cmd))
+    for proc, cmd in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out}")
+    return paths
+
+
+def phase_shares(runs, paths) -> None:
+    """Each chain's phases as shares of its blocks' clocked cycles, from the
+    CH_PROBE 32 copies (the library of each kernel in ``paths``)."""
+    import torch
+
+    from alignsdf_torch.kernels import build
+
+    libs = {name: ctypes.CDLL(path) for name, path in paths.items()}
+    for name, lib in libs.items():
+        build._loaded[name] = lib
+        lib.ch_read_cycles.restype = ctypes.c_int
+        lib.ch_read_cycles.argtypes = [ctypes.c_void_p]
+    for name, (bwd, _, _) in runs.items():
+        lib = libs["train_decoder" if name == "K2" else "pixel_train_decoder"]
+        bwd()
+        torch.cuda.synchronize()
+        cycles = (ctypes.c_ulonglong * len(PHASES))()
+        lib.ch_read_cycles(cycles)  # drops the warm-up's
+        for _ in range(PROFILED):
+            bwd()
+        torch.cuda.synchronize()
+        if lib.ch_read_cycles(cycles) != 0:
+            raise RuntimeError("reading the phase clocks failed")
+        total = sum(cycles)
+        print(f"{name} phases (shares of the blocks' cycles on thread 0): "
+              + ", ".join(f"{ph} {c / total:.3f}" for ph, c in zip(PHASES, cycles) if c),
+              flush=True)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--repo", default=REPO, help="the checkout whose package to time")
+    parser.add_argument("--probes", action="store_true", help="also time the CH_PROBE copies")
+    parser.add_argument("--steps", type=int, default=0, help="also time this many train steps")
+    parser.add_argument("--scenes", type=int, default=64)
+    args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.repo))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    import chip_smoke as cs
+    from alignsdf_torch import use_float32_precision
+    from alignsdf_torch.kernels import build
+
+    use_float32_precision()
+    card = cs.card_line()
+    label = os.path.relpath(os.path.abspath(args.repo), REPO)
+    print(f"card: {card}; package: {label}", flush=True)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    runs = setups(cs, args.scenes, dev)
+    print(f"operands and forwards: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def report(tag):
+        for name, (bwd, prefix, flops) in runs.items():
+            ms = chain_ms(bwd, prefix)
+            bwd_ms = cs.cuda_ms(bwd, 5)
+            print(f"[{card}] {label} {tag} {name}: chain {ms:.3f} ms a step "
+                  f"({flops / 1e12:.3f} TFLOP, {flops / ms / 1e9:.1f} TFLOP/s; {bounds(flops)}), "
+                  f"backward {bwd_ms:.3f} ms", flush=True)
+
+    report("full")
+    if args.steps:
+        del runs
+        torch.cuda.empty_cache()
+        train_steps(cs, dev, args.steps, card, label)
+        return
+    if args.probes:
+        paths = build_probes([*PROBES, CLOCKS])
+        for mask, what in PROBES.items():
+            for name, path in paths[mask].items():
+                build._loaded[name] = ctypes.CDLL(path)
+            report(f"probe {mask} ({what})")
+        phase_shares(runs, paths[CLOCKS])
+
+
+if __name__ == "__main__":
+    main()
