@@ -27,9 +27,11 @@
 // rounding); the backward's weight-gradient reduction runs split TF32 on
 // wgmma (wgrad_tc.cuh).
 //
-// Design: K2's (train_decoder.cu), with the input products through the
-// streamed tile product of tile_product.cuh, since K2's per-column loop over
-// at most 64 embedding columns would not do for 262-319.
+// Design: K2's former one (train_decoder.cu, before K2's forward and chain
+// moved to the tensor cores, train_fwd_tc.cuh and chain_tc.cuh), with the
+// input products through the streamed tile product of tile_product.cuh,
+// since K2's per-column loop over at most 64 embedding columns would not do
+// for 262-319.
 //  - Forward: a block of 256 threads owns 32 points and stages their x0 in
 //    shared memory as [column][point] (from x0 feature-major (e, M), so the
 //    loads coalesce; zero to e_pad, a multiple of 32): 40 KB at 319.

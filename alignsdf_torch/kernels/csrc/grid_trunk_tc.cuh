@@ -1,5 +1,7 @@
 // The grid decoders' shared trunk on Hopper's tensor cores (kernels K1, K3
-// and K6; K2, K4 and K5 keep tile_product.cuh).  A block of TC_THREADS
+// and K6; K2's and K4's train forwards and backward chains reuse its ring
+// and k-step loop, train_fwd_tc.cuh and chain_tc.cuh; K5 keeps
+// tile_product.cuh).  A block of TC_THREADS
 // threads owns a tile of TC_P = 64 points.  Their activations stay in one
 // shared-memory buffer as [feature][point] and each hidden layer updates it
 // in place: its two warpgroups hold the layer's whole output for the 64

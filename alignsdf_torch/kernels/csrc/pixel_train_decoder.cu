@@ -27,17 +27,20 @@
 // columns, hidden 512 -> 250 -> 512 -> 512 -> 1) a trunk costs 0.787 M
 // multiply-adds per point forward and twice that backward, against ~10 KB a
 // point of residuals; the sampling is 16 taps x C (8 kFLOP a point each way)
-// from a 268 MB table.  The forward runs plain float32 FMAs (TF32 off), as
-// K2's; the backward's chain (chain_tc.cuh) and weight-gradient reduction
-// (wgrad_tc.cuh) split TF32 on wgmma, as K2's.
+// from a 268 MB table.  Forward and backward run split TF32 on wgmma, as
+// K2's: the forward on train_fwd_tc.cuh, the backward's chain on
+// chain_tc.cuh and its weight-gradient reduction on wgrad_tc.cuh.
 //
-// Forward (pixel_train_fwd_kernel): K3's gather stage and K2's streamed tile
-// trunk.  A block of 256 threads owns 32 points.  The gather fills a
-// [c_pad][32] latent tile in shared memory (one thread a channel, so a warp
-// reads 128 contiguous bytes of a tap's row), which is written out as the
-// residual (c_pad, M); then each trunk runs as in K2, with a second tile
-// product of the latent weights with the latent tile at layer 0 and the
-// latent_in layers, and writes its gated activations (out_pad, M).
+// Forward (pixel_train_fwd_tc_kernel): K2's tensor-core forward
+// (train_fwd_tc.cuh, 64 points a block) with K3's gather as its fill.  The
+// block gathers its points' latent once into buffer rows [0, c_pad) (one
+// thread a channel, so a warp reads 128 contiguous bytes of a tap's row) and
+// stores it as the residual (c_pad, M); layer 0 of the first trunk runs on
+// those rows, and every later layer that reads the latent (the latent_in
+// layers, the second trunk's layer 0) reloads it from that residual, which
+// this block just wrote and L2 still holds, into the rows right above its
+// activation rows: one product over [activation; latent] against [W; Lat]
+// tiles.  The embedding enters in the epilogue, as K2's.
 //
 // Backward.  The TPU kernel forms d(table) per scene as a dense wxy @ dlat
 // product accumulated across a sequential grid; here each point scatters
@@ -63,6 +66,7 @@
 #include "chain_tc.cuh"
 #include "keys_cubic.cuh"
 #include "train_common.cuh"
+#include "train_fwd_tc.cuh"
 
 #define EMB_MAX 64     // embedding columns
 #define MAX_LAYERS 8
@@ -84,7 +88,7 @@ struct PTrunk {
 };
 
 struct PPlan {
-  int n_trunks, e, m, nps, n_scenes, c, c_pad, hf, wf, max_pad;
+  int n_trunks, e, m, nps, n_scenes, c, c_pad, hf, wf;
   const float *emb, *table, *mean, *xp, *yp, *mask;  // emb (e, M), table (B, HW, C), mean (B, C)
   float *lat, *y;                                    // latent residual (c_pad, M), y (rows, M)
   const float* dy;
@@ -94,18 +98,19 @@ struct PPlan {
   float* dlatent;        // the backward's latent gradient (c_pad, M): scratch
   const float* tiles;    // the backward chain's weight tiles (chain_tc.cuh)
   long long tiles_len;   // their floats
+  const float* fwd;      // the forward's weight tiles (train_fwd_tc.cuh)
+  long long fwd_len;     // their floats
   PTrunk trunks[MAX_TRUNKS];
 };
 
-// Per-point tap data of a tile of `tile` points (threads 0 .. tile - 1, one
-// point each): tw[q][16] =
-// 4 row weights, 4 column weights, then 4 row and 4 column derivative
-// weights (backward only); trc[q][8] = 4 row offsets (row * wf, -1 off the
-// map) and 4 columns (-1 off); flag[q] = the point lies in the image;
-// scn[q] = its scene.
-__device__ __forceinline__ void tile_taps(const PPlan& p, int first, int tid, int tile, float* tw,
-                                          int* trc, int* flag, int* scn, bool grads) {
-  if (tid >= tile) return;
+// The backward's per-point tap data of a 64-point tile (threads 0 .. TC_P -
+// 1, one point each): tw[q][16] = 4 row weights, 4 column weights, then 4
+// row and 4 column derivative weights; trc[q][8] = 4 row offsets (row * wf,
+// -1 off the map) and 4 columns (-1 off); flag[q] = the point lies in the
+// image; scn[q] = its scene.
+__device__ __forceinline__ void tile_taps(const PPlan& p, int first, int tid, float* tw, int* trc,
+                                          int* flag, int* scn) {
+  if (tid >= TC_P) return;
   const int row = first + tid;
   const bool live = row < p.m;
   scn[tid] = live ? row / p.nps : 0;
@@ -122,10 +127,8 @@ __device__ __forceinline__ void tile_taps(const PPlan& p, int first, int tid, in
     const int r = (int)y0 + i - 1, col = (int)x0 + i - 1;
     trc[tid * 8 + i] = (r >= 0 && r < p.hf) ? r * p.wf : -1;
     trc[tid * 8 + 4 + i] = (col >= 0 && col < p.wf) ? col : -1;
-    if (grads) {
-      w[8 + i] = -keys_grad((float)r - yp);
-      w[12 + i] = -keys_grad((float)col - xp);
-    }
+    w[8 + i] = -keys_grad((float)r - yp);
+    w[12 + i] = -keys_grad((float)col - xp);
   }
 }
 
@@ -133,33 +136,50 @@ __device__ __forceinline__ void tile_taps(const PPlan& p, int first, int tid, in
 // forward
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-pixel_train_fwd_kernel(const PPlan p, unsigned seed, unsigned thresh, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* act0 = smem;
-  float* act1 = act0 + p.max_pad * TILE_P;
-  float* lat = act1 + p.max_pad * TILE_P;  // [c_pad][TILE_P]
-  float* ws = lat + p.c_pad * TILE_P;
-  float* embs = ws + BK * OCHUNK;          // [e][TILE_P]
-  float* red = embs + EMB_MAX * TILE_P;    // [8][TILE_P]
-  float* tw = red + 8 * TILE_P;            // [TILE_P][16]
-  int* trc = reinterpret_cast<int*>(tw + 16 * TILE_P);  // [TILE_P][8]
-  int* flag = trc + 8 * TILE_P;
-  int* scn = flag + TILE_P;
-
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int first = blockIdx.x * TILE_P;
-  tile_taps(p, first, tid, TILE_P, tw, trc, flag, scn, false);
-  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
-    const int c = i / TILE_P, q = i % TILE_P;
-    embs[i] = first + q < p.m ? p.emb[(size_t)c * p.m + first + q] : 0.f;
+// The forward's per-point tap table (threads 0 .. TC_P - 1, one point
+// each): tw[q][16] the 16 taps' weights wy wx (tap (i, j) at 4 i + j, i the
+// row's), toff[q][16] their pixels' offsets row * wf + col, a tap off the
+// map weighing 0 at offset 0, so that the gather's 16 loads a point are
+// unconditional and issue together; flag[q] = the point lies in the image;
+// scn[q] = its scene.
+__device__ __forceinline__ void fw_taps(const PPlan& p, int first, int tid, float* tw, int* toff,
+                                        int* flag, int* scn) {
+  if (tid >= TC_P) return;
+  const int row = first + tid;
+  const bool live = row < p.m;
+  scn[tid] = live ? row / p.nps : 0;
+  const int in = live && p.mask[row] > 0.f;
+  flag[tid] = in;
+  if (!in) return;
+  const float xp = p.xp[row], yp = p.yp[row];
+  const float x0 = floorf(xp), y0 = floorf(yp);
+  float wy[4], wx[4];
+  keys_taps(yp - y0, wy);
+  keys_taps(xp - x0, wx);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = (int)y0 + i - 1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = (int)x0 + j - 1;
+      const bool on = r >= 0 && r < p.hf && col >= 0 && col < p.wf;
+      tw[tid * 16 + 4 * i + j] = on ? wy[i] * wx[j] : 0.f;
+      toff[tid * 16 + 4 * i + j] = on ? r * p.wf + col : 0;
+    }
   }
-  __syncthreads();
+}
 
-  // gather: lat[ch][q] = the 16 weighted taps, or the scene's mean row
+// The latent of the block's points into buffer rows [0, c_pad): the sum of
+// a point's 16 weighted taps of its scene's table, or the scene's mean row
+// outside the image; 0 in the padding channels and past M.  One thread a
+// channel, so that a warp reads 128 contiguous bytes of a tap's row; runs
+// of 4 points together (tc_swz keeps them contiguous), 64 loads in flight.
+__device__ void fw_gather(const PPlan& p, const float* tw, const int* toff, const int* flag,
+                          const int* scn, float* buf, int first, int tid) {
+  if (FW_PROBE & 8) return;
   const size_t hw = (size_t)p.hf * p.wf;
-  for (int ch = tid; ch < p.c_pad; ch += NTHREADS) {
-    for (int q0 = 0; q0 < TILE_P; q0 += 4) {
+  for (int ch = tid; ch < p.c_pad; ch += TC_THREADS) {
+    for (int q0 = 0; q0 < TC_P; q0 += 4) {
       float v[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -169,103 +189,86 @@ pixel_train_fwd_kernel(const PPlan p, unsigned seed, unsigned thresh, float scal
           if (!flag[q]) {
             s = __ldg(p.mean + (size_t)scn[q] * p.c + ch);
           } else {
-            const float* tab = p.table + (size_t)scn[q] * hw * p.c;
+            const float* tab = p.table + (size_t)scn[q] * hw * p.c + ch;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int r = trc[q * 8 + i];
-              if (r < 0) continue;
-              const float wy = tw[q * 16 + i];
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                const int col = trc[q * 8 + 4 + j];
-                if (col < 0) continue;
-                s = fmaf(wy * tw[q * 16 + 4 + j], __ldg(tab + (size_t)(r + col) * p.c + ch), s);
-              }
-            }
+            for (int t = 0; t < 16; ++t)
+              s = fmaf(tw[q * 16 + t], __ldg(tab + (size_t)toff[q * 16 + t] * p.c), s);
           }
         }
         v[k] = s;
       }
-      *reinterpret_cast<float4*>(lat + ch * TILE_P + q0) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(buf + tc_swz(ch, q0)) = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
-  __syncthreads();
-  for (int i = tid; i < p.c_pad * TILE_P; i += NTHREADS) {
-    const int c = i / TILE_P, q = i % TILE_P;
-    if (first + q < p.m) p.lat[(size_t)c * p.m + first + q] = lat[i];
-  }
+}
 
+// The forward's tap table beside the trunk's shared memory (fw_taps): 16
+// weights, 16 offsets, a flag and a scene a point.
+#define FW_TAP_BYTES (34 * sizeof(float) * TC_P)
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+pixel_train_fwd_tc_kernel(const PPlan p, int rows, int total, unsigned seed, unsigned thresh,
+                          float scale) {
+  extern __shared__ __align__(128) float smem[];
+  const TcShared s = tc_shared(smem, rows);
+  float* tw = reinterpret_cast<float*>(s.full + TC_SLOTS);  // [TC_P][16]
+  int* toff = reinterpret_cast<int*>(tw + 16 * TC_P);         // [TC_P][16]
+  int* flag = toff + 16 * TC_P;                                // [TC_P]
+  int* scn = flag + TC_P;                                      // [TC_P]
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
+  const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
+  const int first = blockIdx.x * TC_P;
+  const TcPlan plan = fw_stream(total);
+  FwClock clk;
+  if (tid == 0) fw_init(p.fwd, plan, s, total);
+  fw_taps(p, first, tid, tw, toff, flag, scn);
+  __syncthreads();
+  clk.tick(0);
+  fw_gather(p, tw, toff, flag, scn, s.act, first, tid);
+  __syncthreads();
+  fw_store(s.act, p.c_pad, p.lat, p.m, first, false, tid);
+  clk.tick(1);
+
+  const int ra = first + p0, rb = ra + 8;
+  float acc0[64], acc1[64];
+  int slot = 0;
   for (int t = 0; t < p.n_trunks; ++t) {
     const PTrunk& T = p.trunks[t];
-    float* cur = act0;
-    float* nxt = act1;
     for (int l = 0; l < T.n_layers - 1; ++l) {
       const PLayer& L = T.layers[l];
-      const unsigned hash_layer = (unsigned)(l + T.layer_off);
-      for (int oc = 0; oc < L.out_pad; oc += OCHUNK) {
-        float acc[8][4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-        if (L.w) tile_product(acc, L.w, L.out_pad, L.in_pad, cur, ws, oc, tid);
-        if (L.lat) tile_product(acc, L.lat, L.out_pad, p.c_pad, lat, ws, oc, tid);
-        if (L.x) {
-          for (int c = 0; c < p.e; ++c) {
-            const float4 ev = *reinterpret_cast<const float4*>(embs + c * TILE_P + tx * 4);
-            const float4 x0 = __ldg(reinterpret_cast<const float4*>(L.x + (size_t)c * L.out_pad + oc + ty * 8));
-            const float4 x1 = __ldg(reinterpret_cast<const float4*>(L.x + (size_t)c * L.out_pad + oc + ty * 8 + 4));
-            const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-            const float av[4] = {ev.x, ev.y, ev.z, ev.w};
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], av[j], acc[i][j]);
-          }
-        }
-        const int row0 = first + tx * 4;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int o = oc + ty * 8 + i;
-          const float bias = __ldg(L.b + o);
-          float r[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float v = fmaxf(acc[i][j] + bias, 0.f);
-            if (L.dropout)
-              v = gate_hash(seed, hash_layer, (unsigned)(row0 + j), (unsigned)o) < thresh ? v * scale
-                                                                                       : 0.f;
-            r[j] = v;
-          }
-          const float4 rv = make_float4(r[0], r[1], r[2], r[3]);
-          *reinterpret_cast<float4*>(nxt + o * TILE_P + tx * 4) = rv;
-          if (row0 < p.m) *reinterpret_cast<float4*>(L.act + (size_t)o * p.m + row0) = rv;
-        }
+      const int act_rows = L.w ? L.in_pad : 0, lat_rows = L.lat ? p.c_pad : 0;
+      if (lat_rows > 0 && (t > 0 || l > 0)) {
+        // the latent above the activation rows (no warp reads those rows
+        // now: the previous layer's store pass reads rows below act_rows)
+        fw_load(s.act, act_rows, lat_rows, p.lat, p.m, first, tid);
+        __syncthreads();
+        clk.tick(1);
       }
-      __syncthreads();  // `nxt` is complete before the next layer reads it
-      float* tmp = cur; cur = nxt; nxt = tmp;
+      const int groups = L.out_pad / TC_GROUP, depth = act_rows + lat_rows;
+      fw_product(acc0, acc1, depth, groups, slot, p.fwd, plan, s, total, wg, wt, p0, t4);
+      slot += depth / TC_K * groups;
+      __syncthreads();  // every warp is done reading the layer's input
+      clk.tick(2);
+      const unsigned layer = (unsigned)(l + T.layer_off);
+      const unsigned ka = fw_key(seed, layer, (unsigned)ra), kb = fw_key(seed, layer, (unsigned)rb);
+      if (groups > wg)
+        fw_epilogue(acc0, wg, L.x, p.e, L.out_pad, p.emb + first, p.m, ra < p.m, rb < p.m, L.b,
+                    L.b, L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+      if (groups > wg + 2)
+        fw_epilogue(acc1, wg + 2, L.x, p.e, L.out_pad, p.emb + first, p.m, ra < p.m, rb < p.m,
+                    L.b, L.b, L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+      __syncthreads();
+      clk.tick(3);
+      fw_store(s.act, L.out_pad, L.act, p.m, first, true, tid);
+      clk.tick(4);
     }
-
-    // last layer: y[row_off + r][q] = tanh(sum_k wt[r][k] cur[k][q] + b[r]).
-    // Warp w sums row w/4 over k = w%4 (mod 4); lanes are points.
-    const PLayer& L = T.layers[T.n_layers - 1];
-    const int pt = tid & 31, w = tid >> 5, r = w >> 2, part = w & 3;
-    if (r < T.n_out) {
-      const float* f = L.wt + (size_t)r * L.in_pad;
-      float s = 0.f;
-      for (int k = part; k < L.in_pad; k += 4) s = fmaf(__ldg(f + k), cur[k * TILE_P + pt], s);
-      red[w * TILE_P + pt] = s;
-    }
-    __syncthreads();
-    if (tid < T.n_out * TILE_P) {
-      const int rr = tid / TILE_P, pp = tid % TILE_P;
-      const float v = red[(rr * 4 + 0) * TILE_P + pp] + red[(rr * 4 + 1) * TILE_P + pp]
-                    + red[(rr * 4 + 2) * TILE_P + pp] + red[(rr * 4 + 3) * TILE_P + pp];
-      if (first + pp < p.m)
-        p.y[(size_t)(T.row_off + rr) * p.m + first + pp] = tanhf(v + __ldg(L.b + rr));
-    }
-    __syncthreads();  // the next trunk reuses the activation buffers and `red`
+    // the final layer; its barriers free the buffer for the next trunk
+    const PLayer& F = T.layers[T.n_layers - 1];
+    fw_final(F.wt, F.b, T.n_out, F.in_pad, s.act, s.red, p.y + (size_t)T.row_off * p.m, p.m,
+             first, tid);
+    clk.tick(5);
   }
+  clk.flush(tid);
 }
 
 // ---------------------------------------------------------------------------
@@ -355,7 +358,7 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
   int* trc = reinterpret_cast<int*>(tw + 16 * TC_P);  // [TC_P][8]
   int* flag = trc + 8 * TC_P;
   int* scn = flag + TC_P;
-  tile_taps(p, first, tid, TC_P, tw, trc, flag, scn, true);
+  tile_taps(p, first, tid, tw, trc, flag, scn);
   for (int i = tid; i < p.c_pad * TC_P; i += TC_THREADS) {
     const int c = i / TC_P, q = i % TC_P;
     dlt[q * ld + c] = first + q < p.m ? p.dlatent[(size_t)c * p.m + first + q] : 0.f;
@@ -429,25 +432,22 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
 // host side
 // ---------------------------------------------------------------------------
 
-#define HEAD 28
+#define HEAD 30
 #define PER_TRUNK 4
 #define PER_LAYER 14
 
-static size_t smem_bytes(int max_pad, int c_pad) {
-  return sizeof(float) * ((size_t)(2 * max_pad + c_pad) * TILE_P + BK * OCHUNK
-                          + EMB_MAX * TILE_P + 8 * TILE_P + 16 * TILE_P + 8 * TILE_P
-                          + 2 * TILE_P);
-}
-
 // desc (int64): [n_trunks, e, m, nps, n_scenes, c, c_pad, hf, wf, emb, table,
 // mean, xp, yp, mask, lat, y, dy, demb, dtable, dmean, dxp, dyp, dx_last,
-// xl_w, dlatent, tiles, tiles_len, then per trunk: n_layers, n_out, row_off,
+// xl_w, dlatent, tiles, tiles_len, fwd, fwd_len, then per trunk: n_layers,
+// n_out, row_off,
 // layer_off, then per layer: w, wt, lat, x, b, act, dpre, dw, dlat, dx, db,
 // in_pad, out_pad, dropout].  Pointers are device addresses, 0 = absent; wt
 // only on the final layer.  dlatent (c_pad, M) is the backward's scratch;
 // the tiles (the backward's) run trunk by trunk from the last hidden layer
 // down, each layer's tile_weights([W^T | Lat^T]) of depth out_pad (W^T where
-// l > 0, Lat^T where it reads the latent).
+// l > 0, Lat^T where it reads the latent); the forward's (fwd) trunk by trunk
+// in layer order, each hidden layer's tile_weights([W; Lat]) of depth in_pad
+// + c_pad (W where l > 0, Lat where it reads the latent).
 static int parse(const long long* desc, int len, PPlan* p, bool backward) {
   if (len < HEAD) return -1;
   p->n_trunks = (int)desc[0];
@@ -478,15 +478,16 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
   p->dlatent = (float*)desc[25];
   p->tiles = (const float*)desc[26];
   p->tiles_len = desc[27];
+  p->fwd = (const float*)desc[28];
+  p->fwd_len = desc[29];
   if (p->n_trunks < 1 || p->n_trunks > MAX_TRUNKS || p->e < 1 || p->e > EMB_MAX) return -1;
   if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes)
     return -1;
-  if (p->c < 1 || p->c_pad < p->c || p->c_pad % OCHUNK || p->hf < 1 || p->wf < 1) return -1;
+  if (p->c < 1 || p->c_pad < p->c || p->c_pad % TC_GROUP || p->hf < 1 || p->wf < 1) return -1;
   if (!p->emb || !p->table || !p->mean || !p->xp || !p->yp || !p->mask || !p->lat || !p->y)
     return -1;
   if (backward && (!p->dy || !p->demb || !p->dtable || !p->dmean || !p->dxp || !p->dyp
                    || !p->dlatent)) return -1;
-  p->max_pad = OCHUNK;
   int pos = HEAD;
   for (int t = 0; t < p->n_trunks; ++t) {
     if (pos + PER_TRUNK > len) return -1;
@@ -515,8 +516,7 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
       // latent_in layers
       if (!L.lat != !L.x) return -1;
       if (hidden) {
-        if (L.out_pad < OCHUNK || L.out_pad % OCHUNK || !L.act) return -1;
-        if (L.out_pad > p->max_pad) p->max_pad = L.out_pad;
+        if (L.out_pad < TC_GROUP || L.out_pad % TC_GROUP || !L.act) return -1;
       } else if (L.out_pad != T.n_out || L.lat || L.dropout) {
         return -1;
       }
@@ -529,21 +529,46 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
     const PTrunk& T = p->trunks[0];
     if (!backward || p->xl_w < 1 || p->xl_w > T.layers[T.n_layers - 1].in_pad) return -1;
   }
-  // the transposed latent gradient reuses the two activation buffers
-  if (p->c_pad + 1 > 2 * p->max_pad) return -1;
   return 0;
+}
+
+// The forward's tiles, trunk by trunk in layer order; -1 where a layer is
+// outside the forward (train_fwd_tc.cuh) or the stream's length disagrees.
+// *rows: the buffer rows the widest layer needs (its depth or its width).
+static int fwd_tiles(const PPlan& p, int* rows) {
+  int total = 0;
+  *rows = p.c_pad;
+  for (int t = 0; t < p.n_trunks; ++t) {
+    const PTrunk& T = p.trunks[t];
+    for (int l = 0; l < T.n_layers - 1; ++l) {
+      const PLayer& L = T.layers[l];
+      const int depth = (L.w ? L.in_pad : 0) + (L.lat ? p.c_pad : 0);
+      const int n = fw_layer_tiles(depth, L.out_pad);
+      if (n < 0) return -1;
+      total += n;
+      if (depth > *rows) *rows = depth;
+      if (L.out_pad > *rows) *rows = L.out_pad;
+    }
+  }
+  if (*rows > TC_MAX_OUT || p.fwd_len != (long long)total * 2 * TC_TILE || !p.fwd) return -1;
+  return total;
 }
 
 extern "C" int pixel_train_fwd(const long long* desc, int len, unsigned seed, unsigned thresh,
                                float scale, void* stream) {
   PPlan p;
   if (parse(desc, len, &p, false)) return -1;
-  const size_t smem = smem_bytes(p.max_pad, p.c_pad);
-  cudaError_t err = cudaFuncSetAttribute(pixel_train_fwd_kernel,
+  int rows;
+  const int total = fwd_tiles(p, &rows);
+  if (total < 0) return -1;
+  const size_t smem = tc_smem_bytes(rows) + FW_TAP_BYTES;
+  if (smem > 232448) return -1;
+  cudaError_t err = cudaFuncSetAttribute(pixel_train_fwd_tc_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((p.m + TILE_P - 1) / TILE_P);
-  pixel_train_fwd_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(p, seed, thresh, scale);
+  const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
+  pixel_train_fwd_tc_kernel<<<blocks, TC_THREADS, smem, (cudaStream_t)stream>>>(
+      p, rows, total, seed, thresh, scale);
   return (int)cudaGetLastError();
 }
 

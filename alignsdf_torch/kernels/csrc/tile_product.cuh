@@ -1,4 +1,5 @@
-// The train decoders' float32 tile product (kernels K2, K4 and K5): a block
+// The float32 tile product of kernel K5's forward and backward chain (K2's
+// and K4's run on the tensor cores, train_fwd_tc.cuh and chain_tc.cuh): a block
 // of NTHREADS threads owns a tile of TILE_P points whose activations stay in
 // shared memory as [feature][point].  A layer is computed in chunks of
 // OCHUNK output features, each thread holding an 8x4 (feature x point)

@@ -20,15 +20,20 @@
 #include "tile_product.cuh"
 #include "wgrad_tc.cuh"
 
-__device__ __forceinline__ unsigned gate_hash(unsigned seed, unsigned layer, unsigned row,
-                                              unsigned col) {
-  unsigned h = seed ^ (row * 0x9E3779B1u) ^ (col * 0x85EBCA6Bu) ^ (layer * 0xC2B2AE35u);
+// The finalizer of gate_hash; the tensor-core forward (train_fwd_tc.cuh)
+// hoists the row's and layer's terms out of its loop over lanes.
+__device__ __forceinline__ unsigned gate_mix(unsigned h) {
   h ^= h >> 16;
   h *= 0x7FEB352Du;
   h ^= h >> 15;
   h *= 0x846CA68Bu;
   h ^= h >> 16;
   return h;
+}
+
+__device__ __forceinline__ unsigned gate_hash(unsigned seed, unsigned layer, unsigned row,
+                                              unsigned col) {
+  return gate_mix(seed ^ (row * 0x9E3779B1u) ^ (col * 0x85EBCA6Bu) ^ (layer * 0xC2B2AE35u));
 }
 
 // d[k][q] += src[first + q][k] over a tile's points (rows < m) and features

@@ -15,20 +15,19 @@
 // What bounds it: arithmetic.  At the flagship width (hidden 512 -> 250 ->
 // 512 -> 512 -> 1, 6 embedding columns) a trunk costs 0.525 M MAC per point
 // forward and twice that backward (dx and dW), against ~7 KB of residuals
-// written and read per point.  The forward runs float32 FMAs on the CUDA
-// cores (TF32 stays off so results match the plain version to float32
-// rounding); the backward's chain (chain_tc.cuh) and weight-gradient
-// reduction (wgrad_tc.cuh) run split TF32 on wgmma, which keeps float32's
-// accuracy.  The forward on wgmma is later work.
+// written and read per point.  Forward and backward run split TF32 on
+// wgmma (three TF32 products a multiply-add), which keeps float32's
+// accuracy: the forward on train_fwd_tc.cuh, the backward's chain on
+// chain_tc.cuh and its weight-gradient reduction on wgrad_tc.cuh.
 //
-// Forward (train_fwd_kernel): tile_product.cuh's.  A block of 256 threads owns 32
-// points; their activations stay in shared memory as [feature][point]
-// ping-pong buffers, weights stream from L2 through a 32 x 256 shared tile
-// (prefetched into registers), each thread holds an 8 x 4 (feature x
-// point) tile of accumulators.  The epilogue picks each point's scene bias,
-// applies ReLU and the gate, and writes the gated activation to device
-// memory as the residual, feature-major (out_pad, M) so a warp's stores are
-// contiguous.
+// Forward (train_fwd_tc_kernel, train_fwd_tc.cuh): the grid trunk's design
+// for training.  A block of 256 threads owns 64 points; their activations
+// stay in one shared-memory buffer as [feature][point]; each layer's product
+// runs on the tensor cores against tile_weights(W) tiles streamed through
+// the trunk's ring; the epilogue on the CUDA cores adds the embedding's
+// terms and each point's scene bias, applies ReLU and the gate, and a
+// coalesced pass writes the gated activation to device memory as the
+// residual, feature-major (out_pad, M).
 //
 // The gate is bit for bit the TPU kernel's _dropout_gate: a murmur3-style
 // finalizer of (seed, layer, global row, lane) in uint32 arithmetic, kept
@@ -56,7 +55,8 @@
 #include <stdint.h>
 
 #include "chain_tc.cuh"      // the backward's reverse chain on the tensor cores
-#include "train_common.cuh"  // gate_hash, wgrad / colsum; tile_product.cuh's tile product
+#include "train_common.cuh"  // gate_hash, wgrad / colsum
+#include "train_fwd_tc.cuh"  // the forward on the tensor cores
 
 #define EMB_MAX 64     // embedding columns
 #define MAX_LAYERS 10
@@ -79,6 +79,8 @@ struct Plan {
   int xl_w;
   const float* tiles;    // the backward chain's weight tiles (chain_tc.cuh)
   long long tiles_len;   // their floats
+  const float* fwd;      // the forward's weight tiles (train_fwd_tc.cuh)
+  long long fwd_len;     // their floats
   Layer layers[MAX_LAYERS];
 };
 
@@ -86,89 +88,50 @@ struct Plan {
 // forward
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-train_fwd_kernel(const Plan p, unsigned seed, unsigned thresh, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* act0 = smem;
-  float* act1 = act0 + p.max_pad * TILE_P;
-  float* ws = act1 + p.max_pad * TILE_P;
-  float* embs = ws + BK * OCHUNK;      // [e][TILE_P]
-  float* red = embs + EMB_MAX * TILE_P;  // [8][TILE_P]
-
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int first = blockIdx.x * TILE_P;
-  for (int i = tid; i < p.e * TILE_P; i += NTHREADS) {
-    const int c = i / TILE_P, q = i % TILE_P;
-    embs[i] = first + q < p.m ? p.emb[(size_t)c * p.m + first + q] : 0.f;
-  }
+__global__ void __launch_bounds__(TC_THREADS, 1)
+train_fwd_tc_kernel(const Plan p, int total, unsigned seed, unsigned thresh, float scale) {
+  extern __shared__ __align__(128) float smem[];
+  const TcShared s = tc_shared(smem, p.max_pad);
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
+  const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
+  const int first = blockIdx.x * TC_P;
+  const TcPlan plan = fw_stream(total);
+  FwClock clk;
+  if (tid == 0) fw_init(p.fwd, plan, s, total);
   __syncthreads();
+  clk.tick(0);
 
-  float* cur = act0;
-  float* nxt = act1;
+  // this thread's two rows, their scenes (rows past M take the last one's)
+  const int ra = first + p0, rb = ra + 8;
+  const int sa = min(ra, p.m - 1) / p.nps, sb = min(rb, p.m - 1) / p.nps;
+  float acc0[64], acc1[64];
+  int slot = 0;
   for (int l = 0; l < p.n_layers - 1; ++l) {
     const Layer& L = p.layers[l];
-    for (int oc = 0; oc < L.out_pad; oc += OCHUNK) {
-      float acc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      if (L.w) tile_product(acc, L.w, L.out_pad, L.in_pad, cur, ws, oc, tid);
-      if (L.x) {
-        for (int c = 0; c < p.e; ++c) {
-          const float4 ev = *reinterpret_cast<const float4*>(embs + c * TILE_P + tx * 4);
-          const float4 x0 = __ldg(reinterpret_cast<const float4*>(L.x + (size_t)c * L.out_pad + oc + ty * 8));
-          const float4 x1 = __ldg(reinterpret_cast<const float4*>(L.x + (size_t)c * L.out_pad + oc + ty * 8 + 4));
-          const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-          const float av[4] = {ev.x, ev.y, ev.z, ev.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], av[j], acc[i][j]);
-        }
-      }
-      const int row0 = first + tx * 4;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int o = oc + ty * 8 + i;
-        float r[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = row0 + j;
-          const int srow = min(row, p.m - 1) / p.nps;
-          const float bias = L.scene_bias ? __ldg(L.b + (size_t)srow * L.out_pad + o)
-                                          : __ldg(L.b + o);
-          float v = fmaxf(acc[i][j] + bias, 0.f);
-          if (L.dropout)
-            v = gate_hash(seed, (unsigned)l, (unsigned)row, (unsigned)o) < thresh ? v * scale : 0.f;
-          r[j] = v;
-        }
-        const float4 rv = make_float4(r[0], r[1], r[2], r[3]);
-        *reinterpret_cast<float4*>(nxt + o * TILE_P + tx * 4) = rv;
-        if (row0 < p.m) *reinterpret_cast<float4*>(L.act + (size_t)o * p.m + row0) = rv;
-      }
-    }
-    __syncthreads();  // `nxt` is complete before the next layer reads it
-    float* t = cur; cur = nxt; nxt = t;
+    const int groups = L.out_pad / TC_GROUP, depth = L.w ? L.in_pad : 0;
+    fw_product(acc0, acc1, depth, groups, slot, p.fwd, plan, s, total, wg, wt, p0, t4);
+    slot += depth / TC_K * groups;
+    __syncthreads();  // every warp is done reading the layer's input
+    clk.tick(2);
+    const float* b0 = L.scene_bias ? L.b + (size_t)sa * L.out_pad : L.b;
+    const float* b1 = L.scene_bias ? L.b + (size_t)sb * L.out_pad : L.b;
+    const unsigned ka = fw_key(seed, (unsigned)l, (unsigned)ra);
+    const unsigned kb = fw_key(seed, (unsigned)l, (unsigned)rb);
+    if (groups > wg)
+      fw_epilogue(acc0, wg, L.x, p.e, L.out_pad, p.emb + first, p.m, ra < p.m, rb < p.m, b0, b1,
+                  L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+    if (groups > wg + 2)
+      fw_epilogue(acc1, wg + 2, L.x, p.e, L.out_pad, p.emb + first, p.m, ra < p.m, rb < p.m, b0,
+                  b1, L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+    __syncthreads();
+    clk.tick(3);
+    fw_store(s.act, L.out_pad, L.act, p.m, first, true, tid);
+    clk.tick(4);
   }
-
-  // last layer: y[r][p] = tanh(sum_k wt[r][k] cur[k][p] + b[r]).  Warp w sums
-  // row w/4 over k = w%4 (mod 4); lanes are points.
-  const Layer& L = p.layers[p.n_layers - 1];
-  const int pt = tid & 31, w = tid >> 5, r = w >> 2, part = w & 3;
-  if (r < p.n_out) {
-    const float* f = L.wt + (size_t)r * L.in_pad;
-    float s = 0.f;
-    for (int k = part; k < L.in_pad; k += 4) s = fmaf(__ldg(f + k), cur[k * TILE_P + pt], s);
-    red[w * TILE_P + pt] = s;
-  }
-  __syncthreads();
-  if (tid < p.n_out * TILE_P) {
-    const int rr = tid / TILE_P, pp = tid % TILE_P;
-    const float v = red[(rr * 4 + 0) * TILE_P + pp] + red[(rr * 4 + 1) * TILE_P + pp]
-                  + red[(rr * 4 + 2) * TILE_P + pp] + red[(rr * 4 + 3) * TILE_P + pp];
-    if (first + pp < p.m) p.y[(size_t)rr * p.m + first + pp] = tanhf(v + __ldg(L.b + rr));
-  }
+  const Layer& F = p.layers[p.n_layers - 1];
+  fw_final(F.wt, F.b, p.n_out, F.in_pad, s.act, s.red, p.y, p.m, first, tid);
+  clk.tick(5);
+  clk.flush(tid);
 }
 
 // ---------------------------------------------------------------------------
@@ -243,17 +206,14 @@ train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int tot
 // host side
 // ---------------------------------------------------------------------------
 
-static size_t smem_bytes(int max_pad) {
-  return sizeof(float) * ((size_t)2 * max_pad * TILE_P + BK * OCHUNK + EMB_MAX * TILE_P + 8 * TILE_P);
-}
-
 // desc (int64): [n_layers, n_out, e, m, nps, n_scenes, emb, y, dy, demb,
-// dx_last, xl_w, tiles, tiles_len, then per layer: w, wt, x, b, act, dpre, dw,
-// dx, db, in_pad, out_pad, scene_bias, dropout].  Pointers are device
-// addresses, 0 = absent; wt only on the final layer; the tiles (the
+// dx_last, xl_w, tiles, tiles_len, fwd, fwd_len, then per layer: w, wt, x, b,
+// act, dpre, dw, dx, db, in_pad, out_pad, scene_bias, dropout].  Pointers are
+// device addresses, 0 = absent; wt only on the final layer; the tiles (the
 // backward's) run from the last hidden layer down, each layer l > 0's
-// tile_weights(W_l^T) of depth out_pad.
-#define HEAD 14
+// tile_weights(W_l^T) of depth out_pad; the forward's (fwd) in layer order,
+// each hidden layer l > 0's tile_weights(W_l) of depth in_pad.
+#define HEAD 16
 static int parse(const long long* desc, int len, Plan* p, bool backward) {
   if (len < HEAD) return -1;
   p->n_layers = (int)desc[0];
@@ -270,11 +230,13 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
   p->xl_w = (int)desc[11];
   p->tiles = (const float*)desc[12];
   p->tiles_len = desc[13];
+  p->fwd = (const float*)desc[14];
+  p->fwd_len = desc[15];
   if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != HEAD + 13 * p->n_layers) return -1;
   if (p->n_out < 1 || p->n_out > MAX_OUT || p->e < 1 || p->e > EMB_MAX) return -1;
   if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes) return -1;
   if (!p->emb || !p->y || (backward && (!p->dy || !p->demb))) return -1;
-  p->max_pad = OCHUNK;
+  p->max_pad = TC_GROUP;
   for (int l = 0; l < p->n_layers; ++l) {
     const long long* d = desc + HEAD + 13 * l;
     Layer& L = p->layers[l];
@@ -287,7 +249,7 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
     if (l == 0 ? (L.w || !L.x || L.in_pad != 0) : (!L.w || L.in_pad != p->layers[l - 1].out_pad)) return -1;
     if (!hidden && !L.wt) return -1;
     if (hidden) {
-      if (L.out_pad < OCHUNK || L.out_pad % OCHUNK || !L.act) return -1;
+      if (L.out_pad < TC_GROUP || L.out_pad % TC_GROUP || !L.act) return -1;
       if (L.out_pad > p->max_pad) p->max_pad = L.out_pad;
     } else if (L.out_pad != p->n_out || L.x || L.scene_bias || L.dropout) {
       return -1;
@@ -299,16 +261,34 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
   return 0;
 }
 
+// The forward's tiles: each hidden layer l > 0's, in layer order; -1 where
+// a layer is outside the forward (train_fwd_tc.cuh) or the stream's length
+// disagrees.
+static int fwd_tiles(const Plan& p) {
+  int total = 0;
+  for (int l = 0; l < p.n_layers - 1; ++l) {
+    const Layer& L = p.layers[l];
+    const int n = fw_layer_tiles(L.w ? L.in_pad : 0, L.out_pad);
+    if (n < 0) return -1;
+    total += n;
+  }
+  if (p.fwd_len != (long long)total * 2 * TC_TILE || (total > 0 && !p.fwd)) return -1;
+  return total;
+}
+
 extern "C" int train_decoder_fwd(const long long* desc, int len, unsigned seed, unsigned thresh,
                                  float scale, void* stream) {
   Plan p;
   if (parse(desc, len, &p, false)) return -1;
-  const size_t smem = smem_bytes(p.max_pad);
-  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel,
+  const int total = fwd_tiles(p);
+  if (total < 0) return -1;
+  const size_t smem = tc_smem_bytes(p.max_pad);  // max_pad <= TC_MAX_OUT (fwd_tiles)
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_tc_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((p.m + TILE_P - 1) / TILE_P);
-  train_fwd_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(p, seed, thresh, scale);
+  const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
+  train_fwd_tc_kernel<<<blocks, TC_THREADS, smem, (cudaStream_t)stream>>>(p, total, seed, thresh,
+                                                                          scale);
   return (int)cudaGetLastError();
 }
 

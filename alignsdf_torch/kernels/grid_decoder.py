@@ -168,24 +168,31 @@ def tf32_split(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return big, tf32_round(w - big)
 
 
+def tile_halves(halves: torch.Tensor) -> torch.Tensor:
+    """(2, k, out_pad) TF32 halves of a weight matrix, big then small (k a
+    multiple of TC_K, out_pad of TC_GROUP; any strides: a transposed view
+    will do), as grid_trunk_tc.cuh's tiles,
+    flat: for each k step of TC_K (major) and each group of TC_GROUP
+    outputs one tile, big then small, each half laid out [8 outputs][k
+    half][output][4 k], i.e. core matrices of 8 outputs x 16 bytes: the
+    shared-memory image of one wgmma B operand, K-major, without swizzle.
+    One copy."""
+    _, k, out_pad = halves.shape
+    # (half, step, k half, k, group, output group of 8, output) -> (step,
+    # group, half, output group of 8, k half, output, k)
+    return (halves.unflatten(2, (out_pad // TC_GROUP, TC_GROUP // 8, 8))
+            .unflatten(1, (k // TC_K, 2, 4)).permute(1, 4, 0, 5, 2, 6, 3).reshape(-1))
+
+
 def tile_weights(w: torch.Tensor, k: int, out_pad: int) -> torch.Tensor:
     """(k, out_pad) weights, ``w`` in the top-left and zeros elsewhere, split
-    into TF32 halves as grid_trunk_tc.cuh's tiles, flat: for each k step of
-    TC_K (major) and each group of TC_GROUP outputs one tile, big then
-    small, each half laid out [8 outputs][k half][output][4 k], i.e. core
-    matrices of 8 outputs x 16 bytes: the shared-memory image of one wgmma
-    B operand, K-major, without swizzle."""
+    into TF32 halves and laid out as ``tile_halves``."""
     if k % TC_K or out_pad % TC_GROUP:
         raise ValueError(f"a ({k}, {out_pad}) tiling needs k % {TC_K} == 0 and "
                          f"out_pad % {TC_GROUP} == 0")
     full = w.new_zeros(k, out_pad, dtype=torch.float32)
     full[:w.shape[0], :w.shape[1]] = w
-    # (step, k half, k, group, output group of 8, output) -> (step, group,
-    # output group of 8, k half, output, k)
-    halves = [h.view(k // TC_K, 2, 4, out_pad // TC_GROUP, TC_GROUP // 8, 8)
-              .permute(0, 3, 4, 1, 5, 2).reshape(k // TC_K, out_pad // TC_GROUP, -1)
-              for h in tf32_split(full)]
-    return torch.stack(halves, dim=2).reshape(-1)
+    return tile_halves(torch.stack(tf32_split(full)))
 
 
 def epilogue_tile(b: torch.Tensor, x: Optional[torch.Tensor]) -> torch.Tensor:

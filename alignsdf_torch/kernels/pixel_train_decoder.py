@@ -23,7 +23,10 @@ trunk's final-layer input gradient before the last hidden gate
 ``pixel_train_decode`` takes the plain version for a CPU tensor, on which
 autograd gives the gradients.  For a CUDA tensor it runs
 ``PixelTrainDecodeFunction``, whose forward and backward launch the kernels
-or raise.  ``pixel_train_decode.launches`` counts forward launches and
+or raise.  Both run split TF32 on the tensor cores, as K2's: the forward
+(``csrc/train_fwd_tc.cuh``) reads each layer's [W; Lat] tiles, the
+backward's chain their transposes (``train_decoder.layer_tiles``).
+``pixel_train_decode.launches`` counts forward launches and
 ``pixel_train_decode_backward.launches`` backward launches: one each per
 train step, both trunks together.
 """
@@ -38,17 +41,16 @@ import torch
 
 from alignsdf_torch.kernels.grid_decoder import TC_MAX_OUT
 from alignsdf_torch.kernels.train_decoder import (
-    MAX_SMEM,
     PAD,
     _M32,
     _pad2,
     _ptr,
     _round_up,
     _run,
-    chain_stream,
-    chain_tiles,
     dropout_gate,
     gate_threshold,
+    layer_tiles,
+    tile_stream,
 )
 from alignsdf_torch.ops.geometry import bicubic_gather, keys_cubic_grad, keys_cubic_taps
 
@@ -56,7 +58,6 @@ EMB_MAX = 64      # embedding columns the kernels read
 MAX_LAYERS = 8
 MAX_TRUNKS = 2
 MAX_OUT = 2       # outputs of a trunk's last layer
-_TILE_P, _BK = 32, 32
 # the backward chain's tap stage holds a 64-point tile's (64, c_pad + 1)
 # latent gradient and its tap table (26 words a point) in the chain's
 # (TC_MAX_OUT, 64) buffer
@@ -230,7 +231,8 @@ class _Packed(NamedTuple):
     trunks: List[_PackedTrunk]
     c_pad: int
     n_rows: int
-    chain: torch.Tensor   # the backward chain's weight tiles, trunk by trunk (chain_stream)
+    chain: torch.Tensor   # the backward chain's weight tiles, trunk by trunk, last layer first
+    fwd: torch.Tensor     # the forward's weight tiles, trunk by trunk in layer order
 
 
 def _check(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk], st: PixelTrainStatics) -> int:
@@ -268,13 +270,14 @@ def _check(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk], st: PixelTra
 def pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk],
                       st: PixelTrainStatics) -> _Packed:
     """Padded, contiguous copies of every operand (detached) for the kernels,
-    and the backward chain's tiles; raises on what they do not take."""
+    the forward's tiles and the backward chain's; raises on what they do not
+    take."""
     _check(table, mean, xp, yp, mask, emb, trunks, st)
     c = table.shape[2]
     c_pad = _round_up(c, PAD)
     if c_pad > MAX_C_PAD:
         raise ValueError(f"a {c}-channel latent is too wide for the backward chain's tile")
-    packed, runs, row = [], [], 0
+    packed, runs, fwd_runs, row = [], [], [], 0
     for (ws, lats, xs, bs), offset in zip(trunks, st.layer_offsets):
         n_layers, n_out = len(bs), bs[-1].shape[-1]
         w, lat, x, b, out_pads = [], [], [], [], []
@@ -288,24 +291,17 @@ def pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk],
             out_pads.append(out_pad)
             in_pad = out_pad
         if max(out_pads[:-1]) > TC_MAX_OUT:
-            raise ValueError(f"the backward chain takes hidden widths up to {TC_MAX_OUT}")
+            raise ValueError(f"the tensor-core forward and chain take hidden widths up to "
+                             f"{TC_MAX_OUT}")
         wt = [None] * (n_layers - 1) + [w[-1].T.contiguous()]
-        runs += [chain_tiles(w[layer], lat[layer]) for layer in range(n_layers - 2, -1, -1)]
+        tiles = [layer_tiles(w[layer], lat[layer]) for layer in range(n_layers - 1)]
+        fwd_runs += [t[0] for t in tiles]
+        runs += [t[1] for t in reversed(tiles)]
         packed.append(_PackedTrunk(w, wt, lat, x, b, out_pads, n_out, row, offset))
         row += n_out
-    if c_pad + 1 > 2 * max(max(t.out_pads[:-1]) for t in packed):
-        raise ValueError(f"a {c}-channel latent is too wide for the trunks' buffers")
     f32 = lambda t: t.detach().to(torch.float32).contiguous()  # noqa: E731
     return _Packed(f32(table), f32(mean), f32(xp), f32(yp), f32(mask), f32(emb.T), packed,
-                   c_pad, row, chain_stream(runs, emb.device))
-
-
-def smem_bytes(max_pad: int, c_pad: int) -> int:
-    """Dynamic shared memory of one block: two activation buffers, the
-    latent tile, the weight tile, the embedding tile, 8 rows of scratch and
-    the per-point tap table (16 weights, 8 offsets, a flag and a scene)."""
-    return 4 * ((2 * max_pad + c_pad) * _TILE_P + _BK * PAD + EMB_MAX * _TILE_P
-                + 8 * _TILE_P + 26 * _TILE_P)
+                   c_pad, row, tile_stream(runs, emb.device), tile_stream(fwd_runs, emb.device))
 
 
 def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=None,
@@ -320,7 +316,7 @@ def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=N
             _ptr(p.emb_t), _ptr(p.table), _ptr(p.mean), _ptr(p.xp), _ptr(p.yp), _ptr(p.mask),
             _ptr(lat), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dtable), _ptr(dmean), _ptr(dxp),
             _ptr(dyp), _ptr(dx_last), 0 if dx_last is None else dx_last.shape[1],
-            _ptr(dlatent), _ptr(p.chain), p.chain.numel()]
+            _ptr(dlatent), _ptr(p.chain), p.chain.numel(), _ptr(p.fwd), p.fwd.numel()]
     for t, tr in enumerate(p.trunks):
         n_layers = len(tr.b)
         desc += [n_layers, tr.n_out, tr.row_off, tr.layer_off]
@@ -354,13 +350,12 @@ def _lib():
 
 
 def pixel_train_decode_forward(p: _Packed, seed: int, st: PixelTrainStatics):
-    """K4 forward on the card: y (rows, M), per trunk the gated activations
-    of the hidden layers, each (out_pad, M), and the latent (c_pad, M)."""
+    """K4 forward on the card, on the tensor cores
+    (``pixel_train_fwd_tc_kernel``): y (rows, M), per trunk the gated
+    activations of the hidden layers, each (out_pad, M), and the latent
+    (c_pad, M)."""
     e, m = p.emb_t.shape
     dev = p.emb_t.device
-    max_pad = max(max(t.out_pads[:-1]) for t in p.trunks)
-    if smem_bytes(max_pad, p.c_pad) > MAX_SMEM:
-        raise ValueError("hidden width and latent need more shared memory than a block has")
     y = torch.empty((p.n_rows, m), dtype=torch.float32, device=dev)
     acts = [[torch.empty((h, m), dtype=torch.float32, device=dev) for h in t.out_pads[:-1]]
             for t in p.trunks]

@@ -19,7 +19,11 @@ last hidden layer's gate (JAX ``_bwd_kernel_scene`` :637-638).
 
 ``train_decode`` takes the plain version for a CPU tensor, on which autograd
 gives the gradients.  For a CUDA tensor it runs ``TrainDecodeFunction``,
-whose forward and backward launch the kernels or raise.
+whose forward and backward launch the kernels or raise.  Both run split
+TF32 on the tensor cores (``csrc/train_fwd_tc.cuh``, ``csrc/chain_tc.cuh``,
+``csrc/wgrad_tc.cuh``): ``pack_trunk`` splits the hidden weights once a
+call and tiles them as the forward reads them and, transposed, as the
+backward's chain reads them (``layer_tiles``).
 ``train_decode.launches`` counts forward launches and
 ``train_decode_backward.launches`` backward launches: one each per trunk per
 train step.
@@ -33,14 +37,13 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from alignsdf_torch.kernels.grid_decoder import TC_GROUP, TC_MAX_OUT, tile_weights
+from alignsdf_torch.kernels.grid_decoder import TC_GROUP, TC_MAX_OUT, tf32_split, tile_halves
 
-PAD = 256         # hidden widths pad to the kernel's output chunk
+PAD = 256         # hidden widths pad to a multiple of the tensor-core trunk's group
 EMB_MAX = 64      # embedding columns a trunk may read
 MAX_LAYERS = 10
 MAX_OUT = 2       # outputs of the last layer
 MAX_SMEM = 232448
-_TILE_P, _BK = 32, 32
 _M32 = 0xFFFFFFFF
 
 
@@ -171,7 +174,8 @@ class _Packed(NamedTuple):
     b: List[torch.Tensor]               # (B, out_pad) or (out_pad,)
     out_pads: List[int]
     n_scenes: int
-    chain: torch.Tensor                 # the backward chain's weight tiles (chain_stream)
+    chain: torch.Tensor                 # the backward chain's weight tiles, last layer first
+    fwd: torch.Tensor                   # the forward's weight tiles, in layer order
 
 
 def _pad2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -205,35 +209,39 @@ def _check(emb, ws, xs, bs, st: TrainStatics) -> Tuple[int, int]:
     return n_out, n_scenes
 
 
-def chain_tiles(*weights: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """One hidden layer's weight tiles for the backward's reverse chain
-    (``csrc/chain_tc.cuh``): the padded weights that read the layer's
-    inputs, each (rows, out_pad) -- W on its activation, K4's Lat on the
-    latent -- transposed and side by side as the (out_pad, cols) B of dx =
-    dpre @ B, split and tiled by ``tile_weights`` with the layer's out_pad
-    as the depth (the chain's dx rows, then its dlat rows).  None where
-    the layer has none."""
-    parts = [w.T for w in weights if w is not None]
+def layer_tiles(*weights: Optional[torch.Tensor]
+                ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """One hidden layer's weight tiles for the tensor-core forward and
+    backward chain, from one split: the padded weights that read the
+    layer's input rows, each (rows, out_pad) -- W on its activation, then
+    K4's Lat on the latent -- stacked as S (depth, out_pad) and split into
+    TF32 halves once.  Returns (forward's, chain's): ``tile_halves`` of S,
+    the B of acc = [a | lat] @ S with the latent's rows right above the
+    activation's (``csrc/train_fwd_tc.cuh``), and of S^T, the B of dx =
+    dpre @ S^T with the layer's out_pad as the depth, its dx rows, then its
+    dlat rows (``csrc/chain_tc.cuh``).  None where the layer has none
+    (K2's layer 0, which reads the embedding alone)."""
+    parts = [w for w in weights if w is not None]
     if not parts:
         return None
-    b = torch.cat(parts, dim=1)
-    if b.shape[0] > TC_MAX_OUT or b.shape[1] > TC_MAX_OUT or b.shape[1] % TC_GROUP:
-        raise ValueError(f"the backward chain takes layers of at most {TC_MAX_OUT} features "
-                         f"each way, got ({b.shape[0]}, {b.shape[1]})")
-    return tile_weights(b, b.shape[0], b.shape[1])
+    s = torch.cat(parts) if len(parts) > 1 else parts[0]
+    if max(s.shape) > TC_MAX_OUT or s.shape[0] % TC_GROUP or s.shape[1] % TC_GROUP:
+        raise ValueError(f"the tensor-core forward and chain take layers of at most "
+                         f"{TC_MAX_OUT} input rows and outputs, multiples of {TC_GROUP}, got "
+                         f"({s.shape[0]}, {s.shape[1]})")
+    halves = torch.stack(tf32_split(s))
+    return tile_halves(halves), tile_halves(halves.transpose(1, 2))
 
 
-def chain_stream(runs: Sequence[Optional[torch.Tensor]], device: torch.device) -> torch.Tensor:
-    """The chain's tile runs (``chain_tiles``, in the order the chain reads
-    them: each trunk's from its last hidden layer down) as one stream."""
-    runs = [r for r in runs if r is not None]
-    return torch.cat(runs) if runs else torch.zeros(0, dtype=torch.float32, device=device)
+def tile_stream(runs: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """Tile runs as one stream, in the order a kernel reads them."""
+    return torch.cat(list(runs)) if runs else torch.zeros(0, dtype=torch.float32, device=device)
 
 
 def pack_trunk(emb, ws, xs, bs, st: TrainStatics) -> _Packed:
     """Padded, contiguous copies of one trunk's operands (detached) for the
-    kernels, and the backward chain's tiles; raises on what they do not
-    take."""
+    kernels, the forward's tiles and the backward chain's; raises on what
+    they do not take."""
     n_out, n_scenes = _check(emb, ws, xs, bs, st)
     n_layers = len(bs)
     w, x, b, out_pads = [], [], [], []
@@ -249,11 +257,13 @@ def pack_trunk(emb, ws, xs, bs, st: TrainStatics) -> _Packed:
         out_pads.append(out_pad)
         in_pad = out_pad
     if max(out_pads[:-1]) > TC_MAX_OUT:
-        raise ValueError(f"the backward chain takes hidden widths up to {TC_MAX_OUT}")
+        raise ValueError(f"the tensor-core forward and chain take hidden widths up to "
+                         f"{TC_MAX_OUT}")
     wt = [None] * (n_layers - 1) + [w[-1].T.contiguous()]
-    chain = chain_stream([chain_tiles(w[layer]) for layer in range(n_layers - 2, 0, -1)],
-                         emb.device)
-    return _Packed(emb.T.contiguous(), w, wt, x, b, out_pads, n_scenes, chain)
+    tiles = [layer_tiles(w[layer]) for layer in range(1, n_layers - 1)]
+    fwd = tile_stream([t[0] for t in tiles], emb.device)
+    chain = tile_stream([t[1] for t in reversed(tiles)], emb.device)
+    return _Packed(emb.T.contiguous(), w, wt, x, b, out_pads, n_scenes, chain, fwd)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -267,7 +277,8 @@ def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, demb=None, dpre=
     e, m = p.emb_t.shape
     desc = [n_layers, p.out_pads[-1], e, m, st.n_per_scene, p.n_scenes,
             _ptr(p.emb_t), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dx_last),
-            0 if dx_last is None else dx_last.shape[1], _ptr(p.chain), p.chain.numel()]
+            0 if dx_last is None else dx_last.shape[1], _ptr(p.chain), p.chain.numel(),
+            _ptr(p.fwd), p.fwd.numel()]
     in_pad = 0
     for layer in range(n_layers):
         dw, dx, db = grads[layer] if grads is not None else (None, None, None)
@@ -279,10 +290,6 @@ def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, demb=None, dpre=
                  int(layer < n_layers - 1 and st.train and st.dropout[layer])]
         in_pad = p.out_pads[layer]
     return np.ascontiguousarray(desc, np.int64)
-
-
-def smem_bytes(max_pad: int) -> int:
-    return 4 * (2 * max_pad * _TILE_P + _BK * PAD + EMB_MAX * _TILE_P + 8 * _TILE_P)
 
 
 def _lib():
@@ -309,12 +316,11 @@ def _run(name: str, fn, device: torch.device, *args) -> None:
 
 
 def train_decode_forward(p: _Packed, seed: int, st: TrainStatics):
-    """K2 forward on the card: y (n_out, M) and the gated activations of the
-    hidden layers, each (out_pad, M)."""
+    """K2 forward on the card, on the tensor cores (``train_fwd_tc_kernel``):
+    y (n_out, M) and the gated activations of the hidden layers, each
+    (out_pad, M)."""
     e, m = p.emb_t.shape
     dev = p.emb_t.device
-    if smem_bytes(max(p.out_pads[:-1])) > MAX_SMEM:
-        raise ValueError("hidden width needs more shared memory than a block has")
     y = torch.empty((p.out_pads[-1], m), dtype=torch.float32, device=dev)
     acts = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads[:-1]]
     desc = _descriptor(p, st, y, acts)

@@ -13,7 +13,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      full flagship width on a 64^3 grid, TF32 off, max abs err <= 1e-4;
   4. K2 vs plain: both train trunks at full flagship width on 4 scenes x
      2000 points and on the main path's 64 x 2000, TF32 off: y to 1e-4 abs
-     against the plain forward; every
+     against the plain forward and against the float64 forward; the
+     residuals (the tensor-core forward's, csrc/train_fwd_tc.cuh) to 1e-4
+     abs where both sides are positive, flips at ReLU's edge counted and
+     allowed only at values within FLIP_TOL of 0; every
      gradient of the autograd Function to 1e-4 of the largest entry of the
      plain backward's on the same residuals; each dropout layer's kept
      share at 0.8 +- 0.01; the kernel's residuals gated as the plain
@@ -61,7 +64,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      yardstick of the sampling step alone;
  10. pixel training: the --pa_feat flagship at full width through K4: K4
      against its plain version at 4 x 2000 and 64 x 2000 points on the
-     HeadNet map and projection of a synthetic batch (y to 1e-4 abs, every
+     HeadNet map and projection of a synthetic batch (y and the residuals
+     as K2's in 4, against the plain and the float64 forward, every
      gradient to 1e-4 of the largest entry of the plain backward fed the
      kernel's residuals, kept shares 0.8 +- 0.01, the in-image share
      strictly between 0 and 1); the train step through
@@ -176,12 +180,12 @@ TWO_WAYS_GRAD_RTOL = 1e-3
 # the sums of BatchNorm's bias gradients cancel heavily (1.3e-3 seen, led by
 # encoder.bn1.bias); the run prints the plain step's own rounding floor beside it
 TWO_WAYS_GRAD_RTOL_K4 = 1e-2
-K2_FWD_KERNELS = ("train_fwd_kernel",)
+K2_FWD_KERNELS = ("train_fwd_tc_kernel",)
 # the weight-gradient reduction's two kernels, wgrad_tc_kernel and
 # wgrad_tc_kernel_n128 (csrc/wgrad_tc.cuh), share the prefix
 K2_BWD_KERNELS = ("train_bwd_chain_tc_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K4_TOL = 1e-4
-K4_FWD_KERNELS = ("pixel_train_fwd_kernel",)
+K4_FWD_KERNELS = ("pixel_train_fwd_tc_kernel",)
 K4_BWD_KERNELS = ("pixel_train_bwd_chain_tc_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K5_TOL = 1e-4
 K5_FWD_KERNELS = ("generic_train_fwd_kernel",)
@@ -190,6 +194,13 @@ K6_TOL = 1e-4
 TC_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_tc.cuh"  # K1's, K3's and K6's trunk
 WGRAD_SOURCE = "alignsdf_torch/kernels/csrc/wgrad_tc.cuh"  # K2's, K4's and K5's dW reduction
 CHAIN_SOURCE = "alignsdf_torch/kernels/csrc/chain_tc.cuh"  # K2's and K4's backward chain
+FWD_SOURCE = "alignsdf_torch/kernels/csrc/train_fwd_tc.cuh"  # K2's and K4's forward
+# K2's and K4's forwards against the plain forward: a hidden unit whose
+# pre-activation lies within rounding of 0 may be 0 on one side and a tiny
+# positive value on the other (the tensor cores' split TF32 and the plain
+# float32 product round differently); such a flip is allowed where that
+# value is at most FLIP_TOL, a few float32 roundings of the unit's sum
+FLIP_TOL = 1e-5
 CHAIN_PROFILED = 3  # backward calls under the profiler that times a chain apart
 K7_SHAPES = {"train": (TRAIN_SCENES, 64, 128, 128), "serving": (1, 64, 128, 128)}
 K7_GRAD_TOL = 1e-5
@@ -483,6 +494,44 @@ def k2_check(model, specs, dev, gen, scenes: int, x_last: bool = False):
     return trunk_check(k2_kernel(), k2_operands(model, specs, latent, emb), st, dev, gen, x_last)
 
 
+def residual_check(acts_k, acts_ref) -> dict:
+    """A train forward's residuals against the plain forward's gated
+    activations (each (M, out)): the largest abs difference where both are
+    positive, the flips (0 on one side, positive on the other) and the
+    largest value at a flip."""
+    both_err, flips, flip_max = 0.0, 0, 0.0
+    for a_k, a_r in zip(acts_k, acts_ref):
+        pos_k, pos_r = a_k > 0, a_r > 0
+        diff = (a_k - a_r).abs()
+        both, flip = pos_k & pos_r, pos_k != pos_r
+        if bool(both.any()):
+            both_err = max(both_err, float(diff[both].max()))
+        n = int(flip.sum())
+        if n:
+            flips += n
+            flip_max = max(flip_max, float(diff[flip].max()))
+    return {"residual_max_abs_err": both_err, "flips": flips, "flip_max": flip_max}
+
+
+def forward_text(res: dict) -> str:
+    return (f"y vs float64 {res['y_f64_max_abs_err']:.3e}; residuals {res['residual_max_abs_err']:.3e} "
+            f"where both are positive, {res['flips']} flips at ReLU's edge (largest value "
+            f"{res['flip_max']:.3e}, bound {FLIP_TOL:g})")
+
+
+def forward_verdict(res: dict, name: str, tol: float) -> None:
+    """Fail unless the forward's y lies within tol of the float64 forward
+    and its residuals within tol of the plain ones where both are positive,
+    with flips only within FLIP_TOL of 0."""
+    if not (res["y_f64_max_abs_err"] <= tol and res["residual_max_abs_err"] <= tol
+            and res["flip_max"] <= FLIP_TOL):
+        fail(f"{name}'s forward: y or its residuals disagree ({forward_text(res)})")
+
+
+def _f64(ts):
+    return [None if t is None else t.double() for t in ts]
+
+
 def trunk_check(kern, trunks, st, dev, gen, x_last: bool):
     """A K2-convention train kernel (K2, K5) on each trunk [(prefix, seed,
     input, ws, xs, bs)] through its autograd Function against the plain
@@ -498,7 +547,8 @@ def trunk_check(kern, trunks, st, dev, gen, x_last: bool):
     saved = kern.fwd.launches, kern.bwd.launches
     res = {"y_max_abs_err": 0.0, "x_last_max_abs_err": 0.0, "grad_max_rel_err": 0.0,
            "grad_max_abs_err": 0.0, "d_input_max_rel_err": 0.0, "kept_share": {},
-           "residual_sign_mismatch": 0.0}
+           "residual_sign_mismatch": 0.0, "y_f64_max_abs_err": 0.0,
+           "residual_max_abs_err": 0.0, "flips": 0, "flip_max": 0.0}
     for i, (prefix, seed, e, ws, xs, bs) in enumerate(trunks):
         leaves = [t.detach().clone().requires_grad_() for t in [e, *flatten_params(ws, xs, bs)]]
         y, xl = kern.fwd(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
@@ -513,8 +563,16 @@ def trunk_check(kern, trunks, st, dev, gen, x_last: bool):
             res["y_max_abs_err"] = max(res["y_max_abs_err"], float((y - y_ref).abs().max()))
             res["x_last_max_abs_err"] = max(res["x_last_max_abs_err"],
                                             float((xl - xl_ref).abs().max()))
+            y64, _ = kern.plain(e.double(), _f64(ws), _f64(xs), _f64(bs), seed, st)
+            res["y_f64_max_abs_err"] = max(res["y_f64_max_abs_err"],
+                                           float((y.double() - y64).abs().max()))
             y_k, acts = kern.forward(kern.pack(e, ws, xs, bs, st), seed, st)
             acts_k = [a[:r.shape[1]].T for a, r in zip(acts, acts_ref)]
+            rc = residual_check(acts_k, acts_ref)
+            res["residual_max_abs_err"] = max(res["residual_max_abs_err"],
+                                              rc["residual_max_abs_err"])
+            res["flips"] += rc["flips"]
+            res["flip_max"] = max(res["flip_max"], rc["flip_max"])
             d_in, dws, dxs, dbs = kern.plain_backward(e, ws, xs, bs, st, y_k, acts_k, dy, dxl)
             for j, (g, r) in enumerate(zip(grads, [d_in, *flatten_params(dws, dxs, dbs)])):
                 err = float((g - r).abs().max())
@@ -1281,10 +1339,16 @@ def k4_check(inputs, trunks, st, dev, gen, x_last: bool = False):
         res["y_max_abs_err"] = float((y - y_ref).abs().max())
         if dxl is not None:
             res["x_last_max_abs_err"] = float((xl - xl_ref).abs().max())
+        y64, _ = pixel_train_decode_reference(
+            *(t.double() for t in (table, mean, xp, yp)), mask, emb.double(),
+            [tuple(_f64(group) for group in tr) for tr in trunks], seed, st)
+        res["y_f64_max_abs_err"] = float((y.double() - y64).abs().max())
         y_k, acts, lat = pixel_train_decode_forward(
             pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st), seed, st)
         res["latent_max_abs_err"] = float((lat[:c].T - lat_ref[0]).abs().max())
         acts_k = [[a[:r.shape[1]].T for a, r in zip(at, ar)] for at, ar in zip(acts, acts_ref)]
+        res.update(residual_check([a for at in acts_k for a in at],
+                                  [r for ar in acts_ref for r in ar]))
         dtable, dmean, dxp, dyp, demb, g_ref = pixel_train_decode_backward_reference(
             table, mean, xp, yp, mask, emb, trunks, st, y_k, acts_k, lat[:c].T, dy, dxl)
         ref = [dtable, dmean, dxp, dyp, demb, *flatten_pixel_params(g_ref)]
@@ -1467,13 +1531,15 @@ def pixel_train_phase(dev, card: str, gen):
         k4 = k4_check(inputs, trunks, st, dev, gen)
         worst = sorted(k4["grad_rel_err"].items(), key=lambda kv: -kv[1])[:4]
         print(f"K4 y max abs err {k4['y_max_abs_err']:.3e} (tolerance {K4_TOL:g}), latent "
-              f"{k4['latent_max_abs_err']:.3e}; gradients max err {k4['grad_max_abs_err']:.3e} "
+              f"{k4['latent_max_abs_err']:.3e}; {forward_text(k4)}; gradients max err "
+              f"{k4['grad_max_abs_err']:.3e} "
               f"abs, {k4['grad_max_rel_err']:.3e} of the largest (tolerance {K4_TOL:g}; worst "
               + ", ".join(f"{k} {v:.2e}" for k, v in worst) + f"); in-image share "
               f"{k4['in_image_share']:.4f}; kept share {k4['kept_share']}; residual sign "
               f"mismatch {k4['residual_sign_mismatch']:.2e}", flush=True)
         if not (k4["y_max_abs_err"] <= K4_TOL and k4["grad_max_rel_err"] <= K4_TOL):
             fail(f"K4 disagrees with its plain version at {scenes} scenes")
+        forward_verdict(k4, "K4", K4_TOL)
         if not 0.0 < k4["in_image_share"] < 1.0:
             fail(f"the in-image share {k4['in_image_share']} must lie strictly between 0 and 1, "
                  "so that the taps, the mean fallback and d(pix) all run")
@@ -1512,7 +1578,7 @@ def pixel_train_phase(dev, card: str, gen):
             "library_ms": t["library_ms"],
             "library_call": (f"F.grid_sample bicubic {'forward' if name == 'fwd' else 'backward'}"
                              " at the step's points (the sampling step only)"),
-            **backward_entry(t),
+            **({"trunk": FWD_SOURCE} if name == "fwd" else backward_entry(t)),
         })
     return rec, entries
 
@@ -1730,13 +1796,15 @@ def classifier_phase(dev, card: str, gen, mano_faces, pixel: bool = False):
         else:
             tc = k2_check(model, specs, dev, gen, scenes, x_last=True)
         print(f"{train_name} y max abs err {tc['y_max_abs_err']:.3e}, x_last "
-              f"{tc['x_last_max_abs_err']:.3e} (tolerance {K2_TOL:g}); gradients max err "
+              f"{tc['x_last_max_abs_err']:.3e} (tolerance {K2_TOL:g}); {forward_text(tc)}; "
+              f"gradients max err "
               f"{tc['grad_max_abs_err']:.3e} abs, {tc['grad_max_rel_err']:.3e} of the largest "
               f"(tolerance {K2_TOL:g}); kept share {tc['kept_share']}; residual sign mismatch "
               f"{tc['residual_sign_mismatch']:.2e}", flush=True)
         if not (tc["y_max_abs_err"] <= K2_TOL and tc["x_last_max_abs_err"] <= K2_TOL
                 and tc["grad_max_rel_err"] <= K2_TOL):
             fail(f"{train_name} with x_last disagrees with its plain version at {scenes} scenes")
+        forward_verdict(tc, train_name, K2_TOL)
         if not tc["residual_sign_mismatch"] <= 1e-4:
             fail(f"{train_name}'s residuals are not gated as the plain version's")
         rec["train_check"][scenes] = tc
@@ -2797,12 +2865,14 @@ def main(record_path: Optional[str] = None) -> None:
         phase(f"K2 vs plain ({scenes} x {specs.samples_per_scene} points, both trunks, "
               "full flagship width, TF32 off)")
         k2 = k2_check(model, specs, dev, gen, scenes)
-        print(f"K2 y max abs err {k2['y_max_abs_err']:.3e} (tolerance {K2_TOL:g}); gradients "
+        print(f"K2 y max abs err {k2['y_max_abs_err']:.3e} (tolerance {K2_TOL:g}); "
+              f"{forward_text(k2)}; gradients "
               f"max err {k2['grad_max_abs_err']:.3e} abs, {k2['grad_max_rel_err']:.3e} of the "
               f"largest (tolerance {K2_TOL:g}); kept share {k2['kept_share']}; residual sign "
               f"mismatch {k2['residual_sign_mismatch']:.2e}", flush=True)
         if not (k2["y_max_abs_err"] <= K2_TOL and k2["grad_max_rel_err"] <= K2_TOL):
             fail(f"K2 disagrees with its plain version at {scenes} scenes")
+        forward_verdict(k2, "K2", K2_TOL)
         if len(k2["kept_share"]) != 8 or not all(abs(v - 0.8) <= 0.01
                                                  for v in k2["kept_share"].values()):
             fail(f"kept shares off 0.8 +- 0.01: {k2['kept_share']}")
@@ -2979,7 +3049,7 @@ def main(record_path: Optional[str] = None) -> None:
             "library_ms": None,
             "classifier_x_last": {"ms": c2["ms"], "plain_ms": c2["plain_ms"],
                                   "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"]},
-            **backward_entry(t2),
+            **({"trunk": FWD_SOURCE} if name == "fwd" else backward_entry(t2)),
         })
     pt = pcls["grid_timing"]
     kernels["kernels"].append(dict(

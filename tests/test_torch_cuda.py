@@ -1,8 +1,9 @@
 """Kernels K1, K2, K3, K4, K5, K6 and K7 on the card against their plain
 versions (K1, K3 and K6 with the classifier's rows, K2, K4 and K5 with
 x_last / dx_last, K7 forward and backward on tied inputs), and against
-float64 the train backwards' weight-gradient reduction and K2's and K4's
-whole backwards (their chains on the tensor cores).  Needs a CUDA GPU and skips without one; it imports no
+float64 the train backwards' weight-gradient reduction, K2's and K4's
+whole backwards (their chains on the tensor cores) and their forwards (on
+the tensor cores too: y, and the residuals against the plain ones).  Needs a CUDA GPU and skips without one; it imports no
 JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -716,6 +717,108 @@ def test_cuda_pixel_train_chain_matches_float64(model_type, classifier):
         plain = pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb, trunks, st,
                                                       y, acts, lat[:c].T, dy, dxl)
         _within([*plain[:5], *flatten_pixel_params(plain[5])], ref, CHAIN_TOL)
+
+
+# The train forwards on the tensor cores (csrc/train_fwd_tc.cuh) against the
+# plain forward: split TF32 and the plain float32 product round differently,
+# so a hidden unit whose pre-activation lies within rounding of 0 may be 0 on
+# one side and a tiny positive value on the other.  Such a flip is allowed
+# where that value is at most FLIP_TOL, a few float32 roundings of the
+# unit's sum; everywhere else the residuals agree to FWD_TOL.
+FWD_TOL, FLIP_TOL = 1e-4, 1e-5
+
+
+def _residuals_within(acts_k, acts_ref):
+    """The kernel's residuals (out_pad, M) against the plain gated
+    activations (M, out): FWD_TOL where both are positive, flips only at
+    values within FLIP_TOL of 0, zeros in the padding rows; returns the
+    flip count."""
+    flips = 0
+    for a, r in zip(acts_k, acts_ref):
+        assert bool((a[r.shape[1]:] == 0).all())
+        a = a[:r.shape[1]].T
+        both, flip = (a > 0) & (r > 0), (a > 0) != (r > 0)
+        assert float((a - r)[both].abs().max()) <= FWD_TOL
+        if bool(flip.any()):
+            assert float((a - r)[flip].abs().max()) <= FLIP_TOL
+        flips += int(flip.sum())
+    return flips
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_last", [False, True], ids=["flagship", "x_last"])
+@pytest.mark.parametrize("scenes", [4, 64])
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+def test_cuda_train_fwd_matches_plain_and_float64(kernel, scenes, x_last):
+    """K2's and K4's forwards (split TF32 on the tensor cores) at the
+    flagship width on scenes x 2000 points (K4 on a 256 x 64 x 64 map, part
+    of the points outside the image; with x_last, the classifier's trunks):
+    y within FWD_TOL of the plain forward and of the float64 forward,
+    x_last within FWD_TOL of the plain one, the residuals as
+    _residuals_within holds them (the flip count is printed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(31)
+    n, c, m = 2000, 256, scenes * 2000
+    specs = Specs(model_type="1encoder2decoder", encode_style="both", point_feat_size=9,
+                  latent_size=c, pixel_align=kernel == "K4", samples_per_scene=n,
+                  sdf_scale_factor=7.0, image_size=(256, 256), classifier_branch=x_last,
+                  network_specs=NetworkSpecs())
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(31)
+        decoder = make_decoder("1encoder2decoder", c, 9, "both", specs.network_specs,
+                               use_classifier=x_last).cuda()
+    emb = (torch.randn(m, 9, generator=gen) * 0.5).cuda()
+    flips = 0
+    with torch.no_grad():
+        if kernel == "K2":
+            latent = (torch.randn(scenes, c, generator=gen) * 0.5).cuda()
+            st = make_train_decoder(specs).statics
+            first, second = trunk_prefixes(decoder)
+            for i, (prefix, cols, seed) in enumerate(zip((first, second), branch_columns(specs),
+                                                          (5, 6))):
+                ws, xs, bs = trunk_operands(decoder, prefix, len(cols), latent, specs, 1)
+                e = emb[:, list(cols)].contiguous()
+                y, xl = train_decode(e, ws, xs, bs, seed, st)
+                refs = []
+                y_ref, xl_ref = train_decode_reference(e, ws, xs, bs, seed, st, acts=refs)
+                y64, _ = train_decode_reference(e.double(), _f64(ws), _f64(xs), _f64(bs), seed, st)
+                assert float((y - y_ref).abs().max()) <= FWD_TOL
+                assert float((y.double() - y64).abs().max()) <= FWD_TOL
+                if x_last and i == 0:
+                    assert float((xl - xl_ref).abs().max()) <= FWD_TOL
+                _, acts = train_decode_forward(pack_trunk(e, ws, xs, bs, st), seed, st)
+                flips += _residuals_within(acts, refs)
+        else:
+            fmap = (torch.randn(scenes, c, 64, 64, generator=gen) * 0.5).cuda()
+            xyz = (torch.randn(m, 3, generator=gen) * 0.5).cuda()
+            cam = torch.tensor([[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]])
+            root = torch.tensor([[[0.01, -0.02, 0.6]]])
+            st = make_pixel_train_decoder(specs).statics._replace(feat_hw=(64, 64))
+            inputs = (*pixel_train_inputs(fmap, xyz, cam.repeat(scenes, 1, 1).cuda(),
+                                          root.repeat(scenes, 1, 1).cuda(), specs), emb)
+            assert 0.0 < float(inputs[4].mean()) < 1.0
+            trunks = pixel_trunks(decoder, specs, c)
+            y, xl = pixel_train_decode(*inputs, trunks, 9, st)
+            refs, lat_ref = [], []
+            y_ref, xl_ref = pixel_train_decode_reference(*inputs, trunks, 9, st, acts=refs,
+                                                         latent=lat_ref)
+            table, mean, xp, yp, mask, _ = inputs
+            y64, _ = pixel_train_decode_reference(
+                *(t.double() for t in (table, mean, xp, yp)), mask, emb.double(),
+                [tuple(_f64(group) for group in tr) for tr in trunks], 9, st)
+            assert float((y - y_ref).abs().max()) <= FWD_TOL
+            assert float((y.double() - y64).abs().max()) <= FWD_TOL
+            if x_last:
+                assert float((xl - xl_ref).abs().max()) <= FWD_TOL
+            _, acts, lat = pixel_train_decode_forward(
+                pack_pixel_trunks(*inputs, trunks, st), 9, st)
+            assert float((lat[:c].T - lat_ref[0]).abs().max()) <= FWD_TOL
+            for at, ar in zip(acts, refs):
+                flips += _residuals_within(at, ar)
+    print(f"{kernel} forward at {scenes} x {n}{' with x_last' if x_last else ''}: "
+          f"{flips} flips at ReLU's edge")
 
 
 @pytest.mark.cuda
