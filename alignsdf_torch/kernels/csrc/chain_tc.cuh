@@ -1,11 +1,11 @@
-// The train backwards' reverse chain on Hopper's tensor cores (kernels K2
-// and K4; K5 keeps tile_product.cuh).  Per point, for each trunk, from the
-// final layer down:
+// The train backwards' reverse chain on Hopper's tensor cores (kernels K2,
+// K4 and K5).  Per point, for each trunk, from the final layer down:
 //   dpre_last = dy (1 - y^2),
 //   dpre_{l-1} = (dpre_l W_l^T) * gate_{l-1},  gate = (a > 0) s from the
 //                stored gated activation a (s = 1/keep on dropout layers),
 //   d(emb)    = sum over layers with X of dpre_l X_l^T,
-//   dlat      = sum over layers with Lat of dpre_l Lat_l^T (K4),
+//   dlat      = sum over layers with Lat of dpre_l Lat_l^T (K4; K5's
+//               d(head), x0's leading columns, with X_l[:h] as Lat_l),
 // and every dpre_l is written to device memory as (out_pad, M), where the
 // weight-gradient reduction (wgrad_tc.cuh) and colsum read it.
 //
@@ -17,7 +17,8 @@
 // transposed weights as B: for dx the depth is the layer's out-features and
 // the outputs its in-features, so B is tile_weights(W^T) with out_pad as k.
 // K4's latent layers put Lat^T beside W^T, one run of output groups [dx |
-// dlat] (in_pad + c_pad <= 512), so one pass over dpre serves both.  The
+// dlat] (in_pad + c_pad <= 512), so one pass over dpre serves both; K5's
+// layers with X put X[:h]^T there, [dx | d(head)].  The
 // tiles are split and tiled once a step when the trunk is packed, laid out
 // as one stream in the order the chain reads them (each trunk's from its
 // last hidden layer down), and stream through the trunk's ring (tc_fill,
@@ -29,7 +30,8 @@
 // the dx rows with the stored activation, written back and, coalesced, to
 // dpre_{l-1} in device memory (a feature row of 64 points is 256 contiguous
 // bytes); K4's dlat rows are added into a block-owned scratch (c_pad, M) in
-// device memory by plain read-modify-write (no atomics, a fixed order): the
+// device memory by plain read-modify-write (no atomics, a fixed order), K5's
+// d(head) rows so into its d(x0) (e, M): the
 // buffer (128 KB) and the ring (88 KB) leave no room for a 64 KB dlat
 // accumulator, and a ring shorter than the trunk's tuned 11 slots is untried.
 // The gate's rows are prefetched into L2 when the layer's products start,
@@ -300,8 +302,10 @@ __device__ __forceinline__ void ch_add_rows(float* buf, const float* __restrict_
   }
 }
 
-// d(emb) (M, e) of the layer whose dpre fills buffer rows [0, out_pad):
-// demb[p][c] (+)= sum_o x[c][o] dpre[o][p], x (e, out_pad).  Warp w sums an
+// d(emb) of the layer whose dpre fills buffer rows [0, out_pad): demb[p][c]
+// (+)= sum_o x[c][o] dpre[o][p], x (e, out_pad), entry (p, c) at demb + p
+// ld_p + c ld_c (K2's and K4's (M, e): ld_p = e, ld_c = 1; K5's tail of its
+// (e, M) d(x0): ld_p = 1, ld_c = M).  Warp w sums an
 // eighth of the features (len <= 64 of them), a lane a point and the point
 // 32 on, CH_EMB columns a round; the warp's x for the round sits in its
 // lanes' registers (feature o0 + lane and o0 + 32 + lane) and reaches every
@@ -309,8 +313,8 @@ __device__ __forceinline__ void ch_add_rows(float* buf, const float* __restrict_
 // meet in red.  `store`: the first layer with x stores, the later ones add
 // (each entry by the same thread).
 __device__ void ch_demb(const float* buf, int out_pad, const float* __restrict__ x, int e,
-                        float* __restrict__ demb, bool store, int m, int first, float* red,
-                        int tid) {
+                        float* __restrict__ demb, size_t ld_p, size_t ld_c, bool store, int m,
+                        int first, float* red, int tid) {
   if (CH_PROBE & 4) return;
   const int lane = tid & 31, warp = tid >> 5;
   const int len = out_pad / CH_WARPS, o0 = warp * len;
@@ -350,7 +354,7 @@ __device__ void ch_demb(const float* buf, int out_pad, const float* __restrict__
         float v = 0.f;
 #pragma unroll
         for (int w = 0; w < CH_WARPS; ++w) v += red[(w * CH_EMB + j) * TC_P + pp];
-        float* out = demb + (size_t)(first + pp) * e + c;
+        float* out = demb + (size_t)(first + pp) * ld_p + (size_t)c * ld_c;
         *out = store ? v : *out + v;
       }
     }

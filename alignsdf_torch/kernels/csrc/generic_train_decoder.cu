@@ -19,57 +19,82 @@
 // embedding, besides dW, dX and db.
 //
 // What bounds it: arithmetic.  The flagship trunk with latent_in (0, 2)
-// (rows of 262, hidden 512 -> 250 -> 512 -> 512 -> 1) costs 786,944
-// multiply-adds per point forward in the summed form and twice that
-// backward (d(input) and dW of every product), against ~9 KB of residuals
-// written and read per point: the card's float32 FMA rate bounds both
-// directions (TF32 stays off so results match the plain version to float32
-// rounding); the backward's weight-gradient reduction runs split TF32 on
-// wgmma (wgrad_tc.cuh).
+// (rows of 262, hidden 512 -> 250 -> [250 + 262] -> 512 -> 512 -> 1) costs
+// 786,944 multiply-adds a point forward (0.403 TFLOP a step of two trunks
+// over 128,000 points, split TF32 2.44 ms at the tensor cores' dense TF32
+// rate) and twice that backward (the chain's d(input) and the reductions'
+// dW), against ~9 KB of residuals written and read a point.  That is K4's
+// work at its flagship widths, with x0's leading 256 columns where K4's
+// latent goes, so K5 runs K4's design.
 //
-// Design: K2's former one (train_decoder.cu, before K2's forward and chain
-// moved to the tensor cores, train_fwd_tc.cuh and chain_tc.cuh), with the
-// input products through the streamed tile product of tile_product.cuh,
-// since K2's per-column loop over at most 64 embedding columns would not do
-// for 262-319.
-//  - Forward: a block of 256 threads owns 32 points and stages their x0 in
-//    shared memory as [column][point] (from x0 feature-major (e, M), so the
-//    loads coalesce; zero to e_pad, a multiple of 32): 40 KB at 319.
-//  - Backward 1, the reverse chain per 32-point tile: K2's former design
-//    (K2's and K4's chains now run on chain_tc.cuh), and where a
-//    layer has X, d(x0)^T += X_l . dpre_l through the tile product on the
-//    transposed X (out_pad, e_tpad), e_tpad a multiple of 256 (the product's
-//    output chunk), added into dx0t (e, M) in device memory: each thread
-//    adds to the same entries at every such layer, and no other block
-//    touches the tile's points.
-//  - Backward 2 and 3: the split-K weight reductions on the tensor cores
-//    (dW from the residuals, dX from x0^T; wgrad_tc.cuh) and the bias sums
-//    of train_common.cuh.
+// The head and the tail.  The pack splits x0's columns once at a head width
+// h (generic_train_decoder.py:head_width): the head, x0's first h columns
+// (the latent at the flagship: h = 256), enters the tensor-core products;
+// the tail, the other e - h columns (the embedding: 6 at the flagship, 63
+// at --point_size 63), enters on the CUDA cores as K2's and K4's embedding
+// does.  A layer with X runs one product over [activation; head] against
+// the tiles of [W_l; X_l[:h]] (K4's [W; Lat]); h_pad, h rounded up to the
+// tensor cores' 128-column group, is chosen so that in_pad + h_pad <= 512,
+// the buffer's rows, at every such layer.  The tail's rows of X stay
+// float32.
+//
+// Forward (generic_train_fwd_tc_kernel, train_fwd_tc.cuh): K4's tensor-core
+// forward without the gather.  A block of 256 threads owns 64 points; their
+// activations stay in one shared-memory buffer as [feature][point].  Before
+// a layer with X the block loads its points' head rows from x0 (e, M) into
+// the buffer rows right above the activation rows (layer 0 reads the head
+// alone), zeros the head's padding rows, and runs the layer's product
+// against its tiles streamed through the trunk's ring; the epilogue adds the
+// tail's columns (x0's rows h.. read through L1), the bias, ReLU and the
+// gate, and a coalesced pass stores the gated activation to device memory
+// as the residual (out_pad, M).  The final rows (1-2) stay float32 dot
+// products on the CUDA cores, then tanh.
+//
+// Backward:
+//  1. generic_train_bwd_chain_tc_kernel, per 64-point tile: K4's reverse
+//     chain (chain_tc.cuh) without the tap stage.  From dy and y it forms
+//     every layer's pre-activation gradient dpre in shared memory, going
+//     back through one product a layer on the tensor cores: [W^T | X_head^T]
+//     as one run of output groups, [dx | d(head)] (layer 2 at the flagship:
+//     256 + 256, four groups; layer 0: d(head) alone, two groups).  The dx
+//     rows are gated into dpre_{l-1} and written to device memory; the head
+//     rows are added into dx0 (e, M) by plain read-modify-write in a fixed
+//     order (the last layer with X first; each 16-byte run by one thread, no
+//     atomics), the tail's columns of d(x0) on the CUDA cores (ch_demb).
+//  2. wgrad_tc_kernel (wgrad_tc.cuh): dW_l from the residuals and dX_l from
+//     x0 (e, M), split TF32 on the tensor cores; colsum_kernel: db_l.
+// One call of generic_train_decoder_bwd enqueues all of these on one stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "train_common.cuh"  // gate_hash, wgrad / colsum; tile_product.cuh's tile product
+#include "chain_tc.cuh"      // the backward's reverse chain on the tensor cores
+#include "train_common.cuh"  // gate_mix, wgrad / colsum
+#include "train_fwd_tc.cuh"  // the forward on the tensor cores
 
 #define MAX_LAYERS 10
 #define MAX_OUT 2
 
 struct Layer {
-  const float *w, *wt, *x, *xt, *b;  // w (in_pad, out_pad), wt its transpose; x (e_pad, out_pad),
-                                     // xt (out_pad, e_tpad)
-  float *act, *dpre;                 // residual (out_pad, M), pre-activation grad (out_pad, M)
-  float *dw, *dx, *db;               // gradients: (in_pad, out_pad), (e, out_pad), (out_pad,)
-  int in_pad, out_pad, dropout;
+  const float *w, *wt;     // w (in_pad, out_pad); wt its transpose (final layer, the forward's)
+  const float *tail, *b;   // the tail's rows of X (e - h, out_pad) or null; bias (out_pad)
+  float *act, *dpre;       // residual (out_pad, M), pre-activation grad (out_pad, M)
+  float *dw, *dx, *db;     // gradients: (in_pad, out_pad), (e, out_pad), (out_pad)
+  int in_pad, out_pad, has_x, dropout;  // has_x: the layer reads x0 (head and tail)
 };
 
 struct Plan {
-  int n_layers, n_out, e, e_pad, e_tpad, m, max_pad;
+  int n_layers, n_out, e, h, h_pad, m;
   const float* x0;       // (e, M)
   float* y;              // (n_out, M)
   const float* dy;       // (n_out, M)
-  float* dx0;            // (e, M), accumulated: holds zeros at launch
+  float* dx0;            // (e, M)
   const float* dx_last;  // (M, xl_w) or null
   int xl_w;
+  const float* tiles;    // the backward chain's weight tiles (chain_tc.cuh)
+  long long tiles_len;   // their floats
+  const float* fwd;      // the forward's weight tiles (train_fwd_tc.cuh)
+  long long fwd_len;     // their floats
   Layer layers[MAX_LAYERS];
 };
 
@@ -77,225 +102,164 @@ struct Plan {
 // forward
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-generic_train_fwd_kernel(const Plan p, unsigned seed, unsigned thresh, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* act0 = smem;
-  float* act1 = act0 + p.max_pad * TILE_P;
-  float* ws = act1 + p.max_pad * TILE_P;
-  float* x0s = ws + BK * OCHUNK;          // [e_pad][TILE_P]
-  float* red = x0s + p.e_pad * TILE_P;    // [8][TILE_P]
+// Buffer rows [row0, row0 + rows) to zero: the head's padding rows, which the
+// tiles weigh 0, but which must hold no NaN for 0 x value to be 0.
+__device__ __forceinline__ void fw_zero(float* buf, int row0, int rows, int tid) {
+  for (int i = tid; i < rows * (TC_P / 4); i += TC_THREADS)
+    *reinterpret_cast<float4*>(buf + tc_swz(row0 + (i >> 4), (i & 15) << 2)) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+}
 
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int first = blockIdx.x * TILE_P;
-  for (int i = tid; i < p.e_pad * TILE_P; i += NTHREADS) {
-    const int c = i / TILE_P, q = i % TILE_P;
-    x0s[i] = (c < p.e && first + q < p.m) ? __ldg(p.x0 + (size_t)c * p.m + first + q) : 0.f;
-  }
+__global__ void __launch_bounds__(TC_THREADS, 1)
+generic_train_fwd_tc_kernel(const Plan p, int rows, int total, unsigned seed, unsigned thresh,
+                            float scale) {
+  extern __shared__ __align__(128) float smem[];
+  const TcShared s = tc_shared(smem, rows);
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
+  const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
+  const int first = blockIdx.x * TC_P;
+  const TcPlan plan = fw_stream(total);
+  FwClock clk;
+  if (tid == 0) fw_init(p.fwd, plan, s, total);
   __syncthreads();
+  clk.tick(0);
 
-  float* cur = act0;
-  float* nxt = act1;
+  const int ra = first + p0, rb = ra + 8;
+  const float* tail = p.x0 + (size_t)p.h * p.m + first;  // the block's first tail column
+  float acc0[64], acc1[64];
+  int slot = 0;
   for (int l = 0; l < p.n_layers - 1; ++l) {
     const Layer& L = p.layers[l];
-    for (int oc = 0; oc < L.out_pad; oc += OCHUNK) {
-      float acc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      if (L.w) tile_product(acc, L.w, L.out_pad, L.in_pad, cur, ws, oc, tid);
-      if (L.x) tile_product(acc, L.x, L.out_pad, p.e_pad, x0s, ws, oc, tid);
-      const int row0 = first + tx * 4;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int o = oc + ty * 8 + i;
-        const float bias = __ldg(L.b + o);
-        float r[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float v = fmaxf(acc[i][j] + bias, 0.f);
-          if (L.dropout)
-            v = gate_hash(seed, (unsigned)l, (unsigned)(row0 + j), (unsigned)o) < thresh ? v * scale
-                                                                                         : 0.f;
-          r[j] = v;
-        }
-        const float4 rv = make_float4(r[0], r[1], r[2], r[3]);
-        *reinterpret_cast<float4*>(nxt + o * TILE_P + tx * 4) = rv;
-        if (row0 < p.m) *reinterpret_cast<float4*>(L.act + (size_t)o * p.m + row0) = rv;
-      }
+    const int act_rows = L.w ? L.in_pad : 0, head_rows = L.has_x ? p.h_pad : 0;
+    if (head_rows > 0) {
+      // the head above the activation rows (no warp reads those rows now:
+      // the previous layer's store pass reads rows below act_rows)
+      if (!(FW_PROBE & 8)) fw_load(s.act, act_rows, p.h, p.x0, p.m, first, tid);
+      fw_zero(s.act, act_rows + p.h, head_rows - p.h, tid);
+      __syncthreads();
+      clk.tick(1);
     }
-    __syncthreads();  // `nxt` is complete before the next layer reads it
-    float* t = cur; cur = nxt; nxt = t;
+    const int groups = L.out_pad / TC_GROUP, depth = act_rows + head_rows;
+    fw_product(acc0, acc1, depth, groups, slot, p.fwd, plan, s, total, wg, wt, p0, t4);
+    slot += depth / TC_K * groups;
+    __syncthreads();  // every warp is done reading the layer's input
+    clk.tick(2);
+    const unsigned ka = fw_key(seed, (unsigned)l, (unsigned)ra);
+    const unsigned kb = fw_key(seed, (unsigned)l, (unsigned)rb);
+    if (groups > wg)
+      fw_epilogue(acc0, wg, L.tail, p.e - p.h, L.out_pad, tail, p.m, ra < p.m, rb < p.m, L.b, L.b,
+                  L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+    if (groups > wg + 2)
+      fw_epilogue(acc1, wg + 2, L.tail, p.e - p.h, L.out_pad, tail, p.m, ra < p.m, rb < p.m, L.b,
+                  L.b, L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+    __syncthreads();
+    clk.tick(3);
+    fw_store(s.act, L.out_pad, L.act, p.m, first, true, tid);
+    clk.tick(4);
   }
-
-  // last layer: y[r][p] = tanh(sum_k wt[r][k] cur[k][p] + b[r]).  Warp w sums
-  // row w/4 over k = w%4 (mod 4); lanes are points.
-  const Layer& L = p.layers[p.n_layers - 1];
-  const int pt = tid & 31, w = tid >> 5, r = w >> 2, part = w & 3;
-  if (r < p.n_out) {
-    const float* f = L.wt + (size_t)r * L.in_pad;
-    float s = 0.f;
-    for (int k = part; k < L.in_pad; k += 4) s = fmaf(__ldg(f + k), cur[k * TILE_P + pt], s);
-    red[w * TILE_P + pt] = s;
-  }
-  __syncthreads();
-  if (tid < p.n_out * TILE_P) {
-    const int rr = tid / TILE_P, pp = tid % TILE_P;
-    const float v = red[(rr * 4 + 0) * TILE_P + pp] + red[(rr * 4 + 1) * TILE_P + pp]
-                  + red[(rr * 4 + 2) * TILE_P + pp] + red[(rr * 4 + 3) * TILE_P + pp];
-    if (first + pp < p.m) p.y[(size_t)rr * p.m + first + pp] = tanhf(v + __ldg(L.b + rr));
-  }
+  const Layer& F = p.layers[p.n_layers - 1];
+  fw_final(F.wt, F.b, p.n_out, F.in_pad, s.act, s.red, p.y, p.m, first, tid);
+  clk.tick(5);
+  clk.flush(tid);
 }
 
 // ---------------------------------------------------------------------------
-// backward 1: the reverse chain per point tile
+// backward 1: the reverse chain per 64-point tile, on the tensor cores
 // ---------------------------------------------------------------------------
 
-// dx0t[c][first + p] += sum_o X[c][o] d[o][p] for the tile, through xt
-// (out_pad, e_tpad): the tile product's 256-column chunks of the input row.
-__device__ __forceinline__ void add_input_grad(const Plan& p, const Layer& L, const float* d,
-                                               float* ws, int first, int tid) {
-  const int tx = tid & 7, ty = tid >> 3;
-  const int row0 = first + tx * 4;
-  for (int oc = 0; oc < p.e_tpad; oc += OCHUNK) {
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    tile_product(acc, L.xt, p.e_tpad, L.out_pad, d, ws, oc, tid);
-    if (row0 >= p.m) continue;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = oc + ty * 8 + i;
-      if (c >= p.e) continue;
-      float4* dst = reinterpret_cast<float4*>(p.dx0 + (size_t)c * p.m + row0);
-      float4 v = *dst;
-      v.x += acc[i][0]; v.y += acc[i][1]; v.z += acc[i][2]; v.w += acc[i][3];
-      *dst = v;
-    }
-  }
-}
+__global__ void __launch_bounds__(TC_THREADS, 1)
+generic_train_bwd_chain_tc_kernel(const Plan p, int total, float scale) {
+  extern __shared__ __align__(128) float smem[];
+  const ChShared s = ch_shared(smem);
+  float* buf = s.tc.act;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
+  const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
+  const int first = blockIdx.x * TC_P;
+  const TcPlan plan = ch_stream(total);
+  ChClock clk;
+  if (tid == 0) ch_init(p.tiles, plan, s.tc, total);
+  clk.tick(0);
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-generic_train_bwd_chain_kernel(const Plan p, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* d0 = smem;
-  float* d1 = d0 + p.max_pad * TILE_P;
-  float* ws = d1 + p.max_pad * TILE_P;
-  float* g = ws + BK * OCHUNK;    // [n_out][TILE_P]
-
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int first = blockIdx.x * TILE_P;
-
-  // last layer: dpre = dy * (1 - y^2)
+  // the final layer, then its input's gradient (plus dx_last) gated by the
+  // last hidden layer's recovered gate
   const int last = p.n_layers - 1;
   const Layer& F = p.layers[last];
-  if (tid < p.n_out * TILE_P) {
-    const int r = tid / TILE_P, q = tid % TILE_P, row = first + q;
-    float v = 0.f;
-    if (row < p.m) {
-      const float yv = p.y[(size_t)r * p.m + row];
-      v = p.dy[(size_t)r * p.m + row] * (1.f - yv * yv);
-      F.dpre[(size_t)r * p.m + row] = v;
-    }
-    g[tid] = v;
-  }
-  __syncthreads();
-
-  // its input's gradient (plus dx_last), gated by the last hidden layer's
-  // recovered gate; without dx_last the product and the gate share one loop
   const Layer& H = p.layers[last - 1];
-  const float hs = H.dropout ? scale : 1.f;
+  ch_prefetch(H.act, F.in_pad, p.m, first, tid);
+  ch_final(p.y, p.dy, F.dpre, F.w, p.n_out, F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid);
   if (p.dx_last) {
-    for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
-      const int k = i / TILE_P, q = i % TILE_P;
-      float dx = 0.f;
-      for (int r = 0; r < p.n_out; ++r) dx = fmaf(__ldg(F.w + (size_t)k * p.n_out + r), g[r * TILE_P + q], dx);
-      d0[i] = dx;
-    }
     __syncthreads();
-    add_transposed(d0, p.dx_last, p.xl_w, p.m, first, tid);
-    __syncthreads();
-  }
-  for (int i = tid; i < F.in_pad * TILE_P; i += NTHREADS) {
-    const int k = i / TILE_P, q = i % TILE_P, row = first + q;
-    float dx = 0.f;
-    if (p.dx_last) {
-      dx = d0[i];
-    } else {
-      for (int r = 0; r < p.n_out; ++r) dx = fmaf(__ldg(F.w + (size_t)k * p.n_out + r), g[r * TILE_P + q], dx);
-    }
-    float v = 0.f;
-    if (row < p.m) {
-      v = H.act[(size_t)k * p.m + row] > 0.f ? dx * hs : 0.f;
-      H.dpre[(size_t)k * p.m + row] = v;
-    }
-    d0[i] = v;
+    ch_add_rows(buf, p.dx_last, p.xl_w, p.m, first, tid);
   }
   __syncthreads();
+  clk.tick(1);
+  ch_gate(buf, F.in_pad, H.act, H.dropout ? scale : 1.f, H.dpre, p.m, first, tid);
+  __syncthreads();
+  clk.tick(2);
 
-  float* cur = d0;
-  float* nxt = d1;
+  // hidden layer l: one product of dpre_l with [W_l^T | X_l[:h]^T], the dx
+  // rows gated into dpre_{l-1}, the head rows added into dx0; the tail's
+  // d(x0) from dpre_l on the CUDA cores
+  float* dtail = p.dx0 + (size_t)p.h * p.m;
+  float acc0[64], acc1[64];
+  int slot = 0;
+  bool stored = false;  // dx0 holds a layer's sums: later layers add to them
   for (int l = last - 1; l >= 0; --l) {
     const Layer& L = p.layers[l];
-    if (L.x) add_input_grad(p, L, cur, ws, first, tid);
-    if (l == 0) break;
-    const Layer& P = p.layers[l - 1];
-    const float ps = P.dropout ? scale : 1.f;
-    // dx[k][p] = sum_o W[k][o] cur[o][p] through wt (out_pad, in_pad)
-    for (int oc = 0; oc < L.in_pad; oc += OCHUNK) {
-      float acc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      tile_product(acc, L.wt, L.in_pad, L.out_pad, cur, ws, oc, tid);
-      const int row0 = first + tx * 4;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int k = oc + ty * 8 + i;
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row0 < p.m) a = *reinterpret_cast<const float4*>(P.act + (size_t)k * p.m + row0);
-        const float4 rv = make_float4(a.x > 0.f ? acc[i][0] * ps : 0.f,
-                                      a.y > 0.f ? acc[i][1] * ps : 0.f,
-                                      a.z > 0.f ? acc[i][2] * ps : 0.f,
-                                      a.w > 0.f ? acc[i][3] * ps : 0.f);
-        *reinterpret_cast<float4*>(nxt + k * TILE_P + tx * 4) = rv;
-        if (row0 < p.m) *reinterpret_cast<float4*>(P.dpre + (size_t)k * p.m + row0) = rv;
-      }
+    const int dx_rows = l > 0 ? L.in_pad : 0, head_rows = L.has_x ? p.h_pad : 0;
+    const int groups = (dx_rows + head_rows) / TC_GROUP;
+    if (dx_rows > 0) ch_prefetch(p.layers[l - 1].act, dx_rows, p.m, first, tid);
+    ch_product(acc0, acc1, L.out_pad, groups, slot, p.tiles, plan, s.tc, total, wg, wt, p0, t4);
+    slot += L.out_pad / TC_K * groups;
+    if (L.tail) {
+      __syncthreads();
+      clk.tick(3);
+      ch_demb(buf, L.out_pad, L.tail, p.e - p.h, dtail, 1, p.m, !stored, p.m, first, s.red,
+              tid);
+      clk.tick(4);
     }
-    __syncthreads();
-    float* t = cur; cur = nxt; nxt = t;
+    if (groups > 0) {
+      __syncthreads();  // every warp is done reading dpre_l
+      clk.tick(3);
+      ch_store_groups(acc0, acc1, groups, buf, wg, p0, t4);
+      __syncthreads();
+      clk.tick(5);
+      if (dx_rows > 0) {
+        const Layer& P = p.layers[l - 1];
+        ch_gate(buf, dx_rows, P.act, P.dropout ? scale : 1.f, P.dpre, p.m, first, tid);
+      }
+      clk.tick(2);
+      if (head_rows > 0) ch_accumulate(buf, dx_rows, p.h, p.dx0, !stored, p.m, first, tid);
+      __syncthreads();
+      clk.tick(6);
+    }
+    stored = stored || L.has_x;
   }
+  clk.flush(tid);
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-static size_t fwd_smem_bytes(int max_pad, int e_pad) {
-  return sizeof(float) * ((size_t)2 * max_pad * TILE_P + BK * OCHUNK + (size_t)e_pad * TILE_P +
-                          8 * TILE_P);
-}
-
-static size_t bwd_smem_bytes(int max_pad) {
-  return sizeof(float) * ((size_t)2 * max_pad * TILE_P + BK * OCHUNK + MAX_OUT * TILE_P);
-}
-
-// desc (int64): [n_layers, n_out, e, e_pad, e_tpad, m, x0, y, dy, dx0,
-// dx_last, xl_w, then per layer: w, wt, x, xt, b, act, dpre, dw, dx, db,
-// in_pad, out_pad, dropout].  Pointers are device addresses, 0 = absent.
-#define HEAD 12
+// desc (int64): [n_layers, n_out, e, h, h_pad, m, x0, y, dy, dx0, dx_last,
+// xl_w, tiles, tiles_len, fwd, fwd_len, then per layer: w, wt, tail, b, act,
+// dpre, dw, dx, db, in_pad, out_pad, has_x, dropout].  Pointers are device
+// addresses, 0 = absent; wt only on the final layer; tail (e - h, out_pad)
+// where the layer has X and x0 a tail.  The tiles (the backward's) run from
+// the last hidden layer down, each layer's tile_weights([W^T | X[:h]^T]) of
+// depth out_pad (W^T where l > 0, X[:h]^T where it has X and h > 0); the
+// forward's (fwd) in layer order, each layer's tile_weights([W; X[:h]]) of
+// depth in_pad + h_pad.
+#define HEAD 16
 #define PER_LAYER 13
 static int parse(const long long* desc, int len, Plan* p, bool backward) {
   if (len < HEAD) return -1;
   p->n_layers = (int)desc[0];
   p->n_out = (int)desc[1];
   p->e = (int)desc[2];
-  p->e_pad = (int)desc[3];
-  p->e_tpad = (int)desc[4];
+  p->h = (int)desc[3];
+  p->h_pad = (int)desc[4];
   p->m = (int)desc[5];
   p->x0 = (const float*)desc[6];
   p->y = (float*)desc[7];
@@ -303,62 +267,108 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
   p->dx0 = (float*)desc[9];
   p->dx_last = (const float*)desc[10];
   p->xl_w = (int)desc[11];
+  p->tiles = (const float*)desc[12];
+  p->tiles_len = desc[13];
+  p->fwd = (const float*)desc[14];
+  p->fwd_len = desc[15];
   if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != HEAD + PER_LAYER * p->n_layers)
     return -1;
-  if (p->n_out < 1 || p->n_out > MAX_OUT || p->e < 1) return -1;
-  if (p->e_pad != (p->e + BK - 1) / BK * BK || p->e_tpad != (p->e + OCHUNK - 1) / OCHUNK * OCHUNK)
-    return -1;
+  if (p->n_out < 1 || p->n_out > MAX_OUT || p->e < 1 || p->h < 0 || p->h > p->e) return -1;
+  if (p->h_pad != (p->h + TC_GROUP - 1) / TC_GROUP * TC_GROUP) return -1;
   if (p->m <= 0 || p->m % 4) return -1;
   if (!p->x0 || !p->y || (backward && (!p->dy || !p->dx0))) return -1;
-  p->max_pad = OCHUNK;
   for (int l = 0; l < p->n_layers; ++l) {
     const long long* d = desc + HEAD + PER_LAYER * l;
     Layer& L = p->layers[l];
-    L.w = (const float*)d[0]; L.wt = (const float*)d[1]; L.x = (const float*)d[2];
-    L.xt = (const float*)d[3]; L.b = (const float*)d[4]; L.act = (float*)d[5];
-    L.dpre = (float*)d[6]; L.dw = (float*)d[7]; L.dx = (float*)d[8]; L.db = (float*)d[9];
-    L.in_pad = (int)d[10]; L.out_pad = (int)d[11]; L.dropout = (int)d[12];
+    L.w = (const float*)d[0]; L.wt = (const float*)d[1]; L.tail = (const float*)d[2];
+    L.b = (const float*)d[3]; L.act = (float*)d[4]; L.dpre = (float*)d[5];
+    L.dw = (float*)d[6]; L.dx = (float*)d[7]; L.db = (float*)d[8];
+    L.in_pad = (int)d[9]; L.out_pad = (int)d[10]; L.has_x = (int)d[11]; L.dropout = (int)d[12];
     const bool hidden = l < p->n_layers - 1;
     if (!L.b) return -1;
-    if (l == 0 ? (L.w || !L.x || L.in_pad != 0) : (!L.w || !L.wt || L.in_pad != p->layers[l - 1].out_pad)) return -1;
+    if (l == 0 ? (L.w || !L.has_x || L.in_pad != 0)
+               : (!L.w || L.in_pad != p->layers[l - 1].out_pad)) return -1;
+    if (!hidden && !L.wt) return -1;
+    // the tail's rows exactly where the layer reads x0 and x0 has a tail
+    if (!L.tail != !(L.has_x && p->h < p->e)) return -1;
     if (hidden) {
-      if (L.out_pad < OCHUNK || L.out_pad % OCHUNK || !L.act) return -1;
-      if (L.out_pad > p->max_pad) p->max_pad = L.out_pad;
-    } else if (L.out_pad != p->n_out || L.x || L.dropout) {
+      if (L.out_pad < TC_GROUP || L.out_pad % TC_GROUP || !L.act) return -1;
+    } else if (L.out_pad != p->n_out || L.has_x || L.dropout) {
       return -1;
     }
-    if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.x && (!L.dx || !L.xt)))) return -1;
+    if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.has_x && !L.dx))) return -1;
   }
   if (p->dx_last && (!backward || p->xl_w < 1 || p->xl_w > p->layers[p->n_layers - 1].in_pad))
     return -1;
   return 0;
 }
 
+// The forward's tiles, in layer order; -1 where a layer is outside the
+// forward (train_fwd_tc.cuh) or the stream's length disagrees.  *rows: the
+// buffer rows the widest layer needs (its depth or its width).
+static int fwd_tiles(const Plan& p, int* rows) {
+  int total = 0;
+  *rows = TC_GROUP;
+  for (int l = 0; l < p.n_layers - 1; ++l) {
+    const Layer& L = p.layers[l];
+    const int depth = (L.w ? L.in_pad : 0) + (L.has_x ? p.h_pad : 0);
+    const int n = fw_layer_tiles(depth, L.out_pad);
+    if (n < 0) return -1;
+    total += n;
+    if (depth > *rows) *rows = depth;
+    if (L.out_pad > *rows) *rows = L.out_pad;
+  }
+  if (p.fwd_len != (long long)total * 2 * TC_TILE || (total > 0 && !p.fwd)) return -1;
+  return total;
+}
+
 extern "C" int generic_train_decoder_fwd(const long long* desc, int len, unsigned seed,
                                          unsigned thresh, float scale, void* stream) {
   Plan p;
   if (parse(desc, len, &p, false)) return -1;
-  const size_t smem = fwd_smem_bytes(p.max_pad, p.e_pad);
-  cudaError_t err = cudaFuncSetAttribute(generic_train_fwd_kernel,
+  int rows;
+  const int total = fwd_tiles(p, &rows);
+  if (total < 0) return -1;
+  const size_t smem = tc_smem_bytes(rows);  // rows <= TC_MAX_OUT (fwd_tiles)
+  cudaError_t err = cudaFuncSetAttribute(generic_train_fwd_tc_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((p.m + TILE_P - 1) / TILE_P);
-  generic_train_fwd_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(p, seed, thresh,
-                                                                              scale);
+  const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
+  generic_train_fwd_tc_kernel<<<blocks, TC_THREADS, smem, (cudaStream_t)stream>>>(
+      p, rows, total, seed, thresh, scale);
   return (int)cudaGetLastError();
 }
 
+// The chain's tiles: each hidden layer's, from the last down; -1 where a
+// layer is outside the chain (chain_tc.cuh) or the stream's length
+// disagrees.
+static int chain_tiles(const Plan& p) {
+  int total = 0;
+  for (int l = p.n_layers - 2; l >= 0; --l) {
+    const Layer& L = p.layers[l];
+    const int n = ch_layer_tiles(L.out_pad, (l > 0 ? L.in_pad : 0) + (L.has_x ? p.h_pad : 0));
+    if (n < 0) return -1;
+    total += n;
+  }
+  if (p.layers[p.n_layers - 1].in_pad > CH_ROWS) return -1;
+  if (p.tiles_len != (long long)total * 2 * TC_TILE || (total > 0 && !p.tiles)) return -1;
+  return total;
+}
+
+// Every dw / dx and db must hold zeros on entry; dx0 need not.
 extern "C" int generic_train_decoder_bwd(const long long* desc, int len, float scale,
                                          void* stream) {
   Plan p;
   if (parse(desc, len, &p, true)) return -1;
+  const int total = chain_tiles(p);
+  if (total < 0) return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = bwd_smem_bytes(p.max_pad);
-  cudaError_t err = cudaFuncSetAttribute(generic_train_bwd_chain_kernel,
+  const size_t smem = ch_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(generic_train_bwd_chain_tc_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((p.m + TILE_P - 1) / TILE_P);
-  generic_train_bwd_chain_kernel<<<blocks, NTHREADS, smem, s>>>(p, scale);
+  const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
+  generic_train_bwd_chain_tc_kernel<<<blocks, TC_THREADS, smem, s>>>(p, total, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   for (int l = 0; l < p.n_layers; ++l) {
@@ -366,7 +376,7 @@ extern "C" int generic_train_decoder_bwd(const long long* desc, int len, float s
     int rc;
     if (L.w && (rc = launch_wgrad(p.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s)))
       return rc;
-    if (L.x && (rc = launch_wgrad(p.x0, L.dpre, L.dx, p.e, L.out_pad, p.m, s))) return rc;
+    if (L.has_x && (rc = launch_wgrad(p.x0, L.dpre, L.dx, p.e, L.out_pad, p.m, s))) return rc;
     if ((rc = launch_colsum(L.dpre, L.db, L.out_pad, p.m, 4096, 0, s))) return rc;
   }
   return 0;

@@ -1,12 +1,11 @@
 // The grid decoders' shared trunk on Hopper's tensor cores (kernels K1, K3
-// and K6; K2's and K4's train forwards and backward chains reuse its ring
-// and k-step loop, train_fwd_tc.cuh and chain_tc.cuh; K5 keeps
-// tile_product.cuh).  A block of TC_THREADS
-// threads owns a tile of TC_P = 64 points.  Their activations stay in one
-// shared-memory buffer as [feature][point] and each hidden layer updates it
-// in place: its two warpgroups hold the layer's whole output for the 64
-// points in registers (wgmma accumulators), and after a barrier write it back
-// over the layer's input.
+// and K6; K2's, K4's and K5's train forwards and backward chains reuse its
+// ring and k-step loop, train_fwd_tc.cuh and chain_tc.cuh).  A block of
+// TC_THREADS threads owns a tile of TC_P = 64 points.  Their activations
+// stay in one shared-memory buffer as [feature][point] and each hidden layer
+// updates it in place: its two warpgroups hold the layer's whole output for
+// the 64 points in registers (wgmma accumulators), and after a barrier write
+// it back over the layer's input.
 //
 // Arithmetic: split TF32 on the tensor cores, accumulated in float32.  Each
 // operand x is split as big = tf32(x), small = tf32(x - big) (round to

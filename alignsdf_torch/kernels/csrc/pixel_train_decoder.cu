@@ -326,7 +326,8 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
       if (L.x) {
         __syncthreads();
         clk.tick(3);
-        ch_demb(buf, L.out_pad, L.x, p.e, p.demb, !demb_stored, p.m, first, s.red, tid);
+        ch_demb(buf, L.out_pad, L.x, p.e, p.demb, p.e, 1, !demb_stored, p.m, first,
+                s.red, tid);
         demb_stored = true;
         clk.tick(4);
       }

@@ -1,6 +1,5 @@
 // The train decoders' shared pieces (kernels K2, K4 and K5): the hash dropout
-// gate, dx_last's transposed add (K5's chain) and the backward's reductions
-// over the points.
+// gate and the backward's reductions over the points.
 //
 // gate_hash is bit for bit the TPU kernels' _dropout_gate: a murmur3-style
 // finalizer of (seed, layer, global row, lane) in uint32 arithmetic; a unit
@@ -17,8 +16,9 @@
 
 #include <cuda_runtime.h>
 
-#include "tile_product.cuh"
 #include "wgrad_tc.cuh"
+
+#define COLSUM_THREADS 256  // colsum_kernel's block: a warp a feature
 
 // The finalizer of gate_hash; the tensor-core forward (train_fwd_tc.cuh)
 // hoists the row's and layer's terms out of its loop over lanes.
@@ -36,31 +36,13 @@ __device__ __forceinline__ unsigned gate_hash(unsigned seed, unsigned layer, uns
   return gate_mix(seed ^ (row * 0x9E3779B1u) ^ (col * 0x85EBCA6Bu) ^ (layer * 0xC2B2AE35u));
 }
 
-// d[k][q] += src[first + q][k] over a tile's points (rows < m) and features
-// k < w, src row-major (M, w): the classifier's dx_last added to the final
-// layer's input gradient.  A lane is a point, each warp takes blocks of 32
-// features, skewed by the lane so that the 32 lanes write 32 banks; a lane's
-// 128-byte row segment stays in L1 across the 32 steps.
-__device__ __forceinline__ void add_transposed(float* d, const float* __restrict__ src, int w,
-                                               int m, int first, int tid) {
-  const int lane = tid & 31, row = first + lane;
-  if (row >= m) return;
-  const float* s = src + (size_t)row * w;
-  for (int k0 = (tid >> 5) * 32; k0 < w; k0 += NTHREADS) {
-    for (int j = 0; j < 32; ++j) {
-      const int k = k0 + ((lane + j) & 31);
-      if (k < w) d[k * TILE_P + lane] += __ldg(s + k);
-    }
-  }
-}
-
 // out[s][o] = sum of d[o][p] over segment s (per_segment: scene tables), or
 // out[o] += that sum (a global bias; out must hold zeros).
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(COLSUM_THREADS)
 colsum_kernel(const float* __restrict__ d, float* __restrict__ out, int rows, int m, int seg,
               int per_segment) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int o = blockIdx.x * (NTHREADS / 32) + warp;
+  const int o = blockIdx.x * (COLSUM_THREADS / 32) + warp;
   if (o >= rows) return;
   const int s = blockIdx.y;
   const int begin = s * seg, end = min(m, begin + seg);
@@ -77,7 +59,7 @@ colsum_kernel(const float* __restrict__ d, float* __restrict__ out, int rows, in
 static int launch_colsum(const float* d, float* out, int rows, int m, int seg, int per_segment,
                          cudaStream_t stream) {
   const unsigned segments = (unsigned)((m + seg - 1) / seg);
-  colsum_kernel<<<dim3((rows + 7) / 8, segments), NTHREADS, 0, stream>>>(d, out, rows, m, seg,
-                                                                         per_segment);
+  colsum_kernel<<<dim3((rows + COLSUM_THREADS / 32 - 1) / (COLSUM_THREADS / 32), segments),
+                  COLSUM_THREADS, 0, stream>>>(d, out, rows, m, seg, per_segment);
   return (int)cudaGetLastError();
 }

@@ -184,7 +184,8 @@ train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int tot
     if (L.x) {
       __syncthreads();
       clk.tick(3);
-      ch_demb(buf, L.out_pad, L.x, p.e, p.demb, !demb_stored, p.m, first, s.red, tid);
+      ch_demb(buf, L.out_pad, L.x, p.e, p.demb, p.e, 1, !demb_stored, p.m, first,
+              s.red, tid);
       demb_stored = true;
       clk.tick(4);
     }

@@ -1,8 +1,10 @@
-// The train forwards of kernels K2 and K4 on Hopper's tensor cores (K5
-// keeps tile_product.cuh).  Per point (row r of M, scene r / nps), for each
-// trunk, hidden layer l computes
-//   acc_l = a_{l-1} W_l (if W) + lat Lat_l (K4's latent layers)
-//           + emb X_l (if X) + b_l[scene] (K2's scene-bias layers) or b_l,
+// The train forwards of kernels K2, K4 and K5 on Hopper's tensor cores.
+// Per point (row r of M, scene r / nps), for each trunk, hidden layer l
+// computes
+//   acc_l = a_{l-1} W_l (if W) + lat Lat_l (K4's latent layers; K5's head,
+//           x0's leading columns, with X_l[:h] as Lat_l)
+//           + emb X_l (if X; K5's tail, x0's other columns)
+//           + b_l[scene] (K2's scene-bias layers) or b_l,
 //   a_l   = gate(relu(acc_l)),
 // gate = gate_hash(seed, layer, r, lane) < thresh ? s : 0 on dropout layers,
 // and writes a_l to device memory as the residual (out_pad, M) that the
@@ -15,7 +17,8 @@
 // place layer by layer.  A layer's product reads its input rows as wgmma's
 // A, split in registers, and its weights as B: tile_weights(W), or for K4's
 // latent layers [W; Lat] as one run of tiles over [activation; latent]
-// rows, the latent in the rows right above the activation, as K3 has it.
+// rows, the latent in the rows right above the activation, as K3 has it
+// (K5: [W; X[:h]] over [activation; head], the head loaded from x0).
 // The tiles are split and tiled once a step when the trunk is packed, laid
 // out as one stream in the order the forward reads them (layer by layer,
 // trunk after trunk), and stream through the trunk's ring (tc_fill,
@@ -46,6 +49,7 @@
 // Shared memory: the trunk's (tc_smem_bytes): the ring (TC_SLOTS x 8 KB),
 // the buffer rows x 64 x 4 (rows = the widest layer's depth or width, 512
 // at the flagship: 128 KB), the final rows' scratch; K4 adds its tap table.
+// K5's is the trunk's alone.
 // One block an SM.
 
 #pragma once
@@ -61,8 +65,8 @@
 // FW_PROBE, 0 in the package's build: tools/time_train_fwd.py builds copies
 // that leave parts of the forward out, to time the rest apart: 1 the
 // products (and the ring), 2 the gate, 4 the residuals' stores, 8 K4's
-// gather; their results are wrong.  32 clocks the phases of each block on
-// its thread 0 (FwClock).
+// gather and K5's head rows' loads; their results are wrong.  32 clocks the
+// phases of each block on its thread 0 (FwClock).
 #ifndef FW_PROBE
 #define FW_PROBE 0
 #endif
@@ -184,8 +188,8 @@ __device__ __forceinline__ void fw_store(const float* buf, int rows, float* __re
 }
 
 // Rows [0, rows) of src (rows, M) at this block's points into buffer rows
-// row0 on (0 past M), FW_BATCH runs a thread in flight; read from L2 (the
-// block itself wrote them).
+// row0 on (0 past M), FW_BATCH runs a thread in flight; read from L2 (K4's
+// latent, which the block itself wrote; K5's head, which it reads twice).
 __device__ __forceinline__ void fw_load(float* buf, int row0, int rows, const float* src, int m,
                                         int first, int tid) {
   const int n = rows * (TC_P / 4);
@@ -239,7 +243,7 @@ __device__ __forceinline__ void fw_final(const float* __restrict__ wt, const flo
 // The phases of a block on its thread 0, in clock cycles, where FW_PROBE has
 // 32 (tools/time_train_fwd.py): tick(ph) adds the cycles since the last
 // tick to phase ph; flush() adds them into fw_cycles.  Nothing otherwise.
-#define FW_PHASES 6  // ring set-up, latent rows, products, epilogue, stores, final rows
+#define FW_PHASES 6  // ring set-up, latent / head rows, products, epilogue, stores, final rows
 #if FW_PROBE & 32
 __device__ unsigned long long fw_cycles[FW_PHASES];
 extern "C" int fw_read_cycles(unsigned long long* out) {

@@ -18,6 +18,17 @@ statics whose ``scene_bias`` is all False.  The forward also gives
 ``x_last``, the last hidden layer's gated activation; the backward takes its
 gradient ``dx_last`` and gives d(x0) over the whole row.
 
+On the card both run K4's design, split TF32 on the tensor cores
+(``csrc/train_fwd_tc.cuh``, ``csrc/chain_tc.cuh``, ``csrc/wgrad_tc.cuh``),
+with x0's leading columns where K4's latent goes: ``pack_generic_trunk``
+splits x0 at a head width h (``head_width``); a layer with X runs one
+product over [activation; head] against the tiles of [W_l; X_l[:h]]
+(``train_decoder.layer_tiles``, the chain's from the same split), and the
+tail's columns, X_l[h:] in float32, enter on the CUDA cores as K2's
+embedding does.  At the flagship with latent_in (0, 2) the head is the 256
+latent columns and the tail the embedding's 6.  The bound is K4's: 0.787 M
+multiply-adds a point a trunk each way, 2.44 ms a step in split TF32.
+
 ``generic_train_decode`` takes the plain version for a CPU tensor, on which
 autograd gives the gradients.  For a CUDA tensor it runs
 ``GenericTrainDecodeFunction``, whose forward and backward launch the
@@ -34,9 +45,9 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from alignsdf_torch.kernels.grid_decoder import TC_GROUP, TC_MAX_OUT
 from alignsdf_torch.kernels.train_decoder import (
     _M32,
-    MAX_SMEM,
     PAD,
     TrainStatics,
     _pad2,
@@ -45,6 +56,8 @@ from alignsdf_torch.kernels.train_decoder import (
     _run,
     flatten_params,
     gate_threshold,
+    layer_tiles,
+    tile_stream,
     train_decode_backward_reference,
     train_decode_reference,
     unflatten_params,
@@ -52,7 +65,6 @@ from alignsdf_torch.kernels.train_decoder import (
 
 MAX_LAYERS = 10
 MAX_OUT = 2       # outputs of the last layer
-_TILE_P, _BK = 32, 32
 
 # the plain versions: K2's, on statics without scene tables
 generic_train_decode_reference = train_decode_reference
@@ -64,13 +76,15 @@ class _Packed(NamedTuple):
 
     x0_t: torch.Tensor                  # (e, M)
     w: List[Optional[torch.Tensor]]     # hidden (in_pad, out_pad); last (in_pad, n_out)
-    wt: List[Optional[torch.Tensor]]    # transposes of w
-    x: List[Optional[torch.Tensor]]     # (e_pad, out_pad)
-    xt: List[Optional[torch.Tensor]]    # (out_pad, e_tpad)
+    wt: List[Optional[torch.Tensor]]    # the last layer's transpose of w (the forward's)
+    tail: List[Optional[torch.Tensor]]  # X's rows past the head (e - head, out_pad)
     b: List[torch.Tensor]               # (out_pad,)
     out_pads: List[int]
-    e_pad: int                          # the input row padded to the forward's k tiles
-    e_tpad: int                         # ... to the backward's 256-column output chunks
+    has_x: List[bool]                   # the layer reads x0
+    head: int                           # x0's leading columns the products read
+    head_pad: int                       # ... rounded up to a tensor-core group
+    chain: torch.Tensor                 # the backward chain's weight tiles, last layer first
+    fwd: torch.Tensor                   # the forward's weight tiles, in layer order
 
 
 def _check(x0, ws, xs, bs, st: TrainStatics) -> int:
@@ -96,51 +110,72 @@ def _check(x0, ws, xs, bs, st: TrainStatics) -> int:
     return n_out
 
 
+def head_width(e: int, x_in_pads: Sequence[int]) -> int:
+    """How many of x0's e leading columns K5's products read (the head):
+    all of them where, rounded up to a tensor-core group, they fit the
+    buffer's TC_MAX_OUT rows beside the widest padded activation that a
+    later layer with X reads (``x_in_pads``), else the rows left there (a
+    multiple of the group, perhaps 0).  The rest, the tail, goes on the
+    CUDA cores.  The flagship with latent_in (0, 2): 512 - 256 = 256 of its
+    262 columns (the latent), and 256 of 319 at --point_size 63."""
+    room = TC_MAX_OUT - max(x_in_pads, default=0)
+    return e if _round_up(e, TC_GROUP) <= room else room
+
+
 def pack_generic_trunk(x0, ws, xs, bs, st: TrainStatics) -> _Packed:
     """Padded, contiguous copies of one trunk's operands (detached) for the
-    kernels; raises on what they do not take."""
+    kernels: x0 feature-major, the head's forward and chain tiles, the
+    tail's rows of X; raises on what they do not take."""
     n_out = _check(x0, ws, xs, bs, st)
     n_layers = len(bs)
     e = x0.shape[1]
-    e_pad, e_tpad = _round_up(e, _BK), _round_up(e, PAD)
-    w, wt, x, xt, b, out_pads = [], [], [], [], [], []
+    w, b, out_pads, in_pads = [], [], [], []
     in_pad = 0
     for layer in range(n_layers):
-        out = bs[layer].shape[-1]
-        out_pad = n_out if layer == n_layers - 1 else _round_up(out, PAD)
-        wl = None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad)
-        w.append(wl)
-        wt.append(None if wl is None else wl.T.contiguous())
-        x.append(None if xs[layer] is None else _pad2(xs[layer], e_pad, out_pad))
-        xt.append(None if xs[layer] is None else _pad2(xs[layer].T, out_pad, e_tpad))
+        out_pad = n_out if layer == n_layers - 1 else _round_up(bs[layer].shape[-1], PAD)
+        w.append(None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad))
         b.append(_pad2(bs[layer][None], 1, out_pad)[0])
         out_pads.append(out_pad)
+        in_pads.append(in_pad)
         in_pad = out_pad
-    return _Packed(x0.T.contiguous(), w, wt, x, xt, b, out_pads, e_pad, e_tpad)
+    if max(out_pads[:-1]) > TC_MAX_OUT:
+        raise ValueError(f"the tensor-core forward and chain take hidden widths up to "
+                         f"{TC_MAX_OUT}")
+    has_x = [x is not None for x in xs]
+    h = head_width(e, [in_pads[layer] for layer in range(1, n_layers) if has_x[layer]])
+    h_pad = _round_up(h, TC_GROUP)
+    heads = [None if x is None or h == 0 else _pad2(x[:h], h_pad, out_pad)
+             for x, out_pad in zip(xs, out_pads)]
+    tail = [None if x is None or h == e else _pad2(x[h:], e - h, out_pad)
+            for x, out_pad in zip(xs, out_pads)]
+    wt = [None] * (n_layers - 1) + [w[-1].T.contiguous()]
+    tiles = [t for t in (layer_tiles(w[layer], heads[layer]) for layer in range(n_layers - 1))
+             if t is not None]
+    fwd = tile_stream([t[0] for t in tiles], x0.device)
+    chain = tile_stream([t[1] for t in reversed(tiles)], x0.device)
+    return _Packed(x0.T.contiguous(), w, wt, tail, b, out_pads, has_x, h, h_pad, chain, fwd)
 
 
 def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, dx0=None, dpre=None,
                 grads=None, dx_last=None) -> np.ndarray:
     """The int64 descriptor ``generic_train_decoder.cu`` parses (see its
-    header)."""
+    host side)."""
     n_layers = len(p.b)
     e, m = p.x0_t.shape
-    desc = [n_layers, p.out_pads[-1], e, p.e_pad, p.e_tpad, m, _ptr(p.x0_t), _ptr(y), _ptr(dy),
-            _ptr(dx0), _ptr(dx_last), 0 if dx_last is None else dx_last.shape[1]]
+    desc = [n_layers, p.out_pads[-1], e, p.head, p.head_pad, m, _ptr(p.x0_t), _ptr(y), _ptr(dy),
+            _ptr(dx0), _ptr(dx_last), 0 if dx_last is None else dx_last.shape[1],
+            _ptr(p.chain), p.chain.numel(), _ptr(p.fwd), p.fwd.numel()]
     in_pad = 0
     for layer in range(n_layers):
         hidden = layer < n_layers - 1
         dw, dx, db = grads[layer] if grads is not None else (None, None, None)
-        desc += [_ptr(p.w[layer]), _ptr(p.wt[layer]), _ptr(p.x[layer]), _ptr(p.xt[layer]),
-                 _ptr(p.b[layer]), _ptr(acts[layer]) if hidden else 0,
+        desc += [_ptr(p.w[layer]), _ptr(p.wt[layer]), _ptr(p.tail[layer]), _ptr(p.b[layer]),
+                 _ptr(acts[layer]) if hidden else 0,
                  _ptr(dpre[layer]) if dpre is not None else 0, _ptr(dw), _ptr(dx), _ptr(db),
-                 in_pad, p.out_pads[layer], int(hidden and st.train and st.dropout[layer])]
+                 in_pad, p.out_pads[layer], int(p.has_x[layer]),
+                 int(hidden and st.train and st.dropout[layer])]
         in_pad = p.out_pads[layer]
     return np.ascontiguousarray(desc, np.int64)
-
-
-def fwd_smem_bytes(max_pad: int, e_pad: int) -> int:
-    return 4 * (2 * max_pad * _TILE_P + _BK * PAD + e_pad * _TILE_P + 8 * _TILE_P)
 
 
 def _lib():
@@ -159,13 +194,11 @@ def _lib():
 
 
 def generic_train_decode_forward(p: _Packed, seed: int, st: TrainStatics):
-    """K5 forward on the card: y (n_out, M) and the gated activations of the
-    hidden layers, each (out_pad, M)."""
+    """K5 forward on the card, on the tensor cores
+    (``generic_train_fwd_tc_kernel``): y (n_out, M) and the gated
+    activations of the hidden layers, each (out_pad, M)."""
     e, m = p.x0_t.shape
     dev = p.x0_t.device
-    if fwd_smem_bytes(max(p.out_pads[:-1]), p.e_pad) > MAX_SMEM:
-        raise ValueError(f"hidden width {max(p.out_pads[:-1])} and input width {e} need more "
-                         "shared memory than a block has")
     y = torch.empty((p.out_pads[-1], m), dtype=torch.float32, device=dev)
     acts = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads[:-1]]
     desc = _descriptor(p, st, y, acts)
@@ -178,12 +211,12 @@ def generic_train_decode_forward(p: _Packed, seed: int, st: TrainStatics):
 def generic_train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
                                   acts: List[torch.Tensor], dy: torch.Tensor,
                                   dx_last: Optional[torch.Tensor] = None):
-    """K5 backward on the card: the reverse chain per point tile (adding
-    ``dx_last`` (M, h), if given, to the final layer's input gradient, then
-    writing each layer's pre-activation gradient and adding d(x0)), then per
-    layer the weight, input-weight and bias reductions over all M points.
-    Returns (dx0 (M, e), a view of (e, M), [(dW | None, dX | None, db)]
-    padded)."""
+    """K5 backward on the card: the reverse chain per 64-point tile on the
+    tensor cores (adding ``dx_last`` (M, h), if given, to the final layer's
+    input gradient, then writing each layer's pre-activation gradient and
+    d(x0)), then per layer the weight, input-weight and bias reductions over
+    all M points.  Returns (dx0 (M, e), a view of (e, M), [(dW | None,
+    dX | None, db)] padded)."""
     e, m = p.x0_t.shape
     dev = p.x0_t.device
     dy = dy.to(torch.float32).contiguous()
@@ -191,13 +224,13 @@ def generic_train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
         dx_last = dx_last.to(torch.float32).contiguous()
         if dx_last.shape[0] != m or not 1 <= dx_last.shape[1] <= p.out_pads[-2]:
             raise ValueError(f"dx_last {tuple(dx_last.shape)} does not fit the trunk")
-    dx0 = torch.zeros((e, m), dtype=torch.float32, device=dev)
+    dx0 = torch.empty((e, m), dtype=torch.float32, device=dev)
     dpre = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads]
     grads = []
     for layer in range(len(p.b)):
         dw = None if p.w[layer] is None else torch.zeros_like(p.w[layer])
-        dx = (None if p.x[layer] is None
-              else torch.zeros((e, p.out_pads[layer]), dtype=torch.float32, device=dev))
+        dx = (torch.zeros((e, p.out_pads[layer]), dtype=torch.float32, device=dev)
+              if p.has_x[layer] else None)
         grads.append((dw, dx, torch.zeros_like(p.b[layer])))
     desc = _descriptor(p, st, y, acts, dy=dy, dx0=dx0, dpre=dpre, grads=grads, dx_last=dx_last)
     _run("generic_train_decoder_bwd", _lib().generic_train_decoder_bwd, dev, desc.ctypes.data,

@@ -27,7 +27,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-PAD = 256     # hidden widths pad to tile_product.cuh's output chunk (K2, K4, K5)
+PAD = 256     # the train decoders' hidden widths pad to a multiple of this (K2, K4, K5)
 ALIGN = 64    # every array of the packed plan starts on a 256-byte boundary
 N_ROWS = 2      # SDF rows: hand, object (tanh'd)
 MAX_ROWS = 128  # SDF rows and up to 126 classes

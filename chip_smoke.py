@@ -18,7 +18,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      abs where both sides are positive, flips at ReLU's edge counted and
      allowed only at values within FLIP_TOL of 0; every
      gradient of the autograd Function to 1e-4 of the largest entry of the
-     plain backward's on the same residuals; each dropout layer's kept
+     plain backward's on the same residuals, and of that backward run in
+     float64; each dropout layer's kept
      share at 0.8 +- 0.01; the kernel's residuals gated as the plain
      forward's;
   5. reconstruction: the flagship model (experiments/obman_30k.json with
@@ -103,7 +104,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      pass at C = 6 and K4's with x_last;
  13. generic serving and training (latent_in (0, 2)) through K6 (on the
      tensor-core trunk: its time per 128^3 pass beside both bounds and the
-     plan's build time) and K5 (its chain and reductions alone as for K2);
+     plan's build time) and K5 (on the tensor cores, as K2 and K4: checked
+     as K2 in 4, on the twin trunks and on a combined trunk; its chain and
+     reductions timed alone as for K2);
  14. K7, the stem max pool 3x3 / stride 2 / pad 1, against its plain
      version on post-ReLU inputs with flat positive blocks and zero rows, at
      the train shape (64, 64, 128, 128) and serving's batch 1, in the
@@ -188,13 +191,13 @@ K4_TOL = 1e-4
 K4_FWD_KERNELS = ("pixel_train_fwd_tc_kernel",)
 K4_BWD_KERNELS = ("pixel_train_bwd_chain_tc_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K5_TOL = 1e-4
-K5_FWD_KERNELS = ("generic_train_fwd_kernel",)
-K5_BWD_KERNELS = ("generic_train_bwd_chain_kernel", "wgrad_tc_kernel", "colsum_kernel")
+K5_FWD_KERNELS = ("generic_train_fwd_tc_kernel",)
+K5_BWD_KERNELS = ("generic_train_bwd_chain_tc_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K6_TOL = 1e-4
 TC_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_tc.cuh"  # K1's, K3's and K6's trunk
 WGRAD_SOURCE = "alignsdf_torch/kernels/csrc/wgrad_tc.cuh"  # K2's, K4's and K5's dW reduction
-CHAIN_SOURCE = "alignsdf_torch/kernels/csrc/chain_tc.cuh"  # K2's and K4's backward chain
-FWD_SOURCE = "alignsdf_torch/kernels/csrc/train_fwd_tc.cuh"  # K2's and K4's forward
+CHAIN_SOURCE = "alignsdf_torch/kernels/csrc/chain_tc.cuh"  # K2's, K4's and K5's backward chain
+FWD_SOURCE = "alignsdf_torch/kernels/csrc/train_fwd_tc.cuh"  # K2's, K4's and K5's forward
 # K2's and K4's forwards against the plain forward: a hidden unit whose
 # pre-activation lies within rounding of 0 may be 0 on one side and a tiny
 # positive value on the other (the tensor cores' split TF32 and the plain
@@ -537,16 +540,18 @@ def trunk_check(kern, trunks, st, dev, gen, x_last: bool):
     input, ws, xs, bs)] through its autograd Function against the plain
     forward (y, x_last) and the plain backward fed the kernel's own
     residuals (the forward is deterministic: autograd through the plain
-    forward would differ wherever rounding flips a unit at ReLU's edge);
-    with ``x_last`` the first trunk's backward takes a random dx_last.
-    Also each dropout layer's kept share and the residuals' gating."""
+    forward would differ wherever rounding flips a unit at ReLU's edge) and
+    against that plain backward in float64; with ``x_last`` the first
+    trunk's backward takes a random dx_last.  Also each dropout layer's
+    kept share and the residuals' gating."""
     import torch
 
     from alignsdf_torch.kernels.train_decoder import dropout_gate, flatten_params, unflatten_params
 
     saved = kern.fwd.launches, kern.bwd.launches
     res = {"y_max_abs_err": 0.0, "x_last_max_abs_err": 0.0, "grad_max_rel_err": 0.0,
-           "grad_max_abs_err": 0.0, "d_input_max_rel_err": 0.0, "kept_share": {},
+           "grad_max_abs_err": 0.0, "d_input_max_rel_err": 0.0, "grad_f64_max_rel_err": 0.0,
+           "kept_share": {},
            "residual_sign_mismatch": 0.0, "y_f64_max_abs_err": 0.0,
            "residual_max_abs_err": 0.0, "flips": 0, "flip_max": 0.0}
     for i, (prefix, seed, e, ws, xs, bs) in enumerate(trunks):
@@ -574,11 +579,18 @@ def trunk_check(kern, trunks, st, dev, gen, x_last: bool):
             res["flips"] += rc["flips"]
             res["flip_max"] = max(res["flip_max"], rc["flip_max"])
             d_in, dws, dxs, dbs = kern.plain_backward(e, ws, xs, bs, st, y_k, acts_k, dy, dxl)
-            for j, (g, r) in enumerate(zip(grads, [d_in, *flatten_params(dws, dxs, dbs)])):
+            exact = kern.plain_backward(e.double(), _f64(ws), _f64(xs), _f64(bs), st, y_k.double(),
+                                        _f64(acts_k), dy.double(),
+                                        None if dxl is None else dxl.double())
+            for j, (g, r, r64) in enumerate(zip(grads, [d_in, *flatten_params(dws, dxs, dbs)],
+                                                [exact[0], *flatten_params(*exact[1:])])):
                 err = float((g - r).abs().max())
                 rel = err / (float(r.abs().max()) + 1e-30)
                 res["grad_max_abs_err"] = max(res["grad_max_abs_err"], err)
                 res["grad_max_rel_err"] = max(res["grad_max_rel_err"], rel)
+                res["grad_f64_max_rel_err"] = max(
+                    res["grad_f64_max_rel_err"],
+                    float((g.double() - r64).abs().max()) / (float(r64.abs().max()) + 1e-30))
                 if j == 0:
                     res["d_input_max_rel_err"] = max(res["d_input_max_rel_err"], rel)
             rows = torch.arange(e.shape[0], device=dev)
@@ -968,10 +980,13 @@ def wgrad_shapes(pack):
         return [s for t in pack.trunks for w, lat, out_pad in zip(t.w, t.lat, t.out_pads)
                 for s in ([tuple(w.shape)] if w is not None else [])
                 + ([tuple(lat.shape), (e, out_pad)] if lat is not None else [])]
-    e = (pack.emb_t if hasattr(pack, "emb_t") else pack.x0_t).shape[0]
-    return [s for w, x, out_pad in zip(pack.w, pack.x, pack.out_pads)
+    if hasattr(pack, "x0_t"):  # K5
+        e, has_x = pack.x0_t.shape[0], pack.has_x
+    else:
+        e, has_x = pack.emb_t.shape[0], [x is not None for x in pack.x]
+    return [s for w, x, out_pad in zip(pack.w, has_x, pack.out_pads)
             for s in ([tuple(w.shape)] if w is not None else [])
-            + ([(e, out_pad)] if x is not None else [])]
+            + ([(e, out_pad)] if x else [])]
 
 
 def reduction_timing(name: str, shapes, m: int, dev, card: str) -> dict:
@@ -1033,10 +1048,9 @@ def reduction_timing(name: str, shapes, m: int, dev, card: str) -> dict:
 def backward_entry(t: dict) -> dict:
     """A backward's kernels-line entries for its parts, or {} for a
     forward: its chain kernel timed apart (the source of its tensor-core
-    design, where it has one: K2's and K4's; its time and split-TF32
-    bound) and its weight-gradient reduction per step on its own (the
-    kernel's source, its measured times by route and torch.matmul's, its
-    split-TF32 bound)."""
+    design: K2's, K4's and K5's; its time and split-TF32 bound) and its
+    weight-gradient reduction per step on its own (the kernel's source, its
+    measured times by route and torch.matmul's, its split-TF32 bound)."""
     r = t.get("reduction")
     if r is None:
         return {}
@@ -1048,7 +1062,7 @@ def backward_entry(t: dict) -> dict:
     if c is not None:
         out["chain"] = {"kernel": c["kernel"], "ms": c["ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"]}
-        if c["kernel"] in (K2_BWD_KERNELS[0], K4_BWD_KERNELS[0]):
+        if c["kernel"] in (K2_BWD_KERNELS[0], K4_BWD_KERNELS[0], K5_BWD_KERNELS[0]):
             out["chain"]["source"] = CHAIN_SOURCE
     return out
 
@@ -2212,26 +2226,38 @@ def generic_train_phase(dev, card: str, gen):
     if kind != "materialized inputs (K5)":
         fail(f"latent_in (0, 2) routed to {kind}, not K5")
     model = build_model(specs, device=dev, seed=SEED)
-    rec = {"check": {}}
-    for scenes in CHECK_SCENES:
-        phase(f"K5 vs plain ({scenes} x {specs.samples_per_scene} rows of "
-              f"{specs.latent_size} + 6, both trunks, the flagship with latent_in (0, 2) at full "
-              "width, nonzero dy and dx_last, TF32 off)")
-        k5 = k5_check(model, specs, dev, gen, scenes)
-        print(f"K5 y max abs err {k5['y_max_abs_err']:.3e}, x_last {k5['x_last_max_abs_err']:.3e} "
-              f"(tolerance {K5_TOL:g}); gradients max err {k5['grad_max_abs_err']:.3e} abs, "
-              f"{k5['grad_max_rel_err']:.3e} of the largest (d(x0) "
-              f"{k5['d_input_max_rel_err']:.3e}; tolerance {K5_TOL:g}); kept share {k5['kept_share']}; residual sign mismatch "
-              f"{k5['residual_sign_mismatch']:.2e}", flush=True)
-        if not (k5["y_max_abs_err"] <= K5_TOL and k5["x_last_max_abs_err"] <= K5_TOL
-                and k5["grad_max_rel_err"] <= K5_TOL):
-            fail(f"K5 disagrees with its plain version at {scenes} scenes")
-        if len(k5["kept_share"]) != 8 or not all(abs(v - 0.8) <= 0.01
-                                                 for v in k5["kept_share"].values()):
-            fail(f"kept shares off 0.8 +- 0.01: {k5['kept_share']}")
-        if not k5["residual_sign_mismatch"] <= 1e-4:
-            fail("K5's residuals are not gated as the plain version's")
-        rec["check"][scenes] = k5
+    rec = {"check": {}, "check_combined": {}}
+    # both model types: the twin trunks (rows of 262: the 256 latent columns
+    # on the tensor cores, 6 on the CUDA cores) and the combined trunk (265,
+    # two outputs)
+    combined = dataclasses.replace(specs, model_type="1encoder1decoder")
+    for label, mspecs, mmodel, key in (
+            ("both trunks", specs, model, "check"),
+            ("the combined trunk", combined, build_model(combined, device=dev, seed=SEED),
+             "check_combined")):
+        for scenes in CHECK_SCENES:
+            phase(f"K5 vs plain ({scenes} x {specs.samples_per_scene} rows of "
+                  f"{specs.latent_size} + {6 if mspecs is specs else 9}, {label}, the flagship "
+                  "with latent_in (0, 2) at full width, nonzero dy and dx_last, TF32 off)")
+            k5 = k5_check(mmodel, mspecs, dev, gen, scenes)
+            print(f"K5 y max abs err {k5['y_max_abs_err']:.3e}, x_last "
+                  f"{k5['x_last_max_abs_err']:.3e} (tolerance {K5_TOL:g}); {forward_text(k5)}; "
+                  f"gradients max err {k5['grad_max_abs_err']:.3e} abs, "
+                  f"{k5['grad_max_rel_err']:.3e} of the largest (d(x0) "
+                  f"{k5['d_input_max_rel_err']:.3e}), {k5['grad_f64_max_rel_err']:.3e} of "
+                  f"float64's (tolerance {K5_TOL:g}); kept share {k5['kept_share']}; residual sign mismatch "
+                  f"{k5['residual_sign_mismatch']:.2e}", flush=True)
+            if not (k5["y_max_abs_err"] <= K5_TOL and k5["x_last_max_abs_err"] <= K5_TOL
+                    and k5["grad_max_rel_err"] <= K5_TOL and k5["grad_f64_max_rel_err"] <= K5_TOL):
+                fail(f"K5 disagrees with its plain version at {scenes} scenes ({label})")
+            forward_verdict(k5, "K5", K5_TOL)
+            n_dropout = 4 * (2 if mspecs is specs else 1)
+            if len(k5["kept_share"]) != n_dropout or not all(
+                    abs(v - 0.8) <= 0.01 for v in k5["kept_share"].values()):
+                fail(f"kept shares off 0.8 +- 0.01: {k5['kept_share']}")
+            if not k5["residual_sign_mismatch"] <= 1e-4:
+                fail("K5's residuals are not gated as the plain version's")
+            rec[key][scenes] = k5
     k5 = rec["check"][TRAIN_SCENES]
 
     phase(f"generic training (latent_in (0, 2)): {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps "
@@ -2283,7 +2309,7 @@ def generic_train_phase(dev, card: str, gen):
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
-            **backward_entry(t),
+            **({"trunk": FWD_SOURCE} if name == "fwd" else backward_entry(t)),
         })
     return rec, entries
 
@@ -2868,9 +2894,11 @@ def main(record_path: Optional[str] = None) -> None:
         print(f"K2 y max abs err {k2['y_max_abs_err']:.3e} (tolerance {K2_TOL:g}); "
               f"{forward_text(k2)}; gradients "
               f"max err {k2['grad_max_abs_err']:.3e} abs, {k2['grad_max_rel_err']:.3e} of the "
-              f"largest (tolerance {K2_TOL:g}); kept share {k2['kept_share']}; residual sign "
+              f"largest, {k2['grad_f64_max_rel_err']:.3e} of float64's (tolerance {K2_TOL:g}); "
+              f"kept share {k2['kept_share']}; residual sign "
               f"mismatch {k2['residual_sign_mismatch']:.2e}", flush=True)
-        if not (k2["y_max_abs_err"] <= K2_TOL and k2["grad_max_rel_err"] <= K2_TOL):
+        if not (k2["y_max_abs_err"] <= K2_TOL and k2["grad_max_rel_err"] <= K2_TOL
+                and k2["grad_f64_max_rel_err"] <= K2_TOL):
             fail(f"K2 disagrees with its plain version at {scenes} scenes")
         forward_verdict(k2, "K2", K2_TOL)
         if len(k2["kept_share"]) != 8 or not all(abs(v - 0.8) <= 0.01

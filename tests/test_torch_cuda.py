@@ -1,10 +1,11 @@
 """Kernels K1, K2, K3, K4, K5, K6 and K7 on the card against their plain
 versions (K1, K3 and K6 with the classifier's rows, K2, K4 and K5 with
 x_last / dx_last, K7 forward and backward on tied inputs), and against
-float64 the train backwards' weight-gradient reduction, K2's and K4's
-whole backwards (their chains on the tensor cores) and their forwards (on
-the tensor cores too: y, and the residuals against the plain ones).  Needs a CUDA GPU and skips without one; it imports no
-JAX, so it runs on a machine without it:
+float64 the train backwards' weight-gradient reduction, K2's, K4's and
+K5's whole backwards (their chains on the tensor cores) and their forwards
+(on the tensor cores too: y, and the residuals against the plain ones).
+Needs a CUDA GPU and skips without one; it imports no JAX, so it runs on a
+machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -719,6 +720,74 @@ def test_cuda_pixel_train_chain_matches_float64(model_type, classifier):
         _within([*plain[:5], *flatten_pixel_params(plain[5])], ref, CHAIN_TOL)
 
 
+def _k5_trunks(model_type, style, pfs, m, classifier, seed):
+    """The trunks of a full-width decoder with latent_in (0, 2) on m random
+    materialized rows, as K5 takes them: (statics, [(x0, ws, xs, bs, dropout
+    seed, outputs)])."""
+    gen = torch.Generator().manual_seed(seed)
+    specs = Specs(model_type=model_type, encode_style=style, point_feat_size=pfs,
+                  latent_size=256, classifier_branch=classifier,
+                  network_specs=NetworkSpecs(latent_in=(0, 2)))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        decoder = make_decoder(model_type, 256, pfs, style, specs.network_specs,
+                               use_classifier=classifier).cuda()
+    rows = (torch.randn(m, 256 + pfs, generator=gen) * 0.5).cuda()
+    first, second = trunk_prefixes(decoder)
+    inputs = [rows] if second is None else separate_decoder_inputs(256, style, rows)
+    trunks = []
+    with torch.no_grad():
+        for prefix, width, x0, dseed in zip((first, second), trunk_input_widths(specs), inputs,
+                                            (5, 6)):
+            out_dim = 2 if second is None else 1
+            ws, xs, bs = generic_trunk_operands(decoder, prefix, width, specs, out_dim)
+            trunks.append((x0.contiguous(), ws, xs, bs, dseed, out_dim))
+    return make_generic_train_decoder(specs).statics, trunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,style,pfs,classifier", [
+    ("1encoder2decoder", "both", 9, False), ("1encoder2decoder", "both", 9, True),
+    ("1encoder1decoder", "both", 9, False), ("1encoder2decoder", "nerf", 63, False)],
+    ids=["latent_in_0_2", "dx_last", "combined", "nerf63"])
+def test_cuda_generic_train_chain_matches_float64(model_type, style, pfs, classifier):
+    """K5's backward (the reverse chain on the tensor cores with d(x0)'s head
+    from the same products and its tail on the CUDA cores, then the
+    reductions) at the flagship width with latent_in (0, 2) on 64 x 2000
+    rows of 262 (265 combined, 319 at --point_size 63), each trunk against
+    the plain backward in float64 fed the kernel's own residuals (with a
+    random dx_last on the classifier's trunk): every gradient, d(x0)
+    included, within CHAIN_TOL of its largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    st, trunks = _k5_trunks(model_type, style, pfs, 128000, classifier, 23)
+    gen = torch.Generator().manual_seed(24)
+    for i, (x0, ws, xs, bs, seed, _) in enumerate(trunks):
+        with torch.no_grad():
+            pack = pack_generic_trunk(x0, ws, xs, bs, st)
+            y, acts = generic_train_decode_forward(pack, seed, st)
+            dy = torch.randn(y.shape, generator=gen).cuda()
+            dxl = (torch.randn(x0.shape[0], bs[-2].shape[-1], generator=gen).cuda()
+                   if classifier and i == 0 else None)
+            before = generic_train_decode_backward.launches
+            dx0, grads = generic_train_decode_backward(pack, st, y, acts, dy, dxl)
+            torch.cuda.synchronize()
+            assert generic_train_decode_backward.launches == before + 1
+            acts = [a[:b.shape[-1]].T for a, b in zip(acts, bs)]
+            got = [dx0, *flatten_params(
+                [None if w is None else g[0][:w.shape[0], :w.shape[1]] for w, g in zip(ws, grads)],
+                [None if x is None else g[1][:, :x.shape[1]] for x, g in zip(xs, grads)],
+                [g[2][:b.shape[-1]] for b, g in zip(bs, grads)])]
+            exact = generic_train_decode_backward_reference(
+                x0.double(), _f64(ws), _f64(xs), _f64(bs), st, y.double(), _f64(acts),
+                dy.double(), None if dxl is None else dxl.double())
+            ref = [exact[0], *flatten_params(*exact[1:])]
+            _within(got, ref, CHAIN_TOL)
+            plain = generic_train_decode_backward_reference(x0, ws, xs, bs, st, y, acts, dy, dxl)
+            _within([plain[0], *flatten_params(*plain[1:])], ref, CHAIN_TOL)
+
+
 # The train forwards on the tensor cores (csrc/train_fwd_tc.cuh) against the
 # plain forward: split TF32 and the plain float32 product round differently,
 # so a hidden unit whose pre-activation lies within rounding of 0 may be 0 on
@@ -748,19 +817,41 @@ def _residuals_within(acts_k, acts_ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_last", [False, True], ids=["flagship", "x_last"])
 @pytest.mark.parametrize("scenes", [4, 64])
-@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K5"])
 def test_cuda_train_fwd_matches_plain_and_float64(kernel, scenes, x_last):
-    """K2's and K4's forwards (split TF32 on the tensor cores) at the
+    """K2's, K4's and K5's forwards (split TF32 on the tensor cores) at the
     flagship width on scenes x 2000 points (K4 on a 256 x 64 x 64 map, part
-    of the points outside the image; with x_last, the classifier's trunks):
-    y within FWD_TOL of the plain forward and of the float64 forward,
-    x_last within FWD_TOL of the plain one, the residuals as
-    _residuals_within holds them (the flip count is printed)."""
+    of the points outside the image; K5 on materialized rows with latent_in
+    (0, 2); with x_last, the classifier's trunks): y within FWD_TOL of the
+    plain forward and of the float64 forward, x_last within FWD_TOL of the
+    plain one, the residuals as _residuals_within holds them (the flip
+    count is printed)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(31)
     n, c, m = 2000, 256, scenes * 2000
+    if kernel == "K5":
+        st, trunks = _k5_trunks("1encoder2decoder", "both", 9, m, x_last, 31)
+        flips = 0
+        with torch.no_grad():
+            for i, (x0, ws, xs, bs, seed, _) in enumerate(trunks):
+                y, xl = generic_train_decode(x0, ws, xs, bs, seed, st)
+                refs = []
+                y_ref, xl_ref = generic_train_decode_reference(x0, ws, xs, bs, seed, st,
+                                                               acts=refs)
+                y64, _ = generic_train_decode_reference(x0.double(), _f64(ws), _f64(xs),
+                                                        _f64(bs), seed, st)
+                assert float((y - y_ref).abs().max()) <= FWD_TOL
+                assert float((y.double() - y64).abs().max()) <= FWD_TOL
+                if x_last and i == 0:
+                    assert float((xl - xl_ref).abs().max()) <= FWD_TOL
+                _, acts = generic_train_decode_forward(pack_generic_trunk(x0, ws, xs, bs, st),
+                                                       seed, st)
+                flips += _residuals_within(acts, refs)
+        print(f"K5 forward at {scenes} x {n}{' with x_last' if x_last else ''}: "
+              f"{flips} flips at ReLU's edge")
+        return
     specs = Specs(model_type="1encoder2decoder", encode_style="both", point_feat_size=9,
                   latent_size=c, pixel_align=kernel == "K4", samples_per_scene=n,
                   sdf_scale_factor=7.0, image_size=(256, 256), classifier_branch=x_last,
@@ -855,37 +946,41 @@ def test_cuda_weight_grad_matches_float64(k, n, m, scale):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model_type,latent_in,dims,latent,m,x_last", [
-    ("1encoder2decoder", (0, 2), (512,) * 4, 256, 8000, True),
-    ("1encoder1decoder", (0, 2), (512,) * 4, 256, 4000, True),
-    ("1encoder2decoder", (2,), (64,) * 4, 32, 388, False)])
-def test_cuda_generic_train_kernel_matches_plain(model_type, latent_in, dims, latent, m, x_last):
+@pytest.mark.parametrize("model_type,style,pfs,latent_in,dims,latent,m,x_last", [
+    ("1encoder2decoder", "both", 9, (0, 2), (512,) * 4, 256, 8000, True),
+    ("1encoder1decoder", "both", 9, (0, 2), (512,) * 4, 256, 4000, True),
+    ("1encoder2decoder", "nerf", 63, (0, 2), (512,) * 4, 256, 4000, True),
+    ("1encoder2decoder", "both", 9, (0, 2), (64,) * 4, 32, 388, True),
+    ("1encoder2decoder", "both", 9, (2,), (64,) * 4, 32, 388, False)])
+def test_cuda_generic_train_kernel_matches_plain(model_type, style, pfs, latent_in, dims, latent,
+                                                 m, x_last):
     """K5 forward and backward on each trunk through the autograd Function,
     on materialized rows (the flagship with latent_in (0, 2) at full width,
-    twin and combined, and a narrow flagship), TF32 off: y and x_last to
-    1e-5 abs against the plain forward, every gradient, d(x0) included
-    (nonzero random dy and, with the classifier, dx_last on the first
-    trunk), to 1e-4 of its largest entry against the plain backward fed the
-    kernel's own residuals."""
+    twin and combined (2 outputs), --point_size 63's NeRF rows of 319
+    columns (a tail of 63 beside the 256-column head), and narrow
+    flagships, x0 all head), TF32 off: y and x_last to 1e-5 abs against the
+    plain forward, every gradient, d(x0) included (nonzero random dy and,
+    with the classifier, dx_last on the first trunk), to 1e-4 of its largest
+    entry against the plain backward fed the kernel's own residuals."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(9)
-    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9,
+    specs = Specs(model_type=model_type, encode_style=style, point_feat_size=pfs,
                   latent_size=latent, classifier_branch=x_last,
                   network_specs=NetworkSpecs(dims=dims, latent_in=latent_in))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(9)
-        decoder = make_decoder(model_type, latent, 9, "both", specs.network_specs,
+        decoder = make_decoder(model_type, latent, pfs, style, specs.network_specs,
                                use_classifier=x_last).cuda()
-    rows = (torch.randn(m, latent + 9, generator=gen) * 0.5).cuda()
+    rows = (torch.randn(m, latent + pfs, generator=gen) * 0.5).cuda()
     st = make_generic_train_decoder(specs).statics
     first, second = trunk_prefixes(decoder)
     widths = trunk_input_widths(specs)
     if second is None:
         trunks = [(first, widths[0], rows, 5, 2)]
     else:
-        xh, xo = separate_decoder_inputs(latent, "both", rows)
+        xh, xo = separate_decoder_inputs(latent, style, rows)
         trunks = [(first, widths[0], xh, 5, 1), (second, widths[1], xo, 6, 1)]
     for t, (prefix, width, x0, seed, out_dim) in enumerate(trunks):
         with torch.no_grad():

@@ -1,17 +1,19 @@
-"""Time the train backwards' reverse chains of kernels K2 and K4 on a CUDA
-card, per train step at the flagship widths over 64 scenes x 2000 points:
-each chain kernel's device time (torch.profiler over a few backward calls)
-and the whole backward's (CUDA events), beside the chain's split-TF32 and
+"""Time the train backwards' reverse chains of kernels K2, K4 and K5 on a
+CUDA card, per train step at the flagship widths over 64 scenes x 2000
+points (K5: the flagship with latent_in (0, 2) on materialized rows): each
+chain kernel's device time (torch.profiler over a few backward calls) and
+the whole backward's (CUDA events), beside the chain's split-TF32 and
 float32 bounds.  With --probes, the same for copies of the kernels built
-without parts of the chain (csrc/chain_tc.cuh's CH_PROBE: the products, the
-gate and dlat passes, d(emb), K4's tap stage), to time its phases apart,
-and for a copy that clocks each block's phases on its thread 0 (CH_PROBE
-32): each phase's share of the blocks' cycles.
+without parts of the chain (csrc/chain_tc.cuh's CH_PROBE: the products,
+the gate and dlat passes (K5: its head's d(x0) rows), d(emb) (K5: the
+tail's), K4's tap stage), to time its phases apart, and for a copy that
+clocks each block's phases on its thread 0 (CH_PROBE 32): each phase's
+share of the blocks' cycles.
 
     python3 tools/time_train_chain.py [--repo DIR] [--probes] [--steps N] [--scenes 64]
 
---steps N also times N train steps of the flagship and of --pa_feat
-through cli/train.make_trainer (after 2 warm-up steps, on one synthetic
+--steps N also times N train steps of the flagship, of --pa_feat and of
+latent_in (0, 2) through cli/train.make_trainer (after 2 warm-up steps, on one synthetic
 batch, as chip_smoke.py's train phases run them): the host clock a step,
 and the device's busy time and idle share over 2 steps under the profiler.
 
@@ -20,7 +22,8 @@ unpacked with git archive into a directory .gitignore lists) inside this
 script: the kernel names it profiles are prefixes that every version of the
 chains shares.  Operands are chip_smoke.py's (K2: seeded latents and
 embeddings on the flagship's trunks; K4: the encoder's HeadNet map and
-projection of a synthetic batch), on weights from seed 0.  Each line is
+projection of a synthetic batch; K5: rows of seeded latents and
+embeddings), on weights from seed 0.  Each line is
 printed with the card's name and power limit.
 """
 
@@ -39,6 +42,7 @@ PROBES = {1: "no products", 2: "no gate / dlat passes", 4: "no d(emb)", 8: "no t
           15: "none of those", 64: "gates without loads", 128: "gates without stores"}
 CLOCKS = 32  # the CH_PROBE bit that clocks each block's phases
 PHASES = ("ring set-up", "final rows", "gates", "products", "d(emb)", "stores", "dlat", "taps")
+LIBS = {"K2": "train_decoder", "K4": "pixel_train_decoder", "K5": "generic_train_decoder"}
 PROFILED = 3
 
 
@@ -65,14 +69,18 @@ def chain_ms(bwd, prefix: str) -> float:
 
 
 def setups(cs, scenes: int, dev):
-    """{"K2": (backward of one step, chain kernel prefix, chain FLOPs), "K4": ...}."""
+    """{"K2": (backward of one step, chain kernel prefix, chain FLOPs), "K4": ...,
+    "K5": ...}."""
     import torch
 
+    from alignsdf_torch.kernels.generic_train_decoder import (
+        generic_train_decode_backward, generic_train_decode_forward, pack_generic_trunk)
     from alignsdf_torch.kernels.pixel_train_decoder import (
         pack_pixel_trunks, pixel_train_decode_backward, pixel_train_decode_forward)
     from alignsdf_torch.kernels.train_decoder import (
         pack_trunk, train_decode_backward, train_decode_forward)
     from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.generic_train_plan import make_generic_train_decoder
     from alignsdf_torch.ops.train_plan import make_train_decoder
 
     gen = torch.Generator().manual_seed(cs.SEED)
@@ -106,13 +114,29 @@ def setups(cs, scenes: int, dev):
     def k4_bwd():
         pixel_train_decode_backward(packed, pst, y, acts, lat, dy)
 
+    gspecs = cs.latent_in_0_specs()
+    gmodel = build_model(gspecs, device=dev, seed=cs.SEED)
+    gst = make_generic_train_decoder(gspecs).statics
+    gtrunks = cs.k5_operands(gmodel, gspecs, cs.k5_rows(gspecs, dev, gen, scenes))
+    gpacks = [pack_generic_trunk(x0, ws, xs, bs, gst) for _, _, x0, ws, xs, bs in gtrunks]
+    gouts = [generic_train_decode_forward(p, t[1], gst) for p, t in zip(gpacks, gtrunks)]
+    gdys = [torch.randn(tuple(gy.shape), generator=gen).to(dev) for gy, _ in gouts]
+    k5_flops = sum(2 * m * t.numel() for *_, ws, xs, _ in gtrunks for t in [*ws, *xs]
+                   if t is not None)
+
+    def k5_bwd():
+        for p, (gy, gacts), gdy in zip(gpacks, gouts, gdys):
+            generic_train_decode_backward(p, gst, gy, gacts, gdy)
+
     return {"K2": (k2_bwd, "train_bwd_chain", k2_flops),
-            "K4": (k4_bwd, "pixel_train_bwd_chain", k4_flops)}
+            "K4": (k4_bwd, "pixel_train_bwd_chain", k4_flops),
+            "K5": (k5_bwd, "generic_train_bwd_chain", k5_flops)}
 
 
 def train_steps(cs, dev, steps: int, card: str, label: str) -> None:
-    """The flagship's and --pa_feat's train step: host ms a step over
-    ``steps`` steps, device busy ms and idle share over 2 profiled steps."""
+    """The flagship's, --pa_feat's and latent_in (0, 2)'s train step: host ms
+    a step over ``steps`` steps, device busy ms and idle share over 2
+    profiled steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,8 +144,9 @@ def train_steps(cs, dev, steps: int, card: str, label: str) -> None:
     from alignsdf_torch.data.synthetic import synthetic_train_batch
     from alignsdf_torch.training.train_step import batch_to_device, draw_seed
 
-    for pixel in (False, True):
-        specs = cs.flagship_specs(pixel=pixel)
+    for name, specs in (("flagship", cs.flagship_specs()),
+                        ("--pa_feat", cs.flagship_specs(pixel=True)),
+                        ("latent_in (0, 2)", cs.latent_in_0_specs())):
         state, step = make_trainer(specs, dev, seed=cs.SEED, init_guard=True)
         batch = batch_to_device(synthetic_train_batch(specs, cs.TRAIN_SCENES, seed=cs.SEED), dev)
         gen = torch.Generator().manual_seed(cs.SEED)
@@ -140,14 +165,14 @@ def train_steps(cs, dev, steps: int, card: str, label: str) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         busy, share, _ = cs.profile_summary(prof, wall)
-        print(f"[{card}] {label} {'--pa_feat' if pixel else 'flagship'} train step: "
+        print(f"[{card}] {label} {name} train step: "
               f"{host_ms:.2f} ms on the host clock over {steps} steps; profiled: device busy "
               f"{busy / 2:.2f} ms a step, idle share {1 - share:.3f}", flush=True)
         del state, step, batch
 
 
 def build_probes(masks):
-    """Build train_decoder and pixel_train_decoder with -DCH_PROBE=mask for
+    """Build the train decoders' sources (LIBS) with -DCH_PROBE=mask for
     each mask, concurrently: {mask: {name: library path}}."""
     from alignsdf_torch.kernels import build
 
@@ -155,7 +180,7 @@ def build_probes(masks):
     os.makedirs(out_dir, exist_ok=True)
     procs, paths = [], {}
     for mask in masks:
-        for name in ("train_decoder", "pixel_train_decoder"):
+        for name in LIBS.values():
             path = os.path.join(out_dir, f"lib{name}-probe{mask}.so")
             paths.setdefault(mask, {})[name] = path
             cmd = [build.nvcc_path(), *build.NVCC_FLAGS, f"-DCH_PROBE={mask}", "-o", path,
@@ -182,7 +207,7 @@ def phase_shares(runs, paths) -> None:
         lib.ch_read_cycles.restype = ctypes.c_int
         lib.ch_read_cycles.argtypes = [ctypes.c_void_p]
     for name, (bwd, _, _) in runs.items():
-        lib = libs["train_decoder" if name == "K2" else "pixel_train_decoder"]
+        lib = libs[LIBS[name]]
         bwd()
         torch.cuda.synchronize()
         cycles = (ctypes.c_ulonglong * len(PHASES))()

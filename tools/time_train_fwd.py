@@ -1,14 +1,15 @@
-"""Time the train forwards of kernels K2 and K4 on a CUDA card, per train
-step at the flagship widths over 64 scenes x 2000 points: each forward's
-device time (CUDA events over a few calls; a forward call launches its
-kernel and nothing else), beside its split-TF32 and float32 bounds, and the
-time of the pack that precedes it every step (pack_trunk /
-pack_pixel_trunks: the padded copies and the weight tiles split and
+"""Time the train forwards of kernels K2, K4 and K5 on a CUDA card, per
+train step at the flagship widths over 64 scenes x 2000 points (K5: the
+flagship with latent_in (0, 2) on materialized rows): each forward's device
+time (CUDA events over a few calls; a forward call launches its kernel and
+nothing else), beside its split-TF32 and float32 bounds, and the time of
+the pack that precedes it every step (pack_trunk / pack_pixel_trunks /
+pack_generic_trunk: the padded copies and the weight tiles split and
 tiled).  With --probes, the same for copies of the kernels built without
 parts of the forward (csrc/train_fwd_tc.cuh's FW_PROBE: the products, the
-gate, the residuals' stores, K4's gather), to time its phases apart, and
-for a copy that clocks each block's phases on its thread 0 (FW_PROBE 32):
-each phase's share of the blocks' cycles.
+gate, the residuals' stores, K4's gather and K5's head rows), to time its
+phases apart, and for a copy that clocks each block's phases on its thread
+0 (FW_PROBE 32): each phase's share of the blocks' cycles.
 
     python3 tools/time_train_fwd.py [--repo DIR] [--probes] [--steps N] [--scenes 64]
 
@@ -16,11 +17,13 @@ each phase's share of the blocks' cycles.
 unpacked with git archive into a directory .gitignore lists) inside this
 script, so a parent's and this checkout's forwards are timed in one call
 by running the script once for each.  --steps N also times N train
-steps of the flagship and of --pa_feat (tools/time_train_chain.py's
+steps of the flagship, of --pa_feat and of latent_in (0, 2)
+(tools/time_train_chain.py's
 train_steps: the host clock a step, the device's busy time and idle share
 over 2 profiled steps).  Operands are chip_smoke.py's (K2: seeded latents
 and embeddings on the flagship's trunks; K4: the encoder's HeadNet map and
-projection of a synthetic batch), on weights from seed 0.  Each line is
+projection of a synthetic batch; K5: rows of seeded latents and
+embeddings), on weights from seed 0.  Each line is
 printed with the card's name and power limit.
 """
 
@@ -35,10 +38,11 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TF32_PEAK_FLOPS, FP32_PEAK_FLOPS = 494.7e12, 67e12  # H100 SXM dense TF32, float32 (data sheet)
-PROBES = {1: "no products", 2: "no gate", 4: "no residual stores", 8: "no gather",
-          15: "none of those"}
+PROBES = {1: "no products", 2: "no gate", 4: "no residual stores",
+          8: "no gather / head loads", 15: "none of those"}
 CLOCKS = 32  # the FW_PROBE bit that clocks each block's phases
-PHASES = ("ring set-up", "latent rows", "products", "epilogue", "stores", "final rows")
+PHASES = ("ring set-up", "latent / head rows", "products", "epilogue", "stores", "final rows")
+LIBS = {"K2": "train_decoder", "K4": "pixel_train_decoder", "K5": "generic_train_decoder"}
 CLOCKED = 3  # forward calls the phase clocks sum
 
 
@@ -48,15 +52,18 @@ def bounds(flops: float) -> str:
 
 
 def setups(cs, scenes: int, dev):
-    """{"K2": (one step's forwards, its packs, FLOPs), "K4": ...}:
+    """{"K2": (one step's forwards, its packs, FLOPs), "K4": ..., "K5": ...}:
     FLOPs 2 a multiply-add at the true widths (K4: and the 16 taps x C of
     each point in the image)."""
     import torch
 
+    from alignsdf_torch.kernels.generic_train_decoder import (
+        generic_train_decode_forward, pack_generic_trunk)
     from alignsdf_torch.kernels.pixel_train_decoder import (
         pack_pixel_trunks, pixel_train_decode_forward)
     from alignsdf_torch.kernels.train_decoder import pack_trunk, train_decode_forward
     from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.generic_train_plan import make_generic_train_decoder
     from alignsdf_torch.ops.train_plan import make_train_decoder
 
     gen = torch.Generator().manual_seed(cs.SEED)
@@ -93,11 +100,28 @@ def setups(cs, scenes: int, dev):
     def k4_pack():
         pack_pixel_trunks(*inputs, ptrunks, pst)
 
-    return {"K2": (k2_fwd, k2_pack, k2_flops), "K4": (k4_fwd, k4_pack, k4_flops)}
+    gspecs = cs.latent_in_0_specs()
+    gmodel = build_model(gspecs, device=dev, seed=cs.SEED)
+    gst = make_generic_train_decoder(gspecs).statics
+    gtrunks = cs.k5_operands(gmodel, gspecs, cs.k5_rows(gspecs, dev, gen, scenes))
+    gpacks = [pack_generic_trunk(x0, ws, xs, bs, gst) for _, _, x0, ws, xs, bs in gtrunks]
+    k5_flops = sum(2 * m * t.numel() for *_, ws, xs, _ in gtrunks for t in [*ws, *xs]
+                   if t is not None)
+
+    def k5_fwd():
+        for p, t in zip(gpacks, gtrunks):
+            generic_train_decode_forward(p, t[1], gst)
+
+    def k5_pack():
+        for _, _, x0, ws, xs, bs in gtrunks:
+            pack_generic_trunk(x0, ws, xs, bs, gst)
+
+    return {"K2": (k2_fwd, k2_pack, k2_flops), "K4": (k4_fwd, k4_pack, k4_flops),
+            "K5": (k5_fwd, k5_pack, k5_flops)}
 
 
 def build_probes(masks):
-    """Build train_decoder and pixel_train_decoder with -DFW_PROBE=mask for
+    """Build the train decoders' sources (LIBS) with -DFW_PROBE=mask for
     each mask, concurrently: {mask: {name: library path}}."""
     from alignsdf_torch.kernels import build
 
@@ -105,7 +129,7 @@ def build_probes(masks):
     os.makedirs(out_dir, exist_ok=True)
     procs, paths = [], {}
     for mask in masks:
-        for name in ("train_decoder", "pixel_train_decoder"):
+        for name in LIBS.values():
             path = os.path.join(out_dir, f"lib{name}-fwprobe{mask}.so")
             paths.setdefault(mask, {})[name] = path
             cmd = [build.nvcc_path(), *build.NVCC_FLAGS, f"-DFW_PROBE={mask}", "-o", path,
@@ -140,7 +164,7 @@ def phase_shares(runs, paths) -> None:
         lib.fw_read_cycles.restype = ctypes.c_int
         lib.fw_read_cycles.argtypes = [ctypes.c_void_p]
     for name, (fwd, _, _) in runs.items():
-        lib = libs["train_decoder" if name == "K2" else "pixel_train_decoder"]
+        lib = libs[LIBS[name]]
         fwd()
         torch.cuda.synchronize()
         cycles = (ctypes.c_ulonglong * len(PHASES))()
