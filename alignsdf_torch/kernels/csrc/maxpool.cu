@@ -8,33 +8,57 @@
 // reshape; none of that blocking carries over.  What does carry over is the
 // arithmetic, tie routing included:
 //
-//   y1[oh, w] = max_{r in {2oh-1, 2oh, 2oh+1}} x[r, w]       (H pass)
-//   y[oh, ow] = max_{c in {2ow-1, 2ow, 2ow+1}} y1[oh, c]      (W pass)
-//   dx[h, w]  = sum_{oh covers h} [x[h, w] == y1[oh, w]]
-//                 * sum_{ow covers w} [y1[oh, w] == y[oh, ow]] * dy[oh, ow]
+//   y1[oh, w]  = max_{r in {2oh-1, 2oh, 2oh+1}} x[r, w]            (H pass)
+//   y[oh, ow]  = max_{c in {2ow-1, 2ow, 2ow+1}} y1[oh, c]           (W pass)
+//   dy1[oh, w] = sum_{ow covers w} [y1[oh, w] == y[oh, ow]] * dy[oh, ow]
+//   dx[h, w]   = sum_{oh covers h} [x[h, w] == y1[oh, w]] * dy1[oh, w]
 //
 // Rows and columns outside the image take no part.  The backward routes dy to
 // EVERY tied position of a window, per axis (the TPU kernel's two backward
 // passes composed), not to the first maximum as PyTorch's and XLA's
 // select-and-scatter do.  Each sum has at most two nonzero terms, so the
-// order of the additions does not change a bit.
+// order of its additions does not change a bit; the backward keeps the
+// association above (dy1 first, then the sum over oh), as the plain version
+// does, and so equals it bit for bit.
 //
 // Bound on the card: bytes.  The forward reads x once and writes y; the
 // backward reads x, y and dy and writes dx; 9 and ~12 flops an element are
-// far below the H100's rate.  Design: one thread per output (forward) or per
-// input element (backward, a gather: no atomics), threads in memory order
-// (neighbours on neighbouring columns, or channels in channels last), so
-// loads and stores coalesce; the rows a thread reads are shared with its
-// neighbours through L1.  The backward recomputes y1 from x (three loads a
-// covering row, cached) instead of storing it: storing would add a write of
-// half of x in the forward and a read in the backward.
+// far below the H100's rate.
+//
+// Forward: one thread per output, threads in memory order (neighbours on
+// neighbouring columns, or channels in channels last), so loads and stores
+// coalesce; the rows a thread reads are shared with its neighbours through
+// L1.
+//
+// Backward: row streaming, so that x is read once (a gather: no atomics).  A
+// thread owns one column of one image -- in channels last four channels of
+// one pixel as a float4 (one channel where C % 4 != 0), in NCHW one column
+// of one plane -- and walks down a band of output rows oh0 <= oh < oh1.  At
+// each oh it holds x's rows 2oh-1 (kept from the step before), 2oh and
+// 2oh+1 in registers, forms y1, loads y and dy at the one or two columns ow
+// that cover its column (a warp's neighbours read the same pixels, which L1
+// serves), forms dy1, and finishes dx at rows 2oh-1 (the sum of the windows
+// oh-1 and oh) and 2oh.  The next window's loads are issued before the
+// current window's compares, and no load depends on a compare.  The band
+// writes dx rows 2oh0 .. 2oh1-1; finishing row 2oh1-1 takes window oh1, so
+// a band re-reads three rows of x (2oh0-1, 2oh1, 2oh1+1) and one of y and
+// dy.  The band height sets the parallelism (band_rows_for).  Recomputing
+// y1 from x costs no bytes; storing it would add a write of half of x in the
+// forward and a read in the backward.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr int kThreads = 256;
+// The backward's threads to aim for: two loads of 2048 threads on each of
+// the H100 SXM's 132 SMs.  Tuned for that card: on one with another SM count
+// the result is the same, the band height perhaps no longer the fastest.
+constexpr int64_t kWaveThreads = 2 * 132 * 2048;
 
 // A layout's addressing of one (n, ch) plane of rows x cols: element (r, col)
 // sits at base + r * row + col * col_step.  NCHW-contiguous: base = (n * c +
@@ -108,32 +132,112 @@ maxpool_fwd_kernel(const float* __restrict__ x, float* __restrict__ y, uint32_t 
   y[i] = m;
 }
 
-template <bool kChannelsLast>
-__global__ void __launch_bounds__(kThreads)
-maxpool_bwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                   const float* __restrict__ dy, float* __restrict__ dx, uint32_t total, int c,
-                   int h, int w, int oh_n, int ow_n) {
-  const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= total) return;
-  int n, ch, r, col;
-  unravel<kChannelsLast>(i, c, h, w, &n, &ch, &r, &col);
-  const Plane<kChannelsLast> p(n, ch, c, h, w), po(n, ch, c, oh_n, ow_n);
-  const float xv = __ldg(x + i);
-  // windows covering row r: oh in [floor(r / 2), floor((r + 1) / 2)], likewise columns
-  const int oh_hi = min((r + 1) / 2, oh_n - 1);
-  const int ow_lo = col / 2, ow_hi = min((col + 1) / 2, ow_n - 1);
-  float acc = 0.f;
-  for (int oh = r / 2; oh <= oh_hi; ++oh) {
-    const float y1 = row_pool(x, p, h, oh, col);
-    if (!(xv == y1)) continue;
-    float s = 0.f;
-    for (int ow = ow_lo; ow <= ow_hi; ++ow) {
-      const int64_t o = po.at(oh, ow);
-      if (y1 == __ldg(y + o)) s += __ldg(dy + o);
-    }
-    acc += s;
+// V consecutive floats of a column, loaded and stored as one access.
+template <int V>
+struct Lanes;
+
+template <>
+struct Lanes<1> {
+  using T = float;
+  static __device__ __forceinline__ T load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ void store(float* p, T v) { *p = v; }
+  static __device__ __forceinline__ T fill(float f) { return f; }
+};
+
+template <>
+struct Lanes<4> {
+  using T = float4;
+  static __device__ __forceinline__ T load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
   }
-  dx[i] = acc;
+  static __device__ __forceinline__ void store(float* p, T v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+  static __device__ __forceinline__ T fill(float f) { return make_float4(f, f, f, f); }
+};
+
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ float4 vmax(float4 a, float4 b) {
+  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z), fmaxf(a.w, b.w));
+}
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+// [a == b] * g, without a multiply (0 * inf would be NaN)
+__device__ __forceinline__ float pick(float a, float b, float g) { return a == b ? g : 0.f; }
+__device__ __forceinline__ float4 pick(float4 a, float4 b, float4 g) {
+  return make_float4(pick(a.x, b.x, g.x), pick(a.y, b.y, g.y), pick(a.z, b.z, g.z),
+                     pick(a.w, b.w, g.w));
+}
+
+// What one window oh brings: x's rows 2oh and 2oh+1 (-inf below the image),
+// y and dy at the columns ow = lo and hi covering the thread's column (hi ==
+// lo where only one covers it).
+template <class T>
+struct Window {
+  T x0, x1, ylo, yhi, glo, ghi;
+};
+
+// dx from x, y and dy, one thread per (band, image, lane).  An image is one
+// n in channels last (a row holds w * c floats, a column c) and one (n, ch)
+// plane in NCHW (cs = 1); a lane is one column and V of its cs floats.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+maxpool_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                        const float* __restrict__ dy, float* __restrict__ dx, uint32_t total,
+                        int lanes, int images, int band_rows, int cs, int h, int w, int oh_n,
+                        int ow_n) {
+  using L = Lanes<V>;
+  using T = typename L::T;
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int lane = (int)(t % (uint32_t)lanes);
+  const uint32_t rest = t / (uint32_t)lanes;
+  const int image = (int)(rest % (uint32_t)images), band = (int)(rest / (uint32_t)images);
+  const int groups = cs / V, col = lane / groups, chan = (lane % groups) * V;
+  // 32-bit offsets: the entry point refuses tensors of 2^31 - 257 elements or more
+  const int xrow = w * cs, yrow = ow_n * cs;
+  const int xo = image * h * xrow + col * cs + chan, yo = image * oh_n * yrow + chan;
+  const float* xp = x + xo;
+  float* dxp = dx + xo;
+  const float* yp = y + yo;
+  const float* gp = dy + yo;
+  const int lo = col / 2, hi = (col & 1) && lo + 1 < ow_n ? lo + 1 : lo;
+  const int ylo = lo * cs, yhi = hi * cs;
+  const T none = L::fill(-CUDART_INF_F);
+
+  auto fetch = [&](int oh, Window<T>& win) {
+    win.x0 = L::load(xp + 2 * oh * xrow);
+    win.x1 = 2 * oh + 1 < h ? L::load(xp + (2 * oh + 1) * xrow) : none;
+    const int o = oh * yrow;
+    win.ylo = L::load(yp + o + ylo);
+    win.yhi = L::load(yp + o + yhi);  // lo again where one window covers the column
+    win.glo = L::load(gp + o + ylo);
+    win.ghi = L::load(gp + o + yhi);
+  };
+
+  const int oh0 = band * band_rows, oh1 = min(oh0 + band_rows, oh_n);
+  const int last = min(oh1, oh_n - 1);  // window oh1 (when it exists) only finishes row 2oh1-1
+  T above = oh0 > 0 ? L::load(xp + (2 * oh0 - 1) * xrow) : none;  // x row 2oh-1
+  T pending = L::fill(0.f);  // window oh-1's part of dx row 2oh-1
+  Window<T> cur, next;
+  fetch(oh0, cur);
+  for (int oh = oh0;; ++oh) {
+    if (oh < last) fetch(oh + 1, next);
+    const T y1 = vmax(vmax(above, cur.x0), cur.x1);
+    const T s = pick(y1, cur.ylo, cur.glo);
+    const T dy1 = hi != lo ? vadd(s, pick(y1, cur.yhi, cur.ghi)) : s;
+    if (oh > oh0) L::store(dxp + (2 * oh - 1) * xrow, vadd(pending, pick(above, y1, dy1)));
+    if (oh == oh1) break;
+    L::store(dxp + 2 * oh * xrow, pick(cur.x0, y1, dy1));
+    pending = pick(cur.x1, y1, dy1);
+    if (oh == last) break;
+    above = cur.x1;
+    cur = next;
+  }
+  if (oh1 == oh_n && 2 * oh_n - 1 < h)  // even h: row h-1 lies under the last window alone
+    L::store(dxp + (2 * oh_n - 1) * xrow, pending);
 }
 
 unsigned blocks_for(uint32_t total) { return (total + kThreads - 1) / kThreads; }
@@ -142,6 +246,21 @@ unsigned blocks_for(uint32_t total) { return (total + kThreads - 1) / kThreads; 
 // kernels' 32-bit indices, with room for the last block's overhang.
 bool fits(int n, int c, int h, int w) {
   return (int64_t)n * c * h * w <= (int64_t)0x7FFFFFFF - kThreads;
+}
+
+// The backward's band height: the fewest bands that give `columns` threads
+// a band kWaveThreads threads or more in all, at most one band an output
+// row.  Built with -DK7_BAND_ROWS=n, every band is n rows (clipped to oh_n),
+// for tools/time_maxpool.py's sweep of band heights.
+int band_rows_for(int64_t columns, int oh_n) {
+#ifdef K7_BAND_ROWS
+  static_assert(K7_BAND_ROWS >= 1, "K7_BAND_ROWS must be at least 1");
+  (void)columns;
+  return std::min(K7_BAND_ROWS, oh_n);
+#else
+  const int64_t bands = std::min<int64_t>(oh_n, (kWaveThreads + columns - 1) / columns);
+  return (int)((oh_n + bands - 1) / bands);
+#endif
 }
 
 }  // namespace
@@ -168,18 +287,28 @@ int maxpool_fwd(const float* x, float* y, int n, int c, int h, int w, int channe
 }
 
 // dx from x, the forward's y and its gradient dy, all in x's layout.
+// Returns the launch's CUDA error code (-1: arguments refused: an empty
+// tensor, or more than 2^31 - 257 elements).
 int maxpool_bwd(const float* x, const float* y, const float* dy, float* dx, int n, int c, int h,
                 int w, int channels_last, void* stream) {
   if (n < 1 || c < 1 || h < 1 || w < 1 || !fits(n, c, h, w)) return -1;
   const int oh_n = (h - 1) / 2 + 1, ow_n = (w - 1) / 2 + 1;
-  const uint32_t total = (uint32_t)n * c * h * w;
+  // float4 columns where channels last holds the channels in aligned fours
+  const bool vec = channels_last && c % 4 == 0 &&
+                   ((uintptr_t)x | (uintptr_t)y | (uintptr_t)dy | (uintptr_t)dx) % 16 == 0;
+  const int cs = channels_last ? c : 1, lanes = w * (vec ? c / 4 : cs);
+  const int images = channels_last ? n : n * c;
+  const int64_t columns = (int64_t)lanes * images;
+  const int band_rows = band_rows_for(columns, oh_n);
+  const int bands = (oh_n + band_rows - 1) / band_rows;
+  const uint32_t total = (uint32_t)(columns * bands);  // <= n * c * h * w: fits
   cudaStream_t s = (cudaStream_t)stream;
-  if (channels_last)
-    maxpool_bwd_kernel<true><<<blocks_for(total), kThreads, 0, s>>>(x, y, dy, dx, total, c, h, w,
-                                                                   oh_n, ow_n);
+  if (vec)
+    maxpool_bwd_rows_kernel<4><<<blocks_for(total), kThreads, 0, s>>>(
+        x, y, dy, dx, total, lanes, images, band_rows, cs, h, w, oh_n, ow_n);
   else
-    maxpool_bwd_kernel<false><<<blocks_for(total), kThreads, 0, s>>>(x, y, dy, dx, total, c, h,
-                                                                    w, oh_n, ow_n);
+    maxpool_bwd_rows_kernel<1><<<blocks_for(total), kThreads, 0, s>>>(
+        x, y, dy, dx, total, lanes, images, band_rows, cs, h, w, oh_n, ow_n);
   return (int)cudaGetLastError();
 }
 

@@ -141,7 +141,10 @@ def maxpool_forward(x: torch.Tensor) -> torch.Tensor:
 
 def maxpool_backward(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """K7 backward on the card: dx (N, C, H, W) in x's layout (y and dy in
-    the same), one thread per element of x."""
+    the same).  Each thread streams one column (channels last: four
+    channels of a pixel, or one where C % 4 != 0; NCHW: one column of a
+    plane) down a band of output rows, reading x once; the kernel sets the
+    band height."""
     if x.dim() != 4:
         raise ValueError(f"K7 takes (N, C, H, W), got {tuple(x.shape)}")
     fmt = memory_format(x)

@@ -1013,21 +1013,32 @@ def test_cuda_generic_train_kernel_matches_plain(model_type, style, pfs, latent_
             assert float((g - r).abs().max()) <= 1e-4 * (float(r.abs().max()) + 1e-12)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("channels_last", [False, True])
-@pytest.mark.parametrize("shape", [(2, 8, 16, 16), (3, 64, 128, 128), (1, 5, 13, 10)])
-def test_cuda_maxpool_matches_plain(shape, channels_last):
-    """K7 on post-ReLU data with flat blocks and zero rows, NCHW or channels
-    last: the forward bit for bit (also against F.max_pool2d), in x's
-    layout, the gradient of the autograd path and of the backward kernel
-    within 1e-6 of the plain backward (each sum has at most two nonzero
-    terms: exact), one launch each."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    gen = torch.Generator().manual_seed(7)
+def _k7_tied(shape, gen):
+    """Post-ReLU data with a flat block and a zero row: ties."""
     x = torch.relu(torch.randn(shape, generator=gen) - 0.3)
     x[:, :, 2:9, 1:7] = 0.5
     x[:, :, 0] = 0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 16), (3, 64, 128, 128), (1, 5, 13, 10),
+                                   (2, 5, 33, 31), (1, 3, 1, 7), (2, 4, 9, 1), (2, 65, 20, 18),
+                                   (3, 5, 37, 29), (64, 64, 128, 128)])
+def test_cuda_maxpool_matches_plain(shape, channels_last):
+    """K7 on post-ReLU data with flat blocks and zero rows, NCHW or channels
+    last, odd sizes, sizes of 1 and C % 4 != 0 (channels last's one-channel
+    columns) included, and the train shape, where the backward's bands are
+    13 output rows in channels last (they do not divide the 64) and 32 in
+    NCHW: the forward bit for bit (also against F.max_pool2d),
+    in x's layout, the gradient of the autograd path and of the backward
+    kernel bit for bit equal to the plain backward (each sum has at most two
+    nonzero terms, associated as the plain version does), one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(7)
+    x = _k7_tied(shape, gen)
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     x = x.cuda().contiguous(memory_format=fmt).requires_grad_()
     fwd, bwd = maxpool_forward.launches, maxpool_backward.launches
@@ -1042,6 +1053,35 @@ def test_cuda_maxpool_matches_plain(shape, channels_last):
         assert torch.equal(y, y_ref)
         assert torch.equal(y, torch.nn.functional.max_pool2d(x, 3, 2, 1))
         dx_ref = maxpool_backward_reference(x, y_ref, dy)
-        assert float((dx - dx_ref).abs().max()) <= 1e-6
+        assert torch.equal(dx, dx_ref)
         dx_k = maxpool_backward(x.detach(), y, dy.contiguous(memory_format=fmt))
-        assert float((dx_k - dx_ref).abs().max()) <= 1e-6
+        assert torch.equal(dx_k, dx_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "channels_last_unaligned"])
+def test_cuda_maxpool_backward_layouts_match_plain(layout):
+    """K7's backward at (3, 64, 128, 128) and (2, 8, 63, 17), bit for bit
+    equal to the plain backward, NCHW, channels last, and channels last from
+    an address 4 bytes past a 16-byte boundary, which takes the one-channel
+    columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(3)
+    for shape in ((3, 64, 128, 128), (2, 8, 63, 17)):
+        n, c, h, w = shape
+        x = _k7_tied(shape, gen).cuda()
+        if layout == "nchw":
+            x = x.contiguous()
+        else:
+            flat = torch.empty(n * h * w * c + 1, device="cuda")
+            base = flat[1:] if layout == "channels_last_unaligned" else flat[:-1]
+            x = base.view(n, h, w, c).copy_(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            assert x.is_contiguous(memory_format=torch.channels_last)
+            assert (x.data_ptr() % 16 != 0) == (layout == "channels_last_unaligned")
+        y = maxpool_reference(x)
+        dy = torch.randn(y.shape, generator=gen).cuda().contiguous(
+            memory_format=torch.contiguous_format if layout == "nchw" else torch.channels_last)
+        dx = maxpool_backward(x, y, dy)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, maxpool_backward_reference(x, y, dy))

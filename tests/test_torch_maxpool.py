@@ -57,10 +57,12 @@ def _port_vjp(pool, x, dy):
     return _nhwc(y), _nhwc(xt.grad)
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 16, 8), (3, 32, 32, 16), (5, 12, 20, 4)])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 8), (3, 32, 32, 16), (5, 12, 20, 4),
+                                   (2, 36, 28, 5), (1, 4, 6, 3), (1, 20, 18, 65)])
 def test_plain_k7_matches_jax_k7(shape):
     """Forward exact; gradient within 1e-6 (each position sums at most two
-    nonzero terms a pass, so the order of the additions changes nothing)."""
+    nonzero terms a pass, so the order of the additions changes nothing).
+    C % 4 != 0 included; JAX's K7 takes even H and W of 4 or more only."""
     x, dy = _tied(shape, seed=sum(shape))
     jy, jdx = _jax_vjp(lambda a: jax_k7(a, True), x, dy)
     py, pdx = _port_vjp(maxpool_k3s2p1, x, dy)
