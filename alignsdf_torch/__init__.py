@@ -8,9 +8,10 @@ the JAX package: what it needs from there is copied.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import TYPE_CHECKING, Optional, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -19,6 +20,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     Raises when CUDA is asked for (explicitly or by default) but absent, so an
     entry point never drops to the CPU on its own.
     """
+    import torch  # here, so that the host-only evaluation imports without torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -32,5 +35,7 @@ def use_float32_precision() -> None:
     CLIs and ``chip_smoke.py`` call this before they build anything, so
     every time they report is a time of that one mode (PyTorch's default
     would run the encoder's convolutions in TF32)."""
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

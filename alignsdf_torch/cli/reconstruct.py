@@ -5,7 +5,7 @@ Usage:
     python -m alignsdf_torch.cli.reconstruct -e <experiment_dir> -t obman \\
         --samples samples.npz [--checkpoint latest | --weights model.pth] \\
         [--start_point A --end_point B] [--cube_dim 128] [--device cuda] \\
-        [--ref_pixel_projection] [--label [--viz]] [--pallas]
+        [--ref_pixel_projection] [--label [--viz]] [--pallas] [--eval_mode]
 
 Weights are a reference-schema torch checkpoint,
 ``<experiment_dir>/ModelParameters/<checkpoint>.pth`` ({"epoch",
@@ -20,7 +20,13 @@ through kernel K6 with ``--pallas``, as the JAX CLI's ``--pallas`` runs its
 generic Pallas decoder, else through the plain decoder.  With a
 classifier (``ClassifierBranch``), ``--label`` writes the hand mesh's
 per-vertex part labels (``meshes/<key>_hand_label.npz``) and ``--viz`` the
-mesh colored by part (``meshes/<key>_hand_color.ply``).
+mesh colored by part (``meshes/<key>_hand_color.ply``).  With
+``--eval_mode`` each mesh is aligned to its GT mesh
+(``<DataSource>/<task>/test/mesh_hand`` or ``mesh_obj/<key>.obj``, where it
+exists) by trans+scale ICP on the host before its PLY is written.  Each
+image's log line gives its timings in ms: encode and grid (device), marching
+cubes, largest component, ICP, export and all the host work together (host).  ``cli/evaluate.py`` scores
+the workspace.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ def load_samples(path: str, start=None, end=None):
 
 
 def main(argv=None):
+    """Parse ``argv`` and reconstruct; returns each image's key and timings (ms)."""
     parser = argparse.ArgumentParser(description="AlignSDF reconstruction (PyTorch/CUDA)")
     parser.add_argument("-e", dest="experiment_dir", required=True)
     parser.add_argument("-t", dest="task", default="obman", choices=["obman", "dexycb", "ho3d"])
@@ -95,6 +102,9 @@ def main(argv=None):
     parser.add_argument("--pallas", action="store_true",
                         help="decode the generic grid path (configs the fused K1/K3 path "
                              "does not take) through kernel K6 instead of the plain decoder")
+    parser.add_argument("--eval_mode", action="store_true",
+                        help="align each mesh to its GT mesh by trans+scale ICP before "
+                             "the export (reference utils/mesh.py:383-398)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(force=True, level=logging.INFO,
@@ -124,15 +134,20 @@ def main(argv=None):
                     "kernel K6 (--pallas)" if args.pallas else "the plain decoder")
 
     t0 = time.time()
+    per_image = []
 
     def log_done(idx, pending):
         nonlocal t0
-        logger.info("[%d/%d] %s: %.2fs %s", idx + 1, len(samples), pending["sample"]["key"],
-                    time.time() - t0, pending["timings"])
+        per_image.append({"key": pending["sample"]["key"], **pending["timings"]})
+        logger.info("[%d/%d] %s: %.2fs, ms: %s", idx + 1, len(samples), pending["sample"]["key"],
+                    time.time() - t0, " ".join(f"{k[:-3]} {v:.1f}"
+                                               for k, v in pending["timings"].items()))
         t0 = time.time()
 
     run_pipelined(recon, samples, out_dirs, task=args.task, on_done=log_done,
-                  lookahead=args.lookahead, label_out=args.label, viz=args.viz)
+                  lookahead=args.lookahead, label_out=args.label, viz=args.viz,
+                  eval_mode=args.eval_mode)
+    return per_image
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
-"""Minimal mesh library (numpy/scipy): the parts of the JAX package's
-``geom/meshlib.py`` that reconstruction uses -- TriMesh, largest connected
-component (reference utils/mesh.py:372-381), PLY/OBJ export and OBJ read."""
+"""Minimal mesh library (numpy/scipy), the JAX package's ``geom/meshlib.py``:
+TriMesh, largest connected component (reference utils/mesh.py:372-381),
+area-weighted surface sampling (trimesh.sample.sample_surface as the
+reference's metrics use it, deep_sdf/metrics/icp_trans_scale.py:22-24) and
+PLY/OBJ read and write."""
 
 from __future__ import annotations
 
@@ -79,6 +81,25 @@ def largest_component(mesh: TriMesh) -> TriMesh:
     return max(parts, key=lambda m: m.area)
 
 
+def sample_surface(mesh: TriMesh, count: int,
+                   rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Area-weighted uniform surface sampling (trimesh.sample.sample_surface
+    semantics: choose faces by area, uniform barycentric points)."""
+    rng = rng or np.random.default_rng()
+    areas = mesh.face_areas()
+    probs = areas / areas.sum()
+    face_idx = rng.choice(len(probs), size=count, p=probs)
+    tri = mesh.triangles[face_idx]
+    r1 = np.sqrt(rng.random(count))
+    r2 = rng.random(count)
+    a = 1 - r1
+    b = r1 * (1 - r2)
+    c = r1 * r2
+    return (
+        tri[:, 0] * a[:, None] + tri[:, 1] * b[:, None] + tri[:, 2] * c[:, None]
+    )
+
+
 def write_ply(path: str, vertices: np.ndarray, faces: np.ndarray,
               vertex_colors: Optional[np.ndarray] = None) -> None:
     """Binary-little-endian PLY writer (color support mirrors reference
@@ -108,6 +129,54 @@ def write_ply(path: str, vertices: np.ndarray, faces: np.ndarray,
         fp.write(frec.tobytes())
 
 
+def read_ply(path: str) -> TriMesh:
+    """Reads the binary PLY files written above plus common ascii PLYs."""
+    with open(path, "rb") as fp:
+        header_lines = []
+        while True:
+            line = fp.readline().decode("ascii").strip()
+            header_lines.append(line)
+            if line == "end_header":
+                break
+        fmt = next(l for l in header_lines if l.startswith("format")).split()[1]
+        n_vert = int(next(l for l in header_lines if l.startswith("element vertex")).split()[2])
+        n_face = int(next(l for l in header_lines if l.startswith("element face")).split()[2])
+        vert_props = []
+        in_vertex = False
+        for line in header_lines:
+            if line.startswith("element vertex"):
+                in_vertex = True
+            elif line.startswith("element"):
+                in_vertex = False
+            elif line.startswith("property") and in_vertex:
+                vert_props.append(tuple(line.split()[1:]))
+
+        if fmt == "binary_little_endian":
+            np_types = {"float": np.float32, "float32": np.float32,
+                        "double": np.float64, "uchar": np.uint8, "uint8": np.uint8,
+                        "int": np.int32, "int32": np.int32}
+            dtype = [(name, np_types[t]) for t, name in vert_props]
+            vdata = np.frombuffer(fp.read(n_vert * np.dtype(dtype).itemsize), dtype=dtype)
+            verts = np.stack([vdata["x"], vdata["y"], vdata["z"]], axis=1).astype(np.float64)
+            faces = np.empty((n_face, 3), np.int64)
+            for i in range(n_face):
+                n = np.frombuffer(fp.read(1), np.uint8)[0]
+                idx = np.frombuffer(fp.read(4 * n), np.int32)
+                faces[i] = idx[:3]
+            return TriMesh(verts, faces)
+
+        # ascii
+        verts = np.empty((n_vert, 3), np.float64)
+        for i in range(n_vert):
+            parts = fp.readline().split()
+            verts[i] = [float(x) for x in parts[:3]]
+        faces = np.empty((n_face, 3), np.int64)
+        for i in range(n_face):
+            parts = fp.readline().split()
+            faces[i] = [int(x) for x in parts[1:4]]
+        return TriMesh(verts, faces)
+
+
 def write_obj(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
     with open(path, "w") as fp:
         for v in np.asarray(vertices, np.float64):
@@ -127,3 +196,11 @@ def read_obj(path: str) -> TriMesh:
                 faces.append(idx)
     return TriMesh(np.asarray(verts), np.asarray(faces, np.int64))
 
+
+def load_mesh(path: str) -> TriMesh:
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".ply":
+        return read_ply(path)
+    if ext == ".obj":
+        return read_obj(path)
+    raise ValueError(f"unsupported mesh format: {path}")

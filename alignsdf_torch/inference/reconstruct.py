@@ -6,7 +6,9 @@ Per image: encode -> MANO and object pose -> two-pass grid (kernel K1, or
 K3 for pixel-aligned configs, when the config allows the fused path; else
 the generic path's ``decode_fn`` on materialized rows: the plain decoder, or
 kernel K6 with ``ops/decoder_plan.make_generic_decode_fn``) ->
-marching cubes -> PLY/JSON exports; with ``label_out``, the hand-part labels
+marching cubes -> largest component -> PLY/JSON exports; with
+``eval_mode``, each mesh is first aligned to its GT mesh by trans+scale ICP
+(reference utils/mesh.py:383-398); with ``label_out``, the hand-part labels
 at the hand mesh's vertices (reference utils/mesh.py:137-184).
 ``submit`` enqueues the device work on the reconstructor's CUDA stream and
 starts copies of the results into pinned host memory; ``finalize`` waits for
@@ -30,8 +32,10 @@ import torch
 
 from alignsdf_torch import resolve_device
 from alignsdf_torch.config import Specs
+from alignsdf_torch.eval.icp import ICPTransScale
 from alignsdf_torch.geom.marching_cubes import marching_cubes
-from alignsdf_torch.geom.meshlib import TriMesh, largest_component, read_obj, write_ply
+from alignsdf_torch.geom.meshlib import (TriMesh, largest_component, load_mesh, read_obj,
+                                         write_ply)
 from alignsdf_torch.inference.grid import embed_points, make_grid_evaluator
 from alignsdf_torch.ops.geometry import pixel_alignment
 from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
@@ -45,17 +49,41 @@ PART_COLORS = np.array(
 )  # reference utils/mesh.py:316-323
 
 
-def field_to_mesh(sdf_field: np.ndarray, origin: np.ndarray,
-                  voxel_size: float) -> Optional[TriMesh]:
-    """Marching cubes + largest connected component (reference
-    utils/mesh.py:331-381); None when the field has no surface."""
+def surface_mesh(sdf_field: np.ndarray, origin: np.ndarray,
+                 voxel_size: float) -> Optional[TriMesh]:
+    """Marching cubes of the zero level set, placed at ``origin``
+    (reference utils/mesh.py:331-369); None when the field has no surface."""
     try:
         verts, faces = marching_cubes(sdf_field, 0.0, spacing=(voxel_size,) * 3)
     except ValueError as e:
         logger.warning("Cannot reconstruct mesh: %s", e)
         return None
-    verts = verts + np.asarray(origin, np.float32)[None]
-    return largest_component(TriMesh(verts, faces))
+    return TriMesh(verts + np.asarray(origin, np.float32)[None], faces)
+
+
+def export_with_optional_icp(mesh: TriMesh, out_path: str, gt_mesh_path: Optional[str] = None,
+                             timings: Optional[Dict[str, float]] = None):
+    """PLY export; in eval mode (a GT mesh path that exists) the mesh is
+    first aligned to the GT mesh by trans+scale ICP over 30k surface samples,
+    at most 100 iterations (the JAX package's; reference
+    utils/mesh.py:383-398).  Returns (trans, scale); adds the ICP's and the
+    write's ms to ``timings["icp_ms"]`` and ``timings["export_ms"]``."""
+    t0 = time.perf_counter()
+    if gt_mesh_path is not None and os.path.isfile(gt_mesh_path):
+        solver = ICPTransScale(mesh, load_mesh(gt_mesh_path))
+        solver.sample_mesh(30000, "both")
+        solver.run_icp_f(max_iter=100)
+        t1 = time.perf_counter()
+        solver.export_source_mesh(out_path)
+        result = solver.get_trans_scale()
+    else:
+        t1 = t0
+        mesh.export(out_path)
+        result = np.zeros((1, 3)), np.array([1.0])
+    if timings is not None:
+        timings["icp_ms"] += (t1 - t0) * 1e3
+        timings["export_ms"] += (time.perf_counter() - t1) * 1e3
+    return result
 
 
 def fused_grid_allowed(specs: Specs) -> bool:
@@ -164,19 +192,26 @@ class Reconstructor:
 
     def finalize(self, pending: Dict[str, Any], out_dirs: Dict[str, str],
                  task: str = "obman", label_out: bool = False,
-                 viz: bool = False) -> Dict[str, float]:
+                 viz: bool = False, eval_mode: bool = False) -> Dict[str, float]:
         """Host side of one image: wait for its results, export the MANO and
-        object parameters, mesh both fields; with ``label_out`` (and a
+        object parameters, mesh both fields; with ``eval_mode``, align each
+        mesh to its GT mesh (``<DataSource>/<task>/test/mesh_hand`` or
+        ``mesh_obj/<key>.obj``) before the export; with ``label_out`` (and a
         classifier), write the hand mesh's per-vertex part labels as
         ``<key>_hand_label.npz`` and, with ``viz``, the mesh colored by part
-        as ``<key>_hand_color.ply``.  Returns its timings in ms."""
+        as ``<key>_hand_color.ply``.  Returns its timings in ms: encode and
+        grid (CUDA events), marching cubes (``marching_ms``), largest
+        component, ICP, export (the parameter files and the meshes), with
+        labels the labels' query and files, and ``host_ms``, all this host
+        work together (the span that earlier records call ``mc_ms``)."""
         ev0, ev1, ev2, done = pending["events"]
         if done is not None:
             done.synchronize()
         host = {k: v.numpy() for k, v in pending["host"].items()}
         specs = self.specs
         prefix = pending["sample"]["key"]
-        t0 = time.perf_counter()
+        timings = dict.fromkeys(("marching_ms", "lcc_ms", "icp_ms", "export_ms"), 0.0)
+        t_host = t0 = time.perf_counter()
 
         if "mano_verts" in host:
             verts = host["mano_verts"][0]
@@ -201,27 +236,41 @@ class Reconstructor:
             with open(os.path.join(out_dirs["obj_dir"], prefix + ".json"), "w") as f:
                 json.dump({"obj_corners": host["obj_corners"][0].tolist(),
                            "obj_trans": obj_trans.tolist()}, f)
+        timings["export_ms"] += (time.perf_counter() - t0) * 1e3
 
         origin, voxel = host["origin"], float(host["voxel"])
         mesh_base = os.path.join(out_dirs["meshes"], prefix)
         meshes = {}
         for name, on in (("hand", specs.hand_branch), ("obj", specs.obj_branch)):
-            mesh = field_to_mesh(host[f"sdf_{name}"], origin, voxel) if on else None
-            if mesh is not None:
-                mesh.export(f"{mesh_base}_{name}.ply")
+            meshes[name] = None
+            if not on:
+                continue
+            t0 = time.perf_counter()
+            mesh = surface_mesh(host[f"sdf_{name}"], origin, voxel)
+            t1 = time.perf_counter()
+            timings["marching_ms"] += (t1 - t0) * 1e3
+            if mesh is None:
+                continue
+            mesh = largest_component(mesh)
+            timings["lcc_ms"] += (time.perf_counter() - t1) * 1e3
+            gt = (os.path.join(specs.data_source, task, "test", f"mesh_{name}", prefix + ".obj")
+                  if eval_mode else None)
+            export_with_optional_icp(mesh, f"{mesh_base}_{name}.ply", gt, timings)
             meshes[name] = mesh
         pending["meshes"] = meshes
 
         hand = meshes.get("hand")
         if label_out and hand is not None and specs.classifier_branch:
+            t0 = time.perf_counter()
             labels = self._query_labels(pending["ctx"], hand.vertices)
             np.savez(f"{mesh_base}_hand_label.npz", points=hand.vertices.astype(np.float32),
                      labels=labels.astype(np.float32))
             if viz:
                 write_ply(f"{mesh_base}_hand_color.ply", hand.vertices, hand.faces,
                           vertex_colors=PART_COLORS[labels % len(PART_COLORS)])
+            timings["labels_ms"] = (time.perf_counter() - t0) * 1e3
+        timings["host_ms"] = (time.perf_counter() - t_host) * 1e3
 
-        timings = {"mc_ms": (time.perf_counter() - t0) * 1e3}
         if done is not None:
             timings["encode_ms"] = ev0.elapsed_time(ev1)
             timings["grid_ms"] = ev1.elapsed_time(ev2)
@@ -252,12 +301,14 @@ class Reconstructor:
 def run_pipelined(recon: Reconstructor, samples, out_dirs: Dict[str, str],
                   task: str = "obman",
                   on_done: Optional[Callable[[int, Dict[str, Any]], None]] = None,
-                  lookahead: int = 2, label_out: bool = False, viz: bool = False) -> int:
+                  lookahead: int = 2, label_out: bool = False, viz: bool = False,
+                  eval_mode: bool = False) -> int:
     """Reconstruct a sequence with ``lookahead`` images of device work in
     flight ahead of the host work.  Each pending image holds two N^3 float32
     fields (16 MB at 128^3).  ``on_done(i, pending)`` sees the image's
-    ``timings`` and ``meshes``.  ``label_out`` and ``viz`` go to
-    ``finalize``.  Returns the number of images processed."""
+    ``timings`` and ``meshes`` (the meshes before any ICP alignment).
+    ``label_out``, ``viz`` and ``eval_mode`` go to ``finalize``.  Returns
+    the number of images processed."""
     window: deque = deque()
     count = 0
 
@@ -265,7 +316,7 @@ def run_pipelined(recon: Reconstructor, samples, out_dirs: Dict[str, str],
         nonlocal count
         idx, pending = window.popleft()
         pending["timings"] = recon.finalize(pending, out_dirs, task=task, label_out=label_out,
-                                            viz=viz)
+                                            viz=viz, eval_mode=eval_mode)
         count += 1
         if on_done is not None:
             on_done(idx, pending)
