@@ -3,16 +3,23 @@ reference reconstruct.py:107-178).
 
 Usage:
     python -m alignsdf_torch.cli.reconstruct -e <experiment_dir> -t obman \\
-        --samples samples.npz [--checkpoint latest | --weights model.pth] \\
+        [-s split.json [--data_root DIR] | --samples samples.npz] \\
+        [--checkpoint latest | --weights model.pth] \\
         [--start_point A --end_point B] [--cube_dim 128] [--device cuda] \\
         [--ref_pixel_projection] [--label [--viz]] [--pallas] [--eval_mode]
 
 Weights are a reference-schema torch checkpoint,
 ``<experiment_dir>/ModelParameters/<checkpoint>.pth`` ({"epoch",
-"model_state_dict"} or a bare state_dict), or ``--weights``.  Samples come
-from an npz holding ``image`` (S, H, W, 3) uint8, ``cam_intr`` (S, 3, 4),
-``mano_root`` (S, 3), ``rest_obj_corners`` (S, 8, 3) and ``key`` (S,).
-Outputs go to ``<experiment_dir>/Eval_<task>/``.  A pixel-aligned
+"model_state_dict"} or a bare state_dict), or ``--weights``.  The images
+are a test split (reference reconstruct.py:126-140): ``-s`` names a json
+``{"filenames": [...]}`` (default ``input/<task>.json``) whose keys are read
+from ``<data_root>/rgb/<key>.jpg`` and ``<data_root>/meta/<key>.pkl``
+(``data/dataset.py:ImagesDataset``; ``--data_root`` defaults to
+``<DataSource>/<task>/test``).  Or they come from an npz (``--samples``)
+holding ``image`` (S, H, W, 3) uint8, ``cam_intr`` (S, 3, 4), ``mano_root``
+(S, 3), ``rest_obj_corners`` (S, 8, 3) and ``key`` (S,).
+``--start_point`` / ``--end_point`` slice either list; one process takes
+the whole slice.  Outputs go to ``<experiment_dir>/Eval_<task>/``.  A pixel-aligned
 experiment (``PixelAlign``) reconstructs through kernel K3, the others
 through K1, where the embedding is affine in xyz.  Otherwise (e.g. NeRF PE
 with point_size > 3) the grid decodes materialized [latent, embedding] rows:
@@ -42,7 +49,9 @@ import torch
 
 from alignsdf_torch import resolve_device, use_float32_precision
 from alignsdf_torch.config import specs_from_dict
-from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
+from alignsdf_torch.data.dataset import ImagesDataset
+from alignsdf_torch.inference.reconstruct import (Reconstructor, load_mano_faces,
+                                                   make_output_dirs, run_pipelined)
 from alignsdf_torch.models.alignsdf import build_model
 from alignsdf_torch.ops.decoder_plan import make_generic_decode_fn
 
@@ -86,7 +95,14 @@ def main(argv=None):
     parser.add_argument("--lookahead", type=int, default=2,
                         help="images of device work kept in flight ahead of the "
                              "host-side meshing/export work")
-    parser.add_argument("--samples", required=True, help="npz of input samples")
+    source = parser.add_mutually_exclusive_group()
+    source.add_argument("-s", dest="split_filename", default=None,
+                        help="test split json {\"filenames\": [...]} (default "
+                             "input/<task>.json)")
+    source.add_argument("--samples", default=None, help="npz of input samples")
+    parser.add_argument("--data_root", default=None,
+                        help="the test split's directory (rgb/, meta/; default "
+                             "<DataSource>/<task>/test)")
     parser.add_argument("--weights", default=None,
                         help="torch checkpoint to load instead of ModelParameters/")
     parser.add_argument("--device", default=None, help="default: cuda")
@@ -106,6 +122,8 @@ def main(argv=None):
                         help="align each mesh to its GT mesh by trans+scale ICP before "
                              "the export (reference utils/mesh.py:383-398)")
     args = parser.parse_args(argv)
+    if args.samples is not None and args.data_root is not None:
+        parser.error("--data_root: the images come from --samples")
 
     logging.basicConfig(force=True, level=logging.INFO,
                         format="AlignSDF-torch - %(levelname)s - %(message)s")
@@ -120,12 +138,16 @@ def main(argv=None):
     load_reference_weights(model, weights)
     logger.info("loaded %s", weights)
 
-    samples = load_samples(args.samples, args.start_point, args.end_point)
+    if args.samples is not None:
+        samples = load_samples(args.samples, args.start_point, args.end_point)
+    else:
+        samples = ImagesDataset.from_split(args.split_filename or f"input/{args.task}.json",
+                                           specs, args.task, args.data_root,
+                                           args.start_point, args.end_point)
     out_dirs = make_output_dirs(os.path.join(args.experiment_dir, f"Eval_{args.task}"))
-    mano_faces = np.load(os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                                      "assets", "closed_fmano.npy"))
     recon = Reconstructor(model, specs, cube_dim=args.cube_dim, device=device,
-                          mano_faces=mano_faces, pixel_ref_projection=args.ref_pixel_projection,
+                          mano_faces=load_mano_faces(),
+                          pixel_ref_projection=args.ref_pixel_projection,
                           decode_fn=make_generic_decode_fn(specs) if args.pallas else None)
     if recon.fused:
         logger.info("grid: the fused path (kernel %s)", "K3" if specs.pixel_align else "K1")

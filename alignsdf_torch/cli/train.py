@@ -4,7 +4,8 @@ train.py:201-714).
 Usage:
     python -m alignsdf_torch.cli.train -e experiments/obman_30k.json \\
         --mano --obj_pose --encode both --point_size 9 [--pa_feat | --cls] \\
-        [--add_epoch E] (--data_root DIR [--continue NAME] | --smoke | --steps N) \\
+        [--add_epoch E] (--data_root DIR [--continue NAME] [--skip_test | \\
+        --test_split S --test_data_root T --test_cube_dim N] | --smoke | --steps N) \\
         [--device cuda] [--no_init_guard]
 
 The flagship trains its twin trunks through kernel K2; with ``--pa_feat``
@@ -17,7 +18,10 @@ hand trunk's last hidden activation, whose logits feed the cross-entropy
 from AdditionalLossStart (``--add_epoch``) on.
 
 With ``--data_root`` (a dataset in the reference's five-LMDB layout, e.g.
-from ``data/synthetic.py:write_synthetic_lmdb``) it runs the epoch loop of
+from ``data/synthetic.py:write_synthetic_lmdb`` or
+``tools/create_lmdb_torch.py``, or with ``LMDB: false`` in its per-file
+npz/jpg/pkl layout, e.g. from ``write_synthetic_dataset``, whose keys the
+TrainSplit names) it runs the epoch loop of
 the JAX package's CLI (``cli/train.py:284-390``; reference train.py:446-640):
 the TrainSplit's keys, or every key of the LMDB when TrainSplit is empty,
 shuffled per epoch by the threaded loader (DataLoaderThreads workers,
@@ -28,9 +32,16 @@ the end, numbered snapshots at SnapshotFrequency and AdditionalSnapshots.
 ``--continue NAME`` (or an existing ``latest``) resumes after the saved
 epoch; NAME may also be another experiment's directory, whose ``latest`` is
 taken, since ``--epoch`` renames the experiment.  The spec's Resume, where
-that file exists, warm-starts the weights.
-Not ported: the SLURM requeue handler, ``--multistep``, ``--packed``,
-``--loader_mode`` and the post-training test reconstruction.
+that file exists, warm-starts the weights.  The run ends, as the
+reference's, by reconstructing the test split with the model in memory
+(``run_post_training_test``; reference train.py:653-668): the split json
+``--test_split`` (default ``input/<Dataset>.json``; missing, a warning) read
+from ``--test_data_root`` (default ``<DataSource>/<Dataset>/test``) at
+``--test_cube_dim`` (128), the hand labels written for a classifier, and
+for obman and dexycb each mesh aligned to its GT mesh where one exists
+(``--eval_mode``).  ``--skip_test`` skips it.
+Not ported: the SLURM requeue handler, ``--multistep``, ``--packed`` and
+``--loader_mode``.
 
 Without it, training runs on synthetic batches (``data/synthetic.py``) of
 ScenesPerBatch scenes: ``--smoke`` takes 2 steps on one batch of 2 scenes and
@@ -53,9 +64,11 @@ import torch
 from alignsdf_torch import config as cfg
 from alignsdf_torch import resolve_device, use_float32_precision
 from alignsdf_torch.data import make_train_dataset
-from alignsdf_torch.data.dataset import to_train_batch
+from alignsdf_torch.data.dataset import ImagesDataset, to_train_batch
 from alignsdf_torch.data.loader import DataLoader
 from alignsdf_torch.data.synthetic import synthetic_train_batch
+from alignsdf_torch.inference.reconstruct import (Reconstructor, load_mano_faces,
+                                                   make_output_dirs, run_pipelined)
 from alignsdf_torch.training import checkpoints as ckpt
 from alignsdf_torch.training.train_state import TrainState, learning_rate_for_epoch
 from alignsdf_torch.training.train_step import (
@@ -73,6 +86,8 @@ logger = logging.getLogger("alignsdf_torch.train")
 # override flags of cfg.add_train_args that act only through the dataset,
 # the augmentation or later epochs, which synthetic batches in epoch 1 lack
 _NOT_RUN = ("no_aug", "bg_aug", "epoch", "lr_interval", "lr_factor")
+# the post-training test's flags: it follows the epoch loop
+_TEST_FLAGS = ("skip_test", "test_split", "test_data_root", "test_cube_dim")
 
 
 def make_trainer(specs: cfg.Specs, device, seed: int = 0,
@@ -126,6 +141,16 @@ def main(argv: Optional[list] = None) -> None:
                         help="steps on synthetic batches (default 1, without --data_root)")
     parser.add_argument("--no_init_guard", action="store_true",
                         help="skip the clamp dead-zone check of the fresh init")
+    parser.add_argument("--skip_test", action="store_true",
+                        help="skip the post-training test-split reconstruction "
+                             "(reference train.py:653-668 runs it by default)")
+    parser.add_argument("--test_split", default=None,
+                        help="test split json of the post-training reconstruction "
+                             "(default input/<Dataset>.json)")
+    parser.add_argument("--test_data_root", default=None,
+                        help="test split directory (default <DataSource>/<Dataset>/test)")
+    parser.add_argument("--test_cube_dim", type=int, default=None,
+                        help="grid of the post-training reconstruction (default 128)")
     cfg.add_train_args(parser)
     args = parser.parse_args(argv)
     if args.data_root is None:
@@ -134,6 +159,10 @@ def main(argv: Optional[list] = None) -> None:
             parser.error(f"{' '.join(idle)}: without --data_root the port trains on synthetic "
                          "batches in epoch 1 only (no augmentation or later epochs), so these "
                          "would change nothing but the experiment's name")
+        idle = [f"--{flag}" for flag in _TEST_FLAGS if getattr(args, flag) not in (None, False)]
+        if idle:
+            parser.error(f"{' '.join(idle)}: the post-training test follows the epoch loop, "
+                         "which needs --data_root")
         if args.continue_from:
             parser.error("--continue resumes the epoch loop, which needs --data_root")
     elif args.smoke or args.steps is not None:
@@ -229,6 +258,37 @@ def train_epochs(specs: cfg.Specs, args, device, experiment_dir: str) -> None:
             ckpt.save_checkpoint(experiment_dir, state, epoch, str(epoch))
     ckpt.save_checkpoint(experiment_dir, state, specs.num_epochs, "latest")
     logger.info("training complete: %s", experiment_dir)
+    if not args.skip_test:
+        run_post_training_test(state.model, specs, experiment_dir, device,
+                               split_filename=args.test_split, data_root=args.test_data_root,
+                               cube_dim=args.test_cube_dim or 128)
+
+
+def run_post_training_test(model, specs: cfg.Specs, experiment_dir: str, device,
+                           split_filename: Optional[str] = None,
+                           data_root: Optional[str] = None, cube_dim: int = 128) -> int:
+    """End training by reconstructing the test split with ``model`` on
+    ``device`` into ``<experiment_dir>/Eval_<Dataset>`` (JAX
+    ``cli/train.py:403-445``; reference train.py:653-668: label_out on,
+    eval_mode for obman and dexycb).  Returns the number of images; 0, with
+    a warning, where the split file does not exist."""
+    task = specs.dataset
+    split_filename = split_filename or f"input/{task}.json"
+    if not os.path.exists(split_filename):
+        logger.warning("post-training test skipped: split %s not found "
+                       "(pass --test_split or --skip_test)", split_filename)
+        return 0
+    dataset = ImagesDataset.from_split(split_filename, specs, task, data_root)
+    logger.info("post-training test: %d files, cube %d", len(dataset), cube_dim)
+    recon = Reconstructor(model, specs, cube_dim=cube_dim, device=device,
+                          mano_faces=load_mano_faces())
+    t0 = time.time()
+    done = run_pipelined(recon, dataset, make_output_dirs(os.path.join(experiment_dir,
+                                                                       f"Eval_{task}")),
+                         task=task, label_out=True,
+                         eval_mode="obman" in task or "dexycb" in task)
+    logger.info("post-training test: %d images in %.1fs", done, time.time() - t0)
+    return done
 
 
 if __name__ == "__main__":

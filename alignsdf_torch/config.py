@@ -48,6 +48,7 @@ class Specs:
     """The spec fields that shape the reconstruction and training paths."""
 
     data_source: str = "data"
+    image_source: str = "rgb"         # the per-file layout's image directory
     train_split: str = ""
     dataset: str = "obman"
     model_type: str = "1encoder2decoder"
@@ -158,6 +159,7 @@ class Specs:
 
 _KEY_MAP = {
     "DataSource": "data_source",
+    "ImageSource": "image_source",
     "TrainSplit": "train_split",
     "Dataset": "dataset",
     "ModelType": "model_type",

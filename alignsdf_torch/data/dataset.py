@@ -1,5 +1,5 @@
-"""The train dataset in numpy (the JAX package's ``data/dataset.py``;
-reference utils/data.py parity).
+"""The train and test datasets in numpy (the JAX package's
+``data/dataset.py``; reference utils/data.py parity).
 
 ``SDFDataset.__getitem__`` reproduces the sample math of the reference
 ``SDFSamples`` (reference utils/data.py:110-206): camera-extrinsic flip,
@@ -10,10 +10,13 @@ With a seed it draws from ``random.Random(seed)``,
 latter, in the JAX package's order, so both packages give the same item.
 
 Output arrays are static-shape, so items stack into fixed-size batches.
+``ImagesDataset`` is the test split a reconstruction reads.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import random
 from typing import Dict, List, Optional
 
@@ -21,8 +24,8 @@ import numpy as np
 
 from alignsdf_torch.config import Specs
 from alignsdf_torch.data import img_utils as I
+from alignsdf_torch.data import sdf_samples as S
 
-_OBMAN_EXTR = np.array([[1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]], np.float32)
 _IDENT_EXTR = np.eye(3, dtype=np.float32)
 
 
@@ -59,7 +62,7 @@ class SDFDataset:
         rng = random.Random(seed) if seed is not None else random
         np_rng = np.random.RandomState(seed) if seed is not None else np.random
 
-        cam_extr = _OBMAN_EXTR if "obman" in specs.dataset else _IDENT_EXTR
+        cam_extr = S.OBMAN_EXTR if "obman" in specs.dataset else _IDENT_EXTR
 
         scale, offset = self.backend.normal_params(key)
         meta = self.backend.meta_params(key)
@@ -157,6 +160,62 @@ class SDFDataset:
             "cam_intr": cam_intr,
             "mano_root": mano_root,
             "rest_obj_corners": rest_corners[1:, :],
+            "key": key,
+        }
+
+
+class ImagesDataset:
+    """Test-time dataset: the centre patch of ``<root>/rgb/<key>.jpg`` as
+    uint8 HWC (the model normalizes it on the device,
+    ``models/alignsdf.py:normalize_image_on_device``), the intrinsics
+    rescaled to it, the MANO root and the object's rest corners from
+    ``<root>/meta/<key>.pkl`` (reference utils/data.py:209-248).  The root is
+    ``data_root``, else ``<DataSource>/<task>/test``; a key is a file name's
+    base name without its extension."""
+
+    def __init__(self, filenames: List[str], specs: Specs, task: str,
+                 data_root: Optional[str] = None):
+        self.specs = specs
+        self.task = task
+        root = data_root or os.path.join(specs.data_source, task, "test")
+        self.image_source = os.path.join(root, "rgb")
+        self.cam_source = os.path.join(root, "meta")
+        self.files = list(filenames)
+        self.keys = [f.split("/")[-1].split(".")[0] for f in self.files]
+
+    @classmethod
+    def from_split(cls, path: str, specs: Specs, task: str, data_root: Optional[str] = None,
+                   start: Optional[int] = None, end: Optional[int] = None) -> "ImagesDataset":
+        """The test split named by the json at ``path`` (``{"filenames":
+        [...]}``), items ``start:end``."""
+        with open(path) as f:
+            filenames = json.load(f)["filenames"]
+        return cls(filenames[start or 0:end], specs, task, data_root=data_root)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        key = self.keys[idx]
+        cam_intr, mano_root, rest_corners = S.unpack_test_params(
+            os.path.join(self.cam_source, key + ".pkl"), self.task)
+        img = I.load_img(os.path.join(self.image_source, key + ".jpg"))
+        image_size = self.specs.image_size
+        crop_box = [
+            (img.shape[1] - image_size[1]) // 2,
+            (img.shape[0] - image_size[0]) // 2,
+            image_size[1],
+            image_size[0],
+        ]
+        cam_intr[0, 2] = cam_intr[0, 2] / img.shape[1] * image_size[1]
+        cam_intr[1, 2] = cam_intr[1, 2] / img.shape[0] * image_size[0]
+        patch, _ = I.generate_patch_image(img, crop_box, image_size, False, 1.0, 0.0)
+        return {
+            "image": patch,
+            "cam_intr": cam_intr,
+            "mano_root": mano_root,
+            "rest_obj_corners": rest_corners,
+            "img_id": self.files[idx],
             "key": key,
         }
 

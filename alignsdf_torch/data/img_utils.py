@@ -1,5 +1,15 @@
-"""Image augmentation in numpy, without OpenCV (the JAX package's
-``data/img_utils.py``; reference utils/img_utils.py:106-207).
+"""Image reading and augmentation in numpy and PIL, without OpenCV (the
+JAX package's ``data/img_utils.py``; reference utils/img_utils.py:15-27,
+106-207).
+
+``load_img`` reads what the JAX package's ``cv2.imread(path, IMREAD_COLOR |
+IMREAD_IGNORE_ORIENTATION)`` reads, through PIL: three channels whatever the
+file holds (gray, palette and CMYK converted), no EXIF transpose.  Both
+libraries decode JPEG with libjpeg-turbo's default (islow) IDCT and fancy
+upsampling, so the pixels agree bit for bit on baseline, progressive and
+subsampled files; a CMYK file's conversion to RGB differs by at most one
+level.  ``read_image_unchanged`` reads what ``IMREAD_UNCHANGED`` reads, which
+the LMDB packer stores.
 
 The JAX package warps the training patch with ``cv2.warpAffine``; the card's
 machine has no cv2, so ``warp_affine_linear`` computes the same bilinear warp
@@ -19,9 +29,44 @@ import random
 from typing import List, Optional
 
 import numpy as np
+from PIL import Image
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def load_img(path: str, order: str = "RGB") -> np.ndarray:
+    """uint8 (H, W, 3) in ``order`` ("RGB" or "BGR"); a file that is missing
+    or does not decode raises IOError, as the JAX package's ``load_img``."""
+    try:
+        with Image.open(path) as im:
+            img = np.asarray(im.convert("RGB"), np.uint8)
+    except OSError as e:
+        raise IOError(f"Fail to read {path}") from e
+    return np.ascontiguousarray(img[:, :, ::-1]) if order == "BGR" else img
+
+
+# PIL mode -> the mode IMREAD_UNCHANGED's channels correspond to
+_UNCHANGED_MODES = {"L": "L", "RGB": "RGB", "RGBA": "RGBA", "LA": "RGBA", "CMYK": "RGB"}
+
+
+def read_image_unchanged(path: str) -> np.ndarray:
+    """The 8-bit image as ``cv2.imread(path, IMREAD_UNCHANGED)`` reads it:
+    2-D for gray, BGR for colour (a CMYK JPEG converted), BGRA with an alpha
+    channel (a palette with transparency expanded); no EXIF transpose.
+    Another mode (e.g. 16-bit gray) raises IOError."""
+    try:
+        with Image.open(path) as im:
+            mode = (("RGBA" if "transparency" in im.info else "RGB") if im.mode == "P"
+                    else _UNCHANGED_MODES.get(im.mode))
+            if mode is None:
+                raise IOError(f"{path}: PIL mode {im.mode} is not read")
+            img = np.asarray(im if im.mode == mode else im.convert(mode), np.uint8)
+    except OSError as e:
+        raise IOError(f"Fail to read {path}") from e
+    if img.ndim == 3:  # RGB(A) -> BGR(A)
+        img = img[:, :, [2, 1, 0, 3][:img.shape[2]]]
+    return np.ascontiguousarray(img)
 
 
 def normalize_image(img: np.ndarray) -> np.ndarray:

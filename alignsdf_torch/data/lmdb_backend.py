@@ -1,6 +1,8 @@
 """LMDB dataset backend (the JAX package's ``data/lmdb_backend.py``):
 reference-compatible decode of the rgb/norm/meta/sdf_hand/sdf_obj LMDBs
-produced by the reference's tools/create_lmdb.py.
+produced by the reference's tools/create_lmdb.py, and the encoders of its
+meta and SDF records (``meta_record``, ``sdf_record``) and databases
+(``write_lmdb``) that the port's writers and packer share.
 
 Uses the ``lmdb`` package when installed, else the bundled pure-python LMDB
 engine (data.lmdb_format) — either way the on-disk format is real LMDB.
@@ -17,9 +19,61 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
+
+from alignsdf_torch.data.sdf_samples import OBMAN_INTR
+
+SDF_ROWS = 20000  # fixed SDF block height (reference tools/create_lmdb.py:205)
+
+
+def write_lmdb(path: str, records: Iterable[Tuple[str, np.ndarray]], meta_info: Dict) -> None:
+    """The (key, array) pairs as one LMDB of raw array bytes, then its
+    meta_info.json (written after the records, so lists in it that the
+    records fill are complete)."""
+    from alignsdf_torch.data.lmdb_format import LmdbWriter
+
+    with LmdbWriter(path) as w:
+        for key, value in records:
+            w.put(key, np.ascontiguousarray(value))
+    with open(os.path.join(path, "meta_info.json"), "w") as f:
+        json.dump(meta_info, f, indent=2)
+
+
+def meta_record(meta: Dict, dataset: str) -> np.ndarray:
+    """A meta pkl's dict as the packer's (61, 3) float32 block: joints,
+    corners, rest corners, pose, affine, intrinsics (the ObMan constant for
+    obman) (reference tools/create_lmdb.py:72-128)."""
+    block = np.zeros((61, 3), np.float32)
+    block[:21] = np.asarray(meta["coords_3d"], np.float32)
+    block[21:30] = np.asarray(meta["obj_corners_3d"], np.float32)
+    block[30:39] = np.asarray(meta["obj_rest_corners_3d"], np.float32)
+    block[39:54] = np.asarray(meta["hand_pose"], np.float32).reshape(-1, 3)
+    block[54:58] = np.asarray(meta["affine_transform"], np.float32)[:3, :].reshape(-1, 3)
+    block[58:61] = (OBMAN_INTR if dataset == "obman"
+                    else np.asarray(meta["cam_intr"], np.float32)[:3, :3])
+    return block
+
+
+def sdf_record(arrays, hand: bool) -> Tuple[np.ndarray, int, int]:
+    """One branch's SDF arrays (the reference's npz keys: pos, neg (n, 4),
+    pos_other, neg_other (n, 1), lab_pos, lab_neg, lab_pos_other,
+    lab_neg_other (n, 4)) as the packer's (SDF_ROWS, 6) float32 block of
+    rows [xyz, hand sdf, object sdf, label], zero-padded, with the positive
+    and negative row counts (reference tools/create_lmdb.py:183-260)."""
+    lab = "lab_{}" if hand else "lab_{}_other"
+    rows = []
+    for name in ("pos", "neg"):
+        xyzs = np.asarray(arrays[name], np.float32)
+        other = np.asarray(arrays[name + "_other"], np.float32).reshape(-1, 1)
+        labels = np.asarray(arrays[lab.format(name)], np.float32).reshape(len(xyzs), -1)
+        cols = ([xyzs, other] if hand  # the hand's sdf always in column 3
+                else [xyzs[:, :3], other, xyzs[:, [3]]])
+        rows.append(np.concatenate(cols + [labels[:, [0]]], axis=1))
+    block = np.zeros((SDF_ROWS, 6), np.float32)
+    block[:len(rows[0]) + len(rows[1])] = np.concatenate(rows, axis=0)
+    return block, len(rows[0]), len(rows[1])
 
 
 class LmdbStore:

@@ -5,16 +5,23 @@ Static-shape by construction: the pos/neg split-half sampling draws exactly
 ``subsample/2`` indices with replacement from the filtered sets (reference
 utils/sdf_utils.py:144-152 does the same via ``(rand*len).long()``), so every
 scene yields the same array shapes regardless of NaN/dist filtering.  The
-npz/pkl readers of the per-file layout other than ``unpack_sdf_samples`` wait
-with its backend.
+per-file layout's readers (``unpack_normal_params``, ``unpack_meta_params``,
+``unpack_test_params``) read its ``.npz`` files with numpy and its ``.pkl``
+files with pickle.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+# ObMan's fixed camera: its intrinsics, and the extrinsic flip from its
+# frame (y, z) to the camera's (reference utils/sdf_utils.py:88-116)
+OBMAN_INTR = np.array([[480.0, 0, 128], [0, 480.0, 128], [0, 0, 1]], np.float32)
+OBMAN_EXTR = np.array([[1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]], np.float32)
 
 
 def remove_nans(arr: np.ndarray) -> np.ndarray:
@@ -132,9 +139,60 @@ def meta_from_block(block: np.ndarray, dataset: str) -> Dict[str, np.ndarray]:
     info["affine_transform"] = affine
     cam_intr = np.zeros((3, 4), np.float32)
     if dataset == "obman":
-        cam_intr[:3, :3] = np.array(
-            [[480.0, 0, 128], [0, 480.0, 128], [0, 0, 1]], np.float32)
+        cam_intr[:3, :3] = OBMAN_INTR
     else:
         cam_intr[:3, :3] = block[58:61]
     info["cam_intr"] = cam_intr
     return info
+
+
+def unpack_normal_params(data_source: str, key: str) -> Tuple[np.ndarray, np.ndarray]:
+    """norm/<key>.npz {scale, offset} (reference utils/sdf_utils.py:33-38)."""
+    npz = np.load(os.path.join(data_source, "norm", key + ".npz"))
+    return np.asarray(npz["scale"], np.float32), np.asarray(npz["offset"], np.float32)
+
+
+def unpack_meta_params(data_source: str, key: str, dataset: str) -> Dict[str, np.ndarray]:
+    """meta/<key>.pkl as the dict ``meta_from_block`` gives (reference
+    utils/sdf_utils.py:65-85)."""
+    with open(os.path.join(data_source, "meta", key + ".pkl"), "rb") as f:
+        pkl = pickle.load(f)
+    info: Dict[str, np.ndarray] = {
+        "joints_3d": np.asarray(pkl["coords_3d"], np.float32),
+        "obj_corners_3d": np.asarray(pkl["obj_corners_3d"], np.float32),
+        "obj_rest_corners_3d": np.asarray(pkl["obj_rest_corners_3d"], np.float32),
+        "hand_pose": np.asarray(pkl["hand_pose"], np.float32).reshape(-1),
+    }
+    affine = np.zeros((4, 4), np.float32)
+    affine[3, 3] = 1.0
+    affine[:3, :4] = np.asarray(pkl["affine_transform"], np.float32)[:3, :]
+    info["affine_transform"] = affine
+    cam_intr = np.zeros((3, 4), np.float32)
+    cam_intr[:3, :3] = (OBMAN_INTR if "obman" in dataset
+                        else np.asarray(pkl["cam_intr"], np.float32)[:3, :3])
+    info["cam_intr"] = cam_intr
+    return info
+
+
+def unpack_test_params(path: str, task: str):
+    """A test split's meta pkl -> (cam_intr (3, 4), mano_root (1, 3), the
+    object's rest corners (8, 3)), the root and corners in the camera frame
+    after the extrinsic flip of ObMan and HO3D (reference
+    utils/sdf_utils.py:88-116)."""
+    cam_extr = OBMAN_EXTR if ("obman" in task or "ho3d" in task) else np.eye(3, dtype=np.float32)
+    with open(path, "rb") as f:
+        pkl = pickle.load(f)
+    cam_intr = np.zeros((3, 4), np.float32)
+    if "obman" in task:
+        cam_intr[:3, :3] = OBMAN_INTR
+        mano_root = np.asarray(pkl["coords_3d"], np.float32)[[0]]
+    elif "ho3d" in task:
+        cam_intr[:3, :3] = np.asarray(pkl["camMat"], np.float32)[:3, :3]
+        mano_root = np.asarray(pkl["handJoints3D"], np.float32)[None]
+    else:  # dexycb
+        cam_intr[:3, :3] = np.asarray(pkl["cam_intr"], np.float32)[:3, :3]
+        mano_root = np.asarray(pkl["coords_3d"], np.float32)[[0]]
+    mano_root = (cam_extr @ mano_root.T).T
+    corners = np.asarray(pkl["obj_rest_corners_3d"], np.float32)[1:, :]
+    corners = (cam_extr @ corners.T).T
+    return cam_intr, mano_root, corners

@@ -1,9 +1,11 @@
 """Synthetic data for smoke runs and tests, numpy only: batches (the JAX
 package's ``data/synthetic.py:synthetic_train_batch``, the same keys, shapes
-and seeding, so both packages draw the same batch from one seed), an
-on-disk LMDB dataset of random rows (``write_synthetic_lmdb``) and the
-geometric dataset of analytically known scenes with its test split
-(``write_geometric_lmdb``)."""
+and seeding, so both packages draw the same batch from one seed), on-disk
+datasets of random rows in the reference's per-file layout
+(``write_synthetic_dataset``) and its five-LMDB layout
+(``write_synthetic_lmdb``), and the geometric dataset of analytically known
+scenes with its test split (``write_geometric_lmdb``).  JPEGs are written
+with PIL at quality 95, the file ``cv2.imwrite``'s default writes."""
 
 from __future__ import annotations
 
@@ -16,14 +18,21 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+from PIL import Image
 
 from alignsdf_torch.config import Specs
-from alignsdf_torch.data.lmdb_format import LmdbWriter
+from alignsdf_torch.data.img_utils import load_img
+from alignsdf_torch.data.lmdb_backend import SDF_ROWS, meta_record, sdf_record, write_lmdb
+from alignsdf_torch.data.sdf_samples import OBMAN_INTR
 from alignsdf_torch.geom.meshlib import TriMesh
 from alignsdf_torch.mano.layer import load_mano_model, mano_forward
 
-SDF_ROWS = 20000  # fixed SDF block height (reference tools/create_lmdb.py:205)
-_OBMAN_INTR = np.array([[480.0, 0, 128], [0, 480.0, 128], [0, 0, 1]], np.float32)
+JPEG_QUALITY = 95  # cv2.imwrite's default
+
+
+def write_jpeg(path: str, img: np.ndarray) -> None:
+    """An RGB uint8 HWC image as a baseline 4:2:0 JPEG of JPEG_QUALITY."""
+    Image.fromarray(np.ascontiguousarray(img)).save(path, quality=JPEG_QUALITY)
 
 
 def synthetic_train_batch(specs: Specs, batch_size: int = 2,
@@ -35,12 +44,8 @@ def synthetic_train_batch(specs: Specs, batch_size: int = 2,
     n = specs.samples_per_scene
     h, w = specs.image_size
     total = batch_size * n
-    cam = np.tile(
-        np.concatenate(
-            [np.array([[480.0, 0, 128], [0, 480.0, 128], [0, 0, 1]], np.float32),
-             np.zeros((3, 1), np.float32)], axis=1,
-        )[None], (batch_size, 1, 1),
-    )
+    cam = np.tile(np.concatenate([OBMAN_INTR, np.zeros((3, 1), np.float32)], axis=1)[None],
+                  (batch_size, 1, 1))
     return {
         "image": rng.rand(batch_size, h, w, 3).astype(np.float32),
         "xyz": (rng.randn(total, 3) * 0.3).astype(np.float32),
@@ -58,61 +63,88 @@ def synthetic_train_batch(specs: Specs, batch_size: int = 2,
     }
 
 
-def _write_lmdb(path: str, records: Dict[str, np.ndarray], meta_info: Dict) -> None:
-    with LmdbWriter(path) as w:
-        for key, value in records.items():
-            w.put(key, np.ascontiguousarray(value))
-    with open(os.path.join(path, "meta_info.json"), "w") as f:
-        json.dump(meta_info, f, indent=2)
-
-
-def _sdf_block(arrays: Dict[str, np.ndarray], hand: bool) -> np.ndarray:
-    """One branch's SDF arrays (the reference's npz keys: pos, neg (n, 4),
-    pos_other, neg_other (n, 1), lab_pos, lab_neg, lab_pos_other,
-    lab_neg_other (n, 4)) as the JAX package's ``tools/create_lmdb.py``
-    packs them: (SDF_ROWS, 6) rows [xyz, hand sdf, object sdf, label],
-    zero-padded."""
-    lab = "lab_{}" if hand else "lab_{}_other"
-    rows = []
-    for name in ("pos", "neg"):
-        xyzs, other = arrays[name], arrays[name + "_other"]
-        labels = arrays[lab.format(name)][:, [0]].astype(np.float32)
-        cols = ([xyzs, other] if hand  # the hand's sdf always in column 3
-                else [xyzs[:, :3], other, xyzs[:, [3]]])
-        rows.append(np.concatenate(cols + [labels], axis=1))
-    rows = np.concatenate(rows, axis=0)
-    block = np.zeros((SDF_ROWS, 6), np.float32)
-    block[:len(rows)] = rows
-    return block
-
-
-def _meta_block(meta: Dict[str, np.ndarray], dataset: str) -> np.ndarray:
-    """A meta pkl's dict as the packer's (61, 3) block: joints, corners, rest
-    corners, pose, affine, intrinsics (the ObMan constant for obman)."""
-    block = np.zeros((61, 3), np.float32)
-    block[:21] = meta["coords_3d"]
-    block[21:30] = meta["obj_corners_3d"]
-    block[30:39] = meta["obj_rest_corners_3d"]
-    block[39:54] = np.asarray(meta["hand_pose"], np.float32).reshape(-1, 3)
-    block[54:58] = np.asarray(meta["affine_transform"], np.float32)[:3, :].reshape(-1, 3)
-    block[58:61] = _OBMAN_INTR if dataset == "obman" else np.asarray(meta["cam_intr"])[:3, :3]
-    return block
-
-
 def _write_lmdbs(base: str, dataset: str, split: str, keys: List[str], half: int,
                  rgb: Dict, norm: Dict, meta: Dict, sdf: Dict[str, Dict]) -> None:
     """The five LMDBs and their meta_info.json under ``base``, every scene
     with ``half`` positive and ``half`` negative SDF rows."""
     keys = list(keys)
-    _write_lmdb(os.path.join(base, "rgb.lmdb"), rgb, {"name": f"{dataset}_rgb_{split}"})
-    _write_lmdb(os.path.join(base, "norm.lmdb"), norm,
-                {"name": f"{dataset}_norm_{split}", "keys": keys})
-    _write_lmdb(os.path.join(base, "meta.lmdb"), meta,
-                {"name": f"{dataset}_meta_{split}", "keys": keys})
+    write_lmdb(os.path.join(base, "rgb.lmdb"), rgb.items(), {"name": f"{dataset}_rgb_{split}"})
+    write_lmdb(os.path.join(base, "norm.lmdb"), norm.items(),
+               {"name": f"{dataset}_norm_{split}", "keys": keys})
+    write_lmdb(os.path.join(base, "meta.lmdb"), meta.items(),
+               {"name": f"{dataset}_meta_{split}", "keys": keys})
     for sub in ("sdf_hand", "sdf_obj"):
-        _write_lmdb(os.path.join(base, f"{sub}.lmdb"), sdf[sub], {
+        write_lmdb(os.path.join(base, f"{sub}.lmdb"), sdf[sub].items(), {
             "name": f"{dataset}_{sub}_{split}", "pos_num": [half] * len(keys),
             "neg_num": [half] * len(keys), "dim": 6, "keys": keys})
+
+
+def _synthetic_scenes(keys: List[str], n_points: int, seed: int, image_hw: int):
+    """Each key's random scene, drawn as the JAX package's
+    ``write_synthetic_dataset`` draws it, in the same order from one
+    ``RandomState(seed)``: (key, image RGB uint8, scale, offset, {sdf_hand /
+    sdf_obj: the sdf npz's arrays}, the meta pkl's dict)."""
+    rng = np.random.RandomState(seed)
+    half = n_points // 2
+
+    def sdf_block(sign):
+        xyz = rng.randn(half, 3).astype(np.float32) * 0.4
+        dist = (np.abs(rng.randn(half, 1)) * 0.2 * sign).astype(np.float32)
+        return np.concatenate([xyz, dist], axis=1)
+
+    for key in keys:
+        img = (rng.rand(image_hw, image_hw, 3) * 255).astype(np.uint8)
+        scale = np.float32(rng.uniform(4.0, 6.0))
+        offset = rng.randn(3).astype(np.float32) * 0.1
+        sdf = {}
+        for sub in ("sdf_hand", "sdf_obj"):
+            arrays = {"pos": sdf_block(1.0), "neg": sdf_block(-1.0)}
+            arrays["pos_other"] = (rng.randn(half, 1) * 0.2).astype(np.float32)
+            arrays["neg_other"] = (rng.randn(half, 1) * 0.2).astype(np.float32)
+            for name in ("lab_pos", "lab_neg", "lab_pos_other", "lab_neg_other"):
+                arrays[name] = rng.randint(0, 4, (half, 4)).astype(np.uint8)
+            sdf[sub] = arrays
+        joints = (rng.randn(21, 3).astype(np.float32) * 0.05
+                  + np.array([0, 0.0, -0.6], np.float32))
+        meta = {
+            "coords_3d": joints,
+            "obj_corners_3d": rng.randn(9, 3).astype(np.float32) * 0.05
+            + np.array([0, 0.0, -0.6], np.float32),
+            "obj_rest_corners_3d": rng.randn(9, 3).astype(np.float32) * 0.05,
+            "hand_pose": rng.randn(45).astype(np.float32) * 0.1,
+            "affine_transform": np.eye(4, dtype=np.float32),
+            "cam_intr": OBMAN_INTR.copy(),
+            # HO3D's keys too, so that every task's reader finds its own
+            "camMat": np.array([[614.6, 0, 320.0], [0, 614.1, 240.0], [0, 0, 1]], np.float32),
+            "handJoints3D": joints[0],
+        }
+        yield key, img, scale, offset, sdf, meta
+
+
+def write_synthetic_dataset(root: str, keys: List[str], dataset: str = "obman",
+                            n_points: int = 4000, seed: int = 0, image_hw: int = 256,
+                            split: str = "train") -> str:
+    """A synthetic dataset in the reference's per-file layout under
+    ``<root>/<dataset>/<split>`` (returned): ``rgb/<key>.jpg``,
+    ``norm/<key>.npz`` {scale, offset}, ``sdf_hand`` and ``sdf_obj/<key>.npz``
+    (the reference's keys: pos, neg, pos_other, neg_other, lab_pos, lab_neg,
+    lab_pos_other, lab_neg_other; reference
+    scripts/sample_points/src/PreprocessMesh.cpp:218-287) and
+    ``meta/<key>.pkl`` (reference utils/sdf_utils.py:65-85), plus the empty
+    mesh directories: the JAX package's ``write_synthetic_dataset``'s files."""
+    base = os.path.join(root, dataset, split)
+    for sub in ("rgb", "norm", "meta", "sdf_hand", "sdf_obj", "mesh_hand", "mesh_obj",
+                "mesh_obj_rest"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    for key, img, scale, offset, sdf, meta in _synthetic_scenes(keys, n_points, seed, image_hw):
+        write_jpeg(os.path.join(base, "rgb", key + ".jpg"), img)
+        np.savez(os.path.join(base, "norm", key + ".npz"),
+                 scale=np.array([scale], np.float32), offset=offset)
+        for sub, arrays in sdf.items():
+            np.savez(os.path.join(base, sub, key + ".npz"), **arrays)
+        with open(os.path.join(base, "meta", key + ".pkl"), "wb") as f:
+            pickle.dump(meta, f)
+    return base
 
 
 def write_synthetic_lmdb(root: str, keys: List[str], dataset: str = "obman",
@@ -123,48 +155,22 @@ def write_synthetic_lmdb(root: str, keys: List[str], dataset: str = "obman",
     sdf_obj, each with its meta_info.json (reference
     tools/create_lmdb.py:21-310).
 
-    It draws what the JAX package's ``write_synthetic_dataset`` draws, in the
-    same order from one ``RandomState(seed)``, and packs it as the JAX
-    package's ``tools/create_lmdb.py:create_lmdbs`` does: the norm, meta and
-    SDF databases are byte for byte theirs.  The images are stored raw
-    (uniform random RGB, BGR on disk) where theirs pass through a JPEG file
-    first."""
-    rng = np.random.RandomState(seed)
+    It holds ``write_synthetic_dataset``'s scenes packed as the JAX
+    package's ``tools/create_lmdb.py:create_lmdbs`` packs them: the norm,
+    meta and SDF databases are byte for byte theirs.  The images are stored
+    raw (uniform random RGB, BGR on disk) where theirs pass through a JPEG
+    file first."""
     base = os.path.join(root, dataset, split)
-    rgb, norm, meta = {}, {}, {}
+    rgb, norm, meta_rows = {}, {}, {}
     sdf = {"sdf_hand": {}, "sdf_obj": {}}
-    half = n_points // 2
-
-    def sdf_block(sign):
-        xyz = rng.randn(half, 3).astype(np.float32) * 0.4
-        dist = (np.abs(rng.randn(half, 1)) * 0.2 * sign).astype(np.float32)
-        return np.concatenate([xyz, dist], axis=1)
-
-    for key in keys:
-        img = (rng.rand(image_hw, image_hw, 3) * 255).astype(np.uint8)
+    for key, img, scale, offset, arrays, meta in _synthetic_scenes(keys, n_points, seed,
+                                                                    image_hw):
         rgb[key] = img[:, :, ::-1]
-        scale = np.float32(rng.uniform(4.0, 6.0))
-        offset = rng.randn(3).astype(np.float32) * 0.1
         norm[key] = np.concatenate([offset, [scale]]).astype(np.float32)
-        for sub in ("sdf_hand", "sdf_obj"):
-            arrays = {"pos": sdf_block(1.0), "neg": sdf_block(-1.0)}
-            arrays["pos_other"] = (rng.randn(half, 1) * 0.2).astype(np.float32)
-            arrays["neg_other"] = (rng.randn(half, 1) * 0.2).astype(np.float32)
-            for name in ("lab_pos", "lab_neg", "lab_pos_other", "lab_neg_other"):
-                arrays[name] = rng.randint(0, 4, (half, 4)).astype(np.uint8)
-            sdf[sub][key] = _sdf_block(arrays, sub == "sdf_hand")
-        meta[key] = _meta_block({
-            "coords_3d": rng.randn(21, 3).astype(np.float32) * 0.05
-            + np.array([0, 0.0, -0.6], np.float32),
-            "obj_corners_3d": rng.randn(9, 3).astype(np.float32) * 0.05
-            + np.array([0, 0.0, -0.6], np.float32),
-            "obj_rest_corners_3d": rng.randn(9, 3).astype(np.float32) * 0.05,
-            "hand_pose": rng.randn(45).astype(np.float32) * 0.1,
-            "affine_transform": np.eye(4, dtype=np.float32),
-            "cam_intr": _OBMAN_INTR,  # the pkl's, which the packer writes for obman too
-        }, dataset)
-
-    _write_lmdbs(base, dataset, split, keys, half, rgb, norm, meta, sdf)
+        for sub, a in arrays.items():
+            sdf[sub][key] = sdf_record(a, sub == "sdf_hand")[0]
+        meta_rows[key] = meta_record(meta, dataset)
+    _write_lmdbs(base, dataset, split, keys, n_points // 2, rgb, norm, meta_rows, sdf)
     return base
 
 
@@ -301,8 +307,8 @@ def _geometric_scene(key: str, seed: int, n_points: int, image_hw: int,
         "obj_rest_corners_3d": (flip @ rest_w.T).T.astype(np.float32),
         "hand_pose": np.zeros(45, np.float32),
         "affine_transform": np.eye(4, dtype=np.float32),
-        "cam_intr": _OBMAN_INTR.copy(),
-        "camMat": _OBMAN_INTR.copy(),
+        "cam_intr": OBMAN_INTR.copy(),
+        "camMat": OBMAN_INTR.copy(),
         "handJoints3D": (flip @ joints_w[0]).astype(np.float32),
     }
 
@@ -329,22 +335,29 @@ def write_geometric_lmdb(root: str, keys: List[str], dataset: str = "obman",
     - ``<root>/<dataset>/train``: the five LMDBs the train loader reads, as
       the JAX package's ``tools/create_lmdb.py`` packs that writer's files
       (norm scale 1, offset 0, so stored coordinates are work-frame);
-    - ``<root>/<dataset>/test``: ``meta/<key>.pkl`` and the GT meshes
+    - ``<root>/<dataset>/test``: ``rgb/<key>.jpg`` (the image as a JPEG
+      file, ``write_jpeg``: the JAX writer's file byte for byte),
+      ``meta/<key>.pkl`` and the GT meshes
       ``mesh_hand`` / ``mesh_obj/<key>.obj`` in the half-scaled decoder
-      frame, which ``cli/reconstruct.py --eval_mode`` (``DataSource`` =
-      ``root``) and ``cli/evaluate.py --data_root`` read;
+      frame, which ``cli/reconstruct.py -s`` and ``--eval_mode``
+      (``DataSource`` = ``root``) and ``cli/evaluate.py --data_root`` read;
+    - ``<root>/<dataset>_geometric_split.json``: the test split,
+      ``{"filenames": ["<key>.jpg", ...]}``, for ``cli/reconstruct.py -s``;
     - ``<root>/<dataset>_geometric_samples.npz``: the same scenes as
       ``cli/reconstruct.py --samples`` input (image RGB uint8 at
       ``image_hw``, which must be the spec's ImageSize; cam_intr (3, 4),
-      mano_root and the rest corners as ``ImagesDataset`` reads them from the
-      meta).
+      mano_root and the rest corners as ``ImagesDataset`` reads them from
+      the meta).
 
     Each scene draws its numbers in the JAX writer's order, so the SDF rows,
     labels, meta and GT meshes are that writer's for the same keys and seed
-    (its MANO joints to float32 rounding).  The images are stored raw (BGR
-    in rgb.lmdb), where the JAX writer's pass through a lossy JPEG file.
-    Train and test hold the same keys.  Returns the paths under "train",
-    "test" and "samples"."""
+    (its MANO joints to float32 rounding).  Each image is its JPEG file
+    decoded (``load_img``), in rgb.lmdb (BGR) and in the samples npz alike,
+    as the JAX writer's files packed by its ``tools/create_lmdb.py`` give
+    it: training and both test inputs see the same pixels (the images are
+    noise, which JPEG changes by tens of levels).  Train and test hold the
+    same keys.  Returns the paths under "train",
+    "test", "split" and "samples"."""
     half = n_points // 2
     if 2 * half > SDF_ROWS:
         raise ValueError(f"n_points {n_points}: an SDF block holds {SDF_ROWS} rows")
@@ -352,7 +365,7 @@ def write_geometric_lmdb(root: str, keys: List[str], dataset: str = "obman",
     cam_extr = flip if ("obman" in dataset or "ho3d" in dataset) else np.eye(3, dtype=np.float32)
     train = os.path.join(root, dataset, "train")
     test = os.path.join(root, dataset, "test")
-    for sub in ("meta", "mesh_hand", "mesh_obj"):
+    for sub in ("rgb", "meta", "mesh_hand", "mesh_obj"):
         os.makedirs(os.path.join(test, sub), exist_ok=True)
     rgb, norm, meta_rows = {}, {}, {}
     sdf = {"sdf_hand": {}, "sdf_obj": {}}
@@ -360,11 +373,16 @@ def write_geometric_lmdb(root: str, keys: List[str], dataset: str = "obman",
     for key in keys:
         img, arrays, meta, meshes = _geometric_scene(key, seed, n_points, image_hw,
                                                      sdf_scale_factor)
+        # every split sees the image as its JPEG file decodes, as the JAX
+        # writer's files packed by tools/create_lmdb.py give it
+        jpeg = os.path.join(test, "rgb", key + ".jpg")
+        write_jpeg(jpeg, img)
+        img = load_img(jpeg)
         rgb[key] = img[:, :, ::-1]
         norm[key] = np.array([0.0, 0.0, 0.0, 1.0], np.float32)  # offset(3), scale
         for sub, a in arrays.items():
-            sdf[sub][key] = _sdf_block(a, sub == "sdf_hand")
-        meta_rows[key] = _meta_block(meta, dataset)
+            sdf[sub][key] = sdf_record(a, sub == "sdf_hand")[0]
+        meta_rows[key] = meta_record(meta, dataset)
         with open(os.path.join(test, "meta", key + ".pkl"), "wb") as f:
             pickle.dump(meta, f)
         for sub, mesh in meshes.items():
@@ -377,9 +395,12 @@ def write_geometric_lmdb(root: str, keys: List[str], dataset: str = "obman",
         samples["rest_obj_corners"].append((cam_extr @ meta["obj_rest_corners_3d"][1:].T).T)
 
     _write_lmdbs(train, dataset, "train", keys, half, rgb, norm, meta_rows, sdf)
+    split_path = os.path.join(root, f"{dataset}_geometric_split.json")
+    with open(split_path, "w") as f:
+        json.dump({"filenames": [key + ".jpg" for key in keys]}, f)
     samples_path = os.path.join(root, f"{dataset}_geometric_samples.npz")
     np.savez(samples_path, key=np.array(keys),
              **{k: np.stack(v).astype(np.uint8 if k == "image" else np.float32)
                 for k, v in samples.items()})
-    return {"train": train, "test": test, "samples": samples_path}
+    return {"train": train, "test": test, "split": split_path, "samples": samples_path}
 

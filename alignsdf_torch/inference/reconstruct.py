@@ -340,3 +340,9 @@ def make_output_dirs(output_dir: str) -> Dict[str, str]:
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     return dirs
+
+
+def load_mano_faces() -> np.ndarray:
+    """The closed MANO mesh's faces, for the predicted hands' PLY files."""
+    return np.load(os.path.join(os.path.dirname(os.path.dirname(__file__)), "assets",
+                                "closed_fmano.npy"))

@@ -1,8 +1,9 @@
 """Drive the PyTorch port's reconstruction and training paths (the
 flagship, --pa_feat, --cls and --pa_feat --cls, the generic decoders,
-training from an LMDB dataset with the stem pool through K7, and the proof
-of learning scored by the evaluation) on one CUDA GPU and hold each
-hand-written kernel against its plain PyTorch version.
+training from an LMDB dataset with the stem pool through K7, the proof
+of learning scored by the evaluation, and training and testing from the
+reference's per-file layout) on one CUDA GPU and hold each hand-written
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -156,9 +157,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      (hand and --obj), each run's chamfers, errors and per-image timings
      (grid, marching cubes, largest component, ICP, export, host in all);
      no failure, hand chamfer <= 2.0 cm^2 and object <= 2.5 at 128^3, MANO
-     joint error below the untrained model's; K1 against its plain version
-     on the trained weights' 256^3 plan (its first and last runs of 2^20
-     points), then its time per 256^3 pass.
+     joint error below the untrained model's; the 16 scenes again as a
+     test split of JPEG files (the geometric writer's test/rgb and split
+     json) through cli.reconstruct -s --data_root at 128^3 and
+     cli.evaluate (hand and --obj): the split's patches equal to the
+     samples npz's images (the writer stores each image as its JPEG
+     decodes), chamfers printed beside the --samples run's, the same
+     bounds, the host time to read an item (JPEG decode and centre crop);
+     K1 against its plain version on the trained weights'
+     256^3 plan (its first and last runs of 2^20 points), then its time per
+     256^3 pass;
+ 17. the per-file layout: 128 scenes (2 x ScenesPerBatch) and a 4-image test
+     split written as JPEG, npz and pkl files by
+     data/synthetic.write_synthetic_dataset; the flagship JSON with LMDB
+     false and a TrainSplit json through cli.train.main --data_root for one
+     epoch (2 steps, the stem pool through K7, Resume naming the init
+     guard's draw), then its default post-training test of the split at
+     128^3: K7's backward launches equal to the steps and its forward's to
+     the steps and the test's images, K2's two a step, K1's two passes an
+     image in runs of 2^20 points, finite losses, the test's MANO
+     files for every image; the same files packed by
+     tools/create_lmdb_torch.py, one SDFDataset item from each backend at
+     one seed within 1e-6; from the files and from the LMDBs, the host's
+     time for each part of an item (image, meta, norm, SDF sampling) and
+     the whole item over every scene (median and 10th / 90th
+     percentiles), and the loader's time a batch (an epoch's time over its
+     8 batches) and its wait for the first batch, in each of 3 epochs.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -171,6 +195,7 @@ import copy
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -254,6 +279,12 @@ GEO_LOG_EVERY = 100
 GEO_HAND_CHAMFER_MAX = 2.0  # cm^2, about twice the TPU's 0.993 (bf16, BASELINE.md)
 GEO_OBJ_CHAMFER_MAX = 2.5  # cm^2, about twice the TPU's 1.215
 GEO_HAND_SDF_DROP, GEO_OBJ_SDF_DROP = 0.35, 0.5  # tests/test_overfit.py's bounds
+# the per-file layout (phase 17): 2 batches of the flagship, a 4-image test split
+FILES_SCENES = 2 * TRAIN_SCENES
+FILES_TEST_IMAGES = 4
+FILES_ITEM_TOL = 1e-6  # the LMDB item against the per-file one (tests/test_lmdb.py)
+LOADER_REPEAT = 4  # passes of the keys in an epoch of the timed loader: 8 batches
+LOADER_EPOCHS = 3
 
 
 
@@ -286,6 +317,17 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def spread(values) -> dict:
+    """Median, 10th and 90th percentiles (nearest rank) and count of times."""
+    v = sorted(values)
+    return {"median": statistics.median(v), "p10": v[min(len(v) - 1, len(v) // 10)],
+            "p90": v[min(len(v) - 1, len(v) * 9 // 10)], "n": len(v)}
+
+
+def fmt_spread(s: dict) -> str:
+    return f"{s['median']:.2f} [{s['p10']:.2f}, {s['p90']:.2f}]"
 
 
 def flagship_specs(pixel: bool = False, experiment: str = "obman_30k.json",
@@ -2900,7 +2942,7 @@ def geometric_phase(dev, card: str):
     from alignsdf_torch.cli import train as train_cli
     from alignsdf_torch.config import specs_to_dict
     from alignsdf_torch.data import make_train_dataset
-    from alignsdf_torch.data.dataset import collate, to_train_batch
+    from alignsdf_torch.data.dataset import ImagesDataset, collate, to_train_batch
     from alignsdf_torch.data.synthetic import write_geometric_lmdb
     from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
     from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
@@ -2999,13 +3041,14 @@ def geometric_phase(dev, card: str):
         rec["k2_check"] = k2_check(state.model, specs, dev, gen, GEO_SCENES, inputs=(latent, emb))
         k2_verdict(rec["k2_check"], "on the proof's last batch")
 
-        def reconstruct(label, exp, extra, images, cube):
-            """cli.reconstruct.main on the samples npz, K1's launches held to
-            two passes an image in runs of 2^20 points."""
+        def reconstruct(label, exp, extra, images, cube, source=("--samples", paths["samples"])):
+            """cli.reconstruct.main on the samples npz (or ``source``'s
+            images), K1's launches held to two passes an image in runs of
+            2^20 points."""
             grid_decode.launches = 0
             t0 = time.perf_counter()
             per_image = reconstruct_cli.main(
-                ["-e", exp, "--samples", paths["samples"], "--end_point", str(images),
+                ["-e", exp, *source, "--end_point", str(images),
                  "--cube_dim", str(cube), "--device", dev.type, *extra])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -3063,6 +3106,38 @@ def geometric_phase(dev, card: str):
         if not (hand <= GEO_HAND_CHAMFER_MAX and obj <= GEO_OBJ_CHAMFER_MAX and joint < joint0):
             fail("the trained model's reconstructions miss the proof's bounds")
 
+        # the same scenes as a test split of JPEG files (cli.reconstruct -s,
+        # ImagesDataset), scored as the --samples run: the writer stores
+        # each image as its JPEG decodes, so both runs see the same pixels
+        phase(f"geometric reconstruction from the test split's JPEGs: cli.reconstruct -s at "
+              f"{CUBE_DIM}^3, then cli.evaluate")
+        exp = experiment("split")
+        runs["split"] = reconstruct("trained -s (JPEG files)", exp, [], GEO_SCENES, CUBE_DIM,
+                                    source=("-s", paths["split"], "--data_root", paths["test"]))
+        runs["split"]["eval"] = evaluate("trained -s", exp, ["hand", "obj"])
+        # a scene without a mesh has no chamfer: no mean at all fails the bound
+        split_hand = runs["split"]["eval"]["hand"].get("chamfer_mean", float("inf"))
+        split_obj = runs["split"]["eval"]["obj"].get("chamfer_mean", float("inf"))
+        items = ImagesDataset.from_split(paths["split"], specs, "obman", data_root=paths["test"])
+        t0 = time.perf_counter()
+        patches = [items[i]["image"] for i in range(len(items))]
+        read_ms = (time.perf_counter() - t0) / len(items) * 1e3
+        npz_images = np.load(paths["samples"])["image"]
+        pixel_err = max(int(np.abs(p.astype(int) - r.astype(int)).max())
+                        for p, r in zip(patches, npz_images))
+        rec["split"] = {"hand_chamfer": split_hand, "obj_chamfer": split_obj,
+                        "item_read_ms": read_ms, "pixel_max_level_err": pixel_err}
+        print(f"[{card}] test split from JPEG files at {CUBE_DIM}^3 over {GEO_SCENES} scenes: "
+              f"hand chamfer {split_hand:.4f} cm^2, object {split_obj:.4f} (the --samples "
+              f"run's: {hand:.4f}, {obj:.4f}; bounds {GEO_HAND_CHAMFER_MAX}, "
+              f"{GEO_OBJ_CHAMFER_MAX}); the split's patches against the samples npz's images "
+              f"(the JPEGs decoded by the writer): largest difference {pixel_err} levels; host "
+              f"time to read an item (JPEG decode and centre crop) {read_ms:.2f} ms", flush=True)
+        if pixel_err != 0:
+            fail("the test split's patches are not the images the samples npz holds")
+        if not (split_hand <= GEO_HAND_CHAMFER_MAX and split_obj <= GEO_OBJ_CHAMFER_MAX):
+            fail("the reconstructions from the test split's JPEGs miss the proof's bounds")
+
         # K1 on the trained weights' 256^3 plan (image 0's scene): its first
         # and last runs of 2^20 points (the highest indices) against the
         # plain version, then its time per pass
@@ -3102,6 +3177,200 @@ def geometric_phase(dev, card: str):
               f"({flops / k1_ms / 1e9:.1f} TFLOP/s), {bounds_text(bounds)}", flush=True)
     rec["k1_launches"] = sum(r["launches"] for r in runs.values())
     rec["k2_launches"] = launches
+    return rec
+
+
+def host_read_timing(specs, lmdb_specs, root: str, keys) -> dict:
+    """Host time, both backends on the same files at ``root`` (the page
+    cache warm for both): each part of an item alone over every key, the
+    whole item, then the loader over LOADER_REPEAT passes of the keys an
+    epoch, LOADER_EPOCHS epochs.  Each thread builds a whole batch, so the
+    batches arrive in waves, one a thread: the loader's rate is an epoch's
+    time over its batches, and the wait for the first batch is kept
+    beside it."""
+    import numpy as np
+
+    from alignsdf_torch.data import make_train_dataset
+    from alignsdf_torch.data.dataset import to_train_batch
+    from alignsdf_torch.data.loader import DataLoader
+
+    timing = {}
+    for name, sp in (("files", specs), ("lmdb", lmdb_specs)):
+        ds = make_train_dataset(sp, root, keys, raw_image=True)
+        be, n_sub = ds.backend, ds.num_samples_per_branch()
+        parts = {"image": be.image, "meta": be.meta_params, "norm": be.normal_params,
+                 "sdf": lambda k: [be.sample_sdf(k, hand, n_sub, sp.clamping_distance, True,
+                                                 np.random.default_rng(0))
+                                   for hand in (True, False)]}
+        ms = {part: [] for part in (*parts, "item")}
+        for i, key in enumerate(keys):
+            for part, read in parts.items():
+                t0 = time.perf_counter()
+                read(key)
+                ms[part].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            ds.__getitem__(i, seed=i)
+            ms["item"].append((time.perf_counter() - t0) * 1e3)
+        loader = DataLoader(make_train_dataset(sp, root, list(keys) * LOADER_REPEAT,
+                                               raw_image=True),
+                            batch_size=sp.scenes_per_batch, num_workers=sp.data_loader_threads,
+                            seed=0, to_batch=lambda stacked: to_train_batch(sp, stacked))
+        first, per_batch = [], []
+        for epoch in range(1, LOADER_EPOCHS + 1):
+            loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            ends = [time.perf_counter() for _ in loader]
+            first.append((ends[0] - t0) * 1e3)
+            per_batch.append((ends[-1] - t0) / len(ends) * 1e3)
+        timing[name] = {**{f"{part}_ms": spread(v) for part, v in ms.items()},
+                        "batch_first_ms": first, "batch_ms": per_batch}
+    return timing
+
+
+def files_phase(dev, card: str):
+    """Phase 17, the reference's per-file layout (see the module
+    docstring): cli.train from JPEG / npz / pkl files with the stem pool
+    through K7, its post-training test through K1, then the same files
+    packed by tools/create_lmdb_torch.py and read both ways."""
+    import numpy as np
+    import torch
+
+    from alignsdf_torch.cli import train as train_cli
+    from alignsdf_torch.data import make_train_dataset
+    from alignsdf_torch.data.synthetic import write_synthetic_dataset
+    from alignsdf_torch.kernels import maxpool as k7
+    from alignsdf_torch.kernels.grid_decoder import grid_decode
+    from alignsdf_torch.models import resnet
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import create_lmdb_torch
+
+    rec = {"card": card}
+    keys = [f"{i:08d}" for i in range(FILES_SCENES)]
+    flags = ["--mano", "--obj_pose", "--encode", "both", "--point_size", "9", "--device", dev.type]
+    k2 = k2_kernel()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase(f"per-file layout: {FILES_SCENES} scenes and a {FILES_TEST_IMAGES}-image test "
+              "split written as JPEG, npz and pkl files")
+        t0 = time.perf_counter()
+        train = write_synthetic_dataset(tmp, keys, image_hw=256)
+        test = write_synthetic_dataset(tmp, keys[:FILES_TEST_IMAGES], image_hw=256, seed=1,
+                                       split="test")
+        rec["write_s"] = time.perf_counter() - t0
+        train_split, test_split = os.path.join(tmp, "train.json"), os.path.join(tmp, "test.json")
+        with open(train_split, "w") as f:
+            json.dump({"train": keys}, f)
+        with open(test_split, "w") as f:
+            json.dump({"filenames": [f"{k}.jpg" for k in keys[:FILES_TEST_IMAGES]]}, f)
+        print(f"[{card}] wrote {FILES_SCENES} + {FILES_TEST_IMAGES} scenes (256x256 JPEGs, "
+              f"4000 SDF rows a branch) in {rec['write_s']:.2f} s", flush=True)
+
+        # the flagship JSON with LMDB false and the TrainSplit json, one epoch
+        # of two batches, Resume naming a healthy init (the init guard's
+        # draw, made before K7 is switched on) so that K7's launches are the
+        # steps' alone
+        with open(os.path.join(REPO, "experiments", "obman_30k.json")) as f:
+            raw = json.load(f)
+        state0, _ = train_cli.make_trainer(flagship_specs(), dev, seed=SEED, init_guard=True)
+        resume = os.path.join(tmp, "init.pth")
+        torch.save({"epoch": 0, "model_state_dict": state0.model.state_dict()}, resume)
+        del state0
+        raw.update(DataSource=tmp, TrainSplit=train_split, LMDB=False, NumEpochs=1,
+                   LogFrequency=1, LogFrequencyStep=1, Resume=resume,
+                   ScenesPerBatch=TRAIN_SCENES)
+        specs = flagship_specs(raw=raw)
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(raw, f)
+        out = os.path.join(tmp, "outputs")
+        steps = FILES_SCENES // TRAIN_SCENES
+
+        phase(f"per-file training: cli.train --data_root for one epoch of {steps} batches "
+              f"with the stem pool through K7, then its post-training test of "
+              f"{FILES_TEST_IMAGES} images at {CUBE_DIM}^3")
+        k7.maxpool_forward.launches = k7.maxpool_backward.launches = 0
+        k2.fwd.launches = k2.bwd.launches = 0
+        grid_decode.launches = 0
+        resnet.KERNEL_POOL = True
+        try:
+            t0 = time.perf_counter()
+            train_cli.main(["-e", spec_path, *flags, "--data_root", train, "--output_root", out,
+                            "--test_split", test_split, "--test_data_root", test])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            resnet.KERNEL_POOL = False
+        launches = {"k7": {"fwd": k7.maxpool_forward.launches,
+                           "bwd": k7.maxpool_backward.launches},
+                    "k2": {"fwd": k2.fwd.launches, "bwd": k2.bwd.launches},
+                    "k1": grid_decode.launches}
+        exp = os.path.join(out, specs.experiment_name())
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            logged = [ln for ln in map(json.loads, f) if "step" in ln]
+        pred = sorted(os.listdir(os.path.join(exp, "Eval_obman", "pred_mano")))
+        meshes = sorted(os.listdir(os.path.join(exp, "Eval_obman", "meshes")))
+        want_k1 = FILES_TEST_IMAGES * 2 * -(-CUBE_DIM ** 3 // (1 << 20))
+        # K7's forward runs in the steps and in the test's encodes
+        want_k7 = {"fwd": steps + FILES_TEST_IMAGES, "bwd": steps}
+        print(f"[{card}] cli.train over the per-file layout: {wall:.2f} s for {len(logged)} "
+              f"steps and the test; launches {launches} (expected K7 {want_k7}, K2 "
+              f"{k2.per_step * steps}, K1 {want_k1}); total loss "
+              + ", ".join(f"{s['total']:.5f}" for s in logged)
+              + f"; test outputs: {len(pred)} MANO files, meshes {meshes}", flush=True)
+        rec["train"] = {"wall_s": wall, "launches": launches,
+                        "totals": [s["total"] for s in logged], "meshes": meshes}
+        if len(logged) != steps:
+            fail(f"per-file training: {len(logged)} steps logged, not {steps}")
+        if not all(np.isfinite(v) for s in logged for v in s.values()):
+            fail("per-file training: a non-finite loss")
+        if launches["k7"] != want_k7:
+            fail(f"per-file training: K7 launches {launches['k7']} != {want_k7}")
+        if launches["k2"] != {"fwd": k2.per_step * steps, "bwd": k2.per_step * steps}:
+            fail(f"per-file training: K2 launches {launches['k2']} != {k2.per_step} a step")
+        if launches["k1"] != want_k1:
+            fail(f"post-training test: K1 launches {launches['k1']} != {want_k1}")
+        want_pred = sorted(f"{k}.{ext}" for k in keys[:FILES_TEST_IMAGES]
+                           for ext in ("json", "ply"))
+        if pred != want_pred:
+            fail(f"post-training test: MANO outputs {pred} != {want_pred}")
+
+        phase("per-file layout packed by tools/create_lmdb_torch.py: one item both ways, the "
+              "loader from JPEGs and from the LMDBs")
+        t0 = time.perf_counter()
+        create_lmdb_torch.create_lmdbs(train, "obman", "train", keys)
+        rec["pack_s"] = time.perf_counter() - t0
+        from_files = make_train_dataset(specs, train, keys, raw_image=True)
+        lmdb_specs = dataclasses.replace(specs, lmdb=True)
+        from_lmdb = make_train_dataset(lmdb_specs, train, keys, raw_image=True)
+        a, b = from_files.__getitem__(0, seed=3), from_lmdb.__getitem__(0, seed=3)
+        item_err = max(float(np.abs(np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64))
+                             .max()) for k in a if k != "key")
+        rec["item_max_abs_err"] = item_err
+        print(f"[{card}] packed {FILES_SCENES} scenes in {rec['pack_s']:.2f} s; item 0 at seed 3 "
+              f"from the files ({type(from_files.backend).__name__}) and from the LMDBs "
+              f"({type(from_lmdb.backend).__name__}): max abs err {item_err:.3e} (tolerance "
+              f"{FILES_ITEM_TOL:g})", flush=True)
+        if set(a) != set(b) or a["key"] != b["key"] or not item_err <= FILES_ITEM_TOL:
+            fail(f"the LMDB item disagrees with the per-file one: {item_err}")
+
+        timing = host_read_timing(specs, lmdb_specs, train, keys)
+        rec["timing"] = timing
+        for name, what in (("files", "JPEG / pkl / npz files"), ("lmdb", "LMDBs")):
+            t = timing[name]
+            print(f"[{card}] host, from the {what}, ms an item over {FILES_SCENES} synthetic "
+                  "scenes (256x256 uniform-noise JPEGs), median [p10, p90]: "
+                  + ", ".join(f"{part} {fmt_spread(t[part + '_ms'])}"
+                              for part in ("image", "meta", "norm", "sdf", "item"))
+                  + f"; {TRAIN_SCENES} items one after another "
+                  f"{t['item_ms']['median'] * TRAIN_SCENES:.1f} ms; the loader "
+                  f"({specs.data_loader_threads} threads) a batch of {TRAIN_SCENES}, an epoch's "
+                  f"time over its {FILES_SCENES * LOADER_REPEAT // TRAIN_SCENES} batches: "
+                  + ", ".join(f"{v:.1f}" for v in t["batch_ms"]) + " ms in its "
+                  f"{LOADER_EPOCHS} epochs, the first batch after "
+                  + ", ".join(f"{v:.1f}" for v in t["batch_first_ms"]), flush=True)
+    rec["k1_launches"] = launches["k1"]
+    rec["k2_launches"] = launches["k2"]
+    rec["k7_launches"] = launches["k7"]
     return rec
 
 
@@ -3307,6 +3576,8 @@ def main(record_path: Optional[str] = None) -> None:
     record["dataset"] = dataset_phase(dev, card, record["train"])
     record["geometric"] = geometric_phase(dev, card)
     geo = record["geometric"]
+    record["files"] = files_phase(dev, card)
+    files = record["files"]
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
@@ -3326,9 +3597,10 @@ def main(record_path: Optional[str] = None) -> None:
         "trunk": TC_TRUNK_SOURCE,
         "replaces": "alignsdf_tpu/ops/decoder_kernel.py:496",
         "covers": "alignsdf_tpu/ops/decoder_kernel.py:381 (K1p, points-major, > 6 classes)",
-        "launches": launches + cls["grid_launches"] + geo["k1_launches"],
+        "launches": launches + cls["grid_launches"] + geo["k1_launches"] + files["k1_launches"],
         "launches_by_path": {"flagship": launches, "classifier": cls["grid_launches"],
-                             "geometric": geo["k1_launches"]},
+                             "geometric": geo["k1_launches"],
+                             "per_file_test": files["k1_launches"]},
         "max_abs_err": max(max_err, cls["grid_max_abs_err"], geo["k1_256_max_abs_err"]),
         "ms": t["k1_ms"],
         "plain_ms": t["plain_ms"],
@@ -3351,11 +3623,13 @@ def main(record_path: Optional[str] = None) -> None:
             "source": "alignsdf_torch/kernels/csrc/train_decoder.cu",
             "replaces": f"alignsdf_tpu/ops/decoder_train_kernel.py:{line}",
             "launches": (k2_launches[name] + cls["train_launches"][name]
-                         + record["dataset"]["k2_launches"][name] + geo["k2_launches"][name]),
+                         + record["dataset"]["k2_launches"][name] + geo["k2_launches"][name]
+                         + files["k2_launches"][name]),
             "launches_by_path": {"flagship": k2_launches[name],
                                  "classifier": cls["train_launches"][name],
                                  "dataset_training": record["dataset"]["k2_launches"][name],
-                                 "geometric": geo["k2_launches"][name]},
+                                 "geometric": geo["k2_launches"][name],
+                                 "per_file_training": files["k2_launches"][name]},
             "max_abs_err": max(err, cerr, geo["k2_check"][geo_key]),
             "ms": t2["ms"],
             "plain_ms": t2["plain_ms"],
@@ -3392,7 +3666,8 @@ def main(record_path: Optional[str] = None) -> None:
     for name, line in (("fwd", 122), ("bwd", 140)):
         t = record["k7"]["train"]["timing"][name]
         st = record["k7"]["serving"]["timing"][name]
-        by_path = {"dataset_training": record["dataset"]["launches"][name]}
+        by_path = {"dataset_training": record["dataset"]["launches"][name],
+                   "per_file_training": files["k7_launches"][name]}
         if name == "fwd":
             by_path["serving"] = record["k7_serving"]["launches"]
         err_key = "fwd_max_abs_err" if name == "fwd" else "grad_max_abs_err"

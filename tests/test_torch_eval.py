@@ -290,14 +290,16 @@ def test_geometric_writer_matches_jax(tmp_path):
             with open(os.path.join(ours["test"], sub, key + ".obj"), "rb") as a, \
                     open(os.path.join(base, sub, key + ".obj"), "rb") as b:
                 assert a.read() == b.read(), sub
-        # the raw image is the JAX writer's draw: JPEG-encoded as that writer
-        # does, it gives its file byte for byte
+        # the image is the JAX writer's draw: the test split's JPEG is that
+        # writer's file byte for byte, and the LMDB and the samples npz hold
+        # it decoded, as cv2 reads it
         image = store.image(key)
         np.testing.assert_array_equal(image, samples["image"][i])
-        enc = str(tmp_path / "enc.jpg")
-        cv2.imwrite(enc, image[:, :, ::-1])
-        with open(enc, "rb") as a, open(os.path.join(base, "rgb", key + ".jpg"), "rb") as b:
+        with open(os.path.join(ours["test"], "rgb", key + ".jpg"), "rb") as a, \
+                open(os.path.join(base, "rgb", key + ".jpg"), "rb") as b:
             assert a.read() == b.read()
+        np.testing.assert_array_equal(image, cv2.imread(os.path.join(base, "rgb", key + ".jpg"))
+                                      [:, :, ::-1])
         item = images[i]
         assert str(samples["key"][i]) == key
         np.testing.assert_array_equal(samples["cam_intr"][i], item["cam_intr"])

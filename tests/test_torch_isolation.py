@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``alignsdf_torch`` (nor
-``chip_smoke.py``) imports JAX, flax, orbax, cv2 or the JAX package, and its
-entry points refuse to fall back to the CPU on their own."""
+``chip_smoke.py``, nor the port's LMDB packer ``tools/create_lmdb_torch.py``)
+imports JAX, flax, orbax, cv2 or the JAX package, and its entry points refuse
+to fall back to the CPU on their own."""
 
 import ast
 import os
@@ -30,7 +31,8 @@ def test_every_module_imports_with_jax_blocked():
                  "ops.generic_train_plan", "kernels.maxpool", "data.sdf_samples",
                  "data.lmdb_format", "data.lmdb_backend", "data.img_utils", "data.backends",
                  "data.dataset", "data.loader", "utils.metrics", "kernels.weight_grad",
-                 "eval.chamfer", "eval.icp", "eval.evaluate", "cli.evaluate"):
+                 "eval.chamfer", "eval.icp", "eval.evaluate", "cli.evaluate", "cli.reconstruct",
+                 "cli.train", "data.synthetic"):
         assert f"alignsdf_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -39,6 +41,8 @@ def test_every_module_imports_with_jax_blocked():
         "import importlib\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import create_lmdb_torch\n"
         "print('imported', len(sys.modules))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -55,6 +59,7 @@ def _python_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tools", "create_lmdb_torch.py")
 
 
 def test_no_source_names_a_blocked_module():
