@@ -4,9 +4,9 @@ train.py:201-714).
 Usage:
     python -m alignsdf_torch.cli.train -e experiments/obman_30k.json \\
         --mano --obj_pose --encode both --point_size 9 [--pa_feat | --cls] \\
-        [--add_epoch E] (--data_root DIR [--continue NAME] [--skip_test | \\
-        --test_split S --test_data_root T --test_cube_dim N] | --smoke | --steps N) \\
-        [--device cuda] [--no_init_guard]
+        [--add_epoch E] ((--data_root DIR | --packed PACK) [--loader_mode process] \\
+        [--continue NAME] [--skip_test | --test_split S --test_data_root T \\
+        --test_cube_dim N] | --smoke | --steps N) [--device cuda] [--no_init_guard]
 
 The flagship trains its twin trunks through kernel K2; with ``--pa_feat``
 (a latent sampled per point from the HeadNet map) through kernel K4; a spec
@@ -21,11 +21,15 @@ With ``--data_root`` (a dataset in the reference's five-LMDB layout, e.g.
 from ``data/synthetic.py:write_synthetic_lmdb`` or
 ``tools/create_lmdb_torch.py``, or with ``LMDB: false`` in its per-file
 npz/jpg/pkl layout, e.g. from ``write_synthetic_dataset``, whose keys the
-TrainSplit names) it runs the epoch loop of
-the JAX package's CLI (``cli/train.py:284-390``; reference train.py:446-640):
-the TrainSplit's keys, or every key of the LMDB when TrainSplit is empty,
-shuffled per epoch by the threaded loader (DataLoaderThreads workers,
-ScenesPerBatch scenes, the last partial batch dropped); the step LR of each
+TrainSplit names), or with ``--packed`` (an ASDF-pack file from
+``tools/pack_dataset_torch.py``, which takes precedence, as in the JAX
+package; its batches are built whole by the native reader), it runs the
+epoch loop of the JAX package's CLI (``cli/train.py:284-390``; reference
+train.py:446-640): the TrainSplit's keys, or every key of the LMDB or pack
+when TrainSplit is empty, shuffled per epoch by the loader
+(DataLoaderThreads workers, threads or with ``--loader_mode process``
+forked processes, for every backend; ScenesPerBatch scenes, the last
+partial batch dropped); the step LR of each
 epoch; losses every LogFrequencyStep steps and each epoch's LR and time in
 ``<experiment>/metrics.jsonl``; ``latest`` every LogFrequency epochs and at
 the end, numbered snapshots at SnapshotFrequency and AdditionalSnapshots.
@@ -40,8 +44,7 @@ from ``--test_data_root`` (default ``<DataSource>/<Dataset>/test``) at
 ``--test_cube_dim`` (128), the hand labels written for a classifier, and
 for obman and dexycb each mesh aligned to its GT mesh where one exists
 (``--eval_mode``).  ``--skip_test`` skips it.
-Not ported: the SLURM requeue handler, ``--multistep``, ``--packed`` and
-``--loader_mode``.
+Not ported: the SLURM requeue handler and ``--multistep``.
 
 Without it, training runs on synthetic batches (``data/synthetic.py``) of
 ScenesPerBatch scenes: ``--smoke`` takes 2 steps on one batch of 2 scenes and
@@ -65,7 +68,7 @@ from alignsdf_torch import config as cfg
 from alignsdf_torch import resolve_device, use_float32_precision
 from alignsdf_torch.data import make_train_dataset
 from alignsdf_torch.data.dataset import ImagesDataset, to_train_batch
-from alignsdf_torch.data.loader import DataLoader
+from alignsdf_torch.data.loader import WORKER_MODES, DataLoader
 from alignsdf_torch.data.synthetic import synthetic_train_batch
 from alignsdf_torch.inference.reconstruct import (Reconstructor, load_mano_faces,
                                                    make_output_dirs, run_pipelined)
@@ -109,26 +112,39 @@ def make_trainer(specs: cfg.Specs, device, seed: int = 0,
     return state, make_train_step(specs)
 
 
-def make_loader(specs: cfg.Specs, data_root: str) -> DataLoader:
+def make_loader(specs: cfg.Specs, data_root: Optional[str], pack_path: Optional[str] = None,
+                worker_mode: str = "thread") -> DataLoader:
     """The epoch loop's loader: the TrainSplit's keys (every key of the
-    dataset when TrainSplit is empty) in batches of ScenesPerBatch scenes,
-    uint8 images, DataLoaderThreads workers, seeded by RandomSeed."""
+    dataset when TrainSplit is empty) of the pack ``pack_path`` where given,
+    else of the spec's backend at ``data_root``, in batches of
+    ScenesPerBatch scenes, uint8 images, DataLoaderThreads workers of
+    ``worker_mode``, seeded by RandomSeed."""
     split_keys = None
     if specs.train_split:
         with open(specs.train_split) as f:
             split_keys = json.load(f)["train"]
-    dataset = make_train_dataset(specs, data_root, split_keys, raw_image=True)
+    dataset = make_train_dataset(specs, data_root, split_keys, raw_image=True,
+                                 pack_path=pack_path)
     logger.info("train dataset: %d scenes via %s", len(dataset), type(dataset.backend).__name__)
     return DataLoader(dataset, batch_size=specs.scenes_per_batch,
                       num_workers=specs.data_loader_threads, seed=specs.random_seed or 0,
-                      to_batch=lambda stacked: to_train_batch(specs, stacked))
+                      to_batch=lambda stacked: to_train_batch(specs, stacked),
+                      worker_mode=worker_mode)
 
 
 def main(argv: Optional[list] = None) -> None:
     parser = argparse.ArgumentParser(description="AlignSDF training (PyTorch/CUDA)")
     parser.add_argument("-e", dest="cfg", required=True, help="experiment spec json")
     parser.add_argument("--data_root", default=None,
-                        help="dataset directory (five LMDBs); epochs over it")
+                        help="dataset directory (five LMDBs, or the per-file layout for "
+                             "LMDB: false); epochs over it")
+    parser.add_argument("--packed", default=None,
+                        help="ASDF-pack file (tools/pack_dataset_torch.py); epochs over it, "
+                             "in place of the spec's LMDB / per-file backend")
+    parser.add_argument("--loader_mode", default=None, choices=WORKER_MODES,
+                        help="the loader's DataLoaderThreads workers: threads (default) or "
+                             "forked processes, for every backend, the pack's native "
+                             "batches included")
     parser.add_argument("--continue", dest="continue_from", default=None,
                         help="resume (with --data_root) from this experiment's checkpoint "
                              "of this name, or from the latest of the experiment directory "
@@ -153,21 +169,26 @@ def main(argv: Optional[list] = None) -> None:
                         help="grid of the post-training reconstruction (default 128)")
     cfg.add_train_args(parser)
     args = parser.parse_args(argv)
-    if args.data_root is None:
+    if args.data_root is None and args.packed is None:
         idle = [f"--{flag}" for flag in _NOT_RUN if getattr(args, flag) not in (None, False)]
         if idle:
-            parser.error(f"{' '.join(idle)}: without --data_root the port trains on synthetic "
-                         "batches in epoch 1 only (no augmentation or later epochs), so these "
+            parser.error(f"{' '.join(idle)}: without --data_root or --packed the port trains "
+                         "on synthetic batches in epoch 1 only (no augmentation or later "
+                         "epochs), so these "
                          "would change nothing but the experiment's name")
         idle = [f"--{flag}" for flag in _TEST_FLAGS if getattr(args, flag) not in (None, False)]
         if idle:
             parser.error(f"{' '.join(idle)}: the post-training test follows the epoch loop, "
-                         "which needs --data_root")
+                         "which needs --data_root or --packed")
+        if args.loader_mode:
+            parser.error("--loader_mode: the loader feeds the epoch loop, which needs "
+                         "--data_root or --packed")
         if args.continue_from:
-            parser.error("--continue resumes the epoch loop, which needs --data_root")
+            parser.error("--continue resumes the epoch loop, which needs --data_root or "
+                         "--packed")
     elif args.smoke or args.steps is not None:
-        parser.error("--smoke and --steps train on synthetic batches; with --data_root the "
-                     "spec's NumEpochs (--epoch) sets the length")
+        parser.error("--smoke and --steps train on synthetic batches; with --data_root or "
+                     "--packed the spec's NumEpochs (--epoch) sets the length")
 
     logging.basicConfig(force=True, level=logging.INFO,
                         format="AlignSDF-torch - %(levelname)s - %(message)s")
@@ -176,7 +197,7 @@ def main(argv: Optional[list] = None) -> None:
     specs = cfg.apply_overrides(cfg.load_specs(args.cfg), args)
     seed = specs.random_seed or 0
     experiment_dir = os.path.join(args.output_root, specs.experiment_name())
-    if args.data_root is not None:
+    if args.data_root is not None or args.packed is not None:
         train_epochs(specs, args, device, experiment_dir)
         return
 
@@ -209,8 +230,8 @@ def main(argv: Optional[list] = None) -> None:
 
 
 def train_epochs(specs: cfg.Specs, args, device, experiment_dir: str) -> None:
-    """The epoch loop over ``args.data_root`` (JAX ``cli/train.py:185-197``,
-    :284-390)."""
+    """The epoch loop over ``args.packed`` or ``args.data_root`` (JAX
+    ``cli/train.py:185-197``, :284-390)."""
     seed = specs.random_seed or 0
     resume = bool(specs.resume) and os.path.exists(specs.resume)
     fresh = not (resume or args.continue_from or ckpt.checkpoint_exists(experiment_dir))
@@ -233,7 +254,7 @@ def train_epochs(specs: cfg.Specs, args, device, experiment_dir: str) -> None:
         start_epoch = saved_epoch + 1
         logger.info("resumed from %s of %s at epoch %d", name, source, saved_epoch)
 
-    loader = make_loader(specs, args.data_root)
+    loader = make_loader(specs, args.data_root, args.packed, args.loader_mode or "thread")
     metrics = MetricsLogger(experiment_dir)
     gen = torch.Generator().manual_seed(seed)
     log_step = 0

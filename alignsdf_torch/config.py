@@ -103,6 +103,10 @@ class Specs:
     contact_loss_weight: float = 0.005
     disable_aug: bool = False
     background_aug: bool = False
+    # the JAX package's opt-in synthetic occlusion: the reference draws
+    # do_occlusion but its train dataset never applies it (utils/data.py:
+    # 132,142), so off keeps the reference's behaviour
+    occlusion_aug: bool = False
     random_seed: Optional[int] = None
     gradient_clip_norm: Optional[float] = None
     lr_schedules: Tuple[LearningRateSchedule, ...] = (LearningRateSchedule(),)
@@ -208,6 +212,7 @@ _KEY_MAP = {
     "PenetrationLossWeight": "penetration_loss_weight",
     "ContactLossWeight": "contact_loss_weight",
     "DisableAug": "disable_aug",
+    "OcclusionAug": "occlusion_aug",
     "BackgroundAug": "background_aug",
     "RandomSeed": "random_seed",
     "GradientClipNorm": "gradient_clip_norm",
@@ -239,10 +244,6 @@ def specs_from_dict(raw: Dict[str, Any]) -> Specs:
                                      interval=s.get("Interval", 600), factor=s.get("Factor", 0.5))
                 for s in value)
             continue
-        if json_key == "OcclusionAug" and value:
-            # the JAX package's opt-in synthetic occlusion; the reference
-            # never applies it (utils/data.py:142) and the port has no copy
-            raise NotImplementedError("OcclusionAug: true is not ported; see ROADMAP.md §1 item 2")
         fname = _KEY_MAP.get(json_key)
         if fname is None:
             continue

@@ -10,14 +10,15 @@ from __future__ import annotations
 from typing import List, Optional
 
 
-def make_train_dataset(specs, data_root: str, split_keys: Optional[List[str]] = None,
-                       raw_image: bool = False):
-    """The train dataset over the spec's backend at ``data_root``;
-    ``split_keys`` defaults to every key the backend knows."""
+def make_train_dataset(specs, data_root: Optional[str], split_keys: Optional[List[str]] = None,
+                       raw_image: bool = False, pack_path: Optional[str] = None):
+    """The train dataset over its backend: the pack file ``pack_path`` where
+    given, else the spec's backend at ``data_root``; ``split_keys`` defaults
+    to every key the backend knows."""
     from alignsdf_torch.data.backends import make_backend
     from alignsdf_torch.data.dataset import SDFDataset
 
-    backend = make_backend(specs, data_root)
+    backend = make_backend(specs, data_root, pack_path)
     keys = split_keys if split_keys is not None else backend.keys()
     if keys is None:
         raise ValueError("split_keys required: the backend lists no keys")

@@ -11,8 +11,11 @@ storage backend, chosen by the spec's ``LMDB`` as the reference chooses:
     JPEGs (decoded by ``img_utils.load_img``, PIL), ``norm/`` and the two
     ``sdf_*/`` directories of npz files and ``meta/`` pickles.
 
-The ASDF-pack (the JAX package's ``PackedBackend``) needs a native reader
-and is not ported yet (ROADMAP.md §1 item 2).
+An explicit pack file takes precedence over both:
+
+  * ``PackedBackend`` - the ASDF-pack, one mmap'd file
+    (``tools/pack_dataset_torch.py``), read by the native reader
+    (``data/packed.py``), which also builds whole batches.
 
 A backend returns raw reference-frame records; augmentation and the
 normalization chain live in the dataset.  ``sample_sdf`` returns rows in the
@@ -29,6 +32,7 @@ import numpy as np
 from alignsdf_torch.data import img_utils as I
 from alignsdf_torch.data import sdf_samples as S
 from alignsdf_torch.data.lmdb_backend import LmdbStore, unpack_sdf_samples_lmdb
+from alignsdf_torch.data.packed import PackReader
 
 
 class NpzBackend:
@@ -90,10 +94,61 @@ class LmdbBackend:
         )
 
 
-def make_backend(specs, data_root: str):
-    """The spec's storage backend at ``data_root``, as the reference selects
-    lmdb per spec (reference utils/data.py:118-129): the five LMDBs for
-    ``LMDB: true``, else the per-file layout."""
+class PackedBackend:
+    """ASDF-pack file with native record decode and sampling (the JAX
+    package's ``PackedBackend``)."""
+
+    def __init__(self, pack_path: str, dataset: str):
+        self.reader = PackReader(pack_path)
+        self.dataset = dataset
+        self._all_keys = [self.reader.key(i) for i in range(len(self.reader))]
+        self._key_to_idx = {k: i for i, k in enumerate(self._all_keys)}
+
+    def keys(self) -> List[str]:
+        return list(self._all_keys)
+
+    def _meta(self, key: str):
+        return self.reader.meta(self._key_to_idx[key])
+
+    def normal_params(self, key: str) -> Tuple[np.ndarray, np.ndarray]:
+        scale, offset, _ = self._meta(key)
+        return np.asarray([scale], np.float32), offset
+
+    def meta_params(self, key: str) -> Dict[str, np.ndarray]:
+        return S.meta_from_block(self._meta(key)[2], self.dataset)
+
+    def image(self, key: str) -> np.ndarray:
+        return self.reader.image(self._key_to_idx[key])
+
+    def sample_sdf(self, key: str, hand: bool, subsample: int,
+                   clamp: Optional[float], filter_dist: bool,
+                   rng: np.random.Generator,
+                   uniforms=None) -> Tuple[np.ndarray, np.ndarray]:
+        # the native sampler draws its own uniforms from a 64-bit seed
+        seed = int(rng.integers(0, 2 ** 63 - 1))
+        return self.reader.sample_sdf(self._key_to_idx[key], hand, subsample, clamp or 0.0,
+                                      filter_dist, seed)
+
+    def build_batch(self, keys: List[str], seeds, specs) -> Optional[Dict[str, np.ndarray]]:
+        """The native whole-batch path (``PackReader.build_batch``), or None
+        where the spec asks for live synthetic occlusion, which only the
+        per-item path draws: the caller then builds the batch item by item,
+        as the JAX package routes it.  Both paths run on the host."""
+        if specs.occlusion_aug and not specs.disable_aug:
+            return None
+        recs = np.asarray([self._key_to_idx[k] for k in keys], np.int64)
+        return self.reader.build_batch(recs, np.asarray(seeds, np.uint64), specs)
+
+
+def make_backend(specs, data_root: Optional[str], pack_path: Optional[str] = None):
+    """The storage backend, with the JAX package's priority: the pack file
+    ``pack_path`` where given, else at ``data_root`` the five LMDBs for
+    ``LMDB: true`` (as the reference selects lmdb per spec, reference
+    utils/data.py:118-129), else the per-file layout."""
+    if pack_path:
+        return PackedBackend(pack_path, specs.dataset)
+    if data_root is None:
+        raise ValueError("a dataset needs data_root or pack_path")
     if specs.lmdb:
         return LmdbBackend(data_root, specs.dataset,
                            hand_branch=specs.hand_branch, obj_branch=specs.obj_branch)

@@ -45,6 +45,15 @@ class SDFDataset:
     def __len__(self) -> int:
         return len(self.keys)
 
+    def build_batch(self, batch_idx, seeds) -> Optional[Dict[str, np.ndarray]]:
+        """The backend's whole-batch native path (``to_train_batch``'s
+        layout, uint8 images) where it has one and the dataset returns raw
+        images; None where not, and the caller builds item by item."""
+        native = getattr(self.backend, "build_batch", None)
+        if native is None or not self.raw_image:
+            return None
+        return native([self.keys[i] for i in batch_idx], seeds, self.specs)
+
     def num_samples_per_branch(self) -> int:
         specs = self.specs
         if specs.hand_branch and specs.obj_branch:
@@ -71,11 +80,11 @@ class SDFDataset:
         img = self.backend.image(key)
 
         if specs.disable_aug:
-            rot, do_flip = 0.0, False
+            rot, do_flip, do_occlusion = 0.0, False, False
         else:
-            # the occlusion draw is made and dropped, as in the reference
-            # (utils/data.py:132,142), so the random sequence matches it
-            _, rot, do_flip, _, _ = I.get_aug_config(
+            # the occlusion draw is always made, as in the reference
+            # (utils/data.py:132), so the random sequence matches it
+            _, rot, do_flip, _, do_occlusion = I.get_aug_config(
                 specs.dataset, enable_flip=False, rng=rng, np_rng=np_rng
             )
         img_scale = 1.0
@@ -101,7 +110,11 @@ class SDFDataset:
         cam_intr[1, 1] /= img_scale
         cam_intr[1, 2] = cam_intr[1, 2] / img.shape[0] * image_size[0]
 
-        patch, _ = I.generate_patch_image(img, crop_box, image_size, do_flip, img_scale, rot)
+        # the reference's train dataset passes False for the occlusion
+        # (utils/data.py:142); OcclusionAug opts in, as in the JAX package
+        patch, _ = I.generate_patch_image(img, crop_box, image_size, do_flip, img_scale, rot,
+                                          do_occlusion and specs.occlusion_aug,
+                                          rng=rng, np_rng=np_rng)
         encoder_input = patch if self.raw_image else I.normalize_image(patch)
 
         joints = (cam_extr @ meta["joints_3d"][:, :3].T).T.astype(np.float32)

@@ -25,6 +25,7 @@ weights) differs from both by up to a few levels.
 
 from __future__ import annotations
 
+import math
 import random
 from typing import List, Optional
 
@@ -193,11 +194,42 @@ def warp_affine_linear(img: np.ndarray, m: np.ndarray, width: int, height: int) 
     return np.ascontiguousarray(np.clip(np.rint(v), 0, 255).astype(np.uint8)[..., :c])
 
 
+def synthetic_occlusion(img: np.ndarray, bbox: List[float],
+                        rng: Optional[random.Random] = None,
+                        np_rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    """A copy of ``img`` with a random box inside ``bbox`` filled with
+    uniform noise (the JAX package's ``data/img_utils.py:88-102``, from
+    reference utils/img_utils.py:133-173): boxes are drawn from ``rng``
+    until one lies inside the image, the noise from ``np_rng``."""
+    rng = rng or random
+    np_rng = np_rng or np.random
+    img = img.copy()
+    img_height, img_width, _ = img.shape
+    while True:
+        area = (rng.random() * 0.7) * bbox[2] * bbox[3]
+        ratio = rng.random() * (1 / 0.3 - 0.3) + 0.3
+        synth_h = math.sqrt(area * ratio)
+        synth_w = math.sqrt(area / ratio)
+        synth_xmin = rng.random() * (bbox[2] - synth_w - 1) + bbox[0]
+        synth_ymin = rng.random() * (bbox[3] - synth_h - 1) + bbox[1]
+        if (synth_xmin >= 0 and synth_ymin >= 0
+                and synth_xmin + synth_w < img_width
+                and synth_ymin + synth_h < img_height):
+            xmin, ymin = int(synth_xmin), int(synth_ymin)
+            w, h = int(synth_w), int(synth_h)
+            img[ymin:ymin + h, xmin:xmin + w, :] = np_rng.rand(h, w, 3) * 255
+            return img
+
+
 def generate_patch_image(img: np.ndarray, bbox: List[float], input_shape,
-                         do_flip: bool, scale: float, rot: float):
-    """Crop/warp the image to the model input patch, with optional horizontal
-    flip (reference utils/img_utils.py:133-173; the reference's train
-    dataset always passes False for its synthetic occlusion)."""
+                         do_flip: bool, scale: float, rot: float, do_occlusion: bool = False,
+                         rng: Optional[random.Random] = None,
+                         np_rng: Optional[np.random.RandomState] = None):
+    """Crop/warp the image to the model input patch, with optional synthetic
+    occlusion (``synthetic_occlusion``, drawn from ``rng`` and ``np_rng``)
+    and horizontal flip (reference utils/img_utils.py:133-173)."""
+    if do_occlusion:
+        img = synthetic_occlusion(img, bbox, rng, np_rng)
     img_width = img.shape[1]
 
     bb_c_x = float(bbox[0] + 0.5 * bbox[2])

@@ -1,26 +1,51 @@
-"""Host-side data loading: a deterministic per-epoch order and a threaded
-prefetch pipeline (the JAX package's ``data/loader.py``, thread workers,
-one process; the reference's torch DataLoader + DistributedSampler +
-PrefetchLoader, utils/loader.py:11-73).
+"""Host-side data loading: a deterministic per-epoch order and an ordered
+prefetch pipeline over worker threads or forked worker processes (the JAX
+package's ``data/loader.py``, one shard; the reference's torch DataLoader
++ DistributedSampler + PrefetchLoader, utils/loader.py:11-73).
 
-``num_workers`` threads run the numpy sample pipeline concurrently, a batch
-each (its large array operations release the GIL), and hand the batches
-over in epoch order.  Every sample's augmentation is seeded by (loader seed, epoch,
-position in the epoch), as in the JAX package, so a run is reproducible for
-any worker count and the two packages draw the same items.  Batches come
-out as numpy; ``training/train_step.py:batch_to_device`` moves them.  The
-JAX package's forked process workers are not ported (ROADMAP.md §1 item 2).
+Each worker builds a whole batch and the batches are handed over in epoch
+order, up to ``num_workers + PREFETCH`` in flight.  Where the dataset has a
+whole-batch native path (``SDFDataset.build_batch`` over an ASDF-pack,
+``data/packed.py``), a batch is one call that releases the GIL; otherwise
+it is built item by item in numpy, which holds the GIL for much of the
+work, so that ``worker_mode="process"`` forks ``num_workers`` children an
+epoch instead of starting threads.  They are forked, as the JAX package's
+and torch's DataLoader's are on Linux, so that they inherit the dataset
+(its mmap'd LMDBs or pack and the loaded native reader) without pickling
+it; they run numpy and the native reader only, never torch, whose CUDA
+state does not survive a fork.  A batch comes back pickled through a
+pipe.  A pack's native batch starts a thread a core in each child, as in
+a thread worker (the JAX package's default), so processes over a pack run
+workers x cores threads (``chip_smoke.py`` phase 18 times it).  The
+parent watches its children: one that dies raises ``LoaderWorkerDied``
+instead of leaving the parent waiting, and an exception raised in a child
+is raised again in the parent.
+
+Every sample's augmentation is seeded by (loader seed, epoch, position in
+the epoch), as in the JAX package, so a run is reproducible for any worker
+count and mode and the two packages draw the same items.  Batches come out
+as numpy; ``training/train_step.py:batch_to_device`` moves them.
 """
 
 from __future__ import annotations
 
+import multiprocessing as mp
+import os
 import queue
 import threading
+import traceback
+from multiprocessing.connection import wait
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
 from alignsdf_torch.data.dataset import collate
+
+WORKER_MODES = ("thread", "process")
+
+
+class LoaderWorkerDied(RuntimeError):
+    """A loader worker process ended before its epoch did."""
 
 
 def epoch_indices(num_items: int, epoch: int, seed: int = 0) -> np.ndarray:
@@ -29,21 +54,53 @@ def epoch_indices(num_items: int, epoch: int, seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed + epoch).permutation(num_items)
 
 
+def _mp_worker(loader: "DataLoader", conn, epoch: int, parent_pid: int) -> None:
+    """A forked worker: builds the batches its pipe names until it reads
+    None (or its parent is gone), and sends each back, or the exception
+    that stopped it."""
+    while True:
+        while not conn.poll(1.0):
+            if os.getppid() != parent_pid:
+                return
+        job = conn.recv()
+        if job is None:
+            return
+        bi, batch_idx = job
+        try:
+            out = loader._build_batch(batch_idx, epoch, bi * loader.batch_size)
+        except Exception as e:  # raised again in the parent
+            tb = traceback.format_exc()
+            try:
+                conn.send((bi, None, (e, tb)))
+            except Exception:  # the exception does not pickle
+                conn.send((bi, None, (RuntimeError(tb), tb)))
+            continue
+        conn.send((bi, out, None))
+
+
 class DataLoader:
-    """Multi-threaded loader of shuffled batches, the last partial batch
-    dropped, with ordered prefetch: up to ``num_workers + PREFETCH``
-    batches in flight.  ``dataset.__getitem__(i, seed=...)`` builds an
-    item; ``to_batch`` maps the collated items to a batch."""
+    """Loader of shuffled batches, the last partial batch dropped, with
+    ordered prefetch.  ``dataset.build_batch(idx, seeds)`` builds a whole
+    batch where the dataset has it and it returns one (it is then already
+    in ``to_batch``'s layout); otherwise ``dataset.__getitem__(i, seed=...)``
+    builds each item and ``to_batch`` maps the collated items to a batch.
+    ``worker_mode`` is "thread" or "process" (forked children, one pool an
+    epoch)."""
 
     PREFETCH = 2
+    POLL_S = 1.0  # the parent's wait on a child's pipe between liveness checks
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4, seed: int = 0,
-                 to_batch: Optional[Callable] = None):
+                 to_batch: Optional[Callable] = None, worker_mode: str = "thread"):
+        if worker_mode not in WORKER_MODES:
+            raise ValueError(f"worker_mode {worker_mode!r}: one of {WORKER_MODES}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.to_batch = to_batch
+        self.worker_mode = worker_mode
+        self.native_batches = callable(getattr(dataset, "build_batch", None))
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -64,16 +121,25 @@ class DataLoader:
         return mix & 0x7FFFFFFF
 
     def _build_batch(self, batch_idx: List[int], epoch: int, base_pos: int):
-        stacked = collate([self.dataset.__getitem__(i, seed=self._sample_seed(epoch, base_pos + j))
-                           for j, i in enumerate(batch_idx)])
+        seeds = [self._sample_seed(epoch, base_pos + j) for j in range(len(batch_idx))]
+        if self.native_batches:
+            out = self.dataset.build_batch(batch_idx, seeds)
+            if out is not None:
+                return out
+        stacked = collate([self.dataset.__getitem__(i, seed=s) for i, s in zip(batch_idx, seeds)])
         return self.to_batch(stacked) if self.to_batch is not None else stacked
 
     def __iter__(self) -> Iterator:
         batches = self._batches()
-        epoch = self._epoch
-        n_batches = len(batches)
-        if n_batches == 0:
+        if not batches:
             return
+        if self.worker_mode == "process":
+            yield from self._iter_processes(batches, self._epoch)
+        else:
+            yield from self._iter_threads(batches, self._epoch)
+
+    def _iter_threads(self, batches: List[List[int]], epoch: int) -> Iterator:
+        n_batches = len(batches)
         task_q: "queue.Queue" = queue.Queue()
         results: Dict[int, object] = {}
         lock = threading.Condition()
@@ -121,3 +187,76 @@ class DataLoader:
                 task_q.put(None)
             for t in threads:
                 t.join(timeout=5)
+
+    def _iter_processes(self, batches: List[List[int]], epoch: int) -> Iterator:
+        """A forked pool for the epoch: batch ``bi`` goes to worker ``bi %
+        num_workers`` through that worker's own pipe, and comes back on it.
+        Each pipe's child end is closed in the parent (and forked into no
+        other child) right after its worker starts, so a worker that dies
+        ends its pipe, and the parent, which waits on the pipes and on the
+        workers' sentinels, raises LoaderWorkerDied."""
+        ctx = mp.get_context("fork")
+        procs, conns, finished = [], [], False
+        try:
+            for _ in range(self.num_workers):
+                parent_end, child_end = ctx.Pipe()
+                p = ctx.Process(target=_mp_worker, args=(self, child_end, epoch, os.getpid()),
+                                daemon=True)
+                p.start()
+                child_end.close()
+                procs.append(p)
+                conns.append(parent_end)
+            yield from self._deliver(batches, procs, conns)
+            finished = True
+        finally:
+            for c in conns:
+                try:
+                    c.send(None)
+                except OSError:  # the worker is gone
+                    pass
+            for p in procs:  # idle after a whole epoch; else perhaps blocked in a send
+                p.join(timeout=5 if finished else 0)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=5)
+            for c in conns:
+                c.close()
+
+    def _deliver(self, batches: List[List[int]], procs, conns) -> Iterator:
+        n_batches, workers = len(batches), len(procs)
+        submitted = 0
+
+        def submit() -> None:
+            nonlocal submitted
+            conns[submitted % workers].send((submitted, batches[submitted]))
+            submitted += 1
+
+        def died(w: int) -> LoaderWorkerDied:
+            p = procs[w]
+            p.join(timeout=self.POLL_S)
+            return LoaderWorkerDied(f"loader worker {w} (pid {p.pid}) ended with exit code "
+                                    f"{p.exitcode} before its batches were built")
+
+        while submitted < min(workers + self.PREFETCH, n_batches):
+            submit()
+        for bi in range(n_batches):
+            w = bi % workers
+            while True:
+                ready = wait([conns[w], procs[w].sentinel], timeout=self.POLL_S)
+                if conns[w] in ready:
+                    break
+                if ready or not procs[w].is_alive():
+                    raise died(w)
+            try:
+                got, out, err = conns[w].recv()
+            except (EOFError, OSError):
+                raise died(w) from None
+            if got != bi:
+                raise RuntimeError(f"loader worker {w} returned batch {got}, not {bi}")
+            if err is not None:
+                exc, tb = err
+                exc.add_note(f"raised in loader worker {w} (pid {procs[w].pid}):\n{tb}")
+                raise exc
+            if submitted < n_batches:
+                submit()
+            yield out

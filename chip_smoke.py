@@ -1,9 +1,10 @@
 """Drive the PyTorch port's reconstruction and training paths (the
 flagship, --pa_feat, --cls and --pa_feat --cls, the generic decoders,
 training from an LMDB dataset with the stem pool through K7, the proof
-of learning scored by the evaluation, and training and testing from the
-reference's per-file layout) on one CUDA GPU and hold each hand-written
-kernel against its plain PyTorch version.
+of learning scored by the evaluation, training and testing from the
+reference's per-file layout, and from an ASDF-pack and forked loader
+workers) on one CUDA GPU and hold each hand-written kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -182,7 +183,31 @@ Phases (each prints its own lines; any failure exits non-zero):
      time for each part of an item (image, meta, norm, SDF sampling) and
      the whole item over every scene (median and 10th / 90th
      percentiles), and the loader's time a batch (an epoch's time over its
-     8 batches) and its wait for the first batch, in each of 3 epochs.
+     8 batches) and its wait for the first batch, in each of 3 epochs;
+ 18. feeding the card from disk: 512 scenes (8 x ScenesPerBatch) and a
+     2-image test split written by write_synthetic_dataset, packed by
+     tools/pack_dataset_torch.py into an ASDF-pack (the native reader
+     built by g++ at first use) and by tools/create_lmdb_torch.py into
+     LMDBs; the host's CPU count; one native batch of 64 scenes with the
+     augmentation off against the item path (images and labels equal, the
+     deterministic fields and the sampled rows, rebuilt from the native batch's
+     branch seeds, within 1e-5), one with it on at 1 thread and at all
+     threads (bit for bit, each timed); a batch's pickled size and its
+     time through a pipe from a forked child; the loader over 3 epochs of
+     8 batches (each epoch's time over its batches, its first batch's
+     wait and the rest's time a batch) from the pack with threads and with processes, from the LMDBs
+     with both, from the files with processes; then cli.train.main for the
+     flagship with the stem pool through K7 for one epoch of 40 batches
+     (the TrainSplit naming each key 5 times: 40 steps) from the pack
+     (--packed), from the LMDBs with thread workers and from the LMDBs with
+     --loader_mode process, each followed by its post-training test at
+     128^3: each step on the host clock from the end of the one before and
+     the loader's wait within it (the epoch's time over its steps, over
+     those past the first and over the last 8, in which the loader runs
+     dry; the median, mean and range of steps 17-28, past the loader's
+     start-up), steps 29-32 under torch.profiler (the idle share), K7's,
+     K2's and K1's launches against the steps and the test's images, finite
+     losses and the test's MANO files.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -285,6 +310,19 @@ FILES_TEST_IMAGES = 4
 FILES_ITEM_TOL = 1e-6  # the LMDB item against the per-file one (tests/test_lmdb.py)
 LOADER_REPEAT = 4  # passes of the keys in an epoch of the timed loader: 8 batches
 LOADER_EPOCHS = 3
+# phase 18: feeding the card from a pack and from forked loader workers
+PACK_SCENES = 8 * TRAIN_SCENES  # an epoch of the timed loader: 8 batches
+PACK_TEST_IMAGES = 2
+PACK_TRAIN_REPEAT = 5  # the TrainSplit names each key 5 times: 40 steps in the CLI's epoch
+# the epoch's steps: the loader's start-up and any backlog its workers built
+# while the first step waited on cuDNN's warm-up (up to workers + PREFETCH =
+# 7 batches), skipped; the steady window on the host clock; then steps under
+# torch.profiler; then the tail, in which the loader has no batch left to
+# submit and its workers fall idle (a thread loader then stops holding the
+# GIL), left out of both
+PACK_STEADY_SKIP, PACK_STEADY_STEPS, PACK_PROFILED = 16, 12, 4
+PACK_ITEM_TOL = 1e-5  # the native batch against the item path (the JAX package's test_native)
+IPC_REPS = 5
 
 
 
@@ -3191,8 +3229,6 @@ def host_read_timing(specs, lmdb_specs, root: str, keys) -> dict:
     import numpy as np
 
     from alignsdf_torch.data import make_train_dataset
-    from alignsdf_torch.data.dataset import to_train_batch
-    from alignsdf_torch.data.loader import DataLoader
 
     timing = {}
     for name, sp in (("files", specs), ("lmdb", lmdb_specs)):
@@ -3211,20 +3247,32 @@ def host_read_timing(specs, lmdb_specs, root: str, keys) -> dict:
             t0 = time.perf_counter()
             ds.__getitem__(i, seed=i)
             ms["item"].append((time.perf_counter() - t0) * 1e3)
-        loader = DataLoader(make_train_dataset(sp, root, list(keys) * LOADER_REPEAT,
-                                               raw_image=True),
-                            batch_size=sp.scenes_per_batch, num_workers=sp.data_loader_threads,
-                            seed=0, to_batch=lambda stacked: to_train_batch(sp, stacked))
-        first, per_batch = [], []
-        for epoch in range(1, LOADER_EPOCHS + 1):
-            loader.set_epoch(epoch)
-            t0 = time.perf_counter()
-            ends = [time.perf_counter() for _ in loader]
-            first.append((ends[0] - t0) * 1e3)
-            per_batch.append((ends[-1] - t0) / len(ends) * 1e3)
         timing[name] = {**{f"{part}_ms": spread(v) for part, v in ms.items()},
-                        "batch_first_ms": first, "batch_ms": per_batch}
+                        **loader_epochs(make_train_dataset(sp, root, list(keys) * LOADER_REPEAT,
+                                                           raw_image=True), sp, "thread")}
     return timing
+
+
+def loader_epochs(dataset, specs, mode: str) -> dict:
+    """The loader (DataLoaderThreads workers of ``mode``) over LOADER_EPOCHS
+    epochs of the dataset: each epoch's time over its batches, its wait
+    for the first batch, and its time from the first batch to the last over
+    the batches after the first, in ms."""
+    from alignsdf_torch.data.dataset import to_train_batch
+    from alignsdf_torch.data.loader import DataLoader
+
+    loader = DataLoader(dataset, batch_size=specs.scenes_per_batch,
+                        num_workers=specs.data_loader_threads, seed=0,
+                        to_batch=lambda stacked: to_train_batch(specs, stacked), worker_mode=mode)
+    first, per_batch, rest = [], [], []
+    for epoch in range(1, LOADER_EPOCHS + 1):
+        loader.set_epoch(epoch)
+        t0 = time.perf_counter()
+        ends = [time.perf_counter() for _ in loader]
+        first.append((ends[0] - t0) * 1e3)
+        per_batch.append((ends[-1] - t0) / len(ends) * 1e3)
+        rest.append((ends[-1] - ends[0]) / (len(ends) - 1) * 1e3)
+    return {"batch_first_ms": first, "batch_ms": per_batch, "batch_rest_ms": rest}
 
 
 def files_phase(dev, card: str):
@@ -3371,6 +3419,363 @@ def files_phase(dev, card: str):
     rec["k1_launches"] = launches["k1"]
     rec["k2_launches"] = launches["k2"]
     rec["k7_launches"] = launches["k7"]
+    return rec
+
+
+def _send_batches(conn, batch, reps: int) -> None:
+    """A forked child's part of the pipe timing: send ``batch`` reps times."""
+    for _ in range(reps):
+        conn.send(batch)
+    conn.close()
+
+
+def pipe_timing(batch) -> dict:
+    """What a batch costs to cross from a forked worker to the parent, as
+    the process loader moves it: its pickled size, the parent's wait for
+    each of IPC_REPS sends (the child pickles and writes, the parent reads
+    and unpickles), and pickling and unpickling alone in the parent."""
+    import multiprocessing as mp
+    import pickle
+
+    t0 = time.perf_counter()
+    blob = pickle.dumps(batch, protocol=pickle.HIGHEST_PROTOCOL)
+    dumps_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pickle.loads(blob)
+    loads_ms = (time.perf_counter() - t0) * 1e3
+    ctx = mp.get_context("fork")
+    recv_end, send_end = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=_send_batches, args=(send_end, batch, IPC_REPS), daemon=True)
+    child.start()
+    send_end.close()
+    recv_ms = []
+    try:
+        for _ in range(IPC_REPS):
+            t0 = time.perf_counter()
+            recv_end.recv()
+            recv_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        child.join(timeout=60)
+        if child.is_alive():
+            child.terminate()
+        recv_end.close()
+    return {"mb": len(blob) / 1e6, "recv_ms": recv_ms, "dumps_ms": dumps_ms,
+            "loads_ms": loads_ms}
+
+
+class _WaitClock:
+    """A train loader whose every batch's wait (the parent's ``next`` on
+    the loader) is clocked into ``waits``."""
+
+    def __init__(self, loader, waits: list):
+        self.loader, self.waits = loader, waits
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        batches = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(batches)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            yield batch
+
+
+class StepClock:
+    """The train CLI's step, wrapped through ``cli.train.make_trainer``: each
+    step clocked on the host from the end of the step before (synchronized),
+    so the loader's wait and the batch's copy to the card are in it, and
+    ``profiled`` steps from step index ``profile_at`` under torch.profiler;
+    through ``cli.train.make_loader``, the loader's wait for each batch
+    alone."""
+
+    def __init__(self, profile_at: int, profiled: int):
+        self.profile_at, self.profiled = profile_at, profiled
+        self.step_s, self.wait_s, self.prof, self.prof_wall = [], [], None, None
+
+    def wrap_loader(self, make_loader):
+        def make(*args, **kwargs):
+            return _WaitClock(make_loader(*args, **kwargs), self.wait_s)
+
+        return make
+
+    def wrap(self, make_trainer):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def make(*args, **kwargs):
+            state, step = make_trainer(*args, **kwargs)
+            self.t_last = time.perf_counter()
+
+            def timed(st, batch, seed, **kw):
+                i = len(self.step_s)
+                if i == self.profile_at:
+                    self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    self.prof.__enter__()
+                    self.t_prof = self.t_last
+                out = step(st, batch, seed, **kw)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                self.step_s.append(t - self.t_last)
+                self.t_last = t
+                if i == self.profile_at + self.profiled - 1:
+                    self.prof.__exit__(None, None, None)
+                    self.prof_wall = t - self.t_prof
+                    self.t_last = time.perf_counter()  # the profiler's teardown is no step's
+                return out
+
+            timed.decode = step.decode
+            return state, timed
+
+        return make
+
+
+def packed_phase(dev, card: str):
+    """Phase 18, feeding the card from disk (see the module docstring): a
+    pack of the per-file layout read natively, the loader by route, and
+    cli.train from the pack and from LMDBs under forked workers."""
+    import numpy as np
+    import torch
+
+    from alignsdf_torch.cli import train as train_cli
+    from alignsdf_torch.data import make_train_dataset
+    from alignsdf_torch.data.synthetic import write_synthetic_dataset
+    from alignsdf_torch.kernels import maxpool as k7
+    from alignsdf_torch.kernels.grid_decoder import grid_decode
+    from alignsdf_torch.models import resnet
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import create_lmdb_torch
+    import pack_dataset_torch
+
+    rec = {"card": card, "cpus": os.cpu_count(), "cpus_usable": len(os.sched_getaffinity(0))}
+    keys = [f"{i:08d}" for i in range(PACK_SCENES)]
+    flags = ["--mano", "--obj_pose", "--encode", "both", "--point_size", "9", "--device", dev.type]
+    k2 = k2_kernel()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase(f"pack: {PACK_SCENES} scenes written as JPEG, npz and pkl files, packed by "
+              "tools/pack_dataset_torch.py and by tools/create_lmdb_torch.py")
+        t0 = time.perf_counter()
+        train = write_synthetic_dataset(tmp, keys, image_hw=256)
+        test = write_synthetic_dataset(tmp, keys[:PACK_TEST_IMAGES], image_hw=256, seed=1,
+                                       split="test")
+        rec["write_s"] = time.perf_counter() - t0
+        pack = os.path.join(tmp, "train.pack")
+        t0 = time.perf_counter()
+        pack_dataset_torch.pack(train, pack, keys, "obman")
+        rec["pack_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        create_lmdb_torch.create_lmdbs(train, "obman", "train", keys)
+        rec["lmdb_s"] = time.perf_counter() - t0
+        with open(os.path.join(REPO, "experiments", "obman_30k.json")) as f:
+            raw = json.load(f)
+        specs = flagship_specs(raw=dict(raw, LMDB=False, ScenesPerBatch=TRAIN_SCENES))
+        t0 = time.perf_counter()
+        ds = make_train_dataset(specs, None, raw_image=True, pack_path=pack)
+        reader = ds.backend.reader
+        rec["open_s"] = time.perf_counter() - t0  # the reader's g++ build at first use
+        print(f"[{card}] host CPUs {rec['cpus']} ({rec['cpus_usable']} usable); wrote "
+              f"{PACK_SCENES} + {PACK_TEST_IMAGES} scenes in {rec['write_s']:.2f} s, packed in "
+              f"{rec['pack_s']:.2f} s ({os.path.getsize(pack) / 1e6:.1f} MB), the LMDBs in "
+              f"{rec['lmdb_s']:.2f} s; the native reader built and the pack opened in "
+              f"{rec['open_s']:.2f} s", flush=True)
+
+        phase(f"pack: the native batch of {TRAIN_SCENES} scenes against the item path "
+              "(augmentation off), and at 1 thread against all threads (augmentation on)")
+        noaug = make_train_dataset(dataclasses.replace(specs, disable_aug=True), None,
+                                   raw_image=True, pack_path=pack)
+        idx = list(range(TRAIN_SCENES))
+        seeds = [1000 + i for i in idx]
+        batch = noaug.build_batch(idx, seeds)
+        per, n = noaug.num_samples_per_branch(), specs.samples_per_scene
+        k = specs.sdf_scale_factor
+        err, mismatched = 0.0, 0
+        for b in idx:
+            item = noaug.__getitem__(b, seed=0)
+            raw_img = noaug.backend.image(noaug.keys[b])
+            mismatched += int((batch["image"][b] != raw_img).sum()
+                              + (item["image"] != raw_img).sum())
+            for field in ("hand_joints_3d", "cam_intr", "mano_root", "rest_obj_corners",
+                          "obj_center", "obj_corners"):
+                err = max(err, float(np.abs(batch[field][b] - item[field]).max()))
+            scale_arr, offset = noaug.backend.normal_params(noaug.keys[b])
+            rec_i = noaug.backend._key_to_idx[noaug.keys[b]]
+            for hand, tag, row0 in ((True, 0x68616E64, 0), (False, 0x6F626A00, per)):
+                raw_s, raw_l = reader.sample_sdf(rec_i, hand, per, specs.clamping_distance, True,
+                                                 seeds[b] ^ tag)
+                rows = slice(b * n + row0, b * n + row0 + per)
+                want = ((raw_s[:, :3] / scale_arr[0] - offset) - item["mano_root"]) * k / 2
+                err = max(err, float(np.abs(batch["xyz"][rows] - want).max()),
+                          float(np.abs(batch["sdf_gt_hand"][rows, 0]
+                                       - raw_s[:, 3] / scale_arr[0] * k / 2).max()),
+                          float(np.abs(batch["sdf_gt_obj"][rows, 0]
+                                       - raw_s[:, 4] / scale_arr[0] * k / 2).max()))
+                mismatched += int((batch["labels"][rows] != raw_l.astype(np.int32)).sum())
+        rec["item_max_abs_err"] = err
+        ms = {}
+        for threads in (1, 0):
+            t0 = time.perf_counter()
+            out = reader.build_batch(idx, seeds, specs, num_threads=threads)
+            ms[threads or "all"] = (time.perf_counter() - t0) * 1e3
+            if threads:
+                one = out
+        same = all(np.array_equal(one[f], out[f]) for f in one)
+        rotated = int((~out["image"][:, :4, :4].reshape(TRAIN_SCENES, -1).any(axis=1)).sum())
+        rec["build_batch_ms"] = ms
+        print(f"[{card}] the native batch against the item path over {TRAIN_SCENES} scenes: "
+              f"images and labels differing in {mismatched} entries, the other fields and the "
+              f"sampled rows max abs err {err:.3e} (tolerance {PACK_ITEM_TOL:g}); with "
+              f"augmentation ({rotated} of {TRAIN_SCENES} scenes rotated) one thread "
+              f"{ms[1]:.1f} ms, all threads {ms['all']:.1f} ms, bit for bit "
+              f"{'equal' if same else 'DIFFERENT'}", flush=True)
+        if mismatched or not err <= PACK_ITEM_TOL:
+            fail(f"the native batch disagrees with the item path: {mismatched} entries, {err}")
+        if not same or not rotated:
+            fail(f"the native batch: threads equal {same}, {rotated} scenes rotated")
+        rec["ipc"] = pipe_timing(out)
+        ipc = rec["ipc"]
+        print(f"[{card}] a batch through a pipe from a forked child: {ipc['mb']:.1f} MB "
+              f"pickled; the parent's wait a batch {fmt_spread(spread(ipc['recv_ms']))} ms over "
+              f"{IPC_REPS} sends; pickling {ipc['dumps_ms']:.1f} ms and unpickling "
+              f"{ipc['loads_ms']:.1f} ms in the parent", flush=True)
+
+        phase(f"pack: the loader by route over {LOADER_EPOCHS} epochs of "
+              f"{PACK_SCENES // TRAIN_SCENES} batches of {TRAIN_SCENES}")
+        lmdb_specs = dataclasses.replace(specs, lmdb=True)
+        routes = (("pack, threads", ds, specs, "thread"),
+                  ("pack, processes", ds, specs, "process"),
+                  ("LMDBs, threads", make_train_dataset(lmdb_specs, train, keys, raw_image=True),
+                   lmdb_specs, "thread"),
+                  ("LMDBs, processes", None, lmdb_specs, "process"),
+                  ("files, processes", make_train_dataset(specs, train, keys, raw_image=True),
+                   specs, "process"))
+        rec["loader"] = {}
+        for name, dataset, sp, mode in routes:
+            if dataset is None:
+                dataset = routes[2][1]
+            t = rec["loader"][name] = loader_epochs(dataset, sp, mode)
+            print(f"[{card}] loader from the {name} ({sp.data_loader_threads} workers): an "
+                  "epoch's time over its batches "
+                  + ", ".join(f"{v:.1f}" for v in t["batch_ms"]) + " ms, the first batch after "
+                  + ", ".join(f"{v:.1f}" for v in t["batch_first_ms"]) + " ms, the rest "
+                  + ", ".join(f"{v:.1f}" for v in t["batch_rest_ms"]) + " ms a batch", flush=True)
+
+        # the flagship JSON with a TrainSplit naming each key twice, Resume
+        # naming a healthy init (the init guard's draw, made before K7 is
+        # switched on) so that K7's launches are the steps' alone
+        state0, _ = train_cli.make_trainer(flagship_specs(), dev, seed=SEED, init_guard=True)
+        resume = os.path.join(tmp, "init.pth")
+        torch.save({"epoch": 0, "model_state_dict": state0.model.state_dict()}, resume)
+        del state0
+        split, test_split = os.path.join(tmp, "train.json"), os.path.join(tmp, "test.json")
+        with open(split, "w") as f:
+            json.dump({"train": keys * PACK_TRAIN_REPEAT}, f)
+        with open(test_split, "w") as f:
+            json.dump({"filenames": [f"{key}.jpg" for key in keys[:PACK_TEST_IMAGES]]}, f)
+        raw.update(TrainSplit=split, LMDB=True, NumEpochs=1, LogFrequency=1, LogFrequencyStep=1,
+                   Resume=resume, ScenesPerBatch=TRAIN_SCENES)
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(raw, f)
+        steps = PACK_SCENES * PACK_TRAIN_REPEAT // TRAIN_SCENES
+        want_k1 = PACK_TEST_IMAGES * 2 * -(-CUBE_DIM ** 3 // (1 << 20))
+        want = {"k7": {"fwd": steps + PACK_TEST_IMAGES, "bwd": steps},
+                "k2": {"fwd": k2.per_step * steps, "bwd": k2.per_step * steps}, "k1": want_k1}
+        rec["train"] = {}
+        real_make_trainer, real_make_loader = train_cli.make_trainer, train_cli.make_loader
+        for name, source, text in (
+                ("pack", ["--packed", pack], "--packed"),
+                ("LMDBs, threads", ["--data_root", train], "--data_root (the LMDBs), threads"),
+                ("LMDBs, processes", ["--data_root", train, "--loader_mode", "process"],
+                 "--data_root (the LMDBs) --loader_mode process")):
+            phase(f"training from the {name}: cli.train {text} for one epoch of {steps} batches "
+                  f"with the stem pool through K7, then its post-training test of "
+                  f"{PACK_TEST_IMAGES} images at {CUBE_DIM}^3")
+            clock = StepClock(PACK_STEADY_SKIP + PACK_STEADY_STEPS, PACK_PROFILED)
+            out = os.path.join(tmp, f"out_{len(rec['train'])}")
+            k7.maxpool_forward.launches = k7.maxpool_backward.launches = 0
+            k2.fwd.launches = k2.bwd.launches = 0
+            grid_decode.launches = 0
+            train_cli.make_trainer = clock.wrap(real_make_trainer)
+            train_cli.make_loader = clock.wrap_loader(real_make_loader)
+            resnet.KERNEL_POOL = True
+            try:
+                t0 = time.perf_counter()
+                train_cli.main(["-e", spec_path, *flags, *source, "--output_root", out,
+                                "--test_split", test_split, "--test_data_root", test,
+                                "--test_cube_dim", str(CUBE_DIM)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                resnet.KERNEL_POOL = False
+                train_cli.make_trainer, train_cli.make_loader = real_make_trainer, real_make_loader
+            launches = {"k7": {"fwd": k7.maxpool_forward.launches,
+                               "bwd": k7.maxpool_backward.launches},
+                        "k2": {"fwd": k2.fwd.launches, "bwd": k2.bwd.launches},
+                        "k1": grid_decode.launches}
+            exp = os.path.join(out, flagship_specs(raw=raw).experiment_name())
+            with open(os.path.join(exp, "metrics.jsonl")) as f:
+                logged = [ln for ln in map(json.loads, f) if "step" in ln]
+            pred = sorted(os.listdir(os.path.join(exp, "Eval_obman", "pred_mano")))
+            if len(logged) != steps or len(clock.step_s) != steps or len(clock.wait_s) != steps:
+                fail(f"training from the {name}: {len(logged)} steps logged, "
+                     f"{len(clock.step_s)} clocked, {len(clock.wait_s)} batches waited on, "
+                     f"not {steps}")
+            window = slice(PACK_STEADY_SKIP, PACK_STEADY_SKIP + PACK_STEADY_STEPS)
+            tail = PACK_STEADY_SKIP + PACK_STEADY_STEPS + PACK_PROFILED
+            steady = np.array(clock.step_s[window]) * 1e3
+            waits = np.array(clock.wait_s[window]) * 1e3
+            r = rec["train"][name] = {
+                "wall_s": wall, "launches": launches, "totals": [s["total"] for s in logged],
+                "step_ms": [v * 1e3 for v in clock.step_s],
+                "wait_ms": [v * 1e3 for v in clock.wait_s],
+                "epoch_ms_per_step": sum(clock.step_s) * 1e3 / steps,
+                "after_first_ms_per_step": sum(clock.step_s[1:]) * 1e3 / (steps - 1),
+                "tail_ms_per_step": sum(clock.step_s[tail:]) * 1e3 / (steps - tail),
+                "steady_steps": [window.start + 1, window.stop],
+                "step_ms_median": float(np.median(steady)), "step_ms_mean": float(steady.mean()),
+                "step_ms_min_max": [float(steady.min()), float(steady.max())],
+                "wait_ms_median": float(np.median(waits)), "wait_ms_mean": float(waits.mean())}
+            summary = (profile_summary(clock.prof, clock.prof_wall)
+                       if clock.prof_wall is not None else None)
+            if summary is not None:
+                busy, share, _ = summary
+                r["profile"] = {"step_wall_ms": clock.prof_wall * 1e3 / PACK_PROFILED,
+                                "device_busy_ms": busy / PACK_PROFILED, "idle_share": 1 - share}
+            print(f"[{card}] cli.train from the {name}: {wall:.2f} s for {len(logged)} steps "
+                  f"and the test; the epoch's time over its steps {r['epoch_ms_per_step']:.2f} ms "
+                  f"(the first {clock.step_s[0] * 1e3:.1f} ms, the rest "
+                  f"{r['after_first_ms_per_step']:.2f} a step, the last {steps - tail} "
+                  f"{r['tail_ms_per_step']:.2f}); steps {window.start + 1}-"
+                  f"{window.stop} median {r['step_ms_median']:.2f} ms, mean "
+                  f"{r['step_ms_mean']:.2f} ({r['step_ms_min_max'][0]:.2f}-"
+                  f"{r['step_ms_min_max'][1]:.2f}) on the host clock, of which the loader's wait "
+                  f"median {r['wait_ms_median']:.2f} ms, mean {r['wait_ms_mean']:.2f}; "
+                  + (f"steps {tail - PACK_PROFILED + 1}-{tail} profiled: "
+                     f"{r['profile']['step_wall_ms']:.2f} ms "
+                     f"a step, device busy {r['profile']['device_busy_ms']:.2f} ms, idle share "
+                     f"{r['profile']['idle_share']:.3f}" if summary is not None else
+                     "profile: not measured (no device events)")
+                  + f"; launches {launches} (expected {want}); total loss "
+                  + ", ".join(f"{s['total']:.5f}" for s in logged), flush=True)
+            if not all(np.isfinite(v) for s in logged for v in s.values()):
+                fail(f"training from the {name}: a non-finite loss")
+            if launches != want:
+                fail(f"training from the {name}: launches {launches} != {want}")
+            want_pred = sorted(f"{key}.{ext}" for key in keys[:PACK_TEST_IMAGES]
+                               for ext in ("json", "ply"))
+            if pred != want_pred:
+                fail(f"training from the {name}: test outputs {pred} != {want_pred}")
+    for kernel in ("k1", "k2", "k7"):
+        rec[f"{kernel}_launches"] = {name: r["launches"][kernel]
+                                     for name, r in rec["train"].items()}
     return rec
 
 
@@ -3578,6 +3983,8 @@ def main(record_path: Optional[str] = None) -> None:
     geo = record["geometric"]
     record["files"] = files_phase(dev, card)
     files = record["files"]
+    record["pack"] = packed_phase(dev, card)
+    pack = record["pack"]
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
@@ -3597,10 +4004,12 @@ def main(record_path: Optional[str] = None) -> None:
         "trunk": TC_TRUNK_SOURCE,
         "replaces": "alignsdf_tpu/ops/decoder_kernel.py:496",
         "covers": "alignsdf_tpu/ops/decoder_kernel.py:381 (K1p, points-major, > 6 classes)",
-        "launches": launches + cls["grid_launches"] + geo["k1_launches"] + files["k1_launches"],
+        "launches": (launches + cls["grid_launches"] + geo["k1_launches"] + files["k1_launches"]
+                     + sum(pack["k1_launches"].values())),
         "launches_by_path": {"flagship": launches, "classifier": cls["grid_launches"],
                              "geometric": geo["k1_launches"],
-                             "per_file_test": files["k1_launches"]},
+                             "per_file_test": files["k1_launches"],
+                             **{f"{route} test": v for route, v in pack["k1_launches"].items()}},
         "max_abs_err": max(max_err, cls["grid_max_abs_err"], geo["k1_256_max_abs_err"]),
         "ms": t["k1_ms"],
         "plain_ms": t["plain_ms"],
@@ -3624,12 +4033,15 @@ def main(record_path: Optional[str] = None) -> None:
             "replaces": f"alignsdf_tpu/ops/decoder_train_kernel.py:{line}",
             "launches": (k2_launches[name] + cls["train_launches"][name]
                          + record["dataset"]["k2_launches"][name] + geo["k2_launches"][name]
-                         + files["k2_launches"][name]),
+                         + files["k2_launches"][name]
+                         + sum(v[name] for v in pack["k2_launches"].values())),
             "launches_by_path": {"flagship": k2_launches[name],
                                  "classifier": cls["train_launches"][name],
                                  "dataset_training": record["dataset"]["k2_launches"][name],
                                  "geometric": geo["k2_launches"][name],
-                                 "per_file_training": files["k2_launches"][name]},
+                                 "per_file_training": files["k2_launches"][name],
+                                 **{f"{route} training": v[name]
+                                    for route, v in pack["k2_launches"].items()}},
             "max_abs_err": max(err, cerr, geo["k2_check"][geo_key]),
             "ms": t2["ms"],
             "plain_ms": t2["plain_ms"],
@@ -3667,7 +4079,8 @@ def main(record_path: Optional[str] = None) -> None:
         t = record["k7"]["train"]["timing"][name]
         st = record["k7"]["serving"]["timing"][name]
         by_path = {"dataset_training": record["dataset"]["launches"][name],
-                   "per_file_training": files["k7_launches"][name]}
+                   "per_file_training": files["k7_launches"][name],
+                   **{f"{route} training": v[name] for route, v in pack["k7_launches"].items()}}
         if name == "fwd":
             by_path["serving"] = record["k7_serving"]["launches"]
         err_key = "fwd_max_abs_err" if name == "fwd" else "grad_max_abs_err"

@@ -204,13 +204,11 @@ def test_loader_first_batch_of_epoch_2_matches_jax(lmdb_root):
 
 
 @pytest.mark.parametrize("value", [False, True])
-def test_occlusion_aug_refused_when_on(value):
-    """The JAX package's opt-in synthetic occlusion is not ported: the spec
-    key is accepted off (the reference's behaviour) and refused on."""
+def test_occlusion_aug_spec_key(value):
+    """The JAX package's opt-in synthetic occlusion: the spec key off gives
+    the default spec (the reference's behaviour), on sets occlusion_aug."""
     from alignsdf_torch.config import specs_from_dict
 
-    if value:
-        with pytest.raises(NotImplementedError, match="OcclusionAug"):
-            specs_from_dict({"OcclusionAug": value})
-    else:
-        assert specs_from_dict({"OcclusionAug": value}) == Specs()
+    specs = specs_from_dict({"OcclusionAug": value})
+    assert specs.occlusion_aug is value
+    assert (specs == Specs()) is not value

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of ``alignsdf_torch`` (nor
-``chip_smoke.py``, nor the port's LMDB packer ``tools/create_lmdb_torch.py``)
+``chip_smoke.py``, nor the port's packers ``tools/create_lmdb_torch.py`` and
+``tools/pack_dataset_torch.py``)
 imports JAX, flax, orbax, cv2 or the JAX package, and its entry points refuse
 to fall back to the CPU on their own."""
 
@@ -32,7 +33,7 @@ def test_every_module_imports_with_jax_blocked():
                  "data.lmdb_format", "data.lmdb_backend", "data.img_utils", "data.backends",
                  "data.dataset", "data.loader", "utils.metrics", "kernels.weight_grad",
                  "eval.chamfer", "eval.icp", "eval.evaluate", "cli.evaluate", "cli.reconstruct",
-                 "cli.train", "data.synthetic"):
+                 "cli.train", "data.synthetic", "data.packed", "native"):
         assert f"alignsdf_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -43,6 +44,7 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(m)\n"
         "sys.path.insert(0, 'tools')\n"
         "import create_lmdb_torch\n"
+        "import pack_dataset_torch\n"
         "print('imported', len(sys.modules))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -60,6 +62,7 @@ def _python_sources():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "create_lmdb_torch.py")
+    yield os.path.join(REPO, "tools", "pack_dataset_torch.py")
 
 
 def test_no_source_names_a_blocked_module():

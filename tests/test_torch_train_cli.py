@@ -141,9 +141,9 @@ def _spy_loader(monkeypatch):
     seen = {}
     real = train_cli.make_loader
 
-    def spy(specs, data_root):
+    def spy(specs, *args, **kwargs):
         seen["specs"] = specs
-        seen["loader"] = real(specs, data_root)
+        seen["loader"] = real(specs, *args, **kwargs)
         return seen["loader"]
 
     monkeypatch.setattr(train_cli, "make_loader", spy)
