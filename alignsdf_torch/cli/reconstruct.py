@@ -6,7 +6,7 @@ Usage:
         [-s split.json [--data_root DIR] | --samples samples.npz] \\
         [--checkpoint latest | --weights model.pth] \\
         [--start_point A --end_point B] [--cube_dim 128] [--device cuda] \\
-        [--ref_pixel_projection] [--label [--viz]] [--pallas] [--eval_mode]
+        [--ref_pixel_projection] [--label [--viz]] [--pallas] [--eval_mode] [--bf16]
 
 Weights are a reference-schema torch checkpoint,
 ``<experiment_dir>/ModelParameters/<checkpoint>.pth`` ({"epoch",
@@ -31,6 +31,9 @@ mesh colored by part (``meshes/<key>_hand_color.ply``).  With
 ``--eval_mode`` each mesh is aligned to its GT mesh
 (``<DataSource>/<task>/test/mesh_hand`` or ``mesh_obj/<key>.obj``, where it
 exists) by trans+scale ICP on the host before its PLY is written.  Each
+``--bf16`` runs the grid's kernels (K1, K3, or K6 with ``--pallas``) in
+bf16, as the JAX CLI's ``--bf16`` does; the encoder and the plain decoder
+follow the experiment's ``ComputeDtype`` instead, float32 or bfloat16.  Each
 image's log line gives its timings in ms: encode and grid (device), marching
 cubes, largest component, ICP, export and all the host work together (host).  ``cli/evaluate.py`` scores
 the workspace.
@@ -121,6 +124,9 @@ def main(argv=None):
     parser.add_argument("--eval_mode", action="store_true",
                         help="align each mesh to its GT mesh by trans+scale ICP before "
                              "the export (reference utils/mesh.py:383-398)")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bf16 grid fast path (the grid kernels in bf16; "
+                             "field deviation vs f32 documented in PERF.md)")
     args = parser.parse_args(argv)
     if args.samples is not None and args.data_root is not None:
         parser.error("--data_root: the images come from --samples")
@@ -145,15 +151,20 @@ def main(argv=None):
                                            specs, args.task, args.data_root,
                                            args.start_point, args.end_point)
     out_dirs = make_output_dirs(os.path.join(args.experiment_dir, f"Eval_{args.task}"))
+    grid_dtype = torch.bfloat16 if args.bf16 else torch.float32
     recon = Reconstructor(model, specs, cube_dim=args.cube_dim, device=device,
                           mano_faces=load_mano_faces(),
                           pixel_ref_projection=args.ref_pixel_projection,
-                          decode_fn=make_generic_decode_fn(specs) if args.pallas else None)
+                          decode_fn=(make_generic_decode_fn(specs, dtype=grid_dtype)
+                                     if args.pallas else None),
+                          grid_dtype=grid_dtype)
     if recon.fused:
         logger.info("grid: the fused path (kernel %s)", "K3" if specs.pixel_align else "K1")
     else:
         logger.info("grid: the generic path on materialized rows, through %s",
                     "kernel K6 (--pallas)" if args.pallas else "the plain decoder")
+    logger.info("compute dtypes: the grid's kernels %s, the model %s",
+                "bf16" if args.bf16 else "float32", specs.compute_dtype)
 
     t0 = time.time()
     per_image = []

@@ -76,6 +76,7 @@ from alignsdf_torch.training import checkpoints as ckpt
 from alignsdf_torch.training.train_state import TrainState, learning_rate_for_epoch
 from alignsdf_torch.training.train_step import (
     batch_to_device,
+    check_trainable,
     draw_seed,
     healthy_init_train_state,
     init_train_state,
@@ -101,6 +102,7 @@ def make_trainer(specs: cfg.Specs, device, seed: int = 0,
     is the spec's train step: through K4 for a pixel-aligned spec
     (``--pa_feat``), else K2, else K5 (``train_step.make_spec_train_decoder``;
     ``step.decode`` is the decoder)."""
+    step = make_train_step(specs)
     if init_guard and specs.clamping_distance:
         state, tries = healthy_init_train_state(specs, device, seed)
         if tries > 1:
@@ -109,7 +111,7 @@ def make_trainer(specs: cfg.Specs, device, seed: int = 0,
                            tries - 1, specs.clamping_distance)
     else:
         state = init_train_state(specs, device, seed)
-    return state, make_train_step(specs)
+    return state, step
 
 
 def make_loader(specs: cfg.Specs, data_root: Optional[str], pack_path: Optional[str] = None,
@@ -195,6 +197,7 @@ def main(argv: Optional[list] = None) -> None:
     device = resolve_device(args.device)
     use_float32_precision()
     specs = cfg.apply_overrides(cfg.load_specs(args.cfg), args)
+    check_trainable(specs)
     seed = specs.random_seed or 0
     experiment_dir = os.path.join(args.output_root, specs.experiment_name())
     if args.data_root is not None or args.packed is not None:

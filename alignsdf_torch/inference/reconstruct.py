@@ -103,23 +103,31 @@ class Reconstructor:
     path (K1 or K3) still wins where the config allows it, and ``fused``
     says whether it does.  ``pixel_ref_projection``: for pixel-aligned
     configs, project the embedding's first three columns as the reference's
-    mesh path does, instead of the raw grid coordinates (inference/grid.py)."""
+    mesh path does, instead of the raw grid coordinates (inference/grid.py).
+    ``grid_dtype``: the fused kernels' compute dtype (JAX's ``grid_dtype``,
+    ``--bf16``: torch.bfloat16; default float32), apart from the model's own
+    (``ComputeDtype``), which the encoder, the plain decoder and the label
+    re-query follow; a K6 ``decode_fn`` carries its own."""
 
     def __init__(self, model, specs: Specs, cube_dim: int = 128,
                  device: Optional[Union[str, torch.device]] = None,
                  mano_faces: Optional[np.ndarray] = None,
                  pixel_ref_projection: bool = False,
-                 decode_fn: Optional[Callable] = None):
+                 decode_fn: Optional[Callable] = None,
+                 grid_dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.specs = specs
         self.cube_dim = cube_dim
         self.mano_faces = mano_faces
         self.pixel_ref_projection = pixel_ref_projection
+        self.grid_dtype = grid_dtype or torch.float32
         grid_decode_fn = None
         if fused_grid_allowed(specs):
-            grid_decode_fn = (make_pixel_grid_decode_fn(specs, cube_dim, pixel_ref_projection)
-                              if specs.pixel_align else make_grid_decode_fn(specs, cube_dim))
+            grid_decode_fn = (make_pixel_grid_decode_fn(specs, cube_dim, pixel_ref_projection,
+                                                        self.grid_dtype)
+                              if specs.pixel_align
+                              else make_grid_decode_fn(specs, cube_dim, self.grid_dtype))
         if decode_fn is None:
             def decode_fn(ctx, rows):
                 return ctx["decoder"](rows)
@@ -283,8 +291,8 @@ class Reconstructor:
         broadcast or, for a pixel-aligned config, the feature map sampled at
         each vertex's projection (the raw vertex, or the embedding's first
         three columns under ``pixel_ref_projection``), then the plain decoder
-        (``decode_points``), as the JAX package's ``_query_labels`` decodes
-        in XLA."""
+        (``decode_points``) in the model's compute dtype, as the JAX
+        package's ``_query_labels`` decodes in XLA."""
         specs = self.specs
         pts = torch.as_tensor(np.asarray(verts, np.float32), device=ctx["latent"].device)
         emb = embed_points(specs, ctx, pts)

@@ -38,19 +38,32 @@
 // twin trunks' column slices of the row, or the combined trunk's row), at
 // its own width and row stride; the plan pads the input-row weights to
 // lat_pad (a multiple of 8) and the fill writes zeros past a trunk's width.
+//
+// bf16 (a plan packed with dtype bfloat16; decoder_kernel.py:59-137, :196-199
+// with dtype=bfloat16): the rows enter as bf16 (the wrapper casts them, as
+// JAX's run does), the trunk runs its bf16 k step (TcBf16), lat_pad is a
+// multiple of 16, and the final rows' weights hold bf16-rounded values.
+// 6.60 TFLOP a 128^3 pass at 989.4 TFLOP/s dense bf16: 6.67 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "grid_trunk_tc.cuh"
 
-struct X0Rows { const float* x; long long ld; int in; };  // row-major, row stride ld
+// row-major, row stride ld; float, or __nv_bfloat16 for a bf16 plan
+struct X0Rows { const void* x; long long ld; int in; };
+
+__device__ __forceinline__ float x0_value(const float* src, long long i) { return __ldg(src + i); }
+__device__ __forceinline__ float x0_value(const __nv_bfloat16* src, long long i) {
+  return __bfloat162float(src[i]);
+}
 
 // Trunk t's x0 columns c0 .. c0 + count - 1 of the block's 64 rows into
 // activation rows row0 on; zeros past the trunk's width and past row m.  A
 // warp stores 8 points x 4 columns an instruction, which tc_swz spreads over
 // the 32 banks; from device memory that is 8 rows x 16 bytes, whose
 // sectors' other halves the warp reads next.
+template <class T>
 struct X0Fill {
   static constexpr bool kChunks = true;
   X0Rows xh, xo;
@@ -65,27 +78,41 @@ struct X0Fill {
     const int k_first = (tid >> 5) / (TC_P / 8) * 4 + (lane & 3);
     const int k_stride = (TC_THREADS / 32) / (TC_P / 8) * 4;
     const long long row = first + p;
-    const float* src = r.x + (row < m ? row : 0) * r.ld;
+    const T* src = static_cast<const T*>(r.x) + (row < m ? row : 0) * r.ld;
     const int width = row < m ? min(r.in - c0, count) : 0;  // columns this row holds
 #pragma unroll 4
     for (int k = k_first; k < count; k += k_stride)
-      act[tc_swz(row0 + k, p)] = k < width ? __ldg(src + c0 + k) : 0.f;
+      act[tc_swz(row0 + k, p)] = k < width ? x0_value(src, c0 + k) : 0.f;
   }
 };
 
+template <class Cfg, class T>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 generic_decoder_kernel(const float* __restrict__ prm, const TcPlan plan, const X0Rows xh,
                        const X0Rows xo, int m, float* __restrict__ out) {
   extern __shared__ __align__(128) float smem[];
-  const TcShared s = tc_shared(smem, plan.rows);
+  const TcShared s = tc_shared<Cfg>(smem, plan.rows);
   const int tid = threadIdx.x;
   const long long first = (long long)blockIdx.x * TC_P;
-  if (tid == 0) tc_init(prm, plan, s);
+  if (tid == 0) tc_init<Cfg>(prm, plan, s);
   if (tid < 3 * TC_P) s.xyz[tid] = 0.f;  // read by no term: K6's plans have no xyz weights
   if (tid < TC_SDF_ROWS * TC_P) s.oacc[tid] = 0.f;
   __syncthreads();
-  const X0Fill fill{xh, xo, s.act, first, m};
-  tc_consume(prm, plan, s, fill, out, first, m, tid);
+  const X0Fill<T> fill{xh, xo, s.act, first, m};
+  tc_consume<Cfg>(prm, plan, s, fill, out, first, m, tid);
+}
+
+template <class Cfg, class T>
+static int generic_decoder_run(const float* prm, const TcPlan& plan, const X0Rows& rh,
+                               const X0Rows& ro, int m, float* out, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<Cfg>(plan.rows);
+  cudaError_t err = cudaFuncSetAttribute(generic_decoder_kernel<Cfg, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((m + TC_P - 1) / TC_P);
+  generic_decoder_kernel<Cfg, T><<<blocks, TC_THREADS, smem, stream>>>(prm, plan, rh, ro, m,
+                                                                        out);
+  return (int)cudaGetLastError();
 }
 
 // desc: [n_trunks, fin_b, rows, n_rows, lat_pad, then per trunk: n_hidden,
@@ -93,12 +120,13 @@ generic_decoder_kernel(const float* __restrict__ prm, const TcPlan plan, const X
 // out_pad] (offsets in floats, -1 = absent; w and lat = the weight tiles of
 // the layer's activation and input rows, see grid_trunk_tc.cuh; x is always
 // -1; fin_x = the final layer's (n_rows, lat_pad) input-row weights, or -1).
-// Returns 0, a cudaError_t from the launch, or -1 for a descriptor or input
-// this kernel rejects.
+// bf16: the plan's tiles are bf16 (TcBf16) and the rows __nv_bfloat16, else
+// float.  Returns 0, a cudaError_t from the launch, or -1 for a descriptor or
+// input this kernel rejects.
 extern "C" int generic_decoder_launch(const float* prm, const int* desc, int desc_len,
-                                      const float* x_h, long long ld_h, int in_h,
-                                      const float* x_o, long long ld_o, int in_o, int m,
-                                      float* out, void* stream) {
+                                      const void* x_h, long long ld_h, int in_h,
+                                      const void* x_o, long long ld_o, int in_o, int m,
+                                      float* out, int bf16, void* stream) {
   if (desc_len < 5) return -1;
   TcPlan plan;
   plan.n_trunks = desc[0];
@@ -106,7 +134,9 @@ extern "C" int generic_decoder_launch(const float* prm, const int* desc, int des
   plan.rows = desc[2];
   plan.n_rows = desc[3];
   plan.lat_pad = desc[4];
-  if (plan.lat_pad < TC_K || m <= 0 || !tc_take_plan(plan, desc, desc_len, 5, true, 0, true))
+  if (plan.lat_pad < TC_K || m <= 0) return -1;
+  if (bf16 ? !tc_take_plan<TcBf16>(plan, desc, desc_len, 5, true, 0, true)
+           : !tc_take_plan(plan, desc, desc_len, 5, true, 0, true))
     return -1;
   for (int t = 0; t < plan.n_trunks; ++t) {
     TcTrunk& T = plan.trunks[t];
@@ -121,14 +151,9 @@ extern "C" int generic_decoder_launch(const float* prm, const int* desc, int des
   if (!x_h || in_h < 1 || in_h > plan.lat_pad || ld_h < in_h) return -1;
   if (plan.n_trunks == 2 && (!x_o || in_o < 1 || in_o > plan.lat_pad || ld_o < in_o)) return -1;
 
-  const size_t smem = tc_smem_bytes(plan.rows);
-  cudaError_t err = cudaFuncSetAttribute(generic_decoder_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((m + TC_P - 1) / TC_P);
   const X0Rows rh = {x_h, ld_h, in_h};
   const X0Rows ro = plan.n_trunks == 2 ? X0Rows{x_o, ld_o, in_o} : rh;
-  generic_decoder_kernel<<<blocks, TC_THREADS, smem, (cudaStream_t)stream>>>(prm, plan, rh, ro,
-                                                                             m, out);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) return generic_decoder_run<TcBf16, __nv_bfloat16>(prm, plan, rh, ro, m, out, st);
+  return generic_decoder_run<TcF32, float>(prm, plan, rh, ro, m, out, st);
 }

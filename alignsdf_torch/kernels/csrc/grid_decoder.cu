@@ -30,21 +30,30 @@
 // and register budget).  Layer 0 has no product: its input is folded, so it
 // is the epilogue alone.  The class rows are extra final rows of the hand
 // trunk: 6 classes add 6 x 512 multiply-adds to ~1 M a point.
+//
+// bf16 (a plan packed with dtype bfloat16; decoder_kernel.py:331, :375,
+// :626 with dtype=bfloat16): the same kernel on the trunk's bf16 k step
+// (TcBf16: one bf16 product a k step of 16, the ReLU outputs rounded to
+// bf16), the plan's tiles bf16 and its epilogue tiles and final rows the
+// bf16-rounded weights in float32.  Its bound is one product a
+// multiply-add at the card's 989.4 TFLOP/s dense bf16: 4.43 ms a 128^3
+// pass at the flagship, a sixth of split TF32's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "grid_trunk_tc.cuh"
 
+template <class Cfg>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 grid_decoder_kernel(const float* __restrict__ prm, const TcPlan plan,
                     const float* __restrict__ scal, long long base, int m, int n,
                     float* __restrict__ out) {
   extern __shared__ __align__(128) float smem[];
-  const TcShared s = tc_shared(smem, plan.rows);
+  const TcShared s = tc_shared<Cfg>(smem, plan.rows);
   const int tid = threadIdx.x;
   const long long first = (long long)blockIdx.x * TC_P;
-  if (tid == 0) tc_init(prm, plan, s);
+  if (tid == 0) tc_init<Cfg>(prm, plan, s);
   if (tid < TC_P) {
     // the same index arithmetic as the TPU kernel: integer // and %, then
     // * voxel + origin (decoder_kernel.py:633-638)
@@ -57,17 +66,30 @@ grid_decoder_kernel(const float* __restrict__ prm, const TcPlan plan,
   }
   if (tid < TC_SDF_ROWS * TC_P) s.oacc[tid] = 0.f;
   __syncthreads();
-  tc_consume(prm, plan, s, TcNoFill(), out, first, m, tid);
+  tc_consume<Cfg>(prm, plan, s, TcNoFill(), out, first, m, tid);
+}
+
+template <class Cfg>
+static int grid_decoder_run(const float* prm, const TcPlan& plan, const float* scal,
+                            long long base, int m, int n, float* out, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<Cfg>(plan.rows);
+  cudaError_t err = cudaFuncSetAttribute(grid_decoder_kernel<Cfg>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((m + TC_P - 1) / TC_P);
+  grid_decoder_kernel<Cfg><<<blocks, TC_THREADS, smem, stream>>>(prm, plan, scal, base, m, n,
+                                                                  out);
+  return (int)cudaGetLastError();
 }
 
 // desc: [n_trunks, fin_b, rows, n_rows, then per trunk: n_hidden, fin,
 // fin_xyz, last_pad, then per hidden layer: w, x, b, in_pad, out_pad]
 // (offsets in floats, -1 = absent; w = the layer's weight tiles, see
-// grid_trunk_tc.cuh).  Returns 0, a cudaError_t from the launch, or -1 for a
-// descriptor this kernel rejects.
+// grid_trunk_tc.cuh); bf16: the plan's tiles are bf16 (TcBf16).  Returns 0,
+// a cudaError_t from the launch, or -1 for a descriptor this kernel rejects.
 extern "C" int grid_decoder_launch(const float* prm, const int* desc, int desc_len,
                                    const float* scal, long long base, int m, int n,
-                                   float* out, void* stream) {
+                                   float* out, int bf16, void* stream) {
   if (desc_len < 4) return -1;
   TcPlan plan;
   plan.n_trunks = desc[0];
@@ -75,14 +97,11 @@ extern "C" int grid_decoder_launch(const float* prm, const int* desc, int desc_l
   plan.rows = desc[2];
   plan.n_rows = desc[3];
   plan.lat_pad = 0;
-  if (m <= 0 || n <= 0 || !tc_take_plan(plan, desc, desc_len, 4, false, 0)) return -1;
-
-  const size_t smem = tc_smem_bytes(plan.rows);
-  cudaError_t err = cudaFuncSetAttribute(grid_decoder_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((m + TC_P - 1) / TC_P);
-  grid_decoder_kernel<<<blocks, TC_THREADS, smem, (cudaStream_t)stream>>>(
-      prm, plan, scal, base, m, n, out);
-  return (int)cudaGetLastError();
+  if (m <= 0 || n <= 0) return -1;
+  if (bf16) {
+    if (!tc_take_plan<TcBf16>(plan, desc, desc_len, 4, false, 0)) return -1;
+    return grid_decoder_run<TcBf16>(prm, plan, scal, base, m, n, out, (cudaStream_t)stream);
+  }
+  if (!tc_take_plan(plan, desc, desc_len, 4, false, 0)) return -1;
+  return grid_decoder_run<TcF32>(prm, plan, scal, base, m, n, out, (cudaStream_t)stream);
 }

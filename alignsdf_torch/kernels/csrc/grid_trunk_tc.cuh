@@ -72,12 +72,28 @@
 // The final rows (2 SDF rows, and the classifier's on the first trunk) stay
 // float32 dot products on the CUDA cores; rows 0-1 take tanh after all
 // trunks have added theirs, the class rows go straight to the output.
+//
+// bf16 (TcBf16, a bf16 plan of K1, K3 or K6: the JAX package's grid kernels
+// with dtype=bfloat16, decoder_kernel.py:331, :375, :626, :1040): the same
+// ring, k-step loop and epilogues as a template parameter.  A k step is one
+// wgmma.m64n128k16.f32.bf16.bf16 (wgmma_bf16.cuh) over 16 k; A is packed
+// into bf16 pairs from the activation buffer, which holds bf16-rounded
+// values, so the packing is exact; B is a 128 x 16 bf16 tile of 4 KB, a
+// quarter of split TF32's bytes a k.  The ring's 88 KB hold 22 such tiles;
+// an epilogue tile (float32: bias and the bf16-rounded xyz weights) takes
+// two of them, not always adjacent in the ring.  The epilogue rounds each
+// ReLU output to bf16 (tc_round_bf16).  The final rows' weights hold
+// bf16-rounded values in float32, so their products with the bf16
+// activations are exact and their sums float32, as JAX's bf16 dot with
+// float32 accumulation.  The activations' swizzle stays tc_swz: a bf16
+// fragment's loads meet 2-way bank conflicts there.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
 
 #define TC_P 64            // points per block: wgmma's M
@@ -91,6 +107,17 @@
 #define TC_MAX_HIDDEN 8
 #define TC_SDF_ROWS 2      // rows 0-1 take tanh
 #define TC_MAX_ROWS 128    // 2 SDF rows + 126 classes
+
+// The trunk's arithmetic: a k step's depth, a ring slot (floats), the ring's
+// slots and the slots an epilogue tile takes.
+struct TcF32 {   // split TF32: a tile = 128 outputs x 8 k, big then small (8 KB)
+  static constexpr bool kBf16 = false;
+  static constexpr int kK = TC_K, kTile = 2 * TC_TILE, kSlots = TC_SLOTS, kEpi = 1;
+};
+struct TcBf16 {  // bf16: a tile = 128 outputs x 16 k (4 KB)
+  static constexpr bool kBf16 = true;
+  static constexpr int kK = 16, kTile = TC_TILE, kSlots = 2 * TC_SLOTS, kEpi = 2;
+};
 
 // Offsets into prm (floats; -1 = none).  w: the tiles of the layer's
 // activation rows (in_pad of them); lat (K3, K6): the tiles of its per-point
@@ -121,16 +148,18 @@ struct TcShared {
   uint64_t* full;   // [TC_SLOTS]: a tile has landed
 };
 
+template <class Cfg = TcF32>
 __host__ __device__ inline size_t tc_smem_bytes(int rows) {
-  return sizeof(float) * ((size_t)TC_SLOTS * 2 * TC_TILE + (size_t)rows * TC_P + 3 * TC_P
+  return sizeof(float) * ((size_t)Cfg::kSlots * Cfg::kTile + (size_t)rows * TC_P + 3 * TC_P
                           + TC_SDF_ROWS * TC_P + TC_THREADS)
-         + sizeof(uint64_t) * TC_SLOTS;
+         + sizeof(uint64_t) * Cfg::kSlots;
 }
 
+template <class Cfg = TcF32>
 __device__ __forceinline__ TcShared tc_shared(float* base, int rows) {
   TcShared s;
   s.ring = base;
-  s.act = s.ring + TC_SLOTS * 2 * TC_TILE;
+  s.act = s.ring + Cfg::kSlots * Cfg::kTile;
   s.xyz = s.act + rows * TC_P;
   s.oacc = s.xyz + 3 * TC_P;
   s.red = s.oacc + TC_SDF_ROWS * TC_P;
@@ -184,86 +213,111 @@ __host__ __device__ inline int tc_depth(const TcLayer& L, int lat_pad) {
   return (L.w >= 0 ? L.in_pad : 0) + (L.lat >= 0 ? lat_pad : 0);
 }
 
-// Tile j (in the order the warpgroups read them) into its slot, j %
-// TC_SLOTS, counted on the slot's barrier; nothing past the last tile.
+// Tile j (in the order the warpgroups read them; Cfg::kTile floats each)
+// into its slot, j % kSlots, counted on the slot's barrier; nothing past the
+// last tile.
+template <class Cfg = TcF32>
 __device__ __forceinline__ void tc_fill(const float* prm, const TcPlan& plan, const TcShared& s,
                                         int j, int total) {
   if (j >= total) return;
-  const int pos = j % TC_SLOTS;
-  const float* src = prm + (j < plan.split ? plan.stream[0] + (size_t)j * 2 * TC_TILE
-                                           : plan.stream[1] + (size_t)(j - plan.split) * 2 * TC_TILE);
-  tc_mbar_expect_tx(&s.full[pos], 2 * TC_TILE * 4);
-  tc_bulk_load(s.ring + pos * 2 * TC_TILE, src, 2 * TC_TILE * 4, &s.full[pos]);
+  const int pos = j % Cfg::kSlots;
+  const float* src = prm + (j < plan.split ? plan.stream[0] + (size_t)j * Cfg::kTile
+                                           : plan.stream[1] + (size_t)(j - plan.split) * Cfg::kTile);
+  tc_mbar_expect_tx(&s.full[pos], Cfg::kTile * 4);
+  tc_bulk_load(s.ring + pos * Cfg::kTile, src, Cfg::kTile * 4, &s.full[pos]);
 }
 
 // Tiles in layer L: its weight tiles, then its epilogue tile.
+template <class Cfg = TcF32>
 __host__ __device__ inline int tc_tiles(const TcLayer& L, int lat_pad) {
-  return tc_depth(L, lat_pad) / TC_K * (L.out_pad / TC_GROUP) + 1;
+  return tc_depth(L, lat_pad) / Cfg::kK * (L.out_pad / TC_GROUP) + Cfg::kEpi;
 }
 
+template <class Cfg = TcF32>
 __host__ __device__ inline int tc_total_tiles(const TcPlan& plan) {
   int total = 0;
   for (int t = 0; t < plan.n_trunks; ++t)
     for (int l = 0; l < plan.trunks[t].n_hidden; ++l)
-      total += tc_tiles(plan.trunks[t].layers[l], plan.lat_pad);
+      total += tc_tiles<Cfg>(plan.trunks[t].layers[l], plan.lat_pad);
   return total;
 }
 
 // Thread 0, before the block's first barrier: the ring's barriers and its
-// first TC_SLOTS tiles.
+// first kSlots tiles.
+template <class Cfg = TcF32>
 __device__ __forceinline__ void tc_init(const float* prm, const TcPlan& plan, const TcShared& s) {
-  for (int i = 0; i < TC_SLOTS; ++i) tc_mbar_init(&s.full[i], 1);  // the filler's expect_tx
+  for (int i = 0; i < Cfg::kSlots; ++i) tc_mbar_init(&s.full[i], 1);  // the filler's expect_tx
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  const int total = tc_total_tiles(plan);
-  for (int j = 0; j < TC_SLOTS; ++j) tc_fill(prm, plan, s, j, total);
+  const int total = tc_total_tiles<Cfg>(plan);
+  for (int j = 0; j < Cfg::kSlots; ++j) tc_fill<Cfg>(prm, plan, s, j, total);
 }
 
 // A layer's product for warpgroup wg, which owns NG of its output groups
 // (wg, then wg + 2), over `steps` k steps from tile slot0, reading
 // activation rows row0 on; `acc_on`: add to the accumulators from the first
 // step (a later chunk of the layer's input).  Each step: the
-// A fragment split in registers, a wait for the warpgroup's tiles, then 3
-// NG products issued together (every operand defined before the wgmma
+// A fragment split (TcF32) or packed (TcBf16) in registers, a wait for the
+// warpgroup's tiles, then the NG groups' products (3 each in split TF32, 1
+// in bf16) issued together (every operand defined before the wgmma
 // fence, so ptxas need not serialize them); while they run, one thread
 // refills the previous step's slots, which every warp of the warpgroup was
 // past at the step's closing barrier.
-template <int NG>
+template <int NG, class Cfg = TcF32>
 __device__ __forceinline__ void tc_steps(float (&acc0)[64], float (&acc1)[64], int steps,
                                          int row0, bool acc_on, int groups, int slot0,
                                          const float* __restrict__ prm, const TcPlan& plan,
                                          const TcShared& s, int total, int wg, int wt, int p0,
                                          int t4) {
+  constexpr int SL = Cfg::kSlots;
   for (int st = 0; st < steps; ++st) {
-    const int k = row0 + st * TC_K + t4;
     uint32_t ab[4], as[4];
-    tc_split(s.act[tc_swz(k, p0)], ab[0], as[0]);
-    tc_split(s.act[tc_swz(k, p0 + 8)], ab[1], as[1]);
-    tc_split(s.act[tc_swz(k + 4, p0)], ab[2], as[2]);
-    tc_split(s.act[tc_swz(k + 4, p0 + 8)], ab[3], as[3]);
+    if constexpr (Cfg::kBf16) {
+      const int k = row0 + st * Cfg::kK + 2 * t4;
+      ab[0] = tc_pack_bf16(s.act[tc_swz(k, p0)], s.act[tc_swz(k + 1, p0)]);
+      ab[1] = tc_pack_bf16(s.act[tc_swz(k, p0 + 8)], s.act[tc_swz(k + 1, p0 + 8)]);
+      ab[2] = tc_pack_bf16(s.act[tc_swz(k + 8, p0)], s.act[tc_swz(k + 9, p0)]);
+      ab[3] = tc_pack_bf16(s.act[tc_swz(k + 8, p0 + 8)], s.act[tc_swz(k + 9, p0 + 8)]);
+    } else {
+      const int k = row0 + st * TC_K + t4;
+      tc_split(s.act[tc_swz(k, p0)], ab[0], as[0]);
+      tc_split(s.act[tc_swz(k, p0 + 8)], ab[1], as[1]);
+      tc_split(s.act[tc_swz(k + 4, p0)], ab[2], as[2]);
+      tc_split(s.act[tc_swz(k + 4, p0 + 8)], ab[3], as[3]);
+    }
     const int sl = slot0 + st * groups + wg;
-    const int pos0 = sl % TC_SLOTS, pos1 = (sl + 2) % TC_SLOTS;
-    tc_mbar_wait(&s.full[pos0], (sl / TC_SLOTS) & 1);
-    if (NG > 1) tc_mbar_wait(&s.full[pos1], ((sl + 2) / TC_SLOTS) & 1);
-    const float* t0 = s.ring + pos0 * 2 * TC_TILE;
-    const float* t1 = s.ring + pos1 * 2 * TC_TILE;
-    const uint64_t big0 = tc_desc(t0), small0 = tc_desc(t0 + TC_TILE);
-    const uint64_t big1 = tc_desc(t1), small1 = tc_desc(t1 + TC_TILE);
-    const int scale_d = st > 0 || acc_on;
-    tc_fence_acc(acc0);
-    if (NG > 1) tc_fence_acc(acc1);
-    tc_wgmma_fence();
-    tc_wgmma(acc0, ab, big0, scale_d);
-    tc_wgmma(acc0, as, big0, 1);
-    tc_wgmma(acc0, ab, small0, 1);
-    if (NG > 1) {
-      tc_wgmma(acc1, ab, big1, scale_d);
-      tc_wgmma(acc1, as, big1, 1);
-      tc_wgmma(acc1, ab, small1, 1);
+    const int pos0 = sl % SL, pos1 = (sl + 2) % SL;
+    tc_mbar_wait(&s.full[pos0], (sl / SL) & 1);
+    if (NG > 1) tc_mbar_wait(&s.full[pos1], ((sl + 2) / SL) & 1);
+    const float* t0 = s.ring + pos0 * Cfg::kTile;
+    const float* t1 = s.ring + pos1 * Cfg::kTile;
+    if constexpr (Cfg::kBf16) {
+      const uint64_t d0 = tc_desc(t0), d1 = tc_desc(t1);
+      const int scale_d = st > 0 || acc_on;
+      tc_fence_acc(acc0);
+      if (NG > 1) tc_fence_acc(acc1);
+      tc_wgmma_fence();
+      tc_wgmma_bf16(acc0, ab, d0, scale_d);
+      if (NG > 1) tc_wgmma_bf16(acc1, ab, d1, scale_d);
+    } else {
+      const uint64_t big0 = tc_desc(t0), small0 = tc_desc(t0 + TC_TILE);
+      const uint64_t big1 = tc_desc(t1), small1 = tc_desc(t1 + TC_TILE);
+      const int scale_d = st > 0 || acc_on;
+      tc_fence_acc(acc0);
+      if (NG > 1) tc_fence_acc(acc1);
+      tc_wgmma_fence();
+      tc_wgmma(acc0, ab, big0, scale_d);
+      tc_wgmma(acc0, as, big0, 1);
+      tc_wgmma(acc0, ab, small0, 1);
+      if (NG > 1) {
+        tc_wgmma(acc1, ab, big1, scale_d);
+        tc_wgmma(acc1, as, big1, 1);
+        tc_wgmma(acc1, ab, small1, 1);
+      }
     }
     tc_wgmma_commit();
     if (wt == 0 && st > 0) {
-      tc_fill(prm, plan, s, sl - groups + TC_SLOTS, total);
-      if (NG > 1) tc_fill(prm, plan, s, sl - groups + 2 + TC_SLOTS, total);
+      tc_fill<Cfg>(prm, plan, s, sl - groups + SL, total);
+      if (NG > 1) tc_fill<Cfg>(prm, plan, s, sl - groups + 2 + SL, total);
     }
     tc_wgmma_wait();
     tc_fence_acc(acc0);
@@ -272,17 +326,20 @@ __device__ __forceinline__ void tc_steps(float (&acc0)[64], float (&acc1)[64], i
   }
   if (wt == 0 && steps > 0) {  // the last step's slots
     const int sl = slot0 + (steps - 1) * groups + wg;
-    tc_fill(prm, plan, s, sl + TC_SLOTS, total);
-    if (NG > 1) tc_fill(prm, plan, s, sl + 2 + TC_SLOTS, total);
+    tc_fill<Cfg>(prm, plan, s, sl + SL, total);
+    if (NG > 1) tc_fill<Cfg>(prm, plan, s, sl + 2 + SL, total);
   }
 }
 
 // out[o][p] = relu(acc + b[o] + X[:, o] . xyz[p]) for this thread's 64
-// accumulators of group j (acc is 0 for a layer without a product); b and X
-// from the layer's epilogue tile `epi` in the ring.
+// accumulators of group j (acc is 0 for a layer without a product), rounded
+// to bf16 with `bf16`; b and X from the layer's epilogue tile in the ring:
+// its rows 0-1 (b, X's x row) at `epi`, rows 2-3 (X's y and z rows) at
+// `epi_hi` (epi + 2 TC_MAX_OUT, or a bf16 ring's next slot).
 __device__ __forceinline__ void tc_epilogue(const float (&acc)[64], bool has, int j,
-                                            const float* epi, bool has_x, float* act,
-                                            const float* xyz, int p0, int t4) {
+                                            const float* epi, const float* epi_hi, bool has_x,
+                                            float* act, const float* xyz, int p0, int t4,
+                                            bool bf16 = false) {
   const float xa = xyz[p0], ya = xyz[TC_P + p0], za = xyz[2 * TC_P + p0];
   const float xb = xyz[p0 + 8], yb = xyz[TC_P + p0 + 8], zb = xyz[2 * TC_P + p0 + 8];
 #pragma unroll
@@ -298,17 +355,27 @@ __device__ __forceinline__ void tc_epilogue(const float (&acc)[64], bool has, in
     }
     if (has_x) {
       const float2 wx = *reinterpret_cast<const float2*>(epi + TC_MAX_OUT + o);
-      const float2 wy = *reinterpret_cast<const float2*>(epi + 2 * TC_MAX_OUT + o);
-      const float2 wz = *reinterpret_cast<const float2*>(epi + 3 * TC_MAX_OUT + o);
+      const float2 wy = *reinterpret_cast<const float2*>(epi_hi + o);
+      const float2 wz = *reinterpret_cast<const float2*>(epi_hi + TC_MAX_OUT + o);
       v0 += wx.x * xa + wy.x * ya + wz.x * za;
       v1 += wx.y * xa + wy.y * ya + wz.y * za;
       v2 += wx.x * xb + wy.x * yb + wz.x * zb;
       v3 += wx.y * xb + wy.y * yb + wz.y * zb;
     }
-    act[tc_swz(o, p0)] = fmaxf(v0, 0.f);
-    act[tc_swz(o + 1, p0)] = fmaxf(v1, 0.f);
-    act[tc_swz(o, p0 + 8)] = fmaxf(v2, 0.f);
-    act[tc_swz(o + 1, p0 + 8)] = fmaxf(v3, 0.f);
+    v0 = fmaxf(v0, 0.f);
+    v1 = fmaxf(v1, 0.f);
+    v2 = fmaxf(v2, 0.f);
+    v3 = fmaxf(v3, 0.f);
+    if (bf16) {
+      v0 = tc_round_bf16(v0);
+      v1 = tc_round_bf16(v1);
+      v2 = tc_round_bf16(v2);
+      v3 = tc_round_bf16(v3);
+    }
+    act[tc_swz(o, p0)] = v0;
+    act[tc_swz(o + 1, p0)] = v1;
+    act[tc_swz(o, p0 + 8)] = v2;
+    act[tc_swz(o + 1, p0 + 8)] = v3;
   }
 }
 
@@ -394,8 +461,9 @@ __device__ void tc_final_rows(const float* __restrict__ prm, const TcTrunk& T, i
 // its width) into activation rows row0 .. row0 + count - 1, before a layer
 // with input rows (K3, K6) or a final layer with fin_lat (K6); K1 has none.
 // Fill::kChunks: whether the input may need more than one chunk (K6); the
-// others take it whole, as their plans' rows provide.
-template <class Fill>
+// others take it whole, as their plans' rows provide.  Cfg: the trunk's
+// arithmetic (TcF32 or TcBf16).
+template <class Cfg, class Fill>
 __device__ void tc_consume(const float* __restrict__ prm, const TcPlan& plan, const TcShared& s,
                            const Fill& fill, float* __restrict__ out, long long first, int m,
                            int tid) {
@@ -404,7 +472,7 @@ __device__ void tc_consume(const float* __restrict__ prm, const TcPlan& plan, co
   float acc0[64], acc1[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
-  const int total = tc_total_tiles(plan);
+  const int total = tc_total_tiles<Cfg>(plan);
   int slot = 0;
   for (int t = 0; t < plan.n_trunks; ++t) {
     const TcTrunk& T = plan.trunks[t];
@@ -420,13 +488,13 @@ __device__ void tc_consume(const float* __restrict__ prm, const TcPlan& plan, co
           fill(t, act_rows, 0, in_rows, tid);
           __syncthreads();
         }
-        steps = (act_rows + in_rows) / TC_K;
+        steps = (act_rows + in_rows) / Cfg::kK;
         if (mine == 2) {
-          tc_steps<2>(acc0, acc1, steps, 0, false, groups, slot, prm, plan, s, total, wg, wt, p0,
-                      t4);
+          tc_steps<2, Cfg>(acc0, acc1, steps, 0, false, groups, slot, prm, plan, s, total, wg, wt,
+                           p0, t4);
         } else if (mine == 1) {
-          tc_steps<1>(acc0, acc1, steps, 0, false, groups, slot, prm, plan, s, total, wg, wt, p0,
-                      t4);
+          tc_steps<1, Cfg>(acc0, acc1, steps, 0, false, groups, slot, prm, plan, s, total, wg, wt,
+                           p0, t4);
         }
         c0 = in_rows;
       }
@@ -440,30 +508,37 @@ __device__ void tc_consume(const float* __restrict__ prm, const TcPlan& plan, co
           fill(t, act_rows, c0, count, tid);
           __syncthreads();
         }
-        const int run = ((c0 == 0 ? act_rows : 0) + count) / TC_K;
+        const int run = ((c0 == 0 ? act_rows : 0) + count) / Cfg::kK;
         const int row0 = c0 == 0 ? 0 : act_rows;
         const int slot0 = slot + steps * groups;
         if (mine == 2) {
-          tc_steps<2>(acc0, acc1, run, row0, steps > 0, groups, slot0, prm, plan, s, total, wg,
-                      wt, p0, t4);
+          tc_steps<2, Cfg>(acc0, acc1, run, row0, steps > 0, groups, slot0, prm, plan, s, total,
+                           wg, wt, p0, t4);
         } else if (mine == 1) {
-          tc_steps<1>(acc0, acc1, run, row0, steps > 0, groups, slot0, prm, plan, s, total, wg,
-                      wt, p0, t4);
+          tc_steps<1, Cfg>(acc0, acc1, run, row0, steps > 0, groups, slot0, prm, plan, s, total,
+                           wg, wt, p0, t4);
         }
         steps += run;
         c0 += count;
         if (run == 0) break;  // a layer without a product
       }
-      slot += steps * groups;  // now the epilogue tile's
-      const int pos = slot % TC_SLOTS;
-      tc_mbar_wait(&s.full[pos], (slot / TC_SLOTS) & 1);
-      const float* epi = s.ring + pos * 2 * TC_TILE;
+      slot += steps * groups;  // now the epilogue tile's (kEpi slots)
+      constexpr int SL = Cfg::kSlots;
+      for (int e = 0; e < Cfg::kEpi; ++e)
+        tc_mbar_wait(&s.full[(slot + e) % SL], ((slot + e) / SL) & 1);
+      const float* epi = s.ring + (slot % SL) * Cfg::kTile;
+      const float* epi_hi = Cfg::kEpi == 1 ? epi + 2 * TC_MAX_OUT
+                                           : s.ring + ((slot + 1) % SL) * Cfg::kTile;
       __syncthreads();  // every warp is done reading the layer's input
-      if (mine > 0) tc_epilogue(acc0, steps > 0, wg, epi, L.x >= 0, s.act, s.xyz, p0, t4);
-      if (mine > 1) tc_epilogue(acc1, steps > 0, wg + 2, epi, L.x >= 0, s.act, s.xyz, p0, t4);
+      if (mine > 0)
+        tc_epilogue(acc0, steps > 0, wg, epi, epi_hi, L.x >= 0, s.act, s.xyz, p0, t4, Cfg::kBf16);
+      if (mine > 1)
+        tc_epilogue(acc1, steps > 0, wg + 2, epi, epi_hi, L.x >= 0, s.act, s.xyz, p0, t4,
+                    Cfg::kBf16);
       __syncthreads();
-      if (tid == 0) tc_fill(prm, plan, s, slot + TC_SLOTS, total);
-      ++slot;
+      if (tid == 0)
+        for (int e = 0; e < Cfg::kEpi; ++e) tc_fill<Cfg>(prm, plan, s, slot + e + SL, total);
+      slot += Cfg::kEpi;
     }
     // only the first trunk carries class rows (the plan packs them there)
     tc_final_rows(prm, T, t == 0 ? plan.n_rows : TC_SDF_ROWS, plan.fin_b, s, out, first, m, tid);
@@ -497,9 +572,12 @@ struct TcNoFill {
 // the kernel's own beside tc_smem_bytes; `chunks`: the kernel stages its
 // input rows in chunks (K6), else a layer's activation and input rows must
 // fit the buffer together.  Sets the stream offsets.  The one check of a
-// plan: the launchers return -1 where it fails.
+// plan: the launchers return -1 where it fails.  Cfg: the plan's arithmetic
+// (its tiles' size and depth).
+template <class Cfg = TcF32>
 static bool tc_take_plan(TcPlan& p, const int* desc, int desc_len, int pos, bool with_lat,
                          size_t extra_smem, bool chunks = false) {
+  constexpr int K = Cfg::kK, TILE = Cfg::kTile;
   if (p.n_trunks < 1 || p.n_trunks > TC_MAX_TRUNKS) return false;
   const int per = with_lat ? 6 : 5;
   for (int t = 0; t < p.n_trunks; ++t) {
@@ -525,8 +603,8 @@ static bool tc_take_plan(TcPlan& p, const int* desc, int desc_len, int pos, bool
   }
   if (pos != desc_len) return false;
   if (p.n_rows < TC_SDF_ROWS || p.n_rows > TC_MAX_ROWS) return false;
-  if (p.rows < TC_GROUP || p.rows % TC_K || p.lat_pad < 0 || p.lat_pad % TC_K) return false;
-  if (p.fin_b < 0 || tc_smem_bytes(p.rows) + extra_smem > 232448) return false;
+  if (p.rows < TC_GROUP || p.rows % K || p.lat_pad < 0 || p.lat_pad % K) return false;
+  if (p.fin_b < 0 || tc_smem_bytes<Cfg>(p.rows) + extra_smem > 232448) return false;
   int tiles = 0;
   for (int t = 0; t < p.n_trunks; ++t) {
     TcTrunk& T = p.trunks[t];
@@ -545,19 +623,18 @@ static bool tc_take_plan(TcPlan& p, const int* desc, int desc_len, int pos, bool
       // the input rows are staged above the activation rows (in chunks of
       // at least one k step)
       const int depth = tc_depth(L, p.lat_pad);
-      if (chunks ? (L.w >= 0 ? L.in_pad : 0) + (L.lat >= 0 ? TC_K : 0) > p.rows : depth > p.rows)
+      if (chunks ? (L.w >= 0 ? L.in_pad : 0) + (L.lat >= 0 ? K : 0) > p.rows : depth > p.rows)
         return false;
       // the stream: the weight tiles (the latent rows' after the activation
       // rows'), then the epilogue tile, with xyz rows at b + TC_MAX_OUT
       const int start = depth > 0 ? (L.w >= 0 ? L.w : L.lat) : L.b;
       if (start < 0 || (start & 3) || (next >= 0 && start != next)) return false;
       if (l == 0) p.stream[t] = start;
-      if (L.w >= 0 && L.lat >= 0 && L.lat != L.w + L.in_pad / TC_K * groups * 2 * TC_TILE)
-        return false;
-      if (L.b != start + depth / TC_K * groups * 2 * TC_TILE) return false;
+      if (L.w >= 0 && L.lat >= 0 && L.lat != L.w + L.in_pad / K * groups * TILE) return false;
+      if (L.b != start + depth / K * groups * TILE) return false;
       if (L.x >= 0 && L.x != L.b + TC_MAX_OUT) return false;
-      next = L.b + 2 * TC_TILE;
-      tiles += tc_tiles(L, p.lat_pad);
+      next = L.b + 2 * TC_TILE;  // the epilogue tile: 2 TC_TILE floats in both
+      tiles += tc_tiles<Cfg>(L, p.lat_pad);
       prev = L.out_pad;
     }
     if (T.last_pad != prev) return false;

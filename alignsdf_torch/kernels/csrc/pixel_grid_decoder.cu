@@ -57,6 +57,14 @@
 // the plain version's order, so that the kernel and
 // pixel_grid_decode_reference agree bit for bit on which points lie in the
 // image.
+//
+// bf16 (a plan packed with dtype bfloat16; decoder_kernel.py:997-998,
+// :1091-1122 with dtype=bfloat16): the trunk's bf16 k step (TcBf16); the
+// table holds the bf16-rounded map and mean row (float32 words); each tap
+// weight ky kx is formed in float32 and rounded to bf16, the 16 products
+// with the table are exact and summed in float32, and the sampled latent
+// is rounded to bf16 before the trunks.  The mean fallback copies the
+// rounded mean row, exactly as JAX's 0/1 selector does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +82,7 @@ __device__ __forceinline__ float dot3(float a, float x, float b, float y, float 
 // Latent channels c0 .. c0 + count - 1 into activation rows row0 on: the
 // sum of a point's 16 weighted taps, or the mean row outside the image; 0 in
 // the padding channels.  Both trunks read the same latent.
+template <bool kBf16>
 struct LatentFill {
   static constexpr bool kChunks = false;  // the plan's rows hold [activation; latent]
   const float* table;
@@ -107,10 +116,12 @@ struct LatentFill {
               for (int j = 0; j < 4; ++j) {
                 const int col = tap_rc[p * 8 + 4 + j];
                 if (col < 0) continue;
-                s = fmaf(wy * tap_w[p * 8 + 4 + j],
-                         __ldg(table + (size_t)(r + col) * map.c + ch), s);
+                float w = wy * tap_w[p * 8 + 4 + j];
+                if (kBf16) w = tc_round_bf16(w);
+                s = fmaf(w, __ldg(table + (size_t)(r + col) * map.c + ch), s);
               }
             }
+            if (kBf16) s = tc_round_bf16(s);
           }
           v[q] = s;
         }
@@ -125,20 +136,21 @@ struct LatentFill {
 // 4 columns, 8 weights and a flag a point.
 #define TAP_BYTES (17 * sizeof(float) * TC_P)
 
+template <class Cfg>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 pixel_grid_decoder_kernel(const float* __restrict__ prm, const TcPlan plan, const PixelMap map,
                           const float* __restrict__ table, const float* __restrict__ scal,
                           long long base, int m, int n, float* __restrict__ out) {
   extern __shared__ __align__(128) float smem[];
-  const TcShared s = tc_shared(smem, plan.rows);
-  float* tap_w = reinterpret_cast<float*>(s.full + TC_SLOTS);  // [TC_P][8]
+  const TcShared s = tc_shared<Cfg>(smem, plan.rows);
+  float* tap_w = reinterpret_cast<float*>(s.full + Cfg::kSlots);  // [TC_P][8]
   int* tap_rc = reinterpret_cast<int*>(tap_w + 8 * TC_P);        // [TC_P][8]
   int* inside = tap_rc + 8 * TC_P;                                // [TC_P]
 
   const int tid = threadIdx.x;
   const long long first = (long long)blockIdx.x * TC_P;
   const int hf = map.hf, wf = map.wf;
-  if (tid == 0) tc_init(prm, plan, s);
+  if (tid == 0) tc_init<Cfg>(prm, plan, s);
   if (tid < TC_P) {
     // the same index arithmetic as the TPU kernel (integer // and %), then
     // xyz = ijk * voxel + origin and the projection (decoder_kernel.py:1053-1080)
@@ -181,8 +193,22 @@ pixel_grid_decoder_kernel(const float* __restrict__ prm, const TcPlan plan, cons
   }
   if (tid < TC_SDF_ROWS * TC_P) s.oacc[tid] = 0.f;
   __syncthreads();
-  const LatentFill fill{table, tap_w, tap_rc, inside, s.act, map};
-  tc_consume(prm, plan, s, fill, out, first, m, tid);
+  const LatentFill<Cfg::kBf16> fill{table, tap_w, tap_rc, inside, s.act, map};
+  tc_consume<Cfg>(prm, plan, s, fill, out, first, m, tid);
+}
+
+template <class Cfg>
+static int pixel_grid_decoder_run(const float* prm, const TcPlan& plan, const PixelMap& map,
+                                  const float* table, const float* scal, long long base, int m,
+                                  int n, float* out, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<Cfg>(plan.rows) + TAP_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(pixel_grid_decoder_kernel<Cfg>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((m + TC_P - 1) / TC_P);
+  pixel_grid_decoder_kernel<Cfg><<<blocks, TC_THREADS, smem, stream>>>(prm, plan, map, table,
+                                                                        scal, base, m, n, out);
+  return (int)cudaGetLastError();
 }
 
 // desc: [n_trunks, fin_b, rows, c, lat_pad, hf, wf, n_rows, then per trunk:
@@ -191,11 +217,12 @@ pixel_grid_decoder_kernel(const float* __restrict__ prm, const TcPlan plan, cons
 // tiles of the layer's activation and latent rows, see grid_trunk_tc.cuh).
 // table: (hf*wf + 1, c), the map's pixels row-major with channels
 // contiguous, then its mean.  scal: origin (3), voxel, then the 28
-// projection scalars.  Returns 0, a cudaError_t from the launch, or -1 for a
+// projection scalars.  bf16: the plan's tiles are bf16 (TcBf16) and the table
+// bf16-rounded.  Returns 0, a cudaError_t from the launch, or -1 for a
 // descriptor this kernel rejects.
 extern "C" int pixel_grid_decoder_launch(const float* prm, const int* desc, int desc_len,
                                          const float* table, const float* scal,
-                                         long long base, int m, int n, float* out,
+                                         long long base, int m, int n, float* out, int bf16,
                                          void* stream) {
   if (desc_len < 8) return -1;
   TcPlan plan;
@@ -209,15 +236,12 @@ extern "C" int pixel_grid_decoder_launch(const float* prm, const int* desc, int 
   map.wf = desc[6];
   plan.n_rows = desc[7];
   if (map.c < 1 || plan.lat_pad < map.c || map.hf < 1 || map.wf < 1) return -1;
-  if (m <= 0 || n <= 0 || !tc_take_plan(plan, desc, desc_len, 8, true, TAP_BYTES)) return -1;
-
-  const size_t smem = tc_smem_bytes(plan.rows) + TAP_BYTES;
-
-  cudaError_t err = cudaFuncSetAttribute(pixel_grid_decoder_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((m + TC_P - 1) / TC_P);
-  pixel_grid_decoder_kernel<<<blocks, TC_THREADS, smem, (cudaStream_t)stream>>>(
-      prm, plan, map, table, scal, base, m, n, out);
-  return (int)cudaGetLastError();
+  if (m <= 0 || n <= 0) return -1;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) {
+    if (!tc_take_plan<TcBf16>(plan, desc, desc_len, 8, true, TAP_BYTES)) return -1;
+    return pixel_grid_decoder_run<TcBf16>(prm, plan, map, table, scal, base, m, n, out, st);
+  }
+  if (!tc_take_plan(plan, desc, desc_len, 8, true, TAP_BYTES)) return -1;
+  return pixel_grid_decoder_run<TcF32>(prm, plan, map, table, scal, base, m, n, out, st);
 }

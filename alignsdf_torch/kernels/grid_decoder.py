@@ -13,15 +13,24 @@ plan stores each hidden layer's weights split into TF32 halves, big and
 small, as tiles of 128 outputs x 8 k in that trunk's shared-memory layout
 (``tile_weights``).
 
+A plan packed with ``dtype=torch.bfloat16`` serves the JAX package's bf16
+grid kernel (``make_fused_grid_decode_fn(..., dtype=jnp.bfloat16)``): its
+hidden weights are bf16 tiles of 128 outputs x 16 k, its epilogue tiles and
+final rows hold the bf16-rounded weights in float32 (biases unrounded), and
+the kernel rounds each hidden activation to bf16 after the ReLU.  The plain
+version emulates that in float32: the same roundings, so its products are
+exact and its sums float32.
+
 ``grid_decode`` takes the plain version only for a plan on the CPU; for a
 plan on the GPU it launches the kernel or raises.  ``grid_decode.launches``
-counts kernel launches.
+counts kernel launches.  ``grid_decode.bf16_launches`` counts the bf16
+kernel's (a bf16 plan's) launches apart.
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,8 +46,35 @@ _MAX_TRUNKS, _MAX_HIDDEN = 2, 8
 # wgmma's N, at most 4 groups; a weight tile is TC_GROUP outputs x TC_K k
 TC_GROUP = 128
 TC_K = 8
+TC_K_BF16 = 16  # a bf16 tile's k depth: wgmma's K for bf16
 TC_MAX_OUT = 512
 TC_SLOTS = 11  # the trunk's ring of tiles
+DTYPES = (torch.float32, torch.bfloat16)  # a plan's compute dtype
+
+
+def check_dtype(dtype: torch.dtype) -> torch.dtype:
+    if dtype not in DTYPES:
+        raise ValueError(f"the grid kernels compute in float32 or bfloat16, not {dtype}")
+    return dtype
+
+
+def k_step(dtype: torch.dtype) -> int:
+    """A plan's k step: its depths and input rows pad to a multiple of it."""
+    return TC_K_BF16 if check_dtype(dtype) == torch.bfloat16 else TC_K
+
+
+def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 ``x`` rounded to ``dtype`` (to nearest, ties to even), in
+    float32: the values a bf16 plan computes with."""
+    if check_dtype(dtype) == torch.float32:
+        return x
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def tile_floats(k: int, out_pad: int, dtype: torch.dtype = torch.float32) -> int:
+    """float32 words the (k, out_pad) tiles take: two TF32 halves, or bf16
+    pairs."""
+    return 2 * k * out_pad if check_dtype(dtype) == torch.float32 else k * out_pad // 2
 
 
 def tc_smem_bytes(rows: int) -> int:
@@ -92,6 +128,7 @@ class GridPlan:
     flat: torch.Tensor
     desc: np.ndarray
     n: int
+    dtype: torch.dtype = field(default=torch.float32, kw_only=True)
 
     _HEAD = 4   # desc entries before the first trunk
     _LAYER = 5  # desc entries a hidden layer
@@ -111,8 +148,9 @@ class GridPlan:
 
     def weights(self, off: int, k: int, out_pad: int) -> torch.Tensor:
         """The (k, out_pad) weights whose tiles start at ``off``, big +
-        small (a copy)."""
-        return untile_weights(self.flat[off:off + 2 * k * out_pad], k, out_pad)
+        small or bf16, in float32 (a copy)."""
+        return untile_weights(self.flat[off:off + tile_floats(k, out_pad, self.dtype)], k,
+                              out_pad, self.dtype)
 
     @property
     def n_rows(self) -> int:
@@ -184,64 +222,87 @@ def tile_halves(halves: torch.Tensor) -> torch.Tensor:
             .unflatten(1, (k // TC_K, 2, 4)).permute(1, 4, 0, 5, 2, 6, 3).reshape(-1))
 
 
-def tile_weights(w: torch.Tensor, k: int, out_pad: int) -> torch.Tensor:
+def tile_weights(w: torch.Tensor, k: int, out_pad: int,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(k, out_pad) weights, ``w`` in the top-left and zeros elsewhere, split
-    into TF32 halves and laid out as ``tile_halves``."""
-    if k % TC_K or out_pad % TC_GROUP:
-        raise ValueError(f"a ({k}, {out_pad}) tiling needs k % {TC_K} == 0 and "
+    into TF32 halves and laid out as ``tile_halves``; or, for bfloat16,
+    rounded to bf16 as tiles of TC_GROUP outputs x 16 k, each the
+    shared-memory image of one bf16 wgmma B operand (K-major, core matrices
+    of 8 outputs x 8 k, [8 outputs][k half][output][8 k]), in the same
+    order (k step major, then output group), as float32 words holding bf16
+    pairs."""
+    kk = k_step(dtype)
+    if k % kk or out_pad % TC_GROUP:
+        raise ValueError(f"a ({k}, {out_pad}) tiling needs k % {kk} == 0 and "
                          f"out_pad % {TC_GROUP} == 0")
     full = w.new_zeros(k, out_pad, dtype=torch.float32)
     full[:w.shape[0], :w.shape[1]] = w
-    return tile_halves(torch.stack(tf32_split(full)))
+    if dtype == torch.float32:
+        return tile_halves(torch.stack(tf32_split(full)))
+    # (step, k half, k, group, output group of 8, output) -> (step, group,
+    # output group of 8, k half, output, k)
+    tiles = (full.unflatten(1, (out_pad // TC_GROUP, TC_GROUP // 8, 8))
+             .unflatten(0, (k // kk, 2, 8)).permute(0, 3, 4, 1, 5, 2))
+    return tiles.to(torch.bfloat16).reshape(-1).view(torch.float32)
 
 
-def epilogue_tile(b: torch.Tensor, x: Optional[torch.Tensor]) -> torch.Tensor:
+def epilogue_tile(b: torch.Tensor, x: Optional[torch.Tensor],
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """A layer's bias and (3, out) xyz weights as one tile of the trunk's
     ring (2 TC_GROUP TC_K floats): the bias at 0, xyz row r at (r + 1)
-    TC_MAX_OUT, zeros elsewhere."""
+    TC_MAX_OUT, zeros elsewhere; the xyz weights rounded to ``dtype``, the
+    bias not."""
     tile = b.new_zeros(4, TC_MAX_OUT, dtype=torch.float32)
     tile[0, :b.shape[0]] = b
     if x is not None:
-        tile[1:, :x.shape[1]] = x
+        tile[1:, :x.shape[1]] = round_to(x.to(torch.float32), dtype)
     return tile.reshape(-1)
 
 
 def place_tc_layer(place: Callable, w: Optional[torch.Tensor], lat: Optional[torch.Tensor],
                    x: Optional[torch.Tensor], b: torch.Tensor, in_pad: int, out_pad: int,
-                   lat_pad: int) -> List[int]:
+                   lat_pad: int, dtype: torch.dtype = torch.float32,
+                   xyz_dtype: Optional[torch.dtype] = None) -> List[int]:
     """One hidden layer in grid_trunk_tc.cuh's layout with per-point input
     rows (K3's latent, K6's input row): [w, x, lat, b, in_pad, out_pad].
     ``w`` (in, out) on the activation and ``lat`` (C, out) on the input rows
-    are one run of ``tile_weights`` tiles, lat's (padded to lat_pad rows)
-    right after w's; the bias and xyz weights ``x`` (3, out) one
-    ``epilogue_tile``.  ``place(shape, fill)`` reserves an array and returns
-    its offset."""
+    are one run of ``tile_weights`` tiles in ``dtype``, lat's (padded to
+    lat_pad rows) right after w's; the bias and xyz weights ``x`` (3, out),
+    rounded to ``xyz_dtype`` (default ``dtype``), one ``epilogue_tile``.
+    ``place(shape, fill)`` reserves an array and returns its offset."""
     parts = []
     if w is not None:
-        parts.append(tile_weights(w, in_pad, out_pad))
+        parts.append(tile_weights(w, in_pad, out_pad, dtype))
     if lat is not None:
-        parts.append(tile_weights(lat, lat_pad, out_pad))
+        parts.append(tile_weights(lat, lat_pad, out_pad, dtype))
     w_off = lat_off = -1
     if parts:
         tiles = torch.cat(parts)
         off = place(tuple(tiles.shape), tiles)
         w_off = off if w is not None else -1
         if lat is not None:
-            lat_off = off + (2 * in_pad * out_pad if w is not None else 0)
-    epi = epilogue_tile(b, x)
+            lat_off = off + (tile_floats(in_pad, out_pad, dtype) if w is not None else 0)
+    epi = epilogue_tile(b, x, xyz_dtype or dtype)
     b_off = place(tuple(epi.shape), epi)
     return [w_off, b_off + TC_MAX_OUT if x is not None else -1, lat_off, b_off, in_pad, out_pad]
 
 
-def untile_weights(flat: torch.Tensor, k: int, out_pad: int) -> torch.Tensor:
-    """(k, out_pad) big + small from ``tile_weights``'s tiles."""
+def untile_weights(flat: torch.Tensor, k: int, out_pad: int,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(k, out_pad) float32 weights from ``tile_weights``'s tiles: big +
+    small, or the bf16 values."""
+    if check_dtype(dtype) == torch.bfloat16:
+        tiles = flat.contiguous().view(torch.bfloat16).view(
+            k // TC_K_BF16, out_pad // TC_GROUP, TC_GROUP // 8, 2, 8, 8)
+        return tiles.permute(0, 3, 5, 1, 2, 4).reshape(k, out_pad).to(torch.float32)
     tiles = flat.view(k // TC_K, out_pad // TC_GROUP, 2, TC_GROUP // 8, 2, 8, 4)
     both = tiles[:, :, 0] + tiles[:, :, 1]
     return both.permute(0, 3, 5, 1, 2, 4).reshape(k, out_pad)
 
 
 def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (),
-                n_rows: int = N_ROWS, pad: int = PAD) -> Tuple[torch.Tensor, np.ndarray]:
+                n_rows: int = N_ROWS, pad: int = PAD, dtype: torch.dtype = torch.float32,
+                fin_x_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, np.ndarray]:
     """Pad and pack trunks (FoldedTrunk-like: ``hidden`` layers with
     ``w``/``b``, ``fin``, ``fin_x``, ``fin_b``, ``rows``) into one zeroed
     float32 buffer on their device, each array starting on an ALIGN
@@ -252,7 +313,9 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
     out_pad)``], where ``place(shape, fill)`` reserves an array with
     ``fill`` in its top-left and returns its offset.  A trunk's ``fin_x``
     (k, len(rows)) lands as (n_rows, k): k is 3 xyz columns for K1 and K3,
-    the input row padded to lat_pad for K6."""
+    the input row padded to lat_pad for K6.  ``dtype`` rounds the final
+    rows' weights ``fin`` (and ``fin_x``, unless ``fin_x_dtype`` says
+    otherwise), not their bias."""
     if not 1 <= len(trunks) <= _MAX_TRUNKS:
         raise ValueError(f"the kernel takes 1 or 2 trunks, got {len(trunks)}")
     pieces: List[Tuple[int, Tuple[int, ...], torch.Tensor]] = []
@@ -283,11 +346,11 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
             layers.append(place_layer(place, h, in_pad, out_pad))
             in_pad = out_pad
         fin = torch.zeros(n_rows, t.fin.shape[0], dtype=torch.float32, device=device)
-        fin[list(t.rows)] = t.fin.T
+        fin[list(t.rows)] = round_to(t.fin.T.to(torch.float32), dtype)
         fin_xyz = -1
         if t.fin_x is not None:
             fx = torch.zeros(n_rows, t.fin_x.shape[0], dtype=torch.float32, device=device)
-            fx[list(t.rows)] = t.fin_x.T
+            fx[list(t.rows)] = round_to(t.fin_x.T.to(torch.float32), fin_x_dtype or dtype)
             fin_xyz = place(tuple(fx.shape), fx)
         desc += [len(t.hidden), place((n_rows, in_pad), fin), fin_xyz, in_pad]
         for layer in layers:
@@ -318,19 +381,23 @@ def output_rows(trunks: Sequence) -> int:
     return n_rows
 
 
-def pack_grid_plan(trunks: List[FoldedTrunk], n: int) -> GridPlan:
+def pack_grid_plan(trunks: List[FoldedTrunk], n: int,
+                   dtype: torch.dtype = torch.float32) -> GridPlan:
     """Pad and pack folded trunks into a GridPlan on the trunks' device,
-    with ``output_rows(trunks)`` output rows."""
+    with ``output_rows(trunks)`` output rows, computing in ``dtype``
+    (float32: split TF32 tiles; bfloat16: bf16 tiles, the xyz and final
+    weights rounded to bf16, the biases float32)."""
     n_rows = output_rows(trunks)
 
     def layer(place, h: HiddenLayer, in_pad: int, out_pad: int) -> List[int]:
-        tiles = tile_weights(h.w, in_pad, out_pad) if h.w is not None else None
+        tiles = tile_weights(h.w, in_pad, out_pad, dtype) if h.w is not None else None
         w = place(tuple(tiles.shape), tiles) if tiles is not None else -1
-        epi = epilogue_tile(h.b, h.x)
+        epi = epilogue_tile(h.b, h.x, dtype)
         b = place(tuple(epi.shape), epi)
         return [w, b + TC_MAX_OUT if h.x is not None else -1, b, in_pad, out_pad]
 
-    return GridPlan(*pack_trunks(trunks, layer, (n_rows,), n_rows, TC_GROUP), n)
+    return GridPlan(*pack_trunks(trunks, layer, (n_rows,), n_rows, TC_GROUP, dtype), n,
+                    dtype=check_dtype(dtype))
 
 
 def grid_coords(base: int, m: int, n: int, origin: torch.Tensor,
@@ -344,7 +411,8 @@ def grid_coords(base: int, m: int, n: int, origin: torch.Tensor,
 def grid_decode_reference(plan: GridPlan, base: int, m: int, origin: torch.Tensor,
                           voxel: torch.Tensor) -> torch.Tensor:
     """The plain version of K1: the same folded-plan arithmetic with
-    torch.matmul.  Returns (n_rows, m) float32, tanh on the SDF rows."""
+    torch.matmul (a bf16 plan's hidden activations rounded to bf16 after
+    the ReLU).  Returns (n_rows, m) float32, tanh on the SDF rows."""
     xyz = grid_coords(base, m, plan.n, origin, voxel)
     acc = plan.fin_b[:, None].expand(plan.n_rows, m).clone()
     for hidden, fin, fin_xyz in plan.trunks():
@@ -355,7 +423,7 @@ def grid_decode_reference(plan: GridPlan, base: int, m: int, origin: torch.Tenso
                 h = h + a @ w
             if x is not None:
                 h = h + xyz @ x
-            a = torch.relu(h)
+            a = round_to(torch.relu(h), plan.dtype)
         acc = acc + fin @ a.T
         if fin_xyz is not None:
             acc = acc + fin_xyz @ xyz.T
@@ -370,7 +438,7 @@ def _launcher():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -397,12 +465,16 @@ def grid_decode(plan: GridPlan, base: int, m: int, origin: torch.Tensor,
         stream = torch.cuda.current_stream(plan.device).cuda_stream
         rc = _launcher()(plan.flat.data_ptr(), desc.ctypes.data, int(desc.size),
                          scal.data_ptr(), int(base), int(m), int(plan.n), out.data_ptr(),
-                         stream)
+                         int(plan.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"grid_decoder launch failed with code {rc}"
                            + (" (plan rejected)" if rc == -1 else ""))
-    grid_decode.launches += 1
+    if plan.dtype == torch.bfloat16:
+        grid_decode.bf16_launches += 1
+    else:
+        grid_decode.launches += 1
     return out
 
 
 grid_decode.launches = 0
+grid_decode.bf16_launches = 0  # the bf16 kernel's (a bf16 plan's) launches

@@ -186,4 +186,7 @@ def maxpool_k3s2p1(x: torch.Tensor) -> torch.Tensor:
     """K7: (N, C, H, W) float32 -> (N, C, (H-1)//2+1, (W-1)//2+1), differentiable."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"maxpool_k3s2p1 runs on cuda or cpu, not {x.device}")
+    if x.dtype != torch.float32:
+        raise NotImplementedError(f"not ported yet: K7 on {x.dtype} (the stem pool in bf16 "
+                                  "comes with bf16 training)")
     return MaxPoolFunction.apply(x)

@@ -15,9 +15,21 @@ stored as one run of ``tile_weights`` tiles, [W; W_lat], since the kernel
 gathers the latent into the activation rows just above the layer's input
 and runs one product over both.
 
+A plan packed with ``dtype=torch.bfloat16`` is JAX's bf16 K3
+(``make_fused_pixel_grid_decode_fn(..., dtype=jnp.bfloat16)``): bf16 tiles
+(hidden, latent and final weights), float32 biases and xyz weights (JAX's
+``build_pixel_grid_branch_plan`` keeps its xyz weights float32, :847-848,
+unlike K1's fold), the feature table and its mean row rounded to bf16
+(:997-998), each tap
+weight ky kx formed in float32 and rounded (:1103, :1116), the sampled
+latent rounded before the trunks (:1122), the hidden activations rounded
+after the ReLU; the plain version emulates it in float32.
+
 ``pixel_grid_decode`` takes the plain version only for a plan on the CPU;
 for a plan on the GPU it launches the kernel or raises.
 ``pixel_grid_decode.launches`` counts kernel launches.
+``pixel_grid_decode.bf16_launches`` counts the bf16 kernel's (a bf16 plan's)
+launches apart.
 """
 
 from __future__ import annotations
@@ -34,14 +46,16 @@ from alignsdf_torch.kernels.grid_decoder import (
     TC_GROUP,
     GridPlan,
     _round_up,
+    check_dtype,
     grid_coords,
+    k_step,
     output_rows,
     pack_trunks,
     place_tc_layer,
+    round_to,
 )
 from alignsdf_torch.ops.geometry import bicubic_gather
 
-LAT_ALIGN = 8   # the latent rows pad to the kernel's k step
 N_PROJ = 28     # projection scalars, laid out as in make_pixel_projection
 
 
@@ -142,17 +156,20 @@ def make_feature_table(fmap: torch.Tensor) -> torch.Tensor:
 
 
 def pack_pixel_grid_plan(trunks: List[PixelTrunk], table: torch.Tensor, proj: torch.Tensor,
-                         feat_hw: Tuple[int, int], n: int) -> PixelGridPlan:
+                         feat_hw: Tuple[int, int], n: int,
+                         dtype: torch.dtype = torch.float32) -> PixelGridPlan:
     """Pad and pack trunks into a PixelGridPlan on the trunks' device, with
     ``output_rows(trunks)`` output rows (the class rows on the first
-    trunk)."""
+    trunk), computing in ``dtype`` (the table rounded to it; the latent
+    rows pad to its k step)."""
     hf, wf = feat_hw
     c = table.shape[1]
     if table.shape[0] != hf * wf + 1:
         raise ValueError(f"a {hf}x{wf} map needs {hf * wf + 1} table rows, got {table.shape[0]}")
     if proj.shape != (N_PROJ,):
         raise ValueError(f"the projection has {N_PROJ} scalars, got {tuple(proj.shape)}")
-    lat_pad = _round_up(c, LAT_ALIGN)
+    lat_align = k_step(dtype)  # the latent rows pad to the kernel's k step
+    lat_pad = _round_up(c, lat_align)
     n_rows = output_rows(trunks)
 
     rows = 0
@@ -161,13 +178,17 @@ def pack_pixel_grid_plan(trunks: List[PixelTrunk], table: torch.Tensor, proj: to
         nonlocal rows
         if h.lat is not None:
             rows = max(rows, (in_pad if h.w is not None else 0) + lat_pad)
-        return place_tc_layer(place, h.w, h.lat, h.x, h.b, in_pad, out_pad, lat_pad)
+        return place_tc_layer(place, h.w, h.lat, h.x, h.b, in_pad, out_pad, lat_pad, dtype,
+                              xyz_dtype=torch.float32)
 
-    flat, desc = pack_trunks(trunks, layer, (c, lat_pad, hf, wf, n_rows), n_rows, TC_GROUP)
-    desc[2] = max(int(desc[2]), _round_up(rows, LAT_ALIGN))
+    flat, desc = pack_trunks(trunks, layer, (c, lat_pad, hf, wf, n_rows), n_rows, TC_GROUP,
+                             dtype, fin_x_dtype=torch.float32)
+    desc[2] = max(int(desc[2]), _round_up(rows, lat_align))
     device = flat.device
-    return PixelGridPlan(flat, desc, n, table.to(device=device, dtype=torch.float32).contiguous(),
-                         proj.to(device=device, dtype=torch.float32).contiguous())
+    table = round_to(table.to(device=device, dtype=torch.float32), dtype).contiguous()
+    return PixelGridPlan(flat, desc, n, table,
+                         proj.to(device=device, dtype=torch.float32).contiguous(),
+                         dtype=check_dtype(dtype))
 
 
 def pixel_projection(plan: PixelGridPlan, base: int, m: int, origin: torch.Tensor,
@@ -195,13 +216,15 @@ def pixel_projection(plan: PixelGridPlan, base: int, m: int, origin: torch.Tenso
 def pixel_grid_decode_reference(plan: PixelGridPlan, base: int, m: int, origin: torch.Tensor,
                                 voxel: torch.Tensor) -> torch.Tensor:
     """The plain version of K3: the same projection, the 16-tap bicubic
-    gather of the table, and the trunks with torch.matmul.  Returns
-    (n_rows, m) float32, tanh on the SDF rows."""
+    gather of the table, and the trunks with torch.matmul (a bf16 plan's tap
+    weights, sampled latent and hidden activations rounded to bf16).
+    Returns (n_rows, m) float32, tanh on the SDF rows."""
     xyz, xp, yp, inside = pixel_projection(plan, base, m, origin, voxel)
     hf, wf = plan.feat_hw
     c = plan.table.shape[1]
-    sampled = bicubic_gather(plan.table[None], xp[None], yp[None], hf, wf)[0]
-    latent = torch.where(inside[:, None], sampled, plan.table[hf * wf][None, :])
+    sampled = bicubic_gather(plan.table[None], xp[None], yp[None], hf, wf, plan.dtype)[0]
+    latent = torch.where(inside[:, None], round_to(sampled, plan.dtype),
+                         plan.table[hf * wf][None, :])
     lat_pad = int(plan.desc[4])
     if lat_pad > c:
         latent = torch.nn.functional.pad(latent, (0, lat_pad - c))
@@ -216,7 +239,7 @@ def pixel_grid_decode_reference(plan: PixelGridPlan, base: int, m: int, origin: 
                 h = h + latent @ lat
             if x is not None:
                 h = h + xyz @ x
-            a = torch.relu(h)
+            a = round_to(torch.relu(h), plan.dtype)
         acc = acc + fin @ a.T
         if fin_xyz is not None:
             acc = acc + fin_xyz @ xyz.T
@@ -231,7 +254,7 @@ def _launcher():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -259,12 +282,17 @@ def pixel_grid_decode(plan: PixelGridPlan, base: int, m: int, origin: torch.Tens
         stream = torch.cuda.current_stream(plan.device).cuda_stream
         rc = _launcher()(plan.flat.data_ptr(), desc.ctypes.data, int(desc.size),
                          plan.table.data_ptr(), scal.data_ptr(), int(base), int(m),
-                         int(plan.n), out.data_ptr(), stream)
+                         int(plan.n), out.data_ptr(), int(plan.dtype == torch.bfloat16),
+                         stream)
     if rc != 0:
         raise RuntimeError(f"pixel_grid_decoder launch failed with code {rc}"
                            + (" (plan rejected)" if rc == -1 else ""))
-    pixel_grid_decode.launches += 1
+    if plan.dtype == torch.bfloat16:
+        pixel_grid_decode.bf16_launches += 1
+    else:
+        pixel_grid_decode.launches += 1
     return out
 
 
 pixel_grid_decode.launches = 0
+pixel_grid_decode.bf16_launches = 0  # the bf16 kernel's (a bf16 plan's) launches

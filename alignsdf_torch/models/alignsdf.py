@@ -14,8 +14,9 @@ from torch import nn
 from alignsdf_torch.config import Specs
 from alignsdf_torch.mano.layer import load_mano_model
 from alignsdf_torch.models.decoder import make_decoder
+from alignsdf_torch.models.layers import compute_dtype_of, set_compute_dtype
 from alignsdf_torch.models.manobranch import ManoBranch
-from alignsdf_torch.models.resnet import ResNetEncoder
+from alignsdf_torch.models.resnet import Conv2d, ResNetEncoder
 from alignsdf_torch.ops.embeddings import kinematic_embedding, nerf_embed_for_point_feat
 from alignsdf_torch.ops.geometry import get_obj_trans, pixel_alignment, soft_argmax
 
@@ -34,20 +35,23 @@ def normalize_image_on_device(image: torch.Tensor) -> torch.Tensor:
 
 
 def check_supported(specs: Specs) -> None:
-    """Raise for spec features the port does not carry yet, and for a
-    pixel-aligned spec without the MANO branch, whose predicted root the
-    projection is centred on."""
+    """Raise for a pixel-aligned spec without the MANO branch, whose
+    predicted root the projection is centred on, and for a ComputeDtype
+    other than float32 or bfloat16.  (Training refuses bfloat16 for now:
+    ``training/train_step.check_trainable``.)"""
     if specs.pixel_align and not specs.mano_branch:
         raise ValueError("PixelAlign needs ManoBranch: points are projected about the "
                          "predicted hand root")
-    if specs.compute_dtype != "float32":
-        raise NotImplementedError("not ported yet: ComputeDtype=bfloat16")
+    compute_dtype_of(specs.compute_dtype)
 
 
 class AlignSDF(nn.Module):
     """Encoder, MANO branch, object pose and SDF decoder.  ``encode_scene``
     always runs in eval mode; the training front half runs in the mode its
-    ``train`` argument names."""
+    ``train`` argument names.  ``specs.compute_dtype`` sets the encoder's,
+    the decoder's and the volume layer's compute dtype, as the JAX model
+    builds them; the MANO branch, the object pose and the outputs stay
+    float32."""
 
     def __init__(self, specs: Specs):
         super().__init__()
@@ -66,7 +70,11 @@ class AlignSDF(nn.Module):
                                     specs.point_feat_size, specs.encode_style,
                                     specs.network_specs, specs.classifier_branch)
         # 1x1 conv: 256 channels -> 64 depth-bin heatmap (reference model.py:376-377)
-        self.volume_layer = nn.Conv2d(256, 64, 1) if specs.use_obj_pose else None
+        self.volume_layer = Conv2d(256, 64, 1) if specs.use_obj_pose else None
+        dtype = compute_dtype_of(specs.compute_dtype)
+        for part in (self.encoder, self.decoder, self.volume_layer):
+            if part is not None:
+                set_compute_dtype(part, dtype)
 
     @contextmanager
     def _mode(self, train: bool):
@@ -93,7 +101,8 @@ class AlignSDF(nn.Module):
         if specs.use_obj_pose:
             heatmaps = self.volume_layer(aux_feat)  # (B, 64 depth bins, 64, 64)
             obj_trans, obj_center = get_obj_trans(
-                soft_argmax(heatmaps), mano_results["center3d"], cond_input["cam_intr"],
+                soft_argmax(heatmaps.to(torch.float32)), mano_results["center3d"],
+                cond_input["cam_intr"],
                 mano_results["obj_rot"] if specs.use_obj_rot else None)
             obj_corners = (torch.einsum("bij,bnj->bni", obj_trans[:, :3, :3],
                                         cond_input["rest_obj_corners"])

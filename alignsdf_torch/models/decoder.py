@@ -8,7 +8,12 @@ serves on the CPU as a second reference for the fused grid kernel.  With
 ``use_classifier`` the hand (or combined) trunk also feeds its last layer's
 input to ``classifier_head``, a plain Linear to ``num_class`` part logits
 (JAX ``models/decoder.py:68-70``), taken before any ``latent_in`` concat.
-Both decoders return (sdf_hand, sdf_obj, logits | None).
+Both decoders return (sdf_hand, sdf_obj, logits | None), float32.
+
+The compute dtype (``layers.set_compute_dtype``; JAX ``models/decoder.py``
+:51-86, :121-203): under bfloat16 a trunk casts its input rows to bf16, its
+layers compute in bf16 (``layers.py``), the ReLUs and the final tanh run on
+bf16, and the outputs and logits are cast back to float32.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ class _Trunks(nn.Module):
 
     specs: NetworkSpecs
     classifier_head: Optional[nn.Linear]
+    compute_dtype = torch.float32
 
     def _add_trunk(self, prefix: str, in_dim: int, out_dim: int,
                    use_classifier: bool = False) -> None:
@@ -65,7 +71,8 @@ class _Trunks(nn.Module):
             self.classifier_head = TorchLinear(shapes[-2][1], self.specs.num_class)
 
     def _run_trunk(self, prefix: str, x: torch.Tensor, classify: bool = False):
-        """(tanh'd outputs, logits | None) of one trunk."""
+        """(tanh'd outputs, logits | None) of one trunk, float32."""
+        x = x.to(self.compute_dtype)
         inputs = x
         n_layers = len(self.specs.dims) + 1
         logits = None
@@ -77,7 +84,8 @@ class _Trunks(nn.Module):
             x = getattr(self, f"{prefix}{layer}")(x)
             if layer < n_layers - 1:
                 x = torch.relu(x)
-        return torch.tanh(x), logits
+        return (torch.tanh(x).to(torch.float32),
+                None if logits is None else logits.to(torch.float32))
 
 
 class CombinedDecoder(_Trunks):

@@ -5,6 +5,15 @@ networks/model.py:33-76).
 Three outputs: ``sdf_feat`` = fc(global average pool), ``mano_feat`` = the
 pool itself, ``aux_feat`` = HeadNet, 3 x (ConvTranspose k4 s2 p1 -> BN ->
 ReLU), 8x8x512 -> 64x64x256.  Module names follow the reference state_dict.
+
+The compute dtype (``layers.set_compute_dtype``; the JAX encoder's
+``dtype``, its ``models/resnet.py``): under bfloat16 the image is cast to
+bf16, convolutions and deconvolutions run on bf16 operands and return bf16
+(a bias, cast to bf16, added after the product), eval-mode BatchNorm
+normalizes in float32 with its float32 statistics and returns the input's
+dtype, ReLUs, pools and residual sums stay bf16, and the global average
+pool is taken in float32.  Train-mode BatchNorm on bf16 (JAX's one-pass
+statistics) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -14,6 +23,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from alignsdf_torch.models.layers import TorchLinear
 
 _ARCHS = {"resnet18": (2, 2, 2, 2), "resnet34": (3, 4, 6, 3)}
 
@@ -33,8 +44,48 @@ def stem_pool(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, 2, 1)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with a compute dtype (JAX's ``nn.Conv(dtype=...)``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no bias, no output padding) with a compute
+    dtype (JAX's ``TorchConvTranspose(dtype=...)``)."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose float32 statistics normalize a bf16 input
+    in float32 and return bf16 (JAX's ``TorchBatchNorm`` in eval)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        if self.training:
+            raise NotImplementedError("not ported yet: train-mode BatchNorm on bfloat16 "
+                                      "(ComputeDtype=bfloat16 training)")
+        return super().forward(x.to(torch.float32)).to(x.dtype)
+
+
 def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):
@@ -42,14 +93,14 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_planes, planes, 3, stride, 1, bias=False)
         self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = _bn(planes)
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_planes, planes, 1, stride, 0, bias=False), _bn(planes))
+                Conv2d(in_planes, planes, 1, stride, 0, bias=False), _bn(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.relu(self.bn1(self.conv1(x)))
@@ -66,8 +117,8 @@ class HeadNet(nn.Module):
         layers = []
         for i in range(num_layers):
             layers += [
-                nn.ConvTranspose2d(in_planes if i == 0 else out_planes, out_planes,
-                                   4, 2, 1, bias=False),
+                ConvTranspose2d(in_planes if i == 0 else out_planes, out_planes,
+                                4, 2, 1, bias=False),
                 _bn(out_planes),
                 nn.ReLU(),
             ]
@@ -78,7 +129,10 @@ class HeadNet(nn.Module):
 
 
 class ResNetEncoder(nn.Module):
-    """ResNet trunk + three-way head; input NCHW float32."""
+    """ResNet trunk + three-way head; input NCHW float32, cast to the
+    compute dtype."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, backbone: str = "resnet18", latent_size: int = 256,
                  mano_features: bool = False, use_headnet: bool = False,
@@ -87,7 +141,7 @@ class ResNetEncoder(nn.Module):
         if backbone not in _ARCHS:
             raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
         self.mano_features = mano_features
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         in_planes = 64
         for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), _ARCHS[backbone])):
@@ -98,15 +152,15 @@ class ResNetEncoder(nn.Module):
                 in_planes = planes
             setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
         self.fc = (None if use_headnet and use_pixel_align
-                   else nn.Linear(512, latent_size))
+                   else TorchLinear(512, latent_size))
         self.aux_layer = HeadNet() if use_headnet else None
 
     def forward(self, x: torch.Tensor) -> Tuple[
             Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = torch.relu(self.bn1(self.conv1(x.to(self.compute_dtype))))
         x = stem_pool(x)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        gap = x.mean(dim=(2, 3))
+        gap = x.to(torch.float32).mean(dim=(2, 3))
         sdf_feat = self.fc(gap) if self.fc is not None else None
         mano_feat = gap if self.mano_features else None
         aux_feat = self.aux_layer(x) if self.aux_layer is not None else None

@@ -68,9 +68,12 @@ def trunk_input_widths(specs: Specs) -> Tuple[int, ...]:
     return separate_input_widths(ls, pfs, specs.encode_style)
 
 
-def make_generic_plan(decoder: torch.nn.Module, specs: Specs) -> GenericPlan:
+def make_generic_plan(decoder: torch.nn.Module, specs: Specs,
+                      dtype: torch.dtype = torch.float32) -> GenericPlan:
     """K6's packed plan of the decoder's trunks (weight norm materialized),
-    the classifier's rows on the first trunk, on the decoder's device."""
+    the classifier's rows on the first trunk, on the decoder's device,
+    computing in ``dtype`` (JAX's ``build_branch_plan(..., dtype)``: bf16
+    weights, float32 biases)."""
     ns = specs.network_specs
     n_layers = len(ns.dims) + 1
     widths = trunk_input_widths(specs)
@@ -87,10 +90,11 @@ def make_generic_plan(decoder: torch.nn.Module, specs: Specs) -> GenericPlan:
             trunks = [trunk(first, widths[0], 1, [0]), trunk(second, widths[1], 1, [1])]
         if decoder.classifier_head is not None:
             trunks[0] = with_classifier(trunks[0], decoder.classifier_head)
-        return pack_generic_plan(trunks, widths)
+        return pack_generic_plan(trunks, widths, dtype)
 
 
-def make_generic_decode_fn(specs: Specs, kernel: Callable = generic_decode) -> Callable:
+def make_generic_decode_fn(specs: Specs, kernel: Callable = generic_decode,
+                           dtype: torch.dtype = torch.float32) -> Callable:
     """decode(ctx, rows) -> (sdf_h (M, 1), sdf_o (M, 1), logits (M, C) or
     None) of (M, latent + pfs) rows through K6, for the grid evaluator's
     generic path (JAX's ``make_pallas_decode_fn``).  ``ctx["decoder"]`` is
@@ -101,18 +105,21 @@ def make_generic_decode_fn(specs: Specs, kernel: Callable = generic_decode) -> C
     slices of the rows (the four encode styles); a combined trunk reads the
     whole row.  Pixel-aligned rows (the map sampled per point) decode the
     same way.  ``kernel`` may name K6's plain version, to compare the two on
-    the card."""
+    the card.  ``dtype`` is K6's compute dtype (JAX's ``make_pallas_decode_fn
+    (specs, dtype)``): with bfloat16 the rows enter as bf16, as JAX's
+    ``run`` casts them (:196-199)."""
     combined = specs.model_type == "1encoder1decoder"
     cache: Dict[str, object] = {}
 
     def plan_of(decoder: torch.nn.Module) -> GenericPlan:
         key = (decoder, tuple((p.data_ptr(), p._version) for p in decoder.parameters()))
         if cache.get("key") != key:
-            cache["key"], cache["plan"] = key, make_generic_plan(decoder, specs)
+            cache["key"], cache["plan"] = key, make_generic_plan(decoder, specs, dtype)
         return cache["plan"]
 
     def decode(ctx: Dict, rows: torch.Tensor):
         plan = plan_of(ctx["decoder"])
+        rows = rows.to(dtype)
         if combined:
             return kernel(plan, rows)
         return kernel(plan, *separate_decoder_inputs(specs.latent_size, specs.encode_style, rows))

@@ -125,14 +125,15 @@ def pixel_coords(xyz: torch.Tensor, cam_intr: torch.Tensor, pred_root: torch.Ten
 
 
 def bicubic_gather(table: torch.Tensor, xp: torch.Tensor, yp: torch.Tensor,
-                   hf: int, wf: int) -> torch.Tensor:
+                   hf: int, wf: int, weight_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Bicubic sample of a channel-contiguous map at pixel coordinates.
 
     ``table`` (B, >= hf * wf, C) holds row-major pixels; ``xp``, ``yp`` (B, N)
     are column / row coordinates.  Sums the 4 x 4 taps around each point;
     a tap outside the map contributes zero (padding_mode='zeros').
     Non-finite coordinates sample as if 10 pixels off the map (zero).
-    Returns (B, N, C).
+    Each tap's weight ky kx is rounded to ``weight_dtype`` (bfloat16: the
+    bf16 grid kernel K3's taps).  Returns (B, N, C).
     """
     b, n = xp.shape
     c = table.shape[-1]
@@ -158,6 +159,8 @@ def bicubic_gather(table: torch.Tensor, xp: torch.Tensor, yp: torch.Tensor,
             valid = (row >= 0) & (row < hf) & (col >= 0) & (col < wf)
             idx = torch.where(valid, row * wf + col, 0) + offset
             w = torch.where(valid, wy[..., i] * wx[..., j], 0.0)
+            if weight_dtype != torch.float32:
+                w = w.to(weight_dtype).to(torch.float32)
             out += w[..., None] * flat.index_select(0, idx.reshape(-1)).reshape(b, n, c)
     return out
 

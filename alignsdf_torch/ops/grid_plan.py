@@ -134,10 +134,15 @@ def with_classifier(trunk, head: torch.nn.Module):
                           rows=[*trunk.rows, *range(2, 2 + c)])
 
 
-def make_grid_decode_fn(specs: Specs, n: int) -> Optional[Callable]:
+def make_grid_decode_fn(specs: Specs, n: int,
+                        dtype: torch.dtype = torch.float32) -> Optional[Callable]:
     """prepare(ctx) -> decode(base, m, origin, voxel) -> (2 + C, m) fields
     and logits (C = 0 without a classifier), or None when the config cannot
     use the fused path (NeRF positional encoding is not affine in xyz).
+    ``dtype`` is K1's compute dtype (JAX's ``dtype``: bfloat16 packs bf16
+    tiles; the fold runs in float32 and its xyz weights are rounded to bf16,
+    ``(emb_a @ w_emb).astype(dtype)``, :331, as are the final and class
+    rows; the biases stay float32).
 
     ``ctx`` holds the decoder module, the (1, L) latent and, for kinematic
     styles, rot_center / global_trans / obj_trans.  ``prepare`` folds and
@@ -170,7 +175,7 @@ def make_grid_decode_fn(specs: Specs, n: int) -> Optional[Callable]:
                 trunks = [trunk(first, cols_h, 1, [0]), trunk(second, cols_o, 1, [1])]
             if decoder.classifier_head is not None:
                 trunks[0] = with_classifier(trunks[0], decoder.classifier_head)
-            plan = pack_grid_plan(trunks, n)
+            plan = pack_grid_plan(trunks, n, dtype)
 
         def decode(base: int, m: int, origin: torch.Tensor, voxel: torch.Tensor):
             return grid_decode(plan, base, m, origin, voxel)

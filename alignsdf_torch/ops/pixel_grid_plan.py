@@ -80,8 +80,8 @@ def build_pixel_grid_branch_plan(
     return PixelTrunk(hidden, last.w, last.x, last.b, rows)
 
 
-def make_pixel_grid_decode_fn(specs: Specs, n: int,
-                              ref_projection: bool = False) -> Optional[Callable]:
+def make_pixel_grid_decode_fn(specs: Specs, n: int, ref_projection: bool = False,
+                              dtype: torch.dtype = torch.float32) -> Optional[Callable]:
     """prepare(ctx) -> decode(base, m, origin, voxel) -> (2 + C, m) fields
     and logits (C = 0 without a classifier) for a pixel-aligned config, or
     None when it cannot use the fused path (not pixel-aligned, an embedding
@@ -95,7 +95,10 @@ def make_pixel_grid_decode_fn(specs: Specs, n: int,
 
     ``ref_projection`` projects the embedding's first three columns, as the
     reference's mesh path does; the default projects the raw grid
-    coordinates, as its train path does (inference/grid.py).
+    coordinates, as its train path does (inference/grid.py).  ``dtype`` is
+    K3's compute dtype (JAX's ``dtype``, :1275-1380): bfloat16 packs bf16
+    tiles and rounds the feature table with its mean row (:997-998) and the
+    final and class weights; the biases and xyz weights stay float32.
     """
     ns = specs.network_specs
     n_layers = len(ns.dims) + 1
@@ -134,7 +137,8 @@ def make_pixel_grid_decode_fn(specs: Specs, n: int,
                 trunks = [trunk(first, cols_h, 1, [0]), trunk(second, cols_o, 1, [1])]
             if decoder.classifier_head is not None:
                 trunks[0] = with_classifier(trunks[0], decoder.classifier_head)
-            plan = pack_pixel_grid_plan(trunks, make_feature_table(fmap), proj, (hf, wf), n)
+            plan = pack_pixel_grid_plan(trunks, make_feature_table(fmap), proj, (hf, wf), n,
+                                        dtype)
 
         def decode(base: int, m: int, origin: torch.Tensor, voxel: torch.Tensor):
             return pixel_grid_decode(plan, base, m, origin, voxel)

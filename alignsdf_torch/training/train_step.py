@@ -32,6 +32,14 @@ from alignsdf_torch.training.train_state import (
 COND_KEYS = ("cam_intr", "mano_root", "rest_obj_corners")
 
 
+def check_trainable(specs: Specs) -> None:
+    """Raise for a spec the port cannot train yet: ComputeDtype bfloat16
+    (its train decoders, one-pass BatchNorm and stem pool in bf16 are not
+    ported; bf16 serving is)."""
+    if specs.compute_dtype != "float32":
+        raise NotImplementedError(f"not ported yet: ComputeDtype={specs.compute_dtype} training")
+
+
 def build_batch_masks(specs: Specs, batch_size: int, additional_active: float,
                       is_hand: Optional[torch.Tensor] = None,
                       device: Optional[torch.device] = None
@@ -104,6 +112,7 @@ def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable
     given, is called with "inputs", "decoder", "loss", "backward" and
     "optimizer" as each phase has been enqueued (for timing).  ``step.decode``
     is the decoder it runs."""
+    check_trainable(specs)
     if decode is None:
         decode = make_spec_train_decoder(specs)
     if decode is None:

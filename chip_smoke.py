@@ -3,8 +3,8 @@ flagship, --pa_feat, --cls and --pa_feat --cls, the generic decoders,
 training from an LMDB dataset with the stem pool through K7, the proof
 of learning scored by the evaluation, training and testing from the
 reference's per-file layout, and from an ASDF-pack and forked loader
-workers) on one CUDA GPU and hold each hand-written kernel against its
-plain PyTorch version.
+workers, bf16 serving) on one CUDA GPU and hold each hand-written kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -165,9 +165,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      samples npz's images (the writer stores each image as its JPEG
      decodes), chamfers printed beside the --samples run's, the same
      bounds, the host time to read an item (JPEG decode and centre crop);
-     K1 against its plain version on the trained weights'
-     256^3 plan (its first and last runs of 2^20 points), then its time per
-     256^3 pass;
+     the 16 scenes served with --bf16 and ComputeDtype bfloat16 at 128^3
+     (K1 in bf16) and scored to the same bounds, beside the float32 run's
+     chamfers; K1 against its plain version on the trained weights'
+     256^3 plan (its first and last runs of 2^20 points; K1 in bf16 on
+     the first), then its time per 256^3 pass;
  17. the per-file layout: 128 scenes (2 x ScenesPerBatch) and a 4-image test
      split written as JPEG, npz and pkl files by
      data/synthetic.write_synthetic_dataset; the flagship JSON with LMDB
@@ -207,7 +209,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      dry; the median, mean and range of steps 17-28, past the loader's
      start-up), steps 29-32 under torch.profiler (the idle share), K7's,
      K2's and K1's launches against the steps and the test's images, finite
-     losses and the test's MANO files.
+     losses and the test's MANO files;
+ 19. bf16 serving: K1 (the flagship of 5), K3 (--pa_feat) and K6
+     (--point_size 63 --pallas) on bf16 plans (bf16 wgmma) at full width:
+     each against its plain bf16 version over both 128^3 passes of image 0
+     (within BF16_LOOSE everywhere, the logits BF16_LOGIT_LOOSE of their
+     largest, BF16_TIGHT at BF16_SHARE of the points; the share beyond
+     BF16_TIGHT printed) and against the float32
+     kernel's field (<= 5e-3, near-surface sign flips counted); K1 and K3
+     also at 2 + 6 rows on the classifier specs; each timed per 128^3 pass
+     beside its bf16 bound (the FLOPs at 989.4 TFLOP/s), its split-TF32
+     bound and the float32 kernel; run_pipelined over 3 images with --bf16
+     and ComputeDtype bfloat16 (the bf16 launches, none of the float32
+     kernel, encode and grid ms, images/s, the idle share); then
+     BASELINE.json's configs 1 (bare experiments/obman_30k.json) and 2
+     (--mano): 3 images each at 128^3 in float32 and in bf16, each K1 pass
+     against its plain version, grid ms and images/s.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -323,6 +340,16 @@ PACK_TRAIN_REPEAT = 5  # the TrainSplit names each key 5 times: 40 steps in the 
 PACK_STEADY_SKIP, PACK_STEADY_STEPS, PACK_PROFILED = 16, 12, 4
 PACK_ITEM_TOL = 1e-5  # the native batch against the item path (the JAX package's test_native)
 IPC_REPS = 5
+# phase 19, bf16 serving
+BF16_PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 on the tensor cores (data sheet)
+# a bf16 kernel against its plain bf16 version: both round the same values
+# to bf16, but their float32 sums run in other orders, so now and then a
+# hidden unit rounds to the neighbouring bf16 value and the layers after it
+# carry the step: within BF16_TIGHT at BF16_SHARE of the points, within
+# BF16_LOOSE everywhere (the logits: BF16_LOGIT_LOOSE of their largest)
+BF16_TIGHT, BF16_SHARE, BF16_LOOSE = 1e-5, 0.9, 2e-3
+BF16_LOGIT_LOOSE = 5e-3  # the x40 classifier head carries a flip 40 times over
+BF16_VS_F32_TOL = 5e-3  # a bf16 field against the float32 kernel's (JAX's bf16 bound)
 
 
 
@@ -420,8 +447,11 @@ def scene_ctx(model, specs, sample, dev):
     args = [torch.as_tensor(sample[k])[None].to(dev) for k in
             ("image", "cam_intr", "mano_root", "rest_obj_corners")]
     lat, mano, obj = model.encode_scene(*args)
-    ctx = {"decoder": model.decoder, "latent": lat, "rot_center": mano["rot_center"],
-           "global_trans": mano["global_trans"], "obj_trans": obj["obj_trans"]}
+    ctx = {"decoder": model.decoder, "latent": lat}
+    if mano is not None:
+        ctx.update(rot_center=mano["rot_center"], global_trans=mano["global_trans"])
+    if obj is not None:
+        ctx["obj_trans"] = obj["obj_trans"]
     if specs.pixel_align:
         ctx.update(cam_intr=args[1], pred_root=mano["joints"][:, 0:1])
     return ctx
@@ -1277,18 +1307,9 @@ def pixel_phase(dev, card: str, gen, mano_faces):
         return sum(int(pixel_projection(plan, s, min(chunk, total - s), origin, voxel)[3].sum())
                    for s in range(0, total, chunk))
 
-    # shift the final biases (seeded weights) so ~5% of the first pass is
-    # inside: the field crosses zero and meshes come out
     origin0 = torch.full((3,), -1.0, device=dev)
     voxel0 = torch.tensor(2.0 / (n - 1), device=dev)
-    plan64 = make_pixel_grid_decode_fn(specs, 64)(scene_ctx(model, specs, samples[0], dev)).plan
-    with torch.no_grad():
-        first = pixel_grid_decode_reference(plan64, 0, 64 ** 3, origin0,
-                                            torch.tensor(2.0 / 63, device=dev))
-        for row, name in ((0, "linh4"), (1, "lino4")):
-            q = torch.quantile(first[row], 0.05).clamp(-0.999, 0.999)
-            getattr(model.decoder, name).bias -= torch.atanh(q)
-    del plan64, first
+    shift_final_biases(model, specs, samples[0], dev)
 
     phase(f"K3 vs plain (both passes of image 0 at {n}^3, full --pa_feat flagship width, "
           "TF32 off)")
@@ -2069,49 +2090,18 @@ def generic_macs_per_point(specs) -> int:
     return total
 
 
-def generic_phase(dev, card: str, gen, mano_faces):
-    """--point_size 63 reconstruction (NeRF PE, which K1 cannot fold) at full
-    width through K6, as the JAX CLI's --pallas runs it: K6 against its plain
-    version over one 128^3 pass, at C = 6 and on a combined trunk, the main
-    path (run_pipelined with K6 as the generic path's decode_fn), image 0's
-    field against decode_points, a warm and a profiled run, and K6's time
-    per pass.  Returns (record, the kernels-line entry)."""
-    import dataclasses
-
+def generic_model(dev, sample):
+    """(specs, model): the --point_size 63 flagship at full width, seeded,
+    its NeRF PE damped and its final biases shifted on ``sample``."""
     import torch
 
-    from alignsdf_torch.inference.grid import _coords_from_linear, embed_points
-    from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
-    from alignsdf_torch.kernels.generic_decoder import generic_decode, generic_decode_reference
     from alignsdf_torch.models.alignsdf import build_model
-    from alignsdf_torch.models.decoder import make_decoder, separate_decoder_inputs, trunk_prefixes
-    from alignsdf_torch.ops.decoder_plan import make_generic_decode_fn, make_generic_plan
+    from alignsdf_torch.models.decoder import trunk_prefixes
 
     specs = nerf63_specs()
     model = build_model(specs, device=dev, seed=SEED)
-    samples = synthetic_samples(gen, N_IMAGES)
-    n, chunk = CUBE_DIM, 1 << 18  # the generic evaluator's runs are 2^18 points
-    total = n ** 3
+    n0 = 64
     origin0 = torch.full((3,), -1.0, device=dev)
-    voxel0 = torch.tensor(2.0 / (n - 1), device=dev)
-    rec = {}
-
-    def ctx_of(sample):
-        args = [torch.as_tensor(sample[k])[None].to(dev) for k in
-                ("image", "cam_intr", "mano_root", "rest_obj_corners")]
-        return {"decoder": model.decoder, "latent": model.encode_scene(*args)[0]}
-
-    def pass_rows(ctx, size, origin, voxel, run=chunk):
-        """The [latent, NeRF PE] rows of a size^3 pass, in runs."""
-        for s in range(0, size ** 3, run):
-            idx = torch.arange(s, min(s + run, size ** 3), device=dev)
-            pts = _coords_from_linear(idx, size, origin, voxel)
-            yield torch.cat([ctx["latent"].expand(len(idx), -1), embed_points(specs, ctx, pts)],
-                            dim=1)
-
-    def trunk_rows(rows):
-        return separate_decoder_inputs(specs.latent_size, specs.encode_style, rows)
-
     # seeded weights hear NeRF PE's 2^9 frequency as loudly as its 2^0: at
     # 128^3 the field is noise, whose meshes took about 160 s an image of
     # host marching cubes (the host of an NVIDIA H100 80GB HBM3 at 700 W).
@@ -2129,21 +2119,57 @@ def generic_phase(dev, card: str, gen, mano_faces):
 
     # shift the final biases (seeded weights) so ~5% of the first pass is
     # inside: the field crosses zero and meshes come out
-    ctx = ctx_of(samples[0])
+    ctx = scene_ctx(model, specs, sample, dev)
     with torch.no_grad():
-        first = [torch.cat(f) for f in zip(*[model.decoder(r)[:2] for r in pass_rows(
-            ctx, 64, origin0, torch.tensor(2.0 / 63, device=dev))])]
+        first = [torch.cat(f) for f in zip(*[model.decoder(r)[:2] for r in generic_rows(
+            specs, ctx, n0, origin0, torch.tensor(2.0 / (n0 - 1), device=dev), dev)])]
         for field, name in zip(first, ("linh4", "lino4")):
             q = torch.quantile(field[:, 0], 0.05).clamp(-0.999, 0.999)
             getattr(model.decoder, name).bias -= torch.atanh(q)
-    del first
+    return specs, model
+
+
+def generic_phase(dev, card: str, gen, mano_faces):
+    """--point_size 63 reconstruction (NeRF PE, which K1 cannot fold) at full
+    width through K6, as the JAX CLI's --pallas runs it: K6 against its plain
+    version over one 128^3 pass, at C = 6 and on a combined trunk, the main
+    path (run_pipelined with K6 as the generic path's decode_fn), image 0's
+    field against decode_points, a warm and a profiled run, and K6's time
+    per pass.  Returns (record, the kernels-line entry)."""
+    import dataclasses
+
+    import torch
+
+    from alignsdf_torch.inference.grid import _coords_from_linear, embed_points
+    from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
+    from alignsdf_torch.kernels.generic_decoder import generic_decode, generic_decode_reference
+    from alignsdf_torch.models.decoder import make_decoder, separate_decoder_inputs
+    from alignsdf_torch.ops.decoder_plan import make_generic_decode_fn, make_generic_plan
+
+    samples = synthetic_samples(gen, N_IMAGES)
+    specs, model = generic_model(dev, samples[0])
+    n, chunk = CUBE_DIM, 1 << 18  # the generic evaluator's runs are 2^18 points
+    total = n ** 3
+    origin0 = torch.full((3,), -1.0, device=dev)
+    voxel0 = torch.tensor(2.0 / (n - 1), device=dev)
+    rec = {}
+
+    def ctx_of(sample):
+        args = [torch.as_tensor(sample[k])[None].to(dev) for k in
+                ("image", "cam_intr", "mano_root", "rest_obj_corners")]
+        return {"decoder": model.decoder, "latent": model.encode_scene(*args)[0]}
+
+    def trunk_rows(rows):
+        return separate_decoder_inputs(specs.latent_size, specs.encode_style, rows)
+
+    ctx = ctx_of(samples[0])
 
     phase(f"K6 vs plain (one {n}^3 pass of image 0 in runs of {chunk}, --point_size 63 at full "
           "width: rows of 256 + 63, TF32 off)")
     plan = make_generic_plan(model.decoder, specs)
     saved = generic_decode.launches
     err, inside = 0.0, 0
-    for rows in pass_rows(ctx, n, origin0, voxel0):
+    for rows in generic_rows(specs, ctx, n, origin0, voxel0, dev, chunk):
         k6 = generic_decode(plan, *trunk_rows(rows))
         torch.cuda.synchronize()
         ref = generic_decode_reference(plan, *trunk_rows(rows))
@@ -2156,7 +2182,7 @@ def generic_phase(dev, card: str, gen, mano_faces):
     rec["check"] = {"max_abs_err": err, "inside_share": inside / total}
 
     phase(f"K6 at C = 6 with a classifier and on a combined trunk (one run of {chunk} rows)")
-    rows = next(pass_rows(ctx, n, origin0, voxel0))
+    rows = next(generic_rows(specs, ctx, n, origin0, voxel0, dev, chunk))
     rec["variants"] = {}
     for model_type in ("1encoder2decoder", "1encoder1decoder"):
         vspecs = dataclasses.replace(specs, model_type=model_type, classifier_branch=True)
@@ -2243,7 +2269,7 @@ def generic_phase(dev, card: str, gen, mano_faces):
     del recon
 
     phase(f"timing: K6 and plain per {n}^3 pass (the pass's rows made beforehand)")
-    runs = [trunk_rows(r) for r in pass_rows(ctx, n, origin0, voxel0)]
+    runs = [trunk_rows(r) for r in generic_rows(specs, ctx, n, origin0, voxel0, dev, chunk)]
     saved = generic_decode.launches
     k6_runs = [cuda_ms(lambda: [generic_decode(plan, *r) for r in runs], 1) for _ in range(3)]
     generic_decode.launches = saved
@@ -3010,13 +3036,14 @@ def geometric_phase(dev, card: str):
         state, step = train_cli.make_trainer(specs, dev, seed=SEED, init_guard=True)
         dataset = make_train_dataset(specs, paths["train"], keys, raw_image=True)
 
-        def experiment(name: str) -> str:
-            """An experiment directory holding specs.json and, from the
-            current state, ModelParameters/latest.pth."""
+        def experiment(name: str, spec=None) -> str:
+            """An experiment directory holding specs.json (``spec``, by
+            default the proof's) and, from the current state,
+            ModelParameters/latest.pth."""
             exp = os.path.join(tmp, name)
             os.makedirs(exp)
             with open(os.path.join(exp, "specs.json"), "w") as f:
-                json.dump(specs_to_dict(specs), f, indent=2)
+                json.dump(specs_to_dict(spec or specs), f, indent=2)
             ckpt.save_checkpoint(exp, state, state.epoch, "latest")
             return exp
 
@@ -3081,9 +3108,10 @@ def geometric_phase(dev, card: str):
 
         def reconstruct(label, exp, extra, images, cube, source=("--samples", paths["samples"])):
             """cli.reconstruct.main on the samples npz (or ``source``'s
-            images), K1's launches held to two passes an image in runs of
-            2^20 points."""
-            grid_decode.launches = 0
+            images), K1's launches (its bf16 kernel's with --bf16, and no
+            float32 one) held to two passes an image in runs of 2^20
+            points."""
+            grid_decode.launches = grid_decode.bf16_launches = 0
             t0 = time.perf_counter()
             per_image = reconstruct_cli.main(
                 ["-e", exp, *source, "--end_point", str(images),
@@ -3091,14 +3119,17 @@ def geometric_phase(dev, card: str):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             want = images * 2 * -(-cube ** 3 // (1 << 20))
+            launches, other = grid_decode.launches, grid_decode.bf16_launches
+            if "--bf16" in extra:
+                launches, other = other, launches
             print(f"[{card}] {label}: {images} images at {cube}^3 in {wall:.2f} s, K1 launches "
-                  f"{grid_decode.launches} (expected {want})", flush=True)
-            if grid_decode.launches != want or len(per_image) != images:
-                fail(f"{label}: K1 launches {grid_decode.launches} != {want}")
+                  f"{launches} (expected {want})", flush=True)
+            if launches != want or other != 0 or len(per_image) != images:
+                fail(f"{label}: K1 launches {launches} != {want} (or {other} of the other dtype)")
             for t in per_image:
                 print(f"  {t['key']}: " + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in t.items()
                                                     if k != "key") + " ms", flush=True)
-            return {"wall_s": wall, "launches": grid_decode.launches, "images": per_image}
+            return {"wall_s": wall, "launches": launches, "images": per_image}
 
         def evaluate(label, exp, modes):
             """cli.evaluate.main in each mode: every scene scored, no failure."""
@@ -3176,6 +3207,28 @@ def geometric_phase(dev, card: str):
         if not (split_hand <= GEO_HAND_CHAMFER_MAX and split_obj <= GEO_OBJ_CHAMFER_MAX):
             fail("the reconstructions from the test split's JPEGs miss the proof's bounds")
 
+        # bf16 serving (phase 19's, on the proof's trained weights): the
+        # same scenes with --bf16 (K1 in bf16) and ComputeDtype bfloat16
+        # (the encoder and the plain decoder in bf16), scored as the float32
+        # run, to the same bounds
+        phase(f"geometric bf16 serving: cli.reconstruct --bf16 with ComputeDtype bfloat16 at "
+              f"{CUBE_DIM}^3, then cli.evaluate")
+        exp = experiment("bf16", dataclasses.replace(specs, compute_dtype="bfloat16"))
+        bf = reconstruct("trained --bf16, ComputeDtype bfloat16", exp, ["--bf16"], GEO_SCENES,
+                         CUBE_DIM)
+        bf["eval"] = evaluate("trained --bf16", exp, ["hand", "obj"])
+        bf_hand = bf["eval"]["hand"].get("chamfer_mean", float("inf"))
+        bf_obj = bf["eval"]["obj"].get("chamfer_mean", float("inf"))
+        bf.update(hand_chamfer=bf_hand, obj_chamfer=bf_obj)
+        rec["bf16"] = bf
+        print(f"[{card}] bf16 serving of the trained flagship at {CUBE_DIM}^3 over {GEO_SCENES} "
+              f"scenes: hand chamfer {bf_hand:.4f} cm^2, object {bf_obj:.4f} (the float32 run's: "
+              f"{hand:.4f}, {obj:.4f}; bounds {GEO_HAND_CHAMFER_MAX}, {GEO_OBJ_CHAMFER_MAX}); "
+              "grid ms " + ", ".join(f"{t['grid_ms']:.1f}" for t in bf["images"]) + " (float32: "
+              + ", ".join(f"{t['grid_ms']:.1f}" for t in runs["128"]["images"]) + ")", flush=True)
+        if not (bf_hand <= GEO_HAND_CHAMFER_MAX and bf_obj <= GEO_OBJ_CHAMFER_MAX):
+            fail("the bf16 reconstructions of the trained flagship miss the proof's bounds")
+
         # K1 on the trained weights' 256^3 plan (image 0's scene): its first
         # and last runs of 2^20 points (the highest indices) against the
         # plain version, then its time per pass
@@ -3200,6 +3253,15 @@ def geometric_phase(dev, card: str):
               f"max abs err vs plain {k1_err:.3e} (tolerance {K1_TOL:g})", flush=True)
         if not k1_err <= K1_TOL:
             fail(f"K1 disagrees with its plain version on the trained {n}^3 plan: {k1_err}")
+        with torch.no_grad():
+            plan_b = make_grid_decode_fn(specs, GEO_BIG_CUBE, torch.bfloat16)(ctx).plan
+        saved = grid_decode.bf16_launches
+        out = grid_decode(plan_b, 0, chunk, origin, voxel)
+        torch.cuda.synchronize()
+        c = bf16_compare(out, grid_decode_reference(plan_b, 0, chunk, origin, voxel))
+        grid_decode.bf16_launches = saved
+        bf16_verdict(f"K1 bf16 on the trained {n}^3 plan, points 0..{chunk}", c)
+        rec["k1_bf16_256"] = c
 
         def one_pass():
             for start in range(0, n ** 3, chunk):
@@ -3779,6 +3841,435 @@ def packed_phase(dev, card: str):
     return rec
 
 
+def bf16_compare(out, ref) -> dict:
+    """A bf16 kernel's rows against its plain bf16 version: the SDF rows'
+    largest error, the logits' over their largest magnitude where it exceeds
+    1 (or None), and the share of entries beyond BF16_TIGHT (on that
+    scale)."""
+    c, beyond = {"logits_max_err": None}, 0
+    for k, r, key in ((out[:2], ref[:2], "max_abs_err"), (out[2:], ref[2:], "logits_max_err")):
+        if k.numel() == 0:
+            continue
+        e = (k - r).abs() / (max(1.0, float(r.abs().max())) if key == "logits_max_err" else 1.0)
+        c[key] = float(e.max())
+        beyond += int((e > BF16_TIGHT).sum())
+    c["share_beyond"] = beyond / out.numel()
+    return c
+
+
+def bf16_verdict(label: str, c: dict) -> None:
+    logits = c["logits_max_err"]
+    print(f"{label}: bf16 kernel vs its plain bf16 version: max abs err {c['max_abs_err']:.3e} "
+          f"(tolerance {BF16_LOOSE:g})" + ("" if logits is None else
+                                           f", logits {logits:.3e} of their largest "
+                                           f"(tolerance {BF16_LOGIT_LOOSE:g})")
+          + f", share beyond {BF16_TIGHT:g} {c['share_beyond']:.5f} (at most "
+          f"{1 - BF16_SHARE:g})", flush=True)
+    if not (c["max_abs_err"] <= BF16_LOOSE and c["share_beyond"] <= 1 - BF16_SHARE
+            and (logits is None or logits <= BF16_LOGIT_LOOSE)):
+        fail(f"{label}: the bf16 kernel disagrees with its plain bf16 version: {c}")
+
+
+def vs_float32(label: str, kb, kf, voxel) -> dict:
+    """A bf16 field (rows 0-1) against the float32 kernel's on the same
+    points: the largest difference (at most BF16_VS_F32_TOL, JAX's bf16
+    bound) and the near-surface sign flips (cells with |sdf| < voxel in the
+    float32 field whose sign the bf16 field flips; BASELINE.md row 50)."""
+    diff = float((kb[:2] - kf[:2]).abs().max())
+    near = kf[:2].abs() < float(voxel)
+    flips = int((near & ((kb[:2] < 0) != (kf[:2] < 0))).sum())
+    rec = {"max_abs_diff": diff, "near_surface": int(near.sum()), "flips": flips}
+    print(f"{label}: bf16 field vs the float32 kernel's: max abs diff {diff:.3e} (tolerance "
+          f"{BF16_VS_F32_TOL:g}); near-surface sign flips {flips} of {rec['near_surface']} "
+          "cells", flush=True)
+    if not diff <= BF16_VS_F32_TOL:
+        fail(f"{label}: the bf16 field is {diff} from the float32 kernel's")
+    return rec
+
+
+def shift_final_biases(model, specs, sample, dev) -> None:
+    """Seeded weights of twin trunks: shift their final biases so ~5% of a
+    64^3 first pass is inside (the field crosses zero and meshes come out),
+    on the fused plan's plain version (K1's, or K3's for a pixel-aligned
+    spec)."""
+    import torch
+
+    from alignsdf_torch.kernels.grid_decoder import grid_decode_reference
+    from alignsdf_torch.kernels.pixel_grid_decoder import pixel_grid_decode_reference
+    from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
+    from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
+
+    make, plain = ((make_pixel_grid_decode_fn, pixel_grid_decode_reference) if specs.pixel_align
+                   else (make_grid_decode_fn, grid_decode_reference))
+    plan = make(specs, 64)(scene_ctx(model, specs, sample, dev)).plan
+    last = len(specs.network_specs.dims)
+    with torch.no_grad():
+        first = plain(plan, 0, 64 ** 3, torch.full((3,), -1.0, device=dev),
+                      torch.tensor(2.0 / 63, device=dev))
+        for row, name in ((0, f"linh{last}"), (1, f"lino{last}")):
+            q = torch.quantile(first[row], 0.05).clamp(-0.999, 0.999)
+            getattr(model.decoder, name).bias -= torch.atanh(q)
+
+
+def bf16_model(model, specs, dev):
+    """The same weights in a model whose ComputeDtype is bfloat16."""
+    import dataclasses
+
+    from alignsdf_torch.models.alignsdf import build_model
+
+    specs_b = dataclasses.replace(specs, compute_dtype="bfloat16")
+    model_b = build_model(specs_b, device=dev)
+    model_b.load_state_dict(model.state_dict())
+    return model_b.eval(), specs_b
+
+
+def bf16_main_path(label, model, specs, samples, dev, card, mano_faces, kernel, per_image,
+                   decode_fn=None) -> dict:
+    """run_pipelined over the samples with --bf16 (grid_dtype bfloat16) and
+    ComputeDtype bfloat16: the kernel's bf16 launches (``per_image`` a run)
+    and no float32 one, finite fields, meshes; the encode and grid ms of each
+    image, then a warm and a profiled run (images/s, the idle share)."""
+    import torch
+
+    from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
+
+    model_b, specs_b = bf16_model(model, specs, dev)
+    recon = Reconstructor(model_b, specs_b, cube_dim=CUBE_DIM, mano_faces=mano_faces,
+                          grid_dtype=torch.bfloat16, decode_fn=decode_fn)
+    expected = len(samples) * per_image
+    results = []
+    with tempfile.TemporaryDirectory() as out:
+        dirs = make_output_dirs(out)
+        kernel.launches = kernel.bf16_launches = 0
+        t0 = time.perf_counter()
+        done = run_pipelined(recon, samples, dirs, on_done=lambda i, p: results.append((i, p)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, f32_launches = kernel.bf16_launches, kernel.launches
+        written = sorted(os.listdir(dirs["meshes"]))
+    print(f"{label} (--bf16, ComputeDtype bfloat16): images {done}, wall {wall * 1e3:.1f} ms, "
+          f"bf16 kernel launches {launches} (expected {expected}), float32 kernel launches "
+          f"{f32_launches}, meshes written {len(written)}", flush=True)
+    if done != len(samples) or launches != expected or f32_launches != 0:
+        fail(f"{label}: bf16 launches {launches} != {expected} or float32 launches "
+             f"{f32_launches} != 0")
+    if not written:
+        fail(f"{label}: no mesh was written")
+    rec = {"wall_ms": wall * 1e3, "launches": launches, "meshes": len(written), "images": []}
+    for i, pending in results:
+        host = pending["host"]
+        for name in ("sdf_hand", "sdf_obj"):
+            if (tuple(host[name].shape) != (CUBE_DIM,) * 3
+                    or not bool(torch.isfinite(host[name]).all())):
+                fail(f"{label} image {i}: {name} has the wrong shape or non-finite values")
+        t = pending["timings"]
+        print(f"{label} image {i} [{card}]: encode {t['encode_ms']:.2f} ms, grid "
+              f"{t['grid_ms']:.2f} ms (2 passes), {host_text(t)}", flush=True)
+        rec["images"].append(t)
+    rec["warm"], profiled = warm_and_profiled(recon, samples, kernel, card, f"{label} bf16 ")
+    kernel.bf16_launches = launches
+    if profiled is not None:
+        rec["profile"] = profiled
+        rec["idle_share"] = 1 - profiled["busy_share"]
+    return rec
+
+
+def bf16_phase(dev, card: str, gen, mano_faces, model) -> Tuple[dict, list]:
+    """Phase 19, bf16 serving: K1 (the flagship, ``model`` with phase 5's
+    shifted biases), K3 (--pa_feat) and K6 (--point_size 63 --pallas) on
+    bf16 plans at full width: each bf16 kernel against its plain bf16
+    version over both 128^3 passes of image 0 (K1 and K3 also at 2 + C rows
+    on the classifier specs, C = 6, the first pass) and against the float32
+    kernel's field; each timed per pass beside its bf16 and split-TF32
+    bounds and the float32 kernel; run_pipelined over 3 images with --bf16
+    and ComputeDtype bfloat16; then BASELINE.json's configs 1 and 2 served
+    in float32 and in bf16.  Returns (record, the kernels-line entries)."""
+    import torch
+
+    from alignsdf_torch.inference.grid import _refine_cube
+    from alignsdf_torch.kernels.generic_decoder import generic_decode, generic_decode_reference
+    from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
+    from alignsdf_torch.kernels.pixel_grid_decoder import (
+        pixel_grid_decode, pixel_grid_decode_reference, pixel_projection)
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.models.decoder import separate_decoder_inputs
+    from alignsdf_torch.ops.decoder_plan import make_generic_decode_fn, make_generic_plan
+    from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
+    from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
+
+    bf16 = torch.bfloat16
+    n, total = CUBE_DIM, CUBE_DIM ** 3
+    origin0 = torch.full((3,), -1.0, device=dev)
+    voxel0 = torch.tensor(2.0 / (n - 1), device=dev)
+    samples = synthetic_samples(gen, N_IMAGES)
+    rec, entries = {}, []
+
+    pixel_specs = flagship_specs(pixel=True)
+    pixel_model = build_model(pixel_specs, device=dev, seed=SEED)
+    shift_final_biases(pixel_model, pixel_specs, samples[0], dev)
+    g_specs, g_model = generic_model(dev, samples[0])
+    specs = flagship_specs()
+
+    def generic_pass(kernel, plan, ctx, origin, voxel):
+        outs = []
+        for rows in generic_rows(g_specs, ctx, n, origin, voxel, dev):
+            h, o, _ = kernel(plan, *separate_decoder_inputs(
+                g_specs.latent_size, g_specs.encode_style, rows.to(plan.dtype)))
+            outs.append(torch.cat([h, o], dim=1).T)
+        return torch.cat(outs, dim=1)
+
+    # the three routes: (name, wrapper, plain version, specs, model, plan(ctx, dtype),
+    # pass(fn, plan, ctx, origin, voxel), launches an image, FLOPs a pass (K3's: from the
+    # pass's in-image points, below), the TPU kernel, the source)
+    routes = [
+        ("K1", grid_decode, grid_decode_reference, specs, model,
+         lambda ctx, dt: make_grid_decode_fn(specs, n, dt)(ctx).plan,
+         lambda fn, plan, ctx, o, v: fused_pass(fn, plan, o, v), 2 * -(-total // (1 << 20)),
+         k1_flops_per_point(specs) * total, "alignsdf_tpu/ops/decoder_kernel.py:496",
+         "alignsdf_torch/kernels/csrc/grid_decoder.cu"),
+        ("K3", pixel_grid_decode, pixel_grid_decode_reference, pixel_specs, pixel_model,
+         lambda ctx, dt: make_pixel_grid_decode_fn(pixel_specs, n, False, dt)(ctx).plan,
+         lambda fn, plan, ctx, o, v: fused_pass(fn, plan, o, v), 2 * -(-total // (1 << 20)),
+         None, "alignsdf_tpu/ops/decoder_kernel.py:884",
+         "alignsdf_torch/kernels/csrc/pixel_grid_decoder.cu"),
+        ("K6", generic_decode, generic_decode_reference, g_specs, g_model,
+         lambda ctx, dt: make_generic_plan(g_model.decoder, g_specs, dt),
+         generic_pass, 2 * -(-total // (1 << 18)),
+         2 * generic_macs_per_point(g_specs) * total, "alignsdf_tpu/ops/decoder_kernel.py:139",
+         "alignsdf_torch/kernels/csrc/generic_decoder.cu"),
+    ]
+    for name, kernel, plain, r_specs, r_model, plan_of, run_pass, per_image, flops, line, src \
+            in routes:
+        phase(f"bf16 serving, {name}: the bf16 kernel vs its plain bf16 version over both "
+              f"{n}^3 passes of image 0, and vs the float32 kernel's field")
+        ctx = scene_ctx(r_model, r_specs, samples[0], dev)
+        plan_b, plan_f = plan_of(ctx, bf16), plan_of(ctx, torch.float32)
+        saved = (kernel.launches, kernel.bf16_launches)
+        origin, voxel = origin0, voxel0
+        checks, flips = [], []
+        for p in (1, 2):
+            kb = run_pass(kernel, plan_b, ctx, origin, voxel)
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                rb = run_pass(plain, plan_b, ctx, origin, voxel)
+            kf = run_pass(kernel, plan_f, ctx, origin, voxel)
+            c = bf16_compare(kb, rb)
+            bf16_verdict(f"{name} pass {p}", c)
+            checks.append(c)
+            flips.append(vs_float32(f"{name} pass {p}", kb, kf, voxel))
+            if p == 1:
+                voxel, origin = _refine_cube(r_specs, kb[0].reshape(n, n, n),
+                                             kb[1].reshape(n, n, n), n, voxel)
+        del kb, rb, kf
+        r = {"check": checks, "vs_float32": flips}
+
+        phase(f"bf16 timing: {name} per {n}^3 pass (bf16 kernel, plain bf16, float32 kernel)")
+        if name == "K6":
+            runs = {dt: [separate_decoder_inputs(g_specs.latent_size, g_specs.encode_style,
+                                                 rows.to(dt))
+                         for rows in generic_rows(g_specs, ctx, n, origin0, voxel0, dev)]
+                    for dt in (bf16, torch.float32)}
+
+            def timed(fn, plan, dt):
+                return lambda: [fn(plan, *rs) for rs in runs[dt]]
+        else:
+            def timed(fn, plan, dt):
+                return lambda: fused_pass(fn, plan, origin0, voxel0)
+        bf_ms = min(cuda_ms(timed(kernel, plan_b, bf16), 1) for _ in range(3))
+        f32_ms = min(cuda_ms(timed(kernel, plan_f, torch.float32), 1) for _ in range(3))
+        with torch.no_grad():
+            plain_ms = cuda_ms(timed(plain, plan_b, bf16), 1)
+        kernel.launches, kernel.bf16_launches = saved
+        if name == "K3":
+            sampled = sum(int(pixel_projection(plan_b, s, min(1 << 20, total - s), origin0,
+                                               voxel0)[3].sum()) for s in range(0, total, 1 << 20))
+            flops = k3_flops(pixel_specs, total, sampled)
+            nbytes = 4 * (plan_b.flat.numel() + plan_b.table.numel() + 2 * total)
+        elif name == "K6":
+            nbytes = (2 * total * (g_specs.latent_size + g_specs.point_feat_size)
+                      + 4 * plan_b.flat.numel() + 4 * 2 * total)
+            del runs
+        else:
+            nbytes = 4 * (plan_b.flat.numel() + 2 * total)
+        ops_ms = flops / BF16_PEAK_FLOPS * 1e3
+        mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        t = {"ms": bf_ms, "plain_ms": plain_ms, "float32_ms": f32_ms,
+             "bound_ms": max(ops_ms, mem_ms), "bound_by": "operations" if ops_ms >= mem_ms
+             else "bytes", "split_tf32_bound_ms": grid_bounds(flops, 0)["split_tf32_bound_ms"],
+             "tflop": flops / 1e12, "tflops": flops / bf_ms / 1e9}
+        r["timing"] = t
+        print(f"[{card}] {name} bf16 per {n}^3 pass ({flops / 1e12:.3f} TFLOP): {bf_ms:.2f} ms "
+              f"({t['tflops']:.1f} TFLOP/s), plain bf16 {plain_ms:.2f} ms, float32 kernel "
+              f"{f32_ms:.2f} ms; bf16 bound {t['bound_ms']:.2f} ms ({t['bound_by']}; the FLOPs "
+              f"at {BF16_PEAK_FLOPS / 1e12:g} TFLOP/s dense bf16), split-TF32 bound "
+              f"{t['split_tf32_bound_ms']:.2f} ms", flush=True)
+
+        phase(f"bf16 main path, {name}: run_pipelined over {N_IMAGES} images at {n}^3")
+        decode_fn = make_generic_decode_fn(g_specs, dtype=bf16) if name == "K6" else None
+        r["main_path"] = bf16_main_path(name, r_model, r_specs, samples, dev, card, mano_faces,
+                                        kernel, per_image, decode_fn)
+        rec[name] = r
+        entries.append({
+            "name": f"{name} in bf16 (bf16 wgmma)",
+            "route": "cuda",
+            "source": src,
+            "trunk": TC_TRUNK_SOURCE,
+            "replaces": line,
+            "launches": r["main_path"]["launches"],
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "share_beyond_1e-5": max(c["share_beyond"] for c in checks),
+            "ms": bf_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "float32_ms": f32_ms,
+            "split_tf32_bound_ms": t["split_tf32_bound_ms"],
+        })
+    del pixel_model, g_model
+
+    phase("bf16 serving: K1 and K3 at 2 + 6 rows on the classifier specs (dexycb --cls), the "
+          f"first {n}^3 pass of image 0")
+    for name, pixel, kernel, plain, make in (
+            ("K1", False, grid_decode, grid_decode_reference,
+             lambda s: make_grid_decode_fn(s, n, bf16)),
+            ("K3", True, pixel_grid_decode, pixel_grid_decode_reference,
+             lambda s: make_pixel_grid_decode_fn(s, n, False, bf16))):
+        c_specs = flagship_specs(pixel=pixel, experiment="dexycb_140k.json", classifier=True)
+        c_model = build_model(c_specs, device=dev, seed=SEED)
+        with torch.no_grad():
+            c_model.decoder.classifier_head.weight *= 40  # labels vary, as phase 11's
+        plan = make(c_specs)(scene_ctx(c_model, c_specs, samples[0], dev)).plan
+        saved = (kernel.launches, kernel.bf16_launches)
+        kb = fused_pass(kernel, plan, origin0, voxel0)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            rb = fused_pass(plain, plan, origin0, voxel0)
+        kernel.launches, kernel.bf16_launches = saved
+        if plan.n_rows != 2 + c_specs.network_specs.num_class:
+            fail(f"{name}'s classifier plan has {plan.n_rows} rows")
+        c = bf16_compare(kb, rb)
+        bf16_verdict(f"{name} at {plan.n_rows} rows", c)
+        rec[name]["classifier_check"] = c
+        del c_model, kb, rb
+    for e in entries[:2]:
+        c = rec[e["name"][:2]]["classifier_check"]
+        e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
+        e["logits_max_err_of_largest"] = c["logits_max_err"]
+
+    rec["configs"] = baseline_configs_phase(dev, card, gen, mano_faces)
+    return rec, entries
+
+
+def generic_rows(specs, ctx, n, origin, voxel, dev, run=1 << 18):
+    """The [latent, embedding] rows of an n^3 pass, in runs (the generic
+    evaluator's)."""
+    import torch
+
+    from alignsdf_torch.inference.grid import _coords_from_linear, embed_points
+
+    for s in range(0, n ** 3, run):
+        idx = torch.arange(s, min(s + run, n ** 3), device=dev)
+        pts = _coords_from_linear(idx, n, origin, voxel)
+        yield torch.cat([ctx["latent"].expand(len(idx), -1), embed_points(specs, ctx, pts)],
+                        dim=1)
+
+
+def baseline_configs_phase(dev, card: str, gen, mano_faces) -> dict:
+    """BASELINE.json's configs 1 and 2, served: bare experiments/obman_30k.json
+    (NeRF, PointFeatSize 3, no MANO) and the same with --mano, seeded weights
+    with shifted final biases: 3 synthetic images each at 128^3 through
+    run_pipelined in float32 and in bf16 (grid_dtype and ComputeDtype), K1's
+    launches held to the images' passes; each image's two K1 passes (its
+    ctx, the refined cube the Reconstructor reported) against K1's plain
+    version; the grid ms and images/s."""
+    import torch
+
+    from alignsdf_torch.config import apply_overrides, load_specs
+    from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
+    from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
+
+    class Mano:
+        mano = True
+
+    base = load_specs(os.path.join(REPO, "experiments", "obman_30k.json"))
+    n, total, chunk = CUBE_DIM, CUBE_DIM ** 3, 1 << 20
+    samples = synthetic_samples(gen, N_IMAGES)
+    per_image = 2 * -(-total // chunk)
+    rec = {}
+    for cfg, specs in (("config 1 (obman_30k.json)", base),
+                       ("config 2 (obman_30k.json --mano)", apply_overrides(base, Mano()))):
+        model = build_model(specs, device=dev, seed=SEED)
+        shift_final_biases(model, specs, samples[0], dev)
+        for dt in (torch.float32, torch.bfloat16):
+            label = f"{cfg}, {'bf16' if dt == torch.bfloat16 else 'float32'}"
+            phase(f"{label}: run_pipelined over {N_IMAGES} images at {n}^3, each K1 pass vs "
+                  "plain")
+            m, s = (model, specs) if dt == torch.float32 else bf16_model(model, specs, dev)
+            recon = Reconstructor(m, s, cube_dim=n, mano_faces=mano_faces, grid_dtype=dt)
+            results = []
+            with tempfile.TemporaryDirectory() as out:
+                dirs = make_output_dirs(out)
+                grid_decode.launches = grid_decode.bf16_launches = 0
+                t0 = time.perf_counter()
+                done = run_pipelined(recon, samples, dirs,
+                                     on_done=lambda i, p: results.append((i, p)))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = (grid_decode.bf16_launches if dt == torch.bfloat16
+                            else grid_decode.launches)
+                other = (grid_decode.launches if dt == torch.bfloat16
+                         else grid_decode.bf16_launches)
+            if done != N_IMAGES or launches != N_IMAGES * per_image or other != 0:
+                fail(f"{label}: K1 launches {launches} (the other dtype's {other}) over {done} "
+                     "images")
+            errs, grid_ms = [], []
+            saved = (grid_decode.launches, grid_decode.bf16_launches)
+            for i, pending in results:
+                plan = make_grid_decode_fn(s, n, dt)(pending["ctx"]).plan
+                host = pending["host"]
+                for origin, voxel in ((torch.full((3,), -1.0, device=dev),
+                                       torch.tensor(2.0 / (n - 1), device=dev)),
+                                      (host["origin"].to(dev), host["voxel"].to(dev))):
+                    out = fused_pass(grid_decode, plan, origin, voxel)
+                    torch.cuda.synchronize()
+                    errs.append(bf16_compare(out, fused_pass(grid_decode_reference, plan,
+                                                             origin, voxel)))
+                grid_ms.append(pending["timings"]["grid_ms"])
+                if not all(bool(torch.isfinite(host[k]).all()) for k in ("sdf_hand", "sdf_obj")):
+                    fail(f"{label} image {i}: non-finite field")
+            grid_decode.launches, grid_decode.bf16_launches = saved
+            for j, c in enumerate(errs):
+                if dt == torch.bfloat16:
+                    bf16_verdict(f"{label}, image {j // 2} pass {j % 2 + 1}", c)
+                elif not c["max_abs_err"] <= K1_TOL:
+                    fail(f"{label}: K1 disagrees with its plain version: {c}")
+            r = {"wall_ms": wall * 1e3, "images_per_s": N_IMAGES / wall, "launches": launches,
+                 "grid_ms": grid_ms, "max_abs_err": max(c["max_abs_err"] for c in errs),
+                 "share_beyond": max(c["share_beyond"] for c in errs)}
+            rec[label] = r
+            print(f"[{card}] {label}: {N_IMAGES} images in {wall * 1e3:.1f} ms = "
+                  f"{r['images_per_s']:.3f} images/s (first run, pipelined), grid ms "
+                  + ", ".join(f"{g:.2f}" for g in grid_ms) + f"; K1 launches {launches}; each "
+                  f"pass vs plain: max abs err {r['max_abs_err']:.3e}, share beyond "
+                  f"{BF16_TIGHT:g} {r['share_beyond']:.5f}", flush=True)
+        del model
+    return rec
+
+
+def fused_pass(kernel, plan, origin, voxel, chunk=1 << 20):
+    """K1's or K3's (n_rows, n^3) output over a whole pass of ``plan`` in the
+    fused evaluator's runs (``kernel`` the wrapper or its plain version)."""
+    import torch
+
+    total = plan.n ** 3
+    with torch.no_grad():
+        return torch.cat([kernel(plan, s, min(chunk, total - s), origin, voxel)
+                          for s in range(0, total, chunk)], dim=1)
+
+
 def main(record_path: Optional[str] = None) -> None:
     phase("device")
     try:
@@ -3828,18 +4319,9 @@ def main(record_path: Optional[str] = None) -> None:
     gen = torch.Generator().manual_seed(SEED)
     samples = synthetic_samples(gen, N_IMAGES)
     prepare = make_grid_decode_fn(specs, 64)
-
-    # shift the final biases (seeded weights) so ~5% of the first pass is
-    # inside: the field crosses zero and meshes come out
-    ctx0 = scene_ctx(model, specs, samples[0], dev)
-    plan64 = prepare(ctx0).plan
+    shift_final_biases(model, specs, samples[0], dev)
     origin0 = torch.full((3,), -1.0, device=dev)
     voxel64 = torch.tensor(2.0 / 63, device=dev)
-    with torch.no_grad():
-        first = grid_decode_reference(plan64, 0, 64 ** 3, origin0, voxel64)
-        for row, name in ((0, "linh4"), (1, "lino4")):
-            q = torch.quantile(first[row], 0.05).clamp(-0.999, 0.999)
-            getattr(model.decoder, name).bias -= torch.atanh(q)
 
     phase("K1 vs plain (64^3, full flagship width, TF32 off)")
     plan64 = prepare(scene_ctx(model, specs, samples[0], dev)).plan
@@ -3985,6 +4467,7 @@ def main(record_path: Optional[str] = None) -> None:
     files = record["files"]
     record["pack"] = packed_phase(dev, card)
     pack = record["pack"]
+    record["bf16"], bf16_entries = bf16_phase(dev, card, gen, mano_faces, model)
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
@@ -4102,6 +4585,17 @@ def main(record_path: Optional[str] = None) -> None:
                         "first maximum, not to every tie)"),
             "serving_batch_1": {k: st[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         })
+    # the bf16 kernels: phase 19's main paths, K1's also BASELINE.json's
+    # configs 1 and 2 and the trained flagship's --bf16 run (phase 16)
+    cfg_launches = sum(r["launches"] for label, r in record["bf16"]["configs"].items()
+                       if label.endswith("bf16"))
+    for e in bf16_entries:
+        if e["name"].startswith("K1"):
+            by_path = {"flagship": e["launches"], "configs_1_2": cfg_launches,
+                       "geometric": geo["bf16"]["launches"]}
+            e.update(launches=sum(by_path.values()), launches_by_path=by_path,
+                     max_abs_err=max(e["max_abs_err"], geo["k1_bf16_256"]["max_abs_err"]))
+        kernels["kernels"].append(e)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

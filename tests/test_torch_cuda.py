@@ -1085,3 +1085,125 @@ def test_cuda_maxpool_backward_layouts_match_plain(layout):
         dx = maxpool_backward(x, y, dy)
         torch.cuda.synchronize()
         assert torch.equal(dx, maxpool_backward_reference(x, y, dy))
+
+
+def _bf16_close(out: torch.Tensor, ref: torch.Tensor, tight: float = 1e-5, loose: float = 2e-3,
+                share: float = 0.9) -> None:
+    """A bf16 kernel against its plain version: both round the same values
+    to bf16, but their float32 sums run in other orders, so now and then a
+    hidden unit rounds to the neighbouring bf16 value and the layers after it
+    carry the step.  Within ``tight`` at ``share`` of the entries and within
+    ``loose`` everywhere, both scaled by the reference's largest magnitude
+    where it exceeds 1 (the logits).  Measured on an H100 (NVIDIA H100 80GB
+    HBM3, 700 W): 96.2-98.8% within 1e-5, the SDFs' largest 4.9e-4, the
+    x40 logits' 1.9e-3 of their largest."""
+    scale = max(1.0, float(ref.abs().max()))
+    err = (out - ref).abs() / scale
+    print(f"bf16 kernel vs plain: {float((err <= tight).float().mean()):.5f} within {tight:g}, "
+          f"max {float(err.max()):.3e}")
+    assert float((err <= tight).float().mean()) >= share, float((err <= tight).float().mean())
+    assert float(err.max()) <= loose, float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pixel", [False, True], ids=["K1", "K3"])
+@pytest.mark.parametrize("num_class,model_type", [(0, "1encoder2decoder"),
+                                                  (6, "1encoder2decoder"),
+                                                  (6, "1encoder1decoder")])
+def test_cuda_bf16_grid_kernels_match_plain(pixel, num_class, model_type):
+    """K1 and K3 on bf16 plans (bf16 wgmma, csrc/wgmma_bf16.cuh) at the
+    flagship width, with and without C = 6 and on a combined trunk: a run of
+    30^3 - 20 points from base 7 against the plain bf16 version
+    (``_bf16_close``), and within 5e-3 of the float32 kernel's SDF rows
+    (JAX's own bf16 bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(10)
+    n, base = 30, 7
+    m = n ** 3 - base - 13
+    if pixel:
+        specs, ctx = _pixel_scene(model_type, max(num_class, 6), 256, (64, 64), gen, 10)
+    else:
+        specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9,
+                      latent_size=256, mano_branch=True, object_pose_branch=True,
+                      sdf_scale_factor=7.0, classifier_branch=True,
+                      network_specs=NetworkSpecs(num_class=max(num_class, 6)))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(10)
+            decoder = make_decoder(model_type, 256, 9, "both", specs.network_specs,
+                                   use_classifier=True).cuda()
+        ctx = {"decoder": decoder, "latent": torch.randn(1, 256, generator=gen).cuda(),
+               "rot_center": (torch.randn(1, 1, 3, generator=gen) * 0.05).cuda(),
+               "global_trans": _rigid(gen, 16).cuda(), "obj_trans": _rigid(gen, 1)[:, 0].cuda()}
+    if num_class == 0:
+        ctx["decoder"].classifier_head = None
+    make, kernel, plain = ((make_pixel_grid_decode_fn, pixel_grid_decode,
+                            pixel_grid_decode_reference) if pixel else
+                           (make_grid_decode_fn, grid_decode, grid_decode_reference))
+    args = (specs, n, False) if pixel else (specs, n)
+    plan = make(*args, dtype=torch.bfloat16)(ctx).plan
+    plan32 = make(*args)(ctx).plan
+    assert plan.dtype == torch.bfloat16 and plan.n_rows == 2 + num_class
+    origin = torch.full((3,), -1.0, device="cuda")
+    voxel = torch.tensor(2.0 / (n - 1), device="cuda")
+    before, before32 = kernel.bf16_launches, kernel.launches
+    out = kernel(plan, base, m, origin, voxel)
+    torch.cuda.synchronize()
+    assert kernel.bf16_launches == before + 1 and kernel.launches == before32
+    ref = plain(plan, base, m, origin, voxel)
+    assert out.shape == ref.shape == (2 + num_class, m) and bool(torch.isfinite(out).all())
+    _bf16_close(out[:2], ref[:2])
+    if num_class:  # the x40 head carries a flip 40 times over
+        _bf16_close(out[2:], ref[2:], loose=5e-3)
+    f32 = kernel(plan32, base, m, origin, voxel)
+    assert 0 < float((out[:2] - f32[:2]).abs().max()) <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,style,pfs,latent_in,num_class,latent,m", [
+    ("1encoder2decoder", "nerf", 63, (2,), 0, 256, 4101),
+    ("1encoder1decoder", "nerf", 9, (2,), 6, 256, 3000),
+    ("1encoder2decoder", "both", 9, (0, 2), 6, 256, 1000),
+    ("1encoder2decoder", "nerf", 63, (0,), 0, 512, 2050)])
+def test_cuda_bf16_generic_kernel_matches_plain(model_type, style, pfs, latent_in, num_class,
+                                                latent, m):
+    """K6 on a bf16 plan with bf16 rows at full width: the --pallas config
+    (x0 staged in two chunks), a combined trunk with a classifier, latent_in
+    (0, 2) at C = 6, and rows of 512 + 63 wider than the buffer; against
+    the plain bf16 version (``_bf16_close``) and within 5e-3 of the float32
+    kernel.  Float32 rows on a bf16 plan are refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(8)
+    specs = Specs(model_type=model_type, encode_style=style, point_feat_size=pfs,
+                  latent_size=latent, classifier_branch=bool(num_class),
+                  network_specs=NetworkSpecs(latent_in=latent_in, num_class=num_class or 6))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(8)
+        decoder = make_decoder(model_type, latent, pfs, style, specs.network_specs,
+                               use_classifier=bool(num_class)).cuda()
+    rows = (torch.randn(m, latent + pfs, generator=gen) * 0.5).cuda()
+    plan = make_generic_plan(decoder, specs, torch.bfloat16)
+    plan32 = make_generic_plan(decoder, specs)
+    assert plan.lat_pad % 16 == 0
+
+    def split(r):
+        return (r,) if model_type == "1encoder1decoder" else separate_decoder_inputs(latent,
+                                                                                      style, r)
+    with pytest.raises(ValueError):
+        generic_decode(plan, *split(rows))
+    before, before32 = generic_decode.bf16_launches, generic_decode.launches
+    out = generic_decode(plan, *split(rows.to(torch.bfloat16)))
+    torch.cuda.synchronize()
+    assert generic_decode.bf16_launches == before + 1 and generic_decode.launches == before32
+    ref = generic_decode_reference(plan, *split(rows.to(torch.bfloat16)))
+    f32 = generic_decode(plan32, *split(rows))
+    for i, (k, r, f) in enumerate(zip(out, ref, f32)):
+        assert (k is None) == (r is None) == (f is None)
+        if k is not None:
+            assert k.dtype == torch.float32 and k.shape == r.shape
+            _bf16_close(k, r)
+            if i < 2:
+                assert float((k - f).abs().max()) <= 5e-3

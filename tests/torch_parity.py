@@ -3,6 +3,10 @@ model built in JAX at a seed, its parameters converted into the port, and
 seeded numpy samples."""
 
 import contextlib
+import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import jax
@@ -131,3 +135,61 @@ def torch_threads(count: int):
         yield
     finally:
         torch.set_num_threads(before)
+
+
+ENCODE_KEYS = ("latent", "joints", "verts", "global_trans", "rot_center", "center3d", "obj_rot",
+               "obj_trans", "obj_corners")
+
+
+def encode_outputs(latent, mano, obj) -> dict:
+    """encode_scene's (latent, mano dict, object dict), JAX's or the port's,
+    as {ENCODE_KEYS name: numpy array}."""
+    both = {**mano, **obj, "latent": latent}
+    return {k: np.asarray(both[k].detach() if isinstance(both[k], torch.Tensor) else both[k])
+            for k in ENCODE_KEYS}
+
+
+def jax_encode_scene(jmodel, variables, args) -> dict:
+    return encode_outputs(*jax.jit(lambda v, *a: jmodel.apply(v, *a, method=jmodel.encode_scene))(
+        variables, *map(jnp.asarray, args)))
+
+
+def jax_encode_scene_rounded(specs_dict, pmodel, args, workdir) -> dict:
+    """JAX's encode_scene on the port model's weights (``convert_alignsdf``),
+    run in a fresh process whose XLA rounds wherever the code converts
+    (``--xla_allow_excess_precision=false``).  By default XLA on the CPU
+    drops a convert to bf16 and back, so JAX's bf16 encoder would hand its
+    conv outputs on unrounded; the flag must be set before XLA starts."""
+    os.makedirs(workdir, exist_ok=True)
+    torch.save(pmodel.state_dict(), os.path.join(workdir, "state.pt"))
+    np.savez(os.path.join(workdir, "args.npz"), *args)
+    with open(os.path.join(workdir, "specs.json"), "w") as f:
+        json.dump(specs_dict, f)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")])),
+               XLA_FLAGS=os.environ.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false")
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "encode", workdir],
+                         env=env, cwd=repo, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    with np.load(os.path.join(workdir, "out.npz")) as out:
+        return dict(out)
+
+
+def _encode_main(workdir: str) -> None:
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    with open(os.path.join(workdir, "specs.json")) as f:
+        jspecs = jax_specs_from_dict(json.load(f))
+    jmodel = jax_build_model(jspecs)
+    state = torch.load(os.path.join(workdir, "state.pt"))
+    params, stats = convert_alignsdf(state, jspecs, (2, 2, 2, 2))
+    variables = jax.tree_util.tree_map(np.asarray, full_variables(jmodel, params, stats))
+    with np.load(os.path.join(workdir, "args.npz")) as a:
+        args = [a[f"arr_{i}"] for i in range(len(a.files))]
+    np.savez(os.path.join(workdir, "out.npz"), **jax_encode_scene(jmodel, variables, args))
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["encode"]:
+        _encode_main(sys.argv[2])
