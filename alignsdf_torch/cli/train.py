@@ -3,10 +3,16 @@ train.py:201-714).
 
 Usage:
     python -m alignsdf_torch.cli.train -e experiments/obman_30k.json \\
-        --mano --obj_pose --encode both --point_size 9 [--pa_feat | --cls] \\
+        --mano --obj_pose --encode both --point_size 9 [--pa_feat | --cls] [--bf16] \\
         [--add_epoch E] ((--data_root DIR | --packed PACK) [--loader_mode process] \\
         [--continue NAME] [--skip_test | --test_split S --test_data_root T \\
         --test_cube_dim N] | --smoke | --steps N) [--device cuda] [--no_init_guard]
+
+``--bf16`` (or ``ComputeDtype: bfloat16`` in the spec) trains in bf16, as
+the JAX CLI's ``--bf16``: the encoder on bf16 operands with the one-pass
+BatchNorm, K2 in bf16; parameters, BatchNorm statistics, MANO, the losses
+and Adam stay float32.  A bf16 spec whose train decoder is K4 or K5 raises
+(their bf16 kernels are not ported).  The log names the compute dtype.
 
 The flagship trains its twin trunks through kernel K2; with ``--pa_feat``
 (a latent sampled per point from the HeadNet map) through kernel K4; a spec
@@ -76,7 +82,6 @@ from alignsdf_torch.training import checkpoints as ckpt
 from alignsdf_torch.training.train_state import TrainState, learning_rate_for_epoch
 from alignsdf_torch.training.train_step import (
     batch_to_device,
-    check_trainable,
     draw_seed,
     healthy_init_train_state,
     init_train_state,
@@ -197,7 +202,6 @@ def main(argv: Optional[list] = None) -> None:
     device = resolve_device(args.device)
     use_float32_precision()
     specs = cfg.apply_overrides(cfg.load_specs(args.cfg), args)
-    check_trainable(specs)
     seed = specs.random_seed or 0
     experiment_dir = os.path.join(args.output_root, specs.experiment_name())
     if args.data_root is not None or args.packed is not None:
@@ -207,6 +211,7 @@ def main(argv: Optional[list] = None) -> None:
     state, step = make_trainer(specs, device, seed,
                                init_guard=not (args.smoke or args.no_init_guard))
     logger.info("train decoder: %s", train_decoder_kind(step.decode))
+    logger.info("compute dtype: %s", specs.compute_dtype)
     gen = torch.Generator().manual_seed(seed)
 
     if args.smoke:
@@ -241,6 +246,7 @@ def train_epochs(specs: cfg.Specs, args, device, experiment_dir: str) -> None:
     state, step = make_trainer(specs, device, seed,
                                init_guard=fresh and not args.no_init_guard)
     logger.info("train decoder: %s", train_decoder_kind(step.decode))
+    logger.info("compute dtype: %s", specs.compute_dtype)
     os.makedirs(experiment_dir, exist_ok=True)
     with open(os.path.join(experiment_dir, "specs.json"), "w") as f:
         json.dump(cfg.specs_to_dict(specs), f, indent=2)

@@ -320,6 +320,8 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--lr", type=float, default=None)
     parser.add_argument("--lr_interval", type=int, default=None)
     parser.add_argument("--lr_factor", type=float, default=None)
+    parser.add_argument("--bf16", action="store_true", default=False,
+                        help="bfloat16 compute dtype (params/stats/losses f32)")
     for flag, (_, kind) in _CLI_OVERRIDES.items():
         if kind == "flag":
             parser.add_argument(f"--{flag}", action="store_true", default=False)
@@ -339,6 +341,8 @@ def apply_overrides(specs: Specs, args: Any) -> Specs:
                 updates[fname] = True
         elif value is not None:
             updates[fname] = (value, value) if kind == "size2" else value
+    if getattr(args, "bf16", False):
+        updates["compute_dtype"] = "bfloat16"
     lr = {k: getattr(args, f"lr{s}", None) for k, s in
           (("initial", ""), ("interval", "_interval"), ("factor", "_factor"))}
     lr = {k: v for k, v in lr.items() if v is not None}

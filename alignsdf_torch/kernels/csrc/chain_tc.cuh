@@ -59,6 +59,23 @@
 // 128 KB, the trunk's small rows (tc_shared) and d(emb)'s partial sums
 // (8 KB): 231,776 bytes, one block an SM.  K4's tap stage, after the chain,
 // reuses the buffer.
+//
+// bf16 (K2 with TcBf16, the JAX kernel's _bwd_kernel_scene with cdtype
+// bfloat16, decoder_train_kernel.py:609-640): the same chain templated on
+// the trunk's arithmetic.  The gates come from the bf16 residuals (8 bytes
+// a 4-point run); every product takes dpre rounded to bf16: the gate pass
+// (and the final rows, whose dy (1 - y^2) is rounded before its dx) writes
+// dpre twice, float32 for colsum's bias sums, which JAX takes of the
+// unrounded dpre, and rounded to bf16 for the weight-gradient reduction
+// (wgrad_tc.cuh's bf16 route), and keeps the rounded value in the buffer,
+// the A of the next dx product (one wgmma.m64n128k16 bf16 a k step of 16,
+// tiles of W^T from tile_weights(W^T, bf16)) and of d(emb) on the CUDA
+// cores against the bf16-rounded X.  dx_last is added in float32 before
+// the gate, as JAX adds it.  Bytes a dpre element: 4 + 2 written, 4 read by
+// colsum and 2 by the reduction (from L2 once per 128 rows of dW), against
+// 4 written and 4 + 4 read had the reduction rounded a float32 dpre itself.
+// Shared memory: 22 ring slots of 4 KB (88 KB, as float32's 11 of 8 KB), 22
+// barriers: 231,856 bytes.
 
 #pragma once
 
@@ -87,39 +104,44 @@ struct ChShared {
   float* red;   // [CH_WARPS][CH_EMB][TC_P]: d(emb)'s partial sums; the final rows' weights
 };
 
+template <class Cfg = TcF32>
 __host__ __device__ inline size_t ch_tc_bytes() {
-  return (tc_smem_bytes(CH_ROWS) + 15) / 16 * 16;
+  return (tc_smem_bytes<Cfg>(CH_ROWS) + 15) / 16 * 16;
 }
 
+template <class Cfg = TcF32>
 __host__ __device__ inline size_t ch_smem_bytes() {
-  return ch_tc_bytes() + sizeof(float) * CH_WARPS * CH_EMB * TC_P;
+  return ch_tc_bytes<Cfg>() + sizeof(float) * CH_WARPS * CH_EMB * TC_P;
 }
 
+template <class Cfg = TcF32>
 __device__ __forceinline__ ChShared ch_shared(float* base) {
   ChShared s;
-  s.tc = tc_shared(base, CH_ROWS);
-  s.red = base + ch_tc_bytes() / sizeof(float);
+  s.tc = tc_shared<Cfg>(base, CH_ROWS);
+  s.red = base + ch_tc_bytes<Cfg>() / sizeof(float);
   return s;
 }
 
 // The tile stream as the trunk's ring reads it (tc_fill): one run of
 // tiles, trunk 1's (K4) from tile `split` on.
+template <class Cfg = TcF32>
 __device__ __forceinline__ TcPlan ch_stream(int split) {
   TcPlan plan;
   plan.split = split;
   plan.stream[0] = 0;
-  plan.stream[1] = split * 2 * TC_TILE;
+  plan.stream[1] = split * Cfg::kTile;
   return plan;
 }
 
 // Thread 0, before the block's first barrier: the ring's barriers and its
-// first TC_SLOTS tiles.
+// first Cfg::kSlots tiles.
+template <class Cfg = TcF32>
 __device__ __forceinline__ void ch_init(const float* tiles, const TcPlan& plan, const TcShared& s,
                                         int total) {
   if (CH_PROBE & 1) return;
-  for (int i = 0; i < TC_SLOTS; ++i) tc_mbar_init(&s.full[i], 1);
+  for (int i = 0; i < Cfg::kSlots; ++i) tc_mbar_init(&s.full[i], 1);
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  for (int j = 0; j < TC_SLOTS; ++j) tc_fill(tiles, plan, s, j, total);
+  for (int j = 0; j < Cfg::kSlots; ++j) tc_fill<Cfg>(tiles, plan, s, j, total);
 }
 
 // 16 bytes at p (16-byte aligned) that this block reads once: past L1, so
@@ -131,10 +153,19 @@ __device__ __forceinline__ float4 ch_ld_once(const float* p) {
   return v;
 }
 
+// The same for 4 bf16 at p (8 bytes, 8-byte aligned), as 4 floats.
+__device__ __forceinline__ float4 ch_ld_once(const __nv_bfloat16* p) {
+  uint32_t lo, hi;
+  asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];" : "=r"(lo), "=r"(hi) : "l"(p));
+  return make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xFFFF0000u),
+                     __uint_as_float(hi << 16), __uint_as_float(hi & 0xFFFF0000u));
+}
+
 // Rows [0, rows) of act (row stride m) at this block's points into L2, ahead
 // of the gate pass that reads them, to be kept there over the streaming
 // dpre stores (evict_last): each row's first, middle and last point.
-__device__ __forceinline__ void ch_prefetch(const float* act, int rows, int m, int first,
+template <class T = float>
+__device__ __forceinline__ void ch_prefetch(const T* act, int rows, int m, int first,
                                             int tid) {
   if (CH_PROBE & 2) return;
   const int last = min(TC_P, m - first) - 1;
@@ -147,6 +178,7 @@ __device__ __forceinline__ void ch_prefetch(const float* act, int rows, int m, i
 
 // A layer's product: this warpgroup's output groups wg and wg + 2 of
 // `groups` over dpre rows [0, depth), from ring tile `slot` on.
+template <class Cfg = TcF32>
 __device__ __forceinline__ void ch_product(float (&acc0)[64], float (&acc1)[64], int depth,
                                            int groups, int slot, const float* __restrict__ tiles,
                                            const TcPlan& plan, const TcShared& s, int total,
@@ -156,11 +188,11 @@ __device__ __forceinline__ void ch_product(float (&acc0)[64], float (&acc1)[64],
   for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
   if (CH_PROBE & 1) return;
   if (mine == 2) {
-    tc_steps<2>(acc0, acc1, depth / TC_K, 0, false, groups, slot, tiles, plan, s, total, wg, wt,
-                p0, t4);
+    tc_steps<2, Cfg>(acc0, acc1, depth / Cfg::kK, 0, false, groups, slot, tiles, plan, s, total,
+                     wg, wt, p0, t4);
   } else if (mine == 1) {
-    tc_steps<1>(acc0, acc1, depth / TC_K, 0, false, groups, slot, tiles, plan, s, total, wg, wt,
-                p0, t4);
+    tc_steps<1, Cfg>(acc0, acc1, depth / Cfg::kK, 0, false, groups, slot, tiles, plan, s, total,
+                     wg, wt, p0, t4);
   }
 }
 
@@ -186,15 +218,24 @@ __device__ __forceinline__ void ch_store_groups(const float (&acc0)[64], const f
   if (groups > wg + 2) ch_store(acc1, wg + 2, buf, p0, t4);
 }
 
+// 4 floats rounded to bf16, as floats.
+__device__ __forceinline__ float4 ch_round4(float4 v) {
+  return make_float4(tc_round_bf16(v.x), tc_round_bf16(v.y), tc_round_bf16(v.z),
+                     tc_round_bf16(v.w));
+}
+
 // Buffer rows [0, rows) gated by the stored activation act (rows, M): v =
 // a > 0 ? v s : 0, written back and to dpre (rows, M) as streaming stores
 // (evicted from L2 first).  A thread takes
-// 16-byte runs of 4 points (a warp two rows of 64 points), CH_BATCH runs'
-// loads in flight.
-__device__ __forceinline__ void ch_gate(float* buf, int rows, const float* __restrict__ act,
+// runs of 4 points (a warp two rows of 64 points), CH_BATCH runs'
+// loads in flight.  With bf16 residuals (T = __nv_bfloat16) v goes to dpre
+// unrounded, rounded to bf16 into dpre16, and rounded into the buffer.
+template <class T = float>
+__device__ __forceinline__ void ch_gate(float* buf, int rows, const T* __restrict__ act,
                                         float s, float* __restrict__ dpre, int m, int first,
-                                        int tid) {
+                                        int tid, __nv_bfloat16* __restrict__ dpre16 = nullptr) {
   if (CH_PROBE & 2) return;
+  constexpr bool kBf16 = sizeof(T) == 2;
   const int n = rows * (TC_P / 4);
   for (int i0 = tid; i0 < n; i0 += CH_BATCH * TC_THREADS) {
     float4 a[CH_BATCH];
@@ -215,9 +256,14 @@ __device__ __forceinline__ void ch_gate(float* buf, int rows, const float* __res
       v.y = a[u].y > 0.f ? v.y * s : 0.f;
       v.z = a[u].z > 0.f ? v.z * s : 0.f;
       v.w = a[u].w > 0.f ? v.w * s : 0.f;
+      const bool out = !(CH_PROBE & 128) && first + p < m;
+      if (out) __stcs(reinterpret_cast<float4*>(dpre + (size_t)k * m + first + p), v);
+      if constexpr (kBf16) {
+        v = ch_round4(v);
+        if (out)
+          __stcs(reinterpret_cast<uint2*>(dpre16 + (size_t)k * m + first + p), tc_pack4_bf16(v));
+      }
       *d = v;
-      if (!(CH_PROBE & 128) && first + p < m)
-        __stcs(reinterpret_cast<float4*>(dpre + (size_t)k * m + first + p), v);
     }
   }
 }
@@ -254,11 +300,14 @@ __device__ __forceinline__ void ch_accumulate(const float* buf, int row0, int ro
 // y^2) (n_out <= 2 rows of y, dy at row stride m; written to dpre (n_out, M)
 // and kept in g [n_out][TC_P]), then its input's raw gradient dx[k][p] =
 // sum_r w[k][r] g[r][p] (w (in_pad, n_out), staged in ws) into buffer rows
-// k < in_pad.
+// k < in_pad.  With dpre16 (bf16), g is also written there rounded to
+// bf16, and the rounded g makes dx (w then holds bf16 values: exact
+// products).
 __device__ __forceinline__ void ch_final(const float* __restrict__ y, const float* __restrict__ dy,
                                          float* __restrict__ dpre, const float* __restrict__ w,
                                          int n_out, int in_pad, int m, int first, float* g,
-                                         float* ws, float* buf, int tid) {
+                                         float* ws, float* buf, int tid,
+                                         __nv_bfloat16* __restrict__ dpre16 = nullptr) {
   if (tid < n_out * TC_P) {
     const int r = tid / TC_P, p = tid % TC_P;
     float v = 0.f;
@@ -267,6 +316,10 @@ __device__ __forceinline__ void ch_final(const float* __restrict__ y, const floa
       const float yv = y[at];
       v = dy[at] * (1.f - yv * yv);
       dpre[at] = v;
+      if (dpre16) {
+        v = tc_round_bf16(v);
+        dpre16[at] = __float2bfloat16_rn(v);
+      }
     }
     g[tid] = v;
   }
@@ -400,8 +453,9 @@ struct ChClock {
 // Host: the tiles of a chain layer (depth out_pad, `cols` outputs), or -1
 // where the chain does not take it: cols a multiple of TC_GROUP up to
 // CH_ROWS (the outputs go back to the buffer), out_pad likewise.
+template <class Cfg = TcF32>
 static inline int ch_layer_tiles(int out_pad, int cols) {
   if (out_pad < TC_GROUP || out_pad % TC_GROUP || out_pad > CH_ROWS) return -1;
   if (cols < 0 || cols % TC_GROUP || cols > CH_ROWS) return -1;
-  return out_pad / TC_K * (cols / TC_GROUP);
+  return out_pad / Cfg::kK * (cols / TC_GROUP);
 }

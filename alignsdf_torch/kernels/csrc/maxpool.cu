@@ -1,5 +1,6 @@
 // Kernel K7: the ResNet stem's 3x3 / stride 2 / pad 1 max pool, forward and
-// backward, float32 (N, C, H, W) tensors, NCHW-contiguous or channels last.
+// backward, float32 or bf16 (N, C, H, W) tensors, NCHW-contiguous or
+// channels last.
 //
 // Replaces alignsdf_tpu/ops/maxpool.py: the pass kernels _run_pass (body
 // _fwd_pass_kernel) and _run_bwd_pass (body _bwd_pass_kernel) behind
@@ -45,7 +46,16 @@
 // dy.  The band height sets the parallelism (band_rows_for).  Recomputing
 // y1 from x costs no bytes; storing it would add a write of half of x in the
 // forward and a read in the backward.
+//
+// bf16 (the bf16 encoder's stem; JAX's maxpool_k3s2p1 on a bf16 array,
+// ops/maxpool.py:71-98): the same kernels on bf16 loads and stores,
+// arithmetic in float32.  The forward is exact (a max of bf16 values).  The
+// backward rounds as the TPU kernel's two passes write their outputs in x's
+// dtype: dy1 (a sum of at most two bf16 cotangents in float32) is rounded to
+// bf16, and so is dx (at most two such dy1); the tie routing is float32's.
+// A channels-last column of four channels is 8 bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -104,21 +114,29 @@ __device__ __forceinline__ void unravel(uint32_t i, int c, int rows, int cols, i
   *n = (int)t;
 }
 
+// One element as float32 (exact for bf16), and a float32 to an element
+// (rounded to nearest, ties to even, for bf16).
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // y1 at output row oh and input column col of one plane of x
-template <bool kChannelsLast>
-__device__ __forceinline__ float row_pool(const float* __restrict__ x,
+template <bool kChannelsLast, class E>
+__device__ __forceinline__ float row_pool(const E* __restrict__ x,
                                           const Plane<kChannelsLast>& p, int h, int oh,
                                           int col) {
   const int r = 2 * oh;
-  float m = __ldg(x + p.at(r, col));
-  if (r > 0) m = fmaxf(m, __ldg(x + p.at(r - 1, col)));
-  if (r + 1 < h) m = fmaxf(m, __ldg(x + p.at(r + 1, col)));
+  float m = ld1(x + p.at(r, col));
+  if (r > 0) m = fmaxf(m, ld1(x + p.at(r - 1, col)));
+  if (r + 1 < h) m = fmaxf(m, ld1(x + p.at(r + 1, col)));
   return m;
 }
 
-template <bool kChannelsLast>
+// E: the element type, float or __nv_bfloat16.
+template <bool kChannelsLast, class E>
 __global__ void __launch_bounds__(kThreads)
-maxpool_fwd_kernel(const float* __restrict__ x, float* __restrict__ y, uint32_t total, int c,
+maxpool_fwd_kernel(const E* __restrict__ x, E* __restrict__ y, uint32_t total, int c,
                    int h, int w, int oh_n, int ow_n) {
   const uint32_t i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= total) return;
@@ -129,23 +147,28 @@ maxpool_fwd_kernel(const float* __restrict__ x, float* __restrict__ y, uint32_t 
   float m = row_pool(x, p, h, oh, col);
   if (col > 0) m = fmaxf(m, row_pool(x, p, h, oh, col - 1));
   if (col + 1 < w) m = fmaxf(m, row_pool(x, p, h, oh, col + 1));
-  y[i] = m;
+  st1(y + i, m);
 }
 
-// V consecutive floats of a column, loaded and stored as one access.
-template <int V>
+// V consecutive elements E of a column, loaded and stored as one access,
+// held as float32 (T): bf16 widened exactly, narrowed to nearest on store.
+template <int V, class E>
 struct Lanes;
 
-template <>
-struct Lanes<1> {
+template <class E>
+struct Lanes<1, E> {
   using T = float;
-  static __device__ __forceinline__ T load(const float* p) { return __ldg(p); }
-  static __device__ __forceinline__ void store(float* p, T v) { *p = v; }
+  static __device__ __forceinline__ T load(const E* p) { return ld1(p); }
+  static __device__ __forceinline__ void store(E* p, T v) { st1(p, v); }
   static __device__ __forceinline__ T fill(float f) { return f; }
+  static __device__ __forceinline__ T round(T v) { return round1(v); }
+  static __device__ __forceinline__ float round1(float v) {
+    return sizeof(E) == 2 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+  }
 };
 
 template <>
-struct Lanes<4> {
+struct Lanes<4, float> {
   using T = float4;
   static __device__ __forceinline__ T load(const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
@@ -154,6 +177,27 @@ struct Lanes<4> {
     *reinterpret_cast<float4*>(p) = v;
   }
   static __device__ __forceinline__ T fill(float f) { return make_float4(f, f, f, f); }
+  static __device__ __forceinline__ T round(T v) { return v; }
+};
+
+template <>
+struct Lanes<4, __nv_bfloat16> {  // 8 bytes
+  using T = float4;
+  static __device__ __forceinline__ T load(const __nv_bfloat16* p) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xFFFF0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xFFFF0000u));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, T v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+  }
+  static __device__ __forceinline__ T fill(float f) { return make_float4(f, f, f, f); }
+  static __device__ __forceinline__ T round(T v) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+    return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
+  }
 };
 
 __device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
@@ -180,15 +224,17 @@ struct Window {
 };
 
 // dx from x, y and dy, one thread per (band, image, lane).  An image is one
-// n in channels last (a row holds w * c floats, a column c) and one (n, ch)
-// plane in NCHW (cs = 1); a lane is one column and V of its cs floats.
-template <int V>
+// n in channels last (a row holds w * c elements, a column c) and one (n,
+// ch) plane in NCHW (cs = 1); a lane is one column and V of its cs
+// elements.  E: the element type; for bf16 dy1 is rounded to bf16 before
+// it is routed, and dx on its store.
+template <int V, class E>
 __global__ void __launch_bounds__(kThreads)
-maxpool_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                        const float* __restrict__ dy, float* __restrict__ dx, uint32_t total,
+maxpool_bwd_rows_kernel(const E* __restrict__ x, const E* __restrict__ y,
+                        const E* __restrict__ dy, E* __restrict__ dx, uint32_t total,
                         int lanes, int images, int band_rows, int cs, int h, int w, int oh_n,
                         int ow_n) {
-  using L = Lanes<V>;
+  using L = Lanes<V, E>;
   using T = typename L::T;
   const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= total) return;
@@ -199,10 +245,10 @@ maxpool_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ y
   // 32-bit offsets: the entry point refuses tensors of 2^31 - 257 elements or more
   const int xrow = w * cs, yrow = ow_n * cs;
   const int xo = image * h * xrow + col * cs + chan, yo = image * oh_n * yrow + chan;
-  const float* xp = x + xo;
-  float* dxp = dx + xo;
-  const float* yp = y + yo;
-  const float* gp = dy + yo;
+  const E* xp = x + xo;
+  E* dxp = dx + xo;
+  const E* yp = y + yo;
+  const E* gp = dy + yo;
   const int lo = col / 2, hi = (col & 1) && lo + 1 < ow_n ? lo + 1 : lo;
   const int ylo = lo * cs, yhi = hi * cs;
   const T none = L::fill(-CUDART_INF_F);
@@ -227,7 +273,7 @@ maxpool_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ y
     if (oh < last) fetch(oh + 1, next);
     const T y1 = vmax(vmax(above, cur.x0), cur.x1);
     const T s = pick(y1, cur.ylo, cur.glo);
-    const T dy1 = hi != lo ? vadd(s, pick(y1, cur.yhi, cur.ghi)) : s;
+    const T dy1 = L::round(hi != lo ? vadd(s, pick(y1, cur.yhi, cur.ghi)) : s);
     if (oh > oh0) L::store(dxp + (2 * oh - 1) * xrow, vadd(pending, pick(above, y1, dy1)));
     if (oh == oh1) break;
     L::store(dxp + 2 * oh * xrow, pick(cur.x0, y1, dy1));
@@ -263,53 +309,73 @@ int band_rows_for(int64_t columns, int oh_n) {
 #endif
 }
 
-}  // namespace
-
-extern "C" {
-
-// y (n, c, oh_n, ow_n) from x (n, c, h, w), both NCHW-contiguous or both
-// channels_last; oh_n = (h - 1) / 2 + 1, ow_n likewise.  Returns the
-// launch's CUDA error code (-1: arguments refused: an empty tensor, or more
-// than 2^31 - 257 elements).
-int maxpool_fwd(const float* x, float* y, int n, int c, int h, int w, int channels_last,
-                void* stream) {
-  if (n < 1 || c < 1 || h < 1 || w < 1 || !fits(n, c, h, w)) return -1;
+template <class E>
+int launch_fwd(const E* x, E* y, int n, int c, int h, int w, int channels_last,
+               cudaStream_t s) {
   const int oh_n = (h - 1) / 2 + 1, ow_n = (w - 1) / 2 + 1;
   const uint32_t total = (uint32_t)n * c * oh_n * ow_n;
-  cudaStream_t s = (cudaStream_t)stream;
   if (channels_last)
-    maxpool_fwd_kernel<true><<<blocks_for(total), kThreads, 0, s>>>(x, y, total, c, h, w, oh_n,
-                                                                   ow_n);
+    maxpool_fwd_kernel<true, E><<<blocks_for(total), kThreads, 0, s>>>(x, y, total, c, h, w,
+                                                                       oh_n, ow_n);
   else
-    maxpool_fwd_kernel<false><<<blocks_for(total), kThreads, 0, s>>>(x, y, total, c, h, w, oh_n,
-                                                                    ow_n);
+    maxpool_fwd_kernel<false, E><<<blocks_for(total), kThreads, 0, s>>>(x, y, total, c, h, w,
+                                                                        oh_n, ow_n);
   return (int)cudaGetLastError();
 }
 
-// dx from x, the forward's y and its gradient dy, all in x's layout.
-// Returns the launch's CUDA error code (-1: arguments refused: an empty
-// tensor, or more than 2^31 - 257 elements).
-int maxpool_bwd(const float* x, const float* y, const float* dy, float* dx, int n, int c, int h,
-                int w, int channels_last, void* stream) {
-  if (n < 1 || c < 1 || h < 1 || w < 1 || !fits(n, c, h, w)) return -1;
+template <class E>
+int launch_bwd(const E* x, const E* y, const E* dy, E* dx, int n, int c, int h, int w,
+               int channels_last, cudaStream_t s) {
   const int oh_n = (h - 1) / 2 + 1, ow_n = (w - 1) / 2 + 1;
-  // float4 columns where channels last holds the channels in aligned fours
+  // four-channel columns where channels last holds the channels in aligned
+  // fours (16 bytes in float32, 8 in bf16)
   const bool vec = channels_last && c % 4 == 0 &&
-                   ((uintptr_t)x | (uintptr_t)y | (uintptr_t)dy | (uintptr_t)dx) % 16 == 0;
+                   ((uintptr_t)x | (uintptr_t)y | (uintptr_t)dy | (uintptr_t)dx) %
+                           (4 * sizeof(E)) == 0;
   const int cs = channels_last ? c : 1, lanes = w * (vec ? c / 4 : cs);
   const int images = channels_last ? n : n * c;
   const int64_t columns = (int64_t)lanes * images;
   const int band_rows = band_rows_for(columns, oh_n);
   const int bands = (oh_n + band_rows - 1) / band_rows;
   const uint32_t total = (uint32_t)(columns * bands);  // <= n * c * h * w: fits
-  cudaStream_t s = (cudaStream_t)stream;
   if (vec)
-    maxpool_bwd_rows_kernel<4><<<blocks_for(total), kThreads, 0, s>>>(
+    maxpool_bwd_rows_kernel<4, E><<<blocks_for(total), kThreads, 0, s>>>(
         x, y, dy, dx, total, lanes, images, band_rows, cs, h, w, oh_n, ow_n);
   else
-    maxpool_bwd_rows_kernel<1><<<blocks_for(total), kThreads, 0, s>>>(
+    maxpool_bwd_rows_kernel<1, E><<<blocks_for(total), kThreads, 0, s>>>(
         x, y, dy, dx, total, lanes, images, band_rows, cs, h, w, oh_n, ow_n);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// y (n, c, oh_n, ow_n) from x (n, c, h, w), both NCHW-contiguous or both
+// channels_last, float32 or (bf16 != 0) bf16; oh_n = (h - 1) / 2 + 1, ow_n
+// likewise.  Returns the launch's CUDA error code (-1: arguments refused:
+// an empty tensor, or more than 2^31 - 257 elements).
+int maxpool_fwd(const void* x, void* y, int n, int c, int h, int w, int channels_last, int bf16,
+                void* stream) {
+  if (n < 1 || c < 1 || h < 1 || w < 1 || !fits(n, c, h, w)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_fwd((const __nv_bfloat16*)x, (__nv_bfloat16*)y, n, c, h, w,
+                           channels_last, s)
+              : launch_fwd((const float*)x, (float*)y, n, c, h, w, channels_last, s);
+}
+
+// dx from x, the forward's y and its gradient dy, all in x's layout and
+// dtype.  Returns the launch's CUDA error code (-1: arguments refused: an
+// empty tensor, or more than 2^31 - 257 elements).
+int maxpool_bwd(const void* x, const void* y, const void* dy, void* dx, int n, int c, int h,
+                int w, int channels_last, int bf16, void* stream) {
+  if (n < 1 || c < 1 || h < 1 || w < 1 || !fits(n, c, h, w)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_bwd((const __nv_bfloat16*)x, (const __nv_bfloat16*)y,
+                           (const __nv_bfloat16*)dy, (__nv_bfloat16*)dx, n, c, h, w,
+                           channels_last, s)
+              : launch_bwd((const float*)x, (const float*)y, (const float*)dy, (float*)dx, n, c,
+                           h, w, channels_last, s);
 }
 
 }  // extern "C"

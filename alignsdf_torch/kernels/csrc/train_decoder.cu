@@ -50,6 +50,16 @@
 //  3. colsum_kernel: db_l as the sum of dpre_l over each scene's rows (one
 //     warp per feature and scene, plain stores) or over all rows (atomics).
 // One call of train_decoder_bwd enqueues all of these on one stream.
+//
+// bf16 (the launchers' int `bf16`; the JAX kernel with cdtype bfloat16,
+// decoder_train_kernel.py:420-470, :483-485, :545-640): the same kernels on
+// the trunk's TcBf16 arithmetic, one wgmma.m64n128k16 bf16 product a k step
+// of 16 against bf16 tiles; the pack holds the weights, X and the embedding
+// rounded to bf16 (the biases float32), the forward rounds each gated
+// activation to bf16 and stores the residuals as bf16; the chain writes
+// each dpre twice, float32 (colsum: the bias sums of the unrounded dpre)
+// and rounded to bf16 (the reductions: wgrad_tc.cuh's bf16 route, dW from
+// the bf16 residuals, dX from the embedding's bf16 copy emb16).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,9 +74,10 @@
 
 struct Layer {
   const float *w, *wt, *x, *b;  // w (in_pad, out_pad), wt its transpose (final layer), x (e, out_pad)
-  float *act, *dpre;            // residual (out_pad, M), pre-activation grad (out_pad, M)
+  float *act, *dpre;            // residual (out_pad, M; bf16 in bf16), pre-activation grad (out_pad, M)
   float *dw, *dx, *db;          // gradients (shapes of w, x, b)
   int in_pad, out_pad, scene_bias, dropout;
+  __nv_bfloat16* dpre16;        // bf16: dpre rounded, the reductions' operand
 };
 
 struct Plan {
@@ -81,6 +92,7 @@ struct Plan {
   long long tiles_len;   // their floats
   const float* fwd;      // the forward's weight tiles (train_fwd_tc.cuh)
   long long fwd_len;     // their floats
+  const __nv_bfloat16* emb16;  // bf16: the embedding (e, M) as bf16, dX's operand
   Layer layers[MAX_LAYERS];
 };
 
@@ -88,16 +100,19 @@ struct Plan {
 // forward
 // ---------------------------------------------------------------------------
 
+// Cfg: the trunk's arithmetic (TcF32 or TcBf16); R: the residuals' type
+// (float or __nv_bfloat16).
+template <class Cfg, class R>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 train_fwd_tc_kernel(const Plan p, int total, unsigned seed, unsigned thresh, float scale) {
   extern __shared__ __align__(128) float smem[];
-  const TcShared s = tc_shared(smem, p.max_pad);
+  const TcShared s = tc_shared<Cfg>(smem, p.max_pad);
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
   const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
   const int first = blockIdx.x * TC_P;
   const TcPlan plan = fw_stream(total);
   FwClock clk;
-  if (tid == 0) fw_init(p.fwd, plan, s, total);
+  if (tid == 0) fw_init<Cfg>(p.fwd, plan, s, total);
   __syncthreads();
   clk.tick(0);
 
@@ -109,8 +124,8 @@ train_fwd_tc_kernel(const Plan p, int total, unsigned seed, unsigned thresh, flo
   for (int l = 0; l < p.n_layers - 1; ++l) {
     const Layer& L = p.layers[l];
     const int groups = L.out_pad / TC_GROUP, depth = L.w ? L.in_pad : 0;
-    fw_product(acc0, acc1, depth, groups, slot, p.fwd, plan, s, total, wg, wt, p0, t4);
-    slot += depth / TC_K * groups;
+    fw_product<Cfg>(acc0, acc1, depth, groups, slot, p.fwd, plan, s, total, wg, wt, p0, t4);
+    slot += depth / Cfg::kK * groups;
     __syncthreads();  // every warp is done reading the layer's input
     clk.tick(2);
     const float* b0 = L.scene_bias ? L.b + (size_t)sa * L.out_pad : L.b;
@@ -119,13 +134,13 @@ train_fwd_tc_kernel(const Plan p, int total, unsigned seed, unsigned thresh, flo
     const unsigned kb = fw_key(seed, (unsigned)l, (unsigned)rb);
     if (groups > wg)
       fw_epilogue(acc0, wg, L.x, p.e, L.out_pad, p.emb + first, p.m, ra < p.m, rb < p.m, b0, b1,
-                  L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+                  L.dropout, ka, kb, thresh, scale, s.act, p0, t4, Cfg::kBf16);
     if (groups > wg + 2)
       fw_epilogue(acc1, wg + 2, L.x, p.e, L.out_pad, p.emb + first, p.m, ra < p.m, rb < p.m, b0,
-                  b1, L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+                  b1, L.dropout, ka, kb, thresh, scale, s.act, p0, t4, Cfg::kBf16);
     __syncthreads();
     clk.tick(3);
-    fw_store(s.act, L.out_pad, L.act, p.m, first, true, tid);
+    fw_store(s.act, L.out_pad, reinterpret_cast<R*>(L.act), p.m, first, true, tid);
     clk.tick(4);
   }
   const Layer& F = p.layers[p.n_layers - 1];
@@ -138,17 +153,20 @@ train_fwd_tc_kernel(const Plan p, int total, unsigned seed, unsigned thresh, flo
 // backward 1: the reverse chain per 64-point tile, on the tensor cores
 // ---------------------------------------------------------------------------
 
+// Cfg, R: as the forward's.
+template <class Cfg, class R>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int total, float scale) {
   extern __shared__ __align__(128) float smem[];
-  const ChShared s = ch_shared(smem);
+  const ChShared s = ch_shared<Cfg>(smem);
   float* buf = s.tc.act;
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
   const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
   const int first = blockIdx.x * TC_P;
-  const TcPlan plan = ch_stream(total);
+  const TcPlan plan = ch_stream<Cfg>(total);
+  auto act = [&](const Layer& L) { return reinterpret_cast<const R*>(L.act); };
   ChClock clk;
-  if (tid == 0) ch_init(tiles, plan, s.tc, total);
+  if (tid == 0) ch_init<Cfg>(tiles, plan, s.tc, total);
   clk.tick(0);
 
   // the final layer, then its input's gradient (plus dx_last) gated by the
@@ -156,15 +174,16 @@ train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int tot
   const int last = p.n_layers - 1;
   const Layer& F = p.layers[last];
   const Layer& H = p.layers[last - 1];
-  ch_prefetch(H.act, F.in_pad, p.m, first, tid);
-  ch_final(p.y, p.dy, F.dpre, F.w, p.n_out, F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid);
+  ch_prefetch(act(H), F.in_pad, p.m, first, tid);
+  ch_final(p.y, p.dy, F.dpre, F.w, p.n_out, F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid,
+           F.dpre16);
   if (p.dx_last) {
     __syncthreads();
     ch_add_rows(buf, p.dx_last, p.xl_w, p.m, first, tid);
   }
   __syncthreads();
   clk.tick(1);
-  ch_gate(buf, F.in_pad, H.act, H.dropout ? scale : 1.f, H.dpre, p.m, first, tid);
+  ch_gate(buf, F.in_pad, act(H), H.dropout ? scale : 1.f, H.dpre, p.m, first, tid, H.dpre16);
   __syncthreads();
   clk.tick(2);
 
@@ -177,9 +196,10 @@ train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int tot
     const Layer& L = p.layers[l];
     const int groups = l > 0 ? L.in_pad / TC_GROUP : 0;
     if (groups > 0) {
-      ch_prefetch(p.layers[l - 1].act, L.in_pad, p.m, first, tid);
-      ch_product(acc0, acc1, L.out_pad, groups, slot, tiles, plan, s.tc, total, wg, wt, p0, t4);
-      slot += L.out_pad / TC_K * groups;
+      ch_prefetch(act(p.layers[l - 1]), L.in_pad, p.m, first, tid);
+      ch_product<Cfg>(acc0, acc1, L.out_pad, groups, slot, tiles, plan, s.tc, total, wg, wt, p0,
+                      t4);
+      slot += L.out_pad / Cfg::kK * groups;
     }
     if (L.x) {
       __syncthreads();
@@ -196,7 +216,7 @@ train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int tot
     __syncthreads();
     clk.tick(5);
     const Layer& P = p.layers[l - 1];
-    ch_gate(buf, L.in_pad, P.act, P.dropout ? scale : 1.f, P.dpre, p.m, first, tid);
+    ch_gate(buf, L.in_pad, act(P), P.dropout ? scale : 1.f, P.dpre, p.m, first, tid, P.dpre16);
     __syncthreads();
     clk.tick(2);
   }
@@ -208,14 +228,17 @@ train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int tot
 // ---------------------------------------------------------------------------
 
 // desc (int64): [n_layers, n_out, e, m, nps, n_scenes, emb, y, dy, demb,
-// dx_last, xl_w, tiles, tiles_len, fwd, fwd_len, then per layer: w, wt, x, b,
-// act, dpre, dw, dx, db, in_pad, out_pad, scene_bias, dropout].  Pointers are
-// device addresses, 0 = absent; wt only on the final layer; the tiles (the
-// backward's) run from the last hidden layer down, each layer l > 0's
-// tile_weights(W_l^T) of depth out_pad; the forward's (fwd) in layer order,
-// each hidden layer l > 0's tile_weights(W_l) of depth in_pad.
-#define HEAD 16
-static int parse(const long long* desc, int len, Plan* p, bool backward) {
+// dx_last, xl_w, tiles, tiles_len, fwd, fwd_len, emb16, then per layer: w,
+// wt, x, b, act, dpre, dw, dx, db, in_pad, out_pad, scene_bias, dropout,
+// dpre16].  Pointers are device addresses, 0 = absent; wt only on the final
+// layer; the tiles (the backward's) run from the last hidden layer down,
+// each layer l > 0's tile_weights(W_l^T) of depth out_pad; the forward's
+// (fwd) in layer order, each hidden layer l > 0's tile_weights(W_l) of
+// depth in_pad (float32: split TF32 halves; bf16: bf16 tiles).  emb16 and
+// dpre16 only in a bf16 backward, where they are required.
+#define HEAD 17
+#define PER_LAYER 14
+static int parse(const long long* desc, int len, Plan* p, bool backward, bool bf16) {
   if (len < HEAD) return -1;
   p->n_layers = (int)desc[0];
   p->n_out = (int)desc[1];
@@ -233,18 +256,22 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
   p->tiles_len = desc[13];
   p->fwd = (const float*)desc[14];
   p->fwd_len = desc[15];
-  if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != HEAD + 13 * p->n_layers) return -1;
+  p->emb16 = (const __nv_bfloat16*)desc[16];
+  if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != HEAD + PER_LAYER * p->n_layers)
+    return -1;
   if (p->n_out < 1 || p->n_out > MAX_OUT || p->e < 1 || p->e > EMB_MAX) return -1;
   if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes) return -1;
   if (!p->emb || !p->y || (backward && (!p->dy || !p->demb))) return -1;
+  if (backward && bf16 && !p->emb16) return -1;
   p->max_pad = TC_GROUP;
   for (int l = 0; l < p->n_layers; ++l) {
-    const long long* d = desc + HEAD + 13 * l;
+    const long long* d = desc + HEAD + PER_LAYER * l;
     Layer& L = p->layers[l];
     L.w = (const float*)d[0]; L.wt = (const float*)d[1]; L.x = (const float*)d[2];
     L.b = (const float*)d[3]; L.act = (float*)d[4]; L.dpre = (float*)d[5];
     L.dw = (float*)d[6]; L.dx = (float*)d[7]; L.db = (float*)d[8];
     L.in_pad = (int)d[9]; L.out_pad = (int)d[10]; L.scene_bias = (int)d[11]; L.dropout = (int)d[12];
+    L.dpre16 = (__nv_bfloat16*)d[13];
     const bool hidden = l < p->n_layers - 1;
     if (!L.b) return -1;
     if (l == 0 ? (L.w || !L.x || L.in_pad != 0) : (!L.w || L.in_pad != p->layers[l - 1].out_pad)) return -1;
@@ -256,6 +283,7 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
       return -1;
     }
     if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.x && !L.dx))) return -1;
+    if (backward && bf16 && !L.dpre16) return -1;
   }
   if (p->dx_last && (!backward || p->xl_w < 1 || p->xl_w > p->layers[p->n_layers - 1].in_pad))
     return -1;
@@ -265,72 +293,95 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
 // The forward's tiles: each hidden layer l > 0's, in layer order; -1 where
 // a layer is outside the forward (train_fwd_tc.cuh) or the stream's length
 // disagrees.
+template <class Cfg>
 static int fwd_tiles(const Plan& p) {
   int total = 0;
   for (int l = 0; l < p.n_layers - 1; ++l) {
     const Layer& L = p.layers[l];
-    const int n = fw_layer_tiles(L.w ? L.in_pad : 0, L.out_pad);
+    const int n = fw_layer_tiles<Cfg>(L.w ? L.in_pad : 0, L.out_pad);
     if (n < 0) return -1;
     total += n;
   }
-  if (p.fwd_len != (long long)total * 2 * TC_TILE || (total > 0 && !p.fwd)) return -1;
+  if (p.fwd_len != (long long)total * Cfg::kTile || (total > 0 && !p.fwd)) return -1;
   return total;
 }
 
-extern "C" int train_decoder_fwd(const long long* desc, int len, unsigned seed, unsigned thresh,
-                                 float scale, void* stream) {
-  Plan p;
-  if (parse(desc, len, &p, false)) return -1;
-  const int total = fwd_tiles(p);
+template <class Cfg, class R>
+static int launch_fwd(const Plan& p, unsigned seed, unsigned thresh, float scale,
+                      cudaStream_t stream) {
+  const int total = fwd_tiles<Cfg>(p);
   if (total < 0) return -1;
-  const size_t smem = tc_smem_bytes(p.max_pad);  // max_pad <= TC_MAX_OUT (fwd_tiles)
-  cudaError_t err = cudaFuncSetAttribute(train_fwd_tc_kernel,
+  const size_t smem = tc_smem_bytes<Cfg>(p.max_pad);  // max_pad <= TC_MAX_OUT (fwd_tiles)
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_tc_kernel<Cfg, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
-  train_fwd_tc_kernel<<<blocks, TC_THREADS, smem, (cudaStream_t)stream>>>(p, total, seed, thresh,
-                                                                          scale);
+  train_fwd_tc_kernel<Cfg, R><<<blocks, TC_THREADS, smem, stream>>>(p, total, seed, thresh,
+                                                                    scale);
   return (int)cudaGetLastError();
+}
+
+// bf16: the TcBf16 kernel with bf16 residuals, else split TF32 with float32.
+extern "C" int train_decoder_fwd(const long long* desc, int len, unsigned seed, unsigned thresh,
+                                 float scale, int bf16, void* stream) {
+  Plan p;
+  if (parse(desc, len, &p, false, bf16)) return -1;
+  return bf16 ? launch_fwd<TcBf16, __nv_bfloat16>(p, seed, thresh, scale, (cudaStream_t)stream)
+              : launch_fwd<TcF32, float>(p, seed, thresh, scale, (cudaStream_t)stream);
 }
 
 // The chain's tiles: each hidden layer l > 0's, from the last down; -1
 // where a layer is outside the chain (chain_tc.cuh) or the stream's length
 // disagrees.
+template <class Cfg>
 static int chain_tiles(const Plan& p) {
   int total = 0;
   for (int l = p.n_layers - 2; l > 0; --l) {
-    const int n = ch_layer_tiles(p.layers[l].out_pad, p.layers[l].in_pad);
+    const int n = ch_layer_tiles<Cfg>(p.layers[l].out_pad, p.layers[l].in_pad);
     if (n < 0) return -1;
     total += n;
   }
   if (p.layers[0].out_pad > CH_ROWS || p.layers[p.n_layers - 1].in_pad > CH_ROWS) return -1;
-  if (p.tiles_len != (long long)total * 2 * TC_TILE || (total > 0 && !p.tiles)) return -1;
+  if (p.tiles_len != (long long)total * Cfg::kTile || (total > 0 && !p.tiles)) return -1;
   return total;
 }
 
-extern "C" int train_decoder_bwd(const long long* desc, int len, float scale, void* stream) {
-  Plan p;
-  if (parse(desc, len, &p, true)) return -1;
-  const int total = chain_tiles(p);
+template <class Cfg, class R>
+static int launch_bwd(const Plan& p, float scale, cudaStream_t s) {
+  const int total = chain_tiles<Cfg>(p);
   if (total < 0) return -1;
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = ch_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(train_bwd_chain_tc_kernel,
+  const size_t smem = ch_smem_bytes<Cfg>();
+  cudaError_t err = cudaFuncSetAttribute(train_bwd_chain_tc_kernel<Cfg, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
-  train_bwd_chain_tc_kernel<<<blocks, TC_THREADS, smem, s>>>(p, p.tiles, total, scale);
+  train_bwd_chain_tc_kernel<Cfg, R><<<blocks, TC_THREADS, smem, s>>>(p, p.tiles, total, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  constexpr bool kBf16 = Cfg::kBf16;
   for (int l = 0; l < p.n_layers; ++l) {
     const Layer& L = p.layers[l];
-    int rc;
-    if (L.w && (rc = launch_wgrad(p.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s)))
-      return rc;
-    if (L.x && (rc = launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s))) return rc;
+    int rc = 0;
+    if (L.w)
+      rc = kBf16 ? launch_wgrad(reinterpret_cast<const __nv_bfloat16*>(p.layers[l - 1].act),
+                                L.dpre16, L.dw, L.in_pad, L.out_pad, p.m, s)
+                 : launch_wgrad(p.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s);
+    if (rc) return rc;
+    if (L.x)
+      rc = kBf16 ? launch_wgrad(p.emb16, L.dpre16, L.dx, p.e, L.out_pad, p.m, s)
+                 : launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s);
+    if (rc) return rc;
     if ((rc = launch_colsum(L.dpre, L.db, L.out_pad, p.m, L.scene_bias ? p.nps : 4096,
                             L.scene_bias, s)))
       return rc;
   }
   return 0;
+}
+
+extern "C" int train_decoder_bwd(const long long* desc, int len, float scale, int bf16,
+                                 void* stream) {
+  Plan p;
+  if (parse(desc, len, &p, true, bf16)) return -1;
+  return bf16 ? launch_bwd<TcBf16, __nv_bfloat16>(p, scale, (cudaStream_t)stream)
+              : launch_bwd<TcF32, float>(p, scale, (cudaStream_t)stream);
 }

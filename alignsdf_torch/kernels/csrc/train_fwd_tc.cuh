@@ -51,6 +51,23 @@
 // at the flagship: 128 KB), the final rows' scratch; K4 adds its tap table.
 // K5's is the trunk's alone.
 // One block an SM.
+//
+// bf16 (K2 with TcBf16, the JAX kernel's cdtype bfloat16,
+// decoder_train_kernel.py:420-470, :483-485): the same kernel templated on
+// the trunk's arithmetic, as the grid trunk is.  A k step of 16 is one
+// wgmma.m64n128k16 bf16 product against tile_weights(W, bf16) tiles (4 KB,
+// 22 ring slots); the buffer keeps float32 words holding bf16 values, so
+// that the A fragment packs them exactly (tc_pack_bf16); the epilogue adds
+// the bf16-rounded embedding terms (exact products, float32 sums), the
+// float32 bias, ReLU and the gate, then rounds to bf16, after the gate as
+// JAX does; the residuals are stored as bf16 (out_pad, M), 3.5 KB a point a
+// trunk, half of float32's; the final rows' weights hold bf16 values, so
+// their products with the bf16 activations are exact and their sums
+// float32.  Shared memory at the flagship (rows 512): the ring 22 x 4 KB =
+// 88 KB, as float32's 11 x 8 KB, the buffer 128 KB, 22 barriers: 223,664
+// bytes.  A bf16 buffer would halve the 128 KB only if the epilogue kept
+// float32 nowhere; the products' A loads would then read packed pairs,
+// untried.
 
 #pragma once
 
@@ -81,19 +98,21 @@ __device__ __forceinline__ TcPlan fw_stream(int total) {
 }
 
 // Thread 0, before the block's first barrier: the ring's barriers and its
-// first TC_SLOTS tiles.
+// first Cfg::kSlots tiles.
+template <class Cfg = TcF32>
 __device__ __forceinline__ void fw_init(const float* tiles, const TcPlan& plan, const TcShared& s,
                                         int total) {
-  for (int i = 0; i < TC_SLOTS; ++i) tc_mbar_init(&s.full[i], 1);
+  for (int i = 0; i < Cfg::kSlots; ++i) tc_mbar_init(&s.full[i], 1);
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   if (FW_PROBE & 1) return;
-  for (int j = 0; j < TC_SLOTS; ++j) tc_fill(tiles, plan, s, j, total);
+  for (int j = 0; j < Cfg::kSlots; ++j) tc_fill<Cfg>(tiles, plan, s, j, total);
 }
 
 // A layer's product: this warpgroup's output groups wg and wg + 2 of
 // `groups` over buffer rows [0, depth), from ring tile `slot` on; the
 // accumulators are 0 where the warpgroup has no group or the layer no
 // product (depth 0).
+template <class Cfg = TcF32>
 __device__ __forceinline__ void fw_product(float (&acc0)[64], float (&acc1)[64], int depth,
                                            int groups, int slot, const float* __restrict__ tiles,
                                            const TcPlan& plan, const TcShared& s, int total,
@@ -103,11 +122,11 @@ __device__ __forceinline__ void fw_product(float (&acc0)[64], float (&acc1)[64],
   for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
   if (FW_PROBE & 1) return;
   if (mine == 2) {
-    tc_steps<2>(acc0, acc1, depth / TC_K, 0, false, groups, slot, tiles, plan, s, total, wg, wt,
-                p0, t4);
+    tc_steps<2, Cfg>(acc0, acc1, depth / Cfg::kK, 0, false, groups, slot, tiles, plan, s, total,
+                     wg, wt, p0, t4);
   } else if (mine == 1) {
-    tc_steps<1>(acc0, acc1, depth / TC_K, 0, false, groups, slot, tiles, plan, s, total, wg, wt,
-                p0, t4);
+    tc_steps<1, Cfg>(acc0, acc1, depth / Cfg::kK, 0, false, groups, slot, tiles, plan, s, total,
+                     wg, wt, p0, t4);
   }
 }
 
@@ -122,14 +141,15 @@ __device__ __forceinline__ unsigned fw_key(unsigned seed, unsigned layer, unsign
 // null; emb the block's first column of the (e, M) embedding, `live0` /
 // `live1`: the points lie below M), + the bias (b0 the row of p0's scene,
 // b1 of p0 + 8's), ReLU and, where `gate`, the dropout gate of the rows'
-// keys k0 / k1; into buffer rows 128 j on.
+// keys k0 / k1, then, where `bf16`, rounded to bf16; into buffer rows 128 j
+// on.
 __device__ __forceinline__ void fw_epilogue(float (&acc)[64], int j, const float* __restrict__ x,
                                             int e, int out_pad, const float* __restrict__ emb,
                                             int m, bool live0, bool live1,
                                             const float* __restrict__ b0,
                                             const float* __restrict__ b1, bool gate, unsigned k0,
                                             unsigned k1, unsigned thresh, float scale, float* buf,
-                                            int p0, int t4) {
+                                            int p0, int t4, bool bf16 = false) {
   const int o0 = j * TC_GROUP + 2 * t4;
   for (int c = 0; x && c < e; ++c) {
     const float ea = live0 ? __ldg(emb + (size_t)c * m + p0) : 0.f;
@@ -159,6 +179,12 @@ __device__ __forceinline__ void fw_epilogue(float (&acc)[64], int j, const float
       v2 = gate_mix(k1 ^ c0) < thresh ? v2 * scale : 0.f;
       v3 = gate_mix(k1 ^ c1) < thresh ? v3 * scale : 0.f;
     }
+    if (bf16) {
+      v0 = tc_round_bf16(v0);
+      v1 = tc_round_bf16(v1);
+      v2 = tc_round_bf16(v2);
+      v3 = tc_round_bf16(v3);
+    }
     buf[tc_swz(o, p0)] = v0;
     buf[tc_swz(o + 1, p0)] = v1;
     buf[tc_swz(o, p0 + 8)] = v2;
@@ -167,10 +193,12 @@ __device__ __forceinline__ void fw_epilogue(float (&acc)[64], int j, const float
 }
 
 // Buffer rows [0, rows) to dst (rows, M) at this block's points, a thread a
-// 16-byte run of 4 points (a warp two rows): streaming stores (evicted from
-// L2 first) where `stream`, else plain ones (K4's latent, which the block
-// reads again).
-__device__ __forceinline__ void fw_store(const float* buf, int rows, float* __restrict__ dst, int m,
+// run of 4 points (16 bytes in float32, 8 in bf16, which the buffer's
+// values then hold exactly; a warp two rows): streaming stores (evicted
+// from L2 first) where `stream`, else plain ones (K4's latent, which the
+// block reads again).
+template <class T = float>
+__device__ __forceinline__ void fw_store(const float* buf, int rows, T* __restrict__ dst, int m,
                                          int first, bool stream, int tid) {
   if (FW_PROBE & 4) return;
   const int n = rows * (TC_P / 4);
@@ -178,11 +206,20 @@ __device__ __forceinline__ void fw_store(const float* buf, int rows, float* __re
     const int k = i >> 4, p = (i & 15) << 2;
     if (first + p >= m) continue;
     const float4 v = *reinterpret_cast<const float4*>(buf + tc_swz(k, p));
-    float4* d = reinterpret_cast<float4*>(dst + (size_t)k * m + first + p);
-    if (stream) {
-      __stcs(d, v);
+    if constexpr (sizeof(T) == 2) {
+      uint2* d = reinterpret_cast<uint2*>(dst + (size_t)k * m + first + p);
+      if (stream) {
+        __stcs(d, tc_pack4_bf16(v));
+      } else {
+        *d = tc_pack4_bf16(v);
+      }
     } else {
-      *d = v;
+      float4* d = reinterpret_cast<float4*>(dst + (size_t)k * m + first + p);
+      if (stream) {
+        __stcs(d, v);
+      } else {
+        *d = v;
+      }
     }
   }
 }
@@ -278,9 +315,11 @@ struct FwClock {
 // Host: the tiles of a forward layer of product depth `depth` (its
 // activation rows, then K4's latent rows) and out_pad outputs, or -1 where
 // the forward does not take it: out_pad a multiple of TC_GROUP up to
-// TC_MAX_OUT, depth a multiple of TC_K up to TC_MAX_OUT (the buffer's rows).
+// TC_MAX_OUT, depth a multiple of the k step up to TC_MAX_OUT (the buffer's
+// rows).
+template <class Cfg = TcF32>
 static inline int fw_layer_tiles(int depth, int out_pad) {
   if (out_pad < TC_GROUP || out_pad % TC_GROUP || out_pad > TC_MAX_OUT) return -1;
-  if (depth < 0 || depth % TC_K || depth > TC_MAX_OUT) return -1;
-  return depth / TC_K * (out_pad / TC_GROUP);
+  if (depth < 0 || depth % Cfg::kK || depth > TC_MAX_OUT) return -1;
+  return depth / Cfg::kK * (out_pad / TC_GROUP);
 }

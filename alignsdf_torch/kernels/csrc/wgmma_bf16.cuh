@@ -1,5 +1,6 @@
-// bf16 on Hopper's tensor cores: the product of the grid decoders' bf16
-// k step (grid_trunk_tc.cuh with TcBf16; K1, K3 and K6 serving a bf16 plan).
+// bf16 on Hopper's tensor cores: the product of the bf16 k step of the grid
+// decoders (grid_trunk_tc.cuh with TcBf16; K1, K3 and K6 serving a bf16
+// plan) and of K2's bf16 forward, chain and weight-gradient reduction.
 // wgmma.m64n128k16.f32.bf16.bf16 with A's fragment in registers and B in
 // shared memory, K-major, as 8 x 16-byte core matrices without swizzle: the
 // same byte layout and descriptor (tc_desc) as the TF32 tiles of
@@ -20,6 +21,11 @@
 // floats that hold bf16 values: their top 16 bits, exactly (one PRMT).
 __device__ __forceinline__ uint32_t tc_pack_bf16(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// 4 floats that hold bf16 values as 4 bf16 in 8 bytes, in order (exact).
+__device__ __forceinline__ uint2 tc_pack4_bf16(float4 v) {
+  return make_uint2(tc_pack_bf16(v.x, v.y), tc_pack_bf16(v.z, v.w));
 }
 
 // x rounded to the nearest bf16 (ties to even), as a float.

@@ -64,11 +64,12 @@ def k_step(dtype: torch.dtype) -> int:
 
 
 def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """float32 ``x`` rounded to ``dtype`` (to nearest, ties to even), in
-    float32: the values a bf16 plan computes with."""
+    """``x`` rounded to ``dtype`` (to nearest, ties to even), in x's own
+    dtype (float32, or float64 for a float64 reference): the values a bf16
+    plan or trunk computes with."""
     if check_dtype(dtype) == torch.float32:
         return x
-    return x.to(torch.bfloat16).to(torch.float32)
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def tile_floats(k: int, out_pad: int, dtype: torch.dtype = torch.float32) -> int:

@@ -15,14 +15,18 @@ window's gradient, per axis,
 where PyTorch and XLA route each window's gradient to its first maximum.
 The two differ wherever a window holds a tie, which a post-ReLU activation
 of an image with flat regions (an augmented image's black corners) has.
-Shapes are PyTorch's NCHW, float32; the kernels take NCHW-contiguous
-tensors and channels-last ones, the layout the encoder's stem activation
-has (an NHWC image permuted to NCHW).
+Shapes are PyTorch's NCHW, float32 or bfloat16 (the bf16 encoder's stem,
+JAX ``ops/maxpool.py:71-98`` on a bf16 array); the kernels take
+NCHW-contiguous tensors and channels-last ones, the layout the encoder's
+stem activation has (an NHWC image permuted to NCHW).  On bf16 the forward
+is exact (a max); the backward sums each pass's routed cotangents in
+float32 and rounds the pass's result to bf16, dy1 and then dx, as the TPU
+kernel's two passes write their outputs in x's dtype.
 
 ``maxpool_k3s2p1`` is differentiable.  For a CPU tensor it runs the plain
 version both ways; for a CUDA tensor it launches the kernels or raises.
 ``maxpool_forward.launches`` and ``maxpool_backward.launches`` count the
-launches.
+float32 kernels' launches, ``.bf16_launches`` the bf16 kernels'.
 """
 
 from __future__ import annotations
@@ -77,11 +81,14 @@ def maxpool_reference(x: torch.Tensor) -> torch.Tensor:
 
 def maxpool_backward_reference(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """dx from x, the pooled y and its gradient dy, with K7's tie routing;
-    y1 is recomputed from x, as the kernel does."""
-    y1 = _h_pass(x)
-    dy1 = _route_last(y1, y, dy)
-    dx = _route_last(x.transpose(2, 3), y1.transpose(2, 3), dy1.transpose(2, 3)).transpose(2, 3)
-    return _in_layout_of(dx, x)
+    y1 is recomputed from x, as the kernel does.  The sums in float32, each
+    pass's result rounded to x's dtype."""
+    dt = x.dtype
+    x32, y, dy = x.to(torch.float32), y.to(torch.float32), dy.to(torch.float32)
+    y1 = _h_pass(x32)
+    dy1 = _route_last(y1, y, dy).to(dt).to(torch.float32)
+    dx = _route_last(x32.transpose(2, 3), y1.transpose(2, 3), dy1.transpose(2, 3)).transpose(2, 3)
+    return _in_layout_of(dx.to(dt), x)
 
 
 def _lib():
@@ -89,7 +96,7 @@ def _lib():
 
     lib = load("maxpool")
     if not getattr(lib, "_typed", False):
-        dims = [ctypes.c_int] * 5  # n, c, h, w, channels_last
+        dims = [ctypes.c_int] * 6  # n, c, h, w, channels_last, bf16
         lib.maxpool_fwd.restype = ctypes.c_int
         lib.maxpool_fwd.argtypes = [ctypes.c_void_p] * 2 + dims + [ctypes.c_void_p]
         lib.maxpool_bwd.restype = ctypes.c_int
@@ -109,12 +116,23 @@ def memory_format(t: torch.Tensor) -> torch.memory_format:
                      f"{t.stride()} for shape {tuple(t.shape)}")
 
 
-def _check(name: str, t: torch.Tensor, shape, fmt: torch.memory_format) -> None:
-    if t.device.type != "cuda" or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(name: str, t: torch.Tensor, shape, fmt: torch.memory_format,
+           dtype: torch.dtype) -> None:
+    if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous(memory_format=fmt):
-        raise ValueError(f"{name}: K7 takes float32 CUDA tensors of shape {tuple(shape)} in "
+        raise ValueError(f"{name}: K7 takes {dtype} CUDA tensors of shape {tuple(shape)} in "
                          f"{fmt}, got {t.dtype} {tuple(t.shape)} strides {t.stride()} on "
                          f"{t.device}")
+
+
+def _count(fn, dtype: torch.dtype) -> None:
+    if dtype == torch.bfloat16:
+        fn.bf16_launches += 1
+    else:
+        fn.launches += 1
 
 
 def _run(name: str, fn, device: torch.device, *args) -> None:
@@ -125,17 +143,20 @@ def _run(name: str, fn, device: torch.device, *args) -> None:
 
 
 def maxpool_forward(x: torch.Tensor) -> torch.Tensor:
-    """K7 forward on the card: y (N, C, OH, OW) in x's layout."""
+    """K7 forward on the card: y (N, C, OH, OW) in x's layout and dtype
+    (float32 or bfloat16)."""
     if x.dim() != 4:
         raise ValueError(f"K7 takes (N, C, H, W), got {tuple(x.shape)}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"K7 takes float32 or bfloat16, got {x.dtype}")
     fmt = memory_format(x)
     n, c, h, w = x.shape
-    _check("x", x, x.shape, fmt)
-    y = torch.empty((n, c, pooled_size(h), pooled_size(w)), dtype=torch.float32,
+    _check("x", x, x.shape, fmt, x.dtype)
+    y = torch.empty((n, c, pooled_size(h), pooled_size(w)), dtype=x.dtype,
                     device=x.device, memory_format=fmt)
     _run("maxpool_fwd", _lib().maxpool_fwd, x.device, x.data_ptr(), y.data_ptr(), n, c, h, w,
-         int(fmt == torch.channels_last))
-    maxpool_forward.launches += 1
+         int(fmt == torch.channels_last), int(x.dtype == torch.bfloat16))
+    _count(maxpool_forward, x.dtype)
     return y
 
 
@@ -147,21 +168,26 @@ def maxpool_backward(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor) -> torc
     band height."""
     if x.dim() != 4:
         raise ValueError(f"K7 takes (N, C, H, W), got {tuple(x.shape)}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"K7 takes float32 or bfloat16, got {x.dtype}")
     fmt = memory_format(x)
     n, c, h, w = x.shape
     pooled = (n, c, pooled_size(h), pooled_size(w))
-    _check("x", x, x.shape, fmt)
-    _check("y", y, pooled, fmt)
-    _check("dy", dy, pooled, fmt)
+    _check("x", x, x.shape, fmt, x.dtype)
+    _check("y", y, pooled, fmt, x.dtype)
+    _check("dy", dy, pooled, fmt, x.dtype)
     dx = torch.empty_like(x, memory_format=fmt)
     _run("maxpool_bwd", _lib().maxpool_bwd, x.device, x.data_ptr(), y.data_ptr(), dy.data_ptr(),
-         dx.data_ptr(), n, c, h, w, int(fmt == torch.channels_last))
-    maxpool_backward.launches += 1
+         dx.data_ptr(), n, c, h, w, int(fmt == torch.channels_last),
+         int(x.dtype == torch.bfloat16))
+    _count(maxpool_backward, x.dtype)
     return dx
 
 
 maxpool_forward.launches = 0
 maxpool_backward.launches = 0
+maxpool_forward.bf16_launches = 0
+maxpool_backward.bf16_launches = 0
 
 
 class MaxPoolFunction(torch.autograd.Function):
@@ -178,15 +204,18 @@ class MaxPoolFunction(torch.autograd.Function):
     def backward(ctx, dy: torch.Tensor) -> torch.Tensor:
         x, y = ctx.saved_tensors
         if x.device.type == "cuda":
-            return maxpool_backward(x, y, dy.contiguous(memory_format=memory_format(x)))
+            return maxpool_backward(x, y, dy.to(x.dtype).contiguous(
+                memory_format=memory_format(x)))
         return maxpool_backward_reference(x, y, dy)
 
 
 def maxpool_k3s2p1(x: torch.Tensor) -> torch.Tensor:
-    """K7: (N, C, H, W) float32 -> (N, C, (H-1)//2+1, (W-1)//2+1), differentiable."""
+    """K7: (N, C, H, W) float32 or bfloat16 -> (N, C, (H-1)//2+1,
+    (W-1)//2+1) in x's dtype, differentiable.  Any other dtype raises: the
+    pool casts nothing."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"maxpool_k3s2p1 runs on cuda or cpu, not {x.device}")
-    if x.dtype != torch.float32:
-        raise NotImplementedError(f"not ported yet: K7 on {x.dtype} (the stem pool in bf16 "
-                                  "comes with bf16 training)")
+    if x.dtype not in DTYPES:
+        raise NotImplementedError(f"not ported: K7 on {x.dtype} (it takes float32 and "
+                                  "bfloat16, as the TPU kernel's callers give it)")
     return MaxPoolFunction.apply(x)

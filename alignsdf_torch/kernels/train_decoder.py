@@ -17,16 +17,28 @@ layer's input, which the classifier head reads), and the backward takes its
 gradient ``dx_last``, added to the final layer's input gradient before the
 last hidden layer's gate (JAX ``_bwd_kernel_scene`` :637-638).
 
-``train_decode`` takes the plain version for a CPU tensor, on which autograd
-gives the gradients.  For a CUDA tensor it runs ``TrainDecodeFunction``,
-whose forward and backward launch the kernels or raise.  Both run split
-TF32 on the tensor cores (``csrc/train_fwd_tc.cuh``, ``csrc/chain_tc.cuh``,
-``csrc/wgrad_tc.cuh``): ``pack_trunk`` splits the hidden weights once a
-call and tiles them as the forward reads them and, transposed, as the
-backward's chain reads them (``layer_tiles``).
-``train_decode.launches`` counts forward launches and
+With ``TrainStatics.dtype`` bfloat16 the trunk keeps the JAX kernel's bf16
+contract (``_fused_scene_fwd`` / ``_fused_scene_bwd`` with ``cdtype``
+bfloat16): the weights, inject weights and embedding rounded to bf16 once,
+products of bf16 values summed in float32, each hidden activation rounded to
+bf16 after ReLU and the gate (the residual, and the next layer's input),
+the biases float32; in the backward every product takes the pre-activation
+gradient rounded to bf16 (dx, dW, dX, d(emb)), the bias gradients sum it
+unrounded, and the gate is (a_bf16 > 0) s.  The gradients returned are
+float32 and unrounded, of the float32 operands.
+
+``train_decode`` takes the plain version for a CPU tensor: in float32
+autograd through it gives the gradients; in bf16 ``TrainDecodeReference``
+pairs it with the plain backward, whose roundings autograd cannot give.
+For a CUDA tensor it runs ``TrainDecodeFunction``, whose forward and
+backward launch the kernels or raise.  Both run on the tensor cores
+(``csrc/train_fwd_tc.cuh``, ``csrc/chain_tc.cuh``, ``csrc/wgrad_tc.cuh``),
+split TF32 in float32 and bf16 ``wgmma`` in bf16: ``pack_trunk`` splits (or
+rounds) the hidden weights once a call and tiles them as the forward reads
+them and, transposed, as the backward's chain reads them (``layer_tiles``).
+``train_decode.launches`` counts float32 forward launches and
 ``train_decode_backward.launches`` backward launches: one each per trunk per
-train step.
+train step; ``.bf16_launches`` counts the bf16 kernels' apart.
 """
 
 from __future__ import annotations
@@ -37,7 +49,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from alignsdf_torch.kernels.grid_decoder import TC_GROUP, TC_MAX_OUT, tf32_split, tile_halves
+from alignsdf_torch.kernels.grid_decoder import (
+    TC_GROUP, TC_MAX_OUT, check_dtype, round_to, tf32_split, tile_halves, tile_weights)
 
 PAD = 256         # hidden widths pad to a multiple of the tensor-core trunk's group
 EMB_MAX = 64      # embedding columns a trunk may read
@@ -61,6 +74,7 @@ class TrainStatics(NamedTuple):
     dropout: Tuple[bool, ...]     # hidden layers with dropout
     keep: float
     train: bool
+    dtype: torch.dtype = torch.float32  # the compute dtype: float32 or bfloat16
 
 
 def gate_threshold(keep: float) -> int:
@@ -100,29 +114,33 @@ def train_decode_reference(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor
                            seed: int, st: TrainStatics,
                            acts: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """The plain version of K2's forward, step by step with torch.matmul;
-    autograd through it is the plain backward.  emb (M, e); ws[l] (in, out)
-    or None; xs[l] (e, out) or None; bs[l] (B, out) or (out,).  Returns the
-    tanh'd outputs as (n_out, M) and x_last, the last hidden layer's gated
-    activation (M, h); ``acts``, if given, receives each hidden layer's gated
-    activation (M, out)."""
+    in float32 autograd through it is the plain backward.  emb (M, e); ws[l]
+    (in, out) or None; xs[l] (e, out) or None; bs[l] (B, out) or (out,).
+    Returns the tanh'd outputs as (n_out, M) and x_last, the last hidden
+    layer's gated activation (M, h); ``acts``, if given, receives each
+    hidden layer's gated activation (M, out).  In bf16 (``st.dtype``) the
+    operands but the biases and each gated activation are rounded to bf16,
+    the arithmetic float32 (or the inputs' float64)."""
     m = emb.shape[0]
     rows = torch.arange(m, device=emb.device)
     scene = rows // st.n_per_scene
     n_layers = len(bs)
+    emb = round_to(emb, st.dtype)
     x = None
     for layer in range(n_layers):
         acc = None
         if ws[layer] is not None:
-            acc = x @ ws[layer]
+            acc = x @ round_to(ws[layer], st.dtype)
         if xs[layer] is not None:
-            term = emb @ xs[layer]
+            term = emb @ round_to(xs[layer], st.dtype)
             acc = term if acc is None else acc + term
         acc = acc + (bs[layer][scene] if st.scene_bias[layer] else bs[layer])
         if layer == n_layers - 1:
             return torch.tanh(acc).T, x
         x = torch.relu(acc)
         if st.train and st.dropout[layer]:
-            x = x * dropout_gate(seed, layer, rows, x.shape[1], st.keep)
+            x = x * dropout_gate(seed, layer, rows, x.shape[1], st.keep).to(x.dtype)
+        x = round_to(x, st.dtype)
         if acts is not None:
             acts.append(x)
     raise ValueError("a trunk needs at least one layer")
@@ -136,24 +154,28 @@ def train_decode_backward_reference(emb, ws, xs, bs, st: TrainStatics, y: torch.
     x_last's gradient dx_last (M, h) or None.
     The gate is recovered as (a > 0) * s, s = 1/keep on dropout layers in
     training, else 1 (no hash replay).  Returns (d(emb), [dW | None],
-    [dX | None], [db]) with db per scene (B, out) for scene-bias layers."""
+    [dX | None], [db]) with db per scene (B, out) for scene-bias layers.  In
+    bf16 every product takes dpre rounded to bf16 and the rounded operands
+    (``acts`` hold bf16 values), the bias gradients dpre itself."""
     m = emb.shape[0]
     scene = torch.arange(m, device=emb.device) // st.n_per_scene
     n_layers = len(bs)
     dws, dxs, dbs = [None] * n_layers, [None] * n_layers, [None] * n_layers
     demb = torch.zeros_like(emb)
+    emb_c = round_to(emb, st.dtype)
     dpre = (dy * (1.0 - y * y)).T  # (M, n_out)
     for layer in range(n_layers - 1, -1, -1):
+        dr = round_to(dpre, st.dtype)
         if ws[layer] is not None:
-            dws[layer] = acts[layer - 1].T @ dpre
+            dws[layer] = acts[layer - 1].T @ dr
         if xs[layer] is not None:
-            dxs[layer] = emb.T @ dpre
-            demb = demb + dpre @ xs[layer].T
+            dxs[layer] = emb_c.T @ dr
+            demb = demb + dr @ round_to(xs[layer], st.dtype).T
         dbs[layer] = (torch.zeros_like(bs[layer]).index_add_(0, scene, dpre)
                       if st.scene_bias[layer] else dpre.sum(0))
         if layer > 0:
             scale = 1.0 / st.keep if st.train and st.dropout[layer - 1] else 1.0
-            dx = dpre @ ws[layer].T
+            dx = dr @ round_to(ws[layer], st.dtype).T
             if layer == n_layers - 1 and dx_last is not None:
                 dx = dx + dx_last
             dpre = dx * (acts[layer - 1] > 0).to(dpre.dtype) * np.float32(scale)
@@ -165,7 +187,8 @@ def train_decode_backward_reference(emb, ws, xs, bs, st: TrainStatics, y: torch.
 # ---------------------------------------------------------------------------
 
 class _Packed(NamedTuple):
-    """Padded, contiguous copies of one trunk in the kernels' layout."""
+    """Padded, contiguous copies of one trunk in the kernels' layout (in
+    bf16 the weights and the embedding hold their bf16-rounded values)."""
 
     emb_t: torch.Tensor                 # (e, M)
     w: List[Optional[torch.Tensor]]     # hidden (in_pad, out_pad); last (in_pad, n_out)
@@ -176,6 +199,8 @@ class _Packed(NamedTuple):
     n_scenes: int
     chain: torch.Tensor                 # the backward chain's weight tiles, last layer first
     fwd: torch.Tensor                   # the forward's weight tiles, in layer order
+    dtype: torch.dtype = torch.float32  # the kernels' arithmetic
+    emb16: Optional[torch.Tensor] = None  # bf16: emb_t as bf16, the reduction's dX operand
 
 
 def _pad2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -188,6 +213,7 @@ def _check(emb, ws, xs, bs, st: TrainStatics) -> Tuple[int, int]:
     """Raise on what the kernels do not take; returns (n_out, n_scenes)."""
     n_layers = len(bs)
     m, e = emb.shape
+    check_dtype(st.dtype)
     if not 2 <= n_layers <= MAX_LAYERS:
         raise ValueError(f"the kernel takes 2-{MAX_LAYERS} layers, got {n_layers}")
     if ws[0] is not None or xs[0] is None or any(w is None for w in ws[1:]):
@@ -209,7 +235,7 @@ def _check(emb, ws, xs, bs, st: TrainStatics) -> Tuple[int, int]:
     return n_out, n_scenes
 
 
-def layer_tiles(*weights: Optional[torch.Tensor]
+def layer_tiles(*weights: Optional[torch.Tensor], dtype: torch.dtype = torch.float32
                 ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
     """One hidden layer's weight tiles for the tensor-core forward and
     backward chain, from one split: the padded weights that read the
@@ -219,8 +245,9 @@ def layer_tiles(*weights: Optional[torch.Tensor]
     the B of acc = [a | lat] @ S with the latent's rows right above the
     activation's (``csrc/train_fwd_tc.cuh``), and of S^T, the B of dx =
     dpre @ S^T with the layer's out_pad as the depth, its dx rows, then its
-    dlat rows (``csrc/chain_tc.cuh``).  None where the layer has none
-    (K2's layer 0, which reads the embedding alone)."""
+    dlat rows (``csrc/chain_tc.cuh``).  In bf16 S is rounded instead and
+    both are ``tile_weights``' bf16 tiles (128 outputs x 16 k).  None where
+    the layer has none (K2's layer 0, which reads the embedding alone)."""
     parts = [w for w in weights if w is not None]
     if not parts:
         return None
@@ -229,6 +256,9 @@ def layer_tiles(*weights: Optional[torch.Tensor]
         raise ValueError(f"the tensor-core forward and chain take layers of at most "
                          f"{TC_MAX_OUT} input rows and outputs, multiples of {TC_GROUP}, got "
                          f"({s.shape[0]}, {s.shape[1]})")
+    if check_dtype(dtype) == torch.bfloat16:
+        return (tile_weights(s, s.shape[0], s.shape[1], dtype),
+                tile_weights(s.T, s.shape[1], s.shape[0], dtype))
     halves = torch.stack(tf32_split(s))
     return tile_halves(halves), tile_halves(halves.transpose(1, 2))
 
@@ -240,8 +270,9 @@ def tile_stream(runs: Sequence[torch.Tensor], device: torch.device) -> torch.Ten
 
 def pack_trunk(emb, ws, xs, bs, st: TrainStatics) -> _Packed:
     """Padded, contiguous copies of one trunk's operands (detached) for the
-    kernels, the forward's tiles and the backward chain's; raises on what
-    they do not take."""
+    kernels, the forward's tiles and the backward chain's, in ``st.dtype``
+    (bf16: the weights and the embedding rounded, the biases not); raises
+    on what they do not take."""
     n_out, n_scenes = _check(emb, ws, xs, bs, st)
     n_layers = len(bs)
     w, x, b, out_pads = [], [], [], []
@@ -249,8 +280,10 @@ def pack_trunk(emb, ws, xs, bs, st: TrainStatics) -> _Packed:
     for layer in range(n_layers):
         out = bs[layer].shape[-1]
         out_pad = n_out if layer == n_layers - 1 else _round_up(out, PAD)
-        w.append(None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad))
-        x.append(None if xs[layer] is None else _pad2(xs[layer], emb.shape[1], out_pad))
+        w.append(None if ws[layer] is None
+                 else _pad2(round_to(ws[layer], st.dtype), in_pad, out_pad))
+        x.append(None if xs[layer] is None
+                 else _pad2(round_to(xs[layer], st.dtype), emb.shape[1], out_pad))
         bl = bs[layer]
         b.append(_pad2(bl, bl.shape[0], out_pad) if bl.dim() == 2
                  else _pad2(bl[None], 1, out_pad)[0])
@@ -260,10 +293,12 @@ def pack_trunk(emb, ws, xs, bs, st: TrainStatics) -> _Packed:
         raise ValueError(f"the tensor-core forward and chain take hidden widths up to "
                          f"{TC_MAX_OUT}")
     wt = [None] * (n_layers - 1) + [w[-1].T.contiguous()]
-    tiles = [layer_tiles(w[layer]) for layer in range(1, n_layers - 1)]
+    tiles = [layer_tiles(w[layer], dtype=st.dtype) for layer in range(1, n_layers - 1)]
     fwd = tile_stream([t[0] for t in tiles], emb.device)
     chain = tile_stream([t[1] for t in reversed(tiles)], emb.device)
-    return _Packed(emb.T.contiguous(), w, wt, x, b, out_pads, n_scenes, chain, fwd)
+    emb_t = round_to(emb, st.dtype).T.contiguous()
+    emb16 = emb_t.to(torch.bfloat16) if st.dtype == torch.bfloat16 else None
+    return _Packed(emb_t, w, wt, x, b, out_pads, n_scenes, chain, fwd, st.dtype, emb16)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -271,14 +306,14 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 
 def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, demb=None, dpre=None,
-                grads=None, dx_last=None) -> np.ndarray:
+                grads=None, dx_last=None, dpre16=None) -> np.ndarray:
     """The int64 descriptor ``train_decoder.cu`` parses (see its header)."""
     n_layers = len(p.b)
     e, m = p.emb_t.shape
     desc = [n_layers, p.out_pads[-1], e, m, st.n_per_scene, p.n_scenes,
             _ptr(p.emb_t), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dx_last),
             0 if dx_last is None else dx_last.shape[1], _ptr(p.chain), p.chain.numel(),
-            _ptr(p.fwd), p.fwd.numel()]
+            _ptr(p.fwd), p.fwd.numel(), _ptr(p.emb16)]
     in_pad = 0
     for layer in range(n_layers):
         dw, dx, db = grads[layer] if grads is not None else (None, None, None)
@@ -287,7 +322,8 @@ def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, demb=None, dpre=
                  _ptr(dpre[layer]) if dpre is not None else 0,
                  _ptr(dw), _ptr(dx), _ptr(db), in_pad, p.out_pads[layer],
                  int(st.scene_bias[layer]),
-                 int(layer < n_layers - 1 and st.train and st.dropout[layer])]
+                 int(layer < n_layers - 1 and st.train and st.dropout[layer]),
+                 _ptr(dpre16[layer]) if dpre16 is not None else 0]
         in_pad = p.out_pads[layer]
     return np.ascontiguousarray(desc, np.int64)
 
@@ -299,10 +335,11 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.train_decoder_fwd.restype = ctypes.c_int
         lib.train_decoder_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                                          ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+                                          ctypes.c_uint, ctypes.c_float, ctypes.c_int,
+                                          ctypes.c_void_p]
         lib.train_decoder_bwd.restype = ctypes.c_int
         lib.train_decoder_bwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                                          ctypes.c_void_p]
+                                          ctypes.c_int, ctypes.c_void_p]
         lib._typed = True
     return lib
 
@@ -316,17 +353,21 @@ def _run(name: str, fn, device: torch.device, *args) -> None:
 
 
 def train_decode_forward(p: _Packed, seed: int, st: TrainStatics):
-    """K2 forward on the card, on the tensor cores (``train_fwd_tc_kernel``):
-    y (n_out, M) and the gated activations of the hidden layers, each
-    (out_pad, M)."""
+    """K2 forward on the card, on the tensor cores (``train_fwd_tc_kernel``,
+    in the pack's dtype): y (n_out, M) float32 and the gated activations of
+    the hidden layers, each (out_pad, M), bf16 on a bf16 pack."""
     e, m = p.emb_t.shape
     dev = p.emb_t.device
+    bf16 = p.dtype == torch.bfloat16
     y = torch.empty((p.out_pads[-1], m), dtype=torch.float32, device=dev)
-    acts = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads[:-1]]
+    acts = [torch.empty((h, m), dtype=p.dtype, device=dev) for h in p.out_pads[:-1]]
     desc = _descriptor(p, st, y, acts)
     _run("train_decoder_fwd", _lib().train_decoder_fwd, dev, desc.ctypes.data, int(desc.size),
-         seed & _M32, gate_threshold(st.keep), float(np.float32(1.0 / st.keep)))
-    train_decode.launches += 1
+         seed & _M32, gate_threshold(st.keep), float(np.float32(1.0 / st.keep)), int(bf16))
+    if bf16:
+        train_decode.bf16_launches += 1
+    else:
+        train_decode.launches += 1
     return y, acts
 
 
@@ -337,10 +378,13 @@ def train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
     tensor cores (adding ``dx_last`` (M, h), if given, to the final layer's
     input gradient, then writing each layer's pre-activation gradient and
     d(emb)), then per layer the weight, inject-weight and bias reductions
-    over all M points.
+    over all M points.  On a bf16 pack the chain writes each pre-activation
+    gradient twice, float32 for the bias sums and rounded to bf16 for the
+    products' reductions.
     Returns (demb (M, e), [(dW | None, dX | None, db)] padded)."""
     e, m = p.emb_t.shape
     dev = p.emb_t.device
+    bf16 = p.dtype == torch.bfloat16
     dy = dy.to(torch.float32).contiguous()
     if dx_last is not None:
         dx_last = dx_last.to(torch.float32).contiguous()
@@ -348,15 +392,20 @@ def train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
             raise ValueError(f"dx_last {tuple(dx_last.shape)} does not fit the trunk")
     demb = torch.empty((m, e), dtype=torch.float32, device=dev)
     dpre = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads]
+    dpre16 = ([torch.empty((h, m), dtype=torch.bfloat16, device=dev) for h in p.out_pads]
+              if bf16 else None)
     grads = []
     for layer in range(len(p.b)):
         zeros = lambda t: None if t is None else torch.zeros_like(t)  # noqa: E731
         grads.append((zeros(p.w[layer]), zeros(p.x[layer]), torch.zeros_like(p.b[layer])))
     desc = _descriptor(p, st, y, acts, dy=dy, demb=demb, dpre=dpre, grads=grads,
-                       dx_last=dx_last)
+                       dx_last=dx_last, dpre16=dpre16)
     _run("train_decoder_bwd", _lib().train_decoder_bwd, dev, desc.ctypes.data, int(desc.size),
-         float(np.float32(1.0 / st.keep)))
-    train_decode_backward.launches += 1
+         float(np.float32(1.0 / st.keep)), int(bf16))
+    if bf16:
+        train_decode_backward.bf16_launches += 1
+    else:
+        train_decode_backward.launches += 1
     return demb, grads
 
 
@@ -366,8 +415,9 @@ class TrainDecodeFunction(torch.autograd.Function):
     xs that exist, bs); the padding happens here and the padded rows and
     columns of every gradient are dropped on the way out.  The gated
     activations are the residuals; x_last is a view of the last one, sliced
-    of its padding.  The backward takes dx_last = None when x_last fed
-    nothing (no classifier)."""
+    of its padding (in bf16 a float32 copy, so that its gradient stays
+    float32).  The backward takes dx_last = None when x_last fed nothing
+    (no classifier)."""
 
     @staticmethod
     def forward(ctx, st: TrainStatics, seed: int, emb: torch.Tensor, *params):
@@ -380,7 +430,7 @@ class TrainDecodeFunction(torch.autograd.Function):
         ctx.shapes = ([None if w is None else w.shape for w in ws],
                       [None if x is None else x.shape for x in xs], [b.shape for b in bs])
         ctx.set_materialize_grads(False)
-        return y, acts[-1][:bs[-2].shape[-1]].T
+        return y, acts[-1][:bs[-2].shape[-1]].T.to(torch.float32)
 
     @staticmethod
     def backward(ctx, dy: Optional[torch.Tensor], dx_last: Optional[torch.Tensor]):
@@ -393,6 +443,31 @@ class TrainDecodeFunction(torch.autograd.Function):
         d_x = [dx[:, :s[1]] for (_, dx, _), s in zip(grads, x_shapes) if s is not None]
         d_b = [db[..., :s[-1]] for (_, _, db), s in zip(grads, b_shapes)]
         return (None, None, demb, *d_w, *d_x, *d_b)
+
+
+class TrainDecodeReference(torch.autograd.Function):
+    """K2's plain version as one autograd Function: the plain forward, and
+    for the backward the plain backward on its residuals.  The CPU route of
+    a bf16 trunk, where autograd through the plain forward would round the
+    gradients at the forward's roundings instead of the contract's."""
+
+    @staticmethod
+    def forward(ctx, st: TrainStatics, seed: int, emb: torch.Tensor, *params):
+        ws, xs, bs = unflatten_params(st, params)
+        acts: List[torch.Tensor] = []
+        y, x_last = train_decode_reference(emb, ws, xs, bs, seed, st, acts=acts)
+        ctx.st, ctx.acts, ctx.y, ctx.operands = st, acts, y, (emb, ws, xs, bs)
+        ctx.set_materialize_grads(False)
+        return y, x_last
+
+    @staticmethod
+    def backward(ctx, dy: Optional[torch.Tensor], dx_last: Optional[torch.Tensor]):
+        if dy is None:
+            dy = torch.zeros_like(ctx.y)
+        emb, ws, xs, bs = ctx.operands
+        demb, dws, dxs, dbs = train_decode_backward_reference(emb, ws, xs, bs, ctx.st, ctx.y,
+                                                              ctx.acts, dy, dx_last)
+        return (None, None, demb, *flatten_params(dws, dxs, dbs))
 
 
 def flatten_params(ws, xs, bs) -> List[torch.Tensor]:
@@ -410,9 +485,12 @@ def train_decode(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor]],
                  xs: Sequence[Optional[torch.Tensor]], bs: Sequence[torch.Tensor],
                  seed: int, st: TrainStatics) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: the (n_out, M) tanh'd outputs of one trunk and x_last (M, h),
-    both differentiable in emb and every weight and bias."""
+    both differentiable in emb and every weight and bias, in ``st.dtype``'s
+    contract."""
     if emb.device.type == "cpu":
-        return train_decode_reference(emb, ws, xs, bs, seed, st)
+        if st.dtype == torch.float32:
+            return train_decode_reference(emb, ws, xs, bs, seed, st)
+        return TrainDecodeReference.apply(st, seed, emb, *flatten_params(ws, xs, bs))
     if emb.device.type != "cuda":
         raise ValueError(f"train_decode runs on cuda or cpu, not {emb.device}")
     return TrainDecodeFunction.apply(st, seed, emb, *flatten_params(ws, xs, bs))
@@ -420,3 +498,5 @@ def train_decode(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor]],
 
 train_decode.launches = 0
 train_decode_backward.launches = 0
+train_decode.bf16_launches = 0
+train_decode_backward.bf16_launches = 0

@@ -2,7 +2,8 @@
 two feature-major operands (A (K, m), B (N, m), the points as the reduced
 dimension), its plain PyTorch version and the wrapper that launches the
 CUDA kernel (``csrc/weight_grad.cu`` over ``csrc/wgrad_tc.cuh``, split
-TF32 on the tensor cores).
+TF32 on the tensor cores for float32 operands; bf16 operands, K2's bf16
+backward's, on bf16 ``wgmma``, summed in float32).
 
 The backwards of K2, K4 and K5 launch the same kernel from their own calls
 (dW of every layer, dX of the embedding or input row, K4's d(Lat));
@@ -13,7 +14,8 @@ card and timing the reduction apart from the chains around it.
 
 ``weight_grad`` takes the plain version only for tensors on the CPU; on the
 GPU it launches the kernel or raises.  ``weight_grad.launches`` counts its
-launches (not the backwards', which count their own).
+launches (not the backwards', which count their own), ``.bf16_launches``
+its bf16 ones.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ import torch
 
 
 def weight_grad_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain version: (K, N) float32 a @ b.T."""
-    return a @ b.T
+    """The plain version: (K, N) float32 a @ b.T (bf16 operands' exact
+    products, float32 sums)."""
+    return a.to(torch.float32) @ b.to(torch.float32).T
 
 
 def _launcher():
@@ -36,20 +39,23 @@ def _launcher():
     fn = lib.weight_grad_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
 def weight_grad(a: torch.Tensor, b: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(K, N) float32 a @ b.T of a (K, m) and b (N, m); with ``out``, a
-    contiguous (K, N) float32 tensor on their device, a @ b.T is added into
-    it (the backwards' contract: C holds zeros or a sum to add to) and out
+    """(K, N) float32 a @ b.T of a (K, m) and b (N, m), both float32 or both
+    bf16 (bf16: m a multiple of 4); with ``out``, a contiguous (K, N)
+    float32 tensor on their device, a @ b.T is added into it (the
+    backwards' contract: C holds zeros or a sum to add to) and out
     returned."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[1]:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} are not (K, m) and (N, m)")
-    if a.device != b.device or a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError("a and b must be float32 on one device")
+    if a.device != b.device or a.dtype != b.dtype or a.dtype not in (torch.float32,
+                                                                     torch.bfloat16):
+        raise ValueError("a and b must be float32, or both bf16, on one device")
+    bf16 = a.dtype == torch.bfloat16
     (k, m), n = a.shape, b.shape[0]
     if out is not None and (out.shape != (k, n) or out.dtype != torch.float32
                             or out.device != a.device or not out.is_contiguous()):
@@ -64,11 +70,16 @@ def weight_grad(a: torch.Tensor, b: torch.Tensor,
     c = torch.zeros((k, n), dtype=torch.float32, device=a.device) if out is None else out
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _launcher()(a.data_ptr(), b.data_ptr(), c.data_ptr(), int(k), int(n), int(m), stream)
+        rc = _launcher()(a.data_ptr(), b.data_ptr(), c.data_ptr(), int(k), int(n), int(m),
+                         int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"weight_grad launch failed with code {rc}")
-    weight_grad.launches += 1
+    if bf16:
+        weight_grad.bf16_launches += 1
+    else:
+        weight_grad.launches += 1
     return c
 
 
 weight_grad.launches = 0
+weight_grad.bf16_launches = 0

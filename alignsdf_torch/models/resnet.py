@@ -12,8 +12,8 @@ bf16, convolutions and deconvolutions run on bf16 operands and return bf16
 (a bias, cast to bf16, added after the product), eval-mode BatchNorm
 normalizes in float32 with its float32 statistics and returns the input's
 dtype, ReLUs, pools and residual sums stay bf16, and the global average
-pool is taken in float32.  Train-mode BatchNorm on bf16 (JAX's one-pass
-statistics) is not ported yet and raises.
+pool is taken in float32.  Train-mode BatchNorm on bf16 takes JAX's
+one-pass statistics (``BatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -72,16 +72,35 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose float32 statistics normalize a bf16 input
-    in float32 and return bf16 (JAX's ``TorchBatchNorm`` in eval)."""
+    """``nn.BatchNorm2d`` with JAX's ``TorchBatchNorm`` on a bf16 input
+    (its ``models/resnet.py:53-89``).  In eval the float32 statistics
+    normalize it in float32 and the result is bf16.  In training the
+    one-pass path: one read of x gives the float32 sums s1 and s2, mean =
+    s1 / n, var = max(s2 / n - mean^2, 0) (biased, which normalizes; the
+    running var takes the unbiased one, the running stats float32), and the
+    output is the bf16 x a + b with a = inv scale and b = bias - mean inv
+    scale each rounded to bf16 (inv = rsqrt(var + eps)).  Autograd goes
+    through all of it, the casts included, as JAX's does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.float32:
             return super().forward(x)
-        if self.training:
-            raise NotImplementedError("not ported yet: train-mode BatchNorm on bfloat16 "
-                                      "(ComputeDtype=bfloat16 training)")
-        return super().forward(x.to(torch.float32)).to(x.dtype)
+        if not self.training:
+            return super().forward(x.to(torch.float32)).to(x.dtype)
+        x32 = x.to(torch.float32)
+        n = x.numel() // x.shape[1]
+        dims = (0, 2, 3)
+        mean = x32.sum(dims) / n
+        var = torch.clamp((x32 * x32).sum(dims) / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * (var * (n / max(n - 1, 1))))
+            self.num_batches_tracked.add_(1)
+        inv = torch.rsqrt(var + self.eps)
+        a = (inv * self.weight).to(x.dtype)
+        b = (self.bias - mean * inv * self.weight).to(x.dtype)
+        return x * a[:, None, None] + b[:, None, None]
 
 
 def _bn(c: int) -> nn.BatchNorm2d:

@@ -17,6 +17,13 @@ the JAX package's ``classifier_apply`` (:854-859) is XLA outside its kernel.
 
 The port keeps per-scene tables as (B, h); the TPU's (B*8, h) row-0-of-8
 layout answered Mosaic's tiling.
+
+Under ComputeDtype bfloat16 the fold is JAX's (``run_branch`` :826-839):
+the latent and W's latent rows rounded to bf16, their product summed in
+float32 and not rounded, the tables float32; autograd through the casts
+rounds the latent's and W's cotangents to bf16 where JAX's does
+(``tests/test_torch_bf16_train.py`` pins both).  K2 then runs the trunk in
+bf16 (``TrainStatics.dtype``), and the logits stay a float32 product.
 """
 
 from __future__ import annotations
@@ -28,16 +35,27 @@ import torch
 from alignsdf_torch.config import Specs
 from alignsdf_torch.kernels.train_decoder import TrainStatics, train_decode
 from alignsdf_torch.models.decoder import trunk_layer_dims, trunk_prefixes
-from alignsdf_torch.models.layers import materialize_linear
+from alignsdf_torch.models.layers import compute_dtype_of, materialize_linear
 from alignsdf_torch.ops.grid_plan import branch_columns
+
+
+def fold_latent(latent: torch.Tensor, w_lat: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """latent (B, ls) @ w_lat (ls, h), float32: in bf16 of both operands
+    rounded to bf16 (exact products, float32 sums), as JAX's ``jnp.dot(lat_c,
+    w.astype(bf16), preferred_element_type=float32)``."""
+    if dtype == torch.float32:
+        return latent @ w_lat
+    return latent.to(dtype).to(torch.float32) @ w_lat.to(dtype).to(torch.float32)
 
 
 def trunk_operands(decoder: torch.nn.Module, prefix: str, n_cols: int, latent: torch.Tensor,
                    specs: Specs, out_dim: int):
     """(ws, xs, bs) of one trunk for K2: ws[l] (in, out) on the previous
     activation or None, xs[l] (n_cols, out) on the embedding or None, bs[l]
-    a (B, out) scene table where the latent folds in, else (out,)."""
+    a (B, out) scene table where the latent folds in (``fold_latent`` in
+    the spec's compute dtype), else (out,)."""
     ns = specs.network_specs
+    dtype = compute_dtype_of(specs.compute_dtype)
     ls = latent.shape[1]
     in_dim = ls + n_cols
     shapes = trunk_layer_dims(in_dim, ns, out_dim)
@@ -51,12 +69,12 @@ def trunk_operands(decoder: torch.nn.Module, prefix: str, n_cols: int, latent: t
         if layer == 0:
             ws.append(None)
             xs.append(w[ls:in_dim])
-            bs.append(bias + latent @ w[:ls])
+            bs.append(bias + fold_latent(latent, w[:ls], dtype))
         elif layer in ns.latent_in:
             # the torch layer's input was [x (cur), latent (ls), emb (n_cols)]
             ws.append(w[:cur])
             xs.append(w[cur + ls:cur + in_dim])
-            bs.append(bias + latent @ w[cur:cur + ls])
+            bs.append(bias + fold_latent(latent, w[cur:cur + ls], dtype))
         else:
             ws.append(w)
             xs.append(None)
@@ -82,7 +100,8 @@ def make_train_decoder(specs: Specs, kernel: Callable = train_decode) -> Optiona
     a latent input at the final layer, which K2 does not re-inject).  The
     hand trunk draws its dropout from ``seed``, the object trunk from ``seed
     + 1``.  ``kernel`` may name K2's plain
-    version instead, to compare the two on the card."""
+    version instead, to compare the two on the card.  The statics carry the
+    spec's compute dtype, so that a bf16 spec runs K2's bf16 contract."""
     ns = specs.network_specs
     if (not ns.weight_norm or ns.use_tanh or ns.latent_dropout or ns.xyz_in_all
             or specs.pixel_align or 0 in ns.latent_in or len(ns.dims) in ns.latent_in):
@@ -96,7 +115,8 @@ def make_train_decoder(specs: Specs, kernel: Callable = train_decode) -> Optiona
         scene_bias=tuple(layer == 0 or latent_in[layer] for layer in range(n_layers)),
         dropout=tuple(bool(ns.dropout) and layer in ns.dropout for layer in range(n_layers - 1)),
         keep=1.0 - ns.dropout_prob,
-        train=True)
+        train=True,
+        dtype=compute_dtype_of(specs.compute_dtype))
     cols_h, cols_o = branch_columns(specs)
     combined = specs.model_type == "1encoder1decoder"
 

@@ -3,8 +3,8 @@ flagship, --pa_feat, --cls and --pa_feat --cls, the generic decoders,
 training from an LMDB dataset with the stem pool through K7, the proof
 of learning scored by the evaluation, training and testing from the
 reference's per-file layout, and from an ASDF-pack and forked loader
-workers, bf16 serving) on one CUDA GPU and hold each hand-written kernel
-against its plain PyTorch version.
+workers, bf16 serving, bf16 training) on one CUDA GPU and hold each
+hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -169,7 +169,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      (K1 in bf16) and scored to the same bounds, beside the float32 run's
      chamfers; K1 against its plain version on the trained weights'
      256^3 plan (its first and last runs of 2^20 points; K1 in bf16 on
-     the first), then its time per 256^3 pass;
+     the first), then its time per 256^3 pass; then (phase 20's) the same
+     1,400 steps from the same init in bf16 (ComputeDtype bfloat16: K2's
+     bf16 launches two a step each way, none of float32's), served with
+     --bf16 at 128^3 and scored to the same bounds (hand, --obj, --mano:
+     MANO joints below the untrained model's);
  17. the per-file layout: 128 scenes (2 x ScenesPerBatch) and a 4-image test
      split written as JPEG, npz and pkl files by
      data/synthetic.write_synthetic_dataset; the flagship JSON with LMDB
@@ -209,7 +213,10 @@ Phases (each prints its own lines; any failure exits non-zero):
      dry; the median, mean and range of steps 17-28, past the loader's
      start-up), steps 29-32 under torch.profiler (the idle share), K7's,
      K2's and K1's launches against the steps and the test's images, finite
-     losses and the test's MANO files;
+     losses and the test's MANO files; then (phase 20's) the pack run again
+     with --bf16: K7 and K2 on their bf16 kernels (none of the float32
+     ones), K1 float32 in the test, its steady step beside the float32
+     pack run's;
  19. bf16 serving: K1 (the flagship of 5), K3 (--pa_feat) and K6
      (--point_size 63 --pallas) on bf16 plans (bf16 wgmma) at full width:
      each against its plain bf16 version over both 128^3 passes of image 0
@@ -224,7 +231,30 @@ Phases (each prints its own lines; any failure exits non-zero):
      kernel, encode and grid ms, images/s, the idle share); then
      BASELINE.json's configs 1 (bare experiments/obman_30k.json) and 2
      (--mano): 3 images each at 128^3 in float32 and in bf16, each K1 pass
-     against its plain version, grid ms and images/s.
+     against its plain version, grid ms and images/s;
+ 20. bf16 training (cli.train --bf16, ComputeDtype bfloat16): K2 on bf16
+     wgmma with bf16 residuals against its plain bf16 version at 4 and 64 x
+     2000 points on the flagship's twin trunks, the DexYCB --cls trunk
+     (x_last / dx_last) and a combined trunk (y and x_last within
+     BF16_LOOSE everywhere and BF16_TIGHT at BF16_SHARE of the points, the
+     residuals equal at BF16_RESID_SHARE of the entries and within one bf16
+     step elsewhere, every gradient within BF16_GRAD_RTOL of the plain bf16
+     backward's on the kernel's residuals, kept shares); K2 bf16 against
+     float32 K2 on the same operands (y within BF16_VS_F32_TOL); K7 on bf16
+     at the train shape (channels last and NCHW) and the odd shape, forward
+     and backward bit for bit, timed beside its bytes bound and
+     F.max_pool2d on bf16; the flagship through cli/train.make_trainer in
+     bf16 and in float32 in the same call (7 steps each, each synchronized
+     on the host clock: median and range; K2's launches in the dtype's
+     counters; peak memory; 2 profiled steps: the device's busy and idle
+     share, K2's forward, chain, reduction and colsum ms); K2 bf16's
+     forward and backward per step against the plain bf16 versions, the
+     bf16 bounds (the FLOPs at 989.4 TFLOP/s, the bytes at 3.35 TB/s) and
+     split TF32's, its chain by the profiler and its reduction alone beside
+     torch.matmul on bf16; BASELINE.json's configs 1 and 2 trained 3 steps
+     through K2 in float32 and in bf16, then each served (1 image at 128^3,
+     each K1 pass against its plain version); phase 16's bf16-trained proof
+     and phase 18's bf16 pack run (above).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -350,6 +380,19 @@ BF16_PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 on the tensor cores (data shee
 BF16_TIGHT, BF16_SHARE, BF16_LOOSE = 1e-5, 0.9, 2e-3
 BF16_LOGIT_LOOSE = 5e-3  # the x40 classifier head carries a flip 40 times over
 BF16_VS_F32_TOL = 5e-3  # a bf16 field against the float32 kernel's (JAX's bf16 bound)
+# phase 20, bf16 training.  K2 in bf16 against its plain bf16 version, on
+# the kernel's own residuals: every gradient within BF16_GRAD_RTOL of its
+# largest entry; the residuals equal at BF16_RESID_SHARE of the entries and
+# elsewhere within one bf16 step of the larger (the neighbouring value) or
+# within BF16_LOOSE, where a unit rounded to its neighbour upstream moves a
+# small one by more than its own step; a flip at ReLU's edge at most
+# BF16_LOOSE
+BF16_GRAD_RTOL = 2e-3
+BF16_RESID_SHARE = 0.999
+K2_BF16_FWD_KERNELS = ("train_fwd_tc_kernel<TcBf16",)
+K2_BF16_BWD_KERNELS = ("train_bwd_chain_tc_kernel<TcBf16", "wgrad_bf16_tc_kernel",
+                       "colsum_kernel")
+CONFIG_TRAIN_STEPS = 3  # BASELINE.json's configs 1 and 2: steps before they are served
 
 
 
@@ -494,9 +537,28 @@ def grid_bounds(flops: float, nbytes: float) -> dict:
 
 
 def bounds_text(b: dict) -> str:
+    if b.get("bf16"):
+        return (f"bf16 bound {b['bound_ms']:.2f} ms ({b['bound_by']}; the FLOPs at "
+                f"{BF16_PEAK_FLOPS / 1e12:g} TFLOP/s dense bf16 {b['operations_bound_ms']:.2f} "
+                f"ms, the bytes at {HBM_BYTES_PER_S / 1e12:g} TB/s {b['bytes_bound_ms']:.2f} "
+                f"ms), split-TF32 bound {b['split_tf32_bound_ms']:.2f} ms")
     return (f"split-TF32 bound {b['bound_ms']:.2f} ms ({b['bound_by']}; {SPLIT_TF32_PRODUCTS} x "
             f"the FLOPs at {TF32_PEAK_FLOPS / 1e12:g} TFLOP/s dense TF32), float32 bound "
             f"{b['float32_bound_ms']:.2f} ms ({FP32_PEAK_FLOPS / 1e12:g} TFLOP/s)")
+
+
+def train_bounds(flops: float, nbytes: float, bf16: bool = False) -> dict:
+    """A train kernel's bounds: grid_bounds' in float32; in bf16 the larger
+    of the FLOPs at dense bf16's rate and the bytes at HBM's, both given,
+    with split TF32's beside (``bf16`` marks the dict for bounds_text)."""
+    if not bf16:
+        return grid_bounds(flops, nbytes)
+    ops_ms = flops / BF16_PEAK_FLOPS * 1e3
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, mem_ms), "bound_by": "operations" if ops_ms >= mem_ms
+            else "bytes", "operations_bound_ms": ops_ms, "bytes_bound_ms": mem_ms,
+            "split_tf32_bound_ms": SPLIT_TF32_PRODUCTS * flops / TF32_PEAK_FLOPS * 1e3,
+            "bf16": True}
 
 
 def profile_summary(prof, wall_s: float):
@@ -508,7 +570,9 @@ def profile_summary(prof, wall_s: float):
     kernels_ms, spans = {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            kernels_ms[e.name] = kernels_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            # a template kernel's demangled name starts with its return type
+            name = e.name.removeprefix("void ")
+            kernels_ms[name] = kernels_ms.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
             spans.append((e.time_range.start, e.time_range.end))
     if not spans:
         return None
@@ -566,36 +630,40 @@ def warm_and_profiled(recon, samples, kernel, card: str, label: str = ""):
                       "top_device_ms": dict(top)}
 
 
-def k2_work(ws, xs, bs, m: int, e: int, out_pads):
+def k2_work(ws, xs, bs, m: int, e: int, out_pads, act_bytes: int = 4):
     """(forward FLOPs, backward FLOPs, forward bytes, backward bytes) of one
     trunk over m points whose embedding (K2) or input row (K5) is e wide: 2
     per multiply-add at the true widths; the backward is dx plus dW.  Bytes
     count each input read once and each output written once, the residuals
-    at the kernel's padded widths ``out_pads``."""
+    at the kernel's padded widths ``out_pads``, ``act_bytes`` each (2 in
+    bf16)."""
     params = sum(t.numel() for t in [*ws, *xs, *bs] if t is not None)
     macs = sum(t.numel() for t in [*ws, *xs] if t is not None)
     n_out = out_pads[-1]
-    resid = sum(out_pads[:-1]) * m
-    fwd_bytes = 4 * (m * e + params + n_out * m + resid)
+    resid = act_bytes * sum(out_pads[:-1]) * m
+    fwd_bytes = 4 * (m * e + params + n_out * m) + resid
     # in: dy, y, residuals, emb, weights; out: d(emb), every gradient
-    bwd_bytes = 4 * (2 * n_out * m + resid + m * e + params + m * e + params)
+    bwd_bytes = 4 * (2 * n_out * m + m * e + params + m * e + params) + resid
     return 2 * macs * m, 4 * macs * m, fwd_bytes, bwd_bytes
 
 
-def k2_chain_work(ws, xs, m: int, e: int, out_pads):
+def k2_chain_work(ws, xs, m: int, e: int, out_pads, bf16: bool = False):
     """(FLOPs, bytes) of a K2-convention backward's chain kernel over one
     trunk: its products are the forward's (dx through every W, d(input)
     through every X), 2 per multiply-add at the true widths; bytes: y, dy,
     the residuals and the weights read once, every layer's pre-activation
-    gradient (padded) and d(input) written once."""
+    gradient (padded) and d(input) written once.  In bf16 the residuals are
+    2 bytes and each pre-activation gradient is written twice, 4 + 2
+    bytes."""
     macs = sum(t.numel() for t in [*ws, *xs] if t is not None)
     n_out = out_pads[-1]
-    return 2 * macs * m, 4 * (2 * n_out * m + sum(out_pads[:-1]) * m + macs
-                              + sum(out_pads) * m + m * e)
+    act, dpre = (2, 6) if bf16 else (4, 4)
+    return 2 * macs * m, (4 * (2 * n_out * m + macs + m * e) + act * sum(out_pads[:-1]) * m
+                          + dpre * sum(out_pads) * m)
 
 
 def chain_timing(label: str, chain_kernel: str, bwd, flops: float, nbytes: float,
-                 card: str) -> Optional[dict]:
+                 card: str, bf16: bool = False) -> Optional[dict]:
     """A backward's chain kernel timed apart: its device time per call from
     torch.profiler over CHAIN_PROFILED calls of ``bwd`` (after one warm-up),
     beside the split-TF32 and float32 bounds of its work; None where the
@@ -616,7 +684,8 @@ def chain_timing(label: str, chain_kernel: str, bwd, flops: float, nbytes: float
         print(f"{label} chain: not measured (the profiler recorded no device events)", flush=True)
         return None
     ms = sum(v for k, v in summary[2].items() if k.startswith(chain_kernel)) / CHAIN_PROFILED
-    rec = {"kernel": chain_kernel, "ms": ms, **grid_bounds(flops, nbytes), "tflop": flops / 1e12,
+    rec = {"kernel": chain_kernel, "ms": ms, **train_bounds(flops, nbytes, bf16),
+           "tflop": flops / 1e12,
            "gbytes": nbytes / 1e9, "tflops": flops / ms / 1e9 if ms > 0 else None}
     print(f"[{card}] {label} backward's chain ({chain_kernel}, profiler, {CHAIN_PROFILED} calls): "
           f"{ms:.2f} ms a step ({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB, "
@@ -680,6 +749,38 @@ def k2_verdict(k2: dict, label: str) -> None:
         fail(f"K2's residuals are not gated as the plain version's {label}")
 
 
+def k2_bf16_verdict(k2: dict, label: str) -> None:
+    """Print a bf16 K2 check and fail unless y lies within BF16_LOOSE of the
+    plain bf16 forward everywhere and y and x_last within BF16_TIGHT at
+    BF16_SHARE of the points, the residuals are equal at BF16_RESID_SHARE
+    of the entries and elsewhere within one bf16 step or BF16_LOOSE (flips
+    at most BF16_LOOSE), every gradient within BF16_GRAD_RTOL of its largest against
+    the plain bf16 backward on the kernel's residuals, and the kept shares
+    and gating hold."""
+    print(f"K2 bf16 y max abs err {k2['y_max_abs_err']:.3e} ({k2['y_share_tight']:.5f} within "
+          f"{BF16_TIGHT:g}), x_last {k2['x_last_max_abs_err']:.3e} "
+          f"({k2['x_last_share_tight']:.5f}); residuals equal at "
+          f"{k2['residual_equal_share']:.6f} of the entries, {k2['residual_beyond_step']} beyond "
+          f"one bf16 step and {BF16_LOOSE:g}, {k2['flips']} flips at ReLU's edge (largest value "
+          f"{k2['flip_max']:.3e}); gradients max err {k2['grad_max_abs_err']:.3e} abs, "
+          f"{k2['grad_max_rel_err']:.3e} of the largest (tolerance {BF16_GRAD_RTOL:g}), "
+          f"{k2['grad_f64_max_rel_err']:.3e} of the plain bf16 backward's in float64; kept share "
+          f"{k2['kept_share']}", flush=True)
+    # x_last is the last residual: its largest error is held as theirs
+    if not (k2["y_max_abs_err"] <= BF16_LOOSE and k2["y_share_tight"] >= BF16_SHARE
+            and k2["x_last_share_tight"] >= BF16_SHARE):
+        fail(f"K2 bf16's forward disagrees with its plain bf16 version {label}")
+    if not (k2["residual_equal_share"] >= BF16_RESID_SHARE and k2["residual_beyond_step"] == 0
+            and k2["flip_max"] <= BF16_LOOSE):
+        fail(f"K2 bf16's residuals disagree with the plain bf16 ones {label}")
+    if not k2["grad_max_rel_err"] <= BF16_GRAD_RTOL:
+        fail(f"K2 bf16's gradients disagree with the plain bf16 backward {label}")
+    if not all(abs(v - 0.8) <= 0.01 for v in k2["kept_share"].values()):
+        fail(f"kept shares off 0.8 +- 0.01 {label}: {k2['kept_share']}")
+    if not k2["residual_sign_mismatch"] <= 1e-4:
+        fail(f"K2 bf16's residuals are not gated as the plain version's {label}")
+
+
 def residual_check(acts_k, acts_ref) -> dict:
     """A train forward's residuals against the plain forward's gated
     activations (each (M, out)): the largest abs difference where both are
@@ -731,12 +832,14 @@ def trunk_check(kern, trunks, st, dev, gen, x_last: bool):
 
     from alignsdf_torch.kernels.train_decoder import dropout_gate, flatten_params, unflatten_params
 
-    saved = kern.fwd.launches, kern.bwd.launches
+    saved = launch_counts(kern)
     res = {"y_max_abs_err": 0.0, "x_last_max_abs_err": 0.0, "grad_max_rel_err": 0.0,
            "grad_max_abs_err": 0.0, "d_input_max_rel_err": 0.0, "grad_f64_max_rel_err": 0.0,
            "kept_share": {},
            "residual_sign_mismatch": 0.0, "y_f64_max_abs_err": 0.0,
-           "residual_max_abs_err": 0.0, "flips": 0, "flip_max": 0.0}
+           "residual_max_abs_err": 0.0, "flips": 0, "flip_max": 0.0,
+           "y_share_tight": 1.0, "x_last_share_tight": 1.0, "residual_equal_share": 1.0,
+           "residual_beyond_step": 0}
     for i, (prefix, seed, e, ws, xs, bs) in enumerate(trunks):
         leaves = [t.detach().clone().requires_grad_() for t in [e, *flatten_params(ws, xs, bs)]]
         y, xl = kern.fwd(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
@@ -751,12 +854,23 @@ def trunk_check(kern, trunks, st, dev, gen, x_last: bool):
             res["y_max_abs_err"] = max(res["y_max_abs_err"], float((y - y_ref).abs().max()))
             res["x_last_max_abs_err"] = max(res["x_last_max_abs_err"],
                                             float((xl - xl_ref).abs().max()))
+            for key, a, b in (("y_share_tight", y, y_ref), ("x_last_share_tight", xl, xl_ref)):
+                res[key] = min(res[key], float(((a - b).abs() <= BF16_TIGHT).float().mean()))
             y64, _ = kern.plain(e.double(), _f64(ws), _f64(xs), _f64(bs), seed, st)
             res["y_f64_max_abs_err"] = max(res["y_f64_max_abs_err"],
                                            float((y.double() - y64).abs().max()))
             y_k, acts = kern.forward(kern.pack(e, ws, xs, bs, st), seed, st)
-            acts_k = [a[:r.shape[1]].T for a, r in zip(acts, acts_ref)]
+            acts_k = [a[:r.shape[1]].T.float() for a, r in zip(acts, acts_ref)]
             rc = residual_check(acts_k, acts_ref)
+            equal = sum(int((a == r).sum()) for a, r in zip(acts_k, acts_ref))
+            res["residual_equal_share"] = min(res["residual_equal_share"],
+                                              equal / sum(r.numel() for r in acts_ref))
+            # beyond one bf16 step of the larger value and beyond BF16_LOOSE
+            # (information in float32)
+            res["residual_beyond_step"] += sum(
+                int(((a - r).abs() > torch.clamp(2.0 ** -7 * torch.maximum(a, r),
+                                                 min=BF16_LOOSE)).sum())
+                for a, r in zip(acts_k, acts_ref))
             res["residual_max_abs_err"] = max(res["residual_max_abs_err"],
                                               rc["residual_max_abs_err"])
             res["flips"] += rc["flips"]
@@ -783,8 +897,19 @@ def trunk_check(kern, trunks, st, dev, gen, x_last: bool):
                 if st.dropout[layer]:
                     kept = (dropout_gate(seed, layer, rows, a_r.shape[1], st.keep) > 0)
                     res["kept_share"][f"{prefix}{layer}"] = float(kept.float().mean())
-    kern.fwd.launches, kern.bwd.launches = saved
+    restore_counts(kern, saved)
     return res
+
+
+def launch_counts(kern) -> tuple:
+    """A train kernel's four launch counters: float32 and bf16, fwd and bwd."""
+    return tuple(getattr(fn, attr, 0) for fn in (kern.fwd, kern.bwd)
+                 for attr in ("launches", "bf16_launches"))
+
+
+def restore_counts(kern, saved: tuple) -> None:
+    (kern.fwd.launches, kern.fwd.bf16_launches, kern.bwd.launches,
+     kern.bwd.bf16_launches) = saved
 
 
 NUDGE = 1.0 + 2.0 ** -23  # scales a float32 by about one rounding step
@@ -825,6 +950,14 @@ def k2_kernel() -> TrainKernel:
                        train_decode_reference, nudged, K2_FWD_KERNELS, K2_BWD_KERNELS,
                        TWO_WAYS_GRAD_RTOL, pack_trunk, train_decode_forward,
                        train_decode_backward_reference)
+
+
+def k2_bf16_kernel() -> TrainKernel:
+    """K2 on a bf16 pack: the same wrappers, counted by their bf16_launches
+    (``launch_counts``); its plain version is the plain bf16 one (the
+    statics' dtype)."""
+    return k2_kernel()._replace(name="K2 bf16", fwd_kernels=K2_BF16_FWD_KERNELS,
+                                bwd_kernels=K2_BF16_BWD_KERNELS, grad_rtol=BF16_GRAD_RTOL)
 
 
 def k4_kernel() -> TrainKernel:
@@ -1087,18 +1220,20 @@ def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
     """A K2-convention train kernel's forward and backward per step over
     the trunks [(prefix, seed, input, ws, xs, bs)] against their plain
     versions and bounds (k2_work); with ``x_last``, the first trunk's
-    backward takes a random dx_last, whose read the bytes count."""
+    backward takes a random dx_last, whose read the bytes count.  A bf16
+    trunk (``st.dtype``) takes the bf16 bounds and bytes."""
     import torch
 
+    bf16 = getattr(st, "dtype", torch.float32) == torch.bfloat16
     m = trunks[0][2].shape[0]
     packs = [kern.pack(e, ws, xs, bs, st) for _, _, e, ws, xs, bs in trunks]
-    work = [k2_work(ws, xs, bs, m, e.shape[1], p.out_pads)
+    work = [k2_work(ws, xs, bs, m, e.shape[1], p.out_pads, 2 if bf16 else 4)
             for (_, _, e, ws, xs, bs), p in zip(trunks, packs)]
     fwd_flops, bwd_flops, fwd_bytes, bwd_bytes = (sum(w[i] for w in work) for i in range(4))
-    chain = [k2_chain_work(ws, xs, m, e.shape[1], p.out_pads)
+    chain = [k2_chain_work(ws, xs, m, e.shape[1], p.out_pads, bf16)
              for (_, _, e, ws, xs, bs), p in zip(trunks, packs)]
     chain_flops, chain_bytes = (sum(c[i] for c in chain) for i in range(2))
-    saved = kern.fwd.launches, kern.bwd.launches
+    saved = launch_counts(kern)
     outs = [kern.forward(p, t[1], st) for p, t in zip(packs, trunks)]
     dys = [torch.randn(tuple(y.shape), generator=gen).to(dev) for y, _ in outs]
     dxls = [torch.randn((m, t[5][-2].shape[-1]), generator=gen).to(dev) if x_last and i == 0
@@ -1120,7 +1255,7 @@ def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
                 kern.plain(e, ws, xs, bs, seed, st)
 
     # the plain backward takes the same residuals, at the true widths
-    unpadded = [[a[:b.shape[-1]].T for a, b in zip(acts, bs)]
+    unpadded = [[a[:b.shape[-1]].T.float() for a, b in zip(acts, bs)]
                 for (_, acts), (*_, bs) in zip(outs, trunks)]
 
     def bwd_plain():
@@ -1137,7 +1272,7 @@ def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
         k_ms2 = cuda_ms(kfn, 5)
         best = min(k_ms, k_ms2)
         res[name] = {"ms": best, "ms_runs": [k_ms, k_ms2], "plain_ms": p_ms,
-                     **grid_bounds(flops, nbytes),
+                     **train_bounds(flops, nbytes, bf16),
                      "tflop": flops / 1e12, "gbytes": nbytes / 1e9, "tflops": flops / best / 1e9}
         print(f"[{card}] {kern.name}{' with x_last' if x_last else ''} {name} per step "
               f"({len(trunks)} trunks x {m} points, {trunks[0][2].shape[1]} input columns, "
@@ -1146,10 +1281,11 @@ def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
               f"{bounds_text(res[name])}", flush=True)
     res["bwd"]["chain"] = chain_timing(
         f"{kern.name}{' with x_last' if x_last else ''}", kern.bwd_kernels[0], bwd_kernel,
-        chain_flops, chain_bytes, card)
-    kern.fwd.launches, kern.bwd.launches = saved
+        chain_flops, chain_bytes, card, bf16)
+    restore_counts(kern, saved)
     res["bwd"]["reduction"] = reduction_timing(kern.name, [s for p in packs
-                                                            for s in wgrad_shapes(p)], m, dev, card)
+                                                            for s in wgrad_shapes(p)], m, dev, card,
+                                               torch.bfloat16 if bf16 else torch.float32)
     return res
 
 
@@ -1172,25 +1308,32 @@ def wgrad_shapes(pack):
             + ([(e, out_pad)] if x else [])]
 
 
-def reduction_timing(name: str, shapes, m: int, dev, card: str) -> dict:
+def reduction_timing(name: str, shapes, m: int, dev, card: str, dtype=None) -> dict:
     """A train backward's weight-gradient reductions of one step on their
     own, through ``weight_grad`` (the kernel the backwards launch, on seeded
     operands of their shapes over m points), each route's share (the
     kernel for N <= 128 columns, and the other), beside torch.matmul(A,
     B.T) with TF32 off on the same operands, the split-TF32 and float32
     bounds, the bytes each operand once (the bound's) and the design's reads
-    from L2 (A once per 256 columns of C, B once per 128 rows)."""
+    from L2 (A once per 256 columns of C, B once per 128 rows).  With
+    ``dtype`` bfloat16 the operands are bf16 (K2's bf16 backward), the
+    bounds bf16's and the library call torch.matmul on bf16."""
     import torch
 
     from alignsdf_torch.kernels.weight_grad import weight_grad
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    size = 2 if bf16 else 4
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    a_of = {k: torch.randn(k, m, generator=gen, device=dev) for k in {k for k, _ in shapes}}
-    b_of = {n: torch.randn(n, m, generator=gen, device=dev) for n in {n for _, n in shapes}}
+    a_of = {k: torch.randn(k, m, generator=gen, device=dev).to(dtype)
+            for k in {k for k, _ in shapes}}
+    b_of = {n: torch.randn(n, m, generator=gen, device=dev).to(dtype)
+            for n in {n for _, n in shapes}}
     outs = [torch.zeros(k, n, device=dev) for k, n in shapes]
     routes = {"n128": [i for i, (_, n) in enumerate(shapes) if n <= 128],
               "wide": [i for i, (_, n) in enumerate(shapes) if n > 128]}
-    saved = weight_grad.launches
+    saved = weight_grad.launches, weight_grad.bf16_launches
 
     def run(idx):
         for i in idx:
@@ -1207,18 +1350,20 @@ def reduction_timing(name: str, shapes, m: int, dev, card: str) -> dict:
     k_ms2 = cuda_ms(lambda: run(every), 5)
     route_ms = {r: cuda_ms(lambda idx=idx: run(idx), 5) if idx else 0.0
                 for r, idx in routes.items()}
-    weight_grad.launches = saved
+    weight_grad.launches, weight_grad.bf16_launches = saved
     flops = sum(2 * k * n * m for k, n in shapes)
-    nbytes = sum(4 * (k * m + n * m + k * n) for k, n in shapes)
-    l2_bytes = sum(4 * m * (k * -(-n // 256) + n * -(-k // 128)) for k, n in shapes)
+    nbytes = sum(size * (k * m + n * m) + 4 * k * n for k, n in shapes)
+    l2_bytes = sum(size * m * (k * -(-n // 256) + n * -(-k // 128)) for k, n in shapes)
     best = min(k_ms, k_ms2)
     rec = {"ms": best, "ms_runs": [k_ms, k_ms2], "library_ms": lib_ms,
-           "library": "torch.matmul(A, B.T), TF32 off", "calls": len(shapes),
+           "library": "torch.matmul(A, B.T), " + ("bf16" if bf16 else "TF32 off"),
+           "calls": len(shapes),
            "shapes": [list(s) for s in shapes], "route_ms": route_ms,
            "route_share": {r: v / sum(route_ms.values()) for r, v in route_ms.items()},
-           **grid_bounds(flops, nbytes), "tflop": flops / 1e12, "gbytes": nbytes / 1e9,
+           **train_bounds(flops, nbytes, bf16), "tflop": flops / 1e12, "gbytes": nbytes / 1e9,
            "l2_read_gbytes": l2_bytes / 1e9, "tflops": flops / best / 1e9}
-    print(f"[{card}] {name} weight-gradient reduction per step ({len(shapes)} calls over {m} "
+    print(f"[{card}] {name}{' bf16' if bf16 else ''} weight-gradient reduction per step "
+          f"({len(shapes)} calls over {m} "
           f"points, {flops / 1e12:.3f} TFLOP, operands {nbytes / 1e9:.3f} GB once, "
           f"{l2_bytes / 1e9:.3f} GB read from L2 by the design): kernel {k_ms:.2f} / "
           f"{k_ms2:.2f} ms ({rec['tflops']:.1f} TFLOP/s; routes: N > 128 "
@@ -1245,7 +1390,8 @@ def backward_entry(t: dict) -> dict:
     if c is not None:
         out["chain"] = {"kernel": c["kernel"], "ms": c["ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"]}
-        if c["kernel"] in (K2_BWD_KERNELS[0], K4_BWD_KERNELS[0], K5_BWD_KERNELS[0]):
+        if c["kernel"] in (K2_BWD_KERNELS[0], K4_BWD_KERNELS[0], K5_BWD_KERNELS[0],
+                           K2_BF16_BWD_KERNELS[0]):
             out["chain"]["source"] = CHAIN_SOURCE
     return out
 
@@ -2507,32 +2653,36 @@ def k7_input(shape, dev, seed: int, fmt):
     return x.contiguous(memory_format=fmt)
 
 
-def k7_phase(dev, card: str):
-    """K7 against its plain version at the train, serving and odd shapes,
-    in the channels-last layout the encoder's stem gives and in NCHW: the
+def k7_phase(dev, card: str, dtype=None, shapes=None):
+    """K7 against its plain version at the train, serving and odd shapes
+    (or ``shapes``), in the channels-last layout the encoder's stem gives
+    and in NCHW, in float32 (or ``dtype``, bf16: the inputs rounded): the
     forward and the backward bit for bit (the forward also equal to
     F.max_pool2d's); the share of positions where K7's gradient differs from
     F.max_pool2d's (information); in channels last at the K7_TIMED shapes,
-    the times against the bound and F.max_pool2d's forward and backward.
-    The comparison launches are not the main path's: the counts are
-    restored."""
+    the times against the bound and F.max_pool2d's forward and backward (in
+    the same dtype).  The comparison launches are not the main path's: the
+    counts are restored."""
     import torch
     from torch.nn import functional as F
 
     from alignsdf_torch.kernels.maxpool import (maxpool_backward, maxpool_backward_reference,
                                                 maxpool_forward, maxpool_reference)
 
-    saved = maxpool_forward.launches, maxpool_backward.launches
+    dtype = dtype or torch.float32
+    size = 2 if dtype == torch.bfloat16 else 4
+    saved = (maxpool_forward.launches, maxpool_backward.launches, maxpool_forward.bf16_launches,
+             maxpool_backward.bf16_launches)
     rec = {}
-    for label, shape in K7_SHAPES.items():
+    for label, shape in (shapes or K7_SHAPES).items():
         for fmt in (torch.channels_last, torch.contiguous_format):
             layout = "channels last" if fmt == torch.channels_last else "NCHW"
-            x = k7_input(shape, dev, SEED, fmt)
+            x = k7_input(shape, dev, SEED, fmt).to(dtype)
             y = maxpool_forward(x)
             y_plain = maxpool_reference(x)
             y_lib, idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
             dy = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(SEED + 1),
-                             device=dev).contiguous(memory_format=fmt)
+                             device=dev).to(dtype).contiguous(memory_format=fmt)
             dx = maxpool_backward(x, y, dy)
             dx_plain = maxpool_backward_reference(x, y_plain, dy)
 
@@ -2547,7 +2697,8 @@ def k7_phase(dev, card: str):
             grad_equal = bool(torch.equal(dx, dx_plain))
             grad_err = float((dx - dx_plain).abs().max())
             tie_share = float((dx != dx_lib).float().mean())
-            print(f"K7 at {label} shape {shape}, {layout}: forward equal to the plain version "
+            print(f"K7{' bf16' if size == 2 else ''} at {label} shape {shape}, {layout}: forward "
+                  f"equal to the plain version "
                   f"and to F.max_pool2d: {fwd_equal}; backward equal to the plain version: "
                   f"{grad_equal} (max abs err {grad_err:.3e}); positions where K7's gradient "
                   f"differs from F.max_pool2d's: {tie_share:.4f} (information: the tie routing "
@@ -2568,7 +2719,7 @@ def k7_phase(dev, card: str):
                                         "grad_differs_from_max_pool2d_share": tie_share}
             if fmt == torch.channels_last and label in K7_TIMED:  # the main path's layout
                 reps = 50 if label == "train" else 200
-                in_bytes, out_bytes = 4 * x.numel(), 4 * y.numel()
+                in_bytes, out_bytes = size * x.numel(), size * y.numel()
                 times = {
                     "fwd": {"ms": cuda_ms(lambda: maxpool_forward(x), reps),
                             "plain_ms": cuda_ms(lambda: maxpool_reference(x), reps),
@@ -2582,14 +2733,16 @@ def k7_phase(dev, card: str):
                 for name, t in times.items():
                     t["bound_by"] = "bytes"
                     t["bound_share"] = t["bound_ms"] / t["ms"]
-                    print(f"[{card}] K7 {name} at {label} {shape}, {layout}: {t['ms']:.4f} ms, "
+                    print(f"[{card}] K7{' bf16' if size == 2 else ''} {name} at {label} {shape}, "
+                          f"{layout}: {t['ms']:.4f} ms, "
                           f"{t['bound_share']:.1%} of the bound {t['bound_ms']:.4f} ms (bytes at "
                           f"{HBM_BYTES_PER_S / 1e12:g} TB/s), plain {t['plain_ms']:.4f} ms, "
                           f"F.max_pool2d{' backward' if name == 'bwd' else ''} "
                           f"{t['library_ms']:.4f} ms", flush=True)
                 entry["timing"] = times
             del x, y, y_plain, y_lib, idx, dy, dx, dx_plain, dx_lib
-    maxpool_forward.launches, maxpool_backward.launches = saved
+    (maxpool_forward.launches, maxpool_backward.launches, maxpool_forward.bf16_launches,
+     maxpool_backward.bf16_launches) = saved
     return rec
 
 
@@ -3057,43 +3210,58 @@ def geometric_phase(dev, card: str):
                      for j in range(len(keys))]
             return batch_to_device(to_train_batch(specs, collate(items)), dev)
 
+        def train(state_x, step_x, bf16: bool):
+            """GEO_STEPS steps of ``step_x`` on ``state_x``: K2's launches in
+            the step's dtype (two a step each way, none of the other's),
+            finite losses, hand_sdf and obj_sdf below their bounds' share of
+            their first values, the joint loss falling.  Returns (the train
+            record, the last batch)."""
+            label = "bf16" if bf16 else "float32"
+            gen = torch.Generator().manual_seed(SEED)
+            logged = []
+            restore_counts(k2, (0, 0, 0, 0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(GEO_STEPS):
+                if i % GEO_REDRAW == 0:
+                    batch = batch_at(i)
+                state_x.epoch = i + 1  # one batch is one epoch
+                losses = step_x(state_x, batch, draw_seed(gen))
+                if i == 0 or (i + 1) % GEO_LOG_EVERY == 0:
+                    logged.append((i + 1, losses))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts(k2)  # f32 fwd, bf16 fwd, f32 bwd, bf16 bwd
+            mine, other = (counts[1::2], counts[0::2]) if bf16 else (counts[0::2], counts[1::2])
+            launches = {"fwd": mine[0], "bwd": mine[1]}
+            logged = [(n, {k: float(v) for k, v in ls.items()}) for n, ls in logged]
+            first, last = logged[0][1], logged[-1][1]
+            print(f"[{card}] {GEO_STEPS} steps in {label} in {wall:.2f} s: "
+                  f"{wall / GEO_STEPS * 1e3:.2f} ms/step on the host clock (supervision re-drawn "
+                  f"every {GEO_REDRAW} steps included); K2 launches {launches}, the other "
+                  f"dtype's {other}", flush=True)
+            for n, ls in logged:
+                print(f"  step {n}: " + " ".join(f"{k}={v:.6f}" for k, v in sorted(ls.items())),
+                      flush=True)
+            want = k2.per_step * GEO_STEPS
+            if launches != {"fwd": want, "bwd": want} or any(other):
+                fail(f"geometric training in {label}: K2 launches {launches} (the other "
+                     f"dtype's {other}) != {k2.per_step} a step")
+            if not all(np.isfinite(v) for _, ls in logged for v in ls.values()):
+                fail(f"geometric training in {label}: a non-finite loss")
+            if not (last["hand_sdf"] < GEO_HAND_SDF_DROP * first["hand_sdf"]
+                    and last["obj_sdf"] < GEO_OBJ_SDF_DROP * first["obj_sdf"]
+                    and last["joint"] < first["joint"]):
+                fail(f"geometric training in {label} did not learn: first {first}, last {last}")
+            return {"steps": GEO_STEPS, "step_ms": wall / GEO_STEPS * 1e3,
+                    "k2_launches": launches, "losses": logged}, batch
+
         phase(f"geometric training: {GEO_STEPS} steps of {GEO_SCENES} x "
               f"{specs.samples_per_scene} points through make_trainer's step (K2), the "
               f"cross-mesh gate at step {GEO_GATE}")
+        rec["train"], batch = train(state, step, False)
+        launches = rec["train"]["k2_launches"]
         gen = torch.Generator().manual_seed(SEED)
-        logged = []
-        k2.fwd.launches = k2.bwd.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(GEO_STEPS):
-            if i % GEO_REDRAW == 0:
-                batch = batch_at(i)
-            state.epoch = i + 1  # one batch is one epoch
-            losses = step(state, batch, draw_seed(gen))
-            if i == 0 or (i + 1) % GEO_LOG_EVERY == 0:
-                logged.append((i + 1, losses))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"fwd": k2.fwd.launches, "bwd": k2.bwd.launches}
-        logged = [(n, {k: float(v) for k, v in ls.items()}) for n, ls in logged]
-        first, last = logged[0][1], logged[-1][1]
-        rec["train"] = {"steps": GEO_STEPS, "step_ms": wall / GEO_STEPS * 1e3,
-                        "k2_launches": launches, "losses": logged}
-        print(f"[{card}] {GEO_STEPS} steps in {wall:.2f} s: {wall / GEO_STEPS * 1e3:.2f} ms/step "
-              f"on the host clock (supervision re-drawn every {GEO_REDRAW} steps included); "
-              f"K2 launches {launches}", flush=True)
-        for n, ls in logged:
-            print(f"  step {n}: " + " ".join(f"{k}={v:.6f}" for k, v in sorted(ls.items())),
-                  flush=True)
-        want = k2.per_step * GEO_STEPS
-        if launches != {"fwd": want, "bwd": want}:
-            fail(f"geometric training: K2 launches {launches} != {k2.per_step} a step")
-        if not all(np.isfinite(v) for _, ls in logged for v in ls.values()):
-            fail("geometric training: a non-finite loss")
-        if not (last["hand_sdf"] < GEO_HAND_SDF_DROP * first["hand_sdf"]
-                and last["obj_sdf"] < GEO_OBJ_SDF_DROP * first["obj_sdf"]
-                and last["joint"] < first["joint"]):
-            fail(f"geometric training did not learn: first {first}, last {last}")
         trained = experiment("trained")
 
         # K2 on this path's own shape and weights: the last batch's latents
@@ -3275,6 +3443,34 @@ def geometric_phase(dev, card: str):
         rec["k1_256_ms"] = k1_ms
         print(f"[{card}] K1 per {n}^3 pass, trained weights: {k1_ms:.2f} ms "
               f"({flops / k1_ms / 1e9:.1f} TFLOP/s), {bounds_text(bounds)}", flush=True)
+        # phase 20: the proof trained again in bf16 (ComputeDtype bfloat16: the
+        # encoder on bf16 operands with the one-pass BatchNorm, K2 in bf16),
+        # from the same init guard's draw, on the same supervision, then
+        # served with --bf16 and scored to the same bounds; the TPU's proof
+        # was a bf16 run (BASELINE.md)
+        phase(f"geometric training in bf16 (phase 20): {GEO_STEPS} steps of {GEO_SCENES} x "
+              f"{specs.samples_per_scene} points, ComputeDtype bfloat16 (K2 in bf16), then "
+              f"cli.reconstruct --bf16 at {CUBE_DIM}^3 and cli.evaluate")
+        specs_b = dataclasses.replace(specs, compute_dtype="bfloat16")
+        state, step = train_cli.make_trainer(specs_b, dev, seed=SEED, init_guard=True)
+        tb, _ = train(state, step, True)
+        exp = experiment("trained_bf16", specs_b)
+        pb = reconstruct("bf16-trained --bf16", exp, ["--bf16"], GEO_SCENES, CUBE_DIM)
+        pb["eval"] = evaluate("bf16-trained", exp, ["hand", "obj", "mano"])
+        pb_hand = pb["eval"]["hand"].get("chamfer_mean", float("inf"))
+        pb_obj = pb["eval"]["obj"].get("chamfer_mean", float("inf"))
+        pb_joint = pb["eval"]["mano"]["joint_err_mean"]
+        pb.update(train=tb, hand_chamfer=pb_hand, obj_chamfer=pb_obj, joint_err=pb_joint)
+        rec["bf16_trained"] = pb
+        print(f"[{card}] proof of learning trained in bf16, served with --bf16 at {CUBE_DIM}^3 "
+              f"over {GEO_SCENES} scenes: hand chamfer {pb_hand:.4f} cm^2 (bound "
+              f"{GEO_HAND_CHAMFER_MAX}), object {pb_obj:.4f} (bound {GEO_OBJ_CHAMFER_MAX}), MANO "
+              f"joint error {pb_joint:.3f} mm (untrained {joint0:.3f}); the float32-trained "
+              f"run's {hand:.4f}, {obj:.4f}, {joint:.3f}; {tb['step_ms']:.2f} ms a step (float32 "
+              f"{rec['train']['step_ms']:.2f})", flush=True)
+        if not (pb_hand <= GEO_HAND_CHAMFER_MAX and pb_obj <= GEO_OBJ_CHAMFER_MAX
+                and pb_joint < joint0):
+            fail("the bf16-trained model's reconstructions miss the proof's bounds")
     rec["k1_launches"] = sum(r["launches"] for r in runs.values())
     rec["k2_launches"] = launches
     return rec
@@ -3752,19 +3948,23 @@ def packed_phase(dev, card: str):
                 "k2": {"fwd": k2.per_step * steps, "bwd": k2.per_step * steps}, "k1": want_k1}
         rec["train"] = {}
         real_make_trainer, real_make_loader = train_cli.make_trainer, train_cli.make_loader
-        for name, source, text in (
-                ("pack", ["--packed", pack], "--packed"),
+        runs = (("pack", ["--packed", pack], "--packed"),
                 ("LMDBs, threads", ["--data_root", train], "--data_root (the LMDBs), threads"),
                 ("LMDBs, processes", ["--data_root", train, "--loader_mode", "process"],
-                 "--data_root (the LMDBs) --loader_mode process")):
-            phase(f"training from the {name}: cli.train {text} for one epoch of {steps} batches "
-                  f"with the stem pool through K7, then its post-training test of "
-                  f"{PACK_TEST_IMAGES} images at {CUBE_DIM}^3")
+                 "--data_root (the LMDBs) --loader_mode process"),
+                # phase 20: the same pack in bf16 (K7 and K2 on their bf16 kernels)
+                ("pack, bf16", ["--packed", pack, "--bf16"], "--packed --bf16"))
+        for name, source, text in runs:
+            bf16 = "--bf16" in source
+            phase(f"training from the {name}{' (phase 20)' if bf16 else ''}: cli.train {text} "
+                  f"for one epoch of {steps} batches with the stem pool through K7, then its "
+                  f"post-training test of {PACK_TEST_IMAGES} images at {CUBE_DIM}^3")
             clock = StepClock(PACK_STEADY_SKIP + PACK_STEADY_STEPS, PACK_PROFILED)
             out = os.path.join(tmp, f"out_{len(rec['train'])}")
             k7.maxpool_forward.launches = k7.maxpool_backward.launches = 0
-            k2.fwd.launches = k2.bwd.launches = 0
-            grid_decode.launches = 0
+            k7.maxpool_forward.bf16_launches = k7.maxpool_backward.bf16_launches = 0
+            restore_counts(k2, (0, 0, 0, 0))
+            grid_decode.launches = grid_decode.bf16_launches = 0
             train_cli.make_trainer = clock.wrap(real_make_trainer)
             train_cli.make_loader = clock.wrap_loader(real_make_loader)
             resnet.KERNEL_POOL = True
@@ -3778,10 +3978,19 @@ def packed_phase(dev, card: str):
             finally:
                 resnet.KERNEL_POOL = False
                 train_cli.make_trainer, train_cli.make_loader = real_make_trainer, real_make_loader
-            launches = {"k7": {"fwd": k7.maxpool_forward.launches,
-                               "bwd": k7.maxpool_backward.launches},
-                        "k2": {"fwd": k2.fwd.launches, "bwd": k2.bwd.launches},
+            # the run's dtype's counters; the other dtype's (K1's bf16, K2's
+            # and K7's float32 in a bf16 run) must stay 0
+            k2c = launch_counts(k2)  # f32 fwd, bf16 fwd, f32 bwd, bf16 bwd
+            k7c = (k7.maxpool_forward.launches, k7.maxpool_forward.bf16_launches,
+                   k7.maxpool_backward.launches, k7.maxpool_backward.bf16_launches)
+            pick = (lambda c: (c[1], c[3])) if bf16 else (lambda c: (c[0], c[2]))
+            drop = (lambda c: (c[0], c[2])) if bf16 else (lambda c: (c[1], c[3]))
+            launches = {"k7": dict(zip(("fwd", "bwd"), pick(k7c))),
+                        "k2": dict(zip(("fwd", "bwd"), pick(k2c))),
                         "k1": grid_decode.launches}
+            if any(drop(k7c)) or any(drop(k2c)) or grid_decode.bf16_launches:
+                fail(f"training from the {name}: launches of the other dtype's kernels: K7 "
+                     f"{drop(k7c)}, K2 {drop(k2c)}, K1 bf16 {grid_decode.bf16_launches}")
             exp = os.path.join(out, flagship_specs(raw=raw).experiment_name())
             with open(os.path.join(exp, "metrics.jsonl")) as f:
                 logged = [ln for ln in map(json.loads, f) if "step" in ln]
@@ -3835,6 +4044,14 @@ def packed_phase(dev, card: str):
                                for ext in ("json", "ply"))
             if pred != want_pred:
                 fail(f"training from the {name}: test outputs {pred} != {want_pred}")
+    bf = rec["train"]["pack, bf16"]
+    f32 = rec["train"]["pack"]
+    print(f"[{card}] cli.train --packed, steps {PACK_STEADY_SKIP + 1}-"
+          f"{PACK_STEADY_SKIP + PACK_STEADY_STEPS} median: bf16 {bf['step_ms_median']:.2f} ms "
+          f"({bf['step_ms_min_max'][0]:.2f}-{bf['step_ms_min_max'][1]:.2f}), float32 "
+          f"{f32['step_ms_median']:.2f} ms ({f32['step_ms_min_max'][0]:.2f}-"
+          f"{f32['step_ms_min_max'][1]:.2f}) in the same call", flush=True)
+    rec["train_bf16"] = rec["train"].pop("pack, bf16")
     for kernel in ("k1", "k2", "k7"):
         rec[f"{kernel}_launches"] = {name: r["launches"][kernel]
                                      for name, r in rec["train"].items()}
@@ -4175,17 +4392,27 @@ def generic_rows(specs, ctx, n, origin, voxel, dev, run=1 << 18):
                         dim=1)
 
 
-def baseline_configs_phase(dev, card: str, gen, mano_faces) -> dict:
+def baseline_configs_phase(dev, card: str, gen, mano_faces, train_steps: int = 0,
+                           images: int = N_IMAGES) -> dict:
     """BASELINE.json's configs 1 and 2, served: bare experiments/obman_30k.json
     (NeRF, PointFeatSize 3, no MANO) and the same with --mano, seeded weights
-    with shifted final biases: 3 synthetic images each at 128^3 through
-    run_pipelined in float32 and in bf16 (grid_dtype and ComputeDtype), K1's
-    launches held to the images' passes; each image's two K1 passes (its
-    ctx, the refined cube the Reconstructor reported) against K1's plain
-    version; the grid ms and images/s."""
+    with shifted final biases: ``images`` synthetic images each at 128^3
+    through run_pipelined in float32 and in bf16 (grid_dtype and
+    ComputeDtype), K1's launches held to the images' passes; each image's
+    two K1 passes (its ctx, the refined cube the Reconstructor reported)
+    against K1's plain version; the grid ms and images/s.  With
+    ``train_steps`` each dtype's model is first trained that many steps on a
+    synthetic batch of ScenesPerBatch through cli/train.make_trainer (K2 in
+    that dtype: its launches two a step each way, none of the other dtype's;
+    finite losses), then its final biases shifted and served."""
+    import numpy as np
     import torch
 
+    from alignsdf_torch.cli.train import make_trainer
     from alignsdf_torch.config import apply_overrides, load_specs
+    from alignsdf_torch.data.synthetic import synthetic_train_batch
+    from alignsdf_torch.kernels.train_decoder import train_decode, train_decode_backward
+    from alignsdf_torch.training.train_step import batch_to_device, draw_seed
     from alignsdf_torch.inference.reconstruct import Reconstructor, make_output_dirs, run_pipelined
     from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
     from alignsdf_torch.models.alignsdf import build_model
@@ -4196,18 +4423,51 @@ def baseline_configs_phase(dev, card: str, gen, mano_faces) -> dict:
 
     base = load_specs(os.path.join(REPO, "experiments", "obman_30k.json"))
     n, total, chunk = CUBE_DIM, CUBE_DIM ** 3, 1 << 20
-    samples = synthetic_samples(gen, N_IMAGES)
+    samples = synthetic_samples(gen, images)
     per_image = 2 * -(-total // chunk)
     rec = {}
+    k2 = k2_kernel()
     for cfg, specs in (("config 1 (obman_30k.json)", base),
                        ("config 2 (obman_30k.json --mano)", apply_overrides(base, Mano()))):
         model = build_model(specs, device=dev, seed=SEED)
         shift_final_biases(model, specs, samples[0], dev)
+        batch = (batch_to_device(synthetic_train_batch(specs, TRAIN_SCENES, seed=SEED), dev)
+                 if train_steps else None)
         for dt in (torch.float32, torch.bfloat16):
-            label = f"{cfg}, {'bf16' if dt == torch.bfloat16 else 'float32'}"
-            phase(f"{label}: run_pipelined over {N_IMAGES} images at {n}^3, each K1 pass vs "
+            bf = dt == torch.bfloat16
+            label = f"{cfg}, {'bf16' if bf else 'float32'}"
+            if train_steps:
+                phase(f"{label}: {train_steps} train steps at {TRAIN_SCENES} x "
+                      f"{specs.samples_per_scene} points through make_trainer (K2 in "
+                      f"{'bf16' if bf else 'float32'})")
+                s = dataclasses.replace(specs, compute_dtype="bfloat16" if bf else "float32")
+                state, step = make_trainer(s, dev, seed=SEED, init_guard=True)
+                step_gen = torch.Generator().manual_seed(SEED)
+                restore_counts(k2, (0, 0, 0, 0))
+                t0 = time.perf_counter()
+                totals = [float(step(state, batch, draw_seed(step_gen))["total"])
+                          for _ in range(train_steps)]
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) / train_steps * 1e3
+                counts = launch_counts(k2)  # f32 fwd, bf16 fwd, f32 bwd, bf16 bwd
+                mine, other = (counts[1::2], counts[0::2]) if bf else (counts[0::2], counts[1::2])
+                want = (k2.per_step * train_steps,) * 2
+                print(f"[{card}] {label}: {train_steps} steps, {step_ms:.2f} ms a step on the "
+                      f"host clock (the first included), K2 launches (fwd, bwd) {mine} (expected "
+                      f"{want}), the other dtype's {other}; total loss "
+                      + ", ".join(f"{t:.5f}" for t in totals), flush=True)
+                if tuple(mine) != want or any(other) or not all(np.isfinite(totals)):
+                    fail(f"{label}: K2 launches {mine} / {other} or losses {totals}")
+                m = state.model.eval()
+                shift_final_biases(m, s, samples[0], dev)
+                train_rec = {"step_ms": step_ms, "totals": totals,
+                             "k2_launches": {"fwd": mine[0], "bwd": mine[1]}}
+                del state, step
+            else:
+                m, s = (model, specs) if dt == torch.float32 else bf16_model(model, specs, dev)
+                train_rec = None
+            phase(f"{label}: run_pipelined over {images} images at {n}^3, each K1 pass vs "
                   "plain")
-            m, s = (model, specs) if dt == torch.float32 else bf16_model(model, specs, dev)
             recon = Reconstructor(m, s, cube_dim=n, mano_faces=mano_faces, grid_dtype=dt)
             results = []
             with tempfile.TemporaryDirectory() as out:
@@ -4222,7 +4482,7 @@ def baseline_configs_phase(dev, card: str, gen, mano_faces) -> dict:
                             else grid_decode.launches)
                 other = (grid_decode.launches if dt == torch.bfloat16
                          else grid_decode.bf16_launches)
-            if done != N_IMAGES or launches != N_IMAGES * per_image or other != 0:
+            if done != images or launches != images * per_image or other != 0:
                 fail(f"{label}: K1 launches {launches} (the other dtype's {other}) over {done} "
                      "images")
             errs, grid_ms = [], []
@@ -4246,17 +4506,237 @@ def baseline_configs_phase(dev, card: str, gen, mano_faces) -> dict:
                     bf16_verdict(f"{label}, image {j // 2} pass {j % 2 + 1}", c)
                 elif not c["max_abs_err"] <= K1_TOL:
                     fail(f"{label}: K1 disagrees with its plain version: {c}")
-            r = {"wall_ms": wall * 1e3, "images_per_s": N_IMAGES / wall, "launches": launches,
+            r = {"wall_ms": wall * 1e3, "images_per_s": images / wall, "launches": launches,
                  "grid_ms": grid_ms, "max_abs_err": max(c["max_abs_err"] for c in errs),
-                 "share_beyond": max(c["share_beyond"] for c in errs)}
+                 "share_beyond": max(c["share_beyond"] for c in errs), "train": train_rec}
             rec[label] = r
-            print(f"[{card}] {label}: {N_IMAGES} images in {wall * 1e3:.1f} ms = "
+            print(f"[{card}] {label}: {images} images in {wall * 1e3:.1f} ms = "
                   f"{r['images_per_s']:.3f} images/s (first run, pipelined), grid ms "
                   + ", ".join(f"{g:.2f}" for g in grid_ms) + f"; K1 launches {launches}; each "
                   f"pass vs plain: max abs err {r['max_abs_err']:.3e}, share beyond "
                   f"{BF16_TIGHT:g} {r['share_beyond']:.5f}", flush=True)
         del model
     return rec
+
+
+def bf16_trunk_operands(model, specs, latent, emb):
+    """[(prefix, seed, embedding columns, ws, xs, bs)] of a decoder's trunks,
+    twin or combined (one trunk of two outputs), folded in the spec's
+    compute dtype, detached."""
+    import torch
+
+    from alignsdf_torch.models.decoder import trunk_prefixes
+    from alignsdf_torch.ops.grid_plan import branch_columns
+    from alignsdf_torch.ops.train_plan import trunk_operands
+
+    first, second = trunk_prefixes(model.decoder)
+    cols_h, cols_o = branch_columns(specs)
+    trunks = [(first, cols_h, 5, 1), (second, cols_o, 6, 1)] if second else [(first, cols_h, 5, 2)]
+    out = []
+    with torch.no_grad():
+        for prefix, cols, seed, out_dim in trunks:
+            ws, xs, bs = trunk_operands(model.decoder, prefix, len(cols), latent, specs, out_dim)
+            out.append((prefix, seed, emb[:, list(cols)].contiguous(), ws, xs, bs))
+    return out
+
+
+def bf16_train_run(specs, dev, card: str, label: str, kern: TrainKernel) -> dict:
+    """The flagship's train step at full width through cli/train.make_trainer
+    in ``specs``' compute dtype: WARM_STEPS + TIMED_STEPS steps on one
+    synthetic batch, each timed on the host clock (synchronized: median and
+    range), K2's launches in the dtype's counters (two a step each way) and
+    none in the other's, finite losses, the total falling, the peak device
+    memory; then PROFILED_STEPS steps under torch.profiler: device busy and
+    idle share, K2's forward, chain, reduction and colsum ms a step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignsdf_torch.cli.train import make_trainer
+    from alignsdf_torch.data.synthetic import synthetic_train_batch
+    from alignsdf_torch.training.train_step import batch_to_device, draw_seed
+
+    bf16 = specs.compute_dtype == "bfloat16"
+    state, step = make_trainer(specs, dev, seed=SEED, init_guard=True)
+    batch = batch_to_device(synthetic_train_batch(specs, TRAIN_SCENES, seed=SEED), dev)
+    gen = torch.Generator().manual_seed(SEED)
+    restore_counts(kern, (0, 0, 0, 0))
+    totals, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(WARM_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        totals.append(float(step(state, batch, draw_seed(gen))["total"]))
+        torch.cuda.synchronize()
+        if i >= WARM_STEPS:
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = launch_counts(kern)  # f32 fwd, bf16 fwd, f32 bwd, bf16 bwd
+    mine, other = (counts[1::2], counts[0::2]) if bf16 else (counts[0::2], counts[1::2])
+    n_steps = WARM_STEPS + TIMED_STEPS
+    want = (kern.per_step * n_steps,) * 2
+    rec = {"step_ms": times, "step_ms_median": float(np.median(times)),
+           "step_ms_min_max": [min(times), max(times)], "totals": totals,
+           "peak_memory_gb": peak_gb, "launches": {"fwd": mine[0], "bwd": mine[1]}}
+    print(f"[{card}] {label}: {n_steps} steps at {TRAIN_SCENES} x {specs.samples_per_scene}, "
+          f"steps {WARM_STEPS + 1}-{n_steps} on the host clock median "
+          f"{rec['step_ms_median']:.2f} ms ({min(times):.2f}-{max(times):.2f}), peak device "
+          f"memory {peak_gb:.2f} GB; K2 launches (fwd, bwd) {mine} (expected {want}), the other "
+          f"dtype's {other}; total loss " + ", ".join(f"{t:.5f}" for t in totals), flush=True)
+    if tuple(mine) != want or any(other):
+        fail(f"{label}: K2 launches {mine} (the other dtype's {other}) != {want}")
+    if not all(np.isfinite(totals)) or not totals[-1] < totals[0]:
+        fail(f"{label}: losses {totals}")
+    saved = launch_counts(kern)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(state, batch, draw_seed(gen))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    restore_counts(kern, saved)
+    summary = profile_summary(prof, prof_wall)
+    if summary is None:
+        print(f"{label} profile: not measured (the profiler recorded no device events)",
+              flush=True)
+    else:
+        busy, share, by_kernel = summary
+        parts = {"fwd": kern.fwd_kernels, "chain": kern.bwd_kernels[:1],
+                 "reduction": kern.bwd_kernels[1:2], "colsum": kern.bwd_kernels[2:]}
+        per = {k: sum(v for n, v in by_kernel.items() if n.startswith(pre)) / PROFILED_STEPS
+               for k, pre in parts.items()}
+        per["busy"] = busy / PROFILED_STEPS
+        per["rest"] = per["busy"] - sum(per[k] for k in parts)
+        rec["profile"] = {"step_wall_ms": prof_wall * 1e3 / PROFILED_STEPS,
+                          "idle_share": 1 - share, "per_step_ms": per}
+        print(f"[{card}] {label}, {PROFILED_STEPS} profiled steps, "
+              f"{prof_wall * 1e3 / PROFILED_STEPS:.2f} ms each: device busy {per['busy']:.2f} "
+              f"ms a step, idle share {1 - share:.3f}; K2 fwd {per['fwd']:.2f} ms, chain "
+              f"{per['chain']:.2f}, reduction {per['reduction']:.2f}, colsum "
+              f"{per['colsum']:.2f}; the rest (encoder fwd+bwd, plan, losses, optimizer) "
+              f"{per['rest']:.2f} ms", flush=True)
+        for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {ms / PROFILED_STEPS:9.3f} ms/step  {name[:100]}", flush=True)
+    del state, step
+    return rec
+
+
+def bf16_train_phase(dev, card: str, gen, model, mano_faces) -> Tuple[dict, list]:
+    """Phase 20, bf16 training (see the module docstring).  ``model`` is
+    phase 5's seeded flagship.  Returns (record, the kernels line's bf16
+    training entries: K2 bf16 forward and backward, K7 bf16 forward and
+    backward; their launches filled in by main)."""
+    import torch
+
+    from alignsdf_torch.kernels.train_decoder import train_decode_forward
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.train_plan import make_train_decoder
+
+    rec = {}
+    kern = k2_bf16_kernel()
+    specs = flagship_specs()
+    specs_b = dataclasses.replace(specs, compute_dtype="bfloat16")
+    cls_b = dataclasses.replace(flagship_specs(experiment="dexycb_140k.json", classifier=True),
+                                compute_dtype="bfloat16")
+    comb_b = dataclasses.replace(specs_b, model_type="1encoder1decoder")
+    decoders = {"flagship twin trunks": (model, specs_b, False),
+                "DexYCB --cls (x_last)": (build_model(cls_b, device=dev, seed=SEED), cls_b, True),
+                "combined trunk": (build_model(comb_b, device=dev, seed=SEED), comb_b, False)}
+    rec["check"] = {}
+    for name, (m, sp, x_last) in decoders.items():
+        st = make_train_decoder(sp).statics
+        for scenes in CHECK_SCENES:
+            phase(f"K2 bf16 vs plain bf16 ({name}, {scenes} x {sp.samples_per_scene} points, "
+                  "full width)")
+            latent = (torch.randn(scenes, sp.latent_size, generator=gen) * 0.5).to(dev)
+            emb = (torch.randn(scenes * sp.samples_per_scene, sp.point_feat_size,
+                               generator=gen) * 0.5).to(dev)
+            c = trunk_check(kern, bf16_trunk_operands(m, sp, latent, emb), st, dev, gen, x_last)
+            k2_bf16_verdict(c, f"({name}, {scenes} scenes)")
+            rec["check"][f"{name}, {scenes}"] = c
+    del decoders
+
+    phase(f"K2 bf16 vs float32 K2 on the same operands ({TRAIN_SCENES} x "
+          f"{specs.samples_per_scene} points, the flagship's twin trunks)")
+    st32 = make_train_decoder(specs).statics
+    latent = (torch.randn(TRAIN_SCENES, specs.latent_size, generator=gen) * 0.5).to(dev)
+    emb = (torch.randn(TRAIN_SCENES * specs.samples_per_scene, specs.point_feat_size,
+                       generator=gen) * 0.5).to(dev)
+    saved = launch_counts(kern)
+    diff = 0.0
+    with torch.no_grad():
+        for _, seed, e, ws, xs, bs in k2_operands(model, specs, latent, emb):
+            pack_b = kern.pack(e, ws, xs, bs, st32._replace(dtype=torch.bfloat16))
+            yb, _ = train_decode_forward(pack_b, seed, st32)
+            yf, _ = train_decode_forward(kern.pack(e, ws, xs, bs, st32), seed, st32)
+            diff = max(diff, float((yb - yf).abs().max()))
+    restore_counts(kern, saved)
+    rec["vs_float32_max_abs_diff"] = diff
+    print(f"K2 bf16 vs float32 K2: y max abs diff {diff:.3e} (tolerance {BF16_VS_F32_TOL:g}, "
+          "JAX's bf16 bound)", flush=True)
+    if not 0 < diff <= BF16_VS_F32_TOL:
+        fail(f"K2 bf16's y is {diff} from float32 K2's")
+
+    phase("K7 bf16 vs plain: the stem max pool on bf16 at the train and odd shapes")
+    rec["k7"] = k7_phase(dev, card, torch.bfloat16,
+                         {k: K7_SHAPES[k] for k in ("train", "odd")})
+
+    rec["train"] = {}
+    for label, sp, k in (("flagship bf16 (cli.train --bf16's trainer)", specs_b, kern),
+                         ("flagship float32 (the same call)", specs, k2_kernel())):
+        phase(f"training: {label}, {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps, "
+              f"{PROFILED_STEPS} profiled")
+        rec["train"][label.split(" (")[0]] = bf16_train_run(sp, dev, card, label, k)
+    b, f = rec["train"]["flagship bf16"], rec["train"]["flagship float32"]
+    print(f"[{card}] flagship train step, bf16 / float32 in one call: median "
+          f"{b['step_ms_median']:.2f} / {f['step_ms_median']:.2f} ms on the host clock, peak "
+          f"memory {b['peak_memory_gb']:.2f} / {f['peak_memory_gb']:.2f} GB", flush=True)
+
+    phase(f"timing: K2 bf16 forward and backward per step ({TRAIN_SCENES} x "
+          f"{specs.samples_per_scene} points, both trunks)")
+    st_b = make_train_decoder(specs_b).statics
+    latent = (torch.randn(TRAIN_SCENES, specs.latent_size, generator=gen) * 0.5).to(dev)
+    emb = (torch.randn(TRAIN_SCENES * specs.samples_per_scene, specs.point_feat_size,
+                       generator=gen) * 0.5).to(dev)
+    rec["timing"] = trunk_timing(kern, k2_operands(model, specs_b, latent, emb), st_b, dev, gen,
+                                 card, False)
+
+    rec["configs"] = baseline_configs_phase(dev, card, gen, mano_faces,
+                                            train_steps=CONFIG_TRAIN_STEPS, images=1)
+    entries = []
+    for name, line in (("fwd", 472), ("bwd", 652)):
+        t = rec["timing"][name]
+        entries.append({
+            "name": f"K2 bf16 scene-factored train decoder, "
+                    f"{'forward' if name == 'fwd' else 'backward'}",
+            "route": "cuda",
+            "source": "alignsdf_torch/kernels/csrc/train_decoder.cu",
+            "replaces": f"alignsdf_tpu/ops/decoder_train_kernel.py:{line}",
+            "launches": 0,
+            "max_abs_err": max(c["y_max_abs_err" if name == "fwd" else "grad_max_abs_err"]
+                               for c in rec["check"].values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            **({"trunk": FWD_SOURCE} if name == "fwd" else backward_entry(t)),
+        })
+    for name, line in (("fwd", 122), ("bwd", 140)):
+        t = rec["k7"]["train"]["timing"][name]
+        entries.append({
+            "name": "K7 bf16 stem max pool 3x3/s2/p1, "
+                    + ("forward" if name == "fwd" else "backward"),
+            "route": "cuda",
+            "source": "alignsdf_torch/kernels/csrc/maxpool.cu",
+            "replaces": f"alignsdf_tpu/ops/maxpool.py:{line}",
+            "launches": 0,
+            "max_abs_err": max(rec["k7"][k]["fwd_max_abs_err" if name == "fwd"
+                                            else "grad_max_abs_err"] for k in ("train", "odd")),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library": ("F.max_pool2d on bf16" if name == "fwd" else
+                        "max_pool2d_with_indices_backward on bf16 (a tied window's gradient to "
+                        "its first maximum, not to every tie)"),
+        })
+    return rec, entries
 
 
 def fused_pass(kernel, plan, origin, voxel, chunk=1 << 20):
@@ -4468,6 +4948,8 @@ def main(record_path: Optional[str] = None) -> None:
     record["pack"] = packed_phase(dev, card)
     pack = record["pack"]
     record["bf16"], bf16_entries = bf16_phase(dev, card, gen, mano_faces, model)
+    record["bf16_train"], bf16_train_entries = bf16_train_phase(dev, card, gen, model, mano_faces)
+    bt = record["bf16_train"]
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
@@ -4514,17 +4996,19 @@ def main(record_path: Optional[str] = None) -> None:
             "route": "cuda",
             "source": "alignsdf_torch/kernels/csrc/train_decoder.cu",
             "replaces": f"alignsdf_tpu/ops/decoder_train_kernel.py:{line}",
-            "launches": (k2_launches[name] + cls["train_launches"][name]
-                         + record["dataset"]["k2_launches"][name] + geo["k2_launches"][name]
-                         + files["k2_launches"][name]
-                         + sum(v[name] for v in pack["k2_launches"].values())),
+            "launches": 0,  # the sum of launches_by_path, below
             "launches_by_path": {"flagship": k2_launches[name],
                                  "classifier": cls["train_launches"][name],
                                  "dataset_training": record["dataset"]["k2_launches"][name],
                                  "geometric": geo["k2_launches"][name],
                                  "per_file_training": files["k2_launches"][name],
                                  **{f"{route} training": v[name]
-                                    for route, v in pack["k2_launches"].items()}},
+                                    for route, v in pack["k2_launches"].items()},
+                                 "phase 20 flagship float32":
+                                     bt["train"]["flagship float32"]["launches"][name],
+                                 **{label: r["train"]["k2_launches"][name]
+                                    for label, r in bt["configs"].items()
+                                    if label.endswith("float32")}},
             "max_abs_err": max(err, cerr, geo["k2_check"][geo_key]),
             "ms": t2["ms"],
             "plain_ms": t2["plain_ms"],
@@ -4535,6 +5019,8 @@ def main(record_path: Optional[str] = None) -> None:
                                   "bound_ms": c2["bound_ms"], "bound_by": c2["bound_by"]},
             **({"trunk": FWD_SOURCE} if name == "fwd" else backward_entry(t2)),
         })
+    for e in kernels["kernels"][1:]:
+        e["launches"] = sum(e["launches_by_path"].values())
     pt = pcls["grid_timing"]
     kernels["kernels"].append(dict(
         k3_entry, launches=k3_entry["launches"] + pcls["grid_launches"],
@@ -4592,9 +5078,27 @@ def main(record_path: Optional[str] = None) -> None:
     for e in bf16_entries:
         if e["name"].startswith("K1"):
             by_path = {"flagship": e["launches"], "configs_1_2": cfg_launches,
-                       "geometric": geo["bf16"]["launches"]}
+                       "geometric": geo["bf16"]["launches"],
+                       "geometric_bf16_trained": geo["bf16_trained"]["launches"],
+                       **{f"{label} (phase 20, trained)": r["launches"]
+                          for label, r in bt["configs"].items() if label.endswith("bf16")}}
             e.update(launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(e["max_abs_err"], geo["k1_bf16_256"]["max_abs_err"]))
+        kernels["kernels"].append(e)
+    # phase 20's bf16 training kernels: K2 bf16 on the flagship's bf16
+    # trainer, configs 1 and 2, the bf16-trained proof and the bf16 pack run;
+    # K7 bf16 on the pack run (the stem pool switched to K7 there)
+    for e in bf16_train_entries:
+        name = "fwd" if e["name"].endswith("forward") else "bwd"
+        if e["name"].startswith("K2"):
+            by_path = {"flagship": bt["train"]["flagship bf16"]["launches"][name],
+                       **{label: r["train"]["k2_launches"][name]
+                          for label, r in bt["configs"].items() if label.endswith("bf16")},
+                       "geometric": geo["bf16_trained"]["train"]["k2_launches"][name],
+                       "pack training": pack["train_bf16"]["launches"]["k2"][name]}
+        else:
+            by_path = {"pack training": pack["train_bf16"]["launches"]["k7"][name]}
+        e.update(launches=sum(by_path.values()), launches_by_path=by_path)
         kernels["kernels"].append(e)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

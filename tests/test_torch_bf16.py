@@ -19,7 +19,8 @@ against the JAX package's bf16 functions, on the CPU.
   distance, float32 outputs.
 - Reconstructor(grid_dtype=bfloat16) at 32^3 against JAX's bf16 K1 through
   JAX's grid evaluator, and cli.reconstruct --bf16 once.
-- Training and K7 refuse bf16.
+- Training refuses a bf16 spec whose train decoder is K4 or K5; K7
+  refuses float16 (bf16 training: tests/test_torch_bf16_train.py).
 
 The CUDA kernels are held to these plain versions on the card by
 tests/test_torch_cuda.py."""
@@ -44,7 +45,6 @@ from alignsdf_torch.config import specs_from_dict
 from alignsdf_torch.inference.reconstruct import Reconstructor
 from alignsdf_torch.kernels.generic_decoder import generic_decode_reference
 from alignsdf_torch.kernels.grid_decoder import round_to
-from alignsdf_torch.kernels.maxpool import maxpool_k3s2p1
 from alignsdf_torch.models.alignsdf import build_model
 from alignsdf_torch.ops.decoder_plan import make_generic_decode_fn, make_generic_plan
 from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
@@ -359,37 +359,51 @@ def test_cli_reconstruct_bf16(tmp_path):
         "k0" in f for _, _, files in os.walk(out) for f in files)
 
 
+# bf16 specs whose train decoder is still float32 only: K4 (pixel-aligned)
+# and K5 (a latent input at layer 0)
+BF16_K4 = {**torch_parity.PIXEL_NARROW, "ComputeDtype": "bfloat16"}
+BF16_K5 = {**BF16_FLAGSHIP,
+           "NetworkSpecs": {**BF16_FLAGSHIP["NetworkSpecs"], "latent_in": [0, 2]}}
+
+
 def test_training_refuses_bf16():
-    specs = specs_from_dict(BF16_FLAGSHIP)
-    with pytest.raises(NotImplementedError, match="ComputeDtype=bfloat16 training"):
-        make_train_step(specs)
+    """A bf16 spec whose train decoder is K4 or K5 raises, naming the
+    kernel, from make_train_step and make_trainer; no float32 fallback (the
+    same spec in float32 trains)."""
     from alignsdf_torch.cli.train import make_trainer
 
-    with pytest.raises(NotImplementedError, match="ComputeDtype=bfloat16 training"):
-        make_trainer(specs, torch.device("cpu"))
+    for spec, kernel in ((BF16_K4, "K4"), (BF16_K5, "K5")):
+        specs = specs_from_dict(spec)
+        with pytest.raises(NotImplementedError, match=f"ComputeDtype=bfloat16 training.*{kernel}"):
+            make_train_step(specs)
+        with pytest.raises(NotImplementedError, match=f"ComputeDtype=bfloat16 training.*{kernel}"):
+            make_trainer(specs, torch.device("cpu"))
+        make_train_step(specs_from_dict({**spec, "ComputeDtype": "float32"}))
 
 
 def test_train_cli_refuses_bf16(tmp_path):
+    """cli.train --bf16 on a K4 and a K5 spec raises, naming the kernel."""
     from alignsdf_torch.cli.train import main as train_main
 
-    path = tmp_path / "bf16.json"
-    path.write_text(json.dumps(BF16_FLAGSHIP))
-    with pytest.raises(NotImplementedError, match="ComputeDtype=bfloat16 training"):
-        train_main(["-e", str(path), "--smoke", "--device", "cpu",
-                    "--output_root", str(tmp_path)])
+    for spec, kernel in ((BF16_K4, "K4"), (BF16_K5, "K5")):
+        path = tmp_path / f"{kernel}.json"
+        path.write_text(json.dumps({**spec, "ComputeDtype": "float32"}))
+        with pytest.raises(NotImplementedError, match=f"ComputeDtype=bfloat16 training.*{kernel}"):
+            train_main(["-e", str(path), "--smoke", "--device", "cpu", "--bf16",
+                        "--output_root", str(tmp_path)])
 
 
-def test_k7_refuses_bf16_without_casting():
-    x = torch.rand(1, 2, 9, 9).to(BF16)
-    with pytest.raises(NotImplementedError, match="K7"):
-        maxpool_k3s2p1(x)
-
-
-def test_train_mode_batchnorm_refuses_bf16():
+def test_eval_mode_batchnorm_on_bf16():
+    """Eval-mode BatchNorm normalizes a bf16 input with its float32
+    statistics in float32 and returns bf16 (train mode's one-pass path:
+    tests/test_torch_bf16_train.py)."""
     from alignsdf_torch.models.resnet import BatchNorm2d
 
-    bn = BatchNorm2d(3).train()
-    with pytest.raises(NotImplementedError):
-        bn(torch.rand(2, 3, 4, 4).to(BF16))
-    out = bn.eval()(torch.rand(2, 3, 4, 4).to(BF16))
+    bn = BatchNorm2d(3).eval()
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.tensor([0.1, -0.2, 0.3]))
+        bn.running_var.copy_(torch.tensor([0.5, 1.5, 2.0]))
+    x = torch.rand(2, 3, 4, 4).to(BF16)
+    out = bn(x)
     assert out.dtype == BF16
+    assert torch.equal(out, bn(x.to(torch.float32)).to(BF16))

@@ -1207,3 +1207,130 @@ def test_cuda_bf16_generic_kernel_matches_plain(model_type, style, pfs, latent_i
             _bf16_close(k, r)
             if i < 2:
                 assert float((k - f).abs().max()) <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,model_type,classifier", [(4, "1encoder2decoder", False),
+                                                          (4, "1encoder2decoder", True),
+                                                          (4, "1encoder1decoder", False),
+                                                          (64, "1encoder2decoder", False)])
+def test_cuda_bf16_train_kernel_matches_plain(scenes, model_type, classifier):
+    """K2 in bf16 (bf16 wgmma forward, chain and reduction; bf16 residuals)
+    at the flagship width on scenes x 2000 points, the twin, classifier
+    (x_last / dx_last) and combined trunks, through the autograd Function:
+    y against the plain bf16 forward (``_bf16_close``), x_last within 1e-5
+    at >= 90% of the entries (and as a residual below), the
+    residuals equal to the plain ones at >= 99.9% of the entries and within
+    one bf16 step or 2e-3 elsewhere, every gradient within 2e-3 of its largest
+    against the plain bf16 backward fed the kernel's residuals; the bf16
+    launch counters move, the float32 ones do not; y within 5e-3 of the
+    float32 kernel's (JAX's bf16 bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(12)
+    n = 2000
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9, latent_size=256,
+                  samples_per_scene=n, classifier_branch=classifier,
+                  network_specs=NetworkSpecs(), compute_dtype="bfloat16")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(12)
+        decoder = make_decoder(model_type, 256, 9, "both", specs.network_specs,
+                               use_classifier=classifier).cuda()
+    latent = (torch.randn(scenes, 256, generator=gen) * 0.5).cuda()
+    emb = (torch.randn(scenes * n, 9, generator=gen) * 0.5).cuda()
+    st = make_train_decoder(specs).statics
+    assert st.dtype == torch.bfloat16
+    first, second = trunk_prefixes(decoder)
+    cols_h, cols_o = branch_columns(specs)
+    trunks = ([(first, cols_h, 5, 1), (second, cols_o, 6, 1)] if second
+              else [(first, cols_h, 5, 2)])
+    for i, (prefix, cols, seed, out_dim) in enumerate(trunks):
+        with torch.no_grad():
+            ws, xs, bs = trunk_operands(decoder, prefix, len(cols), latent, specs, out_dim)
+        e = emb[:, list(cols)].contiguous()
+        leaves = [t.detach().clone().requires_grad_() for t in [e, *flatten_params(ws, xs, bs)]]
+        counts = (train_decode.launches, train_decode_backward.launches,
+                  train_decode.bf16_launches, train_decode_backward.bf16_launches)
+        y, x_last = train_decode(leaves[0], *unflatten_params(st, leaves[1:]), seed, st)
+        dy = torch.randn(y.shape, generator=gen).cuda()
+        dxl = torch.randn(x_last.shape, generator=gen).cuda() if classifier and i == 0 else None
+        grads = (torch.autograd.grad(y, leaves, dy) if dxl is None
+                 else torch.autograd.grad((y, x_last), leaves, (dy, dxl)))
+        torch.cuda.synchronize()
+        assert (train_decode.launches, train_decode_backward.launches,
+                train_decode.bf16_launches, train_decode_backward.bf16_launches) == (
+                    counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+        assert y.dtype == x_last.dtype == torch.float32
+        with torch.no_grad():
+            acts_ref = []
+            y_ref, x_ref = train_decode_reference(e, ws, xs, bs, seed, st, acts=acts_ref)
+            _bf16_close(y, y_ref)
+            assert float(((x_last - x_ref).abs() <= 1e-5).float().mean()) >= 0.9
+            y_k, acts = train_decode_forward(pack_trunk(e, ws, xs, bs, st), seed, st)
+            assert all(a.dtype == torch.bfloat16 for a in acts)
+            acts = [a[:b.shape[-1]].T.float() for a, b in zip(acts, bs)]
+            for a, r in zip(acts, acts_ref):
+                assert float((a == r).float().mean()) >= 0.999
+                assert bool(((a - r).abs() <= torch.clamp(
+                    2.0 ** -7 * torch.maximum(a.abs(), r.abs()), min=2e-3)).all())
+            demb, dws, dxs, dbs = train_decode_backward_reference(e, ws, xs, bs, st, y_k, acts, dy,
+                                                                  dxl)
+            y32, _ = train_decode(e, ws, xs, bs, seed, st._replace(dtype=torch.float32))
+            assert 0 < float((y - y32).abs().max()) <= 5e-3
+        for g, r in zip(grads, [demb, *flatten_params(dws, dxs, dbs)]):
+            assert g.shape == r.shape and g.dtype == torch.float32
+            assert float((g - r).abs().max()) <= 2e-3 * (float(r.abs().max()) + 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 16), (1, 5, 13, 10), (2, 65, 20, 18),
+                                   (3, 5, 37, 29), (64, 64, 128, 128)])
+def test_cuda_bf16_maxpool_matches_plain(shape, channels_last):
+    """K7 on bf16: the forward and the backward (dy1 and dx rounded to bf16)
+    bit for bit against the plain versions, in x's layout and dtype, the
+    forward also against F.max_pool2d; the bf16 counters move, not the
+    float32 ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(8)
+    x = _k7_tied(shape, gen).to(torch.bfloat16)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = x.cuda().contiguous(memory_format=fmt).requires_grad_()
+    counts = (maxpool_forward.launches, maxpool_backward.launches,
+              maxpool_forward.bf16_launches, maxpool_backward.bf16_launches)
+    y = maxpool_k3s2p1(x)
+    dy = torch.randn(y.shape, generator=gen).to(torch.bfloat16).cuda()
+    (dx,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    assert (maxpool_forward.launches, maxpool_backward.launches, maxpool_forward.bf16_launches,
+            maxpool_backward.bf16_launches) == (counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+    assert y.dtype == dx.dtype == torch.bfloat16
+    assert y.is_contiguous(memory_format=fmt) and dx.is_contiguous(memory_format=fmt)
+    with torch.no_grad():
+        y_ref = maxpool_reference(x)
+        assert torch.equal(y, y_ref)
+        assert torch.equal(y, torch.nn.functional.max_pool2d(x, 3, 2, 1))
+        assert torch.equal(dx, maxpool_backward_reference(x, y_ref, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,m", [(9, 1, 8000), (6, 512, 4004), (512, 512, 20000),
+                                   (256, 250, 4004)])
+def test_cuda_bf16_weight_grad_matches_float64(k, n, m):
+    """The reduction's bf16 route (K2's bf16 backward): bf16 operands, their
+    exact products summed in float32, against float64, to 1e-5 of the
+    largest entry; m % 8 == 4 takes the 8-byte copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn(k, m, generator=gen).to(torch.bfloat16).cuda()
+    b = torch.randn(n, m, generator=gen).to(torch.bfloat16).cuda()
+    before = weight_grad.bf16_launches
+    c = weight_grad(a, b)
+    torch.cuda.synchronize()
+    assert weight_grad.bf16_launches == before + 1
+    ref = a.double() @ b.double().T
+    assert float((c.double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(weight_grad_reference(a.cpu(), b.cpu()), a.cpu().float() @ b.cpu().float().T)

@@ -165,15 +165,78 @@ def jax_encode_scene_rounded(specs_dict, pmodel, args, workdir) -> dict:
     np.savez(os.path.join(workdir, "args.npz"), *args)
     with open(os.path.join(workdir, "specs.json"), "w") as f:
         json.dump(specs_dict, f)
+    _rounding_subprocess("encode", workdir)
+    with np.load(os.path.join(workdir, "out.npz")) as out:
+        return dict(out)
+
+
+def _rounding_subprocess(mode: str, workdir: str) -> None:
+    """Run this file's ``mode`` in a fresh process whose XLA rounds wherever
+    the code converts (``--xla_allow_excess_precision=false``, set before
+    XLA starts), on the files in ``workdir``."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")])),
                XLA_FLAGS=os.environ.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false")
-    run = subprocess.run([sys.executable, os.path.abspath(__file__), "encode", workdir],
-                         env=env, cwd=repo, capture_output=True, text=True, timeout=600)
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), mode, workdir],
+                         env=env, cwd=repo, capture_output=True, text=True, timeout=900)
     assert run.returncode == 0, run.stderr[-3000:]
-    with np.load(os.path.join(workdir, "out.npz")) as out:
-        return dict(out)
+
+
+def jax_train_step_rounded(specs_dict, pmodel, batch, key: int, workdir) -> dict:
+    """One step of JAX's train step (the scene-factored kernel in interpret
+    mode as its decoder) from the port model's weights, on ``batch`` with
+    ``jax.random.PRNGKey(key)``, under ``specs_dict``'s ComputeDtype and
+    under float32, in a process that rounds where the code converts (XLA on
+    the CPU otherwise drops a convert to bf16 and back, as in
+    ``jax_encode_scene_rounded``).  Returns {"bfloat16" | "float32":
+    (losses, the updated state dict in the port's keys as numpy)}."""
+    os.makedirs(workdir, exist_ok=True)
+    torch.save(pmodel.state_dict(), os.path.join(workdir, "state.pt"))
+    np.savez(os.path.join(workdir, "batch.npz"), **batch)
+    with open(os.path.join(workdir, "specs.json"), "w") as f:
+        json.dump({"specs": specs_dict, "key": key}, f)
+    _rounding_subprocess("step", workdir)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        with open(os.path.join(workdir, f"{dtype}.json")) as f:
+            losses = json.load(f)
+        with np.load(os.path.join(workdir, f"{dtype}.npz")) as sd:
+            out[dtype] = (losses, dict(sd))
+    return out
+
+
+def _step_main(workdir: str) -> None:
+    from alignsdf_tpu.ops.decoder_train_kernel import make_fused_train_decoder_factored
+    from alignsdf_tpu.training import train_state as jax_train_state
+    from alignsdf_tpu.training import train_step as jax_train_step
+
+    jax.config.update("jax_platforms", "cpu")
+    with open(os.path.join(workdir, "specs.json")) as f:
+        cfg = json.load(f)
+    state = torch.load(os.path.join(workdir, "state.pt"))
+    with np.load(os.path.join(workdir, "batch.npz")) as b:
+        batch = {k: jnp.asarray(b[k]) for k in b.files}
+    for dtype in ("bfloat16", "float32"):
+        specs_dict = {**cfg["specs"], "ComputeDtype": dtype}
+        jspecs = jax_specs_from_dict(specs_dict)
+        jmodel = jax_build_model(jspecs)
+        params, stats = convert_alignsdf(state, jspecs, (2, 2, 2, 2))
+        variables = full_variables(jmodel, params, stats)
+        opt = jax_train_state.make_optimizer(jspecs)
+        override = make_fused_train_decoder_factored(jspecs, interpret=True)
+        step = jax.jit(jax_train_step.make_train_step(jmodel, jspecs, opt, override))
+        jstate = jax_train_state.TrainState(
+            params=variables["params"], batch_stats=variables["batch_stats"],
+            consts=variables.get("consts", {}), opt_state=opt.init(variables["params"]),
+            epoch=jnp.asarray(1, jnp.int32))
+        jstate, losses = step(jstate, batch, jax.random.PRNGKey(cfg["key"]))
+        sd = from_jax(jax.tree_util.tree_map(np.asarray, jstate.params),
+                      jax.tree_util.tree_map(np.asarray, jstate.batch_stats),
+                      specs_from_dict(specs_dict))
+        np.savez(os.path.join(workdir, f"{dtype}.npz"), **{k: v.numpy() for k, v in sd.items()})
+        with open(os.path.join(workdir, f"{dtype}.json"), "w") as f:
+            json.dump({k: float(v) for k, v in losses.items()}, f)
 
 
 def _encode_main(workdir: str) -> None:
@@ -193,3 +256,5 @@ def _encode_main(workdir: str) -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["encode"]:
         _encode_main(sys.argv[2])
+    elif sys.argv[1:2] == ["step"]:
+        _step_main(sys.argv[2])
