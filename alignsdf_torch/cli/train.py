@@ -10,9 +10,9 @@ Usage:
 
 ``--bf16`` (or ``ComputeDtype: bfloat16`` in the spec) trains in bf16, as
 the JAX CLI's ``--bf16``: the encoder on bf16 operands with the one-pass
-BatchNorm, K2 in bf16; parameters, BatchNorm statistics, MANO, the losses
-and Adam stay float32.  A bf16 spec whose train decoder is K4 or K5 raises
-(their bf16 kernels are not ported).  The log names the compute dtype.
+BatchNorm, the train decoder (K2, K4 with --pa_feat, K5 with 0 in
+latent_in) in bf16; parameters, BatchNorm statistics, MANO, the losses and
+Adam stay float32.  The log names the compute dtype.
 
 The flagship trains its twin trunks through kernel K2; with ``--pa_feat``
 (a latent sampled per point from the HeadNet map) through kernel K4; a spec

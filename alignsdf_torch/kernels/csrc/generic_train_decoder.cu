@@ -64,6 +64,25 @@
 //  2. wgrad_tc_kernel (wgrad_tc.cuh): dW_l from the residuals and dX_l from
 //     x0 (e, M), split TF32 on the tensor cores; colsum_kernel: db_l.
 // One call of generic_train_decoder_bwd enqueues all of these on one stream.
+//
+// bf16 (the launchers' int `bf16`; the JAX kernel with cdtype bfloat16,
+// decoder_train_kernel.py:152-159, :95-139, :207-285): K4's bf16 design,
+// the same kernels on the trunk's TcBf16 arithmetic, one wgmma.m64n128k16
+// bf16 product a k step of 16 against bf16 tiles; the pack holds x0 (the
+// head's rows and the tail's), the weights and X rounded to bf16 (the biases
+// float32), so the tail's products on the CUDA cores are exact and their
+// sums float32, as JAX's bf16 dot; each gated activation is rounded to bf16
+// and stored as bf16; the chain writes each dpre twice, float32 (colsum)
+// and rounded to bf16 (the reductions: wgrad_tc.cuh's bf16 route, dW from
+// the bf16 residuals, dX from x0's bf16 copy x016), and its products and
+// the tail's d(x0) take the rounded dpre; d(x0) sums in float32.  With 0 in
+// latent_in, JAX multiplies x0 by layer 0's two weights apart, each rounded
+// to bf16 (:117-121), so a bf16 pack keeps them apart (`twice`): layer 0's
+// product runs over [head; head] rows against [W_0; W_in]'s head tiles,
+// depth 2 h_pad (head_width keeps h_pad <= 256 there), and its chain over
+// [d(head) | d(head)] output groups, both added into dx0; the tail takes
+// the two rounded weights' float32 sum (one rounding of float32's size
+// apart from JAX's two products).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,9 +97,10 @@
 struct Layer {
   const float *w, *wt;     // w (in_pad, out_pad); wt its transpose (final layer, the forward's)
   const float *tail, *b;   // the tail's rows of X (e - h, out_pad) or null; bias (out_pad)
-  float *act, *dpre;       // residual (out_pad, M), pre-activation grad (out_pad, M)
+  float *act, *dpre;       // residual (out_pad, M; bf16 in bf16), pre-activation grad (out_pad, M)
   float *dw, *dx, *db;     // gradients: (in_pad, out_pad), (e, out_pad), (out_pad)
   int in_pad, out_pad, has_x, dropout;  // has_x: the layer reads x0 (head and tail)
+  __nv_bfloat16* dpre16;   // bf16: dpre rounded, the reductions' operand
 };
 
 struct Plan {
@@ -95,8 +115,15 @@ struct Plan {
   long long tiles_len;   // their floats
   const float* fwd;      // the forward's weight tiles (train_fwd_tc.cuh)
   long long fwd_len;     // their floats
+  int twice;             // layer 0 reads the head twice (bf16 with 0 in latent_in)
+  const __nv_bfloat16* x016;  // bf16: x0 (e, M) as bf16, dX's operand
   Layer layers[MAX_LAYERS];
 };
+
+// The head copies a layer with X reads: two at layer 0 of a `twice` plan.
+__host__ __device__ inline int head_copies(const Plan& p, int l) {
+  return p.layers[l].has_x ? (l == 0 && p.twice ? 2 : 1) : 0;
+}
 
 // ---------------------------------------------------------------------------
 // forward
@@ -110,17 +137,20 @@ __device__ __forceinline__ void fw_zero(float* buf, int row0, int rows, int tid)
         make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// Cfg: the trunk's arithmetic (TcF32 or TcBf16); R: the residuals' type
+// (float or __nv_bfloat16).
+template <class Cfg, class R>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 generic_train_fwd_tc_kernel(const Plan p, int rows, int total, unsigned seed, unsigned thresh,
                             float scale) {
   extern __shared__ __align__(128) float smem[];
-  const TcShared s = tc_shared(smem, rows);
+  const TcShared s = tc_shared<Cfg>(smem, rows);
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
   const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
   const int first = blockIdx.x * TC_P;
   const TcPlan plan = fw_stream(total);
   FwClock clk;
-  if (tid == 0) fw_init(p.fwd, plan, s, total);
+  if (tid == 0) fw_init<Cfg>(p.fwd, plan, s, total);
   __syncthreads();
   clk.tick(0);
 
@@ -130,31 +160,36 @@ generic_train_fwd_tc_kernel(const Plan p, int rows, int total, unsigned seed, un
   int slot = 0;
   for (int l = 0; l < p.n_layers - 1; ++l) {
     const Layer& L = p.layers[l];
-    const int act_rows = L.w ? L.in_pad : 0, head_rows = L.has_x ? p.h_pad : 0;
+    const int copies = head_copies(p, l);
+    const int act_rows = L.w ? L.in_pad : 0, head_rows = copies * p.h_pad;
     if (head_rows > 0) {
       // the head above the activation rows (no warp reads those rows now:
-      // the previous layer's store pass reads rows below act_rows)
-      if (!(FW_PROBE & 8)) fw_load(s.act, act_rows, p.h, p.x0, p.m, first, tid);
-      fw_zero(s.act, act_rows + p.h, head_rows - p.h, tid);
+      // the previous layer's store pass reads rows below act_rows), once or
+      // twice
+      for (int c = 0; c < copies; ++c) {
+        const int row0 = act_rows + c * p.h_pad;
+        if (!(FW_PROBE & 8)) fw_load(s.act, row0, p.h, p.x0, p.m, first, tid);
+        fw_zero(s.act, row0 + p.h, p.h_pad - p.h, tid);
+      }
       __syncthreads();
       clk.tick(1);
     }
     const int groups = L.out_pad / TC_GROUP, depth = act_rows + head_rows;
-    fw_product(acc0, acc1, depth, groups, slot, p.fwd, plan, s, total, wg, wt, p0, t4);
-    slot += depth / TC_K * groups;
+    fw_product<Cfg>(acc0, acc1, depth, groups, slot, p.fwd, plan, s, total, wg, wt, p0, t4);
+    slot += depth / Cfg::kK * groups;
     __syncthreads();  // every warp is done reading the layer's input
     clk.tick(2);
     const unsigned ka = fw_key(seed, (unsigned)l, (unsigned)ra);
     const unsigned kb = fw_key(seed, (unsigned)l, (unsigned)rb);
     if (groups > wg)
       fw_epilogue(acc0, wg, L.tail, p.e - p.h, L.out_pad, tail, p.m, ra < p.m, rb < p.m, L.b, L.b,
-                  L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+                  L.dropout, ka, kb, thresh, scale, s.act, p0, t4, Cfg::kBf16);
     if (groups > wg + 2)
       fw_epilogue(acc1, wg + 2, L.tail, p.e - p.h, L.out_pad, tail, p.m, ra < p.m, rb < p.m, L.b,
-                  L.b, L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+                  L.b, L.dropout, ka, kb, thresh, scale, s.act, p0, t4, Cfg::kBf16);
     __syncthreads();
     clk.tick(3);
-    fw_store(s.act, L.out_pad, L.act, p.m, first, true, tid);
+    fw_store(s.act, L.out_pad, reinterpret_cast<R*>(L.act), p.m, first, true, tid);
     clk.tick(4);
   }
   const Layer& F = p.layers[p.n_layers - 1];
@@ -167,17 +202,20 @@ generic_train_fwd_tc_kernel(const Plan p, int rows, int total, unsigned seed, un
 // backward 1: the reverse chain per 64-point tile, on the tensor cores
 // ---------------------------------------------------------------------------
 
+// Cfg, R: as the forward's.
+template <class Cfg, class R>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 generic_train_bwd_chain_tc_kernel(const Plan p, int total, float scale) {
   extern __shared__ __align__(128) float smem[];
-  const ChShared s = ch_shared(smem);
+  const ChShared s = ch_shared<Cfg>(smem);
   float* buf = s.tc.act;
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
   const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
   const int first = blockIdx.x * TC_P;
-  const TcPlan plan = ch_stream(total);
+  const TcPlan plan = ch_stream<Cfg>(total);
+  auto act = [&](const Layer& L) { return reinterpret_cast<const R*>(L.act); };
   ChClock clk;
-  if (tid == 0) ch_init(p.tiles, plan, s.tc, total);
+  if (tid == 0) ch_init<Cfg>(p.tiles, plan, s.tc, total);
   clk.tick(0);
 
   // the final layer, then its input's gradient (plus dx_last) gated by the
@@ -185,32 +223,36 @@ generic_train_bwd_chain_tc_kernel(const Plan p, int total, float scale) {
   const int last = p.n_layers - 1;
   const Layer& F = p.layers[last];
   const Layer& H = p.layers[last - 1];
-  ch_prefetch(H.act, F.in_pad, p.m, first, tid);
-  ch_final(p.y, p.dy, F.dpre, F.w, p.n_out, F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid);
+  ch_prefetch(act(H), F.in_pad, p.m, first, tid);
+  ch_final(p.y, p.dy, F.dpre, F.w, p.n_out, F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid,
+           F.dpre16);
   if (p.dx_last) {
     __syncthreads();
     ch_add_rows(buf, p.dx_last, p.xl_w, p.m, first, tid);
   }
   __syncthreads();
   clk.tick(1);
-  ch_gate(buf, F.in_pad, H.act, H.dropout ? scale : 1.f, H.dpre, p.m, first, tid);
+  ch_gate(buf, F.in_pad, act(H), H.dropout ? scale : 1.f, H.dpre, p.m, first, tid, H.dpre16);
   __syncthreads();
   clk.tick(2);
 
-  // hidden layer l: one product of dpre_l with [W_l^T | X_l[:h]^T], the dx
-  // rows gated into dpre_{l-1}, the head rows added into dx0; the tail's
-  // d(x0) from dpre_l on the CUDA cores
+  // hidden layer l: one product of dpre_l with [W_l^T | X_l[:h]^T] (layer 0
+  // of a `twice` plan: both weights' head columns), the dx rows gated into
+  // dpre_{l-1}, the head rows added into dx0; the tail's d(x0) from dpre_l
+  // on the CUDA cores
   float* dtail = p.dx0 + (size_t)p.h * p.m;
   float acc0[64], acc1[64];
   int slot = 0;
   bool stored = false;  // dx0 holds a layer's sums: later layers add to them
   for (int l = last - 1; l >= 0; --l) {
     const Layer& L = p.layers[l];
-    const int dx_rows = l > 0 ? L.in_pad : 0, head_rows = L.has_x ? p.h_pad : 0;
+    const int copies = head_copies(p, l);
+    const int dx_rows = l > 0 ? L.in_pad : 0, head_rows = copies * p.h_pad;
     const int groups = (dx_rows + head_rows) / TC_GROUP;
-    if (dx_rows > 0) ch_prefetch(p.layers[l - 1].act, dx_rows, p.m, first, tid);
-    ch_product(acc0, acc1, L.out_pad, groups, slot, p.tiles, plan, s.tc, total, wg, wt, p0, t4);
-    slot += L.out_pad / TC_K * groups;
+    if (dx_rows > 0) ch_prefetch(act(p.layers[l - 1]), dx_rows, p.m, first, tid);
+    ch_product<Cfg>(acc0, acc1, L.out_pad, groups, slot, p.tiles, plan, s.tc, total, wg, wt, p0,
+                    t4);
+    slot += L.out_pad / Cfg::kK * groups;
     if (L.tail) {
       __syncthreads();
       clk.tick(3);
@@ -226,10 +268,14 @@ generic_train_bwd_chain_tc_kernel(const Plan p, int total, float scale) {
       clk.tick(5);
       if (dx_rows > 0) {
         const Layer& P = p.layers[l - 1];
-        ch_gate(buf, dx_rows, P.act, P.dropout ? scale : 1.f, P.dpre, p.m, first, tid);
+        ch_gate(buf, dx_rows, act(P), P.dropout ? scale : 1.f, P.dpre, p.m, first, tid,
+                P.dpre16);
       }
       clk.tick(2);
-      if (head_rows > 0) ch_accumulate(buf, dx_rows, p.h, p.dx0, !stored, p.m, first, tid);
+      // each copy's d(head) added by the same threads in the same order
+      for (int c = 0; c < copies; ++c)
+        ch_accumulate(buf, dx_rows + c * p.h_pad, p.h, p.dx0, !stored && c == 0, p.m, first,
+                      tid);
       __syncthreads();
       clk.tick(6);
     }
@@ -243,17 +289,20 @@ generic_train_bwd_chain_tc_kernel(const Plan p, int total, float scale) {
 // ---------------------------------------------------------------------------
 
 // desc (int64): [n_layers, n_out, e, h, h_pad, m, x0, y, dy, dx0, dx_last,
-// xl_w, tiles, tiles_len, fwd, fwd_len, then per layer: w, wt, tail, b, act,
-// dpre, dw, dx, db, in_pad, out_pad, has_x, dropout].  Pointers are device
-// addresses, 0 = absent; wt only on the final layer; tail (e - h, out_pad)
-// where the layer has X and x0 a tail.  The tiles (the backward's) run from
-// the last hidden layer down, each layer's tile_weights([W^T | X[:h]^T]) of
-// depth out_pad (W^T where l > 0, X[:h]^T where it has X and h > 0); the
-// forward's (fwd) in layer order, each layer's tile_weights([W; X[:h]]) of
-// depth in_pad + h_pad.
-#define HEAD 16
-#define PER_LAYER 13
-static int parse(const long long* desc, int len, Plan* p, bool backward) {
+// xl_w, tiles, tiles_len, fwd, fwd_len, twice, x016, then per layer: w, wt,
+// tail, b, act, dpre, dw, dx, db, in_pad, out_pad, has_x, dropout, dpre16].
+// Pointers are device addresses, 0 = absent; wt only on the final layer;
+// tail (e - h, out_pad) where the layer has X and x0 a tail; x016 only in
+// bf16 and dpre16 only in a bf16 backward, where they are required.  The
+// tiles (the backward's) run from the last hidden layer down, each layer's
+// tile_weights([W^T | X[:h]^T]) of depth out_pad (W^T where l > 0, X[:h]^T
+// where it has X and h > 0; layer 0 of a `twice` plan: [W_0[:h]^T |
+// W_in[:h]^T]); the forward's (fwd) in layer order, each layer's
+// tile_weights([W; X[:h]]) of depth in_pad + h_pad (layer 0 twice: [W_0[:h];
+// W_in[:h]], 2 h_pad); split TF32 halves in float32, bf16 tiles in bf16.
+#define HEAD 18
+#define PER_LAYER 14
+static int parse(const long long* desc, int len, Plan* p, bool backward, bool bf16) {
   if (len < HEAD) return -1;
   p->n_layers = (int)desc[0];
   p->n_out = (int)desc[1];
@@ -271,6 +320,9 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
   p->tiles_len = desc[13];
   p->fwd = (const float*)desc[14];
   p->fwd_len = desc[15];
+  p->twice = (int)desc[16];
+  p->x016 = (const __nv_bfloat16*)desc[17];
+  if (bf16 && !p->x016) return -1;
   if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != HEAD + PER_LAYER * p->n_layers)
     return -1;
   if (p->n_out < 1 || p->n_out > MAX_OUT || p->e < 1 || p->h < 0 || p->h > p->e) return -1;
@@ -284,6 +336,7 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
     L.b = (const float*)d[3]; L.act = (float*)d[4]; L.dpre = (float*)d[5];
     L.dw = (float*)d[6]; L.dx = (float*)d[7]; L.db = (float*)d[8];
     L.in_pad = (int)d[9]; L.out_pad = (int)d[10]; L.has_x = (int)d[11]; L.dropout = (int)d[12];
+    L.dpre16 = (__nv_bfloat16*)d[13];
     const bool hidden = l < p->n_layers - 1;
     if (!L.b) return -1;
     if (l == 0 ? (L.w || !L.has_x || L.in_pad != 0)
@@ -297,6 +350,7 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
       return -1;
     }
     if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.has_x && !L.dx))) return -1;
+    if (backward && bf16 && !L.dpre16) return -1;
   }
   if (p->dx_last && (!backward || p->xl_w < 1 || p->xl_w > p->layers[p->n_layers - 1].in_pad))
     return -1;
@@ -306,78 +360,108 @@ static int parse(const long long* desc, int len, Plan* p, bool backward) {
 // The forward's tiles, in layer order; -1 where a layer is outside the
 // forward (train_fwd_tc.cuh) or the stream's length disagrees.  *rows: the
 // buffer rows the widest layer needs (its depth or its width).
+template <class Cfg>
 static int fwd_tiles(const Plan& p, int* rows) {
   int total = 0;
   *rows = TC_GROUP;
   for (int l = 0; l < p.n_layers - 1; ++l) {
     const Layer& L = p.layers[l];
-    const int depth = (L.w ? L.in_pad : 0) + (L.has_x ? p.h_pad : 0);
-    const int n = fw_layer_tiles(depth, L.out_pad);
+    const int depth = (L.w ? L.in_pad : 0) + head_copies(p, l) * p.h_pad;
+    const int n = fw_layer_tiles<Cfg>(depth, L.out_pad);
     if (n < 0) return -1;
     total += n;
     if (depth > *rows) *rows = depth;
     if (L.out_pad > *rows) *rows = L.out_pad;
   }
-  if (p.fwd_len != (long long)total * 2 * TC_TILE || (total > 0 && !p.fwd)) return -1;
+  if (p.fwd_len != (long long)total * Cfg::kTile || (total > 0 && !p.fwd)) return -1;
   return total;
 }
 
-extern "C" int generic_train_decoder_fwd(const long long* desc, int len, unsigned seed,
-                                         unsigned thresh, float scale, void* stream) {
-  Plan p;
-  if (parse(desc, len, &p, false)) return -1;
+template <class Cfg, class R>
+static int launch_fwd(const Plan& p, unsigned seed, unsigned thresh, float scale,
+                      cudaStream_t stream) {
   int rows;
-  const int total = fwd_tiles(p, &rows);
+  const int total = fwd_tiles<Cfg>(p, &rows);
   if (total < 0) return -1;
-  const size_t smem = tc_smem_bytes(rows);  // rows <= TC_MAX_OUT (fwd_tiles)
-  cudaError_t err = cudaFuncSetAttribute(generic_train_fwd_tc_kernel,
+  const size_t smem = tc_smem_bytes<Cfg>(rows);  // rows <= TC_MAX_OUT (fwd_tiles)
+  cudaError_t err = cudaFuncSetAttribute(generic_train_fwd_tc_kernel<Cfg, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
-  generic_train_fwd_tc_kernel<<<blocks, TC_THREADS, smem, (cudaStream_t)stream>>>(
-      p, rows, total, seed, thresh, scale);
+  generic_train_fwd_tc_kernel<Cfg, R><<<blocks, TC_THREADS, smem, stream>>>(p, rows, total, seed,
+                                                                            thresh, scale);
   return (int)cudaGetLastError();
+}
+
+// bf16: the TcBf16 kernel with bf16 residuals, else split TF32 with float32.
+extern "C" int generic_train_decoder_fwd(const long long* desc, int len, unsigned seed,
+                                         unsigned thresh, float scale, int bf16, void* stream) {
+  Plan p;
+  if (parse(desc, len, &p, false, bf16)) return -1;
+  return bf16 ? launch_fwd<TcBf16, __nv_bfloat16>(p, seed, thresh, scale, (cudaStream_t)stream)
+              : launch_fwd<TcF32, float>(p, seed, thresh, scale, (cudaStream_t)stream);
 }
 
 // The chain's tiles: each hidden layer's, from the last down; -1 where a
 // layer is outside the chain (chain_tc.cuh) or the stream's length
 // disagrees.
+template <class Cfg>
 static int chain_tiles(const Plan& p) {
   int total = 0;
   for (int l = p.n_layers - 2; l >= 0; --l) {
     const Layer& L = p.layers[l];
-    const int n = ch_layer_tiles(L.out_pad, (l > 0 ? L.in_pad : 0) + (L.has_x ? p.h_pad : 0));
+    const int n = ch_layer_tiles<Cfg>(L.out_pad,
+                                      (l > 0 ? L.in_pad : 0) + head_copies(p, l) * p.h_pad);
     if (n < 0) return -1;
     total += n;
   }
   if (p.layers[p.n_layers - 1].in_pad > CH_ROWS) return -1;
-  if (p.tiles_len != (long long)total * 2 * TC_TILE || (total > 0 && !p.tiles)) return -1;
+  if (p.tiles_len != (long long)total * Cfg::kTile || (total > 0 && !p.tiles)) return -1;
   return total;
 }
 
-// Every dw / dx and db must hold zeros on entry; dx0 need not.
-extern "C" int generic_train_decoder_bwd(const long long* desc, int len, float scale,
-                                         void* stream) {
-  Plan p;
-  if (parse(desc, len, &p, true)) return -1;
-  const int total = chain_tiles(p);
+template <class Cfg, class R>
+static int launch_bwd(const Plan& p, float scale, cudaStream_t s) {
+  const int total = chain_tiles<Cfg>(p);
   if (total < 0) return -1;
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = ch_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(generic_train_bwd_chain_tc_kernel,
+  const size_t smem = ch_smem_bytes<Cfg>();
+  cudaError_t err = cudaFuncSetAttribute(generic_train_bwd_chain_tc_kernel<Cfg, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
-  generic_train_bwd_chain_tc_kernel<<<blocks, TC_THREADS, smem, s>>>(p, total, scale);
+  generic_train_bwd_chain_tc_kernel<Cfg, R><<<blocks, TC_THREADS, smem, s>>>(p, total, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  constexpr bool kBf16 = Cfg::kBf16;
+  static_assert(kBf16 == (sizeof(R) == 2), "bf16 arithmetic keeps bf16 residuals");
+  // bf16: the bf16 residuals and x0's bf16 copy against the rounded dpre;
+  // float32: the float32 ones against dpre
+  using B16 = const __nv_bfloat16*;
   for (int l = 0; l < p.n_layers; ++l) {
     const Layer& L = p.layers[l];
-    int rc;
-    if (L.w && (rc = launch_wgrad(p.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s)))
-      return rc;
-    if (L.has_x && (rc = launch_wgrad(p.x0, L.dpre, L.dx, p.e, L.out_pad, p.m, s))) return rc;
+    int rc = 0;
+    if (L.w) {
+      const float* a = p.layers[l - 1].act;
+      rc = kBf16 ? launch_wgrad(reinterpret_cast<B16>(a), L.dpre16, L.dw, L.in_pad, L.out_pad,
+                                p.m, s)
+                 : launch_wgrad(a, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s);
+      if (rc) return rc;
+    }
+    if (L.has_x) {
+      rc = kBf16 ? launch_wgrad(p.x016, L.dpre16, L.dx, p.e, L.out_pad, p.m, s)
+                 : launch_wgrad(p.x0, L.dpre, L.dx, p.e, L.out_pad, p.m, s);
+      if (rc) return rc;
+    }
     if ((rc = launch_colsum(L.dpre, L.db, L.out_pad, p.m, 4096, 0, s))) return rc;
   }
   return 0;
+}
+
+// Every dw / dx and db must hold zeros on entry; dx0 need not.
+extern "C" int generic_train_decoder_bwd(const long long* desc, int len, float scale, int bf16,
+                                         void* stream) {
+  Plan p;
+  if (parse(desc, len, &p, true, bf16)) return -1;
+  return bf16 ? launch_bwd<TcBf16, __nv_bfloat16>(p, scale, (cudaStream_t)stream)
+              : launch_bwd<TcF32, float>(p, scale, (cudaStream_t)stream);
 }

@@ -4,14 +4,22 @@
 #pragma once
 
 // Keys cubic weights of the taps floor(p)-1 .. floor(p)+2 at fraction t
-// (JAX ops/geometry.py:_cubic_weights).
+// (JAX ops/geometry.py:_cubic_weights), one rounding per operation in the
+// plain version's order (ops/geometry.py:keys_cubic_taps, no FMA
+// contraction), so that the weights equal the plain version's bit for bit
+// and a bf16 plan rounds the same tap weights.
+__device__ __forceinline__ float keys_near(float s) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(__fmul_rn(1.25f, s), 2.25f), s), s), 1.f);
+}
+__device__ __forceinline__ float keys_far(float s) {
+  return __fmul_rn(
+      __fsub_rn(__fmul_rn(__fadd_rn(__fmul_rn(__fsub_rn(s, 5.f), s), 8.f), s), 4.f), -0.75f);
+}
 __device__ __forceinline__ void keys_taps(float t, float* w) {
-  const float a = -0.75f;
-  const float s0 = 1.f + t, s1 = t, s2 = 1.f - t, s3 = 2.f - t;
-  w[0] = (((s0 - 5.f) * s0 + 8.f) * s0 - 4.f) * a;
-  w[1] = ((a + 2.f) * s1 - (a + 3.f)) * s1 * s1 + 1.f;
-  w[2] = ((a + 2.f) * s2 - (a + 3.f)) * s2 * s2 + 1.f;
-  w[3] = (((s3 - 5.f) * s3 + 8.f) * s3 - 4.f) * a;
+  w[0] = keys_far(__fadd_rn(1.f, t));
+  w[1] = keys_near(t);
+  w[2] = keys_near(__fsub_rn(1.f, t));
+  w[3] = keys_far(__fsub_rn(2.f, t));
 }
 
 // dK/dt, continuous at |t| = 1 and 2 (JAX ops/decoder_train_pixel.py:

@@ -59,6 +59,27 @@
 //  2. wgrad_tc_kernel / colsum_kernel (train_common.cuh) per layer: dW from the
 //     activations, dLat from the latent residual, dX from the embedding, db.
 // One call of pixel_train_bwd enqueues all of these on one stream.
+//
+// bf16 (the launchers' int `bf16`; the JAX kernel with cdtype bfloat16,
+// decoder_train_pixel.py:347-362, :149-182, :259-267, :464-487, :607-640):
+// the same kernels on the trunk's TcBf16 arithmetic, as K2's, one
+// wgmma.m64n128k16 bf16 product a k step of 16 against bf16 tiles; the pack
+// holds the weights, the mean and the embedding rounded to bf16 (the biases
+// float32) and a bf16 copy of the table, packed once a step, which the
+// gather and the tap stage read (half the bytes of the float32 table).  The
+// gather rounds each tap weight wy wx, formed in float32, to bf16 (the
+// product, not each factor, as JAX's dense wxy tile is rounded; K3's bf16
+// LatentFill rounds the same way), sums the 16 exact products in float32 and
+// rounds the latent to bf16: its residual, stored as bf16.  Each gated
+// activation is rounded to bf16 and stored as bf16.  The chain writes each
+// dpre twice, float32 (colsum) and rounded to bf16 (the reductions:
+// wgrad_tc.cuh's bf16 route, dW from the bf16 residuals, dLat from the bf16
+// latent, dX from the embedding's bf16 copy emb16), and its products and
+// d(emb) take the rounded dpre.  The latent's gradient is summed in
+// float32 (the scratch) and rounded as the tap stage reads it: d(table)
+// scatters round(wy wx) dlat, d(mean) sums the rounded dlat, and d(xp),
+// d(yp) take the dot products of the bf16 table with the rounded dlat and
+// the float32 Keys weights and derivatives.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,9 +98,10 @@ struct PLayer {
   const float *w, *wt;     // (in_pad, out_pad) and its transpose (final layer)
   const float* lat;        // latent weights (c_pad, out_pad)
   const float *x, *b;      // embedding weights (e, out_pad), bias (out_pad)
-  float *act, *dpre;       // residual (out_pad, M), pre-activation grad (out_pad, M)
+  float *act, *dpre;       // residual (out_pad, M; bf16 in bf16), pre-activation grad (out_pad, M)
   float *dw, *dlat, *dx, *db;
   int in_pad, out_pad, dropout;
+  __nv_bfloat16* dpre16;   // bf16: dpre rounded, the reductions' operand
 };
 
 struct PTrunk {
@@ -90,7 +112,7 @@ struct PTrunk {
 struct PPlan {
   int n_trunks, e, m, nps, n_scenes, c, c_pad, hf, wf;
   const float *emb, *table, *mean, *xp, *yp, *mask;  // emb (e, M), table (B, HW, C), mean (B, C)
-  float *lat, *y;                                    // latent residual (c_pad, M), y (rows, M)
+  float *lat, *y;  // latent residual (c_pad, M; bf16 in bf16), y (rows, M)
   const float* dy;
   float *demb, *dtable, *dmean, *dxp, *dyp;
   const float* dx_last;  // (M, xl_w), the first trunk's, or null
@@ -100,8 +122,16 @@ struct PPlan {
   long long tiles_len;   // their floats
   const float* fwd;      // the forward's weight tiles (train_fwd_tc.cuh)
   long long fwd_len;     // their floats
+  const __nv_bfloat16* table16;  // bf16: the table (B, HW, C) as bf16, the taps' operand
+  const __nv_bfloat16* emb16;    // bf16: the embedding (e, M) as bf16, dX's operand
   PTrunk trunks[MAX_TRUNKS];
 };
+
+// One entry of the table: a float, or a bf16 as a float (exact).
+__device__ __forceinline__ float tab_ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float tab_ld(const __nv_bfloat16* p) {
+  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
 
 // The backward's per-point tap data of a 64-point tile (threads 0 .. TC_P -
 // 1, one point each): tw[q][16] = 4 row weights, 4 column weights, then 4
@@ -141,7 +171,8 @@ __device__ __forceinline__ void tile_taps(const PPlan& p, int first, int tid, fl
 // row's), toff[q][16] their pixels' offsets row * wf + col, a tap off the
 // map weighing 0 at offset 0, so that the gather's 16 loads a point are
 // unconditional and issue together; flag[q] = the point lies in the image;
-// scn[q] = its scene.
+// scn[q] = its scene.  kBf16: each weight wy wx rounded to bf16.
+template <bool kBf16>
 __device__ __forceinline__ void fw_taps(const PPlan& p, int first, int tid, float* tw, int* toff,
                                         int* flag, int* scn) {
   if (tid >= TC_P) return;
@@ -163,7 +194,8 @@ __device__ __forceinline__ void fw_taps(const PPlan& p, int first, int tid, floa
     for (int j = 0; j < 4; ++j) {
       const int col = (int)x0 + j - 1;
       const bool on = r >= 0 && r < p.hf && col >= 0 && col < p.wf;
-      tw[tid * 16 + 4 * i + j] = on ? wy[i] * wx[j] : 0.f;
+      const float w = wy[i] * wx[j];
+      tw[tid * 16 + 4 * i + j] = on ? (kBf16 ? tc_round_bf16(w) : w) : 0.f;
       toff[tid * 16 + 4 * i + j] = on ? r * p.wf + col : 0;
     }
   }
@@ -172,10 +204,13 @@ __device__ __forceinline__ void fw_taps(const PPlan& p, int first, int tid, floa
 // The latent of the block's points into buffer rows [0, c_pad): the sum of
 // a point's 16 weighted taps of its scene's table, or the scene's mean row
 // outside the image; 0 in the padding channels and past M.  One thread a
-// channel, so that a warp reads 128 contiguous bytes of a tap's row; runs
-// of 4 points together (tc_swz keeps them contiguous), 64 loads in flight.
-__device__ void fw_gather(const PPlan& p, const float* tw, const int* toff, const int* flag,
-                          const int* scn, float* buf, int first, int tid) {
+// channel, so that a warp reads 128 contiguous bytes of a tap's row (64 of
+// the bf16 table); runs of 4 points together (tc_swz keeps them
+// contiguous), 64 loads in flight.  kBf16: the table is bf16 and the sum is
+// rounded to bf16 (the mean row holds bf16 values).
+template <bool kBf16, class T>
+__device__ void fw_gather(const PPlan& p, const T* table, const float* tw, const int* toff,
+                          const int* flag, const int* scn, float* buf, int first, int tid) {
   if (FW_PROBE & 8) return;
   const size_t hw = (size_t)p.hf * p.wf;
   for (int ch = tid; ch < p.c_pad; ch += TC_THREADS) {
@@ -189,10 +224,11 @@ __device__ void fw_gather(const PPlan& p, const float* tw, const int* toff, cons
           if (!flag[q]) {
             s = __ldg(p.mean + (size_t)scn[q] * p.c + ch);
           } else {
-            const float* tab = p.table + (size_t)scn[q] * hw * p.c + ch;
+            const T* tab = table + (size_t)scn[q] * hw * p.c + ch;
 #pragma unroll
             for (int t = 0; t < 16; ++t)
-              s = fmaf(tw[q * 16 + t], __ldg(tab + (size_t)toff[q * 16 + t] * p.c), s);
+              s = fmaf(tw[q * 16 + t], tab_ld(tab + (size_t)toff[q * 16 + t] * p.c), s);
+            if (kBf16) s = tc_round_bf16(s);
           }
         }
         v[k] = s;
@@ -206,12 +242,15 @@ __device__ void fw_gather(const PPlan& p, const float* tw, const int* toff, cons
 // weights, 16 offsets, a flag and a scene a point.
 #define FW_TAP_BYTES (34 * sizeof(float) * TC_P)
 
+// Cfg: the trunk's arithmetic (TcF32 or TcBf16); R: the residuals' type
+// (float or __nv_bfloat16).
+template <class Cfg, class R>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 pixel_train_fwd_tc_kernel(const PPlan p, int rows, int total, unsigned seed, unsigned thresh,
                           float scale) {
   extern __shared__ __align__(128) float smem[];
-  const TcShared s = tc_shared(smem, rows);
-  float* tw = reinterpret_cast<float*>(s.full + TC_SLOTS);  // [TC_P][16]
+  const TcShared s = tc_shared<Cfg>(smem, rows);
+  float* tw = reinterpret_cast<float*>(s.full + Cfg::kSlots);  // [TC_P][16]
   int* toff = reinterpret_cast<int*>(tw + 16 * TC_P);         // [TC_P][16]
   int* flag = toff + 16 * TC_P;                                // [TC_P]
   int* scn = flag + TC_P;                                      // [TC_P]
@@ -220,13 +259,19 @@ pixel_train_fwd_tc_kernel(const PPlan p, int rows, int total, unsigned seed, uns
   const int first = blockIdx.x * TC_P;
   const TcPlan plan = fw_stream(total);
   FwClock clk;
-  if (tid == 0) fw_init(p.fwd, plan, s, total);
-  fw_taps(p, first, tid, tw, toff, flag, scn);
+  constexpr bool kBf16 = Cfg::kBf16;
+  R* lat = reinterpret_cast<R*>(p.lat);
+  if (tid == 0) fw_init<Cfg>(p.fwd, plan, s, total);
+  fw_taps<kBf16>(p, first, tid, tw, toff, flag, scn);
   __syncthreads();
   clk.tick(0);
-  fw_gather(p, tw, toff, flag, scn, s.act, first, tid);
+  if constexpr (kBf16) {
+    fw_gather<true>(p, p.table16, tw, toff, flag, scn, s.act, first, tid);
+  } else {
+    fw_gather<false>(p, p.table, tw, toff, flag, scn, s.act, first, tid);
+  }
   __syncthreads();
-  fw_store(s.act, p.c_pad, p.lat, p.m, first, false, tid);
+  fw_store(s.act, p.c_pad, lat, p.m, first, false, tid);
   clk.tick(1);
 
   const int ra = first + p0, rb = ra + 8;
@@ -240,26 +285,26 @@ pixel_train_fwd_tc_kernel(const PPlan p, int rows, int total, unsigned seed, uns
       if (lat_rows > 0 && (t > 0 || l > 0)) {
         // the latent above the activation rows (no warp reads those rows
         // now: the previous layer's store pass reads rows below act_rows)
-        fw_load(s.act, act_rows, lat_rows, p.lat, p.m, first, tid);
+        fw_load(s.act, act_rows, lat_rows, static_cast<const R*>(lat), p.m, first, tid);
         __syncthreads();
         clk.tick(1);
       }
       const int groups = L.out_pad / TC_GROUP, depth = act_rows + lat_rows;
-      fw_product(acc0, acc1, depth, groups, slot, p.fwd, plan, s, total, wg, wt, p0, t4);
-      slot += depth / TC_K * groups;
+      fw_product<Cfg>(acc0, acc1, depth, groups, slot, p.fwd, plan, s, total, wg, wt, p0, t4);
+      slot += depth / Cfg::kK * groups;
       __syncthreads();  // every warp is done reading the layer's input
       clk.tick(2);
       const unsigned layer = (unsigned)(l + T.layer_off);
       const unsigned ka = fw_key(seed, layer, (unsigned)ra), kb = fw_key(seed, layer, (unsigned)rb);
       if (groups > wg)
         fw_epilogue(acc0, wg, L.x, p.e, L.out_pad, p.emb + first, p.m, ra < p.m, rb < p.m, L.b,
-                    L.b, L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+                    L.b, L.dropout, ka, kb, thresh, scale, s.act, p0, t4, kBf16);
       if (groups > wg + 2)
         fw_epilogue(acc1, wg + 2, L.x, p.e, L.out_pad, p.emb + first, p.m, ra < p.m, rb < p.m,
-                    L.b, L.b, L.dropout, ka, kb, thresh, scale, s.act, p0, t4);
+                    L.b, L.b, L.dropout, ka, kb, thresh, scale, s.act, p0, t4, kBf16);
       __syncthreads();
       clk.tick(3);
-      fw_store(s.act, L.out_pad, L.act, p.m, first, true, tid);
+      fw_store(s.act, L.out_pad, reinterpret_cast<R*>(L.act), p.m, first, true, tid);
       clk.tick(4);
     }
     // the final layer; its barriers free the buffer for the next trunk
@@ -276,17 +321,21 @@ pixel_train_fwd_tc_kernel(const PPlan p, int rows, int total, unsigned seed, uns
 // tile, the chain on the tensor cores
 // ---------------------------------------------------------------------------
 
+// Cfg, R: as the forward's.
+template <class Cfg, class R>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale) {
   extern __shared__ __align__(128) float smem[];
-  const ChShared s = ch_shared(smem);
+  constexpr bool kBf16 = Cfg::kBf16;
+  const ChShared s = ch_shared<Cfg>(smem);
   float* buf = s.tc.act;
   const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, lane = tid & 31, t4 = lane & 3;
   const int p0 = 16 * (wt >> 5) + (lane >> 2);  // this thread's points: p0, p0 + 8
   const int first = blockIdx.x * TC_P;
-  const TcPlan plan = ch_stream(split);
+  const TcPlan plan = ch_stream<Cfg>(split);
+  auto act = [&](const PLayer& L) { return reinterpret_cast<const R*>(L.act); };
   ChClock clk;
-  if (tid == 0) ch_init(p.tiles, plan, s.tc, total);
+  if (tid == 0) ch_init<Cfg>(p.tiles, plan, s.tc, total);
   clk.tick(0);
 
   float acc0[64], acc1[64];
@@ -299,16 +348,16 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
     const int last = T.n_layers - 1;
     const PLayer& F = T.layers[last];
     const PLayer& H = T.layers[last - 1];
-    ch_prefetch(H.act, F.in_pad, p.m, first, tid);
+    ch_prefetch(act(H), F.in_pad, p.m, first, tid);
     ch_final(p.y + (size_t)T.row_off * p.m, p.dy + (size_t)T.row_off * p.m, F.dpre, F.w, T.n_out,
-             F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid);
+             F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid, F.dpre16);
     if (t == 0 && p.dx_last) {
       __syncthreads();
       ch_add_rows(buf, p.dx_last, p.xl_w, p.m, first, tid);
     }
     __syncthreads();
     clk.tick(1);
-    ch_gate(buf, F.in_pad, H.act, H.dropout ? scale : 1.f, H.dpre, p.m, first, tid);
+    ch_gate(buf, F.in_pad, act(H), H.dropout ? scale : 1.f, H.dpre, p.m, first, tid, H.dpre16);
     __syncthreads();
     clk.tick(2);
 
@@ -319,10 +368,10 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
       const PLayer& L = T.layers[l];
       const int dx_rows = l > 0 ? L.in_pad : 0, lat_rows = L.lat ? p.c_pad : 0;
       const int groups = (dx_rows + lat_rows) / TC_GROUP;
-      if (dx_rows > 0) ch_prefetch(T.layers[l - 1].act, dx_rows, p.m, first, tid);
-      ch_product(acc0, acc1, L.out_pad, groups, slot, p.tiles, plan, s.tc, total, wg, wt, p0,
-                 t4);
-      slot += L.out_pad / TC_K * groups;
+      if (dx_rows > 0) ch_prefetch(act(T.layers[l - 1]), dx_rows, p.m, first, tid);
+      ch_product<Cfg>(acc0, acc1, L.out_pad, groups, slot, p.tiles, plan, s.tc, total, wg, wt, p0,
+                      t4);
+      slot += L.out_pad / Cfg::kK * groups;
       if (L.x) {
         __syncthreads();
         clk.tick(3);
@@ -338,7 +387,8 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
       clk.tick(5);
       if (dx_rows > 0) {
         const PLayer& P = T.layers[l - 1];
-        ch_gate(buf, dx_rows, P.act, P.dropout ? scale : 1.f, P.dpre, p.m, first, tid);
+        ch_gate(buf, dx_rows, act(P), P.dropout ? scale : 1.f, P.dpre, p.m, first, tid,
+                P.dpre16);
       }
       clk.tick(2);
       if (lat_rows > 0) {
@@ -351,8 +401,8 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
   }
 
   // the sampling's gradients.  dlat transposed to [TC_P][c_pad + 1] in the
-  // buffer, so that a warp reading one point's channels hits 32 banks; the
-  // tap table after it.
+  // buffer (rounded to bf16 in bf16), so that a warp reading one point's
+  // channels hits 32 banks; the tap table after it.
   const int ld = p.c_pad + 1;
   float* dlt = buf;
   float* tw = dlt + (TC_P * ld + 3) / 4 * 4;           // [TC_P][16]
@@ -362,7 +412,8 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
   tile_taps(p, first, tid, tw, trc, flag, scn);
   for (int i = tid; i < p.c_pad * TC_P; i += TC_THREADS) {
     const int c = i / TC_P, q = i % TC_P;
-    dlt[q * ld + c] = first + q < p.m ? p.dlatent[(size_t)c * p.m + first + q] : 0.f;
+    const float d = first + q < p.m ? p.dlatent[(size_t)c * p.m + first + q] : 0.f;
+    dlt[q * ld + c] = kBf16 ? tc_round_bf16(d) : d;
   }
   __syncthreads();
 
@@ -383,12 +434,12 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
           const int col = trc[q * 8 + 4 + j];
           if (col < 0) continue;
           const size_t off = (base + r + col) * p.c;
-          const float wgt = wq[i] * wq[4 + j];
+          const float wgt = kBf16 ? tc_round_bf16(wq[i] * wq[4 + j]) : wq[i] * wq[4 + j];
           float part = 0.f;
 #pragma unroll 8
           for (int ch = lane; ch < p.c; ch += 32) {
             const float d = dlt[q * ld + ch];
-            part = fmaf(__ldg(p.table + off + ch), d, part);
+            part = fmaf(kBf16 ? tab_ld(p.table16 + off + ch) : __ldg(p.table + off + ch), d, part);
             atomicAdd(p.dtable + off + ch, wgt * d);
           }
           tdx = fmaf(wq[i] * wq[12 + j], part, tdx);
@@ -433,23 +484,25 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
 // host side
 // ---------------------------------------------------------------------------
 
-#define HEAD 30
+#define HEAD 32
 #define PER_TRUNK 4
-#define PER_LAYER 14
+#define PER_LAYER 15
 
 // desc (int64): [n_trunks, e, m, nps, n_scenes, c, c_pad, hf, wf, emb, table,
 // mean, xp, yp, mask, lat, y, dy, demb, dtable, dmean, dxp, dyp, dx_last,
-// xl_w, dlatent, tiles, tiles_len, fwd, fwd_len, then per trunk: n_layers,
-// n_out, row_off,
-// layer_off, then per layer: w, wt, lat, x, b, act, dpre, dw, dlat, dx, db,
-// in_pad, out_pad, dropout].  Pointers are device addresses, 0 = absent; wt
-// only on the final layer.  dlatent (c_pad, M) is the backward's scratch;
+// xl_w, dlatent, tiles, tiles_len, fwd, fwd_len, table16, emb16, then per
+// trunk: n_layers, n_out, row_off, layer_off, then per layer: w, wt, lat, x,
+// b, act, dpre, dw, dlat, dx, db, in_pad, out_pad, dropout, dpre16].
+// Pointers are device addresses, 0 = absent; wt only on the final layer;
+// table16 and emb16 only in bf16, where they are required, dpre16 only in a
+// bf16 backward, where it is.  dlatent (c_pad, M) is the backward's scratch;
 // the tiles (the backward's) run trunk by trunk from the last hidden layer
 // down, each layer's tile_weights([W^T | Lat^T]) of depth out_pad (W^T where
 // l > 0, Lat^T where it reads the latent); the forward's (fwd) trunk by trunk
 // in layer order, each hidden layer's tile_weights([W; Lat]) of depth in_pad
-// + c_pad (W where l > 0, Lat where it reads the latent).
-static int parse(const long long* desc, int len, PPlan* p, bool backward) {
+// + c_pad (W where l > 0, Lat where it reads the latent); split TF32 halves
+// in float32, bf16 tiles in bf16.
+static int parse(const long long* desc, int len, PPlan* p, bool backward, bool bf16) {
   if (len < HEAD) return -1;
   p->n_trunks = (int)desc[0];
   p->e = (int)desc[1];
@@ -481,6 +534,9 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
   p->tiles_len = desc[27];
   p->fwd = (const float*)desc[28];
   p->fwd_len = desc[29];
+  p->table16 = (const __nv_bfloat16*)desc[30];
+  p->emb16 = (const __nv_bfloat16*)desc[31];
+  if (bf16 && (!p->table16 || !p->emb16)) return -1;
   if (p->n_trunks < 1 || p->n_trunks > MAX_TRUNKS || p->e < 1 || p->e > EMB_MAX) return -1;
   if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes)
     return -1;
@@ -508,6 +564,7 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
       L.act = (float*)d[5]; L.dpre = (float*)d[6];
       L.dw = (float*)d[7]; L.dlat = (float*)d[8]; L.dx = (float*)d[9]; L.db = (float*)d[10];
       L.in_pad = (int)d[11]; L.out_pad = (int)d[12]; L.dropout = (int)d[13];
+      L.dpre16 = (__nv_bfloat16*)d[14];
       const bool hidden = l < T.n_layers - 1;
       if (!L.b) return -1;
       if (l == 0 ? (L.w || !L.lat || L.in_pad != 0)
@@ -523,6 +580,7 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
       }
       if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.lat && (!L.dlat || !L.dx))))
         return -1;
+      if (backward && bf16 && !L.dpre16) return -1;
     }
   }
   if (pos != len) return -1;
@@ -536,6 +594,7 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward) {
 // The forward's tiles, trunk by trunk in layer order; -1 where a layer is
 // outside the forward (train_fwd_tc.cuh) or the stream's length disagrees.
 // *rows: the buffer rows the widest layer needs (its depth or its width).
+template <class Cfg>
 static int fwd_tiles(const PPlan& p, int* rows) {
   int total = 0;
   *rows = p.c_pad;
@@ -544,84 +603,116 @@ static int fwd_tiles(const PPlan& p, int* rows) {
     for (int l = 0; l < T.n_layers - 1; ++l) {
       const PLayer& L = T.layers[l];
       const int depth = (L.w ? L.in_pad : 0) + (L.lat ? p.c_pad : 0);
-      const int n = fw_layer_tiles(depth, L.out_pad);
+      const int n = fw_layer_tiles<Cfg>(depth, L.out_pad);
       if (n < 0) return -1;
       total += n;
       if (depth > *rows) *rows = depth;
       if (L.out_pad > *rows) *rows = L.out_pad;
     }
   }
-  if (*rows > TC_MAX_OUT || p.fwd_len != (long long)total * 2 * TC_TILE || !p.fwd) return -1;
+  if (*rows > TC_MAX_OUT || p.fwd_len != (long long)total * Cfg::kTile || !p.fwd) return -1;
   return total;
 }
 
-extern "C" int pixel_train_fwd(const long long* desc, int len, unsigned seed, unsigned thresh,
-                               float scale, void* stream) {
-  PPlan p;
-  if (parse(desc, len, &p, false)) return -1;
+template <class Cfg, class R>
+static int launch_fwd(const PPlan& p, unsigned seed, unsigned thresh, float scale,
+                      cudaStream_t stream) {
   int rows;
-  const int total = fwd_tiles(p, &rows);
+  const int total = fwd_tiles<Cfg>(p, &rows);
   if (total < 0) return -1;
-  const size_t smem = tc_smem_bytes(rows) + FW_TAP_BYTES;
+  const size_t smem = tc_smem_bytes<Cfg>(rows) + FW_TAP_BYTES;
   if (smem > 232448) return -1;
-  cudaError_t err = cudaFuncSetAttribute(pixel_train_fwd_tc_kernel,
+  cudaError_t err = cudaFuncSetAttribute(pixel_train_fwd_tc_kernel<Cfg, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
-  pixel_train_fwd_tc_kernel<<<blocks, TC_THREADS, smem, (cudaStream_t)stream>>>(
-      p, rows, total, seed, thresh, scale);
+  pixel_train_fwd_tc_kernel<Cfg, R><<<blocks, TC_THREADS, smem, stream>>>(p, rows, total, seed,
+                                                                          thresh, scale);
   return (int)cudaGetLastError();
+}
+
+// bf16: the TcBf16 kernel with bf16 residuals, else split TF32 with float32.
+extern "C" int pixel_train_fwd(const long long* desc, int len, unsigned seed, unsigned thresh,
+                               float scale, int bf16, void* stream) {
+  PPlan p;
+  if (parse(desc, len, &p, false, bf16)) return -1;
+  return bf16 ? launch_fwd<TcBf16, __nv_bfloat16>(p, seed, thresh, scale, (cudaStream_t)stream)
+              : launch_fwd<TcF32, float>(p, seed, thresh, scale, (cudaStream_t)stream);
 }
 
 // The chain's tiles of trunk t: each hidden layer's, from the last down;
 // -1 where a layer is outside the chain (chain_tc.cuh).
+template <class Cfg>
 static int chain_tiles(const PPlan& p, const PTrunk& T) {
   int total = 0;
   for (int l = T.n_layers - 2; l >= 0; --l) {
     const PLayer& L = T.layers[l];
-    const int n = ch_layer_tiles(L.out_pad, (l > 0 ? L.in_pad : 0) + (L.lat ? p.c_pad : 0));
+    const int n = ch_layer_tiles<Cfg>(L.out_pad, (l > 0 ? L.in_pad : 0) + (L.lat ? p.c_pad : 0));
     if (n < 0) return -1;
     total += n;
   }
   return total;
 }
 
-// d(table), d(mean), every dw / dlat / dx and db must hold zeros on entry.
-extern "C" int pixel_train_bwd(const long long* desc, int len, float scale, void* stream) {
-  PPlan p;
-  if (parse(desc, len, &p, true)) return -1;
+template <class Cfg, class R>
+static int launch_bwd(const PPlan& p, float scale, cudaStream_t s) {
   int split = 0, total = 0;
   for (int t = 0; t < p.n_trunks; ++t) {
-    const int n = chain_tiles(p, p.trunks[t]);
+    const int n = chain_tiles<Cfg>(p, p.trunks[t]);
     if (n < 0) return -1;
     if (t == 0) split = n;
     total += n;
   }
   if (p.n_trunks == 1) split = total;
-  if (p.tiles_len != (long long)total * 2 * TC_TILE || !p.tiles) return -1;
+  if (p.tiles_len != (long long)total * Cfg::kTile || !p.tiles) return -1;
   // the tap stage's transposed dlat and tap table fit the buffer
   if ((TC_P * (p.c_pad + 1) + 3) / 4 * 4 + 26 * TC_P > CH_ROWS * TC_P) return -1;
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = ch_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(pixel_train_bwd_chain_tc_kernel,
+  const size_t smem = ch_smem_bytes<Cfg>();
+  cudaError_t err = cudaFuncSetAttribute(pixel_train_bwd_chain_tc_kernel<Cfg, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
-  pixel_train_bwd_chain_tc_kernel<<<blocks, TC_THREADS, smem, s>>>(p, total, split, scale);
+  pixel_train_bwd_chain_tc_kernel<Cfg, R><<<blocks, TC_THREADS, smem, s>>>(p, total, split,
+                                                                           scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  constexpr bool kBf16 = Cfg::kBf16;
+  static_assert(kBf16 == (sizeof(R) == 2), "bf16 arithmetic keeps bf16 residuals");
   for (int t = 0; t < p.n_trunks; ++t) {
     const PTrunk& T = p.trunks[t];
     for (int l = 0; l < T.n_layers; ++l) {
       const PLayer& L = T.layers[l];
-      int rc;
-      if (L.w && (rc = launch_wgrad(T.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s)))
-        return rc;
-      if (L.lat && ((rc = launch_wgrad(p.lat, L.dpre, L.dlat, p.c_pad, L.out_pad, p.m, s))
-                    || (rc = launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s))))
-        return rc;
+      // bf16: the bf16 residuals, latent and embedding copy against the
+      // rounded dpre; float32: the float32 ones against dpre
+      using B16 = const __nv_bfloat16*;
+      int rc = 0;
+      if (L.w) {
+        const float* a = T.layers[l - 1].act;
+        rc = kBf16 ? launch_wgrad(reinterpret_cast<B16>(a), L.dpre16, L.dw, L.in_pad, L.out_pad,
+                                  p.m, s)
+                   : launch_wgrad(a, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s);
+        if (rc) return rc;
+      }
+      if (L.lat) {
+        rc = kBf16 ? launch_wgrad(reinterpret_cast<B16>(p.lat), L.dpre16, L.dlat, p.c_pad,
+                                  L.out_pad, p.m, s)
+                   : launch_wgrad(p.lat, L.dpre, L.dlat, p.c_pad, L.out_pad, p.m, s);
+        if (rc) return rc;
+        rc = kBf16 ? launch_wgrad(p.emb16, L.dpre16, L.dx, p.e, L.out_pad, p.m, s)
+                   : launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s);
+        if (rc) return rc;
+      }
       if ((rc = launch_colsum(L.dpre, L.db, L.out_pad, p.m, 4096, 0, s))) return rc;
     }
   }
   return 0;
+}
+
+// d(table), d(mean), every dw / dlat / dx and db must hold zeros on entry.
+extern "C" int pixel_train_bwd(const long long* desc, int len, float scale, int bf16,
+                               void* stream) {
+  PPlan p;
+  if (parse(desc, len, &p, true, bf16)) return -1;
+  return bf16 ? launch_bwd<TcBf16, __nv_bfloat16>(p, scale, (cudaStream_t)stream)
+              : launch_bwd<TcF32, float>(p, scale, (cudaStream_t)stream);
 }

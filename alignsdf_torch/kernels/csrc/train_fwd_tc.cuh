@@ -52,16 +52,17 @@
 // K5's is the trunk's alone.
 // One block an SM.
 //
-// bf16 (K2 with TcBf16, the JAX kernel's cdtype bfloat16,
-// decoder_train_kernel.py:420-470, :483-485): the same kernel templated on
-// the trunk's arithmetic, as the grid trunk is.  A k step of 16 is one
+// bf16 (K2, K4 and K5 with TcBf16, the JAX kernels' cdtype bfloat16,
+// decoder_train_kernel.py:420-470, :483-485, :152-159 and
+// decoder_train_pixel.py:347-362): the same kernels templated on the
+// trunk's arithmetic, as the grid trunk is.  A k step of 16 is one
 // wgmma.m64n128k16 bf16 product against tile_weights(W, bf16) tiles (4 KB,
 // 22 ring slots); the buffer keeps float32 words holding bf16 values, so
 // that the A fragment packs them exactly (tc_pack_bf16); the epilogue adds
 // the bf16-rounded embedding terms (exact products, float32 sums), the
 // float32 bias, ReLU and the gate, then rounds to bf16, after the gate as
 // JAX does; the residuals are stored as bf16 (out_pad, M), 3.5 KB a point a
-// trunk, half of float32's; the final rows' weights hold bf16 values, so
+// trunk, half of float32's (K4's latent too, reloaded by fw_load); the final rows' weights hold bf16 values, so
 // their products with the bf16 activations are exact and their sums
 // float32.  Shared memory at the flagship (rows 512): the ring 22 x 4 KB =
 // 88 KB, as float32's 11 x 8 KB, the buffer 128 KB, 22 barriers: 223,664
@@ -226,8 +227,10 @@ __device__ __forceinline__ void fw_store(const float* buf, int rows, T* __restri
 
 // Rows [0, rows) of src (rows, M) at this block's points into buffer rows
 // row0 on (0 past M), FW_BATCH runs a thread in flight; read from L2 (K4's
-// latent, which the block itself wrote; K5's head, which it reads twice).
-__device__ __forceinline__ void fw_load(float* buf, int row0, int rows, const float* src, int m,
+// latent, which the block itself wrote, float32 or bf16; K5's head, which
+// it reads twice).
+template <class T = float>
+__device__ __forceinline__ void fw_load(float* buf, int row0, int rows, const T* src, int m,
                                         int first, int tid) {
   const int n = rows * (TC_P / 4);
   for (int i0 = tid; i0 < n; i0 += FW_BATCH * TC_THREADS) {
@@ -236,8 +239,15 @@ __device__ __forceinline__ void fw_load(float* buf, int row0, int rows, const fl
     for (int u = 0; u < FW_BATCH; ++u) {
       const int i = i0 + u * TC_THREADS, k = i >> 4, p = (i & 15) << 2;
       v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < n && first + p < m)
-        v[u] = __ldcg(reinterpret_cast<const float4*>(src + (size_t)k * m + first + p));
+      if (i < n && first + p < m) {
+        if constexpr (sizeof(T) == 2) {  // 4 bf16 in 8 bytes, as floats (exact)
+          const uint2 w = __ldcg(reinterpret_cast<const uint2*>(src + (size_t)k * m + first + p));
+          v[u] = make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xFFFF0000u),
+                             __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xFFFF0000u));
+        } else {
+          v[u] = __ldcg(reinterpret_cast<const float4*>(src + (size_t)k * m + first + p));
+        }
+      }
     }
 #pragma unroll
     for (int u = 0; u < FW_BATCH; ++u) {

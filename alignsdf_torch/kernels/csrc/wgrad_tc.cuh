@@ -52,8 +52,9 @@
 // beyond zero fills of shared memory, and such a call is bound by reading
 // its wide operand once.  There is no CUDA-core route.
 //
-// bf16 (K2's bf16 backward: JAX's dW = x_bf16^T . dpre.astype(bf16),
-// decoder_train_kernel.py:609-629): the same design with both operands bf16
+// bf16 (K2's, K4's and K5's bf16 backwards: JAX's dW = x_bf16^T .
+// dpre.astype(bf16), decoder_train_kernel.py:609-629): the same design with
+// both operands bf16
 // in device memory, (K, m) and (N, m), which wgmma.m64n128k16 bf16 takes
 // K-major as they lie: a stage's 128-byte rows hold 64 points (4 k steps of
 // 16), in the same swizzled byte layout, so the A fragment's 32-bit words

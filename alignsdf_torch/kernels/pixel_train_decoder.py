@@ -20,15 +20,34 @@ layer's input, which the classifier head reads; JAX ``_fused_pixel_fwd``
 trunk's final-layer input gradient before the last hidden gate
 (``_trunk_backward`` :489-490), as K2 does.
 
-``pixel_train_decode`` takes the plain version for a CPU tensor, on which
-autograd gives the gradients.  For a CUDA tensor it runs
+With ``PixelTrainStatics.dtype`` bfloat16 the trunks keep the JAX kernel's
+bf16 contract (``_fused_pixel_fwd`` / ``_fused_pixel_bwd`` with ``cdtype``
+bfloat16): the weights (W, Lat, X), the table, the mean and the embedding
+rounded to bf16 once, the biases float32; each tap weight ky kx formed in
+float32 and rounded (``_weight_tile`` :149-182), the latent summed in
+float32 and rounded (the bf16 residual), each hidden activation rounded
+after ReLU and the gate (the residual, and the next layer's input).  In the
+backward every product takes the pre-activation gradient rounded to bf16,
+the bias gradients sum it unrounded; the latent's gradient is summed over
+the layers and trunks in float32 and rounded before d(table) = wxy dlat,
+d(mean) and the taps' dot products with the table, whose Keys derivatives
+and separable d(xp) / d(yp) sums stay float32 (:607-640).  Every gradient
+leaves float32 and unrounded, as the JAX kernel's outputs do; where the
+map is bf16 (a bf16 encoder), autograd through the plan's cast to float32
+rounds d(map) once, as JAX's ``fmap.astype(float32)`` does.
+
+``pixel_train_decode`` takes the plain version for a CPU tensor: in float32
+autograd through it gives the gradients; in bf16
+``PixelTrainDecodeReference`` pairs it with the plain backward, whose
+roundings autograd cannot give.  For a CUDA tensor it runs
 ``PixelTrainDecodeFunction``, whose forward and backward launch the kernels
-or raise.  Both run split TF32 on the tensor cores, as K2's: the forward
-(``csrc/train_fwd_tc.cuh``) reads each layer's [W; Lat] tiles, the
-backward's chain their transposes (``train_decoder.layer_tiles``).
-``pixel_train_decode.launches`` counts forward launches and
-``pixel_train_decode_backward.launches`` backward launches: one each per
-train step, both trunks together.
+or raise.  Both run on the tensor cores, as K2's: split TF32 in float32 and
+bf16 ``wgmma`` in bf16; the forward (``csrc/train_fwd_tc.cuh``) reads each
+layer's [W; Lat] tiles, the backward's chain their transposes
+(``train_decoder.layer_tiles``).  ``pixel_train_decode.launches`` counts
+float32 forward launches and ``pixel_train_decode_backward.launches``
+backward launches: one each per train step, both trunks together;
+``.bf16_launches`` counts the bf16 kernels' apart.
 """
 
 from __future__ import annotations
@@ -39,7 +58,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from alignsdf_torch.kernels.grid_decoder import TC_MAX_OUT
+from alignsdf_torch.kernels.grid_decoder import TC_MAX_OUT, check_dtype, round_to
 from alignsdf_torch.kernels.train_decoder import (
     PAD,
     _M32,
@@ -81,17 +100,22 @@ class PixelTrainStatics(NamedTuple):
     keep: float
     train: bool
     layer_offsets: Tuple[int, ...]  # per trunk, added to the layer in the gate's hash
+    dtype: torch.dtype = torch.float32  # the compute dtype: float32 or bfloat16
 
 
 def sample_latent(table: torch.Tensor, mean: torch.Tensor, xp: torch.Tensor, yp: torch.Tensor,
                   mask: torch.Tensor, st: PixelTrainStatics) -> torch.Tensor:
     """(M, C) latent of each point: the 16-tap bicubic sample of its scene's
-    (HW, C) table at (xp, yp), or the scene's mean row where mask is 0."""
+    (HW, C) table at (xp, yp), or the scene's mean row where mask is 0.  In
+    bf16 (``st.dtype``) each tap weight is rounded to bf16 (the table and
+    the mean are the caller's) and the sample is rounded after its float32
+    sum."""
     b, _, c = table.shape
     hf, wf = st.feat_hw
-    sampled = bicubic_gather(table, xp.reshape(b, -1), yp.reshape(b, -1), hf, wf).reshape(-1, c)
+    sampled = bicubic_gather(table, xp.reshape(b, -1), yp.reshape(b, -1), hf, wf,
+                             st.dtype).reshape(-1, c)
     scene = torch.arange(xp.shape[0], device=xp.device) // st.n_per_scene
-    return torch.where(mask[:, None] > 0, sampled, mean[scene])
+    return torch.where(mask[:, None] > 0, round_to(sampled, st.dtype), mean[scene])
 
 
 def pixel_train_decode_reference(table: torch.Tensor, mean: torch.Tensor, xp: torch.Tensor,
@@ -105,10 +129,15 @@ def pixel_train_decode_reference(table: torch.Tensor, mean: torch.Tensor, xp: to
     C), xp / yp / mask (M,), emb (M, e).  Returns y (rows, M), the trunks'
     tanh'd outputs stacked, and x_last (M, h), the first trunk's last
     hidden gated activation.  ``acts``, if given, receives per trunk each
-    hidden layer's gated activation (M, out); ``latent`` the (M, C) latent."""
-    lat = sample_latent(table, mean, xp, yp, mask, st)
+    hidden layer's gated activation (M, out); ``latent`` the (M, C) latent.
+    In bf16 (``st.dtype``) the operands but the biases, the tap weights, the
+    latent and each gated activation are rounded to bf16, the arithmetic
+    float32 (or the inputs' float64)."""
+    dt = check_dtype(st.dtype)
+    lat = sample_latent(round_to(table, dt), round_to(mean, dt), xp, yp, mask, st)
     if latent is not None:
         latent.append(lat)
+    emb = round_to(emb, dt)
     rows = torch.arange(emb.shape[0], device=emb.device)
     outs, x_last = [], None
     for (ws, lats, xs, bs), offset in zip(trunks, st.layer_offsets):
@@ -117,9 +146,9 @@ def pixel_train_decode_reference(table: torch.Tensor, mean: torch.Tensor, xp: to
         for layer in range(len(bs)):
             acc = bs[layer]
             if ws[layer] is not None:
-                acc = acc + x @ ws[layer]
+                acc = acc + x @ round_to(ws[layer], dt)
             if lats[layer] is not None:
-                acc = acc + lat @ lats[layer] + emb @ xs[layer]
+                acc = acc + lat @ round_to(lats[layer], dt) + emb @ round_to(xs[layer], dt)
             if layer == len(bs) - 1:
                 outs.append(torch.tanh(acc).T)
                 if x_last is None:
@@ -127,7 +156,9 @@ def pixel_train_decode_reference(table: torch.Tensor, mean: torch.Tensor, xp: to
                 break
             x = torch.relu(acc)
             if st.train and st.dropout[layer]:
-                x = x * dropout_gate(seed, layer + offset, rows, x.shape[1], st.keep)
+                x = x * dropout_gate(seed, layer + offset, rows, x.shape[1],
+                                     st.keep).to(x.dtype)
+            x = round_to(x, dt)
             trunk_acts.append(x)
         if acts is not None:
             acts.append(trunk_acts)
@@ -145,10 +176,16 @@ def pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb,
     as (a > 0) * s, s = 1/keep on dropout layers in training (no hash
     replay).  Returns (d(table) (B, HW, C), d(mean) (B, C), d(xp) (M,),
     d(yp) (M,), d(emb), [(dws, dlats, dxs, dbs)] per trunk); d(xp), d(yp)
-    come through ``keys_cubic_grad``."""
+    come through ``keys_cubic_grad``.  In bf16 every product takes dpre
+    rounded to bf16 and the rounded operands (``acts`` and ``latent`` hold
+    bf16 values), the bias gradients dpre itself; the latent's gradient is
+    rounded before the sampling's gradients, which read the rounded table
+    and tap weights (the Keys weights of d(xp), d(yp) unrounded)."""
+    dt = check_dtype(st.dtype)
     m, c = latent.shape
     b, hw, _ = table.shape
     hf, wf = st.feat_hw
+    emb_c = round_to(emb, dt)
     dlat = torch.zeros_like(latent)
     demb = torch.zeros_like(emb)
     grads = []
@@ -160,22 +197,25 @@ def pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb,
         dpre = (dy[row:row + n_out] * (1.0 - yt * yt)).T  # (M, n_out)
         row += n_out
         for layer in range(n_layers - 1, -1, -1):
+            dr = round_to(dpre, dt)
             if ws[layer] is not None:
-                dws[layer] = trunk_acts[layer - 1].T @ dpre
+                dws[layer] = trunk_acts[layer - 1].T @ dr
             if lats[layer] is not None:
-                dlats[layer] = latent.T @ dpre
-                dxs[layer] = emb.T @ dpre
-                dlat = dlat + dpre @ lats[layer].T
-                demb = demb + dpre @ xs[layer].T
+                dlats[layer] = latent.T @ dr
+                dxs[layer] = emb_c.T @ dr
+                dlat = dlat + dr @ round_to(lats[layer], dt).T
+                demb = demb + dr @ round_to(xs[layer], dt).T
             dbs[layer] = dpre.sum(0)
             if layer > 0:
                 scale = 1.0 / st.keep if st.train and st.dropout[layer - 1] else 1.0
-                dx = dpre @ ws[layer].T
+                dx = dr @ round_to(ws[layer], dt).T
                 if t == 0 and layer == n_layers - 1 and dx_last is not None:
                     dx = dx + dx_last
                 dpre = dx * (trunk_acts[layer - 1] > 0).to(dpre.dtype) * np.float32(scale)
         grads.append((dws, dlats, dxs, dbs))
 
+    dlat = round_to(dlat, dt)
+    table = round_to(table, dt)
     scene = torch.arange(m, device=emb.device) // st.n_per_scene
     inside = mask > 0
     dmean = torch.zeros_like(mean).index_add_(0, scene, torch.where(inside[:, None], 0.0, dlat))
@@ -196,7 +236,7 @@ def pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb,
             dw = (flat[idx] * dlat).sum(1)
             dxp = dxp + torch.where(valid, wy[:, i] * gx * dw, 0.0)
             dyp = dyp + torch.where(valid, gy * wx[:, j] * dw, 0.0)
-            w = torch.where(valid, wy[:, i] * wx[:, j], 0.0)
+            w = torch.where(valid, round_to(wy[:, i] * wx[:, j], dt), 0.0)
             dtable.index_add_(0, idx, w[:, None] * dlat)
     return dtable.reshape(b, hw, c), dmean, dxp, dyp, demb, grads
 
@@ -220,7 +260,9 @@ class _PackedTrunk(NamedTuple):
 
 
 class _Packed(NamedTuple):
-    """Contiguous float32 copies of every operand, in the kernels' layout."""
+    """Contiguous float32 copies of every operand, in the kernels' layout (in
+    bf16 the weights, the table, the mean and the embedding hold their
+    bf16-rounded values)."""
 
     table: torch.Tensor   # (B, HW, C)
     mean: torch.Tensor    # (B, C)
@@ -233,6 +275,9 @@ class _Packed(NamedTuple):
     n_rows: int
     chain: torch.Tensor   # the backward chain's weight tiles, trunk by trunk, last layer first
     fwd: torch.Tensor     # the forward's weight tiles, trunk by trunk in layer order
+    dtype: torch.dtype = torch.float32       # the kernels' arithmetic
+    table16: Optional[torch.Tensor] = None   # bf16: the table as bf16, the taps' operand
+    emb16: Optional[torch.Tensor] = None     # bf16: emb_t as bf16, the reduction's dX operand
 
 
 def _check(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk], st: PixelTrainStatics) -> int:
@@ -240,6 +285,7 @@ def _check(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk], st: PixelTra
     m, e = emb.shape
     b, hw, c = table.shape
     hf, wf = st.feat_hw
+    check_dtype(st.dtype)
     if hw != hf * wf or mean.shape != (b, c):
         raise ValueError(f"a {hf}x{wf} map needs a (B, {hf * wf}, C) table and a (B, C) mean")
     if not 1 <= len(trunks) <= MAX_TRUNKS or len(trunks) != len(st.layer_offsets):
@@ -270,9 +316,12 @@ def _check(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk], st: PixelTra
 def pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk],
                       st: PixelTrainStatics) -> _Packed:
     """Padded, contiguous copies of every operand (detached) for the kernels,
-    the forward's tiles and the backward chain's; raises on what they do not
-    take."""
+    the forward's tiles and the backward chain's, in ``st.dtype`` (bf16: the
+    weights, the table, the mean and the embedding rounded, the biases not,
+    and bf16 copies of the table and the embedding); raises on what they do
+    not take."""
     _check(table, mean, xp, yp, mask, emb, trunks, st)
+    dt = st.dtype
     c = table.shape[2]
     c_pad = _round_up(c, PAD)
     if c_pad > MAX_C_PAD:
@@ -284,9 +333,10 @@ def pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk],
         in_pad = 0
         for layer in range(n_layers):
             out_pad = n_out if layer == n_layers - 1 else _round_up(bs[layer].shape[-1], PAD)
-            w.append(None if ws[layer] is None else _pad2(ws[layer], in_pad, out_pad))
-            lat.append(None if lats[layer] is None else _pad2(lats[layer], c_pad, out_pad))
-            x.append(None if xs[layer] is None else _pad2(xs[layer], emb.shape[1], out_pad))
+            pad = lambda t, rows: None if t is None else _pad2(round_to(t, dt), rows, out_pad)  # noqa: E731
+            w.append(pad(ws[layer], in_pad))
+            lat.append(pad(lats[layer], c_pad))
+            x.append(pad(xs[layer], emb.shape[1]))
             b.append(_pad2(bs[layer][None], 1, out_pad)[0])
             out_pads.append(out_pad)
             in_pad = out_pad
@@ -294,19 +344,24 @@ def pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk],
             raise ValueError(f"the tensor-core forward and chain take hidden widths up to "
                              f"{TC_MAX_OUT}")
         wt = [None] * (n_layers - 1) + [w[-1].T.contiguous()]
-        tiles = [layer_tiles(w[layer], lat[layer]) for layer in range(n_layers - 1)]
+        tiles = [layer_tiles(w[layer], lat[layer], dtype=dt) for layer in range(n_layers - 1)]
         fwd_runs += [t[0] for t in tiles]
         runs += [t[1] for t in reversed(tiles)]
         packed.append(_PackedTrunk(w, wt, lat, x, b, out_pads, n_out, row, offset))
         row += n_out
     f32 = lambda t: t.detach().to(torch.float32).contiguous()  # noqa: E731
-    return _Packed(f32(table), f32(mean), f32(xp), f32(yp), f32(mask), f32(emb.T), packed,
-                   c_pad, row, tile_stream(runs, emb.device), tile_stream(fwd_runs, emb.device))
+    table_c = round_to(f32(table), dt)
+    emb_t = round_to(f32(emb.T), dt)
+    bf16 = dt == torch.bfloat16
+    return _Packed(table_c, round_to(f32(mean), dt), f32(xp), f32(yp), f32(mask), emb_t, packed,
+                   c_pad, row, tile_stream(runs, emb.device), tile_stream(fwd_runs, emb.device),
+                   dt, table_c.to(torch.bfloat16) if bf16 else None,
+                   emb_t.to(torch.bfloat16) if bf16 else None)
 
 
 def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=None,
                 dtable=None, dmean=None, dxp=None, dyp=None, dpre=None, grads=None,
-                dx_last=None, dlatent=None) -> np.ndarray:
+                dx_last=None, dlatent=None, dpre16=None) -> np.ndarray:
     """The int64 descriptor ``pixel_train_decoder.cu`` parses (see its host
     side)."""
     e, m = p.emb_t.shape
@@ -316,7 +371,8 @@ def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=N
             _ptr(p.emb_t), _ptr(p.table), _ptr(p.mean), _ptr(p.xp), _ptr(p.yp), _ptr(p.mask),
             _ptr(lat), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dtable), _ptr(dmean), _ptr(dxp),
             _ptr(dyp), _ptr(dx_last), 0 if dx_last is None else dx_last.shape[1],
-            _ptr(dlatent), _ptr(p.chain), p.chain.numel(), _ptr(p.fwd), p.fwd.numel()]
+            _ptr(dlatent), _ptr(p.chain), p.chain.numel(), _ptr(p.fwd), p.fwd.numel(),
+            _ptr(p.table16), _ptr(p.emb16)]
     for t, tr in enumerate(p.trunks):
         n_layers = len(tr.b)
         desc += [n_layers, tr.n_out, tr.row_off, tr.layer_off]
@@ -329,7 +385,8 @@ def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=N
                      _ptr(acts[t][layer]) if hidden else 0,
                      _ptr(dpre[t][layer]) if dpre is not None else 0,
                      _ptr(dw), _ptr(dl), _ptr(dx), _ptr(db), in_pad, tr.out_pads[layer],
-                     int(hidden and st.train and st.dropout[layer])]
+                     int(hidden and st.train and st.dropout[layer]),
+                     _ptr(dpre16[t][layer]) if dpre16 is not None else 0]
             in_pad = tr.out_pads[layer]
     return np.ascontiguousarray(desc, np.int64)
 
@@ -341,29 +398,34 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.pixel_train_fwd.restype = ctypes.c_int
         lib.pixel_train_fwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                                        ctypes.c_uint, ctypes.c_float, ctypes.c_void_p]
+                                        ctypes.c_uint, ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_void_p]
         lib.pixel_train_bwd.restype = ctypes.c_int
         lib.pixel_train_bwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                                        ctypes.c_void_p]
+                                        ctypes.c_int, ctypes.c_void_p]
         lib._typed = True
     return lib
 
 
 def pixel_train_decode_forward(p: _Packed, seed: int, st: PixelTrainStatics):
     """K4 forward on the card, on the tensor cores
-    (``pixel_train_fwd_tc_kernel``): y (rows, M), per trunk the gated
-    activations of the hidden layers, each (out_pad, M), and the latent
-    (c_pad, M)."""
+    (``pixel_train_fwd_tc_kernel``, in the pack's dtype): y (rows, M)
+    float32, per trunk the gated activations of the hidden layers, each
+    (out_pad, M), and the latent (c_pad, M), bf16 on a bf16 pack."""
     e, m = p.emb_t.shape
     dev = p.emb_t.device
+    bf16 = p.dtype == torch.bfloat16
     y = torch.empty((p.n_rows, m), dtype=torch.float32, device=dev)
-    acts = [[torch.empty((h, m), dtype=torch.float32, device=dev) for h in t.out_pads[:-1]]
+    acts = [[torch.empty((h, m), dtype=p.dtype, device=dev) for h in t.out_pads[:-1]]
             for t in p.trunks]
-    lat = torch.empty((p.c_pad, m), dtype=torch.float32, device=dev)
+    lat = torch.empty((p.c_pad, m), dtype=p.dtype, device=dev)
     desc = _descriptor(p, st, y, acts, lat)
     _run("pixel_train_fwd", _lib().pixel_train_fwd, dev, desc.ctypes.data, int(desc.size),
-         seed & _M32, gate_threshold(st.keep), float(np.float32(1.0 / st.keep)))
-    pixel_train_decode.launches += 1
+         seed & _M32, gate_threshold(st.keep), float(np.float32(1.0 / st.keep)), int(bf16))
+    if bf16:
+        pixel_train_decode.bf16_launches += 1
+    else:
+        pixel_train_decode.launches += 1
     return y, acts, lat
 
 
@@ -375,11 +437,15 @@ def pixel_train_decode_backward(p: _Packed, st: PixelTrainStatics, y: torch.Tens
     input gradient; the latent's gradient summed in a (c_pad, M) scratch)
     and the sampling's gradients per 64-point tile, then per layer the weight,
     latent-weight, embedding-weight and bias reductions over all M points.
+    On a bf16 pack the chain writes each pre-activation gradient twice,
+    float32 for the bias sums and rounded to bf16 for the products'
+    reductions, and the tap stage rounds the latent's gradient.
     Returns
     (d(table), d(mean), d(xp), d(yp), d(emb) (M, e), per trunk [(dW | None,
     dLat | None, dX | None, db)] padded)."""
     e, m = p.emb_t.shape
     dev = p.emb_t.device
+    bf16 = p.dtype == torch.bfloat16
     dy = dy.to(torch.float32).contiguous()
     if dx_last is not None:
         dx_last = dx_last.to(torch.float32).contiguous()
@@ -392,16 +458,21 @@ def pixel_train_decode_backward(p: _Packed, st: PixelTrainStatics, y: torch.Tens
     dyp = torch.empty_like(p.yp)
     dpre = [[torch.empty((h, m), dtype=torch.float32, device=dev) for h in t.out_pads]
             for t in p.trunks]
+    dpre16 = ([[torch.empty((h, m), dtype=torch.bfloat16, device=dev) for h in t.out_pads]
+               for t in p.trunks] if bf16 else None)
     zeros = lambda t: None if t is None else torch.zeros_like(t)  # noqa: E731
     grads = [[(zeros(t.w[layer]), zeros(t.lat[layer]), zeros(t.x[layer]),
                torch.zeros_like(t.b[layer])) for layer in range(len(t.b))] for t in p.trunks]
     dlatent = torch.empty((p.c_pad, m), dtype=torch.float32, device=dev)
     desc = _descriptor(p, st, y, acts, lat, dy=dy, demb=demb, dtable=dtable, dmean=dmean,
                        dxp=dxp, dyp=dyp, dpre=dpre, grads=grads, dx_last=dx_last,
-                       dlatent=dlatent)
+                       dlatent=dlatent, dpre16=dpre16)
     _run("pixel_train_bwd", _lib().pixel_train_bwd, dev, desc.ctypes.data, int(desc.size),
-         float(np.float32(1.0 / st.keep)))
-    pixel_train_decode_backward.launches += 1
+         float(np.float32(1.0 / st.keep)), int(bf16))
+    if bf16:
+        pixel_train_decode_backward.bf16_launches += 1
+    else:
+        pixel_train_decode_backward.launches += 1
     return dtable, dmean, dxp, dyp, demb, grads
 
 
@@ -431,8 +502,9 @@ class PixelTrainDecodeFunction(torch.autograd.Function):
     ``flatten_pixel_params``; the padding happens here and the padded rows
     and columns of every gradient are dropped on the way out.  The gated
     activations and the latent are the residuals; x_last is a view of the
-    first trunk's last one, sliced of its padding.  The backward takes
-    dx_last = None when x_last fed nothing (no classifier)."""
+    first trunk's last one, sliced of its padding (in bf16 a float32 copy,
+    so that its gradient stays float32).  The backward takes dx_last = None
+    when x_last fed nothing (no classifier)."""
 
     @staticmethod
     def forward(ctx, st: PixelTrainStatics, seed: int, table, mean, xp, yp, mask, emb, *params):
@@ -446,7 +518,7 @@ class PixelTrainDecodeFunction(torch.autograd.Function):
                       for tr in trunks]
         ctx.c = table.shape[2]
         ctx.set_materialize_grads(False)
-        return y, acts[0][-1][:trunks[0][3][-2].shape[-1]].T
+        return y, acts[0][-1][:trunks[0][3][-2].shape[-1]].T.to(torch.float32)
 
     @staticmethod
     def backward(ctx, dy: Optional[torch.Tensor], dx_last: Optional[torch.Tensor]):
@@ -463,15 +535,47 @@ class PixelTrainDecodeFunction(torch.autograd.Function):
         return (None, None, dtable, dmean, dxp, dyp, None, demb, *flat)
 
 
+class PixelTrainDecodeReference(torch.autograd.Function):
+    """K4's plain version as one autograd Function: the plain forward, and
+    for the backward the plain backward on its residuals.  The CPU route of
+    a bf16 decoder, where autograd through the plain forward would round the
+    gradients at the forward's roundings instead of the contract's."""
+
+    @staticmethod
+    def forward(ctx, st: PixelTrainStatics, seed: int, table, mean, xp, yp, mask, emb, *params):
+        trunks = unflatten_pixel_params(st, params)
+        acts: List[List[torch.Tensor]] = []
+        latent: List[torch.Tensor] = []
+        y, x_last = pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, seed, st,
+                                                 acts=acts, latent=latent)
+        ctx.st, ctx.acts, ctx.lat, ctx.y = st, acts, latent[0], y
+        ctx.operands = (table, mean, xp, yp, mask, emb, trunks)
+        ctx.set_materialize_grads(False)
+        return y, x_last
+
+    @staticmethod
+    def backward(ctx, dy: Optional[torch.Tensor], dx_last: Optional[torch.Tensor]):
+        if dy is None:
+            dy = torch.zeros_like(ctx.y)
+        table, mean, xp, yp, mask, emb, trunks = ctx.operands
+        dtable, dmean, dxp, dyp, demb, grads = pixel_train_decode_backward_reference(
+            table, mean, xp, yp, mask, emb, trunks, ctx.st, ctx.y, ctx.acts, ctx.lat, dy,
+            dx_last)
+        return (None, None, dtable, dmean, dxp, dyp, None, demb, *flatten_pixel_params(grads))
+
+
 def pixel_train_decode(table: torch.Tensor, mean: torch.Tensor, xp: torch.Tensor,
                        yp: torch.Tensor, mask: torch.Tensor, emb: torch.Tensor,
                        trunks: Sequence[Trunk], seed: int, st: PixelTrainStatics
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: the (rows, M) tanh'd outputs of the trunks and x_last (M, h),
     both differentiable in the table, the mean, xp, yp, the embedding and
-    every weight and bias."""
+    every weight and bias, in ``st.dtype``'s contract."""
     if emb.device.type == "cpu":
-        return pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, seed, st)
+        if st.dtype == torch.float32:
+            return pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, seed, st)
+        return PixelTrainDecodeReference.apply(st, seed, table, mean, xp, yp, mask, emb,
+                                               *flatten_pixel_params(trunks))
     if emb.device.type != "cuda":
         raise ValueError(f"pixel_train_decode runs on cuda or cpu, not {emb.device}")
     return PixelTrainDecodeFunction.apply(st, seed, table, mean, xp, yp, mask, emb,
@@ -480,3 +584,5 @@ def pixel_train_decode(table: torch.Tensor, mean: torch.Tensor, xp: torch.Tensor
 
 pixel_train_decode.launches = 0
 pixel_train_decode_backward.launches = 0
+pixel_train_decode.bf16_launches = 0
+pixel_train_decode_backward.bf16_launches = 0

@@ -109,13 +109,26 @@ def dropout_gate(seed: int, layer: int, rows: torch.Tensor, width: int,
     return (h < gate_threshold(keep)).to(torch.float32) * np.float32(1.0 / keep)
 
 
+def x_term(emb: torch.Tensor, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """emb @ X in ``dtype``'s contract.  X is (e, out), or (k e, out): k
+    weights on the same e columns stacked, each rounded apart and its
+    product summed in float32 (K5's layer 0 with 0 in latent_in in bf16,
+    JAX's two products ``x0 @ W_0 + x0 @ W_in``)."""
+    parts = x.split(emb.shape[1])
+    term = emb @ round_to(parts[0], dtype)
+    for part in parts[1:]:
+        term = term + emb @ round_to(part, dtype)
+    return term
+
+
 def train_decode_reference(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor]],
                            xs: Sequence[Optional[torch.Tensor]], bs: Sequence[torch.Tensor],
                            seed: int, st: TrainStatics,
                            acts: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """The plain version of K2's forward, step by step with torch.matmul;
     in float32 autograd through it is the plain backward.  emb (M, e); ws[l]
-    (in, out) or None; xs[l] (e, out) or None; bs[l] (B, out) or (out,).
+    (in, out) or None; xs[l] (e, out) (or stacked, ``x_term``) or None; bs[l]
+    (B, out) or (out,).
     Returns the tanh'd outputs as (n_out, M) and x_last, the last hidden
     layer's gated activation (M, h); ``acts``, if given, receives each
     hidden layer's gated activation (M, out).  In bf16 (``st.dtype``) the
@@ -132,7 +145,7 @@ def train_decode_reference(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor
         if ws[layer] is not None:
             acc = x @ round_to(ws[layer], st.dtype)
         if xs[layer] is not None:
-            term = emb @ round_to(xs[layer], st.dtype)
+            term = x_term(emb, xs[layer], st.dtype)
             acc = term if acc is None else acc + term
         acc = acc + (bs[layer][scene] if st.scene_bias[layer] else bs[layer])
         if layer == n_layers - 1:
@@ -169,8 +182,10 @@ def train_decode_backward_reference(emb, ws, xs, bs, st: TrainStatics, y: torch.
         if ws[layer] is not None:
             dws[layer] = acts[layer - 1].T @ dr
         if xs[layer] is not None:
-            dxs[layer] = emb_c.T @ dr
-            demb = demb + dr @ round_to(xs[layer], st.dtype).T
+            parts = xs[layer].split(emb.shape[1])
+            dxs[layer] = (emb_c.T @ dr).repeat(len(parts), 1)
+            for part in parts:
+                demb = demb + dr @ round_to(part, st.dtype).T
         dbs[layer] = (torch.zeros_like(bs[layer]).index_add_(0, scene, dpre)
                       if st.scene_bias[layer] else dpre.sum(0))
         if layer > 0:

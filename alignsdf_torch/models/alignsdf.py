@@ -37,8 +37,8 @@ def normalize_image_on_device(image: torch.Tensor) -> torch.Tensor:
 def check_supported(specs: Specs) -> None:
     """Raise for a pixel-aligned spec without the MANO branch, whose
     predicted root the projection is centred on, and for a ComputeDtype
-    other than float32 or bfloat16.  (Training refuses bfloat16 where its
-    train decoder is K4 or K5: ``training/train_step.check_trainable``.)"""
+    other than float32 or bfloat16 (both train and serve, through every
+    train decoder)."""
     if specs.pixel_align and not specs.mano_branch:
         raise ValueError("PixelAlign needs ManoBranch: points are projected about the "
                          "predicted hand root")

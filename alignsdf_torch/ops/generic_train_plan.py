@@ -7,9 +7,12 @@ Counterpart of ``make_fused_train_decoder`` (``ops/decoder_train_kernel.py
 autograd carries the gradients of ``weight_v``, ``weight_g`` and the biases;
 the rows' gradient reaches the latent (or, for pixel-aligned rows, the map
 through ``pixel_alignment``) and the embedding.  With 0 in ``latent_in``,
-layer 0 reads [row, row]: its two halves are summed here (exact algebra),
-so K5 runs one product there.  The classifier's logits are
-``train_plan.classify`` on ``x_last``.
+layer 0 reads [row, row]: in float32 its two halves are summed here (exact
+algebra), so K5 runs one product there; in bf16 they stay apart, stacked
+(2 in_dim, out), since JAX rounds each to bf16 before its own product
+(``decoder_train_kernel.py:117-121``).  The statics carry the spec's compute
+dtype, so that a bf16 spec runs K5's bf16 contract (JAX's ``cdtype`` :914).
+The classifier's logits are ``train_plan.classify`` on ``x_last``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from alignsdf_torch.config import Specs
 from alignsdf_torch.kernels.generic_train_decoder import generic_train_decode
 from alignsdf_torch.kernels.train_decoder import TrainStatics
 from alignsdf_torch.models.decoder import separate_decoder_inputs, trunk_layer_dims, trunk_prefixes
-from alignsdf_torch.models.layers import materialize_linear
+from alignsdf_torch.models.layers import compute_dtype_of, materialize_linear
 from alignsdf_torch.ops.decoder_plan import trunk_input_widths
 from alignsdf_torch.ops.train_plan import classify
 
@@ -31,8 +34,11 @@ def generic_trunk_operands(decoder: torch.nn.Module, prefix: str, in_dim: int, s
                            out_dim: int):
     """(ws, xs, bs) of one trunk for K5: ws[l] (in, out) on the previous
     activation or None (layer 0), xs[l] (in_dim, out) on the input row at
-    layer 0 and the latent_in layers, else None, bs[l] (out,)."""
+    layer 0 and the latent_in layers, else None, bs[l] (out,).  With 0 in
+    ``latent_in``, xs[0] is its two halves' sum in float32 and the halves
+    stacked (2 in_dim, out) in bf16."""
     ns = specs.network_specs
+    stacked = compute_dtype_of(specs.compute_dtype) == torch.bfloat16
     shapes = trunk_layer_dims(in_dim, ns, out_dim)
     ws: List[Optional[torch.Tensor]] = []
     xs: List[Optional[torch.Tensor]] = []
@@ -43,7 +49,10 @@ def generic_trunk_operands(decoder: torch.nn.Module, prefix: str, in_dim: int, s
         w = weight.T  # (in, out)
         if layer == 0:
             ws.append(None)
-            xs.append(w[:in_dim] + w[in_dim:2 * in_dim] if 0 in ns.latent_in else w)
+            if 0 not in ns.latent_in:
+                xs.append(w)
+            else:
+                xs.append(w[:2 * in_dim] if stacked else w[:in_dim] + w[in_dim:2 * in_dim])
         elif layer in ns.latent_in:
             # the torch layer's input was [x (cur), input (in_dim)]
             ws.append(w[:cur])
@@ -79,7 +88,8 @@ def make_generic_train_decoder(specs: Specs, kernel: Callable = generic_train_de
         scene_bias=(False,) * n_layers,
         dropout=tuple(bool(ns.dropout) and layer in ns.dropout for layer in range(n_layers - 1)),
         keep=1.0 - ns.dropout_prob,
-        train=True)
+        train=True,
+        dtype=compute_dtype_of(specs.compute_dtype))
     widths = trunk_input_widths(specs)
 
     def run(decoder, prefix, in_dim, out_dim, x0, seed, train):

@@ -12,6 +12,12 @@ hand root through the projection.  With a classifier, K4 also gives the
 first trunk's x_last, and the logits are one torch.matmul outside the
 kernel (``train_plan.classify``), as the JAX package's ``classifier_apply``
 (:890-895) is XLA outside its kernel.
+
+The statics carry the spec's compute dtype, so that a bf16 spec runs K4's
+bf16 contract (the JAX factory passes ``specs.compute_dtype`` at :1007);
+the table and its mean stay float32, as the JAX factory casts the map to
+float32 before its kernel, and autograd through that cast rounds d(map)
+to bf16 where the map is bf16, as JAX's does.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from alignsdf_torch.kernels.pixel_train_decoder import (
     pixel_train_decode,
 )
 from alignsdf_torch.models.decoder import trunk_layer_dims, trunk_prefixes
-from alignsdf_torch.models.layers import materialize_linear
+from alignsdf_torch.models.layers import compute_dtype_of, materialize_linear
 from alignsdf_torch.ops.geometry import pixel_coords
 from alignsdf_torch.ops.grid_plan import branch_columns
 from alignsdf_torch.ops.train_plan import classify
@@ -122,7 +128,8 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
         dropout=tuple(bool(ns.dropout) and layer in ns.dropout for layer in range(n_layers - 1)),
         keep=1.0 - ns.dropout_prob,
         train=True,
-        layer_offsets=(0,) if specs.model_type == "1encoder1decoder" else (0, n_layers))
+        layer_offsets=(0,) if specs.model_type == "1encoder1decoder" else (0, n_layers),
+        dtype=compute_dtype_of(specs.compute_dtype))
 
     def decode(decoder, fmap: torch.Tensor, emb: torch.Tensor, xyz: torch.Tensor,
                cam_intr: torch.Tensor, pred_root: torch.Tensor, seed: int,

@@ -18,7 +18,6 @@ import torch
 from alignsdf_torch.config import Specs
 from alignsdf_torch.data.synthetic import synthetic_train_batch
 from alignsdf_torch.models.alignsdf import build_model
-from alignsdf_torch.models.layers import compute_dtype_of
 from alignsdf_torch.ops.generic_train_plan import make_generic_train_decoder
 from alignsdf_torch.ops.pixel_train_plan import make_pixel_train_decoder
 from alignsdf_torch.ops.train_plan import make_train_decoder
@@ -31,20 +30,6 @@ from alignsdf_torch.training.train_state import (
 )
 
 COND_KEYS = ("cam_intr", "mano_root", "rest_obj_corners")
-
-
-def check_trainable(specs: Specs, decode: Callable) -> None:
-    """Raise for a spec the port cannot train yet: ComputeDtype bfloat16
-    whose train decoder ``decode`` is K4 (a pixel-aligned spec) or K5 (0 in
-    ``latent_in``), whose bf16 kernels are not ported.  A bf16 spec that
-    routes to K2 trains in bf16 (K2's bf16 kernels, the one-pass BatchNorm,
-    K7 on bf16); none falls back to float32."""
-    if compute_dtype_of(specs.compute_dtype) == torch.float32:
-        return
-    if getattr(decode, "pixel", False) or getattr(decode, "materialized", False):
-        raise NotImplementedError(
-            f"not ported yet: ComputeDtype={specs.compute_dtype} training through "
-            f"{train_decoder_kind(decode)}: only K2's bf16 kernels are ported")
 
 
 def build_batch_masks(specs: Specs, batch_size: int, additional_active: float,
@@ -119,13 +104,12 @@ def make_train_step(specs: Specs, decode: Optional[Callable] = None) -> Callable
     given, is called with "inputs", "decoder", "loss", "backward" and
     "optimizer" as each phase has been enqueued (for timing).  ``step.decode``
     is the decoder it runs.  A bf16 spec (ComputeDtype bfloat16) runs the
-    front half on bf16 operands and K2 in bf16; the losses, the parameters
-    and Adam stay float32."""
+    front half on bf16 operands and its train decoder (K2, K4 or K5) in
+    bf16; the losses, the parameters and Adam stay float32."""
     if decode is None:
         decode = make_spec_train_decoder(specs)
     if decode is None:
         raise NotImplementedError("this decoder structure has no fused train kernel")
-    check_trainable(specs, decode)
     pixel = getattr(decode, "pixel", False)
     materialized = getattr(decode, "materialized", False)
 

@@ -3,8 +3,8 @@ flagship, --pa_feat, --cls and --pa_feat --cls, the generic decoders,
 training from an LMDB dataset with the stem pool through K7, the proof
 of learning scored by the evaluation, training and testing from the
 reference's per-file layout, and from an ASDF-pack and forked loader
-workers, bf16 serving, bf16 training) on one CUDA GPU and hold each
-hand-written kernel against its plain PyTorch version.
+workers, bf16 serving, bf16 training through K2, K4 and K5) on one CUDA
+GPU and hold each hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -254,7 +254,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      torch.matmul on bf16; BASELINE.json's configs 1 and 2 trained 3 steps
      through K2 in float32 and in bf16, then each served (1 image at 128^3,
      each K1 pass against its plain version); phase 16's bf16-trained proof
-     and phase 18's bf16 pack run (above).
+     and phase 18's bf16 pack run (above);
+ 21. bf16 training through K4 and K5 (cli.train --bf16 on --pa_feat,
+     --pa_feat --cls and latent_in (0, 2)): K4 on bf16 wgmma with bf16
+     residuals, latent and table copy against its plain bf16 version at 4
+     and 64 x 2000 points on the HeadNet map and projection of a synthetic
+     batch, --pa_feat and --pa_feat --cls (x_last / dx_last), and K5 the
+     same way on latent_in (0, 2)'s twin trunks (rows of 256 + 6; layer
+     0's two weights rounded apart), with phase 20's bounds but the
+     residuals' share (BF16_RESID_SHARE_DEEP: the latent among K4's, equal
+     bit for bit) and K4's sampling gradients (of the table, the mean, xp
+     and yp: BF16_SAMPLING_SHARE within BF16_GRAD_RTOL, one bf16 step of
+     the largest everywhere), every gradient also against the plain bf16
+     backward in float64 (printed); each of the three specs through
+     cli/train.make_trainer in bf16 and in float32 in the same call (7
+     steps each on the host clock, the kernel's launches in the dtype's
+     counters, peak memory, 2 profiled steps: device busy and idle share),
+     each bf16-trained model served by cli.reconstruct --bf16 (K3 bf16 for
+     the pixel specs, K1 bf16 for latent_in (0, 2): the bf16 launches, one
+     image at 128^3); K4 bf16's and K5 bf16's forward and backward per step
+     against their plain bf16 versions, the bf16 bounds and split TF32's,
+     their chains by the profiler, their reductions alone beside
+     torch.matmul on bf16, and F.grid_sample on bf16 beside K4's.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -389,10 +410,32 @@ BF16_VS_F32_TOL = 5e-3  # a bf16 field against the float32 kernel's (JAX's bf16 
 # BF16_LOOSE
 BF16_GRAD_RTOL = 2e-3
 BF16_RESID_SHARE = 0.999
+# phase 21: K4's and K5's first products are 256-512 deep on the tensor cores
+# (K2's first layer sums 6 embedding columns on the CUDA cores), and their
+# float32 sums in another order than the plain version's round ~0.1-0.25% of
+# the units to the neighbouring bf16 value (tests/test_torch_cuda.py)
+BF16_RESID_SHARE_DEEP = 0.995
+# K4 bf16's sampling gradients (of the table, the mean, xp, yp) read dlat
+# rounded to bf16, which the chain sums in another order than the plain
+# backward: where one point's dlat rounds to the neighbouring bf16 value, a
+# table entry it dominates moves by up to one bf16 step of that entry.  Within
+# BF16_GRAD_RTOL of the largest at BF16_SAMPLING_SHARE of the entries, within
+# BF16_SAMPLING_GRAD_RTOL everywhere (tests/test_torch_cuda.py: 2.1e-3-2.8e-3)
+BF16_SAMPLING_SHARE, BF16_SAMPLING_GRAD_RTOL = 0.999, 2.0 ** -7
 K2_BF16_FWD_KERNELS = ("train_fwd_tc_kernel<TcBf16",)
 K2_BF16_BWD_KERNELS = ("train_bwd_chain_tc_kernel<TcBf16", "wgrad_bf16_tc_kernel",
                        "colsum_kernel")
 CONFIG_TRAIN_STEPS = 3  # BASELINE.json's configs 1 and 2: steps before they are served
+# phase 21, bf16 training through K4 and K5: their bf16 kernels as the
+# profiler names them (template kernels), and the trained models' --bf16
+# serving runs, SERVE_IMAGES images each at CUBE_DIM^3
+K4_BF16_FWD_KERNELS = ("pixel_train_fwd_tc_kernel<TcBf16",)
+K4_BF16_BWD_KERNELS = ("pixel_train_bwd_chain_tc_kernel<TcBf16", "wgrad_bf16_tc_kernel",
+                       "colsum_kernel")
+K5_BF16_FWD_KERNELS = ("generic_train_fwd_tc_kernel<TcBf16",)
+K5_BF16_BWD_KERNELS = ("generic_train_bwd_chain_tc_kernel<TcBf16", "wgrad_bf16_tc_kernel",
+                       "colsum_kernel")
+SERVE_IMAGES = 1
 
 
 
@@ -749,15 +792,17 @@ def k2_verdict(k2: dict, label: str) -> None:
         fail(f"K2's residuals are not gated as the plain version's {label}")
 
 
-def k2_bf16_verdict(k2: dict, label: str) -> None:
-    """Print a bf16 K2 check and fail unless y lies within BF16_LOOSE of the
+def k2_bf16_verdict(k2: dict, label: str, name: str = "K2 bf16",
+                    resid_share: float = BF16_RESID_SHARE) -> None:
+    """Print a bf16 check of ``name`` (K2, K4 or K5; trunk_check's or
+    k4_check's record) and fail unless y lies within BF16_LOOSE of the
     plain bf16 forward everywhere and y and x_last within BF16_TIGHT at
-    BF16_SHARE of the points, the residuals are equal at BF16_RESID_SHARE
+    BF16_SHARE of the points, the residuals are equal at ``resid_share``
     of the entries and elsewhere within one bf16 step or BF16_LOOSE (flips
     at most BF16_LOOSE), every gradient within BF16_GRAD_RTOL of its largest against
     the plain bf16 backward on the kernel's residuals, and the kept shares
     and gating hold."""
-    print(f"K2 bf16 y max abs err {k2['y_max_abs_err']:.3e} ({k2['y_share_tight']:.5f} within "
+    print(f"{name} y max abs err {k2['y_max_abs_err']:.3e} ({k2['y_share_tight']:.5f} within "
           f"{BF16_TIGHT:g}), x_last {k2['x_last_max_abs_err']:.3e} "
           f"({k2['x_last_share_tight']:.5f}); residuals equal at "
           f"{k2['residual_equal_share']:.6f} of the entries, {k2['residual_beyond_step']} beyond "
@@ -769,16 +814,16 @@ def k2_bf16_verdict(k2: dict, label: str) -> None:
     # x_last is the last residual: its largest error is held as theirs
     if not (k2["y_max_abs_err"] <= BF16_LOOSE and k2["y_share_tight"] >= BF16_SHARE
             and k2["x_last_share_tight"] >= BF16_SHARE):
-        fail(f"K2 bf16's forward disagrees with its plain bf16 version {label}")
-    if not (k2["residual_equal_share"] >= BF16_RESID_SHARE and k2["residual_beyond_step"] == 0
+        fail(f"{name}'s forward disagrees with its plain bf16 version {label}")
+    if not (k2["residual_equal_share"] >= resid_share and k2["residual_beyond_step"] == 0
             and k2["flip_max"] <= BF16_LOOSE):
-        fail(f"K2 bf16's residuals disagree with the plain bf16 ones {label}")
+        fail(f"{name}'s residuals disagree with the plain bf16 ones {label}")
     if not k2["grad_max_rel_err"] <= BF16_GRAD_RTOL:
-        fail(f"K2 bf16's gradients disagree with the plain bf16 backward {label}")
+        fail(f"{name}'s gradients disagree with the plain bf16 backward {label}")
     if not all(abs(v - 0.8) <= 0.01 for v in k2["kept_share"].values()):
         fail(f"kept shares off 0.8 +- 0.01 {label}: {k2['kept_share']}")
     if not k2["residual_sign_mismatch"] <= 1e-4:
-        fail(f"K2 bf16's residuals are not gated as the plain version's {label}")
+        fail(f"{name}'s residuals are not gated as the plain version's {label}")
 
 
 def residual_check(acts_k, acts_ref) -> dict:
@@ -1391,7 +1436,8 @@ def backward_entry(t: dict) -> dict:
         out["chain"] = {"kernel": c["kernel"], "ms": c["ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"]}
         if c["kernel"] in (K2_BWD_KERNELS[0], K4_BWD_KERNELS[0], K5_BWD_KERNELS[0],
-                           K2_BF16_BWD_KERNELS[0]):
+                           K2_BF16_BWD_KERNELS[0], K4_BF16_BWD_KERNELS[0],
+                           K5_BF16_BWD_KERNELS[0]):
             out["chain"]["source"] = CHAIN_SOURCE
     return out
 
@@ -1640,7 +1686,11 @@ def k4_check(inputs, trunks, st, dev, gen, x_last: bool = False):
     """K4 forward and backward through the autograd Function against the
     plain forward and the plain backward fed the kernel's own residuals.
     With ``x_last``, the first trunk's x_last is held against the plain
-    version's too and the backward takes a nonzero random dx_last."""
+    version's too and the backward takes a nonzero random dx_last.  On a
+    bf16 statics (``st.dtype``) also the bf16 verdict's shares
+    (k2_bf16_verdict: y and x_last within BF16_TIGHT, the residuals, the
+    latent among them, equal to the plain ones) and every gradient against
+    the plain bf16 backward run in float64."""
     import torch
 
     from alignsdf_torch.kernels.pixel_train_decoder import (
@@ -1652,7 +1702,9 @@ def k4_check(inputs, trunks, st, dev, gen, x_last: bool = False):
     table, mean, xp, yp, mask, emb = inputs
     c, m = table.shape[2], emb.shape[0]
     seed = 5
-    saved = pixel_train_decode.launches, pixel_train_decode_backward.launches
+    bf16 = st.dtype == torch.bfloat16
+    saved = (pixel_train_decode.launches, pixel_train_decode_backward.launches,
+             pixel_train_decode.bf16_launches, pixel_train_decode_backward.bf16_launches)
     leaves = [t.detach().clone().requires_grad_()
               for t in (table, mean, xp, yp, emb, *flatten_pixel_params(trunks))]
     y, xl = pixel_train_decode(*leaves[:4], mask, leaves[4],
@@ -1671,27 +1723,59 @@ def k4_check(inputs, trunks, st, dev, gen, x_last: bool = False):
         y_ref, xl_ref = pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks,
                                                      seed, st, acts=acts_ref, latent=lat_ref)
         res["y_max_abs_err"] = float((y - y_ref).abs().max())
-        if dxl is not None:
+        if dxl is not None or bf16:
             res["x_last_max_abs_err"] = float((xl - xl_ref).abs().max())
+        if bf16:
+            for key, a, b in (("y_share_tight", y, y_ref), ("x_last_share_tight", xl, xl_ref)):
+                res[key] = float(((a - b).abs() <= BF16_TIGHT).float().mean())
         y64, _ = pixel_train_decode_reference(
             *(t.double() for t in (table, mean, xp, yp)), mask, emb.double(),
             [tuple(_f64(group) for group in tr) for tr in trunks], seed, st)
         res["y_f64_max_abs_err"] = float((y.double() - y64).abs().max())
         y_k, acts, lat = pixel_train_decode_forward(
             pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st), seed, st)
-        res["latent_max_abs_err"] = float((lat[:c].T - lat_ref[0]).abs().max())
-        acts_k = [[a[:r.shape[1]].T for a, r in zip(at, ar)] for at, ar in zip(acts, acts_ref)]
+        lat_k = lat[:c].T.float()
+        res["latent_max_abs_err"] = float((lat_k - lat_ref[0]).abs().max())
+        acts_k = [[a[:r.shape[1]].T.float() for a, r in zip(at, ar)]
+                  for at, ar in zip(acts, acts_ref)]
         res.update(residual_check([a for at in acts_k for a in at],
                                   [r for ar in acts_ref for r in ar]))
+        if bf16:  # the latent is a residual too
+            pairs = list(zip([lat_k, *[a for at in acts_k for a in at]],
+                             [lat_ref[0], *[r for ar in acts_ref for r in ar]]))
+            res["residual_equal_share"] = (sum(int((a == r).sum()) for a, r in pairs)
+                                           / sum(r.numel() for _, r in pairs))
+            res["residual_beyond_step"] = sum(
+                int(((a - r).abs() > torch.clamp(2.0 ** -7 * torch.maximum(a, r),
+                                                 min=BF16_LOOSE)).sum()) for a, r in pairs)
         dtable, dmean, dxp, dyp, demb, g_ref = pixel_train_decode_backward_reference(
-            table, mean, xp, yp, mask, emb, trunks, st, y_k, acts_k, lat[:c].T, dy, dxl)
+            table, mean, xp, yp, mask, emb, trunks, st, y_k, acts_k, lat_k, dy, dxl)
         ref = [dtable, dmean, dxp, dyp, demb, *flatten_pixel_params(g_ref)]
+        if bf16:
+            exact = pixel_train_decode_backward_reference(
+                *(t.double() for t in (table, mean, xp, yp)), mask, emb.double(),
+                [tuple(_f64(group) for group in tr) for tr in trunks], st, y_k.double(),
+                [_f64(at) for at in acts_k], lat_k.double(), dy.double(),
+                None if dxl is None else dxl.double())
+            ref64 = [*exact[:5], *flatten_pixel_params(exact[5])]
+            res["grad_f64_max_rel_err"] = max(
+                float((g.double() - r).abs().max()) / (float(r.abs().max()) + 1e-30)
+                for g, r in zip(grads, ref64))
         res["grad_max_abs_err"] = res["grad_max_rel_err"] = 0.0
+        res["sampling_grad_max_rel_err"], res["sampling_grad_share_tight"] = 0.0, 1.0
         for i, (g, r) in enumerate(zip(grads, ref)):
             err = float((g - r).abs().max())
             rel = err / (float(r.abs().max()) + 1e-30)
             res["grad_max_abs_err"] = max(res["grad_max_abs_err"], err)
-            res["grad_max_rel_err"] = max(res["grad_max_rel_err"], rel)
+            if bf16 and i < 4:
+                # the sampling's gradients read dlat rounded to bf16 (see
+                # BF16_SAMPLING_GRAD_RTOL): held apart
+                share = float(((g - r).abs() <= BF16_GRAD_RTOL * float(r.abs().max()))
+                              .float().mean())
+                res["sampling_grad_max_rel_err"] = max(res["sampling_grad_max_rel_err"], rel)
+                res["sampling_grad_share_tight"] = min(res["sampling_grad_share_tight"], share)
+            else:
+                res["grad_max_rel_err"] = max(res["grad_max_rel_err"], rel)
             res["grad_rel_err"][names[i] if i < len(names) else f"weights[{i - len(names)}]"] = rel
         rows = torch.arange(m, device=dev)
         mism = 0.0
@@ -1703,7 +1787,8 @@ def k4_check(inputs, trunks, st, dev, gen, x_last: bool = False):
                                         st.keep) > 0
                     res["kept_share"][f"trunk{t}.layer{layer}"] = float(kept.float().mean())
         res["residual_sign_mismatch"] = mism
-    pixel_train_decode.launches, pixel_train_decode_backward.launches = saved
+    (pixel_train_decode.launches, pixel_train_decode_backward.launches,
+     pixel_train_decode.bf16_launches, pixel_train_decode_backward.bf16_launches) = saved
     return res
 
 
@@ -1714,7 +1799,11 @@ def k4_work(inputs, trunks, packed) -> Tuple[int, int, int, int]:
     the backward dx plus dW; the sampling's 16 taps x C per point in the
     image, once forward, twice backward (the d(table) scatter and the dot
     products of d(pix)).  Bytes count each input read once and each output
-    written once, the residuals at the kernel's padded widths."""
+    written once, the residuals (the latent's among them) at the kernel's
+    padded widths; on a bf16 pack the residuals and the table the kernels
+    read are 2 bytes an entry."""
+    import torch
+
     table, mean, xp, yp, mask, emb = inputs
     m, e = emb.shape
     c = table.shape[2]
@@ -1728,13 +1817,14 @@ def k4_work(inputs, trunks, packed) -> Tuple[int, int, int, int]:
             macs += ((0 if w is None else w.shape[0]) + cols) * b.shape[-1]
     taps = 2 * 16 * c * sampled
     n_rows = sum(b[-1].shape[-1] for *_, b in trunks)
-    resid = (sum(sum(t.out_pads[:-1]) for t in packed.trunks) + packed.c_pad) * m
-    fwd_in = table.numel() + mean.numel() + 3 * m + m * e + params
-    fwd_bytes = 4 * (fwd_in + n_rows * m + resid)
+    size = 2 if packed.dtype == torch.bfloat16 else 4
+    resid = size * (sum(sum(t.out_pads[:-1]) for t in packed.trunks) + packed.c_pad) * m
+    fwd_in = size * table.numel() + 4 * (mean.numel() + 3 * m + m * e + params)
+    fwd_bytes = fwd_in + 4 * n_rows * m + resid
     # in: the forward's inputs, dy, y, the residuals; out: d(table), d(mean),
     # d(xp), d(yp), d(emb) and every weight's gradient
-    bwd_bytes = 4 * (fwd_in + 2 * n_rows * m + resid
-                     + table.numel() + mean.numel() + 2 * m + m * e + params)
+    bwd_bytes = (fwd_in + 4 * 2 * n_rows * m + resid
+                 + 4 * (table.numel() + mean.numel() + 2 * m + m * e + params))
     return 2 * macs * m + taps, 4 * macs * m + 2 * taps, fwd_bytes, bwd_bytes
 
 
@@ -1744,7 +1834,9 @@ def k4_chain_work(inputs, trunks, packed) -> Tuple[int, int]:
     dot products of d(pix)); bytes: y, dy, the residuals, the weights, the
     table, xp, yp and the mask read once, every layer's pre-activation
     gradient (padded), d(emb), d(table), d(mean), d(xp) and d(yp) written
-    once."""
+    once (bf16: k2_chain_work's sizes, the bf16 table)."""
+    import torch
+
     table, mean, xp, yp, mask, emb = inputs
     m, e = emb.shape
     fwd_flops, bwd_flops, _, _ = k4_work(inputs, trunks, packed)
@@ -1753,8 +1845,10 @@ def k4_chain_work(inputs, trunks, packed) -> Tuple[int, int]:
                   if t is not None)
     acts = sum(sum(t.out_pads[:-1]) for t in packed.trunks) * m
     dpre = sum(sum(t.out_pads) for t in packed.trunks) * m
-    nbytes = 4 * (2 * n_rows * m + acts + weights + table.numel() + 3 * m
-                  + dpre + m * e + table.numel() + mean.numel() + 2 * m)
+    # bf16: 2-byte residuals and table, each dpre written twice (4 + 2 bytes)
+    act, tab, dp = (2, 2, 6) if packed.dtype == torch.bfloat16 else (4, 4, 4)
+    nbytes = (4 * (2 * n_rows * m + weights + 3 * m + m * e + table.numel() + mean.numel()
+                   + 2 * m) + act * acts + tab * table.numel() + dp * dpre)
     taps = 2 * 16 * table.shape[2] * int(mask.sum())  # one pass over the taps (k4_work's)
     # the backward's products (dx and dW) less dW's: the forward's again
     return (bwd_flops - fwd_flops) + taps, nbytes
@@ -1765,7 +1859,8 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False
     versions and bounds, and F.grid_sample forward and backward at the
     step's points as yardsticks of the sampling step alone.  With
     ``x_last``, the backward takes a random dx_last, whose read the bytes
-    count."""
+    count.  A bf16 statics (``st.dtype``) takes the bf16 bounds and bytes,
+    the reductions' bf16 route and F.grid_sample on bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -1777,7 +1872,10 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False
     table, mean, xp, yp, mask, emb = inputs
     c, m = table.shape[2], emb.shape[0]
     seed = 7
-    saved = pixel_train_decode.launches, pixel_train_decode_backward.launches
+    bf16 = st.dtype == torch.bfloat16
+    name = "K4 bf16" if bf16 else "K4"
+    saved = (pixel_train_decode.launches, pixel_train_decode_backward.launches,
+             pixel_train_decode.bf16_launches, pixel_train_decode_backward.bf16_launches)
     packed = pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st)
     fwd_flops, bwd_flops, fwd_bytes, bwd_bytes = k4_work(inputs, trunks, packed)
     chain_flops, chain_bytes = k4_chain_work(inputs, trunks, packed)
@@ -1788,7 +1886,9 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False
     if dxl is not None:
         bwd_bytes += 4 * dxl.numel()
         chain_bytes += 4 * dxl.numel()
-    unpadded = [[a[:b.shape[-1]].T for a, b in zip(at, tr[3])] for at, tr in zip(acts, trunks)]
+    unpadded = [[a[:b.shape[-1]].T.float() for a, b in zip(at, tr[3])]
+                for at, tr in zip(acts, trunks)]
+    lat_plain = lat[:c].T.float()
 
     def fwd_kernel():
         pixel_train_decode_forward(packed, seed, st)
@@ -1803,12 +1903,14 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False
     def bwd_plain():
         with torch.no_grad():
             pixel_train_decode_backward_reference(table, mean, xp, yp, mask, emb, trunks, st,
-                                                  y, unpadded, lat[:c].T, dy, dxl)
+                                                  y, unpadded, lat_plain, dy, dxl)
 
     # the library's bicubic sampling at the same points, and its autograd
-    # backward (d(input) and d(grid): the d(table) and d(pix) work)
-    fm = fmap.detach().clone().requires_grad_()
-    grid = uv[:, None].detach().clone().requires_grad_()
+    # backward (d(input) and d(grid): the d(table) and d(pix) work), on the
+    # kernel's dtype
+    dt = torch.bfloat16 if bf16 else torch.float32
+    fm = fmap.detach().to(dt).requires_grad_()
+    grid = uv[:, None].detach().to(dt).requires_grad_()
     sampled = F.grid_sample(fm, grid, mode="bicubic", align_corners=True, padding_mode="zeros")
     g_out = torch.randn(tuple(sampled.shape), generator=gen).to(dev)
 
@@ -1820,7 +1922,7 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False
         torch.autograd.grad(sampled, (fm, grid), g_out, retain_graph=True)
 
     res = {}
-    for name, kern, plain, lib, flops, nbytes in (
+    for part, kern, plain, lib, flops, nbytes in (
             ("fwd", fwd_kernel, fwd_plain, lib_fwd, fwd_flops, fwd_bytes),
             ("bwd", bwd_kernel, bwd_plain, lib_bwd, bwd_flops, bwd_bytes)):
         k_ms = cuda_ms(kern, 5)       # kernel, plain, kernel: in turns on one card
@@ -1828,21 +1930,22 @@ def k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card, x_last: bool = False
         k_ms2 = cuda_ms(kern, 5)
         lib_ms = cuda_ms(lib, 5)
         best = min(k_ms, k_ms2)
-        res[name] = {"ms": best, "ms_runs": [k_ms, k_ms2], "plain_ms": p_ms,
-                     "library_ms": lib_ms, **grid_bounds(flops, nbytes),
+        res[part] = {"ms": best, "ms_runs": [k_ms, k_ms2], "plain_ms": p_ms,
+                     "library_ms": lib_ms, **train_bounds(flops, nbytes, bf16),
                      "tflop": flops / 1e12, "gbytes": nbytes / 1e9, "tflops": flops / best / 1e9}
-        print(f"[{card}] K4{' with x_last' if x_last else ''} {name} per step ({len(trunks)} "
-              f"trunks x {m} points, "
+        print(f"[{card}] {name}{' with x_last' if x_last else ''} {part} per step "
+              f"({len(trunks)} trunks x {m} points, "
               f"{flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB): kernel {k_ms:.2f} / "
-              f"{k_ms2:.2f} ms ({res[name]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, "
-              f"{bounds_text(res[name])}; F.grid_sample "
-              f"{'forward' if name == 'fwd' else 'backward'} (sampling only) {lib_ms:.2f} ms",
+              f"{k_ms2:.2f} ms ({res[part]['tflops']:.1f} TFLOP/s), plain {p_ms:.2f} ms, "
+              f"{bounds_text(res[part])}; F.grid_sample{' on bf16' if bf16 else ''} "
+              f"{'forward' if part == 'fwd' else 'backward'} (sampling only) {lib_ms:.2f} ms",
               flush=True)
-    res["bwd"]["chain"] = chain_timing(f"K4{' with x_last' if x_last else ''}",
-                                       K4_BWD_KERNELS[0], bwd_kernel, chain_flops, chain_bytes,
-                                       card)
-    pixel_train_decode.launches, pixel_train_decode_backward.launches = saved
-    res["bwd"]["reduction"] = reduction_timing("K4", wgrad_shapes(packed), m, dev, card)
+    res["bwd"]["chain"] = chain_timing(f"{name}{' with x_last' if x_last else ''}",
+                                       (K4_BF16_BWD_KERNELS if bf16 else K4_BWD_KERNELS)[0],
+                                       bwd_kernel, chain_flops, chain_bytes, card, bf16)
+    (pixel_train_decode.launches, pixel_train_decode_backward.launches,
+     pixel_train_decode.bf16_launches, pixel_train_decode_backward.bf16_launches) = saved
+    res["bwd"]["reduction"] = reduction_timing("K4", wgrad_shapes(packed), m, dev, card, dt)
     return res
 
 
@@ -4540,14 +4643,18 @@ def bf16_trunk_operands(model, specs, latent, emb):
     return out
 
 
-def bf16_train_run(specs, dev, card: str, label: str, kern: TrainKernel) -> dict:
-    """The flagship's train step at full width through cli/train.make_trainer
-    in ``specs``' compute dtype: WARM_STEPS + TIMED_STEPS steps on one
+def bf16_train_run(specs, dev, card: str, label: str, kern: TrainKernel,
+                   after: Optional[Callable] = None) -> dict:
+    """A spec's train step at full width through cli/train.make_trainer in
+    ``specs``' compute dtype: WARM_STEPS + TIMED_STEPS steps on one
     synthetic batch, each timed on the host clock (synchronized: median and
-    range), K2's launches in the dtype's counters (two a step each way) and
-    none in the other's, finite losses, the total falling, the peak device
-    memory; then PROFILED_STEPS steps under torch.profiler: device busy and
-    idle share, K2's forward, chain, reduction and colsum ms a step."""
+    range), the train kernel's launches in the dtype's counters
+    (``kern.per_step`` a step each way) and none in the other's, finite
+    losses, the total falling, the peak device memory; then PROFILED_STEPS
+    steps under torch.profiler: device busy and idle share, the kernel's
+    forward, chain, reduction and colsum ms a step.  ``after``, if given,
+    is called with the trained state; its result is the record's
+    "after"."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4581,10 +4688,11 @@ def bf16_train_run(specs, dev, card: str, label: str, kern: TrainKernel) -> dict
     print(f"[{card}] {label}: {n_steps} steps at {TRAIN_SCENES} x {specs.samples_per_scene}, "
           f"steps {WARM_STEPS + 1}-{n_steps} on the host clock median "
           f"{rec['step_ms_median']:.2f} ms ({min(times):.2f}-{max(times):.2f}), peak device "
-          f"memory {peak_gb:.2f} GB; K2 launches (fwd, bwd) {mine} (expected {want}), the other "
-          f"dtype's {other}; total loss " + ", ".join(f"{t:.5f}" for t in totals), flush=True)
+          f"memory {peak_gb:.2f} GB; {kern.name} launches (fwd, bwd) {mine} (expected {want}), "
+          f"the other dtype's {other}; total loss " + ", ".join(f"{t:.5f}" for t in totals),
+          flush=True)
     if tuple(mine) != want or any(other):
-        fail(f"{label}: K2 launches {mine} (the other dtype's {other}) != {want}")
+        fail(f"{label}: {kern.name} launches {mine} (the other dtype's {other}) != {want}")
     if not all(np.isfinite(totals)) or not totals[-1] < totals[0]:
         fail(f"{label}: losses {totals}")
     saved = launch_counts(kern)
@@ -4611,12 +4719,14 @@ def bf16_train_run(specs, dev, card: str, label: str, kern: TrainKernel) -> dict
                           "idle_share": 1 - share, "per_step_ms": per}
         print(f"[{card}] {label}, {PROFILED_STEPS} profiled steps, "
               f"{prof_wall * 1e3 / PROFILED_STEPS:.2f} ms each: device busy {per['busy']:.2f} "
-              f"ms a step, idle share {1 - share:.3f}; K2 fwd {per['fwd']:.2f} ms, chain "
+              f"ms a step, idle share {1 - share:.3f}; {kern.name} fwd {per['fwd']:.2f} ms, chain "
               f"{per['chain']:.2f}, reduction {per['reduction']:.2f}, colsum "
               f"{per['colsum']:.2f}; the rest (encoder fwd+bwd, plan, losses, optimizer) "
               f"{per['rest']:.2f} ms", flush=True)
         for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
             print(f"  {ms / PROFILED_STEPS:9.3f} ms/step  {name[:100]}", flush=True)
+    if after is not None:
+        rec["after"] = after(state)
     del state, step
     return rec
 
@@ -4736,6 +4846,184 @@ def bf16_train_phase(dev, card: str, gen, model, mano_faces) -> Tuple[dict, list
                         "max_pool2d_with_indices_backward on bf16 (a tied window's gradient to "
                         "its first maximum, not to every tie)"),
         })
+    return rec, entries
+
+
+def k4_bf16_kernel() -> TrainKernel:
+    """K4 on a bf16 pack: the same wrappers, counted by their bf16_launches
+    (``launch_counts``); its plain version is the plain bf16 one (the
+    statics' dtype)."""
+    return k4_kernel()._replace(name="K4 bf16", fwd_kernels=K4_BF16_FWD_KERNELS,
+                                bwd_kernels=K4_BF16_BWD_KERNELS, grad_rtol=BF16_GRAD_RTOL)
+
+
+def k5_bf16_kernel() -> TrainKernel:
+    """K5 on a bf16 pack, as k4_bf16_kernel."""
+    return k5_kernel()._replace(name="K5 bf16", fwd_kernels=K5_BF16_FWD_KERNELS,
+                                bwd_kernels=K5_BF16_BWD_KERNELS, grad_rtol=BF16_GRAD_RTOL)
+
+
+def serve_bf16(specs, state, dev, card: str, label: str, gen) -> dict:
+    """A trained model served through cli.reconstruct.main with --bf16
+    (its ComputeDtype bfloat16 in specs.json): SERVE_IMAGES synthetic
+    images at CUBE_DIM^3, the grid's kernel (K3 for a pixel-aligned spec,
+    else K1) on its bf16 plan: its bf16 launches two passes an image in runs
+    of 2^20 points, none of its float32 kernel; each image's timings."""
+    import numpy as np
+    import torch
+
+    from alignsdf_torch.cli import reconstruct as reconstruct_cli
+    from alignsdf_torch.config import specs_to_dict
+    from alignsdf_torch.kernels.grid_decoder import grid_decode
+    from alignsdf_torch.kernels.pixel_grid_decoder import pixel_grid_decode
+    from alignsdf_torch.training import checkpoints as ckpt
+
+    kernel, kname = (pixel_grid_decode, "K3") if specs.pixel_align else (grid_decode, "K1")
+    samples = synthetic_samples(gen, SERVE_IMAGES)
+    with tempfile.TemporaryDirectory() as exp:
+        with open(os.path.join(exp, "specs.json"), "w") as f:
+            json.dump(specs_to_dict(specs), f, indent=2)
+        ckpt.save_checkpoint(exp, state, state.epoch, "latest")
+        path = os.path.join(exp, "samples.npz")
+        np.savez(path, **{k: np.stack([s[k] for s in samples]) for k in samples[0]})
+        kernel.launches = kernel.bf16_launches = 0
+        t0 = time.perf_counter()
+        per_image = reconstruct_cli.main(["-e", exp, "--samples", path, "--cube_dim",
+                                          str(CUBE_DIM), "--device", dev.type, "--bf16"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        meshes = sorted(os.listdir(os.path.join(exp, "Eval_obman", "meshes"))) \
+            if os.path.isdir(os.path.join(exp, "Eval_obman", "meshes")) else []
+    want = SERVE_IMAGES * 2 * -(-CUBE_DIM ** 3 // (1 << 20))
+    launches, other = kernel.bf16_launches, kernel.launches
+    print(f"[{card}] {label} served by cli.reconstruct --bf16: {SERVE_IMAGES} image(s) at "
+          f"{CUBE_DIM}^3 in {wall:.2f} s, {kname} bf16 launches {launches} (expected {want}), "
+          f"float32 {other}; meshes written {meshes}", flush=True)
+    for t in per_image:
+        print(f"  {t['key']}: " + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in t.items()
+                                            if k != "key") + " ms", flush=True)
+    if launches != want or other != 0 or len(per_image) != SERVE_IMAGES:
+        fail(f"{label} --bf16 serving: {kname} bf16 launches {launches} != {want} (float32 "
+             f"{other})")
+    if not all(np.isfinite(v) for t in per_image for k, v in t.items() if k != "key"):
+        fail(f"{label} --bf16 serving: a non-finite timing {per_image}")
+    return {"kernel": kname, "launches": launches, "wall_s": wall, "images": per_image,
+            "meshes": meshes}
+
+
+def bf16_pixel_generic_phase(dev, card: str, gen) -> Tuple[dict, list]:
+    """Phase 21, bf16 training through K4 and K5 (see the module docstring).
+    Returns (record, the kernels line's entries: K4 bf16 forward and
+    backward, K5 bf16 forward and backward; their launches filled in by
+    main)."""
+    import torch
+
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.generic_train_plan import make_generic_train_decoder
+
+    bf = lambda sp: dataclasses.replace(sp, compute_dtype="bfloat16")  # noqa: E731
+    pix = flagship_specs(pixel=True)
+    pcls = flagship_specs(pixel=True, experiment="dexycb_140k.json", classifier=True)
+    gen0 = latent_in_0_specs()
+    k4b, k5b = k4_bf16_kernel(), k5_bf16_kernel()
+    rec = {"check": {}}
+    for name, sp, x_last in (("--pa_feat", bf(pix), False),
+                             ("--pa_feat --cls (x_last)", bf(pcls), True)):
+        model = build_model(sp, device=dev, seed=SEED)
+        for scenes in CHECK_SCENES:
+            phase(f"K4 bf16 vs plain bf16 ({name}, {scenes} x {sp.samples_per_scene} points, "
+                  "full width, the HeadNet map and projection of a synthetic batch)")
+            inputs, trunks, st, _ = k4_operands(model, sp, dev, scenes)
+            c = k4_check(inputs, trunks, st, dev, gen, x_last)
+            print(f"K4 bf16 latent vs plain {c['latent_max_abs_err']:.3e}; in-image share "
+                  f"{c['in_image_share']:.4f}", flush=True)
+            k2_bf16_verdict(c, f"({name}, {scenes} scenes)", "K4 bf16", BF16_RESID_SHARE_DEEP)
+            print(f"K4 bf16 sampling gradients (table, mean, xp, yp): "
+                  f"{c['sampling_grad_share_tight']:.6f} of the entries within {BF16_GRAD_RTOL:g} "
+                  f"of the largest, max {c['sampling_grad_max_rel_err']:.3e} (tolerance "
+                  f"{BF16_SAMPLING_GRAD_RTOL:.3e}); by gradient " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in list(c["grad_rel_err"].items())[:5]), flush=True)
+            if not (c["sampling_grad_share_tight"] >= BF16_SAMPLING_SHARE
+                    and c["sampling_grad_max_rel_err"] <= BF16_SAMPLING_GRAD_RTOL):
+                fail(f"K4 bf16's sampling gradients disagree with the plain bf16 backward "
+                     f"({name}, {scenes} scenes)")
+            if not 0.0 < c["in_image_share"] < 1.0:
+                fail(f"the in-image share {c['in_image_share']} must lie strictly between 0 "
+                     "and 1")
+            rec["check"][f"K4 {name}, {scenes}"] = c
+        del model
+    model = build_model(bf(gen0), device=dev, seed=SEED)
+    st5 = make_generic_train_decoder(bf(gen0)).statics
+    for scenes in CHECK_SCENES:
+        phase(f"K5 bf16 vs plain bf16 (latent_in (0, 2), {scenes} x {gen0.samples_per_scene} "
+              "rows of 256 + 6, both trunks, nonzero dy and dx_last)")
+        trunks = k5_operands(model, bf(gen0), k5_rows(gen0, dev, gen, scenes))
+        c = trunk_check(k5b, trunks, st5, dev, gen, True)
+        k2_bf16_verdict(c, f"(latent_in (0, 2), {scenes} scenes)", "K5 bf16",
+                        BF16_RESID_SHARE_DEEP)
+        rec["check"][f"K5, {scenes}"] = c
+    del model
+
+    rec["train"], rec["served"] = {}, {}
+    for label, sp, kb, kf in (("--pa_feat", pix, k4b, k4_kernel()),
+                              ("--pa_feat --cls", pcls, k4b, k4_kernel()),
+                              ("latent_in (0, 2)", gen0, k5b, k5_kernel())):
+        for key, how, s, k in (("bf16", "cli.train --bf16's trainer", bf(sp), kb),
+                               ("float32", "the same call", sp, kf)):
+            dt_label = f"{label} {key} ({how})"
+            phase(f"training: {dt_label}, {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps, "
+                  f"{PROFILED_STEPS} profiled")
+            serve = ((lambda state, s=s, lb=label: serve_bf16(s, state, dev, card, lb, gen))
+                     if key == "bf16" else None)
+            rec["train"][f"{label} {key}"] = bf16_train_run(s, dev, card, dt_label, k,
+                                                            after=serve)
+        b, f = rec["train"][f"{label} bf16"], rec["train"][f"{label} float32"]
+        rec["served"][label] = b.pop("after")
+        busy = [r.get("profile", {}).get("per_step_ms", {}).get("busy") for r in (b, f)]
+        idle = [r.get("profile", {}).get("idle_share") for r in (b, f)]
+        print(f"[{card}] {label} train step, bf16 / float32 in one call: median "
+              f"{b['step_ms_median']:.2f} / {f['step_ms_median']:.2f} ms on the host clock, "
+              f"device busy {busy[0]} / {busy[1]} ms a step, idle share {idle[0]} / {idle[1]}, "
+              f"peak memory {b['peak_memory_gb']:.2f} / {f['peak_memory_gb']:.2f} GB", flush=True)
+
+    phase(f"timing: K4 bf16 forward and backward per step ({TRAIN_SCENES} x "
+          f"{pix.samples_per_scene} points, both trunks); F.grid_sample on bf16 at the same points")
+    model = build_model(bf(pix), device=dev, seed=SEED)
+    inputs, trunks, st, (fmap, uv) = k4_operands(model, bf(pix), dev, TRAIN_SCENES)
+    rec["k4_timing"] = k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card)
+    del model, inputs, trunks, fmap, uv
+    phase(f"timing: K5 bf16 forward and backward per step ({TRAIN_SCENES} x "
+          f"{gen0.samples_per_scene} rows, both trunks)")
+    model = build_model(bf(gen0), device=dev, seed=SEED)
+    rec["k5_timing"] = trunk_timing(k5b, k5_operands(model, bf(gen0),
+                                                     k5_rows(gen0, dev, gen, TRAIN_SCENES)),
+                                    st5, dev, gen, card, False)
+    del model
+
+    entries = []
+    for kname, key, source, replaces, lib in (
+            ("K4", "k4_timing", "alignsdf_torch/kernels/csrc/pixel_train_decoder.cu",
+             "alignsdf_tpu/ops/decoder_train_pixel.py:{}", True),
+            ("K5", "k5_timing", "alignsdf_torch/kernels/csrc/generic_train_decoder.cu",
+             "alignsdf_tpu/ops/decoder_train_kernel.py:{}", False)):
+        checks = [c for k, c in rec["check"].items() if k.startswith(kname)]
+        lines = (335, 647) if kname == "K4" else (142, 286)
+        for part, line in zip(("fwd", "bwd"), lines):
+            t = rec[key][part]
+            err = max(max(c["y_max_abs_err"], c["x_last_max_abs_err"]) if part == "fwd"
+                      else c["grad_max_abs_err"] for c in checks)
+            entries.append({
+                "name": f"{kname} bf16 {'pixel' if kname == 'K4' else 'generic'} train decoder, "
+                        f"{'forward' if part == 'fwd' else 'backward'}",
+                "route": "cuda", "source": source, "replaces": replaces.format(line),
+                "launches": 0, "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"] if lib else None,
+                **({"library_call": f"F.grid_sample bicubic on bf16, "
+                                    f"{'forward' if part == 'fwd' else 'backward'}, at the "
+                                    "step's points (the sampling step only)"} if lib else {}),
+                **({"trunk": FWD_SOURCE} if part == "fwd" else backward_entry(t)),
+            })
     return rec, entries
 
 
@@ -4950,6 +5238,8 @@ def main(record_path: Optional[str] = None) -> None:
     record["bf16"], bf16_entries = bf16_phase(dev, card, gen, mano_faces, model)
     record["bf16_train"], bf16_train_entries = bf16_train_phase(dev, card, gen, model, mano_faces)
     bt = record["bf16_train"]
+    record["bf16_k4_k5"], bf16_k4k5_entries = bf16_pixel_generic_phase(dev, card, gen)
+    b45 = record["bf16_k4_k5"]
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
@@ -5098,6 +5388,16 @@ def main(record_path: Optional[str] = None) -> None:
                        "pack training": pack["train_bf16"]["launches"]["k2"][name]}
         else:
             by_path = {"pack training": pack["train_bf16"]["launches"]["k7"][name]}
+        e.update(launches=sum(by_path.values()), launches_by_path=by_path)
+        kernels["kernels"].append(e)
+    # phase 21's: K4 bf16 on the --pa_feat and --pa_feat --cls bf16 trainers,
+    # K5 bf16 on latent_in (0, 2)'s
+    for e in bf16_k4k5_entries:
+        name = "fwd" if e["name"].endswith("forward") else "bwd"
+        labels = ("--pa_feat", "--pa_feat --cls") if e["name"].startswith("K4") else (
+            "latent_in (0, 2)",)
+        by_path = {f"{label} bf16": b45["train"][f"{label} bf16"]["launches"][name]
+                   for label in labels}
         e.update(launches=sum(by_path.values()), launches_by_path=by_path)
         kernels["kernels"].append(e)
     print(card, flush=True)

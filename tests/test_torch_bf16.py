@@ -19,8 +19,10 @@ against the JAX package's bf16 functions, on the CPU.
   distance, float32 outputs.
 - Reconstructor(grid_dtype=bfloat16) at 32^3 against JAX's bf16 K1 through
   JAX's grid evaluator, and cli.reconstruct --bf16 once.
-- Training refuses a bf16 spec whose train decoder is K4 or K5; K7
-  refuses float16 (bf16 training: tests/test_torch_bf16_train.py).
+- Training takes a bf16 spec whose train decoder is K4 or K5
+  (make_train_step, make_trainer and cli.train --bf16 build and step it in
+  bf16); K7 refuses float16 (bf16 training: tests/test_torch_bf16_train.py
+  and tests/test_torch_bf16_pixel_train.py).
 
 The CUDA kernels are held to these plain versions on the card by
 tests/test_torch_cuda.py."""
@@ -359,38 +361,65 @@ def test_cli_reconstruct_bf16(tmp_path):
         "k0" in f for _, _, files in os.walk(out) for f in files)
 
 
-# bf16 specs whose train decoder is still float32 only: K4 (pixel-aligned)
-# and K5 (a latent input at layer 0)
-BF16_K4 = {**torch_parity.PIXEL_NARROW, "ComputeDtype": "bfloat16"}
-BF16_K5 = {**BF16_FLAGSHIP,
+# bf16 specs whose train decoder is K4 (pixel-aligned) or K5 (a latent input
+# at layer 0), at 64 x 64 images and 2 x 128 points so that a CPU step is quick
+BF16_K4 = {**torch_parity.PIXEL_NARROW, "ComputeDtype": "bfloat16", "ImageSize": [64, 64],
+           "SamplesPerScene": 128}
+BF16_K5 = {**BF16_FLAGSHIP, "ImageSize": [64, 64], "SamplesPerScene": 128,
            "NetworkSpecs": {**BF16_FLAGSHIP["NetworkSpecs"], "latent_in": [0, 2]}}
 
 
+def _step_once(specs, state, step):
+    from alignsdf_torch.data.synthetic import synthetic_train_batch
+    from alignsdf_torch.training.train_step import batch_to_device
+
+    batch = batch_to_device(synthetic_train_batch(specs, batch_size=2, seed=0), "cpu")
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    losses = step(state, batch, 7)
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    moved = [k for k, v in state.model.state_dict().items()
+             if v.dtype == torch.float32 and not torch.equal(v, before[k])]
+    assert any(k.startswith("decoder.") for k in moved)
+    return losses
+
+
 def test_training_refuses_bf16():
-    """A bf16 spec whose train decoder is K4 or K5 raises, naming the
-    kernel, from make_train_step and make_trainer; no float32 fallback (the
-    same spec in float32 trains)."""
+    """A bf16 spec whose train decoder is K4 or K5 no longer raises (the
+    refusal this test held until their bf16 kernels were ported): from
+    make_train_step and make_trainer it builds a step whose decoder is that
+    kernel in bf16 (its statics' dtype; no float32 fallback), and one step
+    on the CPU (the plain bf16 version) gives finite losses and moves the
+    decoder's float32 parameters; the float32 spec's decoder stays float32."""
     from alignsdf_torch.cli.train import make_trainer
+    from alignsdf_torch.training.train_step import train_decoder_kind
 
     for spec, kernel in ((BF16_K4, "K4"), (BF16_K5, "K5")):
         specs = specs_from_dict(spec)
-        with pytest.raises(NotImplementedError, match=f"ComputeDtype=bfloat16 training.*{kernel}"):
-            make_train_step(specs)
-        with pytest.raises(NotImplementedError, match=f"ComputeDtype=bfloat16 training.*{kernel}"):
-            make_trainer(specs, torch.device("cpu"))
-        make_train_step(specs_from_dict({**spec, "ComputeDtype": "float32"}))
+        step = make_train_step(specs)
+        assert kernel in train_decoder_kind(step.decode)
+        assert step.decode.statics.dtype == torch.bfloat16
+        state, step = make_trainer(specs, torch.device("cpu"), init_guard=False)
+        assert step.decode.statics.dtype == torch.bfloat16
+        _step_once(specs, state, step)
+        f32 = make_train_step(specs_from_dict({**spec, "ComputeDtype": "float32"}))
+        assert f32.decode.statics.dtype == torch.float32
 
 
-def test_train_cli_refuses_bf16(tmp_path):
-    """cli.train --bf16 on a K4 and a K5 spec raises, naming the kernel."""
+def test_train_cli_refuses_bf16(tmp_path, capfd):
+    """cli.train --bf16 --smoke --device cpu on a K4 and a K5 spec (both
+    float32 in their spec file) trains in bf16 through that kernel's plain
+    bf16 version, where it raised until their bf16 kernels were ported: the
+    log names the compute dtype and the kernel, and the smoke passes."""
     from alignsdf_torch.cli.train import main as train_main
 
     for spec, kernel in ((BF16_K4, "K4"), (BF16_K5, "K5")):
         path = tmp_path / f"{kernel}.json"
         path.write_text(json.dumps({**spec, "ComputeDtype": "float32"}))
-        with pytest.raises(NotImplementedError, match=f"ComputeDtype=bfloat16 training.*{kernel}"):
-            train_main(["-e", str(path), "--smoke", "--device", "cpu", "--bf16",
-                        "--output_root", str(tmp_path)])
+        train_main(["-e", str(path), "--smoke", "--device", "cpu", "--bf16",
+                    "--output_root", str(tmp_path)])
+        text = capfd.readouterr().err
+        assert "compute dtype: bfloat16" in text and f"({kernel})" in text, text[-2000:]
+        assert "smoke OK" in text
 
 
 def test_eval_mode_batchnorm_on_bf16():

@@ -184,8 +184,9 @@ def _rounding_subprocess(mode: str, workdir: str) -> None:
 
 
 def jax_train_step_rounded(specs_dict, pmodel, batch, key: int, workdir) -> dict:
-    """One step of JAX's train step (the scene-factored kernel in interpret
-    mode as its decoder) from the port model's weights, on ``batch`` with
+    """One step of JAX's train step (its train kernel in interpret mode as
+    its decoder: the pixel-aligned, scene-factored or generic one, as its
+    CLI routes the spec) from the port model's weights, on ``batch`` with
     ``jax.random.PRNGKey(key)``, under ``specs_dict``'s ComputeDtype and
     under float32, in a process that rounds where the code converts (XLA on
     the CPU otherwise drops a convert to bf16 and back, as in
@@ -207,7 +208,11 @@ def jax_train_step_rounded(specs_dict, pmodel, batch, key: int, workdir) -> dict
 
 
 def _step_main(workdir: str) -> None:
-    from alignsdf_tpu.ops.decoder_train_kernel import make_fused_train_decoder_factored
+    from alignsdf_tpu.ops.decoder_train_kernel import (
+        make_fused_train_decoder,
+        make_fused_train_decoder_factored,
+    )
+    from alignsdf_tpu.ops.decoder_train_pixel import make_fused_train_decoder_pixel
     from alignsdf_tpu.training import train_state as jax_train_state
     from alignsdf_tpu.training import train_step as jax_train_step
 
@@ -224,7 +229,10 @@ def _step_main(workdir: str) -> None:
         params, stats = convert_alignsdf(state, jspecs, (2, 2, 2, 2))
         variables = full_variables(jmodel, params, stats)
         opt = jax_train_state.make_optimizer(jspecs)
-        override = make_fused_train_decoder_factored(jspecs, interpret=True)
+        # routed as the JAX CLI routes it (cli/train.py:225-228)
+        override = (make_fused_train_decoder_pixel(jspecs, interpret=True)
+                    or make_fused_train_decoder_factored(jspecs, interpret=True)
+                    or make_fused_train_decoder(jspecs, block=128, interpret=True))
         step = jax.jit(jax_train_step.make_train_step(jmodel, jspecs, opt, override))
         jstate = jax_train_state.TrainState(
             params=variables["params"], batch_stats=variables["batch_stats"],
