@@ -53,7 +53,12 @@
 // Small products stay on the CUDA cores: the final layer's 1-2 rows (their
 // weights staged in shared memory), the classifier's dx_last, and d(emb)
 // (N = e), whose x each warp holds in registers for its eighth of the
-// features and broadcasts by shuffle.
+// features and broadcasts by shuffle.  A latent_in final layer's input
+// gradient (ch_final_in: K2's d(emb), K4's dlat and d(emb), K5's d(x0))
+// reads the final rows' dpre from oacc and its weights through L1, a
+// thread a (point, input row), and stores the chain's first term there:
+// nothing more is staged, so shared memory stays 231,776 bytes (bf16
+// 231,856) at the flagship's width.
 //
 // Shared memory: the ring (TC_SLOTS x 8 KB), the buffer CH_ROWS x 64 x 4 =
 // 128 KB, the trunk's small rows (tc_shared) and d(emb)'s partial sums
@@ -331,6 +336,27 @@ __device__ __forceinline__ void ch_final(const float* __restrict__ y, const floa
   const float g0 = g[p], g1 = n_out > 1 ? g[TC_P + p] : 0.f;
   for (int k = tid / TC_P; k < in_pad; k += TC_THREADS / TC_P)
     buf[tc_swz(k, p)] = n_out > 1 ? fmaf(ws[2 * k + 1], g1, ws[2 * k] * g0) : ws[k] * g0;
+}
+
+// The input gradient of a latent_in final layer on the CUDA cores:
+// dst[p][c] (+)= sum_r w[c][r] g[r][p] for c < rows, w (rows, n_out), g
+// ch_final's dpre [n_out][TC_P] (bf16: rounded, and w holds bf16 values:
+// exact products), entry (p, c) at dst + p ld_p + c ld_c (K2's and K4's
+// d(emb) (M, e): ld_p = e, ld_c = 1; K4's dlat scratch and K5's d(x0),
+// (rows, M): ld_p = 1, ld_c = M).  Stored where `store` (the chain's first
+// term there), else added; each entry by one thread.  A thread a point, so
+// that a warp's stores to a (rows, M) row are contiguous.
+__device__ __forceinline__ void ch_final_in(const float* g, const float* __restrict__ w, int rows,
+                                            int n_out, float* __restrict__ dst, size_t ld_p,
+                                            size_t ld_c, bool store, int m, int first, int tid) {
+  for (int i = tid; i < rows * TC_P; i += TC_THREADS) {
+    const int c = i / TC_P, p = i % TC_P;
+    if (first + p >= m) continue;
+    float v = __ldg(w + (size_t)c * n_out) * g[p];
+    if (n_out > 1) v = fmaf(__ldg(w + (size_t)c * n_out + 1), g[TC_P + p], v);
+    float* out = dst + (size_t)(first + p) * ld_p + (size_t)c * ld_c;
+    *out = store ? v : *out + v;
+  }
 }
 
 // Buffer rows k < w += src[first + p][k], src (M, w) row-major: the

@@ -10,13 +10,15 @@
 // with X_0 layer 0's weight (both halves summed by the plan when 0 is in
 // latent_in: they multiply the same row, so the kernel runs one product) and
 // X_l a latent_in layer's W_in; then ReLU and the hash dropout gate on hidden
-// layers, tanh on the last (which takes no re-injection).  The forward stores
-// each hidden layer's gated activation as the residual, the last one being
-// x_last, the classifier's input; the backward recovers the gate as
-// (a > 0) * s, adds dx_last before the last hidden gate (_bwd_kernel
-// :277-278), and emits d(x0) over the whole input row, so the gradient
-// reaches the latent (and, for pixel-aligned rows, the map) and the
-// embedding, besides dW, dX and db.
+// layers, tanh on the last.  A latent_in final layer (JAX's _fwd_kernel
+// :117-121 takes one) reads all of x0 on the CUDA cores: fw_final's input
+// over x0's e rows, ch_final_in's d(x0) stored first, the reduction's dX.
+// The forward stores each hidden layer's gated activation as the residual,
+// the last one being x_last, the classifier's input; the backward recovers
+// the gate as (a > 0) * s, adds dx_last before the last hidden gate
+// (_bwd_kernel :277-278), and emits d(x0) over the whole input row, so the
+// gradient reaches the latent (and, for pixel-aligned rows, the map) and
+// the embedding, besides dW, dX and db.
 //
 // What bounds it: arithmetic.  The flagship trunk with latent_in (0, 2)
 // (rows of 262, hidden 512 -> 250 -> [250 + 262] -> 512 -> 512 -> 1) costs
@@ -192,8 +194,10 @@ generic_train_fwd_tc_kernel(const Plan p, int rows, int total, unsigned seed, un
     fw_store(s.act, L.out_pad, reinterpret_cast<R*>(L.act), p.m, first, true, tid);
     clk.tick(4);
   }
+  // the final layer, with all of x0's columns where latent_in names it
   const Layer& F = p.layers[p.n_layers - 1];
-  fw_final(F.wt, F.b, p.n_out, F.in_pad, s.act, s.red, p.y, p.m, first, tid);
+  fw_final(F.wt, F.b, p.n_out, F.in_pad, s.act, s.red, p.y, p.m, first, tid,
+           FwIn<float>{F.tail, p.x0 + first, F.has_x ? p.e : 0});
   clk.tick(5);
   clk.flush(tid);
 }
@@ -226,6 +230,11 @@ generic_train_bwd_chain_tc_kernel(const Plan p, int total, float scale) {
   ch_prefetch(act(H), F.in_pad, p.m, first, tid);
   ch_final(p.y, p.dy, F.dpre, F.w, p.n_out, F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid,
            F.dpre16);
+  bool stored = false;  // dx0 holds a layer's sums: later layers add to them
+  if (F.has_x) {  // a latent_in final layer: d(x0) over every column, the first term
+    ch_final_in(s.tc.oacc, F.tail, p.e, p.n_out, p.dx0, 1, p.m, true, p.m, first, tid);
+    stored = true;
+  }
   if (p.dx_last) {
     __syncthreads();
     ch_add_rows(buf, p.dx_last, p.xl_w, p.m, first, tid);
@@ -243,7 +252,6 @@ generic_train_bwd_chain_tc_kernel(const Plan p, int total, float scale) {
   float* dtail = p.dx0 + (size_t)p.h * p.m;
   float acc0[64], acc1[64];
   int slot = 0;
-  bool stored = false;  // dx0 holds a layer's sums: later layers add to them
   for (int l = last - 1; l >= 0; --l) {
     const Layer& L = p.layers[l];
     const int copies = head_copies(p, l);
@@ -342,11 +350,13 @@ static int parse(const long long* desc, int len, Plan* p, bool backward, bool bf
     if (l == 0 ? (L.w || !L.has_x || L.in_pad != 0)
                : (!L.w || L.in_pad != p->layers[l - 1].out_pad)) return -1;
     if (!hidden && !L.wt) return -1;
-    // the tail's rows exactly where the layer reads x0 and x0 has a tail
-    if (!L.tail != !(L.has_x && p->h < p->e)) return -1;
+    // the tail's rows exactly where a hidden layer reads x0 and x0 has a
+    // tail; a latent_in final layer's `tail` is all of X's e rows (its
+    // products run on the CUDA cores)
+    if (!L.tail != !(L.has_x && (!hidden || p->h < p->e))) return -1;
     if (hidden) {
       if (L.out_pad < TC_GROUP || L.out_pad % TC_GROUP || !L.act) return -1;
-    } else if (L.out_pad != p->n_out || L.has_x || L.dropout) {
+    } else if (L.out_pad != p->n_out || L.dropout) {
       return -1;
     }
     if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.has_x && !L.dx))) return -1;

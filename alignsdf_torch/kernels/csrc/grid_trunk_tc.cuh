@@ -542,9 +542,10 @@ __device__ void tc_consume(const float* __restrict__ prm, const TcPlan& plan, co
     }
     // only the first trunk carries class rows (the plan packs them there)
     tc_final_rows(prm, T, t == 0 ? plan.n_rows : TC_SDF_ROWS, plan.fin_b, s, out, first, m, tid);
-    // a final layer on the input rows (K6): restaged over the dead
-    // activation rows, the SDF rows a second time
-    for (int c0 = 0; Fill::kChunks && T.fin_lat >= 0 && c0 < plan.lat_pad; c0 += plan.rows) {
+    // a final layer on the input rows (K6's x0, K3's latent where latent_in
+    // names it): restaged over the dead activation rows, the SDF rows a
+    // second time (K3: one chunk, its rows hold the latent whole)
+    for (int c0 = 0; T.fin_lat >= 0 && c0 < plan.lat_pad; c0 += plan.rows) {
       const int count = min(plan.rows, plan.lat_pad - c0);
       fill(t, 0, c0, count, tid);
       __syncthreads();

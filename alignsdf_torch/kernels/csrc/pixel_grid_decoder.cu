@@ -211,10 +211,13 @@ static int pixel_grid_decoder_run(const float* prm, const TcPlan& plan, const Pi
   return (int)cudaGetLastError();
 }
 
-// desc: [n_trunks, fin_b, rows, c, lat_pad, hf, wf, n_rows, then per trunk:
-// n_hidden, fin, fin_xyz, last_pad, then per hidden layer: w, x, lat, b,
-// in_pad, out_pad] (offsets in floats, -1 = absent; w and lat = the weight
-// tiles of the layer's activation and latent rows, see grid_trunk_tc.cuh).
+// desc: [n_trunks, fin_b, rows, c, lat_pad, hf, wf, n_rows, fin_lat of
+// trunk 0 and of trunk 1, then per trunk: n_hidden, fin, fin_xyz, last_pad,
+// then per hidden layer: w, x, lat, b, in_pad, out_pad] (offsets in floats,
+// -1 = absent; w and lat = the weight tiles of the layer's activation and
+// latent rows, see grid_trunk_tc.cuh; fin_lat = a latent_in final layer's
+// (n_rows, lat_pad) latent weights, whose SDF rows read the latent gathered
+// a third time over the dead activation rows, as JAX's K3 reads `flat`).
 // table: (hf*wf + 1, c), the map's pixels row-major with channels
 // contiguous, then its mean.  scal: origin (3), voxel, then the 28
 // projection scalars.  bf16: the plan's tiles are bf16 (TcBf16) and the table
@@ -224,7 +227,7 @@ extern "C" int pixel_grid_decoder_launch(const float* prm, const int* desc, int 
                                          const float* table, const float* scal,
                                          long long base, int m, int n, float* out, int bf16,
                                          void* stream) {
-  if (desc_len < 8) return -1;
+  if (desc_len < 10) return -1;
   TcPlan plan;
   PixelMap map;
   plan.n_trunks = desc[0];
@@ -238,10 +241,15 @@ extern "C" int pixel_grid_decoder_launch(const float* prm, const int* desc, int 
   if (map.c < 1 || plan.lat_pad < map.c || map.hf < 1 || map.wf < 1) return -1;
   if (m <= 0 || n <= 0) return -1;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) {
-    if (!tc_take_plan<TcBf16>(plan, desc, desc_len, 8, true, TAP_BYTES)) return -1;
-    return pixel_grid_decoder_run<TcBf16>(prm, plan, map, table, scal, base, m, n, out, st);
+  if (bf16 ? !tc_take_plan<TcBf16>(plan, desc, desc_len, 10, true, TAP_BYTES)
+           : !tc_take_plan(plan, desc, desc_len, 10, true, TAP_BYTES))
+    return -1;
+  for (int t = 0; t < plan.n_trunks; ++t) {
+    // a latent_in final layer's (n_rows, lat_pad) latent weights, or -1
+    TcTrunk& T = plan.trunks[t];
+    T.fin_lat = desc[8 + t];
+    if (T.fin_lat >= 0 && (T.fin_lat & 3)) return -1;  // loaded as float4
   }
-  if (!tc_take_plan(plan, desc, desc_len, 8, true, TAP_BYTES)) return -1;
+  if (bf16) return pixel_grid_decoder_run<TcBf16>(prm, plan, map, table, scal, base, m, n, out, st);
   return pixel_grid_decoder_run<TcF32>(prm, plan, map, table, scal, base, m, n, out, st);
 }

@@ -307,10 +307,13 @@ pixel_train_fwd_tc_kernel(const PPlan p, int rows, int total, unsigned seed, uns
       fw_store(s.act, L.out_pad, reinterpret_cast<R*>(L.act), p.m, first, true, tid);
       clk.tick(4);
     }
-    // the final layer; its barriers free the buffer for the next trunk
+    // the final layer, with the latent (the residual this block stored) and
+    // the embedding where latent_in names it; its barriers free the buffer
+    // for the next trunk
     const PLayer& F = T.layers[T.n_layers - 1];
     fw_final(F.wt, F.b, T.n_out, F.in_pad, s.act, s.red, p.y + (size_t)T.row_off * p.m, p.m,
-             first, tid);
+             first, tid, FwIn<R>{F.lat, lat + first, F.lat ? p.c : 0},
+             FwIn<float>{F.x, p.emb + first, F.lat ? p.e : 0});
     clk.tick(5);
   }
   clk.flush(tid);
@@ -351,6 +354,12 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
     ch_prefetch(act(H), F.in_pad, p.m, first, tid);
     ch_final(p.y + (size_t)T.row_off * p.m, p.dy + (size_t)T.row_off * p.m, F.dpre, F.w, T.n_out,
              F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid, F.dpre16);
+    if (F.lat) {  // a latent_in final layer: dlat (all c_pad rows) and d(emb)
+      ch_final_in(s.tc.oacc, F.lat, p.c_pad, T.n_out, p.dlatent, 1, p.m, !dlat_stored, p.m,
+                  first, tid);
+      ch_final_in(s.tc.oacc, F.x, p.e, T.n_out, p.demb, p.e, 1, !demb_stored, p.m, first, tid);
+      dlat_stored = demb_stored = true;
+    }
     if (t == 0 && p.dx_last) {
       __syncthreads();
       ch_add_rows(buf, p.dx_last, p.xl_w, p.m, first, tid);
@@ -575,7 +584,7 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward, bool b
       if (!L.lat != !L.x) return -1;
       if (hidden) {
         if (L.out_pad < TC_GROUP || L.out_pad % TC_GROUP || !L.act) return -1;
-      } else if (L.out_pad != T.n_out || L.lat || L.dropout) {
+      } else if (L.out_pad != T.n_out || L.dropout) {  // a latent_in final layer: lat, x
         return -1;
       }
       if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.lat && (!L.dlat || !L.dx))))

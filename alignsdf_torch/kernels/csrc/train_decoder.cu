@@ -143,8 +143,12 @@ train_fwd_tc_kernel(const Plan p, int total, unsigned seed, unsigned thresh, flo
     fw_store(s.act, L.out_pad, reinterpret_cast<R*>(L.act), p.m, first, true, tid);
     clk.tick(4);
   }
+  // the final layer, with the embedding's columns and the scene table where
+  // latent_in names it
   const Layer& F = p.layers[p.n_layers - 1];
-  fw_final(F.wt, F.b, p.n_out, F.in_pad, s.act, s.red, p.y, p.m, first, tid);
+  fw_final(F.wt, F.b, p.n_out, F.in_pad, s.act, s.red, p.y, p.m, first, tid,
+           FwIn<float>{F.x, p.emb + first, F.x ? p.e : 0}, FwIn<float>{},
+           F.scene_bias ? p.nps : 0);
   clk.tick(5);
   clk.flush(tid);
 }
@@ -177,6 +181,11 @@ train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int tot
   ch_prefetch(act(H), F.in_pad, p.m, first, tid);
   ch_final(p.y, p.dy, F.dpre, F.w, p.n_out, F.in_pad, p.m, first, s.tc.oacc, s.red, buf, tid,
            F.dpre16);
+  bool demb_stored = false;
+  if (F.x) {  // a latent_in final layer: its d(emb), the chain's first
+    ch_final_in(s.tc.oacc, F.x, p.e, p.n_out, p.demb, p.e, 1, true, p.m, first, tid);
+    demb_stored = true;
+  }
   if (p.dx_last) {
     __syncthreads();
     ch_add_rows(buf, p.dx_last, p.xl_w, p.m, first, tid);
@@ -191,7 +200,6 @@ train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int tot
   // dpre_{l-1}; d(emb) from dpre_l where the layer reads the embedding
   float acc0[64], acc1[64];
   int slot = 0;
-  bool demb_stored = false;
   for (int l = last - 1; l >= 0; --l) {
     const Layer& L = p.layers[l];
     const int groups = l > 0 ? L.in_pad / TC_GROUP : 0;
@@ -279,7 +287,7 @@ static int parse(const long long* desc, int len, Plan* p, bool backward, bool bf
     if (hidden) {
       if (L.out_pad < TC_GROUP || L.out_pad % TC_GROUP || !L.act) return -1;
       if (L.out_pad > p->max_pad) p->max_pad = L.out_pad;
-    } else if (L.out_pad != p->n_out || L.x || L.scene_bias || L.dropout) {
+    } else if (L.out_pad != p->n_out || L.dropout) {  // a latent_in final layer: x, scene_bias
       return -1;
     }
     if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.x && !L.dx))) return -1;

@@ -9,7 +9,11 @@
 // gate = gate_hash(seed, layer, r, lane) < thresh ? s : 0 on dropout layers,
 // and writes a_l to device memory as the residual (out_pad, M) that the
 // backward reads (chain_tc.cuh's gates, wgrad_tc.cuh); the final layer
-// gives y = tanh(a_last W_last + b_last).
+// gives y = tanh(a_last W_last + b_last), plus, where latent_in names it,
+// the re-injected inputs' terms (fw_final's FwIn: K2's embedding and scene
+// bias row, K4's latent residual and embedding, K5's x0) on the CUDA cores,
+// their weights read through L1 and their rows from L2; no shared memory
+// beyond the trunk's.
 //
 // The design is the grid trunk's (grid_trunk_tc.cuh), for training.  A
 // block of TC_THREADS threads owns TC_P = 64 points.  Their activations stay
@@ -257,13 +261,49 @@ __device__ __forceinline__ void fw_load(float* buf, int row0, int rows, const T*
   }
 }
 
+// One value of a (rows, M) input at L2 (written by this kernel, K4's latent
+// residual, or read-only), float32 or bf16 (as a float: exact).
+__device__ __forceinline__ float fw_ld(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float fw_ld(const __nv_bfloat16* p) {
+  return __uint_as_float((unsigned)__ldcg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// An input that a latent_in final layer reads beside the last activation:
+// w (rows, n_out) on src (rows, M), src at the block's first point (K2's
+// and K4's embedding, K4's latent residual, K5's x0); rows 0 = none.
+template <class T = float>
+struct FwIn {
+  const float* w = nullptr;
+  const T* src = nullptr;
+  int rows = 0;
+};
+
+// Half of the rows of `in` (every other one from `half`) for output r at
+// the block's point p: sum of w[c][r] src[c][p].  Exact products in bf16
+// (both operands hold bf16 values), float32 sums.
+template <class T>
+__device__ __forceinline__ float fw_final_in(const FwIn<T>& in, int n_out, int r, int half,
+                                             int p, int m) {
+  float s = 0.f;
+  for (int c = half; c < in.rows; c += 2)
+    s = fmaf(__ldg(in.w + (size_t)c * n_out + r), fw_ld(in.src + (size_t)c * m + p), s);
+  return s;
+}
+
 // The final layer on the CUDA cores: y[r][first + p] = tanh(b[r] + sum_k
-// wt[r][k] a[k][p]) for r < n_out (<= 2), a = buffer rows [0, in_pad), wt
-// (n_out, in_pad); a thread takes a row, half of k and a point, red (256
-// floats) meets the halves.  Barriers before and after the write.
+// wt[r][k] a[k][p] + the inputs' terms) for r < n_out (<= 2), a = buffer
+// rows [0, in_pad), wt (n_out, in_pad); a thread takes a row, half of k
+// and a point, red (256 floats) meets the halves.  A latent_in final layer
+// (JAX's kernels re-inject at any layer: decoder_train_kernel.py:443-451,
+// :117-121; decoder_train_pixel.py) adds in0's and in1's terms, each
+// thread half of their rows, and with nps > 0 b is a per-scene (B, n_out)
+// table (K2's folded latent).  Barriers before and after the write.
+template <class T0 = float, class T1 = float>
 __device__ __forceinline__ void fw_final(const float* __restrict__ wt, const float* __restrict__ b,
                                          int n_out, int in_pad, const float* buf, float* red,
-                                         float* __restrict__ y, int m, int first, int tid) {
+                                         float* __restrict__ y, int m, int first, int tid,
+                                         const FwIn<T0>& in0 = {}, const FwIn<T1>& in1 = {},
+                                         int nps = 0) {
   const int r = tid >> 7, half = (tid >> 6) & 1, p = tid & (TC_P - 1);
   float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
   if (r < n_out) {
@@ -276,13 +316,21 @@ __device__ __forceinline__ void fw_final(const float* __restrict__ wt, const flo
       s2 = fmaf(w.z, buf[tc_swz(k + 2, p)], s2);
       s3 = fmaf(w.w, buf[tc_swz(k + 3, p)], s3);
     }
+    if (first + p < m) {  // the inputs' src start at the block's first point
+      s0 += fw_final_in(in0, n_out, r, half, p, m);
+      s1 += fw_final_in(in1, n_out, r, half, p, m);
+    }
   }
   red[tid] = (s0 + s1) + (s2 + s3);
   __syncthreads();
   if (tid < n_out * TC_P) {
     const int rr = tid / TC_P, pp = tid % TC_P;
     const float v = red[rr * 2 * TC_P + pp] + red[rr * 2 * TC_P + TC_P + pp];
-    if (first + pp < m) y[(size_t)rr * m + first + pp] = tanhf(v + __ldg(b + rr));
+    if (first + pp < m) {
+      const float bias = nps > 0 ? __ldg(b + (size_t)((first + pp) / nps) * n_out + rr)
+                                 : __ldg(b + rr);
+      y[(size_t)rr * m + first + pp] = tanhf(v + bias);
+    }
   }
   __syncthreads();
 }

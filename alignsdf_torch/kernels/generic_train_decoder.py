@@ -11,8 +11,12 @@ embedding] row, so layer ``l`` computes
 
 with X_0 layer 0's weight and X_l a latent_in layer's W_in, then ReLU and
 K2's hash dropout gate on hidden layers (global row, true lane), tanh on the
-last layer, which takes no re-injection.  That is K2's function with x0 in
-place of the embedding and no scene table, so the plain versions are K2's
+last layer.  Where ``latent_in`` names the last layer (JAX's ``_fwd_kernel``
+:117-121), its 1-2 rows read all of x0 on the CUDA cores: the forward adds
+x0 @ X_last over the head's and the tail's columns alike, the chain stores
+d(x0) = dpre_last X_last^T first, and the reductions give dX_last.  That
+is K2's function with x0 in place of the embedding and no scene table, so
+the plain versions are K2's
 (``train_decode_reference``, ``train_decode_backward_reference``) on
 statics whose ``scene_bias`` is all False.  The forward also gives
 ``x_last``, the last hidden layer's gated activation; the backward takes its
@@ -94,7 +98,8 @@ class _Packed(NamedTuple):
     x0_t: torch.Tensor                  # (e, M)
     w: List[Optional[torch.Tensor]]     # hidden (in_pad, out_pad); last (in_pad, n_out)
     wt: List[Optional[torch.Tensor]]    # the last layer's transpose of w (the forward's)
-    tail: List[Optional[torch.Tensor]]  # X's rows past the head (e - head, out_pad)
+    tail: List[Optional[torch.Tensor]]  # X's rows past the head (e - head, out_pad); all of
+    #                                     X (e, n_out) at a latent_in final layer
     b: List[torch.Tensor]               # (out_pad,)
     out_pads: List[int]
     has_x: List[bool]                   # the layer reads x0
@@ -116,8 +121,6 @@ def _check(x0, ws, xs, bs, st: TrainStatics) -> int:
         raise ValueError(f"the kernel takes 2-{MAX_LAYERS} layers, got {n_layers}")
     if ws[0] is not None or xs[0] is None or any(w is None for w in ws[1:]):
         raise ValueError("layer 0 reads only the input row; later layers their input")
-    if xs[-1] is not None:
-        raise ValueError("the last layer takes no re-injection of the input row")
     if xs[0].shape[0] not in (e, 2 * e) or any(x.shape[0] != e for x in xs[1:] if x is not None):
         raise ValueError("the input weights read the row's e columns (layer 0: once or twice)")
     if any(st.scene_bias) or any(b.dim() != 1 for b in bs):
@@ -153,7 +156,8 @@ def pack_generic_trunk(x0, ws, xs, bs, st: TrainStatics) -> _Packed:
     kernels, in ``st.dtype`` (bf16: x0 and the weights rounded, the biases
     not, and x0's bf16 copy): x0 feature-major, the head's forward and chain
     tiles, the tail's rows of X (of a stacked X_0, the sum of its rounded
-    weights); raises on what they do not take."""
+    weights; of a latent_in final layer, all of X); raises on what they do
+    not take."""
     n_out = _check(x0, ws, xs, bs, st)
     dt = st.dtype
     n_layers = len(bs)
@@ -173,13 +177,16 @@ def pack_generic_trunk(x0, ws, xs, bs, st: TrainStatics) -> _Packed:
                          f"{TC_MAX_OUT}")
     has_x = [x is not None for x in xs]
     twice = xs[0].shape[0] == 2 * e
-    h = head_width(e, [in_pads[layer] for layer in range(1, n_layers) if has_x[layer]], twice)
+    h = head_width(e, [in_pads[layer] for layer in range(1, n_layers - 1) if has_x[layer]], twice)
     h_pad = _round_up(h, TC_GROUP)
     parts = [None if x is None else [round_to(p, dt) for p in x.split(e)] for x in xs]
     heads = [[] if p is None or h == 0 else [_pad2(q[:h], h_pad, out_pad) for q in p]
              for p, out_pad in zip(parts, out_pads)]
     tail = [None if p is None or h == e else _pad2(sum(q[h:] for q in p), e - h, out_pad)
-            for p, out_pad in zip(parts, out_pads)]
+            for p, out_pad in zip(parts[:-1], out_pads)]
+    # a latent_in final layer reads all of x0 on the CUDA cores: its `tail`
+    # is X's e rows
+    tail.append(None if parts[-1] is None else _pad2(parts[-1][0], e, n_out))
     wt = [None] * (n_layers - 1) + [w[-1].T.contiguous()]
     tiles = [t for t in (layer_tiles(w[layer], *heads[layer], dtype=dt)
                          for layer in range(n_layers - 1)) if t is not None]

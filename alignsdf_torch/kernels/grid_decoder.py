@@ -303,7 +303,8 @@ def untile_weights(flat: torch.Tensor, k: int, out_pad: int,
 
 def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (),
                 n_rows: int = N_ROWS, pad: int = PAD, dtype: torch.dtype = torch.float32,
-                fin_x_dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, np.ndarray]:
+                fin_x_dtype: Optional[torch.dtype] = None,
+                fin_lat_at: Optional[int] = None) -> Tuple[torch.Tensor, np.ndarray]:
     """Pad and pack trunks (FoldedTrunk-like: ``hidden`` layers with
     ``w``/``b``, ``fin``, ``fin_x``, ``fin_b``, ``rows``) into one zeroed
     float32 buffer on their device, each array starting on an ALIGN
@@ -316,7 +317,10 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
     (k, len(rows)) lands as (n_rows, k): k is 3 xyz columns for K1 and K3,
     the input row padded to lat_pad for K6.  ``dtype`` rounds the final
     rows' weights ``fin`` (and ``fin_x``, unless ``fin_x_dtype`` says
-    otherwise), not their bias."""
+    otherwise), not their bias.  With ``fin_lat_at`` (K3), trunk t's
+    ``fin_lat`` (k, len(rows)), a latent_in final layer's latent weights,
+    lands as (n_rows, k) rounded to ``dtype``, its offset (-1 = none) at
+    desc[fin_lat_at + t], a slot of ``head``."""
     if not 1 <= len(trunks) <= _MAX_TRUNKS:
         raise ValueError(f"the kernel takes 1 or 2 trunks, got {len(trunks)}")
     pieces: List[Tuple[int, Tuple[int, ...], torch.Tensor]] = []
@@ -335,7 +339,7 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
         fin_b[list(t.rows)] += t.fin_b
     desc = [len(trunks), place((n_rows,), fin_b), 0, *head]
     max_pad = pad
-    for t in trunks:
+    for index, t in enumerate(trunks):
         if not 1 <= len(t.hidden) <= _MAX_HIDDEN or t.hidden[0].w is not None:
             raise ValueError("a trunk needs 1-8 hidden layers and a layer 0 whose "
                              "embedding input is folded")
@@ -353,6 +357,11 @@ def pack_trunks(trunks: Sequence, place_layer: Callable, head: Sequence[int] = (
             fx = torch.zeros(n_rows, t.fin_x.shape[0], dtype=torch.float32, device=device)
             fx[list(t.rows)] = round_to(t.fin_x.T.to(torch.float32), fin_x_dtype or dtype)
             fin_xyz = place(tuple(fx.shape), fx)
+        fin_lat = getattr(t, "fin_lat", None)
+        if fin_lat_at is not None and fin_lat is not None:
+            fl = torch.zeros(n_rows, fin_lat.shape[0], dtype=torch.float32, device=device)
+            fl[list(t.rows)] = round_to(fin_lat.T.to(torch.float32), dtype)
+            desc[fin_lat_at + index] = place(tuple(fl.shape), fl)
         desc += [len(t.hidden), place((n_rows, in_pad), fin), fin_xyz, in_pad]
         for layer in layers:
             desc += layer

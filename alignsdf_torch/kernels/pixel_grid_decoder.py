@@ -71,13 +71,14 @@ class PixelHiddenLayer(NamedTuple):
 class PixelTrunk(NamedTuple):
     """A trunk whose embedding is folded into xyz weights and biases and
     whose latent stays an input: hidden layers, then ``fin @ a + fin_x @
-    xyz + fin_b`` written to output ``rows``."""
+    xyz + fin_lat @ latent + fin_b`` written to output ``rows``."""
 
     hidden: List[PixelHiddenLayer]
     fin: torch.Tensor              # (last_in, len(rows)), columns in row order
     fin_x: Optional[torch.Tensor]  # (3, len(rows)) or None
     fin_b: torch.Tensor            # (len(rows),)
     rows: Sequence[int]
+    fin_lat: Optional[torch.Tensor] = None  # (C, len(rows)) of a latent_in final layer, or None
 
 
 @dataclass
@@ -86,9 +87,11 @@ class PixelGridPlan(GridPlan):
     feature table and the projection scalars.
 
     ``desc`` is the int32 layout descriptor ``pixel_grid_decoder.cu`` reads:
-    [n_trunks, fin_b, rows, C, lat_pad, Hf, Wf, n_rows, then per trunk
-    n_hidden, fin, fin_xyz, last_pad, then per hidden layer w, x, lat, b,
-    in_pad, out_pad] (offsets in floats, -1 = absent; rows = the
+    [n_trunks, fin_b, rows, C, lat_pad, Hf, Wf, n_rows, fin_lat of trunk 0
+    and of trunk 1, then per trunk n_hidden, fin, fin_xyz, last_pad, then
+    per hidden layer w, x, lat, b, in_pad, out_pad] (offsets in floats, -1
+    = absent; fin_lat the (n_rows, lat_pad) latent weights of a latent_in
+    final layer; rows = the
     activation buffer's, the widest layer output or input with its latent
     rows).  A layer's hidden weights (in_pad, out_pad) and latent weights
     (lat_pad, out_pad) are one run of ``tile_weights`` tiles, the latent's
@@ -100,7 +103,7 @@ class PixelGridPlan(GridPlan):
     table: torch.Tensor
     proj: torch.Tensor
 
-    _HEAD = 8
+    _HEAD = 10
     _LAYER = 6
 
     @property
@@ -130,6 +133,13 @@ class PixelGridPlan(GridPlan):
                                self.view(b, (out_pad,))))
             yield (hidden, self.view(fin, (n_rows, last_pad)),
                    self.view(fin_xyz, (n_rows, 3)) if fin_xyz >= 0 else None)
+
+    def fin_lats(self) -> List[Optional[torch.Tensor]]:
+        """Per trunk, the (n_rows, lat_pad) latent weights of its final layer
+        (a view), or None."""
+        d = self.desc.tolist()
+        return [self.view(off, (self.n_rows, d[4])) if off >= 0 else None
+                for off in d[8:8 + d[0]]]
 
 
 def make_pixel_projection(a_proj: torch.Tensor, b_proj: torch.Tensor, cam: torch.Tensor,
@@ -181,8 +191,15 @@ def pack_pixel_grid_plan(trunks: List[PixelTrunk], table: torch.Tensor, proj: to
         return place_tc_layer(place, h.w, h.lat, h.x, h.b, in_pad, out_pad, lat_pad, dtype,
                               xyz_dtype=torch.float32)
 
-    flat, desc = pack_trunks(trunks, layer, (c, lat_pad, hf, wf, n_rows), n_rows, TC_GROUP,
-                             dtype, fin_x_dtype=torch.float32)
+    def pad_lat(t: PixelTrunk) -> PixelTrunk:
+        if t.fin_lat is None:
+            return t
+        return t._replace(fin_lat=torch.cat([t.fin_lat, t.fin_lat.new_zeros(lat_pad - c,
+                                                                            len(t.rows))]))
+
+    flat, desc = pack_trunks([pad_lat(t) for t in trunks], layer,
+                             (c, lat_pad, hf, wf, n_rows, -1, -1), n_rows, TC_GROUP, dtype,
+                             fin_x_dtype=torch.float32, fin_lat_at=8)
     desc[2] = max(int(desc[2]), _round_up(rows, lat_align))
     device = flat.device
     table = round_to(table.to(device=device, dtype=torch.float32), dtype).contiguous()
@@ -229,7 +246,7 @@ def pixel_grid_decode_reference(plan: PixelGridPlan, base: int, m: int, origin: 
     if lat_pad > c:
         latent = torch.nn.functional.pad(latent, (0, lat_pad - c))
     acc = plan.fin_b[:, None].expand(plan.n_rows, m).clone()
-    for hidden, fin, fin_xyz in plan.trunks():
+    for (hidden, fin, fin_xyz), fin_lat in zip(plan.trunks(), plan.fin_lats()):
         a = None
         for w, lat, x, b in hidden:
             h = b[None, :]
@@ -243,6 +260,8 @@ def pixel_grid_decode_reference(plan: PixelGridPlan, base: int, m: int, origin: 
         acc = acc + fin @ a.T
         if fin_xyz is not None:
             acc = acc + fin_xyz @ xyz.T
+        if fin_lat is not None:
+            acc = acc + fin_lat @ latent.T
     return torch.cat([torch.tanh(acc[:N_ROWS]), acc[N_ROWS:]])
 
 

@@ -11,8 +11,12 @@ mean row where ``mask`` is 0; trunk ``t`` then computes, layer by layer,
 
     acc = a_{l-1} @ W_l (if W_l) + lat @ Lat_l + emb @ X_l (if Lat_l) + b_l
 
-with ReLU and the hash dropout gate (``train_decoder.dropout_gate``, layer
-``l + layer_offsets[t]``) on hidden layers and tanh on the last.  The
+(the last layer too where ``latent_in`` names it, as JAX's kernel takes it:
+on the card its rows stay on the CUDA cores, reading the latent residual
+and the embedding, and the chain adds dpre_last Lat_last^T into dlat before
+the tap stage rounds and scatters it) with ReLU and the hash dropout gate
+(``train_decoder.dropout_gate``, layer ``l + layer_offsets[t]``) on hidden
+layers and tanh on the last.  The
 outputs of the trunks stack as the rows of y.  The forward also gives
 ``x_last``, the first trunk's last hidden gated activation (the final
 layer's input, which the classifier head reads; JAX ``_fused_pixel_fwd``
@@ -302,8 +306,8 @@ def _check(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk], st: PixelTra
             raise ValueError("layer 0 reads only the latent and the embedding")
         if any((lat is None) != (x is None) for lat, x in zip(lats, xs)):
             raise ValueError("the latent and the embedding enter the same layers")
-        if lats[-1] is not None or not 1 <= bs[-1].shape[-1] <= MAX_OUT:
-            raise ValueError("the last layer reads no latent and has 1-2 outputs")
+        if not 1 <= bs[-1].shape[-1] <= MAX_OUT:
+            raise ValueError("the last layer has 1-2 outputs")
         for t in [*ws, *lats, *xs, *bs]:
             if t is not None and (t.dtype != torch.float32 or t.device != emb.device):
                 raise ValueError("every operand must be float32 on the embedding's device")

@@ -11,7 +11,12 @@ trunk reads only the point embedding.  Layer ``l`` computes
     acc = a_{l-1} @ W_l (if W_l) + emb @ X_l (if X_l) + b_l[scene(row)] or b_l
 
 then ReLU and the hash dropout gate on hidden layers, tanh on the last.
-Point ``row`` belongs to scene ``row // n_per_scene``.  The forward also
+Point ``row`` belongs to scene ``row // n_per_scene``.  The last layer too
+may read the embedding and a scene table, where ``latent_in`` names it (JAX's
+factored kernel re-injects at any layer, :443-451): on the card its 1-2
+rows stay on the CUDA cores, the forward adding emb @ X_last and the scene's
+bias row, the chain d(emb) += dpre_last X_last^T before any hidden layer's
+term, the reductions dX_last and the per-scene bias sums.  The forward also
 gives ``x_last``, the last hidden layer's gated activation (the final
 layer's input, which the classifier head reads), and the backward takes its
 gradient ``dx_last``, added to the final layer's input gradient before the
@@ -233,8 +238,6 @@ def _check(emb, ws, xs, bs, st: TrainStatics) -> Tuple[int, int]:
         raise ValueError(f"the kernel takes 2-{MAX_LAYERS} layers, got {n_layers}")
     if ws[0] is not None or xs[0] is None or any(w is None for w in ws[1:]):
         raise ValueError("layer 0 reads only the embedding; later layers their input")
-    if xs[-1] is not None or st.scene_bias[-1]:
-        raise ValueError("the last layer reads neither the embedding nor a scene bias")
     n_out = bs[-1].shape[-1]
     if not 1 <= n_out <= MAX_OUT or not 1 <= e <= EMB_MAX:
         raise ValueError(f"{n_out} outputs / {e} embedding columns are outside the kernel")

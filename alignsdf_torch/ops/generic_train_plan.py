@@ -70,16 +70,15 @@ def make_generic_train_decoder(specs: Specs, kernel: Callable = generic_train_de
     """decode(decoder, rows (M, latent + pfs), seed, train) -> (sdf_h (M,),
     sdf_o (M,), logits (M, C) or None) through K5, or None for a structure
     K5 does not take: the JAX factory's refusals (LayerNorm trunks,
-    ``use_tanh``, ``latent_dropout``, ``xyz_in_all``) and a latent input at
-    the final layer, which the port's train kernels do not re-inject.  The
+    ``use_tanh``, ``latent_dropout``, ``xyz_in_all``).  A latent input at the
+    final layer is taken, as JAX's ``_fwd_kernel`` takes it (:117-121).  The
     hand (or combined) trunk draws its dropout from ``seed``, the object
     trunk from ``seed + 1``.  ``kernel`` may name K5's plain version
     instead, to compare the two on the card.  ``decode.materialized`` is
     True: the train step feeds it ``decoder_inputs``."""
     ns = specs.network_specs
     n_layers = len(ns.dims) + 1
-    if (not ns.weight_norm or ns.use_tanh or ns.latent_dropout or ns.xyz_in_all
-            or n_layers - 1 in ns.latent_in):
+    if not ns.weight_norm or ns.use_tanh or ns.latent_dropout or ns.xyz_in_all:
         return None
     statics = TrainStatics(
         n_per_scene=1,

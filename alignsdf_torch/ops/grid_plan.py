@@ -124,14 +124,18 @@ def with_classifier(trunk, head: torch.nn.Module):
     """The trunk (a FoldedTrunk, or K3's PixelTrunk) with the classifier's
     logits cw a + cb appended as final rows 2.. on the same input a (the
     last hidden activation), their bias in ``fin_b``; they read no xyz or
-    input term (zero columns of ``fin_x``) and no latent."""
+    input term (zero columns of ``fin_x``) and no latent (zero columns of
+    K3's ``fin_lat``, where the final layer takes one)."""
     cw, cb = (t.to(torch.float32) for t in materialize_linear(head))
     c = cw.shape[0]
-    fin_x = (None if trunk.fin_x is None
-             else torch.cat([trunk.fin_x, trunk.fin_x.new_zeros(trunk.fin_x.shape[0], c)], dim=1))
-    return trunk._replace(fin=torch.cat([trunk.fin, cw.T], dim=1), fin_x=fin_x,
+
+    def widen(w):
+        return None if w is None else torch.cat([w, w.new_zeros(w.shape[0], c)], dim=1)
+
+    extra = {"fin_lat": widen(trunk.fin_lat)} if hasattr(trunk, "fin_lat") else {}
+    return trunk._replace(fin=torch.cat([trunk.fin, cw.T], dim=1), fin_x=widen(trunk.fin_x),
                           fin_b=torch.cat([trunk.fin_b, cb]),
-                          rows=[*trunk.rows, *range(2, 2 + c)])
+                          rows=[*trunk.rows, *range(2, 2 + c)], **extra)
 
 
 def make_grid_decode_fn(specs: Specs, n: int,

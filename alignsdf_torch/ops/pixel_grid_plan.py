@@ -74,10 +74,9 @@ def build_pixel_grid_branch_plan(
         hidden.append(PixelHiddenLayer(mm, lat, x, b))
         cur_dim = shapes[layer][1]
     last = hidden.pop()
-    if last.w is None or last.lat is not None:
-        raise ValueError("the fused pixel grid path needs a hidden layer and no latent "
-                         "input at the final layer")
-    return PixelTrunk(hidden, last.w, last.x, last.b, rows)
+    if last.w is None:
+        raise ValueError("the fused pixel grid path needs a hidden layer")
+    return PixelTrunk(hidden, last.w, last.x, last.b, rows, last.lat)
 
 
 def make_pixel_grid_decode_fn(specs: Specs, n: int, ref_projection: bool = False,
@@ -85,7 +84,9 @@ def make_pixel_grid_decode_fn(specs: Specs, n: int, ref_projection: bool = False
     """prepare(ctx) -> decode(base, m, origin, voxel) -> (2 + C, m) fields
     and logits (C = 0 without a classifier) for a pixel-aligned config, or
     None when it cannot use the fused path (not pixel-aligned, an embedding
-    not affine in xyz, a latent input at the final layer).
+    not affine in xyz).  A latent input at the final layer keeps its latent
+    weights as the trunk's ``fin_lat``, which K3's final rows read, as JAX's
+    plan carries them (``final_ops``' ``flat``, :961-966).
 
     ``ctx`` holds the decoder module, the (1, C, Hf, Wf) feature map as
     ``latent``, ``cam_intr`` (1, 3, 3+), ``pred_root`` (1, 1, 3) and, for
@@ -102,8 +103,7 @@ def make_pixel_grid_decode_fn(specs: Specs, n: int, ref_projection: bool = False
     """
     ns = specs.network_specs
     n_layers = len(ns.dims) + 1
-    if (not specs.pixel_align or not fused_embedding(specs)
-            or n_layers - 1 in ns.latent_in):
+    if not specs.pixel_align or not fused_embedding(specs):
         return None
     combined = specs.model_type == "1encoder1decoder"
     cols_h, cols_o = branch_columns(specs)

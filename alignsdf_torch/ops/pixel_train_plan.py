@@ -109,7 +109,8 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
     (B, 3, 3+), pred_root (B, 1, 3), seed, train) -> (sdf_h (M,), sdf_o
     (M,), logits (M, C) or None) through K4, or None for a structure K4
     does not take: the JAX factory's refusals less the TPU's block-size
-    rule, and a latent input at the final layer.
+    rule (0 in ``latent_in`` among them; a latent input at the final layer is
+    taken, as JAX's, :842-844).
     Both trunks draw their dropout from ``seed``, the object trunk hashing
     layer + n_layers.  ``kernel`` may name K4's plain version instead, to
     compare the two on the card.  ``decode.pixel`` is True: the train step
@@ -117,7 +118,7 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
     ns = specs.network_specs
     n_layers = len(ns.dims) + 1
     if (not specs.pixel_align or not ns.weight_norm or ns.use_tanh or ns.latent_dropout
-            or ns.xyz_in_all or 0 in ns.latent_in or n_layers - 1 in ns.latent_in):
+            or ns.xyz_in_all or 0 in ns.latent_in):
         return None
     x0 = tuple(layer == 0 or layer in ns.latent_in for layer in range(n_layers))
     statics = PixelTrainStatics(

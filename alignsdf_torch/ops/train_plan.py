@@ -11,6 +11,11 @@ PyTorch outside K2's autograd Function, so autograd carries the gradients of
     b0[s] = b_0 + latent[s] @ W_0[:ls]            (B, h) scene table
     b2[s] = b_2 + latent[s] @ W_2[cur:cur+ls]     for a latent_in layer
 
+The final layer folds the same way where ``latent_in`` names it (index
+``len(dims)``, as JAX's factored kernel re-injects at any layer,
+``decoder_train_kernel.py:443-451``): its scene table and embedding
+weights go to K2's final rows.
+
 With a classifier, K2 also gives the hand (or combined) trunk's x_last, and
 the logits x_last @ cw^T + cb are one torch.matmul outside the kernel, as
 the JAX package's ``classifier_apply`` (:854-859) is XLA outside its kernel.
@@ -96,15 +101,15 @@ def make_train_decoder(specs: Specs, kernel: Callable = train_decode) -> Optiona
     """decode(decoder, latent (B, ls), emb (M, pfs), seed, train) -> (sdf_h
     (M,), sdf_o (M,), logits (M, C) or None) through K2, or None for a
     structure K2 does not take (the same refusals as
-    ``make_fused_train_decoder_factored``, less the TPU's block-size rule, and
-    a latent input at the final layer, which K2 does not re-inject).  The
+    ``make_fused_train_decoder_factored``, less the TPU's block-size rule; a
+    latent input at the final layer is taken, as JAX's).  The
     hand trunk draws its dropout from ``seed``, the object trunk from ``seed
     + 1``.  ``kernel`` may name K2's plain
     version instead, to compare the two on the card.  The statics carry the
     spec's compute dtype, so that a bf16 spec runs K2's bf16 contract."""
     ns = specs.network_specs
     if (not ns.weight_norm or ns.use_tanh or ns.latent_dropout or ns.xyz_in_all
-            or specs.pixel_align or 0 in ns.latent_in or len(ns.dims) in ns.latent_in):
+            or specs.pixel_align or 0 in ns.latent_in):
         return None
     n_layers = len(ns.dims) + 1
     latent_in = tuple(layer in ns.latent_in for layer in range(n_layers))

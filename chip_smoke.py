@@ -3,8 +3,9 @@ flagship, --pa_feat, --cls and --pa_feat --cls, the generic decoders,
 training from an LMDB dataset with the stem pool through K7, the proof
 of learning scored by the evaluation, training and testing from the
 reference's per-file layout, and from an ASDF-pack and forked loader
-workers, bf16 serving, bf16 training through K2, K4 and K5) on one CUDA
-GPU and hold each hand-written kernel against its plain PyTorch version.
+workers, bf16 serving, bf16 training through K2, K4 and K5, a latent
+input at the final layer) on one CUDA GPU and hold each hand-written
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -275,7 +276,23 @@ Phases (each prints its own lines; any failure exits non-zero):
      image at 128^3); K4 bf16's and K5 bf16's forward and backward per step
      against their plain bf16 versions, the bf16 bounds and split TF32's,
      their chains by the profiler, their reductions alone beside
-     torch.matmul on bf16, and F.grid_sample on bf16 beside K4's.
+     torch.matmul on bf16, and F.grid_sample on bf16 beside K4's;
+ 22. a latent input at the final layer (NetworkSpecs latent_in naming
+     index len(dims)): the flagship with latent_in (2, 4) (K2 trains it, K1
+     serves it), with --pa_feat (K4, K3) and with (0, 2, 4) (K5, K1), each
+     routed as JAX's CLI routes it: the kernel against its plain version at
+     4 and 64 x 2000 points in float32 (y, x_last and every gradient within
+     1e-4, K2's and K5's also of float64's; the residuals) and at 64 x 2000
+     in bf16 (phases 20-21's bounds; K4's d(table) against the plain bf16
+     backward in float64, the kernel's and the plain version's beside),
+     the first trunk's backward with a random dx_last; each variant through
+     cli/train.make_trainer in bf16 and in float32 (7 steps, the kernel's
+     launches in the dtype's counters, 2 profiled steps), its grid kernel
+     on the trained weights over a 128^3 pass against its plain version in
+     the same dtype (K3's final rows reading the latent: timed beside its
+     bound and F.grid_sample), and the model served by cli.reconstruct at
+     128^3 in the same dtype; each kernel's forward and backward per step
+     in both dtypes beside the default spec's time and its bound.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -436,6 +453,11 @@ K5_BF16_FWD_KERNELS = ("generic_train_fwd_tc_kernel<TcBf16",)
 K5_BF16_BWD_KERNELS = ("generic_train_bwd_chain_tc_kernel<TcBf16", "wgrad_bf16_tc_kernel",
                        "colsum_kernel")
 SERVE_IMAGES = 1
+# phase 22, a latent input at the final layer: the flagship's NetworkSpecs
+# latent_in naming the final layer (index len(dims) = 4), and with layer 0
+# too; their kernels as the profiler names them are K2's, K4's and K5's
+FINAL_LATENT_IN = (2, 4)
+FINAL_LATENT_IN_0 = (0, 2, 4)
 
 
 
@@ -444,8 +466,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_STARTED = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's heading, with the seconds since the script started."""
+    print(f"== {name} [{time.perf_counter() - _STARTED:.1f} s]", flush=True)
 
 
 def card_line() -> str:
@@ -1761,6 +1787,13 @@ def k4_check(inputs, trunks, st, dev, gen, x_last: bool = False):
             res["grad_f64_max_rel_err"] = max(
                 float((g.double() - r).abs().max()) / (float(r.abs().max()) + 1e-30)
                 for g, r in zip(grads, ref64))
+            # which of the two d(table)s, the kernel's or the plain bf16
+            # backward's (both float32 sums), lies farther from that
+            # backward summed in float64
+            scale = float(ref64[0].abs().max()) + 1e-30
+            res["dtable_f64_rel_err"] = {
+                who: float((t.double() - ref64[0]).abs().max()) / scale
+                for who, t in (("kernel", grads[0]), ("plain", ref[0]))}
         res["grad_max_abs_err"] = res["grad_max_rel_err"] = 0.0
         res["sampling_grad_max_rel_err"], res["sampling_grad_share_tight"] = 0.0, 1.0
         for i, (g, r) in enumerate(zip(grads, ref)):
@@ -4863,12 +4896,13 @@ def k5_bf16_kernel() -> TrainKernel:
                                 bwd_kernels=K5_BF16_BWD_KERNELS, grad_rtol=BF16_GRAD_RTOL)
 
 
-def serve_bf16(specs, state, dev, card: str, label: str, gen) -> dict:
-    """A trained model served through cli.reconstruct.main with --bf16
-    (its ComputeDtype bfloat16 in specs.json): SERVE_IMAGES synthetic
-    images at CUBE_DIM^3, the grid's kernel (K3 for a pixel-aligned spec,
-    else K1) on its bf16 plan: its bf16 launches two passes an image in runs
-    of 2^20 points, none of its float32 kernel; each image's timings."""
+def serve_cli(specs, state, dev, card: str, label: str, gen, bf16: bool) -> dict:
+    """A trained model served through cli.reconstruct.main, with --bf16
+    where ``bf16`` (its ComputeDtype bfloat16 in specs.json): SERVE_IMAGES
+    synthetic images at CUBE_DIM^3, the grid's kernel (K3 for a
+    pixel-aligned spec, else K1) on its plan of that dtype: its launches
+    (the bf16 kernel's, or the float32 one's) two passes an image in runs
+    of 2^20 points, none of the other; each image's timings."""
     import numpy as np
     import torch
 
@@ -4889,24 +4923,27 @@ def serve_bf16(specs, state, dev, card: str, label: str, gen) -> dict:
         kernel.launches = kernel.bf16_launches = 0
         t0 = time.perf_counter()
         per_image = reconstruct_cli.main(["-e", exp, "--samples", path, "--cube_dim",
-                                          str(CUBE_DIM), "--device", dev.type, "--bf16"])
+                                          str(CUBE_DIM), "--device", dev.type]
+                                         + (["--bf16"] if bf16 else []))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         meshes = sorted(os.listdir(os.path.join(exp, "Eval_obman", "meshes"))) \
             if os.path.isdir(os.path.join(exp, "Eval_obman", "meshes")) else []
     want = SERVE_IMAGES * 2 * -(-CUBE_DIM ** 3 // (1 << 20))
-    launches, other = kernel.bf16_launches, kernel.launches
-    print(f"[{card}] {label} served by cli.reconstruct --bf16: {SERVE_IMAGES} image(s) at "
-          f"{CUBE_DIM}^3 in {wall:.2f} s, {kname} bf16 launches {launches} (expected {want}), "
-          f"float32 {other}; meshes written {meshes}", flush=True)
+    launches, other = ((kernel.bf16_launches, kernel.launches) if bf16
+                       else (kernel.launches, kernel.bf16_launches))
+    how, mine, theirs = ("--bf16", "bf16", "float32") if bf16 else ("", "float32", "bf16")
+    print(f"[{card}] {label} served by cli.reconstruct {how}: {SERVE_IMAGES} image(s) at "
+          f"{CUBE_DIM}^3 in {wall:.2f} s, {kname} {mine} launches {launches} (expected {want}), "
+          f"{theirs} {other}; meshes written {meshes}", flush=True)
     for t in per_image:
         print(f"  {t['key']}: " + ", ".join(f"{k[:-3]} {v:.1f}" for k, v in t.items()
                                             if k != "key") + " ms", flush=True)
     if launches != want or other != 0 or len(per_image) != SERVE_IMAGES:
-        fail(f"{label} --bf16 serving: {kname} bf16 launches {launches} != {want} (float32 "
+        fail(f"{label} {how} serving: {kname} {mine} launches {launches} != {want} ({theirs} "
              f"{other})")
     if not all(np.isfinite(v) for t in per_image for k, v in t.items() if k != "key"):
-        fail(f"{label} --bf16 serving: a non-finite timing {per_image}")
+        fail(f"{label} {how} serving: a non-finite timing {per_image}")
     return {"kernel": kname, "launches": launches, "wall_s": wall, "images": per_image,
             "meshes": meshes}
 
@@ -4973,7 +5010,7 @@ def bf16_pixel_generic_phase(dev, card: str, gen) -> Tuple[dict, list]:
             dt_label = f"{label} {key} ({how})"
             phase(f"training: {dt_label}, {WARM_STEPS} warm-up + {TIMED_STEPS} timed steps, "
                   f"{PROFILED_STEPS} profiled")
-            serve = ((lambda state, s=s, lb=label: serve_bf16(s, state, dev, card, lb, gen))
+            serve = ((lambda state, s=s, lb=label: serve_cli(s, state, dev, card, lb, gen, True))
                      if key == "bf16" else None)
             rec["train"][f"{label} {key}"] = bf16_train_run(s, dev, card, dt_label, k,
                                                             after=serve)
@@ -5024,6 +5061,301 @@ def bf16_pixel_generic_phase(dev, card: str, gen) -> Tuple[dict, list]:
                                     "step's points (the sampling step only)"} if lib else {}),
                 **({"trunk": FWD_SOURCE} if part == "fwd" else backward_entry(t)),
             })
+    return rec, entries
+
+
+def final_latent_specs(pixel: bool = False, zero: bool = False):
+    """The flagship (with --pa_feat where ``pixel``) whose NetworkSpecs
+    latent_in names the final layer: FINAL_LATENT_IN, or with ``zero``
+    FINAL_LATENT_IN_0 (layer 0 too, so that K5 trains it)."""
+    specs = flagship_specs(pixel=pixel)
+    return dataclasses.replace(specs, network_specs=dataclasses.replace(
+        specs.network_specs, latent_in=FINAL_LATENT_IN_0 if zero else FINAL_LATENT_IN))
+
+
+def final_latent_check(kname: str, model, sp, dev, gen, scenes: int) -> dict:
+    """The train kernel ``kname`` (K2, K4 or K5) of a final-latent spec
+    against its plain version (in the spec's dtype) at scenes x 2000
+    points, the first trunk's backward with a random dx_last: K2 on random
+    latents and embeddings, K4 on the HeadNet map and projection of a
+    synthetic batch, K5 on materialized rows."""
+    import torch
+
+    from alignsdf_torch.ops.generic_train_plan import make_generic_train_decoder
+    from alignsdf_torch.ops.train_plan import make_train_decoder
+
+    bf16 = sp.compute_dtype == "bfloat16"
+    if kname == "K4":
+        inputs, trunks, st, _ = k4_operands(model, sp, dev, scenes)
+        return k4_check(inputs, trunks, st, dev, gen, True)
+    if kname == "K2":
+        latent = (torch.randn(scenes, sp.latent_size, generator=gen) * 0.5).to(dev)
+        emb = (torch.randn(scenes * sp.samples_per_scene, sp.point_feat_size,
+                           generator=gen) * 0.5).to(dev)
+        return trunk_check(k2_bf16_kernel() if bf16 else k2_kernel(),
+                           k2_operands(model, sp, latent, emb),
+                           make_train_decoder(sp).statics, dev, gen, True)
+    return trunk_check(k5_bf16_kernel() if bf16 else k5_kernel(),
+                       k5_operands(model, sp, k5_rows(sp, dev, gen, scenes)),
+                       make_generic_train_decoder(sp).statics, dev, gen, True)
+
+
+def final_latent_verdict(kname: str, c: dict, label: str, bf16: bool) -> None:
+    """Fail unless a final-latent check holds the bounds of the kernel's
+    default spec: float32 y, x_last and every gradient within 1e-4 (K2, K5
+    also of float64's), the forward's residuals (forward_verdict), the kept
+    shares and the gating; bf16 phases 20-21's (K4's and K5's deep
+    residual share, K4's sampling gradients)."""
+    name = f"{kname} bf16" if bf16 else kname
+    if kname == "K4":
+        print(f"{name} latent vs plain {c['latent_max_abs_err']:.3e}; in-image share "
+              f"{c['in_image_share']:.4f}; worst gradients " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in sorted(c["grad_rel_err"].items(),
+                                                     key=lambda kv: -kv[1])[:4]), flush=True)
+        if not 0.0 < c["in_image_share"] < 1.0:
+            fail(f"the in-image share {c['in_image_share']} must lie strictly between 0 and 1")
+    if bf16:
+        k2_bf16_verdict(c, label, name, BF16_RESID_SHARE if kname == "K2"
+                        else BF16_RESID_SHARE_DEEP)
+        if kname == "K4":
+            print(f"{name} sampling gradients: {c['sampling_grad_share_tight']:.6f} within "
+                  f"{BF16_GRAD_RTOL:g} of the largest, max {c['sampling_grad_max_rel_err']:.3e} "
+                  f"(tolerance {BF16_SAMPLING_GRAD_RTOL:.3e}); d(table) against the plain bf16 "
+                  f"backward in float64: kernel {c['dtable_f64_rel_err']['kernel']:.3e}, plain "
+                  f"{c['dtable_f64_rel_err']['plain']:.3e} of the largest", flush=True)
+            if not (c["sampling_grad_share_tight"] >= BF16_SAMPLING_SHARE
+                    and c["sampling_grad_max_rel_err"] <= BF16_SAMPLING_GRAD_RTOL):
+                fail(f"{name}'s sampling gradients disagree with the plain bf16 backward {label}")
+        return
+    tol = K4_TOL if kname == "K4" else K2_TOL
+    print(f"{name} y max abs err {c['y_max_abs_err']:.3e}, x_last "
+          f"{c['x_last_max_abs_err']:.3e} (tolerance {tol:g}); {forward_text(c)}; gradients max "
+          f"err {c['grad_max_abs_err']:.3e} abs, {c['grad_max_rel_err']:.3e} of the largest"
+          + (f", {c['grad_f64_max_rel_err']:.3e} of float64's" if "grad_f64_max_rel_err" in c
+             else "") + f"; kept share {c['kept_share']}; residual sign mismatch "
+          f"{c['residual_sign_mismatch']:.2e}", flush=True)
+    if not (c["y_max_abs_err"] <= tol and c["x_last_max_abs_err"] <= tol
+            and c["grad_max_rel_err"] <= tol and c.get("grad_f64_max_rel_err", 0.0) <= tol):
+        fail(f"{name} disagrees with its plain version {label}")
+    forward_verdict(c, name, tol)
+    if len(c["kept_share"]) != 8 or not all(abs(v - 0.8) <= 0.01
+                                            for v in c["kept_share"].values()):
+        fail(f"kept shares off 0.8 +- 0.01 {label}: {c['kept_share']}")
+    if not c["residual_sign_mismatch"] <= 1e-4:
+        fail(f"{name}'s residuals are not gated as the plain version's {label}")
+
+
+def final_latent_grid(specs, state, dev, card: str, label: str, gen) -> dict:
+    """A trained final-latent model's grid kernel (K3 for the --pa_feat
+    spec: its final rows read the latent a third time; else K1, whose final
+    rows take the folded latent as a bias and fin_x) on the trained weights
+    in the spec's compute dtype: one 128^3 pass of a synthetic image against
+    its plain version (float32 within K1_TOL / K3_TOL, bf16
+    bf16_verdict's), K3's pass timed beside its plain version, its bound and
+    F.grid_sample.  Then the model served by cli.reconstruct (serve_cli)."""
+    import torch
+    import torch.nn.functional as F
+
+    from alignsdf_torch.inference.grid import _coords_from_linear
+    from alignsdf_torch.kernels.grid_decoder import grid_decode, grid_decode_reference
+    from alignsdf_torch.kernels.pixel_grid_decoder import (
+        pixel_grid_decode, pixel_grid_decode_reference, pixel_projection)
+    from alignsdf_torch.ops.grid_plan import make_grid_decode_fn
+    from alignsdf_torch.ops.pixel_grid_plan import make_pixel_grid_decode_fn
+
+    bf16 = specs.compute_dtype == "bfloat16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    pixel = specs.pixel_align
+    kname = "K3" if pixel else "K1"
+    kernel, plain = ((pixel_grid_decode, pixel_grid_decode_reference) if pixel
+                     else (grid_decode, grid_decode_reference))
+    n, total = CUBE_DIM, CUBE_DIM ** 3
+    origin = torch.full((3,), -1.0, device=dev)
+    voxel = torch.tensor(2.0 / (n - 1), device=dev)
+    state.model.eval()
+    with torch.no_grad():
+        ctx = scene_ctx(state.model, specs, synthetic_samples(gen, 1)[0], dev)
+        plan = (make_pixel_grid_decode_fn(specs, n, False, dtype) if pixel
+                else make_grid_decode_fn(specs, n, dtype))(ctx).plan
+    if pixel and any(f is None for f in plan.fin_lats()):
+        fail(f"{label}: K3's plan carries no final latent weights")
+    saved = kernel.launches, kernel.bf16_launches
+    out = fused_pass(kernel, plan, origin, voxel)
+    ref = fused_pass(plain, plan, origin, voxel)
+    rec = {"kernel": kname}
+    if bf16:
+        c = bf16_compare(out, ref)
+        bf16_verdict(f"{label}, {kname} on the trained weights at {n}^3", c)
+        rec.update(c)
+    else:
+        err = float((out - ref).abs().max())
+        tol = K3_TOL if pixel else K1_TOL
+        print(f"{label}: {kname} on the trained weights vs its plain version over a {n}^3 pass: "
+              f"max abs err {err:.3e} (tolerance {tol:g})", flush=True)
+        if not err <= tol:
+            fail(f"{label}: {kname} disagrees with its plain version on the trained weights")
+        rec["max_abs_err"] = err
+    if not bool(torch.isfinite(out).all()):
+        fail(f"{label}: {kname}'s field is not finite")
+    if pixel:
+        runs = [cuda_ms(lambda: fused_pass(kernel, plan, origin, voxel), 1) for _ in range(3)]
+        plain_ms = cuda_ms(lambda: fused_pass(plain, plan, origin, voxel), 1)
+        xyz_cam = (_coords_from_linear(torch.arange(total, device=dev), n, origin, voxel) * 2.0
+                   / specs.sdf_scale_factor + ctx["pred_root"][0])
+        hom = xyz_cam @ ctx["cam_intr"][0, :3, :3].T
+        uv = (hom[:, :2] / hom[:, 2:3] / specs.image_size[0] * 2.0 - 1.0)[None, None].to(dtype)
+        fm = ctx["latent"].to(dtype)
+        lib_ms = cuda_ms(lambda: F.grid_sample(fm, uv, mode="bicubic", align_corners=True,
+                                               padding_mode="zeros"), 3)
+        sampled = sum(int(pixel_projection(plan, s, min(1 << 20, total - s), origin, voxel)[3]
+                          .sum()) for s in range(0, total, 1 << 20))
+        flops = k3_flops(specs, total, sampled)
+        nbytes = 4 * (plan.flat.numel() + plan.table.numel() + 2 * total)
+        best = min(runs)
+        rec["timing"] = {"ms": best, "ms_runs": runs, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         **train_bounds(flops, nbytes, bf16), "tflop": flops / 1e12,
+                         "in_image_points": sampled, "tflops": flops / best / 1e9}
+        print(f"[{card}] {label}: K3{' bf16' if bf16 else ''} with the final latent per {n}^3 "
+              f"pass ({sampled} points in the image, {flops / 1e12:.3f} TFLOP): "
+              + " / ".join(f"{t:.2f}" for t in runs) + f" ms, plain {plain_ms:.2f} ms, "
+              f"{bounds_text(rec['timing'])}; F.grid_sample (sampling only) {lib_ms:.2f} ms",
+              flush=True)
+    kernel.launches, kernel.bf16_launches = saved
+    rec["served"] = serve_cli(specs, state, dev, card, label, gen, bf16)
+    return rec
+
+
+def final_latent_phase(dev, card: str, gen, defaults: dict) -> Tuple[dict, list]:
+    """Phase 22, a latent input at the final layer (see the module
+    docstring).  ``defaults`` holds the default specs' train timings (K2,
+    K4, K5 and their bf16, from the earlier phases), beside which each new
+    variant's are printed.  Returns (record, the kernels line's entries:
+    K2, K4 and K5 forward and backward and K3's pass, each in float32 and
+    bf16)."""
+    import torch
+
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.generic_train_plan import make_generic_train_decoder
+    from alignsdf_torch.ops.train_plan import make_train_decoder
+    from alignsdf_torch.training.train_step import make_train_step, train_decoder_kind
+
+    bf = lambda sp: dataclasses.replace(sp, compute_dtype="bfloat16")  # noqa: E731
+    variants = (("K2", f"latent_in {FINAL_LATENT_IN}", final_latent_specs(),
+                 k2_bf16_kernel(), k2_kernel()),
+                ("K4", f"--pa_feat latent_in {FINAL_LATENT_IN}", final_latent_specs(pixel=True),
+                 k4_bf16_kernel(), k4_kernel()),
+                ("K5", f"latent_in {FINAL_LATENT_IN_0}", final_latent_specs(zero=True),
+                 k5_bf16_kernel(), k5_kernel()))
+    rec = {"check": {}, "train": {}, "served": {}, "timing": {}}
+    for kname, label, sp, _, _ in variants:
+        for s in (sp, bf(sp)):
+            kind = train_decoder_kind(make_train_step(s).decode)
+            if f"({kname})" not in kind:
+                fail(f"{label} ({s.compute_dtype}) routed to {kind}, not {kname}")
+        model = build_model(sp, device=dev, seed=SEED)
+        for scenes, s in ((4, sp), (TRAIN_SCENES, sp), (TRAIN_SCENES, bf(sp))):
+            bf16 = s.compute_dtype == "bfloat16"
+            phase(f"final latent: {kname}{' bf16' if bf16 else ''} vs plain ({label}, {scenes} x "
+                  f"{s.samples_per_scene} points, both trunks, full width, nonzero dy and "
+                  "dx_last, TF32 off)")
+            c = final_latent_check(kname, model, s, dev, gen, scenes)
+            final_latent_verdict(kname, c, f"({label}, {scenes} scenes)", bf16)
+            rec["check"][f"{kname}{' bf16' if bf16 else ''}, {scenes}"] = c
+        del model
+
+    for kname, label, sp, kb, kf in variants:
+        for key, s, k in (("bf16", bf(sp), kb), ("float32", sp, kf)):
+            how = "cli.train --bf16's trainer" if key == "bf16" else "cli.train's trainer"
+            dt_label = f"{label} {key} ({how})"
+            phase(f"final latent training: {dt_label}, {WARM_STEPS} warm-up + {TIMED_STEPS} timed "
+                  f"steps, {PROFILED_STEPS} profiled; then its grid kernel on the trained weights "
+                  f"and cli.reconstruct at {CUBE_DIM}^3")
+            r = bf16_train_run(s, dev, card, dt_label, k,
+                               after=lambda state, s=s, lb=f"{label} {key}": final_latent_grid(
+                                   s, state, dev, card, lb, gen))
+            rec["served"][f"{label} {key}"] = r.pop("after")
+            rec["train"][f"{label} {key}"] = r
+
+    for kname, label, sp, kb, kf in variants:
+        for s, k in ((sp, kf), (bf(sp), kb)):
+            bf16 = s.compute_dtype == "bfloat16"
+            name = f"{kname} bf16" if bf16 else kname
+            phase(f"final latent timing: {name} forward and backward per step ({label}, "
+                  f"{TRAIN_SCENES} x {s.samples_per_scene} points, both trunks)")
+            model = build_model(s, device=dev, seed=SEED)
+            if kname == "K4":
+                inputs, trunks, st, (fmap, uv) = k4_operands(model, s, dev, TRAIN_SCENES)
+                t = k4_timing(inputs, trunks, st, fmap, uv, dev, gen, card)
+                del inputs, trunks, fmap, uv
+            elif kname == "K2":
+                latent = (torch.randn(TRAIN_SCENES, s.latent_size, generator=gen) * 0.5).to(dev)
+                emb = (torch.randn(TRAIN_SCENES * s.samples_per_scene, s.point_feat_size,
+                                   generator=gen) * 0.5).to(dev)
+                t = trunk_timing(k, k2_operands(model, s, latent, emb),
+                                 make_train_decoder(s).statics, dev, gen, card, False)
+            else:
+                t = trunk_timing(k, k5_operands(model, s, k5_rows(s, dev, gen, TRAIN_SCENES)),
+                                 make_generic_train_decoder(s).statics, dev, gen, card, False)
+            del model
+            base = defaults.get(name)
+            for part in ("fwd", "bwd"):
+                if base is not None:
+                    t[part]["default_spec_ms"] = base[part]["ms"]
+                print(f"[{card}] {name} {part} with the final latent ({label}): "
+                      f"{t[part]['ms']:.2f} ms against the default spec's "
+                      + (f"{base[part]['ms']:.2f} ms ({t[part]['ms'] / base[part]['ms']:.3f}x)"
+                         if base is not None else "(not measured)")
+                      + f", bound {t[part]['bound_ms']:.2f} ms "
+                      f"({t[part]['ms'] / t[part]['bound_ms']:.2f}x)", flush=True)
+            rec["timing"][name] = t
+
+    entries = []
+    lines = {"K2": ("alignsdf_tpu/ops/decoder_train_kernel.py:{}", (472, 652),
+                    "alignsdf_torch/kernels/csrc/train_decoder.cu", "scene-factored"),
+             "K4": ("alignsdf_tpu/ops/decoder_train_pixel.py:{}", (335, 647),
+                    "alignsdf_torch/kernels/csrc/pixel_train_decoder.cu", "pixel"),
+             "K5": ("alignsdf_tpu/ops/decoder_train_kernel.py:{}", (142, 286),
+                    "alignsdf_torch/kernels/csrc/generic_train_decoder.cu", "generic")}
+    for kname, label, sp, kb, kf in variants:
+        replaces, (lf, lb), source, what = lines[kname]
+        for bf16, k in ((False, kf), (True, kb)):
+            name = f"{kname} bf16" if bf16 else kname
+            key = f"{label} {'bf16' if bf16 else 'float32'}"
+            checks = [c for ck, c in rec["check"].items()
+                      if ck.startswith(name + ",")]
+            for part, line in (("fwd", lf), ("bwd", lb)):
+                t = rec["timing"][name][part]
+                err = max(max(c["y_max_abs_err"], c["x_last_max_abs_err"]) if part == "fwd"
+                          else c["grad_max_abs_err"] for c in checks)
+                entries.append({
+                    "name": f"{name} {what} train decoder with a final-layer latent input "
+                            f"({label}), {'forward' if part == 'fwd' else 'backward'}",
+                    "route": "cuda", "source": source, "replaces": replaces.format(line),
+                    "launches": rec["train"][key]["launches"][part], "max_abs_err": err,
+                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"],
+                    "library_ms": t["library_ms"] if kname == "K4" else None,
+                    **({"library_call": f"F.grid_sample bicubic{' on bf16' if bf16 else ''}, "
+                                        f"{'forward' if part == 'fwd' else 'backward'}, at the "
+                                        "step's points (the sampling step only)"}
+                       if kname == "K4" else {}),
+                    "default_spec_ms": t.get("default_spec_ms"),
+                    **({"trunk": FWD_SOURCE} if part == "fwd" else backward_entry(t)),
+                })
+    pix_label = variants[1][1]
+    for key in ("float32", "bf16"):
+        g = rec["served"][f"{pix_label} {key}"]
+        t = g["timing"]
+        entries.append({
+            "name": f"K3{' bf16' if key == 'bf16' else ''} fused pixel grid decoder with a "
+                    f"final-layer latent input ({pix_label}), per {CUBE_DIM}^3 pass",
+            "route": "cuda", "source": "alignsdf_torch/kernels/csrc/pixel_grid_decoder.cu",
+            "trunk": TC_TRUNK_SOURCE, "replaces": "alignsdf_tpu/ops/decoder_kernel.py:884",
+            "launches": g["served"]["launches"],
+            "max_abs_err": g["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_call": "F.grid_sample bicubic at the pass's points (the sampling step only)",
+        })
     return rec, entries
 
 
@@ -5240,6 +5572,10 @@ def main(record_path: Optional[str] = None) -> None:
     bt = record["bf16_train"]
     record["bf16_k4_k5"], bf16_k4k5_entries = bf16_pixel_generic_phase(dev, card, gen)
     b45 = record["bf16_k4_k5"]
+    record["final_latent"], final_latent_entries = final_latent_phase(dev, card, gen, {
+        "K2": record["k2_timing"], "K4": record["pixel_train"]["timing"],
+        "K5": record["generic_train"]["timing"], "K2 bf16": bt["timing"],
+        "K4 bf16": b45["k4_timing"], "K5 bf16": b45["k5_timing"]})
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
@@ -5400,6 +5736,9 @@ def main(record_path: Optional[str] = None) -> None:
                    for label in labels}
         e.update(launches=sum(by_path.values()), launches_by_path=by_path)
         kernels["kernels"].append(e)
+    # phase 22's: K2, K4, K5 and K3 with a final-layer latent input, float32
+    # and bf16, each launched by its variant's trainer (K3 by cli.reconstruct)
+    kernels["kernels"] += final_latent_entries
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -383,7 +383,7 @@ def _step_once(specs, state, step):
     return losses
 
 
-def test_training_refuses_bf16():
+def test_training_takes_bf16_on_k4_and_k5():
     """A bf16 spec whose train decoder is K4 or K5 no longer raises (the
     refusal this test held until their bf16 kernels were ported): from
     make_train_step and make_trainer it builds a step whose decoder is that
@@ -405,7 +405,7 @@ def test_training_refuses_bf16():
         assert f32.decode.statics.dtype == torch.float32
 
 
-def test_train_cli_refuses_bf16(tmp_path, capfd):
+def test_train_cli_takes_bf16_on_k4_and_k5(tmp_path, capfd):
     """cli.train --bf16 --smoke --device cpu on a K4 and a K5 spec (both
     float32 in their spec file) trains in bf16 through that kernel's plain
     bf16 version, where it raised until their bf16 kernels were ported: the

@@ -11,6 +11,8 @@ machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -1533,3 +1535,210 @@ def test_cuda_bf16_weight_grad_matches_float64(k, n, m):
     ref = a.double() @ b.double().T
     assert float((c.double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     assert torch.equal(weight_grad_reference(a.cpu(), b.cpu()), a.cpu().float() @ b.cpu().float().T)
+
+
+def _final_latent_grads_close(grads, ref, bf16: bool, sampling: int = 0) -> None:
+    """Every gradient against the plain backward fed the kernel's residuals:
+    float32 within 1e-4 of its largest entry, bf16 within 2e-3; a bf16
+    K4's first ``sampling`` (of the table, the mean, xp and yp) within 2e-3
+    at >= 99.9% of the entries and one bf16 step, 2^-7, of the largest
+    everywhere (test_cuda_bf16_pixel_train_kernel_matches_plain's bounds)."""
+    assert len(ref) == len(grads)
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        err = (g - r).abs() / (float(r.abs().max()) + 1e-12)
+        if not bf16:
+            assert float(err.max()) <= 1e-4, (i, float(err.max()))
+        elif i < sampling:
+            assert float((err <= 2e-3).float().mean()) >= 0.999
+            assert float(err.max()) <= 2.0 ** -7
+        else:
+            assert float(err.max()) <= 2e-3, (i, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel,latent_in", [("K2", (2, 4)), ("K5", (0, 2, 4))])
+def test_cuda_final_latent_trunk_kernels_match_plain(kernel, latent_in, dtype):
+    """K2 (latent_in (2, 4)) and K5 ((0, 2, 4)) with the final layer's
+    re-injection, at the flagship width on 4 x 2000 points, through the
+    autograd Function with a random dx_last on the hand trunk: y against
+    the plain forward (float32 1e-5 abs; bf16 ``_bf16_close``), every
+    gradient against the plain backward fed the kernel's residuals
+    (``_final_latent_grads_close``), the final layer's inject weights and
+    (K2) scene table among them; the dtype's launch counters move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(21)
+    scenes, n = 4, 2000
+    bf16 = dtype == "bfloat16"
+    specs = Specs(encode_style="both", point_feat_size=9, latent_size=256, samples_per_scene=n,
+                  classifier_branch=True, compute_dtype=dtype,
+                  network_specs=NetworkSpecs(latent_in=latent_in))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(21)
+        decoder = make_decoder(specs.model_type, 256, 9, "both", specs.network_specs,
+                               use_classifier=True).cuda()
+    latent = (torch.randn(scenes, 256, generator=gen) * 0.5).cuda()
+    emb = (torch.randn(scenes * n, 9, generator=gen) * 0.5).cuda()
+    if kernel == "K2":
+        st = make_train_decoder(specs).statics
+        fwd_fn, bwd_fn, plain, plain_bwd, pack, forward = (
+            train_decode, train_decode_backward, train_decode_reference,
+            train_decode_backward_reference, pack_trunk, train_decode_forward)
+        with torch.no_grad():
+            trunks = [(e, *trunk_operands(decoder, prefix, len(cols), latent, specs, 1))
+                      for prefix, cols, e in ((p, c, emb[:, list(c)].contiguous()) for p, c in
+                                              zip(trunk_prefixes(decoder),
+                                                  branch_columns(specs)))]
+        assert st.scene_bias[-1] and st.has_x[-1]
+    else:
+        st = make_generic_train_decoder(specs).statics
+        fwd_fn, bwd_fn, plain, plain_bwd, pack, forward = (
+            generic_train_decode, generic_train_decode_backward, generic_train_decode_reference,
+            generic_train_decode_backward_reference, pack_generic_trunk,
+            generic_train_decode_forward)
+        rows = torch.cat([latent.repeat_interleave(n, dim=0), emb], dim=1)
+        with torch.no_grad():
+            trunks = [(x0.contiguous(), *generic_trunk_operands(decoder, prefix, width, specs, 1))
+                      for prefix, width, x0 in zip(trunk_prefixes(decoder),
+                                                   trunk_input_widths(specs),
+                                                   separate_decoder_inputs(256, "both", rows))]
+        assert st.has_x[-1]
+    attr = "bf16_launches" if bf16 else "launches"
+    for i, (e, ws, xs, bs) in enumerate(trunks):
+        assert xs[-1] is not None
+        leaves = [t.detach().clone().requires_grad_() for t in [e, *flatten_params(ws, xs, bs)]]
+        counts = getattr(fwd_fn, attr), getattr(bwd_fn, attr)
+        y, xl = fwd_fn(leaves[0], *unflatten_params(st, leaves[1:]), 5 + i, st)
+        dy = torch.randn(y.shape, generator=gen).cuda()
+        dxl = torch.randn(xl.shape, generator=gen).cuda() if i == 0 else None
+        grads = (torch.autograd.grad(y, leaves, dy) if dxl is None
+                 else torch.autograd.grad((y, xl), leaves, (dy, dxl)))
+        torch.cuda.synchronize()
+        assert (getattr(fwd_fn, attr), getattr(bwd_fn, attr)) == (counts[0] + 1, counts[1] + 1)
+        with torch.no_grad():
+            y_ref, _ = plain(e, ws, xs, bs, 5 + i, st)
+            if bf16:
+                _bf16_close(y, y_ref)
+            else:
+                assert float((y - y_ref).abs().max()) <= 1e-5
+            y_k, acts = forward(pack(e, ws, xs, bs, st), 5 + i, st)
+            acts = [a[:b.shape[-1]].T.float() for a, b in zip(acts, bs)]
+            d_in, dws, dxs, dbs = plain_bwd(e, ws, xs, bs, st, y_k, acts, dy, dxl)
+        assert float(dxs[-1].abs().max()) > 0
+        _final_latent_grads_close(grads, [d_in, *flatten_params(dws, dxs, dbs)], bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_final_latent_pixel_train_kernel_matches_plain(dtype):
+    """K4 with latent_in (2, 4) at the --pa_feat flagship width (C = 256, a
+    64 x 64 map, 4 x 2000 points, part of them outside the image) through
+    the autograd Function with a random dx_last: y against the plain
+    forward (float32 1e-5 abs; bf16 ``_bf16_close``), every gradient (the
+    final layer's latent and embedding weights, d(table), d(mean), d(xp),
+    d(yp) among them) against the plain backward fed the kernel's
+    residuals; the dtype's launch counters move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(22)
+    c, hw, scenes, n = 256, (64, 64), 4, 2000
+    bf16 = dtype == "bfloat16"
+    specs = Specs(encode_style="both", point_feat_size=9, latent_size=c, pixel_align=True,
+                  samples_per_scene=n, sdf_scale_factor=7.0, image_size=(256, 256),
+                  classifier_branch=True, compute_dtype=dtype,
+                  network_specs=NetworkSpecs(latent_in=(2, 4)))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(22)
+        decoder = make_decoder(specs.model_type, c, 9, "both", specs.network_specs,
+                               use_classifier=True).cuda()
+    m = scenes * n
+    fmap = (torch.randn(scenes, c, *hw, generator=gen) * 0.5).cuda()
+    emb = (torch.randn(m, 9, generator=gen) * 0.5).cuda()
+    xyz = (torch.randn(m, 3, generator=gen) * 0.5).cuda()
+    cam = torch.tensor([[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]]).repeat(scenes, 1, 1)
+    root = torch.tensor([[[0.01, -0.02, 0.6]]]).repeat(scenes, 1, 1)
+    st = make_pixel_train_decoder(specs).statics._replace(feat_hw=hw)
+    assert st.has_x[-1]
+    with torch.no_grad():
+        table, mean, xp, yp, mask = pixel_train_inputs(fmap, xyz, cam.cuda(), root.cuda(), specs)
+        trunks = pixel_trunks(decoder, specs, c)
+    assert 0.0 < float(mask.mean()) < 1.0
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (table, mean, xp, yp, emb, *flatten_pixel_params(trunks))]
+    attr = "bf16_launches" if bf16 else "launches"
+    counts = getattr(pixel_train_decode, attr), getattr(pixel_train_decode_backward, attr)
+    y, xl = pixel_train_decode(*leaves[:4], mask, leaves[4],
+                               unflatten_pixel_params(st, leaves[5:]), 9, st)
+    dy = torch.randn(y.shape, generator=gen).cuda()
+    dxl = torch.randn(xl.shape, generator=gen).cuda()
+    grads = torch.autograd.grad((y, xl), leaves, (dy, dxl))
+    torch.cuda.synchronize()
+    assert (getattr(pixel_train_decode, attr),
+            getattr(pixel_train_decode_backward, attr)) == (counts[0] + 1, counts[1] + 1)
+    with torch.no_grad():
+        y_ref, _ = pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, 9, st)
+        if bf16:
+            _bf16_close(y, y_ref)
+        else:
+            assert float((y - y_ref).abs().max()) <= 1e-5
+        y_k, acts, lat = pixel_train_decode_forward(
+            pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st), 9, st)
+        acts = [[a[:b.shape[-1]].T.float() for a, b in zip(at, tr[3])]
+                for at, tr in zip(acts, trunks)]
+        dtable, dmean, dxp, dyp, demb, g_ref = pixel_train_decode_backward_reference(
+            table, mean, xp, yp, mask, emb, trunks, st, y_k, acts, lat[:c].T.float(), dy, dxl)
+    assert all(float(g[1][-1].abs().max()) > 0 for g in g_ref)  # dLat of the final layers
+    _final_latent_grads_close(grads, [dtable, dmean, dxp, dyp, demb,
+                                      *flatten_pixel_params(g_ref)], bf16, sampling=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_final_latent_k3_matches_plain(dtype):
+    """K3 on a --pa_feat plan with latent_in (2, 4), whose final rows read
+    the latent (fin_lat), with a classifier at C = 6 (head x40), over a 64^3
+    grid part of which projects outside the image: against its plain
+    version (float32 1e-4 abs; bf16 ``_bf16_close``, the logits to 5e-3 of
+    their largest); without the final latent term the field moves (the
+    term is live)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(23)
+    specs, ctx = _pixel_scene("1encoder2decoder", 6, 256, (64, 64), gen, 23)
+    specs = dataclasses.replace(specs, network_specs=dataclasses.replace(
+        specs.network_specs, latent_in=(2, 4)))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(23)
+        decoder = make_decoder(specs.model_type, 256, 9, "both", specs.network_specs,
+                               use_classifier=True).cuda()
+    with torch.no_grad():
+        decoder.classifier_head.weight *= 40
+    ctx["decoder"] = decoder
+    n = 64
+    dtype_t = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    plan = make_pixel_grid_decode_fn(specs, n, False, dtype_t)(ctx).plan
+    assert all(f is not None for f in plan.fin_lats())
+    origin, voxel = torch.full((3,), -1.0).cuda(), torch.tensor(2.0 / (n - 1)).cuda()
+    attr = "bf16_launches" if dtype == "bfloat16" else "launches"
+    before = getattr(pixel_grid_decode, attr)
+    out = pixel_grid_decode(plan, 0, n ** 3, origin, voxel)
+    torch.cuda.synchronize()
+    assert getattr(pixel_grid_decode, attr) == before + 1
+    ref = pixel_grid_decode_reference(plan, 0, n ** 3, origin, voxel)
+    share = float(pixel_projection(plan, 0, n ** 3, origin, voxel)[3].float().mean())
+    assert 0.0 < share < 1.0
+    if dtype == "bfloat16":  # test_cuda_bf16_grid_kernels_match_plain's bounds
+        _bf16_close(out[:2], ref[:2])
+        _bf16_close(out[2:], ref[2:], loose=5e-3)
+    else:
+        assert float((out - ref).abs().max()) <= 1e-4
+    bare = dataclasses.replace(plan, flat=plan.flat.clone())
+    for f in bare.fin_lats():
+        f.zero_()
+    assert float((pixel_grid_decode(bare, 0, n ** 3, origin, voxel)[:2] - out[:2]).abs().max()) \
+        > 1e-3

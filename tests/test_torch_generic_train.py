@@ -200,10 +200,11 @@ def test_k5_train_step_matches_jax():
     assert float(params["decoder.linh0.weight_v"].grad.abs().max()) > 0
 
 
-def test_route_takes_k5_exactly_for_a_latent_input_at_layer_0():
+def test_route_takes_k5_for_layer_0_and_k2_or_k4_for_the_last_layer():
     """0 in latent_in: K2 and K4 decline, the step runs K5, flat or
-    pixel-aligned; a latent input only at the last layer still has no train
-    kernel; the flagship keeps K2 and --pa_feat keeps K4."""
+    pixel-aligned; a latent input only at the last layer routes as JAX's
+    CLI routes it, to K2 (K4 pixel-aligned), though K5 takes it too; the
+    flagship keeps K2 and --pa_feat keeps K4."""
     base = Specs(encode_style="both", point_feat_size=9, mano_branch=True,
                  object_pose_branch=True, network_specs=NetworkSpecs())
     kinds = {}
@@ -214,7 +215,8 @@ def test_route_takes_k5_exactly_for_a_latent_input_at_layer_0():
     assert kinds == {"flat": "scene-factored (K2)", "flat (0, 2)": "materialized inputs (K5)",
                      "pixel": "pixel-aligned (K4)", "pixel (0, 2)": "materialized inputs (K5)"}
     last = dataclasses.replace(base, network_specs=NetworkSpecs(latent_in=(4,)))
-    with pytest.raises(NotImplementedError, match="no fused train kernel"):
-        make_train_step(last)
-    assert make_generic_train_decoder(last) is None
+    assert train_decoder_kind(make_train_step(last).decode) == "scene-factored (K2)"
+    pixel_last = dataclasses.replace(last, pixel_align=True)
+    assert train_decoder_kind(make_train_step(pixel_last).decode) == "pixel-aligned (K4)"
+    assert make_generic_train_decoder(last).statics.has_x[-1]
     assert generic_train_decode_backward.launches == 0

@@ -45,16 +45,16 @@ def _transforms(rng, count):
     return tf
 
 
-def _scene(style, pfs, model_type="1encoder2decoder", shift_n=None):
-    """Seeded decoder params, feature map, camera and transforms.  The
-    camera puts part of the grid outside the image.  With ``shift_n`` the
-    final biases are shifted so a fifth of a first pass at that size is
-    inside (the refinement is exercised)."""
+def _scene(style, pfs, model_type="1encoder2decoder", shift_n=None, ns=NS):
+    """Seeded decoder params (NetworkSpecs ``ns``), feature map, camera and
+    transforms.  The camera puts part of the grid outside the image.  With
+    ``shift_n`` the final biases are shifted so a fifth of a first pass at
+    that size is inside (the refinement is exercised)."""
     kw = dict(model_type=model_type, encode_style=style, point_feat_size=pfs,
               latent_size=C, mano_branch=True, object_pose_branch=True,
               sdf_scale_factor=7.018621123357809, pixel_align=True, image_size=(256, 256))
-    jspecs = JaxSpecs(network_specs=JaxNetworkSpecs(**NS), **kw)
-    pspecs = Specs(network_specs=NetworkSpecs(**NS), **kw)
+    jspecs = JaxSpecs(network_specs=JaxNetworkSpecs(**ns), **kw)
+    pspecs = Specs(network_specs=NetworkSpecs(**ns), **kw)
     rng = np.random.RandomState(11)
     combined = model_type == "1encoder1decoder"
     jdec = (JaxCombined if combined else JaxSeparate)(C, pfs, style, jspecs.network_specs)

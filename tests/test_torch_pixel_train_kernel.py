@@ -295,7 +295,8 @@ def test_object_trunk_gates_match_jax(seed):
 
 def test_statics_and_refusals():
     """K4's plan follows the flagship structure and declines what the kernel
-    does not take; a classifier spec takes it (x_last feeds the head); no
+    does not take (a latent input at the final layer it takes, as JAX's
+    kernel does); a classifier spec takes it (x_last feeds the head); no
     backward launch happened on the CPU."""
     specs = Specs(network_specs=NetworkSpecs(), **dict(SPEC, samples_per_scene=2000))
     st = make_pixel_train_decoder(specs).statics
@@ -304,10 +305,12 @@ def test_statics_and_refusals():
     assert abs(st.keep - 0.8) < 1e-12 and st.n_per_scene == 2000
     for kw in (dict(pixel_align=False),
                dict(network_specs=NetworkSpecs(latent_in=(0,))),
-               dict(network_specs=NetworkSpecs(latent_in=(4,))),
                dict(network_specs=NetworkSpecs(weight_norm=False))):
         assert make_pixel_train_decoder(Specs(**{**dict(SPEC, network_specs=NetworkSpecs()),
                                                  **kw})) is None
+    last = make_pixel_train_decoder(Specs(**dict(SPEC, network_specs=NetworkSpecs(
+        latent_in=(4,)))))
+    assert last.statics.has_x == (True, False, False, False, True)
     plain = make_pixel_train_decoder(Specs(**dict(SPEC, network_specs=NetworkSpecs(),
                                                   samples_per_scene=2000,
                                                   classifier_branch=False)))

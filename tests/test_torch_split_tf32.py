@@ -249,7 +249,7 @@ def test_pixel_grid_plan_views_give_back_the_folded_weights(classes, two_trunks,
     assert lat_pad == -(-c // 8) * 8 and plan.n_rows == 2 + classes
     assert int(plan.desc[2]) == max(512, 256 + lat_pad)
     d = plan.desc.tolist()
-    pos = 8
+    pos = plan._HEAD  # the head: 8 entries, then the final latent's 2 offsets
     for trunk, (hidden, fin, fin_xyz) in zip(trunks, plan.trunks()):
         pos += 4
         for h, (w, lat, x, b) in zip(trunk.hidden, hidden):

@@ -1,7 +1,7 @@
 """The port's training path against the JAX package on seeded numpy inputs:
 losses and masks, the LR schedule, Adam against optax, a 3-step trajectory
 of the whole train step (the factored Pallas decoder in interpret mode on
-the JAX side, K2's plain version on the port's), K2's refusal of a latent
+the JAX side, K2's plain version on the port's), K2's plan for a latent
 input at the last layer, the checkpoint round trip, the CLI's refusal to
 drop to the CPU and its float32 precision."""
 
@@ -231,15 +231,18 @@ def test_trajectory_parameters_match_jax(trajectories):
             assert float((d_port - d_jax).abs().max()) <= 1e-5, k
 
 
-def test_train_decoder_refuses_a_last_layer_latent_in():
+def test_train_decoder_takes_a_last_layer_latent_in():
     """K2 folds the latent into layer 0's and the latent_in layers' scene
-    tables and does not re-inject it at the final layer: a spec whose
-    latent_in names the last layer (index len(dims)) gets no K2 decoder, and
-    the train step refuses it by name; the layer before still takes K2."""
+    tables, the final layer's too, as JAX's factored kernel re-injects at
+    any layer: a spec whose latent_in names the last layer (index
+    len(dims)) gets a K2 decoder whose final layer reads a scene table and
+    the embedding, and the train step runs it; the layer before still takes
+    K2."""
     last = Specs(network_specs=NetworkSpecs(latent_in=(4,)))
-    assert make_train_decoder(last) is None
-    with pytest.raises(NotImplementedError, match="no fused train kernel"):
-        make_train_step(last)
+    decode = make_train_decoder(last)
+    assert decode is not None
+    assert decode.statics.scene_bias[-1] and decode.statics.has_x[-1]
+    assert make_train_step(last).decode.statics == decode.statics
     assert make_train_decoder(Specs(network_specs=NetworkSpecs(latent_in=(3,)))) is not None
 
 
