@@ -3,8 +3,8 @@ train.py:201-714).
 
 Usage:
     python -m alignsdf_torch.cli.train -e experiments/obman_30k.json \\
-        --mano --obj_pose --encode both --point_size 9 [--pa_feat | --cls] [--bf16] \\
-        [--add_epoch E] ((--data_root DIR | --packed PACK) [--loader_mode process] \\
+        --mano --obj_pose --encode both --point_size 9 [--pa_feat [--pixel_band] | --cls] \\
+        [--bf16] [--add_epoch E] ((--data_root DIR | --packed PACK) [--loader_mode process] \\
         [--continue NAME] [--skip_test | --test_split S --test_data_root T \\
         --test_cube_dim N] | --smoke | --steps N) [--device cuda] [--no_init_guard]
 
@@ -18,7 +18,13 @@ The flagship trains its twin trunks through kernel K2; with ``--pa_feat``
 (a latent sampled per point from the HeadNet map) through kernel K4; a spec
 whose NetworkSpecs put a latent input at layer 0 (``latent_in`` holding 0),
 which both decline, through kernel K5 on materialized [latent, embedding]
-rows.  The log names the decoder.  With ``--cls`` (the hand-part
+rows.  The log names the decoder.  ``--pixel_band`` (JAX's, off by
+default; with a pixel-aligned spec, else ignored and logged) gives K4 a
+band (``ops/pixel_train_plan.default_band``: the largest K4's tap stage
+holds up to half the map's rows, 32 at the flagship) on points the host
+sorts by feature row (``data/pixel_sort.py``): in the loader's workers,
+native pack batches included, on ``--smoke``'s batch and on each of
+``--steps``' batches.  With ``--cls`` (the hand-part
 classifier, e.g. on experiments/dexycb_140k.json) the kernel also gives the
 hand trunk's last hidden activation, whose logits feed the cross-entropy
 from AdditionalLossStart (``--add_epoch``) on.
@@ -75,9 +81,11 @@ from alignsdf_torch import resolve_device, use_float32_precision
 from alignsdf_torch.data import make_train_dataset
 from alignsdf_torch.data.dataset import ImagesDataset, to_train_batch
 from alignsdf_torch.data.loader import WORKER_MODES, DataLoader
+from alignsdf_torch.data.pixel_sort import pixel_row_sort_batch
 from alignsdf_torch.data.synthetic import synthetic_train_batch
 from alignsdf_torch.inference.reconstruct import (Reconstructor, load_mano_faces,
                                                    make_output_dirs, run_pipelined)
+from alignsdf_torch.ops.pixel_train_plan import default_band, make_pixel_train_decoder
 from alignsdf_torch.training import checkpoints as ckpt
 from alignsdf_torch.training.train_state import TrainState, learning_rate_for_epoch
 from alignsdf_torch.training.train_step import (
@@ -99,15 +107,30 @@ _NOT_RUN = ("no_aug", "bg_aug", "epoch", "lr_interval", "lr_factor")
 _TEST_FLAGS = ("skip_test", "test_split", "test_data_root", "test_cube_dim")
 
 
-def make_trainer(specs: cfg.Specs, device, seed: int = 0,
-                 init_guard: bool = True) -> Tuple[TrainState, Callable]:
+def row_sorter(specs: cfg.Specs) -> Callable:
+    """``--pixel_band``'s host sort of a numpy train batch: each scene's
+    points by approximate feature row at the GT hand root, on the HeadNet
+    map's image_size // 4 rows, as the JAX CLI keys it (``cli/train.py:
+    241-250``)."""
+    image = specs.image_size[0]
+    return lambda batch: pixel_row_sort_batch(batch, float(image), specs.sdf_scale_factor,
+                                              feat_rows=image // 4)
+
+
+def make_trainer(specs: cfg.Specs, device, seed: int = 0, init_guard: bool = True,
+                 pixel_band: bool = False) -> Tuple[TrainState, Callable]:
     """(state, step) for a fresh model on ``device``: the init guard
     re-draws the seeded init until its probe predictions sit inside the
     clamp band (unless ``init_guard`` is False); ``step(state, batch, seed)``
     is the spec's train step: through K4 for a pixel-aligned spec
     (``--pa_feat``), else K2, else K5 (``train_step.make_spec_train_decoder``;
-    ``step.decode`` is the decoder)."""
-    step = make_train_step(specs)
+    ``step.decode`` is the decoder).  ``pixel_band`` (a pixel-aligned spec
+    only): K4 with ``default_band`` on presorted points, whose batches
+    ``row_sorter`` must have sorted."""
+    decode = None
+    if pixel_band:
+        decode = make_pixel_train_decoder(specs, band=default_band(specs), presorted=True)
+    step = make_train_step(specs, decode)
     if init_guard and specs.clamping_distance:
         state, tries = healthy_init_train_state(specs, device, seed)
         if tries > 1:
@@ -120,12 +143,13 @@ def make_trainer(specs: cfg.Specs, device, seed: int = 0,
 
 
 def make_loader(specs: cfg.Specs, data_root: Optional[str], pack_path: Optional[str] = None,
-                worker_mode: str = "thread") -> DataLoader:
+                worker_mode: str = "thread", pixel_band: bool = False) -> DataLoader:
     """The epoch loop's loader: the TrainSplit's keys (every key of the
     dataset when TrainSplit is empty) of the pack ``pack_path`` where given,
     else of the spec's backend at ``data_root``, in batches of
     ScenesPerBatch scenes, uint8 images, DataLoaderThreads workers of
-    ``worker_mode``, seeded by RandomSeed."""
+    ``worker_mode``, seeded by RandomSeed; with ``pixel_band`` each batch,
+    a pack's native ones too, sorted by ``row_sorter`` in its worker."""
     split_keys = None
     if specs.train_split:
         with open(specs.train_split) as f:
@@ -136,7 +160,8 @@ def make_loader(specs: cfg.Specs, data_root: Optional[str], pack_path: Optional[
     return DataLoader(dataset, batch_size=specs.scenes_per_batch,
                       num_workers=specs.data_loader_threads, seed=specs.random_seed or 0,
                       to_batch=lambda stacked: to_train_batch(specs, stacked),
-                      worker_mode=worker_mode)
+                      worker_mode=worker_mode,
+                      post_batch=row_sorter(specs) if pixel_band else None)
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -164,6 +189,11 @@ def main(argv: Optional[list] = None) -> None:
                         help="steps on synthetic batches (default 1, without --data_root)")
     parser.add_argument("--no_init_guard", action="store_true",
                         help="skip the clamp dead-zone check of the fresh init")
+    parser.add_argument("--pixel_band", action="store_true",
+                        help="pixel-aligned specs: K4's banded backward tap stage on points "
+                             "the loader sorts by feature row (data/pixel_sort.py), with a band "
+                             "of the largest the tap stage holds up to half the map's rows (32 "
+                             "at 256x256 images and 256 channels); ignored for other specs")
     parser.add_argument("--skip_test", action="store_true",
                         help="skip the post-training test-split reconstruction "
                              "(reference train.py:653-668 runs it by default)")
@@ -204,18 +234,23 @@ def main(argv: Optional[list] = None) -> None:
     specs = cfg.apply_overrides(cfg.load_specs(args.cfg), args)
     seed = specs.random_seed or 0
     experiment_dir = os.path.join(args.output_root, specs.experiment_name())
+    if args.pixel_band and not specs.pixel_align:
+        logger.info("--pixel_band: the spec is not pixel-aligned (no --pa_feat); ignored")
+        args.pixel_band = False
     if args.data_root is not None or args.packed is not None:
         train_epochs(specs, args, device, experiment_dir)
         return
 
     state, step = make_trainer(specs, device, seed,
-                               init_guard=not (args.smoke or args.no_init_guard))
+                               init_guard=not (args.smoke or args.no_init_guard),
+                               pixel_band=args.pixel_band)
     logger.info("train decoder: %s", train_decoder_kind(step.decode))
     logger.info("compute dtype: %s", specs.compute_dtype)
     gen = torch.Generator().manual_seed(seed)
+    prepare = row_sorter(specs) if args.pixel_band else (lambda batch: batch)
 
     if args.smoke:
-        batch = batch_to_device(synthetic_train_batch(specs, batch_size=2), device)
+        batch = batch_to_device(prepare(synthetic_train_batch(specs, batch_size=2)), device)
         for i in range(2):
             losses = step(state, batch, draw_seed(gen))
             logger.info("smoke step %d: loss=%.5f", i, float(losses["total"]))
@@ -228,8 +263,8 @@ def main(argv: Optional[list] = None) -> None:
     with open(os.path.join(experiment_dir, "specs.json"), "w") as f:
         json.dump(cfg.specs_to_dict(specs), f, indent=2)
     for i in range(1 if args.steps is None else args.steps):
-        batch = batch_to_device(
-            synthetic_train_batch(specs, batch_size=specs.scenes_per_batch, seed=i), device)
+        batch = batch_to_device(prepare(
+            synthetic_train_batch(specs, batch_size=specs.scenes_per_batch, seed=i)), device)
         losses = step(state, batch, draw_seed(gen))
         logger.info("epoch %d step %d: %s", state.epoch, i + 1,
                     " ".join(f"{k}={float(v):.6f}" for k, v in sorted(losses.items())))
@@ -244,7 +279,8 @@ def train_epochs(specs: cfg.Specs, args, device, experiment_dir: str) -> None:
     resume = bool(specs.resume) and os.path.exists(specs.resume)
     fresh = not (resume or args.continue_from or ckpt.checkpoint_exists(experiment_dir))
     state, step = make_trainer(specs, device, seed,
-                               init_guard=fresh and not args.no_init_guard)
+                               init_guard=fresh and not args.no_init_guard,
+                               pixel_band=args.pixel_band)
     logger.info("train decoder: %s", train_decoder_kind(step.decode))
     logger.info("compute dtype: %s", specs.compute_dtype)
     os.makedirs(experiment_dir, exist_ok=True)
@@ -263,7 +299,8 @@ def train_epochs(specs: cfg.Specs, args, device, experiment_dir: str) -> None:
         start_epoch = saved_epoch + 1
         logger.info("resumed from %s of %s at epoch %d", name, source, saved_epoch)
 
-    loader = make_loader(specs, args.data_root, args.packed, args.loader_mode or "thread")
+    loader = make_loader(specs, args.data_root, args.packed, args.loader_mode or "thread",
+                         pixel_band=args.pixel_band)
     metrics = MetricsLogger(experiment_dir)
     gen = torch.Generator().manual_seed(seed)
     log_step = 0

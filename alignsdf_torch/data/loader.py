@@ -25,6 +25,14 @@ Every sample's augmentation is seeded by (loader seed, epoch, position in
 the epoch), as in the JAX package, so a run is reproducible for any worker
 count and mode and the two packages draw the same items.  Batches come out
 as numpy; ``training/train_step.py:batch_to_device`` moves them.
+
+``post_batch``, where given, maps every batch in its worker, whichever
+path built it: ``cli.train --pixel_band`` sorts each scene's points by
+feature row there (``data/pixel_sort.py``).  The JAX package's loader hands
+it only to the item path (its ``to_batch``), so there a pack's native
+batches (its default path, ``data/loader.py:106-110``, :148-153) reach its
+banded kernel unsorted and without ``point_is_hand``; here they are sorted
+too.
 """
 
 from __future__ import annotations
@@ -84,14 +92,15 @@ class DataLoader:
     batch where the dataset has it and it returns one (it is then already
     in ``to_batch``'s layout); otherwise ``dataset.__getitem__(i, seed=...)``
     builds each item and ``to_batch`` maps the collated items to a batch.
-    ``worker_mode`` is "thread" or "process" (forked children, one pool an
-    epoch)."""
+    ``post_batch`` then maps the batch from either path.  ``worker_mode`` is
+    "thread" or "process" (forked children, one pool an epoch)."""
 
     PREFETCH = 2
     POLL_S = 1.0  # the parent's wait on a child's pipe between liveness checks
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4, seed: int = 0,
-                 to_batch: Optional[Callable] = None, worker_mode: str = "thread"):
+                 to_batch: Optional[Callable] = None, worker_mode: str = "thread",
+                 post_batch: Optional[Callable] = None):
         if worker_mode not in WORKER_MODES:
             raise ValueError(f"worker_mode {worker_mode!r}: one of {WORKER_MODES}")
         self.dataset = dataset
@@ -99,6 +108,7 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.to_batch = to_batch
+        self.post_batch = post_batch
         self.worker_mode = worker_mode
         self.native_batches = callable(getattr(dataset, "build_batch", None))
         self._epoch = 0
@@ -121,6 +131,10 @@ class DataLoader:
         return mix & 0x7FFFFFFF
 
     def _build_batch(self, batch_idx: List[int], epoch: int, base_pos: int):
+        out = self._assemble(batch_idx, epoch, base_pos)
+        return self.post_batch(out) if self.post_batch is not None else out
+
+    def _assemble(self, batch_idx: List[int], epoch: int, base_pos: int):
         seeds = [self._sample_seed(epoch, base_pos + j) for j in range(len(batch_idx))]
         if self.native_batches:
             out = self.dataset.build_batch(batch_idx, seeds)

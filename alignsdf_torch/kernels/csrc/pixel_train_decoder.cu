@@ -4,8 +4,9 @@
 //
 // Replaces alignsdf_tpu/ops/decoder_train_pixel.py:fused_pixel_decoder, its
 // forward _fused_pixel_fwd (body _fwd_kernel) and its backward
-// _fused_pixel_bwd (body _bwd_kernel), in the unbanded contract (band=None,
-// presorted=False).  For each point (row r of M, scene r / nps):
+// _fused_pixel_bwd (body _bwd_kernel), unbanded and banded (band=..., the
+// windowed d(table) of _bwd_kernel :605-632).  For each point (row r of M,
+// scene r / nps):
 //   lat = bicubic sample of the scene's (HW, C) table at (xp, yp) (Keys,
 //         A = -0.75, zero padding: a tap off the map weighs 0) where mask
 //         is 1, else the scene's mean row;
@@ -59,6 +60,28 @@
 //  2. wgrad_tc_kernel / colsum_kernel (train_common.cuh) per layer: dW from the
 //     activations, dLat from the latent residual, dX from the embedding, db.
 // One call of pixel_train_bwd enqueues all of these on one stream.
+//
+// The band (JAX make_fused_train_decoder_pixel(band=...), PixelStatic.band
+// :103).  On the TPU a band cuts the dense contractions wxy^T fe and wxy dlat
+// to `band` rows of the table around a block's points (_weight_tile
+// :164-182, the forward's row window :248-253, the backward's :605-632),
+// chosen per call by a fits flag (:420-425, :755-757).  Here the forward
+// gathers only each point's 16 taps, so it has nothing to cut and stays as
+// it is.  The backward's tap stage has: its per-tap atomics collide where a
+// tile's points share map rows, which is what a batch sorted by row
+// (data/pixel_sort.py, or the plan's device sort) makes.  With `band` set,
+// each tile bounds the rows its in-image points' taps touch, per scene
+// segment of the tile (floor(yp) - 1 .. floor(yp) + 2, clamped; JAX's
+// per-block bounds :976-992 without the TPU's row alignment), and a
+// segment whose rows fit `band` from r0 = min(bottom, hf - band) sums its
+// d(table) in shared memory instead: a (band x wf) x BAND_CH window over the
+// ring and the buffer, free once the chain has ended, filled with shared
+// atomics a pass of BAND_CH channels, then each touched cell's channels
+// flushed with one global atomic each.  A segment that does not fit takes
+// the per-tap atomics (JAX's fits fallback, per segment instead of per
+// call).  d(mean), d(xp) and d(yp) are the same either way, and so are the
+// summed terms: round(wy wx) dlat in float32 (wy wx in float32).  A band the
+// shared memory cannot hold (band_rows_max) is refused.
 //
 // bf16 (the launchers' int `bf16`; the JAX kernel with cdtype bfloat16,
 // decoder_train_pixel.py:347-362, :149-182, :259-267, :464-487, :607-640):
@@ -124,6 +147,8 @@ struct PPlan {
   long long fwd_len;     // their floats
   const __nv_bfloat16* table16;  // bf16: the table (B, HW, C) as bf16, the taps' operand
   const __nv_bfloat16* emb16;    // bf16: the embedding (e, M) as bf16, dX's operand
+  int band;              // the backward's banded tap stage: its window's rows, 0 = none
+  int* tile_fit;         // band: per tile, its segments that took the window, or null
   PTrunk trunks[MAX_TRUNKS];
 };
 
@@ -324,6 +349,128 @@ pixel_train_fwd_tc_kernel(const PPlan p, int rows, int total, unsigned seed, uns
 // tile, the chain on the tensor cores
 // ---------------------------------------------------------------------------
 
+// The tap stage's shared floats at the buffer's end: dlat transposed to
+// [TC_P][c_pad + 1], then the tap table (tile_taps: 26 words a point).
+__host__ __device__ inline int tap_stage_floats(int c_pad) {
+  return (TC_P * (c_pad + 1) + 3) / 4 * 4 + 26 * TC_P;
+}
+
+#define BAND_CH 16              // channels a pass of the band's window holds
+#define BAND_SEG (4 * TC_P + 4)  // ints: each segment's lo, hi, r0, fit; the touched count
+#define BAND_LIST (16 * TC_P)    // ints: a segment's touched cells (16 taps a point at most)
+
+// The most rows the band's window takes on a wf-column map: from the ring's
+// start to the tap stage's floats go the segment scratch, the cell list,
+// band x wf touched flags and the band x wf x BAND_CH window.
+template <class Cfg>
+__host__ __device__ inline int band_rows_max(int wf, int c_pad) {
+  const long long room = (long long)Cfg::kSlots * Cfg::kTile + (long long)CH_ROWS * TC_P
+                         - tap_stage_floats(c_pad) - BAND_SEG - BAND_LIST;
+  return (int)(room / ((long long)wf * (BAND_CH + 1)));
+}
+
+// The band's bounds of each scene segment of the tile (segment k: the
+// tile's points of scene scn[0] + k), from its in-image points' rows:
+// lo / hi the least and largest floor(yp), r0 = min(max(lo - 1, 0), hf -
+// band), fit = 1 where the taps' rows up to min(hi + 2, hf - 1) lie below
+// r0 + band; fit = 0 for a segment with no point in the image (nothing to
+// scatter).  Ends with a barrier.
+__device__ void band_bounds(const PPlan& p, int first, int tid, const int* flag, const int* scn,
+                            int* seg) {
+  int *lo = seg, *hi = seg + TC_P, *r0 = seg + 2 * TC_P, *fit = seg + 3 * TC_P;
+  for (int k = tid; k < TC_P; k += TC_THREADS) {
+    lo[k] = 0x7fffffff;
+    hi[k] = -1;
+  }
+  __syncthreads();
+  if (tid < TC_P && first + tid < p.m && flag[tid]) {
+    const int y0 = (int)floorf(p.yp[first + tid]);
+    atomicMin(lo + scn[tid] - scn[0], y0);
+    atomicMax(hi + scn[tid] - scn[0], y0);
+  }
+  __syncthreads();
+  if (tid < TC_P) {
+    if (hi[tid] < lo[tid]) {
+      r0[tid] = 0;
+      fit[tid] = 0;
+    } else {
+      const int bot = max(lo[tid] - 1, 0), top = min(hi[tid] + 2, p.hf - 1);
+      r0[tid] = min(bot, p.hf - p.band);
+      fit[tid] = top < r0[tid] + p.band;
+    }
+  }
+  __syncthreads();
+}
+
+// d(table) of the tile's fitting segments through the window (see the
+// header): per segment, its taps' cells marked, listed and zeroed; per pass
+// of BAND_CH channels, each tap's round(wy wx) dlat added into its cell with
+// a shared atomic (one warp a point, its lanes over 32 / BAND_CH taps and
+// BAND_CH channels), then each listed cell's channels flushed to d(table)
+// with one global atomic and zeroed.  `room` is the ring's start.
+template <bool kBf16>
+__device__ void band_window(const PPlan& p, int first, int tid, const float* tw, const int* trc,
+                            const int* flag, const int* scn, const float* dlt, int ld, int* seg,
+                            float* room) {
+  const int *r0 = seg + 2 * TC_P, *fit = seg + 3 * TC_P;
+  int* count = seg + 4 * TC_P;
+  int* list = reinterpret_cast<int*>(room) + BAND_SEG;
+  int* touched = list + BAND_LIST;
+  const int cells = p.band * p.wf;
+  float* win = reinterpret_cast<float*>(touched + cells);  // [cells][BAND_CH]
+  const int live = min(TC_P, p.m - first);
+  const int n_seg = scn[live - 1] - scn[0] + 1;
+  const int warp = tid >> 5, lane = tid & 31, cl = lane % BAND_CH;
+  const size_t hw = (size_t)p.hf * p.wf;
+  for (int i = tid; i < cells; i += TC_THREADS) touched[i] = 0;
+  int taken = 0;
+  for (int k = 0; k < n_seg; ++k) {
+    if (!fit[k]) continue;
+    ++taken;
+    const int sc = scn[0] + k, base = r0[k] * p.wf;
+    if (tid == 0) *count = 0;
+    __syncthreads();  // the flags are clear, the count is 0
+    for (int i = tid; i < 16 * TC_P; i += TC_THREADS) {
+      const int q = i >> 4, t = i & 15;
+      if (q >= live || !flag[q] || scn[q] != sc) continue;
+      const int r = trc[q * 8 + (t >> 2)], col = trc[q * 8 + 4 + (t & 3)];
+      if (r >= 0 && col >= 0) touched[r - base + col] = 1;
+    }
+    __syncthreads();
+    for (int i = tid; i < cells; i += TC_THREADS)
+      if (touched[i]) list[atomicAdd(count, 1)] = i;
+    __syncthreads();
+    const int n = *count;
+    for (int i = tid; i < n * BAND_CH; i += TC_THREADS)
+      win[list[i / BAND_CH] * BAND_CH + i % BAND_CH] = 0.f;
+    __syncthreads();
+    for (int c0 = 0; c0 < p.c; c0 += BAND_CH) {
+      const int ch = c0 + cl;
+      for (int q = warp; q < live; q += TC_THREADS / 32) {
+        if (!flag[q] || scn[q] != sc) continue;
+        const float* wq = tw + q * 16;
+        const float d = ch < p.c ? dlt[q * ld + ch] : 0.f;
+        for (int t = lane / BAND_CH; t < 16; t += 32 / BAND_CH) {
+          const int r = trc[q * 8 + (t >> 2)], col = trc[q * 8 + 4 + (t & 3)];
+          if (r < 0 || col < 0) continue;
+          const float w = wq[t >> 2] * wq[4 + (t & 3)];
+          atomicAdd(win + (r - base + col) * BAND_CH + cl, (kBf16 ? tc_round_bf16(w) : w) * d);
+        }
+      }
+      __syncthreads();
+      for (int i = tid; i < n * BAND_CH; i += TC_THREADS) {
+        const int cell = list[i / BAND_CH], c = c0 + i % BAND_CH;
+        float* v = win + cell * BAND_CH + i % BAND_CH;
+        if (c < p.c) atomicAdd(p.dtable + ((size_t)sc * hw + base + cell) * p.c + c, *v);
+        *v = 0.f;
+      }
+      __syncthreads();
+    }
+    for (int i = tid; i < n; i += TC_THREADS) touched[list[i]] = 0;
+  }
+  if (p.tile_fit && tid == 0) p.tile_fit[first / TC_P] = taken;
+}
+
 // Cfg, R: as the forward's.
 template <class Cfg, class R>
 __global__ void __launch_bounds__(TC_THREADS, 1)
@@ -409,11 +556,13 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
     }
   }
 
-  // the sampling's gradients.  dlat transposed to [TC_P][c_pad + 1] in the
-  // buffer (rounded to bf16 in bf16), so that a warp reading one point's
-  // channels hits 32 banks; the tap table after it.
+  // the sampling's gradients (CH_PROBE 8 leaves them out).  dlat
+  // transposed to [TC_P][c_pad + 1] at the buffer's end (rounded to bf16 in
+  // bf16), so that a warp reading one point's channels hits 32 banks; the
+  // tap table after it.  The band's scratch and window start at the ring.
+  if (CH_PROBE & 8) return;
   const int ld = p.c_pad + 1;
-  float* dlt = buf;
+  float* dlt = buf + CH_ROWS * TC_P - tap_stage_floats(p.c_pad);
   float* tw = dlt + (TC_P * ld + 3) / 4 * 4;           // [TC_P][16]
   int* trc = reinterpret_cast<int*>(tw + 16 * TC_P);  // [TC_P][8]
   int* flag = trc + 8 * TC_P;
@@ -425,14 +574,21 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
     dlt[q * ld + c] = kBf16 ? tc_round_bf16(d) : d;
   }
   __syncthreads();
+  int* seg = reinterpret_cast<int*>(s.tc.ring);
+  if (p.band) {
+    tc_fence_proxy_async();  // the ring's tiles were the async proxy's
+    band_bounds(p, first, tid, flag, scn, seg);
+  }
 
-  // the taps: one warp a point, lanes over channels
+  // the taps: one warp a point, lanes over channels; d(table) with per-tap
+  // atomics where the point's segment does not take the band's window
   const int warp = tid >> 5;
   const size_t hw = (size_t)p.hf * p.wf;
   for (int q = warp; q < TC_P; q += TC_THREADS / 32) {
     const int row = first + q;
     if (row >= p.m) continue;
     float tdx = 0.f, tdy = 0.f;
+    const bool scatter = !p.band || !seg[3 * TC_P + scn[q] - scn[0]];
     if (flag[q]) {
       const float* wq = tw + q * 16;
       const size_t base = (size_t)scn[q] * hw;
@@ -449,7 +605,7 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
           for (int ch = lane; ch < p.c; ch += 32) {
             const float d = dlt[q * ld + ch];
             part = fmaf(kBf16 ? tab_ld(p.table16 + off + ch) : __ldg(p.table + off + ch), d, part);
-            atomicAdd(p.dtable + off + ch, wgt * d);
+            if (scatter) atomicAdd(p.dtable + off + ch, wgt * d);
           }
           tdx = fmaf(wq[i] * wq[12 + j], part, tdx);
           tdy = fmaf(wq[8 + i] * wq[4 + j], part, tdy);
@@ -466,6 +622,8 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
       p.dyp[row] = tdy;
     }
   }
+
+  if (p.band) band_window<kBf16>(p, first, tid, tw, trc, flag, scn, dlt, ld, seg, s.tc.ring);
 
   // the mean row: points outside the image, summed per scene over the tile
   for (int ch = tid; ch < p.c; ch += TC_THREADS) {
@@ -493,15 +651,17 @@ pixel_train_bwd_chain_tc_kernel(const PPlan p, int total, int split, float scale
 // host side
 // ---------------------------------------------------------------------------
 
-#define HEAD 32
+#define HEAD 34
 #define PER_TRUNK 4
 #define PER_LAYER 15
 
 // desc (int64): [n_trunks, e, m, nps, n_scenes, c, c_pad, hf, wf, emb, table,
 // mean, xp, yp, mask, lat, y, dy, demb, dtable, dmean, dxp, dyp, dx_last,
-// xl_w, dlatent, tiles, tiles_len, fwd, fwd_len, table16, emb16, then per
-// trunk: n_layers, n_out, row_off, layer_off, then per layer: w, wt, lat, x,
-// b, act, dpre, dw, dlat, dx, db, in_pad, out_pad, dropout, dpre16].
+// xl_w, dlatent, tiles, tiles_len, fwd, fwd_len, table16, emb16, band,
+// tile_fit, then per trunk: n_layers, n_out, row_off, layer_off, then per
+// layer: w, wt, lat, x, b, act, dpre, dw, dlat, dx, db, in_pad, out_pad,
+// dropout, dpre16].  band (0 = none) and tile_fit (int32 per tile, or 0)
+// only in a backward.
 // Pointers are device addresses, 0 = absent; wt only on the final layer;
 // table16 and emb16 only in bf16, where they are required, dpre16 only in a
 // bf16 backward, where it is.  dlatent (c_pad, M) is the backward's scratch;
@@ -545,7 +705,10 @@ static int parse(const long long* desc, int len, PPlan* p, bool backward, bool b
   p->fwd_len = desc[29];
   p->table16 = (const __nv_bfloat16*)desc[30];
   p->emb16 = (const __nv_bfloat16*)desc[31];
+  p->band = (int)desc[32];
+  p->tile_fit = (int*)desc[33];
   if (bf16 && (!p->table16 || !p->emb16)) return -1;
+  if (p->band < 0 || p->band > p->hf || ((p->band || p->tile_fit) && !backward)) return -1;
   if (p->n_trunks < 1 || p->n_trunks > MAX_TRUNKS || p->e < 1 || p->e > EMB_MAX) return -1;
   if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes)
     return -1;
@@ -674,8 +837,10 @@ static int launch_bwd(const PPlan& p, float scale, cudaStream_t s) {
   }
   if (p.n_trunks == 1) split = total;
   if (p.tiles_len != (long long)total * Cfg::kTile || !p.tiles) return -1;
-  // the tap stage's transposed dlat and tap table fit the buffer
-  if ((TC_P * (p.c_pad + 1) + 3) / 4 * 4 + 26 * TC_P > CH_ROWS * TC_P) return -1;
+  // the tap stage's transposed dlat and tap table fit the buffer, and the
+  // band's window the room before them
+  if (tap_stage_floats(p.c_pad) > CH_ROWS * TC_P) return -1;
+  if (p.band > band_rows_max<Cfg>(p.wf, p.c_pad)) return -1;
   const size_t smem = ch_smem_bytes<Cfg>();
   cudaError_t err = cudaFuncSetAttribute(pixel_train_bwd_chain_tc_kernel<Cfg, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -715,6 +880,11 @@ static int launch_bwd(const PPlan& p, float scale, cudaStream_t s) {
     }
   }
   return 0;
+}
+
+// The largest band the backward's tap stage holds (band_rows_max).
+extern "C" int pixel_train_band_rows_max(int wf, int c_pad, int bf16) {
+  return bf16 ? band_rows_max<TcBf16>(wf, c_pad) : band_rows_max<TcF32>(wf, c_pad);
 }
 
 // d(table), d(mean), every dw / dlat / dx and db must hold zeros on entry.

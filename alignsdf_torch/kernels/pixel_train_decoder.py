@@ -5,7 +5,8 @@ plain PyTorch version and the wrappers that launch the CUDA kernels
 
 Replaces ``alignsdf_tpu/ops/decoder_train_pixel.py:fused_pixel_decoder``
 (forward ``_fused_pixel_fwd`` / ``_fwd_kernel``, backward
-``_fused_pixel_bwd`` / ``_bwd_kernel``), unbanded.  Each point's latent is
+``_fused_pixel_bwd`` / ``_bwd_kernel``), unbanded and banded
+(``PixelTrainStatics.band``, JAX's ``PixelStatic.band``).  Each point's latent is
 the bicubic sample of its scene's (HW, C) table at (xp, yp), or the scene's
 mean row where ``mask`` is 0; trunk ``t`` then computes, layer by layer,
 
@@ -52,6 +53,17 @@ layer's [W; Lat] tiles, the backward's chain their transposes
 float32 forward launches and ``pixel_train_decode_backward.launches``
 backward launches: one each per train step, both trunks together;
 ``.bf16_launches`` counts the bf16 kernels' apart.
+
+The band changes only how the backward's tap stage sums d(table) on the
+card (``csrc/pixel_train_decoder.cu``'s header): with ``st.band`` rows, each
+64-point tile's scene segments whose taps' rows fit the band
+(``tile_band_bounds``, the plain version of the kernel's bounds) sum their
+d(table) in a shared-memory window and flush each touched entry once; the
+others scatter each tap with a global atomic, as the unbanded kernel does.
+The function computed is the same (the plain backward is both routes'
+plain version); a band the window cannot hold (``band_rows_max``) raises.
+A banded backward counts in ``pixel_train_decode_backward.band_launches``
+(``.band_bf16_launches`` in bf16) instead of ``.launches``.
 """
 
 from __future__ import annotations
@@ -81,10 +93,18 @@ EMB_MAX = 64      # embedding columns the kernels read
 MAX_LAYERS = 8
 MAX_TRUNKS = 2
 MAX_OUT = 2       # outputs of a trunk's last layer
+TILE = 64        # points a block of the backward chain
 # the backward chain's tap stage holds a 64-point tile's (64, c_pad + 1)
-# latent gradient and its tap table (26 words a point) in the chain's
-# (TC_MAX_OUT, 64) buffer
-MAX_C_PAD = max(c for c in range(PAD, 2048, PAD) if 64 * (c + 1) + 26 * 64 <= TC_MAX_OUT * 64)
+# latent gradient and its tap table (26 words a point) at the end of the
+# chain's (TC_MAX_OUT, 64) buffer (tap_stage_floats in the .cu)
+_tap_stage_floats = lambda c_pad: (TILE * (c_pad + 1) + 3) // 4 * 4 + 26 * TILE  # noqa: E731
+MAX_C_PAD = max(c for c in range(PAD, 2048, PAD) if _tap_stage_floats(c) <= TC_MAX_OUT * TILE)
+# the band's window (band_rows_max in the .cu): from the ring's start (11
+# slots of 2 x 1024 floats, or 22 of 1024 in bf16) to the tap stage's floats
+# go 4 x 64 + 4 ints of segment bounds, a list of 16 x 64 cells, and per row
+# of the band wf touched flags and wf x BAND_CH window floats
+BAND_CH = 16
+_BAND_ROOM = 22528 + TC_MAX_OUT * TILE - (4 * TILE + 4) - 16 * TILE
 
 # one trunk's operands: ws[l] (in, out) or None, lats[l] (C, out) or None,
 # xs[l] (e, out) or None (present where lats[l] is), bs[l] (out,)
@@ -105,6 +125,56 @@ class PixelTrainStatics(NamedTuple):
     train: bool
     layer_offsets: Tuple[int, ...]  # per trunk, added to the layer in the gate's hash
     dtype: torch.dtype = torch.float32  # the compute dtype: float32 or bfloat16
+    band: Optional[int] = None    # the backward's banded tap stage: its window's rows
+
+
+def band_rows_max(wf: int, c: int) -> int:
+    """The most rows of a ``wf``-column map the backward's band window holds
+    beside a ``c``-channel latent's tap stage (either dtype)."""
+    return (_BAND_ROOM - _tap_stage_floats(_round_up(c, PAD))) // (wf * (BAND_CH + 1))
+
+
+def check_band(st: PixelTrainStatics, c: int) -> None:
+    """Raise where ``st.band`` is not a band the kernel takes: an int from
+    1 to the map's rows and to ``band_rows_max`` (never clamped)."""
+    band = st.band
+    if band is None:
+        return
+    hf, wf = st.feat_hw
+    if not isinstance(band, int) or isinstance(band, bool) or not 1 <= band <= hf:
+        raise ValueError(f"band {band!r}: an int from 1 to the map's {hf} rows")
+    most = band_rows_max(wf, c)
+    if band > most:
+        raise ValueError(f"band {band}: the tap stage's shared memory holds at most {most} rows "
+                         f"of a {wf}-column map beside a {c}-channel latent")
+
+
+def tile_band_bounds(yp: torch.Tensor, mask: torch.Tensor, n_per_scene: int, hf: int,
+                     band: int) -> Tuple[torch.Tensor, ...]:
+    """The plain version of the banded tap stage's bounds: for each scene
+    segment of each 64-point tile (the tile's points of one scene), (tile,
+    scene, r0, fits, live), each (S,).  live: the segment has a point in
+    the image (mask 1); its rows run from lo = the least floor(yp) of those
+    points to hi = the largest, r0 = min(max(lo - 1, 0), hf - band), and it
+    fits where min(hi + 2, hf - 1) < r0 + band (JAX's per-block bounds,
+    ``decoder_train_pixel.py:976-992``, without the TPU's row alignment).
+    A segment that is not live has r0 0 and does not fit."""
+    m = yp.shape[0]
+    rows = torch.arange(m, device=yp.device)
+    key = (rows // TILE) * (m // n_per_scene + 1) + rows // n_per_scene
+    seg, inv = torch.unique_consecutive(key, return_inverse=True)
+    big = torch.iinfo(torch.int64).max
+    y0 = torch.floor(yp).to(torch.int64)
+    inside = mask > 0
+    lo = torch.full((len(seg),), big, dtype=torch.int64, device=yp.device).scatter_reduce(
+        0, inv, torch.where(inside, y0, big), "amin")
+    hi = torch.full((len(seg),), -1, dtype=torch.int64, device=yp.device).scatter_reduce(
+        0, inv, torch.where(inside, y0, -1), "amax")
+    live = hi >= lo
+    r0 = torch.where(live, torch.clamp(torch.clamp(lo - 1, min=0), max=hf - band), 0)
+    fits = live & (torch.clamp(hi + 2, max=hf - 1) < r0 + band)
+    first = torch.zeros_like(seg).scatter_reduce(0, inv, rows, "amin", include_self=False)
+    return first // TILE, first // n_per_scene, r0, fits, live
 
 
 def sample_latent(table: torch.Tensor, mean: torch.Tensor, xp: torch.Tensor, yp: torch.Tensor,
@@ -365,9 +435,9 @@ def pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks: Sequence[Trunk],
 
 def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=None,
                 dtable=None, dmean=None, dxp=None, dyp=None, dpre=None, grads=None,
-                dx_last=None, dlatent=None, dpre16=None) -> np.ndarray:
+                dx_last=None, dlatent=None, dpre16=None, tile_fit=None) -> np.ndarray:
     """The int64 descriptor ``pixel_train_decoder.cu`` parses (see its host
-    side)."""
+    side); the band only in a backward's."""
     e, m = p.emb_t.shape
     b, _, c = p.table.shape
     hf, wf = st.feat_hw
@@ -376,7 +446,8 @@ def _descriptor(p: _Packed, st: PixelTrainStatics, y, acts, lat, dy=None, demb=N
             _ptr(lat), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dtable), _ptr(dmean), _ptr(dxp),
             _ptr(dyp), _ptr(dx_last), 0 if dx_last is None else dx_last.shape[1],
             _ptr(dlatent), _ptr(p.chain), p.chain.numel(), _ptr(p.fwd), p.fwd.numel(),
-            _ptr(p.table16), _ptr(p.emb16)]
+            _ptr(p.table16), _ptr(p.emb16), (st.band or 0) if dy is not None else 0,
+            _ptr(tile_fit)]
     for t, tr in enumerate(p.trunks):
         n_layers = len(tr.b)
         desc += [n_layers, tr.n_out, tr.row_off, tr.layer_off]
@@ -407,6 +478,8 @@ def _lib():
         lib.pixel_train_bwd.restype = ctypes.c_int
         lib.pixel_train_bwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                                         ctypes.c_int, ctypes.c_void_p]
+        lib.pixel_train_band_rows_max.restype = ctypes.c_int
+        lib.pixel_train_band_rows_max.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
         lib._typed = True
     return lib
 
@@ -435,7 +508,8 @@ def pixel_train_decode_forward(p: _Packed, seed: int, st: PixelTrainStatics):
 
 def pixel_train_decode_backward(p: _Packed, st: PixelTrainStatics, y: torch.Tensor,
                                 acts: List[List[torch.Tensor]], lat: torch.Tensor,
-                                dy: torch.Tensor, dx_last: Optional[torch.Tensor] = None):
+                                dy: torch.Tensor, dx_last: Optional[torch.Tensor] = None,
+                                tile_fit: Optional[torch.Tensor] = None):
     """K4 backward on the card: the reverse chain on the tensor cores
     (adding ``dx_last`` (M, h), if given, to the first trunk's final-layer
     input gradient; the latent's gradient summed in a (c_pad, M) scratch)
@@ -443,7 +517,10 @@ def pixel_train_decode_backward(p: _Packed, st: PixelTrainStatics, y: torch.Tens
     latent-weight, embedding-weight and bias reductions over all M points.
     On a bf16 pack the chain writes each pre-activation gradient twice,
     float32 for the bias sums and rounded to bf16 for the products'
-    reductions, and the tap stage rounds the latent's gradient.
+    reductions, and the tap stage rounds the latent's gradient.  With
+    ``st.band`` the tap stage takes the band's window where a tile's
+    segment fits; given ``tile_fit`` (int32, one a 64-point tile), each
+    tile's count of segments that did is written there.
     Returns
     (d(table), d(mean), d(xp), d(yp), d(emb) (M, e), per trunk [(dW | None,
     dLat | None, dX | None, db)] padded)."""
@@ -468,15 +545,18 @@ def pixel_train_decode_backward(p: _Packed, st: PixelTrainStatics, y: torch.Tens
     grads = [[(zeros(t.w[layer]), zeros(t.lat[layer]), zeros(t.x[layer]),
                torch.zeros_like(t.b[layer])) for layer in range(len(t.b))] for t in p.trunks]
     dlatent = torch.empty((p.c_pad, m), dtype=torch.float32, device=dev)
+    check_band(st, p.table.shape[2])
+    if tile_fit is not None and (tile_fit.dtype != torch.int32 or tile_fit.device != dev
+                                 or tile_fit.shape != (-(-m // TILE),) or st.band is None):
+        raise ValueError("tile_fit is a banded backward's int32 tensor of one entry a tile")
     desc = _descriptor(p, st, y, acts, lat, dy=dy, demb=demb, dtable=dtable, dmean=dmean,
                        dxp=dxp, dyp=dyp, dpre=dpre, grads=grads, dx_last=dx_last,
-                       dlatent=dlatent, dpre16=dpre16)
+                       dlatent=dlatent, dpre16=dpre16, tile_fit=tile_fit)
     _run("pixel_train_bwd", _lib().pixel_train_bwd, dev, desc.ctypes.data, int(desc.size),
          float(np.float32(1.0 / st.keep)), int(bf16))
-    if bf16:
-        pixel_train_decode_backward.bf16_launches += 1
-    else:
-        pixel_train_decode_backward.launches += 1
+    counter = ("band_" if st.band is not None else "") + ("bf16_launches" if bf16 else "launches")
+    setattr(pixel_train_decode_backward, counter,
+            getattr(pixel_train_decode_backward, counter) + 1)
     return dtable, dmean, dxp, dyp, demb, grads
 
 
@@ -574,7 +654,10 @@ def pixel_train_decode(table: torch.Tensor, mean: torch.Tensor, xp: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: the (rows, M) tanh'd outputs of the trunks and x_last (M, h),
     both differentiable in the table, the mean, xp, yp, the embedding and
-    every weight and bias, in ``st.dtype``'s contract."""
+    every weight and bias, in ``st.dtype``'s contract.  ``st.band`` is
+    checked on either device (``check_band``); it changes nothing on the
+    CPU."""
+    check_band(st, table.shape[2])
     if emb.device.type == "cpu":
         if st.dtype == torch.float32:
             return pixel_train_decode_reference(table, mean, xp, yp, mask, emb, trunks, seed, st)
@@ -590,3 +673,5 @@ pixel_train_decode.launches = 0
 pixel_train_decode_backward.launches = 0
 pixel_train_decode.bf16_launches = 0
 pixel_train_decode_backward.bf16_launches = 0
+pixel_train_decode_backward.band_launches = 0
+pixel_train_decode_backward.band_bf16_launches = 0

@@ -5,7 +5,10 @@ project the points into the map.
 
 Counterpart of ``split_trunk`` and ``decode`` in the JAX package's
 ``make_fused_train_decoder_pixel`` (``ops/decoder_train_pixel.py:785-1028``),
-unbanded.  Everything here is plain PyTorch outside K4's autograd Function,
+with its ``band`` (an explicit int) and ``presorted``: the band goes to K4's
+backward (its banded tap stage), and without ``presorted`` the decode sorts
+each scene's points by feature row first, as JAX's does.  Everything here
+is plain PyTorch outside K4's autograd Function,
 so autograd carries the gradients of ``weight_v``, ``weight_g`` and the
 biases, of the map through the table and its mean, and of the predicted
 hand root through the projection.  With a classifier, K4 also gives the
@@ -30,6 +33,7 @@ from alignsdf_torch.config import Specs
 from alignsdf_torch.kernels.pixel_train_decoder import (
     PixelTrainStatics,
     Trunk,
+    band_rows_max,
     pixel_train_decode,
 )
 from alignsdf_torch.models.decoder import trunk_layer_dims, trunk_prefixes
@@ -103,8 +107,48 @@ def pixel_train_inputs(fmap: torch.Tensor, xyz: torch.Tensor, cam_intr: torch.Te
     return table, table.mean(dim=1), xp.reshape(-1), yp.reshape(-1), mask.reshape(-1)
 
 
-def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
-                             ) -> Optional[Callable]:
+def scene_block(n: int, cap: int) -> Optional[int]:
+    """The TPU kernel's block of a scene's n points: the largest divisor of
+    n that is a multiple of 16 and at most ``cap``, or None (JAX
+    ``ops/decoder_train_kernel.py:752 _scene_block``).  The port's kernels
+    run 64-point tiles; this rule only decides where the banded decode
+    sorts, as JAX's does (``decoder_train_pixel.py:952-954``)."""
+    best = None
+    for b in range(16, cap + 1, 16):
+        if n % b == 0:
+            best = b
+    return best
+
+
+def default_band(specs: Specs) -> int:
+    """The band ``cli.train --pixel_band`` gives K4: the largest the
+    backward's tap stage holds (``band_rows_max``) up to half the HeadNet
+    map's rows (image_size // 4, the rows the host sort keys on), JAX's
+    "auto" (``decoder_train_pixel.py:952``)."""
+    rows = specs.image_size[0] // 4
+    band = min(rows // 2, band_rows_max(specs.image_size[1] // 4, specs.latent_size))
+    if band < 1:
+        raise ValueError(f"a {rows}-row map leaves K4's tap stage no band")
+    return band
+
+
+def sort_by_row(yp: torch.Tensor, mask: torch.Tensor, b: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(perm, inv) (M,): each scene's points in ascending yp, stably, those
+    outside the image (key 1e9) last, as JAX's device sort
+    (``decoder_train_pixel.py:957-975``); ``x[perm]`` sorts, ``x[inv]``
+    restores."""
+    key = torch.where(mask > 0, yp, torch.full_like(yp, 1e9)).reshape(b, -1)
+    n = key.shape[1]
+    order = torch.argsort(key, dim=1, stable=True)
+    perm = (order + torch.arange(b, device=yp.device)[:, None] * n).reshape(-1)
+    return perm, torch.empty_like(perm).scatter_(0, perm, torch.arange(
+        perm.shape[0], device=perm.device))
+
+
+def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode,
+                             band: Optional[int] = None, presorted: bool = False,
+                             block_cap: int = 2000) -> Optional[Callable]:
     """decode(decoder, fmap (B, C, Hf, Wf), emb (M, pfs), xyz (M, 3), cam_intr
     (B, 3, 3+), pred_root (B, 1, 3), seed, train) -> (sdf_h (M,), sdf_o
     (M,), logits (M, C) or None) through K4, or None for a structure K4
@@ -114,7 +158,20 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
     Both trunks draw their dropout from ``seed``, the object trunk hashing
     layer + n_layers.  ``kernel`` may name K4's plain version instead, to
     compare the two on the card.  ``decode.pixel`` is True: the train step
-    feeds it ``decoder_inputs_pixel``."""
+    feeds it ``decoder_inputs_pixel``.
+
+    ``band`` (an int or None, never "auto") and ``presorted`` are JAX's
+    (:785-1028).  presorted: the batch's points are already in row order
+    (``data/pixel_sort.py``), K4 runs on them as they are and takes the
+    band.  Otherwise the decode sorts where JAX's would: with a band and
+    more than one TPU block a scene (``scene_block(n, block_cap)``,
+    block_cap 2000 meaning 400 under a band, :845-847), it runs K4 on each
+    scene's points sorted by yp (``sort_by_row``), so the dropout gate
+    hashes the sorted positions, with the band, and puts y and x_last back
+    in the batch's order (:1016-1019); elsewhere it runs K4 unbanded.
+    ``block_cap`` serves only that rule."""
+    if band is not None and (not isinstance(band, int) or isinstance(band, bool) or band < 1):
+        raise ValueError(f"band {band!r}: a positive int or None")
     ns = specs.network_specs
     n_layers = len(ns.dims) + 1
     if (not specs.pixel_align or not ns.weight_norm or ns.use_tanh or ns.latent_dropout
@@ -131,18 +188,33 @@ def make_pixel_train_decoder(specs: Specs, kernel: Callable = pixel_train_decode
         train=True,
         layer_offsets=(0,) if specs.model_type == "1encoder1decoder" else (0, n_layers),
         dtype=compute_dtype_of(specs.compute_dtype))
+    if band is not None and block_cap == 2000:
+        block_cap = 400
+    block = scene_block(specs.samples_per_scene, block_cap)
+    sort = (band is not None and not presorted and block is not None
+            and specs.samples_per_scene // block > 1)
+    kernel_band = band if presorted or sort else None
 
     def decode(decoder, fmap: torch.Tensor, emb: torch.Tensor, xyz: torch.Tensor,
                cam_intr: torch.Tensor, pred_root: torch.Tensor, seed: int,
                train: bool = True
                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-        _, c, hf, wf = fmap.shape
+        b, c, hf, wf = fmap.shape
         table, mean, xp, yp, mask = pixel_train_inputs(fmap, xyz, cam_intr, pred_root, specs)
-        st = statics._replace(feat_hw=(hf, wf), train=bool(train))
-        y, x_last = kernel(table, mean, xp, yp, mask, emb.to(torch.float32).contiguous(),
+        st = statics._replace(feat_hw=(hf, wf), train=bool(train), band=kernel_band)
+        emb = emb.to(torch.float32)
+        if sort:
+            perm, inv = sort_by_row(yp.detach(), mask, b)
+            xp, yp, mask, emb = xp[perm], yp[perm], mask[perm], emb[perm]
+        y, x_last = kernel(table, mean, xp, yp, mask, emb.contiguous(),
                            pixel_trunks(decoder, specs, c), seed, st)
+        if sort:
+            y, x_last = y[:, inv], x_last[inv]
         return y[0], y[1], classify(decoder, x_last)
 
     decode.pixel = True
     decode.statics = statics
+    decode.band = kernel_band
+    decode.presorted = presorted
+    decode.sorts = sort
     return decode

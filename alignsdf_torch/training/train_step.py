@@ -89,7 +89,11 @@ def make_spec_train_decoder(specs: Specs) -> Optional[Callable]:
 def train_decoder_kind(decode: Callable) -> str:
     """How a train decoder reads its inputs, and its kernel, for the logs."""
     if getattr(decode, "pixel", False):
-        return "pixel-aligned (K4)"
+        band = getattr(decode, "band", None)
+        if band is None:
+            return "pixel-aligned (K4)"
+        return (f"pixel-aligned (K4) with a band of {band} rows"
+                + (" on host-sorted points" if decode.presorted else ", sorted on the device"))
     if getattr(decode, "materialized", False):
         return "materialized inputs (K5)"
     return "scene-factored (K2)"

@@ -4,8 +4,9 @@ training from an LMDB dataset with the stem pool through K7, the proof
 of learning scored by the evaluation, training and testing from the
 reference's per-file layout, and from an ASDF-pack and forked loader
 workers, bf16 serving, bf16 training through K2, K4 and K5, a latent
-input at the final layer) on one CUDA GPU and hold each hand-written
-kernel against its plain PyTorch version.
+input at the final layer, K4's band with cli.train --pixel_band) on one
+CUDA GPU and hold each hand-written kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -292,7 +293,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      the same dtype (K3's final rows reading the latent: timed beside its
      bound and F.grid_sample), and the model served by cli.reconstruct at
      128^3 in the same dtype; each kernel's forward and backward per step
-     in both dtypes beside the default spec's time and its bound.
+     in both dtypes beside the default spec's time and its bound;
+ 23. K4's band (cli.train --pixel_band, ops/pixel_train_plan.default_band:
+     32 rows of the 64-row map): the band's limit in Python against the
+     library's; in float32 and bf16 at 64 x 2000 points, each scene's
+     points sorted by the kernel's own yp (the plan's device sort), K4 with
+     the band against its plain version (phase 10's bounds in float32,
+     phase 21's in bf16), every tile segment taking the window and the
+     kernel's per-tile counts equal to tile_band_bounds', the banded and
+     the per-tap routes within 1e-5 of each other on the same residuals,
+     and in bf16 both routes' d(table) against the plain bf16 backward
+     summed in float64; the share of tiles that fit on the host-sorted
+     batch (data/pixel_sort.py at the GT root) at the predicted root; the
+     backward and its chain kernel three ways (the unsorted batch and the
+     host-sorted one on the per-tap route, the host-sorted one banded) and
+     the banded backward against its plain version, its bound, the tap
+     stage's bytes bound and F.grid_sample's backward at the same points;
+     --pa_feat --pixel_band through make_trainer in float32 and bf16 (the
+     banded counters, none of the per-tap backward), each beside the
+     unsorted --pa_feat step in the same call, and served by
+     cli.reconstruct; cli.train --packed --pa_feat --pixel_band over 3
+     steps of 64 scenes from a pack (its native batches sorted in the
+     loader's workers, K4's banded launches one a step).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  ``--record PATH`` also writes every number
 measured to PATH as JSON.
@@ -458,6 +480,10 @@ SERVE_IMAGES = 1
 # too; their kernels as the profiler names them are K2's, K4's and K5's
 FINAL_LATENT_IN = (2, 4)
 FINAL_LATENT_IN_0 = (0, 2, 4)
+# phase 23, K4's band: the pack run's scenes (one batch) and its steps (the
+# TrainSplit names each key that many times)
+PIXEL_BAND_PACK_SCENES = TRAIN_SCENES
+PIXEL_BAND_PACK_STEPS = 3
 
 
 
@@ -654,6 +680,20 @@ def profile_summary(prof, wall_s: float):
             busy += b - end
             end = b
     return busy / 1e3, busy / (wall_s * 1e6), kernels_ms
+
+
+def kernel_ms_per_launch(prof, prefix: str) -> Optional[float]:
+    """The mean device ms of the kernel launches a torch.profiler run saw
+    whose names start with ``prefix``, or None where it saw none: for a
+    kernel launched once a call, its time a call even where the window
+    dropped a call's events (one of three has been seen: chain_timing's
+    sum over CHAIN_PROFILED calls then reads two thirds of the time)."""
+    from torch.autograd import DeviceType
+
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and e.name.removeprefix("void ").startswith(prefix)]
+    return sum(times) / len(times) if times else None
 
 
 def warm_and_profiled(recon, samples, kernel, card: str, label: str = ""):
@@ -1680,20 +1720,24 @@ def pixel_phase(dev, card: str, gen, mano_faces):
     return rec, entry
 
 
-def k4_operands(model, specs, dev, scenes: int):
+def k4_operands(model, specs, dev, scenes: int, host_sort: bool = False):
     """K4's operands on the encoder's real HeadNet map and the batch's real
     projection (the synthetic batch of ``scenes`` scenes, the front half in
     training mode): ((table, mean, xp, yp, mask, emb), trunks, statics,
     (fmap, uv)) with ``uv`` the points' normalized image coordinates, all
-    detached."""
+    detached.  ``host_sort``: the batch sorted first as cli.train
+    --pixel_band's loader sorts it (at the GT root; the projection is the
+    predicted root's)."""
     import torch
 
+    from alignsdf_torch.cli.train import row_sorter
     from alignsdf_torch.data.synthetic import synthetic_train_batch
     from alignsdf_torch.ops.pixel_train_plan import (
         make_pixel_train_decoder, pixel_train_inputs, pixel_trunks)
     from alignsdf_torch.training.train_step import COND_KEYS, batch_to_device
 
-    batch = batch_to_device(synthetic_train_batch(specs, scenes, seed=SEED), dev)
+    batch = synthetic_train_batch(specs, scenes, seed=SEED)
+    batch = batch_to_device(row_sorter(specs)(batch) if host_sort else batch, dev)
     with torch.no_grad():
         fmap, emb, mano, _ = model.decoder_inputs_pixel(
             batch["image"], batch["xyz"], {k: batch[k] for k in COND_KEYS}, train=True)
@@ -4677,7 +4721,7 @@ def bf16_trunk_operands(model, specs, latent, emb):
 
 
 def bf16_train_run(specs, dev, card: str, label: str, kern: TrainKernel,
-                   after: Optional[Callable] = None) -> dict:
+                   after: Optional[Callable] = None, pixel_band: bool = False) -> dict:
     """A spec's train step at full width through cli/train.make_trainer in
     ``specs``' compute dtype: WARM_STEPS + TIMED_STEPS steps on one
     synthetic batch, each timed on the host clock (synchronized: median and
@@ -4687,18 +4731,20 @@ def bf16_train_run(specs, dev, card: str, label: str, kern: TrainKernel,
     steps under torch.profiler: device busy and idle share, the kernel's
     forward, chain, reduction and colsum ms a step.  ``after``, if given,
     is called with the trained state; its result is the record's
-    "after"."""
+    "after".  ``pixel_band``: make_trainer's (cli.train --pixel_band), on
+    the batch sorted by its row_sorter."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from alignsdf_torch.cli.train import make_trainer
+    from alignsdf_torch.cli.train import make_trainer, row_sorter
     from alignsdf_torch.data.synthetic import synthetic_train_batch
     from alignsdf_torch.training.train_step import batch_to_device, draw_seed
 
     bf16 = specs.compute_dtype == "bfloat16"
-    state, step = make_trainer(specs, dev, seed=SEED, init_guard=True)
-    batch = batch_to_device(synthetic_train_batch(specs, TRAIN_SCENES, seed=SEED), dev)
+    state, step = make_trainer(specs, dev, seed=SEED, init_guard=True, pixel_band=pixel_band)
+    batch = synthetic_train_batch(specs, TRAIN_SCENES, seed=SEED)
+    batch = batch_to_device(row_sorter(specs)(batch) if pixel_band else batch, dev)
     gen = torch.Generator().manual_seed(SEED)
     restore_counts(kern, (0, 0, 0, 0))
     totals, times = [], []
@@ -5359,6 +5405,430 @@ def final_latent_phase(dev, card: str, gen, defaults: dict) -> Tuple[dict, list]
     return rec, entries
 
 
+class _BandCounts:
+    """The banded backward's launch counters (``band_launches``,
+    ``band_bf16_launches``) under the names ``launch_counts`` and
+    ``restore_counts`` read and write."""
+
+    def __init__(self, fn):
+        self.__dict__["fn"] = fn
+
+    launches = property(lambda self: self.fn.band_launches,
+                        lambda self, v: setattr(self.fn, "band_launches", v))
+    bf16_launches = property(lambda self: self.fn.band_bf16_launches,
+                             lambda self, v: setattr(self.fn, "band_bf16_launches", v))
+
+
+def k4_band_kernel(bf16: bool = False) -> TrainKernel:
+    """K4 with a band (cli.train --pixel_band): its backward counted by the
+    banded route's counters."""
+    from alignsdf_torch.kernels.pixel_train_decoder import pixel_train_decode_backward
+
+    kern = k4_bf16_kernel() if bf16 else k4_kernel()
+    return kern._replace(name=kern.name.replace("K4", "K4 band"),
+                         bwd=_BandCounts(pixel_train_decode_backward))
+
+
+def unbanded_bwd_counts() -> Tuple[int, int]:
+    from alignsdf_torch.kernels.pixel_train_decoder import pixel_train_decode_backward as b
+
+    return b.launches, b.bf16_launches
+
+
+def band_counts() -> Tuple[int, int]:
+    from alignsdf_torch.kernels.pixel_train_decoder import pixel_train_decode_backward as b
+
+    return b.band_launches, b.band_bf16_launches
+
+
+def set_band_counts(saved: Tuple[int, int]) -> None:
+    from alignsdf_torch.kernels.pixel_train_decoder import pixel_train_decode_backward as b
+
+    b.band_launches, b.band_bf16_launches = saved
+
+
+def row_sorted(inputs, scenes: int):
+    """K4's operands with each scene's points sorted by their own yp (the
+    plan's device sort, ``sort_by_row``): the table and the mean as they
+    are, xp, yp, mask and the embedding permuted."""
+    from alignsdf_torch.ops.pixel_train_plan import sort_by_row
+
+    table, mean, xp, yp, mask, emb = inputs
+    perm, _ = sort_by_row(yp, mask, scenes)
+    return table, mean, xp[perm], yp[perm], mask[perm], emb[perm]
+
+
+def fit_share(inputs, n: int, hf: int, band: int) -> dict:
+    """The band's fits on these operands (``tile_band_bounds``): the share
+    of the live scene segments of the 64-point tiles that fit, and of the
+    tiles whose live segments all do."""
+    import torch
+
+    from alignsdf_torch.kernels.pixel_train_decoder import tile_band_bounds
+
+    tile, _, _, fits, live = tile_band_bounds(inputs[3], inputs[4], n, hf, band)
+    tiles = int(tile.max()) + 1
+    bad = torch.zeros(tiles, dtype=torch.int64, device=tile.device).index_add_(
+        0, tile, (live & ~fits).to(torch.int64))
+    has = torch.zeros_like(bad).index_add_(0, tile, live.to(torch.int64))
+    return {"segments": int(live.sum()), "segments_fit": int(fits.sum()),
+            "segment_share": float(fits.sum()) / max(1, int(live.sum())),
+            "tiles": int((has > 0).sum()), "tile_share":
+                float(((has > 0) & (bad == 0)).sum()) / max(1, int((has > 0).sum()))}
+
+
+def band_routes(inputs, trunks, st, band: int, n: int, gen) -> dict:
+    """K4's backward both ways on one forward's residuals and dy: the
+    banded route's per-tile window counts against tile_band_bounds', every
+    gradient of the two routes apart (the same terms in another order),
+    and in bf16 each route's d(table) and the plain bf16 backward's against
+    that backward summed in float64 (ROADMAP's d(table) watch).  The
+    launches are not the main path's: their counters are restored."""
+    import torch
+
+    from alignsdf_torch.kernels.pixel_train_decoder import (
+        pack_pixel_trunks, pixel_train_decode_backward, pixel_train_decode_backward_reference,
+        pixel_train_decode_forward, tile_band_bounds)
+
+    table, mean, xp, yp, mask, emb = inputs
+    c, m = table.shape[2], emb.shape[0]
+    bf16 = st.dtype == torch.bfloat16
+    saved = (unbanded_bwd_counts(), band_counts(), pixel_train_decode_forward_counts())
+    packed = pack_pixel_trunks(*inputs, trunks, st)
+    y, acts, lat = pixel_train_decode_forward(packed, 5, st)
+    dy = torch.randn(tuple(y.shape), generator=gen).to(y.device)
+    fit = torch.full((-(-m // 64),), -1, dtype=torch.int32, device=y.device)
+    banded = pixel_train_decode_backward(packed, st._replace(band=band), y, acts, lat, dy,
+                                         tile_fit=fit)
+    today = pixel_train_decode_backward(packed, st, y, acts, lat, dy)
+    torch.cuda.synchronize()
+    tile, _, _, fits, live = tile_band_bounds(yp, mask, n, st.feat_hw[0], band)
+    want = torch.zeros_like(fit).index_add_(0, tile, fits.to(torch.int32))
+    flat = lambda g: [*g[:5], *[t for layers in g[5] for group in zip(*layers)  # noqa: E731
+                                for t in group if t is not None]]
+    res = {"tile_fit_equal": bool(torch.equal(fit, want)), "windows": int(fit.sum()),
+           "live_segments": int(live.sum()),
+           "routes_max_rel_diff": max(float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+                                      for a, b in zip(flat(banded), flat(today)))}
+    if bf16:
+        unpadded = [[a[:b.shape[-1]].T.float() for a, b in zip(at, tr[3])]
+                    for at, tr in zip(acts, trunks)]
+        lat_u = lat[:c].T.float()
+        with torch.no_grad():
+            plain = pixel_train_decode_backward_reference(*inputs, trunks, st, y, unpadded,
+                                                          lat_u, dy)[0]
+            exact = pixel_train_decode_backward_reference(
+                *(t.double() for t in (table, mean, xp, yp)), mask, emb.double(),
+                [tuple(_f64(group) for group in tr) for tr in trunks], st, y.double(),
+                [_f64(at) for at in unpadded], lat_u.double(), dy.double())[0]
+        scale = float(exact.abs().max()) + 1e-30
+        res["dtable_f64_rel_err"] = {
+            who: float((t.double() - exact).abs().max()) / scale
+            for who, t in (("banded", banded[0]), ("today's route", today[0]),
+                           ("plain", plain))}
+    (pixel_train_decode_backward.launches, pixel_train_decode_backward.bf16_launches) = saved[0]
+    set_band_counts(saved[1])
+    set_forward_counts(saved[2])
+    return res
+
+
+def pixel_train_decode_forward_counts() -> Tuple[int, int]:
+    from alignsdf_torch.kernels.pixel_train_decoder import pixel_train_decode as f
+
+    return f.launches, f.bf16_launches
+
+
+def set_forward_counts(saved: Tuple[int, int]) -> None:
+    from alignsdf_torch.kernels.pixel_train_decoder import pixel_train_decode as f
+
+    f.launches, f.bf16_launches = saved
+
+
+def tap_stage_bytes(inputs, packed) -> float:
+    """The bytes K4's tap stage must move: the table entries of the cells
+    the in-image points' taps touch, read once (2 bytes on a bf16 pack) and
+    their d(table) written once, the latent's gradient (c_pad, M) read,
+    xp, yp and the mask read, d(xp), d(yp) written, d(mean) written."""
+    import torch
+
+    table, mean, xp, yp, mask, emb = inputs
+    b, hw, c = table.shape
+    m = emb.shape[0]
+    n = m // b
+    hf = wf = int(round(hw ** 0.5))
+    inside = mask > 0
+    x0, y0 = torch.floor(xp).long(), torch.floor(yp).long()
+    scene = torch.arange(m, device=xp.device) // n
+    cells = []
+    for i in range(4):
+        for j in range(4):
+            r, col = y0 + i - 1, x0 + j - 1
+            ok = inside & (r >= 0) & (r < hf) & (col >= 0) & (col < wf)
+            cells.append((scene * hw + r * wf + col)[ok])
+    touched = int(torch.unique(torch.cat(cells)).numel())
+    size = 2 if packed.dtype == torch.bfloat16 else 4
+    return touched * c * (size + 4) + 4 * packed.c_pad * m + 4 * 5 * m + 4 * mean.numel()
+
+
+def route_times(label: str, runs, card: str, chain_kernel: str) -> dict:
+    """Each of ``runs`` ({route: backward}) timed in turns, forward and back
+    (CUDA events, 5 calls a turn: the best turn), and its chain kernel by
+    the profiler (CHAIN_PROFILED calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    order = list(runs) + list(reversed(runs))
+    times = {k: [] for k in runs}
+    for k in order:
+        times[k].append(cuda_ms(runs[k], 5))
+    out = {}
+    for k, bwd in runs.items():
+        bwd()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(CHAIN_PROFILED):
+                bwd()
+            torch.cuda.synchronize()
+        chain = kernel_ms_per_launch(prof, chain_kernel)  # K4: one chain a call
+        out[k] = {"bwd_ms": min(times[k]), "bwd_ms_runs": times[k], "chain_ms": chain}
+        print(f"[{card}] {label}, {k}: backward {min(times[k]):.3f} ms (turns "
+              + ", ".join(f"{t:.3f}" for t in times[k]) + "), chain "
+              + ("not measured" if chain is None else f"{chain:.3f} ms") + " a step",
+              flush=True)
+    return out
+
+
+def pixel_band_phase(dev, card: str, gen) -> Tuple[dict, list]:
+    """Phase 23, K4's band and cli.train --pixel_band (see the module
+    docstring).  Returns (record, the kernels line's entries: K4's banded
+    backward in float32 and bf16)."""
+    import numpy as np
+    import torch
+
+    from alignsdf_torch.cli import train as train_cli
+    from alignsdf_torch.data.synthetic import write_synthetic_dataset
+    from alignsdf_torch.kernels.pixel_train_decoder import (
+        _lib, band_rows_max, pack_pixel_trunks, pixel_train_decode,
+        pixel_train_decode_backward, pixel_train_decode_forward)
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.pixel_train_plan import default_band
+    from alignsdf_torch.training.train_step import train_decoder_kind
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import pack_dataset_torch
+
+    started = time.perf_counter()
+    bf = lambda sp: dataclasses.replace(sp, compute_dtype="bfloat16")  # noqa: E731
+    pix = flagship_specs(pixel=True)
+    n = pix.samples_per_scene
+    band = default_band(pix)
+    rows = pix.image_size[0] // 4
+    c = pix.latent_size
+    rec = {"band": band, "check": {}, "routes": {}, "fits": {}, "timing": {}, "three_ways": {},
+           "train": {}, "served": {}}
+    limits = [_lib().pixel_train_band_rows_max(rows, -(-c // 256) * 256, flag) for flag in (0, 1)]
+    print(f"--pixel_band's band: {band} rows of the {rows}-row map (the window's limit "
+          f"{band_rows_max(rows, c)} in Python, {limits} in the library's float32 / bf16 build)",
+          flush=True)
+    if limits != [band_rows_max(rows, c)] * 2 or band != min(rows // 2, limits[0]):
+        fail(f"the band's limit disagrees: {band_rows_max(rows, c)} against {limits}")
+
+    for sp in (pix, bf(pix)):
+        bf16 = sp.compute_dtype == "bfloat16"
+        name = "K4 band bf16" if bf16 else "K4 band"
+        model = build_model(sp, device=dev, seed=SEED)
+        phase(f"{name} vs plain{' bf16' if bf16 else ''} ({TRAIN_SCENES} x {n} points, full "
+              f"--pa_feat width, the HeadNet map and projection of a synthetic batch, each "
+              f"scene's points sorted by the kernel's own yp, band {band})")
+        inputs, trunks, st, _ = k4_operands(model, sp, dev, TRAIN_SCENES)
+        inputs = row_sorted(inputs, TRAIN_SCENES)
+        saved = band_counts()
+        ck = k4_check(inputs, trunks, st._replace(band=band), dev, gen)
+        set_band_counts(saved)
+        rt = band_routes(inputs, trunks, st, band, n, gen)
+        print(f"{name}: {rt['windows']} of {rt['live_segments']} live tile segments took the "
+              f"window (the kernel's counts equal tile_band_bounds': {rt['tile_fit_equal']}); "
+              f"the routes' gradients apart by {rt['routes_max_rel_diff']:.3e} of the largest",
+              flush=True)
+        if not (rt["tile_fit_equal"] and rt["windows"] == rt["live_segments"] > 0):
+            fail(f"{name}: the sorted batch's tiles did not all take the window")
+        if not rt["routes_max_rel_diff"] <= 1e-5:
+            fail(f"{name}: the banded and the per-tap routes disagree")
+        if bf16:
+            k2_bf16_verdict(ck, "(sorted, 64 scenes)", name, BF16_RESID_SHARE_DEEP)
+            print(f"{name} sampling gradients: {ck['sampling_grad_share_tight']:.6f} within "
+                  f"{BF16_GRAD_RTOL:g} of the largest, max {ck['sampling_grad_max_rel_err']:.3e}"
+                  f"; d(table) against the plain bf16 backward summed in float64: " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in rt["dtable_f64_rel_err"].items())
+                  + " of the largest", flush=True)
+            if not (ck["sampling_grad_share_tight"] >= BF16_SAMPLING_SHARE
+                    and ck["sampling_grad_max_rel_err"] <= BF16_SAMPLING_GRAD_RTOL):
+                fail(f"{name}'s sampling gradients disagree with the plain bf16 backward")
+        else:
+            print(f"{name} y max abs err {ck['y_max_abs_err']:.3e}; gradients max err "
+                  f"{ck['grad_max_abs_err']:.3e} abs, {ck['grad_max_rel_err']:.3e} of the "
+                  f"largest (tolerance {K4_TOL:g}); {forward_text(ck)}", flush=True)
+            if not (ck["y_max_abs_err"] <= K4_TOL and ck["grad_max_rel_err"] <= K4_TOL):
+                fail(f"{name} disagrees with its plain version")
+            forward_verdict(ck, name, K4_TOL)
+        rec["check"][name], rec["routes"][name] = ck, rt
+
+        phase(f"timing: {name}'s backward three ways ({TRAIN_SCENES} x {n}): the unsorted "
+              "batch and the host-sorted batch on the per-tap route, the host-sorted batch on "
+              "the band's; the host-sorted batch's fits at the predicted root")
+        plain_in, _, _, _ = k4_operands(model, sp, dev, TRAIN_SCENES)
+        sorted_in, _, _, (fmap, uv) = k4_operands(model, sp, dev, TRAIN_SCENES, host_sort=True)
+        rec["fits"][name] = fits = fit_share(sorted_in, n, rows, band)
+        print(f"[{card}] {name}: the host-sorted batch at the predicted root: "
+              f"{fits['segments_fit']} of {fits['segments']} live tile segments fit "
+              f"({fits['segment_share']:.4f}), {fits['tile_share']:.4f} of {fits['tiles']} "
+              f"tiles; the unsorted batch: {fit_share(plain_in, n, rows, band)['tile_share']:.4f}"
+              " of its tiles", flush=True)
+        runs, saved = {}, (unbanded_bwd_counts(), band_counts(),
+                           pixel_train_decode_forward_counts())
+        for key, ops, b in (("unsorted, per-tap route", plain_in, None),
+                            ("host-sorted, per-tap route", sorted_in, None),
+                            ("host-sorted, band", sorted_in, band)):
+            packed = pack_pixel_trunks(*ops, trunks, st)
+            y, acts, lat = pixel_train_decode_forward(packed, 5, st)
+            dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
+            runs[key] = (lambda p=packed, y=y, a=acts, la=lat, d=dy, s=st._replace(band=b):
+                         pixel_train_decode_backward(p, s, y, a, la, d))
+        chain_kernel = (K4_BF16_BWD_KERNELS if bf16 else K4_BWD_KERNELS)[0]
+        rec["three_ways"][name] = three = route_times(name, runs, card, chain_kernel)
+        tap_bytes = tap_stage_bytes(sorted_in, pack_pixel_trunks(*sorted_in, trunks, st))
+        del runs
+        (pixel_train_decode_backward.launches,
+         pixel_train_decode_backward.bf16_launches) = saved[0]
+        set_band_counts(saved[1])
+        set_forward_counts(saved[2])
+        saved = band_counts()
+        t = k4_timing(sorted_in, trunks, st._replace(band=band), fmap, uv, dev, gen, card)
+        set_band_counts(saved)
+        t["bwd"]["tap_stage_bytes"] = tap_bytes
+        t["bwd"]["tap_stage_bytes_bound_ms"] = tap_bytes / HBM_BYTES_PER_S * 1e3
+        if t["bwd"].get("chain") and three["host-sorted, band"]["chain_ms"] is not None:
+            # the chain a launch, as the three ways read it (kernel_ms_per_launch)
+            t["bwd"]["chain"]["ms"] = three["host-sorted, band"]["chain_ms"]
+        rec["timing"][name] = t
+        chain = t["bwd"].get("chain") or {}
+        print(f"[{card}] {name}: the tap stage's bytes {tap_bytes / 1e9:.3f} GB, bound "
+              f"{t['bwd']['tap_stage_bytes_bound_ms']:.3f} ms at 3.35 TB/s; the chain's FLOP "
+              f"bound {chain.get('bound_ms', float('nan')):.3f} ms; chain kernel three ways "
+              + ", ".join(f"{k} {v['chain_ms']}" for k, v in three.items()), flush=True)
+        del model, inputs, plain_in, sorted_in, fmap, uv
+
+    for key, sp in (("float32", pix), ("bf16", bf(pix))):
+        bf16 = key == "bf16"
+        for band_on in (True, False):
+            label = f"--pa_feat{' --pixel_band' if band_on else ''} {key}"
+            kern = (k4_band_kernel(bf16) if band_on else
+                    (k4_bf16_kernel() if bf16 else k4_kernel()))
+            phase(f"pixel band training: {label} through make_trainer, {WARM_STEPS} warm-up + "
+                  f"{TIMED_STEPS} timed steps, {PROFILED_STEPS} profiled"
+                  + ("; then cli.reconstruct" if band_on else ""))
+            if band_on:
+                kind = train_decoder_kind(train_cli.make_trainer(
+                    sp, dev, seed=SEED, init_guard=False, pixel_band=True)[1].decode)
+                print(f"train decoder: {kind}", flush=True)
+                if f"band of {band} rows on host-sorted points" not in kind:
+                    fail(f"--pixel_band's trainer runs {kind}")
+            before = unbanded_bwd_counts()
+            serve = ((lambda state, s=sp, lb=label, b=bf16: serve_cli(s, state, dev, card, lb,
+                                                                      gen, b))
+                     if band_on else None)
+            r = bf16_train_run(sp, dev, card, label, kern, after=serve, pixel_band=band_on)
+            if band_on and unbanded_bwd_counts() != before:
+                fail(f"{label}: the per-tap backward launched")
+            if band_on:
+                rec["served"][label] = r.pop("after")
+            rec["train"][label] = r
+        b, u = (rec["train"][f"--pa_feat{f} {key}"] for f in (" --pixel_band", ""))
+        busy = [r.get("profile", {}).get("per_step_ms", {}).get("busy") for r in (b, u)]
+        idle = [r.get("profile", {}).get("idle_share") for r in (b, u)]
+        print(f"[{card}] --pa_feat {key} train step with --pixel_band / without, in one call: "
+              f"median {b['step_ms_median']:.2f} / {u['step_ms_median']:.2f} ms on the host "
+              f"clock, device busy {busy[0]} / {busy[1]} ms a step, idle share {idle[0]} / "
+              f"{idle[1]}", flush=True)
+
+    phase(f"cli.train --packed --pa_feat --pixel_band: {PIXEL_BAND_PACK_SCENES} scenes packed, "
+          f"{PIXEL_BAND_PACK_STEPS} steps")
+    keys = [f"{i:08d}" for i in range(PIXEL_BAND_PACK_SCENES)]
+    sorts = []
+    real_sort = train_cli.pixel_row_sort_batch
+    with tempfile.TemporaryDirectory() as tmp:
+        pack = os.path.join(tmp, "train.pack")
+        pack_dataset_torch.pack(write_synthetic_dataset(tmp, keys, image_hw=256), pack, keys,
+                                "obman")
+        split = os.path.join(tmp, "split.json")
+        with open(split, "w") as f:
+            json.dump({"train": keys * PIXEL_BAND_PACK_STEPS}, f)
+        with open(os.path.join(REPO, "experiments", "obman_30k.json")) as f:
+            raw = json.load(f)
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as f:
+            json.dump(dict(raw, LMDB=False, ScenesPerBatch=PIXEL_BAND_PACK_SCENES,
+                           TrainSplit=split, NumEpochs=1, LogFrequency=1, LogFrequencyStep=1,
+                           SnapshotFrequency=0, AdditionalSnapshots=[]), f)
+        counts = (pixel_train_decode.launches, unbanded_bwd_counts(), band_counts())
+        train_cli.pixel_row_sort_batch = lambda *a, **k: sorts.append(1) or real_sort(*a, **k)
+        try:
+            t0 = time.perf_counter()
+            train_cli.main(["-e", spec, "--mano", "--obj_pose", "--encode", "both",
+                            "--point_size", "9", "--pa_feat", "--pixel_band", "--packed", pack,
+                            "--device", dev.type, "--output_root", os.path.join(tmp, "out"),
+                            "--skip_test"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            train_cli.pixel_row_sort_batch = real_sort
+        exp = [os.path.join(root, "metrics.jsonl") for root, _, files in
+               os.walk(os.path.join(tmp, "out")) if "metrics.jsonl" in files]
+        with open(exp[0]) as f:
+            steps = [ln for ln in map(json.loads, f) if "step" in ln]
+    launched = (pixel_train_decode.launches - counts[0],
+                band_counts()[0] - counts[2][0])
+    rec["pack"] = {"wall_s": wall, "steps": len(steps), "sorted_batches": len(sorts),
+                   "launches": {"fwd": launched[0], "bwd": launched[1]},
+                   "totals": [s["total"] for s in steps]}
+    print(f"[{card}] cli.train --packed --pixel_band: {len(steps)} steps in {wall:.2f} s "
+          f"(writing and packing apart), {len(sorts)} native batches sorted in the loader's "
+          f"workers, K4 launches fwd {launched[0]}, banded bwd {launched[1]}, per-tap bwd "
+          f"{unbanded_bwd_counts()[0] - counts[1][0]}; losses "
+          + ", ".join(f"{s['total']:.5f}" for s in steps), flush=True)
+    if not (len(steps) == PIXEL_BAND_PACK_STEPS == launched[0] == launched[1] == len(sorts)
+            and unbanded_bwd_counts() == counts[1]
+            and all(np.isfinite(v) for s in steps for v in s.values())):
+        fail("cli.train --packed --pixel_band did not train on sorted batches through the band")
+    rec["seconds"] = time.perf_counter() - started
+    print(f"phase 23 took {rec['seconds']:.1f} s", flush=True)
+
+    entries = []
+    for key, name in (("float32", "K4 band"), ("bf16", "K4 band bf16")):
+        t = rec["timing"][name]["bwd"]
+        by_path = {f"--pa_feat --pixel_band {key}":
+                   rec["train"][f"--pa_feat --pixel_band {key}"]["launches"]["bwd"]}
+        if key == "float32":
+            by_path["cli.train --packed --pixel_band"] = rec["pack"]["launches"]["bwd"]
+        entries.append({
+            "name": f"{name} pixel train decoder, backward with the banded tap stage "
+                    f"(band {band}, the host-sorted batch)",
+            "route": "cuda", "source": "alignsdf_torch/kernels/csrc/pixel_train_decoder.cu",
+            "replaces": "alignsdf_tpu/ops/decoder_train_pixel.py:647",
+            "band_lines": "alignsdf_tpu/ops/decoder_train_pixel.py:605-632, :755-757",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": rec["check"][name]["grad_max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_call": f"F.grid_sample bicubic{' on bf16' if key == 'bf16' else ''}, "
+                            "backward, at the sorted batch's points (the sampling step only)",
+            "tap_stage_bytes_bound_ms": t["tap_stage_bytes_bound_ms"],
+            "three_ways": rec["three_ways"][name], "fits": rec["fits"][name],
+            **backward_entry(t),
+        })
+    return rec, entries
+
+
 def fused_pass(kernel, plan, origin, voxel, chunk=1 << 20):
     """K1's or K3's (n_rows, n^3) output over a whole pass of ``plan`` in the
     fused evaluator's runs (``kernel`` the wrapper or its plain version)."""
@@ -5576,6 +6046,7 @@ def main(record_path: Optional[str] = None) -> None:
         "K2": record["k2_timing"], "K4": record["pixel_train"]["timing"],
         "K5": record["generic_train"]["timing"], "K2 bf16": bt["timing"],
         "K4 bf16": b45["k4_timing"], "K5 bf16": b45["k5_timing"]})
+    record["pixel_band"], pixel_band_entries = pixel_band_phase(dev, card, gen)
 
     if record_path:
         os.makedirs(os.path.dirname(os.path.abspath(record_path)), exist_ok=True)
@@ -5739,6 +6210,9 @@ def main(record_path: Optional[str] = None) -> None:
     # phase 22's: K2, K4, K5 and K3 with a final-layer latent input, float32
     # and bf16, each launched by its variant's trainer (K3 by cli.reconstruct)
     kernels["kernels"] += final_latent_entries
+    # phase 23's: K4's banded backward in float32 and bf16, launched by the
+    # --pixel_band trainers and the --packed --pixel_band run
+    kernels["kernels"] += pixel_band_entries
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,7 +4,8 @@ K2, K4 and K5 with x_last / dx_last, K7 forward and backward on tied
 inputs), and against
 float64 the train backwards' weight-gradient reduction, K2's, K4's and
 K5's whole backwards (their chains on the tensor cores) and their forwards
-(on the tensor cores too: y, and the residuals against the plain ones).
+(on the tensor cores too: y, and the residuals against the plain ones);
+K4's banded tap stage against the plain backward and the unbanded kernel.
 Needs a CUDA GPU and skips without one; it imports no JAX, so it runs on a
 machine without it:
 
@@ -40,6 +41,7 @@ from alignsdf_torch.kernels.pixel_grid_decoder import (
     pixel_projection,
 )
 from alignsdf_torch.kernels.pixel_train_decoder import (
+    band_rows_max,
     flatten_pixel_params,
     pack_pixel_trunks,
     pixel_train_decode,
@@ -47,6 +49,7 @@ from alignsdf_torch.kernels.pixel_train_decoder import (
     pixel_train_decode_backward_reference,
     pixel_train_decode_forward,
     pixel_train_decode_reference,
+    tile_band_bounds,
     unflatten_pixel_params,
 )
 from alignsdf_torch.kernels.weight_grad import weight_grad, weight_grad_reference
@@ -74,6 +77,7 @@ from alignsdf_torch.ops.pixel_train_plan import (
     make_pixel_train_decoder,
     pixel_train_inputs,
     pixel_trunks,
+    sort_by_row,
 )
 from alignsdf_torch.ops.train_plan import make_train_decoder, trunk_operands
 
@@ -1742,3 +1746,107 @@ def test_cuda_final_latent_k3_matches_plain(dtype):
         f.zero_()
     assert float((pixel_grid_decode(bare, 0, n ** 3, origin, voxel)[:2] - out[:2]).abs().max()) \
         > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dims,c,hw,scenes,n,spread,band,order", [
+    ("float32", (64,) * 4, 32, (16, 16), 3, 96, 0.1, 12, "sorted"),
+    ("float32", (512,) * 4, 256, (64, 64), 4, 2000, 0.5, 32, "sorted"),
+    ("float32", (512,) * 4, 256, (64, 64), 4, 2000, 0.5, 32, "unsorted"),
+    ("bfloat16", (512,) * 4, 256, (64, 64), 4, 2000, 0.5, 32, "sorted")])
+def test_cuda_pixel_band_matches_plain(dtype, dims, c, hw, scenes, n, spread, band, order):
+    """K4's banded backward (its tap stage's shared-memory window) on points
+    sorted by the kernel's own yp, as the plan's device sort gives them (so
+    that every scene segment of every 64-point tile fits: 96-point scenes
+    put two in some tiles; ``spread`` scales the points about the hand
+    root), and unsorted (the per-tap fallback): each
+    tile's window count equal to tile_band_bounds'; every gradient against
+    the plain backward fed the kernel's residuals (float32: 1e-4 of the
+    largest; bf16 as test_cuda_bf16_pixel_train_kernel_matches_plain), and
+    against the unbanded kernel on the same residuals within 1e-5 of the
+    largest (the same terms, summed in another order); the banded counters
+    move, the others do not; the window's limit agrees with the library's,
+    and at the flagship's map a band one row over it raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from alignsdf_torch.kernels.pixel_train_decoder import _lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(17)
+    bf16 = dtype == "bfloat16"
+    specs = Specs(model_type="1encoder2decoder", encode_style="both", point_feat_size=9,
+                  latent_size=c, pixel_align=True, samples_per_scene=n, sdf_scale_factor=7.0,
+                  image_size=(256, 256), network_specs=NetworkSpecs(dims=dims),
+                  compute_dtype=dtype)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(17)
+        decoder = make_decoder(specs.model_type, c, 9, "both", specs.network_specs).cuda()
+    m = scenes * n
+    fmap = (torch.randn(scenes, c, *hw, generator=gen) * 0.5).cuda()
+    emb = (torch.randn(m, 9, generator=gen) * 0.5).cuda()
+    xyz = (torch.randn(m, 3, generator=gen) * spread).cuda()
+    cam = torch.tensor([[480.0, 0, 128, 0], [0, 480.0, 128, 0], [0, 0, 1, 0]]).repeat(scenes, 1, 1)
+    root = torch.tensor([[[0.01, -0.02, 0.6]]]).repeat(scenes, 1, 1)
+    st = make_pixel_train_decoder(specs).statics._replace(feat_hw=hw)
+    for wf, cc in ((hw[1], c), (16, 32), (64, 256), (24, 256)):
+        assert _lib().pixel_train_band_rows_max(wf, _round_pad(cc), int(bf16)) == band_rows_max(
+            wf, cc)
+    with torch.no_grad():
+        table, mean, xp, yp, mask = pixel_train_inputs(fmap, xyz, cam.cuda(), root.cuda(), specs)
+        if order == "sorted":
+            perm, _ = sort_by_row(yp, mask, scenes)
+            xp, yp, mask, emb = xp[perm], yp[perm], mask[perm], emb[perm]
+        trunks = pixel_trunks(decoder, specs, c)
+        packed = pack_pixel_trunks(table, mean, xp, yp, mask, emb, trunks, st)
+        y, acts, lat = pixel_train_decode_forward(packed, 9, st)
+        dy = torch.randn(y.shape, generator=gen).cuda()
+        counts = {k: getattr(pixel_train_decode_backward, k) for k in (
+            "launches", "bf16_launches", "band_launches", "band_bf16_launches")}
+        tiles = -(-m // 64)
+        fit = torch.full((tiles,), -1, dtype=torch.int32, device="cuda")
+        banded = pixel_train_decode_backward(packed, st._replace(band=band), y, acts, lat, dy,
+                                             tile_fit=fit)
+        unbanded = pixel_train_decode_backward(packed, st, y, acts, lat, dy)
+        torch.cuda.synchronize()
+        key = "bf16_launches" if bf16 else "launches"
+        counts[key] += 1
+        counts["band_" + key] += 1
+        assert counts == {k: getattr(pixel_train_decode_backward, k) for k in counts}
+        tile, _, _, fits, live = tile_band_bounds(yp, mask, n, hw[0], band)
+        want = torch.zeros(tiles, dtype=torch.int32, device="cuda").index_add_(
+            0, tile, fits.to(torch.int32))
+        assert torch.equal(fit, want)
+        taken, segments = int(fits.sum()), int(live.sum())
+        print(f"{dtype} {order}: {taken} of {segments} live segments took the window")
+        if order == "sorted":
+            assert taken == segments > tiles // 2
+        else:
+            assert taken < segments
+        acts_u = [[a[:b.shape[-1]].T.float() for a, b in zip(at, tr[3])]
+                  for at, tr in zip(acts, trunks)]
+        ref = pixel_train_decode_backward_reference(
+            table, mean, xp, yp, mask, emb, trunks, st, y, acts_u, lat[:c].T.float(), dy)
+        most = band_rows_max(hw[1], c)
+        if most < hw[0]:  # the flagship's map: the window holds fewer than its rows
+            with pytest.raises(ValueError, match=f"at most {most} rows"):
+                pixel_train_decode_backward(packed, st._replace(band=most + 1), y, acts, lat, dy)
+    # the kernel's gradients (padded, per layer) in flatten_pixel_params' order
+    kernel = lambda g: [*g[:5], *[t for layers in g[5] for group in zip(*layers)  # noqa: E731
+                                  for t in group if t is not None]]
+    plain = [*ref[:5], *flatten_pixel_params(ref[5])]
+    assert len(plain) == len(kernel(banded)) == len(kernel(unbanded))
+    for i, (g, u, r) in enumerate(zip(kernel(banded), kernel(unbanded), plain)):
+        g, u = (t[tuple(slice(0, k) for k in r.shape)] for t in (g, u))
+        scale = float(r.abs().max()) + 1e-12
+        assert float((g - u).abs().max()) <= 1e-5 * scale, i
+        err = (g - r).abs() / scale
+        if not bf16:
+            assert float(err.max()) <= 1e-4, i
+        elif i < 4:  # the sampling's gradients: see test_cuda_bf16_pixel_train_kernel_matches_plain
+            assert float((err <= 2e-3).float().mean()) >= 0.999 and float(err.max()) <= 2.0 ** -7
+        else:
+            assert float(err.max()) <= 2e-3, i
+
+
+def _round_pad(c: int) -> int:
+    return -(-c // 256) * 256

@@ -11,6 +11,15 @@ clocks each block's phases on its thread 0 (CH_PROBE 32): each phase's
 share of the blocks' cycles.
 
     python3 tools/time_train_chain.py [--repo DIR] [--probes] [--steps N] [--scenes 64]
+    python3 tools/time_train_chain.py --band [--probes] [--scenes 64]
+
+--band times K4's backward three ways, in float32 and bf16 (the --pa_feat
+flagship, the band cli.train --pixel_band gives it): the unsorted batch and
+the batch sorted by feature row on the host (data/pixel_sort.py, as the
+loader sorts it) on the per-tap route, and the sorted batch on the banded
+tap stage; with --probes also each way's tap stage alone: the chain without
+it (CH_PROBE 8) and the taps' share of the clocked copy's cycles (CH_PROBE
+32) times the chain's time.
 
 --steps N also times N train steps of the flagship, of --pa_feat and of
 latent_in (0, 2) through cli/train.make_trainer (after 2 warm-up steps, on one synthetic
@@ -134,6 +143,52 @@ def setups(cs, scenes: int, dev):
             "K5": (k5_bwd, "generic_train_bwd_chain", k5_flops)}
 
 
+def band_setups(cs, scenes: int, dev):
+    """{"K4 <dtype>, <way>": (backward of one step, chain kernel prefix,
+    chain FLOPs)}: K4's backward on the --pa_feat flagship's operands (the
+    HeadNet map and projection of a synthetic batch), the batch unsorted or
+    sorted on the host, the tap stage per tap or banded (cli.train
+    --pixel_band's band), in float32 and bf16; and the host-sorted batch's
+    share of tiles that fit, printed."""
+    import dataclasses
+
+    import torch
+
+    from alignsdf_torch.kernels.pixel_train_decoder import (
+        pack_pixel_trunks, pixel_train_decode_backward, pixel_train_decode_forward)
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.pixel_train_plan import default_band
+
+    gen = torch.Generator().manual_seed(cs.SEED)
+    pix = cs.flagship_specs(pixel=True)
+    runs = {}
+    for sp in (pix, dataclasses.replace(pix, compute_dtype="bfloat16")):
+        model = build_model(sp, device=dev, seed=cs.SEED)
+        band = default_band(sp)
+        plain_in, trunks, st, _ = cs.k4_operands(model, sp, dev, scenes)
+        sorted_in, _, _, _ = cs.k4_operands(model, sp, dev, scenes, host_sort=True)
+        fits = cs.fit_share(sorted_in, sp.samples_per_scene, sp.image_size[0] // 4, band)
+        print(f"K4 {sp.compute_dtype}: band {band}; the host-sorted batch at the predicted root: "
+              f"{fits['tile_share']:.4f} of {fits['tiles']} tiles fit, "
+              f"{fits['segment_share']:.4f} of their live segments", flush=True)
+        c, mask = sorted_in[0].shape[2], sorted_in[4]
+        flops = (sum(2 * mask.numel() * t.numel() for ws, lats, xs, _ in trunks
+                     for t in [*ws, *lats, *xs] if t is not None)
+                 + 2 * 2 * 16 * c * int(mask.sum()))
+        for way, ops, b in (("unsorted, per-tap", plain_in, None),
+                            ("host-sorted, per-tap", sorted_in, None),
+                            ("host-sorted, banded", sorted_in, band)):
+            packed = pack_pixel_trunks(*ops, trunks, st)
+            y, acts, lat = pixel_train_decode_forward(packed, 7, st)
+            dy = torch.randn(tuple(y.shape), generator=gen).to(dev)
+            runs[f"K4 {sp.compute_dtype}, {way}"] = (
+                lambda p=packed, y=y, a=acts, la=lat, d=dy, s=st._replace(band=b):
+                pixel_train_decode_backward(p, s, y, a, la, d),
+                "pixel_train_bwd_chain", flops)
+        del model
+    return runs
+
+
 def train_steps(cs, dev, steps: int, card: str, label: str) -> None:
     """The flagship's, --pa_feat's and latent_in (0, 2)'s train step: host ms
     a step over ``steps`` steps, device busy ms and idle share over 2
@@ -172,16 +227,17 @@ def train_steps(cs, dev, steps: int, card: str, label: str) -> None:
         del state, step, batch
 
 
-def build_probes(masks):
-    """Build the train decoders' sources (LIBS) with -DCH_PROBE=mask for
-    each mask, concurrently: {mask: {name: library path}}."""
+def build_probes(masks, libs=tuple(LIBS.values())):
+    """Build the train decoders' sources (``libs``, LIBS' by default) with
+    -DCH_PROBE=mask for each mask, concurrently: {mask: {name: library
+    path}}."""
     from alignsdf_torch.kernels import build
 
     out_dir = os.path.join(build.BUILD_DIR, "probes")
     os.makedirs(out_dir, exist_ok=True)
     procs, paths = [], {}
     for mask in masks:
-        for name in LIBS.values():
+        for name in libs:
             path = os.path.join(out_dir, f"lib{name}-probe{mask}.so")
             paths.setdefault(mask, {})[name] = path
             cmd = [build.nvcc_path(), *build.NVCC_FLAGS, f"-DCH_PROBE={mask}", "-o", path,
@@ -195,9 +251,10 @@ def build_probes(masks):
     return paths
 
 
-def phase_shares(runs, paths) -> None:
+def phase_shares(runs, paths) -> dict:
     """Each chain's phases as shares of its blocks' clocked cycles, from the
-    CH_PROBE 32 copies (the library of each kernel in ``paths``)."""
+    CH_PROBE 32 copies (the library of each kernel in ``paths``; a run's
+    kernel is its name's first word): {run: {phase: share}}."""
     import torch
 
     from alignsdf_torch.kernels import build
@@ -207,8 +264,9 @@ def phase_shares(runs, paths) -> None:
         build._loaded[name] = lib
         lib.ch_read_cycles.restype = ctypes.c_int
         lib.ch_read_cycles.argtypes = [ctypes.c_void_p]
+    shares = {}
     for name, (bwd, _, _) in runs.items():
-        lib = libs[LIBS[name]]
+        lib = libs[LIBS[name.split()[0].rstrip(",")]]
         bwd()
         torch.cuda.synchronize()
         cycles = (ctypes.c_ulonglong * len(PHASES))()
@@ -219,9 +277,11 @@ def phase_shares(runs, paths) -> None:
         if lib.ch_read_cycles(cycles) != 0:
             raise RuntimeError("reading the phase clocks failed")
         total = sum(cycles)
+        shares[name] = {ph: c / total for ph, c in zip(PHASES, cycles)}
         print(f"{name} phases (shares of the blocks' cycles on thread 0): "
               + ", ".join(f"{ph} {c / total:.3f}" for ph, c in zip(PHASES, cycles) if c),
               flush=True)
+    return shares
 
 
 def main() -> None:
@@ -230,6 +290,8 @@ def main() -> None:
     parser.add_argument("--probes", action="store_true", help="also time the CH_PROBE copies")
     parser.add_argument("--steps", type=int, default=0, help="also time this many train steps")
     parser.add_argument("--scenes", type=int, default=64)
+    parser.add_argument("--band", action="store_true",
+                        help="K4's backward three ways (unsorted / host-sorted, per-tap / banded)")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
     import torch
@@ -246,18 +308,32 @@ def main() -> None:
     print(f"card: {card}; package: {label}", flush=True)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    runs = setups(cs, args.scenes, dev)
+    runs = (band_setups if args.band else setups)(cs, args.scenes, dev)
     print(f"operands and forwards: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def report(tag):
+        out = {}
         for name, (bwd, prefix, flops) in runs.items():
-            ms = chain_ms(bwd, prefix)
+            ms = out[name] = chain_ms(bwd, prefix)
             bwd_ms = cs.cuda_ms(bwd, 5)
             print(f"[{card}] {label} {tag} {name}: chain {ms:.3f} ms a step "
                   f"({flops / 1e12:.3f} TFLOP, {flops / ms / 1e9:.1f} TFLOP/s; {bounds(flops)}), "
                   f"backward {bwd_ms:.3f} ms", flush=True)
+        return out
 
-    report("full")
+    full = report("full")
+    if args.band:
+        if args.probes:
+            paths = build_probes([8, CLOCKS], libs=(LIBS["K4"],))
+            build._loaded[LIBS["K4"]] = ctypes.CDLL(paths[8][LIBS["K4"]])
+            bare = report("probe 8 (no tap stage)")
+            shares = phase_shares(runs, paths[CLOCKS])
+            for name in runs:
+                print(f"[{card}] {label} {name}: tap stage {shares[name]['taps'] * full[name]:.3f} "
+                      f"ms a step (its share of the clocked copy's cycles x the chain's "
+                      f"{full[name]:.3f} ms); the chain without it {bare[name]:.3f} ms "
+                      f"(difference {full[name] - bare[name]:.3f})", flush=True)
+        return
     if args.steps:
         del runs
         torch.cuda.empty_cache()
