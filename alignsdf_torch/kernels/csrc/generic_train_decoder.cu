@@ -447,18 +447,21 @@ static int launch_bwd(const Plan& p, float scale, cudaStream_t s) {
   // bf16: the bf16 residuals and x0's bf16 copy against the rounded dpre;
   // float32: the float32 ones against dpre
   using B16 = const __nv_bfloat16*;
+  // bf16: every reduction after the first overlaps the kernel before it
+  // (launch_wgrad_bf16); the first reads the chain's dpre
+  int reductions = 0;
   for (int l = 0; l < p.n_layers; ++l) {
     const Layer& L = p.layers[l];
     int rc = 0;
     if (L.w) {
       const float* a = p.layers[l - 1].act;
       rc = kBf16 ? launch_wgrad(reinterpret_cast<B16>(a), L.dpre16, L.dw, L.in_pad, L.out_pad,
-                                p.m, s)
+                                p.m, s, reductions++ > 0)
                  : launch_wgrad(a, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s);
       if (rc) return rc;
     }
     if (L.has_x) {
-      rc = kBf16 ? launch_wgrad(p.x016, L.dpre16, L.dx, p.e, L.out_pad, p.m, s)
+      rc = kBf16 ? launch_wgrad(p.x016, L.dpre16, L.dx, p.e, L.out_pad, p.m, s, reductions++ > 0)
                  : launch_wgrad(p.x0, L.dpre, L.dx, p.e, L.out_pad, p.m, s);
       if (rc) return rc;
     }

@@ -173,26 +173,6 @@ __device__ __forceinline__ int tc_swz(int k, int p) { return k * TC_P + (p ^ ((k
 
 // ---- barriers and copies --------------------------------------------------
 
-__device__ __forceinline__ void tc_mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(tc_smem(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void tc_mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(tc_smem(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void tc_mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(tc_smem(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
 // bytes (a multiple of 16) from global src to shared dst, counted on bar
 __device__ __forceinline__ void tc_bulk_load(float* dst, const float* src, int bytes,
                                              uint64_t* bar) {

@@ -852,6 +852,9 @@ static int launch_bwd(const PPlan& p, float scale, cudaStream_t s) {
 
   constexpr bool kBf16 = Cfg::kBf16;
   static_assert(kBf16 == (sizeof(R) == 2), "bf16 arithmetic keeps bf16 residuals");
+  // bf16: every reduction after the first overlaps the kernel before it
+  // (launch_wgrad_bf16); the first reads the chain's dpre
+  int reductions = 0;
   for (int t = 0; t < p.n_trunks; ++t) {
     const PTrunk& T = p.trunks[t];
     for (int l = 0; l < T.n_layers; ++l) {
@@ -863,16 +866,17 @@ static int launch_bwd(const PPlan& p, float scale, cudaStream_t s) {
       if (L.w) {
         const float* a = T.layers[l - 1].act;
         rc = kBf16 ? launch_wgrad(reinterpret_cast<B16>(a), L.dpre16, L.dw, L.in_pad, L.out_pad,
-                                  p.m, s)
+                                  p.m, s, reductions++ > 0)
                    : launch_wgrad(a, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s);
         if (rc) return rc;
       }
       if (L.lat) {
         rc = kBf16 ? launch_wgrad(reinterpret_cast<B16>(p.lat), L.dpre16, L.dlat, p.c_pad,
-                                  L.out_pad, p.m, s)
+                                  L.out_pad, p.m, s, reductions++ > 0)
                    : launch_wgrad(p.lat, L.dpre, L.dlat, p.c_pad, L.out_pad, p.m, s);
         if (rc) return rc;
-        rc = kBf16 ? launch_wgrad(p.emb16, L.dpre16, L.dx, p.e, L.out_pad, p.m, s)
+        rc = kBf16 ? launch_wgrad(p.emb16, L.dpre16, L.dx, p.e, L.out_pad, p.m, s,
+                                  reductions++ > 0)
                    : launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s);
         if (rc) return rc;
       }

@@ -367,16 +367,19 @@ static int launch_bwd(const Plan& p, float scale, cudaStream_t s) {
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   constexpr bool kBf16 = Cfg::kBf16;
+  // bf16: every reduction after the first overlaps the kernel before it
+  // (launch_wgrad_bf16); the first reads the chain's dpre
+  int reductions = 0;
   for (int l = 0; l < p.n_layers; ++l) {
     const Layer& L = p.layers[l];
     int rc = 0;
     if (L.w)
       rc = kBf16 ? launch_wgrad(reinterpret_cast<const __nv_bfloat16*>(p.layers[l - 1].act),
-                                L.dpre16, L.dw, L.in_pad, L.out_pad, p.m, s)
+                                L.dpre16, L.dw, L.in_pad, L.out_pad, p.m, s, reductions++ > 0)
                  : launch_wgrad(p.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s);
     if (rc) return rc;
     if (L.x)
-      rc = kBf16 ? launch_wgrad(p.emb16, L.dpre16, L.dx, p.e, L.out_pad, p.m, s)
+      rc = kBf16 ? launch_wgrad(p.emb16, L.dpre16, L.dx, p.e, L.out_pad, p.m, s, reductions++ > 0)
                  : launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s);
     if (rc) return rc;
     if ((rc = launch_colsum(L.dpre, L.db, L.out_pad, p.m, L.scene_bias ? p.nps : 4096,

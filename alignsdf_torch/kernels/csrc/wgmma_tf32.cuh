@@ -7,6 +7,7 @@
 // wgmma.m64n128k8.f32.tf32.tf32 with A's fragment in registers and B in
 // shared memory, K-major: 8 x 16-byte core matrices without swizzle
 // (tc_desc), or 128-byte rows with the 128-byte swizzle (tc_desc_sw128).
+// Also the mbarrier helpers the kernels' rings share (CTA scope).
 
 #pragma once
 
@@ -89,6 +90,27 @@ __device__ __forceinline__ void tc_wgmma(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// mbarriers in this block's shared memory (CTA scope)
+__device__ __forceinline__ void tc_mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(tc_smem(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void tc_mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(tc_smem(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void tc_mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(tc_smem(bar)), "r"(parity) : "memory");
+  } while (!done);
 }
 
 // Makes this thread's generic-proxy writes to shared memory visible to the

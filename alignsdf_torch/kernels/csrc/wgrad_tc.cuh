@@ -52,27 +52,17 @@
 // beyond zero fills of shared memory, and such a call is bound by reading
 // its wide operand once.  There is no CUDA-core route.
 //
-// bf16 (K2's, K4's and K5's bf16 backwards: JAX's dW = x_bf16^T .
-// dpre.astype(bf16), decoder_train_kernel.py:609-629): the same design with
-// both operands bf16
-// in device memory, (K, m) and (N, m), which wgmma.m64n128k16 bf16 takes
-// K-major as they lie: a stage's 128-byte rows hold 64 points (4 k steps of
-// 16), in the same swizzled byte layout, so the A fragment's 32-bit words
-// sit where the float32 route's elements do and B's descriptors advance 32
-// bytes a k step as there; one product a column half and k step, no split
-// and no small halves (wgrad_bf16_tc_kernel, wgrad_bf16_tc_kernel_n128 for N
-// <= 128, the final layer's 1-2 columns).  A chunk is still at most
-// WG_MAX_CHUNK points, which bounds the float32 accumulation's error as
-// above; it is a multiple of a stage's 64.  Copies are 16 bytes where m % 8
-// == 0, else 8 (m % 4 == 0: the launcher refuses the rest).
+// bf16 operands (K2's, K4's and K5's bf16 backwards) take another design,
+// wgrad_bf16_tc.cuh (TMA, clusters with multicast, warp-specialised wgmma),
+// which launch_wgrad's bf16 overload runs.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
+#include "wgrad_bf16_tc.cuh"
 
 #define WG_BM 128       // rows of C a block: two warpgroups of 64
 #define WG_BN 256       // columns of C a block: two halves of 128 (wgmma's N)
@@ -99,46 +89,34 @@ __device__ __forceinline__ int wg_swz(int r, int p) {
   return r * WG_BP + ((((p >> 2) ^ r) & 7) << 2) + (p & 3);
 }
 
-// This thread's copies of the stage at points p .. p + 31 (bf16: p .. p +
-// 63) into `stage`: copy i is row 8 (tid / 64 + 4 i) + tid % 8 of [A's 128
-// rows; B's 256 rows], its 16-byte column q = tid / 8 % 8, points p + V q ..
-// + V - 1 (V = 4 float32 or 8 bf16 values); zeros past K, N or p_end.  vec:
-// the rows are 16-byte aligned (float32: m % 4 == 0; bf16: m % 8 == 0), so
-// a copy is all in or all out; otherwise 4-byte copies (bf16: 8-byte, m %
-// 4 == 0).
-template <class T = float>
-__device__ __forceinline__ void wg_copy(float* stage, const T* __restrict__ A,
-                                        const T* __restrict__ B, int K, int N, int m, int k0,
+// This thread's copies of the stage at points p .. p + 31 into `stage`: copy
+// i is row 8 (tid / 64 + 4 i) + tid % 8 of [A's 128 rows; B's 256 rows], its
+// 16-byte column q = tid / 8 % 8, points p + 4 q .. + 3; zeros past K, N or
+// p_end.  vec: the rows are 16-byte aligned (m % 4 == 0), so a copy is all
+// in or all out; otherwise 4-byte copies.
+__device__ __forceinline__ void wg_copy(float* stage, const float* __restrict__ A,
+                                        const float* __restrict__ B, int K, int N, int m, int k0,
                                         int n0, int p, int p_end, bool vec, int tid) {
-  constexpr int V = 16 / sizeof(T), E = sizeof(T) == 2 ? 8 : 4;  // values a copy; bytes a small copy
-  const int q = (tid >> 3) & 7, pt = p + V * q;
+  const int q = (tid >> 3) & 7, pt = p + 4 * q;
 #pragma unroll
   for (int i = 0; i < WG_COPIES; ++i) {
     const int r = 8 * ((tid >> 6) + 4 * i) + (tid & 7);
     const bool is_a = i < WG_A_COPIES;
     const int row = is_a ? k0 + r : n0 + r - WG_BM;
     const bool ok = row < (is_a ? K : N);
-    const T* base = is_a ? A : B;  // read from only where a copy has bytes
-    const T* src = base + (size_t)(ok ? row : 0) * m + pt;
+    const float* base = is_a ? A : B;  // read from only where a copy has bytes
+    const float* src = base + (size_t)(ok ? row : 0) * m + pt;
     const uint32_t dst = tc_smem(stage + wg_swz(r, 4 * q));
     if (vec) {
       const bool in = ok && pt < p_end;
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
                    :: "r"(dst), "l"(in ? src : base), "r"(in ? 16 : 0) : "memory");
     } else {
-      constexpr int per = E / (int)sizeof(T);  // values a small copy
 #pragma unroll
-      for (int e = 0; e < 16 / E; ++e) {
-        const bool in = ok && pt + per * e < p_end;
-        if constexpr (E == 8) {
-          asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
-                       :: "r"(dst + E * e), "l"(in ? src + per * e : base), "r"(in ? E : 0)
-                       : "memory");
-        } else {
-          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-                       :: "r"(dst + E * e), "l"(in ? src + per * e : base), "r"(in ? E : 0)
-                       : "memory");
-        }
+      for (int e = 0; e < 4; ++e) {
+        const bool in = ok && pt + e < p_end;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                     :: "r"(dst + 4 * e), "l"(in ? src + e : base), "r"(in ? 4 : 0) : "memory");
       }
     }
   }
@@ -146,15 +124,13 @@ __device__ __forceinline__ void wg_copy(float* stage, const T* __restrict__ A,
 }
 
 // Stage s's copies into its ring slot, or an empty group past the chunk.
-template <class T = float>
 __device__ __forceinline__ void wg_copy_next(float* smem, int s, int stages,
-                                             const T* __restrict__ A,
-                                             const T* __restrict__ B, int K, int N, int m,
+                                             const float* __restrict__ A,
+                                             const float* __restrict__ B, int K, int N, int m,
                                              int k0, int n0, int p_begin, int p_end, bool vec,
                                              int tid) {
-  constexpr int points = WG_BP * 4 / (int)sizeof(T);  // a stage's
   if (s < stages) {
-    wg_copy(smem + (s % WG_RING) * WG_STAGE_FLOATS, A, B, K, N, m, k0, n0, p_begin + s * points,
+    wg_copy(smem + (s % WG_RING) * WG_STAGE_FLOATS, A, B, K, N, m, k0, n0, p_begin + s * WG_BP,
             p_end, vec, tid);
   } else {
     asm volatile("cp.async.commit_group;" ::: "memory");
@@ -203,23 +179,19 @@ __device__ __forceinline__ void wg_add(const float (&acc)[64], float* __restrict
 // the last runs, the next stage's copies are waited for and its small
 // halves made.  Each stage's copies are one cp.async group (an empty one
 // past the chunk), so "all but the newest group" is always the next stage.
-// T = __nv_bfloat16: a stage is 64 points, each k step's A fragment four
-// 32-bit words of bf16 pairs read as they lie, one bf16 product a half,
-// no small halves.
-template <int NH, class T = float>
-__device__ __forceinline__ void wgrad_tile(const T* __restrict__ A, const T* __restrict__ B,
-                                           float* __restrict__ C, int K, int N, int m, int chunk,
-                                           int tiles_k, bool vec, float* smem) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int points = WG_BP * 4 / (int)sizeof(T);  // a stage's
+template <int NH>
+__device__ __forceinline__ void wgrad_tile(const float* __restrict__ A,
+                                           const float* __restrict__ B, float* __restrict__ C,
+                                           int K, int N, int m, int chunk, int tiles_k, bool vec,
+                                           float* smem) {
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int k0 = (blockIdx.x % tiles_k) * WG_BM, n0 = (blockIdx.x / tiles_k) * WG_BN;
   const int p_begin = blockIdx.y * chunk, p_end = min(m, p_begin + chunk);
-  const int stages = (p_end - p_begin + points - 1) / points;
+  const int stages = (p_end - p_begin + WG_BP - 1) / WG_BP;
   const bool rows_on = k0 + 64 * wg < K;  // uniform over the warpgroup
   float* small = smem + WG_RING * WG_STAGE_FLOATS;
-  // this thread's A fragment: rows 16 warp + lane / 4 (+ 8), 32-bit words
-  // lane % 4 (+ 4) of each k step's 8 (float32: points; bf16: point pairs)
+  // this thread's A fragment: rows 16 warp + lane / 4 (+ 8), points lane %
+  // 4 (+ 4) of each k step's 8
   const int ar = 64 * wg + 16 * warp + (lane >> 2), t4 = lane & 3;
   float acc0[64], acc1[64];
 #pragma unroll
@@ -231,11 +203,9 @@ __device__ __forceinline__ void wgrad_tile(const T* __restrict__ A, const T* __r
   asm volatile("cp.async.wait_group 1;" ::: "memory");
   tc_fence_proxy_async();
   __syncthreads();
-  if constexpr (!kBf16) {
-    wg_small(small, smem, tid);
-    tc_fence_proxy_async();
-    __syncthreads();
-  }
+  wg_small(small, smem, tid);
+  tc_fence_proxy_async();
+  __syncthreads();
   for (int st = 0; st < stages; ++st) {
     wg_copy_next(smem, st + 2, stages, A, B, K, N, m, k0, n0, p_begin, p_end, vec, tid);
     const float* cur = smem + (st % WG_RING) * WG_STAGE_FLOATS;
@@ -246,35 +216,23 @@ __device__ __forceinline__ void wgrad_tile(const T* __restrict__ A, const T* __r
         // k step j: 32 bytes into each 128-byte row; column half h: rows 128 h on
         const float* bt = cur + WG_BM * WG_BP + 8 * j;
         const uint64_t bb0 = tc_desc_sw128(bt), bb1 = tc_desc_sw128(bt + 128 * WG_BP);
-        if constexpr (kBf16) {
-          const uint32_t* cw = reinterpret_cast<const uint32_t*>(cur);
-          const uint32_t ab[4] = {cw[wg_swz(ar, 8 * j + t4)], cw[wg_swz(ar + 8, 8 * j + t4)],
-                                  cw[wg_swz(ar, 8 * j + t4 + 4)],
-                                  cw[wg_swz(ar + 8, 8 * j + t4 + 4)]};
-          tc_fence_acc(acc0);
-          if (NH > 1) tc_fence_acc(acc1);
-          tc_wgmma_fence();
-          tc_wgmma_bf16(acc0, ab, bb0, 1);
-          if (NH > 1) tc_wgmma_bf16(acc1, ab, bb1, 1);
-        } else {
-          uint32_t ab[4], as[4];
-          tc_split(cur[wg_swz(ar, 8 * j + t4)], ab[0], as[0]);
-          tc_split(cur[wg_swz(ar + 8, 8 * j + t4)], ab[1], as[1]);
-          tc_split(cur[wg_swz(ar, 8 * j + t4 + 4)], ab[2], as[2]);
-          tc_split(cur[wg_swz(ar + 8, 8 * j + t4 + 4)], ab[3], as[3]);
-          const float* bs = cur_small + 8 * j;
-          const uint64_t bs0 = tc_desc_sw128(bs), bs1 = tc_desc_sw128(bs + 128 * WG_BP);
-          tc_fence_acc(acc0);
-          if (NH > 1) tc_fence_acc(acc1);
-          tc_wgmma_fence();
-          tc_wgmma(acc0, ab, bb0, 1);
-          tc_wgmma(acc0, as, bb0, 1);
-          tc_wgmma(acc0, ab, bs0, 1);
-          if (NH > 1) {
-            tc_wgmma(acc1, ab, bb1, 1);
-            tc_wgmma(acc1, as, bb1, 1);
-            tc_wgmma(acc1, ab, bs1, 1);
-          }
+        uint32_t ab[4], as[4];
+        tc_split(cur[wg_swz(ar, 8 * j + t4)], ab[0], as[0]);
+        tc_split(cur[wg_swz(ar + 8, 8 * j + t4)], ab[1], as[1]);
+        tc_split(cur[wg_swz(ar, 8 * j + t4 + 4)], ab[2], as[2]);
+        tc_split(cur[wg_swz(ar + 8, 8 * j + t4 + 4)], ab[3], as[3]);
+        const float* bs = cur_small + 8 * j;
+        const uint64_t bs0 = tc_desc_sw128(bs), bs1 = tc_desc_sw128(bs + 128 * WG_BP);
+        tc_fence_acc(acc0);
+        if (NH > 1) tc_fence_acc(acc1);
+        tc_wgmma_fence();
+        tc_wgmma(acc0, ab, bb0, 1);
+        tc_wgmma(acc0, as, bb0, 1);
+        tc_wgmma(acc0, ab, bs0, 1);
+        if (NH > 1) {
+          tc_wgmma(acc1, ab, bb1, 1);
+          tc_wgmma(acc1, as, bb1, 1);
+          tc_wgmma(acc1, ab, bs1, 1);
         }
         tc_wgmma_commit();
         if (j + 1 < WG_BP / 8) {
@@ -284,15 +242,13 @@ __device__ __forceinline__ void wgrad_tile(const T* __restrict__ A, const T* __r
         }
       }
     }
-    if (st + 1 < stages) {  // the next stage has landed (float32: its small halves)
+    if (st + 1 < stages) {  // the next stage has landed: its small halves
       asm volatile("cp.async.wait_group 1;" ::: "memory");
       tc_fence_proxy_async();
       __syncthreads();
-      if constexpr (!kBf16) {
-        wg_small(small + ((st + 1) & 1) * WG_SMALL_FLOATS,
-                 smem + ((st + 1) % WG_RING) * WG_STAGE_FLOATS, tid);
-        tc_fence_proxy_async();
-      }
+      wg_small(small + ((st + 1) & 1) * WG_SMALL_FLOATS,
+               smem + ((st + 1) % WG_RING) * WG_STAGE_FLOATS, tid);
+      tc_fence_proxy_async();
     }
     if (rows_on) {
       tc_wgmma_wait();
@@ -324,31 +280,13 @@ wgrad_tc_kernel_n128(const float* __restrict__ A, const float* __restrict__ B,
   wgrad_tile<1>(A, B, C, K, N, m, chunk, tiles_k, vec, smem);
 }
 
-__global__ void __launch_bounds__(WG_THREADS, 1)
-wgrad_bf16_tc_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
-                     float* __restrict__ C, int K, int N, int m, int chunk, int tiles_k, int vec) {
-  extern __shared__ __align__(1024) float smem[];
-  wgrad_tile<2>(A, B, C, K, N, m, chunk, tiles_k, vec, smem);
-}
-
-__global__ void __launch_bounds__(WG_THREADS, 1)
-wgrad_bf16_tc_kernel_n128(const __nv_bfloat16* __restrict__ A,
-                          const __nv_bfloat16* __restrict__ B, float* __restrict__ C, int K, int N,
-                          int m, int chunk, int tiles_k, int vec) {
-  extern __shared__ __align__(1024) float smem[];
-  wgrad_tile<1>(A, B, C, K, N, m, chunk, tiles_k, vec, smem);
-}
-
-// C (K, N) += A (K, m) . B (N, m)^T, A and B float32 (split TF32) or bf16.
-// C must hold zeros (or a sum to add to).  Returns -1 for a bf16 m that is
-// not a multiple of 4, else 0 or the launch's CUDA error.
-template <class T>
-static int launch_wgrad(const T* A, const T* B, float* C, int K, int N, int m,
+// C (K, N) += A (K, m) . B (N, m)^T, A and B float32 (split TF32, here) or
+// bf16 (launch_wgrad_bf16, wgrad_bf16_tc.cuh, which takes `overlap`).  C
+// must hold zeros (or a sum to add to).  Returns 0 or the launch's error
+// (bf16: launch_wgrad_bf16's).
+static int launch_wgrad(const float* A, const float* B, float* C, int K, int N, int m,
                         cudaStream_t stream) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int points = WG_BP * 4 / (int)sizeof(T);  // a stage's
   if (K <= 0 || N <= 0 || m <= 0) return 0;
-  if (kBf16 && m % 4) return -1;
   static int sms = 0;
   if (!sms) {
     int dev = 0;
@@ -356,12 +294,7 @@ static int launch_wgrad(const T* A, const T* B, float* C, int K, int N, int m,
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) sms = 132;
   }
   const bool narrow = N <= 128;
-  const void* kernel;
-  if constexpr (kBf16) {
-    kernel = narrow ? (const void*)wgrad_bf16_tc_kernel_n128 : (const void*)wgrad_bf16_tc_kernel;
-  } else {
-    kernel = narrow ? (const void*)wgrad_tc_kernel_n128 : (const void*)wgrad_tc_kernel;
-  }
+  const void* kernel = narrow ? (const void*)wgrad_tc_kernel_n128 : (const void*)wgrad_tc_kernel;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          WG_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -377,27 +310,21 @@ static int launch_wgrad(const T* A, const T* B, float* C, int K, int N, int m,
   if (splits > 65535) splits = 65535;
   if (splits < 1) splits = 1;
   int chunk = (m + splits - 1) / splits;
-  chunk = (chunk + points - 1) / points * points;
+  chunk = (chunk + WG_BP - 1) / WG_BP * WG_BP;
   splits = (m + chunk - 1) / chunk;
-  const int vec = m % (16 / (int)sizeof(T)) == 0 && (uintptr_t)A % 16 == 0 &&
-                  (uintptr_t)B % 16 == 0;
+  const int vec = m % 4 == 0 && (uintptr_t)A % 16 == 0 && (uintptr_t)B % 16 == 0;
   const dim3 grid(tiles, splits);
-  if constexpr (kBf16) {
-    if (narrow) {
-      wgrad_bf16_tc_kernel_n128<<<grid, WG_THREADS, WG_SMEM_BYTES, stream>>>(
-          A, B, C, K, N, m, chunk, tiles_k, vec);
-    } else {
-      wgrad_bf16_tc_kernel<<<grid, WG_THREADS, WG_SMEM_BYTES, stream>>>(A, B, C, K, N, m, chunk,
-                                                                        tiles_k, vec);
-    }
+  if (narrow) {
+    wgrad_tc_kernel_n128<<<grid, WG_THREADS, WG_SMEM_BYTES, stream>>>(A, B, C, K, N, m, chunk,
+                                                                      tiles_k, vec);
   } else {
-    if (narrow) {
-      wgrad_tc_kernel_n128<<<grid, WG_THREADS, WG_SMEM_BYTES, stream>>>(A, B, C, K, N, m, chunk,
-                                                                        tiles_k, vec);
-    } else {
-      wgrad_tc_kernel<<<grid, WG_THREADS, WG_SMEM_BYTES, stream>>>(A, B, C, K, N, m, chunk,
-                                                                   tiles_k, vec);
-    }
+    wgrad_tc_kernel<<<grid, WG_THREADS, WG_SMEM_BYTES, stream>>>(A, B, C, K, N, m, chunk,
+                                                                 tiles_k, vec);
   }
   return (int)cudaGetLastError();
+}
+
+static int launch_wgrad(const __nv_bfloat16* A, const __nv_bfloat16* B, float* C, int K, int N,
+                        int m, cudaStream_t stream, bool overlap = false) {
+  return launch_wgrad_bf16(A, B, C, K, N, m, stream, overlap);
 }

@@ -53,7 +53,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      backward per step (both trunks, 64 x 2000) against their plain
      versions and both bounds, the backward's chain kernel (csrc/chain_tc.cuh
      on the tensor cores) timed apart by the profiler beside both bounds of
-     its work, and the backward's weight-gradient reductions
+     its work (the mean of the launches it recorded, times the launches a
+     call), and the backward's weight-gradient reductions
      alone (csrc/wgrad_tc.cuh, through kernels/weight_grad.py on seeded
      operands of their shapes: each route's time, both bounds,
      torch.matmul(A, B.T) with TF32 off beside);
@@ -253,10 +254,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      forward and backward per step against the plain bf16 versions, the
      bf16 bounds (the FLOPs at 989.4 TFLOP/s, the bytes at 3.35 TB/s) and
      split TF32's, its chain by the profiler and its reduction alone beside
-     torch.matmul on bf16; BASELINE.json's configs 1 and 2 trained 3 steps
-     through K2 in float32 and in bf16, then each served (1 image at 128^3,
-     each K1 pass against its plain version); phase 16's bf16-trained proof
-     and phase 18's bf16 pack run (above);
+     torch.matmul on bf16 (csrc/wgrad_bf16_tc.cuh: first each step shape
+     against weight_grad_reference and float64, every entry within
+     WGRAD_BF16_TOL of |A_k| |B_n|, with the launcher's cluster, chunk,
+     loads, and the L2 reads and atomics of its plan; the step's calls
+     timed as the backward launches them); BASELINE.json's configs 1 and 2
+     trained 3 steps through K2 in float32 and in bf16, then each served (1
+     image at 128^3, each K1 pass against its plain version); phase 16's
+     bf16-trained proof and phase 18's bf16 pack run (above);
  21. bf16 training through K4 and K5 (cli.train --bf16 on --pa_feat,
      --pa_feat --cls and latent_in (0, 2)): K4 on bf16 wgmma with bf16
      residuals, latent and table copy against its plain bf16 version at 4
@@ -377,6 +382,14 @@ K5_BWD_KERNELS = ("generic_train_bwd_chain_tc_kernel", "wgrad_tc_kernel", "colsu
 K6_TOL = 1e-4
 TC_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_tc.cuh"  # K1's, K3's and K6's trunk
 WGRAD_SOURCE = "alignsdf_torch/kernels/csrc/wgrad_tc.cuh"  # K2's, K4's and K5's dW reduction
+# their bf16 backwards' dW reduction (wgrad_bf16_tc_kernel<BN, RING>: TMA,
+# clusters with multicast, warp-specialised wgmma)
+WGRAD_BF16_SOURCE = "alignsdf_torch/kernels/csrc/wgrad_bf16_tc.cuh"
+# the bf16 reduction alone against float64 and weight_grad_reference at a
+# step's shapes: every entry within this of |A_k| |B_n|, the bound of
+# tests/test_torch_cuda.py's bf16 weight-gradient tests at 128,000 points
+# (measured 4e-9-1.5e-7; C rounded to bf16 would err ~5e-6)
+WGRAD_BF16_TOL = 1e-6
 CHAIN_SOURCE = "alignsdf_torch/kernels/csrc/chain_tc.cuh"  # K2's, K4's and K5's backward chain
 FWD_SOURCE = "alignsdf_torch/kernels/csrc/train_fwd_tc.cuh"  # K2's, K4's and K5's forward
 # K2's and K4's forwards against the plain forward: a hidden unit whose
@@ -686,8 +699,8 @@ def kernel_ms_per_launch(prof, prefix: str) -> Optional[float]:
     """The mean device ms of the kernel launches a torch.profiler run saw
     whose names start with ``prefix``, or None where it saw none: for a
     kernel launched once a call, its time a call even where the window
-    dropped a call's events (one of three has been seen: chain_timing's
-    sum over CHAIN_PROFILED calls then reads two thirds of the time)."""
+    dropped a call's events (one of three has been seen; chain_timing
+    divides by the launches recorded for the same reason)."""
     from torch.autograd import DeviceType
 
     times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
@@ -772,12 +785,16 @@ def k2_chain_work(ws, xs, m: int, e: int, out_pads, bf16: bool = False):
 
 
 def chain_timing(label: str, chain_kernel: str, bwd, flops: float, nbytes: float,
-                 card: str, bf16: bool = False) -> Optional[dict]:
-    """A backward's chain kernel timed apart: its device time per call from
-    torch.profiler over CHAIN_PROFILED calls of ``bwd`` (after one warm-up),
-    beside the split-TF32 and float32 bounds of its work; None where the
-    profiler saw no device event."""
+                 card: str, bf16: bool = False, per_call: int = 1) -> Optional[dict]:
+    """A backward's chain kernel timed apart: its device time per call of
+    ``bwd`` (``per_call`` chain launches: one a trunk for K2 and K5, one for
+    K4's two) from torch.profiler over CHAIN_PROFILED calls (after one
+    warm-up), as the mean of the launches the profiler recorded (a window
+    may drop a call's events) times per_call, beside the split-TF32 and
+    float32 bounds of its work; None where the profiler saw no device event
+    or no chain launch."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     bwd()
@@ -792,11 +809,20 @@ def chain_timing(label: str, chain_kernel: str, bwd, flops: float, nbytes: float
     if summary is None:
         print(f"{label} chain: not measured (the profiler recorded no device events)", flush=True)
         return None
-    ms = sum(v for k, v in summary[2].items() if k.startswith(chain_kernel)) / CHAIN_PROFILED
-    rec = {"kernel": chain_kernel, "ms": ms, **train_bounds(flops, nbytes, bf16),
+    launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and e.name.removeprefix("void ").startswith(chain_kernel))
+    if not launches:
+        print(f"{label} chain: not measured (the profiler recorded no {chain_kernel} launch)",
+              flush=True)
+        return None
+    ms = (sum(v for k, v in summary[2].items() if k.startswith(chain_kernel)) / launches
+          * per_call)
+    rec = {"kernel": chain_kernel, "ms": ms, "launches_recorded": launches,
+           "launches_expected": CHAIN_PROFILED * per_call, **train_bounds(flops, nbytes, bf16),
            "tflop": flops / 1e12,
            "gbytes": nbytes / 1e9, "tflops": flops / ms / 1e9 if ms > 0 else None}
-    print(f"[{card}] {label} backward's chain ({chain_kernel}, profiler, {CHAIN_PROFILED} calls): "
+    print(f"[{card}] {label} backward's chain ({chain_kernel}, profiler, {CHAIN_PROFILED} calls: "
+          f"{launches} of {CHAIN_PROFILED * per_call} launches recorded, {per_call} a call): "
           f"{ms:.2f} ms a step ({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB, "
           f"{flops / ms / 1e9 if ms > 0 else 0.0:.1f} TFLOP/s), {bounds_text(rec)}", flush=True)
     return rec
@@ -1392,7 +1418,7 @@ def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
               f"{bounds_text(res[name])}", flush=True)
     res["bwd"]["chain"] = chain_timing(
         f"{kern.name}{' with x_last' if x_last else ''}", kern.bwd_kernels[0], bwd_kernel,
-        chain_flops, chain_bytes, card, bf16)
+        chain_flops, chain_bytes, card, bf16, per_call=len(packs))
     restore_counts(kern, saved)
     res["bwd"]["reduction"] = reduction_timing(kern.name, [s for p in packs
                                                             for s in wgrad_shapes(p)], m, dev, card,
@@ -1421,17 +1447,23 @@ def wgrad_shapes(pack):
 
 def reduction_timing(name: str, shapes, m: int, dev, card: str, dtype=None) -> dict:
     """A train backward's weight-gradient reductions of one step on their
-    own, through ``weight_grad`` (the kernel the backwards launch, on seeded
-    operands of their shapes over m points), each route's share (the
-    kernel for N <= 128 columns, and the other), beside torch.matmul(A,
-    B.T) with TF32 off on the same operands, the split-TF32 and float32
-    bounds, the bytes each operand once (the bound's) and the design's reads
-    from L2 (A once per 256 columns of C, B once per 128 rows).  With
-    ``dtype`` bfloat16 the operands are bf16 (K2's bf16 backward), the
-    bounds bf16's and the library call torch.matmul on bf16."""
+    own, through ``weight_grads`` (the kernel the backwards launch, launched
+    as they launch it, on seeded operands of their shapes over m points),
+    each route's share (the kernel for N <= 128 columns, and the other),
+    beside torch.matmul(A, B.T) with TF32 off on the same operands, the
+    split-TF32 and float32 bounds, the bytes each operand once (the
+    bound's) and the design's reads from L2 (A once per 256 columns of C, B
+    once per 128 rows).  With
+    ``dtype`` bfloat16 the operands are bf16 (the bf16 backwards'), the
+    bounds bf16's, the library call torch.matmul on bf16, and the kernel
+    (csrc/wgrad_bf16_tc.cuh) is first held against weight_grad_reference
+    and float64 at each shape (every entry within WGRAD_BF16_TOL of |A_k|
+    |B_n|, or the run fails); its launcher's plan for each shape is printed
+    (cluster, chunk, loads) and its L2 reads and atomics counted from it."""
     import torch
 
-    from alignsdf_torch.kernels.weight_grad import weight_grad
+    from alignsdf_torch.kernels.weight_grad import (weight_grad, weight_grad_plan,
+                                                    weight_grad_reference, weight_grads)
 
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
@@ -1445,11 +1477,31 @@ def reduction_timing(name: str, shapes, m: int, dev, card: str, dtype=None) -> d
     routes = {"n128": [i for i, (_, n) in enumerate(shapes) if n <= 128],
               "wide": [i for i, (_, n) in enumerate(shapes) if n > 128]}
     saved = weight_grad.launches, weight_grad.bf16_launches
+    plans, checks = {}, {}
+    if bf16:
+        for k, n in dict.fromkeys(shapes):
+            plans[(k, n)] = plan = weight_grad_plan(k, n, m)
+            a, b = a_of[k], b_of[n]
+            c = weight_grad(a, b).double()
+            scale = a.double().norm(dim=1)[:, None] * b.double().norm(dim=1)[None, :]
+            errs = {"float64": float(((c - a.double() @ b.double().T).abs() / scale).max()),
+                    "plain": float(((c - weight_grad_reference(a, b).double()).abs()
+                                    / scale).max())}
+            checks[f"{k}x{n}"] = errs
+            print(f"[{card}] {name} bf16 reduction ({k}, {n}) over {m} points: tile 128 x "
+                  f"{plan['bn']}, cluster {plan['ck']} x {plan['cn']} tiles, {plan['chunks']} "
+                  f"chunks of {plan['chunk']} points ({plan['clusters_fit']} clusters fit), "
+                  f"{'TMA' if plan['tma'] else 'producer copies'}, pieces {plan['a_piece']} / "
+                  f"{plan['a_rows']} rows of A, {plan['b_piece']} / {plan['b_rows']} of B; "
+                  f"error of |A_k| |B_n|: {errs['float64']:.2e} from float64, "
+                  f"{errs['plain']:.2e} from weight_grad_reference (bound {WGRAD_BF16_TOL:g})",
+                  flush=True)
+            if not max(errs.values()) <= WGRAD_BF16_TOL:
+                fail(f"{name} bf16 reduction ({k}, {n}): {errs} of |A_k| |B_n|")
 
-    def run(idx):
-        for i in idx:
-            k, n = shapes[i]
-            weight_grad(a_of[k], b_of[n], out=outs[i])
+    def run(idx):  # as a backward launches them (bf16: each after the first overlaps)
+        weight_grads([(a_of[shapes[i][0]], b_of[shapes[i][1]]) for i in idx],
+                     [outs[i] for i in idx])
 
     def lib():
         for k, n in shapes:
@@ -1464,23 +1516,37 @@ def reduction_timing(name: str, shapes, m: int, dev, card: str, dtype=None) -> d
     weight_grad.launches, weight_grad.bf16_launches = saved
     flops = sum(2 * k * n * m for k, n in shapes)
     nbytes = sum(size * (k * m + n * m) + 4 * k * n for k, n in shapes)
-    l2_bytes = sum(size * m * (k * -(-n // 256) + n * -(-k // 128)) for k, n in shapes)
+    atomics = None
+    if bf16:  # A read once per group of clusters along N, B once per group along K
+        l2_bytes, atomics = 0, 0
+        for k, n in shapes:
+            p = plans[(k, n)]
+            tiles_k, tiles_n = -(-k // 128), -(-n // p["bn"])
+            l2_bytes += size * m * (k * (tiles_n // p["cn"]) + n * (tiles_k // p["ck"]))
+            atomics += p["chunks"] * k * n // (4 if p["vec_out"] else 1)
+    else:
+        l2_bytes = sum(size * m * (k * -(-n // 256) + n * -(-k // 128)) for k, n in shapes)
     best = min(k_ms, k_ms2)
     rec = {"ms": best, "ms_runs": [k_ms, k_ms2], "library_ms": lib_ms,
            "library": "torch.matmul(A, B.T), " + ("bf16" if bf16 else "TF32 off"),
-           "calls": len(shapes),
+           "source": WGRAD_BF16_SOURCE if bf16 else WGRAD_SOURCE, "calls": len(shapes),
            "shapes": [list(s) for s in shapes], "route_ms": route_ms,
            "route_share": {r: v / sum(route_ms.values()) for r, v in route_ms.items()},
            **train_bounds(flops, nbytes, bf16), "tflop": flops / 1e12, "gbytes": nbytes / 1e9,
            "l2_read_gbytes": l2_bytes / 1e9, "tflops": flops / best / 1e9}
+    if bf16:
+        rec.update(plans={f"{k}x{n}": p for (k, n), p in plans.items()}, check=checks,
+                   atomics=atomics)
     print(f"[{card}] {name}{' bf16' if bf16 else ''} weight-gradient reduction per step "
           f"({len(shapes)} calls over {m} "
           f"points, {flops / 1e12:.3f} TFLOP, operands {nbytes / 1e9:.3f} GB once, "
-          f"{l2_bytes / 1e9:.3f} GB read from L2 by the design): kernel {k_ms:.2f} / "
-          f"{k_ms2:.2f} ms ({rec['tflops']:.1f} TFLOP/s; routes: N > 128 "
+          f"{l2_bytes / 1e9:.3f} GB read from L2 by the design's plan"
+          + (f", {atomics} atomic instructions by the plan" if bf16 else "")
+          + f"): kernel {k_ms:.3f} / {k_ms2:.3f} ms ({rec['tflops']:.1f} TFLOP/s; "
+          f"routes: N > 128 "
           f"{route_ms['wide']:.2f} ms, N <= 128 {route_ms['n128']:.2f} ms, shares "
           f"{rec['route_share']['wide']:.3f} / {rec['route_share']['n128']:.3f}), "
-          f"torch.matmul {lib_ms:.2f} ms, {bounds_text(rec)}", flush=True)
+          f"torch.matmul {lib_ms:.3f} ms, {bounds_text(rec)}", flush=True)
     return rec
 
 
@@ -1494,7 +1560,7 @@ def backward_entry(t: dict) -> dict:
     if r is None:
         return {}
     out = {"weight_grad_reduction": {
-        "source": WGRAD_SOURCE, "ms": r["ms"], "route_ms": r["route_ms"],
+        "source": r["source"], "ms": r["ms"], "route_ms": r["route_ms"],
         "library_ms": r["library_ms"], "library_call": r["library"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}}
     c = t.get("chain")

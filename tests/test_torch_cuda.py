@@ -52,7 +52,7 @@ from alignsdf_torch.kernels.pixel_train_decoder import (
     tile_band_bounds,
     unflatten_pixel_params,
 )
-from alignsdf_torch.kernels.weight_grad import weight_grad, weight_grad_reference
+from alignsdf_torch.kernels.weight_grad import weight_grad, weight_grad_reference, weight_grads
 from alignsdf_torch.kernels.train_decoder import (
     flatten_params,
     pack_trunk,
@@ -1539,6 +1539,64 @@ def test_cuda_bf16_weight_grad_matches_float64(k, n, m):
     ref = a.double() @ b.double().T
     assert float((c.double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     assert torch.equal(weight_grad_reference(a.cpu(), b.cpu()), a.cpu().float() @ b.cpu().float().T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,m,prior", [(512, 512, 128000, False), (9, 512, 128000, False),
+                                         (512, 2, 128000, False), (512, 512, 128000, True),
+                                         (256, 262, 4004, True), (6, 512, 20004, False)])
+def test_cuda_bf16_weight_grad_step_shapes(k, n, m, prior):
+    """The bf16 route at a train step's shapes (a hidden layer, the
+    embedding's dX, the final layer; 64 x 2000 points, the kernel's longest
+    chunks and its clusters) against float64, every entry within 1e-6 of
+    |A_k| |B_n| (a tenth of test_cuda_weight_grad_matches_float64's bound
+    at 128,000 points: C rounded to bf16 would miss it); with ``prior``,
+    ``out`` already holds a sum; m % 8 == 4 rows, which TMA cannot
+    describe, take the producer's own copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(k + n + m)
+    a = torch.relu(torch.randn(k, m, generator=gen)).to(torch.bfloat16).cuda()
+    b = torch.randn(n, m, generator=gen).to(torch.bfloat16).cuda()
+    start = (torch.randn(k, n, generator=gen) * 10.0 if prior else torch.zeros(k, n)).cuda()
+    out = start.clone()
+    before = weight_grad.bf16_launches
+    c = weight_grad(a, b, out=out)
+    torch.cuda.synchronize()
+    assert c is out and weight_grad.bf16_launches == before + 1
+    exact = start.double() + a.double() @ b.double().T
+    scale_kn = a.double().norm(dim=1)[:, None] * b.double().norm(dim=1)[None, :]
+    err = (c.double() - exact).abs()
+    assert bool((err <= 1e-6 * scale_kn + 1e-6 * start.double().abs()).all()), \
+        float((err / scale_kn).max())
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_weight_grads_run():
+    """A run of a step's reductions launched as a backward launches them
+    (weight_grads: each after the first overlaps the one before), over
+    128,000 points, one into an ``out`` holding a sum: every entry within
+    1e-6 of |A_k| |B_n| of float64, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    m = 128000
+    gen = torch.Generator().manual_seed(23)
+    shapes = [(512, 512), (512, 512), (9, 512), (512, 2), (262, 512), (512, 512)]
+    pairs = [(torch.relu(torch.randn(k, m, generator=gen)).to(torch.bfloat16).cuda(),
+              torch.randn(n, m, generator=gen).to(torch.bfloat16).cuda()) for k, n in shapes]
+    prior = (torch.randn(9, 512, generator=gen) * 10.0).cuda()
+    outs = [None, None, prior.clone(), None, None, None]
+    before = weight_grad.bf16_launches
+    cs = weight_grads(pairs, outs)
+    torch.cuda.synchronize()
+    assert weight_grad.bf16_launches == before + len(shapes) and cs[2] is outs[2]
+    for i, ((a, b), c) in enumerate(zip(pairs, cs)):
+        start = prior.double() if i == 2 else torch.zeros((), dtype=torch.float64, device="cuda")
+        exact = start + a.double() @ b.double().T
+        scale_kn = a.double().norm(dim=1)[:, None] * b.double().norm(dim=1)[None, :]
+        err = (c.double() - exact).abs()
+        assert bool((err <= 1e-6 * scale_kn + 1e-6 * start.abs()).all()), \
+            (i, float((err / scale_kn).max()))
 
 
 def _final_latent_grads_close(grads, ref, bf16: bool, sampling: int = 0) -> None:
