@@ -65,10 +65,13 @@
 // (8 KB): 231,776 bytes, one block an SM.  K4's tap stage, after the chain,
 // reuses the buffer.
 //
-// bf16 (K2, K4 and K5 with TcBf16, the JAX kernels' backwards with cdtype
-// bfloat16, decoder_train_kernel.py:609-640, :207-285 and
-// decoder_train_pixel.py:464-487): the same chain templated on the trunk's
-// arithmetic.  The gates come from the bf16 residuals (8 bytes
+// bf16 (K4 and K5 with TcBf16, the JAX kernels' backwards with cdtype
+// bfloat16, decoder_train_kernel.py:207-285 and decoder_train_pixel.py:
+// 464-487): the same chain templated on the trunk's arithmetic.  K2's bf16
+// chain moved to its own design, chain_bf16_tc.cuh (dpre kept in bf16 and
+// read by wgmma from shared memory, the tiles multicast to a cluster, the
+// gate and db in the epilogue: no float32 dpre, no colsum); K4's and K5's
+// stay here.  The gates come from the bf16 residuals (8 bytes
 // a 4-point run); every product takes dpre rounded to bf16: the gate pass
 // (and the final rows, whose dy (1 - y^2) is rounded before its dx) writes
 // dpre twice, float32 for colsum's bias sums, which JAX takes of the

@@ -52,18 +52,24 @@
 // One call of train_decoder_bwd enqueues all of these on one stream.
 //
 // bf16 (the launchers' int `bf16`; the JAX kernel with cdtype bfloat16,
-// decoder_train_kernel.py:420-470, :483-485, :545-640): the same kernels on
-// the trunk's TcBf16 arithmetic, one wgmma.m64n128k16 bf16 product a k step
-// of 16 against bf16 tiles; the pack holds the weights, X and the embedding
-// rounded to bf16 (the biases float32), the forward rounds each gated
-// activation to bf16 and stores the residuals as bf16; the chain writes
-// each dpre twice, float32 (colsum: the bias sums of the unrounded dpre)
-// and rounded to bf16 (the reductions: wgrad_tc.cuh's bf16 route, dW from
-// the bf16 residuals, dX from the embedding's bf16 copy emb16).
+// decoder_train_kernel.py:420-470, :483-485, :545-640): the forward is the
+// same kernel on the trunk's TcBf16 arithmetic, one wgmma.m64n128k16 bf16
+// product a k step of 16 against bf16 tiles; the pack holds the weights, X
+// and the embedding rounded to bf16 (the biases float32), the forward rounds
+// each gated activation to bf16 and stores the residuals as bf16.  The
+// backward's chain is its own design, chain_bf16_tc.cuh
+// (train_bwd_chain_bf16_kernel): dpre in a bf16 buffer read by wgmma from
+// shared memory, the tiles multicast to a cluster, the gate and the bias
+// sums in the epilogue.  It writes each dpre once, rounded to bf16, for the
+// reductions (wgrad_tc.cuh's bf16 route, dW from the bf16 residuals, dX from
+// the embedding's bf16 copy emb16), and takes db from the unrounded values
+// in its registers through per-block partials
+// (train_bwd_chain_bf16_db_kernel): no float32 dpre, no colsum.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chain_bf16_tc.cuh"  // the bf16 backward's chain
 #include "chain_tc.cuh"      // the backward's reverse chain on the tensor cores
 #include "train_common.cuh"  // gate_hash, wgrad / colsum
 #include "train_fwd_tc.cuh"  // the forward on the tensor cores
@@ -74,7 +80,7 @@
 
 struct Layer {
   const float *w, *wt, *x, *b;  // w (in_pad, out_pad), wt its transpose (final layer), x (e, out_pad)
-  float *act, *dpre;            // residual (out_pad, M; bf16 in bf16), pre-activation grad (out_pad, M)
+  float *act, *dpre;            // residual (out_pad, M; bf16 in bf16), pre-activation grad (out_pad, M; float32 only)
   float *dw, *dx, *db;          // gradients (shapes of w, x, b)
   int in_pad, out_pad, scene_bias, dropout;
   __nv_bfloat16* dpre16;        // bf16: dpre rounded, the reductions' operand
@@ -93,6 +99,8 @@ struct Plan {
   const float* fwd;      // the forward's weight tiles (train_fwd_tc.cuh)
   long long fwd_len;     // their floats
   const __nv_bfloat16* emb16;  // bf16: the embedding (e, M) as bf16, dX's operand
+  float* db_part;        // bf16: the chain's bias partials (chain_bf16_tc.cuh)
+  long long db_part_len; // their floats
   Layer layers[MAX_LAYERS];
 };
 
@@ -236,15 +244,16 @@ train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int tot
 // ---------------------------------------------------------------------------
 
 // desc (int64): [n_layers, n_out, e, m, nps, n_scenes, emb, y, dy, demb,
-// dx_last, xl_w, tiles, tiles_len, fwd, fwd_len, emb16, then per layer: w,
-// wt, x, b, act, dpre, dw, dx, db, in_pad, out_pad, scene_bias, dropout,
-// dpre16].  Pointers are device addresses, 0 = absent; wt only on the final
-// layer; the tiles (the backward's) run from the last hidden layer down,
-// each layer l > 0's tile_weights(W_l^T) of depth out_pad; the forward's
-// (fwd) in layer order, each hidden layer l > 0's tile_weights(W_l) of
-// depth in_pad (float32: split TF32 halves; bf16: bf16 tiles).  emb16 and
-// dpre16 only in a bf16 backward, where they are required.
-#define HEAD 17
+// dx_last, xl_w, tiles, tiles_len, fwd, fwd_len, emb16, db_part,
+// db_part_len, then per layer: w, wt, x, b, act, dpre, dw, dx, db, in_pad,
+// out_pad, scene_bias, dropout, dpre16].  Pointers are device addresses, 0 =
+// absent; wt only on the final layer; the tiles (the backward's) run from
+// the last hidden layer down, each layer l > 0's tile_weights(W_l^T) of
+// depth out_pad; the forward's (fwd) in layer order, each hidden layer l >
+// 0's tile_weights(W_l) of depth in_pad (float32: split TF32 halves; bf16:
+// bf16 tiles).  A float32 backward takes dpre; a bf16 one takes emb16,
+// dpre16 and db_part (ceil(M / 64) x 2 x the sum of out_pad floats) instead.
+#define HEAD 19
 #define PER_LAYER 14
 static int parse(const long long* desc, int len, Plan* p, bool backward, bool bf16) {
   if (len < HEAD) return -1;
@@ -265,12 +274,14 @@ static int parse(const long long* desc, int len, Plan* p, bool backward, bool bf
   p->fwd = (const float*)desc[14];
   p->fwd_len = desc[15];
   p->emb16 = (const __nv_bfloat16*)desc[16];
+  p->db_part = (float*)desc[17];
+  p->db_part_len = desc[18];
   if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != HEAD + PER_LAYER * p->n_layers)
     return -1;
   if (p->n_out < 1 || p->n_out > MAX_OUT || p->e < 1 || p->e > EMB_MAX) return -1;
   if (p->m <= 0 || p->m % 4 || p->nps <= 0 || p->m % p->nps || p->m / p->nps != p->n_scenes) return -1;
   if (!p->emb || !p->y || (backward && (!p->dy || !p->demb))) return -1;
-  if (backward && bf16 && !p->emb16) return -1;
+  if (backward && bf16 && (!p->emb16 || !p->db_part)) return -1;
   p->max_pad = TC_GROUP;
   for (int l = 0; l < p->n_layers; ++l) {
     const long long* d = desc + HEAD + PER_LAYER * l;
@@ -290,8 +301,8 @@ static int parse(const long long* desc, int len, Plan* p, bool backward, bool bf
     } else if (L.out_pad != p->n_out || L.dropout) {  // a latent_in final layer: x, scene_bias
       return -1;
     }
-    if (backward && (!L.dpre || !L.db || (L.w && !L.dw) || (L.x && !L.dx))) return -1;
-    if (backward && bf16 && !L.dpre16) return -1;
+    if (backward && (!L.db || (L.w && !L.dw) || (L.x && !L.dx))) return -1;
+    if (backward && (bf16 ? !L.dpre16 : !L.dpre)) return -1;
   }
   if (p->dx_last && (!backward || p->xl_w < 1 || p->xl_w > p->layers[p->n_layers - 1].in_pad))
     return -1;
@@ -354,36 +365,86 @@ static int chain_tiles(const Plan& p) {
   return total;
 }
 
-template <class Cfg, class R>
+// The float32 backward: the split-TF32 chain, the reductions, colsum.
 static int launch_bwd(const Plan& p, float scale, cudaStream_t s) {
-  const int total = chain_tiles<Cfg>(p);
+  const int total = chain_tiles<TcF32>(p);
   if (total < 0) return -1;
-  const size_t smem = ch_smem_bytes<Cfg>();
-  cudaError_t err = cudaFuncSetAttribute(train_bwd_chain_tc_kernel<Cfg, R>,
+  const size_t smem = ch_smem_bytes<TcF32>();
+  cudaError_t err = cudaFuncSetAttribute(train_bwd_chain_tc_kernel<TcF32, float>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned blocks = (unsigned)((p.m + TC_P - 1) / TC_P);
-  train_bwd_chain_tc_kernel<Cfg, R><<<blocks, TC_THREADS, smem, s>>>(p, p.tiles, total, scale);
+  train_bwd_chain_tc_kernel<TcF32, float><<<blocks, TC_THREADS, smem, s>>>(p, p.tiles, total,
+                                                                           scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  constexpr bool kBf16 = Cfg::kBf16;
-  // bf16: every reduction after the first overlaps the kernel before it
-  // (launch_wgrad_bf16); the first reads the chain's dpre
-  int reductions = 0;
   for (int l = 0; l < p.n_layers; ++l) {
     const Layer& L = p.layers[l];
     int rc = 0;
-    if (L.w)
-      rc = kBf16 ? launch_wgrad(reinterpret_cast<const __nv_bfloat16*>(p.layers[l - 1].act),
-                                L.dpre16, L.dw, L.in_pad, L.out_pad, p.m, s, reductions++ > 0)
-                 : launch_wgrad(p.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s);
+    if (L.w) rc = launch_wgrad(p.layers[l - 1].act, L.dpre, L.dw, L.in_pad, L.out_pad, p.m, s);
     if (rc) return rc;
-    if (L.x)
-      rc = kBf16 ? launch_wgrad(p.emb16, L.dpre16, L.dx, p.e, L.out_pad, p.m, s, reductions++ > 0)
-                 : launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s);
+    if (L.x) rc = launch_wgrad(p.emb, L.dpre, L.dx, p.e, L.out_pad, p.m, s);
     if (rc) return rc;
     if ((rc = launch_colsum(L.dpre, L.db, L.out_pad, p.m, L.scene_bias ? p.nps : 4096,
                             L.scene_bias, s)))
+      return rc;
+  }
+  return 0;
+}
+
+// The bf16 chain's arguments from a parsed plan, or -1 where the tile
+// stream or the partials' length disagree.
+static int chain_bf16_args(const Plan& p, float scale, CbArgs* a) {
+  if (chain_tiles<TcBf16>(p) < 0) return -1;
+  *a = CbArgs{};
+  a->n_layers = p.n_layers;
+  a->n_out = p.n_out;
+  a->e = p.e;
+  a->m = p.m;
+  a->nps = p.nps;
+  a->xl_w = p.xl_w;
+  a->scale = scale;
+  a->y = p.y;
+  a->dy = p.dy;
+  a->dx_last = p.dx_last;
+  a->wf = p.layers[p.n_layers - 1].w;
+  a->demb = p.demb;
+  a->tiles = p.tiles;
+  const long long blocks = (p.m + CB_P - 1) / CB_P;
+  long long off = 0;
+  for (int l = 0; l < p.n_layers; ++l) {
+    const Layer& L = p.layers[l];
+    CbLayer& C = a->layers[l];
+    C.act = reinterpret_cast<const __nv_bfloat16*>(L.act);
+    C.dpre16 = L.dpre16;
+    C.x = L.x;
+    C.db = L.db;
+    C.part = p.db_part + off;
+    C.out_pad = L.out_pad;
+    C.scene_bias = L.scene_bias;
+    C.dropout = L.dropout;
+    off += blocks * 2 * L.out_pad;
+  }
+  return off == p.db_part_len ? 0 : -1;
+}
+
+// The bf16 backward: the chain with its db (chain_bf16_tc.cuh), then the
+// reductions.  Each reduction after the first overlaps the one before it
+// (launch_wgrad_bf16): their operands were complete before it began.  The
+// first is launched in the usual way after the db kernel, which the usual
+// way too starts once the chain is done; neither reads the partials.
+static int launch_bwd_bf16(const Plan& p, float scale, cudaStream_t s) {
+  CbArgs a;
+  if (chain_bf16_args(p, scale, &a)) return -1;
+  int rc = launch_chain_bf16(a, s);
+  if (rc) return rc;
+  int reductions = 0;
+  for (int l = 0; l < p.n_layers; ++l) {
+    const Layer& L = p.layers[l];
+    if (L.w && (rc = launch_wgrad(reinterpret_cast<const __nv_bfloat16*>(p.layers[l - 1].act),
+                                  L.dpre16, L.dw, L.in_pad, L.out_pad, p.m, s, reductions++ > 0)))
+      return rc;
+    if (L.x && (rc = launch_wgrad(p.emb16, L.dpre16, L.dx, p.e, L.out_pad, p.m, s,
+                                  reductions++ > 0)))
       return rc;
   }
   return 0;
@@ -393,6 +454,17 @@ extern "C" int train_decoder_bwd(const long long* desc, int len, float scale, in
                                  void* stream) {
   Plan p;
   if (parse(desc, len, &p, true, bf16)) return -1;
-  return bf16 ? launch_bwd<TcBf16, __nv_bfloat16>(p, scale, (cudaStream_t)stream)
-              : launch_bwd<TcF32, float>(p, scale, (cudaStream_t)stream);
+  return bf16 ? launch_bwd_bf16(p, scale, (cudaStream_t)stream)
+              : launch_bwd(p, scale, (cudaStream_t)stream);
+}
+
+// The bf16 chain's launch plan for a backward descriptor (the pointers may
+// be any nonzero, 16-byte aligned values) into plan[CB_PLAN_INTS]
+// (launch_chain_bf16's order); launches nothing.
+extern "C" int train_decoder_chain_bf16_plan(const long long* desc, int len, int* plan) {
+  Plan p;
+  if (parse(desc, len, &p, true, true)) return -1;
+  CbArgs a;
+  if (chain_bf16_args(p, 1.f, &a)) return -1;
+  return launch_chain_bf16(a, 0, plan);
 }

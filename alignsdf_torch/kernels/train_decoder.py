@@ -38,7 +38,9 @@ pairs it with the plain backward, whose roundings autograd cannot give.
 For a CUDA tensor it runs ``TrainDecodeFunction``, whose forward and
 backward launch the kernels or raise.  Both run on the tensor cores
 (``csrc/train_fwd_tc.cuh``, ``csrc/chain_tc.cuh``, ``csrc/wgrad_tc.cuh``),
-split TF32 in float32 and bf16 ``wgmma`` in bf16: ``pack_trunk`` splits (or
+split TF32 in float32 and bf16 ``wgmma`` in bf16, where the backward's chain
+is its own design (``csrc/chain_bf16_tc.cuh``, planned by
+``chain_bf16_plan``): ``pack_trunk`` splits (or
 rounds) the hidden weights once a call and tiles them as the forward reads
 them and, transposed, as the backward's chain reads them (``layer_tiles``).
 ``train_decode.launches`` counts float32 forward launches and
@@ -63,6 +65,14 @@ MAX_LAYERS = 10
 MAX_OUT = 2       # outputs of the last layer
 MAX_SMEM = 232448
 _M32 = 0xFFFFFFFF
+# the bf16 chain (csrc/chain_bf16_tc.cuh): points a block, blocks a cluster,
+# ring stages of one k step's tiles (up to four 4 KB tiles), the io buffer's
+# row, and its shared memory: the A buffer, the ring, the io buffer, the
+# quarters' bias sums, the final rows' dpre and weights, 10 barriers, the
+# block's scene segments and the alignment
+CB_P, CB_CLUSTER, CB_RING, CB_STAGE, CB_IO_LD = 64, 2, 4, 4 * 4096, 144
+CB_SMEM = (512 * CB_P * 2 + CB_RING * CB_STAGE + TC_MAX_OUT * CB_IO_LD + 2 * 4 * TC_MAX_OUT * 4
+           + 2 * CB_P * 4 + TC_MAX_OUT * 2 * 4 + 8 * (2 * CB_RING + 2) + 2 * 40 + 1024)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -166,7 +176,8 @@ def train_decode_reference(emb: torch.Tensor, ws: Sequence[Optional[torch.Tensor
 
 def train_decode_backward_reference(emb, ws, xs, bs, st: TrainStatics, y: torch.Tensor,
                                     acts: Sequence[torch.Tensor], dy: torch.Tensor,
-                                    dx_last: Optional[torch.Tensor] = None):
+                                    dx_last: Optional[torch.Tensor] = None,
+                                    dpres: Optional[List[torch.Tensor]] = None):
     """The plain version of K2's backward, from the same inputs as the
     kernel: dy and y (n_out, M), the gated activations acts[l] (M, out) and
     x_last's gradient dx_last (M, h) or None.
@@ -174,7 +185,9 @@ def train_decode_backward_reference(emb, ws, xs, bs, st: TrainStatics, y: torch.
     training, else 1 (no hash replay).  Returns (d(emb), [dW | None],
     [dX | None], [db]) with db per scene (B, out) for scene-bias layers.  In
     bf16 every product takes dpre rounded to bf16 and the rounded operands
-    (``acts`` hold bf16 values), the bias gradients dpre itself."""
+    (``acts`` hold bf16 values), the bias gradients dpre itself.  ``dpres``,
+    if given, receives each layer's dpre (M, out), unrounded, from the final
+    layer's down."""
     m = emb.shape[0]
     scene = torch.arange(m, device=emb.device) // st.n_per_scene
     n_layers = len(bs)
@@ -183,6 +196,8 @@ def train_decode_backward_reference(emb, ws, xs, bs, st: TrainStatics, y: torch.
     emb_c = round_to(emb, st.dtype)
     dpre = (dy * (1.0 - y * y)).T  # (M, n_out)
     for layer in range(n_layers - 1, -1, -1):
+        if dpres is not None:
+            dpres.append(dpre)
         dr = round_to(dpre, st.dtype)
         if ws[layer] is not None:
             dws[layer] = acts[layer - 1].T @ dr
@@ -221,6 +236,57 @@ class _Packed(NamedTuple):
     fwd: torch.Tensor                   # the forward's weight tiles, in layer order
     dtype: torch.dtype = torch.float32  # the kernels' arithmetic
     emb16: Optional[torch.Tensor] = None  # bf16: emb_t as bf16, the reduction's dX operand
+
+
+def chain_bf16_plan(out_pads: Sequence[int], e: int, m: int, n_per_scene: int,
+                    scene_bias: Sequence[bool], has_x: Sequence[bool], xl_w: int = 0) -> dict:
+    """The bf16 backward chain's launch plan (``csrc/chain_bf16_tc.cuh``) for
+    one trunk of padded widths ``out_pads`` (the hidden layers', then n_out)
+    over m points, ``e`` embedding columns, ``n_per_scene`` points a scene,
+    per layer a scene bias or not and X or not, dx_last ``xl_w`` columns
+    wide (0: none).  Raises ValueError where the kernel cannot take it.
+
+    Returns ``smem_bytes`` a block, ``points_per_block``, ``cluster``,
+    ``blocks`` with points and the ``grid`` (rounded up to a cluster),
+    ``ring_stages``, ``bulk`` (rows move by bulk copy: M % 8 == 0, the
+    operands aligned), the db kernel's blocks ``db_items``, the partials'
+    ``db_partial_floats``, the chain's ``tile_bytes`` and the
+    ``l2_tile_bytes`` the clusters read from L2, and ``device_bytes``: what
+    the call must move (the residuals read, dpre16 written, y and dy read,
+    the weights read once, d(emb) and db written once, dx_last read),
+    the bytes of its bound."""
+    out_pads = [int(w) for w in out_pads]
+    n_layers, n_out = len(out_pads), out_pads[-1] if out_pads else 0
+    if not 2 <= n_layers <= MAX_LAYERS or not 1 <= n_out <= MAX_OUT:
+        raise ValueError(f"the bf16 chain takes 2-{MAX_LAYERS} layers and 1-{MAX_OUT} outputs, "
+                         f"got widths {out_pads}")
+    if any(w < TC_GROUP or w % TC_GROUP or w > TC_MAX_OUT for w in out_pads[:-1]):
+        raise ValueError(f"the bf16 chain takes hidden widths that are multiples of {TC_GROUP} "
+                         f"up to {TC_MAX_OUT}, got {out_pads[:-1]}")
+    if len(scene_bias) != n_layers or len(has_x) != n_layers:
+        raise ValueError("one scene_bias and one has_x a layer")
+    if not 1 <= e <= EMB_MAX:
+        raise ValueError(f"the bf16 chain takes 1-{EMB_MAX} embedding columns, got {e}")
+    if m <= 0 or m % 4 or n_per_scene <= 0 or m % n_per_scene:
+        raise ValueError(f"M = {m} must be a positive multiple of 4 and of n_per_scene")
+    if not 0 <= xl_w <= out_pads[-2]:
+        raise ValueError(f"dx_last of {xl_w} columns does not fit a {out_pads[-2]}-wide input")
+    if CB_SMEM > MAX_SMEM:
+        raise ValueError(f"{CB_SMEM} bytes of shared memory exceed {MAX_SMEM}")
+    blocks = -(-m // CB_P)
+    grid = -(-blocks // CB_CLUSTER) * CB_CLUSTER
+    segments = [m // n_per_scene if sb else 1 for sb in scene_bias]
+    tile_bytes = 2 * sum(out_pads[i] * out_pads[i - 1] for i in range(1, n_layers - 1))
+    weights = (tile_bytes + 4 * e * sum(w for w, x in zip(out_pads, has_x) if x)
+               + 4 * out_pads[-2] * n_out)
+    device_bytes = (2 * m * sum(out_pads[:-1]) + 2 * m * sum(out_pads) + 8 * n_out * m + weights
+                    + 4 * m * e + 4 * sum(s * w for s, w in zip(segments, out_pads))
+                    + 4 * m * xl_w)
+    return {"smem_bytes": CB_SMEM, "points_per_block": CB_P, "cluster": CB_CLUSTER,
+            "blocks": blocks, "grid": grid, "ring_stages": CB_RING, "bulk": int(m % 8 == 0),
+            "db_items": sum(s * -(-w // 32) for s, w in zip(segments, out_pads)),
+            "db_partial_floats": blocks * 2 * sum(out_pads), "tile_bytes": tile_bytes,
+            "l2_tile_bytes": tile_bytes * grid // CB_CLUSTER, "device_bytes": device_bytes}
 
 
 def _pad2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -324,14 +390,15 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 
 def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, demb=None, dpre=None,
-                grads=None, dx_last=None, dpre16=None) -> np.ndarray:
+                grads=None, dx_last=None, dpre16=None, db_part=None) -> np.ndarray:
     """The int64 descriptor ``train_decoder.cu`` parses (see its header)."""
     n_layers = len(p.b)
     e, m = p.emb_t.shape
     desc = [n_layers, p.out_pads[-1], e, m, st.n_per_scene, p.n_scenes,
             _ptr(p.emb_t), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dx_last),
             0 if dx_last is None else dx_last.shape[1], _ptr(p.chain), p.chain.numel(),
-            _ptr(p.fwd), p.fwd.numel(), _ptr(p.emb16)]
+            _ptr(p.fwd), p.fwd.numel(), _ptr(p.emb16), _ptr(db_part),
+            0 if db_part is None else db_part.numel()]
     in_pad = 0
     for layer in range(n_layers):
         dw, dx, db = grads[layer] if grads is not None else (None, None, None)
@@ -358,6 +425,9 @@ def _lib():
         lib.train_decoder_bwd.restype = ctypes.c_int
         lib.train_decoder_bwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                                           ctypes.c_int, ctypes.c_void_p]
+        lib.train_decoder_chain_bf16_plan.restype = ctypes.c_int
+        lib.train_decoder_chain_bf16_plan.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                                      ctypes.c_void_p]
         lib._typed = True
     return lib
 
@@ -389,6 +459,37 @@ def train_decode_forward(p: _Packed, seed: int, st: TrainStatics):
     return y, acts
 
 
+def _backward_descriptor(p: _Packed, st: TrainStatics, y: torch.Tensor,
+                         acts: List[torch.Tensor], dy: torch.Tensor,
+                         dx_last: Optional[torch.Tensor]):
+    """A backward's outputs and scratch, allocated, and its descriptor:
+    (desc, demb, grads, the scratch kept alive until the launch)."""
+    e, m = p.emb_t.shape
+    dev = p.emb_t.device
+    dy = dy.to(torch.float32).contiguous()
+    if dx_last is not None:
+        dx_last = dx_last.to(torch.float32).contiguous()
+        if dx_last.shape[0] != m or not 1 <= dx_last.shape[1] <= p.out_pads[-2]:
+            raise ValueError(f"dx_last {tuple(dx_last.shape)} does not fit the trunk")
+    demb = torch.empty((m, e), dtype=torch.float32, device=dev)
+    dpre = dpre16 = db_part = None
+    if p.dtype == torch.bfloat16:
+        plan = chain_bf16_plan(p.out_pads, e, m, st.n_per_scene, st.scene_bias,
+                               [x is not None for x in p.x],
+                               0 if dx_last is None else dx_last.shape[1])
+        dpre16 = [torch.empty((h, m), dtype=torch.bfloat16, device=dev) for h in p.out_pads]
+        db_part = torch.empty(plan["db_partial_floats"], dtype=torch.float32, device=dev)
+    else:
+        dpre = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads]
+    grads = []
+    for layer in range(len(p.b)):
+        zeros = lambda t: None if t is None else torch.zeros_like(t)  # noqa: E731
+        grads.append((zeros(p.w[layer]), zeros(p.x[layer]), torch.zeros_like(p.b[layer])))
+    desc = _descriptor(p, st, y, acts, dy=dy, demb=demb, dpre=dpre, grads=grads,
+                       dx_last=dx_last, dpre16=dpre16, db_part=db_part)
+    return desc, demb, grads, (dy, dx_last, dpre, dpre16, db_part)
+
+
 def train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
                           acts: List[torch.Tensor], dy: torch.Tensor,
                           dx_last: Optional[torch.Tensor] = None):
@@ -396,35 +497,43 @@ def train_decode_backward(p: _Packed, st: TrainStatics, y: torch.Tensor,
     tensor cores (adding ``dx_last`` (M, h), if given, to the final layer's
     input gradient, then writing each layer's pre-activation gradient and
     d(emb)), then per layer the weight, inject-weight and bias reductions
-    over all M points.  On a bf16 pack the chain writes each pre-activation
-    gradient twice, float32 for the bias sums and rounded to bf16 for the
-    products' reductions.
+    over all M points.  On a bf16 pack the chain (``csrc/chain_bf16_tc.cuh``)
+    writes each pre-activation gradient once, rounded to bf16 for the
+    products' reductions, and sums the bias gradients from the unrounded
+    values in its registers into per-block partials (a scratch of
+    ``chain_bf16_plan``'s ``db_partial_floats``), which a second kernel
+    adds up in a fixed order: no float32 dpre is allocated.
     Returns (demb (M, e), [(dW | None, dX | None, db)] padded)."""
-    e, m = p.emb_t.shape
-    dev = p.emb_t.device
     bf16 = p.dtype == torch.bfloat16
-    dy = dy.to(torch.float32).contiguous()
-    if dx_last is not None:
-        dx_last = dx_last.to(torch.float32).contiguous()
-        if dx_last.shape[0] != m or not 1 <= dx_last.shape[1] <= p.out_pads[-2]:
-            raise ValueError(f"dx_last {tuple(dx_last.shape)} does not fit the trunk")
-    demb = torch.empty((m, e), dtype=torch.float32, device=dev)
-    dpre = [torch.empty((h, m), dtype=torch.float32, device=dev) for h in p.out_pads]
-    dpre16 = ([torch.empty((h, m), dtype=torch.bfloat16, device=dev) for h in p.out_pads]
-              if bf16 else None)
-    grads = []
-    for layer in range(len(p.b)):
-        zeros = lambda t: None if t is None else torch.zeros_like(t)  # noqa: E731
-        grads.append((zeros(p.w[layer]), zeros(p.x[layer]), torch.zeros_like(p.b[layer])))
-    desc = _descriptor(p, st, y, acts, dy=dy, demb=demb, dpre=dpre, grads=grads,
-                       dx_last=dx_last, dpre16=dpre16)
-    _run("train_decoder_bwd", _lib().train_decoder_bwd, dev, desc.ctypes.data, int(desc.size),
-         float(np.float32(1.0 / st.keep)), int(bf16))
+    desc, demb, grads, _scratch = _backward_descriptor(p, st, y, acts, dy, dx_last)
+    _run("train_decoder_bwd", _lib().train_decoder_bwd, p.emb_t.device, desc.ctypes.data,
+         int(desc.size), float(np.float32(1.0 / st.keep)), int(bf16))
     if bf16:
         train_decode_backward.bf16_launches += 1
     else:
         train_decode_backward.launches += 1
     return demb, grads
+
+
+CB_PLAN_KEYS = ("smem_bytes", "points_per_block", "cluster", "grid", "blocks", "ring_stages",
+                "bulk", "db_items")
+
+
+def chain_bf16_card_plan(p: _Packed, st: TrainStatics, y: torch.Tensor,
+                         acts: List[torch.Tensor], dy: torch.Tensor,
+                         dx_last: Optional[torch.Tensor] = None) -> dict:
+    """The bf16 chain launcher's own plan (``CB_PLAN_KEYS``) for this
+    backward on a bf16 pack on the card, read from the library without a
+    launch: what ``chain_bf16_plan`` must agree with."""
+    if p.dtype != torch.bfloat16 or p.emb_t.device.type != "cuda":
+        raise ValueError("the bf16 chain's plan is read for a bf16 pack on the card")
+    desc, _, _, _scratch = _backward_descriptor(p, st, y, acts, dy, dx_last)
+    out = (ctypes.c_int * len(CB_PLAN_KEYS))()
+    rc = _lib().train_decoder_chain_bf16_plan(desc.ctypes.data, int(desc.size),
+                                              ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"train_decoder_chain_bf16_plan failed with code {rc}")
+    return dict(zip(CB_PLAN_KEYS, out))
 
 
 class TrainDecodeFunction(torch.autograd.Function):

@@ -238,7 +238,8 @@ Phases (each prints its own lines; any failure exits non-zero):
  20. bf16 training (cli.train --bf16, ComputeDtype bfloat16): K2 on bf16
      wgmma with bf16 residuals against its plain bf16 version at 4 and 64 x
      2000 points on the flagship's twin trunks, the DexYCB --cls trunk
-     (x_last / dx_last) and a combined trunk (y and x_last within
+     (x_last / dx_last) and a combined trunk, and on short scenes
+     (K2_BF16_SHORT_SCENES) whose blocks straddle scene boundaries (y and x_last within
      BF16_LOOSE everywhere and BF16_TIGHT at BF16_SHARE of the points, the
      residuals equal at BF16_RESID_SHARE of the entries and within one bf16
      step elsewhere, every gradient within BF16_GRAD_RTOL of the plain bf16
@@ -250,10 +251,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      bf16 and in float32 in the same call (7 steps each, each synchronized
      on the host clock: median and range; K2's launches in the dtype's
      counters; peak memory; 2 profiled steps: the device's busy and idle
-     share, K2's forward, chain, reduction and colsum ms); K2 bf16's
+     share, K2's forward, chain, reduction and bias-sum ms: colsum in
+     float32, the chain's db kernel in bf16, and no colsum or split-design
+     bf16 chain in the profile); K2 bf16's
      forward and backward per step against the plain bf16 versions, the
      bf16 bounds (the FLOPs at 989.4 TFLOP/s, the bytes at 3.35 TB/s) and
-     split TF32's, its chain by the profiler and its reduction alone beside
+     split TF32's, its chain (csrc/chain_bf16_tc.cuh: with its db kernel,
+     beside the bytes of a chain that writes bf16 dpre alone) by the
+     profiler and its reduction alone beside
      torch.matmul on bf16 (csrc/wgrad_bf16_tc.cuh: first each step shape
      against weight_grad_reference and float64, every entry within
      WGRAD_BF16_TOL of |A_k| |B_n|, with the launcher's cluster, chunk,
@@ -475,8 +480,17 @@ BF16_RESID_SHARE_DEEP = 0.995
 # BF16_SAMPLING_GRAD_RTOL everywhere (tests/test_torch_cuda.py: 2.1e-3-2.8e-3)
 BF16_SAMPLING_SHARE, BF16_SAMPLING_GRAD_RTOL = 0.999, 2.0 ** -7
 K2_BF16_FWD_KERNELS = ("train_fwd_tc_kernel<TcBf16",)
-K2_BF16_BWD_KERNELS = ("train_bwd_chain_tc_kernel<TcBf16", "wgrad_bf16_tc_kernel",
-                       "colsum_kernel")
+# K2's bf16 backward: its chain (csrc/chain_bf16_tc.cuh), the reduction, the
+# chain's db kernel; it must launch neither the split design's bf16 chain
+# nor colsum
+K2_BF16_BWD_KERNELS = ("train_bwd_chain_bf16_kernel", "wgrad_bf16_tc_kernel",
+                       "train_bwd_chain_bf16_db_kernel")
+K2_BF16_ABSENT_KERNELS = ("train_bwd_chain_tc_kernel<TcBf16", "colsum_kernel")
+CHAIN_BF16_SOURCE = "alignsdf_torch/kernels/csrc/chain_bf16_tc.cuh"  # K2's bf16 chain
+# phase 20's K2 bf16 check on short scenes, whose blocks of 64 points and
+# warps' 16 straddle scene boundaries: (scenes, points a scene); M = 180 is
+# not a multiple of 8 (the chain's io warps copy rows instead of bulk copies)
+K2_BF16_SHORT_SCENES = ((5, 36), (6, 100))
 CONFIG_TRAIN_STEPS = 3  # BASELINE.json's configs 1 and 2: steps before they are served
 # phase 21, bf16 training through K4 and K5: their bf16 kernels as the
 # profiler names them (template kernels), and the trained models' --bf16
@@ -769,30 +783,37 @@ def k2_work(ws, xs, bs, m: int, e: int, out_pads, act_bytes: int = 4):
     return 2 * macs * m, 4 * macs * m, fwd_bytes, bwd_bytes
 
 
-def k2_chain_work(ws, xs, m: int, e: int, out_pads, bf16: bool = False):
+def k2_chain_work(ws, xs, m: int, e: int, out_pads, bf16: bool = False, bs=None):
     """(FLOPs, bytes) of a K2-convention backward's chain kernel over one
     trunk: its products are the forward's (dx through every W, d(input)
     through every X), 2 per multiply-add at the true widths; bytes: y, dy,
     the residuals and the weights read once, every layer's pre-activation
     gradient (padded) and d(input) written once.  In bf16 the residuals are
     2 bytes and each pre-activation gradient is written twice, 4 + 2
-    bytes."""
+    bytes; given the biases ``bs`` (a chain that takes db itself: K2's bf16
+    chain), once, 2 bytes, and each bias gradient written once."""
     macs = sum(t.numel() for t in [*ws, *xs] if t is not None)
     n_out = out_pads[-1]
     act, dpre = (2, 6) if bf16 else (4, 4)
+    db = 0
+    if bs is not None:
+        dpre, db = 2, 4 * sum(b.numel() for b in bs)
     return 2 * macs * m, (4 * (2 * n_out * m + macs + m * e) + act * sum(out_pads[:-1]) * m
-                          + dpre * sum(out_pads) * m)
+                          + dpre * sum(out_pads) * m + db)
 
 
 def chain_timing(label: str, chain_kernel: str, bwd, flops: float, nbytes: float,
-                 card: str, bf16: bool = False, per_call: int = 1) -> Optional[dict]:
+                 card: str, bf16: bool = False, per_call: int = 1,
+                 db_kernel: Optional[str] = None) -> Optional[dict]:
     """A backward's chain kernel timed apart: its device time per call of
     ``bwd`` (``per_call`` chain launches: one a trunk for K2 and K5, one for
     K4's two) from torch.profiler over CHAIN_PROFILED calls (after one
     warm-up), as the mean of the launches the profiler recorded (a window
     may drop a call's events) times per_call, beside the split-TF32 and
-    float32 bounds of its work; None where the profiler saw no device event
-    or no chain launch."""
+    float32 bounds of its work; with ``db_kernel`` (a chain that takes db
+    itself), that kernel's mean launch time added, each call launching one
+    after each chain.  None where the profiler saw no device event or no
+    chain launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -817,11 +838,26 @@ def chain_timing(label: str, chain_kernel: str, bwd, flops: float, nbytes: float
         return None
     ms = (sum(v for k, v in summary[2].items() if k.startswith(chain_kernel)) / launches
           * per_call)
-    rec = {"kernel": chain_kernel, "ms": ms, "launches_recorded": launches,
+    db_ms = None
+    if db_kernel is not None:
+        db_launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                          and e.name.removeprefix("void ").startswith(db_kernel))
+        if not db_launches:
+            print(f"{label} chain: not measured (the profiler recorded no {db_kernel} launch)",
+                  flush=True)
+            return None
+        db_ms = (sum(v for k, v in summary[2].items() if k.startswith(db_kernel)) / db_launches
+                 * per_call)
+        print(f"[{card}] {label} chain alone {ms:.3f} ms a step, its db kernel ({db_kernel}, "
+              f"{db_launches} launches recorded) {db_ms:.3f} ms", flush=True)
+        ms += db_ms
+    rec = {"kernel": chain_kernel, "ms": ms, "db_ms": db_ms, "launches_recorded": launches,
            "launches_expected": CHAIN_PROFILED * per_call, **train_bounds(flops, nbytes, bf16),
            "tflop": flops / 1e12,
            "gbytes": nbytes / 1e9, "tflops": flops / ms / 1e9 if ms > 0 else None}
-    print(f"[{card}] {label} backward's chain ({chain_kernel}, profiler, {CHAIN_PROFILED} calls: "
+    with_db = " with its db" if db_kernel else ""
+    print(f"[{card}] {label} backward's chain ({chain_kernel}{with_db}, profiler, {CHAIN_PROFILED} "
+          f"calls: "
           f"{launches} of {CHAIN_PROFILED * per_call} launches recorded, {per_call} a call): "
           f"{ms:.2f} ms a step ({flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB, "
           f"{flops / ms / 1e9 if ms > 0 else 0.0:.1f} TFLOP/s), {bounds_text(rec)}", flush=True)
@@ -1072,6 +1108,11 @@ class TrainKernel(NamedTuple):
     pack: Callable
     forward: Callable
     plain_backward: Callable
+    # kernels its route must not launch (the profiler's names)
+    absent_kernels: Tuple[str, ...] = ()
+    # its chain writes dpre once, in bf16, and takes db itself through its
+    # db kernel (bwd_kernels[2]), timed with it (K2's bf16 chain)
+    chain_db: bool = False
 
 
 def k2_kernel() -> TrainKernel:
@@ -1094,7 +1135,8 @@ def k2_bf16_kernel() -> TrainKernel:
     (``launch_counts``); its plain version is the plain bf16 one (the
     statics' dtype)."""
     return k2_kernel()._replace(name="K2 bf16", fwd_kernels=K2_BF16_FWD_KERNELS,
-                                bwd_kernels=K2_BF16_BWD_KERNELS, grad_rtol=BF16_GRAD_RTOL)
+                                bwd_kernels=K2_BF16_BWD_KERNELS, grad_rtol=BF16_GRAD_RTOL,
+                                absent_kernels=K2_BF16_ABSENT_KERNELS, chain_db=True)
 
 
 def k4_kernel() -> TrainKernel:
@@ -1367,7 +1409,8 @@ def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
     work = [k2_work(ws, xs, bs, m, e.shape[1], p.out_pads, 2 if bf16 else 4)
             for (_, _, e, ws, xs, bs), p in zip(trunks, packs)]
     fwd_flops, bwd_flops, fwd_bytes, bwd_bytes = (sum(w[i] for w in work) for i in range(4))
-    chain = [k2_chain_work(ws, xs, m, e.shape[1], p.out_pads, bf16)
+    chain = [k2_chain_work(ws, xs, m, e.shape[1], p.out_pads, bf16,
+                           bs if kern.chain_db else None)
              for (_, _, e, ws, xs, bs), p in zip(trunks, packs)]
     chain_flops, chain_bytes = (sum(c[i] for c in chain) for i in range(2))
     saved = launch_counts(kern)
@@ -1418,7 +1461,8 @@ def trunk_timing(kern, trunks, st, dev, gen, card, x_last: bool):
               f"{bounds_text(res[name])}", flush=True)
     res["bwd"]["chain"] = chain_timing(
         f"{kern.name}{' with x_last' if x_last else ''}", kern.bwd_kernels[0], bwd_kernel,
-        chain_flops, chain_bytes, card, bf16, per_call=len(packs))
+        chain_flops, chain_bytes, card, bf16, per_call=len(packs),
+        db_kernel=kern.bwd_kernels[2] if kern.chain_db else None)
     restore_counts(kern, saved)
     res["bwd"]["reduction"] = reduction_timing(kern.name, [s for p in packs
                                                             for s in wgrad_shapes(p)], m, dev, card,
@@ -1568,9 +1612,11 @@ def backward_entry(t: dict) -> dict:
         out["chain"] = {"kernel": c["kernel"], "ms": c["ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"]}
         if c["kernel"] in (K2_BWD_KERNELS[0], K4_BWD_KERNELS[0], K5_BWD_KERNELS[0],
-                           K2_BF16_BWD_KERNELS[0], K4_BF16_BWD_KERNELS[0],
-                           K5_BF16_BWD_KERNELS[0]):
+                           K4_BF16_BWD_KERNELS[0], K5_BF16_BWD_KERNELS[0]):
             out["chain"]["source"] = CHAIN_SOURCE
+        elif c["kernel"] == K2_BF16_BWD_KERNELS[0]:  # its ms holds its db kernel's
+            out["chain"].update(source=CHAIN_BF16_SOURCE, db_kernel=K2_BF16_BWD_KERNELS[2],
+                                db_ms=c["db_ms"])
     return out
 
 
@@ -4795,7 +4841,8 @@ def bf16_train_run(specs, dev, card: str, label: str, kern: TrainKernel,
     (``kern.per_step`` a step each way) and none in the other's, finite
     losses, the total falling, the peak device memory; then PROFILED_STEPS
     steps under torch.profiler: device busy and idle share, the kernel's
-    forward, chain, reduction and colsum ms a step.  ``after``, if given,
+    forward, chain, reduction and bias-sum ms a step (and none of
+    ``kern.absent_kernels`` in the profile).  ``after``, if given,
     is called with the trained state; its result is the record's
     "after".  ``pixel_band``: make_trainer's (cli.train --pixel_band), on
     the batch sorted by its row_sorter."""
@@ -4854,8 +4901,9 @@ def bf16_train_run(specs, dev, card: str, label: str, kern: TrainKernel,
               flush=True)
     else:
         busy, share, by_kernel = summary
+        # the bias sums: colsum, or the db kernel of a chain that takes db
         parts = {"fwd": kern.fwd_kernels, "chain": kern.bwd_kernels[:1],
-                 "reduction": kern.bwd_kernels[1:2], "colsum": kern.bwd_kernels[2:]}
+                 "reduction": kern.bwd_kernels[1:2], "bias_sums": kern.bwd_kernels[2:]}
         per = {k: sum(v for n, v in by_kernel.items() if n.startswith(pre)) / PROFILED_STEPS
                for k, pre in parts.items()}
         per["busy"] = busy / PROFILED_STEPS
@@ -4865,11 +4913,18 @@ def bf16_train_run(specs, dev, card: str, label: str, kern: TrainKernel,
         print(f"[{card}] {label}, {PROFILED_STEPS} profiled steps, "
               f"{prof_wall * 1e3 / PROFILED_STEPS:.2f} ms each: device busy {per['busy']:.2f} "
               f"ms a step, idle share {1 - share:.3f}; {kern.name} fwd {per['fwd']:.2f} ms, chain "
-              f"{per['chain']:.2f}, reduction {per['reduction']:.2f}, colsum "
-              f"{per['colsum']:.2f}; the rest (encoder fwd+bwd, plan, losses, optimizer) "
-              f"{per['rest']:.2f} ms", flush=True)
+              f"{per['chain']:.2f}, reduction {per['reduction']:.2f}, bias sums "
+              f"({', '.join(kern.bwd_kernels[2:])}) {per['bias_sums']:.2f}; the rest (encoder "
+              f"fwd+bwd, plan, losses, optimizer) {per['rest']:.2f} ms", flush=True)
         for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
             print(f"  {ms / PROFILED_STEPS:9.3f} ms/step  {name[:100]}", flush=True)
+        absent = sorted({n for n in by_kernel if n.startswith(kern.absent_kernels)}
+                        if kern.absent_kernels else ())
+        seen = any(n.startswith(kern.bwd_kernels[0]) for n in by_kernel)
+        print(f"{label}: {kern.bwd_kernels[0]} {'in' if seen else 'not in'} the profile; "
+              f"kernels its route must not launch: {absent or 'none'}", flush=True)
+        if absent:
+            fail(f"{label}: {kern.name}'s route launched {absent}")
     if after is not None:
         rec["after"] = after(state)
     del state, step
@@ -4910,6 +4965,16 @@ def bf16_train_phase(dev, card: str, gen, model, mano_faces) -> Tuple[dict, list
             k2_bf16_verdict(c, f"({name}, {scenes} scenes)")
             rec["check"][f"{name}, {scenes}"] = c
     del decoders
+    for scenes, nps in K2_BF16_SHORT_SCENES:
+        sp = dataclasses.replace(specs_b, samples_per_scene=nps)
+        phase(f"K2 bf16 vs plain bf16 (flagship twin trunks, {scenes} x {nps} points: blocks "
+              "across scene boundaries)")
+        latent = (torch.randn(scenes, sp.latent_size, generator=gen) * 0.5).to(dev)
+        emb = (torch.randn(scenes * nps, sp.point_feat_size, generator=gen) * 0.5).to(dev)
+        c = trunk_check(kern, bf16_trunk_operands(model, sp, latent, emb),
+                        make_train_decoder(sp).statics, dev, gen, False)
+        k2_bf16_verdict(c, f"(short scenes, {scenes} x {nps})")
+        rec["check"][f"short scenes, {scenes} x {nps}"] = c
 
     phase(f"K2 bf16 vs float32 K2 on the same operands ({TRAIN_SCENES} x "
           f"{specs.samples_per_scene} points, the flagship's twin trunks)")

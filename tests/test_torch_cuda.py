@@ -1290,6 +1290,104 @@ def test_cuda_bf16_train_kernel_matches_plain(scenes, model_type, classifier):
             assert float((g - r).abs().max()) <= 2e-3 * (float(r.abs().max()) + 1e-12)
 
 
+def _bf16_trunks(model_type, classifier, scenes, n, seed):
+    """The bf16 statics and [(emb columns, ws, xs, bs, seed)] of each trunk
+    of a seeded decoder at the flagship width on scenes x n points."""
+    gen = torch.Generator().manual_seed(seed)
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9, latent_size=256,
+                  samples_per_scene=n, classifier_branch=classifier,
+                  network_specs=NetworkSpecs(), compute_dtype="bfloat16")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        decoder = make_decoder(model_type, 256, 9, "both", specs.network_specs,
+                               use_classifier=classifier).cuda()
+    latent = (torch.randn(scenes, 256, generator=gen) * 0.5).cuda()
+    emb = (torch.randn(scenes * n, 9, generator=gen) * 0.5).cuda()
+    first, second = trunk_prefixes(decoder)
+    cols_h, cols_o = branch_columns(specs)
+    out = []
+    for prefix, cols, tseed, out_dim in ([(first, cols_h, 5, 1), (second, cols_o, 6, 1)] if second
+                                         else [(first, cols_h, 5, 2)]):
+        with torch.no_grad():
+            ws, xs, bs = trunk_operands(decoder, prefix, len(cols), latent, specs, out_dim)
+        out.append((emb[:, list(cols)].contiguous(), ws, xs, bs, tseed))
+    return make_train_decoder(specs).statics, out, gen
+
+
+# (scenes, points a scene): the step's shapes, and short scenes whose blocks
+# of 64 points straddle scene boundaries (20, 36, 100: inside a warp's 16
+# points too; 8: scenes inside one warp's points, M below a block), two of
+# them with M % 8 == 4 (the io warps' 8-byte copies instead of bulk copies)
+BF16_CHAIN_CASES = [(4, 2000, "1encoder2decoder", False), (4, 2000, "1encoder2decoder", True),
+                    (4, 2000, "1encoder1decoder", False), (64, 2000, "1encoder2decoder", False),
+                    (5, 36, "1encoder2decoder", True), (7, 20, "1encoder1decoder", False),
+                    (6, 100, "1encoder2decoder", False), (3, 8, "1encoder2decoder", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,n,model_type,classifier", BF16_CHAIN_CASES)
+def test_cuda_bf16_chain_matches_plain(scenes, n, model_type, classifier):
+    """K2's bf16 backward (the chain of csrc/chain_bf16_tc.cuh with its db
+    kernel, then the bf16 reductions) on the raw wrappers against the plain
+    bf16 backward fed the kernel's residuals: every gradient, db and d(emb)
+    included, within 2e-3 of its largest; the launcher's own plan equals
+    ``chain_bf16_plan``'s; one bf16 backward launch a trunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from alignsdf_torch.kernels.train_decoder import (CB_PLAN_KEYS, chain_bf16_card_plan,
+                                                      chain_bf16_plan)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    st, trunks, gen = _bf16_trunks(model_type, classifier, scenes, n, 24)
+    for i, (e, ws, xs, bs, seed) in enumerate(trunks):
+        p = pack_trunk(e, ws, xs, bs, st)
+        y, acts = train_decode_forward(p, seed, st)
+        dy = torch.randn(tuple(y.shape), generator=gen).cuda()
+        dxl = (torch.randn((e.shape[0], bs[-2].shape[-1]), generator=gen).cuda()
+               if classifier and i == 0 else None)
+        plan = chain_bf16_plan(p.out_pads, e.shape[1], e.shape[0], n, st.scene_bias,
+                               [x is not None for x in p.x],
+                               0 if dxl is None else dxl.shape[1])
+        card = chain_bf16_card_plan(p, st, y, acts, dy, dxl)
+        assert card == {k: plan[k] for k in CB_PLAN_KEYS}, (card, plan)
+        before = train_decode_backward.bf16_launches, train_decode_backward.launches
+        demb, grads = train_decode_backward(p, st, y, acts, dy, dxl)
+        torch.cuda.synchronize()
+        assert (train_decode_backward.bf16_launches, train_decode_backward.launches) == (
+            before[0] + 1, before[1])
+        with torch.no_grad():
+            res = [a[:b.shape[-1]].T.float() for a, b in zip(acts, bs)]
+            d_ref, dws, dxs, dbs = train_decode_backward_reference(e, ws, xs, bs, st, y, res, dy,
+                                                                   dxl)
+        got = [demb, *[g[0][:w.shape[0], :w.shape[1]] for g, w in zip(grads, ws) if w is not None],
+               *[g[1][:, :x.shape[1]] for g, x in zip(grads, xs) if x is not None],
+               *[g[2][..., :b.shape[-1]] for g, b in zip(grads, bs)]]
+        for g, r in zip(got, [d_ref, *[w for w in dws if w is not None],
+                              *[x for x in dxs if x is not None], *dbs]):
+            assert g.shape == r.shape
+            assert float((g - r).abs().max()) <= 2e-3 * (float(r.abs().max()) + 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,n", [(4, 2000), (5, 36)])
+def test_cuda_bf16_chain_db_reproducible(scenes, n):
+    """The bf16 chain's db and d(emb) take no atomics (csrc/chain_bf16_tc.cuh):
+    two backwards on the same operands give them bit for bit, on whole
+    scenes of 2000 points and on short scenes that straddle blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    st, trunks, gen = _bf16_trunks("1encoder2decoder", False, scenes, n, 25)
+    e, ws, xs, bs, seed = trunks[0]
+    p = pack_trunk(e, ws, xs, bs, st)
+    y, acts = train_decode_forward(p, seed, st)
+    dy = torch.randn(tuple(y.shape), generator=gen).cuda()
+    runs = [train_decode_backward(p, st, y, acts, dy) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    for (_, _, db0), (_, _, db1) in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(db0, db1)
+
+
 def _bf16_residuals_close(acts, acts_ref, share: float = 0.995) -> None:
     """A bf16 kernel's residuals (bf16, unpadded, as float32) against the
     plain bf16 forward's: equal at >= ``share`` of the entries, elsewhere

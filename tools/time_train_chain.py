@@ -12,6 +12,7 @@ share of the blocks' cycles.
 
     python3 tools/time_train_chain.py [--repo DIR] [--probes] [--steps N] [--scenes 64]
     python3 tools/time_train_chain.py --band [--probes] [--scenes 64]
+    python3 tools/time_train_chain.py --bf16 [--probes] [--repo DIR] [--scenes 64]
 
 --band times K4's backward three ways, in float32 and bf16 (the --pa_feat
 flagship, the band cli.train --pixel_band gives it): the unsorted batch and
@@ -21,10 +22,24 @@ tap stage; with --probes also each way's tap stage alone: the chain without
 it (CH_PROBE 8) and the taps' share of the clocked copy's cycles (CH_PROBE
 32) times the chain's time.
 
+--bf16 times K2's bf16 backward on the flagship's trunks: the whole
+backward (CUDA events, 5 calls) and, by the profiler over 3 calls, its
+chain (the kernels named train_bwd_chain..., the chain with its db kernel
+in csrc/chain_bf16_tc.cuh; an older package's chain_tc.cuh chain), colsum
+(an older package's bias sums) and the bf16 reduction, beside the bytes of
+each route (the chain writing bf16 dpre alone, or float32 and bf16 dpre
+read again by colsum) over 3.35 TB/s and the FLOPs over bf16's dense rate.
+With --probes it also builds train_decoder.cu with CH_PROBE 32 and prints
+each phase's share of the new chain's consumer cycles (final rows, waits
+for the residual rows, products, epilogue and gate, the db walk, d(emb)),
+and the producer's and an io thread's waits against the same cycles.
+
 --steps N also times N train steps of the flagship, of --pa_feat and of
 latent_in (0, 2) through cli/train.make_trainer (after 2 warm-up steps, on one synthetic
 batch, as chip_smoke.py's train phases run them): the host clock a step,
-and the device's busy time and idle share over 2 steps under the profiler.
+and the device's busy time and idle share over 2 steps under the profiler;
+with --bf16, the flagship's bf16 step at 64 and at 16 scenes (the
+bf16-trained proof's batch) instead.
 
 --repo times the package of another checkout (for example a parent commit
 unpacked with git archive into a directory .gitignore lists) inside this
@@ -53,6 +68,10 @@ CLOCKS = 32  # the CH_PROBE bit that clocks each block's phases
 PHASES = ("ring set-up", "final rows", "gates", "products", "d(emb)", "stores", "dlat", "taps")
 LIBS = {"K2": "train_decoder", "K4": "pixel_train_decoder", "K5": "generic_train_decoder"}
 PROFILED = 3
+HBM_BYTES, BF16_PEAK_FLOPS = 3.35e12, 989.4e12  # H100 SXM (data sheet)
+BF16_PHASES = ("set-up", "final rows", "waits for the residual rows", "products",
+               "epilogue and gate", "db walk", "d(emb)")
+BF16_WAITS = ("producer's slot waits", "an io thread's store waits")
 
 
 def bounds(flops: float) -> str:
@@ -189,10 +208,128 @@ def band_setups(cs, scenes: int, dev):
     return runs
 
 
-def train_steps(cs, dev, steps: int, card: str, label: str) -> None:
-    """The flagship's, --pa_feat's and latent_in (0, 2)'s train step: host ms
-    a step over ``steps`` steps, device busy ms and idle share over 2
+def bf16_setup(cs, scenes: int, dev):
+    """K2's bf16 backward over the flagship's two trunks at ``scenes`` x
+    2000 points (chip_smoke.py's seeded operands, weights from seed 0):
+    (backward of one step, its FLOPs, the bytes of the chain that writes
+    bf16 dpre alone, the bytes of the chain that writes float32 and bf16
+    dpre plus colsum's read)."""
+    import dataclasses
+
+    import torch
+
+    from alignsdf_torch.kernels.train_decoder import (
+        pack_trunk, train_decode_backward, train_decode_forward)
+    from alignsdf_torch.models.alignsdf import build_model
+    from alignsdf_torch.ops.train_plan import make_train_decoder
+
+    gen = torch.Generator().manual_seed(cs.SEED)
+    specs = dataclasses.replace(cs.flagship_specs(), compute_dtype="bfloat16")
+    model = build_model(specs, device=dev, seed=cs.SEED)
+    st = make_train_decoder(specs).statics
+    m = scenes * specs.samples_per_scene
+    latent = (torch.randn(scenes, specs.latent_size, generator=gen) * 0.5).to(dev)
+    emb = (torch.randn(m, specs.point_feat_size, generator=gen) * 0.5).to(dev)
+    trunks = cs.k2_operands(model, specs, latent, emb)
+    packs = [pack_trunk(e, ws, xs, bs, st) for _, _, e, ws, xs, bs in trunks]
+    outs = [train_decode_forward(p, t[1], st) for p, t in zip(packs, trunks)]
+    dys = [torch.randn(tuple(y.shape), generator=gen).to(dev) for y, _ in outs]
+    flops = sum(2 * m * t.numel() for *_, ws, xs, _ in trunks for t in [*ws, *xs]
+                if t is not None)
+    new = old = 0
+    for (_, _, e, ws, xs, bs), p in zip(trunks, packs):
+        pads, n_out = p.out_pads, p.out_pads[-1]
+        macs = sum(t.numel() for t in [*ws, *xs] if t is not None)
+        common = 4 * (2 * n_out * m + macs + m * e.shape[1]) + 2 * sum(pads[:-1]) * m
+        new += common + 2 * sum(pads) * m + 4 * sum(b.numel() for b in bs)  # dpre16, db
+        old += common + (6 + 4) * sum(pads) * m  # float32 + bf16 dpre, colsum's read
+
+    def bwd():
+        for p, (y, acts), dy in zip(packs, outs, dys):
+            train_decode_backward(p, st, y, acts, dy)
+
+    return bwd, flops, new, old
+
+
+def kernel_times(bwd) -> dict:
+    """{kernel name: device ms per call of bwd} over PROFILED calls (after
+    one warm-up)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED):
+            bwd()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.removeprefix("void ")
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / PROFILED
+    return out
+
+
+def bf16_report(cs, args, card: str, label: str) -> None:
+    """K2's bf16 backward: the backward, its chain (with db), colsum and
+    the reduction, beside both routes' bounds; with --probes the clocked
+    copy's phase shares."""
+    import torch
+
+    dev = torch.device("cuda")
+    bwd, flops, new_bytes, old_bytes = bf16_setup(cs, args.scenes, dev)
+    times = kernel_times(bwd)
+    group = lambda prefix: sum(v for k, v in times.items() if k.startswith(prefix))  # noqa: E731
+    chain, colsum = group("train_bwd_chain"), group("colsum_kernel")
+    reduction = group("wgrad_bf16_tc_kernel")
+    bwd_ms = cs.cuda_ms(bwd, 5)
+    names = sorted({k.split("(")[0] for k in times if k.startswith("train_bwd_chain")})
+    print(f"[{card}] {label} K2 bf16 backward at {args.scenes} x 2000, two trunks: "
+          f"{bwd_ms:.3f} ms (CUDA events, 5 calls); profiler ({PROFILED} calls): chain "
+          f"{chain:.3f} ms ({', '.join(names)}), colsum {colsum:.3f} ms, chain + colsum "
+          f"{chain + colsum:.3f} ms, reduction {reduction:.3f} ms; bounds: the bf16-dpre "
+          f"route's bytes {new_bytes / 1e9:.3f} GB {new_bytes / HBM_BYTES * 1e3:.3f} ms, the "
+          f"float32-and-bf16 route's with colsum's read {old_bytes / 1e9:.3f} GB "
+          f"{old_bytes / HBM_BYTES * 1e3:.3f} ms, the FLOPs {flops / 1e12:.3f} TFLOP "
+          f"{flops / BF16_PEAK_FLOPS * 1e3:.3f} ms", flush=True)
+    if not args.probes:
+        return
+    paths = build_probes([CLOCKS], libs=(LIBS["K2"],))
+    from alignsdf_torch.kernels import build
+
+    lib = ctypes.CDLL(paths[CLOCKS][LIBS["K2"]])
+    build._loaded[LIBS["K2"]] = lib
+    lib.cb_read_cycles.restype = ctypes.c_int
+    lib.cb_read_cycles.argtypes = [ctypes.c_void_p]
+    cycles = (ctypes.c_ulonglong * (len(BF16_PHASES) + 2))()
+    bwd()
+    torch.cuda.synchronize()
+    lib.cb_read_cycles(cycles)  # drops the warm-up's
+    for _ in range(PROFILED):
+        bwd()
+    torch.cuda.synchronize()
+    if lib.cb_read_cycles(cycles) != 0:
+        raise RuntimeError("reading the phase clocks failed")
+    total = sum(cycles[:len(BF16_PHASES)])
+    clocked = cs.cuda_ms(bwd, 3)
+    print(f"[{card}] {label} K2 bf16 chain phases (shares of the consumers' cycles on thread 0 "
+          f"of every block; the clocked copy's backward {clocked:.3f} ms): "
+          + ", ".join(f"{ph} {c / total:.3f}" for ph, c in zip(BF16_PHASES, cycles))
+          + "; against the same cycles: "
+          + ", ".join(f"{ph} {c / total:.3f}"
+                      for ph, c in zip(BF16_WAITS, cycles[len(BF16_PHASES):])),
+          flush=True)
+
+
+def train_steps(cs, dev, steps: int, card: str, label: str, bf16: bool = False) -> None:
+    """The flagship's, --pa_feat's and latent_in (0, 2)'s train step (with
+    ``bf16``, the flagship's in bf16 at TRAIN_SCENES and at 16 scenes): host
+    ms a step over ``steps`` steps, device busy ms and idle share over 2
     profiled steps."""
+    import dataclasses
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -200,11 +337,15 @@ def train_steps(cs, dev, steps: int, card: str, label: str) -> None:
     from alignsdf_torch.data.synthetic import synthetic_train_batch
     from alignsdf_torch.training.train_step import batch_to_device, draw_seed
 
-    for name, specs in (("flagship", cs.flagship_specs()),
-                        ("--pa_feat", cs.flagship_specs(pixel=True)),
-                        ("latent_in (0, 2)", cs.latent_in_0_specs())):
+    runs = ((("flagship", cs.flagship_specs(), cs.TRAIN_SCENES),
+             ("--pa_feat", cs.flagship_specs(pixel=True), cs.TRAIN_SCENES),
+             ("latent_in (0, 2)", cs.latent_in_0_specs(), cs.TRAIN_SCENES)) if not bf16 else
+            tuple((f"flagship bf16, {n} scenes",
+                   dataclasses.replace(cs.flagship_specs(), compute_dtype="bfloat16"), n)
+                  for n in (cs.TRAIN_SCENES, 16)))
+    for name, specs, scenes in runs:
         state, step = make_trainer(specs, dev, seed=cs.SEED, init_guard=True)
-        batch = batch_to_device(synthetic_train_batch(specs, cs.TRAIN_SCENES, seed=cs.SEED), dev)
+        batch = batch_to_device(synthetic_train_batch(specs, scenes, seed=cs.SEED), dev)
         gen = torch.Generator().manual_seed(cs.SEED)
         for _ in range(2):
             step(state, batch, draw_seed(gen))
@@ -292,6 +433,8 @@ def main() -> None:
     parser.add_argument("--scenes", type=int, default=64)
     parser.add_argument("--band", action="store_true",
                         help="K4's backward three ways (unsorted / host-sorted, per-tap / banded)")
+    parser.add_argument("--bf16", action="store_true",
+                        help="K2's bf16 backward: its chain with db, colsum, the reduction")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
     import torch
@@ -307,6 +450,9 @@ def main() -> None:
     label = os.path.relpath(os.path.abspath(args.repo), REPO)
     print(f"card: {card}; package: {label}", flush=True)
     dev = torch.device("cuda")
+    if args.bf16 and not args.steps:
+        bf16_report(cs, args, card, label)
+        return
     t0 = time.perf_counter()
     runs = (band_setups if args.band else setups)(cs, args.scenes, dev)
     print(f"operands and forwards: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -337,7 +483,7 @@ def main() -> None:
     if args.steps:
         del runs
         torch.cuda.empty_cache()
-        train_steps(cs, dev, args.steps, card, label)
+        train_steps(cs, dev, args.steps, card, label, args.bf16)
         return
     if args.probes:
         paths = build_probes([*PROBES, CLOCKS])
