@@ -20,14 +20,15 @@
 // accuracy: the forward on train_fwd_tc.cuh, the backward's chain on
 // chain_tc.cuh and its weight-gradient reduction on wgrad_tc.cuh.
 //
-// Forward (train_fwd_tc_kernel, train_fwd_tc.cuh): the grid trunk's design
-// for training.  A block of 256 threads owns 64 points; their activations
-// stay in one shared-memory buffer as [feature][point]; each layer's product
-// runs on the tensor cores against tile_weights(W) tiles streamed through
-// the trunk's ring; the epilogue on the CUDA cores adds the embedding's
-// terms and each point's scene bias, applies ReLU and the gate, and a
-// coalesced pass writes the gated activation to device memory as the
-// residual, feature-major (out_pad, M).
+// Forward in float32 (train_fwd_tc_kernel, train_fwd_tc.cuh): the grid
+// trunk's design for training.  A block of 256 threads owns 64 points;
+// their activations stay in one shared-memory buffer as [feature][point];
+// each layer's product runs on the tensor cores against tile_weights(W)
+// tiles streamed through the trunk's ring; the epilogue on the CUDA cores
+// adds the embedding's terms and each point's scene bias, applies ReLU and
+// the gate, and a coalesced pass writes the gated activation to device
+// memory as the residual, feature-major (out_pad, M).  The bf16 forward is
+// its own design (train_fwd_bf16_tc.cuh, below).
 //
 // The gate is bit for bit the TPU kernel's _dropout_gate: a murmur3-style
 // finalizer of (seed, layer, global row, lane) in uint32 arithmetic, kept
@@ -52,11 +53,15 @@
 // One call of train_decoder_bwd enqueues all of these on one stream.
 //
 // bf16 (the launchers' int `bf16`; the JAX kernel with cdtype bfloat16,
-// decoder_train_kernel.py:420-470, :483-485, :545-640): the forward is the
-// same kernel on the trunk's TcBf16 arithmetic, one wgmma.m64n128k16 bf16
-// product a k step of 16 against bf16 tiles; the pack holds the weights, X
-// and the embedding rounded to bf16 (the biases float32), the forward rounds
-// each gated activation to bf16 and stores the residuals as bf16.  The
+// decoder_train_kernel.py:420-470, :483-485, :545-640): the pack holds the
+// weights, X and the embedding rounded to bf16 (the biases float32); the
+// forward rounds each gated activation to bf16 and stores the residuals as
+// bf16.  The forward is its own design, train_fwd_bf16_tc.cuh
+// (train_fwd_bf16_kernel): the activations in two bf16 buffers read by
+// wgmma from shared memory, a producer per consumer warpgroup streaming
+// the forward's bf16 tiles (W's, then X's: the pack's fwd and fwd_x)
+// multicast to clusters of 2 blocks, each group's epilogue (and the final
+// rows) run under the next product, the residuals stored by TMA.  The
 // backward's chain is its own design, chain_bf16_tc.cuh
 // (train_bwd_chain_bf16_kernel): dpre in a bf16 buffer read by wgmma from
 // shared memory, the tiles multicast to a cluster, the gate and the bias
@@ -72,7 +77,8 @@
 #include "chain_bf16_tc.cuh"  // the bf16 backward's chain
 #include "chain_tc.cuh"      // the backward's reverse chain on the tensor cores
 #include "train_common.cuh"  // gate_hash, wgrad / colsum
-#include "train_fwd_tc.cuh"  // the forward on the tensor cores
+#include "train_fwd_bf16_tc.cuh"  // the bf16 forward
+#include "train_fwd_tc.cuh"  // the float32 forward on the tensor cores
 
 #define EMB_MAX 64     // embedding columns
 #define MAX_LAYERS 10
@@ -101,6 +107,8 @@ struct Plan {
   const __nv_bfloat16* emb16;  // bf16: the embedding (e, M) as bf16, dX's operand
   float* db_part;        // bf16: the chain's bias partials (chain_bf16_tc.cuh)
   long long db_part_len; // their floats
+  const float* fwd_x;    // bf16: the forward's X tiles (train_fwd_bf16_tc.cuh)
+  long long fwd_x_len;   // their floats
   Layer layers[MAX_LAYERS];
 };
 
@@ -245,15 +253,18 @@ train_bwd_chain_tc_kernel(const Plan p, const float* __restrict__ tiles, int tot
 
 // desc (int64): [n_layers, n_out, e, m, nps, n_scenes, emb, y, dy, demb,
 // dx_last, xl_w, tiles, tiles_len, fwd, fwd_len, emb16, db_part,
-// db_part_len, then per layer: w, wt, x, b, act, dpre, dw, dx, db, in_pad,
-// out_pad, scene_bias, dropout, dpre16].  Pointers are device addresses, 0 =
-// absent; wt only on the final layer; the tiles (the backward's) run from
-// the last hidden layer down, each layer l > 0's tile_weights(W_l^T) of
-// depth out_pad; the forward's (fwd) in layer order, each hidden layer l >
-// 0's tile_weights(W_l) of depth in_pad (float32: split TF32 halves; bf16:
-// bf16 tiles).  A float32 backward takes dpre; a bf16 one takes emb16,
-// dpre16 and db_part (ceil(M / 64) x 2 x the sum of out_pad floats) instead.
-#define HEAD 19
+// db_part_len, fwd_x, fwd_x_len, then per layer: w, wt, x, b, act, dpre, dw,
+// dx, db, in_pad, out_pad, scene_bias, dropout, dpre16].  Pointers are
+// device addresses, 0 = absent; wt only on the final layer; the tiles (the
+// backward's) run from the last hidden layer down, each layer l > 0's
+// tile_weights(W_l^T) of depth out_pad; the forward's (fwd) in layer order,
+// each hidden layer l > 0's tile_weights(W_l) of depth in_pad (float32:
+// split TF32 halves; bf16: bf16 tiles); the bf16 forward's fwd_x, in layer
+// order, each hidden layer with X its tile_weights(X, bf16) of depth e
+// rounded up to 16.  A float32 backward takes dpre; a bf16 one takes
+// emb16, dpre16 and db_part (ceil(M / 64) x 2 x the sum of out_pad floats)
+// instead.
+#define HEAD 21
 #define PER_LAYER 14
 static int parse(const long long* desc, int len, Plan* p, bool backward, bool bf16) {
   if (len < HEAD) return -1;
@@ -276,6 +287,8 @@ static int parse(const long long* desc, int len, Plan* p, bool backward, bool bf
   p->emb16 = (const __nv_bfloat16*)desc[16];
   p->db_part = (float*)desc[17];
   p->db_part_len = desc[18];
+  p->fwd_x = (const float*)desc[19];
+  p->fwd_x_len = desc[20];
   if (p->n_layers < 2 || p->n_layers > MAX_LAYERS || len != HEAD + PER_LAYER * p->n_layers)
     return -1;
   if (p->n_out < 1 || p->n_out > MAX_OUT || p->e < 1 || p->e > EMB_MAX) return -1;
@@ -340,13 +353,66 @@ static int launch_fwd(const Plan& p, unsigned seed, unsigned thresh, float scale
   return (int)cudaGetLastError();
 }
 
-// bf16: the TcBf16 kernel with bf16 residuals, else split TF32 with float32.
+// The bf16 forward's arguments from a parsed plan, or -1 where a tile
+// stream disagrees (launch_fwd_bf16 checks the rest).
+static int fwd_bf16_args(const Plan& p, unsigned seed, unsigned thresh, float scale, FbArgs* a) {
+  if (fwd_tiles<TcBf16>(p) < 0) return -1;
+  long long x_tiles = 0;  // X's tiles: (e rounded up to 16) / 16 k steps x groups a layer
+  for (int l = 0; l < p.n_layers - 1; ++l)
+    if (p.layers[l].x) x_tiles += (p.e + 15) / 16 * (p.layers[l].out_pad / TC_GROUP);
+  if (p.fwd_x_len != x_tiles * TC_TILE || !p.fwd_x) return -1;
+  *a = FbArgs{};
+  a->xtiles = p.fwd_x;
+  a->hidden = p.n_layers - 1;
+  a->n_out = p.n_out;
+  a->e = p.e;
+  a->m = p.m;
+  a->nps = p.nps;
+  a->seed = seed;
+  a->thresh = thresh;
+  a->scale = scale;
+  a->emb = p.emb;
+  a->y = p.y;
+  a->tiles = p.fwd;
+  const Layer& F = p.layers[p.n_layers - 1];
+  a->wf = F.w;
+  a->fb = F.b;
+  a->fx = F.x;
+  a->f_scene_bias = F.scene_bias;
+  for (int l = 0; l < a->hidden; ++l) {
+    const Layer& L = p.layers[l];
+    FbLayer& B = a->layers[l];
+    B.x = L.x;
+    B.b = L.b;
+    B.act = reinterpret_cast<__nv_bfloat16*>(L.act);
+    B.in_pad = L.w ? L.in_pad : 0;
+    B.out_pad = L.out_pad;
+    B.scene_bias = L.scene_bias;
+    B.dropout = L.dropout;
+  }
+  return 0;
+}
+
+// bf16: train_fwd_bf16_kernel (train_fwd_bf16_tc.cuh), else split TF32.
 extern "C" int train_decoder_fwd(const long long* desc, int len, unsigned seed, unsigned thresh,
                                  float scale, int bf16, void* stream) {
   Plan p;
   if (parse(desc, len, &p, false, bf16)) return -1;
-  return bf16 ? launch_fwd<TcBf16, __nv_bfloat16>(p, seed, thresh, scale, (cudaStream_t)stream)
-              : launch_fwd<TcF32, float>(p, seed, thresh, scale, (cudaStream_t)stream);
+  if (!bf16) return launch_fwd<TcF32, float>(p, seed, thresh, scale, (cudaStream_t)stream);
+  FbArgs a;
+  if (fwd_bf16_args(p, seed, thresh, scale, &a)) return -1;
+  return launch_fwd_bf16(a, (cudaStream_t)stream);
+}
+
+// The bf16 forward's launch plan for a forward descriptor (the pointers may
+// be any nonzero, 16-byte aligned values) into plan[FB_PLAN_INTS]
+// (launch_fwd_bf16's order); launches nothing.
+extern "C" int train_decoder_fwd_bf16_plan(const long long* desc, int len, int* plan) {
+  Plan p;
+  if (parse(desc, len, &p, false, true)) return -1;
+  FbArgs a;
+  if (fwd_bf16_args(p, 0, 0, 1.f, &a)) return -1;
+  return launch_fwd_bf16(a, 0, plan);
 }
 
 // The chain's tiles: each hidden layer l > 0's, from the last down; -1

@@ -56,10 +56,12 @@
 // K5's is the trunk's alone.
 // One block an SM.
 //
-// bf16 (K2, K4 and K5 with TcBf16, the JAX kernels' cdtype bfloat16,
-// decoder_train_kernel.py:420-470, :483-485, :152-159 and
-// decoder_train_pixel.py:347-362): the same kernels templated on the
-// trunk's arithmetic, as the grid trunk is.  A k step of 16 is one
+// bf16 (K4 and K5 with TcBf16, the JAX kernels' cdtype bfloat16,
+// decoder_train_kernel.py:152-159 and decoder_train_pixel.py:347-362): the
+// same kernels templated on the trunk's arithmetic, as the grid trunk is.
+// K2's bf16 forward (decoder_train_kernel.py:420-470, :483-485) has moved to
+// its own design, train_fwd_bf16_tc.cuh (train_fwd_bf16_kernel); this
+// route is K4's and K5's.  A k step of 16 is one
 // wgmma.m64n128k16 bf16 product against tile_weights(W, bf16) tiles (4 KB,
 // 22 ring slots); the buffer keeps float32 words holding bf16 values, so
 // that the A fragment packs them exactly (tc_pack_bf16); the epilogue adds

@@ -38,8 +38,9 @@ pairs it with the plain backward, whose roundings autograd cannot give.
 For a CUDA tensor it runs ``TrainDecodeFunction``, whose forward and
 backward launch the kernels or raise.  Both run on the tensor cores
 (``csrc/train_fwd_tc.cuh``, ``csrc/chain_tc.cuh``, ``csrc/wgrad_tc.cuh``),
-split TF32 in float32 and bf16 ``wgmma`` in bf16, where the backward's chain
-is its own design (``csrc/chain_bf16_tc.cuh``, planned by
+split TF32 in float32 and bf16 ``wgmma`` in bf16, where the forward and the
+backward's chain are their own designs (``csrc/train_fwd_bf16_tc.cuh``,
+planned by ``train_fwd_bf16_plan``; ``csrc/chain_bf16_tc.cuh``, planned by
 ``chain_bf16_plan``): ``pack_trunk`` splits (or
 rounds) the hidden weights once a call and tiles them as the forward reads
 them and, transposed, as the backward's chain reads them (``layer_tiles``).
@@ -73,6 +74,14 @@ _M32 = 0xFFFFFFFF
 CB_P, CB_CLUSTER, CB_RING, CB_STAGE, CB_IO_LD = 64, 2, 4, 4 * 4096, 144
 CB_SMEM = (512 * CB_P * 2 + CB_RING * CB_STAGE + TC_MAX_OUT * CB_IO_LD + 2 * 4 * TC_MAX_OUT * 4
            + 2 * CB_P * 4 + TC_MAX_OUT * 2 * 4 + 8 * (2 * CB_RING + 2) + 2 * 40 + 1024)
+# the bf16 forward (csrc/train_fwd_bf16_tc.cuh): points a block, blocks a
+# cluster, each consumer warpgroup's ring of 4 KB tiles, and its shared
+# memory: two A buffers of 512 rows x 64 points, the two rings, the
+# embedding's rows, the final rows' group sums, 56 barriers and the
+# alignment
+FB_P, FB_CLUSTER, FB_SLOTS, FB_TILE = 64, 2, 10, 4096
+FB_SMEM = (2 * 512 * FB_P * 2 + 2 * FB_SLOTS * FB_TILE + EMB_MAX * FB_P * 2 + 4 * 2 * FB_P * 4
+           + 8 * (4 * FB_SLOTS + 16) + 1024)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -236,6 +245,7 @@ class _Packed(NamedTuple):
     fwd: torch.Tensor                   # the forward's weight tiles, in layer order
     dtype: torch.dtype = torch.float32  # the kernels' arithmetic
     emb16: Optional[torch.Tensor] = None  # bf16: emb_t as bf16, the reduction's dX operand
+    fwd_x: Optional[torch.Tensor] = None  # bf16: the forward's X tiles, in layer order
 
 
 def chain_bf16_plan(out_pads: Sequence[int], e: int, m: int, n_per_scene: int,
@@ -287,6 +297,56 @@ def chain_bf16_plan(out_pads: Sequence[int], e: int, m: int, n_per_scene: int,
             "db_items": sum(s * -(-w // 32) for s, w in zip(segments, out_pads)),
             "db_partial_floats": blocks * 2 * sum(out_pads), "tile_bytes": tile_bytes,
             "l2_tile_bytes": tile_bytes * grid // CB_CLUSTER, "device_bytes": device_bytes}
+
+
+def train_fwd_bf16_plan(out_pads: Sequence[int], e: int, m: int, n_per_scene: int,
+                        scene_bias: Sequence[bool], has_x: Sequence[bool]) -> dict:
+    """The bf16 forward's launch plan (``csrc/train_fwd_bf16_tc.cuh``) for
+    one trunk of padded widths ``out_pads`` (the hidden layers', then n_out)
+    over m points, ``e`` embedding columns, ``n_per_scene`` points a scene,
+    per layer a scene bias or not and X or not (layer 0 reads X alone).
+    Raises ValueError where the kernel cannot take it.
+
+    Returns ``smem_bytes`` a block, ``points_per_block``, ``cluster``,
+    ``blocks`` with points and the ``grid`` (rounded up to a cluster),
+    ``ring_stages`` (each consumer warpgroup's ring of 4 KB tiles),
+    ``bulk`` (the residuals leave by TMA: M % 8 == 0), the forward's
+    ``tile_bytes`` (W's and X's bf16 tiles) and the ``l2_tile_bytes`` the
+    clusters read from L2 (each tile once per cluster of 128 points), and
+    ``device_bytes``: what the call must move (the residuals and y written
+    once, the embedding and the weights read once: the tiles, the biases,
+    the final layer's), the bytes of its bound."""
+    out_pads = [int(w) for w in out_pads]
+    n_layers, n_out = len(out_pads), out_pads[-1] if out_pads else 0
+    if not 2 <= n_layers <= MAX_LAYERS or not 1 <= n_out <= MAX_OUT:
+        raise ValueError(f"the bf16 forward takes 2-{MAX_LAYERS} layers and 1-{MAX_OUT} "
+                         f"outputs, got widths {out_pads}")
+    hidden = out_pads[:-1]
+    if any(w < TC_GROUP or w % TC_GROUP or w > TC_MAX_OUT for w in hidden):
+        raise ValueError(f"the bf16 forward takes hidden widths that are multiples of {TC_GROUP} "
+                         f"up to {TC_MAX_OUT}, got {hidden}")
+    if len(scene_bias) != n_layers or len(has_x) != n_layers or not has_x[0]:
+        raise ValueError("one scene_bias and one has_x a layer; layer 0 reads the embedding")
+    if not 1 <= e <= EMB_MAX:
+        raise ValueError(f"the bf16 forward takes 1-{EMB_MAX} embedding columns, got {e}")
+    if m <= 0 or m % 4 or n_per_scene <= 0 or m % n_per_scene:
+        raise ValueError(f"M = {m} must be a positive multiple of 4 and of n_per_scene")
+    if FB_SMEM > MAX_SMEM:
+        raise ValueError(f"{FB_SMEM} bytes of shared memory exceed {MAX_SMEM}")
+    blocks = -(-m // FB_P)
+    grid = -(-blocks // FB_CLUSTER) * FB_CLUSTER
+    # W's tiles of the hidden layers after the first, X's (e rounded up to 16
+    # rows) of every hidden layer that reads the embedding
+    tile_bytes = 2 * (sum(a * b for a, b in zip(hidden, hidden[1:]))
+                      + _round_up(e, 16) * sum(w for w, x in zip(hidden, has_x) if x))
+    rows = [m // n_per_scene if sb else 1 for sb in scene_bias]
+    weights = (tile_bytes + 4 * sum(r * w for r, w in zip(rows, out_pads))
+               + 4 * hidden[-1] * n_out + (4 * e * n_out if has_x[-1] else 0))
+    device_bytes = 2 * m * sum(hidden) + 4 * n_out * m + 4 * e * m + weights
+    return {"smem_bytes": FB_SMEM, "points_per_block": FB_P, "cluster": FB_CLUSTER,
+            "blocks": blocks, "grid": grid, "ring_stages": FB_SLOTS, "bulk": int(m % 8 == 0),
+            "tile_bytes": tile_bytes, "l2_tile_bytes": tile_bytes * grid // FB_CLUSTER,
+            "device_bytes": device_bytes}
 
 
 def _pad2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -381,8 +441,15 @@ def pack_trunk(emb, ws, xs, bs, st: TrainStatics) -> _Packed:
     fwd = tile_stream([t[0] for t in tiles], emb.device)
     chain = tile_stream([t[1] for t in reversed(tiles)], emb.device)
     emb_t = round_to(emb, st.dtype).T.contiguous()
-    emb16 = emb_t.to(torch.bfloat16) if st.dtype == torch.bfloat16 else None
-    return _Packed(emb_t, w, wt, x, b, out_pads, n_scenes, chain, fwd, st.dtype, emb16)
+    emb16 = fwd_x = None
+    if st.dtype == torch.bfloat16:
+        emb16 = emb_t.to(torch.bfloat16)
+        # the bf16 forward's X terms run on the tensor cores, k steps after W's
+        e16 = _round_up(emb.shape[1], 16)
+        fwd_x = tile_stream([tile_weights(x[layer], e16, out_pads[layer], st.dtype)
+                             for layer in range(n_layers - 1) if x[layer] is not None],
+                            emb.device)
+    return _Packed(emb_t, w, wt, x, b, out_pads, n_scenes, chain, fwd, st.dtype, emb16, fwd_x)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -398,7 +465,8 @@ def _descriptor(p: _Packed, st: TrainStatics, y, acts, dy=None, demb=None, dpre=
             _ptr(p.emb_t), _ptr(y), _ptr(dy), _ptr(demb), _ptr(dx_last),
             0 if dx_last is None else dx_last.shape[1], _ptr(p.chain), p.chain.numel(),
             _ptr(p.fwd), p.fwd.numel(), _ptr(p.emb16), _ptr(db_part),
-            0 if db_part is None else db_part.numel()]
+            0 if db_part is None else db_part.numel(), _ptr(p.fwd_x),
+            0 if p.fwd_x is None else p.fwd_x.numel()]
     in_pad = 0
     for layer in range(n_layers):
         dw, dx, db = grads[layer] if grads is not None else (None, None, None)
@@ -428,6 +496,9 @@ def _lib():
         lib.train_decoder_chain_bf16_plan.restype = ctypes.c_int
         lib.train_decoder_chain_bf16_plan.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                                       ctypes.c_void_p]
+        lib.train_decoder_fwd_bf16_plan.restype = ctypes.c_int
+        lib.train_decoder_fwd_bf16_plan.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                                    ctypes.c_void_p]
         lib._typed = True
     return lib
 
@@ -441,12 +512,17 @@ def _run(name: str, fn, device: torch.device, *args) -> None:
 
 
 def train_decode_forward(p: _Packed, seed: int, st: TrainStatics):
-    """K2 forward on the card, on the tensor cores (``train_fwd_tc_kernel``,
-    in the pack's dtype): y (n_out, M) float32 and the gated activations of
-    the hidden layers, each (out_pad, M), bf16 on a bf16 pack."""
+    """K2 forward on the card, on the tensor cores: y (n_out, M) float32 and
+    the gated activations of the hidden layers, each (out_pad, M), bf16 on a
+    bf16 pack.  A float32 pack runs ``train_fwd_tc_kernel`` (split TF32), a
+    bf16 one ``train_fwd_bf16_kernel`` (``csrc/train_fwd_bf16_tc.cuh``;
+    ``train_fwd_bf16_plan`` raises on what it does not take)."""
     e, m = p.emb_t.shape
     dev = p.emb_t.device
     bf16 = p.dtype == torch.bfloat16
+    if bf16:  # raises on what the kernel does not take
+        train_fwd_bf16_plan(p.out_pads, e, m, st.n_per_scene, st.scene_bias,
+                            [x is not None for x in p.x])
     y = torch.empty((p.out_pads[-1], m), dtype=torch.float32, device=dev)
     acts = [torch.empty((h, m), dtype=p.dtype, device=dev) for h in p.out_pads[:-1]]
     desc = _descriptor(p, st, y, acts)
@@ -534,6 +610,29 @@ def chain_bf16_card_plan(p: _Packed, st: TrainStatics, y: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"train_decoder_chain_bf16_plan failed with code {rc}")
     return dict(zip(CB_PLAN_KEYS, out))
+
+
+FB_PLAN_KEYS = ("smem_bytes", "points_per_block", "cluster", "grid", "blocks", "ring_stages",
+                "bulk")
+
+
+def fwd_bf16_card_plan(p: _Packed, st: TrainStatics) -> dict:
+    """The bf16 forward launcher's own plan (``FB_PLAN_KEYS``) for a forward
+    of this bf16 pack on the card, read from the library without a launch:
+    what ``train_fwd_bf16_plan`` must agree with."""
+    if p.dtype != torch.bfloat16 or p.emb_t.device.type != "cuda":
+        raise ValueError("the bf16 forward's plan is read for a bf16 pack on the card")
+    y = torch.empty((p.out_pads[-1], p.emb_t.shape[1]), dtype=torch.float32,
+                    device=p.emb_t.device)
+    acts = [torch.empty((h, p.emb_t.shape[1]), dtype=p.dtype, device=p.emb_t.device)
+            for h in p.out_pads[:-1]]
+    desc = _descriptor(p, st, y, acts)
+    out = (ctypes.c_int * len(FB_PLAN_KEYS))()
+    rc = _lib().train_decoder_fwd_bf16_plan(desc.ctypes.data, int(desc.size),
+                                            ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"train_decoder_fwd_bf16_plan failed with code {rc}")
+    return dict(zip(FB_PLAN_KEYS, out))
 
 
 class TrainDecodeFunction(torch.autograd.Function):

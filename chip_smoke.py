@@ -157,7 +157,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      trained model, 16 x 2000 points; then through cli.reconstruct.main (K1:
      two passes an image in runs of 2^20 points) and cli.evaluate.main: the
      untrained model's MANO joints (32^3), the 16 scenes at 128^3 (hand,
-     --obj and --mano), 4 scenes at 128^3 with --eval_mode and 4 at 256^3
+     --obj and --mano), 2 scenes at 128^3 with --eval_mode and 2 at 256^3
      (hand and --obj), each run's chamfers, errors and per-image timings
      (grid, marching cubes, largest component, ICP, export, host in all);
      no failure, hand chamfer <= 2.0 cm^2 and object <= 2.5 at 128^3, MANO
@@ -192,7 +192,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      time for each part of an item (image, meta, norm, SDF sampling) and
      the whole item over every scene (median and 10th / 90th
      percentiles), and the loader's time a batch (an epoch's time over its
-     8 batches) and its wait for the first batch, in each of 3 epochs;
+     8 batches) and its wait for the first batch, in each of 2 epochs;
  18. feeding the card from disk: 512 scenes (8 x ScenesPerBatch) and a
      2-image test split written by write_synthetic_dataset, packed by
      tools/pack_dataset_torch.py into an ASDF-pack (the native reader
@@ -202,7 +202,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      deterministic fields and the sampled rows, rebuilt from the native batch's
      branch seeds, within 1e-5), one with it on at 1 thread and at all
      threads (bit for bit, each timed); a batch's pickled size and its
-     time through a pipe from a forked child; the loader over 3 epochs of
+     time through a pipe from a forked child; the loader over 2 epochs of
      8 batches (each epoch's time over its batches, its first batch's
      wait and the rest's time a batch) from the pack with threads and with processes, from the LMDBs
      with both, from the files with processes; then cli.train.main for the
@@ -236,7 +236,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      (--mano): 3 images each at 128^3 in float32 and in bf16, each K1 pass
      against its plain version, grid ms and images/s;
  20. bf16 training (cli.train --bf16, ComputeDtype bfloat16): K2 on bf16
-     wgmma with bf16 residuals against its plain bf16 version at 4 and 64 x
+     wgmma with bf16 residuals (its forward csrc/train_fwd_bf16_tc.cuh's
+     train_fwd_bf16_kernel) against its plain bf16 version at 4 and 64 x
      2000 points on the flagship's twin trunks, the DexYCB --cls trunk
      (x_last / dx_last) and a combined trunk, and on short scenes
      (K2_BF16_SHORT_SCENES) whose blocks straddle scene boundaries (y and x_last within
@@ -253,10 +254,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      counters; peak memory; 2 profiled steps: the device's busy and idle
      share, K2's forward, chain, reduction and bias-sum ms: colsum in
      float32, the chain's db kernel in bf16, and no colsum or split-design
-     bf16 chain in the profile); K2 bf16's
+     bf16 forward or chain in the profile); K2 bf16's
      forward and backward per step against the plain bf16 versions, the
      bf16 bounds (the FLOPs at 989.4 TFLOP/s, the bytes at 3.35 TB/s) and
-     split TF32's, its chain (csrc/chain_bf16_tc.cuh: with its db kernel,
+     split TF32's, the forward's plan (train_fwd_bf16_plan, held to the
+     launcher's own: the tile bytes its clusters read from L2, the bound's
+     bytes), its chain (csrc/chain_bf16_tc.cuh: with its db kernel,
      beside the bytes of a chain that writes bf16 dpre alone) by the
      profiler and its reduction alone beside
      torch.matmul on bf16 (csrc/wgrad_bf16_tc.cuh: first each step shape
@@ -397,6 +400,10 @@ WGRAD_BF16_SOURCE = "alignsdf_torch/kernels/csrc/wgrad_bf16_tc.cuh"
 WGRAD_BF16_TOL = 1e-6
 CHAIN_SOURCE = "alignsdf_torch/kernels/csrc/chain_tc.cuh"  # K2's, K4's and K5's backward chain
 FWD_SOURCE = "alignsdf_torch/kernels/csrc/train_fwd_tc.cuh"  # K2's, K4's and K5's forward
+# K2's bf16 forward (train_fwd_bf16_kernel: bf16 A from shared memory, a
+# producer a warpgroup with tiles multicast to clusters of 2, the epilogue
+# under the next product, the residuals stored by TMA)
+FWD_BF16_SOURCE = "alignsdf_torch/kernels/csrc/train_fwd_bf16_tc.cuh"
 # K2's and K4's forwards against the plain forward: a hidden unit whose
 # pre-activation lies within rounding of 0 may be 0 on one side and a tiny
 # positive value on the other (the tensor cores' split TF32 and the plain
@@ -422,7 +429,7 @@ GEO_SCENES = 16
 GEO_STEPS = 1400
 GEO_REDRAW = 25
 GEO_GATE = 1001
-GEO_EVAL_IMAGES = 4  # the --eval_mode run and the 256^3 run
+GEO_EVAL_IMAGES = 2  # the --eval_mode run and the 256^3 run
 GEO_BIG_CUBE = 256
 GEO_UNTRAINED_CUBE = 32  # the untrained model's run reads only its MANO joints
 GEO_LOG_EVERY = 100
@@ -434,7 +441,7 @@ FILES_SCENES = 2 * TRAIN_SCENES
 FILES_TEST_IMAGES = 4
 FILES_ITEM_TOL = 1e-6  # the LMDB item against the per-file one (tests/test_lmdb.py)
 LOADER_REPEAT = 4  # passes of the keys in an epoch of the timed loader: 8 batches
-LOADER_EPOCHS = 3
+LOADER_EPOCHS = 2
 # phase 18: feeding the card from a pack and from forked loader workers
 PACK_SCENES = 8 * TRAIN_SCENES  # an epoch of the timed loader: 8 batches
 PACK_TEST_IMAGES = 2
@@ -479,13 +486,14 @@ BF16_RESID_SHARE_DEEP = 0.995
 # BF16_GRAD_RTOL of the largest at BF16_SAMPLING_SHARE of the entries, within
 # BF16_SAMPLING_GRAD_RTOL everywhere (tests/test_torch_cuda.py: 2.1e-3-2.8e-3)
 BF16_SAMPLING_SHARE, BF16_SAMPLING_GRAD_RTOL = 0.999, 2.0 ** -7
-K2_BF16_FWD_KERNELS = ("train_fwd_tc_kernel<TcBf16",)
+K2_BF16_FWD_KERNELS = ("train_fwd_bf16_kernel",)
 # K2's bf16 backward: its chain (csrc/chain_bf16_tc.cuh), the reduction, the
-# chain's db kernel; it must launch neither the split design's bf16 chain
-# nor colsum
+# chain's db kernel; it must launch neither the split design's bf16 forward
+# and chain nor colsum
 K2_BF16_BWD_KERNELS = ("train_bwd_chain_bf16_kernel", "wgrad_bf16_tc_kernel",
                        "train_bwd_chain_bf16_db_kernel")
-K2_BF16_ABSENT_KERNELS = ("train_bwd_chain_tc_kernel<TcBf16", "colsum_kernel")
+K2_BF16_ABSENT_KERNELS = ("train_fwd_tc_kernel<TcBf16", "train_bwd_chain_tc_kernel<TcBf16",
+                          "colsum_kernel")
 CHAIN_BF16_SOURCE = "alignsdf_torch/kernels/csrc/chain_bf16_tc.cuh"  # K2's bf16 chain
 # phase 20's K2 bf16 check on short scenes, whose blocks of 64 points and
 # warps' 16 straddle scene boundaries: (scenes, points a scene); M = 180 is
@@ -5018,8 +5026,9 @@ def bf16_train_phase(dev, card: str, gen, model, mano_faces) -> Tuple[dict, list
     latent = (torch.randn(TRAIN_SCENES, specs.latent_size, generator=gen) * 0.5).to(dev)
     emb = (torch.randn(TRAIN_SCENES * specs.samples_per_scene, specs.point_feat_size,
                        generator=gen) * 0.5).to(dev)
-    rec["timing"] = trunk_timing(kern, k2_operands(model, specs_b, latent, emb), st_b, dev, gen,
-                                 card, False)
+    trunks_b = k2_operands(model, specs_b, latent, emb)
+    rec["timing"] = trunk_timing(kern, trunks_b, st_b, dev, gen, card, False)
+    rec["timing"]["fwd"]["plan"] = fwd_bf16_plan_report(trunks_b, st_b, card)
 
     rec["configs"] = baseline_configs_phase(dev, card, gen, mano_faces,
                                             train_steps=CONFIG_TRAIN_STEPS, images=1)
@@ -5037,7 +5046,7 @@ def bf16_train_phase(dev, card: str, gen, model, mano_faces) -> Tuple[dict, list
                                for c in rec["check"].values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            **({"trunk": FWD_SOURCE} if name == "fwd" else backward_entry(t)),
+            **({"trunk": FWD_BF16_SOURCE} if name == "fwd" else backward_entry(t)),
         })
     for name, line in (("fwd", 122), ("bwd", 140)):
         t = rec["k7"]["train"]["timing"][name]
@@ -5057,6 +5066,41 @@ def bf16_train_phase(dev, card: str, gen, model, mano_faces) -> Tuple[dict, list
                         "its first maximum, not to every tie)"),
         })
     return rec, entries
+
+
+def fwd_bf16_plan_report(trunks, st, card: str) -> dict:
+    """K2's bf16 forward's launch plan over the trunks [(prefix, seed,
+    input, ws, xs, bs)] (train_fwd_bf16_plan; the launcher's own plan read
+    from the library must agree, or the run fails): the tile bytes its
+    clusters read from L2 and the bytes of its bound, summed over the
+    trunks, printed beside k2_work's bytes."""
+    from alignsdf_torch.kernels.train_decoder import (FB_PLAN_KEYS, fwd_bf16_card_plan,
+                                                      pack_trunk, train_fwd_bf16_plan)
+
+    out = {"l2_tile_bytes": 0, "device_bytes": 0, "tile_bytes": 0}
+    for _, _, e, ws, xs, bs in trunks:
+        p = pack_trunk(e, ws, xs, bs, st)
+        plan = train_fwd_bf16_plan(p.out_pads, e.shape[1], e.shape[0], st.n_per_scene,
+                                   st.scene_bias, [x is not None for x in p.x])
+        card_plan = fwd_bf16_card_plan(p, st)
+        if card_plan != {k: plan[k] for k in FB_PLAN_KEYS}:
+            fail(f"K2 bf16 forward: the launcher's plan {card_plan} is not {plan}")
+        for k in out:
+            out[k] += plan[k]
+        out.update({k: plan[k] for k in FB_PLAN_KEYS})
+    m = trunks[0][2].shape[0]
+    work = sum(k2_work(ws, xs, bs, m, e.shape[1], pack_trunk(e, ws, xs, bs, st).out_pads, 2)[2]
+               for _, _, e, ws, xs, bs in trunks)
+    print(f"[{card}] K2 bf16 forward's plan ({len(trunks)} trunks x {m} points): blocks of "
+          f"{out['points_per_block']} points in clusters of {out['cluster']}, "
+          f"{out['smem_bytes']} bytes of shared memory, rings of {out['ring_stages']} tiles, "
+          f"{'TMA stores' if out['bulk'] else 'row copies'}; tiles {out['tile_bytes'] / 1e6:.3f} "
+          f"MB, read from L2 {out['l2_tile_bytes'] / 1e9:.3f} GB a step (the plan's: modelled, "
+          f"not measured); the bound's bytes "
+          f"{out['device_bytes'] / 1e9:.3f} GB "
+          f"({out['device_bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s; k2_work's "
+          f"{work / 1e9:.3f} GB)", flush=True)
+    return out
 
 
 def k4_bf16_kernel() -> TrainKernel:
@@ -5517,7 +5561,8 @@ def final_latent_phase(dev, card: str, gen, defaults: dict) -> Tuple[dict, list]
                                         "step's points (the sampling step only)"}
                        if kname == "K4" else {}),
                     "default_spec_ms": t.get("default_spec_ms"),
-                    **({"trunk": FWD_SOURCE} if part == "fwd" else backward_entry(t)),
+                    **({"trunk": FWD_BF16_SOURCE if name == "K2 bf16" else FWD_SOURCE}
+                       if part == "fwd" else backward_entry(t)),
                 })
     pix_label = variants[1][1]
     for key in ("float32", "bf16"):

@@ -1388,6 +1388,48 @@ def test_cuda_bf16_chain_db_reproducible(scenes, n):
         assert torch.equal(db0, db1)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,n,model_type,classifier", BF16_CHAIN_CASES)
+def test_cuda_bf16_fwd_matches_plain(scenes, n, model_type, classifier):
+    """K2's bf16 forward (train_fwd_bf16_kernel, csrc/train_fwd_bf16_tc.cuh)
+    on the raw wrapper against the plain bf16 forward, at the flagship
+    width on the twin, classifier and combined trunks at 4 and 64 x 2000
+    and on short scenes whose blocks straddle scenes (two with M % 8 == 4:
+    the residuals copied by threads instead of TMA stores): y within 1e-5
+    at >= 90% of the points and 2e-3 everywhere, the residuals (x_last the
+    last) equal at >= 99.9% of the entries and elsewhere within one bf16
+    step or 2e-3; the launcher's own plan equals ``train_fwd_bf16_plan``'s;
+    one bf16 forward launch a trunk and none of the float32 kernel; y and
+    the residuals bit for bit from run to run (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from alignsdf_torch.kernels.train_decoder import (FB_PLAN_KEYS, fwd_bf16_card_plan,
+                                                      train_fwd_bf16_plan)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    st, trunks, _ = _bf16_trunks(model_type, classifier, scenes, n, 26)
+    for e, ws, xs, bs, seed in trunks:
+        p = pack_trunk(e, ws, xs, bs, st)
+        plan = train_fwd_bf16_plan(p.out_pads, e.shape[1], e.shape[0], n, st.scene_bias,
+                                   [x is not None for x in p.x])
+        assert fwd_bf16_card_plan(p, st) == {k: plan[k] for k in FB_PLAN_KEYS}, plan
+        assert plan["bulk"] == int(e.shape[0] % 8 == 0)
+        before = train_decode.bf16_launches, train_decode.launches
+        runs = [train_decode_forward(p, seed, st) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert (train_decode.bf16_launches, train_decode.launches) == (before[0] + 2, before[1])
+        (y, acts), (y2, acts2) = runs
+        assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(acts, acts2))
+        assert all(a.dtype == torch.bfloat16 for a in acts)
+        with torch.no_grad():
+            acts_ref = []
+            y_ref, _ = train_decode_reference(e, ws, xs, bs, seed, st, acts=acts_ref)
+        _bf16_close(y, y_ref)
+        _bf16_residuals_close([a[:b.shape[-1]].T.float() for a, b in zip(acts, bs)], acts_ref,
+                              share=0.999)
+
+
 def _bf16_residuals_close(acts, acts_ref, share: float = 0.995) -> None:
     """A bf16 kernel's residuals (bf16, unpadded, as float32) against the
     plain bf16 forward's: equal at >= ``share`` of the entries, elsewhere
