@@ -32,16 +32,20 @@
 // trunk: 6 classes add 6 x 512 multiply-adds to ~1 M a point.
 //
 // bf16 (a plan packed with dtype bfloat16; decoder_kernel.py:331, :375,
-// :626 with dtype=bfloat16): the same kernel on the trunk's bf16 k step
-// (TcBf16: one bf16 product a k step of 16, the ReLU outputs rounded to
-// bf16), the plan's tiles bf16 and its epilogue tiles and final rows the
-// bf16-rounded weights in float32.  Its bound is one product a
-// multiply-add at the card's 989.4 TFLOP/s dense bf16: 4.43 ms a 128^3
-// pass at the flagship, a sixth of split TF32's.
+// :626 with dtype=bfloat16): its own design for Hopper, grid_bf16_kernel in
+// grid_trunk_bf16_tc.cuh (128 points a block sharing each weight tile, bf16
+// activations read by wgmma from shared memory, a producer feeding a
+// multicast ring; the two warpgroups run their epilogues as they come, with
+// no order between them: see that header's note (d) for the ping-pong order
+// measured and left out), on the plan's own bf16 layout (kernels/grid_decoder.py:
+// pack_grid_plan_bf16).  Its bound is one product a multiply-add at the
+// card's 989.4 TFLOP/s dense bf16: 4.42 ms a 128^3 pass at the flagship, a
+// sixth of split TF32's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_trunk_bf16_tc.cuh"
 #include "grid_trunk_tc.cuh"
 
 template <class Cfg>
@@ -84,12 +88,19 @@ static int grid_decoder_run(const float* prm, const TcPlan& plan, const float* s
 
 // desc: [n_trunks, fin_b, rows, n_rows, then per trunk: n_hidden, fin,
 // fin_xyz, last_pad, then per hidden layer: w, x, b, in_pad, out_pad]
-// (offsets in floats, -1 = absent; w = the layer's weight tiles, see
-// grid_trunk_tc.cuh); bf16: the plan's tiles are bf16 (TcBf16).  Returns 0,
-// a cudaError_t from the launch, or -1 for a descriptor this kernel rejects.
+// (offsets in floats, -1 = absent; float32: w = the layer's weight tiles,
+// see grid_trunk_tc.cuh; bf16: the bf16 plan's stream, see
+// grid_trunk_bf16_tc.cuh's gb_take_plan; its scratch: GB_SCRATCH bytes a
+// warpgroup of the grid, unused in float32).  Returns 0, a cudaError_t from
+// the launch, or -1 for a descriptor this kernel rejects (bf16: also
+// WB_ERR_CLUSTER).
 extern "C" int grid_decoder_launch(const float* prm, const int* desc, int desc_len,
                                    const float* scal, long long base, int m, int n,
-                                   float* out, int bf16, void* stream) {
+                                   float* out, int bf16, void* scratch, long long scratch_bytes,
+                                   void* stream) {
+  if (bf16)
+    return launch_grid_bf16(prm, desc, desc_len, scal, base, m, n, out, (uint8_t*)scratch,
+                            scratch_bytes, (cudaStream_t)stream);
   if (desc_len < 4) return -1;
   TcPlan plan;
   plan.n_trunks = desc[0];
@@ -98,10 +109,14 @@ extern "C" int grid_decoder_launch(const float* prm, const int* desc, int desc_l
   plan.n_rows = desc[3];
   plan.lat_pad = 0;
   if (m <= 0 || n <= 0) return -1;
-  if (bf16) {
-    if (!tc_take_plan<TcBf16>(plan, desc, desc_len, 4, false, 0)) return -1;
-    return grid_decoder_run<TcBf16>(prm, plan, scal, base, m, n, out, (cudaStream_t)stream);
-  }
   if (!tc_take_plan(plan, desc, desc_len, 4, false, 0)) return -1;
   return grid_decoder_run<TcF32>(prm, plan, scal, base, m, n, out, (cudaStream_t)stream);
+}
+
+// The bf16 kernel's launch plan for a run of m points (GB_PLAN_INTS into
+// plan, see launch_grid_bf16); launches nothing.
+extern "C" int grid_decoder_bf16_plan(const int* desc, int desc_len, long long base, int m, int n,
+                                      int* plan) {
+  return launch_grid_bf16(nullptr, desc, desc_len, nullptr, base, m, n, nullptr, nullptr, 0, 0,
+                          plan);
 }

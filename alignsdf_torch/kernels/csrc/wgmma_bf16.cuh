@@ -1,5 +1,5 @@
 // bf16 on Hopper's tensor cores: the product of the bf16 k step of the grid
-// decoders (grid_trunk_tc.cuh with TcBf16; K1, K3 and K6 serving a bf16
+// decoders (grid_trunk_tc.cuh with TcBf16; K3 and K6 serving a bf16
 // plan) and of K2's, K4's and K5's bf16 forwards, chains and
 // weight-gradient reductions.
 // wgmma.m64n128k16.f32.bf16.bf16 with A's fragment in registers and B in

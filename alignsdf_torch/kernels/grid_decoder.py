@@ -8,15 +8,18 @@ runs the latent-folded trunks and returns an (n_rows, m) float32 array: row
 0 the hand SDF, row 1 the object SDF (both tanh'd), rows 2.. the
 classifier's logits, which the plan packs as extra final rows of the hand
 trunk (``ops/grid_plan.py``).  The CUDA source is ``csrc/grid_decoder.cu``,
-on the tensor-core trunk of ``csrc/grid_trunk_tc.cuh`` that K3 shares: the
-plan stores each hidden layer's weights split into TF32 halves, big and
-small, as tiles of 128 outputs x 8 k in that trunk's shared-memory layout
-(``tile_weights``).
+in float32 on the tensor-core trunk of ``csrc/grid_trunk_tc.cuh`` that K3
+shares: the plan stores each hidden layer's weights split into TF32 halves,
+big and small, as tiles of 128 outputs x 8 k in that trunk's shared-memory
+layout (``tile_weights``).
 
 A plan packed with ``dtype=torch.bfloat16`` serves the JAX package's bf16
-grid kernel (``make_fused_grid_decode_fn(..., dtype=jnp.bfloat16)``): its
-hidden weights are bf16 tiles of 128 outputs x 16 k, its epilogue tiles and
-final rows hold the bf16-rounded weights in float32 (biases unrounded), and
+grid kernel (``make_fused_grid_decode_fn(..., dtype=jnp.bfloat16)``) on its
+own kernel, ``grid_bf16_kernel`` in ``csrc/grid_trunk_bf16_tc.cuh``, and in
+its layout (``pack_grid_plan_bf16``): each trunk one stream of the items
+that kernel's ring carries, in its order, each hidden layer in halves of up
+to 256 outputs (each k step's tile of 16 k, then the half's bias and
+bf16-rounded xyz weights in float32), then the final rows as bf16 tiles;
 the kernel rounds each hidden activation to bf16 after the ReLU.  The plain
 version emulates that in float32: the same roundings, so its products are
 exact and its sums float32.
@@ -49,6 +52,15 @@ TC_K = 8
 TC_K_BF16 = 16  # a bf16 tile's k depth: wgmma's K for bf16
 TC_MAX_OUT = 512
 TC_SLOTS = 11  # the trunk's ring of tiles
+# grid_trunk_bf16_tc.cuh (K1 in bf16): 128 points a block in clusters of 2,
+# a layer's outputs in halves of up to 256 (wgmma's N), 8 KB ring slots
+GB_P = 128
+GB_CLUSTER = 2
+GB_HALF = 256
+GB_SLOT = 8192
+GB_SCRATCH = 32768  # a warpgroup's scratch: half of a layer's outputs for 64 points
+GB_PLAN_KEYS = ("smem_bytes", "points_a_block", "cluster", "grid_blocks", "ring_slots",
+                "stream_bytes")
 DTYPES = (torch.float32, torch.bfloat16)  # a plan's compute dtype
 
 
@@ -159,7 +171,10 @@ class GridPlan:
 
     def trunks(self):
         """Yield (hidden [(w|None, x|None, b)], fin, fin_xyz|None): views,
-        but w untiled (a copy)."""
+        but w untiled (a copy); a bf16 plan's all copies."""
+        if self.dtype == torch.bfloat16:
+            yield from self._bf16_trunks()
+            return
         d = self.desc.tolist()
         n_rows = self.n_rows
         pos = self._HEAD
@@ -175,6 +190,38 @@ class GridPlan:
                                self.view(b, (out_pad,))))
             yield (hidden, self.view(fin, (n_rows, last_pad)),
                    self.view(fin_xyz, (n_rows, 3)) if fin_xyz >= 0 else None)
+
+    def _bf16_trunks(self):
+        """trunks() of pack_grid_plan_bf16's layout: each layer's halves
+        walked in stream order, untiled and joined."""
+        d = self.desc.tolist()
+        n_rows = self.n_rows
+        pos = self._HEAD
+        for t in range(d[0]):
+            n_hidden, fin, fin_xyz, last_pad = d[pos:pos + 4]
+            pos += 4
+            hidden = []
+            for _ in range(n_hidden):
+                w, x, b, in_pad, out_pad = d[pos:pos + 5]
+                pos += 5
+                cursor, ws, xs, bs = (w if w >= 0 else b), [], [], []
+                for width in half_widths(out_pad)[::-1]:  # streamed last half first
+                    if w >= 0:
+                        size = tile_floats(in_pad, width, torch.bfloat16)
+                        ws.insert(0, untile_bf16(self.flat[cursor:cursor + size], in_pad, width))
+                        cursor += size
+                    rows = self.flat[cursor:cursor + width * (4 if x >= 0 else 1)].view(-1, width)
+                    bs.insert(0, rows[0])
+                    if x >= 0:
+                        xs.insert(0, rows[1:])
+                    cursor += rows.numel()
+                hidden.append((torch.cat(ws, dim=1) if ws else None,
+                               torch.cat(xs, dim=1) if xs else None, torch.cat(bs)))
+            nf = fin_width(n_rows if t == 0 else N_ROWS)
+            tiles = untile_bf16(self.flat[fin:fin + last_pad * nf // 2], last_pad, nf).T
+            rows = tiles.new_zeros(n_rows, last_pad)
+            rows[:min(nf, n_rows)] = tiles[:n_rows]
+            yield (hidden, rows, self.view(fin_xyz, (n_rows, 3)) if fin_xyz >= 0 else None)
 
     @property
     def fin_b(self) -> torch.Tensor:
@@ -236,15 +283,44 @@ def tile_weights(w: torch.Tensor, k: int, out_pad: int,
     if k % kk or out_pad % TC_GROUP:
         raise ValueError(f"a ({k}, {out_pad}) tiling needs k % {kk} == 0 and "
                          f"out_pad % {TC_GROUP} == 0")
+    if dtype == torch.bfloat16:  # a k step's groups side by side: one tile of out_pad
+        return tile_bf16(w, k, out_pad)
     full = w.new_zeros(k, out_pad, dtype=torch.float32)
     full[:w.shape[0], :w.shape[1]] = w
-    if dtype == torch.float32:
-        return tile_halves(torch.stack(tf32_split(full)))
-    # (step, k half, k, group, output group of 8, output) -> (step, group,
-    # output group of 8, k half, output, k)
-    tiles = (full.unflatten(1, (out_pad // TC_GROUP, TC_GROUP // 8, 8))
-             .unflatten(0, (k // kk, 2, 8)).permute(0, 3, 4, 1, 5, 2))
-    return tiles.to(torch.bfloat16).reshape(-1).view(torch.float32)
+    return tile_halves(torch.stack(tf32_split(full)))
+
+
+def tile_bf16(w: torch.Tensor, k: int, width: int) -> torch.Tensor:
+    """(k, width) weights, ``w`` in the top-left and zeros elsewhere,
+    rounded to bf16 as one tile a k step of 16: the shared-memory image of a
+    bf16 wgmma B operand of ``width`` outputs (K-major core matrices of 8
+    outputs x 8 k: [outputs / 8][k half][output][8 k]), as float32 words
+    holding bf16 pairs.  ``tile_weights``' bf16 tiles are these at the
+    layer's width: a k step's 128-output tiles side by side."""
+    if k % TC_K_BF16 or width % 8:
+        raise ValueError(f"a ({k}, {width}) bf16 tiling needs k % 16 == 0 and width % 8 == 0")
+    full = w.new_zeros(k, width, dtype=torch.float32)
+    full[:w.shape[0], :w.shape[1]] = w
+    # (step, k half, k, output group of 8, output) -> (step, group, k half, output, k)
+    tiles = full.unflatten(1, (width // 8, 8)).unflatten(0, (k // TC_K_BF16, 2, 8))
+    return tiles.permute(0, 3, 1, 4, 2).to(torch.bfloat16).reshape(-1).view(torch.float32)
+
+
+def untile_bf16(flat: torch.Tensor, k: int, width: int) -> torch.Tensor:
+    """(k, width) float32 weights from ``tile_bf16``'s tiles."""
+    tiles = flat.contiguous().view(torch.bfloat16).view(k // TC_K_BF16, width // 8, 2, 8, 8)
+    return tiles.permute(0, 2, 4, 1, 3).reshape(k, width).to(torch.float32)
+
+
+def half_widths(out_pad: int) -> List[int]:
+    """The bf16 K1's halves of a layer's outputs: up to GB_HALF each."""
+    return [min(GB_HALF, out_pad - c) for c in range(0, out_pad, GB_HALF)]
+
+
+def fin_width(rows: int) -> int:
+    """The bf16 K1's final-rows product width for ``rows`` output rows: the
+    least of 8, 16, 32, 64, 128 that holds them."""
+    return next(w for w in (8, 16, 32, 64, 128) if w >= rows)
 
 
 def epilogue_tile(b: torch.Tensor, x: Optional[torch.Tensor],
@@ -293,9 +369,7 @@ def untile_weights(flat: torch.Tensor, k: int, out_pad: int,
     """(k, out_pad) float32 weights from ``tile_weights``'s tiles: big +
     small, or the bf16 values."""
     if check_dtype(dtype) == torch.bfloat16:
-        tiles = flat.contiguous().view(torch.bfloat16).view(
-            k // TC_K_BF16, out_pad // TC_GROUP, TC_GROUP // 8, 2, 8, 8)
-        return tiles.permute(0, 3, 5, 1, 2, 4).reshape(k, out_pad).to(torch.float32)
+        return untile_bf16(flat, k, out_pad)
     tiles = flat.view(k // TC_K, out_pad // TC_GROUP, 2, TC_GROUP // 8, 2, 8, 4)
     both = tiles[:, :, 0] + tiles[:, :, 1]
     return both.permute(0, 3, 5, 1, 2, 4).reshape(k, out_pad)
@@ -397,6 +471,8 @@ def pack_grid_plan(trunks: List[FoldedTrunk], n: int,
     with ``output_rows(trunks)`` output rows, computing in ``dtype``
     (float32: split TF32 tiles; bfloat16: bf16 tiles, the xyz and final
     weights rounded to bf16, the biases float32)."""
+    if check_dtype(dtype) == torch.bfloat16:
+        return pack_grid_plan_bf16(trunks, n)
     n_rows = output_rows(trunks)
 
     def layer(place, h: HiddenLayer, in_pad: int, out_pad: int) -> List[int]:
@@ -408,6 +484,137 @@ def pack_grid_plan(trunks: List[FoldedTrunk], n: int,
 
     return GridPlan(*pack_trunks(trunks, layer, (n_rows,), n_rows, TC_GROUP, dtype), n,
                     dtype=check_dtype(dtype))
+
+
+def pack_grid_plan_bf16(trunks: List[FoldedTrunk], n: int) -> GridPlan:
+    """Pack folded trunks for the bf16 K1 (``csrc/grid_trunk_bf16_tc.cuh``).
+    The descriptor is the float32 plan's ([n_trunks, fin_b, rows, n_rows,
+    per trunk n_hidden, fin, fin_xyz, last_pad, per hidden layer w, x, b,
+    in_pad, out_pad]); each trunk's arrays are one contiguous stream, in the
+    order that kernel's ring carries them: per hidden layer (widths padded to
+    TC_GROUP) and half of up to GB_HALF outputs, the last half first, the
+    half's k-step tiles
+    (``tile_bf16`` of its columns of W; none for layer 0), then its epilogue
+    block (the bias, then the xyz weights' x, y and z rows rounded to bf16,
+    float32); then the final rows' ``tile_bf16`` tiles, ``fin_width`` wide
+    (the first trunk's every row, the others' SDF rows).  w, b and x point at
+    a layer's first streamed half (x = b + its width), fin at the final tiles;
+    fin_xyz (n_rows, 3) and fin_b (n_rows,) lie apart, as in the float32
+    plan."""
+    dtype = torch.bfloat16
+    n_rows = output_rows(trunks)
+    pieces: List[torch.Tensor] = []
+    cursor = 0
+
+    def place(fill: torch.Tensor) -> int:
+        nonlocal cursor
+        off = cursor
+        pieces.append(fill.reshape(-1))
+        cursor = _round_up(cursor + fill.numel(), ALIGN)
+        pieces.append(fill.new_zeros(cursor - off - fill.numel()))
+        return off
+
+    device = trunks[0].fin_b.device
+    fin_b = torch.zeros(n_rows, dtype=torch.float32, device=device)
+    for t in trunks:
+        fin_b[list(t.rows)] += t.fin_b
+    desc = [len(trunks), place(fin_b), 0, n_rows]
+    max_pad = TC_GROUP
+    for index, t in enumerate(trunks):
+        if not 1 <= len(t.hidden) <= _MAX_HIDDEN or t.hidden[0].w is not None:
+            raise ValueError("a trunk needs 1-8 hidden layers and a layer 0 whose "
+                             "embedding input is folded")
+        stream, layers, in_pad = [], [], 0
+        for h in t.hidden:
+            out_pad = _round_up(h.b.shape[0], TC_GROUP)
+            if out_pad > TC_MAX_OUT:
+                raise ValueError(f"a hidden layer of {h.b.shape[0]} outputs: the bf16 kernel "
+                                 f"takes at most {TC_MAX_OUT}")
+            max_pad = max(max_pad, out_pad)
+            b = h.b.new_zeros(out_pad, dtype=torch.float32)
+            b[:h.b.shape[0]] = h.b
+            x = None
+            if h.x is not None:
+                x = h.b.new_zeros(3, out_pad, dtype=torch.float32)
+                x[:, :h.x.shape[1]] = round_to(h.x.to(torch.float32), dtype)
+            # the halves last first: the one streamed first never writes rows the
+            # layer still reads where in_pad <= GB_HALF (grid_trunk_bf16_tc.cuh (a))
+            halves = list(zip(range(0, out_pad, GB_HALF), half_widths(out_pad)))[::-1]
+            w_off = sum(map(torch.numel, stream)) if h.w is not None else -1
+            for c, width in halves:
+                if h.w is not None:
+                    stream.append(tile_bf16(h.w[:, c:c + width], in_pad, width))
+                if c == halves[0][0]:
+                    b_off = sum(map(torch.numel, stream))
+                rows = b[None, c:c + width] if x is None else torch.cat([b[None, c:c + width],
+                                                                         x[:, c:c + width]])
+                stream.append(rows.reshape(-1))
+            layers.append((w_off, b_off + halves[0][1] if x is not None else -1, b_off, in_pad,
+                           out_pad))
+            in_pad = out_pad
+        nf = fin_width(n_rows if index == 0 else N_ROWS)
+        fin = torch.zeros(n_rows, in_pad, dtype=torch.float32, device=device)
+        fin[list(t.rows), :t.fin.shape[0]] = round_to(t.fin.T.to(torch.float32), dtype)
+        fin_at = sum(map(torch.numel, stream))
+        stream.append(tile_bf16(fin[:nf].T, in_pad, nf))
+        base = place(torch.cat(stream))
+        fin_xyz = -1
+        if t.fin_x is not None:
+            fx = torch.zeros(n_rows, 3, dtype=torch.float32, device=device)
+            fx[list(t.rows)] = round_to(t.fin_x.T.to(torch.float32), dtype)
+            fin_xyz = place(fx)
+        desc += [len(t.hidden), base + fin_at, fin_xyz, in_pad]
+        for w_off, x_off, b_off, i_pad, o_pad in layers:
+            desc += [base + w_off if w_off >= 0 else -1, base + x_off if x_off >= 0 else -1,
+                     base + b_off, i_pad, o_pad]
+    desc[2] = max_pad
+    return GridPlan(torch.cat(pieces), np.asarray(desc, np.int32), n, dtype=dtype)
+
+
+def bf16_stream_bytes(plan: GridPlan) -> int:
+    """The bytes of the items the bf16 K1 streams through its ring for one
+    tile of GB_P points: every trunk's stream (from its layer 0 to the end
+    of its final tiles)."""
+    d = plan.desc.tolist()
+    pos, total = GridPlan._HEAD, 0
+    for t in range(d[0]):
+        n_hidden, fin, _, last_pad = d[pos:pos + 4]
+        start = d[pos + 4 + 2]  # layer 0's b: the stream's first item
+        nf = fin_width(plan.n_rows if t == 0 else N_ROWS)
+        total += 4 * (fin - start) + last_pad // TC_K_BF16 * nf * 32
+        pos += 4 + GridPlan._LAYER * n_hidden
+    return total
+
+
+def grid_bf16_plan(plan: GridPlan, m: int) -> dict:
+    """The bf16 K1's launch for a run of m points, in Python: points a
+    block, blocks a cluster, the clusters' tiles of GB_CLUSTER x GB_P
+    points, and the tile bytes the clusters read from L2 (each cluster
+    reads a tile's stream once for its GB_CLUSTER x GB_P points; modelled,
+    not measured).  On the card the launcher's own plan is
+    ``grid_bf16_card_plan``."""
+    tiles = -(-m // (GB_CLUSTER * GB_P))
+    stream = bf16_stream_bytes(plan)
+    return {"points_a_block": GB_P, "cluster": GB_CLUSTER, "cluster_tiles": tiles,
+            "stream_bytes": stream, "l2_tile_bytes": stream * tiles}
+
+
+def grid_bf16_card_plan(plan: GridPlan, base: int, m: int) -> dict:
+    """The launcher's own plan for a run of m points (``GB_PLAN_KEYS``;
+    needs the card): its shared memory, points a block, cluster, grid
+    blocks, ring slots and a tile's stream bytes."""
+    lib = _library()
+    fn = lib.grid_decoder_bf16_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    desc = np.ascontiguousarray(plan.desc, np.int32)
+    out = (ctypes.c_int * 7)()
+    rc = fn(desc.ctypes.data, int(desc.size), int(base), int(m), int(plan.n), out)
+    if rc != 0:
+        raise RuntimeError(f"grid_decoder_bf16_plan failed with code {rc}")
+    v = list(out)
+    return dict(zip(GB_PLAN_KEYS, v[:5] + [v[5] + (v[6] << 31)]))
 
 
 def grid_coords(base: int, m: int, n: int, origin: torch.Tensor,
@@ -440,15 +647,18 @@ def grid_decode_reference(plan: GridPlan, base: int, m: int, origin: torch.Tenso
     return torch.cat([torch.tanh(acc[:N_ROWS]), acc[N_ROWS:]])
 
 
-def _launcher():
+def _library():
     from alignsdf_torch.kernels.build import load
 
-    lib = load("grid_decoder")
-    fn = lib.grid_decoder_launch
+    return load("grid_decoder")
+
+
+def _launcher():
+    fn = _library().grid_decoder_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     return fn
 
 
@@ -471,15 +681,22 @@ def grid_decode(plan: GridPlan, base: int, m: int, origin: torch.Tensor,
                      ).to(plan.device).contiguous()
     out = torch.empty((plan.n_rows, m), dtype=torch.float32, device=plan.device)
     desc = np.ascontiguousarray(plan.desc, np.int32)
+    bf16 = plan.dtype == torch.bfloat16
+    # the bf16 kernel's scratch: GB_SCRATCH bytes for each warpgroup of its grid
+    # (at most a block an SM)
+    scratch = (torch.empty(torch.cuda.get_device_properties(plan.device).multi_processor_count
+                           * 2 * GB_SCRATCH, dtype=torch.uint8, device=plan.device)
+               if bf16 else None)
     with torch.cuda.device(plan.device):
         stream = torch.cuda.current_stream(plan.device).cuda_stream
         rc = _launcher()(plan.flat.data_ptr(), desc.ctypes.data, int(desc.size),
                          scal.data_ptr(), int(base), int(m), int(plan.n), out.data_ptr(),
-                         int(plan.dtype == torch.bfloat16), stream)
+                         int(bf16), scratch.data_ptr() if bf16 else None,
+                         scratch.numel() if bf16 else 0, stream)
     if rc != 0:
         raise RuntimeError(f"grid_decoder launch failed with code {rc}"
                            + (" (plan rejected)" if rc == -1 else ""))
-    if plan.dtype == torch.bfloat16:
+    if bf16:
         grid_decode.bf16_launches += 1
     else:
         grid_decode.launches += 1

@@ -389,6 +389,9 @@ K5_FWD_KERNELS = ("generic_train_fwd_tc_kernel",)
 K5_BWD_KERNELS = ("generic_train_bwd_chain_tc_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K6_TOL = 1e-4
 TC_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_tc.cuh"  # K1's, K3's and K6's trunk
+# K1's bf16 kernel (grid_bf16_kernel: 128 points a block, clusters of 2, a
+# producer warp's multicast ring, bf16 activations read by wgmma from shared memory)
+GB_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_bf16_tc.cuh"
 WGRAD_SOURCE = "alignsdf_torch/kernels/csrc/wgrad_tc.cuh"  # K2's, K4's and K5's dW reduction
 # their bf16 backwards' dW reduction (wgrad_bf16_tc_kernel<BN, RING>: TMA,
 # clusters with multicast, warp-specialised wgmma)
@@ -4387,6 +4390,27 @@ def bf16_verdict(label: str, c: dict) -> None:
         fail(f"{label}: the bf16 kernel disagrees with its plain bf16 version: {c}")
 
 
+def k1_bf16_plan_report(plan, total: int, card: str) -> dict:
+    """K1's bf16 launch plan for an n^3 pass in the fused evaluator's runs:
+    the launcher's (shared memory, points a block, cluster, grid blocks,
+    ring slots, a tile's stream bytes) and the tile bytes its clusters read
+    from L2 a pass: a tile's stream once a cluster's tile of points in each
+    run (modelled, not measured)."""
+    from alignsdf_torch.kernels.grid_decoder import grid_bf16_card_plan
+
+    card_plan = grid_bf16_card_plan(plan, 0, min(1 << 20, total))
+    tile = card_plan["cluster"] * card_plan["points_a_block"]
+    l2 = sum(card_plan["stream_bytes"] * -(-min(1 << 20, total - s) // tile)
+             for s in range(0, total, 1 << 20))
+    rep = {**card_plan, "l2_tile_bytes_a_pass": l2}
+    print(f"[{card}] K1 bf16 plan (the launcher's): {card_plan['points_a_block']} points a "
+          f"block, clusters of {card_plan['cluster']}, {card_plan['grid_blocks']} blocks, "
+          f"{card_plan['ring_slots']} ring slots, {card_plan['smem_bytes']} bytes of shared "
+          f"memory, {card_plan['stream_bytes'] / 1e6:.3f} MB of items a tile; tile bytes read "
+          f"from L2 {l2 / 1e9:.2f} GB a pass (the plan's: modelled, not measured)", flush=True)
+    return rep
+
+
 def vs_float32(label: str, kb, kf, voxel) -> dict:
     """A bf16 field (rows 0-1) against the float32 kernel's on the same
     points: the largest difference (at most BF16_VS_F32_TOL, JAX's bf16
@@ -4615,6 +4639,8 @@ def bf16_phase(dev, card: str, gen, mano_faces, model) -> Tuple[dict, list]:
              else "bytes", "split_tf32_bound_ms": grid_bounds(flops, 0)["split_tf32_bound_ms"],
              "tflop": flops / 1e12, "tflops": flops / bf_ms / 1e9}
         r["timing"] = t
+        if name == "K1":
+            r["plan"] = k1_bf16_plan_report(plan_b, total, card)
         print(f"[{card}] {name} bf16 per {n}^3 pass ({flops / 1e12:.3f} TFLOP): {bf_ms:.2f} ms "
               f"({t['tflops']:.1f} TFLOP/s), plain bf16 {plain_ms:.2f} ms, float32 kernel "
               f"{f32_ms:.2f} ms; bf16 bound {t['bound_ms']:.2f} ms ({t['bound_by']}; the FLOPs "
@@ -4630,7 +4656,7 @@ def bf16_phase(dev, card: str, gen, mano_faces, model) -> Tuple[dict, list]:
             "name": f"{name} in bf16 (bf16 wgmma)",
             "route": "cuda",
             "source": src,
-            "trunk": TC_TRUNK_SOURCE,
+            "trunk": GB_TRUNK_SOURCE if name == "K1" else TC_TRUNK_SOURCE,
             "replaces": line,
             "launches": r["main_path"]["launches"],
             "max_abs_err": max(c["max_abs_err"] for c in checks),
@@ -4662,17 +4688,28 @@ def bf16_phase(dev, card: str, gen, mano_faces, model) -> Tuple[dict, list]:
         torch.cuda.synchronize()
         with torch.no_grad():
             rb = fused_pass(plain, plan, origin0, voxel0)
-        kernel.launches, kernel.bf16_launches = saved
         if plan.n_rows != 2 + c_specs.network_specs.num_class:
             fail(f"{name}'s classifier plan has {plan.n_rows} rows")
         c = bf16_compare(kb, rb)
         bf16_verdict(f"{name} at {plan.n_rows} rows", c)
         rec[name]["classifier_check"] = c
+        if name == "K1":  # its time at 2 + C rows (K1p), beside the 2 rows' above
+            c_ms = min(cuda_ms(lambda: fused_pass(kernel, plan, origin0, voxel0), 1)
+                       for _ in range(3))
+            c_flops = k1_flops_per_point(c_specs) * total
+            rec[name]["classifier_timing"] = {
+                "ms": c_ms, "rows": plan.n_rows, "tflop": c_flops / 1e12,
+                "bound_ms": c_flops / BF16_PEAK_FLOPS * 1e3}
+            print(f"[{card}] K1 bf16 at {plan.n_rows} rows per {n}^3 pass "
+                  f"({c_flops / 1e12:.3f} TFLOP): {c_ms:.2f} ms; bf16 bound "
+                  f"{c_flops / BF16_PEAK_FLOPS * 1e3:.2f} ms", flush=True)
+        kernel.launches, kernel.bf16_launches = saved
         del c_model, kb, rb
     for e in entries[:2]:
         c = rec[e["name"][:2]]["classifier_check"]
         e["max_abs_err"] = max(e["max_abs_err"], c["max_abs_err"])
         e["logits_max_err_of_largest"] = c["logits_max_err"]
+    entries[0]["ms_2_plus_6_rows"] = rec["K1"]["classifier_timing"]["ms"]
 
     rec["configs"] = baseline_configs_phase(dev, card, gen, mano_faces)
     return rec, entries

@@ -1167,6 +1167,97 @@ def test_cuda_bf16_grid_kernels_match_plain(pixel, num_class, model_type):
     assert 0 < float((out[:2] - f32[:2]).abs().max()) <= 5e-3
 
 
+def _bf16_k1_plan(model_type, num_class, latent_in, n, seed):
+    """A bf16 K1 plan at the flagship width (latent 256, 5 x 512 trunks with
+    the latent re-entering at ``latent_in``) from seeded weights, with
+    num_class class rows (head x40) or none, on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    specs = Specs(model_type=model_type, encode_style="both", point_feat_size=9,
+                  latent_size=256, mano_branch=True, object_pose_branch=True,
+                  sdf_scale_factor=7.0, classifier_branch=num_class > 0,
+                  network_specs=NetworkSpecs(num_class=max(num_class, 1), latent_in=latent_in))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        decoder = make_decoder(model_type, 256, 9, "both", specs.network_specs,
+                               use_classifier=num_class > 0).cuda()
+    if num_class:
+        with torch.no_grad():
+            decoder.classifier_head.weight *= 40
+    ctx = {"decoder": decoder, "latent": torch.randn(1, 256, generator=gen).cuda(),
+           "rot_center": (torch.randn(1, 1, 3, generator=gen) * 0.05).cuda(),
+           "global_trans": _rigid(gen, 16).cuda(), "obj_trans": _rigid(gen, 1)[:, 0].cuda()}
+    return make_grid_decode_fn(specs, n, torch.bfloat16)(ctx).plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,num_class,latent_in", [
+    ("1encoder2decoder", 0, (2,)), ("1encoder2decoder", 6, (2,)),
+    ("1encoder2decoder", 126, (2,)), ("1encoder1decoder", 6, (2,)),
+    ("1encoder2decoder", 0, (2, 4))], ids=["twin", "C6", "C126", "combined", "fin_xyz"])
+def test_cuda_bf16_k1_kernel_matches_plain(model_type, num_class, latent_in):
+    """K1's bf16 kernel (grid_bf16_kernel, csrc/grid_trunk_bf16_tc.cuh) at
+    the flagship width on a run whose length is no multiple of 128 (nor of a
+    cluster's 256 points) from a nonzero base: at 2 rows, at 2 + 6 and 2 +
+    126, on a combined trunk and with a final-layer latent (fin_xyz), against
+    the plain bf16 version (``_bf16_close``; logits 5e-3 of their largest);
+    one bf16 launch and no float32 one; the launcher's plan is
+    ``grid_bf16_plan``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from alignsdf_torch.kernels.grid_decoder import (GB_CLUSTER, GB_P, grid_bf16_card_plan,
+                                                     grid_bf16_plan)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, base = 40, 123
+    m = n ** 3 - base - 77
+    assert m % GB_P and m % (GB_CLUSTER * GB_P)
+    plan = _bf16_k1_plan(model_type, num_class, latent_in, n, 31)
+    assert plan.n_rows == 2 + num_class
+    assert any(f is not None for _, _, f in plan.trunks()) == (latent_in == (2, 4))
+    card = grid_bf16_card_plan(plan, base, m)
+    model = grid_bf16_plan(plan, m)
+    assert (card["points_a_block"], card["cluster"], card["stream_bytes"]) == (
+        model["points_a_block"], model["cluster"], model["stream_bytes"]), (card, model)
+    assert card["grid_blocks"] <= model["cluster_tiles"] * GB_CLUSTER
+    origin = torch.full((3,), -1.0, device="cuda")
+    voxel = torch.tensor(2.0 / (n - 1), device="cuda")
+    before = grid_decode.bf16_launches, grid_decode.launches
+    out = grid_decode(plan, base, m, origin, voxel)
+    torch.cuda.synchronize()
+    assert (grid_decode.bf16_launches, grid_decode.launches) == (before[0] + 1, before[1])
+    ref = grid_decode_reference(plan, base, m, origin, voxel)
+    assert out.shape == ref.shape == (2 + num_class, m) and bool(torch.isfinite(out).all())
+    _bf16_close(out[:2], ref[:2])
+    if num_class:
+        _bf16_close(out[2:], ref[2:], loose=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", ["offset", "width", "rows"])
+def test_cuda_bf16_k1_refuses_a_plan(change):
+    """A bf16 K1 plan the kernel does not take raises on the card (the
+    launcher returns -1): a layer's tiles moved off the stream, a width past
+    512, more than 128 rows; no launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = _bf16_k1_plan("1encoder2decoder", 0, (2,), 16, 32)
+    desc = plan.desc.copy()
+    layer1 = 4 + 4 + 5  # trunk 0's layer 1: w, x, b, in_pad, out_pad
+    if change == "offset":
+        desc[layer1] += 4
+    elif change == "width":
+        desc[layer1 + 4] = 640
+    else:
+        desc[3] = 129
+    bad = dataclasses.replace(plan, desc=desc)
+    origin = torch.full((3,), -1.0, device="cuda")
+    voxel = torch.tensor(2.0 / 15, device="cuda")
+    before = grid_decode.bf16_launches, grid_decode.launches
+    with pytest.raises(RuntimeError, match="plan rejected"):
+        grid_decode(bad, 0, 1000, origin, voxel)
+    assert (grid_decode.bf16_launches, grid_decode.launches) == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("model_type,style,pfs,latent_in,num_class,latent,m", [
     ("1encoder2decoder", "nerf", 63, (2,), 0, 256, 4101),
