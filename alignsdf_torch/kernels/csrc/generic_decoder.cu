@@ -40,23 +40,52 @@
 // lat_pad (a multiple of 8) and the fill writes zeros past a trunk's width.
 //
 // bf16 (a plan packed with dtype bfloat16; decoder_kernel.py:59-137, :196-199
-// with dtype=bfloat16): the rows enter as bf16 (the wrapper casts them, as
-// JAX's run does), the trunk runs its bf16 k step (TcBf16), lat_pad is a
-// multiple of 16, and the final rows' weights hold bf16-rounded values.
-// 6.60 TFLOP a 128^3 pass at 989.4 TFLOP/s dense bf16: 6.67 ms.
+// with dtype=bfloat16): its own kernel, generic_bf16_kernel on
+// grid_trunk_bf16_tc.cuh's body, K1's bf16 design with the input rows as k
+// steps of their own (see that header's note (c)), on the plan's own layout
+// (kernels/generic_decoder.py:pack_generic_plan_bf16: widths padded to 16,
+// lat_pad a multiple of 16, each trunk one stream of the kernel's items).
+// The rows enter as bf16 (the wrapper refuses float32 rows on a bf16 plan,
+// as JAX's run casts them).  6.60 TFLOP a 128^3 pass at 989.4 TFLOP/s dense
+// bf16: 6.67 ms.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_trunk_bf16_tc.cuh"
 #include "grid_trunk_tc.cuh"
 
-// row-major, row stride ld; float, or __nv_bfloat16 for a bf16 plan
+// K6 on a bf16 plan: gb_body with input rows.
+__global__ void __launch_bounds__(GB_THREADS, 1)
+generic_bf16_kernel(const float* __restrict__ prm, const __grid_constant__ GbPlan p,
+                    const __grid_constant__ GbRows x, float* __restrict__ out,
+                    uint8_t* __restrict__ scratch) {
+  gb_body<true>(prm, p, nullptr, x, out, scratch);
+}
+
+// generic_bf16_kernel over m rows (see gb_launch); with `plan` its launch
+// plan, nothing launched and the rows unread.  The rows: per trunk (x_o =
+// x_h for one trunk) 1 .. lat_pad columns, row stride ld >= the width.
+static int launch_generic_bf16(const float* prm, const int* desc, int desc_len, const GbRows& rows,
+                               int m, float* out, uint8_t* scratch, long long scratch_bytes,
+                               cudaStream_t stream, int* plan = nullptr) {
+  GbPlan p;
+  if (!gb_take_plan(p, desc, desc_len, true)) return -1;
+  for (int t = 0; !plan && t < p.n_trunks; ++t)
+    if (!rows.x[t] || rows.in[t] < 1 || rows.in[t] > p.lat_pad || rows.ld[t] < rows.in[t])
+      return -1;
+  p.n = p.base = 0;
+  GbRows x = rows;
+  void* args[] = {(void*)&prm, &p, &x, &out, &scratch};
+  static int fits = 0;  // clusters the card runs at once
+  return gb_launch((const void*)generic_bf16_kernel, fits, p, m, args, scratch, scratch_bytes,
+                   stream, plan);
+}
+
+// row-major, row stride ld; float32 rows
 struct X0Rows { const void* x; long long ld; int in; };
 
 __device__ __forceinline__ float x0_value(const float* src, long long i) { return __ldg(src + i); }
-__device__ __forceinline__ float x0_value(const __nv_bfloat16* src, long long i) {
-  return __bfloat162float(src[i]);
-}
 
 // Trunk t's x0 columns c0 .. c0 + count - 1 of the block's 64 rows into
 // activation rows row0 on; zeros past the trunk's width and past row m.  A
@@ -117,27 +146,40 @@ static int generic_decoder_run(const float* prm, const TcPlan& plan, const X0Row
 
 // desc: [n_trunks, fin_b, rows, n_rows, lat_pad, then per trunk: n_hidden,
 // fin, fin_x, last_pad, then per hidden layer: w, x, lat, b, in_pad,
-// out_pad] (offsets in floats, -1 = absent; w and lat = the weight tiles of
-// the layer's activation and input rows, see grid_trunk_tc.cuh; x is always
-// -1; fin_x = the final layer's (n_rows, lat_pad) input-row weights, or -1).
-// bf16: the plan's tiles are bf16 (TcBf16) and the rows __nv_bfloat16, else
-// float.  Returns 0, a cudaError_t from the launch, or -1 for a descriptor or
-// input this kernel rejects.
+// out_pad] (offsets in floats, -1 = absent; x is always -1).  float32: w and
+// lat = the weight tiles of the layer's activation and input rows, see
+// grid_trunk_tc.cuh; fin_x = the final layer's (n_rows, lat_pad) input-row
+// weights, or -1; the rows float.  bf16: the bf16 plan's streams, see
+// grid_trunk_bf16_tc.cuh's gb_take_plan; the rows __nv_bfloat16; its
+// scratch: GB_SCRATCH bytes a warpgroup of the grid, unused in float32.
+// Returns 0, a cudaError_t from the launch, or -1 for a descriptor or input
+// this kernel rejects (bf16: also WB_ERR_CLUSTER).
 extern "C" int generic_decoder_launch(const float* prm, const int* desc, int desc_len,
                                       const void* x_h, long long ld_h, int in_h,
                                       const void* x_o, long long ld_o, int in_o, int m,
-                                      float* out, int bf16, void* stream) {
-  if (desc_len < 5) return -1;
+                                      float* out, int bf16, void* scratch,
+                                      long long scratch_bytes, void* stream) {
+  if (desc_len < 5 || m <= 0) return -1;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) {
+    GbRows rows = {};
+    rows.x[0] = static_cast<const __nv_bfloat16*>(x_h);
+    rows.x[1] = static_cast<const __nv_bfloat16*>(desc[0] == 2 ? x_o : x_h);
+    rows.ld[0] = ld_h;
+    rows.ld[1] = desc[0] == 2 ? ld_o : ld_h;
+    rows.in[0] = in_h;
+    rows.in[1] = desc[0] == 2 ? in_o : in_h;
+    return launch_generic_bf16(prm, desc, desc_len, rows, m, out, (uint8_t*)scratch,
+                               scratch_bytes, st);
+  }
   TcPlan plan;
   plan.n_trunks = desc[0];
   plan.fin_b = desc[1];
   plan.rows = desc[2];
   plan.n_rows = desc[3];
   plan.lat_pad = desc[4];
-  if (plan.lat_pad < TC_K || m <= 0) return -1;
-  if (bf16 ? !tc_take_plan<TcBf16>(plan, desc, desc_len, 5, true, 0, true)
-           : !tc_take_plan(plan, desc, desc_len, 5, true, 0, true))
-    return -1;
+  if (plan.lat_pad < TC_K) return -1;
+  if (!tc_take_plan(plan, desc, desc_len, 5, true, 0, true)) return -1;
   for (int t = 0; t < plan.n_trunks; ++t) {
     TcTrunk& T = plan.trunks[t];
     // the trunk header's xyz slot holds the final layer's input-row weights
@@ -153,7 +195,12 @@ extern "C" int generic_decoder_launch(const float* prm, const int* desc, int des
 
   const X0Rows rh = {x_h, ld_h, in_h};
   const X0Rows ro = plan.n_trunks == 2 ? X0Rows{x_o, ld_o, in_o} : rh;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) return generic_decoder_run<TcBf16, __nv_bfloat16>(prm, plan, rh, ro, m, out, st);
   return generic_decoder_run<TcF32, float>(prm, plan, rh, ro, m, out, st);
+}
+
+// The bf16 kernel's launch plan for a run of m rows (GB_PLAN_INTS into
+// plan, see gb_launch); launches nothing.
+extern "C" int generic_decoder_bf16_plan(const int* desc, int desc_len, int m, int* plan) {
+  const GbRows none = {};
+  return launch_generic_bf16(nullptr, desc, desc_len, none, m, nullptr, nullptr, 0, 0, plan);
 }

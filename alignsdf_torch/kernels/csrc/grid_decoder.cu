@@ -32,11 +32,12 @@
 // trunk: 6 classes add 6 x 512 multiply-adds to ~1 M a point.
 //
 // bf16 (a plan packed with dtype bfloat16; decoder_kernel.py:331, :375,
-// :626 with dtype=bfloat16): its own design for Hopper, grid_bf16_kernel in
-// grid_trunk_bf16_tc.cuh (128 points a block sharing each weight tile, bf16
+// :626 with dtype=bfloat16): its own design for Hopper, grid_bf16_kernel on
+// grid_trunk_bf16_tc.cuh's body, which K6's bf16 kernel shares (128 points a
+// block sharing each weight tile, bf16
 // activations read by wgmma from shared memory, a producer feeding a
 // multicast ring; the two warpgroups run their epilogues as they come, with
-// no order between them: see that header's note (d) for the ping-pong order
+// no order between them: see that header's note (e) for the ping-pong order
 // measured and left out), on the plan's own bf16 layout (kernels/grid_decoder.py:
 // pack_grid_plan_bf16).  Its bound is one product a multiply-add at the
 // card's 989.4 TFLOP/s dense bf16: 4.42 ms a 128^3 pass at the flagship, a
@@ -47,6 +48,33 @@
 
 #include "grid_trunk_bf16_tc.cuh"
 #include "grid_trunk_tc.cuh"
+
+// K1 on a bf16 plan: gb_body without input rows (grid_trunk_bf16_tc.cuh).
+__global__ void __launch_bounds__(GB_THREADS, 1)
+grid_bf16_kernel(const float* __restrict__ prm, const __grid_constant__ GbPlan p,
+                 const float* __restrict__ scal, float* __restrict__ out,
+                 uint8_t* __restrict__ scratch) {
+  const GbRows none = {};
+  gb_body<false>(prm, p, scal, none, out, scratch);
+}
+
+// grid_bf16_kernel over indices base .. base + m - 1 of the n^3 grid (see
+// gb_launch; `plan`: its launch plan, nothing launched).
+static int launch_grid_bf16(const float* prm, const int* desc, int desc_len, const float* scal,
+                            long long base, int m, int n, float* out, uint8_t* scratch,
+                            long long scratch_bytes, cudaStream_t stream, int* plan = nullptr) {
+  GbPlan p;
+  if (!gb_take_plan(p, desc, desc_len, false)) return -1;
+  if (m <= 0 || n <= 0 || base < 0 || (long long)n * n * n >= (1LL << 31)
+      || base + m > (long long)n * n * n)
+    return -1;
+  p.n = n;
+  p.base = (int)base;
+  void* args[] = {(void*)&prm, &p, (void*)&scal, &out, &scratch};
+  static int fits = 0;  // clusters the card runs at once
+  return gb_launch((const void*)grid_bf16_kernel, fits, p, m, args, scratch, scratch_bytes,
+                   stream, plan);
+}
 
 template <class Cfg>
 __global__ void __launch_bounds__(TC_THREADS, 1)

@@ -73,8 +73,8 @@
 // float32 dot products on the CUDA cores; rows 0-1 take tanh after all
 // trunks have added theirs, the class rows go straight to the output.
 //
-// bf16 (TcBf16, a bf16 plan of K3 or K6, the JAX package's grid kernels
-// with dtype=bfloat16, decoder_kernel.py:1040; K1's bf16 plans run
+// bf16 (TcBf16, a bf16 plan of K3, the JAX package's grid kernels with
+// dtype=bfloat16, decoder_kernel.py:1040; K1's and K6's bf16 plans run
 // grid_trunk_bf16_tc.cuh instead): the same
 // ring, k-step loop and epilogues as a template parameter.  A k step is one
 // wgmma.m64n128k16.f32.bf16.bf16 (wgmma_bf16.cuh) over 16 k; A is packed

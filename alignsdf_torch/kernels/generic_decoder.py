@@ -14,10 +14,14 @@ reads the rows at their own width and zero-fills the tail in shared
 memory, so the TPU's ``pad_inputs`` (:1385) has no counterpart.
 
 A plan packed with ``dtype=torch.bfloat16`` is JAX's bf16 ``make_fused_decoder``
-(``build_branch_plan(..., dtype)``, :59-110): bf16 tiles, the input row's
-weights padded to a multiple of 16, the final rows' weights rounded to bf16,
-float32 biases; its rows enter as bf16 and the kernel rounds each hidden
-activation to bf16.  The plain version emulates it in float32.
+(``build_branch_plan(..., dtype)``, :59-110) on its own kernel,
+``generic_bf16_kernel`` (K1's bf16 design, ``csrc/grid_trunk_bf16_tc.cuh``,
+with the input rows as k steps of their own), in that kernel's layout
+(``pack_generic_plan_bf16``): hidden widths and the input row padded to 16,
+each trunk one stream of the items its ring carries, bf16 tiles, the final
+rows' weights rounded to bf16, float32 biases; its rows enter as bf16 and
+the kernel rounds each hidden activation to bf16.  The plain version
+emulates it in float32.
 
 ``generic_decode`` takes the plain version only for a plan on the CPU; for a
 plan on the GPU it launches the kernel or raises.
@@ -36,19 +40,32 @@ import numpy as np
 import torch
 
 from alignsdf_torch.kernels.grid_decoder import (
+    GB_HALF,
+    GB_PLAN_KEYS,
     N_ROWS,
     TC_GROUP,
+    TC_K_BF16,
+    TC_MAX_OUT,
     TC_MAX_ROWS,
+    FlatBuffer,
     FoldedTrunk,
     HiddenLayer,
+    _MAX_HIDDEN,
     _round_up,
+    bf16_launch_model,
     check_dtype,
+    fin_width,
+    gb_scratch,
+    half_widths,
     k_step,
     output_rows,
     pack_trunks,
     place_tc_layer,
     round_to,
+    summed_fin_b,
+    tile_bf16,
     tile_floats,
+    untile_bf16,
     untile_weights,
 )
 
@@ -61,10 +78,11 @@ class GenericPlan:
     [n_trunks, fin_b, rows, n_rows, lat_pad, then per trunk n_hidden, fin,
     fin_x, last_pad, then per hidden layer w, x, lat, b, in_pad, out_pad]
     (offsets in floats, -1 = absent, x always; rows = the trunk's activation
-    buffer).  A layer's W_x (in_pad, out_pad) and W_in (lat_pad, out_pad)
-    are one run of ``tile_weights`` tiles, W_in's from ``lat`` on; its bias
-    one ``epilogue_tile`` at b; final rows (n_rows, last_pad) and fin_x
-    (n_rows, lat_pad).  ``in_widths`` are the trunks' true input widths."""
+    buffer).  float32: a layer's W_x (in_pad, out_pad) and W_in (lat_pad,
+    out_pad) are one run of ``tile_weights`` tiles, W_in's from ``lat`` on;
+    its bias one ``epilogue_tile`` at b; final rows (n_rows, last_pad) and
+    fin_x (n_rows, lat_pad).  bf16: ``pack_generic_plan_bf16``'s streams.
+    ``in_widths`` are the trunks' true input widths."""
 
     flat: torch.Tensor
     desc: np.ndarray
@@ -95,7 +113,10 @@ class GenericPlan:
     def trunks(self):
         """Yield (hidden [(w|None, x|None, b)], fin, fin_x|None): x the
         input-row weights (lat_pad, out_pad); views, but w and x untiled
-        (copies)."""
+        (copies); a bf16 plan's all copies."""
+        if self.dtype == torch.bfloat16:
+            yield from self._bf16_trunks()
+            return
         d = self.desc.tolist()
         n_rows, lat_pad = self.n_rows, self.lat_pad
         pos = 5
@@ -112,6 +133,42 @@ class GenericPlan:
             yield (hidden, self.view(fin, (n_rows, last_pad)),
                    self.view(fin_x, (n_rows, lat_pad)) if fin_x >= 0 else None)
 
+    def _bf16_trunks(self):
+        """trunks() of pack_generic_plan_bf16's layout: each layer's halves
+        walked in stream order, untiled and joined."""
+        d = self.desc.tolist()
+        n_rows, lat_pad = self.n_rows, self.lat_pad
+        pos = 5
+        for t in range(d[0]):
+            n_hidden, fin, fin_x, last_pad = d[pos:pos + 4]
+            pos += 4
+            hidden = []
+            for _ in range(n_hidden):
+                w, _, lat, b, in_pad, out_pad = d[pos:pos + 6]
+                pos += 6
+                cursor, ws, xs, bs = (w if w >= 0 else lat), [], [], []
+                for width in half_widths(out_pad)[::-1]:  # streamed last half first
+                    for off, k, part in ((w, in_pad, ws), (lat, lat_pad, xs)):
+                        if off >= 0:
+                            size = k * width // 2
+                            part.insert(0, untile_bf16(self.flat[cursor:cursor + size], k, width))
+                            cursor += size
+                    bs.insert(0, self.flat[cursor:cursor + width])
+                    cursor += width
+                hidden.append((torch.cat(ws, dim=1) if ws else None,
+                               torch.cat(xs, dim=1) if xs else None, torch.cat(bs)))
+            nf = fin_width(n_rows if t == 0 else N_ROWS)
+            rows = []
+            for off, k in ((fin, last_pad), (fin_x, lat_pad)):
+                if off < 0:
+                    rows.append(None)
+                    continue
+                tiles = untile_bf16(self.flat[off:off + k * nf // 2], k, nf).T
+                full = tiles.new_zeros(n_rows, k)
+                full[:min(nf, n_rows)] = tiles[:n_rows]
+                rows.append(full)
+            yield hidden, rows[0], rows[1]
+
     @property
     def fin_b(self) -> torch.Tensor:
         return self.view(int(self.desc[1]), (self.n_rows,))
@@ -121,17 +178,13 @@ def pack_generic_plan(trunks: List[FoldedTrunk], in_widths: Sequence[int],
                       dtype: torch.dtype = torch.float32) -> GenericPlan:
     """Pad and pack trunks (``x`` and ``fin_x`` on the input row) into a
     GenericPlan on the trunks' device, with ``output_rows(trunks)`` rows,
-    computing in ``dtype``.  The activation buffer holds the widest layer,
-    and where it can, a latent_in layer's activation and input rows
-    together (at most TC_MAX_ROWS: the kernel stages a wider input in
-    chunks)."""
-    if len(in_widths) != len(trunks):
-        raise ValueError("one input width per trunk")
-    n_rows = output_rows(trunks)
-    for t in trunks:
-        if t.fin_x is not None and bool(t.fin_x[:, [i for i, r in enumerate(t.rows)
-                                                    if r >= N_ROWS]].any()):
-            raise ValueError("the class rows read no input row")
+    computing in ``dtype`` (bfloat16: ``pack_generic_plan_bf16``).  The
+    activation buffer holds the widest layer, and where it can, a latent_in
+    layer's activation and input rows together (at most TC_MAX_ROWS: the
+    kernel stages a wider input in chunks)."""
+    n_rows = _check_trunks(trunks, in_widths)
+    if check_dtype(dtype) == torch.bfloat16:
+        return pack_generic_plan_bf16(trunks, in_widths)
     lat_pad = _round_up(max(in_widths), k_step(dtype))
     rows = 0
 
@@ -147,6 +200,132 @@ def pack_generic_plan(trunks: List[FoldedTrunk], in_widths: Sequence[int],
     flat, desc = pack_trunks(trunks, layer, (n_rows, lat_pad), n_rows, TC_GROUP, dtype)
     desc[2] = max(int(desc[2]), rows)
     return GenericPlan(flat, desc, tuple(int(w) for w in in_widths), dtype=check_dtype(dtype))
+
+
+def _check_trunks(trunks: List[FoldedTrunk], in_widths: Sequence[int]) -> int:
+    """The plan's output rows; raises where a packing cannot take the trunks."""
+    if len(in_widths) != len(trunks):
+        raise ValueError("one input width per trunk")
+    n_rows = output_rows(trunks)
+    for t in trunks:
+        if t.fin_x is not None and bool(t.fin_x[:, [i for i, r in enumerate(t.rows)
+                                                    if r >= N_ROWS]].any()):
+            raise ValueError("the class rows read no input row")
+    return n_rows
+
+
+def pack_generic_plan_bf16(trunks: List[FoldedTrunk], in_widths: Sequence[int]) -> GenericPlan:
+    """Pack trunks for the bf16 K6 (``generic_bf16_kernel``,
+    ``csrc/grid_trunk_bf16_tc.cuh``), as ``pack_grid_plan_bf16`` packs K1's.
+    The descriptor is the float32 plan's; hidden widths pad to 16 (wgmma's N
+    in pieces), the input row to lat_pad, a multiple of 16.  Each trunk's
+    arrays are one contiguous stream in the order that kernel's ring carries
+    them: per hidden layer and half of up to GB_HALF outputs, the last half
+    first, the half's k-step tiles (``tile_bf16`` of its columns of W, then
+    of W_in), then its bias (float32); then the final rows' ``tile_bf16``
+    tiles, ``fin_width`` wide (the first trunk's every row, the others' SDF
+    rows), then a latent_in final layer's W_in tiles (fin_x; zero in the
+    class rows).  w, lat and b point at a layer's first streamed half, fin
+    and fin_x at their tiles; fin_b (n_rows,) lies apart."""
+    dtype = torch.bfloat16
+    n_rows = _check_trunks(trunks, in_widths)
+    lat_pad = _round_up(max(in_widths), TC_K_BF16)
+    buf = FlatBuffer()
+    device = trunks[0].fin_b.device
+    desc = [len(trunks), buf.place(summed_fin_b(trunks, n_rows)), 0, n_rows, lat_pad]
+    max_pad = TC_K_BF16
+    for index, t in enumerate(trunks):
+        if (not 1 <= len(t.hidden) <= _MAX_HIDDEN or t.hidden[0].w is not None
+                or t.hidden[0].x is None):
+            raise ValueError("a trunk needs 1-8 hidden layers and a layer 0 on the input row")
+        stream: List[torch.Tensor] = []
+        layers, in_pad = [], 0
+
+        def at() -> int:
+            return sum(map(torch.numel, stream))
+
+        for h in t.hidden:
+            out_pad = _round_up(h.b.shape[0], TC_K_BF16)
+            if out_pad > TC_MAX_OUT:
+                raise ValueError(f"a hidden layer of {h.b.shape[0]} outputs: the bf16 kernel "
+                                 f"takes at most {TC_MAX_OUT}")
+            max_pad = max(max_pad, out_pad)
+            b = h.b.new_zeros(out_pad, dtype=torch.float32)
+            b[:h.b.shape[0]] = h.b
+            first = {}  # where w, lat and b of the first streamed half start
+            for c, width in list(zip(range(0, out_pad, GB_HALF), half_widths(out_pad)))[::-1]:
+                for key, m, depth in (("w", h.w, in_pad), ("lat", h.x, lat_pad)):
+                    if m is not None:
+                        first.setdefault(key, at())
+                        stream.append(tile_bf16(m[:, c:c + width], depth, width))
+                first.setdefault("b", at())
+                stream.append(b[c:c + width])
+            layers.append((first.get("w", -1), first.get("lat", -1), first["b"], in_pad, out_pad))
+            in_pad = out_pad
+        nf = fin_width(n_rows if index == 0 else N_ROWS)
+
+        def fin_tiles(m: torch.Tensor, depth: int) -> torch.Tensor:
+            rows = torch.zeros(n_rows, depth, dtype=torch.float32, device=device)
+            rows[list(t.rows), :m.shape[0]] = round_to(m.T.to(torch.float32), dtype)
+            return tile_bf16(rows[:nf].T, depth, nf)
+
+        fin_at, fx_at = at(), -1
+        stream.append(fin_tiles(t.fin, in_pad))
+        if t.fin_x is not None:
+            fx_at = at()
+            stream.append(fin_tiles(t.fin_x, lat_pad))
+        base = buf.place(torch.cat(stream))
+        desc += [len(t.hidden), base + fin_at, base + fx_at if fx_at >= 0 else -1, in_pad]
+        for w_off, lat_off, b_off, i_pad, o_pad in layers:
+            desc += [base + w_off if w_off >= 0 else -1, -1,
+                     base + lat_off if lat_off >= 0 else -1, base + b_off, i_pad, o_pad]
+    desc[2] = max_pad
+    return GenericPlan(buf.tensor(), np.asarray(desc, np.int32),
+                       tuple(int(w) for w in in_widths), dtype=dtype)
+
+
+def generic_bf16_stream_bytes(plan: GenericPlan) -> int:
+    """The bytes of the items the bf16 K6 streams through its ring for one
+    tile of points: per trunk, each layer's halves (their W and W_in k-step
+    tiles and bias) and the final rows' (and fin_x's) tiles."""
+    d = plan.desc.tolist()
+    pos, total, lat_pad = 5, 0, plan.lat_pad
+    for t in range(d[0]):
+        n_hidden, _, fin_x, last_pad = d[pos:pos + 4]
+        pos += 4
+        for _ in range(n_hidden):
+            w, _, lat, _, in_pad, out_pad = d[pos:pos + 6]
+            pos += 6
+            steps = (in_pad if w >= 0 else 0) // 16 + (lat_pad // 16 if lat >= 0 else 0)
+            total += sum(steps * width * 32 + 4 * width for width in half_widths(out_pad))
+        steps = last_pad // 16 + (lat_pad // 16 if fin_x >= 0 else 0)
+        total += steps * fin_width(plan.n_rows if t == 0 else N_ROWS) * 32
+    return total
+
+
+def generic_bf16_plan(plan: GenericPlan, m: int) -> dict:
+    """The bf16 K6's launch for a run of m rows, in Python (``grid_bf16_plan``'s
+    keys: the tile bytes the clusters read from L2 modelled, not measured).
+    On the card the launcher's own plan is ``generic_bf16_card_plan``."""
+    return bf16_launch_model(generic_bf16_stream_bytes(plan), m)
+
+
+def generic_bf16_card_plan(plan: GenericPlan, m: int) -> dict:
+    """The launcher's own plan for a run of m rows (``GB_PLAN_KEYS``; needs
+    the card): its shared memory, points a block, cluster, grid blocks, ring
+    slots and a tile's stream bytes."""
+    from alignsdf_torch.kernels.build import load
+
+    fn = load("generic_decoder").generic_decoder_bf16_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    desc = np.ascontiguousarray(plan.desc, np.int32)
+    out = (ctypes.c_int * 7)()
+    rc = fn(desc.ctypes.data, int(desc.size), int(m), out)
+    if rc != 0:
+        raise RuntimeError(f"generic_decoder_bf16_plan failed with code {rc}")
+    v = list(out)
+    return dict(zip(GB_PLAN_KEYS, v[:5] + [v[5] + (v[6] << 31)]))
 
 
 def _outputs(out: torch.Tensor):
@@ -190,7 +369,8 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_void_p]
     return fn
 
 
@@ -227,16 +407,19 @@ def generic_decode(plan: GenericPlan, x_h: torch.Tensor, x_o: Optional[torch.Ten
     out = torch.empty((plan.n_rows, m), dtype=torch.float32, device=plan.device)
     desc = np.ascontiguousarray(plan.desc, np.int32)
     xo = x_o if x_o is not None else x_h
+    bf16 = plan.dtype == torch.bfloat16
+    scratch = gb_scratch(plan.device) if bf16 else None
     with torch.cuda.device(plan.device):
         stream = torch.cuda.current_stream(plan.device).cuda_stream
         rc = _launcher()(plan.flat.data_ptr(), desc.ctypes.data, int(desc.size),
                          x_h.data_ptr(), int(x_h.stride(0)), int(x_h.shape[1]),
                          xo.data_ptr(), int(xo.stride(0)), int(xo.shape[1]), int(m),
-                         out.data_ptr(), int(plan.dtype == torch.bfloat16), stream)
+                         out.data_ptr(), int(bf16), scratch.data_ptr() if bf16 else None,
+                         scratch.numel() if bf16 else 0, stream)
     if rc != 0:
         raise RuntimeError(f"generic_decoder launch failed with code {rc}"
                            + (" (plan or rows rejected)" if rc == -1 else ""))
-    if plan.dtype == torch.bfloat16:
+    if bf16:
         generic_decode.bf16_launches += 1
     else:
         generic_decode.launches += 1

@@ -52,7 +52,7 @@ TC_K = 8
 TC_K_BF16 = 16  # a bf16 tile's k depth: wgmma's K for bf16
 TC_MAX_OUT = 512
 TC_SLOTS = 11  # the trunk's ring of tiles
-# grid_trunk_bf16_tc.cuh (K1 in bf16): 128 points a block in clusters of 2,
+# grid_trunk_bf16_tc.cuh (K1 and K6 in bf16): 128 points a block in clusters of 2,
 # a layer's outputs in halves of up to 256 (wgmma's N), 8 KB ring slots
 GB_P = 128
 GB_CLUSTER = 2
@@ -486,6 +486,33 @@ def pack_grid_plan(trunks: List[FoldedTrunk], n: int,
                     dtype=check_dtype(dtype))
 
 
+class FlatBuffer:
+    """The bf16 packings' float32 buffer, built in order: each placed array
+    starts on an ALIGN boundary."""
+
+    def __init__(self):
+        self.pieces: List[torch.Tensor] = []
+        self.cursor = 0
+
+    def place(self, fill: torch.Tensor) -> int:
+        off = self.cursor
+        self.pieces.append(fill.reshape(-1))
+        self.cursor = _round_up(self.cursor + fill.numel(), ALIGN)
+        self.pieces.append(fill.new_zeros(self.cursor - off - fill.numel()))
+        return off
+
+    def tensor(self) -> torch.Tensor:
+        return torch.cat(self.pieces)
+
+
+def summed_fin_b(trunks: Sequence, n_rows: int) -> torch.Tensor:
+    """The final rows' bias: each trunk's added into the rows it writes."""
+    fin_b = torch.zeros(n_rows, dtype=torch.float32, device=trunks[0].fin_b.device)
+    for t in trunks:
+        fin_b[list(t.rows)] += t.fin_b
+    return fin_b
+
+
 def pack_grid_plan_bf16(trunks: List[FoldedTrunk], n: int) -> GridPlan:
     """Pack folded trunks for the bf16 K1 (``csrc/grid_trunk_bf16_tc.cuh``).
     The descriptor is the float32 plan's ([n_trunks, fin_b, rows, n_rows,
@@ -503,22 +530,10 @@ def pack_grid_plan_bf16(trunks: List[FoldedTrunk], n: int) -> GridPlan:
     plan."""
     dtype = torch.bfloat16
     n_rows = output_rows(trunks)
-    pieces: List[torch.Tensor] = []
-    cursor = 0
-
-    def place(fill: torch.Tensor) -> int:
-        nonlocal cursor
-        off = cursor
-        pieces.append(fill.reshape(-1))
-        cursor = _round_up(cursor + fill.numel(), ALIGN)
-        pieces.append(fill.new_zeros(cursor - off - fill.numel()))
-        return off
-
+    buf = FlatBuffer()
+    place = buf.place
     device = trunks[0].fin_b.device
-    fin_b = torch.zeros(n_rows, dtype=torch.float32, device=device)
-    for t in trunks:
-        fin_b[list(t.rows)] += t.fin_b
-    desc = [len(trunks), place(fin_b), 0, n_rows]
+    desc = [len(trunks), place(summed_fin_b(trunks, n_rows)), 0, n_rows]
     max_pad = TC_GROUP
     for index, t in enumerate(trunks):
         if not 1 <= len(t.hidden) <= _MAX_HIDDEN or t.hidden[0].w is not None:
@@ -568,7 +583,7 @@ def pack_grid_plan_bf16(trunks: List[FoldedTrunk], n: int) -> GridPlan:
             desc += [base + w_off if w_off >= 0 else -1, base + x_off if x_off >= 0 else -1,
                      base + b_off, i_pad, o_pad]
     desc[2] = max_pad
-    return GridPlan(torch.cat(pieces), np.asarray(desc, np.int32), n, dtype=dtype)
+    return GridPlan(buf.tensor(), np.asarray(desc, np.int32), n, dtype=dtype)
 
 
 def bf16_stream_bytes(plan: GridPlan) -> int:
@@ -586,17 +601,28 @@ def bf16_stream_bytes(plan: GridPlan) -> int:
     return total
 
 
-def grid_bf16_plan(plan: GridPlan, m: int) -> dict:
-    """The bf16 K1's launch for a run of m points, in Python: points a
-    block, blocks a cluster, the clusters' tiles of GB_CLUSTER x GB_P
-    points, and the tile bytes the clusters read from L2 (each cluster
-    reads a tile's stream once for its GB_CLUSTER x GB_P points; modelled,
-    not measured).  On the card the launcher's own plan is
-    ``grid_bf16_card_plan``."""
+def bf16_launch_model(stream: int, m: int) -> dict:
+    """A launch of grid_trunk_bf16_tc.cuh's kernels over m points whose
+    tile streams ``stream`` bytes, in Python: points a block, blocks a
+    cluster, the clusters' tiles of GB_CLUSTER x GB_P points, and the tile
+    bytes the clusters read from L2 (each cluster reads a tile's stream once
+    for its GB_CLUSTER x GB_P points; modelled, not measured)."""
     tiles = -(-m // (GB_CLUSTER * GB_P))
-    stream = bf16_stream_bytes(plan)
     return {"points_a_block": GB_P, "cluster": GB_CLUSTER, "cluster_tiles": tiles,
             "stream_bytes": stream, "l2_tile_bytes": stream * tiles}
+
+
+def grid_bf16_plan(plan: GridPlan, m: int) -> dict:
+    """The bf16 K1's launch for a run of m points (``bf16_launch_model``).
+    On the card the launcher's own plan is ``grid_bf16_card_plan``."""
+    return bf16_launch_model(bf16_stream_bytes(plan), m)
+
+
+def gb_scratch(device: torch.device) -> torch.Tensor:
+    """The scratch of grid_trunk_bf16_tc.cuh's kernels: GB_SCRATCH bytes for
+    each warpgroup of their grid (at most a block an SM)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return torch.empty(sms * 2 * GB_SCRATCH, dtype=torch.uint8, device=device)
 
 
 def grid_bf16_card_plan(plan: GridPlan, base: int, m: int) -> dict:
@@ -682,11 +708,7 @@ def grid_decode(plan: GridPlan, base: int, m: int, origin: torch.Tensor,
     out = torch.empty((plan.n_rows, m), dtype=torch.float32, device=plan.device)
     desc = np.ascontiguousarray(plan.desc, np.int32)
     bf16 = plan.dtype == torch.bfloat16
-    # the bf16 kernel's scratch: GB_SCRATCH bytes for each warpgroup of its grid
-    # (at most a block an SM)
-    scratch = (torch.empty(torch.cuda.get_device_properties(plan.device).multi_processor_count
-                           * 2 * GB_SCRATCH, dtype=torch.uint8, device=plan.device)
-               if bf16 else None)
+    scratch = gb_scratch(plan.device) if bf16 else None
     with torch.cuda.device(plan.device):
         stream = torch.cuda.current_stream(plan.device).cuda_stream
         rc = _launcher()(plan.flat.data_ptr(), desc.ctypes.data, int(desc.size),

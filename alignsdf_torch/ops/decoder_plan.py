@@ -9,8 +9,9 @@ copy is ``models/decoder.py``), ``_classifier_pad`` :1426 (here the class
 rows are extra final rows of the first trunk, ``grid_plan.with_classifier``)
 and ``make_pallas_decode_fn`` :1438.  ``pad_inputs`` :1385 has no
 counterpart: K6 reads the rows at their own width.  The plan pads to what
-the CUDA kernel wants (hidden widths to the tensor-core trunk's 128-feature
-groups, the input row to a multiple of 8), not to the TPU's 128 lanes.
+the CUDA kernel wants (float32: hidden widths to the tensor-core trunk's
+128-feature groups, the input row to a multiple of 8; bf16: both to a
+multiple of 16), not to the TPU's 128 lanes.
 """
 
 from __future__ import annotations

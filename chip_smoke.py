@@ -389,9 +389,15 @@ K5_FWD_KERNELS = ("generic_train_fwd_tc_kernel",)
 K5_BWD_KERNELS = ("generic_train_bwd_chain_tc_kernel", "wgrad_tc_kernel", "colsum_kernel")
 K6_TOL = 1e-4
 TC_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_tc.cuh"  # K1's, K3's and K6's trunk
-# K1's bf16 kernel (grid_bf16_kernel: 128 points a block, clusters of 2, a
-# producer warp's multicast ring, bf16 activations read by wgmma from shared memory)
+# K1's and K6's bf16 kernels (grid_bf16_kernel, generic_bf16_kernel: 128 points
+# a block, clusters of 2, a producer warp's multicast ring, bf16 activations read
+# by wgmma from shared memory; K6's input rows as k steps of their own)
 GB_TRUNK_SOURCE = "alignsdf_torch/kernels/csrc/grid_trunk_bf16_tc.cuh"
+# phase 19's bf16 serving routes: the kernel each must launch (as the profiler
+# names it) and the grid trunk's bf16 kernels it must not
+BF16_SERVING_KERNELS = {"K1": "grid_bf16_kernel", "K6": "generic_bf16_kernel"}
+BF16_SERVING_ABSENT_KERNELS = {"K1": ("grid_decoder_kernel<TcBf16",),
+                               "K6": ("generic_decoder_kernel<TcBf16",)}
 WGRAD_SOURCE = "alignsdf_torch/kernels/csrc/wgrad_tc.cuh"  # K2's, K4's and K5's dW reduction
 # their bf16 backwards' dW reduction (wgrad_bf16_tc_kernel<BN, RING>: TMA,
 # clusters with multicast, warp-specialised wgmma)
@@ -774,7 +780,7 @@ def warm_and_profiled(recon, samples, kernel, card: str, label: str = ""):
     for name, ms in top:
         print(f"  {ms:9.2f} ms  {name[:100]}", flush=True)
     return warm_rec, {"wall_ms": prof_wall * 1e3, "device_busy_ms": busy, "busy_share": share,
-                      "top_device_ms": dict(top)}
+                      "top_device_ms": dict(top), "kernel_ms": by_kernel}
 
 
 def k2_work(ws, xs, bs, m: int, e: int, out_pads, act_bytes: int = 4):
@@ -4411,6 +4417,26 @@ def k1_bf16_plan_report(plan, total: int, card: str) -> dict:
     return rep
 
 
+def k6_bf16_plan_report(plan, total: int, card: str, run: int = 1 << 18) -> dict:
+    """K6's bf16 launch plan for an n^3 pass in the generic evaluator's runs
+    of 2^18 rows: the launcher's (as k1_bf16_plan_report's) and the tile
+    bytes its clusters read from L2 a pass (modelled, not measured)."""
+    from alignsdf_torch.kernels.generic_decoder import generic_bf16_card_plan
+
+    card_plan = generic_bf16_card_plan(plan, min(run, total))
+    tile = card_plan["cluster"] * card_plan["points_a_block"]
+    l2 = sum(card_plan["stream_bytes"] * -(-min(run, total - s) // tile)
+             for s in range(0, total, run))
+    rep = {**card_plan, "l2_tile_bytes_a_pass": l2}
+    print(f"[{card}] K6 bf16 plan (the launcher's, generic_bf16_kernel): "
+          f"{card_plan['points_a_block']} points a block, clusters of {card_plan['cluster']}, "
+          f"{card_plan['grid_blocks']} blocks, {card_plan['ring_slots']} ring slots, "
+          f"{card_plan['smem_bytes']} bytes of shared memory, "
+          f"{card_plan['stream_bytes'] / 1e6:.3f} MB of items a tile; tile bytes read from L2 "
+          f"{l2 / 1e9:.2f} GB a pass (the plan's: modelled, not measured)", flush=True)
+    return rep
+
+
 def vs_float32(label: str, kb, kf, voxel) -> dict:
     """A bf16 field (rows 0-1) against the float32 kernel's on the same
     points: the largest difference (at most BF16_VS_F32_TOL, JAX's bf16
@@ -4512,6 +4538,15 @@ def bf16_main_path(label, model, specs, samples, dev, card, mano_faces, kernel, 
     if profiled is not None:
         rec["profile"] = profiled
         rec["idle_share"] = 1 - profiled["busy_share"]
+        if label in BF16_SERVING_KERNELS:
+            names = profiled["kernel_ms"]
+            want = BF16_SERVING_KERNELS[label]
+            seen = any(n.startswith(want) for n in names)
+            absent = sorted(n for n in names if n.startswith(BF16_SERVING_ABSENT_KERNELS[label]))
+            print(f"{label} bf16 main path: {want} {'in' if seen else 'not in'} the profile; "
+                  f"kernels its route must not launch: {absent or 'none'}", flush=True)
+            if not seen or absent:
+                fail(f"{label} bf16 main path: {want} seen {seen}, launched {absent}")
     return rec
 
 
@@ -4641,6 +4676,8 @@ def bf16_phase(dev, card: str, gen, mano_faces, model) -> Tuple[dict, list]:
         r["timing"] = t
         if name == "K1":
             r["plan"] = k1_bf16_plan_report(plan_b, total, card)
+        elif name == "K6":
+            r["plan"] = k6_bf16_plan_report(plan_b, total, card)
         print(f"[{card}] {name} bf16 per {n}^3 pass ({flops / 1e12:.3f} TFLOP): {bf_ms:.2f} ms "
               f"({t['tflops']:.1f} TFLOP/s), plain bf16 {plain_ms:.2f} ms, float32 kernel "
               f"{f32_ms:.2f} ms; bf16 bound {t['bound_ms']:.2f} ms ({t['bound_by']}; the FLOPs "
@@ -4656,7 +4693,7 @@ def bf16_phase(dev, card: str, gen, mano_faces, model) -> Tuple[dict, list]:
             "name": f"{name} in bf16 (bf16 wgmma)",
             "route": "cuda",
             "source": src,
-            "trunk": GB_TRUNK_SOURCE if name == "K1" else TC_TRUNK_SOURCE,
+            "trunk": GB_TRUNK_SOURCE if name in BF16_SERVING_KERNELS else TC_TRUNK_SOURCE,
             "replaces": line,
             "launches": r["main_path"]["launches"],
             "max_abs_err": max(c["max_abs_err"] for c in checks),

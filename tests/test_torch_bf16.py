@@ -197,7 +197,9 @@ def test_k6_plain_version_rounds_float32_rows():
 def test_bf16_tile_streams_hold_the_rounded_weights(kind):
     """A bf16 plan's hidden weights untile to bf16(W) exactly, its latent,
     input-row and final weights are bf16(W), its xyz weights bf16(W) for K1
-    and float32 for K3 (as JAX's), its biases unrounded."""
+    and float32 for K3 (as JAX's), its biases unrounded.  Compared where
+    both plans have entries: K6's bf16 plan pads its widths to 16, the
+    float32 plan to 128, and the padding holds zeros."""
     pixel, combined = kind == "pixel", kind == "combined"
     jspecs, pspecs, pctx, _ = _grid_scene(pixel, 6 if kind == "classifier" else 0, combined)
     plans = {}
@@ -213,14 +215,19 @@ def test_bf16_tile_streams_hold_the_rounded_weights(kind):
                 assert (wf is None) == (wb is None)
                 if wf is None:
                     continue
-                k = min(wf.shape[0], wb.shape[0])
+                k, n = min(wf.shape[0], wb.shape[0]), min(wf.shape[1], wb.shape[1])
+                assert not wb[k:].any() and not wb[:, n:].any()
                 if pixel and i == 2:  # K3's xyz weights stay float32
                     assert torch.equal(wb, wf)
                 else:
-                    assert torch.equal(wb[:k], round_to(wf[:k], BF16))
-                    assert float((wb[:k] - wf[:k]).abs().max()) > 0
-            assert torch.equal(lf[-1], lb[-1])  # biases
-        assert torch.equal(fin_b, round_to(fin_f, BF16))
+                    assert torch.equal(wb[:k, :n], round_to(wf[:k, :n], BF16))
+                    assert float((wb[:k, :n] - wf[:k, :n]).abs().max()) > 0
+            n = min(lf[-1].shape[0], lb[-1].shape[0])  # biases
+            assert torch.equal(lf[-1][:n], lb[-1][:n])
+            assert not lf[-1][n:].any() and not lb[-1][n:].any()
+        n = min(fin_f.shape[1], fin_b.shape[1])
+        assert torch.equal(fin_b[:, :n], round_to(fin_f[:, :n], BF16))
+        assert not fin_b[:, n:].any() and not fin_f[:, n:].any()
         assert (fx_f is None) == (fx_b is None)
         if fx_f is not None:
             k = min(fx_f.shape[1], fx_b.shape[1])

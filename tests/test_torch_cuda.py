@@ -1263,16 +1263,25 @@ def test_cuda_bf16_k1_refuses_a_plan(change):
     ("1encoder2decoder", "nerf", 63, (2,), 0, 256, 4101),
     ("1encoder1decoder", "nerf", 9, (2,), 6, 256, 3000),
     ("1encoder2decoder", "both", 9, (0, 2), 6, 256, 1000),
-    ("1encoder2decoder", "nerf", 63, (0,), 0, 512, 2050)])
+    ("1encoder2decoder", "nerf", 63, (0,), 0, 512, 2050),
+    ("1encoder2decoder", "both", 9, (2,), 126, 256, 5000),
+    ("1encoder2decoder", "nerf", 63, (2, 4), 0, 256, 3333)])
 def test_cuda_bf16_generic_kernel_matches_plain(model_type, style, pfs, latent_in, num_class,
                                                 latent, m):
-    """K6 on a bf16 plan with bf16 rows at full width: the --pallas config
-    (x0 staged in two chunks), a combined trunk with a classifier, latent_in
-    (0, 2) at C = 6, and rows of 512 + 63 wider than the buffer; against
-    the plain bf16 version (``_bf16_close``) and within 5e-3 of the float32
-    kernel.  Float32 rows on a bf16 plan are refused."""
+    """K6's bf16 kernel (generic_bf16_kernel on csrc/grid_trunk_bf16_tc.cuh)
+    with bf16 rows at full width, on runs whose length is no multiple of a
+    cluster's 256 points: the --pallas config (layer 2's 528 rows, its last
+    x0 step from registers), a combined trunk with a classifier, latent_in
+    (0, 2) at C = 6, rows of 512 + 63 wider than the 512-row buffer, twin
+    trunks at C = 126 and a latent input at the final layer (fin_lat, every
+    x0 step of the final rows from registers); against the plain bf16
+    version (``_bf16_close``) and within 5e-3 of the float32 kernel; one bf16
+    launch and no float32 one; the launcher's plan is generic_bf16_plan's.
+    Float32 rows on a bf16 plan are refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from alignsdf_torch.kernels.generic_decoder import generic_bf16_card_plan, generic_bf16_plan
+
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(8)
     specs = Specs(model_type=model_type, encode_style=style, point_feat_size=pfs,
@@ -1285,7 +1294,11 @@ def test_cuda_bf16_generic_kernel_matches_plain(model_type, style, pfs, latent_i
     rows = (torch.randn(m, latent + pfs, generator=gen) * 0.5).cuda()
     plan = make_generic_plan(decoder, specs, torch.bfloat16)
     plan32 = make_generic_plan(decoder, specs)
-    assert plan.lat_pad % 16 == 0
+    assert plan.lat_pad % 16 == 0 and m % 256
+    assert any(f is not None for *_, f in plan.trunks()) == (latent_in == (2, 4))
+    card, model = generic_bf16_card_plan(plan, m), generic_bf16_plan(plan, m)
+    assert (card["points_a_block"], card["cluster"], card["stream_bytes"]) == (
+        model["points_a_block"], model["cluster"], model["stream_bytes"]), (card, model)
 
     def split(r):
         return (r,) if model_type == "1encoder1decoder" else separate_decoder_inputs(latent,
@@ -1305,6 +1318,36 @@ def test_cuda_bf16_generic_kernel_matches_plain(model_type, style, pfs, latent_i
             _bf16_close(k, r)
             if i < 2:
                 assert float((k - f).abs().max()) <= 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", ["offset", "width", "lat_pad"])
+def test_cuda_bf16_generic_refuses_a_plan(change):
+    """A bf16 K6 plan the kernel does not take raises on the card (the
+    launcher returns -1): a layer's tiles moved off the stream, a width past
+    512, an input-row width not a multiple of 16; no launch is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    specs = Specs(encode_style="nerf", point_feat_size=63, latent_size=256,
+                  network_specs=NetworkSpecs())
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(9)
+        decoder = make_decoder("1encoder2decoder", 256, 63, "nerf", specs.network_specs).cuda()
+    plan = make_generic_plan(decoder, specs, torch.bfloat16)
+    desc = plan.desc.copy()
+    layer1 = 5 + 4 + 6  # trunk 0's layer 1: w, x, lat, b, in_pad, out_pad
+    if change == "offset":
+        desc[layer1] += 4
+    elif change == "width":
+        desc[layer1 + 5] = 528
+    else:
+        desc[4] = 328
+    bad = dataclasses.replace(plan, desc=desc)
+    rows = torch.randn(1000, 319, device="cuda").to(torch.bfloat16)
+    before = generic_decode.bf16_launches, generic_decode.launches
+    with pytest.raises(RuntimeError, match="rejected"):
+        generic_decode(bad, rows, rows)
+    assert (generic_decode.bf16_launches, generic_decode.launches) == before
 
 
 @pytest.mark.cuda

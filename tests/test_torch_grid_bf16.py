@@ -258,29 +258,79 @@ def test_plain_bf16_k1_matches_jax(name):
 
 # ---- the schedule ------------------------------------------------------------
 
-def consumer_ops(out_pads, last_steps, nf, trunks, tiles):
-    """A consumer warpgroup's operations in grid_bf16_kernel's order, over
-    ``tiles`` tiles: per layer and half (the last first) a product over the
-    input rows, then its epilogue (wait for the half's epilogue item; the first half's rows to
-    scratch where the input is wider than 256, or into the buffer; the last
-    half reloads the scratch after its products), then the final rows'
-    product and epilogue."""
-    ops, s = [], 0
+def x0_rows(t, count):
+    """The labels of trunk t's input-row columns 0 .. count - 1 staged in rows."""
+    return tuple(("x0", t, c) for c in range(count))
+
+
+def product_ops(ops, s, steps, sm, rows, fk=1):
+    """A product's operations in the kernel's order from item s on: ``steps``
+    k steps, fk an item; the first ``sm`` read their 16 rows (``rows``: the
+    labels those rows must hold), the rest (K6's register steps) device
+    memory and wait for their product at once.  Each item waits for its
+    slot; an item is released once the item after it is issued
+    (wgmma.wait_group 1), or at once after a register step.  Returns the next
+    item."""
+    held = False
+    st = 0
+    while st < steps:
+        ops.append(("wait_full", s))
+        reg = False
+        for _ in range(min(fk, steps - st)):
+            if st < sm:
+                ops.append(("read", 16 * st, rows[16 * st:16 * st + 16]))
+            else:
+                reg = True
+            st += 1
+        if reg:
+            if held:
+                ops.append(("release", s - 1))
+            ops.append(("release", s))
+            held = False
+        else:
+            if held:
+                ops.append(("release", s - 1))
+            held = True
+        s += 1
+    if held:
+        ops.append(("release", s - 1))
+    return s
+
+
+def consumer_ops(out_pads, last_steps, nf, trunks, tiles, lats=(), lat_pad=0, fin_lat=False):
+    """A consumer warpgroup's operations in gb_body's order, over ``tiles``
+    tiles: per layer and half (the last first) a product over the input
+    rows, then its epilogue (wait for the half's epilogue item; the first
+    half's rows to scratch where the rows the layer reads reach past 256, or
+    into the buffer; the last half reloads the scratch after its products),
+    then the final rows' product and epilogue.  K6 (``lats``: the layers that
+    read the input rows, ``lat_pad`` their width, ``fin_lat``: the final rows
+    too): the columns that fit the 512-row buffer are filled above the
+    activation, before layer 0 and after the last epilogue of the layer
+    before a reader; the k steps past them read registers.  Returns (the
+    operations, items, register steps a tile)."""
+    ops, s, regs = [], 0, 0
     fk = GB_SLOT // (nf * 32)
+
+    def staged(reads, in_pad):
+        return min(lat_pad, 512 - in_pad) if reads else 0
+
     for _ in range(tiles):
+        regs = 0
         for t in range(trunks):
             in_pad = 0
             for l, out in enumerate(out_pads):
+                x_rows = staged(l in lats, in_pad)
+                if lats and l == 0:
+                    ops.append(("stage", 0, x0_rows(t, x_rows)))
+                steps = in_pad // 16 + (lat_pad // 16 if l in lats else 0)
+                sm = (in_pad + x_rows) // 16
+                regs += (steps - sm) * len(half_widths(out))
+                rows = ((t, l - 1),) * in_pad + x0_rows(t, x_rows)
                 halves = list(enumerate(half_widths(out)))[::-1]
-                spill = len(halves) > 1 and in_pad > GB_HALF
+                spill = len(halves) > 1 and in_pad + x_rows > GB_HALF
                 for h, width in halves:
-                    if in_pad:
-                        for st in range(in_pad // 16):
-                            ops += [("wait_full", s), ("read", (t, l - 1), in_pad)]
-                            if st:
-                                ops.append(("release", s - 1))
-                            s += 1
-                        ops.append(("release", s - 1))
+                    s = product_ops(ops, s, steps, sm, rows)
                     ops.append(("wait_full", s))
                     lo = GB_HALF * h
                     if spill and h:
@@ -289,29 +339,27 @@ def consumer_ops(out_pads, last_steps, nf, trunks, tiles):
                         ops.append(("write", (t, l), lo, lo + width))
                     if spill and not h:
                         ops.append(("reload", (t, l), GB_HALF, out))
+                    if not h and (l + 1 in lats if l + 1 < len(out_pads) else fin_lat):
+                        ops.append(("stage", out, x0_rows(t, staged(True, out))))
                     ops.append(("release", s))
                     s += 1
                 in_pad = out
-            steps = last_steps
-            first = True
-            while steps > 0:
-                ops += [("wait_full", s), ("read", (t, len(out_pads) - 1), out_pads[-1])]
-                if not first:
-                    ops.append(("release", s - 1))
-                first = False
-                steps -= fk
-                s += 1
-            ops.append(("release", s - 1))
-    return ops, s
+            x_rows = staged(fin_lat, in_pad)
+            steps = last_steps + (lat_pad // 16 if fin_lat else 0)
+            sm = (in_pad + x_rows) // 16
+            regs += steps - sm
+            rows = ((t, len(out_pads) - 1),) * in_pad + x0_rows(t, x_rows)
+            s = product_ops(ops, s, steps, sm, rows, fk)
+    return ops, s, regs
 
 
-def simulate(out_pads, nf, trunks, tiles, seed, cluster):
+def simulate(out_pads, nf, trunks, tiles, seed, cluster, **k6):
     """Every block of a cluster of ``cluster`` (a producer and two consumer
     warpgroups each) in a random interleaving, one actor slow by the seed,
-    with mbarrier semantics; returns nothing, asserts the schedule's
-    safety."""
+    with mbarrier semantics; ``k6``: consumer_ops' K6 arguments.  Returns
+    nothing, asserts the schedule's safety."""
     rng = random.Random(seed)
-    ops, items = consumer_ops(out_pads, out_pads[-1] // 16, nf, trunks, tiles)
+    ops, items, _ = consumer_ops(out_pads, out_pads[-1] // 16, nf, trunks, tiles, **k6)
     producer = [op for s in range(items) for op in
                 ([("wait_empty", s)] if s >= SLOTS else []) + [("fill", s)]]
     actors = [(b, w) for b in range(cluster) for w in ("p", 0, 1)]
@@ -322,7 +370,7 @@ def simulate(out_pads, nf, trunks, tiles, seed, cluster):
     pieces = {}                                # (block, item) -> producers' pieces landed
     released = {}                              # item -> consumer warpgroups that released it
     slot_item = {}                             # (block, slot) -> the item it holds
-    rows = {(b, w): [None] * 512 for b in range(cluster) for w in (0, 1)}
+    rows = {(b, w): [None] * 512 for b in range(cluster) for w in (0, 1)}  # a warpgroup's
     scratch = {}
 
     def can_run(a):
@@ -354,8 +402,12 @@ def simulate(out_pads, nf, trunks, tiles, seed, cluster):
             s = op[1]
             assert slot_item[(b, s % SLOTS)] == s
             released.setdefault(s, set()).add((b, w))
-        elif kind == "read":  # a product step over the warpgroup's input rows
-            assert rows[a][:op[2]] == [op[1]] * op[2], (a, op, rows[a][:op[2]])
+        elif kind == "read":  # a product step over 16 of the warpgroup's input rows
+            want = list(op[2])
+            got = rows[a][op[1]:op[1] + len(want)]
+            assert got == want, (a, op[1], want[:1], got[:1])
+        elif kind == "stage":  # K6's input rows into the warpgroup's rows
+            rows[a][op[1]:op[1] + len(op[2])] = list(op[2])
         elif kind == "write":
             rows[a][op[2]:op[3]] = [op[1]] * (op[3] - op[2])
         elif kind == "scratch":

@@ -5,6 +5,7 @@ run in float64 (xyz still float32, as the kernels make it).
 
     python3 tools/time_grid_kernels.py [--n 128] [--reps 3]
     python3 tools/time_grid_kernels.py --bf16 [--repo DIR] [--probes] [--n 128] [--reps 3]
+    python3 tools/time_grid_kernels.py --generic [--bf16] [--repo DIR] [--probes] [--n 128]
 
 Seeded random weights (the flagship's SeparateDecoder: hidden 512 -> 250 ->
 512 -> 512, latent 256), both trunks, 2 output rows; K3 samples a 256 x 64 x
@@ -31,8 +32,19 @@ timed in turn with the package's clusters of 2; without parts of the kernel
 (GB_PROBE 1 the products' wgmma, 2 the epilogues, 8 the ring, 10 both);
 and with GB_PROBE 32, which prints each phase's share of warpgroup 0's
 cycles (products with their ring waits, epilogues, final rows, set-up, the
-epilogues' waits for their item and their barriers and reloads) and the
-producer's waits for a free slot against the same cycles.
+epilogues' waits for their item and their barriers and reloads, the
+input-row fills) and the producer's waits for a free slot against the same
+cycles.
+
+--generic times K6 instead (bf16 plans with --bf16, else float32), the
+generic path of --point_size 63 --pallas: the flagship's twin trunks on
+[latent 256, NeRF PE 63] rows (seeded weights; seeded N(0, 0.25) rows made
+on the card, which the kernels' work does not depend on), a 128^3 pass in
+the generic evaluator's runs of 2^18 rows, beside the bf16 bound and, for
+the bf16 kernel, the launcher's plan (generic_bf16_card_plan; L2 tile bytes
+modelled); the error against the plain version on the first run.
+--probes builds the same copies of generic_decoder.cu (and GB_PROBE 16,
+the input-row fills left out).
 """
 
 from __future__ import annotations
@@ -50,10 +62,13 @@ BF16_PEAK_FLOPS = 989.4e12  # H100 SXM dense bf16 (data sheet)
 BF16_TIGHT = 1e-5
 CLASSES = 6
 PROBES = {1: "no products' wgmma", 2: "no epilogues", 8: "no ring", 10: "no epilogues, no ring"}
+GENERIC_PROBES = {**PROBES, 16: "no input-row fills",
+                  26: "no epilogues, no ring, no input-row fills"}
+GENERIC_RUN = 1 << 18  # rows a K6 launch, as the generic evaluator runs them
 CLOCKS = 32  # the GB_PROBE bit that clocks warpgroup 0's phases
 CLUSTERS = (1, 4)  # the cluster sizes the probes compare with the package's
 PHASES = ("products", "epilogues", "final rows", "set-up", "epilogue item waits",
-          "epilogue barriers and reloads")
+          "epilogue barriers and reloads", "input-row fills")
 
 
 def rigid(gen, count: int):
@@ -162,8 +177,8 @@ def float32_kernels(args, card: str) -> None:
               flush=True)
 
 
-def build_copies(flag_sets: dict) -> dict:
-    """grid_decoder.cu built with each entry's flags ({key: flags}),
+def build_copies(flag_sets: dict, source: str = "grid_decoder") -> dict:
+    """csrc/<source>.cu built with each entry's flags ({key: flags}),
     concurrently: {key: library path}."""
     from alignsdf_torch.kernels import build
 
@@ -171,9 +186,9 @@ def build_copies(flag_sets: dict) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     procs, paths = [], {}
     for key, flags in flag_sets.items():
-        paths[key] = os.path.join(out_dir, f"libgrid_decoder-{key}.so")
+        paths[key] = os.path.join(out_dir, f"lib{source}-{key}.so")
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", paths[key],
-               os.path.join(build.CSRC, "grid_decoder.cu")]
+               os.path.join(build.CSRC, f"{source}.cu")]
         procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), cmd))
     for proc, cmd in procs:
@@ -186,7 +201,7 @@ def build_copies(flag_sets: dict) -> dict:
 def bf16_kernel(args, card: str, label: str) -> None:
     import torch
 
-    from alignsdf_torch.kernels import build, grid_decoder as gd
+    from alignsdf_torch.kernels import grid_decoder as gd
 
     n, total = args.n, args.n ** 3
     origin = torch.full((3,), -1.0, device="cuda")
@@ -220,44 +235,119 @@ def bf16_kernel(args, card: str, label: str) -> None:
               f"{float(err.max()):.3e} (logits over their largest), share beyond "
               f"{BF16_TIGHT:g} {beyond:.5f}{l2}", flush=True)
         runs[classes] = plan
-    if not args.probes:
-        return
-    plan = runs[0]
-    own = build.load("grid_decoder")
+    if args.probes:
+        run_probes(card, label, "grid_decoder", "K1 bf16 at 2 rows", PROBES,
+                   lambda: pass_ms(gd.grid_decode, runs[0], n, origin, voxel, args.reps),
+                   lambda: gd.grid_decode(runs[0], 0, RUN, origin, voxel),
+                   lambda: pass_ms(gd.grid_decode, runs[0], n, origin, voxel, 1))
+
+
+def run_probes(card: str, label: str, source: str, what: str, probes: dict, timed, one_run,
+               clocked) -> None:
+    """The --probes copies of csrc/<source>.cu: clusters of 1 and 4 timed in
+    turn with the package's clusters of 2 (``timed()``: a pass's ms), each
+    GB_PROBE copy of ``probes``, then the clocked copy (``one_run()`` warms
+    it up, ``clocked()`` times a pass whose phase cycles it prints)."""
+    import torch
+
+    from alignsdf_torch.kernels import build
+
+    own = build.load(source)
     paths = build_copies({**{f"cluster{c}": (f"-DGB_CLUSTER={c}",) for c in CLUSTERS},
                           **{f"probe{mask}": (f"-DGB_PROBE={mask}",)
-                             for mask in [*PROBES, CLOCKS]}})
+                             for mask in [*probes, CLOCKS]}}, source)
     copies = {c: ctypes.CDLL(paths[f"cluster{c}"]) for c in CLUSTERS}
     order = [(2, own), *[(c, copies[c]) for c in CLUSTERS],
              *[(c, copies[c]) for c in reversed(CLUSTERS)], (2, own)]
     for cs, lib in order:
-        build._loaded["grid_decoder"] = lib
-        ms = pass_ms(gd.grid_decode, plan, n, origin, voxel, args.reps)
-        print(f"[{card}] {label} clusters of {cs} K1 bf16 at 2 rows: {n}^3 pass {ms:.2f} ms",
-              flush=True)
-    for mask, what in PROBES.items():
-        build._loaded["grid_decoder"] = ctypes.CDLL(paths[f"probe{mask}"])
-        ms = pass_ms(gd.grid_decode, plan, n, origin, voxel, args.reps)
-        print(f"[{card}] {label} probe {mask} ({what}) K1 bf16 at 2 rows: {n}^3 pass {ms:.2f} ms",
-              flush=True)
+        build._loaded[source] = lib
+        print(f"[{card}] {label} clusters of {cs} {what}: pass {timed():.2f} ms", flush=True)
+    for mask, part in probes.items():
+        build._loaded[source] = ctypes.CDLL(paths[f"probe{mask}"])
+        print(f"[{card}] {label} probe {mask} ({part}) {what}: pass {timed():.2f} ms", flush=True)
     lib = ctypes.CDLL(paths[f"probe{CLOCKS}"])
-    build._loaded["grid_decoder"] = lib
+    build._loaded[source] = lib
     lib.gb_read_cycles.restype = ctypes.c_int
     lib.gb_read_cycles.argtypes = [ctypes.c_void_p]
     cycles = (ctypes.c_ulonglong * (len(PHASES) + 1))()
-    gd.grid_decode(plan, 0, RUN, origin, voxel)
+    one_run()
     torch.cuda.synchronize()
     lib.gb_read_cycles(cycles)  # drops the warm-up's
-    ms = pass_ms(gd.grid_decode, plan, n, origin, voxel, 1)  # a warm-up pass and one timed
+    ms = clocked()  # a warm-up pass and one timed
     if lib.gb_read_cycles(cycles) != 0:
         raise RuntimeError("reading the phase clocks failed")
     total_cycles = sum(cycles[:len(PHASES)])
-    print(f"[{card}] {label} K1 bf16 phases (shares of warpgroup 0's cycles on thread 0 of every "
+    print(f"[{card}] {label} {what} phases (shares of warpgroup 0's cycles on thread 0 of every "
           f"block; the clocked copy's pass {ms:.2f} ms): "
           + ", ".join(f"{ph} {c / total_cycles:.3f}" for ph, c in zip(PHASES, cycles))
           + f"; against the same cycles: the producer's slot waits "
           f"{cycles[len(PHASES)] / total_cycles:.3f}", flush=True)
-    build._loaded["grid_decoder"] = own
+    build._loaded[source] = own
+
+
+def generic_kernel(args, card: str, label: str) -> None:
+    """K6 at --point_size 63 per 128^3 pass in runs of GENERIC_RUN rows."""
+    import torch
+
+    from alignsdf_torch.config import NetworkSpecs, Specs
+    from alignsdf_torch.kernels import generic_decoder as gk
+    from alignsdf_torch.models.decoder import make_decoder
+    from alignsdf_torch.ops.decoder_plan import make_generic_plan
+
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    specs = Specs(encode_style="nerf", point_feat_size=63, latent_size=256, mano_branch=True,
+                  object_pose_branch=True, sdf_scale_factor=7.0, network_specs=NetworkSpecs())
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        decoder = make_decoder("1encoder2decoder", 256, 63, "nerf", specs.network_specs).cuda()
+    plan = make_generic_plan(decoder, specs, dtype)
+    total = args.n ** 3
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = (torch.randn(total, 256 + 63, generator=gen, device="cuda") * 0.5).to(dtype)
+    runs = [rows[s:s + GENERIC_RUN] for s in range(0, total, GENERIC_RUN)]
+    out = gk.generic_decode(plan, runs[0], runs[0])
+    ref = gk.generic_decode_reference(plan, runs[0], runs[0])
+    err = torch.cat([(o - r).abs() for o, r in zip(out[:2], ref[:2])])
+    beyond = float((err > BF16_TIGHT).float().mean())
+    del out, ref
+
+    def one_pass():
+        for r in runs:
+            gk.generic_decode(plan, r, r)
+
+    def timed(reps: int) -> float:
+        one_pass()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            one_pass()
+            b.record()
+            torch.cuda.synchronize()
+            best = min(best, a.elapsed_time(b))
+        return best
+
+    flops = 2 * generic_macs(specs) * total
+    best = timed(args.reps)
+    l2 = ""
+    if args.bf16 and hasattr(gk, "generic_bf16_card_plan"):
+        p = gk.generic_bf16_card_plan(plan, GENERIC_RUN)
+        tile = p["cluster"] * p["points_a_block"]
+        tiles = sum(p["stream_bytes"] * -(-min(GENERIC_RUN, total - s) // tile)
+                    for s in range(0, total, GENERIC_RUN))
+        l2 = (f"; {p['points_a_block']} points a block, clusters of {p['cluster']}, "
+              f"{p['stream_bytes'] / 1e6:.3f} MB a tile's stream, tile bytes from L2 "
+              f"{tiles / 1e9:.2f} GB a pass (modelled, not measured)")
+    what = f"K6 {'bf16' if args.bf16 else 'float32'} at --point_size 63"
+    print(f"[{card}] {label} {what}: {args.n}^3 pass {best:.2f} ms (best of {args.reps} in runs "
+          f"of {GENERIC_RUN}; {flops / 1e12:.3f} TFLOP, {flops / best / 1e9:.1f} TFLOP/s; bf16 "
+          f"bound {flops / BF16_PEAK_FLOPS * 1e3:.2f} ms); vs plain: max abs err "
+          f"{float(err.max()):.3e}, share beyond {BF16_TIGHT:g} {beyond:.5f}{l2}", flush=True)
+    if args.probes and args.bf16:
+        run_probes(card, label, "generic_decoder", what, GENERIC_PROBES,
+                   lambda: timed(args.reps), lambda: gk.generic_decode(plan, runs[0], runs[0]),
+                   lambda: timed(1))
 
 
 def chip_flops(specs) -> int:
@@ -269,6 +359,14 @@ def chip_flops(specs) -> int:
     return chip_smoke.k1_flops_per_point(specs)
 
 
+def generic_macs(specs) -> int:
+    """K6's multiply-adds a point (chip_smoke.generic_macs_per_point)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    return chip_smoke.generic_macs_per_point(specs)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n", type=int, default=128)
@@ -277,6 +375,8 @@ def main() -> None:
     parser.add_argument("--repo", default=REPO, help="the checkout whose package to time")
     parser.add_argument("--probes", action="store_true",
                         help="with --bf16: also the cluster and GB_PROBE copies")
+    parser.add_argument("--generic", action="store_true",
+                        help="K6 at --point_size 63 (with --bf16: on bf16 plans)")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
     import torch
@@ -289,7 +389,9 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     label = os.path.relpath(os.path.abspath(args.repo), REPO)
-    if args.bf16:
+    if args.generic:
+        generic_kernel(args, card, label)
+    elif args.bf16:
         bf16_kernel(args, card, label)
     else:
         float32_kernels(args, card)
